@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """GPU smoke test of the PyTorch port (``src/repro_torch``).
 
-    python3 chip_smoke.py [--seed 0] [--phases build,parity,serve,async]
+    python3 chip_smoke.py [--seed 0]
+        [--phases build,parity,serve,serve_int8,async]
 
 Run from the repository root on a machine with one NVIDIA H100.  Phases,
 each printing one line (``phase=...``) and failing the run on any error:
 
-1. build  — compile the four CUDA kernels from ``src/repro_torch/csrc``
-   (one nvcc per source, all at once; an unchanged source is reused from
-   the build directory) and print the build seconds.
+1. build  — compile the CUDA kernels from ``src/repro_torch/csrc`` (one
+   nvcc per source, all at once; an unchanged source is reused from the
+   build directory) and print the build seconds and ptxas's registers.
 2. parity — hold each kernel against its plain PyTorch version on the card
    in bf16, at qwen2-0.5b shapes (Hq 14, Hkv 2, D 64) and llama3-8b shapes
    (Hq 32, Hkv 8, D 128), with bs 32, K 64, NB 256, B 8, scatter in both
@@ -19,23 +20,48 @@ each printing one line (``phase=...``) and failing the run on any error:
    sparse_decode_attention |err| <= 2e-3 + 1e-2 |ref| (both accumulate in
    float32 and round once to bf16, whose step is <= 2^-7 relative).  Two
    planted faults (cur_len one block short; one live selection's valid
-   flag cleared) must fail that tolerance.
+   flag cleared) must fail that tolerance.  flash_prefill at the serve
+   prefill's shape (q_offset 0, 4096 tokens) and as a chunk continuation
+   (1000 queries after 1000 context keys, neither a whole 64-row tile),
+   held per output element to |err| <= 1.25 * 2^-8 W + 2^-7 |ref|, where
+   W = sum_j p_j |v_j| / sum_j p_j is the plain version run on |v| (the
+   kernel rounds each weight p_j to bf16 before P V, <= 2^-8 W on that
+   element, bf16's unit roundoff being 2^-8; both sides round the output
+   once to bf16, one step <= 2^-7 |ref|); three planted faults (q_offset one too large; the last key
+   dropped; one interior key tile hidden from the queries of the window's
+   second half) must fail it.  The quant trio bit-exact (an all-zero
+   block included), and the int8 tier's block moves: gather from a pinned
+   int8 pool and from its float32 scale plane, write_blocks_hkv back into
+   both.  A move from or to pinned memory is also bounded by the PCIe
+   link: a contiguous pinned-to-device copy of the same bytes is timed
+   beside it (device-to-pinned for a write back).
 3. serve  — the port's ServingEngine, default config, on qwen2-0.5b at
    full width (24 layers, bf16, random weights from --seed): 4 requests of
    4096 prompt tokens and 32 new tokens, wall-clock charging.  Asserts
-   every request finished with finite logits, that each kernel was
-   launched on this path, and that H2D restores and D2H saves happened.
-   The inputs of one launch of each kernel (and of each scatter mode) from
-   the decode step halfway through the run, when all 4 requests decode
-   together, are kept.
-4. mainpath — those kept launches replayed: each kernel against its plain
-   version at the serve path's own shapes, modes and data, with the
-   tolerances of phase 2.  The kernels' JSON record takes its times and
-   bounds from here.
-5. async  — the same submissions at full width and 4 layers with
-   stage_dispatch "async" and "sync": greedy tokens and transfer counters
-   must be identical.
-6. profile (only when named in --phases) — the serve run again under
+   every request finished with finite logits, that each kernel of the fp
+   path (the four decode kernels and flash_prefill) was launched, and that
+   H2D restores and D2H saves happened.  The inputs of the first
+   flash_prefill launch and of one launch of each other kernel (and of
+   each scatter mode) from the decode step halfway through the run, when
+   all 4 requests decode together, are kept.  Then the same run with
+   flash_prefill's plain version in the kernel's place, for the TTFT
+   before the kernel (the kernel is replaced by an explicit patch of
+   this script, not by the port).
+4. serve_int8 — the same model, width and submissions with
+   offload_quant="int8".  Asserts finished requests with finite logits,
+   that flash_prefill and the three quant kernels launched, and that the
+   wire bytes per moved block are >= 1.8x smaller than the fp serve's;
+   prints the first 8 tokens of each request beside the fp run's.  Its
+   quant and int8-move launches from the middle decode step are kept, the
+   gathers once for the restore (FlashH2D) and once for the save's flush.
+5. mainpath — the kept launches of both serves replayed: each kernel
+   against its plain version at the serve paths' own shapes, modes and
+   data, with the tolerances of phase 2.  The kernels' JSON record takes
+   its times and bounds from here.
+6. async  — the same submissions at full width and 4 layers with
+   stage_dispatch "async" and "sync", fp and int8: greedy tokens and
+   transfer counters must be identical.
+7. profile (only when named in --phases) — the serve run again under
    torch.profiler: device busy time, idle share, largest device consumers.
 
 Before the last line it prints the kernels' JSON record and the card's
@@ -56,7 +82,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM HBM3 (data sheet)
 BF16_OPS_PER_S = 989e12              # H100 SXM dense bf16 tensor peak
-PHASES = ("build", "parity", "serve", "async")
+PHASES = ("build", "parity", "serve", "serve_int8", "async")
 
 KERNELS = {   # name -> (source in this repo, the TPU kernel it replaces)
     "sparse_decode_attention": (
@@ -68,11 +94,41 @@ KERNELS = {   # name -> (source in this repo, the TPU kernel it replaces)
                           "src/repro/kernels/gather_blocks.py:57"),
     "scatter_blocks_hkv": ("src/repro_torch/csrc/scatter_blocks.cu",
                            "src/repro/kernels/scatter_blocks.py:61"),
+    # the byte-for-byte instance of scatter_blocks_hkv, into pinned memory
+    "write_blocks_hkv": ("src/repro_torch/csrc/scatter_blocks.cu",
+                         "src/repro/kernels/scatter_blocks.py:61"),
+    "flash_prefill": ("src/repro_torch/csrc/flash_prefill.cu",
+                      "src/repro/kernels/flash_prefill.py:71"),
+    "quantize_blocks": ("src/repro_torch/csrc/quant_blocks.cu",
+                        "src/repro/kernels/quant_blocks.py:51"),
+    "dequantize_blocks": ("src/repro_torch/csrc/quant_blocks.cu",
+                          "src/repro/kernels/quant_blocks.py:86"),
+    "dequantize_scatter_blocks": ("src/repro_torch/csrc/quant_blocks.cu",
+                                  "src/repro/kernels/quant_blocks.py:117"),
+}
+# the kernels each serve path must launch
+FP_PATH = ("sparse_decode_attention", "block_score", "gather_blocks_hkv",
+           "scatter_blocks_hkv", "flash_prefill")
+INT8_PATH = FP_PATH + ("write_blocks_hkv", "quantize_blocks",
+                       "dequantize_blocks", "dequantize_scatter_blocks")
+# one PyTorch call computing the same function, where there is one; else
+# why not (printed, and null in the JSON record)
+NO_LIBRARY = {
+    "sparse_decode_attention": "block-sparse attention over selected ids",
+    "block_score": "the interleaved cuboid bound",
+    "gather_blocks_hkv": "a gather from pinned host memory in place",
+    "scatter_blocks_hkv": "a cast-and-scatter into a paged pool",
+    "write_blocks_hkv": "a block scatter into pinned memory in place",
+    "quantize_blocks": "per-block amax, scale and round in one call",
+    "dequantize_scatter_blocks": "a dequantize-and-scatter into a pool",
 }
 SHAPES = {"qwen2-0.5b": dict(Hq=14, Hkv=2, D=64),
           "llama3-8b": dict(Hq=32, Hkv=8, D=128)}
 B, BS, K, NB = 8, 32, 64, 256
 ATTN_ATOL, ATTN_RTOL = 2e-3, 1e-2
+# flash_prefill, per output element: FLASH_WEIGHT_TOL * W + FLASH_RTOL *
+# |ref|, W = sum_j p_j |v_j| / sum_j p_j (the plain version run on |v|)
+FLASH_WEIGHT_TOL, FLASH_RTOL = 1.25 * 2.0 ** -8, 2.0 ** -7
 SCORE_ATOL, SCORE_RTOL = 1e-3, 1e-4
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 4, 4096, 32
 
@@ -159,22 +215,26 @@ def case_score(torch, ops, ref, q, meta):
 
 
 def case_gather(torch, ops, ref, pool, idx):
-    """pool on the card or pinned on the host; idx on the card."""
+    """pool on the card or pinned on the host; idx on the card.  From a
+    pinned pool the blocks cross the PCIe link: the case carries a
+    host-to-device link bound for them."""
     idx_p = idx.to(pool.device)
     out = ops.gather_blocks_hkv(pool, idx)
     want = ref.gather_blocks_hkv(pool, idx_p).to(idx.device)
     torch.cuda.synchronize()
     H, NB, bs, D = pool.shape
     K = idx.shape[0]
+    moved = H * K * bs * D * pool.element_size()
+    on_host = pool.device.type == "cpu"
     return ((out.float() - want.float()).abs().max().item(),
             bool(torch.equal(out, want)),
             lambda: ops.gather_blocks_hkv(pool, idx),
             lambda: ref.gather_blocks_hkv(pool, idx_p).to(
                 idx.device, non_blocking=True),
-            2 * H * K * bs * D * pool.element_size() + K * 4, 0,
+            2 * moved + K * 4, 0,
             f"pool=({H},{NB},{bs},{D}) {str(pool.dtype)[6:]} "
-            f"{'pinned host' if pool.device.type == 'cpu' else 'device'} "
-            f"K={K}")
+            f"{'pinned host' if on_host else 'device'} K={K}",
+            None, ("h2d", moved) if on_host else None)
 
 
 def case_scatter(torch, ops, ref, pool, payload, dest, rows=None):
@@ -193,20 +253,166 @@ def case_scatter(torch, ops, ref, pool, payload, dest, rows=None):
             f"{str(payload.dtype)[6:]} rows={'none' if rows is None else K}")
 
 
+def case_write(torch, ops, ref, pool, payload, dest):
+    """write_blocks_hkv of a device payload into a pinned host pool (the
+    int8 tier's write back); the blocks cross the PCIe link."""
+    got = pool.clone().pin_memory()
+    ops.write_blocks_hkv(got, payload, dest)
+    torch.cuda.synchronize()
+    want = ref.write_blocks_hkv(pool.clone(), payload.cpu(), dest.cpu())
+    pool_k = pool.clone().pin_memory()
+    pool_p = pool.clone()
+    H, K, bs, D = payload.shape
+    moved = H * K * bs * D * payload.element_size()
+    return ((got.float() - want.float()).abs().max().item(),
+            bool(torch.equal(got, want)),
+            lambda: ops.write_blocks_hkv(pool_k, payload, dest),
+            lambda: ref.write_blocks_hkv(pool_p, payload.cpu(), dest.cpu()),
+            2 * moved + K * 4, 0,
+            f"pool=({H},{pool.shape[1]},{bs},{D}) {str(pool.dtype)[6:]} "
+            f"pinned host payload=({H},{K},{bs},{D})",
+            None, ("d2h", moved))
+
+
+def _abs_weight(ref, q, k, v, **kw):
+    """W = sum_j p_j |v_j| / sum_j p_j for every output element, float32:
+    the plain version on |v| (the same weights p)."""
+    return ref.flash_prefill(q.float(), k.float(), v.float().abs(), **kw)
+
+
+def _flash_close(out, want, weight) -> tuple:
+    """Per output element, |err| <= FLASH_WEIGHT_TOL * W + FLASH_RTOL *
+    |ref|: rounding each weight to bf16 (unit roundoff 2^-8) moves the
+    element by <= 2^-8 W, the float32 scores, exponentials and sums by
+    far less (budgeted at 2^-10 W), and rounding both outputs to bf16 by
+    <= 2^-7 |ref| (one step, 2^-8 to 2^-7 of the value) plus 2^-8 of the
+    rest."""
+    err = (out.float() - want.float()).abs()
+    bound = FLASH_WEIGHT_TOL * weight + FLASH_RTOL * want.float().abs()
+    return err.max().item(), bool((err <= bound).all()), err / bound
+
+
+def _visible_pairs(Sq: int, Sk: int, q_offset: int) -> int:
+    """(query, key) pairs a causal prefill attends: sum_i min(Sk,
+    q_offset + i + 1)."""
+    return sum(min(Sk, q_offset + i + 1) for i in range(Sq))
+
+
+def case_flash(torch, ops, ref, q, k, v, *, scale, causal=True,
+               q_offset=0):
+    kw = dict(scale=scale, causal=causal, q_offset=q_offset)
+    out = ops.flash_prefill(q, k, v, **kw)
+    want = ref.flash_prefill(q, k, v, **kw)
+    weight = _abs_weight(ref, q, k, v, **kw)
+    err, ok, ratio = _flash_close(out, want, weight)
+    B, Sq, Hq, D = q.shape
+    _, Sk, Hkv, Dv = v.shape
+    at = torch.unravel_index(ratio.argmax(), ratio.shape)
+    log(f"flash_prefill B={B} Sq={Sq} Sk={Sk} Hq={Hq} D={D} "
+        f"q_offset={int(q_offset)} largest err/bound="
+        f"{ratio[at].item():.4f} at query {int(at[1])} (|ref| "
+        f"{want[at].float().abs().item():.4g}, W {weight[at].item():.4g})")
+    nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * 2
+    nops = 2 * B * Hq * (D + Dv) * _visible_pairs(Sq, Sk, int(q_offset))
+    lib = None
+    if int(q_offset) == 0 and Sk == Sq:
+        import torch.nn.functional as F
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        lib = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True)
+    return (err, ok, lambda: ops.flash_prefill(q, k, v, **kw),
+            lambda: ref.flash_prefill(q, k, v, **kw), nbytes, nops,
+            f"B={B} Sq={Sq} Sk={Sk} Hq={Hq} Hkv={Hkv} D={D} "
+            f"q_offset={int(q_offset)}", lib)
+
+
+def case_quantize(torch, ops, ref, blocks):
+    q, s = ops.quantize_blocks(blocks)
+    q_r, s_r = ref.quantize_blocks(blocks)
+    torch.cuda.synchronize()
+    err = max((q.float() - q_r.float()).abs().max().item(),
+              (s - s_r).abs().max().item())
+    H, K, bs, D = blocks.shape
+    return (err, bool(torch.equal(q, q_r) and torch.equal(s, s_r)),
+            lambda: ops.quantize_blocks(blocks),
+            lambda: ref.quantize_blocks(blocks),
+            blocks.numel() * (blocks.element_size() + 1) + H * K * 4, 0,
+            f"blocks=({H},{K},{bs},{D}) {str(blocks.dtype)[6:]}")
+
+
+def case_dequantize(torch, ops, ref, q, scales):
+    out = ops.dequantize_blocks(q, scales)
+    want = ref.dequantize_blocks(q, scales)
+    torch.cuda.synchronize()
+    H, K, bs, D = q.shape
+    s4 = scales[..., None, None]
+    return ((out - want).abs().max().item(), bool(torch.equal(out, want)),
+            lambda: ops.dequantize_blocks(q, scales),
+            lambda: ref.dequantize_blocks(q, scales),
+            q.numel() * 5 + H * K * 4, 0, f"q=({H},{K},{bs},{D})",
+            lambda: torch.mul(q, s4))
+
+
+def case_dequant_scatter(torch, ops, ref, pool, q, scales, dest,
+                         rows=None):
+    got = ops.dequantize_scatter_blocks(pool.clone(), q, scales, dest, rows)
+    want = ref.dequantize_scatter_blocks(pool.clone(), q, scales, dest,
+                                         rows)
+    torch.cuda.synchronize()
+    pool_k, pool_p = pool.clone(), pool.clone()
+    H, K, bs, D = q.shape
+    return ((got.float() - want.float()).abs().max().item(),
+            bool(torch.equal(got, want)),
+            lambda: ops.dequantize_scatter_blocks(pool_k, q, scales, dest,
+                                                  rows),
+            lambda: ref.dequantize_scatter_blocks(pool_p, q, scales, dest,
+                                                  rows),
+            q.numel() * (1 + pool.element_size()) + H * K * 4
+            + K * 4 * (1 if rows is None else 2), 0,
+            f"pool={tuple(pool.shape)} q=({H},{K},{bs},{D}) "
+            f"rows={'none' if rows is None else K}")
+
+
+def link_copy(torch, direction: str, nbytes: int):
+    """A contiguous copy of ``nbytes`` over the PCIe link, pinned host to
+    device ("h2d") or device to pinned host ("d2h")."""
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    if direction == "h2d":
+        return lambda: dev.copy_(host, non_blocking=True)
+    return lambda: host.copy_(dev, non_blocking=True)
+
+
 def run_case(phase: str, label: str, name: str, case: tuple,
              timer) -> dict:
-    """Time one case, print its line, fail on disagreement."""
-    err, ok, kfn, pfn, nbytes, nops, shape = case
+    """Time one case, print its line, fail on disagreement.  A case is
+    (max_abs_err, ok, kernel fn, plain fn, bytes, ops, shape[, library fn
+    or None[, (link direction, bytes) or None]])."""
+    err, ok, kfn, pfn, nbytes, nops, shape, *extra = case
+    lib_fn = extra[0] if extra else None
+    link = extra[1] if len(extra) > 1 else None
     k_ms, p_ms = timer(kfn), timer(pfn)
+    lib_ms = timer(lib_fn) if lib_fn is not None else None
     b_ms, b_by = bound_ms(nbytes, nops)
-    log(f"phase={phase} {label} kernel={name} ok={ok} max_abs_err={err:.3e} "
-        f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms=None "
-        f"bound_ms={b_ms:.4f} bound_by={b_by} shape=[{shape}]")
+    res = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+           "shape": shape}
+    line = (f"phase={phase} {label} kernel={name} ok={ok} "
+            f"max_abs_err={err:.3e} kernel_ms={k_ms:.4f} "
+            f"plain_ms={p_ms:.4f} library_ms="
+            + (f"{lib_ms:.4f}" if lib_ms is not None
+               else f"None({NO_LIBRARY.get(name, 'no single call')})")
+            + f" bound_ms={b_ms:.4f} bound_by={b_by}")
+    if link is not None:
+        res["link_bound_ms"] = timer(link_copy(timer.torch, *link))
+        res["binds"] = "link" if res["link_bound_ms"] > b_ms else "hbm"
+        line += (f" link_bound_ms={res['link_bound_ms']:.4f} "
+                 f"({link[0]} copy of {link[1]} B) binds={res['binds']}")
+    log(line + f" shape=[{shape}]")
     if not ok:
         raise AssertionError(f"{name} disagrees with its plain version "
                              f"({phase} {label}, max abs err {err})")
-    return {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "shape": shape}
+    return res
 
 
 def planted_faults(torch, ops, ref, q, k_pool, v_pool, idx, valid, cur_len,
@@ -231,6 +437,74 @@ def planted_faults(torch, ops, ref, q, k_pool, v_pool, idx, valid, cur_len,
         if ok:
             raise AssertionError(f"planted fault {label} passed the "
                                  f"attention tolerance at {arch} shapes")
+
+
+def _probe(q, k, v, qi: int, kj: int, scale: float) -> tuple:
+    """Plant key ``kj`` so that query row ``qi`` (the first head of each
+    GQA group) puts nearly all its weight on it (score 30), with value 8:
+    a kernel that shows that key to that query, or hides it, wrongly moves
+    the output by O(1)."""
+    k, v = k.clone(), v.clone()
+    G = q.shape[2] // k.shape[2]
+    qh = q[:, qi, ::G].float()                          # (B, Hkv, D)
+    k[:, kj] = (qh * (30.0 / (scale * (qh * qh).sum(-1, keepdim=True)))
+                ).to(k.dtype)
+    v[:, kj] = 8.0
+    return k, v
+
+
+def _late_tile_dropped(torch, ops, q, k, v, kw, q_offset: int):
+    """The kernel's output with the key tile [k0, k0 + 64) hidden from the
+    queries of the window's second half only (the heavy query tiles, each
+    of which sees all of that tile): a fault in a few late rows' long
+    sums, which moves each such row by ~64 / n of its values' spread."""
+    Sq = q.shape[1]
+    h = Sq // 2 // 64 * 64
+    k0 = (q_offset + h) // 2 // 64 * 64
+    assert k0 + 64 <= q_offset + h, "every late query must see the tile"
+
+    def cut(x):
+        return torch.cat([x[:, :k0], x[:, k0 + 64:]], dim=1).contiguous()
+    out = ops.flash_prefill(q, k, v, q_offset=q_offset, **kw)
+    # among the cut keys, the query at position p sees those up to p - 64
+    out[:, h:] = ops.flash_prefill(q[:, h:].contiguous(), cut(k), cut(v),
+                                   q_offset=q_offset + h - 64, **kw)
+    return out
+
+
+def flash_faults(torch, ops, ref, q, k, v, scale, q_offset, label) -> None:
+    """The flash tolerance must reject a kernel that places the window one
+    position late (query 0 then sees the key after its own), drops the
+    last key (which only the last query sees), or skips one interior key
+    tile for the late query tiles only: each runs through the kernel on
+    probed or cut inputs and is held against the plain version on the
+    true ones."""
+    Sq, Sk = q.shape[1], k.shape[1]
+    kw = dict(scale=scale, causal=True)
+    faults = []
+    kp, vp = _probe(q, k, v, 0, q_offset + 1, scale)
+    faults.append(("q_offset_plus_one",
+                   ops.flash_prefill(q, kp, vp, q_offset=q_offset + 1, **kw),
+                   (q, kp, vp)))
+    kp, vp = _probe(q, k, v, Sq - 1, Sk - 1, scale)
+    faults.append(("last_key_dropped",
+                   ops.flash_prefill(q, kp[:, :-1].contiguous(),
+                                     vp[:, :-1].contiguous(),
+                                     q_offset=q_offset, **kw),
+                   (q, kp, vp)))
+    faults.append(("late_tile_dropped",
+                   _late_tile_dropped(torch, ops, q, k, v, kw, q_offset),
+                   (q, k, v)))
+    for fault, out, true in faults:
+        want = ref.flash_prefill(*true, q_offset=q_offset, **kw)
+        err, ok, ratio = _flash_close(out, want, _abs_weight(
+            ref, *true, q_offset=q_offset, **kw))
+        log(f"phase=parity {label} planted_fault={fault} "
+            f"max_abs_err={err:.3e} largest_err/bound="
+            f"{ratio.max().item():.3f} rejected={not ok}")
+        if ok:
+            raise AssertionError(f"planted fault {fault} passed the flash "
+                                 f"tolerance ({label})")
 
 
 def phase_parity(torch, ops, ref, timer, seed: int) -> dict:
@@ -296,6 +570,51 @@ def phase_parity(torch, ops, ref, timer, seed: int) -> dict:
         cases.append(("scatter_blocks_hkv", "mode=drop", case_scatter(
             torch, ops, ref, pool[3].clone(), randn(Hkv, K, BS, D), dest)))
 
+        # flash_prefill: the serve prefill's shape (q_offset 0), and a
+        # chunk continuation after 1000 context keys, 1000 queries (no
+        # whole 64-row tile)
+        scale = D ** -0.5
+        for mode, (Bf, Sq, q_off) in (
+                ("q_offset=0", (4 if arch == "qwen2-0.5b" else 1,
+                                SERVE_PROMPT, 0)),
+                ("ctx", (2, 1000, 1000))):
+            fq = randn(Bf, Sq, Hq, D)
+            fk, fv = randn(Bf, q_off + Sq, Hkv, D), randn(Bf, q_off + Sq,
+                                                          Hkv, D)
+            cases.append(("flash_prefill", f"mode={mode}", case_flash(
+                torch, ops, ref, fq, fk, fv, scale=scale, q_offset=q_off)))
+            flash_faults(torch, ops, ref, fq, fk, fv, scale, q_off,
+                         f"arch={arch} mode={mode}")
+
+        # the int8 tier: the quant trio (one all-zero block), then its
+        # block moves between the pinned int8 pool (and its float32 scale
+        # plane) and the card
+        x = (randn(Hkv, K, BS, D, dtype=torch.float32)
+             * torch.rand((Hkv, K, 1, 1), generator=gen, device=dev) * 4)
+        x[0, 5] = 0
+        cases.append(("quantize_blocks", "mode=f32",
+                      case_quantize(torch, ops, ref, x)))
+        cases.append(("quantize_blocks", "mode=bf16",
+                      case_quantize(torch, ops, ref, x.to(bf))))
+        xq, xs = ops.quantize_blocks(x)
+        cases.append(("dequantize_blocks", "",
+                      case_dequantize(torch, ops, ref, xq, xs)))
+        cases.append(("dequantize_scatter_blocks", "mode=rows",
+                      case_dequant_scatter(torch, ops, ref, pool, xq, xs,
+                                           dest, rows)))
+        host_q = torch.randint(-127, 128, (Hkv, NB, BS, D), generator=cpu_gen,
+                               dtype=torch.int8).pin_memory()
+        host_s = torch.rand((Hkv, NB, 1, 1), generator=cpu_gen).pin_memory()
+        cases.append(("gather_blocks_hkv", "mode=int8", case_gather(
+            torch, ops, ref, host_q, gidx.to(dev))))
+        cases.append(("gather_blocks_hkv", "mode=scales", case_gather(
+            torch, ops, ref, host_s, gidx.to(dev))))
+        cases.append(("write_blocks_hkv", "mode=int8",
+                      case_write(torch, ops, ref, host_q, xq, dest)))
+        cases.append(("write_blocks_hkv", "mode=scales",
+                      case_write(torch, ops, ref, host_s,
+                                 xs.view(Hkv, K, 1, 1), dest)))
+
         for name, mode, case in cases:
             label = f"arch={arch} {mode}".strip()
             results.setdefault(name, {})[label] = run_case(
@@ -304,17 +623,24 @@ def phase_parity(torch, ops, ref, timer, seed: int) -> dict:
 
 
 class MainPathCapture:
-    """While active, wraps the four kernel wrappers of ``ops`` to count
-    their calls per case (scatter splits into its restore mode, ``rows``,
-    and its drop mode, ``drop``) and to keep a copy of the inputs of one
-    launch per case: the first made from attention launch ``from_attn``
-    on (one attention launch per layer and decode step; the first decode
-    steps run fewer requests, as prefills finish one after another).  A
-    pinned host pool is kept by reference."""
+    """While active, wraps the kernel wrappers of ``ops`` to count their
+    calls per case (scatter splits into its restore mode ``rows`` and its
+    drop mode ``drop``; the int8 tier's write backs into ``int8`` payloads
+    and ``scales``; gather into the fp tier's blocks and the int8 tier's
+    payloads and scales, each by its call site: ``restore``, the FlashH2D
+    gather of ``HostPool.gather``, or ``flush``, the save's read of the
+    resident blocks) and to keep a copy of the inputs of one launch per
+    case: the first
+    flash_prefill launch, and for every other case the first made from
+    attention launch ``from_attn`` on (one attention launch per layer and
+    decode step; the first decode steps run fewer requests, as prefills
+    finish one after another).  ``keep`` limits the kept cases; a pinned
+    host pool is kept by reference."""
 
-    def __init__(self, torch, ops, from_attn: int):
+    def __init__(self, torch, ops, from_attn: int, keep=None):
         self.torch, self.ops = torch, ops
         self.from_attn = from_attn
+        self.keep = keep
         self.orig = {}
         self.calls = {}
         self.inputs = {}
@@ -334,65 +660,109 @@ class MainPathCapture:
             return a.clone()
         return a
 
+    def _key(self, name, args, caller: str):
+        torch = self.torch
+        if name == "gather_blocks_hkv":
+            pool = args[0]
+            if pool.dtype == torch.int8:
+                kind = "int8"
+            elif pool.shape[-1] == 1:
+                kind = "scales"
+            else:
+                return name
+            site = "flush" if "flush" in caller else "restore"
+            return f"{name}:{kind}_{site}"
+        if name == "write_blocks_hkv":
+            kind = "int8" if args[1].dtype == torch.int8 else "scales"
+            return f"{name}:{kind}"
+        if name == "scatter_blocks_hkv":
+            rows = args[3] if len(args) > 3 else None
+            return f"{name}:{'drop' if rows is None else 'rows'}"
+        return name
+
     def _wrap(self, name, fn):
-        def wrapped(*args):
-            key = name
-            if name == "scatter_blocks_hkv":
-                rows = args[3] if len(args) > 3 else None
-                key = f"{name}:{'drop' if rows is None else 'rows'}"
+        def wrapped(*args, **kw):
+            # the wrapper's caller names the call site
+            key = self._key(name, args, sys._getframe(1).f_code.co_name)
             self.calls[key] = self.calls.get(key, 0) + 1
-            if (self.calls.get("sparse_decode_attention", 0)
-                    >= self.from_attn and key not in self.inputs):
-                self.inputs[key] = tuple(self._keep(a) for a in args)
-            return fn(*args)
+            due = (name == "flash_prefill"
+                   or self.calls.get("sparse_decode_attention", 0)
+                   >= self.from_attn)
+            if (due and key not in self.inputs
+                    and (self.keep is None or key in self.keep)):
+                self.inputs[key] = (tuple(self._keep(a) for a in args),
+                                    {k: self._keep(v) for k, v in kw.items()})
+            return fn(*args, **kw)
         return wrapped
 
 
-def phase_mainpath(torch, ops, ref, timer, cap: MainPathCapture) -> dict:
-    """Replay the kept main-path launches: {kernel: {case: result}}."""
+def phase_mainpath(torch, ops, ref, timer, caps: dict) -> dict:
+    """Replay the kept main-path launches of each serve path ({path:
+    MainPathCapture}): {kernel: {case: result}}."""
     makers = {"sparse_decode_attention": case_attention,
               "block_score": case_score,
               "gather_blocks_hkv": case_gather,
-              "scatter_blocks_hkv": case_scatter}
+              "scatter_blocks_hkv": case_scatter,
+              "write_blocks_hkv": case_write,
+              "flash_prefill": case_flash,
+              "quantize_blocks": case_quantize,
+              "dequantize_blocks": case_dequantize,
+              "dequantize_scatter_blocks": case_dequant_scatter}
     results = {}
-    for key, args in sorted(cap.inputs.items()):
-        name = key.split(":")[0]
-        mode = key.split(":")[1] if ":" in key else ""
-        label = f"mode={mode}".strip() if mode else "serve"
-        res = run_case("mainpath", label, name,
-                       makers[name](torch, ops, ref, *args), timer)
-        res["launches"] = cap.calls[key]
-        results.setdefault(name, {})[label] = res
-    missing = set(ops.launches.NAMES) - set(results)
-    if missing:
-        raise AssertionError(f"no mid-run launch kept for {missing}")
+    for path, cap in caps.items():
+        for key, (args, kw) in sorted(cap.inputs.items()):
+            name = key.split(":")[0]
+            mode = key.split(":")[1] if ":" in key else ""
+            label = f"path={path}" + (f" mode={mode}" if mode else "")
+            res = run_case("mainpath", label, name,
+                           makers[name](torch, ops, ref, *args, **kw), timer)
+            res["launches"] = cap.calls[key]
+            results.setdefault(name, {})[label] = res
+        want = (FP_PATH if cap.keep is None
+                else {k.split(":")[0] for k in cap.keep})
+        missing = set(want) - {k.split(":")[0] for k in cap.inputs}
+        if missing:
+            raise AssertionError(f"{path}: no launch kept for {missing}")
     return results
 
 
 def kernel_records(parity: dict, mainpath: dict, counts: dict) -> list:
-    """The kernels' JSON record: times and bound from the main-path replay
-    (for scatter, the mode with the most launches; every case is listed
-    under "cases"), else from the qwen2-0.5b parity case; max_abs_err over
-    every case."""
+    """The kernels' JSON record: times and bounds from the main-path
+    replay of the path that owns the kernel (for a kernel with several
+    cases there, the one with the most launches; every case is listed
+    under "cases"), else from the qwen2-0.5b parity case; max_abs_err
+    over every case.  ``counts``:
+    {path: launches by kernel}; a kernel's ``launches`` come from the
+    path that owns it (the int8 serve for the quant trio, the fp serve
+    for the rest)."""
     records = []
     for name in KERNELS:
         cases = mainpath.get(name) or parity.get(name, {})
         if not cases:
             continue
-        lead = max(cases.values(), key=lambda r: r.get("launches", 0))
+        owner = "serve" if name in FP_PATH else "serve_int8"
+        own = {label: r for label, r in cases.items()
+               if label.split()[0] == f"path={owner}"} or cases
+        lead = max(own.values(), key=lambda r: r.get("launches", 0))
         every = list(parity.get(name, {}).values()) + list(
             mainpath.get(name, {}).values())
-        records.append({
+        rec = {
             "name": name, "route": "cuda", "source": KERNELS[name][0],
-            "replaces": KERNELS[name][1], "launches": counts.get(name, 0),
+            "replaces": KERNELS[name][1],
+            "launches": counts.get(owner, {}).get(name, 0),
             "max_abs_err": max(r["max_abs_err"] for r in every),
             "ms": lead["ms"], "plain_ms": lead["plain_ms"],
             "bound_ms": lead["bound_ms"], "bound_by": lead["bound_by"],
-            "library_ms": None,
-            "cases": {label: {k: r[k] for k in ("shape", "ms", "plain_ms",
-                                                "bound_ms", "launches")
-                              if k in r}
-                      for label, r in cases.items()}})
+            "library_ms": lead["library_ms"],
+            "launches_by_path": {path: c.get(name, 0)
+                                 for path, c in counts.items()},
+            "cases": {label: {k: r[k] for k in (
+                "shape", "ms", "plain_ms", "bound_ms", "library_ms",
+                "link_bound_ms", "binds", "launches") if k in r}
+                for label, r in cases.items()}}
+        if "link_bound_ms" in lead:
+            rec["link_bound_ms"] = lead["link_bound_ms"]
+        records.append(rec)
     return records
 
 
@@ -408,9 +778,11 @@ def _submit_all(eng, Request, cfg, np, seed: int, n: int, prompt: int,
     return ids
 
 
-def _serve_qwen2(torch, np, seed: int, **engine_kw):
-    """The port's engine on qwen2-0.5b at full width, 4 x 4096-token
-    prompts, 32 new tokens each, submitted (not yet run)."""
+def _serve_qwen2(torch, np, seed: int, n=None, gen_tokens=None,
+                 **engine_kw):
+    """The port's engine on qwen2-0.5b at full width, ``n`` (default 4) x
+    4096-token prompts, ``gen_tokens`` (default 32) new tokens each,
+    submitted (not yet run)."""
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
     from repro_torch.serving.engine import EngineConfig, ServingEngine
@@ -419,53 +791,135 @@ def _serve_qwen2(torch, np, seed: int, **engine_kw):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     params = M.init_params(cfg, gen, torch.bfloat16, "cuda")
     eng = ServingEngine(params, cfg, EngineConfig(seed=seed, **engine_kw))
-    ids = _submit_all(eng, Request, cfg, np, seed, SERVE_REQUESTS,
-                      SERVE_PROMPT, SERVE_NEW)
+    ids = _submit_all(eng, Request, cfg, np, seed, n or SERVE_REQUESTS,
+                      SERVE_PROMPT, gen_tokens or SERVE_NEW)
     torch.cuda.synchronize()
     return eng, ids
 
 
-def phase_serve(torch, np, ops, seed: int) -> tuple:
-    """Returns the launch counts of the run and its MainPathCapture."""
-    eng, ids = _serve_qwen2(torch, np, seed, charge_real_time=True)
+def _mid_decode_attn() -> int:
+    """The attention launch that opens the serve's middle decode step
+    (one launch per layer and step)."""
+    from repro_torch.configs import get_config
+    return get_config("qwen2-0.5b").num_layers * SERVE_NEW // 2
+
+
+def _run_serve(torch, np, ops, seed: int, path: str, want: tuple,
+               cap=None, **engine_kw) -> dict:
+    """One full-width qwen2-0.5b serve (wall-clock charging), the launch
+    counts set to 0 just before it and read just after; checks that every
+    request finished with finite logits, that H2D restores and D2H saves
+    happened and that every kernel of ``want`` launched.  Returns a
+    summary."""
+    eng, ids = _serve_qwen2(torch, np, seed, charge_real_time=True,
+                            **engine_kw)
     torch.cuda.reset_peak_memory_stats()
-    from_attn = eng.cfg.num_layers * SERVE_NEW // 2    # a mid-run step
-    with MainPathCapture(torch, ops, from_attn) as cap:
-        ops.launches.reset()
-        t0 = time.perf_counter()
+    ops.launches.reset()
+    t0 = time.perf_counter()
+    if cap is not None:
+        with cap:
+            m = eng.run()
+    else:
         m = eng.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = ops.launches.snapshot()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launches.snapshot()
     for rid in ids:
         st = eng.states[rid]
         if len(st.out_tokens) != SERVE_NEW:
             raise AssertionError(f"{rid}: {len(st.out_tokens)} tokens")
         if not bool(torch.isfinite(st.last_logits).all()):
             raise AssertionError(f"{rid}: non-finite logits")
-    missing = [k for k, c in counts.items() if c == 0]
+    missing = [k for k in want if counts[k] == 0]
     if missing:
-        raise AssertionError(f"kernels not launched on the serve path: "
+        raise AssertionError(f"kernels not launched on the {path} path: "
                              f"{missing}")
     s = eng.metrics_snapshot()
     if s["kv.h2d_calls"] <= 0 or s["kv.d2h_calls"] <= 0:
-        raise AssertionError("no H2D restore or no D2H save happened")
-    log(f"phase=serve model=qwen2-0.5b layers={eng.cfg.num_layers} "
+        raise AssertionError(f"{path}: no H2D restore or no D2H save")
+    wire = ((s["kv.h2d_bytes"] + s["kv.d2h_bytes"])
+            / (s["kv.h2d_blocks"] + s["kv.d2h_blocks"]))
+    log(f"phase={path} model=qwen2-0.5b layers={eng.cfg.num_layers} "
         f"requests={len(ids)} prompt={SERVE_PROMPT} new={SERVE_NEW} "
         f"finished={m.num_finished} wall_s={wall:.3f} "
         f"mean_ttft_ms={m.mean_ttft * 1e3:.2f} "
         f"mean_tbt_ms={m.mean_tbt * 1e3:.3f} "
         f"p99_tbt_ms={(m.p99_tbt or 0.0) * 1e3:.3f} "
-        f"tok_per_s={m.token_throughput:.1f} iterations={eng.iterations}")
-    log("phase=serve transfer " + " ".join(
+        f"tok_per_s={m.token_throughput:.1f} iterations={eng.iterations} "
+        f"wire_bytes_per_block={wire:.1f}")
+    log(f"phase={path} transfer " + " ".join(
         f"{k}={v:.0f}" for k, v in s.items()
         if k.startswith(("kv.", "plane."))))
-    log("phase=serve launches " + json.dumps(counts) + " by case "
-        + json.dumps(cap.calls))
-    log(f"phase=serve peak_mem_gb="
+    log(f"phase={path} launches " + json.dumps(counts)
+        + ("" if cap is None else " by case " + json.dumps(cap.calls)))
+    log(f"phase={path} peak_mem_gb="
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    out = {"counts": counts, "ttft": m.mean_ttft, "wire": wire,
+           "tokens": [eng.states[r].out_tokens for r in ids]}
     eng.close()
-    return counts, cap
+    return out
+
+
+def phase_serve(torch, np, ops, ref, seed: int) -> tuple:
+    """The fp serve (kept launches in the returned MainPathCapture), and
+    the TTFT before and after the flash_prefill kernel: after a short
+    warm-up serve (one request, 2 new tokens), the same run with
+    flash_prefill's plain version patched in, the kernel run (the main
+    path, captured), the kernel run again, the plain run again.  Returns
+    (the main run's summary, its capture)."""
+    warm, _ = _serve_qwen2(torch, np, seed, n=1, gen_tokens=2,
+                           charge_real_time=True)
+    warm.run()
+    torch.cuda.synchronize()
+    del warm                    # its weights would count in the peaks
+    kernel = ops.flash_prefill
+    plain_want = tuple(n for n in FP_PATH if n != "flash_prefill")
+
+    def run_plain(tag):
+        ops.flash_prefill = lambda q, k, v, **kw: ref.flash_prefill(
+            q, k, v, **kw)
+        try:
+            return _run_serve(torch, np, ops, seed, tag, plain_want)
+        finally:
+            ops.flash_prefill = kernel
+    cap = MainPathCapture(torch, ops, _mid_decode_attn())
+    plain = [run_plain("serve_plain_prefill_1")]
+    fp = _run_serve(torch, np, ops, seed, "serve", FP_PATH, cap)
+    again = _run_serve(torch, np, ops, seed, "serve_again", FP_PATH)
+    plain.append(run_plain("serve_plain_prefill_2"))
+    k_ttft = [fp["ttft"], again["ttft"]]
+    p_ttft = [r["ttft"] for r in plain]
+    log("phase=serve ttft_ms_kernel_prefill=" + ",".join(
+        f"{t * 1e3:.2f}" for t in k_ttft)
+        + " ttft_ms_plain_prefill=" + ",".join(
+            f"{t * 1e3:.2f}" for t in p_ttft)
+        + f" order=plain,kernel,kernel,plain "
+        f"mean_kernel_ms={sum(k_ttft) / 2e-3:.2f} "
+        f"mean_plain_ms={sum(p_ttft) / 2e-3:.2f}")
+    return fp, cap
+
+
+def phase_serve_int8(torch, np, ops, seed: int, fp: dict) -> tuple:
+    """The same serve with offload_quant="int8" (kept quant and int8-move
+    launches in the returned MainPathCapture); its wire bytes per moved
+    block must be >= 1.8x smaller than the fp serve's (``fp``'s)."""
+    cap = MainPathCapture(torch, ops, _mid_decode_attn(), keep={
+        "quantize_blocks", "dequantize_blocks", "dequantize_scatter_blocks",
+        "gather_blocks_hkv:int8_restore", "gather_blocks_hkv:scales_restore",
+        "gather_blocks_hkv:int8_flush", "gather_blocks_hkv:scales_flush",
+        "write_blocks_hkv:int8", "write_blocks_hkv:scales"})
+    q8 = _run_serve(torch, np, ops, seed, "serve_int8", INT8_PATH, cap,
+                    offload_quant="int8")
+    shrink = fp["wire"] / q8["wire"]
+    log(f"phase=serve_int8 wire_bytes_per_block fp={fp['wire']:.1f} "
+        f"int8={q8['wire']:.1f} shrink={shrink:.3f}")
+    for i, (a, b) in enumerate(zip(fp["tokens"], q8["tokens"])):
+        log(f"phase=serve_int8 request={i} first8_fp={a[:8]} "
+            f"first8_int8={b[:8]}")
+    if shrink < 1.8:
+        raise AssertionError(f"int8 tier moved only {shrink:.3f}x fewer "
+                             f"wire bytes per block than fp (needs 1.8x)")
+    return q8, cap
 
 
 def phase_profile(torch, np, seed: int) -> None:
@@ -507,30 +961,35 @@ def phase_async(torch, np, seed: int) -> None:
     cfg = dataclasses.replace(get_config("qwen2-0.5b"), num_layers=4)
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     params = M.init_params(cfg, gen, torch.bfloat16, "cuda")
-    out = {}
-    for mode in ("async", "sync"):
-        eng = ServingEngine(params, cfg, EngineConfig(stage_dispatch=mode,
-                                                      seed=seed))
-        ids = _submit_all(eng, Request, cfg, np, seed, SERVE_REQUESTS,
-                          SERVE_PROMPT, SERVE_NEW)
-        eng.run()
-        out[mode] = ([eng.states[r].out_tokens for r in ids],
-                     dataclasses.asdict(eng.transfer_stats()))
-    same = out["async"] == out["sync"]
-    log(f"phase=async layers=4 tokens_identical={same} "
-        f"h2d_calls={out['async'][1]['h2d_calls']} "
-        f"d2h_calls={out['async'][1]['d2h_calls']}")
-    if not same:
-        raise AssertionError("async and sync engines disagree")
+    for tier in ("none", "int8"):
+        out = {}
+        for mode in ("async", "sync"):
+            eng = ServingEngine(params, cfg, EngineConfig(
+                stage_dispatch=mode, seed=seed, offload_quant=tier))
+            ids = _submit_all(eng, Request, cfg, np, seed, SERVE_REQUESTS,
+                              SERVE_PROMPT, SERVE_NEW)
+            eng.run()
+            out[mode] = ([eng.states[r].out_tokens for r in ids],
+                         dataclasses.asdict(eng.transfer_stats()))
+        same = out["async"] == out["sync"]
+        log(f"phase=async layers=4 offload_quant={tier} "
+            f"tokens_identical={same} "
+            f"h2d_calls={out['async'][1]['h2d_calls']} "
+            f"d2h_calls={out['async'][1]['d2h_calls']} "
+            f"h2d_bytes={out['async'][1]['h2d_bytes']}")
+        if not same:
+            raise AssertionError(f"async and sync engines disagree "
+                                 f"(offload_quant={tier})")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma-separated subset of build,parity,serve,async"
-                         " (serve includes mainpath) plus the optional "
-                         "profile")
+                    help="comma-separated subset of build,parity,serve,"
+                         "serve_int8,async (serve and serve_int8 include "
+                         "their mainpath replays; serve_int8 needs serve) "
+                         "plus the optional profile")
     args = ap.parse_args()
     phases = args.phases.split(",")
     import numpy as np
@@ -556,13 +1015,18 @@ def main() -> int:
     log(f"phase=build seconds={secs:.1f} rebuilt={LIBS.rebuilt} "
         f"ptxas={json.dumps(regs)}")
     timer = Timer(torch)
-    parity, mainpath, counts = {}, {}, {}
+    parity, mainpath, counts, caps = {}, {}, {}, {}
     if "parity" in phases:
         parity = phase_parity(torch, ops, ref, timer, args.seed)
     if "serve" in phases:
-        counts, cap = phase_serve(torch, np, ops, args.seed)
-        mainpath = phase_mainpath(torch, ops, ref, timer, cap)
-        del cap
+        fp, caps["serve"] = phase_serve(torch, np, ops, ref, args.seed)
+        counts["serve"] = fp["counts"]
+        if "serve_int8" in phases:
+            q8, caps["serve_int8"] = phase_serve_int8(torch, np, ops,
+                                                      args.seed, fp)
+            counts["serve_int8"] = q8["counts"]
+        mainpath = phase_mainpath(torch, ops, ref, timer, caps)
+        caps.clear()
     records = kernel_records(parity, mainpath, counts)
     if "async" in phases:
         phase_async(torch, np, args.seed)

@@ -25,7 +25,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.device import HostCopy, host_to_device
+from repro_torch.core.kv_cache import QuantBlocks
+from repro_torch.device import host_to_device
 from repro_torch.kernels import ops
 from repro_torch.models import model as M
 
@@ -232,30 +233,16 @@ class DevicePoolPlane:
 
     # -- data plane: FlashH2D/D2H wiring ----------------------------------
 
-    def pool_layers(self) -> List[int]:
-        """Model-layer indices that hold paged attention pools."""
-        if self.state is None:
-            return []
-        return list(range(len(self.state["caches"])))
-
-    def new_token_kv(self, req_ids: List[str], prev_lens: Dict[str, int],
-                     layers: Optional[List[int]] = None
-                     ) -> Dict[int, Tuple[np.ndarray, Optional[np.ndarray]]]:
-        """The KV stripe this iteration appended, as host float32 arrays:
-        {model_layer: (k (R,Hkv,D), v (R,Hkv,D))}, rows ordered like
-        ``req_ids``."""
-        return {l: tuple(pending.wait()) for l, pending in
-                self.new_token_kv_async(req_ids, prev_lens, layers).items()}
-
     def new_token_kv_async(self, req_ids: List[str],
-                           prev_lens: Dict[str, int],
-                           layers: Optional[List[int]] = None
-                           ) -> Dict[int, HostCopy]:
-        """Launch the appended-KV stripe gathers and their copies to pinned
-        host memory WITHOUT a host sync; each value's ``wait()`` gives what
-        ``new_token_kv`` returns.  The gather makes a new tensor right after
-        the layer's select, so later in-place pool writes (restores, drops,
-        the next select) cannot reach the stripe."""
+                           prev_lens: Dict[str, int], layers: List[int],
+                           ship) -> Dict[int, Any]:
+        """Launch the gathers of the KV stripe this iteration appended and
+        hand each layer's to ``ship`` (``KVCacheManager.ship``) WITHOUT a
+        host sync: {model_layer: pending}, whose ``wait()`` gives (k
+        (R,Hkv,D), v (R,Hkv,D)) float32, rows ordered like ``req_ids``.
+        The gather makes a new tensor right after the layer's select, so
+        later in-place pool writes (restores, drops, the next select)
+        cannot reach the stripe."""
         bs = self.cfg.dsa.block_size
         dev = self.device
         pos = np.asarray([prev_lens[r] for r in req_ids], np.int64)
@@ -263,25 +250,27 @@ class DevicePoolPlane:
                               torch.int64)
         blk = host_to_device(pos // bs, dev, torch.int64)
         slot = host_to_device(pos % bs, dev, torch.int64)
-        out: Dict[int, HostCopy] = {}
-        for l in (self.pool_layers() if layers is None else layers):
+        out: Dict[int, Any] = {}
+        for l in layers:
             c = self.state["caches"][l]
             k = c["k"][rows, :, blk, slot].float()          # (R, Hkv, D)
             v = c["v"][rows, :, blk, slot].float()
-            self.d2h_readback_bytes += (k.numel() + v.numel()) * 4
-            out[l] = HostCopy(k, v)
+            out[l] = ship(k, v)
+            self.d2h_readback_bytes += out[l].host_bytes
         return out
 
     def restore_blocks_fused(self, layer: int,
                              payload_by_req: Dict[str, Tuple[List[int],
-                                                             torch.Tensor,
-                                                             Any]],
+                                                             Any, Any]],
                              before_use: bool = False) -> None:
         """Land one layer's fused FlashH2D payloads for the WHOLE batch
-        with one ``scatter_blocks_hkv`` launch per tensor, IN PLACE.
-        payload_by_req: {req_id: (blocks, k (Hkv,K,bs,D), v)}; the payloads
-        are cast to the pool dtype by the kernel.  before_use: the restore
-        lands between the layer's select and attend stages."""
+        with one launch per tensor, IN PLACE.  payload_by_req: {req_id:
+        (blocks, k, v)} with k/v float32 (Hkv,K,bs,D) blocks, cast to the
+        pool dtype by ``scatter_blocks_hkv``, or the int8 tier's
+        ``QuantBlocks`` (int8 payload and (Hkv,K) scales, both on the
+        device), dequantized into the pool by ``dequantize_scatter_blocks``.
+        before_use: the restore lands between the layer's select and
+        attend stages."""
         c = self.state["caches"][layer]
         rows_l: List[int] = []
         blks_l: List[int] = []
@@ -296,8 +285,14 @@ class DevicePoolPlane:
         dev = self.device
         rows = host_to_device(rows_l, dev)
         blks = host_to_device(blks_l, dev)
-        ops.scatter_blocks_hkv(c["k"], torch.cat(ks, dim=1), blks, rows)
-        ops.scatter_blocks_hkv(c["v"], torch.cat(vs, dim=1), blks, rows)
+        for pool, pays in ((c["k"], ks), (c["v"], vs)):
+            if isinstance(pays[0], QuantBlocks):
+                ops.dequantize_scatter_blocks(
+                    pool, torch.cat([p.q for p in pays], dim=1),
+                    torch.cat([p.scales for p in pays], dim=1), blks, rows)
+            else:
+                ops.scatter_blocks_hkv(pool, torch.cat(pays, dim=1), blks,
+                                       rows)
         self.blocks_restored += len(blks_l)
         if before_use:
             self.blocks_restored_before_use += len(blks_l)

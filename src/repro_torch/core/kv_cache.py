@@ -2,13 +2,17 @@
 
 Control plane: block-table bookkeeping, HBM LRU cache, transfer accounting
 (``KVGeometry``, ``TransferStats`` and ``HBMCache`` are copies of the
-reference's).  Data plane: one host block pool per request, a float32
-tensor that lies in pinned memory when the engine runs on the GPU.
-FlashH2D reads it IN PLACE through the ``gather_blocks_hkv`` kernel, so the
-gather is the host-to-device transfer; FlashD2H stages contiguous stripes
-and scatters them into the pool on the CPU (``flush``).  The pool stays
-float32, as the reference's numpy pool is, so every byte counter is the
-reference's.  Only the fp offload tier is ported (``quant="none"``).
+reference's).  Data plane: one host block pool per request, tensors that
+lie in pinned memory when the engine runs on the GPU.  FlashH2D reads them
+IN PLACE through the ``gather_blocks_hkv`` kernel, so the gather is the
+host-to-device transfer; FlashD2H stages contiguous stripes and scatters
+them into the pool at ``flush``.  The fp tier (``quant="none"``) keeps
+float32 pools, as the reference's numpy pools are, so every byte counter
+is the reference's.  The int8 tier (``quant="int8"``) keeps int8 pools
+with one float32 scale per (layer, kv-head, block) and requantizes each
+touched block at ``flush``: on the GPU through the quant kernels, on the
+CPU through their plain versions, writing the reference's bytes either
+way.
 
 Blocks are tracked per (layer, kv_head, block_id) — the paper's per-head
 granularity (Fig. 5, (H, N, D) layout) — so transfer sizes and hit rates
@@ -22,13 +26,11 @@ from __future__ import annotations
 import collections
 import dataclasses
 import time
-from typing import Dict, List, Optional, Tuple
-
-import numpy as np
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.device import host_to_device
+from repro_torch.device import HostCopy, OnDevice, host_to_device
 from repro_torch.kernels import ops
 from repro_torch.obs.tracing import NULL_TRACER
 
@@ -185,24 +187,38 @@ class HBMCache:
         return len(keys)
 
 
+QUANT_SCALE_BYTES = 4  # one f32 scale per (kv-head, block) per tensor
+
+
+
+class QuantBlocks(NamedTuple):
+    """Gathered blocks of the int8 tier: q (Hkv, K, bs, D) int8 and their
+    scales (Hkv, K) float32."""
+    q: torch.Tensor
+    scales: torch.Tensor
+
+
 class HostPool:
     """Host-DRAM block pool for ONE request (data plane).
 
-    K/V blocks live in float32 tensors shaped (L, Hkv, NB, bs, D), pinned
-    when ``device`` is a GPU.  Saving follows FlashD2H: the contiguous
-    per-iteration KV stripe is appended to a staging list in one "memcpy"
-    and scattered into blocks lazily (``flush``, numpy writes into the
-    tensors' memory, in place), mirroring the paper's CPU-assisted
-    two-phase save.  Gathering follows FlashH2D: ONE ``gather_blocks_hkv``
-    launch per (pool, layer) reads the fragmented blocks of the pinned
-    pool and lands them in device memory.
+    K/V blocks live in tensors shaped (L, Hkv, NB, bs, D), pinned when
+    ``device`` is a GPU: float32 in the fp tier, int8 with float32 scale
+    planes (L, Hkv, NB) (``k_scale``/``v_scale``) in the int8 tier.  Saving
+    follows FlashD2H: the contiguous per-iteration KV stripe is appended to
+    a staging list in one "memcpy" and scattered into blocks lazily
+    (``flush``), mirroring the paper's CPU-assisted two-phase save.  A
+    stripe lies where ``KVCacheManager.ship`` put it: in host memory, or
+    in the int8 tier on the GPU on the device (the save then never copies
+    fp data to the host).  Gathering follows
+    FlashH2D: ONE ``gather_blocks_hkv`` launch per (pool, layer) reads the
+    fragmented blocks of the pinned pool and lands them in device memory
+    (in the int8 tier, one more for the scales).
     """
 
     def __init__(self, geom: KVGeometry, num_blocks: int,
                  quant: str = "none", device="cpu"):
-        if quant != "none":
-            raise NotImplementedError(
-                f"HostPool: offload tier {quant!r} is not ported yet")
+        if quant not in ("none", "int8"):
+            raise ValueError(f"HostPool: unknown quant mode {quant!r}")
         g = geom
         self.geom = g
         self.num_blocks = num_blocks
@@ -211,29 +227,44 @@ class HostPool:
         shape = (g.num_layers, g.num_kv_heads, num_blocks, g.block_size,
                  g.head_dim)
         pin = self.device.type == "cuda"
-        self.k = torch.zeros(shape, dtype=torch.float32, pin_memory=pin)
-        self.v = (torch.zeros(shape, dtype=torch.float32, pin_memory=pin)
+        dt = torch.int8 if quant == "int8" else torch.float32
+        self.k = torch.zeros(shape, dtype=dt, pin_memory=pin)
+        self.v = (torch.zeros(shape, dtype=dt, pin_memory=pin)
                   if g.kv_factor == 2 else None)
-        self._k_np = self.k.numpy()               # views for flush
-        self._v_np = None if self.v is None else self.v.numpy()
-        self._staging: List[Tuple[int, int, np.ndarray,
-                                  Optional[np.ndarray]]] = []
+        self.k_scale = self.v_scale = None
+        if quant == "int8":
+            sshape = (g.num_layers, g.num_kv_heads, num_blocks)
+            self.k_scale = torch.zeros(sshape, dtype=torch.float32,
+                                       pin_memory=pin)
+            self.v_scale = (torch.zeros(sshape, dtype=torch.float32,
+                                        pin_memory=pin)
+                            if self.v is not None else None)
+        self._staging: List[Tuple[int, int, torch.Tensor,
+                                  Optional[torch.Tensor]]] = []
         self.stats = TransferStats()
 
     def wire_bytes(self, n_blocks: int) -> int:
-        """Bytes ``n_blocks`` whole blocks occupy as stored in this pool —
-        the wire size of moving them (one layer, all kv heads, K+V)."""
+        """Bytes ``n_blocks`` whole blocks occupy AS STORED in this pool —
+        the wire size of moving them (one layer, all kv heads, K+V): the
+        fp tier's float32 elements, or the int8 tier's 1 B per element
+        plus ``QUANT_SCALE_BYTES`` per (kv-head, block) per tensor."""
         g = self.geom
-        per_head = g.block_size * g.head_dim * self.k.element_size()
+        elems_per_head = g.block_size * g.head_dim
+        if self.quant == "int8":
+            per_head = elems_per_head + QUANT_SCALE_BYTES
+        else:
+            per_head = elems_per_head * self.k.element_size()
         kvf = 2 if self.v is not None else 1
         return n_blocks * g.num_kv_heads * per_head * kvf
 
-    def stage(self, layer: int, start_token: int, k_new: np.ndarray,
-              v_new: Optional[np.ndarray]) -> int:
-        """Append one contiguous KV stripe (k_new/v_new (Hkv, T, D) numpy,
-        T tokens from absolute position ``start_token``) to the staging
-        list WITHOUT booking d2h stats; returns its wire bytes for the one
-        fused caller to book.  Out-of-range stripes raise ``ValueError``."""
+    def stage(self, layer: int, start_token: int, k_new, v_new) -> int:
+        """Append one contiguous KV stripe (k_new/v_new (Hkv, T, D) tensors
+        or numpy arrays, T tokens from absolute position ``start_token``;
+        v_new may be None) to the staging list
+        WITHOUT booking d2h stats; returns its wire bytes for the one fused
+        caller to book: the fp stripe's bytes, or in the int8 tier the
+        int8 payload plus one scale per touched (kv-head, block) per
+        tensor.  Out-of-range stripes raise ``ValueError``."""
         T = k_new.shape[1]
         end_token = start_token + T
         max_tokens = self.num_blocks * self.geom.block_size
@@ -243,15 +274,27 @@ class HostPool:
                 f" exceed the registered pool capacity of {max_tokens} tokens"
                 f" ({self.num_blocks} blocks x {self.geom.block_size}); "
                 f"register the request with a larger max_tokens")
-        self._staging.append((layer, start_token, np.asarray(k_new),
-                              None if v_new is None else np.asarray(v_new)))
+        k_new = torch.as_tensor(k_new)
+        v_new = None if v_new is None else torch.as_tensor(v_new)
+        self._staging.append((layer, start_token, k_new, v_new))
         kvf = 2 if v_new is not None else 1
+        if self.quant == "int8":
+            if T == 0:
+                return 0
+            bs = self.geom.block_size
+            touched = (end_token - 1) // bs - start_token // bs + 1
+            elems = T * self.geom.num_kv_heads * k_new.shape[2]
+            scale_b = touched * self.geom.num_kv_heads * QUANT_SCALE_BYTES
+            return (elems + scale_b) * kvf
         return k_new.nbytes * kvf
 
     def flush(self) -> int:
-        """Phase 2 of FlashD2H: CPU-side scatter of staged stripes into the
-        per-head block layout, in place.  Returns blocks written; books
-        ``d2h_blocks`` only."""
+        """Phase 2 of FlashD2H: scatter of staged stripes into the per-head
+        block layout, in place, in staging order.  Returns blocks written
+        (block-boundary segments: a stripe spanning two blocks writes two);
+        books ``d2h_blocks`` only."""
+        if self.quant == "int8":
+            return self._flush_quant()
         g = self.geom
         written = 0
         for layer, start, k_new, v_new in self._staging:
@@ -266,10 +309,9 @@ class HostPool:
                         f"block {blk} but the pool only has "
                         f"{self.num_blocks} blocks")
                 t1 = min(t0 + (g.block_size - off), T)
-                self._k_np[layer, :, blk, off:off + (t1 - t0)] = \
-                    k_new[:, t0:t1]
+                self.k[layer, :, blk, off:off + (t1 - t0)] = k_new[:, t0:t1]
                 if v_new is not None:
-                    self._v_np[layer, :, blk, off:off + (t1 - t0)] = \
+                    self.v[layer, :, blk, off:off + (t1 - t0)] = \
                         v_new[:, t0:t1]
                 written += 1
                 self.stats.d2h_blocks += 1
@@ -277,13 +319,61 @@ class HostPool:
         self._staging.clear()
         return written
 
-    def gather(self, layer: int, blocks: List[int]
-               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    def _flush_quant(self) -> int:
+        """int8-tier flush: for each staged stripe, in staging order, every
+        block it touches is dequantized with its current per-head scales,
+        the stripe's tokens overwrite their slots, and the whole block is
+        requantized with fresh scales and written back with them.  This is
+        the reference's ``_store_quant_span`` per (stripe, block) segment
+        (the segments of one stripe are distinct blocks, so they run as one
+        batch).  On the GPU: gather from the pinned pool, dequantize, the
+        overlay as device indexing, quantize, write back into the pinned
+        pool (``write_blocks_hkv``), all kernels on the current stream; on
+        the CPU their plain versions."""
+        g = self.geom
+        bs = g.block_size
+        written = 0
+        for layer, start, k_new, v_new in self._staging:
+            T = k_new.shape[1]
+            if T == 0:
+                continue
+            b0, b1 = start // bs, (start + T - 1) // bs + 1
+            if b1 > self.num_blocks:
+                raise ValueError(
+                    f"HostPool.flush: staged token {start + T - 1} maps to "
+                    f"block {b1 - 1} but the pool only has "
+                    f"{self.num_blocks} blocks")
+            idx = host_to_device(list(range(b0, b1)), self.device)
+            off = start - b0 * bs
+            for pool, scale, new in ((self.k, self.k_scale, k_new),
+                                     (self.v, self.v_scale, v_new)):
+                if new is None:
+                    continue
+                H = pool.shape[1]
+                splane = scale[layer].view(H, self.num_blocks, 1, 1)
+                cur = ops.dequantize_blocks(
+                    ops.gather_blocks_hkv(pool[layer], idx),
+                    ops.gather_blocks_hkv(splane, idx).view(H, b1 - b0))
+                flat = cur.view(H, (b1 - b0) * bs, g.head_dim)
+                flat[:, off:off + T] = new.to(self.device, torch.float32)
+                q, s = ops.quantize_blocks(cur)
+                ops.write_blocks_hkv(pool[layer], q, idx)
+                ops.write_blocks_hkv(splane, s.view(H, b1 - b0, 1, 1), idx)
+            written += b1 - b0
+            self.stats.d2h_blocks += b1 - b0
+        self._staging.clear()
+        return written
+
+    def gather(self, layer: int, blocks: List[int]):
         """Data-plane gather of fragmented blocks — NO accounting.
 
-        Returns (k (Hkv, K, bs, D), v or None) float32 on the pool's
-        compute device: one ``gather_blocks_hkv`` launch per tensor reading
-        the pinned pool in place on the GPU, the plain gather on the CPU."""
+        Returns (k, v or None) on the pool's compute device: one
+        ``gather_blocks_hkv`` launch per tensor reading the pinned pool in
+        place on the GPU, the plain gather on the CPU.  fp tier: k/v
+        (Hkv, K, bs, D) float32.  int8 tier: each a ``QuantBlocks`` of the
+        stored int8 payload and its scales (one more gather launch per
+        tensor), dequantized where they land (``dequantize_scatter_blocks``
+        in ``DevicePoolPlane.restore_blocks_fused``)."""
         if blocks and (max(blocks) >= self.num_blocks or min(blocks) < 0):
             bad = max(blocks) if max(blocks) >= self.num_blocks \
                 else min(blocks)
@@ -291,10 +381,23 @@ class HostPool:
                 f"HostPool.gather: block {bad} out of range "
                 f"(pool has {self.num_blocks} blocks)")
         idx = host_to_device(blocks, self.device)
+        if self.quant == "int8":
+            return tuple(
+                None if pool is None else self._gather_quant(
+                    pool, scale, layer, idx)
+                for pool, scale in ((self.k, self.k_scale),
+                                    (self.v, self.v_scale)))
         k = ops.gather_blocks_hkv(self.k[layer], idx)
         v = None if self.v is None else ops.gather_blocks_hkv(
             self.v[layer], idx)
         return k, v
+
+    def _gather_quant(self, pool: torch.Tensor, scale: torch.Tensor,
+                      layer: int, idx: torch.Tensor) -> QuantBlocks:
+        H, K = pool.shape[1], idx.shape[0]
+        splane = scale[layer].view(H, self.num_blocks, 1, 1)
+        return QuantBlocks(ops.gather_blocks_hkv(pool[layer], idx),
+                           ops.gather_blocks_hkv(splane, idx).view(H, K))
 
 
 class KVCacheManager:
@@ -304,15 +407,18 @@ class KVCacheManager:
     def __init__(self, geom: KVGeometry, hbm_budget_bytes: int,
                  host_budget_bytes: Optional[int] = None,
                  offload_quant: str = "none", device="cpu"):
-        if offload_quant != "none":
-            raise NotImplementedError(
-                f"KVCacheManager: offload tier {offload_quant!r} is not "
-                f"ported yet")
+        if offload_quant not in ("none", "int8"):
+            raise ValueError(
+                f"KVCacheManager: unknown offload_quant {offload_quant!r}")
         self.device = torch.device(device)
         self.geom = geom
         self.hbm_budget_bytes = hbm_budget_bytes
         self.host_budget_bytes = host_budget_bytes
         self.offload_quant = offload_quant
+        # where a save's stripes go: the int8 tier on the GPU quantizes
+        # them on the device; otherwise they are copied to host memory
+        self.device_save = (offload_quant == "int8"
+                            and self.device.type == "cuda")
         self.caches: Dict[str, HBMCache] = {}
         self.pools: Dict[str, HostPool] = {}
         self._retired_stats = TransferStats()   # stats of released requests
@@ -336,6 +442,14 @@ class KVCacheManager:
             self._retired_stats.merge(c.stats)
         if p is not None:
             self._retired_stats.merge(p.stats)
+
+    def ship(self, *tensors: Optional[torch.Tensor]):
+        """A save's device stripes on their way to the host pools: a
+        ``HostCopy`` into host memory, launched now on the current stream,
+        or (``device_save``) an ``OnDevice`` that leaves them on the
+        device.  Its ``wait()`` gives the stripes ``HostPool.stage``
+        takes."""
+        return OnDevice(*tensors) if self.device_save else HostCopy(*tensors)
 
     # -- control plane -----------------------------------------------------
     def access_layer(self, layer: int, blocks_by_req: Dict[str, List[int]],
@@ -374,8 +488,7 @@ class KVCacheManager:
     # -- data plane --------------------------------------------------------
     def load_blocks_fused(self, layer: int,
                           blocks_by_req: Dict[str, List[int]]
-                          ) -> Dict[str, Tuple[torch.Tensor,
-                                               Optional[torch.Tensor]]]:
+                          ) -> Dict[str, Tuple[Any, Any]]:
         """ONE fused FlashH2D launch covering every missing block of `layer`
         across the whole decode batch (batched engine hot path).
 
@@ -392,14 +505,15 @@ class KVCacheManager:
         `layer` is the attention-layer ORDINAL (0..geom.num_layers-1), not
         the model layer id; `blocks_by_req` values are block ids, each
         bounds-checked by ``HostPool.gather`` against the pool registered
-        at ``register`` time.  Returns {req_id: (k (Hkv,K,bs,D), v|None)} —
-        under the persistent decode plane the engine scatters these
+        at ``register`` time.  Returns {req_id: (k, v|None)} as
+        ``HostPool.gather`` gives them (float32 (Hkv,K,bs,D) blocks, or
+        ``QuantBlocks`` in the int8 tier) — the engine scatters these
         payloads DIRECTLY into the requests' device slots
-        (``DevicePoolPlane.restore_blocks``)."""
+        (``DevicePoolPlane.restore_blocks_fused``)."""
         tr = self.tracer
         if tr.enabled:
             _ts = time.perf_counter()
-        out: Dict[str, Tuple[torch.Tensor, Optional[torch.Tensor]]] = {}
+        out: Dict[str, Tuple[Any, Any]] = {}
         total_blocks = 0
         total_bytes = 0
         for req_id, blocks in blocks_by_req.items():
@@ -421,8 +535,7 @@ class KVCacheManager:
         return out
 
     def save_new_tokens_fused(self, layer: int,
-                              kv_by_req: Dict[str, Tuple[int, np.ndarray,
-                                                         Optional[np.ndarray]]]
+                              kv_by_req: Dict[str, Tuple[int, Any, Any]]
                               ) -> None:
         """ONE fused FlashD2H save of this iteration's newly produced KV
         for `layer` across a whole batch — the decode planes' per-layer
@@ -435,14 +548,12 @@ class KVCacheManager:
         saves it with one D2H DMA per layer per iteration; accordingly
         ``d2h_calls`` is booked ONCE here (on ``fused_stats``) while each
         pool stages its stripe without accounting (``HostPool.stage``).
-        The CPU-side scatter into blocks still happens at each pool's
-        ``flush``.  With the default fp tier the host pool stays a
-        byte-exact superset of device KV; under ``offload_quant="int8"``
-        it is a BOUNDED-ERROR superset (per-block per-head scales), and
-        either way ``load_blocks_fused`` payloads come back in the compute
-        dtype — dequantized at gather — so they stay safe to scatter
-        straight into device slots.  Staged bytes are booked at wire size
-        (see ``HostPool.stage``)."""
+        The scatter into blocks still happens at each pool's ``flush``.
+        With the default fp tier the host pool stays a byte-exact superset
+        of device KV; under ``offload_quant="int8"`` it is a BOUNDED-ERROR
+        superset (per-block per-head scales), whose ``load_blocks_fused``
+        payloads are dequantized where they land in the device slots.
+        Staged bytes are booked at wire size (see ``HostPool.stage``)."""
         tr = self.tracer
         if tr.enabled:
             _ts = time.perf_counter()

@@ -11,7 +11,7 @@ ONE batched launch of ``model.prefill_attn_layer_batched`` over the padded
 batch (a token mask marks real tokens, a step mask parks unscheduled rows).
 The group's KV lands in the plane's one-layer context buffer
 (``ctx_k``/``ctx_v``), from which the engine reads the fused FlashD2H save
-(``read_group_kv(_async)``) and the end-of-layer pool build
+(``read_group_kv_async``) and the end-of-layer pool build
 (``layer_ctx``) — the prefill HBM footprint stays one layer of KV for the
 whole batch.  Rows whose last segment ran share one logits launch.
 Buffers are updated IN PLACE.
@@ -20,14 +20,14 @@ from __future__ import annotations
 
 import bisect
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.device_pool import BucketingPolicy
 from repro_torch.core.layer_prefill import PrefillSegment
-from repro_torch.device import HostCopy, host_to_device
+from repro_torch.device import host_to_device
 from repro_torch.models import model as M
 
 
@@ -265,29 +265,25 @@ class PrefillPlane:
 
     # -- data plane readbacks ---------------------------------------------
 
-    def read_group_kv(self, g: PrefillGroupRun
-                      ) -> Dict[str, Tuple[np.ndarray, np.ndarray]]:
-        """The KV stripes a group launch just produced, as host float32:
-        {req_id: (k (Hkv, T, D), v)} trimmed to each row's chunk length."""
-        return self.read_group_kv_async(g)()
-
-    def read_group_kv_async(self, g: PrefillGroupRun):
-        """Launch the group's stripe gather and its copy to pinned host
-        memory without a host sync; returns a zero-arg finisher (run on
-        the host stage worker) that waits for the copy and returns what
-        ``read_group_kv`` would."""
+    def read_group_kv_async(self, g: PrefillGroupRun, ship):
+        """Launch the gather of the KV stripes a group launch just produced
+        and hand it to ``ship`` (``KVCacheManager.ship``) without a host
+        sync; returns a zero-arg finisher (run on the host stage worker)
+        that waits for it and returns {req_id: (k (Hkv, T, D), v)} float32,
+        trimmed to each row's chunk length."""
         dev = self.hidden.device
         rows = host_to_device([self.rows[r] for r in g.req_ids], dev,
                               torch.int64)
         sl = slice(g.chunk_start, g.chunk_start + g.chunk_cap)
-        pending = HostCopy(self.ctx_k[rows, sl], self.ctx_v[rows, sl])
+        kv = (self.ctx_k[rows, sl], self.ctx_v[rows, sl])
+        pending = ship(*kv)
         req_ids = list(g.req_ids)
         chunk_lens = {rid: g.segs[rid].chunk_len for rid in req_ids}
 
-        def finish() -> Dict[str, Tuple[np.ndarray, np.ndarray]]:
+        def finish() -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
             k_all, v_all = pending.wait()              # (R, T, Hkv, hd)
-            return {rid: (np.transpose(k_all[i, :chunk_lens[rid]], (1, 0, 2)),
-                          np.transpose(v_all[i, :chunk_lens[rid]], (1, 0, 2)))
+            return {rid: (k_all[i, :chunk_lens[rid]].permute(1, 0, 2),
+                          v_all[i, :chunk_lens[rid]].permute(1, 0, 2))
                     for i, rid in enumerate(req_ids)}
         return finish
 

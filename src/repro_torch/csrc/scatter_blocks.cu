@@ -8,7 +8,15 @@
 // payload is cast to the pool's dtype on the way (a float32 host payload
 // into a bfloat16 pool, rounding to nearest even as torch does).
 //
-// What bounds it: bytes: H * K blocks read once and written once.
+// A second, byte-generic kernel (wrapper `write_blocks_hkv`) copies
+// payload blocks of the pool's own dtype into a pool that may lie in
+// pinned host memory, written in place through its device-mapped address:
+// the write back of the int8 tier's requantized blocks and their float32
+// scales into the DRAM pool (the device-to-host half of FlashD2H), one
+// launch per tensor.
+//
+// What bounds it: bytes: H * K blocks read once and written once (into a
+// host pool, over the PCIe link).
 //
 // Design: one CTA per (payload block, head); threads stride over the
 // block's bs * D elements so reads and writes are coalesced, converting
@@ -52,6 +60,22 @@ int launch(const void* payload, const void* rows, const void* blocks,
   return (int)cudaGetLastError();
 }
 
+// write_blocks: V as in gather_blocks.cu (uint4 or uint32_t units)
+template <typename V>
+__global__ void __launch_bounds__(kThreads)
+write_blocks_kernel(const V* __restrict__ payload,
+                    const int* __restrict__ blocks, char* __restrict__ pool,
+                    long long head_stride, long long block_stride, int NB,
+                    int K, long long blk_vecs) {
+  const int k = blockIdx.x;
+  const int h = blockIdx.y;
+  const int blk = blocks[k];
+  if (blk < 0 || blk >= NB) return;
+  const V* s = payload + ((size_t)h * K + k) * blk_vecs;
+  V* d = reinterpret_cast<V*>(pool + h * head_stride + blk * block_stride);
+  for (long long i = threadIdx.x; i < blk_vecs; i += kThreads) d[i] = s[i];
+}
+
 }  // namespace
 
 // The pool is bfloat16 (the serving path's dtype); the payload is float32
@@ -73,4 +97,41 @@ extern "C" int launch_scatter_blocks_hkv(
         payload, rows, blocks, pool, row_stride, head_stride, block_stride, B,
         H, NB, K, blk_elems, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// write_blocks: payload (H, K, block_bytes) of the pool's dtype into the
+// (H, NB, ...) pool at dst_base + dst_offset, a device allocation or a
+// pinned host one (dst_on_host != 0).  Strides and block_bytes in bytes,
+// all multiples of 4; 16-byte units where every address allows it.
+extern "C" int launch_write_blocks_hkv(
+    const void* payload, const void* blocks, void* dst_base,
+    long long dst_offset, int dst_on_host, long long head_stride,
+    long long block_stride, int H, int NB, int K, long long block_bytes,
+    void* stream) {
+  char* dst = static_cast<char*>(dst_base);
+  if (dst_on_host) {
+    void* dev = nullptr;
+    cudaError_t e = cudaHostGetDevicePointer(&dev, dst_base, 0);
+    if (e != cudaSuccess) return (int)e;
+    dst = static_cast<char*>(dev);
+  }
+  dst += dst_offset;
+  if (K == 0 || H == 0) return (int)cudaGetLastError();
+  if (block_bytes % 4 != 0 || head_stride % 4 != 0 || block_stride % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  const bool wide = block_bytes % 16 == 0 && head_stride % 16 == 0 &&
+                    block_stride % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(dst) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(payload) % 16 == 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (wide)
+    write_blocks_kernel<uint4><<<dim3(K, H), kThreads, 0, s>>>(
+        static_cast<const uint4*>(payload), static_cast<const int*>(blocks),
+        dst, head_stride, block_stride, NB, K, block_bytes / 16);
+  else
+    write_blocks_kernel<uint32_t><<<dim3(K, H), kThreads, 0, s>>>(
+        static_cast<const uint32_t*>(payload),
+        static_cast<const int*>(blocks), dst, head_stride, block_stride, NB,
+        K, block_bytes / 4);
+  return (int)cudaGetLastError();
 }

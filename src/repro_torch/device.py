@@ -7,7 +7,6 @@ from __future__ import annotations
 
 from typing import List, Optional, Union
 
-import numpy as np
 import torch
 
 
@@ -40,17 +39,18 @@ def host_to_device(arr, device: torch.device,
 
 
 class HostCopy:
-    """Device tensors on their way to host numpy arrays.
+    """Device tensors on their way to host memory.
 
     On the GPU each tensor is copied into pinned memory with a
     non-blocking copy on the current stream and a CUDA event is recorded
     behind the copies; ``wait`` (callable from any thread, e.g. the host
-    stage worker) blocks on that event only.  On the CPU the copy is
-    immediate."""
+    stage worker) blocks on that event only and returns the host tensors.
+    On the CPU the copy is immediate.  ``host_bytes``: bytes copied."""
 
     def __init__(self, *tensors: Optional[torch.Tensor]):
         self._event = None
         self._host: List[Optional[torch.Tensor]] = []
+        self.host_bytes = 0
         for t in tensors:
             if t is None or t.device.type == "cpu":
                 self._host.append(t)
@@ -58,11 +58,26 @@ class HostCopy:
             buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
             buf.copy_(t, non_blocking=True)
             self._host.append(buf)
+            self.host_bytes += buf.nbytes
             self._event = torch.cuda.Event()
         if self._event is not None:
             self._event.record(torch.cuda.current_stream())
 
-    def wait(self) -> List[Optional[np.ndarray]]:
+    def wait(self) -> List[Optional[torch.Tensor]]:
         if self._event is not None:
             self._event.synchronize()
-        return [None if t is None else t.numpy() for t in self._host]
+        return list(self._host)
+
+
+class OnDevice:
+    """Tensors that stay where they are, behind ``HostCopy``'s interface:
+    ``wait`` returns them as they are (device tensors, for consumers that
+    run on the device's stream); nothing is copied."""
+
+    host_bytes = 0
+
+    def __init__(self, *tensors: Optional[torch.Tensor]):
+        self._tensors = list(tensors)
+
+    def wait(self) -> List[Optional[torch.Tensor]]:
+        return list(self._tensors)

@@ -30,6 +30,8 @@ KERNEL_SOURCES = {
     "block_score": "block_score.cu",
     "gather_blocks": "gather_blocks.cu",
     "scatter_blocks": "scatter_blocks.cu",
+    "flash_prefill": "flash_prefill.cu",
+    "quant_blocks": "quant_blocks.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
@@ -37,17 +39,29 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
-# exported launch function of each library and its C signature
+# exported launch functions: name -> (library, C symbol, C signature)
 _SIGNATURES = {
     "sparse_decode_attention": (
-        "launch_sparse_decode_attention",
+        "sparse_decode_attention", "launch_sparse_decode_attention",
         [_P] * 7 + [_I] * 8 + [_F, _P]),
-    "block_score": ("launch_block_score", [_P, _P, _P] + [_I] * 5 + [_P]),
-    "gather_blocks": ("launch_gather_blocks_hkv",
+    "block_score": ("block_score", "launch_block_score",
+                    [_P, _P, _P] + [_I] * 5 + [_P]),
+    "gather_blocks": ("gather_blocks", "launch_gather_blocks_hkv",
                       [_P, _L, _I, _P, _P, _I, _I, _I, _L, _P]),
-    "scatter_blocks": ("launch_scatter_blocks_hkv",
+    "scatter_blocks": ("scatter_blocks", "launch_scatter_blocks_hkv",
                        [_I, _P, _P, _P, _P, _L, _L, _L] + [_I] * 5
                        + [_P]),
+    "write_blocks": ("scatter_blocks", "launch_write_blocks_hkv",
+                     [_P, _P, _P, _L, _I, _L, _L, _I, _I, _I, _L, _P]),
+    "flash_prefill": ("flash_prefill", "launch_flash_prefill",
+                      [_P] * 4 + [_I] * 7 + [_F, _P]),
+    "quantize_blocks": ("quant_blocks", "launch_quantize_blocks",
+                        [_I, _P, _P, _P, _I, _I, _P]),
+    "dequantize_blocks": ("quant_blocks", "launch_dequantize_blocks",
+                          [_P, _P, _P, _I, _I, _P]),
+    "dequantize_scatter_blocks": (
+        "quant_blocks", "launch_dequantize_scatter_blocks",
+        [_P] * 5 + [_L] * 3 + [_I] * 5 + [_P]),
 }
 
 
@@ -71,7 +85,7 @@ def _lib_path(name: str) -> Path:
 
 
 class KernelLibraries:
-    """The four kernel libraries, built once per process (thread-safe)."""
+    """The kernel libraries, built once per process (thread-safe)."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -82,7 +96,7 @@ class KernelLibraries:
 
     def build(self) -> float:
         """Compile every stale library (one nvcc process per source, all
-        running at once), load all four, and return the seconds taken.
+        running at once), load them all, and return the seconds taken.
         ``ptxas_info`` holds each library's ptxas report and ``rebuilt``
         the names compiled by this call."""
         with self._lock:
@@ -120,10 +134,10 @@ class KernelLibraries:
             if errors:
                 raise RuntimeError("kernel build failed:\n" +
                                    "\n".join(errors))
-            for name in KERNEL_SOURCES:
-                lib = ctypes.CDLL(str(_lib_path(name)))
-                sym, argtypes = _SIGNATURES[name]
-                fn = getattr(lib, sym)
+            libs = {name: ctypes.CDLL(str(_lib_path(name)))
+                    for name in KERNEL_SOURCES}
+            for name, (lib, sym, argtypes) in _SIGNATURES.items():
+                fn = getattr(libs[lib], sym)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
                 self._fns[name] = fn

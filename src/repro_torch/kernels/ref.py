@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the four hand-written Hopper kernels.
+"""Plain PyTorch versions of the port's hand-written Hopper kernels.
 
 Each function computes exactly what its CUDA kernel in ``csrc/`` computes,
 with the same conventions, so the wrappers in ``ops.py`` can take it for
@@ -8,7 +8,7 @@ card.  They are the port's counterparts of the reference oracles in
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -36,6 +36,18 @@ def scatter_blocks_hkv(pool: torch.Tensor, payload: torch.Tensor,
     else:
         # advanced indices at axes 0 and 2 put the indexed axis first
         pool[rows.long(), :, dest_blocks.long()] = new.transpose(0, 1)
+    return pool
+
+
+def write_blocks_hkv(pool: torch.Tensor, payload: torch.Tensor,
+                     dest_blocks: torch.Tensor) -> torch.Tensor:
+    """Byte-for-byte block write IN PLACE: payload (H, K, bs, D) of the
+    pool's own dtype into blocks ``dest_blocks`` of pool (H, NB, bs, D).
+    Returns ``pool``."""
+    if payload.dtype != pool.dtype:
+        raise ValueError(f"write_blocks_hkv: {payload.dtype} payload for a "
+                         f"{pool.dtype} pool")
+    pool[:, dest_blocks.long()] = payload
     return pool
 
 
@@ -93,3 +105,100 @@ def sparse_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     o = torch.einsum("bhgt,bhtd->bhgd", p,
                      v_sel.float().reshape(B, Hkv, K * bs, Dv)) / l
     return o.reshape(B, Hq, Dv).to(q.dtype)
+
+
+def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  scale: float, causal: bool = True, q_offset=0,
+                  q_chunk: int = 512, k_chunk: int = 512) -> torch.Tensor:
+    """Online-softmax blocked attention (the reference's
+    ``flash_attention_jnp``), chunked over queries and keys in float32.
+
+    q (B, Sq, Hq, D); k/v (B, Sk, Hkv, Dk/Dv), GQA via head grouping;
+    q_offset: absolute position of q[0] (chunk continuation).  With
+    ``causal`` a query at position p sees keys at positions <= p.  Key
+    chunks wholly above every query of a query chunk are skipped: their
+    masked update leaves the softmax state unchanged.  Returns
+    (B, Sq, Hq, Dv) in q's dtype."""
+    B, Sq, Hq, D = q.shape
+    _, Sk, Hkv, _ = k.shape
+    Dv = v.shape[-1]
+    G = Hq // Hkv
+    q_chunk = min(q_chunk, Sq)
+    k_chunk = min(k_chunk, Sk)
+    dev = q.device
+    q_offset = int(q_offset)
+    qf = q.float().reshape(B, Sq, Hkv, G, D)
+    kf = k.float()
+    vf = v.float()
+    out = torch.empty((B, Sq, Hq, Dv), dtype=q.dtype, device=dev)
+    for q0 in range(0, Sq, q_chunk):
+        q1 = min(q0 + q_chunk, Sq)
+        nq = q1 - q0
+        q_i = qf[:, q0:q1]                                  # (B,nq,Hkv,G,D)
+        qpos = q_offset + torch.arange(q0, q0 + q_chunk, device=dev)[:nq]
+        m = torch.full((B, Hkv, G, nq), NEG_INF, device=dev)
+        l = torch.zeros((B, Hkv, G, nq), device=dev)
+        acc = torch.zeros((B, Hkv, G, nq, Dv), device=dev)
+        for k0 in range(0, Sk, k_chunk):
+            if causal and k0 > q_offset + q1 - 1:
+                break
+            k1 = min(k0 + k_chunk, Sk)
+            s = torch.einsum("bqhgd,bkhd->bhgqk", q_i,
+                             kf[:, k0:k1]) * scale
+            if causal:
+                kpos = torch.arange(k0, k1, device=dev)
+                mask = qpos[:, None] >= kpos[None, :]
+                s = s.masked_fill(~mask, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhgqk,bkhd->bhgqd", p, vf[:, k0:k1])
+            m = m_new
+        o = acc / l.clamp(min=1e-30)[..., None]
+        out[:, q0:q1] = o.permute(0, 3, 1, 2, 4).reshape(
+            B, nq, Hq, Dv).to(q.dtype)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# int8 offload tier: symmetric per-(head, block) quantization
+# ---------------------------------------------------------------------------
+# The arithmetic of the reference, step for step (so the three paths agree
+# bit for bit): x to float32; amax = max |x| over (bs, D); scale =
+# amax / 127 (an IEEE float32 division); inv = 1 / scale (1 where the
+# scale is 0); q = clip(rint(x * inv), -127, 127) with round-half-to-even;
+# dequant = float32(q) * scale, rounded once to the destination dtype.
+
+def quantize_blocks(blocks: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """blocks (H, K, bs, D) fp -> (q (H, K, bs, D) int8, scales (H, K)
+    float32).  An all-zero block gets scale 0 and quantizes to 0."""
+    x = blocks.float()
+    amax = x.abs().amax(dim=(-2, -1))
+    # divisors are tensors: PyTorch's CUDA division by a Python scalar
+    # multiplies by its reciprocal instead, which can move a scale by an ulp
+    scales = amax / torch.full_like(amax, 127.0)
+    one = torch.ones_like(scales)
+    pos = scales > 0.0
+    inv = torch.where(pos, one / torch.where(pos, scales, one), one)
+    q = torch.round(x * inv[..., None, None]).clamp(-127.0, 127.0)
+    return q.to(torch.int8), scales
+
+
+def dequantize_blocks(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """q (H, K, bs, D) int8, scales (H, K) float32 -> (H, K, bs, D)
+    float32."""
+    return q.float() * scales.float()[..., None, None]
+
+
+def dequantize_scatter_blocks(pool: torch.Tensor, q: torch.Tensor,
+                              scales: torch.Tensor, dest_blocks: torch.Tensor,
+                              rows: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
+    """Dequantize q (H, K, bs, D) int8 with scales (H, K) and scatter the
+    blocks into ``pool`` IN PLACE, rounded once to the pool's dtype; pool
+    and ``rows`` as in ``scatter_blocks_hkv``.  Returns ``pool``."""
+    return scatter_blocks_hkv(pool, dequantize_blocks(q, scales),
+                              dest_blocks, rows)

@@ -1,5 +1,6 @@
-"""GQA attention of the port: prefill (blocked flash-style attention in plain
-PyTorch) and the DSA decode stages over the paged KV pool.
+"""GQA attention of the port: prefill (causal flash attention, the
+``flash_prefill`` kernel on the GPU) and the DSA decode stages over the
+paged KV pool.
 
 Counterpart of the GQA half of ``repro/models/attention.py``; MLA and
 cross-attention are not ported yet.  The pool layout is the paper's
@@ -17,70 +18,6 @@ import torch
 from repro_torch.core import dsa
 from repro_torch.kernels import ops
 from repro_torch.models.common import DSAConfig, ModelConfig, apply_rope
-
-NEG_INF = -1e30
-
-
-# ---------------------------------------------------------------------------
-# Blocked ("flash-style") attention — memory bounded, plain PyTorch
-# ---------------------------------------------------------------------------
-
-def flash_attention_jnp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, scale: float, causal: bool = True, q_offset=0,
-                        q_chunk: int = 512, k_chunk: int = 512
-                        ) -> torch.Tensor:
-    """Online-softmax blocked attention (the reference's
-    ``flash_attention_jnp``, whose name it keeps), chunked over queries and
-    keys in float32.
-
-    q (B, Sq, Hq, D); k/v (B, Sk, Hkv, Dk/Dv), GQA via head grouping;
-    q_offset: absolute position of q[0] (chunk continuation).  Padded keys
-    (beyond Sk) are masked; with ``causal`` a query at position p sees keys
-    at positions <= p.  Key chunks wholly above every query of a query
-    chunk are skipped: their masked update leaves the softmax state
-    unchanged.  Returns (B, Sq, Hq, Dv) in q's dtype."""
-    B, Sq, Hq, D = q.shape
-    _, Sk, Hkv, _ = k.shape
-    Dv = v.shape[-1]
-    G = Hq // Hkv
-    q_chunk = min(q_chunk, Sq)
-    k_chunk = min(k_chunk, Sk)
-    dev = q.device
-    q_offset = int(q_offset)
-    qf = q.float().reshape(B, Sq, Hkv, G, D)
-    kf = k.float()
-    vf = v.float()
-    out = torch.empty((B, Sq, Hq, Dv), dtype=q.dtype, device=dev)
-    for q0 in range(0, Sq, q_chunk):
-        q1 = min(q0 + q_chunk, Sq)
-        nq = q1 - q0
-        q_i = qf[:, q0:q1]                                  # (B,nq,Hkv,G,D)
-        qpos = q_offset + torch.arange(q0, q0 + q_chunk, device=dev)[:nq]
-        m = torch.full((B, Hkv, G, nq), NEG_INF, device=dev)
-        l = torch.zeros((B, Hkv, G, nq), device=dev)
-        acc = torch.zeros((B, Hkv, G, nq, Dv), device=dev)
-        for k0 in range(0, Sk, k_chunk):
-            if causal and k0 > q_offset + q1 - 1:
-                break
-            k1 = min(k0 + k_chunk, Sk)
-            s = torch.einsum("bqhgd,bkhd->bhgqk", q_i,
-                             kf[:, k0:k1]) * scale
-            if causal:
-                kpos = torch.arange(k0, k1, device=dev)
-                mask = qpos[:, None] >= kpos[None, :]
-                s = s.masked_fill(~mask, NEG_INF)
-            m_new = torch.maximum(m, s.amax(dim=-1))
-            p = torch.exp(s - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(dim=-1)
-            acc = acc * corr[..., None] + torch.einsum(
-                "bhgqk,bkhd->bhgqd", p, vf[:, k0:k1])
-            m = m_new
-        o = acc / l.clamp(min=1e-30)[..., None]
-        out[:, q0:q1] = o.permute(0, 3, 1, 2, 4).reshape(
-            B, nq, Hq, Dv).to(q.dtype)
-    return out
-
 
 # ---------------------------------------------------------------------------
 # GQA: prefill path
@@ -109,16 +46,18 @@ def gqa_self_attention(p: Dict[str, torch.Tensor], cfg: ModelConfig,
                        v_ctx: Optional[torch.Tensor] = None,
                        causal: bool = True, q_offset=0,
                        return_kv: bool = False):
-    """Full (prefill) self-attention.  Optional dense context
-    ``k_ctx/v_ctx`` (B, S_past, Hkv, hd): earlier chunks of the layer."""
+    """Full (prefill) self-attention, through the ``flash_prefill`` kernel
+    on the GPU.  Optional dense context ``k_ctx/v_ctx`` (B, S_past, Hkv,
+    hd): earlier chunks of the layer, concatenated ahead of the window so
+    the keys span q_offset + S positions."""
     q, k, v = gqa_project_qkv(p, cfg, x, positions)
     if k_ctx is not None:
         k_all = torch.cat([k_ctx.to(k.dtype), k], dim=1)
         v_all = torch.cat([v_ctx.to(v.dtype), v], dim=1)
     else:
         k_all, v_all = k, v
-    o = flash_attention_jnp(q, k_all, v_all, scale=1.0 / cfg.head_dim ** 0.5,
-                            causal=causal, q_offset=q_offset)
+    o = ops.flash_prefill(q, k_all, v_all, scale=1.0 / cfg.head_dim ** 0.5,
+                          causal=causal, q_offset=q_offset)
     B, S = x.shape[:2]
     out = o.reshape(B, S, -1) @ p["wo"]
     if return_kv:

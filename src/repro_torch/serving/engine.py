@@ -10,7 +10,11 @@ stage per attention layer:
 1. one merged fused FlashD2H save of the layer's new KV (decode write-back
    plus fresh prefill chunks) — on the ``HostStageWorker`` thread when
    ``stage_dispatch="async"`` (the default), inline when ``"sync"`` (the
-   equivalence oracle; async must give byte-identical greedy tokens);
+   equivalence oracle; async must give byte-identical greedy tokens).
+   Under ``offload_quant="int8"`` on the GPU the save always runs inline:
+   the stripes stay on the device and the touched blocks requantize
+   through the quant kernels on the current stream, ahead of the layer's
+   gather;
 2. the LRU round for every decode row's DSA selection, then at most ONE
    fused FlashH2D load of the misses (the ``gather_blocks_hkv`` kernel
    reading the pinned host pools) scattered into the device slots
@@ -57,8 +61,8 @@ class EngineConfig:
     reference that the port does not implement yet raise
     ``NotImplementedError`` in ``ServingEngine``: prefill_mode "chunked",
     prefill_exec "legacy", decode_plane "persistent"/"stacked",
-    hybrid_plane "split", batched_decode False, offload_quant "int8", a
-    mesh_spec, and obs True."""
+    hybrid_plane "split", batched_decode False, a mesh_spec, and obs
+    True."""
     prefill_mode: str = "layer_segmented"
     prefill_exec: str = "plane"
     prefill_max_tokens_per_step: int = 0     # intra-layer chunk size of the
@@ -83,6 +87,10 @@ class EngineConfig:
     hybrid_plane: str = "mixed"
     stage_dispatch: str = "async"            # "async" | "sync" (oracle)
     drop_evicted_device_blocks: Optional[bool] = None   # None -> on
+    # DRAM offload tier: "none" (float32 host pools) or "int8" (int8 host
+    # pools with one f32 scale per (layer, kv-head, block); touched blocks
+    # requantize on the FlashD2H save and dequantize where the FlashH2D
+    # restore lands, so each moved element costs 1 wire byte, not 4)
     offload_quant: str = "none"
     obs: Optional[bool] = None               # None -> off
 
@@ -93,7 +101,7 @@ _KNOWN = {
     "decode_plane": (("staged",), ("persistent", "stacked")),
     "hybrid_plane": (("mixed",), ("split",)),
     "stage_dispatch": (("async", "sync"), ()),
-    "offload_quant": (("none",), ("int8",)),
+    "offload_quant": (("none", "int8"), ()),
 }
 
 
@@ -323,18 +331,23 @@ class ServingEngine:
                     spent[rid] = spent.get(rid, 0) + g.segs[rid].chunk_len
             # 1. ONE merged fused FlashD2H: decode write-back + fresh
             #    prefill-chunk KV of this layer; its copies to pinned host
-            #    memory are launched here, the save runs on the worker
+            #    memory are launched here, the save runs on the worker (the
+            #    KV manager's device_save, the int8 tier on the GPU: the
+            #    stripes stay on the device and the save runs here, its
+            #    kernels on the current stream ahead of this layer's
+            #    gather, in either stage_dispatch)
+            ship = self.kv_mgr.ship
             parts = []
             if self.eng.decode_write_back:
                 for d, _ in win.selections:
                     parts.append((list(d.req_ids), dict(d.prev),
                                   d.plane.new_token_kv_async(
-                                      d.req_ids, d.prev,
-                                      layers=[win.layer])[win.layer]))
-            finishers = [(g.chunk_start, pp.read_group_kv_async(g))
+                                      d.req_ids, d.prev, layers=[win.layer],
+                                      ship=ship)[win.layer]))
+            finishers = [(g.chunk_start, pp.read_group_kv_async(g, ship))
                          for pp, g in win.groups]
             if parts or finishers:
-                if worker is not None:
+                if worker is not None and not self.kv_mgr.device_save:
                     worker.submit(lidx, self._stage_writeback_merged, lidx,
                                   parts, finishers)
                 else:
@@ -445,12 +458,13 @@ class ServingEngine:
     def _stage_writeback_merged(self, lidx: int, parts: List[Tuple],
                                 finishers: List[Tuple]) -> None:
         """ONE fused FlashD2H save for layer ``lidx``: every decode
-        plane's appended stripe (``parts``: (req_ids, prev, HostCopy))
-        merged with every prefill group's fresh chunk (``finishers``:
-        (chunk_start, finish)) in a single ``save_new_tokens_fused`` call,
-        then the pools' CPU-side flush.  Runs on the host stage worker in
-        async mode (it waits on the copies' CUDA events), inline in sync
-        mode."""
+        plane's appended stripe (``parts``: (req_ids, prev, what
+        ``KVCacheManager.ship`` returned)) merged with every prefill
+        group's fresh chunk
+        (``finishers``: (chunk_start, finish)) in a single
+        ``save_new_tokens_fused`` call, then the pools' flush.  Runs on the
+        host stage worker in async mode (it waits on the copies' CUDA
+        events), inline in sync mode and for the int8 tier on the GPU."""
         kv_merge: Dict[str, Tuple[int, Any, Any]] = {}
         for req_ids, prev, pending in parts:
             k, v = pending.wait()
@@ -466,8 +480,8 @@ class ServingEngine:
                     # same-rid chunks of one layer are contiguous in plan
                     # order: extend the stripe along tokens
                     s0, k0, v0 = cur
-                    kv_merge[rid] = (s0, np.concatenate([k0, k], axis=1),
-                                     np.concatenate([v0, v], axis=1))
+                    kv_merge[rid] = (s0, torch.cat([k0, k], dim=1),
+                                     torch.cat([v0, v], dim=1))
         if kv_merge:
             self.kv_mgr.save_new_tokens_fused(lidx, kv_merge)
             for rid in kv_merge:

@@ -126,3 +126,209 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         ops.gather_blocks_hkv(torch.zeros((2, 8, 32, 64)),
                               torch.zeros(3, dtype=torch.int32,
                                           device=cuda))   # not pinned
+
+
+# ---------------------------------------------------------------------------
+# slice 2: flash_prefill and the int8 tier's quant kernels
+# ---------------------------------------------------------------------------
+# flash_prefill is held per output element to |err| <= 1.25 * 2^-8 W +
+# 2^-7 |ref| against the float32 plain version, W = sum_j p_j |v_j| /
+# sum_j p_j (the plain version run on |v|): the kernel rounds each weight
+# to bf16 before P V (unit roundoff 2^-8, so <= 2^-8 W on the element),
+# its float32 scores, exponentials and sums differ by far less (budgeted
+# at 2^-10 W), and both sides round the output once to bf16 (one step,
+# <= 2^-7 |ref|).  The quant kernels are bit-exact.
+
+def _flash_close(out, q, k, v, **kw):
+    want = ref.flash_prefill(q, k, v, **kw)
+    weight = ref.flash_prefill(q.float(), k.float(), v.float().abs(), **kw)
+    err = (out.float() - want.float()).abs()
+    bound = 1.25 * 2.0 ** -8 * weight + 2.0 ** -7 * want.float().abs()
+    return bool((err <= bound).all())
+
+
+def _probe(q, k, v, qi, kj, scale):
+    """Plant key ``kj`` so that query row ``qi`` (the first head of each
+    GQA group) puts nearly all its weight on it (score 30), with value 8:
+    a kernel that shows that key to that query, or hides it, wrongly moves
+    the output by O(1)."""
+    k, v = k.clone(), v.clone()
+    Hkv = k.shape[2]
+    G = q.shape[2] // Hkv
+    qh = q[:, qi, ::G].float()                          # (B, Hkv, D)
+    k[:, kj] = (qh * (30.0 / (scale * (qh * qh).sum(-1, keepdim=True)))
+                ).to(k.dtype)
+    v[:, kj] = 8.0
+    return k, v
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Hq,Hkv,D", [(14, 2, 64), (32, 8, 128)])
+@pytest.mark.parametrize("Sq,q_offset", [(200, 0), (130, 70)])
+def test_flash_prefill_matches_plain(cuda, Hq, Hkv, D, Sq, q_offset):
+    """q_offset 0, and a chunk continuation whose earlier keys lie ahead of
+    the window (Sk = q_offset + Sq); neither length fills a 64-row tile.
+    Two planted faults must fail the tolerance: the kernel run with
+    q_offset one too large, and with the last key dropped."""
+    g = _gen(cuda, 2)
+    B, Sk = 2, q_offset + Sq
+    scale = D ** -0.5
+    q = torch.randn((B, Sq, Hq, D), generator=g, device=cuda).bfloat16()
+    k = torch.randn((B, Sk, Hkv, D), generator=g, device=cuda).bfloat16()
+    v = torch.randn((B, Sk, Hkv, D), generator=g, device=cuda).bfloat16()
+    got = ops.flash_prefill(q, k, v, scale=scale, q_offset=q_offset)
+    assert _flash_close(got, q, k, v, scale=scale, q_offset=q_offset)
+    # q_offset off by one: query 0 would see the key after its own
+    kp, vp = _probe(q, k, v, 0, q_offset + 1, scale)
+    assert not _flash_close(ops.flash_prefill(
+        q, kp, vp, scale=scale, q_offset=q_offset + 1), q, kp, vp,
+        scale=scale, q_offset=q_offset)
+    # the last key dropped: only the last query sees it
+    kp, vp = _probe(q, k, v, Sq - 1, Sk - 1, scale)
+    assert not _flash_close(ops.flash_prefill(
+        q, kp[:, :-1].contiguous(), vp[:, :-1].contiguous(), scale=scale,
+        q_offset=q_offset), q, kp, vp, scale=scale, q_offset=q_offset)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Hq,Hkv,D", [(14, 2, 64), (32, 8, 128)])
+@pytest.mark.parametrize("Sq,q_offset", [(1000, 0), (1000, 1000)])
+def test_flash_prefill_tolerance_rejects_a_late_tile_dropped(
+        cuda, Hq, Hkv, D, Sq, q_offset):
+    """A kernel that skips one interior key tile for the queries of the
+    window's second half only (long rows, each moved by ~64 / n of its
+    values' spread) must fail the per-element tolerance, while the kernel
+    itself passes it on the same inputs."""
+    g = _gen(cuda, 5)
+    B, Sk = 2, q_offset + Sq
+    kw = dict(scale=D ** -0.5, q_offset=q_offset)
+    q = torch.randn((B, Sq, Hq, D), generator=g, device=cuda).bfloat16()
+    k = torch.randn((B, Sk, Hkv, D), generator=g, device=cuda).bfloat16()
+    v = torch.randn((B, Sk, Hkv, D), generator=g, device=cuda).bfloat16()
+    out = ops.flash_prefill(q, k, v, **kw)
+    assert _flash_close(out, q, k, v, **kw)
+    h = Sq // 2 // 64 * 64
+    k0 = (q_offset + h) // 2 // 64 * 64
+    assert k0 + 64 <= q_offset + h           # every late query sees it
+
+    def cut(x):
+        return torch.cat([x[:, :k0], x[:, k0 + 64:]], dim=1).contiguous()
+    # among the cut keys, the query at position p sees those up to p - 64
+    out[:, h:] = ops.flash_prefill(q[:, h:].contiguous(), cut(k), cut(v),
+                                   scale=kw["scale"],
+                                   q_offset=q_offset + h - 64)
+    assert not _flash_close(out, q, k, v, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quant_kernels_match_plain_bit_exact(cuda, dtype):
+    g = _gen(cuda, 3)
+    H, K, bs, D, B, NB = 2, 9, 32, 64, 3, 12
+    x = (torch.randn((H, K, bs, D), generator=g, device=cuda)
+         * torch.rand((H, K, 1, 1), generator=g, device=cuda) * 4).to(dtype)
+    x[1, 4] = 0                                    # an all-zero block
+    q, s = ops.quantize_blocks(x)
+    q_ref, s_ref = ref.quantize_blocks(x)
+    assert torch.equal(q, q_ref) and torch.equal(s, s_ref)
+    assert s[1, 4] == 0 and not q[1, 4].any()
+    assert torch.equal(ops.dequantize_blocks(q, s),
+                       ref.dequantize_blocks(q, s))
+    pool = torch.randn((B, H, NB, bs, D), generator=g,
+                       device=cuda).bfloat16()
+    dest = torch.randperm(NB, generator=g, device=cuda)[:K].int()
+    rows = torch.randint(0, B, (K,), generator=g, device=cuda,
+                         dtype=torch.int32)
+    want = ref.dequantize_scatter_blocks(pool.clone(), q, s, dest, rows)
+    assert torch.equal(ops.dequantize_scatter_blocks(pool, q, s, dest, rows),
+                       want)
+    row = pool[0].clone()
+    want = ref.dequantize_scatter_blocks(row.clone(), q, s, dest)
+    assert torch.equal(ops.dequantize_scatter_blocks(row, q, s, dest), want)
+
+
+@pytest.mark.gpu
+def test_int8_host_pool_on_the_card_writes_the_plain_bytes(cuda):
+    """The int8 HostPool with device stripes (gather from the pinned pool,
+    dequantize, overlay, quantize, write back through the byte-copy
+    scatter) holds the same bytes as the CPU pool fed the same stripes;
+    its gather returns the same payload and scales."""
+    from repro_torch.core.kv_cache import HostPool, KVGeometry
+    geom = KVGeometry(num_layers=2, num_kv_heads=2, block_size=32,
+                      head_dim=64)
+    gpu, cpu = HostPool(geom, 6, "int8", cuda), HostPool(geom, 6, "int8")
+    g = torch.Generator().manual_seed(4)
+    for layer, start, T in ((0, 0, 64), (1, 0, 45), (0, 64, 1), (0, 65, 40),
+                            (1, 45, 30), (0, 105, 1)):
+        k = torch.randn((2, T, 64), generator=g) * (1 + layer)
+        v = torch.randn((2, T, 64), generator=g)
+        assert (gpu.stage(layer, start, k.to(cuda), v.to(cuda))
+                == cpu.stage(layer, start, k.numpy(), v.numpy()))
+        assert gpu.flush() == cpu.flush()
+        torch.cuda.synchronize()
+        for a, b in ((gpu.k, cpu.k), (gpu.v, cpu.v),
+                     (gpu.k_scale, cpu.k_scale), (gpu.v_scale, cpu.v_scale)):
+            assert torch.equal(a, b)
+    (kq, ks), _ = gpu.gather(0, [3, 0, 2])
+    (kq_c, ks_c), _ = cpu.gather(0, [3, 0, 2])
+    assert torch.equal(kq.cpu(), kq_c) and torch.equal(ks.cpu(), ks_c)
+
+
+@pytest.mark.gpu
+def test_write_blocks_kernel_matches_plain(cuda):
+    """write_blocks_hkv into a pinned int8 pool and its float32 scale
+    plane, and into a device pool: the plain version's bytes."""
+    g = torch.Generator().manual_seed(6)
+    ids = torch.tensor([4, 0, 9], dtype=torch.int32)
+    for pool in (torch.randint(-127, 128, (2, 12, 32, 64), generator=g,
+                               dtype=torch.int8),
+                 torch.rand((2, 12, 1, 1), generator=g)):
+        pay = pool[:, 5:8].clone()
+        want = ref.write_blocks_hkv(pool.clone(), pay, ids)
+        pinned = pool.clone().pin_memory()
+        ops.write_blocks_hkv(pinned, pay.to(cuda), ids.to(cuda))
+        torch.cuda.synchronize()
+        assert torch.equal(pinned, want)
+        on_dev = pool.to(cuda)
+        ops.write_blocks_hkv(on_dev, pay.to(cuda), ids.to(cuda))
+        assert torch.equal(on_dev.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_slice2_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    q = torch.zeros((1, 8, 4, 64), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        ops.flash_prefill(q, q, q, scale=0.125, causal=False)
+    with pytest.raises(ValueError):
+        ops.flash_prefill(q.float(), q.float(), q.float(), scale=0.125)
+    with pytest.raises(ValueError):                   # head dim 32
+        ops.flash_prefill(q[..., :32].contiguous(), q[..., :32].contiguous(),
+                          q[..., :32].contiguous(), scale=0.125)
+    with pytest.raises(ValueError):                   # int8 blocks
+        ops.quantize_blocks(torch.zeros((2, 3, 32, 64), dtype=torch.int8,
+                                        device=cuda))
+    qb = torch.zeros((2, 3, 32, 64), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError):                   # bf16 scales
+        ops.dequantize_blocks(qb, torch.zeros((2, 3), device=cuda,
+                                              dtype=torch.bfloat16))
+    with pytest.raises(ValueError):                   # float32 pool
+        ops.dequantize_scatter_blocks(
+            torch.zeros((2, 8, 32, 64), device=cuda), qb,
+            torch.zeros((2, 3), device=cuda),
+            torch.zeros(3, dtype=torch.int32, device=cuda))
+    ids = torch.zeros(3, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):                   # a host payload
+        ops.scatter_blocks_hkv(
+            torch.zeros((2, 8, 32, 64), device=cuda, dtype=torch.bfloat16),
+            torch.zeros((2, 3, 32, 64)), ids)
+    with pytest.raises(ValueError):                   # a host pool
+        ops.scatter_blocks_hkv(
+            torch.zeros((2, 8, 32, 64), dtype=torch.bfloat16).pin_memory(),
+            torch.zeros((2, 3, 32, 64), device=cuda), ids)
+    with pytest.raises(ValueError):                   # dtypes differ
+        ops.write_blocks_hkv(
+            torch.zeros((2, 8, 32, 64), dtype=torch.int8).pin_memory(),
+            torch.zeros((2, 3, 32, 64), device=cuda), ids)
+    with pytest.raises(ValueError):                   # not pinned
+        ops.write_blocks_hkv(torch.zeros((2, 8, 32, 64), dtype=torch.int8),
+                             qb, ids)

@@ -110,8 +110,8 @@ def test_async_equals_sync(arch, setups):
 @pytest.mark.parametrize("field,value", [
     ("decode_plane", "persistent"), ("decode_plane", "stacked"),
     ("hybrid_plane", "split"), ("prefill_exec", "legacy"),
-    ("prefill_mode", "chunked"), ("offload_quant", "int8"),
-    ("mesh_spec", "model=2"), ("obs", True), ("batched_decode", False)])
+    ("prefill_mode", "chunked"), ("mesh_spec", "model=2"), ("obs", True),
+    ("batched_decode", False)])
 def test_unported_options_raise(field, value, setups):
     _, tc, _, tp = setups("qwen2-0.5b")
     with pytest.raises(NotImplementedError):

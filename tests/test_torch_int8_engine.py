@@ -1,0 +1,125 @@
+"""The port's ServingEngine with the int8 DRAM offload tier
+(``offload_quant="int8"``) against the reference's engine in the same
+mode, on the same submissions: everything else default (mixed hybrid
+plane, staged decode, layer-segmented plane prefill, async host stage, DSA
+on), the qwen2 and llama3 smoke configs, at the default LRU capacity and
+under a 1-block LRU (every selection misses, so the restores read what the
+int8 save wrote).
+
+Both sides run in float32 on the CPU with the modelled clock.  Greedy
+tokens must be identical, and so must every ``TransferStats`` counter,
+whose byte counters are at stored size (int8 payload plus scales).  The
+pools' bytes themselves are compared in ``test_torch_quant.py``: here the
+two frameworks' K/V stripes may differ in the last ulp, which can move an
+int8 value.  Inside the port, the async host stage must equal the sync
+oracle token for token and counter for counter."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from repro.configs import get_smoke_config as jax_smoke
+from repro.models import model as JM
+from repro.models.common import DSAConfig as JDSA
+from repro.serving.engine import EngineConfig as JEngineConfig
+from repro.serving.engine import ServingEngine as JEngine
+from repro.serving.request import Request as JRequest
+from repro_torch.bridge import params_from_numpy
+from repro_torch.configs import get_smoke_config as torch_smoke
+from repro_torch.kernels import ops
+from repro_torch.models.common import DSAConfig as TDSA
+from repro_torch.serving.engine import EngineConfig, ServingEngine
+from repro_torch.serving.request import Request
+
+PROMPTS = (48, 64, 72)
+ARRIVALS = (0.0, 1e-4, 3e-3)
+GEN = 4
+
+
+@pytest.fixture(scope="module")
+def setups():
+    """The smoke configs with a reduced DSA (block 8, budget 32 -> top-4
+    blocks, so selection drops blocks) and the reference's float32
+    weights on both sides."""
+    cache = {}
+
+    def get(arch):
+        if arch not in cache:
+            jc = dataclasses.replace(jax_smoke(arch),
+                                     dsa=JDSA(block_size=8, token_budget=32))
+            tc = dataclasses.replace(torch_smoke(arch),
+                                     dsa=TDSA(block_size=8, token_budget=32))
+            jp = JM.init_params(jc, jax.random.PRNGKey(0), jnp.float32)
+            tp = params_from_numpy(jax.tree.map(np.asarray, jp),
+                                   jc.num_layers, device="cpu")
+            cache[arch] = (jc, tc, jp, tp)
+        return cache[arch]
+    return get
+
+
+def _run(engine_cls, config_cls, request_cls, cfg, params, **kw):
+    eng = engine_cls(params, cfg, config_cls(r_max=4, chunk_size=64, **kw))
+    rng = np.random.default_rng(7)
+    ids = []
+    for p, t in zip(PROMPTS, ARRIVALS):
+        r = request_cls(prompt_len=p, max_new_tokens=GEN, arrival_time=t)
+        eng.submit(r, tokens=rng.integers(4, cfg.vocab_size, p)
+                   .astype(np.int32))
+        ids.append(r.req_id)
+    metrics = eng.run()
+    return (eng, [eng.states[i].out_tokens for i in ids],
+            dataclasses.asdict(eng.transfer_stats()), metrics)
+
+
+@pytest.mark.parametrize("hbm_blocks", [96, 1])
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "llama3-8b"])
+def test_int8_engine_matches_reference(arch, hbm_blocks, setups):
+    jc, tc, jp, tp = setups(arch)
+    kw = dict(hbm_blocks_per_request=hbm_blocks, offload_quant="int8")
+    _, j_tokens, j_stats, j_m = _run(JEngine, JEngineConfig, JRequest, jc,
+                                     jp, **kw)
+    eng, t_tokens, t_stats, t_m = _run(ServingEngine, EngineConfig, Request,
+                                       tc, tp, **kw)
+    assert t_tokens == j_tokens
+    assert t_stats == j_stats
+    assert t_stats["h2d_calls"] > 0 and t_stats["d2h_calls"] > 0
+    if hbm_blocks == 1:
+        assert t_stats["evictions"] > 0
+        assert eng.plane.blocks_restored_before_use > 0
+    assert t_m.mean_ttft == pytest.approx(j_m.mean_ttft, rel=1e-9)
+    assert t_m.mean_tbt == pytest.approx(j_m.mean_tbt, rel=1e-9)
+    # the modelled transfer time is charged at the tier's stored size
+    assert eng.metrics_snapshot()["kv.offload_block_bytes"] == (
+        2 * tc.num_kv_heads * (tc.dsa.block_size * tc.head_dim + 4))
+    assert sum(ops.launches.snapshot().values()) == 0
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "llama3-8b"])
+def test_int8_moves_fewer_wire_bytes_per_block_than_fp(arch, setups):
+    """Per moved block, the int8 tier's wire bytes are at least 1.8x
+    smaller than the fp tier's (its float32 pool: ~4x)."""
+    _, tc, _, tp = setups(arch)
+    per_block = {}
+    for tier in ("none", "int8"):
+        _, _, st, _ = _run(ServingEngine, EngineConfig, Request, tc, tp,
+                           hbm_blocks_per_request=1, offload_quant=tier)
+        per_block[tier] = ((st["h2d_bytes"] + st["d2h_bytes"])
+                           / (st["h2d_blocks"] + st["d2h_blocks"]))
+    assert per_block["none"] / per_block["int8"] >= 1.8
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "llama3-8b"])
+def test_int8_async_equals_sync(arch, setups):
+    _, tc, _, tp = setups(arch)
+    runs = {mode: _run(ServingEngine, EngineConfig, Request, tc, tp,
+                       hbm_blocks_per_request=1, offload_quant="int8",
+                       stage_dispatch=mode)
+            for mode in ("async", "sync")}
+    e_a, toks_a, stats_a, _ = runs["async"]
+    e_s, toks_s, stats_s, _ = runs["sync"]
+    assert toks_a == toks_s
+    assert stats_a == stats_s
+    # on the CPU the int8 save runs on the host stage worker, like fp
+    assert e_a.worker_jobs_run > 0 and e_s.worker_jobs_run == 0

@@ -1,7 +1,8 @@
-"""The port's four kernels: plain PyTorch versions (what the wrappers take
-for CPU tensors) held against the reference's jnp oracles
-(``repro.kernels.ref``) and its Pallas kernels in interpret mode
-(``repro.kernels.ops``), on the same numpy inputs made from a seed.
+"""The port's kernels of slice 1 and the int8 tier's write back: plain
+PyTorch versions (what the wrappers take for CPU tensors) held against
+the reference's jnp oracles (``repro.kernels.ref``) and its Pallas
+kernels in interpret mode (``repro.kernels.ops``), on the same numpy
+inputs made from a seed.
 
 Tolerances: gather and scatter move data only, so they are compared
 bit-exactly; block scores and attention accumulate float32 sums in another
@@ -202,3 +203,27 @@ def test_scatter_casts_payload_to_pool_dtype():
                                                        dtype=torch.int32))
     assert torch.equal(pool[:, [1, 3]], payload.to(torch.bfloat16))
     assert not pool[:, [0, 2]].any()
+
+
+@pytest.mark.parametrize("dtype,bs,D", [(np.int8, 32, 64), (np.float32, 1, 1)])
+def test_write_blocks_plain_matches_pallas_scatter(dtype, bs, D):
+    """The int8 tier's write back (an int8 pool, and its float32 scale
+    plane as (H, NB, 1, 1) blocks) is the Pallas scatter of a payload of
+    the pool's own dtype, byte for byte; other dtypes are refused."""
+    r = _rng(bs)
+    H, NB = 2, 9
+    if dtype == np.int8:
+        pool = r.integers(-127, 128, (H, NB, bs, D)).astype(np.int8)
+        payload = r.integers(-127, 128, (H, 3, bs, D)).astype(np.int8)
+    else:
+        pool = r.random((H, NB, bs, D), dtype=np.float32)
+        payload = r.random((H, 3, bs, D), dtype=np.float32)
+    ids = np.asarray([8, 0, 4], np.int32)
+    pool_t = _t(pool)
+    assert ops.write_blocks_hkv(pool_t, _t(payload), _t(ids)) is pool_t
+    want = np.asarray(jops.scatter_blocks_hkv(
+        jnp.asarray(pool), jnp.asarray(payload), jnp.asarray(ids)))
+    np.testing.assert_array_equal(pool_t.numpy(), want)
+    assert ops.launches.counts["write_blocks_hkv"] == 0
+    with pytest.raises(ValueError):
+        ops.write_blocks_hkv(pool_t, _t(payload).double(), _t(ids))

@@ -22,7 +22,7 @@ from repro.models import model as JM
 from repro.models.common import DSAConfig as JDSA
 from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import get_smoke_config as torch_smoke
-from repro_torch.models import attention as tattn
+from repro_torch.kernels import ref as tref
 from repro_torch.models import model as TM
 from repro_torch.models.common import DSAConfig as TDSA
 
@@ -75,8 +75,8 @@ def test_flash_attention_matches_reference(causal, q_offset, ctx, Sk_pad):
     v = r.standard_normal((B, Sk, Hkv, D), dtype=np.float32)
     kw = dict(scale=0.25, causal=causal, q_offset=q_offset, q_chunk=16,
               k_chunk=16)
-    got = tattn.flash_attention_jnp(torch.from_numpy(q), torch.from_numpy(k),
-                                    torch.from_numpy(v), **kw)
+    got = tref.flash_prefill(torch.from_numpy(q), torch.from_numpy(k),
+                             torch.from_numpy(v), **kw)
     want = jattn.flash_attention_jnp(jnp.asarray(q), jnp.asarray(k),
                                      jnp.asarray(v), **kw)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
