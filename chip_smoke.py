@@ -2,14 +2,15 @@
 """GPU smoke test of the PyTorch port (``src/repro_torch``).
 
     python3 chip_smoke.py [--seed 0]
-        [--phases build,parity,serve,serve_int8,async]
+        [--phases build,parity,transfer,serve,serve_int8,async]
 
 Run from the repository root on a machine with one NVIDIA H100.  Phases,
 each printing one line (``phase=...``) and failing the run on any error:
 
 1. build  — compile the CUDA kernels from ``src/repro_torch/csrc`` (one
    nvcc per source, all at once; an unchanged source is reused from the
-   build directory) and print the build seconds and ptxas's registers.
+   build directory) and print the build seconds and ptxas's registers
+   (and, for flash_prefill and sparse_decode_attention, its spill lines).
 2. parity — hold each kernel against its plain PyTorch version on the card
    in bf16, at qwen2-0.5b shapes (Hq 14, Hkv 2, D 64) and llama3-8b shapes
    (Hq 32, Hkv 8, D 128), with bs 32, K 64, NB 256, B 8, scatter in both
@@ -22,7 +23,7 @@ each printing one line (``phase=...``) and failing the run on any error:
    planted faults (cur_len one block short; one live selection's valid
    flag cleared) must fail that tolerance.  flash_prefill at the serve
    prefill's shape (q_offset 0, 4096 tokens) and as a chunk continuation
-   (1000 queries after 1000 context keys, neither a whole 64-row tile),
+   (1000 queries after 1000 context keys, neither a whole 128-row tile),
    held per output element to |err| <= 1.25 * 2^-8 W + 2^-7 |ref|, where
    W = sum_j p_j |v_j| / sum_j p_j is the plain version run on |v| (the
    kernel rounds each weight p_j to bf16 before P V, <= 2^-8 W on that
@@ -35,7 +36,16 @@ each printing one line (``phase=...``) and failing the run on any error:
    both.  A move from or to pinned memory is also bounded by the PCIe
    link: a contiguous pinned-to-device copy of the same bytes is timed
    beside it (device-to-pinned for a write back).
-3. serve  — the port's ServingEngine, default config, on qwen2-0.5b at
+3. transfer — the flat FlashH2D gather (gather_blocks) and FlashD2H
+   scatter (scatter_blocks) at benchmarks/bench_transfer.py's shape, a
+   (512, 32, 128) float32 pool and 64 distinct ids: driven once from and
+   into a pinned host pool (the launch counts of their JSON records; no
+   serve path calls them), then held byte for byte against their plain
+   versions from (into) a pinned host pool and a device pool, each timed
+   beside 64 per-block copy_ calls for the same blocks (the paper's
+   FlashH2D comparison), the link copy of the same bytes and the library
+   call on a device-resident pool (index_select, index_copy_).
+4. serve  — the port's ServingEngine, default config, on qwen2-0.5b at
    full width (24 layers, bf16, random weights from --seed): 4 requests of
    4096 prompt tokens and 32 new tokens, wall-clock charging.  Asserts
    every request finished with finite logits, that each kernel of the fp
@@ -47,21 +57,21 @@ each printing one line (``phase=...``) and failing the run on any error:
    flash_prefill's plain version in the kernel's place, for the TTFT
    before the kernel (the kernel is replaced by an explicit patch of
    this script, not by the port).
-4. serve_int8 — the same model, width and submissions with
+5. serve_int8 — the same model, width and submissions with
    offload_quant="int8".  Asserts finished requests with finite logits,
    that flash_prefill and the three quant kernels launched, and that the
    wire bytes per moved block are >= 1.8x smaller than the fp serve's;
    prints the first 8 tokens of each request beside the fp run's.  Its
    quant and int8-move launches from the middle decode step are kept, the
    gathers once for the restore (FlashH2D) and once for the save's flush.
-5. mainpath — the kept launches of both serves replayed: each kernel
+6. mainpath — the kept launches of both serves replayed: each kernel
    against its plain version at the serve paths' own shapes, modes and
    data, with the tolerances of phase 2.  The kernels' JSON record takes
    its times and bounds from here.
-6. async  — the same submissions at full width and 4 layers with
+7. async  — the same submissions at full width and 4 layers with
    stage_dispatch "async" and "sync", fp and int8: greedy tokens and
    transfer counters must be identical.
-7. profile (only when named in --phases) — the serve run again under
+8. profile (only when named in --phases) — the serve run again under
    torch.profiler: device busy time, idle share, largest device consumers.
 
 Before the last line it prints the kernels' JSON record and the card's
@@ -82,7 +92,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM HBM3 (data sheet)
 BF16_OPS_PER_S = 989e12              # H100 SXM dense bf16 tensor peak
-PHASES = ("build", "parity", "serve", "serve_int8", "async")
+PHASES = ("build", "parity", "transfer", "serve", "serve_int8", "async")
 
 KERNELS = {   # name -> (source in this repo, the TPU kernel it replaces)
     "sparse_decode_attention": (
@@ -105,12 +115,28 @@ KERNELS = {   # name -> (source in this repo, the TPU kernel it replaces)
                           "src/repro/kernels/quant_blocks.py:86"),
     "dequantize_scatter_blocks": ("src/repro_torch/csrc/quant_blocks.cu",
                                   "src/repro/kernels/quant_blocks.py:117"),
+    "gather_blocks": ("src/repro_torch/csrc/gather_blocks.cu",
+                      "src/repro/kernels/gather_blocks.py:31"),
+    "scatter_blocks": ("src/repro_torch/csrc/scatter_blocks.cu",
+                       "src/repro/kernels/scatter_blocks.py:29"),
 }
+# the flat FlashH2D / FlashD2H pair: no serve path calls them (in the
+# reference only benchmarks/bench_transfer.py does); the transfer phase
+# drives them
+TRANSFER_PATH = ("gather_blocks", "scatter_blocks")
+# the kernels whose registers and spills the build phase prints
+REGISTER_WATCH = ("flash_prefill", "sparse_decode_attention")
 # the kernels each serve path must launch
 FP_PATH = ("sparse_decode_attention", "block_score", "gather_blocks_hkv",
            "scatter_blocks_hkv", "flash_prefill")
 INT8_PATH = FP_PATH + ("write_blocks_hkv", "quantize_blocks",
                        "dequantize_blocks", "dequantize_scatter_blocks")
+# the __global__ functions of src/repro_torch/csrc (the profile's names)
+PORT_KERNEL_FNS = ("split_kernel", "merge_kernel", "block_score_kernel",
+                   "gather_blocks_kernel", "scatter_blocks_kernel",
+                   "write_blocks_kernel", "flash_prefill_kernel",
+                   "quantize_blocks_kernel", "dequantize_blocks_kernel",
+                   "dequantize_scatter_blocks_kernel")
 # one PyTorch call computing the same function, where there is one; else
 # why not (printed, and null in the JSON record)
 NO_LIBRARY = {
@@ -130,7 +156,11 @@ ATTN_ATOL, ATTN_RTOL = 2e-3, 1e-2
 # |ref|, W = sum_j p_j |v_j| / sum_j p_j (the plain version run on |v|)
 FLASH_WEIGHT_TOL, FLASH_RTOL = 1.25 * 2.0 ** -8, 2.0 ** -7
 SCORE_ATOL, SCORE_RTOL = 1e-3, 1e-4
+SPIN_CYCLES = 200_000                # ~0.1 ms of device clock (Timer)
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 4, 4096, 32
+# benchmarks/bench_transfer.py's real_gather_microbench: a (512, 32, 128)
+# float32 pool, 64 distinct block ids
+XFER_NB, XFER_BS, XFER_D, XFER_K = 512, 32, 128, 64
 
 
 def log(msg: str) -> None:
@@ -146,10 +176,15 @@ def bound_ms(nbytes: float, ops: float) -> tuple:
 class Timer:
     """Median time of one call, each launch timed alone with CUDA events
     after a 256 MB write that evicts the 50 MB L2 (the serving path finds
-    its inputs cold)."""
+    its inputs cold).  A spin of ~0.1 ms on the stream after that write
+    lets the host enqueue the start event and the call before the device
+    reaches them, so a call that is short on the device is timed on the
+    device and not by the host's launch overhead (``spin=False`` leaves the
+    spin out)."""
 
-    def __init__(self, torch):
+    def __init__(self, torch, spin: bool = True):
         self.torch = torch
+        self.spin = spin
         self.flush = torch.empty(64 << 20, dtype=torch.float32,
                                  device="cuda")
 
@@ -160,6 +195,8 @@ class Timer:
         times = []
         for _ in range(reps):
             self.flush.zero_()
+            if self.spin:
+                torch.cuda._sleep(SPIN_CYCLES)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -622,6 +659,138 @@ def phase_parity(torch, ops, ref, timer, seed: int) -> dict:
     return results
 
 
+def case_flat_gather(torch, ops, ref, pool, idx, lib_pool):
+    """gather_blocks from ``pool`` (pinned host or device) with idx on the
+    card; the library call is index_select on the device-resident
+    ``lib_pool``, and from a pinned pool the blocks cross the link."""
+    idx_h = idx.cpu()
+    out = ops.gather_blocks(pool, idx)
+    want = ref.gather_blocks(pool, idx.to(pool.device)).to(idx.device)
+    torch.cuda.synchronize()
+    NB, bs, D = pool.shape
+    K = idx.shape[0]
+    moved = K * bs * D * pool.element_size()
+    on_host = pool.device.type == "cpu"
+    return ((out.float() - want.float()).abs().max().item(),
+            bool(torch.equal(out, want)),
+            lambda: ops.gather_blocks(pool, idx),
+            lambda: ref.gather_blocks(pool, idx_h if on_host else idx).to(
+                idx.device, non_blocking=True),
+            2 * moved + K * 4, 0,
+            f"pool=({NB},{bs},{D}) {str(pool.dtype)[6:]} "
+            f"{'pinned host' if on_host else 'device'} K={K}",
+            lambda: torch.index_select(lib_pool, 0, idx),
+            ("h2d", moved) if on_host else None)
+
+
+def case_flat_scatter(torch, ops, ref, pool, new_kv, dest, lib_pool):
+    """scatter_blocks of a device new_kv into ``pool`` (pinned host or
+    device); the library call is index_copy_ into the device-resident
+    ``lib_pool``, and into a pinned pool the blocks cross the link."""
+    NB, bs, D = pool.shape
+    n = dest.shape[0]
+    on_host = pool.device.type == "cpu"
+    got = pool.clone()
+    got = got.pin_memory() if on_host else got
+    ops.scatter_blocks(got, new_kv, dest)
+    torch.cuda.synchronize()
+    want = ref.scatter_blocks(pool.clone(), new_kv.to(pool.device),
+                              dest.to(pool.device))
+    pool_k = pool.clone().pin_memory() if on_host else pool.clone()
+    pool_p = pool.clone()
+    blocks = new_kv.view(n, bs, D)
+    moved = n * bs * D * pool.element_size()
+    return ((got.float() - want.float()).abs().max().item(),
+            bool(torch.equal(got, want)),
+            lambda: ops.scatter_blocks(pool_k, new_kv, dest),
+            # the plain version takes new_kv to the pool's side first
+            lambda: ref.scatter_blocks(pool_p, new_kv.to(pool.device),
+                                       dest.to(pool.device)),
+            2 * moved + n * 4, 0,
+            f"pool=({NB},{bs},{D}) {str(pool.dtype)[6:]} "
+            f"{'pinned host' if on_host else 'device'} n_new={n}",
+            lambda: lib_pool.index_copy_(0, dest.long(), blocks),
+            ("d2h", moved) if on_host else None)
+
+
+def phase_transfer(torch, ops, ref, timer, seed: int) -> tuple:
+    """The flat FlashH2D gather and FlashD2H scatter at bench_transfer's
+    shape: driven once from and into a pinned host pool with the launch
+    counts set to 0 just before and read just after, then each held byte
+    for byte against its plain version from (into) a pinned host pool and
+    a device pool, and timed beside 64 per-block copy_ calls for the same
+    blocks, the link copy of the same bytes and the library call on a
+    device-resident pool.  Returns ({kernel: {case: result}}, counts)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(seed)
+    NB, bs, D, K = XFER_NB, XFER_BS, XFER_D, XFER_K
+    pool = torch.randn((NB, bs, D), generator=gen)
+    host = pool.clone().pin_memory()
+    on_dev = pool.to(dev)
+    ids = torch.randperm(NB, generator=gen)[:K].to(torch.int32)
+    dest = torch.randperm(NB, generator=gen)[:K].to(torch.int32)
+    new_kv = torch.randn((K * bs, D), generator=gen).to(dev)
+    ids_d, dest_d = ids.to(dev), dest.to(dev)
+
+    ops.launches.reset()
+    got = ops.gather_blocks(host, ids_d)
+    sink = host.clone().pin_memory()
+    ops.scatter_blocks(sink, new_kv, dest_d)
+    torch.cuda.synchronize()
+    counts = ops.launches.snapshot()
+    missing = [k for k in TRANSFER_PATH if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the transfer path: "
+                             f"{missing}")
+    if not (torch.equal(got.cpu(), pool[ids.long()])
+            and torch.equal(sink[dest.long()],
+                            new_kv.cpu().view(K, bs, D))):
+        raise AssertionError("transfer: the driven gather or scatter moved "
+                             "the wrong bytes")
+
+    ids_l, dest_l = ids.tolist(), dest.tolist()
+    out = torch.empty((K, bs, D), device=dev)
+    blocks = new_kv.view(K, bs, D)
+    host_k = host.clone().pin_memory()
+
+    def per_block_gather():
+        for i, b in enumerate(ids_l):
+            out[i].copy_(host[b], non_blocking=True)
+
+    def per_block_scatter():
+        for i, b in enumerate(dest_l):
+            host_k[b].copy_(blocks[i], non_blocking=True)
+
+    results = {}
+    for name, mode, case, per_block in (
+            ("gather_blocks", "pinned", case_flat_gather(
+                torch, ops, ref, host, ids_d, on_dev), per_block_gather),
+            ("gather_blocks", "device", case_flat_gather(
+                torch, ops, ref, on_dev, ids_d, on_dev), None),
+            ("scatter_blocks", "pinned", case_flat_scatter(
+                torch, ops, ref, pool, new_kv, dest_d, on_dev.clone()),
+             per_block_scatter),
+            ("scatter_blocks", "device", case_flat_scatter(
+                torch, ops, ref, on_dev, new_kv, dest_d, on_dev.clone()),
+             None)):
+        label = f"path=transfer mode={mode}"
+        res = run_case("transfer", label, name, case, timer)
+        if per_block is not None:
+            res["per_block_copies_ms"] = timer(per_block)
+            res["launches"] = counts[name]
+            log(f"phase=transfer kernel={name} mode={mode} "
+                f"fused_ms={res['ms']:.4f} per_block_copies_ms="
+                f"{res['per_block_copies_ms']:.4f} ({K} copy_ calls) "
+                f"link_bound_ms={res['link_bound_ms']:.4f} "
+                f"library_ms={res['library_ms']:.4f} "
+                f"fused_vs_per_block="
+                f"{res['per_block_copies_ms'] / res['ms']:.2f}x")
+        results.setdefault(name, {})[label] = res
+    log("phase=transfer launches " + json.dumps(
+        {k: counts[k] for k in TRANSFER_PATH}))
+    return results, counts
+
+
 class MainPathCapture:
     """While active, wraps the kernel wrappers of ``ops`` to count their
     calls per case (scatter splits into its restore mode ``rows`` and its
@@ -733,14 +902,15 @@ def kernel_records(parity: dict, mainpath: dict, counts: dict) -> list:
     under "cases"), else from the qwen2-0.5b parity case; max_abs_err
     over every case.  ``counts``:
     {path: launches by kernel}; a kernel's ``launches`` come from the
-    path that owns it (the int8 serve for the quant trio, the fp serve
-    for the rest)."""
+    path that owns it (the int8 serve for the quant trio, the transfer
+    phase for the flat gather and scatter, the fp serve for the rest)."""
     records = []
     for name in KERNELS:
         cases = mainpath.get(name) or parity.get(name, {})
         if not cases:
             continue
-        owner = "serve" if name in FP_PATH else "serve_int8"
+        owner = ("serve" if name in FP_PATH else "transfer"
+                 if name in TRANSFER_PATH else "serve_int8")
         own = {label: r for label, r in cases.items()
                if label.split()[0] == f"path={owner}"} or cases
         lead = max(own.values(), key=lambda r: r.get("launches", 0))
@@ -758,10 +928,12 @@ def kernel_records(parity: dict, mainpath: dict, counts: dict) -> list:
                                  for path, c in counts.items()},
             "cases": {label: {k: r[k] for k in (
                 "shape", "ms", "plain_ms", "bound_ms", "library_ms",
-                "link_bound_ms", "binds", "launches") if k in r}
+                "link_bound_ms", "binds", "per_block_copies_ms",
+                "launches") if k in r}
                 for label, r in cases.items()}}
-        if "link_bound_ms" in lead:
-            rec["link_bound_ms"] = lead["link_bound_ms"]
+        for key in ("link_bound_ms", "per_block_copies_ms"):
+            if key in lead:
+                rec[key] = lead[key]
         records.append(rec)
     return records
 
@@ -951,6 +1123,13 @@ def phase_profile(torch, np, seed: int) -> None:
     for dev_us, count, key in sorted(rows, reverse=True)[:12]:
         log(f"phase=profile device_ms={dev_us / 1e3:.2f} calls={count} "
             f"kernel={key[:90]}")
+    # the port's own kernels (the __global__ functions of csrc/)
+    for dev_us, count, key in sorted(rows, reverse=True):
+        name = key.split("(anonymous namespace)::")[-1].split("(")[0]
+        if name.split("<")[0] in PORT_KERNEL_FNS:
+            log(f"phase=profile port_kernel={name} device_ms="
+                f"{dev_us / 1e3:.2f} calls={count} "
+                f"share_of_busy={dev_us / 1e6 / busy:.4f}")
 
 
 def phase_async(torch, np, seed: int) -> None:
@@ -986,9 +1165,10 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma-separated subset of build,parity,serve,"
-                         "serve_int8,async (serve and serve_int8 include "
-                         "their mainpath replays; serve_int8 needs serve) "
+                    help="comma-separated subset of build,parity,transfer,"
+                         "serve,serve_int8,async (serve and serve_int8 "
+                         "include their mainpath replays; serve_int8 needs "
+                         "serve) "
                          "plus the optional profile")
     args = ap.parse_args()
     phases = args.phases.split(",")
@@ -1014,10 +1194,18 @@ def main() -> int:
             for k, v in LIBS.ptxas_info.items()}
     log(f"phase=build seconds={secs:.1f} rebuilt={LIBS.rebuilt} "
         f"ptxas={json.dumps(regs)}")
+    for name in REGISTER_WATCH:
+        for line in LIBS.ptxas_info[name].splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"phase=build kernel={name} ptxas: "
+                    + line.split("ptxas info    : ")[-1].strip())
     timer = Timer(torch)
     parity, mainpath, counts, caps = {}, {}, {}, {}
     if "parity" in phases:
         parity = phase_parity(torch, ops, ref, timer, args.seed)
+    if "transfer" in phases:
+        mainpath, counts["transfer"] = phase_transfer(torch, ops, ref, timer,
+                                                      args.seed)
     if "serve" in phases:
         fp, caps["serve"] = phase_serve(torch, np, ops, ref, args.seed)
         counts["serve"] = fp["counts"]
@@ -1025,7 +1213,7 @@ def main() -> int:
             q8, caps["serve_int8"] = phase_serve_int8(torch, np, ops,
                                                       args.seed, fp)
             counts["serve_int8"] = q8["counts"]
-        mainpath = phase_mainpath(torch, ops, ref, timer, caps)
+        mainpath.update(phase_mainpath(torch, ops, ref, timer, caps))
         caps.clear()
     records = kernel_records(parity, mainpath, counts)
     if "async" in phases:

@@ -12,82 +12,65 @@
 // What bounds it: operations.  4 * Hq * D flops per visible (query, key)
 // pair against 2 bytes per element read once: at a 4096-token prompt that
 // is thousands of flops per byte, far above the ~295 at which the H100's
-// tensor cores, not HBM, are the limit.
+// tensor cores, not HBM, are the limit; only wgmma reaches their rate.
 //
-// Design (FlashAttention-2 on mma.sync): one CTA of 4 warps per (query
-// tile of 64 rows, query head, batch row), heavy tiles (near the end of
-// the prompt) first.  The Pallas grid's sequential key axis is a loop
-// inside the CTA: K/V tiles of 64 keys are double-buffered in shared
-// memory with cp.async (rows padded by 16 bytes so ldmatrix is free of
-// bank conflicts; rows past Sk are zero-filled, so a masked probability
-// never meets garbage), the loop stops at the causal diagonal of the
-// tile's last real query, and each warp owns 16 query rows whose Q
-// fragments stay in registers.  S = Q K^T and O += P V run on the tensor
-// cores as m16n8k16 bf16 products accumulating in float32; the online
-// softmax is float32 in the log2 domain; P is rounded to bf16 for the
-// P V product (the usual FlashAttention choice).  Keys of other query
-// heads of the GQA group are re-read from L2, not shared between CTAs.
-// Head dims 64 and 128 are instantiated.
+// Design (FlashAttention-3 in shape): one CTA of three warpgroups per
+// (query tile of 128 rows, query head, batch row), heavy tiles (near the
+// end of the prompt) first.  Warpgroup 0 is the producer: after
+// `setmaxnreg` gives its registers to the consumers, one thread issues TMA
+// loads (cp.async.bulk.tensor, 4-D maps over (D, H, S, B), 128-byte
+// swizzle) of the Q tile once and of K and V tiles of 128 keys into a ring
+// of 4 (D 64) or 3 (D 128: 225 KB of shared memory in all) stages, each guarded by a "full" mbarrier that
+// counts the bytes landed and an "empty" one the consumers arrive on.
+// TMA zero-fills rows past Sq and Sk within each batch row, so a masked
+// weight never meets garbage.  Warpgroups 1 and 2 each own 64 query rows:
+// S = Q K^T is wgmma m64n128k16 with both operands in shared memory
+// (K-major), the online softmax runs in registers in float32 in the log2
+// domain, P is rounded to bf16 in registers (the usual FlashAttention
+// choice) and is the register A operand of O += P V, wgmma m64nDk16 with V
+// read from shared memory transposed (imm-trans-b), so V needs no
+// transpose in memory.  Within a warpgroup the two products are issued
+// asynchronously so that the softmax of tile j runs while the tensor cores
+// do P V of tile j - 1 (wgmma.wait_group 1); the weights are exp2 of one
+// FMA each (ex2.approx).  FlashAttention-3's ping-pong (the two
+// warpgroups taking turns at the tensor cores through named barriers) was
+// slower on the H100 and is not used (PERF.md).  Only tiles that cross a
+// row's causal diagonal or Sk are masked; tiles past the diagonal of a
+// warpgroup's last real query are skipped (it still releases their
+// stage).  Head dims 64 and 128 (two 64-element slabs of 128 bytes) are
+// instantiated.  The GQA group is not folded: each query head's CTA loads
+// its K/V tiles, which the group's other heads read again from L2.
+//
+// The TMA descriptors are encoded on the host per launch (the pointers
+// change) with the driver API's cuTensorMapEncodeTiled, and passed as
+// __grid_constant__ parameters.  The library links only the CUDA runtime:
+// the driver function is fetched once through the runtime
+// (cudaGetDriverEntryPoint), so the build needs no libcuda.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kBr = 64;   // query rows per CTA, 16 per warp
-constexpr int kBc = 64;   // keys per tile
+constexpr int kBr = 128;   // query rows per CTA: 64 per consumer warpgroup
+constexpr int kBc = 128;   // keys per K/V tile
+constexpr int kThreads = 384;
+constexpr int kSlabBytesQ = kBr * 128;   // one 64-column slab of the Q tile
+constexpr int kSlabBytesKV = kBc * 128;  // one 64-column slab of a K/V tile
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
 typedef __nv_bfloat16 bf16;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy; src_bytes 0 zero-fills the destination
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+template <int D> struct Cfg {
+  static constexpr int kSlabs = D / 64;
+  // the consumers hold two tiles at once (P V of one overlaps the softmax
+  // of the next), so a third stage (a fourth at D 64) keeps a load ahead
+  static constexpr int kStages = D == 64 ? 4 : 3;
+  static constexpr int kQBytes = kSlabs * kSlabBytesQ;
+  static constexpr int kTileBytes = kSlabs * kSlabBytesKV;   // K or V
+  static constexpr int kSmem =
+      1024 + kQBytes + kStages * 2 * kTileBytes;   // + alignment slack
+};
 
 // two floats -> bf16x2, the lower column in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -95,216 +78,348 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// issue S = Q K^T of one tile (64 rows of the Q tile at qc, the 128 keys of
+// the K tile at ks): the accumulator fragment s[4 n + e]
 template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          size_t row_stride, int row0,
-                                          int rows_valid, int tid) {
-  constexpr int kStride = D + 8;
-  constexpr int kChunks = D / 8;   // 16-byte chunks per row
+__device__ __forceinline__ void issue_s(float* s, const unsigned char* qc,
+                                        const unsigned char* ks) {
 #pragma unroll
-  for (int i = tid; i < kBr * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c = (i % kChunks) * 8;
-    const bool ok = row0 + r < rows_valid;
-    const bf16* g = src + (size_t)(ok ? row0 + r : 0) * row_stride + c;
-    cp_async16(dst + r * kStride + c, g, ok);
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int sl = kk / 4, off = (kk % 4) * 32;
+    wgmma_m64n128k16_ss(s, sw128_desc(qc + sl * kSlabBytesQ + off, 16, 1024),
+                        sw128_desc(ks + sl * kSlabBytesKV + off, 16, 1024),
+                        kk > 0);
+  }
+  wgmma_commit();
+}
+
+// issue O += P V of one tile: V (keys x D) at vs read transposed, 16 keys
+// (2048 bytes) per k-step, 64-column slabs kSlabBytesKV apart
+template <int D>
+__device__ __forceinline__ void issue_pv(float* o, uint32_t (*p)[4],
+                                         const unsigned char* vs) {
+#pragma unroll
+  for (int kk = 0; kk < kBc / 16; ++kk) {
+    const uint64_t desc = sw128_desc(vs + kk * 16 * 128, kSlabBytesKV, 1024);
+    if constexpr (D == 64)
+      wgmma_m64n64k16_rs_tb(o, p[kk], desc, 1);
+    else
+      wgmma_m64n128k16_rs_tb(o, p[kk], desc, 1);
+  }
+  wgmma_commit();
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// the online-softmax state of one thread's two rows (row0 and row0 + 8)
+struct Rows {
+  int qpos0;          // absolute position of row0
+  int Sk;
+  int quad;           // lane & 3: the thread's column pair in each 8-key chunk
+  float scale_log2;   // scale * log2(e)
+  float m[2];         // running max, log2 domain
+  float l[2];         // running sum of weights
+};
+
+// One K/V tile's online-softmax step, in place on the raw scores s (the
+// accumulator fragment of the tile's 128 keys, kbase the first key): keys
+// past a row's diagonal or Sk get weight 0 (checked only where the tile
+// crosses them), the others exp2(s * scale_log2 - m); updates m and l and
+// writes the factors that rescale the rows' earlier output into corr.  A
+// masked score counts as -1e30 in the max: every row sees key 0 in its
+// first tile, so m is finite from then on.
+__device__ __forceinline__ void softmax_tile(float* s, float* corr, Rows& r,
+                                             int kbase, bool masked) {
+  if (masked) {
+#pragma unroll
+    for (int n = 0; n < kBc / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kpos = kbase + n * 8 + 2 * r.quad + (e & 1);
+        const int qp = r.qpos0 + (e < 2 ? 0 : 8);
+        if (kpos > qp || kpos >= r.Sk) s[4 * n + e] = kNegInf;
+      }
+  }
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int n = 0; n < kBc / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * n + e]);
+  float neg_m[2], rsum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    const float m_new = fmaxf(r.m[i], mx[i] * r.scale_log2);
+    corr[i] = ex2(r.m[i] - m_new);
+    r.m[i] = m_new;
+    neg_m[i] = -m_new;
+  }
+#pragma unroll
+  for (int n = 0; n < kBc / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float w = ex2(fmaf(s[4 * n + e], r.scale_log2, neg_m[e >> 1]));
+      s[4 * n + e] = w;
+      rsum[e >> 1] += w;
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    rsum[i] += __shfl_xor_sync(0xffffffffu, rsum[i], 1);
+    rsum[i] += __shfl_xor_sync(0xffffffffu, rsum[i], 2);
+    r.l[i] = r.l[i] * corr[i] + rsum[i];
+  }
+}
+
+// the weights of a tile (softmax_tile's s) rounded to bf16 as the A
+// fragments of P V: keys 16 kk .. 16 kk + 15 are chunks 2 kk and 2 kk + 1,
+// rows row0 (e 0, 1) and row0 + 8 (e 2, 3)
+__device__ __forceinline__ void pack_p(const float* s, uint32_t (*p)[4]) {
+#pragma unroll
+  for (int kk = 0; kk < kBc / 16; ++kk) {
+    p[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+    p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ out,
-                     int Sq, int Sk, int Hq, int Hkv, int G, int q_offset,
-                     float scale_log2) {
-  constexpr int kStride = D + 8;   // padded shared-memory row, elements
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);   // kBr rows
-  bf16* k_s = q_s + kBr * kStride;                 // 2 stages of kBc rows
-  bf16* v_s = k_s + 2 * kBc * kStride;             // 2 stages of kBc rows
+__global__ void __launch_bounds__(kThreads, 1)
+flash_prefill_kernel(const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map,
+                     bf16* __restrict__ out, int Sq, int Sk, int Hq, int G,
+                     int q_offset, float scale_log2) {
+  using C = Cfg<D>;
+  constexpr int S = C::kStages;
+  __shared__ __align__(8) uint64_t q_full, full[S], empty[S];
+  extern __shared__ unsigned char smem_raw[];
+  // TMA's 128-byte swizzle and the wgmma descriptors need 1024-byte atoms
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* q_s = smem;
+  unsigned char* kv_s = smem + C::kQBytes;   // stage st: K, then V
 
   const int qt = gridDim.x - 1 - blockIdx.x;   // heavy tiles first
   const int hq = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = hq / G;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
   const int q0 = qt * kBr;
-
-  const size_t q_row = (size_t)Hq * D;    // elements between tokens
-  const size_t kv_row = (size_t)Hkv * D;
-  const bf16* qb = q + (size_t)b * Sq * q_row + (size_t)hq * D;
-  const bf16* kb = k + (size_t)b * Sk * kv_row + (size_t)hk * D;
-  const bf16* vb = v + (size_t)b * Sk * kv_row + (size_t)hk * D;
-
   // keys up to the causal diagonal of the tile's last real query
   const int last_q = min(q0 + kBr, Sq) - 1;
   const int k_end = min(Sk, q_offset + last_q + 1);
   const int n_tiles = k_end > 0 ? (k_end + kBc - 1) / kBc : 0;
 
-  load_tile<D>(q_s, qb, q_row, q0, Sq, tid);
-  if (n_tiles > 0) {
-    load_tile<D>(k_s, kb, kv_row, 0, Sk, tid);
-    load_tile<D>(v_s, vb, kv_row, 0, Sk, tid);
+  if (threadIdx.x == 0) {
+    mbar_init(&q_full, 1);
+    for (int i = 0; i < S; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 256);   // every consumer thread arrives
+    }
+    fence_barrier_init();
   }
-  cp_async_commit();
+  __syncthreads();
 
-  const int g = lane >> 2;   // row within the 8-row half of the fragment
-  const int t = lane & 3;    // column pair
-  const int row0 = q0 + warp * 16 + g;   // this thread's rows: row0, +8
-  const int qpos0 = q_offset + row0;
-  const int qpos1 = qpos0 + 8;
-
-  uint32_t qf[D / 16][4];
-  float o[D / 8][4];
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.f, 0.f};
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int st = j & 1;
-    if (j + 1 < n_tiles) {   // prefetch the next tile into the other stage
-      load_tile<D>(k_s + (st ^ 1) * kBc * kStride, kb, kv_row,
-                   (j + 1) * kBc, Sk, tid);
-      load_tile<D>(v_s + (st ^ 1) * kBc * kStride, vb, kv_row,
-                   (j + 1) * kBc, Sk, tid);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();   // every group but the newest: tile j has landed
-    __syncthreads();
-    if (j == 0) {
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        ldmatrix_x4(qf[kk], q_s + (warp * 16 + (lane & 15)) * kStride +
-                                kk * 16 + (lane >> 4) * 8);
-    }
-    const bf16* ks = k_s + st * kBc * kStride;
-    const bf16* vs = v_s + st * kBc * kStride;
-
-    // S = Q K^T for this warp's 16 rows and the tile's 64 keys
-    float s[kBc / 8][4];
-#pragma unroll
-    for (int n = 0; n < kBc / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int nn = 0; nn < kBc / 16; ++nn) {
-        uint32_t bfrag[4];
-        ldmatrix_x4(bfrag, ks + (nn * 16 + (lane & 7) + ((lane >> 4) << 3)) *
-                                    kStride +
-                               kk * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * nn], qf[kk], bfrag[0], bfrag[1]);
-        mma_bf16(s[2 * nn + 1], qf[kk], bfrag[2], bfrag[3]);
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // producer: one thread keeps the ring of K/V tiles filled
+    setmaxnreg_dec<24>();
+    if (threadIdx.x != 0) return;
+    mbar_arrive_expect_tx(&q_full, C::kQBytes);
+    for (int sl = 0; sl < C::kSlabs; ++sl)
+      tma_load_4d(q_s + sl * kSlabBytesQ, &q_map, &q_full, sl * 64, hq, q0,
+                  b);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int st = j % S;
+      if (j >= S) mbar_wait(&empty[st], ((j / S) - 1) & 1);
+      mbar_arrive_expect_tx(&full[st], 2 * C::kTileBytes);
+      unsigned char* ks = kv_s + st * 2 * C::kTileBytes;
+      unsigned char* vs = ks + C::kTileBytes;
+      for (int sl = 0; sl < C::kSlabs; ++sl) {
+        tma_load_4d(ks + sl * kSlabBytesKV, &k_map, &full[st], sl * 64, hk,
+                    j * kBc, b);
+        tma_load_4d(vs + sl * kSlabBytesKV, &v_map, &full[st], sl * 64, hk,
+                    j * kBc, b);
       }
     }
+    return;
+  }
 
-    // mask, online softmax (log2 domain)
-    const int kbase = j * kBc;
-    float mx[2] = {m[0], m[1]};
+  // consumers: warpgroup c owns query rows q0 + 64 c .. + 63
+  setmaxnreg_inc<240>();
+  const int c = wg - 1;
+  const int t128 = threadIdx.x - 128 * wg;
+  const int warp = t128 >> 5;
+  const int lane = t128 & 31;
+  const int r_base = q0 + 64 * c;
+  const int row0 = r_base + warp * 16 + (lane >> 2);   // and row0 + 8
+  const int quad = lane & 3;
+  // tiles this warpgroup needs: up to the diagonal of its last real row
+  int n_own = 0;
+  if (r_base < Sq) {
+    const int own_end = min(Sk, q_offset + min(r_base + 63, Sq - 1) + 1);
+    n_own = own_end > 0 ? (own_end + kBc - 1) / kBc : 0;
+  }
+  Rows rows{q_offset + row0, Sk, quad, scale_log2,
+            {kNegInf, kNegInf}, {0.f, 0.f}};
+
+  float o[D / 2];
 #pragma unroll
-    for (int n = 0; n < kBc / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kpos = kbase + n * 8 + 2 * t + (e & 1);
-        const int qp = e < 2 ? qpos0 : qpos1;
-        const bool ok = kpos <= qp && kpos < Sk;
-        s[n][e] = ok ? s[n][e] * scale_log2 : kNegInf;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
-      }
-    }
-    float corr[2], rsum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      corr[r] = exp2f(m[r] - mx[r]);
-      m[r] = mx[r];
-    }
-#pragma unroll
-    for (int n = 0; n < kBc / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = s[n][e] > 0.5f * kNegInf
-                            ? exp2f(s[n][e] - m[e >> 1]) : 0.f;
-        s[n][e] = p;
-        rsum[e >> 1] += p;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      rsum[r] += __shfl_xor_sync(0xffffffffu, rsum[r], 1);
-      rsum[r] += __shfl_xor_sync(0xffffffffu, rsum[r], 2);
-      l[r] = l[r] * corr[r] + rsum[r];
-    }
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float s[kBc / 2];          // S of the newest tile, then its weights
+  uint32_t p[kBc / 16][4];   // P of the tile whose P V is next or in flight
+  float corr[2];
+
+  mbar_wait(&q_full, 0);
+  const unsigned char* qc = q_s + c * 64 * 128;   // this warpgroup's rows
+  auto tile = [&](int j) { return kv_s + (j % S) * 2 * C::kTileBytes; };
+  auto masked = [&](int j) {   // does tile j cross a row's diagonal or Sk?
+    return j * kBc + kBc - 1 > q_offset + r_base || j * kBc + kBc > Sk;
+  };
+
+  // Software pipeline within the warpgroup: the softmax of tile j runs
+  // while the tensor cores do P V of tile j - 1.  Every register a wgmma
+  // reads is fenced (fence_regs) before the wgmma.fence that opens its
+  // group, and the softmax between the two waits writes only S's
+  // registers, whose group has completed: otherwise ptxas serializes the
+  // wgmmas.
+  if (n_own > 0) {
+    mbar_wait(&full[0], 0);
+    fence_regs<kBc / 2>(s);
+    wgmma_fence();
+    issue_s<D>(s, qc, tile(0));
+    wgmma_wait<0>();
+    fence_regs<kBc / 2>(s);
+    softmax_tile(s, corr, rows, 0, masked(0));
+    pack_p(s, p);
+  }
+  for (int j = 1; j < n_own; ++j) {
+    mbar_wait(&full[j % S], (j / S) & 1);
+    fence_regs<kBc / 2>(s);
+    fence_regs<D / 2>(o);
+    fence_regs<kBc / 4>(&p[0][0]);
+    wgmma_fence();
+    issue_s<D>(s, qc, tile(j));
+    issue_pv<D>(o, p, tile(j - 1) + C::kTileBytes);
+    wgmma_wait<1>();   // S of tile j has landed; P V of j - 1 may not have
+    fence_regs<kBc / 2>(s);
+    softmax_tile(s, corr, rows, j * kBc, masked(j));
+    wgmma_wait<0>();
+    fence_regs<D / 2>(o);
+    fence_regs<kBc / 4>(&p[0][0]);
+    mbar_arrive(&empty[(j - 1) % S]);   // K and V of tile j - 1 are read
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
-      o[n][0] *= corr[0];
-      o[n][1] *= corr[0];
-      o[n][2] *= corr[1];
-      o[n][3] *= corr[1];
+      o[4 * n] *= corr[0];
+      o[4 * n + 1] *= corr[0];
+      o[4 * n + 2] *= corr[1];
+      o[4 * n + 3] *= corr[1];
     }
-
-    // O += P V, P from the S accumulators as bf16 A fragments
-#pragma unroll
-    for (int kk = 0; kk < kBc / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int dn = 0; dn < D / 16; ++dn) {
-        uint32_t bfrag[4];
-        ldmatrix_x4_trans(
-            bfrag, vs + (kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3)) *
-                            kStride +
-                       dn * 16 + (lane >> 4) * 8);
-        mma_bf16(o[2 * dn], a, bfrag[0], bfrag[1]);
-        mma_bf16(o[2 * dn + 1], a, bfrag[2], bfrag[3]);
-      }
-    }
-    __syncthreads();   // this stage's reads are done before it is refilled
+    pack_p(s, p);
   }
-  cp_async_wait<0>();
+  if (n_own > 0) {
+    fence_regs<D / 2>(o);
+    fence_regs<kBc / 4>(&p[0][0]);
+    wgmma_fence();
+    issue_pv<D>(o, p, tile(n_own - 1) + C::kTileBytes);
+    wgmma_wait<0>();
+    fence_regs<D / 2>(o);
+    fence_regs<kBc / 4>(&p[0][0]);
+    mbar_arrive(&empty[(n_own - 1) % S]);
+  }
+  // tiles past this warpgroup's rows: release them unread
+  for (int j = n_own; j < n_tiles; ++j) {
+    mbar_wait(&full[j % S], (j / S) & 1);
+    mbar_arrive(&empty[j % S]);
+  }
 
+  const float* l = rows.l;
   const float inv0 = 1.f / fmaxf(l[0], 1e-30f);
   const float inv1 = 1.f / fmaxf(l[1], 1e-30f);
+  const size_t q_row = (size_t)Hq * D;   // elements between tokens
   bf16* ob = out + (size_t)b * Sq * q_row + (size_t)hq * D;
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
-    const int d = n * 8 + 2 * t;
+    const int d = n * 8 + 2 * quad;
     if (row0 < Sq)
       *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row0 * q_row + d) =
-          __floats2bfloat162_rn(o[n][0] * inv0, o[n][1] * inv0);
+          __floats2bfloat162_rn(o[4 * n] * inv0, o[4 * n + 1] * inv0);
     if (row0 + 8 < Sq)
       *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)(row0 + 8) * q_row +
                                          d) =
-          __floats2bfloat162_rn(o[n][2] * inv1, o[n][3] * inv1);
+          __floats2bfloat162_rn(o[4 * n + 2] * inv1, o[4 * n + 3] * inv1);
   }
 }
+
+using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
+
+// The driver's cuTensorMapEncodeTiled, fetched once through the runtime
+// (nullptr if the driver does not have it).
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A 4-D map over a (B, S, H, D) bf16 tensor, dims innermost first
+// (D, H, S, B), boxes of 64 columns x 1 head x `rows` tokens x 1 batch row
+// (128-byte rows, swizzled); reads past S within a batch row give zeros.
+CUresult make_map(CUtensorMap* map, const void* ptr, int B, int S, int H,
+                  int D, int rows) {
+  const cuuint64_t s1 = S > 0 ? S : 1;   // a map needs non-empty dims
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, s1,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
+                                 s1 * H * D * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
+  return encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// driver-API failures are reported past the runtime's error codes
+constexpr int kDriverError = 100000;
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int Sq, int Sk, int Hq, int Hkv, int q_offset, float scale,
            cudaStream_t stream) {
-  const size_t smem = sizeof(bf16) * (size_t)(kBr + 4 * kBc) * (D + 8);
+  CUtensorMap qm, km, vm;
+  CUresult r = make_map(&qm, q, B, Sq, Hq, D, kBr);
+  if (r == CUDA_SUCCESS) r = make_map(&km, k, B, Sk, Hkv, D, kBc);
+  if (r == CUDA_SUCCESS) r = make_map(&vm, v, B, Sk, Hkv, D, kBc);
+  if (r != CUDA_SUCCESS) return kDriverError + (int)r;
   auto kern = flash_prefill_kernel<D>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<D>::kSmem);
+  if (e != cudaSuccess) return (int)e;
   const dim3 grid((Sq + kBr - 1) / kBr, Hq, B);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), Sq, Sk, Hq, Hkv,
-      Hq / Hkv, q_offset, scale * kLog2e);
+  kern<<<grid, kThreads, Cfg<D>::kSmem, stream>>>(
+      qm, km, vm, static_cast<bf16*>(out), Sq, Sk, Hq, Hq / Hkv, q_offset,
+      scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -312,7 +427,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 // bfloat16, causal, D == Dv in {64, 128}.  Limits checked by the wrapper:
 // contiguous (B, S, H, D) tensors, 16-byte aligned, Hq % Hkv == 0,
-// q_offset >= 0.
+// q_offset >= 0.  Returns a runtime error code, or 100000 + a driver
+// error code if a TMA descriptor could not be encoded.
 extern "C" int launch_flash_prefill(const void* q, const void* k,
                                     const void* v, void* out, int B, int Sq,
                                     int Sk, int Hq, int Hkv, int D,

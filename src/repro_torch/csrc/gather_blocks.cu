@@ -1,8 +1,10 @@
-// FlashH2D block gather (head-major) for Hopper.
+// FlashH2D block gather for Hopper.
 //
-// Replaces the Pallas TPU kernel `gather_blocks_hkv` in
+// Replaces the Pallas TPU kernels `gather_blocks_hkv` in
 // src/repro/kernels/gather_blocks.py: pool (H, NB, bs, D), idx (K,) ->
-// out (H, K, bs, D), every (head, block) copied whole.
+// out (H, K, bs, D), every (head, block) copied whole; and `gather_blocks`
+// in the same file, the flat form pool (NB, bs, D) -> (K, bs, D), which is
+// the H = 1 case of the same kernel (entry `launch_gather_blocks`).
 //
 // The source may be a pinned host tensor (the host KV pool): the kernel
 // then reads it in place through its device-mapped address, so the gather
@@ -83,4 +85,15 @@ extern "C" int launch_gather_blocks_hkv(const void* src_base,
         reinterpret_cast<const uint32_t*>(src), static_cast<const int*>(idx),
         static_cast<uint32_t*>(dst), NB, K, block_bytes / 4);
   return (int)cudaGetLastError();
+}
+
+// The flat FlashH2D gather: pool (NB, bs, D) at src_base + src_offset
+// (device memory, or pinned host memory read in place when src_on_host !=
+// 0), idx (K,) -> dst (K, bs, D); the H = 1 case of the head-major gather.
+extern "C" int launch_gather_blocks(const void* src_base, long long src_offset,
+                                    int src_on_host, const void* idx,
+                                    void* dst, int NB, int K,
+                                    long long block_bytes, void* stream) {
+  return launch_gather_blocks_hkv(src_base, src_offset, src_on_host, idx,
+                                  dst, 1, NB, K, block_bytes, stream);
 }

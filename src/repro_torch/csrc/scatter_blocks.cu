@@ -15,6 +15,14 @@
 // scales into the DRAM pool (the device-to-host half of FlashD2H), one
 // launch per tensor.
 //
+// The same byte-generic kernel at H = 1 (entry `launch_scatter_blocks`,
+// wrapper `scatter_blocks`) replaces the flat Pallas kernel
+// `scatter_blocks` in src/repro/kernels/scatter_blocks.py: new_kv
+// (n_new * bs, D), contiguous, lands block by block in pool (NB, bs, D)
+// blocks dest[i], byte for byte, untouched blocks persisting.  The pool may
+// be a pinned host pool written through its device-mapped address: the
+// second phase of FlashD2H (placing a contiguous flush into paged blocks).
+//
 // What bounds it: bytes: H * K blocks read once and written once (into a
 // host pool, over the PCIe link).
 //
@@ -134,4 +142,18 @@ extern "C" int launch_write_blocks_hkv(
         static_cast<const int*>(blocks), dst, head_stride, block_stride, NB,
         K, block_bytes / 4);
   return (int)cudaGetLastError();
+}
+
+// The flat FlashD2H scatter: new_kv (n_new, block_bytes) contiguous into
+// blocks dest[i] of the (NB, block_bytes) pool at dst_base + dst_offset
+// (device memory, or pinned host memory when dst_on_host != 0), byte for
+// byte; the H = 1 case of write_blocks.
+extern "C" int launch_scatter_blocks(const void* new_kv, const void* dest,
+                                     void* dst_base, long long dst_offset,
+                                     int dst_on_host, int NB, int n_new,
+                                     long long block_bytes, void* stream) {
+  return launch_write_blocks_hkv(new_kv, dest, dst_base, dst_offset,
+                                 dst_on_host, (long long)NB * block_bytes,
+                                 block_bytes, 1, NB, n_new, block_bytes,
+                                 stream);
 }

@@ -8,194 +8,358 @@
 // (sel_valid) and below cur_len[b].  A row with no valid position is 0 (the
 // softmax denominator is clamped to 1e-30, as in the Pallas kernel).
 //
-// What bounds it: bytes.  Per (request, kv-head) it reads K blocks of K and
-// V (K * bs * (D + Dv) elements) and does ~2 * G * (D + Dv) flops per
-// element pair read: G = 7 (qwen2-0.5b) or 4 (llama3-8b) flops per byte of
-// bf16, far below the ~295 the H100 needs before the tensor cores bind.
+// What bounds it: bytes and latency.  Per (request, kv-head) it reads K
+// blocks of K and V (K * bs * (D + Dv) elements) and does ~2 * G * (D + Dv)
+// flops per element pair read: G = 7 (qwen2-0.5b) or 4 (llama3-8b) flops
+// per byte of bf16, far below the ~295 at which the H100's tensor cores
+// bind.  At decode batch sizes the bytes are few (4 MB at the serve's
+// B 4 x Hkv 2 x K 64 x bs 32 x D 64), so two dependent DRAM round trips
+// and a second launch set the floor.
 //
-// Design: one CTA of 4 warps per (request, kv-head), which loads its own
-// block ids and walks the K blocks in order with an online softmax in f32.
-// Each block of K and V is staged in shared memory with 16-byte vector
-// loads (K rows padded by one float, so the per-token dot products are free
-// of bank conflicts); the whole GQA group (any G <= 16, not only powers of
-// two) shares the staged block, warp w owning query heads w, w+4, ...
-// Lanes own tokens for the scores and head dims for the accumulator.
-// Blocks that are invalid or lie wholly beyond cur_len are skipped, which
-// leaves the online-softmax state exactly as the masked update would.
-// Known limit: B * Hkv CTAs fill only a small part of the 132 SMs at decode
-// batch sizes; splitting K across CTAs (flash-decoding) is later work.
+// Design (flash-decoding): the K selected blocks of each (request, kv-head)
+// are split into runs of ceil(K / splits) blocks, one CTA of 8 warps per
+// (split, kv-head, request), so B * Hkv * splits CTAs fill the 132 SMs
+// (the wrapper picks splits >= 2 * 132 / (B * Hkv) where K allows, and
+// runs of at most 4 blocks, since a CTA walks its run in turn).  Each
+// CTA compacts its run's live ids (valid, in range, starting below
+// cur_len: a CTA-uniform skip that leaves the softmax state exactly as the
+// masked update would), then streams their K and V blocks as bf16 into
+// shared memory with cp.async, double-buffered (each block one contiguous
+// run; K rows padded by 16 bytes so the per-token 16-byte reads are free of
+// bank conflicts).  Per block: scores of every (head of the GQA group,
+// token) pair into shared memory, one warp per head for the online-softmax
+// update (max, exp, sum, kept in shared memory), then the P V update with
+// each thread owning up to 4 (head, pair of value dims) float32
+// accumulators, so no register array is indexed by heads and dims at once
+// (ptxas: no spills).  All arithmetic is float32 FMA: the kernel is bound by
+// bytes, not operations.  Each CTA writes its unnormalised partial
+// (acc, m, l) in float32 to scratch the wrapper allocates; a second kernel
+// merges the splits of each (request, query head) by log-sum-exp and
+// writes bf16.  A split with no live block writes m = -1e30, l = 0,
+// acc = 0, which the merge weights by 0 (or, when every split is empty,
+// turns into an output of 0).
 #include "common.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
+constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kMaxHeadsPerWarp = 4;   // G <= 16
-constexpr int kMaxDimChunks = 4;      // D, Dv <= 128
-constexpr int kMaxTokChunks = 4;      // bs <= 128
+constexpr int kMaxItems = 4;   // (head, value-dim pair) items per thread:
+                               // G * Dv / 2 <= 16 * 64 = 4 * kThreads
 constexpr float kNegInf = -1e30f;
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-sparse_decode_attention_kernel(const T* __restrict__ q,
-                               const T* __restrict__ k_pool,
-                               const T* __restrict__ v_pool,
-                               const int* __restrict__ block_idx,
-                               const uint8_t* __restrict__ sel_valid,
-                               const int* __restrict__ cur_len,
-                               T* __restrict__ out, int Hkv, int NB, int bs,
-                               int D, int Dv, int K, int G, float scale) {
-  extern __shared__ float smem[];
-  float* q_s = smem;                  // G * D
-  float* k_s = q_s + G * D;           // bs * (D + 1)
-  float* v_s = k_s + bs * (D + 1);    // bs * Dv
-  constexpr int kVec = 16 / sizeof(T);
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
 
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
+struct Smem {
+  float* q;       // G * D
+  float* sc;      // G * bs: scores, then weights
+  float* m;       // G
+  float* l;       // G
+  float* corr;    // G
+  int* ids;       // per: the run's live block ids
+  int* n_live;    // 1
+  __nv_bfloat16* k;   // 2 stages x bs x (D + 8)
+  __nv_bfloat16* v;   // 2 stages x bs x Dv
+};
+
+__host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~15; }
+
+// byte offsets of the Smem fields, shared by the kernel and the launch
+struct SmemLayout {
+  size_t q, sc, m, l, corr, ids, n_live, k, v, total;
+  __host__ __device__ SmemLayout(int G, int D, int Dv, int bs, int per) {
+    q = 0;
+    sc = q + sizeof(float) * G * D;
+    m = sc + sizeof(float) * G * bs;
+    l = m + sizeof(float) * G;
+    corr = l + sizeof(float) * G;
+    ids = corr + sizeof(float) * G;
+    n_live = ids + sizeof(int) * per;
+    k = align16(n_live + sizeof(int));
+    v = k + sizeof(__nv_bfloat16) * 2 * bs * (D + 8);
+    total = v + sizeof(__nv_bfloat16) * 2 * bs * Dv;
+  }
+};
+
+__global__ void __launch_bounds__(kThreads)
+split_kernel(const __nv_bfloat16* __restrict__ q,
+             const __nv_bfloat16* __restrict__ k_pool,
+             const __nv_bfloat16* __restrict__ v_pool,
+             const int* __restrict__ block_idx,
+             const uint8_t* __restrict__ sel_valid,
+             const int* __restrict__ cur_len, float* __restrict__ part_o,
+             float* __restrict__ part_ml, int Hkv, int NB, int bs, int D,
+             int Dv, int K, int G, int per, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int split = blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int splits = gridDim.x;
+  const SmemLayout lay(G, D, Dv, bs, per);
+  Smem s;
+  s.q = reinterpret_cast<float*>(smem_raw + lay.q);
+  s.sc = reinterpret_cast<float*>(smem_raw + lay.sc);
+  s.m = reinterpret_cast<float*>(smem_raw + lay.m);
+  s.l = reinterpret_cast<float*>(smem_raw + lay.l);
+  s.corr = reinterpret_cast<float*>(smem_raw + lay.corr);
+  s.ids = reinterpret_cast<int*>(smem_raw + lay.ids);
+  s.n_live = reinterpret_cast<int*>(smem_raw + lay.n_live);
+  s.k = reinterpret_cast<__nv_bfloat16*>(smem_raw + lay.k);
+  s.v = reinterpret_cast<__nv_bfloat16*>(smem_raw + lay.v);
+
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int Hq = Hkv * G;
-
-  const T* qg = q + ((size_t)b * Hq + (size_t)h * G) * D;
-  for (int i = tid; i < G * D; i += kThreads) q_s[i] = to_f32(qg[i]);
-
   const int len = cur_len[b];
-  const size_t head_row = ((size_t)b * Hkv + h);
-  const size_t blk0 = head_row * NB;
-  const int* idx = block_idx + head_row * K;
-  const uint8_t* val = sel_valid + head_row * K;
+  const size_t head_row = (size_t)b * Hkv + h;
+  const int j0 = split * per;
+  const int j1 = min(K, j0 + per);
 
-  float m[kMaxHeadsPerWarp], l[kMaxHeadsPerWarp];
-  float acc[kMaxHeadsPerWarp][kMaxDimChunks];
-#pragma unroll
-  for (int hi = 0; hi < kMaxHeadsPerWarp; ++hi) {
-    m[hi] = kNegInf;
-    l[hi] = 0.f;
-#pragma unroll
-    for (int dc = 0; dc < kMaxDimChunks; ++dc) acc[hi][dc] = 0.f;
+  const __nv_bfloat16* qg = q + ((size_t)b * Hq + (size_t)h * G) * D;
+  for (int i = tid; i < G * D; i += kThreads) s.q[i] = to_f32(qg[i]);
+  if (tid < G) {
+    s.m[tid] = kNegInf;
+    s.l[tid] = 0.f;
   }
-
-  for (int j = 0; j < K; ++j) {
-    const int blk = idx[j];
-    // CTA-uniform skip: an invalid selection or a block wholly at or beyond
-    // cur_len contributes nothing to the online softmax
-    if (!val[j] || blk < 0 || blk >= NB || blk * bs >= len) continue;
-    __syncthreads();   // the previous block's reads of k_s / v_s are done
-    const T* kb = k_pool + (blk0 + blk) * (size_t)bs * D;
-    const T* vb = v_pool + (blk0 + blk) * (size_t)bs * Dv;
-    for (int i = tid * kVec; i < bs * D; i += kThreads * kVec) {
-      float f[kVec];
-      load16_f32<T>(kb + i, f);
-      const int t = i / D, d = i % D;
-#pragma unroll
-      for (int e = 0; e < kVec; ++e) k_s[t * (D + 1) + d + e] = f[e];
+  if (warp == 0) {   // compact the run's live ids, in order
+    const int* idx = block_idx + head_row * K;
+    const uint8_t* val = sel_valid + head_row * K;
+    int n = 0;
+    for (int base = j0; base < j1; base += 32) {
+      const int j = base + lane;
+      int blk = -1;
+      if (j < j1) blk = idx[j];
+      const bool live = j < j1 && val[j] && blk >= 0 && blk < NB &&
+                        blk * bs < len;
+      const unsigned mask = __ballot_sync(0xffffffffu, live);
+      if (live) s.ids[n + __popc(mask & ((1u << lane) - 1))] = blk;
+      n += __popc(mask);
     }
-    for (int i = tid * kVec; i < bs * Dv; i += kThreads * kVec) {
-      load16_f32<T>(vb + i, v_s + i);
+    if (lane == 0) *s.n_live = n;
+  }
+  __syncthreads();
+  const int n_live = *s.n_live;
+
+  const size_t blk0 = head_row * NB;
+  const int k_stride = D + 8;
+  auto load = [&](int j, int stage) {
+    const int blk = s.ids[j];
+    const __nv_bfloat16* kb = k_pool + (blk0 + blk) * (size_t)bs * D;
+    const __nv_bfloat16* vb = v_pool + (blk0 + blk) * (size_t)bs * Dv;
+    __nv_bfloat16* kd = s.k + (size_t)stage * bs * k_stride;
+    __nv_bfloat16* vd = s.v + (size_t)stage * bs * Dv;
+    const int kc = D / 8;
+    for (int c = tid; c < bs * kc; c += kThreads)
+      cp_async16(kd + (c / kc) * k_stride + (c % kc) * 8, kb + c * 8);
+    for (int c = tid; c < bs * Dv / 8; c += kThreads)
+      cp_async16(vd + c * 8, vb + c * 8);
+  };
+
+  const int n_pairs = Dv / 2;
+  const int n_items = G * n_pairs;
+  float acc[kMaxItems][2];
+#pragma unroll
+  for (int i = 0; i < kMaxItems; ++i) acc[i][0] = acc[i][1] = 0.f;
+
+  if (n_live > 0) load(0, 0);
+  cp_async_commit();
+  for (int j = 0; j < n_live; ++j) {
+    const int st = j & 1;
+    if (j + 1 < n_live) load(j + 1, st ^ 1);
+    cp_async_commit();
+    cp_async_wait1();   // every group but the newest: block j has landed
+    __syncthreads();
+    const int pos0 = s.ids[j] * bs;
+    const __nv_bfloat16* ks = s.k + (size_t)st * bs * k_stride;
+    const __nv_bfloat16* vs = s.v + (size_t)st * bs * Dv;
+
+    // scores of every (head, token) pair; lanes on neighbouring tokens
+    for (int p = tid; p < G * bs; p += kThreads) {
+      const int g = p / bs, t = p - g * bs;
+      float dot = kNegInf;
+      if (pos0 + t < len) {
+        const float* qrow = s.q + g * D;
+        const __nv_bfloat16* krow = ks + t * k_stride;
+        float d0 = 0.f, d1 = 0.f;   // two chains of dependent FMAs
+#pragma unroll 4
+        for (int d = 0; d < D; d += 8) {
+          float kf[8];
+          load16_f32<__nv_bfloat16>(krow + d, kf);
+          const float4 qa = *reinterpret_cast<const float4*>(qrow + d);
+          const float4 qb = *reinterpret_cast<const float4*>(qrow + d + 4);
+          d0 = fmaf(qa.x, kf[0], d0);
+          d1 = fmaf(qa.y, kf[1], d1);
+          d0 = fmaf(qa.z, kf[2], d0);
+          d1 = fmaf(qa.w, kf[3], d1);
+          d0 = fmaf(qb.x, kf[4], d0);
+          d1 = fmaf(qb.y, kf[5], d1);
+          d0 = fmaf(qb.z, kf[6], d0);
+          d1 = fmaf(qb.w, kf[7], d1);
+        }
+        dot = (d0 + d1) * scale;
+      }
+      s.sc[p] = dot;
     }
     __syncthreads();
 
-#pragma unroll
-    for (int hi = 0; hi < kMaxHeadsPerWarp; ++hi) {
-      const int g = warp + hi * kWarps;
-      if (g >= G) break;                       // warp-uniform
-      const float* qrow = q_s + g * D;
-      float s[kMaxTokChunks];
-      float smax = kNegInf;
-#pragma unroll
-      for (int c = 0; c < kMaxTokChunks; ++c) {
-        const int t = lane + 32 * c;
-        s[c] = kNegInf;
-        if (t < bs && blk * bs + t < len) {
-          const float* krow = k_s + t * (D + 1);
-          float dot = 0.f;
-          for (int d = 0; d < D; ++d) dot += qrow[d] * krow[d];
-          s[c] = dot * scale;
-        }
-        smax = fmaxf(smax, s[c]);
-      }
-      smax = warp_max(smax);
-      const float m_new = fmaxf(m[hi], smax);
-      const float corr = expf(m[hi] - m_new);
-      float p[kMaxTokChunks];
+    // online-softmax update, one warp per head
+    for (int g = warp; g < G; g += kWarps) {
+      float* row = s.sc + g * bs;
+      float mx = kNegInf;
+      for (int t = lane; t < bs; t += 32) mx = fmaxf(mx, row[t]);
+      mx = warp_max(mx);
+      const float m_old = s.m[g];
+      const float m_new = fmaxf(m_old, mx);
       float psum = 0.f;
-#pragma unroll
-      for (int c = 0; c < kMaxTokChunks; ++c) {
-        p[c] = s[c] > 0.5f * kNegInf ? expf(s[c] - m_new) : 0.f;
-        psum += p[c];
+      for (int t = lane; t < bs; t += 32) {
+        const float pt = row[t] > 0.5f * kNegInf ? expf(row[t] - m_new) : 0.f;
+        row[t] = pt;
+        psum += pt;
       }
       psum = warp_sum(psum);
-      l[hi] = l[hi] * corr + psum;
-#pragma unroll
-      for (int dc = 0; dc < kMaxDimChunks; ++dc) acc[hi][dc] *= corr;
-#pragma unroll
-      for (int c = 0; c < kMaxTokChunks; ++c) {
-        if (32 * c >= bs) break;
-        for (int tt = 0; tt < 32; ++tt) {
-          const int t = 32 * c + tt;
-          if (t >= bs) break;
-          const float pt = __shfl_sync(0xffffffffu, p[c], tt);
-          const float* vrow = v_s + t * Dv;
-#pragma unroll
-          for (int dc = 0; dc < kMaxDimChunks; ++dc) {
-            const int d = lane + 32 * dc;
-            if (d < Dv) acc[hi][dc] += pt * vrow[d];
-          }
-        }
+      if (lane == 0) {
+        const float corr = expf(m_old - m_new);
+        s.corr[g] = corr;
+        s.l[g] = s.l[g] * corr + psum;
+        s.m[g] = m_new;
       }
-      m[hi] = m_new;
     }
+    __syncthreads();
+
+    // acc = acc * corr + P V, each thread on its (head, dim pair) items
+#pragma unroll
+    for (int i = 0; i < kMaxItems; ++i) {
+      const int it = tid + i * kThreads;
+      if (it < n_items) {
+        const int g = it / n_pairs, dp = it - g * n_pairs;
+        const float corr = s.corr[g];
+        float a0 = acc[i][0] * corr, a1 = acc[i][1] * corr;
+        const float* prow = s.sc + g * bs;
+        const __nv_bfloat162* vcol =
+            reinterpret_cast<const __nv_bfloat162*>(vs) + dp;
+#pragma unroll 8
+        for (int t = 0; t < bs; ++t) {
+          const float pt = prow[t];
+          const float2 vf = __bfloat1622float2(vcol[t * n_pairs]);
+          a0 = fmaf(pt, vf.x, a0);
+          a1 = fmaf(pt, vf.y, a1);
+        }
+        acc[i][0] = a0;
+        acc[i][1] = a1;
+      }
+    }
+    __syncthreads();   // sc and this stage are free for the next block
   }
 
+  const size_t part = head_row * splits + split;
+  float* po = part_o + part * G * Dv;
 #pragma unroll
-  for (int hi = 0; hi < kMaxHeadsPerWarp; ++hi) {
-    const int g = warp + hi * kWarps;
-    if (g >= G) break;
-    const float denom = fmaxf(l[hi], 1e-30f);
-    T* orow = out + ((size_t)b * Hq + (size_t)h * G + g) * Dv;
-#pragma unroll
-    for (int dc = 0; dc < kMaxDimChunks; ++dc) {
-      const int d = lane + 32 * dc;
-      if (d < Dv) orow[d] = from_f32<T>(acc[hi][dc] / denom);
-    }
+  for (int i = 0; i < kMaxItems; ++i) {
+    const int it = tid + i * kThreads;
+    if (it < n_items)
+      reinterpret_cast<float2*>(po)[it] = make_float2(acc[i][0], acc[i][1]);
+  }
+  if (tid < G) {
+    part_ml[part * 2 * G + tid] = s.m[tid];
+    part_ml[part * 2 * G + G + tid] = s.l[tid];
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k_pool, const void* v_pool,
-           const void* block_idx, const void* sel_valid, const void* cur_len,
-           void* out, int B, int Hkv, int NB, int bs, int D, int Dv, int K,
-           int G, float scale, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * ((size_t)G * D + (size_t)bs * (D + 1) + (size_t)bs * Dv);
-  auto kern = sparse_decode_attention_kernel<T>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+// out[b, h*G+g, d] = sum_s acc_s e^(m_s - M) / max(sum_s l_s e^(m_s - M),
+// 1e-30), M = max_s m_s, over the splits of (b, h): one CTA per (query
+// head, request), the split weights in shared memory, one thread per
+// output dim (Dv <= 128)
+__global__ void __launch_bounds__(kThreads)
+merge_kernel(const float* __restrict__ part_o,
+             const float* __restrict__ part_ml, __nv_bfloat16* __restrict__ out,
+             int Hkv, int Dv, int G, int splits) {
+  extern __shared__ float w_s[];   // splits
+  __shared__ float red[kWarps];
+  const int hq = blockIdx.x;
+  const int b = blockIdx.y;
+  const int h = hq / G, g = hq - h * G;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const size_t head_row = (size_t)b * Hkv + h;
+  const float* pml = part_ml + head_row * splits * 2 * G;
+
+  float M = kNegInf;
+  for (int sp = tid; sp < splits; sp += kThreads)
+    M = fmaxf(M, pml[sp * 2 * G + g]);
+  M = warp_max(M);
+  if (lane == 0) red[warp] = M;
+  __syncthreads();
+  M = red[0];
+  for (int w = 1; w < kWarps; ++w) M = fmaxf(M, red[w]);
+  __syncthreads();
+  float L = 0.f;
+  for (int sp = tid; sp < splits; sp += kThreads) {
+    const float w = expf(pml[sp * 2 * G + g] - M);
+    w_s[sp] = w;
+    L = fmaf(pml[sp * 2 * G + G + g], w, L);
   }
-  kern<<<dim3(Hkv, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), static_cast<const int*>(block_idx),
-      static_cast<const uint8_t*>(sel_valid),
-      static_cast<const int*>(cur_len), static_cast<T*>(out), Hkv, NB, bs, D,
-      Dv, K, G, scale);
-  return (int)cudaGetLastError();
+  L = warp_sum(L);
+  if (lane == 0) red[warp] = L;
+  __syncthreads();
+  L = 0.f;
+  for (int w = 0; w < kWarps; ++w) L += red[w];
+  const float inv = 1.f / fmaxf(L, 1e-30f);
+  const float* po = part_o + (head_row * splits * G + g) * Dv;
+  for (int d = tid; d < Dv; d += kThreads) {
+    float O = 0.f;
+    for (int sp = 0; sp < splits; ++sp)
+      O = fmaf(po[(size_t)sp * G * Dv + d], w_s[sp], O);
+    out[((size_t)b * Hkv * G + hq) * Dv + d] =
+        from_f32<__nv_bfloat16>(O * inv);
+  }
 }
 
 }  // namespace
 
 // bfloat16 only (the serving path's dtype).  Limits checked by the wrapper:
-// G <= 16, D and Dv <= 128 and multiples of 16 bytes, bs <= 128, all
-// pointers 16-byte aligned, tensors contiguous.
+// G <= 16, D and Dv <= 128 and multiples of 8, bs <= 128, all pointers
+// 16-byte aligned, tensors contiguous.  part_o (B, Hkv, splits, G, Dv) and
+// part_ml (B, Hkv, splits, 2, G) are float32 scratch.
 extern "C" int launch_sparse_decode_attention(
     const void* q, const void* k_pool, const void* v_pool,
     const void* block_idx, const void* sel_valid, const void* cur_len,
-    void* out, int B, int Hkv, int NB, int bs, int D, int Dv, int K, int G,
-    float scale, void* stream) {
-  return launch<__nv_bfloat16>(q, k_pool, v_pool, block_idx, sel_valid,
-                               cur_len, out, B, Hkv, NB, bs, D, Dv, K, G,
-                               scale, static_cast<cudaStream_t>(stream));
+    void* out, void* part_o, void* part_ml, int B, int Hkv, int NB, int bs,
+    int D, int Dv, int K, int G, int splits, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B == 0 || Hkv == 0) return (int)cudaGetLastError();
+  if (splits < 1 || G * Dv > 2 * kMaxItems * kThreads)
+    return (int)cudaErrorInvalidValue;
+  const int per = K > 0 ? (K + splits - 1) / splits : 0;
+  const SmemLayout lay(G, D, Dv, bs, per);
+  if (lay.total > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        split_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)lay.total);
+    if (e != cudaSuccess) return (int)e;
+  }
+  split_kernel<<<dim3(splits, Hkv, B), kThreads, lay.total, st>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k_pool),
+      static_cast<const __nv_bfloat16*>(v_pool),
+      static_cast<const int*>(block_idx),
+      static_cast<const uint8_t*>(sel_valid),
+      static_cast<const int*>(cur_len), static_cast<float*>(part_o),
+      static_cast<float*>(part_ml), Hkv, NB, bs, D, Dv, K, G, per, scale);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  merge_kernel<<<dim3(Hkv * G, B), kThreads, sizeof(float) * splits, st>>>(
+      static_cast<const float*>(part_o), static_cast<const float*>(part_ml),
+      static_cast<__nv_bfloat16*>(out), Hkv, Dv, G, splits);
+  return (int)cudaGetLastError();
 }

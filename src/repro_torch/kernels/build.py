@@ -4,8 +4,9 @@ Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, all compilers started together, and the
 libraries are loaded with ``ctypes``.  The build happens at first use, from
 the sources in the checkout, into ``src/repro_torch/_build/`` (listed in
-``.gitignore``); a library's file name carries a hash of its sources and
-flags, so an edited source is rebuilt and an unchanged one is reused.
+``.gitignore``); a library's file name carries a hash of its source, every
+``csrc/*.cuh`` header and the flags, so an edited source or header is
+rebuilt and an unchanged one is reused.
 Each library's ``ptxas`` report (registers, spills) is kept beside it and
 read back on reuse.  Nothing here runs at import time.
 """
@@ -43,16 +44,20 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 _SIGNATURES = {
     "sparse_decode_attention": (
         "sparse_decode_attention", "launch_sparse_decode_attention",
-        [_P] * 7 + [_I] * 8 + [_F, _P]),
+        [_P] * 9 + [_I] * 9 + [_F, _P]),
     "block_score": ("block_score", "launch_block_score",
                     [_P, _P, _P] + [_I] * 5 + [_P]),
-    "gather_blocks": ("gather_blocks", "launch_gather_blocks_hkv",
-                      [_P, _L, _I, _P, _P, _I, _I, _I, _L, _P]),
-    "scatter_blocks": ("scatter_blocks", "launch_scatter_blocks_hkv",
-                       [_I, _P, _P, _P, _P, _L, _L, _L] + [_I] * 5
-                       + [_P]),
-    "write_blocks": ("scatter_blocks", "launch_write_blocks_hkv",
-                     [_P, _P, _P, _L, _I, _L, _L, _I, _I, _I, _L, _P]),
+    "gather_blocks_hkv": ("gather_blocks", "launch_gather_blocks_hkv",
+                          [_P, _L, _I, _P, _P, _I, _I, _I, _L, _P]),
+    "gather_blocks": ("gather_blocks", "launch_gather_blocks",
+                      [_P, _L, _I, _P, _P, _I, _I, _L, _P]),
+    "scatter_blocks_hkv": ("scatter_blocks", "launch_scatter_blocks_hkv",
+                           [_I, _P, _P, _P, _P, _L, _L, _L] + [_I] * 5
+                           + [_P]),
+    "write_blocks_hkv": ("scatter_blocks", "launch_write_blocks_hkv",
+                         [_P, _P, _P, _L, _I, _L, _L, _I, _I, _I, _L, _P]),
+    "scatter_blocks": ("scatter_blocks", "launch_scatter_blocks",
+                       [_P, _P, _P, _L, _I, _I, _I, _L, _P]),
     "flash_prefill": ("flash_prefill", "launch_flash_prefill",
                       [_P] * 4 + [_I] * 7 + [_F, _P]),
     "quantize_blocks": ("quant_blocks", "launch_quantize_blocks",
@@ -78,8 +83,9 @@ def nvcc_path() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha1()
-    for src in (CSRC_DIR / "common.cuh", CSRC_DIR / KERNEL_SOURCES[name]):
-        h.update(src.read_bytes())
+    for src in [KERNEL_SOURCES[name],
+                *sorted(p.name for p in CSRC_DIR.glob("*.cuh"))]:
+        h.update((CSRC_DIR / src).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 

@@ -1,8 +1,10 @@
 """Wrappers of the port's hand-written Hopper kernels.
 
-Each wrapper decides by the device of the tensors it is given: for CPU
-tensors it returns the plain PyTorch version from ``ref.py`` (what the CPU
-tests run); for CUDA tensors it checks device, dtype, shape and contiguity
+Each wrapper decides by the device of the tensors it is given: when every
+one of them lies on the CPU it returns the plain PyTorch version from
+``ref.py`` (what the CPU tests run); otherwise it checks device, dtype,
+shape and contiguity (a mix of devices that the kernel does not take
+raises)
 (the kernels take bfloat16 activations and pools, as the serving path
 holds them on the GPU, and the int8 tier's int8 payloads with float32
 scales),
@@ -31,7 +33,7 @@ class LaunchCounter:
     NAMES = ("sparse_decode_attention", "block_score", "gather_blocks_hkv",
              "scatter_blocks_hkv", "write_blocks_hkv", "flash_prefill",
              "quantize_blocks", "dequantize_blocks",
-             "dequantize_scatter_blocks")
+             "dequantize_scatter_blocks", "gather_blocks", "scatter_blocks")
 
     def __init__(self):
         self.counts: Dict[str, int] = dict.fromkeys(self.NAMES, 0)
@@ -52,6 +54,12 @@ launches = LaunchCounter()
 def _check(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)
+
+
+def _all_cpu(*tensors: Optional[torch.Tensor]) -> bool:
+    """Whether every tensor given (None skipped) lies on the CPU: the one
+    case in which a wrapper takes its plain version."""
+    return all(t is None or t.device.type == "cpu" for t in tensors)
 
 
 def _check_cuda(name: str, device: torch.device, **tensors) -> None:
@@ -75,9 +83,49 @@ def _raise_on(rc: int, name: str) -> None:
                            f"({torch.cuda.get_device_name()})")
 
 
+def _check_host_or(name: str, pool: torch.Tensor, dev: torch.device) -> bool:
+    """A pool for a kernel on ``dev``: pinned host memory (returns True) or
+    a tensor on ``dev`` (False)."""
+    if pool.device.type == "cpu":
+        _check(pool.is_pinned(),
+               f"{name}: a host pool must be in pinned memory")
+        return True
+    _check(pool.device == dev, f"{name}: pool on {pool.device}, expected "
+                               f"{dev}")
+    return False
+
+
 # ---------------------------------------------------------------------------
 # sparse_decode_attention
 # ---------------------------------------------------------------------------
+
+# the longest run of blocks one CTA of the split-K attention walks: the
+# blocks of a run are walked in turn, so shorter runs shorten the kernel
+# where B * Hkv alone would already fill the card
+DECODE_RUN = 4
+
+
+def decode_splits(B: int, Hkv: int, K: int, sms: int) -> int:
+    """Splits of the K selected blocks across CTAs (flash-decoding): enough
+    that B * Hkv * splits >= 2 * sms where K allows it, and runs of at most
+    DECODE_RUN blocks, each split a run of ceil(K / splits) blocks, no
+    split empty by construction."""
+    if K == 0:
+        return 1
+    want = min(K, max(-(-2 * sms // max(1, B * Hkv)), -(-K // DECODE_RUN)))
+    per = -(-K // want)
+    return -(-K // per)
+
+
+_SM_COUNTS: Dict[torch.device, int] = {}
+
+
+def _sm_count(dev: torch.device) -> int:
+    if dev not in _SM_COUNTS:
+        _SM_COUNTS[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return _SM_COUNTS[dev]
+
 
 def sparse_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                             v_pool: torch.Tensor, block_idx: torch.Tensor,
@@ -85,7 +133,7 @@ def sparse_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                             scale: Optional[float] = None) -> torch.Tensor:
     """q (B, Hq, D); pools (B, Hkv, NB, bs, D|Dv); block_idx int32 and
     sel_valid bool (B, Hkv, K); cur_len int32 (B,) -> (B, Hq, Dv)."""
-    if q.device.type == "cpu":
+    if _all_cpu(q, k_pool, v_pool, block_idx, sel_valid, cur_len):
         return ref.sparse_decode_attention(q, k_pool, v_pool, block_idx,
                                            sel_valid, cur_len, scale)
     name = "sparse_decode_attention"
@@ -112,12 +160,20 @@ def sparse_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
            f"bs <= 128")
     _check(_aligned(q, k_pool, v_pool), f"{name}: 16-byte alignment")
     scale = scale if scale is not None else 1.0 / (D ** 0.5)
+    G = Hq // Hkv
+    splits = decode_splits(B, Hkv, K, _sm_count(q.device))
     out = torch.empty((B, Hq, Dv), dtype=q.dtype, device=q.device)
+    # each split's unnormalised float32 partial: acc (G, Dv), then m and l
+    part_o = torch.empty((B, Hkv, splits, G, Dv), dtype=torch.float32,
+                         device=q.device)
+    part_ml = torch.empty((B, Hkv, splits, 2, G), dtype=torch.float32,
+                          device=q.device)
     rc = LIBS.fn(name)(
         q.data_ptr(), k_pool.data_ptr(),
         v_pool.data_ptr(), block_idx.data_ptr(), sel_valid.data_ptr(),
-        cur_len.data_ptr(), out.data_ptr(), B, Hkv, NB, bs, D, Dv, K,
-        Hq // Hkv, float(scale), _stream())
+        cur_len.data_ptr(), out.data_ptr(), part_o.data_ptr(),
+        part_ml.data_ptr(), B, Hkv, NB, bs, D, Dv, K, G, splits,
+        float(scale), _stream())
     _raise_on(rc, name)
     launches.add(name)
     return out
@@ -130,7 +186,7 @@ def sparse_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
 def block_score(q: torch.Tensor, meta: torch.Tensor) -> torch.Tensor:
     """q (B, Hq, D); meta (B, Hkv, NB, 2, D) float32, [min, max] interleaved
     -> (B, Hkv, NB) float32 cuboid bounds, max over the GQA group."""
-    if q.device.type == "cpu":
+    if _all_cpu(q, meta):
         return ref.block_score(q, meta)
     name = "block_score"
     B, Hq, D = q.shape
@@ -160,18 +216,14 @@ def gather_blocks_hkv(pool: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     On the GPU the pool may lie in pinned host memory: the kernel then
     reads it in place (FlashH2D), and the result lands in device memory.
     Any element type: blocks move as bytes (whole 4-byte words)."""
-    if idx.device.type == "cpu":
+    if _all_cpu(pool, idx):
         return ref.gather_blocks_hkv(pool, idx)
     name = "gather_blocks_hkv"
+    _check(idx.device.type == "cuda",
+           f"{name}: idx on {idx.device} for a pool on {pool.device}")
     H, NB, bs, D = pool.shape
     K = idx.shape[0]
-    on_host = pool.device.type == "cpu"
-    if on_host:
-        _check(pool.is_pinned(),
-               f"{name}: a host pool must be in pinned memory")
-    else:
-        _check(pool.device == idx.device,
-               f"{name}: pool on {pool.device}, idx on {idx.device}")
+    on_host = _check_host_or(name, pool, idx.device)
     _check(pool.is_contiguous() and idx.is_contiguous()
            and idx.dtype == torch.int32 and idx.dim() == 1,
            f"{name}: contiguous pool, 1-D int32 idx")
@@ -181,7 +233,7 @@ def gather_blocks_hkv(pool: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     out = torch.empty((H, K, bs, D), dtype=pool.dtype, device=idx.device)
     storage = pool.untyped_storage()
     base = storage.data_ptr()
-    rc = LIBS.fn("gather_blocks")(
+    rc = LIBS.fn(name)(
         base, pool.data_ptr() - base, int(on_host), idx.data_ptr(),
         out.data_ptr(), H, NB, K, block_bytes, _stream())
     _raise_on(rc, name)
@@ -203,10 +255,10 @@ def scatter_blocks_hkv(pool: torch.Tensor, payload: torch.Tensor,
     On the GPU the pool is bfloat16 on the payload's device and the
     payload float32 (a restore from the host pool) or bfloat16 (a drop's
     zero blocks)."""
-    if pool.device.type == "cpu" and payload.device.type == "cpu":
+    if _all_cpu(pool, payload, dest_blocks, rows):
         return ref.scatter_blocks_hkv(pool, payload, dest_blocks, rows)
     name = "scatter_blocks_hkv"
-    _check(pool.device == payload.device,
+    _check(payload.device.type == "cuda" and pool.device == payload.device,
            f"{name}: pool on {pool.device}, payload on {payload.device}")
     if rows is None:
         H, NB, bs, D = pool.shape
@@ -227,7 +279,7 @@ def scatter_blocks_hkv(pool: torch.Tensor, payload: torch.Tensor,
     _check(pool.dtype == torch.bfloat16 and payload.dtype in _PAYLOAD_CODES
            and dest_blocks.dtype == torch.int32,
            f"{name}: bfloat16 pool, float32/bfloat16 payload, int32 ids")
-    rc = LIBS.fn("scatter_blocks")(
+    rc = LIBS.fn(name)(
         _PAYLOAD_CODES[payload.dtype], payload.data_ptr(),
         None if rows is None else rows.data_ptr(),
         dest_blocks.data_ptr(), pool.data_ptr(), row_stride, head_stride,
@@ -250,7 +302,7 @@ def write_blocks_hkv(pool: torch.Tensor, payload: torch.Tensor,
     On the GPU (a CUDA payload) the pool may lie in pinned host memory: the
     kernel then writes it in place through its device-mapped address (the
     int8 tier's write back into the DRAM pool, payload and scales)."""
-    if pool.device.type == "cpu" and payload.device.type == "cpu":
+    if _all_cpu(pool, payload, dest_blocks):
         return ref.write_blocks_hkv(pool, payload, dest_blocks)
     name = "write_blocks_hkv"
     _check(payload.device.type == "cuda",
@@ -258,14 +310,7 @@ def write_blocks_hkv(pool: torch.Tensor, payload: torch.Tensor,
            f"{pool.device}")
     H, NB, bs, D = pool.shape
     K = dest_blocks.shape[0]
-    on_host = pool.device.type == "cpu"
-    if on_host:
-        _check(pool.is_pinned(),
-               f"{name}: a host pool must be in pinned memory")
-    else:
-        _check(pool.device == payload.device,
-               f"{name}: pool on {pool.device}, payload on "
-               f"{payload.device}")
+    on_host = _check_host_or(name, pool, payload.device)
     _check_cuda(name, payload.device, payload=payload,
                 dest_blocks=dest_blocks)
     _check(pool.dtype == payload.dtype and pool.stride(-1) == 1
@@ -279,10 +324,82 @@ def write_blocks_hkv(pool: torch.Tensor, payload: torch.Tensor,
            and payload.data_ptr() % 4 == 0,
            f"{name}: blocks must be whole 4-byte words")
     base = pool.untyped_storage().data_ptr()
-    rc = LIBS.fn("write_blocks")(
+    rc = LIBS.fn(name)(
         payload.data_ptr(), dest_blocks.data_ptr(), base,
         pool.data_ptr() - base, int(on_host), pool.stride(0) * esz,
         pool.stride(1) * esz, H, NB, K, block_bytes, _stream())
+    _raise_on(rc, name)
+    launches.add(name)
+    return pool
+
+
+# ---------------------------------------------------------------------------
+# gather_blocks / scatter_blocks: the flat (NB, bs, D) FlashH2D / FlashD2H
+# ---------------------------------------------------------------------------
+
+def gather_blocks(pool: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """pool (NB, bs, D), idx (K,) int32 -> (K, bs, D) on idx's device, any
+    element type, byte for byte.
+
+    On the GPU the pool may lie in pinned host memory: the kernel then
+    reads it in place, so the gather is the host-to-device transfer of the
+    fragmented blocks in one launch (FlashH2D)."""
+    if _all_cpu(pool, idx):
+        return ref.gather_blocks(pool, idx)
+    name = "gather_blocks"
+    _check(idx.device.type == "cuda",
+           f"{name}: idx on {idx.device} for a pool on {pool.device}")
+    NB, bs, D = pool.shape
+    K = idx.shape[0]
+    on_host = _check_host_or(name, pool, idx.device)
+    _check(pool.is_contiguous() and idx.is_contiguous()
+           and idx.dtype == torch.int32 and idx.dim() == 1,
+           f"{name}: contiguous pool, 1-D int32 idx")
+    block_bytes = bs * D * pool.element_size()
+    _check(block_bytes % 4 == 0 and pool.data_ptr() % 4 == 0,
+           f"{name}: blocks must be whole 4-byte words")
+    out = torch.empty((K, bs, D), dtype=pool.dtype, device=idx.device)
+    base = pool.untyped_storage().data_ptr()
+    rc = LIBS.fn(name)(base, pool.data_ptr() - base, int(on_host),
+                       idx.data_ptr(), out.data_ptr(), NB, K, block_bytes,
+                       _stream())
+    _raise_on(rc, name)
+    launches.add(name)
+    return out
+
+
+def scatter_blocks(pool: torch.Tensor, new_kv: torch.Tensor,
+                   dest: torch.Tensor) -> torch.Tensor:
+    """Place new_kv (n_new * bs, D), contiguous, into blocks ``dest``
+    (n_new,) int32 of pool (NB, bs, D) IN PLACE, byte for byte (the same
+    dtype on both sides); untouched blocks persist.  Returns ``pool`` (the
+    reference returns a new array).
+
+    On the GPU (a CUDA new_kv) the pool may lie in pinned host memory: the
+    kernel then writes it through its device-mapped address, the second
+    phase of FlashD2H."""
+    if _all_cpu(pool, new_kv, dest):
+        return ref.scatter_blocks(pool, new_kv, dest)
+    name = "scatter_blocks"
+    _check(new_kv.device.type == "cuda",
+           f"{name}: new_kv on {new_kv.device} for a pool on {pool.device}")
+    NB, bs, D = pool.shape
+    n_new = dest.shape[0]
+    on_host = _check_host_or(name, pool, new_kv.device)
+    _check_cuda(name, new_kv.device, new_kv=new_kv, dest=dest)
+    _check(pool.is_contiguous() and new_kv.dtype == pool.dtype
+           and tuple(new_kv.shape) == (n_new * bs, D)
+           and dest.dtype == torch.int32 and dest.dim() == 1,
+           f"{name}: contiguous pool, new_kv (n_new * bs, D) = "
+           f"{(n_new * bs, D)} of the pool's dtype, 1-D int32 ids")
+    block_bytes = bs * D * pool.element_size()
+    _check(block_bytes % 4 == 0 and pool.data_ptr() % 4 == 0
+           and new_kv.data_ptr() % 4 == 0,
+           f"{name}: blocks must be whole 4-byte words")
+    base = pool.untyped_storage().data_ptr()
+    rc = LIBS.fn(name)(new_kv.data_ptr(), dest.data_ptr(), base,
+                       pool.data_ptr() - base, int(on_host), NB, n_new,
+                       block_bytes, _stream())
     _raise_on(rc, name)
     launches.add(name)
     return pool
@@ -300,7 +417,7 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q[0] (earlier chunks' keys lie ahead of the window, Sk = q_offset + Sq
     on the serving path).  On the GPU: bfloat16, causal, D = Dv in
     {64, 128}."""
-    if q.device.type == "cpu":
+    if _all_cpu(q, k, v):
         return ref.flash_prefill(q, k, v, scale=scale, causal=causal,
                                  q_offset=q_offset)
     name = "flash_prefill"
@@ -345,7 +462,7 @@ def quantize_blocks(blocks: torch.Tensor
     """blocks (H, K, bs, D) float32 or bfloat16 -> (q (H, K, bs, D) int8,
     scales (H, K) float32): symmetric int8 per (head, block), bit for bit
     the plain version's."""
-    if blocks.device.type == "cpu":
+    if _all_cpu(blocks):
         return ref.quantize_blocks(blocks)
     name = "quantize_blocks"
     H, K, bs, D = blocks.shape
@@ -368,7 +485,7 @@ def dequantize_blocks(q: torch.Tensor, scales: torch.Tensor
                       ) -> torch.Tensor:
     """q (H, K, bs, D) int8, scales (H, K) float32 -> (H, K, bs, D)
     float32."""
-    if q.device.type == "cpu":
+    if _all_cpu(q, scales):
         return ref.dequantize_blocks(q, scales)
     name = "dequantize_blocks"
     _check_quant(name, q, scales)
@@ -390,7 +507,7 @@ def dequantize_scatter_blocks(pool: torch.Tensor, q: torch.Tensor,
     slots): pool (H, NB, bs, D) with rows None, or (B, H, NB, bs, D) with
     rows (K,) int32.  Returns ``pool``.  On the GPU the pool is
     bfloat16."""
-    if q.device.type == "cpu":
+    if _all_cpu(pool, q, scales, dest_blocks, rows):
         return ref.dequantize_scatter_blocks(pool, q, scales, dest_blocks,
                                              rows)
     name = "dequantize_scatter_blocks"

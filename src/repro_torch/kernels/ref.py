@@ -15,6 +15,28 @@ import torch
 NEG_INF = -1e30
 
 
+def gather_blocks(pool: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Flat FlashH2D gather: pool (NB, bs, D), idx (K,) -> (K, bs, D), a
+    new tensor."""
+    return pool[idx.long()]
+
+
+def scatter_blocks(pool: torch.Tensor, new_kv: torch.Tensor,
+                   dest: torch.Tensor) -> torch.Tensor:
+    """Flat FlashD2H scatter IN PLACE, byte for byte: new_kv (n_new * bs,
+    D), contiguous, lands in blocks ``dest`` (n_new,) of pool (NB, bs, D);
+    untouched blocks persist.  Returns ``pool`` (the reference returns a
+    new array)."""
+    NB, bs, D = pool.shape
+    n_new = dest.shape[0]
+    if new_kv.dtype != pool.dtype or tuple(new_kv.shape) != (n_new * bs, D):
+        raise ValueError(f"scatter_blocks: new_kv {tuple(new_kv.shape)} "
+                         f"{new_kv.dtype} for a {pool.dtype} pool of "
+                         f"{bs}-row blocks and {n_new} ids")
+    pool[dest.long()] = new_kv.reshape(n_new, bs, D)
+    return pool
+
+
 def gather_blocks_hkv(pool: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Head-major FlashH2D gather: pool (H, NB, bs, D), idx (K,) ->
     (H, K, bs, D), a new tensor."""

@@ -164,7 +164,8 @@ def _probe(q, k, v, qi, kj, scale):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("Hq,Hkv,D", [(14, 2, 64), (32, 8, 128)])
-@pytest.mark.parametrize("Sq,q_offset", [(200, 0), (130, 70)])
+@pytest.mark.parametrize("Sq,q_offset", [(200, 0), (130, 70), (3, 0),
+                                         (257, 300)])
 def test_flash_prefill_matches_plain(cuda, Hq, Hkv, D, Sq, q_offset):
     """q_offset 0, and a chunk continuation whose earlier keys lie ahead of
     the window (Sk = q_offset + Sq); neither length fills a 64-row tile.
@@ -332,3 +333,128 @@ def test_slice2_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):                   # not pinned
         ops.write_blocks_hkv(torch.zeros((2, 8, 32, 64), dtype=torch.int8),
                              qb, ids)
+
+
+# ---------------------------------------------------------------------------
+# slice 3: the flat FlashH2D gather / FlashD2H scatter; split-K decode
+# attention
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("where", ["pinned", "device"])
+def test_flat_block_kernels_match_plain(cuda, dtype, where):
+    """gather_blocks and scatter_blocks byte for byte against their plain
+    versions, from and into a pinned host pool and a device pool; a
+    scatter leaves the other blocks as they were, and a gather after it
+    returns the payload."""
+    g = torch.Generator().manual_seed(7)
+    NB, bs, D = 40, 16, 64
+    if dtype == torch.int8:
+        pool = torch.randint(-127, 128, (NB, bs, D), generator=g,
+                             dtype=torch.int8)
+        new = torch.randint(-127, 128, (3 * bs, D), generator=g,
+                            dtype=torch.int8)
+    else:
+        pool = torch.randn((NB, bs, D), generator=g).to(dtype)
+        new = torch.randn((3 * bs, D), generator=g).to(dtype)
+    ids = torch.tensor([17, 2, 39, 5, 30], dtype=torch.int32)
+    dest = torch.tensor([33, 0, 12], dtype=torch.int32)
+    src = pool.clone().pin_memory() if where == "pinned" else pool.to(cuda)
+    got = ops.gather_blocks(src, ids.to(cuda))
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), ref.gather_blocks(pool, ids))
+    want = ref.scatter_blocks(pool.clone(), new, dest)
+    assert ops.scatter_blocks(src, new.to(cuda), dest.to(cuda)) is src
+    torch.cuda.synchronize()
+    assert torch.equal(src.cpu(), want)
+    keep = torch.ones(NB, dtype=torch.bool)
+    keep[dest.long()] = False
+    assert torch.equal(src.cpu()[keep], pool[keep])
+    back = ops.gather_blocks(src, dest.to(cuda))
+    assert torch.equal(back.reshape(3 * bs, D).cpu(), new)
+
+
+@pytest.mark.gpu
+def test_flat_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    pool = torch.zeros((8, 16, 64), device=cuda)
+    ids = torch.tensor([1, 2], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):                   # not pinned
+        ops.gather_blocks(torch.zeros((8, 16, 64)), ids)
+    with pytest.raises(ValueError):                   # int64 ids
+        ops.gather_blocks(pool, ids.long())
+    with pytest.raises(ValueError):                   # a device pool, host ids
+        ops.gather_blocks(pool, ids.cpu())
+    with pytest.raises(ValueError):
+        ops.gather_blocks_hkv(pool[None], ids.cpu())
+    with pytest.raises(ValueError):                   # a host payload
+        ops.scatter_blocks(pool, torch.zeros((32, 64)), ids)
+    with pytest.raises(ValueError):                   # dtypes differ
+        ops.scatter_blocks(pool, torch.zeros((32, 64), device=cuda,
+                                             dtype=torch.bfloat16), ids)
+    with pytest.raises(ValueError):                   # not n_new * bs rows
+        ops.scatter_blocks(pool, torch.zeros((31, 64), device=cuda), ids)
+    with pytest.raises(ValueError):                   # not contiguous
+        ops.scatter_blocks(pool, torch.zeros((64, 32), device=cuda).t(), ids)
+    with pytest.raises(ValueError):                   # int64 ids
+        ops.scatter_blocks(pool, torch.zeros((32, 64), device=cuda),
+                           ids.long())
+
+
+def _decode_inputs(dev, seed, B, Hq, Hkv, D, NB, bs, K):
+    g = _gen(dev, seed)
+    q = torch.randn((B, Hq, D), generator=g, device=dev).bfloat16()
+    kp = torch.randn((B, Hkv, NB, bs, D), generator=g,
+                     device=dev).bfloat16()
+    vp = torch.randn((B, Hkv, NB, bs, D), generator=g,
+                     device=dev).bfloat16()
+    idx = torch.rand((B, Hkv, NB), generator=g, device=dev).argsort(
+        -1)[..., :K].int().contiguous()
+    valid = torch.rand((B, Hkv, K), generator=g, device=dev) > 0.5
+    return q, kp, vp, idx, valid
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G", [7, 4, 16])
+@pytest.mark.parametrize("B,Hkv,K", [(1, 1, 64), (4, 2, 51), (8, 8, 51)])
+def test_split_decode_attention_matches_plain(cuda, G, B, Hkv, K):
+    """Split-K decode attention against the plain version, at split counts
+    that leave splits with no valid block (B 1 x Hkv 1: one block per
+    split, half of them invalid), with K not a multiple of the split size
+    (K 51 in runs of 2 and of 4), an all-invalid row (output 0), and
+    cur_len cutting blocks mid-way."""
+    bs, D, NB = 32, 64, 80
+    q, kp, vp, idx, valid = _decode_inputs(cuda, G + K, B, G * Hkv, Hkv, D,
+                                           NB, bs, K)
+    cur_len = torch.randint(bs, NB * bs, (B,), generator=_gen(cuda, K),
+                            device=cuda, dtype=torch.int32)
+    cur_len[0] = 37 * bs + 5                        # mid-block
+    splits = ops.decode_splits(B, Hkv, K, ops._sm_count(cuda))
+    per = -(-K // splits)
+    if B * Hkv == 1:
+        assert per == 1 and not valid.all()         # empty splits
+    else:
+        assert K % per != 0
+        valid[-1, -1] = False                       # an all-invalid row
+    got = ops.sparse_decode_attention(q, kp, vp, idx, valid, cur_len)
+    want = ref.sparse_decode_attention(q, kp, vp, idx, valid, cur_len)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-3,
+                               rtol=1e-2)
+    if B * Hkv > 1:
+        assert not got[-1, -G:].any()
+
+
+@pytest.mark.gpu
+def test_split_decode_attention_dv_differs(cuda):
+    """Dv != D (MLA's attend: the value pool wider than the key pool)."""
+    B, Hq, Hkv, D, Dv, NB, bs, K = 2, 16, 1, 64, 128, 20, 16, 12
+    q, kp, _, idx, valid = _decode_inputs(cuda, 9, B, Hq, Hkv, D, NB, bs, K)
+    vp = torch.randn((B, Hkv, NB, bs, Dv), generator=_gen(cuda, 10),
+                     device=cuda).bfloat16()
+    cur_len = torch.tensor([NB * bs, 7 * bs + 3], dtype=torch.int32,
+                           device=cuda)
+    got = ops.sparse_decode_attention(q, kp, vp, idx, valid, cur_len)
+    want = ref.sparse_decode_attention(q, kp, vp, idx, valid, cur_len)
+    assert got.shape == (B, Hq, Dv)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-3,
+                               rtol=1e-2)

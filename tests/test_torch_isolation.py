@@ -1,5 +1,5 @@
-"""The PyTorch port stands alone: no file of ``src/repro_torch`` and not
-``chip_smoke.py`` imports ``jax`` or anything of the reference package
+"""The PyTorch port stands alone: no file of ``src/repro_torch`` and
+neither ``chip_smoke.py`` nor ``ab_kernels.py`` imports ``jax`` or anything of the reference package
 ``repro`` (checked on the source by AST, and by importing every module of
 the port in a fresh interpreter), and its entry points run on the GPU
 unless asked for the CPU — without a card they raise instead of falling
@@ -21,7 +21,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                         REPO / "ab_kernels.py"]
 
 
 def _imported_roots(path: Path):

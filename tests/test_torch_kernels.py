@@ -227,3 +227,184 @@ def test_write_blocks_plain_matches_pallas_scatter(dtype, bs, D):
     assert ops.launches.counts["write_blocks_hkv"] == 0
     with pytest.raises(ValueError):
         ops.write_blocks_hkv(pool_t, _t(payload).double(), _t(ids))
+
+
+# ---------------------------------------------------------------------------
+# gather_blocks / scatter_blocks: the flat (NB, bs, D) FlashH2D / FlashD2H
+# ---------------------------------------------------------------------------
+
+_FLAT_DTYPES = {"float32": (torch.float32, jnp.float32),
+                "bfloat16": (torch.bfloat16, jnp.bfloat16),
+                "int8": (torch.int8, jnp.int8)}
+
+
+def _flat_pair(r, shape, dtype):
+    """The same values as a torch tensor and a jax array of ``dtype``
+    (bf16 rounded from the same float32 values on both sides)."""
+    t_dt, j_dt = _FLAT_DTYPES[dtype]
+    if dtype == "int8":
+        a = r.integers(-128, 128, shape).astype(np.int8)
+        return torch.from_numpy(a), jnp.asarray(a)
+    a = r.standard_normal(shape, dtype=np.float32)
+    return torch.from_numpy(a).to(t_dt), jnp.asarray(a).astype(j_dt)
+
+
+def _bits(x) -> np.ndarray:
+    """The bytes of a torch tensor or a jax array, as integers."""
+    if isinstance(x, torch.Tensor):
+        if x.dtype == torch.bfloat16:
+            x = x.view(torch.int16)
+        return x.numpy().view(np.uint8)
+    return np.asarray(x).view(np.uint8)
+
+
+@pytest.mark.parametrize("dtype", list(_FLAT_DTYPES))
+@pytest.mark.parametrize("NB,bs,D,idx", [
+    (16, 32, 64, [3, 9, 0, 15]),        # out of order
+    (9, 8, 32, [1, 2, 3]),              # in order
+    (64, 16, 128, [63, 0, 31, 7, 8]),
+])
+def test_flat_gather_plain_matches_pallas(dtype, NB, bs, D, idx):
+    pool_t, pool_j = _flat_pair(_rng(NB), (NB, bs, D), dtype)
+    ids = np.asarray(idx, np.int32)
+    got = ops.gather_blocks(pool_t, _t(ids))
+    assert got.shape == (len(idx), bs, D) and got.dtype == pool_t.dtype
+    np.testing.assert_array_equal(_bits(got), _bits(jops.gather_blocks(
+        pool_j, jnp.asarray(ids))))
+    np.testing.assert_array_equal(_bits(got), _bits(jref.gather_blocks(
+        pool_j, jnp.asarray(ids))))
+    assert ops.launches.counts["gather_blocks"] == 0
+
+
+@pytest.mark.parametrize("dtype", list(_FLAT_DTYPES))
+@pytest.mark.parametrize("NB,bs,D,dest", [
+    (16, 32, 64, [4, 11, 0]),           # out of order
+    (9, 8, 32, [6, 7, 8]),              # in order
+    (64, 16, 128, [40, 2, 63, 17]),
+])
+def test_flat_scatter_plain_matches_pallas(dtype, NB, bs, D, dest):
+    """In place and byte for byte equal to the Pallas scatter (interpret
+    mode) and the jnp oracle; untouched blocks persist, and a gather of the
+    destination blocks after the scatter returns the payload."""
+    r = _rng(NB + bs)
+    pool_t, pool_j = _flat_pair(r, (NB, bs, D), dtype)
+    new_t, new_j = _flat_pair(r, (len(dest) * bs, D), dtype)
+    ids = np.asarray(dest, np.int32)
+    before = pool_t.clone()
+    assert ops.scatter_blocks(pool_t, new_t, _t(ids)) is pool_t
+    want = jops.scatter_blocks(pool_j, new_j, jnp.asarray(ids))
+    np.testing.assert_array_equal(_bits(pool_t), _bits(want))
+    np.testing.assert_array_equal(_bits(want), _bits(jref.scatter_blocks(
+        pool_j, new_j, jnp.asarray(ids))))
+    keep = np.setdiff1d(np.arange(NB), ids)
+    np.testing.assert_array_equal(_bits(pool_t[keep]), _bits(before[keep]))
+    back = ops.gather_blocks(pool_t, _t(ids))
+    np.testing.assert_array_equal(_bits(back.reshape(-1, D)), _bits(new_t))
+    assert ops.launches.counts["scatter_blocks"] == 0
+
+
+def test_flat_scatter_refuses_a_malformed_payload():
+    pool = torch.zeros((8, 4, 16))
+    ids = torch.tensor([1, 5], dtype=torch.int32)
+    with pytest.raises(ValueError):             # not n_new * bs rows
+        ops.scatter_blocks(pool, torch.zeros((7, 16)), ids)
+    with pytest.raises(ValueError):             # another dtype
+        ops.scatter_blocks(pool, torch.zeros((8, 16), dtype=torch.float64),
+                           ids)
+
+
+@pytest.mark.parametrize("B,Hkv,K,want", [(4, 2, 64, 32), (1, 1, 64, 64),
+                                          (8, 8, 64, 16), (4, 2, 51, 26),
+                                          (64, 8, 64, 16), (2, 1, 3, 3),
+                                          (8, 8, 51, 13)])
+def test_decode_splits_cover_k_in_equal_runs(B, Hkv, K, want):
+    """The split-K attention's split count on a 132-SM card: runs of
+    ceil(K / splits) <= 4 blocks cover the K selected blocks with none
+    empty, and B * Hkv * splits reaches about 2 x 132 CTAs where K allows
+    it (the serve's B 4 x Hkv 2 x K 64: 32 splits of 2 blocks)."""
+    splits = ops.decode_splits(B, Hkv, K, 132)
+    per = -(-K // splits)
+    assert splits == want
+    assert (splits - 1) * per < K <= splits * per
+    assert per <= ops.DECODE_RUN
+
+
+# ---------------------------------------------------------------------------
+# device dispatch: the plain version only when every tensor is on the CPU
+# ---------------------------------------------------------------------------
+
+def _wrapper_args(name):
+    """(wrapper, its tensor arguments, keyword arguments) at tiny shapes the
+    kernels would take (bf16 activations and pools, int32 ids)."""
+    g = torch.Generator().manual_seed(0)
+    bf, i32 = torch.bfloat16, torch.int32
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g).to(dtype)
+
+    ids = torch.tensor([3, 0, 5], dtype=i32)
+    rows = torch.tensor([1, 0, 1], dtype=i32)
+    qi8 = torch.randint(-127, 128, (2, 3, 4, 16), generator=g,
+                        dtype=torch.int8)
+    calls = {
+        "sparse_decode_attention": (ops.sparse_decode_attention, [
+            randn(2, 4, 16, dtype=bf), randn(2, 2, 8, 4, 16, dtype=bf),
+            randn(2, 2, 8, 4, 16, dtype=bf),
+            torch.tensor([[[1, 4, 6]] * 2] * 2, dtype=i32),
+            torch.ones((2, 2, 3), dtype=torch.bool),
+            torch.tensor([30, 17], dtype=i32)], {}),
+        "block_score": (ops.block_score, [randn(2, 4, 16, dtype=bf),
+                                          randn(2, 2, 8, 2, 16)], {}),
+        "gather_blocks_hkv": (ops.gather_blocks_hkv,
+                              [randn(2, 8, 4, 16), ids], {}),
+        "scatter_blocks_hkv": (ops.scatter_blocks_hkv, [
+            randn(2, 8, 4, 16, dtype=bf), randn(2, 3, 4, 16), ids], {}),
+        "scatter_blocks_hkv:rows": (ops.scatter_blocks_hkv, [
+            randn(2, 2, 8, 4, 16, dtype=bf), randn(2, 3, 4, 16), ids,
+            rows], {}),
+        "write_blocks_hkv": (ops.write_blocks_hkv, [
+            torch.zeros((2, 8, 4, 16), dtype=torch.int8), qi8, ids], {}),
+        "gather_blocks": (ops.gather_blocks, [randn(8, 4, 16), ids], {}),
+        "scatter_blocks": (ops.scatter_blocks, [randn(8, 4, 16),
+                                                randn(12, 16), ids], {}),
+        "flash_prefill": (ops.flash_prefill, [
+            randn(1, 5, 4, 64, dtype=bf), randn(1, 5, 2, 64, dtype=bf),
+            randn(1, 5, 2, 64, dtype=bf)], {"scale": 0.125}),
+        "dequantize_blocks": (ops.dequantize_blocks,
+                              [qi8, torch.rand((2, 3), generator=g)], {}),
+        "dequantize_scatter_blocks": (ops.dequantize_scatter_blocks, [
+            randn(2, 8, 4, 16, dtype=bf), qi8,
+            torch.rand((2, 3), generator=g), ids], {}),
+        "dequantize_scatter_blocks:rows": (ops.dequantize_scatter_blocks, [
+            randn(2, 2, 8, 4, 16, dtype=bf), qi8,
+            torch.rand((2, 3), generator=g), ids, rows], {}),
+    }
+    return calls[name]
+
+
+_DISPATCH_CASES = [(name, pos) for name, n in (
+    ("sparse_decode_attention", 6), ("block_score", 2),
+    ("gather_blocks_hkv", 2), ("scatter_blocks_hkv", 3),
+    ("scatter_blocks_hkv:rows", 4), ("write_blocks_hkv", 3),
+    ("gather_blocks", 2), ("scatter_blocks", 3), ("flash_prefill", 3),
+    ("dequantize_blocks", 2), ("dequantize_scatter_blocks", 4),
+    ("dequantize_scatter_blocks:rows", 5)) for pos in [None, *range(n)]]
+
+
+@pytest.mark.parametrize("name,moved", _DISPATCH_CASES)
+def test_wrapper_takes_plain_version_only_when_all_on_cpu(name, moved):
+    """With every tensor on the CPU a wrapper returns its plain version;
+    with one of them elsewhere (here the ``meta`` device, standing in for
+    the card) it raises ValueError rather than run the plain version on a
+    mix of devices, and counts no launch."""
+    fn, args, kw = _wrapper_args(name)
+    ops.launches.reset()
+    if moved is None:
+        out = fn(*args, **kw)
+        assert all(t.device.type == "cpu"
+                   for t in (out if isinstance(out, tuple) else (out,)))
+    else:
+        args[moved] = args[moved].to("meta")
+        with pytest.raises(ValueError):
+            fn(*args, **kw)
+    assert sum(ops.launches.counts.values()) == 0
