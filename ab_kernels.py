@@ -1,7 +1,6 @@
 #!/usr/bin/env python3
-"""Time one source tree's flash_prefill and sparse_decode_attention kernels
-at the fp serve's shapes, under chip_smoke.py's Timer with and without its
-~0.1 ms device spin.
+"""Time one source tree's redesigned kernels at the fp serve's shapes, under
+chip_smoke.py's Timer with and without its ~0.1 ms device spin.
 
     python3 ab_kernels.py [--src DIR] [--seed 0] [--label NAME]
 
@@ -16,9 +15,23 @@ Shapes: flash_prefill at the serve prefill's first launch (qwen2-0.5b,
 B 1, Sq = Sk 4096, Hq 14, Hkv 2, D 64, q_offset 0), with SDPA on the same
 inputs; sparse_decode_attention at the serve's decode step (B 4, Hq 14,
 Hkv 2, NB 136, K 64, bs 32, D 64, cur_len 4112, every selection valid:
-512 live blocks, as the serve replay has).  Each kernel is held against
-its plain version with chip_smoke.py's tolerance first.  Prints one JSON
-line; needs one CUDA card.
+512 live blocks, as the serve replay has); block_score at that step's
+shape, and the decode select stage from q to the selected ids as the
+tree's ``gqa_select_step`` runs it (``dsa.score_and_select``, the fused
+``score_select`` launch, where the tree has it; else ``block_score`` then
+``dsa.select_blocks``), the serve's DSA settings (K 64, one sink block,
+two recent blocks); and one eviction round of the serve's size (296
+blocks over 6 (request, layer) pairs of a 4-request, 24-layer decode
+plane) as the tree's engine drops it (``drop_blocks_many``, one
+``zero_blocks_hkv`` launch, where the tree has it; else one
+``drop_blocks`` per pair).  The two stages are timed with the host work
+they carry; ``host_ms`` is their wall-clock time per call over 50 calls
+ended by a synchronize.  Each kernel is held against its plain version
+with chip_smoke.py's tolerance first.  With ``--profile``, chip_smoke's
+profile phase then serves on the tree's engine under torch.profiler
+(idle share, count of device operations, the port's kernels), so two
+trees' launch counts compare in one call.  Prints one JSON line last;
+needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -26,9 +39,40 @@ import argparse
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
+
+
+def _host_ms(torch, fn, reps: int = 50) -> float:
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def _drop_plane(torch, gen, dev, n_req: int, n_layers: int, nb: int):
+    """A decode plane of ``n_req`` requests at the serve's widths (Hkv 2,
+    bs 32, D 64, bf16 pools), ``nb`` written blocks each."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.device_pool import DevicePoolPlane
+    plane = DevicePoolPlane(get_config("qwen2-0.5b"))
+    for r in range(n_req):
+        caches = [{"k": torch.randn((1, 2, nb, 32, 64), generator=gen,
+                                    device=dev).bfloat16(),
+                   "v": torch.randn((1, 2, nb, 32, 64), generator=gen,
+                                    device=dev).bfloat16(),
+                   "meta": torch.zeros((1, 2, nb, 2, 64), device=dev)}
+                  for _ in range(n_layers)]
+        plane.admit(f"r{r}", {"caches": caches,
+                              "cur_len": torch.tensor([nb * 32],
+                                                      dtype=torch.int32),
+                              "extra": {}})
+    return plane
 
 
 def main() -> int:
@@ -36,7 +80,12 @@ def main() -> int:
     ap.add_argument("--src", default=str(REPO / "src"))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--label", default="")
+    ap.add_argument("--profile", action="store_true",
+                    help="then chip_smoke's profile phase on this tree's "
+                         "engine: idle share, device operations, the "
+                         "port's kernels")
     args = ap.parse_args()
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("ab_kernels: torch.cuda.is_available() is False",
@@ -45,8 +94,10 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     sys.path.insert(0, str(Path(args.src).resolve()))
     import chip_smoke as cs
+    from repro_torch.core import dsa
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.build import LIBS
+    from repro_torch.models.common import DSAConfig
     torch.backends.cuda.matmul.allow_tf32 = False
     LIBS.build()
 
@@ -69,12 +120,58 @@ def main() -> int:
     valid = torch.ones((B, Hkv, K), dtype=torch.bool, device=dev)
     cur_len = torch.full((B,), cur, dtype=torch.int32, device=dev)
     fq, fk, fv = randn(1, S, Hq, D), randn(1, S, Hkv, D), randn(1, S, Hkv, D)
+    mn = torch.randn((B, Hkv, NB, D), generator=gen, device=dev)
+    meta = torch.stack([mn, mn + torch.rand((B, Hkv, NB, D), generator=gen,
+                                            device=dev)], dim=3).contiguous()
     cases = {
         "sparse_decode_attention": cs.case_attention(
             torch, ops, ref, q, k_pool, v_pool, idx, valid, cur_len),
         "flash_prefill": cs.case_flash(torch, ops, ref, fq, fk, fv,
                                        scale=D ** -0.5),
+        "block_score": cs.case_score(torch, ops, ref, q, meta),
     }
+    # the decode select stage, as this tree's gqa_select_step runs it, on
+    # the cache before the step's append (before + 1 = cur_len tokens)
+    cfg = DSAConfig()
+    before = cur_len - 1
+    fused = hasattr(dsa, "score_and_select")
+    if fused:
+        stage = lambda: dsa.score_and_select(q, meta, cfg, before)
+    else:
+        stage = lambda: dsa.select_blocks(
+            dsa.score_blocks(q, meta, cfg.metadata), cfg, before + 1)
+    scores = ref.block_score(q, meta)
+    ok, err = cs.select_agrees(
+        torch, stage(), dsa.select_blocks(scores, cfg, before + 1),
+        _select_scores(torch, scores, before + 1, cfg))
+    if not ok:
+        raise AssertionError(f"select stage disagrees with the plain one "
+                             f"({err})")
+    # one eviction round of the serve's size
+    plane = _drop_plane(torch, gen, dev, 4, 24, 129)
+    rng = np.random.default_rng(args.seed)
+    pairs = [(f"r{r}", int(l)) for r, l in zip(
+        rng.integers(0, 4, 6), rng.choice(24, 6, replace=False))]
+    round_ = {pair: sorted(rng.choice(129, n, replace=False).tolist())
+              for pair, n in zip(pairs, (50, 50, 49, 49, 49, 49))}
+    if hasattr(plane, "drop_blocks_many"):
+        drop = lambda: plane.drop_blocks_many(round_)
+    else:
+        def drop():
+            for (rid, layer), blks in round_.items():
+                plane.drop_blocks(rid, layer, blks)
+    drop()
+    torch.cuda.synchronize()
+    for (rid, layer), blks in round_.items():
+        c = plane.state["caches"][layer]
+        row = plane.rows[rid]
+        if c["k"][row, :, blks].any() or c["v"][row, :, blks].any():
+            raise AssertionError("drop round left data in a dropped block")
+    stages = {"select_stage": (stage, "fused score_select" if fused
+                               else "block_score + dsa.select_blocks"),
+              "drop_round": (drop, "drop_blocks_many" if hasattr(
+                  plane, "drop_blocks_many") else "drop_blocks per pair")}
+
     timers = {"spin": cs.Timer(torch), "no_spin": cs.Timer(torch,
                                                            spin=False)}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -93,8 +190,34 @@ def main() -> int:
             if len(case) > 7 and case[7] is not None:
                 rec[f"library_ms_{tname}"] = timer(case[7])
         out[name] = rec
+    for name, (fn, how) in stages.items():
+        rec = {"how": how}
+        for tname, timer in timers.items():
+            rec[f"ms_{tname}"] = timer(fn)
+        rec["host_ms"] = _host_ms(torch, fn)
+        out[name] = rec
+    out["drop_round"]["blocks"] = sum(len(b) for b in round_.values())
+    del plane, cases, stages
+    if args.profile:
+        cs.phase_profile(torch, np, args.seed)
     print(json.dumps(out))
     return 0
+
+
+def _select_scores(torch, scores, n_tokens, cfg):
+    """The scores the DSA top-k ranks, as the reference's ``select_blocks``
+    builds them: blocks at or past ceil(n_tokens / bs) masked to -1e30,
+    the valid sink and recent blocks forced to +inf (built here, so the
+    check does not depend on the timed tree's plain versions)."""
+    NB = scores.shape[-1]
+    blk = torch.arange(NB, device=scores.device)
+    n_valid = torch.ceil(n_tokens.float() / cfg.block_size).long()
+    valid = blk[None] < n_valid[:, None]
+    force = valid & ((blk[None] < n_valid.clamp(max=cfg.sink_blocks)[:, None])
+                     | ((blk[None] >= (n_valid - cfg.recent_blocks)[:, None])
+                        & (cfg.recent_blocks > 0)))
+    s = torch.where(valid[:, None], scores, -1e30)
+    return torch.where(force[:, None], float("inf"), s)
 
 
 if __name__ == "__main__":

@@ -16,8 +16,19 @@ each printing one line (``phase=...``) and failing the run on any error:
    (Hq 32, Hkv 8, D 128), with bs 32, K 64, NB 256, B 8, scatter in both
    of its modes (batched rows with a float32 payload, as a restore; one row
    with a bf16 payload, as a drop); time kernel, plain version and bound.
-   Tolerances: gather and scatter bit-exact; block_score
+   zero_blocks_hkv over a round of items spanning two layers' K and V
+   pools and several rows, bit-exact (untouched blocks unchanged), timed
+   beside index_fill_ of the same blocks on one pool; score_select with a
+   cur_len at a block edge, held tie-aware (below), and two planted faults
+   (the kernel given cur_len - 1, so it counts the cache without the
+   step's +1; the recent-block forcing left out) must fail that check.
+   Tolerances: gather, scatter and zero-fill bit-exact; block_score
    |err| <= 1e-3 + 1e-4 |ref| (float32 sums in another order);
+   score_select per (request, kv-head): sel_valid counts equal, the plain
+   version's select scores of the selected blocks equal as sorted lists
+   (block_score's tolerance; +inf and the masked score exactly), no block
+   twice, and the id sets equal wherever the plain K-th and (K+1)-th
+   scores differ by more than the tolerance;
    sparse_decode_attention |err| <= 2e-3 + 1e-2 |ref| (both accumulate in
    float32 and round once to bf16, whose step is <= 2^-7 relative).  Two
    planted faults (cur_len one block short; one live selection's valid
@@ -49,8 +60,12 @@ each printing one line (``phase=...``) and failing the run on any error:
    full width (24 layers, bf16, random weights from --seed): 4 requests of
    4096 prompt tokens and 32 new tokens, wall-clock charging.  Asserts
    every request finished with finite logits, that each kernel of the fp
-   path (the four decode kernels and flash_prefill) was launched, and that
-   H2D restores and D2H saves happened.  The inputs of the first
+   path (the decode kernels: score_select, sparse_decode_attention, the
+   restore's gather and scatter and the drop rounds' zero-fill; and
+   flash_prefill) was launched, that H2D restores and D2H saves happened,
+   that no drop went through scatter_blocks_hkv, that zero_blocks_hkv
+   launched at most once per drop round and score_select at most twice per
+   attention launch.  The inputs of the first
    flash_prefill launch and of one launch of each other kernel (and of
    each scatter mode) from the decode step halfway through the run, when
    all 4 requests decode together, are kept.  Then the same run with
@@ -72,7 +87,8 @@ each printing one line (``phase=...``) and failing the run on any error:
    stage_dispatch "async" and "sync", fp and int8: greedy tokens and
    transfer counters must be identical.
 8. profile (only when named in --phases) — the serve run again under
-   torch.profiler: device busy time, idle share, largest device consumers.
+   torch.profiler: device busy time, idle share, the count of device
+   operations (kernels, copies, memsets), largest device consumers.
 
 Before the last line it prints the kernels' JSON record and the card's
 name and power limit; the last line is the device JSON.  Without CUDA, or
@@ -104,6 +120,13 @@ KERNELS = {   # name -> (source in this repo, the TPU kernel it replaces)
                           "src/repro/kernels/gather_blocks.py:57"),
     "scatter_blocks_hkv": ("src/repro_torch/csrc/scatter_blocks.cu",
                            "src/repro/kernels/scatter_blocks.py:61"),
+    # scatter_blocks_hkv's drop use (a zero payload), a whole eviction
+    # round per launch
+    "zero_blocks_hkv": ("src/repro_torch/csrc/scatter_blocks.cu",
+                        "src/repro/kernels/scatter_blocks.py:61"),
+    # block_score fused with the reference's select_blocks
+    "score_select": ("src/repro_torch/csrc/block_score.cu",
+                     "src/repro/kernels/block_score.py:34"),
     # the byte-for-byte instance of scatter_blocks_hkv, into pinned memory
     "write_blocks_hkv": ("src/repro_torch/csrc/scatter_blocks.cu",
                          "src/repro/kernels/scatter_blocks.py:61"),
@@ -126,14 +149,18 @@ KERNELS = {   # name -> (source in this repo, the TPU kernel it replaces)
 TRANSFER_PATH = ("gather_blocks", "scatter_blocks")
 # the kernels whose registers and spills the build phase prints
 REGISTER_WATCH = ("flash_prefill", "sparse_decode_attention")
-# the kernels each serve path must launch
-FP_PATH = ("sparse_decode_attention", "block_score", "gather_blocks_hkv",
-           "scatter_blocks_hkv", "flash_prefill")
-INT8_PATH = FP_PATH + ("write_blocks_hkv", "quantize_blocks",
-                       "dequantize_blocks", "dequantize_scatter_blocks")
+# the kernels each serve path must launch (the int8 tier restores through
+# dequantize_scatter_blocks, not scatter_blocks_hkv)
+DECODE_PATH = ("sparse_decode_attention", "score_select", "gather_blocks_hkv",
+               "zero_blocks_hkv", "flash_prefill")
+FP_PATH = DECODE_PATH + ("scatter_blocks_hkv",)
+INT8_ONLY = ("write_blocks_hkv", "quantize_blocks", "dequantize_blocks",
+             "dequantize_scatter_blocks")
+INT8_PATH = DECODE_PATH + INT8_ONLY
 # the __global__ functions of src/repro_torch/csrc (the profile's names)
 PORT_KERNEL_FNS = ("split_kernel", "merge_kernel", "block_score_kernel",
-                   "gather_blocks_kernel", "scatter_blocks_kernel",
+                   "score_select_kernel", "gather_blocks_kernel",
+                   "scatter_blocks_kernel", "zero_blocks_kernel",
                    "write_blocks_kernel", "flash_prefill_kernel",
                    "quantize_blocks_kernel", "dequantize_blocks_kernel",
                    "dequantize_scatter_blocks_kernel")
@@ -142,6 +169,7 @@ PORT_KERNEL_FNS = ("split_kernel", "merge_kernel", "block_score_kernel",
 NO_LIBRARY = {
     "sparse_decode_attention": "block-sparse attention over selected ids",
     "block_score": "the interleaved cuboid bound",
+    "score_select": "a cuboid bound fused with a masked, forced top-k",
     "gather_blocks_hkv": "a gather from pinned host memory in place",
     "scatter_blocks_hkv": "a cast-and-scatter into a paged pool",
     "write_blocks_hkv": "a block scatter into pinned memory in place",
@@ -251,6 +279,86 @@ def case_score(torch, ops, ref, q, meta):
             f"B={B} Hq={Hq} Hkv={Hkv} NB={NB} D={D}")
 
 
+def _select_close(torch, a, b):
+    """Equal, or both finite and within block_score's tolerance."""
+    return (a == b) | (torch.isfinite(a) & torch.isfinite(b) & (
+        (a - b).abs() <= SCORE_ATOL + SCORE_RTOL * b.abs()))
+
+
+def select_agrees(torch, got, want, s_ref) -> tuple:
+    """Tie-aware agreement of a selection with the plain version's, per
+    (request, kv-head): sel_valid counts equal, the plain select scores
+    ``s_ref`` of the selected blocks equal as sorted lists, no block
+    selected twice, and the id sets equal wherever the plain K-th and
+    (K+1)-th scores are not close.  Returns (ok, the largest difference
+    of the sorted selected scores where both are finite)."""
+    (idx, valid), (w_idx, w_valid) = got, want
+    picked = [torch.gather(s_ref, -1, i.long()).masked_fill(
+        ~v, float("-inf")).sort(-1, descending=True).values
+        for i, v in ((idx, valid), (w_idx, w_valid))]
+    both = torch.isfinite(picked[0]) & torch.isfinite(picked[1])
+    err = ((picked[0] - picked[1]).abs()[both].max().item()
+           if bool(both.any()) else 0.0)
+    counts = [torch.zeros(s_ref.shape, dtype=torch.int32,
+                          device=s_ref.device).scatter_add_(
+        -1, i.long(), v.int()) for i, v in ((idx, valid), (w_idx, w_valid))]
+    ok = (torch.equal(valid.sum(-1), w_valid.sum(-1))
+          and bool(_select_close(torch, *picked).all())
+          and int(counts[0].max()) <= 1)
+    K, NB = idx.shape[-1], s_ref.shape[-1]
+    if ok and K < NB:
+        top = s_ref.sort(-1, descending=True).values
+        gap = ~_select_close(torch, top[..., K - 1], top[..., K])
+        ok = bool((counts[0] == counts[1])[gap].all())
+    return ok, err
+
+
+def case_select(torch, ops, ref, q, meta, cur_len, **kw):
+    """score_select against its plain version (block_score, then the
+    select over cur_len + 1 tokens), held tie-aware."""
+    got = ops.score_select(q, meta, cur_len, **kw)
+    want = ref.score_select(q, meta, cur_len, **kw)
+    s_ref = _select_scores(ref, q, meta, cur_len, kw)
+    torch.cuda.synchronize()
+    ok, err = select_agrees(torch, got, want, s_ref)
+    B, Hq, D = q.shape
+    _, Hkv, NB, _, _ = meta.shape
+    K = got[0].shape[-1]
+    return (err, ok, lambda: ops.score_select(q, meta, cur_len, **kw),
+            lambda: ref.score_select(q, meta, cur_len, **kw),
+            q.numel() * 2 + meta.numel() * 4 + B * 4 + B * Hkv * K * 5,
+            B * Hkv * NB * (Hq // Hkv) * 4 * D,
+            f"B={B} Hq={Hq} Hkv={Hkv} NB={NB} D={D} K={K} "
+            f"bs={kw['block_size']} sink={kw['sink_blocks']} "
+            f"recent={kw['recent_blocks']}")
+
+
+def _select_scores(ref, q, meta, cur_len, kw):
+    return ref.select_scores(ref.block_score(q, meta), cur_len + 1,
+                             block_size=kw["block_size"],
+                             sink_blocks=kw["sink_blocks"],
+                             recent_blocks=kw["recent_blocks"])
+
+
+def select_faults(torch, ops, ref, q, meta, cur_len, kw, arch) -> None:
+    """The tie-aware select check must reject a kernel that counts the
+    cache without the step's +1 (run on cur_len - 1) or leaves the recent
+    blocks unforced (run with recent_blocks 0): each runs through the
+    kernel and is held against the plain version on the true inputs."""
+    want = ref.score_select(q, meta, cur_len, **kw)
+    s_ref = _select_scores(ref, q, meta, cur_len, kw)
+    for label, c, k in (("n_without_plus_one", cur_len - 1, kw),
+                        ("recent_forcing_left_out", cur_len,
+                         dict(kw, recent_blocks=0))):
+        ok, err = select_agrees(torch, ops.score_select(q, meta, c, **k),
+                                want, s_ref)
+        log(f"phase=parity arch={arch} planted_fault={label} "
+            f"max_abs_err={err:.3e} rejected={not ok}")
+        if ok:
+            raise AssertionError(f"planted fault {label} passed the select "
+                                 f"check at {arch} shapes")
+
+
 def case_gather(torch, ops, ref, pool, idx):
     """pool on the card or pinned on the host; idx on the card.  From a
     pinned pool the blocks cross the PCIe link: the case carries a
@@ -275,6 +383,10 @@ def case_gather(torch, ops, ref, pool, idx):
 
 
 def case_scatter(torch, ops, ref, pool, payload, dest, rows=None):
+    """Ids host-held on the serve path are moved to the card first, so the
+    kernel is timed without their upload, as before."""
+    dest = _dev_ids(torch, dest, payload.device)
+    rows = _dev_ids(torch, rows, payload.device)
     got = ops.scatter_blocks_hkv(pool.clone(), payload, dest, rows)
     want = ref.scatter_blocks_hkv(pool.clone(), payload, dest, rows)
     torch.cuda.synchronize()
@@ -288,6 +400,51 @@ def case_scatter(torch, ops, ref, pool, payload, dest, rows=None):
             + K * 4 * (1 if rows is None else 2), 0,
             f"pool={tuple(pool.shape)} payload=({H},{K},{bs},{D}) "
             f"{str(payload.dtype)[6:]} rows={'none' if rows is None else K}")
+
+
+def _dev_ids(torch, ids, dev):
+    """Host-held ids (a list) as an int32 tensor on ``dev``."""
+    if ids is None or isinstance(ids, torch.Tensor):
+        return ids
+    return torch.tensor(ids, dtype=torch.int32, device=dev)
+
+
+def case_zero(torch, ops, ref, pools, which, rows, blocks):
+    """zero_blocks_hkv of an eviction round (host-held numpy ids, as the
+    plane passes them: the wrapper's id check and one upload are timed
+    with the launch) against its plain version, bit-exact over every pool;
+    the library call zeroes the same number of blocks, the round's (row,
+    head, block) triples, in one pool with index_fill_."""
+    import numpy as np
+    which, rows, blocks = (np.asarray(a, np.int64)
+                           for a in (which, rows, blocks))
+    got = [p.clone() for p in pools]
+    want = [p.clone() for p in pools]
+    ops.zero_blocks_hkv(got, which, rows, blocks)
+    ids = [torch.tensor(a, device=pools[0].device)
+           for a in (which, rows, blocks)]
+    ref.zero_blocks_hkv(want, *ids)
+    torch.cuda.synchronize()
+    err = max((g.float() - w.float()).abs().max().item()
+              for g, w in zip(got, want))
+    ok = all(torch.equal(g, w) for g, w in zip(got, want))
+    B, H, NB, bs, D = pools[0].shape
+    table = ops.PoolTable([p.clone() for p in pools])
+    pools_p = [p.clone() for p in pools]
+    flat = table.pools[0].view(B * H * NB, bs * D)
+    r, b = ids[1].long(), ids[2].long()
+    heads = torch.arange(H, device=r.device)
+    fill_idx = ((r[:, None] * H + heads) * NB + b[:, None]).reshape(-1)
+    N = len(which)
+    return (err, ok,
+            lambda: ops.zero_blocks_hkv(table, which, rows, blocks),
+            lambda: ref.zero_blocks_hkv(pools_p, *ids),
+            N * H * bs * D * pools[0].element_size() + N * 12
+            + len(pools) * 8, 0,
+            f"pools={len(pools)}x{tuple(pools[0].shape)} items={N} "
+            f"layers={len(np.unique(which // 2))} "
+            f"rows={len(np.unique(rows))}",
+            lambda: flat.index_fill_(0, fill_idx, 0))
 
 
 def case_write(torch, ops, ref, pool, payload, dest):
@@ -586,6 +743,18 @@ def phase_parity(torch, ops, ref, timer, seed: int) -> dict:
         cases.append(("block_score", "", case_score(torch, ops, ref, q,
                                                      meta)))
 
+        # score_select on the same q and meta, the serve's DSA settings;
+        # blocks 5-8 tie with block 4; row 1's cur_len at a block edge,
+        # so the step's +1 opens a new block
+        mn[:, :, 5:9], mx[:, :, 5:9] = mn[:, :, 4:5], mx[:, :, 4:5]
+        tie_meta = torch.stack([mn, mx], dim=3).contiguous()
+        sel_len = cur_len.clone()
+        sel_len[1] = (NB // 2) * BS
+        kw = dict(block_size=BS, top_k=K, sink_blocks=1, recent_blocks=2)
+        cases.append(("score_select", "", case_select(
+            torch, ops, ref, q, tie_meta, sel_len, **kw)))
+        select_faults(torch, ops, ref, q, tie_meta, sel_len, kw, arch)
+
         # gather_blocks_hkv: pinned float32 host pool -> device
         cpu_gen = torch.Generator().manual_seed(seed)
         host_pool = torch.randn((Hkv, NB, BS, D),
@@ -606,6 +775,17 @@ def phase_parity(torch, ops, ref, timer, seed: int) -> dict:
             dest, rows)))
         cases.append(("scatter_blocks_hkv", "mode=drop", case_scatter(
             torch, ops, ref, pool[3].clone(), randn(Hkv, K, BS, D), dest)))
+
+        # zero_blocks_hkv: a round of 150 (layer, row, block) drops over
+        # two layers' K and V pools, as the plane lists them
+        layers = [randn(B, Hkv, NB, BS, D) for _ in range(4)]
+        pick = torch.randint(0, 2 * B * NB, (150,), generator=gen,
+                             device=dev).tolist()
+        which = [2 * (t // (B * NB)) + kv for t in pick for kv in (0, 1)]
+        zrows = [t // NB % B for t in pick for _ in (0, 1)]
+        zblocks = [t % NB for t in pick for _ in (0, 1)]
+        cases.append(("zero_blocks_hkv", "", case_zero(
+            torch, ops, ref, layers, which, zrows, zblocks)))
 
         # flash_prefill: the serve prefill's shape (q_offset 0), and a
         # chunk continuation after 1000 context keys, 1000 queries (no
@@ -794,7 +974,10 @@ def phase_transfer(torch, ops, ref, timer, seed: int) -> tuple:
 class MainPathCapture:
     """While active, wraps the kernel wrappers of ``ops`` to count their
     calls per case (scatter splits into its restore mode ``rows`` and its
-    drop mode ``drop``; the int8 tier's write backs into ``int8`` payloads
+    drop mode ``drop``, which the planes no longer call: their drop rounds
+    are ``zero_blocks_hkv:drop``, one launch a round, whose pool table is
+    kept as clones of its pools; ``score_select`` is one case, the decode
+    select stage; the int8 tier's write backs into ``int8`` payloads
     and ``scales``; gather into the fp tier's blocks and the int8 tier's
     payloads and scales, each by its call site: ``restore``, the FlashH2D
     gather of ``HostPool.gather``, or ``flush``, the save's read of the
@@ -803,12 +986,19 @@ class MainPathCapture:
     flash_prefill launch, and for every other case the first made from
     attention launch ``from_attn`` on (one attention launch per layer and
     decode step; the first decode steps run fewer requests, as prefills
-    finish one after another).  ``keep`` limits the kept cases; a pinned
-    host pool is kept by reference."""
+    finish one after another), except a drop round: the largest of those
+    made before attention launch ``from_attn + layers`` (the rounds of one
+    decode step vary in size, and the first may hold a few blocks).
+    ``keep`` limits the kept cases; a pinned host pool is kept by
+    reference."""
 
-    def __init__(self, torch, ops, from_attn: int, keep=None):
+    WIDEST = ("zero_blocks_hkv:drop",)
+
+    def __init__(self, torch, ops, from_attn: int, keep=None,
+                 layers: int = 1):
         self.torch, self.ops = torch, ops
         self.from_attn = from_attn
+        self.until_attn = from_attn + layers
         self.keep = keep
         self.orig = {}
         self.calls = {}
@@ -827,6 +1017,8 @@ class MainPathCapture:
     def _keep(self, a):
         if isinstance(a, self.torch.Tensor) and not a.is_pinned():
             return a.clone()
+        if isinstance(a, self.ops.PoolTable):
+            return [p.clone() for p in a.pools]
         return a
 
     def _key(self, name, args, caller: str):
@@ -847,17 +1039,21 @@ class MainPathCapture:
         if name == "scatter_blocks_hkv":
             rows = args[3] if len(args) > 3 else None
             return f"{name}:{'drop' if rows is None else 'rows'}"
-        return name
+        if name == "zero_blocks_hkv":
+            return f"{name}:drop"
+        return name            # score_select and the rest: one case each
 
     def _wrap(self, name, fn):
         def wrapped(*args, **kw):
             # the wrapper's caller names the call site
             key = self._key(name, args, sys._getframe(1).f_code.co_name)
             self.calls[key] = self.calls.get(key, 0) + 1
-            due = (name == "flash_prefill"
-                   or self.calls.get("sparse_decode_attention", 0)
-                   >= self.from_attn)
-            if (due and key not in self.inputs
+            attn = self.calls.get("sparse_decode_attention", 0)
+            due = name == "flash_prefill" or attn >= self.from_attn
+            wider = (key in self.WIDEST and key in self.inputs
+                     and attn < self.until_attn
+                     and len(args[1]) > len(self.inputs[key][0][1]))
+            if (due and (key not in self.inputs or wider)
                     and (self.keep is None or key in self.keep)):
                 self.inputs[key] = (tuple(self._keep(a) for a in args),
                                     {k: self._keep(v) for k, v in kw.items()})
@@ -872,6 +1068,8 @@ def phase_mainpath(torch, ops, ref, timer, caps: dict) -> dict:
               "block_score": case_score,
               "gather_blocks_hkv": case_gather,
               "scatter_blocks_hkv": case_scatter,
+              "zero_blocks_hkv": case_zero,
+              "score_select": case_select,
               "write_blocks_hkv": case_write,
               "flash_prefill": case_flash,
               "quantize_blocks": case_quantize,
@@ -887,6 +1085,16 @@ def phase_mainpath(torch, ops, ref, timer, caps: dict) -> dict:
                            makers[name](torch, ops, ref, *args, **kw), timer)
             res["launches"] = cap.calls[key]
             results.setdefault(name, {})[label] = res
+            if name == "score_select":
+                # block_score, no longer on the serve path, on the same
+                # kept inputs: the redesigned scoring at the serve's shape
+                res = run_case("mainpath", label + " mode=select_inputs",
+                               "block_score",
+                               case_score(torch, ops, ref, *args[:2]),
+                               timer)
+                res["launches"] = cap.calls.get("block_score", 0)
+                results.setdefault("block_score", {})[
+                    label + " mode=select_inputs"] = res
         want = (FP_PATH if cap.keep is None
                 else {k.split(":")[0] for k in cap.keep})
         missing = set(want) - {k.split(":")[0] for k in cap.inputs}
@@ -902,15 +1110,18 @@ def kernel_records(parity: dict, mainpath: dict, counts: dict) -> list:
     under "cases"), else from the qwen2-0.5b parity case; max_abs_err
     over every case.  ``counts``:
     {path: launches by kernel}; a kernel's ``launches`` come from the
-    path that owns it (the int8 serve for the quant trio, the transfer
-    phase for the flat gather and scatter, the fp serve for the rest)."""
+    path that owns it (the int8 serve for INT8_ONLY, the quant trio and
+    write_blocks_hkv; the transfer phase for the flat gather and scatter;
+    the fp serve for the rest, block_score included: it launches 0 times
+    there, and its times come from its replay on score_select's kept
+    inputs)."""
     records = []
     for name in KERNELS:
         cases = mainpath.get(name) or parity.get(name, {})
         if not cases:
             continue
-        owner = ("serve" if name in FP_PATH else "transfer"
-                 if name in TRANSFER_PATH else "serve_int8")
+        owner = ("transfer" if name in TRANSFER_PATH else "serve_int8"
+                 if name in INT8_ONLY else "serve")
         own = {label: r for label, r in cases.items()
                if label.split()[0] == f"path={owner}"} or cases
         lead = max(own.values(), key=lambda r: r.get("launches", 0))
@@ -969,11 +1180,15 @@ def _serve_qwen2(torch, np, seed: int, n=None, gen_tokens=None,
     return eng, ids
 
 
+def _serve_layers() -> int:
+    from repro_torch.configs import get_config
+    return get_config("qwen2-0.5b").num_layers
+
+
 def _mid_decode_attn() -> int:
     """The attention launch that opens the serve's middle decode step
     (one launch per layer and step)."""
-    from repro_torch.configs import get_config
-    return get_config("qwen2-0.5b").num_layers * SERVE_NEW // 2
+    return _serve_layers() * SERVE_NEW // 2
 
 
 def _run_serve(torch, np, ops, seed: int, path: str, want: tuple,
@@ -981,10 +1196,20 @@ def _run_serve(torch, np, ops, seed: int, path: str, want: tuple,
     """One full-width qwen2-0.5b serve (wall-clock charging), the launch
     counts set to 0 just before it and read just after; checks that every
     request finished with finite logits, that H2D restores and D2H saves
-    happened and that every kernel of ``want`` launched.  Returns a
-    summary."""
+    happened, that every kernel of ``want`` launched, that the drop rounds
+    (the engine's ``_drop_pending_evictions`` calls, counted here) took at
+    most one zero_blocks_hkv launch each, that the decode select took at
+    most two launches per attention launch and, with a capture, that no
+    drop went through scatter_blocks_hkv.  Returns a summary."""
     eng, ids = _serve_qwen2(torch, np, seed, charge_real_time=True,
                             **engine_kw)
+    drop_rounds = [0]
+    drop = eng._drop_pending_evictions
+
+    def counted_drop(*a, **kw):
+        drop_rounds[0] += 1
+        return drop(*a, **kw)
+    eng._drop_pending_evictions = counted_drop
     torch.cuda.reset_peak_memory_stats()
     ops.launches.reset()
     t0 = time.perf_counter()
@@ -1006,6 +1231,17 @@ def _run_serve(torch, np, ops, seed: int, path: str, want: tuple,
     if missing:
         raise AssertionError(f"kernels not launched on the {path} path: "
                              f"{missing}")
+    scatter_drops = None if cap is None else cap.calls.get(
+        "scatter_blocks_hkv:drop", 0)
+    log(f"phase={path} drop_rounds={drop_rounds[0]} zero_blocks_hkv="
+        f"{counts['zero_blocks_hkv']} scatter_blocks_hkv:drop="
+        f"{scatter_drops} score_select={counts['score_select']} "
+        f"sparse_decode_attention={counts['sparse_decode_attention']}")
+    if (counts["zero_blocks_hkv"] > drop_rounds[0] or scatter_drops
+            or counts["score_select"]
+            > 2 * counts["sparse_decode_attention"]):
+        raise AssertionError(f"{path}: more drop or select launches than "
+                             f"rounds or layer steps allow")
     s = eng.metrics_snapshot()
     if s["kv.h2d_calls"] <= 0 or s["kv.d2h_calls"] <= 0:
         raise AssertionError(f"{path}: no H2D restore or no D2H save")
@@ -1054,7 +1290,8 @@ def phase_serve(torch, np, ops, ref, seed: int) -> tuple:
             return _run_serve(torch, np, ops, seed, tag, plain_want)
         finally:
             ops.flash_prefill = kernel
-    cap = MainPathCapture(torch, ops, _mid_decode_attn())
+    cap = MainPathCapture(torch, ops, _mid_decode_attn(),
+                          layers=_serve_layers())
     plain = [run_plain("serve_plain_prefill_1")]
     fp = _run_serve(torch, np, ops, seed, "serve", FP_PATH, cap)
     again = _run_serve(torch, np, ops, seed, "serve_again", FP_PATH)
@@ -1119,7 +1356,8 @@ def phase_profile(torch, np, seed: int) -> None:
         rows.append((dev_us, e.count, e.key))
     busy = sum(r[0] for r in rows) / 1e6
     log(f"phase=profile wall_s={wall:.3f} device_busy_s={busy:.3f} "
-        f"idle_share={1.0 - busy / wall:.3f}")
+        f"idle_share={1.0 - busy / wall:.3f} "
+        f"device_ops={sum(r[1] for r in rows)}")
     for dev_us, count, key in sorted(rows, reverse=True)[:12]:
         log(f"phase=profile device_ms={dev_us / 1e3:.2f} calls={count} "
             f"kernel={key[:90]}")

@@ -13,8 +13,10 @@ The reference updates functional pool values through jitted stages; here
 every write is IN PLACE on the plane's tensors: the select stage's append
 and metadata update, the FlashH2D restores (``restore_blocks_fused``,
 through the ``scatter_blocks_hkv`` kernel on the GPU) and the eviction
-drops (``drop_blocks``, which scatters zero blocks through the same
-kernel).  Stage functions are plain calls of ``models/model.py``.
+drops (``drop_blocks_many``: a whole round of them zeroed by one
+``zero_blocks_hkv`` launch over the plane's table of K and V pools, where
+the reference scatters a zero payload per request and layer).  Stage
+functions are plain calls of ``models/model.py``.
 """
 from __future__ import annotations
 
@@ -76,11 +78,11 @@ def gather_row_blocks(pool: torch.Tensor, row: int, blocks
 
 def scatter_row_blocks(pool: torch.Tensor, row: int, blocks,
                        payload: torch.Tensor) -> torch.Tensor:
-    """Scatter ``payload`` (H,K,bs,D) into ``blocks`` of one batch row IN
-    PLACE (whole blocks, untouched blocks preserved), through the
-    ``scatter_blocks_hkv`` kernel on the GPU.  Returns ``pool``."""
-    idx = host_to_device(blocks, pool.device)
-    ops.scatter_blocks_hkv(pool[row], payload, idx)
+    """Scatter ``payload`` (H,K,bs,D) into ``blocks`` (host-held ids) of
+    one batch row IN PLACE (whole blocks, untouched blocks preserved),
+    through the ``scatter_blocks_hkv`` kernel on the GPU.  Returns
+    ``pool``."""
+    ops.scatter_blocks_hkv(pool[row], payload, blocks)
     return pool
 
 
@@ -104,6 +106,9 @@ class DevicePoolPlane:
         self.blocks_restored_before_use = 0
         self.host_syncs = 0              # per-layer selected-id syncs
         self.d2h_readback_bytes = 0      # stripe bytes read back
+        # K and V pools of every layer (2 * layer, 2 * layer + 1), with
+        # their device address table: rebuilt where the pools are made
+        self.pool_table: Optional[ops.PoolTable] = None
 
     @property
     def device(self) -> torch.device:
@@ -119,10 +124,15 @@ class DevicePoolPlane:
                                  + v.shape[3:])
                 for key, v in c.items()})
         dev = template["caches"][0]["k"].device
+        self._table_pools(caches)
         return {"caches": caches,
                 "cur_len": torch.zeros((b_cap,), dtype=torch.int32,
                                        device=dev),
                 "extra": {}}
+
+    def _table_pools(self, caches: List[Dict]) -> None:
+        self.pool_table = ops.PoolTable(
+            [c[key] for c in caches for key in ("k", "v")])
 
     def _grow(self, b_cap: int, nb_cap: int) -> None:
         st = self.state
@@ -132,6 +142,7 @@ class DevicePoolPlane:
                                   + v.shape[3:])
                 new[:self.b_cap, :, :self.nb_cap] = v
                 c[key] = new
+        self._table_pools(st["caches"])
         cl = st["cur_len"].new_zeros((b_cap,))
         cl[:self.b_cap] = st["cur_len"]
         st["cur_len"] = cl
@@ -282,31 +293,53 @@ class DevicePoolPlane:
             vs.append(v_pay)
         if not blks_l:
             return
-        dev = self.device
-        rows = host_to_device(rows_l, dev)
-        blks = host_to_device(blks_l, dev)
-        for pool, pays in ((c["k"], ks), (c["v"], vs)):
-            if isinstance(pays[0], QuantBlocks):
+        if isinstance(ks[0], QuantBlocks):
+            dev = self.device
+            rows = host_to_device(rows_l, dev)
+            blks = host_to_device(blks_l, dev)
+            for pool, pays in ((c["k"], ks), (c["v"], vs)):
                 ops.dequantize_scatter_blocks(
                     pool, torch.cat([p.q for p in pays], dim=1),
                     torch.cat([p.scales for p in pays], dim=1), blks, rows)
-            else:
-                ops.scatter_blocks_hkv(pool, torch.cat(pays, dim=1), blks,
-                                       rows)
+        else:
+            # host-held ids: checked, then uploaded with the launch
+            for pool, pays in ((c["k"], ks), (c["v"], vs)):
+                ops.scatter_blocks_hkv(pool, torch.cat(pays, dim=1), blks_l,
+                                       rows_l)
         self.blocks_restored += len(blks_l)
         if before_use:
             self.blocks_restored_before_use += len(blks_l)
 
     def drop_blocks(self, req_id: str, layer: int,
                     blocks: List[int]) -> None:
-        """Zero evicted blocks' device data IN PLACE by scattering zero
-        blocks (HBM eviction really drops device data).  Block METADATA
-        stays, so DSA scoring is exact; re-selected blocks come back
-        through ``restore_blocks_fused``."""
-        row = self.rows[req_id]
-        c = self.state["caches"][layer]
-        H, _, bs, D = c["k"].shape[1:]
-        zero = c["k"].new_zeros((H, len(blocks), bs, D))
-        scatter_row_blocks(c["k"], row, blocks, zero)
-        scatter_row_blocks(c["v"], row, blocks, zero)
-        self.blocks_dropped += len(blocks)
+        """Zero evicted blocks' device data IN PLACE (HBM eviction really
+        drops device data): the one-(request, layer) case of
+        ``drop_blocks_many``."""
+        self.drop_blocks_many({(req_id, layer): blocks})
+
+    def drop_blocks_many(self, blocks_by: Dict[Tuple[str, int], List[int]]
+                         ) -> None:
+        """Zero a whole eviction round IN PLACE, {(req_id, layer): blocks}:
+        K and V of every listed block, in one ``zero_blocks_hkv`` launch
+        with one upload of its (pool, row, block) items on the GPU.  Block
+        METADATA stays, so DSA scoring is exact; re-selected blocks come
+        back through ``restore_blocks_fused``.  ``blocks_dropped`` grows by
+        the blocks listed, as one ``drop_blocks`` call per key would."""
+        if not blocks_by:
+            return
+        blks = np.concatenate([np.asarray(b, np.int64)
+                               for b in blocks_by.values()])
+        n = np.fromiter(map(len, blocks_by.values()), np.int64,
+                        len(blocks_by))
+        self.blocks_dropped += int(blks.size)
+        if not blks.size:
+            return
+        k_pool = np.repeat(np.fromiter((2 * l for _, l in blocks_by),
+                                       np.int64, len(blocks_by)), n)
+        row = np.repeat(np.fromiter((self.rows[r] for r, _ in blocks_by),
+                                    np.int64, len(blocks_by)), n)
+        # every block in its layer's K pool (2 * layer), then in its V pool
+        ops.zero_blocks_hkv(self.pool_table,
+                            np.concatenate([k_pool, k_pool + 1]),
+                            np.concatenate([row, row]),
+                            np.concatenate([blks, blks]))

@@ -9,7 +9,9 @@ Counterpart of ``repro/core/dsa.py``, with the same shape conventions:
     scores     (B, Hkv, NB)            -- group-reduced over GQA query heads
     selection  (B, Hkv, K) int32
 
-On the GPU the cuboid/max scoring goes through the ``block_score`` kernel
+On the GPU the decode select stage, cuboid/max scoring then top-k
+(``score_and_select``), is the fused ``score_select`` kernel, and
+``score_blocks``' cuboid/max case the ``block_score`` kernel
 (``kernels/ops.py``); everything else is plain PyTorch.
 """
 from __future__ import annotations
@@ -19,7 +21,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models.common import DSAConfig
 
 NEG_INF = -1e30
@@ -107,25 +109,34 @@ def select_blocks(scores: torch.Tensor, cfg: DSAConfig,
     than ``jax.lax.top_k``, so only the selected id SET is comparable
     with the reference (``selected_block_ids`` sorts and de-duplicates).
     Stays on the device: no host sync."""
-    B, Hkv, NB = scores.shape
-    k = min(cfg.top_k_blocks, NB)
-    dev = scores.device
-    blk_ids = torch.arange(NB, dtype=torch.int32, device=dev)
-    n_valid = torch.ceil(cur_len.float() / cfg.block_size).to(torch.int32)
-    valid = blk_ids[None, :] < n_valid[:, None]                  # (B, NB)
-    s = torch.where(valid[:, None, :], scores, NEG_INF)
-    inf = torch.tensor(float("inf"), device=dev)
-    if cfg.sink_blocks > 0:
-        sink = blk_ids[None, :] < torch.clamp(n_valid,
-                                              max=cfg.sink_blocks)[:, None]
-        s = torch.where((sink & valid)[:, None, :], inf, s)
-    if cfg.recent_blocks > 0:
-        recent = blk_ids[None, :] >= (n_valid - cfg.recent_blocks)[:, None]
-        s = torch.where((recent & valid)[:, None, :], inf, s)
-    top_scores, top_idx = torch.topk(s, k, dim=-1)
-    sel_valid = top_scores > NEG_INF / 2
-    top_idx = torch.where(sel_valid, top_idx, 0).to(torch.int32)
-    return top_idx, sel_valid
+    return ref.select_blocks(scores, cur_len, block_size=cfg.block_size,
+                             top_k=cfg.top_k_blocks,
+                             sink_blocks=cfg.sink_blocks,
+                             recent_blocks=cfg.recent_blocks)
+
+
+def score_and_select(q: torch.Tensor, meta: torch.Tensor, cfg: DSAConfig,
+                     cur_len: torch.Tensor, group_reduce: str = "max"
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The decode select stage: ``select_blocks(score_blocks(q, meta,
+    cfg.metadata, group_reduce), cfg, cur_len + 1)``, cur_len (B,) the
+    tokens in the cache before this step's append.  Cuboid metadata with
+    the max over the GQA group is the fused ``score_select`` kernel on the
+    GPU (one launch from q to the ids), and its plain version on the CPU;
+    other metadata or reductions run the plain composition on the CPU and
+    raise on the GPU, where no kernel computes them."""
+    if cfg.metadata == "cuboid" and group_reduce == "max":
+        return ops.score_select(q, meta, cur_len,
+                                block_size=cfg.block_size,
+                                top_k=cfg.top_k_blocks,
+                                sink_blocks=cfg.sink_blocks,
+                                recent_blocks=cfg.recent_blocks)
+    if q.device.type != "cpu" or meta.device.type != "cpu":
+        raise ValueError(f"score_and_select: no kernel for metadata "
+                         f"{cfg.metadata!r} with the {group_reduce!r} "
+                         f"reduction (the GPU path is cuboid, max)")
+    return select_blocks(score_blocks(q, meta, cfg.metadata, group_reduce),
+                         cfg, cur_len + 1)
 
 
 def sparse_decode_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,

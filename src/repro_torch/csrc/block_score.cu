@@ -1,6 +1,7 @@
-// Quest cuboid block scores, max over the GQA group, for Hopper.
+// Quest cuboid block scores, max over the GQA group, and the fused DSA
+// block selection, for Hopper.
 //
-// Replaces the Pallas TPU kernel `block_score` in
+// `block_score` replaces the Pallas TPU kernel `block_score` in
 // src/repro/kernels/block_score.py:
 //   score[b, h, n] = max_g sum_d max(q[b,h*G+g,d] * mn[d], q[..,d] * mx[d])
 //                  = max_g (pos_g . mx_n + neg_g . mn_n)
@@ -8,90 +9,296 @@
 // takes split min/max arrays, it reads the block metadata in the layout the
 // KV pool keeps: (B, Hkv, NB, 2, D) float32, [min, max] interleaved.
 //
-// What bounds it: bytes.  Each block's 2 * D floats of metadata are read
-// once and used for 4 * G * D flops: 3.5 (qwen2-0.5b) or 2 (llama3-8b)
-// flops per byte.
+// `score_select` fuses that bound with the selection the reference runs
+// after it, `select_blocks(score_blocks(q, meta), cfg, cur_len + 1)`
+// (src/repro/core/dsa.py:133-162): blocks at or past n = ceil((cur_len +
+// 1) / bs) masked to -1e30, valid sink and recent blocks forced to +inf,
+// the top min(K, NB) per (request, kv-head), sel_valid = score > -5e29 and
+// invalid ids replaced by block 0.  It takes cur_len as the cache holds it
+// and adds the +1 itself, so no PyTorch op runs between the select stage's
+// start and its ids.  One launch.  The ids come out ordered by score,
+// highest first, ties by block id, lowest first; torch.topk and
+// jax.lax.top_k may order a selection otherwise, so callers compare id
+// sets.
 //
-// Design: one CTA of 4 warps per (request, kv-head, tile of 32 blocks).
-// The group's q rows, split into pos/neg, sit in shared memory; each warp
-// takes one block at a time, lanes hold its min/max dims in registers
-// (coalesced reads), and one warp reduction per query head gives the
-// head's bound; the running max over heads is written by lane 0.
+// What bounds them: bytes.  Each block's 2 * D floats of metadata are read
+// once and used for 4 * G * D flops: 3.5 (qwen2-0.5b) or 2 (llama3-8b)
+// flops per byte.  At the serve's shape (B 4, Hkv 2, NB 136, D 64) that is
+// 0.28 MB, 0.08 us at the HBM rate: both kernels are latency-bound, and the
+// design cuts the serial steps on the way from q to the ids.
+//
+// Design.  A block's bound is summed by a group of 8 lanes, each holding
+// D / 8 of the block's min and max dims in registers (16-byte loads,
+// coalesced across the group, issued before the q rows are staged so the
+// two loads overlap), so a warp scores 4 blocks at once and each query
+// head's sum needs three shuffles inside the group (the previous design
+// walked 8 blocks per warp in turn, with a five-shuffle warp sum per query
+// head and block).  The group's q rows, split into pos / neg, sit in
+// shared memory.
+// - block_score: one CTA of 64 threads per (8 blocks, kv-head, request):
+//   136 CTAs at the serve's shape.
+// - score_select: one thread block cluster of C <= 8 CTAs per (kv-head,
+//   request), each scoring a slice of NB / C blocks and writing each
+//   block's masked, forced key into the shared memory of every CTA of the
+//   cluster (distributed shared memory; a relaxed cluster arrive at the
+//   start and its wait after the first scores keep the barrier that makes
+//   those writes safe off the critical path).  After the cluster barrier
+//   each CTA ranks its own blocks among all NB keys, one warp per block, lanes
+//   over the keys (score descending, then block id ascending: a total
+//   order), and writes a block ranked below K at its rank.  No sort and
+//   no further barrier; the ranking costs NB^2 / C comparisons per CTA,
+//   ~2,300 at the serve's shape (64 CTAs, NB 136), ~2 M at NB = 4096.
+//   Shared memory per CTA: 8 * G * D + 4 * NB bytes <= 48 KB, which bounds
+//   NB (the wrapper's MAX_SELECT_NB) and G * D.
 #include "common.cuh"
+
+#include <algorithm>
+#include <cooperative_groups.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kTile = 32;             // blocks per CTA
-constexpr int kMaxDimChunks = 4;      // D <= 128
+constexpr int kLanes = 8;           // lanes per block's sum
+constexpr int kMaxChunks = 4;       // 16-byte chunks per lane: D <= 128
+constexpr int kScoreThreads = 64;   // block_score: 8 blocks per CTA
+constexpr int kSelThreads = 256;    // score_select: 32 blocks per pass
+constexpr int kMaxCluster = 8;      // the portable cluster size
+constexpr float kMasked = -1e30f;   // ref.NEG_INF
+constexpr float kValidCut = -5e29f; // NEG_INF / 2
 
+// The GQA group's q rows (G * D values) as pos / neg float32 in shared
+// memory.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-block_score_kernel(const T* __restrict__ q, const float* __restrict__ meta,
-                   float* __restrict__ out, int Hkv, int NB, int D, int G) {
-  extern __shared__ float smem[];
-  float* pos = smem;          // G * D
-  float* neg = pos + G * D;   // G * D
-  const int tile = blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-
-  const T* qg = q + ((size_t)b * Hkv * G + (size_t)h * G) * D;
-  for (int i = threadIdx.x; i < G * D; i += kThreads) {
+__device__ __forceinline__ void load_group(const T* __restrict__ qg,
+                                           float* pos, float* neg, int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
     const float x = to_f32(qg[i]);
     pos[i] = fmaxf(x, 0.f);
     neg[i] = fminf(x, 0.f);
   }
-  __syncthreads();
+}
 
-  const size_t head_row = (size_t)b * Hkv + h;
-  const int n_end = min(NB, (tile + 1) * kTile);
-  for (int n = tile * kTile + warp; n < n_end; n += kWarps) {
-    const float* mn = meta + (head_row * NB + n) * 2 * D;
-    const float* mx = mn + D;
-    float mnv[kMaxDimChunks], mxv[kMaxDimChunks];
+// One block's (2, D) metadata row as the 8 lanes of its lane group hold
+// it: lane ``sub`` the 16-byte chunks sub, sub + 8, ... of min and of max.
+struct MetaRegs {
+  float4 mn[kMaxChunks], mx[kMaxChunks];
+};
+
+// Loads the row (16-byte aligned, D % 4 == 0); an inactive lane loads
+// nothing.  Issued before the q rows are staged, so the two loads overlap.
+__device__ __forceinline__ void load_meta(MetaRegs& m,
+                                          const float* __restrict__ mrow,
+                                          int D, int sub, bool active) {
+  const int chunks = D / 4;
 #pragma unroll
-    for (int dc = 0; dc < kMaxDimChunks; ++dc) {
-      const int d = lane + 32 * dc;
-      mnv[dc] = d < D ? mn[d] : 0.f;
-      mxv[dc] = d < D ? mx[d] : 0.f;
+  for (int c = 0; c < kMaxChunks; ++c) {
+    const int ch = sub + kLanes * c;
+    if (active && ch < chunks) {
+      m.mn[c] = __ldg(reinterpret_cast<const float4*>(mrow) + ch);
+      m.mx[c] = __ldg(reinterpret_cast<const float4*>(mrow + D) + ch);
+    } else {
+      m.mn[c] = m.mx[c] = make_float4(0.f, 0.f, 0.f, 0.f);
     }
-    float best = -INFINITY;
-    for (int g = 0; g < G; ++g) {
-      float s = 0.f;
-#pragma unroll
-      for (int dc = 0; dc < kMaxDimChunks; ++dc) {
-        const int d = lane + 32 * dc;
-        if (d < D) s += pos[g * D + d] * mxv[dc] + neg[g * D + d] * mnv[dc];
-      }
-      best = fmaxf(best, warp_sum(s));
-    }
-    if (lane == 0) out[head_row * NB + n] = best;
   }
 }
 
+// The cuboid bound of the block in ``m``, max over the group's G query
+// heads, summed by the 8 lanes of the lane group; every lane of the group
+// returns it.  All 32 lanes of the warp must call it (the shuffles take
+// the full mask).
+__device__ __forceinline__ float block_bound(const MetaRegs& m,
+                                             const float* pos,
+                                             const float* neg, int D, int G,
+                                             int sub) {
+  const int chunks = D / 4;
+  float best = -INFINITY;
+  for (int g = 0; g < G; ++g) {
+    const float4* p4 = reinterpret_cast<const float4*>(pos + g * D);
+    const float4* n4 = reinterpret_cast<const float4*>(neg + g * D);
+    float s = 0.f;
+#pragma unroll
+    for (int c = 0; c < kMaxChunks; ++c) {
+      const int ch = sub + kLanes * c;
+      if (ch < chunks) {
+        const float4 p = p4[ch], n = n4[ch];
+        s += p.x * m.mx[c].x + p.y * m.mx[c].y + p.z * m.mx[c].z
+             + p.w * m.mx[c].w + n.x * m.mn[c].x + n.y * m.mn[c].y
+             + n.z * m.mn[c].z + n.w * m.mn[c].w;
+      }
+    }
+    s += __shfl_xor_sync(0xffffffffu, s, 4);
+    s += __shfl_xor_sync(0xffffffffu, s, 2);
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    best = fmaxf(best, s);
+  }
+  return best;
+}
+
 template <typename T>
-int launch(const void* q, const void* meta, void* out, int B, int Hkv, int NB,
-           int D, int G, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * 2 * (size_t)G * D;
-  dim3 grid((NB + kTile - 1) / kTile, Hkv, B);
-  block_score_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const float*>(meta),
-      static_cast<float*>(out), Hkv, NB, D, G);
-  return (int)cudaGetLastError();
+__global__ void __launch_bounds__(kScoreThreads)
+block_score_kernel(const T* __restrict__ q, const float* __restrict__ meta,
+                   float* __restrict__ out, int Hkv, int NB, int D, int G) {
+  extern __shared__ float4 smem4[];
+  float* pos = reinterpret_cast<float*>(smem4);   // G * D
+  float* neg = pos + G * D;                        // G * D
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const size_t head_row = (size_t)b * Hkv + h;
+  const int n = blockIdx.x * (kScoreThreads / kLanes) + threadIdx.x / kLanes;
+  const int sub = threadIdx.x % kLanes;
+  const bool active = n < NB;
+  MetaRegs m;
+  load_meta(m, meta + (head_row * NB + (active ? n : 0)) * 2 * D, D, sub,
+            active);
+  load_group(q + ((size_t)b * Hkv * G + (size_t)h * G) * D, pos, neg,
+             G * D);
+  __syncthreads();
+  const float s = block_bound(m, pos, neg, D, G, sub);
+  if (active && sub == 0) out[head_row * NB + n] = s;
+}
+
+// The cluster barrier in two halves (PTX ISA 8.0, sm_90): an arrive that
+// orders no memory, and the matching wait.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kSelThreads)
+score_select_kernel(const T* __restrict__ q, const float* __restrict__ meta,
+                    const int* __restrict__ cur_len, int* __restrict__ idx,
+                    bool* __restrict__ sel_valid, int Hkv, int NB, int D,
+                    int G, int K, int bs, int sink, int recent) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int C = (int)cluster.num_blocks();
+  extern __shared__ float4 smem4[];
+  float* pos = reinterpret_cast<float*>(smem4);   // G * D
+  float* neg = pos + G * D;                        // G * D
+  float* keys = neg + G * D;                       // NB, in every CTA
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int sub = tid % kLanes;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const size_t head_row = (size_t)b * Hkv + h;
+  const int per = (NB + C - 1) / C;
+  const int n0 = rank * per;
+  const int n1 = min(NB, n0 + per);
+  constexpr int kPass = kSelThreads / kLanes;     // blocks per pass
+
+  // this CTA has started: its shared memory may be written by the others
+  // once every CTA has arrived (the wait comes after the first scores)
+  cluster_arrive_relaxed();
+  MetaRegs m;
+  int n = n0 + tid / kLanes;
+  load_meta(m, meta + (head_row * NB + (n < n1 ? n : 0)) * 2 * D, D, sub,
+            n < n1);
+  load_group(q + ((size_t)b * Hkv * G + (size_t)h * G) * D, pos, neg,
+             G * D);
+  // blocks holding a token once this step's token is appended
+  const int n_valid = (cur_len[b] + 1 + bs - 1) / bs;
+  __syncthreads();   // pos / neg in place
+
+  float* dst = cluster.map_shared_rank(keys, sub < C ? sub : 0);
+  bool waited = false;
+  for (int base = n0; base < n1; base += kPass, n += kPass) {
+    if (base != n0)
+      load_meta(m, meta + (head_row * NB + (n < n1 ? n : 0)) * 2 * D, D,
+                sub, n < n1);
+    const float s = block_bound(m, pos, neg, D, G, sub);
+    if (!waited) {   // uniform across the CTA
+      cluster_wait();
+      waited = true;
+    }
+    // the masked, forced key of block n, into every CTA of the cluster
+    // (lane sub of the group writes CTA sub's copy)
+    if (n < n1 && sub < C) {
+      float key = kMasked;
+      if (n < n_valid)
+        key = (n < sink || n >= n_valid - recent) ? INFINITY : s;
+      dst[n] = key;
+    }
+  }
+  if (!waited) cluster_wait();
+  cluster.sync();   // every CTA holds all NB keys
+
+  // the rank of each block of this CTA's slice among all NB (score
+  // descending, then block id ascending: a total order, so the ranks are
+  // 0 .. NB - 1 once each); a block ranked below K is selected, at its
+  // rank.  One warp per block, lanes over the keys.
+  for (int i = n0 + warp; i < n1; i += kSelThreads / 32) {
+    const float ki = keys[i];
+    unsigned before = 0;
+    for (int j = lane; j < NB; j += 32) {
+      const float kj = keys[j];
+      before += (kj > ki || (kj == ki && j < i)) ? 1u : 0u;
+    }
+    before = __reduce_add_sync(0xffffffffu, before);
+    if (lane == 0 && before < (unsigned)K) {
+      const bool v = ki > kValidCut;
+      idx[head_row * K + before] = v ? i : 0;
+      sel_valid[head_row * K + before] = v;
+    }
+  }
 }
 
 }  // namespace
 
-// q bfloat16 (the serving path's dtype), meta float32.  Limits checked by
-// the wrapper: D <= 128, G * D * 8 bytes of shared memory <= 48 KB, tensors
-// contiguous.
+// q bfloat16 (the serving path's dtype), meta float32, both contiguous,
+// meta 16-byte aligned.  Limits checked by the wrapper: D <= 128,
+// D % 4 == 0, G * D * 8 bytes of shared memory <= 48 KB.
 extern "C" int launch_block_score(const void* q, const void* meta, void* out,
                                   int B, int Hkv, int NB, int D, int G,
                                   void* stream) {
-  return launch<__nv_bfloat16>(q, meta, out, B, Hkv, NB, D, G,
-                               static_cast<cudaStream_t>(stream));
+  if (B == 0 || Hkv == 0 || NB == 0) return (int)cudaGetLastError();
+  const size_t smem = sizeof(float) * 2 * (size_t)G * D;
+  const int per = kScoreThreads / kLanes;
+  dim3 grid((NB + per - 1) / per, Hkv, B);
+  block_score_kernel<__nv_bfloat16>
+      <<<grid, kScoreThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const __nv_bfloat16*>(q),
+          static_cast<const float*>(meta), static_cast<float*>(out), Hkv,
+          NB, D, G);
+  return (int)cudaGetLastError();
+}
+
+// score_select: q (B, Hkv * G, D) bfloat16, meta (B, Hkv, NB, 2, D)
+// float32, cur_len (B,) int32 tokens in the cache before this step ->
+// idx (B, Hkv, K) int32 and sel_valid (B, Hkv, K) bool, K = min(top_k, NB)
+// (the wrapper passes K).  Limits checked by the wrapper: those of
+// block_score, 1 <= NB <= MAX_SELECT_NB, 8 * G * D + 4 * NB bytes <=
+// 48 KB.
+extern "C" int launch_score_select(const void* q, const void* meta,
+                                   const void* cur_len, void* idx,
+                                   void* sel_valid, int B, int Hkv, int NB,
+                                   int D, int G, int K, int bs, int sink,
+                                   int recent, void* stream) {
+  if (B == 0 || Hkv == 0 || NB == 0) return (int)cudaGetLastError();
+  const int C = std::min(kMaxCluster, (NB + 15) / 16);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, Hkv, B);
+  cfg.blockDim = dim3(kSelThreads);
+  cfg.dynamicSmemBytes = sizeof(float) * (2 * (size_t)G * D + NB);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, score_select_kernel<__nv_bfloat16>,
+      static_cast<const __nv_bfloat16*>(q), static_cast<const float*>(meta),
+      static_cast<const int*>(cur_len), static_cast<int*>(idx),
+      static_cast<bool*>(sel_valid), Hkv, NB, D, G, K, bs, sink, recent);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }

@@ -28,8 +28,23 @@
 //
 // Design: one CTA per (payload block, head); threads stride over the
 // block's bs * D elements so reads and writes are coalesced, converting
-// through float.  An out-of-range row or block id is skipped (the wrapper
-// bounds-checks ids on the host first).
+// through float.  The kernel skips an out-of-range row or block id; the
+// wrapper raises on one wherever the ids are host-held (every call the
+// port's planes make), before they are uploaded, as the plain version
+// does.  Ids handed over as a device tensor are the caller's to check.
+//
+// A zero-fill kernel (entry `launch_zero_blocks_hkv`, wrapper
+// `zero_blocks_hkv`) replaces the drop use of the Pallas
+// `scatter_blocks_hkv`, which scatters a zero payload
+// (src/repro/core/device_pool.py:745-758, `DevicePoolPlane.drop_blocks`):
+// a whole round of evictions, N items of (pool, batch row, block) over a
+// table of pools of one shape and strides (K and V of every layer of a
+// decode plane), is zeroed in one launch.  What bounds it: bytes written,
+// N * H blocks of bs * D bf16; it reads no payload, only the 12-byte items
+// and the table.  Design: one CTA per (item, head), each thread storing
+// 16-byte units of zeros with coalesced stores: a round of ~300 evicted
+// blocks of K and V at H = 2 is ~1,200 CTAs over the 132 SMs, one 4 KB
+// block each.
 #include "common.cuh"
 
 namespace {
@@ -82,6 +97,23 @@ write_blocks_kernel(const V* __restrict__ payload,
   const V* s = payload + ((size_t)h * K + k) * blk_vecs;
   V* d = reinterpret_cast<V*>(pool + h * head_stride + blk * block_stride);
   for (long long i = threadIdx.x; i < blk_vecs; i += kThreads) d[i] = s[i];
+}
+
+// zero_blocks: items (N, 3) int32 of (pool, row, block); pools the device
+// table of pool base addresses; strides in bytes, units = 16-byte units per
+// block
+__global__ void __launch_bounds__(kThreads)
+zero_blocks_kernel(const unsigned long long* __restrict__ pools,
+                   const int* __restrict__ items, long long row_stride,
+                   long long head_stride, long long block_stride,
+                   int units) {
+  const int* it = items + 3 * (size_t)blockIdx.x;
+  const int h = blockIdx.y;
+  uint4* d = reinterpret_cast<uint4*>(
+      reinterpret_cast<char*>(pools[it[0]]) + it[1] * row_stride
+      + h * head_stride + it[2] * block_stride);
+  const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+  for (int u = threadIdx.x; u < units; u += kThreads) d[u] = z;
 }
 
 }  // namespace
@@ -156,4 +188,26 @@ extern "C" int launch_scatter_blocks(const void* new_kv, const void* dest,
                                  dst_on_host, (long long)NB * block_bytes,
                                  block_bytes, 1, NB, n_new, block_bytes,
                                  stream);
+}
+
+// zero_blocks_hkv: block items[i][2] of row items[i][1], every head, of
+// pool items[i][0] in the table ``pools`` (N_pools device addresses, all
+// pools (B, H, NB, bs, D) with the strides given, in bytes), zeroed for
+// i < N.  Ids are checked by the wrapper; block_bytes and every stride a
+// multiple of 16 and every pool 16-byte aligned (checked there too).
+extern "C" int launch_zero_blocks_hkv(const void* pools, const void* items,
+                                      int N, int H, long long row_stride,
+                                      long long head_stride,
+                                      long long block_stride,
+                                      long long block_bytes, void* stream) {
+  if (N == 0 || H == 0) return (int)cudaGetLastError();
+  if (block_bytes % 16 != 0 || row_stride % 16 != 0 ||
+      head_stride % 16 != 0 || block_stride % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  zero_blocks_kernel<<<dim3(N, H), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned long long*>(pools),
+      static_cast<const int*>(items), row_stride, head_stride, block_stride,
+      (int)(block_bytes / 16));
+  return (int)cudaGetLastError();
 }

@@ -47,6 +47,8 @@ _SIGNATURES = {
         [_P] * 9 + [_I] * 9 + [_F, _P]),
     "block_score": ("block_score", "launch_block_score",
                     [_P, _P, _P] + [_I] * 5 + [_P]),
+    "score_select": ("block_score", "launch_score_select",
+                     [_P] * 5 + [_I] * 9 + [_P]),
     "gather_blocks_hkv": ("gather_blocks", "launch_gather_blocks_hkv",
                           [_P, _L, _I, _P, _P, _I, _I, _I, _L, _P]),
     "gather_blocks": ("gather_blocks", "launch_gather_blocks",
@@ -54,6 +56,8 @@ _SIGNATURES = {
     "scatter_blocks_hkv": ("scatter_blocks", "launch_scatter_blocks_hkv",
                            [_I, _P, _P, _P, _P, _L, _L, _L] + [_I] * 5
                            + [_P]),
+    "zero_blocks_hkv": ("scatter_blocks", "launch_zero_blocks_hkv",
+                        [_P, _P, _I, _I, _L, _L, _L, _L, _P]),
     "write_blocks_hkv": ("scatter_blocks", "launch_write_blocks_hkv",
                          [_P, _P, _P, _L, _I, _L, _L, _I, _I, _I, _L, _P]),
     "scatter_blocks": ("scatter_blocks", "launch_scatter_blocks",

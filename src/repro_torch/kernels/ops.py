@@ -14,13 +14,19 @@ There is no fallback from a CUDA tensor to the plain version.
 
 ``launches`` counts kernel launches per wrapper (plain-version calls are not
 counted), so a run can show that its main path went through the kernels.
+
+Block ids that a caller holds on the host (a list, a numpy array or a CPU
+tensor) are range-checked there, on both paths, and a wrapper raises
+``IndexError`` on one out of range before anything is uploaded or written.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
+from repro_torch.device import host_to_device
 from repro_torch.kernels import ref
 from repro_torch.kernels.build import LIBS
 
@@ -30,10 +36,11 @@ _PAYLOAD_CODES = {torch.float32: 0, torch.bfloat16: 1}   # common.cuh DType
 class LaunchCounter:
     """Kernel launches per wrapper name since the last ``reset``."""
 
-    NAMES = ("sparse_decode_attention", "block_score", "gather_blocks_hkv",
-             "scatter_blocks_hkv", "write_blocks_hkv", "flash_prefill",
-             "quantize_blocks", "dequantize_blocks",
-             "dequantize_scatter_blocks", "gather_blocks", "scatter_blocks")
+    NAMES = ("sparse_decode_attention", "block_score", "score_select",
+             "gather_blocks_hkv", "scatter_blocks_hkv", "zero_blocks_hkv",
+             "write_blocks_hkv", "flash_prefill", "quantize_blocks",
+             "dequantize_blocks", "dequantize_scatter_blocks",
+             "gather_blocks", "scatter_blocks")
 
     def __init__(self):
         self.counts: Dict[str, int] = dict.fromkeys(self.NAMES, 0)
@@ -56,10 +63,36 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
-def _all_cpu(*tensors: Optional[torch.Tensor]) -> bool:
-    """Whether every tensor given (None skipped) lies on the CPU: the one
-    case in which a wrapper takes its plain version."""
-    return all(t is None or t.device.type == "cpu" for t in tensors)
+def _all_cpu(*tensors) -> bool:
+    """Whether every tensor given lies on the CPU (None and host-held
+    ids, lists or numpy arrays, skipped): the one case in which a wrapper
+    takes its plain version."""
+    return all(not isinstance(t, torch.Tensor) or t.device.type == "cpu"
+               for t in tensors)
+
+
+HostIds = Union[Sequence[int], np.ndarray, torch.Tensor]
+
+
+def _host_ids(name: str, ids) -> Optional[np.ndarray]:
+    """Ids the caller holds on the host as an int64 numpy array; None for
+    ids already on a device (a tensor not on the CPU)."""
+    if isinstance(ids, torch.Tensor):
+        if ids.device.type != "cpu":
+            return None
+        ids = ids.numpy()
+    a = np.asarray(ids)
+    _check(a.ndim == 1 and (a.size == 0 or np.issubdtype(a.dtype,
+                                                         np.integer)),
+           f"{name}: ids must be a 1-D integer sequence")
+    return a.astype(np.int64, copy=False)
+
+
+def _check_range(name: str, what: str, ids: np.ndarray, n: int) -> None:
+    if ids.size and (ids.min() < 0 or ids.max() >= n):
+        bad = ids[(ids < 0) | (ids >= n)][0]
+        raise IndexError(f"{name}: {what} id {int(bad)} out of range "
+                         f"[0, {n})")
 
 
 def _check_cuda(name: str, device: torch.device, **tensors) -> None:
@@ -196,14 +229,74 @@ def block_score(q: torch.Tensor, meta: torch.Tensor) -> torch.Tensor:
            f"{name}: q bfloat16, meta float32")
     _check(meta.shape[0] == B and two == 2 and Dm == D and Hq % Hkv == 0,
            f"{name}: inconsistent shapes")
-    _check(D <= 128 and 8 * Hq // Hkv * D <= 48 * 1024,
-           f"{name}: needs D <= 128 and G * D * 8 bytes <= 48 KB")
+    _check(D <= 128 and D % 4 == 0 and 8 * Hq // Hkv * D <= 48 * 1024,
+           f"{name}: needs D <= 128, D % 4 == 0 and G * D * 8 bytes <= "
+           f"48 KB")
+    _check(_aligned(meta), f"{name}: meta 16-byte aligned")
     out = torch.empty((B, Hkv, NB), dtype=torch.float32, device=q.device)
     rc = LIBS.fn(name)(q.data_ptr(), meta.data_ptr(), out.data_ptr(), B, Hkv,
                        NB, D, Hq // Hkv, _stream())
     _raise_on(rc, name)
     launches.add(name)
     return out
+
+
+# ---------------------------------------------------------------------------
+# score_select: block_score fused with the top-k select
+# ---------------------------------------------------------------------------
+
+# the largest NB the fused kernel takes: every CTA of a cluster holds all
+# NB keys (4 bytes each) in shared memory beside the GQA group's q rows
+# (8 * G * D bytes), within 48 KB, and ranks its slice among them
+# (NB^2 / 8 comparisons a CTA)
+MAX_SELECT_NB = 4096
+
+
+def score_select(q: torch.Tensor, meta: torch.Tensor, cur_len: torch.Tensor,
+                 *, block_size: int, top_k: int, sink_blocks: int,
+                 recent_blocks: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The decode select stage in one launch: the cuboid bound of every
+    block (as ``block_score``) and the DSA top-k over the cache once this
+    step's token is appended, cur_len (B,) int32 tokens before it (the
+    +1 is added in the kernel).  q (B, Hq, D); meta (B, Hkv, NB, 2, D)
+    float32 -> (idx (B, Hkv, K) int32, sel_valid (B, Hkv, K) bool),
+    K = min(top_k, NB), invalid ids replaced by 0.  The kernel orders the
+    ids by score, highest first, ties by block id, lowest first; the plain
+    version (``torch.topk``) may order them otherwise.  On the GPU: NB <=
+    MAX_SELECT_NB."""
+    kw = dict(block_size=block_size, top_k=top_k, sink_blocks=sink_blocks,
+              recent_blocks=recent_blocks)
+    if _all_cpu(q, meta, cur_len):
+        return ref.score_select(q, meta, cur_len, **kw)
+    name = "score_select"
+    B, Hq, D = q.shape
+    _, Hkv, NB, two, Dm = meta.shape
+    _check_cuda(name, q.device, q=q, meta=meta, cur_len=cur_len)
+    _check(q.dtype == torch.bfloat16 and meta.dtype == torch.float32
+           and cur_len.dtype == torch.int32,
+           f"{name}: q bfloat16, meta float32, cur_len int32")
+    _check(meta.shape[0] == B and two == 2 and Dm == D and Hkv > 0
+           and Hq % Hkv == 0 and cur_len.shape == (B,),
+           f"{name}: inconsistent shapes")
+    G = Hq // Hkv
+    _check(1 <= NB <= MAX_SELECT_NB,
+           f"{name}: NB = {NB}, the kernel takes 1 <= NB <= "
+           f"{MAX_SELECT_NB}")
+    _check(D <= 128 and D % 4 == 0 and 8 * G * D + 4 * NB <= 48 * 1024,
+           f"{name}: needs D <= 128, D % 4 == 0 and 8 * G * D + 4 * NB "
+           f"bytes <= 48 KB")
+    _check(block_size > 0 and top_k > 0 and sink_blocks >= 0
+           and recent_blocks >= 0, f"{name}: bad DSA parameters")
+    _check(_aligned(meta), f"{name}: meta 16-byte aligned")
+    K = min(top_k, NB)
+    idx = torch.empty((B, Hkv, K), dtype=torch.int32, device=q.device)
+    valid = torch.empty((B, Hkv, K), dtype=torch.bool, device=q.device)
+    rc = LIBS.fn(name)(q.data_ptr(), meta.data_ptr(), cur_len.data_ptr(),
+                       idx.data_ptr(), valid.data_ptr(), B, Hkv, NB, D, G,
+                       K, block_size, sink_blocks, recent_blocks, _stream())
+    _raise_on(rc, name)
+    launches.add(name)
+    return idx, valid
 
 
 # ---------------------------------------------------------------------------
@@ -246,20 +339,36 @@ def gather_blocks_hkv(pool: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def scatter_blocks_hkv(pool: torch.Tensor, payload: torch.Tensor,
-                       dest_blocks: torch.Tensor,
-                       rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       dest_blocks: HostIds,
+                       rows: Optional[HostIds] = None) -> torch.Tensor:
     """Scatter payload (H, K, bs, D) into ``pool`` IN PLACE, cast to the
     pool's dtype: pool (H, NB, bs, D) with rows None, or
-    (B, H, NB, bs, D) with rows (K,) int32.  Returns ``pool``.
+    (B, H, NB, bs, D) with rows (K,).  Returns ``pool``.
 
-    On the GPU the pool is bfloat16 on the payload's device and the
-    payload float32 (a restore from the host pool) or bfloat16 (a drop's
-    zero blocks)."""
-    if _all_cpu(pool, payload, dest_blocks, rows):
-        return ref.scatter_blocks_hkv(pool, payload, dest_blocks, rows)
+    Ids are host-held (a list, numpy array or CPU tensor: checked against
+    NB and B, IndexError on one out of range, then uploaded in one copy on
+    the GPU path) or int32 tensors on the pool's device, which the caller
+    has checked (the kernel skips an id out of range).  On the GPU the
+    pool is bfloat16 on the payload's device and the payload float32 (a
+    restore from the host pool) or bfloat16."""
     name = "scatter_blocks_hkv"
+    dest_h = _host_ids(name, dest_blocks)
+    rows_h = None if rows is None else _host_ids(name, rows)
+    if rows is None:
+        NB = pool.shape[1]
+    else:
+        NB = pool.shape[2]
+        if rows_h is not None:
+            _check_range(name, "row", rows_h, pool.shape[0])
+    if dest_h is not None:
+        _check_range(name, "block", dest_h, NB)
+    if _all_cpu(pool, payload, dest_blocks, rows):
+        return ref.scatter_blocks_hkv(
+            pool, payload, torch.from_numpy(dest_h),
+            None if rows is None else torch.from_numpy(rows_h))
     _check(payload.device.type == "cuda" and pool.device == payload.device,
            f"{name}: pool on {pool.device}, payload on {payload.device}")
+    dev = pool.device
     if rows is None:
         H, NB, bs, D = pool.shape
         B, row_stride = 1, 0
@@ -267,18 +376,32 @@ def scatter_blocks_hkv(pool: torch.Tensor, payload: torch.Tensor,
     else:
         B, H, NB, bs, D = pool.shape
         row_stride, head_stride, block_stride = pool.stride()[:3]
-        _check_cuda(name, pool.device, rows=rows)
-        _check(rows.dtype == torch.int32, f"{name}: rows must be int32")
-    K = dest_blocks.shape[0]
-    _check_cuda(name, pool.device, payload=payload, dest_blocks=dest_blocks)
+    if dest_h is not None and (rows is None or rows_h is not None):
+        # every id host-held: one upload, [blocks, rows]
+        ids = host_to_device(dest_h if rows is None
+                             else np.concatenate([dest_h, rows_h]), dev)
+        K = dest_h.shape[0]
+        dest_blocks = ids[:K]
+        rows = None if rows is None else ids[K:]
+    else:
+        _check(isinstance(dest_blocks, torch.Tensor)
+               and isinstance(rows, (torch.Tensor, type(None))),
+               f"{name}: blocks and rows both host-held or both tensors")
+        _check_cuda(name, dev, dest_blocks=dest_blocks)
+        if rows is not None:
+            _check_cuda(name, dev, rows=rows)
+            _check(rows.dtype == torch.int32, f"{name}: rows must be int32")
+        _check(dest_blocks.dtype == torch.int32,
+               f"{name}: block ids must be int32")
+        K = dest_blocks.shape[0]
+    _check_cuda(name, dev, payload=payload)
     _check(pool.stride(-1) == 1 and pool.stride(-2) == D,
            f"{name}: each pool block must be contiguous")
     _check(payload.shape == (H, K, bs, D)
            and (rows is None or rows.shape == (K,)),
            f"{name}: payload must be (H, K, bs, D) = {(H, K, bs, D)}")
-    _check(pool.dtype == torch.bfloat16 and payload.dtype in _PAYLOAD_CODES
-           and dest_blocks.dtype == torch.int32,
-           f"{name}: bfloat16 pool, float32/bfloat16 payload, int32 ids")
+    _check(pool.dtype == torch.bfloat16 and payload.dtype in _PAYLOAD_CODES,
+           f"{name}: bfloat16 pool, float32/bfloat16 payload")
     rc = LIBS.fn(name)(
         _PAYLOAD_CODES[payload.dtype], payload.data_ptr(),
         None if rows is None else rows.data_ptr(),
@@ -287,6 +410,98 @@ def scatter_blocks_hkv(pool: torch.Tensor, payload: torch.Tensor,
     _raise_on(rc, name)
     launches.add(name)
     return pool
+
+
+# ---------------------------------------------------------------------------
+# zero_blocks_hkv: an eviction round's drops in one launch
+# ---------------------------------------------------------------------------
+
+class PoolTable:
+    """Pools of one shape, dtype, device and strides (K and V of every layer
+    of a decode plane), indexed by position, and on the GPU the device
+    table of their base addresses that ``zero_blocks_hkv`` reads, uploaded
+    once here: build it when the pools are allocated, not per call.  Keeps
+    the pools alive while it lives.  Raises ValueError on pools that
+    differ, lie on a mix of devices, or (on the GPU) are not bfloat16 with
+    16-byte aligned, contiguous blocks."""
+
+    def __init__(self, pools: Sequence[torch.Tensor]):
+        name = "zero_blocks_hkv"
+        self.pools = tuple(pools)
+        _check(len(self.pools) > 0, f"{name}: an empty pool table")
+        p0 = self.pools[0]
+        _check(p0.dim() == 5, f"{name}: pools must be (B, H, NB, bs, D)")
+        for p in self.pools:
+            _check(p.device == p0.device,
+                   f"{name}: pools on {p.device} and {p0.device}")
+            _check(p.shape == p0.shape and p.dtype == p0.dtype
+                   and p.stride() == p0.stride(),
+                   f"{name}: every pool of the table needs the first one's "
+                   f"shape, dtype and strides")
+        self.ptrs: Optional[torch.Tensor] = None
+        if p0.device.type == "cpu":
+            return
+        _check(p0.device.type == "cuda",
+               f"{name}: pools on {p0.device}")
+        B, H, NB, bs, D = p0.shape
+        esz = p0.element_size()
+        _check(p0.dtype == torch.bfloat16, f"{name}: pools must be bfloat16")
+        _check(p0.stride(-1) == 1 and p0.stride(-2) == D
+               and all(st * esz % 16 == 0 for st in p0.stride()[:3])
+               and bs * D * esz % 16 == 0 and _aligned(*self.pools),
+               f"{name}: contiguous blocks of 16-byte multiples, 16-byte "
+               f"aligned pools and strides")
+        self.ptrs = host_to_device([p.data_ptr() for p in self.pools],
+                                   p0.device, torch.int64)
+
+    def __len__(self) -> int:
+        return len(self.pools)
+
+    @property
+    def device(self) -> torch.device:
+        return self.pools[0].device
+
+
+def zero_blocks_hkv(pools: Union[PoolTable, Sequence[torch.Tensor]],
+                    which: HostIds, rows: HostIds, blocks: HostIds
+                    ) -> Sequence[torch.Tensor]:
+    """Zero block ``blocks[i]`` of batch row ``rows[i]``, every head, of
+    pool ``pools[which[i]]``, IN PLACE, for every i: pools (B, H, NB, bs,
+    D) of one shape and strides (a ``PoolTable``, or a sequence made into
+    one); which, rows and blocks host-held (N,) ids, checked against the
+    table's length, B and NB (IndexError on one out of range), packed and
+    uploaded in one copy on the GPU path.  One launch.  Returns the
+    pools."""
+    name = "zero_blocks_hkv"
+    table = pools if isinstance(pools, PoolTable) else PoolTable(pools)
+    ids = [_host_ids(name, a) for a in (which, rows, blocks)]
+    _check(all(a is not None for a in ids),
+           f"{name}: ids must be host-held (a list, numpy array or CPU "
+           f"tensor), so they are checked before the upload")
+    which_h, rows_h, blocks_h = ids
+    N = which_h.shape[0]
+    _check(rows_h.shape == (N,) and blocks_h.shape == (N,),
+           f"{name}: which, rows and blocks of one length")
+    B, H, NB, bs, D = table.pools[0].shape
+    _check_range(name, "pool", which_h, len(table))
+    _check_range(name, "row", rows_h, B)
+    _check_range(name, "block", blocks_h, NB)
+    if table.ptrs is None:
+        return ref.zero_blocks_hkv(table.pools, *(torch.from_numpy(a)
+                                                  for a in ids))
+    if N == 0:
+        return table.pools
+    items = host_to_device(np.stack([which_h, rows_h, blocks_h], axis=1),
+                           table.device)
+    esz = table.pools[0].element_size()
+    row_stride, head_stride, block_stride = (
+        st * esz for st in table.pools[0].stride()[:3])
+    rc = LIBS.fn(name)(table.ptrs.data_ptr(), items.data_ptr(), N, H,
+                       row_stride, head_stride, block_stride, bs * D * esz,
+                       _stream())
+    _raise_on(rc, name)
+    launches.add(name)
+    return table.pools
 
 
 # ---------------------------------------------------------------------------

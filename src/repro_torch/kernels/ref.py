@@ -8,7 +8,7 @@ card.  They are the port's counterparts of the reference oracles in
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -61,6 +61,19 @@ def scatter_blocks_hkv(pool: torch.Tensor, payload: torch.Tensor,
     return pool
 
 
+def zero_blocks_hkv(pools: Sequence[torch.Tensor], which: torch.Tensor,
+                    rows: torch.Tensor, blocks: torch.Tensor
+                    ) -> Sequence[torch.Tensor]:
+    """Zero block ``blocks[i]`` of batch row ``rows[i]``, every head, of
+    pool ``pools[which[i]]``, IN PLACE: pools (B, H, NB, bs, D); which,
+    rows and blocks (N,) integer tensors (an eviction round's drops).
+    Returns ``pools``."""
+    for p in torch.unique(which).tolist():
+        sel = which == p
+        pools[p][rows[sel].long(), :, blocks[sel].long()] = 0
+    return pools
+
+
 def write_blocks_hkv(pool: torch.Tensor, payload: torch.Tensor,
                      dest_blocks: torch.Tensor) -> torch.Tensor:
     """Byte-for-byte block write IN PLACE: payload (H, K, bs, D) of the
@@ -87,6 +100,62 @@ def block_score(q: torch.Tensor, meta: torch.Tensor) -> torch.Tensor:
     s = (torch.einsum("bhgd,bhnd->bhgn", pos, meta[..., 1, :].float())
          + torch.einsum("bhgd,bhnd->bhgn", neg, meta[..., 0, :].float()))
     return s.amax(dim=2)
+
+
+def select_scores(scores: torch.Tensor, n_tokens: torch.Tensor, *,
+                  block_size: int, sink_blocks: int, recent_blocks: int
+                  ) -> torch.Tensor:
+    """The scores the DSA top-k ranks: scores (B, Hkv, NB) float32 with the
+    blocks at or past ceil(n_tokens / block_size) (n_tokens (B,) tokens in
+    the cache) masked to NEG_INF and the valid sink and most recent blocks
+    forced to +inf."""
+    NB = scores.shape[-1]
+    dev = scores.device
+    blk_ids = torch.arange(NB, dtype=torch.int32, device=dev)
+    n_valid = torch.ceil(n_tokens.float() / block_size).to(torch.int32)
+    valid = blk_ids[None, :] < n_valid[:, None]                  # (B, NB)
+    s = torch.where(valid[:, None, :], scores, NEG_INF)
+    inf = torch.tensor(float("inf"), device=dev)
+    if sink_blocks > 0:
+        sink = blk_ids[None, :] < torch.clamp(n_valid,
+                                              max=sink_blocks)[:, None]
+        s = torch.where((sink & valid)[:, None, :], inf, s)
+    if recent_blocks > 0:
+        recent = blk_ids[None, :] >= (n_valid - recent_blocks)[:, None]
+        s = torch.where((recent & valid)[:, None, :], inf, s)
+    return s
+
+
+def select_blocks(scores: torch.Tensor, n_tokens: torch.Tensor, *,
+                  block_size: int, top_k: int, sink_blocks: int,
+                  recent_blocks: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """DSA top-k block selection per (request, kv-head), the reference's
+    ``dsa.select_blocks``: scores (B, Hkv, NB) float32, n_tokens (B,)
+    tokens in the cache -> (indices (B, Hkv, K) int32, sel_valid
+    (B, Hkv, K) bool), K = min(top_k, NB): the top K of
+    ``select_scores``, sel_valid where the score is above NEG_INF / 2,
+    invalid selections replaced by block 0.  ``torch.topk`` may order the
+    selection otherwise than the kernel or ``jax.lax.top_k``: only the id
+    set is comparable."""
+    s = select_scores(scores, n_tokens, block_size=block_size,
+                      sink_blocks=sink_blocks, recent_blocks=recent_blocks)
+    top_scores, top_idx = torch.topk(s, min(top_k, s.shape[-1]), dim=-1)
+    sel_valid = top_scores > NEG_INF / 2
+    top_idx = torch.where(sel_valid, top_idx, 0).to(torch.int32)
+    return top_idx, sel_valid
+
+
+def score_select(q: torch.Tensor, meta: torch.Tensor, cur_len: torch.Tensor,
+                 *, block_size: int, top_k: int, sink_blocks: int,
+                 recent_blocks: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The decode select stage from q to the selected blocks: the cuboid
+    bound (``block_score``) then ``select_blocks`` over the cache once
+    this step's token is in it, ``cur_len + 1`` tokens (cur_len (B,) as
+    the cache holds it before the append)."""
+    return select_blocks(block_score(q, meta), cur_len + 1,
+                         block_size=block_size, top_k=top_k,
+                         sink_blocks=sink_blocks,
+                         recent_blocks=recent_blocks)
 
 
 def sparse_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,

@@ -238,8 +238,8 @@ def gqa_select_step(p: Dict[str, torch.Tensor], cfg: ModelConfig,
         _update_meta_masked(cache["meta"], k, blk, slot, step_mask, cfg.dsa)
     idx = valid = None
     if cfg.dsa.enabled:
-        scores = dsa.score_blocks(q, cache["meta"], cfg.dsa.metadata)
-        idx, valid = dsa.select_blocks(scores, cfg.dsa, cur_len + 1)
+        idx, valid = dsa.score_and_select(q, cache["meta"], cfg.dsa,
+                                          cur_len)
     return q, cache, idx, valid
 
 

@@ -545,7 +545,9 @@ class ServingEngine:
         ``pending`` ((layer, block) keys per request) in place.  A key is
         skipped when the block is LRU-resident again, or kept pending when
         ``protect`` = (lidx, blocks_by_req) marks it as selected by the
-        attention about to run."""
+        attention about to run.  The round's drops, every request and
+        layer, go to the plane at once (one launch on the GPU)."""
+        round_: Dict[Tuple[str, int], List[int]] = {}
         for rid in req_ids:
             cache = self.kv_mgr.caches.get(rid)
             if cache is None:
@@ -562,8 +564,9 @@ class ServingEngine:
                     continue
                 by_layer.setdefault(elidx, []).append(blk)
             for elidx, blks in by_layer.items():
-                plane.drop_blocks(rid, elidx, sorted(set(blks)))
+                round_[(rid, elidx)] = sorted(set(blks))
             pending[rid] = keep
+        plane.drop_blocks_many(round_)
 
     # ------------------------------------------------------------------
     # Async host stage

@@ -458,3 +458,167 @@ def test_split_decode_attention_dv_differs(cuda):
     assert got.shape == (B, Hq, Dv)
     torch.testing.assert_close(got.float(), want.float(), atol=2e-3,
                                rtol=1e-2)
+
+
+# ---------------------------------------------------------------------------
+# slice 4: the eviction round's zero-fill; block_score fused with the top-k
+# select
+# ---------------------------------------------------------------------------
+# zero_blocks_hkv is bit-exact.  score_select is held tie-aware: per
+# (request, kv-head) sel_valid counts equal, the plain version's select
+# scores of the selected blocks equal as sorted lists (1e-3 + 1e-4
+# relative, the block-score tolerance; +inf and the masked score exactly),
+# no block selected twice, and the id sets equal wherever the K-th and
+# (K+1)-th of those scores differ by more than the tolerance.
+
+def _select_agrees(idx, valid, want_idx, want_valid, s_ref, atol=1e-3,
+                   rtol=1e-4) -> bool:
+    def close(a, b):
+        return (a == b) | (torch.isfinite(a) & torch.isfinite(b)
+                           & ((a - b).abs() <= atol + rtol * b.abs()))
+    if not torch.equal(valid.sum(-1), want_valid.sum(-1)):
+        return False
+    picked = [torch.gather(s_ref, -1, i.long()).masked_fill(
+        ~v, float("-inf")).sort(-1, descending=True).values
+        for i, v in ((idx, valid), (want_idx, want_valid))]
+    if not close(*picked).all():
+        return False
+    counts = [torch.zeros(s_ref.shape, dtype=torch.int32,
+                          device=s_ref.device).scatter_add_(
+        -1, i.long(), v.int()) for i, v in ((idx, valid),
+                                            (want_idx, want_valid))]
+    if counts[0].max() > 1:
+        return False
+    K, NB = idx.shape[-1], s_ref.shape[-1]
+    if K < NB:
+        top = s_ref.sort(-1, descending=True).values
+        gap = ~close(top[..., K - 1], top[..., K])
+        if not (counts[0] == counts[1])[gap].all():
+            return False
+    return True
+
+
+def _select_case(dev, B, Hq, Hkv, D, NB, bs, seed=0):
+    g = _gen(dev, seed)
+    q = torch.randn((B, Hq, D), generator=g, device=dev).bfloat16()
+    mn = torch.randn((B, Hkv, NB, D), generator=g, device=dev)
+    mx = mn + torch.rand((B, Hkv, NB, D), generator=g, device=dev)
+    mn[:, :, 5:9], mx[:, :, 5:9] = mn[:, :, 4:5], mx[:, :, 4:5]  # ties
+    meta = torch.stack([mn, mx], dim=3).contiguous()
+    cur_len = torch.randint(0, NB * bs, (B,), generator=g, device=dev,
+                            dtype=torch.int32)
+    cur_len[0] = (NB // 2) * bs            # the step's +1 opens a block
+    return q, meta, cur_len
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Hq,Hkv,D,NB,bs,top_k,sink,recent", [
+    (4, 14, 2, 64, 136, 32, 64, 1, 2),     # the fp serve's decode step
+    (3, 32, 8, 128, 37, 32, 64, 1, 2),     # NB not a multiple of 32, K > NB
+    (2, 7, 7, 32, 1000, 8, 100, 0, 0),     # no forcing, 8 blocks per pass
+    (1, 4, 1, 64, 4096, 32, 64, 2, 3),     # the largest NB taken
+])
+def test_score_select_kernel_matches_plain(cuda, B, Hq, Hkv, D, NB, bs,
+                                           top_k, sink, recent):
+    q, meta, cur_len = _select_case(cuda, B, Hq, Hkv, D, NB, bs)
+    kw = dict(block_size=bs, top_k=top_k, sink_blocks=sink,
+              recent_blocks=recent)
+    idx, valid = ops.score_select(q, meta, cur_len, **kw)
+    want_idx, want_valid = ref.score_select(q, meta, cur_len, **kw)
+    s_ref = ref.select_scores(ref.block_score(q, meta), cur_len + 1,
+                              block_size=bs, sink_blocks=sink,
+                              recent_blocks=recent)
+    assert idx.shape == want_idx.shape == (B, Hkv, min(top_k, NB))
+    assert _select_agrees(idx, valid, want_idx, want_valid, s_ref)
+    assert not idx[~valid].any()
+    # the kernel orders by score, highest first (within the tolerance:
+    # its sums are taken in another order)
+    picked = torch.gather(s_ref, -1, idx.long()).masked_fill(
+        ~valid, float("-inf"))
+    hi, lo = picked[..., :-1], picked[..., 1:]
+    slack = torch.where(torch.isfinite(lo), 1e-3 + 1e-4 * lo.abs(),
+                        torch.zeros_like(lo))
+    assert (hi >= lo - slack).all()
+    # block_score's kernel body is the same scoring
+    torch.testing.assert_close(ops.block_score(q, meta),
+                               ref.block_score(q, meta), atol=1e-3,
+                               rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_select_check_rejects_planted_faults(cuda):
+    """The kernel on inputs that plant a fault (cur_len without the step's
+    +1; the recent-block forcing left out), held against the plain version
+    on the true inputs, must fail the tie-aware check."""
+    B, Hq, Hkv, D, NB, bs = 4, 14, 2, 64, 136, 32
+    q, meta, cur_len = _select_case(cuda, B, Hq, Hkv, D, NB, bs, seed=3)
+    kw = dict(block_size=bs, top_k=64, sink_blocks=1, recent_blocks=2)
+    want = ref.score_select(q, meta, cur_len, **kw)
+    s_ref = ref.select_scores(ref.block_score(q, meta), cur_len + 1,
+                              block_size=bs, sink_blocks=1, recent_blocks=2)
+    assert _select_agrees(*ops.score_select(q, meta, cur_len, **kw), *want,
+                          s_ref)
+    no_plus_one = ops.score_select(q, meta, cur_len - 1, **kw)
+    no_recent = ops.score_select(q, meta, cur_len,
+                                 **dict(kw, recent_blocks=0))
+    for got in (no_plus_one, no_recent):
+        assert not _select_agrees(*got, *want, s_ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,NB,bs,D,layers", [(4, 2, 136, 32, 64, 24),
+                                                (3, 8, 37, 16, 128, 3)])
+def test_zero_blocks_kernel_matches_plain(cuda, B, H, NB, bs, D, layers):
+    g = _gen(cuda)
+    pools = [torch.randn((B, H, NB, bs, D), generator=g,
+                         device=cuda).bfloat16() for _ in range(2 * layers)]
+    r = torch.Generator().manual_seed(0)
+    N = 300
+    which = torch.randint(0, 2 * layers, (N,), generator=r).tolist()
+    rows = torch.randint(0, B, (N,), generator=r).tolist()
+    blocks = torch.randint(0, NB, (N,), generator=r).tolist()
+    want = [p.clone() for p in pools]
+    ref.zero_blocks_hkv(want, *(torch.tensor(a, device=cuda)
+                                for a in (which, rows, blocks)))
+    table = ops.PoolTable(pools)
+    ops.launches.reset()
+    ops.zero_blocks_hkv(table, which, rows, blocks)
+    torch.cuda.synchronize()
+    assert ops.launches.counts["zero_blocks_hkv"] == 1
+    assert all(torch.equal(p, w) for p, w in zip(pools, want))
+    assert len(set(which)) > 2 and len(set(rows)) > 1
+    ops.zero_blocks_hkv(table, [], [], [])            # an empty round
+
+
+@pytest.mark.gpu
+def test_slice4_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    pools = [torch.zeros((2, 2, 8, 32, 64), device=cuda,
+                         dtype=torch.bfloat16) for _ in range(2)]
+    with pytest.raises(ValueError):                   # not bf16
+        ops.PoolTable([p.float() for p in pools])
+    with pytest.raises(ValueError):                   # a mix of devices
+        ops.zero_blocks_hkv([pools[0], pools[1].cpu()], [0], [0], [0])
+    with pytest.raises(ValueError):                   # strides differ
+        ops.zero_blocks_hkv([pools[0], pools[1].transpose(0, 1)], [0], [0],
+                            [0])
+    with pytest.raises(ValueError):                   # device ids
+        ops.zero_blocks_hkv(pools, torch.zeros(1, dtype=torch.int32,
+                                               device=cuda), [0], [0])
+    with pytest.raises(IndexError):                   # block past NB
+        ops.zero_blocks_hkv(pools, [1], [0], [8])
+    with pytest.raises(IndexError):                   # scatter, row past B
+        ops.scatter_blocks_hkv(pools[0], torch.zeros((2, 1, 32, 64),
+                                                     device=cuda), [0], [2])
+    q = torch.zeros((1, 4, 64), device=cuda, dtype=torch.bfloat16)
+    cur = torch.zeros(1, dtype=torch.int32, device=cuda)
+    kw = dict(block_size=32, top_k=64, sink_blocks=1, recent_blocks=2)
+    big = torch.zeros((1, 2, ops.MAX_SELECT_NB + 1, 2, 64), device=cuda)
+    with pytest.raises(ValueError):                   # NB above the limit
+        ops.score_select(q, big, cur, **kw)
+    meta = torch.zeros((1, 2, 8, 2, 64), device=cuda)
+    with pytest.raises(ValueError):                   # bf16 meta
+        ops.score_select(q, meta.bfloat16(), cur, **kw)
+    with pytest.raises(ValueError):                   # int64 cur_len
+        ops.score_select(q, meta, cur.long(), **kw)
+    with pytest.raises(ValueError):                   # a host cur_len
+        ops.score_select(q, meta, cur.cpu(), **kw)
