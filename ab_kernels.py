@@ -24,14 +24,22 @@ two recent blocks); and one eviction round of the serve's size (296
 blocks over 6 (request, layer) pairs of a 4-request, 24-layer decode
 plane) as the tree's engine drops it (``drop_blocks_many``, one
 ``zero_blocks_hkv`` launch, where the tree has it; else one
-``drop_blocks`` per pair).  The two stages are timed with the host work
+``drop_blocks`` per pair); and one layer's int8 save as the tree's
+engine runs it (``save_new_tokens_fused``, then ``flush_fused`` where
+the tree has it, one ``quant_save_blocks`` launch; else each pool's
+``flush``): a decode save (one float32 token for each of 4 requests, mid
+block) and a prefill save (a 2048-token float32 chunk for each of 4
+requests, 64 whole blocks each), into the int8 pools of a 24-layer
+manager at the serve's widths.  The stages are timed with the host work
 they carry; ``host_ms`` is their wall-clock time per call over 50 calls
-ended by a synchronize.  Each kernel is held against its plain version
-with chip_smoke.py's tolerance first.  With ``--profile``, chip_smoke's
-profile phase then serves on the tree's engine under torch.profiler
-(idle share, count of device operations, the port's kernels), so two
-trees' launch counts compare in one call.  Prints one JSON line last;
-needs one CUDA card.
+ended by a synchronize, ``device_ms`` and ``device_ops`` their device
+time and device operations per call under torch.profiler.  Each kernel
+is held against its plain version with chip_smoke.py's tolerance first.
+With ``--profile``, chip_smoke's profile phase then serves on the tree's
+engine under torch.profiler, with the fp tier and then with the int8
+tier (idle share, count of device operations, the port's kernels, a
+digest of the tokens served), so two trees' launch counts compare in one
+call.  Prints one JSON line last; needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -55,6 +63,25 @@ def _host_ms(torch, fn, reps: int = 50) -> float:
     return (time.perf_counter() - t0) / reps * 1e3
 
 
+def _device_ms(torch, fn, reps: int = 20) -> tuple:
+    """(device ms, device operations) per call of ``fn``: torch.profiler
+    over ``reps`` calls, the device-side events (kernels, copies, memsets)
+    summed, so a stage's time on the card is read apart from the host
+    time that enqueues it."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0)) for e in rows)
+    return us / 1e3 / reps, sum(e.count for e in rows) / reps
+
+
 def _drop_plane(torch, gen, dev, n_req: int, n_layers: int, nb: int):
     """A decode plane of ``n_req`` requests at the serve's widths (Hkv 2,
     bs 32, D 64, bf16 pools), ``nb`` written blocks each."""
@@ -73,6 +100,41 @@ def _drop_plane(torch, gen, dev, n_req: int, n_layers: int, nb: int):
                                                       dtype=torch.int32),
                               "extra": {}})
     return plane
+
+
+def _int8_save(torch, gen, dev, T: int):
+    """One layer's int8 save of 4 requests at the serve's widths, as this
+    tree's engine runs it: a function that stages T tokens per request
+    (T == 1: (Hkv, 1, D) views of a (4, Hkv, D) decode stripe at token
+    4112; else (Hkv, T, D) views of a (T, Hkv, D) prefill chunk from
+    token 0; float32, as the engine ships both) into layer 5 of a 24-layer int8 manager and
+    flushes them."""
+    from repro_torch.core.kv_cache import KVCacheManager, KVGeometry
+    mgr = KVCacheManager(KVGeometry(24, 2, 32, 64), 1 << 30,
+                         offload_quant="int8", device=dev)
+    rids = [f"r{i}" for i in range(4)]
+    for rid in rids:
+        mgr.register(rid, 4096 + 32, 96)
+    if T == 1:
+        k, v = (torch.randn((4, 2, 64), generator=gen, device=dev)
+                for _ in range(2))
+        kv = {rid: (4112, k[i][:, None, :], v[i][:, None, :])
+              for i, rid in enumerate(rids)}
+    else:
+        k, v = (torch.randn((4, T, 2, 64), generator=gen, device=dev)
+                for _ in range(2))
+        kv = {rid: (0, k[i].permute(1, 0, 2), v[i].permute(1, 0, 2))
+              for i, rid in enumerate(rids)}
+    fused = hasattr(mgr, "flush_fused")
+
+    def save():
+        mgr.save_new_tokens_fused(5, kv)
+        if fused:
+            mgr.flush_fused(5, rids)
+        else:
+            for rid in rids:
+                mgr.pools[rid].flush()
+    return save, ("flush_fused" if fused else "per-pool flush")
 
 
 def main() -> int:
@@ -170,7 +232,9 @@ def main() -> int:
     stages = {"select_stage": (stage, "fused score_select" if fused
                                else "block_score + dsa.select_blocks"),
               "drop_round": (drop, "drop_blocks_many" if hasattr(
-                  plane, "drop_blocks_many") else "drop_blocks per pair")}
+                  plane, "drop_blocks_many") else "drop_blocks per pair"),
+              "int8_decode_save": _int8_save(torch, gen, dev, 1),
+              "int8_prefill_save": _int8_save(torch, gen, dev, 2048)}
 
     timers = {"spin": cs.Timer(torch), "no_spin": cs.Timer(torch,
                                                            spin=False)}
@@ -193,13 +257,19 @@ def main() -> int:
     for name, (fn, how) in stages.items():
         rec = {"how": how}
         for tname, timer in timers.items():
+            ops.launches.reset()
             rec[f"ms_{tname}"] = timer(fn)
+            # launches of one call (the Timer makes 21)
+            rec["launches_per_call"] = {
+                k: c / 21 for k, c in ops.launches.snapshot().items() if c}
         rec["host_ms"] = _host_ms(torch, fn)
+        rec["device_ms"], rec["device_ops"] = _device_ms(torch, fn)
         out[name] = rec
     out["drop_round"]["blocks"] = sum(len(b) for b in round_.values())
     del plane, cases, stages
     if args.profile:
         cs.phase_profile(torch, np, args.seed)
+        cs.phase_profile(torch, np, args.seed, "int8")
     print(json.dumps(out))
     return 0
 

@@ -44,9 +44,14 @@ each printing one line (``phase=...``) and failing the run on any error:
    second half) must fail it.  The quant trio bit-exact (an all-zero
    block included), and the int8 tier's block moves: gather from a pinned
    int8 pool and from its float32 scale plane, write_blocks_hkv back into
-   both.  A move from or to pinned memory is also bounded by the PCIe
-   link: a contiguous pinned-to-device copy of the same bytes is timed
-   beside it (device-to-pinned for a write back).
+   both.  quant_save_blocks, the int8 save, bit-exact on pinned pools of
+   4 requests (decode tokens, fresh blocks, a prefill stripe of whole
+   blocks, a stripe over three blocks, two stripes on one block), and two
+   planted faults (the stripe written one token late; the scale taken
+   before the overlay) must fail it.  A move from or to pinned memory is
+   also bounded by the PCIe link: a contiguous pinned-to-device copy of
+   the same bytes is timed beside it (device-to-pinned for a write back
+   or a save).
 3. transfer — the flat FlashH2D gather (gather_blocks) and FlashD2H
    scatter (scatter_blocks) at benchmarks/bench_transfer.py's shape, a
    (512, 32, 128) float32 pool and 64 distinct ids: driven once from and
@@ -74,11 +79,13 @@ each printing one line (``phase=...``) and failing the run on any error:
    this script, not by the port).
 5. serve_int8 — the same model, width and submissions with
    offload_quant="int8".  Asserts finished requests with finite logits,
-   that flash_prefill and the three quant kernels launched, and that the
-   wire bytes per moved block are >= 1.8x smaller than the fp serve's;
-   prints the first 8 tokens of each request beside the fp run's.  Its
-   quant and int8-move launches from the middle decode step are kept, the
-   gathers once for the restore (FlashH2D) and once for the save's flush.
+   that flash_prefill, dequantize_scatter_blocks and quant_save_blocks
+   launched, quant_save_blocks at most once per layer save, that no save
+   went through quantize_blocks, dequantize_blocks, write_blocks_hkv or a
+   flush's gather_blocks_hkv, and that the wire bytes per moved block are
+   >= 1.8x smaller than the fp serve's; prints the first 8 tokens of each
+   request beside the fp run's.  Its first prefill save and its restores,
+   int8 gathers and a decode save from the middle decode step are kept.
 6. mainpath — the kept launches of both serves replayed: each kernel
    against its plain version at the serve paths' own shapes, modes and
    data, with the tolerances of phase 2.  The kernels' JSON record takes
@@ -86,9 +93,11 @@ each printing one line (``phase=...``) and failing the run on any error:
 7. async  — the same submissions at full width and 4 layers with
    stage_dispatch "async" and "sync", fp and int8: greedy tokens and
    transfer counters must be identical.
-8. profile (only when named in --phases) — the serve run again under
-   torch.profiler: device busy time, idle share, the count of device
-   operations (kernels, copies, memsets), largest device consumers.
+8. profile, profile_int8 (only when named in --phases) — the serve
+   (serve_int8) run again under torch.profiler: device busy time, idle
+   share, the count of device operations (kernels, copies, memsets),
+   largest device consumers, and the port's kernels (``port_kernel=``
+   lines: device ms over calls is a kernel's device time per launch).
 
 Before the last line it prints the kernels' JSON record and the card's
 name and power limit; the last line is the device JSON.  Without CUDA, or
@@ -98,6 +107,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import statistics
 import subprocess
@@ -138,6 +148,11 @@ KERNELS = {   # name -> (source in this repo, the TPU kernel it replaces)
                           "src/repro/kernels/quant_blocks.py:86"),
     "dequantize_scatter_blocks": ("src/repro_torch/csrc/quant_blocks.cu",
                                   "src/repro/kernels/quant_blocks.py:117"),
+    # the int8 save: quantize_blocks (:51) and dequantize_blocks (:86) as
+    # the reference's HostPool.flush runs them, fused into one launch per
+    # layer save
+    "quant_save_blocks": ("src/repro_torch/csrc/quant_blocks.cu",
+                          "src/repro/kernels/quant_blocks.py:51"),
     "gather_blocks": ("src/repro_torch/csrc/gather_blocks.cu",
                       "src/repro/kernels/gather_blocks.py:31"),
     "scatter_blocks": ("src/repro_torch/csrc/scatter_blocks.cu",
@@ -150,20 +165,24 @@ TRANSFER_PATH = ("gather_blocks", "scatter_blocks")
 # the kernels whose registers and spills the build phase prints
 REGISTER_WATCH = ("flash_prefill", "sparse_decode_attention")
 # the kernels each serve path must launch (the int8 tier restores through
-# dequantize_scatter_blocks, not scatter_blocks_hkv)
+# dequantize_scatter_blocks, not scatter_blocks_hkv, and saves through
+# quant_save_blocks)
 DECODE_PATH = ("sparse_decode_attention", "score_select", "gather_blocks_hkv",
                "zero_blocks_hkv", "flash_prefill")
 FP_PATH = DECODE_PATH + ("scatter_blocks_hkv",)
-INT8_ONLY = ("write_blocks_hkv", "quantize_blocks", "dequantize_blocks",
-             "dequantize_scatter_blocks")
+INT8_ONLY = ("quant_save_blocks", "dequantize_scatter_blocks")
 INT8_PATH = DECODE_PATH + INT8_ONLY
+# the int8 save before quant_save_blocks: none of them may launch on a
+# serve (nor gather_blocks_hkv from a flush)
+OLD_SAVE = ("quantize_blocks", "dequantize_blocks", "write_blocks_hkv")
 # the __global__ functions of src/repro_torch/csrc (the profile's names)
 PORT_KERNEL_FNS = ("split_kernel", "merge_kernel", "block_score_kernel",
                    "score_select_kernel", "gather_blocks_kernel",
                    "scatter_blocks_kernel", "zero_blocks_kernel",
                    "write_blocks_kernel", "flash_prefill_kernel",
                    "quantize_blocks_kernel", "dequantize_blocks_kernel",
-                   "dequantize_scatter_blocks_kernel")
+                   "dequantize_scatter_blocks_kernel",
+                   "quant_save_blocks_kernel")
 # one PyTorch call computing the same function, where there is one; else
 # why not (printed, and null in the JSON record)
 NO_LIBRARY = {
@@ -175,6 +194,8 @@ NO_LIBRARY = {
     "write_blocks_hkv": "a block scatter into pinned memory in place",
     "quantize_blocks": "per-block amax, scale and round in one call",
     "dequantize_scatter_blocks": "a dequantize-and-scatter into a pool",
+    "quant_save_blocks": "a dequantize, overlay and requantize of blocks in "
+                         "pinned memory in place",
 }
 SHAPES = {"qwen2-0.5b": dict(Hq=14, Hkv=2, D=64),
           "llama3-8b": dict(Hq=32, Hkv=8, D=128)}
@@ -567,6 +588,154 @@ def case_dequant_scatter(torch, ops, ref, pool, q, scales, dest,
             f"rows={'none' if rows is None else K}")
 
 
+def _save_copies(torch, ops, saves, pinned: bool) -> tuple:
+    """The saves on copies of their pools and scale planes, one copy per
+    tensor, pinned (for the kernel) or in plain host memory (for the plain
+    version): (the saves, {original data pointer: copy})."""
+    copies = {}
+
+    def cp(t):
+        if t.data_ptr() not in copies:
+            c = t.cpu().clone()
+            copies[t.data_ptr()] = c.pin_memory() if pinned else c
+        return copies[t.data_ptr()]
+    pools = {}
+    for sv in saves:
+        if id(sv.pool) not in pools:
+            pools[id(sv.pool)] = ops.QuantPool(cp(sv.pool.q),
+                                               cp(sv.pool.scales))
+    return ([sv._replace(pool=pools[id(sv.pool)]) for sv in saves],
+            copies)
+
+
+def _save_traffic(saves) -> tuple:
+    """(items, whole-block items, bytes the save must read from the pools,
+    bytes it must write to them, stripe bytes): a segment that covers its
+    block reads nothing from the pool."""
+    items = whole = read = write = stripe = 0
+    for sv in saves:
+        _, H, _, bs, D = sv.pool.q.shape
+        t, T = 0, sv.stripe.shape[1]
+        while t < T:
+            n = min(bs - (sv.start + t) % bs, T - t)
+            items += 1
+            whole += n == bs
+            read += 0 if n == bs else H * (bs * D + 4)
+            write += H * (bs * D + 4)
+            stripe += H * n * D * sv.stripe.element_size()
+            t += n
+    return items, whole, read, write, stripe
+
+
+def case_quant_save(torch, ops, ref, saves):
+    """quant_save_blocks on pinned copies of the saves' pools against its
+    plain version on host copies, bit-exact over every pool and scale
+    plane.  The pools cross the PCIe link both ways: the case carries a
+    link bound, a device-to-pinned copy of the bytes the save writes."""
+    got_saves, got = _save_copies(torch, ops, saves, True)
+    want_saves, want = _save_copies(torch, ops, saves, False)
+    ops.quant_save_blocks(got_saves)
+    torch.cuda.synchronize()
+    ref.quant_save_blocks(want_saves)
+    err = max((got[k].float() - want[k].float()).abs().max().item()
+              for k in got)
+    ok = all(torch.equal(got[k], want[k]) for k in got)
+    k_saves, _ = _save_copies(torch, ops, saves, True)
+    p_saves, _ = _save_copies(torch, ops, saves, False)
+    items, whole, read, write, stripe = _save_traffic(saves)
+    _, H, _, bs, D = saves[0].pool.q.shape
+    dtypes = sorted({str(sv.stripe.dtype)[6:] for sv in saves})
+    return (err, ok, lambda: ops.quant_save_blocks(k_saves),
+            lambda: ref.quant_save_blocks(p_saves),
+            read + write + stripe + 64 * items, 0,
+            f"stripes={len(saves)} items={items} whole={whole} H={H} "
+            f"bs={bs} D={D} stripe_dtypes={','.join(dtypes)} "
+            f"pool_read_B={read} pool_write_B={write}",
+            None, ("d2h", write))
+
+
+def _scale_before_overlay(torch, ref, saves) -> None:
+    """A faulty save: each block requantized with the scale of the block
+    as it was before the stripe's tokens were written into it."""
+    for qp, layer, start, stripe in saves:
+        pool, scales = qp.q, qp.scales
+        bs = pool.shape[3]
+        t0, T = 0, stripe.shape[1]
+        while t0 < T:
+            blk, off = divmod(start + t0, bs)
+            n = min(bs - off, T - t0)
+            cur = ref.dequantize_blocks(pool[layer, :, blk, None],
+                                        scales[layer, :, blk, None])
+            _, sc = ref.quantize_blocks(cur)
+            cur[:, 0, off:off + n] = stripe[:, t0:t0 + n].to(cur.device,
+                                                             torch.float32)
+            one = torch.ones_like(sc)
+            inv = torch.where(sc > 0, one / torch.where(sc > 0, sc, one), one)
+            q = torch.round(cur * inv[..., None, None]).clamp(-127.0, 127.0)
+            pool[layer, :, blk] = q[:, 0].to(torch.int8)
+            scales[layer, :, blk] = sc[:, 0]
+            t0 += n
+
+
+def quant_save_faults(torch, ops, ref, saves, label: str) -> None:
+    """Bit-exactness must reject a save that writes the stripe one token
+    late (the kernel given start + 1) or takes the scale before the
+    overlay (a plain emulation), each held against the plain version on
+    the true inputs."""
+    want_saves, want = _save_copies(torch, ops, saves, False)
+    ref.quant_save_blocks(want_saves)
+    late_saves, late = _save_copies(torch, ops, saves, True)
+    ops.quant_save_blocks([sv._replace(start=sv.start + 1)
+                           for sv in late_saves])
+    torch.cuda.synchronize()
+    early_saves, early = _save_copies(torch, ops, saves, False)
+    _scale_before_overlay(torch, ref, early_saves)
+    for fault, got in (("overlay_one_token_late", late),
+                       ("scale_before_overlay", early)):
+        diff = sum(int((got[k] != want[k]).sum()) for k in want)
+        log(f"phase=parity {label} planted_fault={fault} "
+            f"differing_elements={diff} rejected={diff > 0}")
+        if diff == 0:
+            raise AssertionError(f"planted fault {fault} passed the "
+                                 f"quant_save_blocks check ({label})")
+
+
+def _save_inputs(torch, ops, gen, dev, Hkv: int, D: int) -> list:
+    """quant_save_blocks items shaped as the int8 serve makes them, over
+    4 requests' pools (2 layers, 12 blocks of BS tokens; blocks 8-11
+    fresh, scale 0): a decode token per request, float32, as strided views
+    of a (4, Hkv, D) tensor (two of them into fresh blocks, one at a fresh
+    block's last slot); a prefill stripe of 100 tokens from a block edge,
+    a (T, Hkv, D) buffer seen as (Hkv, T, D) (three whole blocks, then 4
+    tokens), in bfloat16 (the serve ships float32; the kernel takes both);
+    a float32 stripe of 70 tokens from the middle of block 1 over three
+    blocks; and a second decode token into request 0's block, which must
+    wait for the first (two rounds)."""
+    L, nb = 2, 12
+    pools = []
+    for _ in range(4):
+        pair = []
+        for _ in range(2):
+            q = torch.randint(-127, 128, (L, Hkv, nb, BS, D), generator=gen,
+                              dtype=torch.int8)
+            sc = torch.rand((L, Hkv, nb), generator=gen) * 0.05
+            q[:, :, 8:] = 0
+            sc[:, :, 8:] = 0
+            pair.append(ops.QuantPool(q, sc))
+        pools.append(pair)
+    kd = torch.randn((4, 2, Hkv, D), generator=gen).to(dev)
+    pos = (37, 100, 8 * BS, 9 * BS + BS - 1)
+    saves = [ops.QuantSave(pools[i][kv], 1, pos[i], kd[i, kv][:, None, :])
+             for i in range(4) for kv in (0, 1)]
+    pre = torch.randn((100, Hkv, D), generator=gen).to(dev, torch.bfloat16)
+    mid = torch.randn((Hkv, 70, D), generator=gen).to(dev) * 3
+    saves += [ops.QuantSave(pools[0][0], 0, 2 * BS, pre.permute(1, 0, 2)),
+              ops.QuantSave(pools[1][1], 0, 40, mid),
+              ops.QuantSave(pools[0][0], 1, pos[0] + 1,
+                            kd[3, 1][:, None, :] * 4)]
+    return saves
+
+
 def link_copy(torch, direction: str, nbytes: int):
     """A contiguous copy of ``nbytes`` over the PCIe link, pinned host to
     device ("h2d") or device to pinned host ("d2h")."""
@@ -831,6 +1000,11 @@ def phase_parity(torch, ops, ref, timer, seed: int) -> dict:
         cases.append(("write_blocks_hkv", "mode=scales",
                       case_write(torch, ops, ref, host_s,
                                  xs.view(Hkv, K, 1, 1), dest)))
+        # the int8 save: every request's stripes of a layer in one call
+        saves = _save_inputs(torch, ops, cpu_gen, dev, Hkv, D)
+        cases.append(("quant_save_blocks", "",
+                      case_quant_save(torch, ops, ref, saves)))
+        quant_save_faults(torch, ops, ref, saves, f"arch={arch}")
 
         for name, mode, case in cases:
             label = f"arch={arch} {mode}".strip()
@@ -983,7 +1157,9 @@ class MainPathCapture:
     gather of ``HostPool.gather``, or ``flush``, the save's read of the
     resident blocks) and to keep a copy of the inputs of one launch per
     case: the first
-    flash_prefill launch, and for every other case the first made from
+    flash_prefill launch and the first prefill save (``quant_save_blocks``
+    splits into ``prefill`` and ``decode``; of each save, the layer of each
+    pool it writes is kept), and for every other case the first made from
     attention launch ``from_attn`` on (one attention launch per layer and
     decode step; the first decode steps run fewer requests, as prefills
     finish one after another), except a drop round: the largest of those
@@ -1019,6 +1195,12 @@ class MainPathCapture:
             return a.clone()
         if isinstance(a, self.ops.PoolTable):
             return [p.clone() for p in a.pools]
+        if isinstance(a, list) and a and isinstance(a[0], self.ops.QuantSave):
+            # a save's layer of each pool, as it was before the save
+            return [sv._replace(pool=self.ops.QuantPool(
+                sv.pool.q[sv.layer:sv.layer + 1].clone(),
+                sv.pool.scales[sv.layer:sv.layer + 1].clone()), layer=0,
+                stripe=sv.stripe.clone()) for sv in a]
         return a
 
     def _key(self, name, args, caller: str):
@@ -1041,6 +1223,9 @@ class MainPathCapture:
             return f"{name}:{'drop' if rows is None else 'rows'}"
         if name == "zero_blocks_hkv":
             return f"{name}:drop"
+        if name == "quant_save_blocks":
+            T = max(sv.stripe.shape[1] for sv in args[0])
+            return f"{name}:{'prefill' if T > 1 else 'decode'}"
         return name            # score_select and the rest: one case each
 
     def _wrap(self, name, fn):
@@ -1049,7 +1234,8 @@ class MainPathCapture:
             key = self._key(name, args, sys._getframe(1).f_code.co_name)
             self.calls[key] = self.calls.get(key, 0) + 1
             attn = self.calls.get("sparse_decode_attention", 0)
-            due = name == "flash_prefill" or attn >= self.from_attn
+            due = (name == "flash_prefill" or attn >= self.from_attn
+                   or key == "quant_save_blocks:prefill")
             wider = (key in self.WIDEST and key in self.inputs
                      and attn < self.until_attn
                      and len(args[1]) > len(self.inputs[key][0][1]))
@@ -1074,7 +1260,8 @@ def phase_mainpath(torch, ops, ref, timer, caps: dict) -> dict:
               "flash_prefill": case_flash,
               "quantize_blocks": case_quantize,
               "dequantize_blocks": case_dequantize,
-              "dequantize_scatter_blocks": case_dequant_scatter}
+              "dequantize_scatter_blocks": case_dequant_scatter,
+              "quant_save_blocks": case_quant_save}
     results = {}
     for path, cap in caps.items():
         for key, (args, kw) in sorted(cap.inputs.items()):
@@ -1095,9 +1282,8 @@ def phase_mainpath(torch, ops, ref, timer, caps: dict) -> dict:
                 res["launches"] = cap.calls.get("block_score", 0)
                 results.setdefault("block_score", {})[
                     label + " mode=select_inputs"] = res
-        want = (FP_PATH if cap.keep is None
-                else {k.split(":")[0] for k in cap.keep})
-        missing = set(want) - {k.split(":")[0] for k in cap.inputs}
+        missing = (set(FP_PATH) - {k.split(":")[0] for k in cap.inputs}
+                   if cap.keep is None else set(cap.keep) - set(cap.inputs))
         if missing:
             raise AssertionError(f"{path}: no launch kept for {missing}")
     return results
@@ -1200,7 +1386,11 @@ def _run_serve(torch, np, ops, seed: int, path: str, want: tuple,
     (the engine's ``_drop_pending_evictions`` calls, counted here) took at
     most one zero_blocks_hkv launch each, that the decode select took at
     most two launches per attention launch and, with a capture, that no
-    drop went through scatter_blocks_hkv.  Returns a summary."""
+    drop went through scatter_blocks_hkv; that quant_save_blocks launched
+    at most once per layer save (the engine's ``flush_fused`` calls,
+    counted here) and that no save went through the entries it replaced
+    (OLD_SAVE, and with a capture gather_blocks_hkv from a flush).
+    Returns a summary."""
     eng, ids = _serve_qwen2(torch, np, seed, charge_real_time=True,
                             **engine_kw)
     drop_rounds = [0]
@@ -1210,6 +1400,13 @@ def _run_serve(torch, np, ops, seed: int, path: str, want: tuple,
         drop_rounds[0] += 1
         return drop(*a, **kw)
     eng._drop_pending_evictions = counted_drop
+    layer_saves = [0]
+    flush = eng.kv_mgr.flush_fused
+
+    def counted_flush(*a, **kw):
+        layer_saves[0] += 1
+        return flush(*a, **kw)
+    eng.kv_mgr.flush_fused = counted_flush
     torch.cuda.reset_peak_memory_stats()
     ops.launches.reset()
     t0 = time.perf_counter()
@@ -1242,6 +1439,18 @@ def _run_serve(torch, np, ops, seed: int, path: str, want: tuple,
             > 2 * counts["sparse_decode_attention"]):
         raise AssertionError(f"{path}: more drop or select launches than "
                              f"rounds or layer steps allow")
+    old_save = {k: counts[k] for k in OLD_SAVE}
+    if cap is not None:
+        old_save.update({k: v for k, v in cap.calls.items()
+                         if k.endswith("_flush")})
+    log(f"phase={path} layer_saves={layer_saves[0]} quant_save_blocks="
+        f"{counts['quant_save_blocks']} old_save_launches="
+        + json.dumps(old_save))
+    if (counts["quant_save_blocks"] > layer_saves[0]
+            or any(old_save.values())):
+        raise AssertionError(f"{path}: more quant_save_blocks launches than "
+                             f"layer saves, or a save through the old "
+                             f"entries")
     s = eng.metrics_snapshot()
     if s["kv.h2d_calls"] <= 0 or s["kv.d2h_calls"] <= 0:
         raise AssertionError(f"{path}: no H2D restore or no D2H save")
@@ -1309,14 +1518,13 @@ def phase_serve(torch, np, ops, ref, seed: int) -> tuple:
 
 
 def phase_serve_int8(torch, np, ops, seed: int, fp: dict) -> tuple:
-    """The same serve with offload_quant="int8" (kept quant and int8-move
-    launches in the returned MainPathCapture); its wire bytes per moved
-    block must be >= 1.8x smaller than the fp serve's (``fp``'s)."""
+    """The same serve with offload_quant="int8" (kept saves, restores and
+    int8 gathers in the returned MainPathCapture); its wire bytes per
+    moved block must be >= 1.8x smaller than the fp serve's (``fp``'s)."""
     cap = MainPathCapture(torch, ops, _mid_decode_attn(), keep={
-        "quantize_blocks", "dequantize_blocks", "dequantize_scatter_blocks",
-        "gather_blocks_hkv:int8_restore", "gather_blocks_hkv:scales_restore",
-        "gather_blocks_hkv:int8_flush", "gather_blocks_hkv:scales_flush",
-        "write_blocks_hkv:int8", "write_blocks_hkv:scales"})
+        "quant_save_blocks:decode", "quant_save_blocks:prefill",
+        "dequantize_scatter_blocks", "gather_blocks_hkv:int8_restore",
+        "gather_blocks_hkv:scales_restore"})
     q8 = _run_serve(torch, np, ops, seed, "serve_int8", INT8_PATH, cap,
                     offload_quant="int8")
     shrink = fp["wire"] / q8["wire"]
@@ -1331,14 +1539,18 @@ def phase_serve_int8(torch, np, ops, seed: int, fp: dict) -> tuple:
     return q8, cap
 
 
-def phase_profile(torch, np, seed: int) -> None:
-    """The serve phase's run again under ``torch.profiler``: device busy
-    time (the sum of the device-side events' times; the port runs one
-    stream) against the wall clock gives the device's idle share; the
-    largest device consumers follow.  Not part of the default phases: the
-    profiler slows the host, so its wall clock is not the serve phase's."""
+def phase_profile(torch, np, seed: int, tier: str = "none") -> None:
+    """The serve phase's run again under ``torch.profiler`` (``tier``
+    "int8": the serve_int8 phase's run, its lines under
+    ``phase=profile_int8``): device busy time (the sum of the device-side
+    events' times; the port runs one stream) against the wall clock gives
+    the device's idle share; the largest device consumers follow.  Not
+    part of the default phases: the profiler slows the host, so its wall
+    clock is not the serve phase's."""
     from torch.profiler import ProfilerActivity, profile
-    eng, _ = _serve_qwen2(torch, np, seed, charge_real_time=True)
+    tag = "profile" if tier == "none" else f"profile_{tier}"
+    eng, ids = _serve_qwen2(torch, np, seed, charge_real_time=True,
+                            offload_quant=tier)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1355,19 +1567,28 @@ def phase_profile(torch, np, seed: int) -> None:
                          getattr(e, "self_cuda_time_total", 0.0))
         rows.append((dev_us, e.count, e.key))
     busy = sum(r[0] for r in rows) / 1e6
-    log(f"phase=profile wall_s={wall:.3f} device_busy_s={busy:.3f} "
+    log(f"phase={tag} wall_s={wall:.3f} device_busy_s={busy:.3f} "
         f"idle_share={1.0 - busy / wall:.3f} "
         f"device_ops={sum(r[1] for r in rows)}")
     for dev_us, count, key in sorted(rows, reverse=True)[:12]:
-        log(f"phase=profile device_ms={dev_us / 1e3:.2f} calls={count} "
+        log(f"phase={tag} device_ms={dev_us / 1e3:.2f} calls={count} "
             f"kernel={key[:90]}")
     # the port's own kernels (the __global__ functions of csrc/)
     for dev_us, count, key in sorted(rows, reverse=True):
         name = key.split("(anonymous namespace)::")[-1].split("(")[0]
         if name.split("<")[0] in PORT_KERNEL_FNS:
-            log(f"phase=profile port_kernel={name} device_ms="
+            log(f"phase={tag} port_kernel={name} device_ms="
                 f"{dev_us / 1e3:.2f} calls={count} "
                 f"share_of_busy={dev_us / 1e6 / busy:.4f}")
+    # what the run served, to compare two trees' serves in one call
+    m = eng.metrics_snapshot()
+    tokens = json.dumps([eng.states[r].out_tokens for r in ids])
+    wire = ((m["kv.h2d_bytes"] + m["kv.d2h_bytes"])
+            / (m["kv.h2d_blocks"] + m["kv.d2h_blocks"]))
+    log(f"phase={tag} tokens_sha1="
+        f"{hashlib.sha1(tokens.encode()).hexdigest()[:16]} "
+        f"wire_bytes_per_block={wire:.1f}")
+    eng.close()
 
 
 def phase_async(torch, np, seed: int) -> None:
@@ -1407,7 +1628,7 @@ def main() -> int:
                          "serve,serve_int8,async (serve and serve_int8 "
                          "include their mainpath replays; serve_int8 needs "
                          "serve) "
-                         "plus the optional profile")
+                         "plus the optional profile and profile_int8")
     args = ap.parse_args()
     phases = args.phases.split(",")
     import numpy as np
@@ -1458,6 +1679,8 @@ def main() -> int:
         phase_async(torch, np, args.seed)
     if "profile" in phases:
         phase_profile(torch, np, args.seed)
+    if "profile_int8" in phases:
+        phase_profile(torch, np, args.seed, "int8")
     log(json.dumps({"kernels": records}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

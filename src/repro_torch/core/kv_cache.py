@@ -239,6 +239,10 @@ class HostPool:
             self.v_scale = (torch.zeros(sshape, dtype=torch.float32,
                                         pin_memory=pin)
                             if self.v is not None else None)
+            # the pools as the save's kernel reaches them, mapped once
+            self.k_quant = ops.QuantPool(self.k, self.k_scale)
+            self.v_quant = (ops.QuantPool(self.v, self.v_scale)
+                            if self.v is not None else None)
         self._staging: List[Tuple[int, int, torch.Tensor,
                                   Optional[torch.Tensor]]] = []
         self.stats = TransferStats()
@@ -292,9 +296,16 @@ class HostPool:
         """Phase 2 of FlashD2H: scatter of staged stripes into the per-head
         block layout, in place, in staging order.  Returns blocks written
         (block-boundary segments: a stripe spanning two blocks writes two);
-        books ``d2h_blocks`` only."""
+        books ``d2h_blocks`` only.  In the int8 tier every touched block is
+        dequantized with its current per-head scales, overlaid with the
+        stripe's tokens and requantized with fresh scales (the reference's
+        ``_store_quant_span`` per (stripe, block) segment): one
+        ``quant_save_blocks`` call, on the GPU a kernel that reads and
+        writes the pinned pool in place, on the CPU its plain version."""
         if self.quant == "int8":
-            return self._flush_quant()
+            saves, written = self.take_saves()
+            ops.quant_save_blocks(saves)
+            return written
         g = self.geom
         written = 0
         for layer, start, k_new, v_new in self._staging:
@@ -319,50 +330,25 @@ class HostPool:
         self._staging.clear()
         return written
 
-    def _flush_quant(self) -> int:
-        """int8-tier flush: for each staged stripe, in staging order, every
-        block it touches is dequantized with its current per-head scales,
-        the stripe's tokens overwrite their slots, and the whole block is
-        requantized with fresh scales and written back with them.  This is
-        the reference's ``_store_quant_span`` per (stripe, block) segment
-        (the segments of one stripe are distinct blocks, so they run as one
-        batch).  On the GPU: gather from the pinned pool, dequantize, the
-        overlay as device indexing, quantize, write back into the pinned
-        pool (``write_blocks_hkv``), all kernels on the current stream; on
-        the CPU their plain versions."""
-        g = self.geom
-        bs = g.block_size
+    def take_saves(self) -> Tuple[List[ops.QuantSave], int]:
+        """int8 tier: the staged stripes as ``quant_save_blocks`` items, K
+        then V of each stripe, in staging order; books ``d2h_blocks`` and
+        clears the staging.  Returns (items, blocks written: a stripe's
+        block-boundary segments, K and V counted once)."""
+        bs = self.geom.block_size
+        saves: List[ops.QuantSave] = []
         written = 0
         for layer, start, k_new, v_new in self._staging:
             T = k_new.shape[1]
             if T == 0:
                 continue
-            b0, b1 = start // bs, (start + T - 1) // bs + 1
-            if b1 > self.num_blocks:
-                raise ValueError(
-                    f"HostPool.flush: staged token {start + T - 1} maps to "
-                    f"block {b1 - 1} but the pool only has "
-                    f"{self.num_blocks} blocks")
-            idx = host_to_device(list(range(b0, b1)), self.device)
-            off = start - b0 * bs
-            for pool, scale, new in ((self.k, self.k_scale, k_new),
-                                     (self.v, self.v_scale, v_new)):
-                if new is None:
-                    continue
-                H = pool.shape[1]
-                splane = scale[layer].view(H, self.num_blocks, 1, 1)
-                cur = ops.dequantize_blocks(
-                    ops.gather_blocks_hkv(pool[layer], idx),
-                    ops.gather_blocks_hkv(splane, idx).view(H, b1 - b0))
-                flat = cur.view(H, (b1 - b0) * bs, g.head_dim)
-                flat[:, off:off + T] = new.to(self.device, torch.float32)
-                q, s = ops.quantize_blocks(cur)
-                ops.write_blocks_hkv(pool[layer], q, idx)
-                ops.write_blocks_hkv(splane, s.view(H, b1 - b0, 1, 1), idx)
-            written += b1 - b0
-            self.stats.d2h_blocks += b1 - b0
+            for pool, new in ((self.k_quant, k_new), (self.v_quant, v_new)):
+                if new is not None:
+                    saves.append(ops.QuantSave(pool, layer, start, new))
+            written += (start + T - 1) // bs - start // bs + 1
+        self.stats.d2h_blocks += written
         self._staging.clear()
-        return written
+        return saves, written
 
     def gather(self, layer: int, blocks: List[int]):
         """Data-plane gather of fragmented blocks — NO accounting.
@@ -571,6 +557,33 @@ class KVCacheManager:
             if tr.enabled:
                 tr.end("FlashD2H", "transfer", _ts, layer=layer,
                        bytes=total_bytes, fused_reqs=len(kv_by_req))
+
+    def flush_fused(self, layer: int, req_ids) -> int:
+        """Phase 2 of FlashD2H for the pools of ``req_ids`` after a save of
+        `layer` (``save_new_tokens_fused``): in the int8 tier ONE
+        ``quant_save_blocks`` call over every listed pool's staged stripes,
+        on the GPU one kernel launch per round (one round unless two
+        stripes of a pool touch one block); in the fp tier each pool's
+        ``flush``.  Books ``d2h_blocks`` per pool exactly as ``flush``
+        does; returns the blocks written."""
+        tr = self.tracer
+        if tr.enabled:
+            _ts = time.perf_counter()
+        pools = [self.pools[r] for r in req_ids if r in self.pools]
+        if self.offload_quant != "int8":
+            written = sum(p.flush() for p in pools)
+        else:
+            saves: List[ops.QuantSave] = []
+            written = 0
+            for p in pools:
+                s, w = p.take_saves()
+                saves += s
+                written += w
+            ops.quant_save_blocks(saves)
+        if tr.enabled and written:
+            tr.end("FlashD2H.flush", "transfer", _ts, layer=layer,
+                   blocks=written, fused_reqs=len(pools))
+        return written
 
     # -- accounting --------------------------------------------------------
     def hbm_used_bytes(self) -> int:

@@ -26,6 +26,39 @@
 // warp shuffles and a shared-memory step across the 8 warps, then the
 // rounding.  An out-of-range scatter row or block id is skipped (the
 // wrapper bounds-checks ids on the host first).
+//
+// quant_save_blocks: the int8 tier's save, redesigned for the card.  It
+// replaces, on the save path, the pair of Pallas kernels
+// `quantize_blocks` (src/repro/kernels/quant_blocks.py:51) and
+// `dequantize_blocks` (:86) as the reference's HostPool.flush uses them
+// (its numpy twin `_store_quant_span`, src/repro/core/kv_cache.py:315):
+// for every block segment of every staged stripe, the resident int8 block
+// is dequantized with its scale, the stripe's tokens [off, off + n)
+// overwrite their slots (widened to float32), and the whole block is
+// requantized with a fresh scale and written back.  One launch takes a
+// whole round of items (one item: a request pool, K or V, one block
+// segment), every request of a layer's save; the pools are separate
+// pinned allocations, so each item carries its own addresses: the
+// stripe's (any head and token strides, float32 or bfloat16), the pool
+// block's and its scale's, layer offset applied, device-mapped.  The
+// wrapper puts two items on one block in different rounds, in staging
+// order, since a second requantize of a block is not one merged one.
+//
+// What bounds it: PCIe latency and bytes, not HBM.  The int8 pools and
+// scale planes lie in pinned host memory and are read and written in
+// place over the link (2 KB and 4 bytes per (item, head) at the serve
+// shape, each way); a save moves a few tens of KB, so one round trip's
+// latency (~1-2 us) is most of it.  The design pays that latency once
+// per layer save, not once per request and tensor: one launch takes
+// every request's K and V, and each CTA issues every load (payload, scale
+// and stripe) before it uses any, so their round trips overlap; a
+// segment that covers its whole block (off == 0, n == bs: prefill) reads
+// nothing from the pool, the overlay replacing every element.
+//
+// One CTA per (item, head), a 32 x 64 tile at the serve shape, 256
+// threads of up to 4 x 4 elements each, held in registers between the
+// read and the write (bs * D <= 4096): dequantize, overlay, amax by warp
+// shuffles and one shared-memory step, then the rounding above.
 #include "common.cuh"
 
 namespace {
@@ -138,6 +171,95 @@ dequantize_scatter_blocks_kernel(const char4* __restrict__ q,
   }
 }
 
+// One item of quant_save_blocks (kernels/ops.py packs it: 8 int64).
+struct SaveItem {
+  long long stripe;     // device address of the stripe at (head 0, token
+                        // of the segment's first slot, 0)
+  long long stripe_hs;  // stripe head stride, elements
+  long long stripe_ts;  // stripe token stride, elements
+  long long pool;       // device address of pool[layer, 0, block] (int8)
+  long long pool_hs;    // pool head stride, bytes (NB * bs * D)
+  long long scale;      // device address of scales[layer, 0, block]
+  long long scale_hs;   // scale plane head stride, floats (NB)
+  long long meta;       // off | n << 16 | stripe dtype << 32
+};
+static_assert(sizeof(SaveItem) == 64, "SaveItem is 8 int64");
+
+constexpr int kSaveChunks = 4;   // 4-element chunks a thread holds
+
+template <typename T>
+__device__ __forceinline__ float4 load_stripe4(const void* p) {
+  const T* s = static_cast<const T*>(p);
+  return make_float4(to_f32(s[0]), to_f32(s[1]), to_f32(s[2]),
+                     to_f32(s[3]));
+}
+
+__global__ void __launch_bounds__(kThreads)
+quant_save_blocks_kernel(const SaveItem* __restrict__ items, int bs,
+                         int D) {
+  __shared__ float red[kWarps];
+  const SaveItem it = items[blockIdx.x];
+  const int h = blockIdx.y;
+  const int off = (int)(it.meta & 0xffff);
+  const int n = (int)((it.meta >> 16) & 0xffff);
+  const bool bf = ((it.meta >> 32) & 0xff) == kBFloat16;
+  const int n4 = bs * D / 4;
+  char4* pb = reinterpret_cast<char4*>(it.pool + h * it.pool_hs);
+  float* sp = reinterpret_cast<float*>(it.scale) + h * it.scale_hs;
+  const int esz = bf ? 2 : 4;
+  const char* st = reinterpret_cast<const char*>(it.stripe)
+                   + (size_t)h * it.stripe_hs * esz;
+  const bool whole = off == 0 && n == bs;
+  // every load first, none used yet: the pool's and the scale's round
+  // trips over the link overlap (a whole-block segment reads no pool)
+  const float s_old = whole ? 0.f : *sp;
+  char4 raw[kSaveChunks];
+  float4 x[kSaveChunks];
+#pragma unroll
+  for (int j = 0; j < kSaveChunks; ++j) {
+    const int c = threadIdx.x + j * kThreads;
+    if (c >= n4) continue;
+    const int t = 4 * c / D;
+    if (t >= off && t < off + n) {
+      const char* p = st + ((t - off) * it.stripe_ts + (4 * c - t * D))
+                           * (long long)esz;
+      x[j] = bf ? load_stripe4<bf16>(p) : load_stripe4<float>(p);
+    } else {
+      raw[j] = pb[c];
+    }
+  }
+  float amax = 0.f;
+#pragma unroll
+  for (int j = 0; j < kSaveChunks; ++j) {
+    const int c = threadIdx.x + j * kThreads;
+    if (c >= n4) continue;
+    const int t = 4 * c / D;
+    if (!(t >= off && t < off + n)) x[j] = dequant4(raw[j], s_old);
+    amax = fmaxf(amax, fmaxf(fmaxf(fabsf(x[j].x), fabsf(x[j].y)),
+                             fmaxf(fabsf(x[j].z), fabsf(x[j].w))));
+  }
+  amax = warp_max(amax);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) red[warp] = amax;
+  __syncthreads();
+  if (warp == 0) {
+    amax = warp_max(lane < kWarps ? red[lane] : 0.f);
+    if (lane == 0) red[0] = amax;
+  }
+  __syncthreads();
+  const float scale = __fdiv_rn(red[0], 127.0f);
+  const float inv = scale > 0.f ? __fdiv_rn(1.0f, scale) : 1.0f;
+  if (threadIdx.x == 0) *sp = scale;
+#pragma unroll
+  for (int j = 0; j < kSaveChunks; ++j) {
+    const int c = threadIdx.x + j * kThreads;
+    if (c >= n4) continue;
+    pb[c] = make_char4(quant1(x[j].x, inv), quant1(x[j].y, inv),
+                       quant1(x[j].z, inv), quant1(x[j].w, inv));
+  }
+}
+
 }  // namespace
 
 // Shared limits, checked by the wrappers: contiguous tensors, 16-byte
@@ -189,4 +311,27 @@ extern "C" int launch_dequantize_scatter_blocks(
       static_cast<bf16*>(pool), row_stride, head_stride, block_stride, B,
       NB, K, blk_elems);
   return (int)cudaGetLastError();
+}
+
+// quant_save_blocks: n_items SaveItems (device memory) of pools of bs x D
+// blocks and H heads, one CTA per (item, head).  The wrapper checks what
+// the kernel takes: D % 4 == 0, bs * D <= 4 * 4 * 256, 4-byte aligned
+// pool blocks, no block twice in one launch.
+extern "C" int launch_quant_save_blocks(const void* items, int n_items,
+                                        int H, int bs, int D, void* stream) {
+  if (n_items == 0 || H == 0) return (int)cudaGetLastError();
+  if (D % 4 != 0 || bs * D > 4 * kSaveChunks * kThreads)
+    return (int)cudaErrorInvalidValue;
+  quant_save_blocks_kernel<<<dim3(n_items, H), kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const SaveItem*>(items), bs, D);
+  return (int)cudaGetLastError();
+}
+
+// The device address of a pinned host allocation (its base, as PyTorch's
+// pinned allocator returned it), for kernels that read or write it in
+// place; the items of quant_save_blocks carry such addresses.
+extern "C" int host_device_address(const void* host, void* out) {
+  return (int)cudaHostGetDevicePointer(static_cast<void**>(out),
+                                       const_cast<void*>(host), 0);
 }

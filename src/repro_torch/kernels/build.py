@@ -71,6 +71,10 @@ _SIGNATURES = {
     "dequantize_scatter_blocks": (
         "quant_blocks", "launch_dequantize_scatter_blocks",
         [_P] * 5 + [_L] * 3 + [_I] * 5 + [_P]),
+    "quant_save_blocks": ("quant_blocks", "launch_quant_save_blocks",
+                          [_P] + [_I] * 4 + [_P]),
+    "host_device_address": ("quant_blocks", "host_device_address",
+                            [_P, _P]),
 }
 
 

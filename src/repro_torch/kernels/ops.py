@@ -21,7 +21,8 @@ tensor) are range-checked there, on both paths, and a wrapper raises
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple, Union
+import ctypes
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -40,7 +41,7 @@ class LaunchCounter:
              "gather_blocks_hkv", "scatter_blocks_hkv", "zero_blocks_hkv",
              "write_blocks_hkv", "flash_prefill", "quantize_blocks",
              "dequantize_blocks", "dequantize_scatter_blocks",
-             "gather_blocks", "scatter_blocks")
+             "quant_save_blocks", "gather_blocks", "scatter_blocks")
 
     def __init__(self):
         self.counts: Dict[str, int] = dict.fromkeys(self.NAMES, 0)
@@ -754,3 +755,176 @@ def dequantize_scatter_blocks(pool: torch.Tensor, q: torch.Tensor,
     _raise_on(rc, name)
     launches.add(name)
     return pool
+
+
+# ---------------------------------------------------------------------------
+# quant_save_blocks: the int8 tier's save, one launch per round
+# ---------------------------------------------------------------------------
+
+class QuantPool:
+    """An int8 tier's pool as ``quant_save_blocks`` takes it: ``q`` (L, H,
+    NB, bs, D) int8 and its scale plane ``scales`` (L, H, NB) float32,
+    checked once, and where both lie in pinned host memory or on one CUDA
+    device, the addresses the kernel reaches them at (``mapped``; None for
+    pools only the plain version takes), so a call spends nothing on them.
+    Build it when the pool is allocated, not per call; it keeps both
+    tensors alive.  On the GPU: contiguous, 4-byte aligned, D % 4 == 0
+    and bs * D <= 4096."""
+
+    def __init__(self, q: torch.Tensor, scales: torch.Tensor):
+        name = "quant_save_blocks"
+        _check(q.dtype == torch.int8 and scales.dtype == torch.float32
+               and q.dim() == 5 and scales.shape == q.shape[:3]
+               and q.device == scales.device,
+               f"{name}: an int8 pool (L, H, NB, bs, D) with its float32 "
+               f"scales (L, H, NB) on its device")
+        self.q, self.scales = q, scales
+        self.mapped: Optional[Tuple[int, int]] = None
+        on_host = q.device.type == "cpu"
+        if on_host and not (q.is_pinned() and scales.is_pinned()):
+            return
+        _, _, _, bs, D = q.shape
+        _check(D % 4 == 0 and bs * D <= 4096 and q.is_contiguous()
+               and scales.is_contiguous() and q.data_ptr() % 4 == 0
+               and scales.data_ptr() % 4 == 0,
+               f"{name}: contiguous, 4-byte aligned pools with D % 4 == 0 "
+               f"and bs * D <= 4096")
+        self.mapped = (_device_address(q, on_host),
+                       _device_address(scales, on_host))
+
+
+class QuantSave(NamedTuple):
+    """One staged stripe of the int8 tier's save: ``stripe`` (H, T, D),
+    float32 or bfloat16, lands at tokens [start, start + T) of layer
+    ``layer`` of ``pool``."""
+    pool: QuantPool
+    layer: int
+    start: int
+    stripe: torch.Tensor
+
+
+def _device_address(t: torch.Tensor, on_host: bool) -> int:
+    """Where a kernel reaches ``t``'s first element: its data pointer, or
+    for a pinned host tensor the device-mapped address of its allocation
+    plus its offset there."""
+    if not on_host:
+        return t.data_ptr()
+    base = t.untyped_storage().data_ptr()
+    out = ctypes.c_void_p()
+    _raise_on(LIBS.fn("host_device_address")(base, ctypes.addressof(out)),
+              "host_device_address")
+    return out.value + t.data_ptr() - base
+
+
+def pack_save_items(cols, bs: int, D: int) -> Tuple[np.ndarray, list]:
+    """The kernel's items (``SaveItem`` in ``csrc/quant_blocks.cu``, 8
+    int64 each), one per block segment of every stripe, ordered by round,
+    and the number of items of each round.  ``cols``: per stripe, in
+    staging order, (stripe address, head and token strides in elements,
+    element size, address of its pool's layer, NB, address of its scale
+    plane's layer, dtype code, start token, T >= 1).  An item's round is
+    the number of earlier items on the same pool block, so no round
+    writes a block twice and a block's segments run in staging order."""
+    c = np.array(cols, np.int64)
+    start = c[:, 8]
+    nseg = (start + c[:, 9] - 1) // bs - start // bs + 1
+    r = np.repeat(c, nseg, axis=0)
+    start = r[:, 8]
+    blk = start // bs + np.arange(len(r)) - np.repeat(np.cumsum(nseg) - nseg,
+                                                       nseg)
+    t0 = np.maximum(blk * bs - start, 0)
+    n = np.minimum((blk + 1) * bs - start, r[:, 9]) - t0
+    items = np.empty((len(r), 8), np.int64)
+    items[:, 0] = r[:, 0] + t0 * r[:, 2] * r[:, 3]
+    items[:, 1:3] = r[:, 1:3]
+    items[:, 3] = r[:, 4] + blk * (bs * D)
+    items[:, 4] = r[:, 5] * (bs * D)
+    items[:, 5] = r[:, 6] + blk * 4
+    items[:, 6] = r[:, 5]
+    items[:, 7] = (start + t0 - blk * bs) | n << 16 | r[:, 7] << 32
+    dest = items[:, 3]
+    if len(set(dest.tolist())) == len(dest):
+        return items, [len(dest)]
+    order = np.argsort(dest, kind="stable")
+    new = np.r_[True, dest[order][1:] != dest[order][:-1]]
+    idx = np.arange(len(dest))
+    rounds = np.empty_like(dest)
+    rounds[order] = idx - np.maximum.accumulate(np.where(new, idx, 0))
+    return (items[np.argsort(rounds, kind="stable")],
+            np.bincount(rounds).tolist())
+
+
+def quant_save_blocks(saves: Sequence[QuantSave]) -> int:
+    """The int8 tier's save, IN PLACE: for every block segment of every
+    stripe, in the order given, the resident block of every head is
+    dequantized with its scale, the stripe's tokens overwrite their slots
+    (widened to float32), and the block is requantized with a fresh
+    per-head scale (``quantize_blocks``' arithmetic) and written back with
+    it.  Returns the block segments written.
+
+    Block ids are checked on the host, on both paths (IndexError on a
+    stripe past its pool or a layer out of range, before anything is
+    written).  On the GPU every stripe is a CUDA tensor (any head and
+    token strides, unit element stride) and every pool (a ``QuantPool``
+    with ``mapped`` addresses) lies on that device or in pinned host
+    memory, read and written in place; all pools share H, bs and D.  The
+    segments are cut, in the order given, into rounds in which
+    no block of a pool appears twice (a second requantize of a block is not
+    one merged requantize): one upload of the items, one launch per round.
+    """
+    name = "quant_save_blocks"
+    written = 0
+    for sv in saves:
+        L, _, NB, bs, _ = sv.pool.q.shape
+        T = sv.stripe.shape[1]
+        if not 0 <= sv.layer < L:
+            raise IndexError(f"{name}: layer {sv.layer} out of range "
+                             f"[0, {L})")
+        if T and (sv.start < 0 or (sv.start + T - 1) // bs >= NB):
+            raise IndexError(f"{name}: tokens [{sv.start}, {sv.start + T}) "
+                             f"leave the pool's {NB} blocks of {bs}")
+        if T:
+            written += (sv.start + T - 1) // bs - sv.start // bs + 1
+    if _all_cpu(*(t for sv in saves
+                  for t in (sv.pool.q, sv.pool.scales, sv.stripe))):
+        ref.quant_save_blocks(saves)
+        return written
+    saves = [sv for sv in saves if sv.stripe.shape[1]]
+    if not saves:
+        return written
+    dev = saves[0].stripe.device
+    _check(dev.type == "cuda", f"{name}: stripes on {dev} for pools on the "
+                               f"GPU or in pinned memory")
+    _, H, _, bs, D = saves[0].pool.q.shape
+    cols = []
+    for qp, layer, start, stripe in saves:
+        L, Hp, NB, bsp, Dp = qp.q.shape
+        _check(qp.mapped is not None
+               and (qp.q.device.type == "cpu" or qp.q.device == dev),
+               f"{name}: a pool on {qp.q.device} (pinned host memory or "
+               f"{dev} taken) for stripes on {dev}")
+        _check((Hp, bsp, Dp) == (H, bs, D)
+               and stripe.device == dev and stripe.dtype in _PAYLOAD_CODES
+               and stripe.shape[0] == H and stripe.shape[2] == D
+               and stripe.stride(2) == 1,
+               f"{name}: pools of one H, bs and D; float32 or bfloat16 "
+               f"stripes (H, T, D) on {dev} with unit element stride")
+        lo = layer * H * NB
+        cols.append((stripe.data_ptr(), stripe.stride(0), stripe.stride(1),
+                     stripe.element_size(), qp.mapped[0] + lo * bs * D, NB,
+                     qp.mapped[1] + lo * 4, _PAYLOAD_CODES[stripe.dtype],
+                     start, stripe.shape[1]))
+    items, sizes = pack_save_items(cols, bs, D)
+    # the kernel writes the pools in place, and PyTorch's caching host
+    # allocator does not track a pinned pool's use by a kernel: the caller
+    # keeps every pool alive until the stream has passed these launches
+    # (the engine reads each step's logits back, a stream sync, before
+    # any release drops a request's pools)
+    dev_items = host_to_device(items, dev, torch.int64)
+    fn = LIBS.fn(name)
+    at = dev_items.data_ptr()
+    for size in sizes:
+        _raise_on(fn(at, size, H, bs, D, _stream()), name)
+        launches.add(name)
+        at += size * items.shape[1] * 8
+    return written

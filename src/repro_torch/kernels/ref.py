@@ -293,3 +293,28 @@ def dequantize_scatter_blocks(pool: torch.Tensor, q: torch.Tensor,
     and ``rows`` as in ``scatter_blocks_hkv``.  Returns ``pool``."""
     return scatter_blocks_hkv(pool, dequantize_blocks(q, scales),
                               dest_blocks, rows)
+
+
+def quant_save_blocks(saves) -> None:
+    """The int8 tier's save IN PLACE, segment by segment in the order
+    given (the reference's ``_store_quant_span``): ``saves`` holds
+    ``(pool, layer, start, stripe (H, T, D))``, the pool's ``q`` (L, H,
+    NB, bs, D) int8 with its ``scales`` (L, H, NB) float32; each block the
+    stripe touches is dequantized with its scales, the stripe's tokens
+    overwrite their slots, and the block is requantized and written back
+    with its fresh scales."""
+    for qp, layer, start, stripe in saves:
+        pool, scales = qp.q, qp.scales
+        bs = pool.shape[3]
+        t0, T = 0, stripe.shape[1]
+        while t0 < T:
+            blk, off = divmod(start + t0, bs)
+            n = min(bs - off, T - t0)
+            cur = dequantize_blocks(pool[layer, :, blk, None],
+                                    scales[layer, :, blk, None])
+            cur[:, 0, off:off + n] = stripe[:, t0:t0 + n].to(cur.device,
+                                                             torch.float32)
+            q, s = quantize_blocks(cur)
+            pool[layer, :, blk] = q[:, 0]
+            scales[layer, :, blk] = s[:, 0]
+            t0 += n

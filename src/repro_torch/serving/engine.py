@@ -410,6 +410,8 @@ class ServingEngine:
                 self._drop_pending_evictions(
                     dplane, [st.req.req_id for st in decode_sts],
                     pending_evict)
+            # a stream sync: the int8 save's kernels, which write the
+            # pinned pools in place, are done before any release drops one
             host_logits = logits.float().cpu()
             for st in decode_sts:
                 row = dplane.rows[st.req.req_id]
@@ -462,7 +464,9 @@ class ServingEngine:
         ``KVCacheManager.ship`` returned)) merged with every prefill
         group's fresh chunk
         (``finishers``: (chunk_start, finish)) in a single
-        ``save_new_tokens_fused`` call, then the pools' flush.  Runs on the
+        ``save_new_tokens_fused`` call, then the pools' flush (one
+        ``flush_fused`` call: in the int8 tier one ``quant_save_blocks``
+        launch for every request's stripes).  Runs on the
         host stage worker in async mode (it waits on the copies' CUDA
         events), inline in sync mode and for the int8 tier on the GPU."""
         kv_merge: Dict[str, Tuple[int, Any, Any]] = {}
@@ -484,10 +488,7 @@ class ServingEngine:
                                      torch.cat([v0, v], dim=1))
         if kv_merge:
             self.kv_mgr.save_new_tokens_fused(lidx, kv_merge)
-            for rid in kv_merge:
-                pool = self.kv_mgr.pools.get(rid)
-                if pool is not None:
-                    pool.flush()
+            self.kv_mgr.flush_fused(lidx, list(kv_merge))
 
     # ------------------------------------------------------------------
     # Decode bookkeeping

@@ -622,3 +622,93 @@ def test_slice4_wrappers_reject_what_the_kernels_do_not_take(cuda):
         ops.score_select(q, meta, cur.long(), **kw)
     with pytest.raises(ValueError):                   # a host cur_len
         ops.score_select(q, meta, cur.cpu(), **kw)
+
+
+def _int8_pools(g, n, H, bs, D, L=2, NB=10, fresh=7):
+    """n int8 pools (L, H, NB, bs, D) with their float32 scale planes;
+    blocks from ``fresh`` on hold nothing yet (scale 0)."""
+    out = []
+    for _ in range(n):
+        q = torch.randint(-127, 128, (L, H, NB, bs, D), generator=g,
+                          dtype=torch.int8)
+        s = torch.rand((L, H, NB), generator=g) * 0.1
+        q[:, :, fresh:] = 0
+        s[:, :, fresh:] = 0
+        out.append((q, s))
+    return out
+
+
+def _quant_pools(pairs, where, dev):
+    return [ops.QuantPool(*(t.clone().pin_memory() if where == "pinned"
+                            else t.to(dev) for t in p)) for p in pairs]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("where", ["pinned", "device"])
+@pytest.mark.parametrize("H,bs,D", [(2, 8, 16), (2, 32, 64), (8, 32, 128)])
+def test_quant_save_kernel_matches_plain(cuda, H, bs, D, where):
+    """quant_save_blocks equals its plain version bit for bit, pools in
+    pinned memory or on the card: 3 requests' decode tokens (strided
+    float32 views; into a resident block, at a fresh block's first slot
+    and at a fresh block's last), a bfloat16 prefill stripe of 3 whole
+    blocks seen through a permute, a float32 stripe from mid-block over 4
+    blocks, and a second token into request 0's block: two launches."""
+    g = torch.Generator().manual_seed(H * D + bs)
+    R = 3
+    pools = _int8_pools(g, 2 * R, H, bs, D)
+    kd = torch.randn((R, 2, H, D), generator=g).to(cuda)
+    pre = torch.randn((3 * bs, H, D), generator=g).to(cuda, torch.bfloat16)
+    mid = torch.randn((H, 2 * bs + 5, D), generator=g).to(cuda) * 3
+    pos = (bs // 2, 7 * bs, 9 * bs + bs - 1)
+
+    def saves(ps):
+        out = [ops.QuantSave(ps[2 * i + kv], 1, pos[i],
+                             kd[i, kv][:, None, :])
+               for i in range(R) for kv in (0, 1)]
+        return out + [ops.QuantSave(ps[0], 0, bs, pre.permute(1, 0, 2)),
+                      ops.QuantSave(ps[3], 0, bs - 3, mid),
+                      ops.QuantSave(ps[0], 1, pos[0] + 1,
+                                    kd[1, 1][:, None, :])]
+    got = _quant_pools(pools, where, cuda)
+    want = [ops.QuantPool(*(t.clone() for t in p)) for p in pools]
+    assert all(p.mapped is not None for p in got)
+    assert all(p.mapped is None for p in want)
+    ops.launches.reset()
+    assert ops.quant_save_blocks(saves(got)) == 2 * R + 3 + 4 + 1
+    torch.cuda.synchronize()
+    assert ops.launches.counts["quant_save_blocks"] == 2
+    ref.quant_save_blocks(saves(want))
+    for g, w in zip(got, want):
+        assert torch.equal(g.q.cpu(), w.q)
+        assert torch.equal(g.scales.cpu(), w.scales)
+    assert not torch.equal(want[0].q, pools[0][0])
+
+
+@pytest.mark.gpu
+def test_quant_save_rejects_what_the_kernel_does_not_take(cuda):
+    g = torch.Generator().manual_seed(1)
+    (q, s), = _int8_pools(g, 1, 2, 32, 64)
+    stripe = torch.randn((2, 1, 64), device=cuda)
+    strided = torch.randn((2, 1, 128), device=cuda)[..., ::2]
+    on_card = ops.QuantPool(q.to(cuda), s.to(cuda))
+    for pool, st in (
+            (ops.QuantPool(q, s), stripe),                # pageable pool
+            (on_card, stripe.cpu()),                      # a host stripe
+            (on_card, stripe.double()),                   # float64
+            (on_card, strided),                           # strided D
+    ):
+        with pytest.raises(ValueError):
+            ops.quant_save_blocks([ops.QuantSave(pool, 0, 5, st)])
+    with pytest.raises(ValueError):                   # a mix of devices
+        ops.QuantPool(q.to(cuda), s.pin_memory())
+    with pytest.raises(ValueError):                   # bs * D > 4096
+        ops.QuantPool(torch.zeros((1, 2, 4, 64, 128), dtype=torch.int8,
+                                  device=cuda),
+                      torch.zeros((1, 2, 4), device=cuda))
+    pinned = ops.QuantPool(q.pin_memory(), s.pin_memory())
+    before = pinned.q.clone()
+    with pytest.raises(IndexError):                   # block past NB
+        ops.quant_save_blocks([ops.QuantSave(pinned, 0, 5, stripe),
+                               ops.QuantSave(pinned, 1, 10 * 32, stripe)])
+    torch.cuda.synchronize()
+    assert torch.equal(pinned.q, before)
