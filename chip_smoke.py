@@ -2,7 +2,7 @@
 """GPU smoke test of the PyTorch port (``src/repro_torch``).
 
     python3 chip_smoke.py [--seed 0]
-        [--phases build,parity,transfer,serve,serve_int8,async]
+        [--phases build,parity,transfer,serve,serve_int8,oracles,async]
 
 Run from the repository root on a machine with one NVIDIA H100.  Phases,
 each printing one line (``phase=...``) and failing the run on any error:
@@ -90,10 +90,24 @@ each printing one line (``phase=...``) and failing the run on any error:
    against its plain version at the serve paths' own shapes, modes and
    data, with the tolerances of phase 2.  The kernels' JSON record takes
    its times and bounds from here.
-7. async  — the same submissions at full width and 4 layers with
+7. oracles — the engine's oracle paths on the serve's model, width and
+   submissions: mixed (the default), hybrid_plane "split",
+   decode_plane "persistent" and "stacked", batched_decode False,
+   prefill_exec "legacy", prefill_mode "chunked", and mixed, split and
+   persistent with offload_quant "int8".  Per path one line: TTFT, mean
+   TBT and tok/s on the wall clock, the launches of each kernel (each
+   path's kernels must launch), H2D/D2H calls and bytes, the device's
+   peak memory, prefill_hbm_peak_tokens and the agreement with the path
+   it is held against.  split == mixed token for token on both tiers and
+   persistent == mixed on the fp tier (same kernels at the same shapes);
+   the paths that change GEMM or attention shapes are held by their
+   logits at the first step where they differ (ORACLE_PATHS,
+   ORACLE_REL_L2).  Its launch counts join the kernels' JSON record
+   (``launches_by_path``).
+8. async  — the same submissions at full width and 4 layers with
    stage_dispatch "async" and "sync", fp and int8: greedy tokens and
    transfer counters must be identical.
-8. profile, profile_int8 (only when named in --phases) — the serve
+9. profile, profile_int8 (only when named in --phases) — the serve
    (serve_int8) run again under torch.profiler: device busy time, idle
    share, the count of device operations (kernels, copies, memsets),
    largest device consumers, and the port's kernels (``port_kernel=``
@@ -107,6 +121,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import hashlib
 import json
 import statistics
@@ -118,7 +133,8 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM HBM3 (data sheet)
 BF16_OPS_PER_S = 989e12              # H100 SXM dense bf16 tensor peak
-PHASES = ("build", "parity", "transfer", "serve", "serve_int8", "async")
+PHASES = ("build", "parity", "transfer", "serve", "serve_int8", "oracles",
+          "async")
 
 KERNELS = {   # name -> (source in this repo, the TPU kernel it replaces)
     "sparse_decode_attention": (
@@ -207,6 +223,57 @@ FLASH_WEIGHT_TOL, FLASH_RTOL = 1.25 * 2.0 ** -8, 2.0 ** -7
 SCORE_ATOL, SCORE_RTOL = 1e-3, 1e-4
 SPIN_CYCLES = 200_000                # ~0.1 ms of device clock (Timer)
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 4, 4096, 32
+# the oracles phase: path -> (EngineConfig values, kernels that must
+# launch, the path it is held against, the step whose logits are held
+# against that path's, None where the tokens must be identical).  The
+# persistent plane keeps evicted blocks (no drops); the stacked and
+# sequential paths never restore into device slots; the others decode on
+# the staged plane.  int8 persistent is not int8 staged (staged attends
+# over blocks restored from int8; persistent keeps the device copy for
+# the step that selected a block), but its restores land after the
+# forward, so its first decode step is fp persistent's.
+PERSISTENT_PATH = tuple(n for n in FP_PATH if n != "zero_blocks_hkv")
+UNRESTORED_PATH = ("sparse_decode_attention", "score_select",
+                   "gather_blocks_hkv", "flash_prefill")
+ORACLE_PATHS = {
+    "mixed": ({}, FP_PATH, "mixed", None),
+    "split": ({"hybrid_plane": "split"}, FP_PATH, "mixed", None),
+    "persistent": ({"decode_plane": "persistent"}, PERSISTENT_PATH,
+                   "mixed", None),
+    "stacked": ({"decode_plane": "stacked"}, UNRESTORED_PATH, "mixed", 1),
+    "sequential": ({"batched_decode": False}, UNRESTORED_PATH, "mixed", 1),
+    "legacy": ({"prefill_exec": "legacy"}, FP_PATH, "mixed", 0),
+    "chunked": ({"prefill_mode": "chunked"}, FP_PATH, "mixed", 0),
+    "mixed_int8": ({"offload_quant": "int8"}, INT8_PATH, "mixed_int8",
+                   None),
+    "split_int8": ({"hybrid_plane": "split", "offload_quant": "int8"},
+                   INT8_PATH, "mixed_int8", None),
+    "persistent_int8": ({"decode_plane": "persistent",
+                         "offload_quant": "int8"},
+                        tuple(n for n in INT8_PATH
+                              if n != "zero_blocks_hkv"), "persistent", 1),
+}
+# the kernels whose launches an oracle path gives at shapes no serve does,
+# kept for phase_mainpath: B = 1 decode (sequential), a stacked pool of
+# the batch's largest block count (stacked), B = 1 prefill with the
+# prompt's layout (legacy), a chunk attending over its context (chunked)
+ORACLE_KEEP = {
+    "stacked": ("sparse_decode_attention", "score_select"),
+    "sequential": ("sparse_decode_attention", "score_select"),
+    "legacy": ("flash_prefill",),
+    "chunked": ("flash_prefill:context",),
+}
+# the fp paths run again fed the mixed run's tokens (their logits held
+# at every step), and the paths whose prefilled decode pools are held
+# against the mixed prefill's (recorded from "mixed", which runs first)
+FORCED_PATHS = ("stacked", "sequential", "legacy", "chunked")
+POOL_PATHS = ("mixed", "split", "legacy", "chunked")
+# Two bf16 forwards of the same 24-layer model whose GEMM or attention
+# shapes differ round differently: each layer's two residual adds round
+# to bf16 (unit roundoff 2^-8), so 48 roundings that differ independently
+# give a relative error of about sqrt(48) * 2^-8 = 0.027 on the last hidden
+# state, under 2^-5; the lm head adds one more rounding of 2^-8.
+ORACLE_REL_L2 = 2.0 ** -5
 # benchmarks/bench_transfer.py's real_gather_microbench: a (512, 32, 128)
 # float32 pool, 64 distinct block ids
 XFER_NB, XFER_BS, XFER_D, XFER_K = 512, 32, 128, 64
@@ -530,11 +597,18 @@ def case_flash(torch, ops, ref, q, k, v, *, scale, causal=True,
     nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * 2
     nops = 2 * B * Hq * (D + Dv) * _visible_pairs(Sq, Sk, int(q_offset))
     lib = None
-    if int(q_offset) == 0 and Sk == Sq:
+    if causal:
         import torch.nn.functional as F
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        lib = lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True)
+        if int(q_offset) == 0 and Sk == Sq:
+            lib = lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True)
+        else:
+            # query i sees keys j <= q_offset + i: the mask, made once
+            mask = torch.ones((Sq, Sk), dtype=torch.bool,
+                              device=q.device).tril(int(q_offset))
+            lib = lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, scale=scale, enable_gqa=True)
     return (err, ok, lambda: ops.flash_prefill(q, k, v, **kw),
             lambda: ref.flash_prefill(q, k, v, **kw), nbytes, nops,
             f"B={B} Sq={Sq} Sk={Sk} Hq={Hq} Hkv={Hkv} D={D} "
@@ -1203,8 +1277,12 @@ class MainPathCapture:
                 stripe=sv.stripe.clone()) for sv in a]
         return a
 
-    def _key(self, name, args, caller: str):
+    def _key(self, name, args, kw, caller: str):
         torch = self.torch
+        if name == "flash_prefill":
+            # a chunk after the first attends over the chunks before it
+            return (f"{name}:context" if int(kw.get("q_offset", 0)) > 0
+                    else name)
         if name == "gather_blocks_hkv":
             pool = args[0]
             if pool.dtype == torch.int8:
@@ -1231,7 +1309,7 @@ class MainPathCapture:
     def _wrap(self, name, fn):
         def wrapped(*args, **kw):
             # the wrapper's caller names the call site
-            key = self._key(name, args, sys._getframe(1).f_code.co_name)
+            key = self._key(name, args, kw, sys._getframe(1).f_code.co_name)
             self.calls[key] = self.calls.get(key, 0) + 1
             attn = self.calls.get("sparse_decode_attention", 0)
             due = (name == "flash_prefill" or attn >= self.from_attn
@@ -1620,12 +1698,329 @@ def phase_async(torch, np, seed: int) -> None:
                                  f"(offload_quant={tier})")
 
 
+def _oracle_run(torch, np, ops, params, cfg, seed: int, gen: int,
+                cap=None, force=None, pools=None, **engine_kw) -> dict:
+    """One oracle path at full width (wall-clock charging): the launch
+    counts set to 0 and the device's peak memory reset just before the
+    run, both read just after (the memory allocated before it, the
+    weights once earlier engines are collected, is reported beside the
+    peak); every request must finish with finite logits.  Keeps each
+    request's logits at every sampled step (step 0: the prefill's token)
+    and the batch of the decode attention that made them (the rows of its
+    query, parked plane rows included; 0 at step 0).  ``cap``: a
+    MainPathCapture active during the run.  ``force``: each request's
+    tokens to feed in
+    place of its own samples (teacher forcing: the logits of every step
+    then compare with the run that made the tokens).  ``pools``: the
+    decode pools each request's prefill built, as the decode plane admits
+    them, per layer (K, V) over the prompt's tokens: recorded into an
+    empty dict, else compared against it (the summary under
+    ``pools_vs``)."""
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    from repro_torch.serving.request import Request
+    eng = ServingEngine(params, cfg, EngineConfig(
+        seed=seed, charge_real_time=True, **engine_kw))
+    ids = _submit_all(eng, Request, cfg, np, seed, SERVE_REQUESTS,
+                      SERVE_PROMPT, gen)
+    index = {rid: i for i, rid in enumerate(ids)}
+    logits = {rid: [] for rid in ids}
+    batches = {rid: [] for rid in ids}
+    sample = eng._sample
+    attn, attn_rows = ops.sparse_decode_attention, [0]
+
+    def attn_counted(q, *a, **kw):
+        attn_rows[0] = q.shape[0]
+        return attn(q, *a, **kw)
+
+    def recorded(st):
+        rid = st.req.req_id
+        logits[rid].append(st.last_logits[0].clone())
+        batches[rid].append(attn_rows[0] if st.out_tokens else 0)
+        if force is not None:
+            return force[index[rid]][len(st.out_tokens)]
+        return sample(st)
+    eng._sample = recorded
+    diffs = []
+    if pools is not None:
+        admit = eng.plane.admit
+        record = not pools
+
+        def admitted(rid, state):
+            cur = int(state["cur_len"][0])
+            kv = [tuple(c[n][0].flatten(1, 2)[:, :cur] for n in ("k", "v"))
+                  for c in state["caches"]]
+            if record:
+                pools[index[rid]] = [(k.clone(), v.clone()) for k, v in kv]
+            else:
+                for (k, v), (k0, v0) in zip(kv, pools[index[rid]]):
+                    got, want = torch.stack([k, v]), torch.stack([k0, v0])
+                    diffs.append((torch.equal(got, want),
+                                  _rel_l2(torch, got.float(), want.float()),
+                                  float((got.float() - want.float())
+                                        .abs().max())))
+            return admit(rid, state)
+        eng.plane.admit = admitted
+    gc.collect()          # engines of earlier phases, kept by their cycles
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.launches.reset()
+    ops.sparse_decode_attention = attn_counted
+    try:
+        if cap is not None:
+            with cap:
+                m = eng.run()
+        else:
+            m = eng.run()
+    finally:
+        ops.sparse_decode_attention = attn
+    torch.cuda.synchronize()
+    counts = ops.launches.snapshot()
+    peak = torch.cuda.max_memory_allocated()
+    # the wrappers' cycles would keep the pools alive
+    del eng._sample
+    eng.plane.__dict__.pop("admit", None)
+    for rid in ids:
+        st = eng.states[rid]
+        if len(st.out_tokens) != gen or not bool(
+                torch.isfinite(st.last_logits).all()):
+            raise AssertionError(f"{engine_kw}: {rid} did not finish with "
+                                 f"finite logits")
+    out = {"eng": eng.eng, "metrics": m, "counts": counts,
+           "stats": dataclasses.asdict(eng.transfer_stats()),
+           "tokens": [eng.states[r].out_tokens for r in ids],
+           "logits": [logits[r] for r in ids],
+           "batches": [batches[r] for r in ids], "peak": peak,
+           "base": base,
+           "prefill_hbm_peak_tokens": eng.prefill_hbm_peak_tokens,
+           "stack_calls": eng.stack_calls,
+           "decode_step_calls": eng.decode_step_calls}
+    if diffs:
+        out["pools_vs"] = (sum(d[0] for d in diffs), len(diffs),
+                           max(d[1] for d in diffs), max(d[2] for d in diffs))
+    eng.close()
+    return out
+
+
+def _rel_l2(torch, got, want) -> float:
+    return float(torch.linalg.vector_norm(got - want)
+                 / torch.linalg.vector_norm(want))
+
+
+def _gemm_rows(torch, params) -> dict:
+    """Does row 0 of a bf16 GEMM x[:n] @ W come out bit-identical to x[:1]
+    @ W?  For each of the model's weight shapes (layer 0, lm head) and the
+    decode batches n = 2..4: {weight: [n where it does not]}."""
+    lay = params["layers"][0]
+    ws = dict(lay["attn"], **lay["ffn"], lm_head=params["lm_head"])
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    out = {}
+    for name, w in ws.items():
+        if w.dim() != 2:
+            continue
+        x = torch.randn((4, w.shape[0]), generator=gen, device="cuda",
+                        dtype=w.dtype)
+        one = x[:1] @ w
+        out[name] = [n for n in (2, 3, 4) if not torch.equal(
+            (x[:n] @ w)[:1], one)]
+    return out
+
+
+def _forced_check(torch, ops, path: str, r: dict, ref: dict, cfg) -> None:
+    """A teacher-forced run ``r`` (fed ``ref``'s tokens) against ``ref``:
+    the relative L2 of the logits at every step and, for each request, the
+    first step that differs, with the decode attention's batch at that
+    step in both runs and its split-K splits at those batches, which must
+    differ there: rounding enters only where the attention's splits do."""
+    errs = [[_rel_l2(torch, g, w) for g, w in zip(gs, ws)]
+            for gs, ws in zip(r["logits"], ref["logits"])]
+    top1 = sum(int(g.argmax()) == int(w.argmax())
+               for gs, ws in zip(r["logits"], ref["logits"])
+               for g, w in zip(gs, ws))
+    steps = max(len(e) for e in errs)
+    by_step = [max(e[t] for e in errs if t < len(e)) for t in range(steps)]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    first = []
+    for i, e in enumerate(errs):
+        t = next((t for t, x in enumerate(e) if x > 0), None)
+        if t is None:
+            first.append(None)
+            continue
+        bats = [r["batches"][i][t], ref["batches"][i][t]]
+        first.append({"step": t, "rel_l2": float(f"{e[t]:.3e}"),
+                      "batch": bats, "splits": [
+                          ops.decode_splits(b, cfg.num_kv_heads,
+                                            cfg.dsa.top_k_blocks, sms)
+                          if b else None for b in bats]})
+    log(f"phase=oracles path={path} forced=mixed_tokens "
+        f"max_rel_l2={max(by_step):.3e} "
+        f"top1_agree={top1}/{sum(len(e) for e in errs)} "
+        f"first_differing_step_by_request(batch,splits: {path},mixed)="
+        + json.dumps(first))
+    log(f"phase=oracles path={path} forced=mixed_tokens "
+        f"rel_l2_by_step=" + ",".join(f"{x:.2e}" for x in by_step))
+    if any(f is not None and f["splits"][0] == f["splits"][1]
+           for f in first):
+        raise AssertionError(f"oracles: {path} fed mixed's tokens first "
+                             f"differs from mixed at a step whose "
+                             f"attention splits are mixed's")
+
+
+def _pinned_check(torch, np, ops, params, cfg, seed: int) -> None:
+    """The paths of FORCED_PATHS and mixed again with the split-K
+    attention's splits pinned to those of SERVE_REQUESTS rows, whatever
+    the batch: each must then give mixed's tokens and mixed's logits bit
+    for bit at every step, so the state each path carries from step to
+    step is mixed's, and the split count is all that parts them."""
+    splits = ops.decode_splits
+    pinned = splits(SERVE_REQUESTS, cfg.num_kv_heads, cfg.dsa.top_k_blocks,
+                    torch.cuda.get_device_properties(0).multi_processor_count)
+    ops.decode_splits = lambda B, Hkv, K, sms: pinned
+    try:
+        want = None
+        for path in ("mixed",) + FORCED_PATHS:
+            kw = ORACLE_PATHS[path][0]
+            r = _oracle_run(torch, np, ops, params, cfg, seed, SERVE_NEW,
+                            **kw)
+            if want is None:
+                want = r
+                continue
+            same = [sum(torch.equal(g, w) for g, w in zip(gs, ws))
+                    for gs, ws in zip(r["logits"], want["logits"])]
+            log(f"phase=oracles path={path} pinned_splits={pinned} "
+                f"tokens_identical_to_mixed={r['tokens'] == want['tokens']} "
+                f"bit_identical_logit_steps={sum(same)}/"
+                f"{sum(len(x) for x in want['logits'])}")
+            if r["tokens"] != want["tokens"] or sum(same) != sum(
+                    len(x) for x in want["logits"]):
+                raise AssertionError(f"oracles: with the attention's splits "
+                                     f"pinned, {path} is not mixed bit for "
+                                     f"bit")
+    finally:
+        ops.decode_splits = splits
+
+
+def phase_oracles(torch, np, ops, seed: int) -> tuple:
+    """The engine's oracle paths (ORACLE_PATHS) at qwen2-0.5b's full width,
+    the serve phase's submissions on bf16 weights from ``seed``.  Asserts
+    split == mixed token for token on both tiers and persistent == mixed
+    (the staged plane) on the fp tier: the same kernels at the same shapes
+    with all requests arriving at 0.0.  Every other path changes GEMM or
+    attention shapes (B = 1 prefill or decode, the stacked pool's block
+    count, the chunked attention split), so its logits are held against
+    the mixed run's at the first step whose computation differs (step 0,
+    the first token, for the prefill paths; step 1, the first decode step,
+    for the decode paths, whose first tokens equal mixed's by
+    construction) to a relative L2 error of ORACLE_REL_L2, and that
+    tolerance must be under half the distance between two requests'
+    logits.  The fp paths of FORCED_PATHS run again fed the mixed run's
+    tokens (``_forced_check``: where each request's logits first part from
+    mixed's, which must be a step where the attention's split count
+    differs), and again with that split count pinned (``_pinned_check``:
+    mixed's tokens and logits bit for bit at every step), so a fault in
+    the state a path carries from step to step cannot hide behind its
+    first step's agreement.  The decode pools
+    that the split, legacy and chunked prefills build are compared with
+    the mixed prefill's.  Each path must launch its ORACLE_WANT kernels.
+    Prints one line per path; returns ({path: launches by kernel},
+    {path: MainPathCapture of the kernels at shapes no serve gives them,
+    for phase_mainpath})."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    cfg = get_config("qwen2-0.5b")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = M.init_params(cfg, gen, torch.bfloat16, "cuda")
+    log("phase=oracles gemm_row0_differs_from_B1_at_batches="
+        + json.dumps(_gemm_rows(torch, params)))
+    _oracle_run(torch, np, ops, params, cfg, seed, 2)     # warm-up
+    runs, counts, caps, pools = {}, {}, {}, {}
+    t_phase = time.perf_counter()
+    for path, (kw, want, ref_path, step) in ORACLE_PATHS.items():
+        t0 = time.perf_counter()
+        keep = ORACLE_KEEP.get(path)
+        cap = None if keep is None else MainPathCapture(
+            torch, ops, _mid_decode_attn(), keep=set(keep),
+            layers=_serve_layers())
+        r = runs[path] = _oracle_run(
+            torch, np, ops, params, cfg, seed, SERVE_NEW, cap=cap,
+            pools=pools if path in POOL_PATHS else None, **kw)
+        if cap is not None:
+            caps[f"oracles_{path}"] = cap
+        counts[f"oracles_{path}"] = r["counts"]
+        ref = runs[ref_path]
+        agree = sum(a == b[:len(a)] for a, b in zip(r["tokens"],
+                                                    ref["tokens"]))
+        m, s = r["metrics"], r["stats"]
+        log(f"phase=oracles path={path} "
+            f"config={json.dumps({k: v for k, v in kw.items()})} "
+            f"resolved=hybrid_plane:{r['eng'].hybrid_plane},drop:"
+            f"{r['eng'].drop_evicted_device_blocks} new={SERVE_NEW} "
+            f"wall_s={time.perf_counter() - t0:.3f} "
+            f"mean_ttft_ms={m.mean_ttft * 1e3:.2f} "
+            f"mean_tbt_ms={m.mean_tbt * 1e3:.3f} "
+            f"tok_per_s={m.token_throughput:.1f} "
+            f"h2d_calls={s['h2d_calls']} h2d_bytes={s['h2d_bytes']} "
+            f"d2h_calls={s['d2h_calls']} d2h_bytes={s['d2h_bytes']} "
+            f"peak_mem_gb={r['peak'] / 1e9:.3f} "
+            f"weights_gb={r['base'] / 1e9:.3f} "
+            f"prefill_hbm_peak_tokens={r['prefill_hbm_peak_tokens']} "
+            f"stack_calls={r['stack_calls']} "
+            f"decode_step_calls={r['decode_step_calls']} "
+            f"requests_agreeing_with_{ref_path}={agree}/{len(r['tokens'])}"
+            f" first8={[t[:8] for t in r['tokens']]}")
+        log(f"phase=oracles path={path} launches " + json.dumps(r["counts"]))
+        missing = [k for k in want if r["counts"][k] == 0]
+        if missing:
+            raise AssertionError(f"oracles: kernels not launched on the "
+                                 f"{path} path: {missing}")
+        if "pools_vs" in r:
+            same, n, rel, mx = r["pools_vs"]
+            log(f"phase=oracles path={path} decode_pools_vs_mixed "
+                f"identical_layers={same}/{n} max_rel_l2={rel:.3e} "
+                f"max_abs={mx:.3e}")
+            if rel > ORACLE_REL_L2:
+                raise AssertionError(f"oracles: {path} prefill built decode "
+                                     f"pools outside the tolerance")
+        if path in FORCED_PATHS:
+            forced = _oracle_run(torch, np, ops, params, cfg, seed,
+                                 SERVE_NEW, force=runs["mixed"]["tokens"],
+                                 **kw)
+            _forced_check(torch, ops, path, forced, runs["mixed"], cfg)
+        if step is None:
+            if path != ref_path and r["tokens"] != ref["tokens"]:
+                raise AssertionError(f"oracles: {path} tokens differ from "
+                                     f"{ref_path}'s")
+            continue
+        errs = [_rel_l2(torch, got[step], want_[step])
+                for got, want_ in zip(r["logits"], ref["logits"])]
+        sep = min(_rel_l2(torch, ref["logits"][i][step],
+                          ref["logits"][(i + 1) % len(errs)][step])
+                  for i in range(len(errs)))
+        top1 = sum(int(g[step].argmax()) == int(w[step].argmax())
+                   for g, w in zip(r["logits"], ref["logits"]))
+        max_abs = max(float((g[step] - w[step]).abs().max())
+                      for g, w in zip(r["logits"], ref["logits"]))
+        log(f"phase=oracles path={path} logits_step={step} "
+            f"rel_l2={','.join(f'{e:.3e}' for e in errs)} "
+            f"max_abs={max_abs:.3e} tol={ORACLE_REL_L2:.3e} "
+            f"min_rel_l2_between_requests={sep:.3e} "
+            f"top1_agree={top1}/{len(errs)}")
+        if max(errs) > ORACLE_REL_L2 or sep <= 2 * ORACLE_REL_L2:
+            raise AssertionError(f"oracles: {path} logits outside the "
+                                 f"tolerance, or a tolerance that does not "
+                                 f"tell requests apart")
+    _pinned_check(torch, np, ops, params, cfg, seed)
+    log(f"phase=oracles seconds={time.perf_counter() - t_phase:.1f}")
+    return counts, caps
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of build,parity,transfer,"
-                         "serve,serve_int8,async (serve and serve_int8 "
+                         "serve,serve_int8,oracles,async (serve and "
+                         "serve_int8 "
                          "include their mainpath replays; serve_int8 needs "
                          "serve) "
                          "plus the optional profile and profile_int8")
@@ -1673,6 +2068,13 @@ def main() -> int:
                                                       args.seed, fp)
             counts["serve_int8"] = q8["counts"]
         mainpath.update(phase_mainpath(torch, ops, ref, timer, caps))
+        caps.clear()
+    if "oracles" in phases:
+        o_counts, caps = phase_oracles(torch, np, ops, args.seed)
+        counts.update(o_counts)
+        for name, cases in phase_mainpath(torch, ops, ref, timer,
+                                          caps).items():
+            mainpath.setdefault(name, {}).update(cases)
         caps.clear()
     records = kernel_records(parity, mainpath, counts)
     if "async" in phases:

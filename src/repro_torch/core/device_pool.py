@@ -1,6 +1,8 @@
 """Persistent shared device decode pool — the engine's decode data plane.
 
-Counterpart of the staged plane of ``repro/core/device_pool.py``.  One
+Counterpart of ``repro/core/device_pool.py``: the staged per-layer
+pipeline (``step_staged``) and the persistent plane's one fused forward
+(``step``), whose restores land after it.  One
 padded paged pool per layer lives on the device for the lifetime of the
 decode batch: a request is admitted once into a free batch row
 (``admit``), nothing is copied per iteration while it decodes, and
@@ -205,6 +207,22 @@ class DevicePoolPlane:
 
     # -- iteration ---------------------------------------------------------
 
+    def step(self, params: Dict, token_by_req: Dict[str, int]
+             ) -> Tuple[torch.Tensor, Dict, Dict[str, int]]:
+        """ONE fused forward over the plane's padded rows (the persistent
+        plane): ``model.decode_step`` with a step mask that parks the
+        unscheduled rows.  Returns (logits (B_cap, V), info, {req_id:
+        cur_len before the step}), the positions where this step's KV
+        landed."""
+        tokens, mask = self.batch_inputs(token_by_req)
+        prev = {rid: self.cur_host[rid] for rid in token_by_req}
+        logits, new_state, info = M.decode_step(
+            params, self.cfg, tokens, self.state, return_info=True,
+            step_mask=mask)
+        self.state["cur_len"] = new_state["cur_len"]
+        self.finish_step(token_by_req)
+        return logits, info, prev
+
     def step_staged(self, params: Dict, token_by_req: Dict[str, int],
                     stage_cb=None) -> Tuple[torch.Tensor, Dict,
                                             Dict[str, int]]:
@@ -243,6 +261,14 @@ class DevicePoolPlane:
             self.cur_host[rid] += 1
 
     # -- data plane: FlashH2D/D2H wiring ----------------------------------
+
+    def new_token_kv(self, req_ids: List[str], prev_lens: Dict[str, int],
+                     layers: List[int], ship) -> Dict[int, Tuple]:
+        """``new_token_kv_async`` waited for: {model_layer: (k, v)}, each
+        (R, Hkv, D) float32 where ``ship`` put it."""
+        return {l: tuple(pending.wait()) for l, pending in
+                self.new_token_kv_async(req_ids, prev_lens, layers,
+                                        ship).items()}
 
     def new_token_kv_async(self, req_ids: List[str],
                            prev_lens: Dict[str, int], layers: List[int],

@@ -292,6 +292,16 @@ class HostPool:
             return (elems + scale_b) * kvf
         return k_new.nbytes * kvf
 
+    def save_contiguous(self, layer: int, start_token: int, k_new,
+                        v_new) -> None:
+        """Phase 1 of FlashD2H for ONE request: one contiguous stripe
+        (k_new/v_new (Hkv, T, D), as ``stage`` takes them) into staging.
+        Books exactly one ``d2h_calls`` and the stripe's wire bytes on this
+        pool; ``flush`` books ``d2h_blocks``."""
+        nbytes = self.stage(layer, start_token, k_new, v_new)
+        self.stats.d2h_calls += 1
+        self.stats.d2h_bytes += nbytes
+
     def flush(self) -> int:
         """Phase 2 of FlashD2H: scatter of staged stripes into the per-head
         block layout, in place, in staging order.  Returns blocks written

@@ -1,17 +1,19 @@
 """Batched layer-segmented prefill plane (paper §3.4).
 
-Counterpart of ``repro/core/prefill_plane.py`` for the mixed iteration.  A
+Counterpart of ``repro/core/prefill_plane.py``.  A
 request entering prefill is admitted ONCE into a padded row carrying its
 residual stream (``hidden`` (B_cap, S_cap, d)); its segment plan
-(``layer_prefill.plan_segments``) is the row's cursor.  Each engine
-iteration walks the model's layers once (``begin_iteration`` ->
-``run_layer`` per layer -> ``finish_iteration``): the rows whose next
-segment sits at the layer are grouped by chunk start and each group runs as
+(``layer_prefill.plan_segments``) is the row's cursor.  In the mixed
+iteration the engine walks the model's layers once (``begin_iteration``
+-> ``run_layer`` per layer -> ``finish_iteration``): the rows whose next
+segment sits at the layer are grouped by chunk start.  On the split path
+``run_iteration`` runs the plane alone, in passes that group the rows'
+next segments by (layer, chunk start).  Each group runs as
 ONE batched launch of ``model.prefill_attn_layer_batched`` over the padded
 batch (a token mask marks real tokens, a step mask parks unscheduled rows).
 The group's KV lands in the plane's one-layer context buffer
 (``ctx_k``/``ctx_v``), from which the engine reads the fused FlashD2H save
-(``read_group_kv_async``) and the end-of-layer pool build
+(``read_group_kv_async``, ``read_group_kv``) and the end-of-layer pool build
 (``layer_ctx``) — the prefill HBM footprint stays one layer of KV for the
 whole batch.  Rows whose last segment ran share one logits launch.
 Buffers are updated IN PLACE.
@@ -58,7 +60,7 @@ class PrefillIterationResult:
 
 @dataclasses.dataclass
 class PrefillWalk:
-    """Budget/progress state of ONE mixed-iteration walk over a plane."""
+    """Budget/progress state of ONE iteration over a plane."""
     allow: Dict[str, int]
     ran: set = dataclasses.field(default_factory=set)
     finished: List[str] = dataclasses.field(default_factory=list)
@@ -161,11 +163,65 @@ class PrefillPlane:
     def done(self, req_id: str) -> bool:
         return self.next_idx[req_id] >= len(self.segments[req_id])
 
-    # -- mixed-iteration walk (core.hybrid_plane) --------------------------
+    # -- iteration: run_iteration alone, or the mixed walk's run_layer ----
 
     def begin_iteration(self, allowance: Dict[str, int]) -> PrefillWalk:
         return PrefillWalk(allow={rid: int(a) for rid, a in allowance.items()
                                   if rid in self.rows})
+
+    def run_iteration(self, params: Dict, allowance: Dict[str, int],
+                      group_cb=None) -> PrefillIterationResult:
+        """One engine iteration of prefill on its own (the split path).
+        Every scheduled row runs at least one segment; beyond that,
+        segments run while its token budget lasts.  Each pass groups the
+        rows' next segments by (layer, chunk_start), one batched launch per
+        group in that order, so a row's segments run in plan order.
+        ``group_cb(group)`` runs right after each launch: the window in
+        which the group's KV is read out of the one-layer context buffer,
+        before a later layer's launch overwrites it."""
+        walk = self.begin_iteration(allowance)
+        while True:
+            pending = self._pending(walk)
+            if not pending:
+                break
+            for layer, start in sorted(pending):
+                g = self._launch(params, layer, start,
+                                 pending[(layer, start)], walk)
+                if group_cb is not None:
+                    group_cb(g)
+        return self.finish_iteration(params, walk)
+
+    def _pending(self, walk: PrefillWalk) -> Dict[Tuple[int, int],
+                                                  List[str]]:
+        """{(layer, chunk_start): rows} of the next segment each scheduled
+        row still owes this iteration, rows in row order."""
+        pending: Dict[Tuple[int, int], List[str]] = {}
+        for rid in sorted(walk.allow, key=lambda r: self.rows[r]):
+            idx = self.next_idx[rid]
+            segs = self.segments[rid]
+            if idx >= len(segs):
+                continue
+            if walk.allow[rid] <= 0 and rid in walk.ran:
+                continue
+            seg = segs[idx]
+            pending.setdefault((seg.layer, seg.chunk_start), []).append(rid)
+        return pending
+
+    def _launch(self, params: Dict, layer: int, start: int,
+                rids: List[str], walk: PrefillWalk) -> PrefillGroupRun:
+        """Run one group and advance its rows' cursors and budgets."""
+        g = self._run_group(params, layer, start, rids)
+        walk.groups.append(g)
+        for rid in rids:
+            seg = g.segs[rid]
+            walk.allow[rid] -= seg.chunk_len
+            walk.ran.add(rid)
+            self.next_idx[rid] += 1
+            walk.peaks[rid] = max(walk.peaks.get(rid, 0),
+                                  seg.chunk_start + seg.chunk_len)
+            if seg.is_last:
+                walk.finished.append(rid)
+        return g
 
     def run_layer(self, params: Dict, layer: int,
                   walk: PrefillWalk) -> List[PrefillGroupRun]:
@@ -176,34 +232,13 @@ class PrefillPlane:
         segments run while its token budget lasts."""
         out: List[PrefillGroupRun] = []
         while True:
-            pending: Dict[int, List[str]] = {}
-            for rid in sorted(walk.allow, key=lambda r: self.rows[r]):
-                idx = self.next_idx[rid]
-                segs = self.segments[rid]
-                if idx >= len(segs):
-                    continue
-                if walk.allow[rid] <= 0 and rid in walk.ran:
-                    continue
-                seg = segs[idx]
-                if seg.layer != layer:
-                    continue
-                pending.setdefault(seg.chunk_start, []).append(rid)
+            pending = {start: rids for (l, start), rids
+                       in self._pending(walk).items() if l == layer}
             if not pending:
                 break
             for start in sorted(pending):
-                rids = pending[start]
-                g = self._run_group(params, layer, start, rids)
-                out.append(g)
-                walk.groups.append(g)
-                for rid in rids:
-                    seg = g.segs[rid]
-                    walk.allow[rid] -= seg.chunk_len
-                    walk.ran.add(rid)
-                    self.next_idx[rid] += 1
-                    walk.peaks[rid] = max(walk.peaks.get(rid, 0),
-                                          seg.chunk_start + seg.chunk_len)
-                    if seg.is_last:
-                        walk.finished.append(rid)
+                out.append(self._launch(params, layer, start,
+                                        pending[start], walk))
         return out
 
     def finish_iteration(self, params: Dict,
@@ -286,6 +321,12 @@ class PrefillPlane:
                           v_all[i, :chunk_lens[rid]].permute(1, 0, 2))
                     for i, rid in enumerate(req_ids)}
         return finish
+
+    def read_group_kv(self, g: PrefillGroupRun, ship
+                      ) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
+        """``read_group_kv_async`` waited for: {req_id: (k (Hkv, T, D),
+        v)} float32 where ``ship`` put them."""
+        return self.read_group_kv_async(g, ship)()
 
     def layer_ctx(self, req_id: str) -> Tuple[torch.Tensor, torch.Tensor]:
         """The request's completed current-layer KV: (k, v) each

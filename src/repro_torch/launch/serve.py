@@ -2,6 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
         [--requests 8 --prompt 192 --gen 8] [--smoke] [--device cpu]
+        [--prefill {layer_segmented,chunked} --chunk 64]
 
 Random weights from ``--seed`` (bf16 on the GPU, float32 on the CPU).  On
 the GPU (the default device) the engine charges wall-clock time, with the
@@ -32,6 +33,9 @@ def main(argv=None) -> int:
     ap.add_argument("--prompt", type=int, default=192)
     ap.add_argument("--gen", type=int, default=8)
     ap.add_argument("--rate", type=float, default=100.0)
+    ap.add_argument("--prefill", default="layer_segmented",
+                    choices=["layer_segmented", "chunked"])
+    ap.add_argument("--chunk", type=int, default=64)
     ap.add_argument("--no-ws", action="store_true")
     ap.add_argument("--cache-blocks", type=int, default=64)
     ap.add_argument("--seed", type=int, default=0)
@@ -44,6 +48,7 @@ def main(argv=None) -> int:
     dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
     params = M.init_params(cfg, gen, dtype, dev)
     eng = ServingEngine(params, cfg, EngineConfig(
+        prefill_mode=args.prefill, chunk_size=args.chunk,
         ws_control=not args.no_ws, hbm_blocks_per_request=args.cache_blocks,
         seed=args.seed, charge_real_time=dev.type == "cuda"))
 
@@ -57,7 +62,8 @@ def main(argv=None) -> int:
     s = eng.metrics_snapshot()
     where = (f"{torch.cuda.get_device_name(dev)} wall clock"
              if dev.type == "cuda" else "modelled clock, CPU run")
-    print(f"arch={cfg.name} device={dev} ({where}) ws={not args.no_ws}")
+    print(f"arch={cfg.name} device={dev} ({where}) ws={not args.no_ws} "
+          f"prefill={args.prefill} chunk={args.chunk}")
     print(f"finished={m.num_finished}/{args.requests} "
           f"iters={s['engine.iterations']:.0f}")
     print(f"mean TTFT {m.mean_ttft*1e3:.2f} ms | mean TBT "

@@ -17,7 +17,7 @@ recurrent layers, encoder-decoder, modality frontends) raise
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -204,6 +204,30 @@ def prefill_embed(params: Dict, cfg: ModelConfig, inputs: Dict):
     return h, positions, None
 
 
+def _init_rec_states(cfg: ModelConfig, batch: int, dtype) -> List:
+    """Per-layer recurrent states: none for the dense decoders served."""
+    check_supported(cfg)
+    return [None] * cfg.num_layers
+
+
+def prefill_layer(params: Dict, cfg: ModelConfig, layer_idx: int,
+                  h: torch.Tensor, positions: torch.Tensor, *,
+                  rec_state=None):
+    """ONE layer of prefill over the whole prompt (the legacy
+    layer-segmented executor).  The caller saves the returned layer KV to
+    DRAM and evicts it before layer l+1.  Returns (h, (k, v), new_rec)."""
+    h, kv_out = layer_forward(get_layer(params, layer_idx), cfg, h,
+                              positions, kind=layer_kind(cfg, layer_idx),
+                              return_kv=True)
+    return h, kv_out, rec_state
+
+
+def prefill_finalize(params: Dict, cfg: ModelConfig, h: torch.Tensor
+                     ) -> torch.Tensor:
+    """Last segment: final norm + head on the last position -> (B, V)."""
+    return lm_head(params, cfg, h[:, -1:, :])[:, 0]
+
+
 def prefill_attn_layer_batched(p: Dict, cfg: ModelConfig, h: torch.Tensor,
                                positions: torch.Tensor,
                                token_mask: torch.Tensor,
@@ -271,6 +295,56 @@ def decode_logits(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     new_len = (cur_len + 1 if step_mask is None
                else cur_len + step_mask.to(cur_len.dtype))
     return logits, new_len
+
+
+# ---------------------------------------------------------------------------
+# Batched multi-request decode: padded-batch stack / unstack
+# ---------------------------------------------------------------------------
+
+def stack_decode_states(states: List[Dict]
+                        ) -> Tuple[Dict, List[Tuple[int, List[int]]]]:
+    """Stack per-request list-mode DecodeStates into ONE padded batch
+    state: every layer's pools padded along the block axis to the batch's
+    largest block count (``attention.pad_pool_cache``) and concatenated
+    along batch (new tensors).  Returns (batched_state, layout), the layout
+    each input's (batch size, per-layer block counts) for
+    ``unstack_decode_states``."""
+    if not states:
+        raise ValueError("stack_decode_states: empty batch")
+    L = len(states[0]["caches"])
+    layout = [(int(s["cur_len"].shape[0]),
+               [int(s["caches"][l]["k"].shape[2]) for l in range(L)])
+              for s in states]
+    caches = []
+    for l in range(L):
+        parts = [s["caches"][l] for s in states]
+        nb_max = max(int(p["k"].shape[2]) for p in parts)
+        parts = [attn.pad_pool_cache(p, nb_max) for p in parts]
+        caches.append({key: torch.cat([p[key] for p in parts], dim=0)
+                       for key in parts[0]})
+    return {"caches": caches,
+            "cur_len": torch.cat([s["cur_len"] for s in states], dim=0),
+            "extra": {}}, layout
+
+
+def unstack_decode_states(state: Dict,
+                          layout: List[Tuple[int, List[int]]]) -> List[Dict]:
+    """Split a batched DecodeState back into per-request states, each pool
+    trimmed to the request's own block count and copied out of the batch
+    tensors (so no request keeps the batch alive)."""
+    out: List[Dict] = []
+    row = 0
+    for B, nbs in layout:
+        sl = slice(row, row + B)
+        caches = []
+        for l, c in enumerate(state["caches"]):
+            own = attn.slice_pool_cache({key: arr[sl]
+                                         for key, arr in c.items()}, nbs[l])
+            caches.append({key: arr.clone() for key, arr in own.items()})
+        out.append({"caches": caches,
+                    "cur_len": state["cur_len"][sl].clone(), "extra": {}})
+        row += B
+    return out
 
 
 def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,

@@ -1,11 +1,11 @@
 """Real-execution serving engine of the port: continuous batching with
 dynamic sparse attention decode over a hierarchical HBM/DRAM KV cache.
 
-Counterpart of ``repro/serving/engine.py`` for its default configuration:
-every iteration is ONE mixed layer walk (``core.hybrid_plane``) carrying
-the staged decode plane's rows (select -> host stage -> attend per layer)
-and the batched layer-segmented prefill plane's segments, with one host
-stage per attention layer:
+Counterpart of ``repro/serving/engine.py`` for dense GQA decoders on one
+device.  By default every iteration is ONE mixed layer walk
+(``core.hybrid_plane``) carrying the staged decode plane's rows (select ->
+host stage -> attend per layer) and the batched layer-segmented prefill
+plane's segments, with one host stage per attention layer:
 
 1. one merged fused FlashD2H save of the layer's new KV (decode write-back
    plus fresh prefill chunks) — on the ``HostStageWorker`` thread when
@@ -23,10 +23,20 @@ stage per attention layer:
 4. the end-of-layer decode-pool builds of prefill rows and their HBM
    layer eviction (the one-layer prefill bound).
 
+The reference's oracle paths run here too, resolved as the reference
+resolves them (``resolve_config``): ``hybrid_plane="split"`` (the prefill
+plane's iteration, then the staged decode plane's), the fused
+``decode_plane="persistent"`` forward whose restores land after it, the
+``"stacked"`` pad + concat of every pool each step,
+``batched_decode=False`` (one B=1 forward per request),
+``prefill_exec="legacy"`` (one request's whole layer at a time) and
+``prefill_mode="chunked"`` (every layer over a chunk of tokens, with the
+earlier chunks' KV as dense context).
+
 Iteration latency is charged from the copied analytic cost model unless
 ``charge_real_time`` is set (the GPU launcher sets it, and then TTFT/TBT
-are the card's wall clock).  Configurations the port does not implement
-yet raise ``NotImplementedError``.
+are the card's wall clock).  A plane mesh and the obs layer are not
+ported and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -43,8 +53,11 @@ from repro_torch.core.host_stage import HostStageWorker
 from repro_torch.core.hybrid_plane import (DecodeJob, HybridPlane,
                                            LayerWindow, PrefillJob)
 from repro_torch.core.kv_cache import KVCacheManager, KVGeometry, TransferStats
-from repro_torch.core.layer_prefill import hbm_footprint_tokens, plan_segments
-from repro_torch.core.prefill_plane import PrefillPlane, admit_embed
+from repro_torch.core.layer_prefill import (LayerPrefillState,
+                                            hbm_footprint_tokens,
+                                            plan_segments)
+from repro_torch.core.prefill_plane import (PrefillIterationResult,
+                                            PrefillPlane, admit_embed)
 from repro_torch.core.scheduler import BatchPlan, Scheduler, SchedulerConfig
 from repro_torch.device import host_to_device
 from repro_torch.models import model as M
@@ -57,14 +70,11 @@ from repro_torch.serving.request import Phase, Request
 @dataclasses.dataclass
 class EngineConfig:
     """The reference's ``EngineConfig`` fields and defaults, less the
-    ``attn_impl`` knob (the device of the tensors decides).  Values of the
-    reference that the port does not implement yet raise
-    ``NotImplementedError`` in ``ServingEngine``: prefill_mode "chunked",
-    prefill_exec "legacy", decode_plane "persistent"/"stacked",
-    hybrid_plane "split", batched_decode False, a mesh_spec, and obs
-    True."""
-    prefill_mode: str = "layer_segmented"
-    prefill_exec: str = "plane"
+    ``attn_impl`` knob (the device of the tensors decides).  A mesh_spec
+    and obs True raise ``NotImplementedError`` in ``ServingEngine``."""
+    prefill_mode: str = "layer_segmented"    # | "chunked" (the baseline)
+    prefill_exec: str = "plane"              # | "legacy" (per-request
+                                             # whole layers, the oracle)
     prefill_max_tokens_per_step: int = 0     # intra-layer chunk size of the
                                              # prefill plane (0 = whole
                                              # layers)
@@ -78,15 +88,22 @@ class EngineConfig:
     charge_real_time: bool = False
     greedy: bool = True
     seed: int = 0
-    batched_decode: bool = True
-    decode_plane: str = "staged"
+    batched_decode: bool = True              # False: one B=1 forward per
+                                             # request (the oracle)
+    decode_plane: str = "staged"             # | "persistent" (one fused
+                                             # forward, restores after it)
+                                             # | "stacked" (pad + concat
+                                             # every step)
     bucketing: BucketingPolicy = dataclasses.field(
         default_factory=BucketingPolicy)
     decode_write_back: bool = True           # FlashD2H of decode KV
     mesh_spec: Any = None
-    hybrid_plane: str = "mixed"
+    hybrid_plane: str = "mixed"              # | "split" (prefill plane,
+                                             # then decode plane: the
+                                             # oracle)
     stage_dispatch: str = "async"            # "async" | "sync" (oracle)
-    drop_evicted_device_blocks: Optional[bool] = None   # None -> on
+    drop_evicted_device_blocks: Optional[bool] = None   # None -> on for
+                                             # the batched staged plane
     # DRAM offload tier: "none" (float32 host pools) or "int8" (int8 host
     # pools with one f32 scale per (layer, kv-head, block); touched blocks
     # requantize on the FlashD2H save and dequantize where the FlashH2D
@@ -95,31 +112,59 @@ class EngineConfig:
     obs: Optional[bool] = None               # None -> off
 
 
-_KNOWN = {
-    "prefill_mode": (("layer_segmented",), ("chunked",)),
-    "prefill_exec": (("plane",), ("legacy",)),
-    "decode_plane": (("staged",), ("persistent", "stacked")),
-    "hybrid_plane": (("mixed",), ("split",)),
-    "stage_dispatch": (("async", "sync"), ()),
-    "offload_quant": (("none", "int8"), ()),
+_VALUES = {
+    "prefill_mode": ("layer_segmented", "chunked"),
+    "prefill_exec": ("plane", "legacy"),
+    "decode_plane": ("staged", "persistent", "stacked"),
+    "hybrid_plane": ("mixed", "split"),
+    "stage_dispatch": ("async", "sync"),
+    "offload_quant": ("none", "int8"),
 }
 
 
-def _validate(eng: EngineConfig) -> None:
-    for field, (ported, later) in _KNOWN.items():
+def resolve_config(eng: EngineConfig) -> EngineConfig:
+    """Validate ``eng`` and resolve it as the reference engine does, into
+    a COPY (the caller's config stays as given):
+
+    - ``hybrid_plane="mixed"`` becomes ``"split"`` unless the batched
+      staged decode plane and the layer-segmented prefill plane run: the
+      mixed walk drives exactly those two;
+    - ``drop_evicted_device_blocks=None`` becomes True only on the batched
+      staged plane with decode write-back, where restores land before the
+      attention that selected them (elsewhere a drop would change the
+      outputs, or has no device plane to act on);
+    - an explicit drop without write-back, or without a device plane,
+      raises ``ValueError``."""
+    for field, allowed in _VALUES.items():
         val = getattr(eng, field)
-        if val in later:
-            raise NotImplementedError(
-                f"EngineConfig.{field}={val!r} is not ported yet")
-        if val not in ported:
+        if val not in allowed:
             raise ValueError(f"unknown {field} {val!r}; expected one of "
-                             f"{ported + later}")
-    if not eng.batched_decode:
-        raise NotImplementedError("batched_decode=False is not ported yet")
+                             f"{allowed}")
     if eng.mesh_spec is not None:
         raise NotImplementedError("plane meshes are not ported yet")
     if eng.obs:
         raise NotImplementedError("the obs layer is not wired in yet")
+    if eng.hybrid_plane == "mixed" and not (
+            eng.batched_decode and eng.decode_plane == "staged"
+            and eng.prefill_mode == "layer_segmented"
+            and eng.prefill_exec == "plane"):
+        eng = dataclasses.replace(eng, hybrid_plane="split")
+    if eng.drop_evicted_device_blocks is None:
+        eng = dataclasses.replace(eng, drop_evicted_device_blocks=(
+            eng.decode_plane == "staged" and eng.batched_decode
+            and eng.decode_write_back))
+    if eng.drop_evicted_device_blocks and not eng.decode_write_back:
+        raise ValueError(
+            "drop_evicted_device_blocks requires decode_write_back: "
+            "restores come from the host pool, which is only a superset "
+            "of device KV when decode write-back is on")
+    if eng.drop_evicted_device_blocks and not (
+            eng.batched_decode
+            and eng.decode_plane in ("staged", "persistent")):
+        raise ValueError(
+            "drop_evicted_device_blocks only acts on a device plane "
+            "(batched_decode=True, decode_plane='staged' or 'persistent')")
+    return eng
 
 
 @dataclasses.dataclass
@@ -129,7 +174,12 @@ class _ReqState:
     tokens: np.ndarray                              # prompt token ids
     decode_state: Optional[Dict] = None             # B=1 pools until the
                                                     # decode plane owns them
+    lp: Optional[LayerPrefillState] = None          # legacy executor cursor
     prefill_carry: int = 0                          # unspent token budget
+    chunk_ctx: Optional[List] = None                # chunked: per-layer
+                                                    # dense (k, v) context
+    chunk_rec: Optional[List] = None                # chunked: recurrent
+                                                    # states (none: dense)
     last_logits: Optional[torch.Tensor] = None      # (1, V) on the host
     out_tokens: List[int] = dataclasses.field(default_factory=list)
     num_blocks: int = 0
@@ -142,21 +192,12 @@ class ServingEngine:
     def __init__(self, params: Dict, cfg: ModelConfig, eng: EngineConfig,
                  hw: cm.HardwareSpec = cm.TPU_V5E):
         M.check_supported(cfg)
-        _validate(eng)
+        eng = resolve_config(eng)
         self.params = params
         self.cfg = cfg
         self.hw = hw                 # the modelled clock's preset
         self.device = params["embed"].device
         self.kv_dtype = params["embed"].dtype
-        if eng.drop_evicted_device_blocks is None:
-            # resolved into a COPY: the caller's config stays as given
-            eng = dataclasses.replace(
-                eng, drop_evicted_device_blocks=eng.decode_write_back)
-        if eng.drop_evicted_device_blocks and not eng.decode_write_back:
-            raise ValueError(
-                "drop_evicted_device_blocks requires decode_write_back: "
-                "restores come from the host pool, which is only a superset "
-                "of device KV when decode write-back is on")
         self.eng = eng
         self.mc = cm.ModelCost.from_config(cfg)
         self.rng = np.random.default_rng(eng.seed)
@@ -166,13 +207,16 @@ class ServingEngine:
             head_dim=cfg.kv_cache_dim, kv_factor=2)
         inject = (eng.max_inject_tokens if eng.max_inject_tokens > 0
                   else eng.chunk_size * cfg.num_layers)
+        self._plane_prefill = (eng.prefill_mode == "layer_segmented"
+                               and eng.prefill_exec == "plane")
         self.scheduler = Scheduler(
             SchedulerConfig(
                 r_max=eng.r_max, t_max=eng.t_max,
                 m_avl_bytes=eng.hbm_budget_bytes if eng.ws_control else 0,
                 prefill_mode=eng.prefill_mode, chunk_size=eng.chunk_size,
                 max_inject_tokens=inject,
-                segment_tokens=eng.prefill_max_tokens_per_step,
+                segment_tokens=(eng.prefill_max_tokens_per_step
+                                if self._plane_prefill else 0),
                 ws_control=eng.ws_control),
             self.geom, cfg.num_layers, cfg.dsa.top_k_blocks)
         self.kv_mgr = KVCacheManager(self.geom, eng.hbm_budget_bytes,
@@ -190,16 +234,24 @@ class ServingEngine:
         self.prefill_hbm_peak_tokens = 0
         self.decode_step_calls = 0
         self.decode_tokens = 0
+        self.stack_calls = 0          # full-pool stack/unstack round trips
         self.prefill_launches = 0
         self.admit_embed_launches = 0
         self.plane = DevicePoolPlane(cfg, eng.bucketing)
         self.prefill_plane = PrefillPlane(cfg, eng.bucketing)
-        self.hybrid = HybridPlane(cfg)
+        self.hybrid = (HybridPlane(cfg) if eng.hybrid_plane == "mixed"
+                       else None)
         self._stage_async = eng.stage_dispatch == "async"
         self._worker: Optional[HostStageWorker] = None
         self.worker_jobs_run = 0
         self.worker_busy_s = 0.0
         self._staged_layer_bytes: Dict[int, int] = {}
+        # per mixed iteration: row counts, prefill groups and finalizes,
+        # and per layer its fused d2h / h2d calls and prefill groups
+        self.mixed_iter_log: List[Dict[str, Any]] = []
+        # test hook: called between a layer's restore and its attend as
+        # probe(engine, plane, layer, sts, blocks_by_req)
+        self.staged_probe = None
 
     # ------------------------------------------------------------------
     # Request intake
@@ -232,7 +284,7 @@ class ServingEngine:
             self.scheduler.add_request(self._pending.pop(0))
 
     # ------------------------------------------------------------------
-    # Prefill admission
+    # Prefill: the legacy executor and the chunked baseline
     # ------------------------------------------------------------------
     def _kv_to_layer_cache(self, st: _ReqState, kv_out: Tuple) -> Dict:
         k, v = kv_out
@@ -241,6 +293,111 @@ class ServingEngine:
         vpool, _ = M._kv_to_pool(self.cfg, v, st.num_blocks, self.kv_dtype)
         return {"k": kpool, "v": vpool, "meta": meta}
 
+    def _save_prompt_layer(self, rid: str, layer: int, kv: Tuple) -> None:
+        """FlashD2H of one request's whole-prompt layer KV (k, v each
+        (1, S, Hkv, D)) from token 0: one contiguous save on its host pool
+        (``HostPool.save_contiguous``), flushed by the caller."""
+        host = self.kv_mgr.pools.get(rid)
+        if host is None:
+            return
+        k, v = self.kv_mgr.ship(*(t[0].permute(1, 0, 2).float()
+                                  for t in kv)).wait()
+        host.save_contiguous(layer, 0, k, v)
+
+    def _start_layer_segmented(self, st: _ReqState,
+                               tokens_per_step: int) -> None:
+        toks = host_to_device(st.tokens[None, :], self.device)
+        h, positions, _ = M.prefill_embed(self.params, self.cfg,
+                                          {"tokens": toks})
+        segs = plan_segments(st.req.prompt_len, self.cfg.num_layers,
+                             tokens_per_step)
+        st.lp = LayerPrefillState(
+            segments=segs, hidden=h, positions=positions,
+            rec_states=M._init_rec_states(self.cfg, 1, h.dtype))
+        st.decode_state = {"caches": [None] * self.cfg.num_layers,
+                           "cur_len": None, "extra": {}}
+
+    def _run_layer_segment(self, st: _ReqState) -> bool:
+        """The legacy executor: the request's next whole layer, its KV
+        saved to DRAM (one contiguous save, then the pool's flush: in the
+        int8 tier one ``quant_save_blocks`` call) and evicted from HBM.
+        Returns True when the prefill is done."""
+        seg = st.lp.advance()
+        l = seg.layer
+        h, kv_out, new_rec = M.prefill_layer(
+            self.params, self.cfg, l, st.lp.hidden, st.lp.positions,
+            rec_state=st.lp.rec_states[l])
+        st.lp.hidden = h
+        st.lp.rec_states[l] = new_rec
+        rid = st.req.req_id
+        st.decode_state["caches"][l] = self._kv_to_layer_cache(st, kv_out)
+        self._save_prompt_layer(rid, l, kv_out)
+        host = self.kv_mgr.pools.get(rid)
+        if host is not None:
+            host.flush()
+        cache = self.kv_mgr.caches.get(rid)
+        if cache is not None:
+            cache.drop_layer(l)
+        if seg.is_last:
+            st.last_logits = M.prefill_finalize(
+                self.params, self.cfg, st.lp.hidden).float().cpu()
+            st.decode_state["cur_len"] = torch.full(
+                (1,), int(st.lp.hidden.shape[1]), dtype=torch.int32)
+            st.lp = None
+            return True
+        return False
+
+    def _run_chunked_prefill(self, st: _ReqState, inject: int) -> bool:
+        """Chunked-prefill baseline: ``inject`` new prompt tokens through
+        ALL layers, each layer attending to its dense KV of the earlier
+        chunks (``flash_prefill`` with the context and ``q_offset`` on the
+        GPU).  At the last chunk the pools are built and the prompt KV is
+        saved to DRAM, one contiguous save per layer and one flush.
+        Returns True when the prefill is done."""
+        cfg = self.cfg
+        r = st.req
+        start = r.prefill_tokens_done
+        end = min(start + inject, r.prompt_len)
+        if st.chunk_ctx is None:
+            st.chunk_ctx = [None] * cfg.num_layers
+            st.chunk_rec = M._init_rec_states(cfg, 1, self.kv_dtype)
+        toks = host_to_device(st.tokens[None, start:end], self.device)
+        h = self.params["embed"][toks.long()]
+        positions = torch.arange(start, end, dtype=torch.int32,
+                                 device=self.device)[None, :]
+        for l in range(cfg.num_layers):
+            ctx = st.chunk_ctx[l]
+            h, (k, v) = M.layer_forward(
+                M.get_layer(self.params, l), cfg, h, positions,
+                kind=M.layer_kind(cfg, l),
+                k_ctx=None if ctx is None else ctx[0],
+                v_ctx=None if ctx is None else ctx[1], q_offset=start,
+                return_kv=True)
+            st.chunk_ctx[l] = ((k, v) if ctx is None else
+                               (torch.cat([ctx[0], k], dim=1),
+                                torch.cat([ctx[1], v], dim=1)))
+        r.prefill_tokens_done = end
+        if end < r.prompt_len:
+            return False
+        st.last_logits = M.lm_head(self.params, cfg,
+                                   h[:, -1:, :])[:, 0].float().cpu()
+        caches = []
+        for l in range(cfg.num_layers):
+            caches.append(self._kv_to_layer_cache(st, st.chunk_ctx[l]))
+            self._save_prompt_layer(r.req_id, l, st.chunk_ctx[l])
+        host = self.kv_mgr.pools.get(r.req_id)
+        if host is not None:
+            host.flush()
+        st.decode_state = {
+            "caches": caches,
+            "cur_len": torch.full((1,), r.prompt_len, dtype=torch.int32),
+            "extra": {}}
+        st.chunk_ctx = None
+        return True
+
+    # ------------------------------------------------------------------
+    # Prefill plane (batched layer-segmented prefill, the default)
+    # ------------------------------------------------------------------
     def _batched_admit_embed(self, sts: List[_ReqState]
                              ) -> Dict[str, torch.Tensor]:
         """{req_id: h (1, S, d)} for an admission batch, embedded in ONE
@@ -258,15 +415,133 @@ class ServingEngine:
         return {st.req.req_id: h_all[i:i + 1, :len(st.tokens)]
                 for i, st in enumerate(sts)}
 
-    def _admit_prefill_plane(self, st: _ReqState, h: torch.Tensor) -> None:
-        """Plan the request's (layer, chunk) segments and admit it into a
-        prefill plane row."""
-        S = int(h.shape[1])
-        step = self.eng.prefill_max_tokens_per_step or S
-        segs = plan_segments(S, self.cfg.num_layers, step)
-        self.prefill_plane.admit(st.req.req_id, h, segs)
-        st.decode_state = {"caches": [None] * self.cfg.num_layers,
-                           "cur_len": None, "extra": {}}
+    def _admit_prefill_plane(self, prefill_reqs) -> Dict[str, int]:
+        """Admit the plan's new prefill requests into prefill plane rows
+        (one batched embed; each row's (layer, chunk) segments planned)
+        and grant every scheduled row its token budget.  Returns the
+        allowance {req_id: tokens}."""
+        pplane = self.prefill_plane
+        pre_h = self._batched_admit_embed(
+            [self.states[req.req_id] for req, _ in prefill_reqs
+             if req.req_id not in pplane.rows])
+        allow: Dict[str, int] = {}
+        for req, inject in prefill_reqs:
+            st = self.states[req.req_id]
+            if req.scheduled_time is None:
+                req.scheduled_time = self.now
+            if req.req_id not in pplane.rows:
+                h = pre_h[req.req_id]
+                S = int(h.shape[1])
+                step = self.eng.prefill_max_tokens_per_step or S
+                pplane.admit(req.req_id, h,
+                             plan_segments(S, self.cfg.num_layers, step))
+                st.decode_state = {"caches": [None] * self.cfg.num_layers,
+                                   "cur_len": None, "extra": {}}
+            st.prefill_carry += max(int(inject), 1)
+            allow[req.req_id] = st.prefill_carry
+        return allow
+
+    def _group_prefill_time(self, g) -> float:
+        return cm.batched_prefill_time(
+            self.hw, self.mc,
+            [(g.segs[rid].chunk_len, g.chunk_start + g.segs[rid].chunk_len)
+             for rid in g.req_ids], layers=1)
+
+    def _end_of_layer(self, g) -> None:
+        """A group's rows that finished their layer: build the decode pool
+        from the plane's one-layer context, then evict the layer from HBM
+        (the one-layer bound)."""
+        pp = self.prefill_plane
+        for rid in g.req_ids:
+            if not g.segs[rid].is_last_chunk_of_layer:
+                continue
+            st_r = self.states[rid]
+            st_r.decode_state["caches"][g.layer] = \
+                self._kv_to_layer_cache(st_r, pp.layer_ctx(rid))
+            cache = self.kv_mgr.caches.get(rid)
+            if cache is not None:
+                cache.drop_layer(g.layer)
+
+    def _prefill_epilogue(self, pres: PrefillIterationResult,
+                          allow: Dict[str, int], spent: Dict[str, int],
+                          done: List[Request]) -> int:
+        """After a prefill-plane iteration: carry the unspent budgets,
+        mirror the row cursors into the scheduler's pacing state, take the
+        finished rows' logits and release them (appended to ``done``).
+        Returns the iteration's HBM footprint in token-layer units."""
+        L = self.cfg.num_layers
+        pp = self.prefill_plane
+        fp = 0
+        for rid in allow:
+            st_r = self.states[rid]
+            st_r.prefill_carry = max(0, st_r.prefill_carry
+                                     - spent.get(rid, 0))
+            req = st_r.req
+            if not pp.done(rid):
+                seg = pp.segments[rid][pp.next_idx[rid]]
+                req.prefill_layer = seg.layer
+                req.prefill_layer_tokens_done = min(
+                    seg.chunk_start, max(req.prompt_len - 1, 0))
+        for rid, peak in pres.peaks.items():
+            fp += hbm_footprint_tokens(pp.tok_len[rid], "layer_segmented", L,
+                                       layer_tokens_resident=peak)
+        host_logits = (pres.logits.float().cpu() if pres.finished
+                       else None)
+        for rid in pres.finished:
+            st_r = self.states[rid]
+            row = pp.rows[rid]
+            st_r.last_logits = host_logits[row:row + 1]
+            st_r.decode_state["cur_len"] = torch.full(
+                (1,), pp.tok_len[rid], dtype=torch.int32)
+            st_r.req.prefill_layer = L
+            st_r.req.prefill_layer_tokens_done = 0
+            pp.release(rid)
+            done.append(st_r.req)
+        return fp
+
+    def _idle_prefill_footprint(self) -> int:
+        """Token-layers held by prefill-plane rows parked mid-layer (no
+        scheduled prefill this iteration)."""
+        pp = self.prefill_plane
+        return sum(hbm_footprint_tokens(pp.tok_len[rid], "layer_segmented",
+                                        self.cfg.num_layers,
+                                        layer_tokens_resident=resident)
+                   for rid, resident in pp.resident_tokens().items())
+
+    def _prefill_plane_iteration(self, prefill_reqs
+                                 ) -> Tuple[float, List[Request], int]:
+        """The split path's prefill: one prefill-plane iteration
+        (``PrefillPlane.run_iteration``).  Per (layer, chunk) group: one
+        batched launch, ONE fused FlashD2H save of the group's stripes and
+        the pools' flush (in the int8 tier one ``quant_save_blocks``
+        call), then the end-of-layer pool builds and layer evictions.
+        Returns (modelled seconds, finished requests, HBM footprint in
+        token-layer units)."""
+        done: List[Request] = []
+        allow = self._admit_prefill_plane(prefill_reqs)
+        if not allow:
+            return 0.0, done, self._idle_prefill_footprint()
+        pp = self.prefill_plane
+        spent: Dict[str, int] = {}
+        t = [0.0]
+
+        def group_cb(g) -> None:
+            # runs while the plane's one-layer context still holds the
+            # group's layer
+            t[0] += self._group_prefill_time(g)
+            self.prefill_launches += 1
+            for rid in g.req_ids:
+                spent[rid] = spent.get(rid, 0) + g.segs[rid].chunk_len
+            kv_by_req = pp.read_group_kv(g, self.kv_mgr.ship)
+            self.kv_mgr.save_new_tokens_fused(g.layer, {
+                rid: (g.chunk_start, k, v)
+                for rid, (k, v) in kv_by_req.items()})
+            self.kv_mgr.flush_fused(g.layer, list(g.req_ids))
+            self._end_of_layer(g)
+
+        res = pp.run_iteration(self.params, allow, group_cb)
+        fp = self._prefill_epilogue(res, allow, spent, done)
+        return t[0], done, fp
 
     # ------------------------------------------------------------------
     # Mixed iteration (hybrid plane)
@@ -282,25 +557,11 @@ class ServingEngine:
         token-layer units, per-layer modelled prefill seconds)."""
         L = self.cfg.num_layers
         done: List[Request] = []
-        fp = 0
-        drop = self.eng.drop_evicted_device_blocks
         prefill_by_layer = [0.0] * L
         spent: Dict[str, int] = {}
         pplane = self.prefill_plane
 
-        # prefill job: admit new rows (one batched embed), grant budgets
-        pre_h = self._batched_admit_embed(
-            [self.states[req.req_id] for req, _ in plan.prefill_reqs
-             if req.req_id not in pplane.rows])
-        allow: Dict[str, int] = {}
-        for req, inject in plan.prefill_reqs:
-            st = self.states[req.req_id]
-            if req.scheduled_time is None:
-                req.scheduled_time = self.now
-            if req.req_id not in pplane.rows:
-                self._admit_prefill_plane(st, pre_h[req.req_id])
-            st.prefill_carry += max(int(inject), 1)
-            allow[req.req_id] = st.prefill_carry
+        allow = self._admit_prefill_plane(plan.prefill_reqs)
         prefill_jobs = [PrefillJob(pplane, allow)] if allow else []
 
         # decode job: the plane admits new rows and takes their state
@@ -313,6 +574,11 @@ class ServingEngine:
                 st.req.req_id: st.out_tokens[-1] for st in decode_sts}))
             pending_evict = {st.req.req_id: set() for st in decode_sts}
             sel_pairs = {st.req.req_id: [] for st in decode_sts}
+        entry: Dict[str, Any] = {
+            "layers": {}, "decode_planes": len(decode_jobs),
+            "decode_rows": len(plan.decode_reqs),
+            "prefill_rows": len(plan.prefill_reqs),
+            "groups": 0, "finalize": 0}
 
         worker = self._stage_worker() if self._stage_async else None
 
@@ -320,22 +586,16 @@ class ServingEngine:
             # every layer of a dense decoder is an attention layer, so the
             # KV manager's attention-layer ordinal is the model layer
             lidx = win.layer
+            lay_log = {"d2h": 0, "h2d": 0, "groups": len(win.groups),
+                       "decode": bool(win.selections)}
+            entry["layers"][win.layer] = lay_log
             for _, g in win.groups:
-                prefill_by_layer[win.layer] += cm.batched_prefill_time(
-                    self.hw, self.mc,
-                    [(g.segs[rid].chunk_len,
-                      g.chunk_start + g.segs[rid].chunk_len)
-                     for rid in g.req_ids], layers=1)
+                prefill_by_layer[win.layer] += self._group_prefill_time(g)
                 self.prefill_launches += 1
                 for rid in g.req_ids:
                     spent[rid] = spent.get(rid, 0) + g.segs[rid].chunk_len
             # 1. ONE merged fused FlashD2H: decode write-back + fresh
-            #    prefill-chunk KV of this layer; its copies to pinned host
-            #    memory are launched here, the save runs on the worker (the
-            #    KV manager's device_save, the int8 tier on the GPU: the
-            #    stripes stay on the device and the save runs here, its
-            #    kernels on the current stream ahead of this layer's
-            #    gather, in either stage_dispatch)
+            #    prefill-chunk KV of this layer
             ship = self.kv_mgr.ship
             parts = []
             if self.eng.decode_write_back:
@@ -347,53 +607,19 @@ class ServingEngine:
             finishers = [(g.chunk_start, pp.read_group_kv_async(g, ship))
                          for pp, g in win.groups]
             if parts or finishers:
-                if worker is not None and not self.kv_mgr.device_save:
-                    worker.submit(lidx, self._stage_writeback_merged, lidx,
-                                  parts, finishers)
-                else:
-                    self._stage_writeback_merged(lidx, parts, finishers)
-            # 2. LRU round, then at most ONE merged FlashH2D, restored into
-            #    the decode slots before the attention that selected them
-            rounds, merged_missing = self._account_selections(
-                lidx, win.selections, pending_evict, sel_pairs)
-            if merged_missing:
-                n_missing = sum(len(m) for m in merged_missing.values())
-                self._staged_layer_bytes[win.layer] = (
-                    self._staged_layer_bytes.get(win.layer, 0)
-                    + n_missing * self._offload_block_bytes)
-                if worker is not None:
-                    # restore-before-use fence: this layer's write-back
-                    # must be in DRAM before gathering from it
-                    worker.fence(lidx)
-                payloads = self.kv_mgr.load_blocks_fused(lidx,
-                                                         merged_missing)
-                if self.eng.decode_write_back:
-                    for d, _, missing_by_req in rounds:
-                        if missing_by_req:
-                            d.plane.restore_blocks_fused(
-                                win.layer,
-                                {rid: (missing_by_req[rid], k, v)
-                                 for rid, (k, v) in payloads.items()
-                                 if rid in missing_by_req},
-                                before_use=True)
-            # 3. deferred eviction drop (blocks the imminent attend
-            #    selected stay until the next stage boundary)
-            if drop:
-                for d, blocks_by_req, _ in rounds:
-                    self._drop_pending_evictions(
-                        d.plane, d.req_ids, pending_evict,
-                        protect=(lidx, blocks_by_req))
+                self._stage_writeback(worker, lidx, parts, finishers)
+                lay_log["d2h"] += 1
+            # 2.-3. LRU round, at most ONE merged FlashH2D restored before
+            #    use, the deferred eviction drop and the probe
+            lay_log["h2d"] += bool(self._stage_decode_layer(
+                worker, win.layer,
+                [(d.plane, {rid: sel[d.plane.rows[rid]]
+                            for rid in d.req_ids})
+                 for d, sel in win.selections if sel is not None],
+                pending_evict, sel_pairs))
             # 4. prefill end-of-layer: decode pool builds + HBM layer evict
-            for pp, g in win.groups:
-                for rid in g.req_ids:
-                    if not g.segs[rid].is_last_chunk_of_layer:
-                        continue
-                    st_r = self.states[rid]
-                    st_r.decode_state["caches"][g.layer] = \
-                        self._kv_to_layer_cache(st_r, pp.layer_ctx(rid))
-                    cache = self.kv_mgr.caches.get(rid)
-                    if cache is not None:
-                        cache.drop_layer(lidx)
+            for _, g in win.groups:
+                self._end_of_layer(g)
 
         res = self.hybrid.run_iteration(self.params, decode_jobs,
                                         prefill_jobs, layer_cb)
@@ -404,58 +630,38 @@ class ServingEngine:
 
         # decode epilogue
         for (dplane, logits, _info, _prev) in res.decode:
-            self.decode_step_calls += 1
-            self.decode_tokens += len(decode_sts)
-            if drop:
-                self._drop_pending_evictions(
-                    dplane, [st.req.req_id for st in decode_sts],
-                    pending_evict)
-            # a stream sync: the int8 save's kernels, which write the
-            # pinned pools in place, are done before any release drops one
-            host_logits = logits.float().cpu()
-            for st in decode_sts:
-                row = dplane.rows[st.req.req_id]
-                st.last_logits = host_logits[row:row + 1]
-                st.out_tokens.append(self._sample(st))
-                if sel_pairs[st.req.req_id]:
-                    self.scheduler.observe_selection(
-                        st.req, sel_pairs[st.req.req_id])
+            self._decode_epilogue(dplane, decode_sts, logits, pending_evict,
+                                  sel_pairs)
 
         # prefill epilogue
-        for pp, pres in res.prefill:
-            for rid in allow:
-                st_r = self.states[rid]
-                st_r.prefill_carry = max(
-                    0, st_r.prefill_carry - spent.get(rid, 0))
-                req = st_r.req
-                if not pp.done(rid):
-                    seg = pp.segments[rid][pp.next_idx[rid]]
-                    req.prefill_layer = seg.layer
-                    req.prefill_layer_tokens_done = min(
-                        seg.chunk_start, max(req.prompt_len - 1, 0))
-            for rid, peak in pres.peaks.items():
-                fp += hbm_footprint_tokens(
-                    pp.tok_len[rid], "layer_segmented", L,
-                    layer_tokens_resident=peak)
-            host_logits = (pres.logits.float().cpu() if pres.finished
-                           else None)
-            for rid in pres.finished:
-                st_r = self.states[rid]
-                row = pp.rows[rid]
-                st_r.last_logits = host_logits[row:row + 1]
-                st_r.decode_state["cur_len"] = torch.full(
-                    (1,), pp.tok_len[rid], dtype=torch.int32)
-                st_r.req.prefill_layer = L
-                st_r.req.prefill_layer_tokens_done = 0
-                pp.release(rid)
-                done.append(st_r.req)
+        fp = 0
+        for _, pres in res.prefill:
+            entry["groups"] += len(pres.groups)
+            entry["finalize"] += 1 if pres.finished else 0
+            fp += self._prefill_epilogue(pres, allow, spent, done)
         if not allow:
             # rows parked mid-layer still hold their chunk residency
-            for rid, resident in pplane.resident_tokens().items():
-                fp += hbm_footprint_tokens(
-                    pplane.tok_len[rid], "layer_segmented", L,
-                    layer_tokens_resident=resident)
+            fp += self._idle_prefill_footprint()
+        self.mixed_iter_log.append(entry)
         return done, fp, prefill_by_layer
+
+    # ------------------------------------------------------------------
+    # Host stage
+    # ------------------------------------------------------------------
+    def _stage_writeback(self, worker: Optional[HostStageWorker],
+                         lidx: int, parts: List[Tuple],
+                         finishers: List[Tuple]) -> None:
+        """Dispatch layer ``lidx``'s ONE fused FlashD2H (the reference's
+        ``_stage_writeback_async`` and its merged form): on ``worker``
+        when there is one and the save runs on the host, inline otherwise
+        (sync mode, and the int8 tier on the GPU, whose save kernels run
+        on the current stream).  Completion is fenced by ``fence(lidx)``
+        before a same-layer gather and ``drain()`` before sampling."""
+        if worker is not None and not self.kv_mgr.device_save:
+            worker.submit(lidx, self._stage_writeback_merged, lidx, parts,
+                          finishers)
+        else:
+            self._stage_writeback_merged(lidx, parts, finishers)
 
     def _stage_writeback_merged(self, lidx: int, parts: List[Tuple],
                                 finishers: List[Tuple]) -> None:
@@ -490,8 +696,74 @@ class ServingEngine:
             self.kv_mgr.save_new_tokens_fused(lidx, kv_merge)
             self.kv_mgr.flush_fused(lidx, list(kv_merge))
 
+    def _stage_decode_layer(self, worker: Optional[HostStageWorker],
+                            layer: int, selections: List[Tuple],
+                            pending_evict: Dict[str, set],
+                            sel_pairs: Dict[str, List[Tuple[int, int]]],
+                            fused: bool = False) -> int:
+        """The decode half of one layer's host stage, between its select
+        and attend: the LRU round for every (plane, {req_id: host
+        selection (Hkv, K)}), at most ONE merged FlashH2D of the misses
+        (behind ``worker.fence``: the layer's write-back must be in DRAM
+        first, as a 1-block LRU can miss on the block the token was just
+        appended to) restored into the slots BEFORE the attention, then the
+        deferred eviction drop and the ``staged_probe`` hook.  ``fused``:
+        the selections of a finished fused forward (``_account_selections``)
+        — the restores land AFTER it, on a plane of None they are
+        discarded, and drops and probe are the caller's.  Returns the
+        blocks loaded."""
+        lidx = layer
+        drop = self.eng.drop_evicted_device_blocks
+        merged_missing: Dict[str, List[int]] = {}
+        rounds = []
+        for plane, sel_by_req in selections:
+            blocks_by_req: Dict[str, List[int]] = {}
+            for rid, sel in sel_by_req.items():
+                blocks = dsa_mod.selected_block_ids(sel)
+                blocks_by_req[rid] = blocks
+                sel_pairs[rid].extend((lidx, x) for x in blocks)
+            missing_by_req, evicted_by_req = self.kv_mgr.access_layer(
+                lidx, blocks_by_req, drain_evicted=drop)
+            for rid, ev in evicted_by_req.items():
+                pending_evict[rid].update(ev)
+            merged_missing.update(missing_by_req)
+            rounds.append((plane, blocks_by_req, missing_by_req))
+        loads = sum(len(m) for m in merged_missing.values())
+        if merged_missing:
+            self._staged_layer_bytes[layer] = (
+                self._staged_layer_bytes.get(layer, 0)
+                + loads * self._offload_block_bytes)
+            if worker is not None:
+                worker.fence(lidx)
+            payloads = self.kv_mgr.load_blocks_fused(lidx, merged_missing)
+            if self.eng.decode_write_back:
+                for plane, _, missing_by_req in rounds:
+                    if plane is not None and missing_by_req:
+                        plane.restore_blocks_fused(
+                            layer, {rid: (missing_by_req[rid], k, v)
+                                    for rid, (k, v) in payloads.items()
+                                    if rid in missing_by_req},
+                            before_use=not fused)
+        if fused:
+            return loads
+        for plane, blocks_by_req, _ in rounds:
+            req_ids = list(blocks_by_req)
+            if drop:
+                # blocks the imminent attend selected stay until the next
+                # stage boundary
+                self._drop_pending_evictions(
+                    plane, req_ids, pending_evict,
+                    protect=(lidx, blocks_by_req))
+            if self.staged_probe is not None:
+                if worker is not None:
+                    worker.fence(lidx)   # probes compare device and host
+                self.staged_probe(self, plane, layer,
+                                  [self.states[r] for r in req_ids],
+                                  blocks_by_req)
+        return loads
+
     # ------------------------------------------------------------------
-    # Decode bookkeeping
+    # Decode
     # ------------------------------------------------------------------
     def _plane_for(self, sts: List[_ReqState]) -> DevicePoolPlane:
         """Admit any of ``sts`` not yet resident into the decode plane — the
@@ -512,30 +784,183 @@ class ServingEngine:
         p = np.exp(z) / np.exp(z).sum()
         return int(self.rng.choice(len(p), p=p))
 
-    def _account_selections(self, lidx: int, selections: List[Tuple],
-                            pending_evict: Dict[str, set],
-                            sel_pairs: Dict[str, List[Tuple[int, int]]]):
-        """One layer's DSA selections -> LRU residency and the working-set
-        history.  Returns (rounds [(decode run, blocks_by_req,
-        missing_by_req)], the misses of every plane merged by request)."""
-        merged_missing: Dict[str, List[int]] = {}
-        rounds = []
-        for d, sel in selections:
-            if sel is None:
-                continue
-            blocks_by_req: Dict[str, List[int]] = {}
-            for rid in d.req_ids:
-                blocks = dsa_mod.selected_block_ids(sel[d.plane.rows[rid]])
-                blocks_by_req[rid] = blocks
-                sel_pairs[rid].extend((lidx, x) for x in blocks)
-            missing_by_req, evicted_by_req = self.kv_mgr.access_layer(
-                lidx, blocks_by_req,
-                drain_evicted=self.eng.drop_evicted_device_blocks)
-            for rid, ev in evicted_by_req.items():
-                pending_evict[rid].update(ev)
-            merged_missing.update(missing_by_req)
-            rounds.append((d, blocks_by_req, missing_by_req))
-        return rounds, merged_missing
+    def _decode_epilogue(self, plane: DevicePoolPlane,
+                         sts: List[_ReqState], logits: torch.Tensor,
+                         pending_evict: Dict[str, set],
+                         sel_pairs: Dict[str, List[Tuple[int, int]]]
+                         ) -> None:
+        """After a step over ``plane`` (staged or persistent): the drops
+        deferred past their own attend, then sample each row (reading the
+        logits is a stream sync: the int8 save's kernels, which write the
+        pinned pools in place, are done before any release drops one) and
+        feed the working-set estimator."""
+        self.decode_step_calls += 1
+        self.decode_tokens += len(sts)
+        if self.eng.drop_evicted_device_blocks:
+            self._drop_pending_evictions(
+                plane, [st.req.req_id for st in sts], pending_evict)
+        host_logits = logits.float().cpu()
+        for st in sts:
+            row = plane.rows[st.req.req_id]
+            st.last_logits = host_logits[row:row + 1]
+            st.out_tokens.append(self._sample(st))
+        self._observe_selections(sts, sel_pairs)
+
+    def _observe_selections(self, sts: List[_ReqState],
+                            sel_pairs: Dict[str, List[Tuple[int, int]]]
+                            ) -> None:
+        """Feed each request's (layer, block) selections of the step to
+        the scheduler's working-set estimator."""
+        for st in sts:
+            if sel_pairs[st.req.req_id]:
+                self.scheduler.observe_selection(st.req,
+                                                 sel_pairs[st.req.req_id])
+
+    def _decode_batch_staged(self, sts: List[_ReqState]) -> None:
+        """The split path's decode: the staged per-layer pipeline over the
+        device plane (``DevicePoolPlane.step_staged``); between a layer's
+        select and attend the stage callback saves the layer's new KV (one
+        fused FlashD2H, on the worker in async mode) and runs the decode
+        host stage (``_stage_decode_layer``)."""
+        plane = self._plane_for(sts)
+        tok_by_req = {st.req.req_id: st.out_tokens[-1] for st in sts}
+        req_ids = list(tok_by_req)
+        sel_pairs: Dict[str, List[Tuple[int, int]]] = \
+            {rid: [] for rid in req_ids}
+        pending_evict: Dict[str, set] = {rid: set() for rid in req_ids}
+        worker = self._stage_worker() if self._stage_async else None
+
+        def stage_cb(layer: int, sel: Optional[np.ndarray],
+                     prev: Dict[str, int]) -> None:
+            if self.eng.decode_write_back:
+                pending = plane.new_token_kv_async(
+                    req_ids, prev, [layer], self.kv_mgr.ship)[layer]
+                self._stage_writeback(worker, layer,
+                                      [(req_ids, dict(prev), pending)], [])
+            if sel is not None:
+                self._stage_decode_layer(
+                    worker, layer,
+                    [(plane, {rid: sel[plane.rows[rid]]
+                              for rid in req_ids})],
+                    pending_evict, sel_pairs)
+
+        logits, _info, _prev = plane.step_staged(self.params, tok_by_req,
+                                                 stage_cb)
+        if worker is not None:
+            # iteration fence: every write-back has landed before sampling
+            # and before a release can retire a DRAM pool
+            worker.drain()
+        self._decode_epilogue(plane, sts, logits, pending_evict, sel_pairs)
+
+    def _decode_batch_persistent(self, sts: List[_ReqState]) -> int:
+        """The fused plane: ONE forward over the device plane's padded
+        rows (``DevicePoolPlane.step``), then the write-back of the step's
+        KV (one fused FlashD2H per layer), the selections' restores,
+        which land in the device slots AFTER the forward that selected
+        them, and the staged plane's epilogue.  Returns blocks loaded."""
+        plane = self._plane_for(sts)
+        tok_by_req = {st.req.req_id: st.out_tokens[-1] for st in sts}
+        logits, info, prev = plane.step(self.params, tok_by_req)
+        if self.eng.decode_write_back:
+            self._write_back_new_kv(plane, list(tok_by_req), prev)
+        loads, evicted, sel_pairs = self._account_selections(
+            sts, info["selected"], plane=plane)
+        self._decode_epilogue(plane, sts, logits, evicted, sel_pairs)
+        return loads
+
+    def _write_back_new_kv(self, plane: DevicePoolPlane, req_ids: List[str],
+                           prev: Dict[str, int]) -> None:
+        """FlashD2H decode save of the fused plane: the step's appended KV
+        of every layer, one fused save and flush per layer (in the int8
+        tier one ``quant_save_blocks`` call), keeping DRAM a superset of
+        device KV."""
+        payload = plane.new_token_kv(req_ids, prev,
+                                     list(range(self.cfg.num_layers)),
+                                     self.kv_mgr.ship)
+        for l, (k, v) in payload.items():
+            self.kv_mgr.save_new_tokens_fused(l, {
+                rid: (prev[rid], k[i][:, None, :], v[i][:, None, :])
+                for i, rid in enumerate(req_ids)})
+            self.kv_mgr.flush_fused(l, req_ids)
+
+    def _device_state(self, st: _ReqState) -> Dict:
+        """The request's own decode state with ``cur_len`` on the engine's
+        device (prefill leaves it on the host, where the plane's admission
+        reads it)."""
+        state = st.decode_state
+        if state["cur_len"].device != self.device:
+            state["cur_len"] = state["cur_len"].to(self.device)
+        return state
+
+    def _decode_batch(self, sts: List[_ReqState]) -> int:
+        """The ``"stacked"`` path: ONE batched forward over a padded pool
+        stacked from every request's own pools and unstacked after it, a
+        copy of every pool twice per step (the equivalence oracle of the
+        persistent plane).  Returns blocks loaded."""
+        toks = host_to_device([st.out_tokens[-1] for st in sts],
+                              self.device)
+        batched, layout = M.stack_decode_states(
+            [self._device_state(st) for st in sts])
+        self.stack_calls += 1
+        logits, new_state, info = M.decode_step(
+            self.params, self.cfg, toks, batched, return_info=True)
+        self.decode_step_calls += 1
+        self.decode_tokens += len(sts)
+        host_logits = logits.float().cpu()
+        for row, (st, ns) in enumerate(
+                zip(sts, M.unstack_decode_states(new_state, layout))):
+            st.decode_state = ns
+            st.last_logits = host_logits[row:row + 1]
+            st.out_tokens.append(self._sample(st))
+        loads, _, sel_pairs = self._account_selections(sts, info["selected"])
+        self._observe_selections(sts, sel_pairs)
+        return loads
+
+    def _decode_one(self, st: _ReqState) -> int:
+        """``batched_decode=False``: one B=1 forward over the request's own
+        pools, then its selections' accounting.  Returns blocks loaded."""
+        toks = host_to_device([st.out_tokens[-1]], self.device)
+        logits, new_state, info = M.decode_step(
+            self.params, self.cfg, toks, self._device_state(st),
+            return_info=True)
+        self.decode_step_calls += 1
+        self.decode_tokens += 1
+        st.decode_state = new_state
+        st.last_logits = logits.float().cpu()
+        st.out_tokens.append(self._sample(st))
+        loads, _, sel_pairs = self._account_selections([st],
+                                                       info["selected"])
+        self._observe_selections([st], sel_pairs)
+        return loads
+
+    def _account_selections(self, sts: List[_ReqState],
+                            selected: Dict[int, torch.Tensor],
+                            plane: Optional[DevicePoolPlane] = None
+                            ) -> Tuple[int, Dict[str, set],
+                                       Dict[str, List[Tuple[int, int]]]]:
+        """A fused forward's DSA selections, layer by layer, through the
+        host stage's decode half (``_stage_decode_layer``, ``fused``): LRU
+        residency and ONE fused FlashH2D load of each layer's misses.
+        ``selected[l]`` is (B, Hkv, K); batch row b is ``sts[b]`` unless
+        ``plane`` is given, whose rows it then follows and whose slots the
+        payloads land in (after the forward: the persistent plane).
+        Without a plane (the sequential and stacked paths) the payloads
+        are discarded, as the reference discards them: their pools never
+        lose a block.  Returns (blocks loaded, the evicted (layer, block)
+        keys and the (layer, block) selections, each by request)."""
+        sel_pairs: Dict[str, List[Tuple[int, int]]] = \
+            {st.req.req_id: [] for st in sts}
+        evicted: Dict[str, set] = {st.req.req_id: set() for st in sts}
+        loads = 0
+        rows = [b if plane is None else plane.rows[st.req.req_id]
+                for b, st in enumerate(sts)]
+        for l in sorted(selected):
+            sel = selected[l].cpu().numpy()
+            loads += self._stage_decode_layer(
+                None, l, [(plane, {st.req.req_id: sel[r]
+                                   for st, r in zip(sts, rows)})],
+                evicted, sel_pairs, fused=True)
+        return loads, evicted, sel_pairs
 
     def _drop_pending_evictions(self, plane: DevicePoolPlane,
                                 req_ids: List[str],
@@ -591,11 +1016,58 @@ class ServingEngine:
     # ------------------------------------------------------------------
     # Iteration
     # ------------------------------------------------------------------
+    def _legacy_or_chunked_prefill(self, prefill_reqs
+                                   ) -> Tuple[float, List[Request], int]:
+        """The per-request prefill executors: the legacy layer-segmented
+        loop (whole layers; the scheduler's token-layer cursor decides how
+        many run) or the chunked baseline.  Returns (modelled seconds,
+        finished requests, HBM footprint in token-layer units)."""
+        L = self.cfg.num_layers
+        t = 0.0
+        done: List[Request] = []
+        fp = 0
+        for req, inject in prefill_reqs:
+            st = self.states[req.req_id]
+            if req.scheduled_time is None:
+                req.scheduled_time = self.now
+            if self.eng.prefill_mode == "layer_segmented":
+                if st.lp is None:
+                    self._start_layer_segmented(st, req.prompt_len)
+                # advance the cursor by `inject` token-layers, at least one
+                # whole layer, then run segments to catch up with it
+                req.prefill_layer_tokens_done += max(inject, req.prompt_len)
+                while (req.prefill_layer_tokens_done >= req.prompt_len
+                       and req.prefill_layer < L):
+                    req.prefill_layer += 1
+                    req.prefill_layer_tokens_done -= req.prompt_len
+                finished = ran = False
+                while (st.lp is not None and not finished
+                       and st.lp.next_idx < req.prefill_layer):
+                    finished = self._run_layer_segment(st)
+                    ran = True
+                    t += cm.batched_prefill_time(
+                        self.hw, self.mc,
+                        [(req.prompt_len, req.prompt_len)], layers=1)
+                if ran:
+                    # the whole layer's KV is live while a segment runs
+                    fp += hbm_footprint_tokens(req.prompt_len,
+                                               "layer_segmented", L)
+            else:
+                finished = self._run_chunked_prefill(st, inject)
+                t += cm.prefill_time(self.hw, self.mc, inject,
+                                     req.prefill_tokens_done)
+                fp += hbm_footprint_tokens(req.prompt_len, "chunked", L,
+                                           req.prefill_tokens_done)
+            if finished:
+                done.append(req)
+        return t, done, fp
+
     def step(self) -> Optional[BatchPlan]:
         """Run ONE engine iteration.  Returns the executed plan, or None
         when no work remains.  Order: admit arrivals -> schedule
-        (Algorithm 1) -> mixed layer walk (prefill segments + staged
-        decode) -> sample -> finish/release -> charge time."""
+        (Algorithm 1) -> the mixed layer walk, or on the split path the
+        prefill executor then the decode path -> sample -> finish/release
+        -> charge time."""
         self._admit_arrivals()
         plan = self.scheduler.schedule()
         if not plan.decode_reqs and not plan.prefill_reqs:
@@ -605,8 +1077,29 @@ class ServingEngine:
             return None
         t0 = time.perf_counter()
         self._staged_layer_bytes = {}
-        prefill_done, iter_prefill_fp, prefill_by_layer = \
-            self._mixed_iteration(plan)
+        L = self.cfg.num_layers
+        mixed = self.hybrid is not None
+        iter_loads = 0
+        t_prefill = 0.0
+        prefill_by_layer: Optional[List[float]] = None
+        if mixed:
+            # decode sampling and the prefill epilogue ran inside
+            prefill_done, iter_prefill_fp, prefill_by_layer = \
+                self._mixed_iteration(plan)
+        elif self._plane_prefill:
+            t_prefill, prefill_done, iter_prefill_fp = \
+                self._prefill_plane_iteration(plan.prefill_reqs)
+        else:
+            t_prefill, prefill_done, iter_prefill_fp = \
+                self._legacy_or_chunked_prefill(plan.prefill_reqs)
+        # chunked prefill keeps every processed token's KV of all layers
+        # resident between iterations too: count unscheduled holders
+        scheduled = {req.req_id for req, _ in plan.prefill_reqs}
+        for st in self.states.values():
+            if st.chunk_ctx is not None and st.req.req_id not in scheduled:
+                iter_prefill_fp += hbm_footprint_tokens(
+                    st.req.prompt_len, "chunked", L,
+                    st.req.prefill_tokens_done)
         self.prefill_hbm_peak_tokens = max(self.prefill_hbm_peak_tokens,
                                            iter_prefill_fp)
         for req in prefill_done:
@@ -617,6 +1110,19 @@ class ServingEngine:
             req.generated = 1
             req.first_token_time = self.now   # stamped below
             req.token_times.append(self.now)
+
+        decode_sts = [self.states[req.req_id] for req in plan.decode_reqs]
+        if mixed or not decode_sts:
+            pass
+        elif not self.eng.batched_decode:
+            for st in decode_sts:
+                iter_loads += self._decode_one(st)
+        elif self.eng.decode_plane == "staged":
+            self._decode_batch_staged(decode_sts)
+        elif self.eng.decode_plane == "persistent":
+            iter_loads += self._decode_batch_persistent(decode_sts)
+        else:
+            iter_loads += self._decode_batch(decode_sts)
         for req in plan.decode_reqs:
             req.generated += 1
             req.token_times.append(self.now)
@@ -634,11 +1140,28 @@ class ServingEngine:
         else:
             attended = (min(self.cfg.dsa.token_budget, 1 << 30)
                         if self.cfg.dsa.enabled else 4096)
-            t_iter = cm.mixed_iteration_time(
-                self.hw, self.mc, len(plan.decode_reqs), attended,
-                [self._staged_layer_bytes.get(l, 0)
-                 for l in range(self.cfg.num_layers)],
-                prefill_time_by_layer=prefill_by_layer)
+            staged_bytes = [self._staged_layer_bytes.get(l, 0)
+                            for l in range(L)]
+            n_dec = len(plan.decode_reqs)
+            if mixed:
+                # one shared walk: per layer, the union of decode and
+                # prefill compute overlaps the ONE fused transfer stage
+                t_iter = cm.mixed_iteration_time(
+                    self.hw, self.mc, n_dec, attended, staged_bytes,
+                    prefill_time_by_layer=prefill_by_layer)
+            elif (n_dec and self.eng.batched_decode
+                    and self.eng.decode_plane == "staged"):
+                # staged pipeline: per layer, restores overlap compute
+                t_iter = cm.overlapped_decode_time(
+                    self.hw, self.mc, n_dec, attended,
+                    staged_bytes) + t_prefill
+            else:
+                t_dec = (cm.decode_time(self.hw, self.mc, n_dec, attended)
+                         if n_dec else 0.0)
+                t_load = (cm.fused_transfer_time(
+                    self.hw, iter_loads * self._offload_block_bytes)
+                    if iter_loads else 0.0)
+                t_iter = t_dec + t_load + t_prefill
         self.now += max(t_iter, 1e-9)
         # stamp the times produced "at end of iteration"
         for req in plan.decode_reqs + [r for r, _ in plan.prefill_reqs]:
@@ -690,6 +1213,7 @@ class ServingEngine:
             "engine.now_s": float(self.now),
             "engine.decode_step_calls": float(self.decode_step_calls),
             "engine.decode_tokens": float(self.decode_tokens),
+            "engine.stack_calls": float(self.stack_calls),
             "engine.prefill_launches": float(self.prefill_launches),
             "engine.admit_embed_launches": float(self.admit_embed_launches),
             "engine.prefill_hbm_peak_tokens":

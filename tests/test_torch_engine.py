@@ -107,11 +107,44 @@ def test_async_equals_sync(arch, setups):
     assert e_a.worker_jobs_run > 0 and e_s.worker_jobs_run == 0
 
 
-@pytest.mark.parametrize("field,value", [
+ORACLE_OPTIONS = [
     ("decode_plane", "persistent"), ("decode_plane", "stacked"),
     ("hybrid_plane", "split"), ("prefill_exec", "legacy"),
-    ("prefill_mode", "chunked"), ("mesh_spec", "model=2"), ("obs", True),
-    ("batched_decode", False)])
+    ("prefill_mode", "chunked"), ("batched_decode", False)]
+
+
+@pytest.mark.parametrize("field,value", ORACLE_OPTIONS)
+def test_oracle_options_resolve_as_reference(field, value, setups):
+    """Each oracle option resolves its hybrid plane and its drop of
+    evicted device blocks as the reference engine does, into a copy of
+    the config; an explicit drop raises ValueError on both sides exactly
+    where there is no device plane to act on."""
+    jc, tc, jp, tp = setups("qwen2-0.5b")
+    cfg = EngineConfig(**{field: value})
+    eng = ServingEngine(tp, tc, cfg)
+    j_eng = JEngine(jp, jc, JEngineConfig(**{field: value}))
+    assert eng.eng.hybrid_plane == j_eng.eng.hybrid_plane == "split"
+    assert eng.hybrid is None
+    assert (eng.eng.drop_evicted_device_blocks
+            == j_eng.eng.drop_evicted_device_blocks)
+    assert cfg == EngineConfig(**{field: value})    # the caller's, as given
+    raised = []
+    for engine_cls, config_cls, params, c in (
+            (ServingEngine, EngineConfig, tp, tc),
+            (JEngine, JEngineConfig, jp, jc)):
+        try:
+            engine_cls(params, c, config_cls(
+                **{field: value}, drop_evicted_device_blocks=True))
+            raised.append(False)
+        except ValueError:
+            raised.append(True)
+    assert raised[0] == raised[1]
+    assert raised[0] == (field == "batched_decode"
+                         or value == "stacked")
+
+
+@pytest.mark.parametrize("field,value", [
+    ("mesh_spec", "model=2"), ("obs", True)])
 def test_unported_options_raise(field, value, setups):
     _, tc, _, tp = setups("qwen2-0.5b")
     with pytest.raises(NotImplementedError):
