@@ -2,7 +2,7 @@
 """GPU smoke test of the PyTorch port (``src/repro_torch``).
 
     python3 chip_smoke.py [--seed 0]
-        [--phases build,parity,transfer,serve,serve_int8,oracles,async]
+        [--phases build,parity,transfer,serve,serve_int8,oracles,models,async]
 
 Run from the repository root on a machine with one NVIDIA H100.  Phases,
 each printing one line (``phase=...``) and failing the run on any error:
@@ -48,10 +48,18 @@ each printing one line (``phase=...``) and failing the run on any error:
    4 requests (decode tokens, fresh blocks, a prefill stripe of whole
    blocks, a stripe over three blocks, two stripes on one block), and two
    planted faults (the stripe written one token late; the scale taken
-   before the overlay) must fail it.  A move from or to pinned memory is
-   also bounded by the PCIe link: a contiguous pinned-to-device copy of
-   the same bytes is timed beside it (device-to-pinned for a write back
-   or a save).
+   before the overlay) must fail it.  The decode kernels also at the
+   shapes they take since they serve any GQA group and more than 4096
+   blocks: sparse_decode_attention and score_select at granite-20b's
+   group (Hq 48 over one kv head, D 128, B 4: three group tiles of 16
+   rows), the attention with two more planted faults (the last group
+   tile reading each query row one row late; its rows left unwritten),
+   and score_select at llama3-8b's heads with NB 4097 and 8193, each with
+   its two planted faults.  score_select's lines also time the unfused
+   pair it replaces (block_score's kernel, then the plain select).  A
+   move from or to pinned memory is also bounded by the PCIe link: a
+   contiguous pinned-to-device copy of the same bytes is timed beside it
+   (device-to-pinned for a write back or a save).
 3. transfer — the flat FlashH2D gather (gather_blocks) and FlashD2H
    scatter (scatter_blocks) at benchmarks/bench_transfer.py's shape, a
    (512, 32, 128) float32 pool and 64 distinct ids: driven once from and
@@ -104,10 +112,33 @@ each printing one line (``phase=...``) and failing the run on any error:
    logits at the first step where they differ (ORACLE_PATHS,
    ORACLE_REL_L2).  Its launch counts join the kernels' JSON record
    (``launches_by_path``).
-8. async  — the same submissions at full width and 4 layers with
+8. models — the paper's models and workload at full width, bf16 random
+   weights from --seed, the default EngineConfig with wall-clock
+   charging, smallest weights first, each engine and its weights freed
+   before the next (MODEL_RUNS): qwen2.5-3b, lwm-7b and granite-20b on
+   the port's LongBench-shaped trace (generate_trace, 2.0 req/s, 4
+   requests, prompts capped at 32768, 4096 and 8192, 32 new tokens), and
+   llama3-8b with one 131,072-token prompt, 8 new tokens, on the int8
+   tier.  Algorithm 1's HBM budget stays the default 1 GiB unless the
+   largest working set one request can claim exceeds it (lwm-7b,
+   llama3-8b); then it is the device memory left after the weights.
+   Asserts that every request was admitted and finished with finite
+   logits, that every kernel of each config's path launched, and that at
+   least one trace-driven config ran an iteration with prefill and
+   decode rows together (the engine's mixed_iter_log).  Prints per
+   config TTFT, mean and p99 TBT, tok/s, iterations and mixed ones, peak
+   device memory, pinned host bytes, the HBM budget and launches by
+   kernel, with the card's name and power limit.  One launch of each
+   kernel at a shape only these configs give is kept and replayed, with
+   the weights freed, against its plain version (phase_mainpath):
+   sparse_decode_attention and score_select at NB 4104 (llama3-8b) and
+   G 48 (granite-20b), flash_prefill at D 128 over 32 kv heads (lwm-7b)
+   and one (granite-20b).  Its launch counts join the kernels' JSON
+   record.
+9. async  — the same submissions at full width and 4 layers with
    stage_dispatch "async" and "sync", fp and int8: greedy tokens and
    transfer counters must be identical.
-9. profile, profile_int8 (only when named in --phases) — the serve
+10. profile, profile_int8 (only when named in --phases) — the serve
    (serve_int8) run again under torch.profiler: device busy time, idle
    share, the count of device operations (kernels, copies, memsets),
    largest device consumers, and the port's kernels (``port_kernel=``
@@ -134,7 +165,7 @@ REPO = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM HBM3 (data sheet)
 BF16_OPS_PER_S = 989e12              # H100 SXM dense bf16 tensor peak
 PHASES = ("build", "parity", "transfer", "serve", "serve_int8", "oracles",
-          "async")
+          "models", "async")
 
 KERNELS = {   # name -> (source in this repo, the TPU kernel it replaces)
     "sparse_decode_attention": (
@@ -216,6 +247,11 @@ NO_LIBRARY = {
 SHAPES = {"qwen2-0.5b": dict(Hq=14, Hkv=2, D=64),
           "llama3-8b": dict(Hq=32, Hkv=8, D=128)}
 B, BS, K, NB = 8, 32, 64, 256
+# the decode kernels at a GQA group of several tiles (granite-20b: 48
+# query heads over one kv head), and score_select past 4096 blocks
+# (llama3-8b's heads; 8193 blocks hold its 262,144-token context)
+GROUP_SHAPE = dict(arch="granite-20b", Hq=48, Hkv=1, D=128)
+GROUP_B, LONG_B, LONG_NB = 4, 2, (4097, 8193)
 ATTN_ATOL, ATTN_RTOL = 2e-3, 1e-2
 # flash_prefill, per output element: FLASH_WEIGHT_TOL * W + FLASH_RTOL *
 # |ref|, W = sum_j p_j |v_j| / sum_j p_j (the plain version run on |v|)
@@ -274,6 +310,23 @@ POOL_PATHS = ("mixed", "split", "legacy", "chunked")
 # give a relative error of about sqrt(48) * 2^-8 = 0.027 on the last hidden
 # state, under 2^-5; the lm head adds one more rounding of 2^-8.
 ORACLE_REL_L2 = 2.0 ** -5
+# the models phase, smallest weights first: arch -> (offload tier, trace
+# (requests, max_prompt_len, max_new_tokens) from the port's
+# generate_trace at MODEL_RATE req/s, or None for one request of
+# LONG_PROMPT tokens arriving at 0.0, the kernels whose launches are kept
+# for phase_mainpath at the shapes only that config gives them: the
+# decode kernels at NB > 4096 (llama3-8b) and at G = 48 (granite-20b),
+# flash_prefill at D 128 with 32 kv heads (lwm-7b) and one (granite-20b))
+MODEL_RUNS = {
+    "qwen2.5-3b": ("none", (4, 32768, 32), ()),
+    "lwm-7b": ("none", (4, 4096, 32), ("flash_prefill",)),
+    "llama3-8b": ("int8", None, ("sparse_decode_attention",
+                                 "score_select")),
+    "granite-20b": ("none", (4, 8192, 32), (
+        "sparse_decode_attention", "score_select", "flash_prefill")),
+}
+MODEL_RATE = 2.0
+LONG_PROMPT, LONG_NEW = 131072, 8
 # benchmarks/bench_transfer.py's real_gather_microbench: a (512, 32, 128)
 # float32 pool, 64 distinct block ids
 XFER_NB, XFER_BS, XFER_D, XFER_K = 512, 32, 128, 64
@@ -403,7 +456,9 @@ def select_agrees(torch, got, want, s_ref) -> tuple:
 
 def case_select(torch, ops, ref, q, meta, cur_len, **kw):
     """score_select against its plain version (block_score, then the
-    select over cur_len + 1 tokens), held tie-aware."""
+    select over cur_len + 1 tokens), held tie-aware.  Its last field is
+    the unfused pair it replaces, block_score's kernel then the plain
+    select (torch.topk), timed beside it by run_case."""
     got = ops.score_select(q, meta, cur_len, **kw)
     want = ref.score_select(q, meta, cur_len, **kw)
     s_ref = _select_scores(ref, q, meta, cur_len, kw)
@@ -412,13 +467,19 @@ def case_select(torch, ops, ref, q, meta, cur_len, **kw):
     B, Hq, D = q.shape
     _, Hkv, NB, _, _ = meta.shape
     K = got[0].shape[-1]
+    sel = dict(kw)
+    del sel["block_size"]
+
+    def unfused():
+        return ref.select_blocks(ops.block_score(q, meta), cur_len + 1,
+                                 block_size=kw["block_size"], **sel)
     return (err, ok, lambda: ops.score_select(q, meta, cur_len, **kw),
             lambda: ref.score_select(q, meta, cur_len, **kw),
             q.numel() * 2 + meta.numel() * 4 + B * 4 + B * Hkv * K * 5,
             B * Hkv * NB * (Hq // Hkv) * 4 * D,
             f"B={B} Hq={Hq} Hkv={Hkv} NB={NB} D={D} K={K} "
             f"bs={kw['block_size']} sink={kw['sink_blocks']} "
-            f"recent={kw['recent_blocks']}")
+            f"recent={kw['recent_blocks']}", None, None, unfused)
 
 
 def _select_scores(ref, q, meta, cur_len, kw):
@@ -828,18 +889,24 @@ def run_case(phase: str, label: str, name: str, case: tuple,
     err, ok, kfn, pfn, nbytes, nops, shape, *extra = case
     lib_fn = extra[0] if extra else None
     link = extra[1] if len(extra) > 1 else None
+    unfused = extra[2] if len(extra) > 2 else None
     k_ms, p_ms = timer(kfn), timer(pfn)
     lib_ms = timer(lib_fn) if lib_fn is not None else None
     b_ms, b_by = bound_ms(nbytes, nops)
     res = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
            "shape": shape}
+    if unfused is not None:
+        res["unfused_ms"] = timer(unfused)
     line = (f"phase={phase} {label} kernel={name} ok={ok} "
             f"max_abs_err={err:.3e} kernel_ms={k_ms:.4f} "
             f"plain_ms={p_ms:.4f} library_ms="
             + (f"{lib_ms:.4f}" if lib_ms is not None
                else f"None({NO_LIBRARY.get(name, 'no single call')})")
             + f" bound_ms={b_ms:.4f} bound_by={b_by}")
+    if unfused is not None:
+        line += (f" unfused_ms={res['unfused_ms']:.4f} (block_score kernel, "
+                 f"then the plain select)")
     if link is not None:
         res["link_bound_ms"] = timer(link_copy(timer.torch, *link))
         res["binds"] = "link" if res["link_bound_ms"] > b_ms else "hbm"
@@ -945,8 +1012,9 @@ def flash_faults(torch, ops, ref, q, k, v, scale, q_offset, label) -> None:
 
 
 def phase_parity(torch, ops, ref, timer, seed: int) -> dict:
-    """Each kernel against its plain version at both shape sets; returns
-    {kernel: {case label: result}}."""
+    """Each kernel against its plain version at both shape sets, and the
+    decode kernels at the shapes of parity_new_shapes; returns {kernel:
+    {case label: result}}."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     bf = torch.bfloat16
@@ -957,42 +1025,18 @@ def phase_parity(torch, ops, ref, timer, seed: int) -> dict:
         def randn(*shape, dtype=bf):
             return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-        # sparse_decode_attention: random selections, about 60% of them
-        # skipped (invalid or past cur_len), plus the two blocks holding
-        # the last bs positions before cur_len, which DSA always selects
-        q = randn(B, Hq, D)
-        k_pool, v_pool = randn(B, Hkv, NB, BS, D), randn(B, Hkv, NB, BS, D)
-        cur_len = torch.randint(K * BS // 2, NB * BS + 1, (B,),
-                                generator=gen, device=dev,
-                                dtype=torch.int32)
-        pick = torch.rand((B, Hkv, NB), generator=gen, device=dev)
-        last = ((cur_len.long() - 1) // BS)[:, None, None]
-        pick.scatter_(2, last.expand(B, Hkv, 1), 3.0)
-        pick.scatter_(2, (last - 1).expand(B, Hkv, 1), 2.0)
-        idx = pick.argsort(dim=-1, descending=True)[..., :K].to(
-            torch.int32).contiguous()
-        valid = torch.rand((B, Hkv, K), generator=gen, device=dev) > 0.1
-        valid[..., :2] = True
-        valid[0, 0] = False                  # a row with no valid position
-        attn = (q, k_pool, v_pool, idx, valid, cur_len)
+        attn = _attention_inputs(torch, gen, B, Hq, Hkv, D, NB)
+        q, cur_len = attn[0], attn[-1]
         cases = [("sparse_decode_attention", "",
                   case_attention(torch, ops, ref, *attn))]
         planted_faults(torch, ops, ref, *attn, arch)
 
-        # block_score (meta in the pool's interleaved layout)
-        mn = randn(B, Hkv, NB, D, dtype=torch.float32)
-        mx = mn + torch.rand((B, Hkv, NB, D), generator=gen, device=dev)
-        meta = torch.stack([mn, mx], dim=3).contiguous()
+        # block_score (meta in the pool's interleaved layout), then
+        # score_select on the same q, ties planted
+        meta, tie_meta, sel_len = _select_inputs(torch, gen, cur_len, Hkv,
+                                                 D, NB)
         cases.append(("block_score", "", case_score(torch, ops, ref, q,
                                                      meta)))
-
-        # score_select on the same q and meta, the serve's DSA settings;
-        # blocks 5-8 tie with block 4; row 1's cur_len at a block edge,
-        # so the step's +1 opens a new block
-        mn[:, :, 5:9], mx[:, :, 5:9] = mn[:, :, 4:5], mx[:, :, 4:5]
-        tie_meta = torch.stack([mn, mx], dim=3).contiguous()
-        sel_len = cur_len.clone()
-        sel_len[1] = (NB // 2) * BS
         kw = dict(block_size=BS, top_k=K, sink_blocks=1, recent_blocks=2)
         cases.append(("score_select", "", case_select(
             torch, ops, ref, q, tie_meta, sel_len, **kw)))
@@ -1084,7 +1128,127 @@ def phase_parity(torch, ops, ref, timer, seed: int) -> dict:
             label = f"arch={arch} {mode}".strip()
             results.setdefault(name, {})[label] = run_case(
                 "parity", label, name, case, timer)
+    for name, label, case in parity_new_shapes(torch, ops, ref, gen):
+        results.setdefault(name, {})[label] = run_case(
+            "parity", label, name, case, timer)
     return results
+
+
+def _attention_inputs(torch, gen, Bn: int, Hq: int, Hkv: int, D: int,
+                      nb: int) -> tuple:
+    """sparse_decode_attention's inputs: random selections, about 60% of
+    them skipped (invalid or past cur_len), plus the two blocks holding
+    the last BS positions before cur_len, which DSA always selects, and a
+    row (request 0, kv-head 0) with no valid position."""
+    dev = torch.device("cuda")
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).bfloat16()
+    q = randn(Bn, Hq, D)
+    k_pool, v_pool = randn(Bn, Hkv, nb, BS, D), randn(Bn, Hkv, nb, BS, D)
+    cur_len = torch.randint(K * BS // 2, nb * BS + 1, (Bn,), generator=gen,
+                            device=dev, dtype=torch.int32)
+    pick = torch.rand((Bn, Hkv, nb), generator=gen, device=dev)
+    last = ((cur_len.long() - 1) // BS)[:, None, None]
+    pick.scatter_(2, last.expand(Bn, Hkv, 1), 3.0)
+    pick.scatter_(2, (last - 1).expand(Bn, Hkv, 1), 2.0)
+    idx = pick.argsort(dim=-1, descending=True)[..., :K].to(
+        torch.int32).contiguous()
+    valid = torch.rand((Bn, Hkv, K), generator=gen, device=dev) > 0.1
+    valid[..., :2] = True
+    valid[0, 0] = False                  # a row with no valid position
+    return q, k_pool, v_pool, idx, valid, cur_len
+
+
+def _select_inputs(torch, gen, cur_len, Hkv: int, D: int, nb: int) -> tuple:
+    """(meta, tie_meta, sel_len): block metadata in the pool's
+    interleaved layout; the same with blocks 5-8 tied with block 4; and
+    cur_len with request 1's at a block edge, so the step's +1 opens a
+    new block."""
+    dev = torch.device("cuda")
+    Bn = cur_len.shape[0]
+    mn = torch.randn((Bn, Hkv, nb, D), generator=gen, device=dev)
+    mx = mn + torch.rand((Bn, Hkv, nb, D), generator=gen, device=dev)
+    meta = torch.stack([mn, mx], dim=3).contiguous()
+    mn[:, :, 5:9], mx[:, :, 5:9] = mn[:, :, 4:5], mx[:, :, 4:5]
+    tie_meta = torch.stack([mn, mx], dim=3).contiguous()
+    sel_len = cur_len.clone()
+    sel_len[min(1, Bn - 1)] = (nb // 2) * BS
+    return meta, tie_meta, sel_len
+
+
+def group_faults(torch, ops, ref, q, k_pool, v_pool, idx, valid, cur_len,
+                 arch: str) -> None:
+    """At a GQA group of several tiles, the attention tolerance must
+    reject a kernel whose last group tile reads each query row one row
+    late, or leaves that tile's rows unwritten (zero): the first runs
+    through the kernel on q with those rows shifted, the second is the
+    kernel's output with those rows cleared; both are held against the
+    plain version on the true inputs."""
+    want = ref.sparse_decode_attention(q, k_pool, v_pool, idx, valid,
+                                       cur_len)
+    Bn, Hq, D = q.shape
+    Hkv = k_pool.shape[1]
+    G = Hq // Hkv
+    g0 = (ops.decode_group_tiles(G) - 1) * ops.DECODE_TILE_G
+    assert g0 > 0 and G - g0 >= 2, "needs a last tile of two rows or more"
+    late = q.view(Bn, Hkv, G, D).clone()
+    late[:, :, g0:G - 1] = q.view(Bn, Hkv, G, D)[:, :, g0 + 1:]
+    rest = (k_pool, v_pool, idx, valid, cur_len)
+    cleared = ops.sparse_decode_attention(q, *rest).view(Bn, Hkv, G, -1)
+    cleared[:, :, g0:] = 0
+    for label, out in (
+            ("last_tile_rows_one_late", ops.sparse_decode_attention(
+                late.view(Bn, Hq, D), *rest)),
+            ("last_tile_unwritten", cleared.view(Bn, Hq, -1))):
+        err, ok = _attn_close(out, want)
+        log(f"phase=parity arch={arch} planted_fault={label} "
+            f"max_abs_err={err:.3e} rejected={not ok}")
+        if ok:
+            raise AssertionError(f"planted fault {label} passed the "
+                                 f"attention tolerance at {arch} shapes")
+
+
+def parity_new_shapes(torch, ops, ref, gen) -> list:
+    """The shapes the decode kernels take since they serve any GQA group
+    and more than 4096 blocks: sparse_decode_attention and score_select at
+    granite-20b's group (48 query heads over one kv head, D 128; three
+    group tiles), with the attention's four planted faults and the
+    select's two; score_select at llama3-8b's heads at NB 4097 and 8193
+    (the radix-select path; 8193 blocks hold its config's 262,144-token
+    context) with its two planted faults.  Returns (kernel, label, case)
+    triples for run_case."""
+    sh = GROUP_SHAPE
+    out = []
+    attn = _attention_inputs(torch, gen, GROUP_B, sh["Hq"], sh["Hkv"],
+                             sh["D"], NB)
+    label = f"arch={sh['arch']}"
+    out.append(("sparse_decode_attention", label,
+                case_attention(torch, ops, ref, *attn)))
+    planted_faults(torch, ops, ref, *attn, sh["arch"])
+    group_faults(torch, ops, ref, *attn, sh["arch"])
+    kw = dict(block_size=BS, top_k=K, sink_blocks=1, recent_blocks=2)
+    _, tie_meta, sel_len = _select_inputs(torch, gen, attn[-1], sh["Hkv"],
+                                          sh["D"], NB)
+    out.append(("score_select", label, case_select(
+        torch, ops, ref, attn[0], tie_meta, sel_len, **kw)))
+    select_faults(torch, ops, ref, attn[0], tie_meta, sel_len, kw,
+                  sh["arch"])
+    ll = SHAPES["llama3-8b"]
+    for nb in LONG_NB:
+        q = torch.randn((LONG_B, ll["Hq"], ll["D"]), generator=gen,
+                        device="cuda").bfloat16()
+        cur_len = torch.randint(nb * BS // 2, nb * BS, (LONG_B,),
+                                generator=gen, device="cuda",
+                                dtype=torch.int32)
+        _, tie_meta, sel_len = _select_inputs(torch, gen, cur_len,
+                                              ll["Hkv"], ll["D"], nb)
+        label = f"arch=llama3-8b nb={nb}"
+        out.append(("score_select", label, case_select(
+            torch, ops, ref, q, tie_meta, sel_len, **kw)))
+        select_faults(torch, ops, ref, q, tie_meta, sel_len, kw,
+                      f"llama3-8b nb={nb}")
+    return out
 
 
 def case_flat_gather(torch, ops, ref, pool, idx, lib_pool):
@@ -1403,8 +1567,8 @@ def kernel_records(parity: dict, mainpath: dict, counts: dict) -> list:
                                  for path, c in counts.items()},
             "cases": {label: {k: r[k] for k in (
                 "shape", "ms", "plain_ms", "bound_ms", "library_ms",
-                "link_bound_ms", "binds", "per_block_copies_ms",
-                "launches") if k in r}
+                "unfused_ms", "link_bound_ms", "binds",
+                "per_block_copies_ms", "launches") if k in r}
                 for label, r in cases.items()}}
         for key in ("link_bound_ms", "per_block_copies_ms"):
             if key in lead:
@@ -1875,7 +2039,7 @@ def _pinned_check(torch, np, ops, params, cfg, seed: int) -> None:
     splits = ops.decode_splits
     pinned = splits(SERVE_REQUESTS, cfg.num_kv_heads, cfg.dsa.top_k_blocks,
                     torch.cuda.get_device_properties(0).multi_processor_count)
-    ops.decode_splits = lambda B, Hkv, K, sms: pinned
+    ops.decode_splits = lambda B, Hkv, K, sms, tiles=1: pinned
     try:
         want = None
         for path in ("mixed",) + FORCED_PATHS:
@@ -2014,12 +2178,193 @@ def phase_oracles(torch, np, ops, seed: int) -> tuple:
     return counts, caps
 
 
+def _card() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return (smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+            else f"nvidia-smi failed: {smi.stderr.strip()}")
+
+
+def _free_memory(torch) -> None:
+    """Return what the last engine held: device memory to the card, and
+    the pinned host pools cached by PyTorch's host allocator (where the
+    build has the call) to the host."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    getattr(torch._C, "_host_emptyCache", lambda: None)()
+
+
+def _model_submissions(np, Request, cfg, arch: str, seed: int) -> list:
+    """(Request, prompt token ids) of the models phase for ``arch``: the
+    port's LongBench-shaped trace (MODEL_RATE req/s, Poisson arrivals, the
+    config's caps), or the one long request at arrival 0.0."""
+    from repro_torch.serving.trace import TraceConfig, generate_trace
+    spec = MODEL_RUNS[arch][1]
+    if spec is None:
+        reqs = [Request(prompt_len=LONG_PROMPT, max_new_tokens=LONG_NEW,
+                        arrival_time=0.0)]
+    else:
+        n, cap, new = spec
+        reqs = generate_trace(TraceConfig(
+            request_rate=MODEL_RATE, num_requests=n, max_prompt_len=cap,
+            max_new_tokens=new, seed=seed))
+    rng = np.random.default_rng(seed)
+    return [(r, rng.integers(4, cfg.vocab_size, r.prompt_len)
+             .astype(np.int32)) for r in reqs]
+
+
+def _hbm_budget(torch, cfg, subs, default: int) -> tuple:
+    """Algorithm 1's HBM budget for one config: the default unless the
+    largest working set one request can claim exceeds it: its
+    layer-segmented prefill (one layer of its prompt) or a decode window's
+    union (the scheduler's 12 steps of top-k blocks, at most every block,
+    in every layer), bf16 K and V.  Then a request the default could
+    never admit gets the device memory left after the weights.  Returns
+    (budget, that largest working set)."""
+    bs, D, Hkv = cfg.dsa.block_size, cfg.head_dim, cfg.num_kv_heads
+    per_block_layer = bs * D * 2 * 2 * Hkv
+    worst = 0
+    for r, _ in subs:
+        nb = -(-(r.prompt_len + r.max_new_tokens) // bs) + 1
+        worst = max(worst, r.prompt_len * D * 2 * 2 * Hkv,
+                    min(nb, 12 * cfg.dsa.top_k_blocks) * cfg.num_layers
+                    * per_block_layer)
+    if worst <= default:
+        return default, worst
+    return int(torch.cuda.mem_get_info()[0]), worst
+
+
+def _serve_model(torch, np, ops, arch: str, seed: int, caps: dict) -> dict:
+    """One models-phase serve of ``arch`` at full width (MODEL_RUNS),
+    bf16 random weights from ``seed``, the default EngineConfig with
+    wall-clock charging (the budget of _hbm_budget where the default
+    cannot admit a request), the launch counts set to 0 just before the
+    run and read just after.  Asserts that every request was admitted and
+    finished with finite logits and that every kernel of the config's
+    path launched; keeps one launch of each MODEL_RUNS kernel for
+    phase_mainpath (into ``caps``).  Returns a summary."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    from repro_torch.serving.request import Request
+    tier, spec, keep = MODEL_RUNS[arch]
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device="cuda")
+                           .manual_seed(seed), torch.bfloat16, "cuda")
+    torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated()
+    subs = _model_submissions(np, Request, cfg, arch, seed)
+    default = EngineConfig().hbm_budget_bytes
+    budget, worst = _hbm_budget(torch, cfg, subs, default)
+    eng = ServingEngine(params, cfg, EngineConfig(
+        seed=seed, charge_real_time=True, offload_quant=tier,
+        hbm_budget_bytes=budget))
+    for r, toks in subs:
+        eng.submit(r, tokens=toks)
+    pinned = sum(t.numel() * t.element_size()
+                 for pool in eng.kv_mgr.pools.values()
+                 for t in (pool.k, pool.v, pool.k_scale, pool.v_scale)
+                 if t is not None)
+    setup_s = time.perf_counter() - t0
+    new = max(r.max_new_tokens for r, _ in subs)
+    cap = MainPathCapture(torch, ops, cfg.num_layers * (new // 2),
+                          keep=set(keep), layers=cfg.num_layers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.launches.reset()
+    t0 = time.perf_counter()
+    with cap:
+        m = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launches.snapshot()
+    peak = torch.cuda.max_memory_allocated()
+    unfinished = [r.req_id for r, _ in subs if r.finish_time is None]
+    if unfinished:
+        raise AssertionError(f"models: {arch}: requests never admitted or "
+                             f"not finished: {unfinished} (HBM budget "
+                             f"{budget}, largest working set {worst})")
+    for r, _ in subs:
+        st = eng.states[r.req_id]
+        if (len(st.out_tokens) != r.max_new_tokens
+                or not bool(torch.isfinite(st.last_logits).all())):
+            raise AssertionError(f"models: {arch}: {r.req_id} gave "
+                                 f"{len(st.out_tokens)} tokens or "
+                                 f"non-finite logits")
+    want = INT8_PATH if tier == "int8" else FP_PATH
+    missing = [k for k in want if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"models: kernels not launched on {arch}'s "
+                             f"path: {missing}")
+    mixed = sum(1 for e in eng.mixed_iter_log
+                if e["decode_rows"] and e["prefill_rows"])
+    s = eng.metrics_snapshot()
+    p99 = m.p99_tbt
+    log(f"phase=models arch={arch} layers={cfg.num_layers} "
+        f"d_model={cfg.d_model} heads={cfg.num_heads}/{cfg.num_kv_heads} "
+        f"head_dim={cfg.head_dim} offload_quant={tier} "
+        f"requests={len(subs)} "
+        f"prompts={[r.prompt_len for r, _ in subs]} "
+        f"new={[r.max_new_tokens for r, _ in subs]} "
+        f"arrivals_s={[round(r.arrival_time, 4) for r, _ in subs]} "
+        f"finished={m.num_finished} setup_s={setup_s:.1f} wall_s={wall:.3f}")
+    log(f"phase=models arch={arch} mean_ttft_ms={m.mean_ttft * 1e3:.2f} "
+        f"mean_tbt_ms={m.mean_tbt * 1e3:.3f} p99_tbt_ms="
+        + (f"{p99 * 1e3:.3f}" if p99 is not None else "n/a(<10 samples)")
+        + f" tok_per_s={m.token_throughput:.2f} "
+        f"iterations={eng.iterations} mixed_iterations={mixed} "
+        f"weights_gb={weights / 1e9:.3f} peak_mem_gb={peak / 1e9:.3f} "
+        f"pinned_host_gb={pinned / 1e9:.3f} hbm_budget_bytes={budget} "
+        f"(default {default}, largest working set {worst}) "
+        f"h2d_bytes={s['kv.h2d_bytes']:.0f} d2h_bytes={s['kv.d2h_bytes']:.0f}"
+        f" hits={s['kv.hits']:.0f} misses={s['kv.misses']:.0f} card="
+        f"[{_card()}]")
+    log(f"phase=models arch={arch} launches " + json.dumps(counts)
+        + " by case " + json.dumps(cap.calls))
+    caps[f"models_{arch}"] = cap
+    eng.close()
+    return {"counts": counts, "mixed": mixed}
+
+
+def phase_models(torch, np, ops, ref, timer, seed: int) -> tuple:
+    """Serve each config of MODEL_RUNS at full width in turn, smallest
+    weights first, everything of the one before freed first; after each,
+    with its weights freed, replay its kept launches against the plain
+    versions (phase_mainpath).  At least one trace-driven config must run
+    an iteration with prefill and decode rows together.  Returns ({path:
+    launches by kernel}, {kernel: {case: replay result}})."""
+    counts, replays, mixed = {}, {}, {}
+    t_phase = time.perf_counter()
+    for arch in MODEL_RUNS:
+        _free_memory(torch)
+        caps = {}
+        r = _serve_model(torch, np, ops, arch, seed, caps)
+        counts[f"models_{arch}"] = r["counts"]
+        mixed[arch] = r["mixed"]
+        _free_memory(torch)
+        for name, cases in phase_mainpath(torch, ops, ref, timer,
+                                          caps).items():
+            replays.setdefault(name, {}).update(cases)
+        caps.clear()
+    log(f"phase=models mixed_iterations={json.dumps(mixed)} "
+        f"seconds={time.perf_counter() - t_phase:.1f}")
+    if not any(mixed[a] for a, run in MODEL_RUNS.items()
+               if run[1] is not None):
+        raise AssertionError("models: no trace-driven config ran an "
+                             "iteration with prefill and decode together")
+    return counts, replays
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of build,parity,transfer,"
-                         "serve,serve_int8,oracles,async (serve and "
+                         "serve,serve_int8,oracles,models,async (serve and "
                          "serve_int8 "
                          "include their mainpath replays; serve_int8 needs "
                          "serve) "
@@ -2076,6 +2421,12 @@ def main() -> int:
                                           caps).items():
             mainpath.setdefault(name, {}).update(cases)
         caps.clear()
+    if "models" in phases:
+        m_counts, m_replays = phase_models(torch, np, ops, ref, timer,
+                                           args.seed)
+        counts.update(m_counts)
+        for name, cases in m_replays.items():
+            mainpath.setdefault(name, {}).update(cases)
     records = kernel_records(parity, mainpath, counts)
     if "async" in phases:
         phase_async(torch, np, args.seed)
@@ -2084,11 +2435,7 @@ def main() -> int:
     if "profile_int8" in phases:
         phase_profile(torch, np, args.seed, "int8")
     log(json.dumps({"kernels": records}))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    log(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
-        else f"nvidia-smi failed: {smi.stderr.strip()}")
+    log(_card())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

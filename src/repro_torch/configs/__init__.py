@@ -1,5 +1,5 @@
-"""Architecture config registry of the port: the dense GQA archs the first
-slice serves.  Each module exports ``CONFIG`` (the full-scale config, source
+"""Architecture config registry of the port: the dense GQA decoders it
+serves.  Each module exports ``CONFIG`` (the full-scale config, source
 cited) and ``smoke_config()`` (a reduced variant for CPU tests), copied from
 the reference registry."""
 from __future__ import annotations
@@ -11,6 +11,10 @@ from repro_torch.models.common import ModelConfig
 
 _ARCH_MODULES = {
     "qwen2-0.5b": "repro_torch.configs.qwen2_0_5b",
+    "qwen2.5-3b": "repro_torch.configs.qwen2_5_3b",
+    "granite-20b": "repro_torch.configs.granite_20b",
+    # the paper's own evaluation models
+    "lwm-7b": "repro_torch.configs.lwm_7b",
     "llama3-8b": "repro_torch.configs.llama3_8b",
 }
 

@@ -43,13 +43,30 @@
 //   cluster (distributed shared memory; a relaxed cluster arrive at the
 //   start and its wait after the first scores keep the barrier that makes
 //   those writes safe off the critical path).  After the cluster barrier
-//   each CTA ranks its own blocks among all NB keys, one warp per block, lanes
-//   over the keys (score descending, then block id ascending: a total
-//   order), and writes a block ranked below K at its rank.  No sort and
-//   no further barrier; the ranking costs NB^2 / C comparisons per CTA,
-//   ~2,300 at the serve's shape (64 CTAs, NB 136), ~2 M at NB = 4096.
-//   Shared memory per CTA: 8 * G * D + 4 * NB bytes <= 48 KB, which bounds
-//   NB (the wrapper's MAX_SELECT_NB) and G * D.
+//   every CTA holds all NB keys, and each places the blocks of its own
+//   slice that rank below K (score descending, then block id ascending: a
+//   total order, so the ranks are 0 .. NB - 1 once each) at their rank.
+//   No sort and no further cluster barrier.  Up to NB = kRankAllNB (512)
+//   each block is ranked among all NB keys, one warp per block, lanes over
+//   the keys: NB^2 / C comparisons per CTA, ~2,300 at the serve's shape
+//   (64 CTAs, NB 136).  Above it that would grow to ~2 M at NB 4096 and
+//   ~8.4 M at 8193, so each CTA first finds the K-th key T by a radix
+//   select over the keys' order-preserving bits (four passes of an 8-bit
+//   histogram in shared memory), which also gives the number c of keys
+//   above T.  Only a block above T is ranked among all NB keys (fewer
+//   than K such blocks per cluster); a block equal to T takes rank c +
+//   the number of equal keys of lower id, from a scan of the CTA's slice
+//   after a count of the equal keys before it, and is selected if that is
+//   below K.  So the large-NB select costs O(NB / 256 + K * NB / C / 256)
+//   steps per thread.  Keys are held with -0 as +0, so the bits and the
+//   float comparisons order them alike.
+//   Shared memory per CTA: 8 * G * D + 4 * NB bytes (the GQA group's q
+//   rows as pos / neg float32, and the keys); above 48 KB the launch opts
+//   in to the card's 227 KB, which bounds NB and G * D (the wrapper's
+//   select_max_nb): NB up to ~56,000 at llama3-8b's G * D = 512, ~45,000
+//   at granite-20b's G = 48, D = 128.
+//   The unfused block_score needs 8 * G * D bytes and opts in the same
+//   way.
 #include "common.cuh"
 
 #include <algorithm>
@@ -66,6 +83,16 @@ constexpr int kSelThreads = 256;    // score_select: 32 blocks per pass
 constexpr int kMaxCluster = 8;      // the portable cluster size
 constexpr float kMasked = -1e30f;   // ref.NEG_INF
 constexpr float kValidCut = -5e29f; // NEG_INF / 2
+constexpr int kRankAllNB = 512;     // above: radix-select the K-th key
+static_assert(kSelThreads == 256, "one histogram bin per thread");
+constexpr int kDefaultSmem = 48 * 1024;   // without the opt-in
+
+// A float's bits as an unsigned whose order is the floats' order (no NaN;
+// -0 never occurs: keys are stored with -0 as +0).
+__device__ __forceinline__ unsigned order_bits(float f) {
+  const unsigned u = __float_as_uint(f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
 
 // The GQA group's q rows (G * D values) as pos / neg float32 in shared
 // memory.
@@ -222,43 +249,160 @@ score_select_kernel(const T* __restrict__ q, const float* __restrict__ meta,
     if (n < n1 && sub < C) {
       float key = kMasked;
       if (n < n_valid)
-        key = (n < sink || n >= n_valid - recent) ? INFINITY : s;
+        key = (n < sink || n >= n_valid - recent) ? INFINITY
+                                                   : (s == 0.f ? 0.f : s);
       dst[n] = key;
     }
   }
   if (!waited) cluster_wait();
   cluster.sync();   // every CTA holds all NB keys
 
-  // the rank of each block of this CTA's slice among all NB (score
-  // descending, then block id ascending: a total order, so the ranks are
-  // 0 .. NB - 1 once each); a block ranked below K is selected, at its
-  // rank.  One warp per block, lanes over the keys.
+  const size_t out0 = head_row * K;
+  if (NB <= kRankAllNB) {
+    // the rank of each block of this CTA's slice among all NB; a block
+    // ranked below K is selected, at its rank.  One warp per block,
+    // lanes over the keys.
+    for (int i = n0 + warp; i < n1; i += kSelThreads / 32) {
+      const float ki = keys[i];
+      unsigned before = 0;
+      for (int j = lane; j < NB; j += 32) {
+        const float kj = keys[j];
+        before += (kj > ki || (kj == ki && j < i)) ? 1u : 0u;
+      }
+      before = __reduce_add_sync(0xffffffffu, before);
+      if (lane == 0 && before < (unsigned)K) {
+        const bool v = ki > kValidCut;
+        idx[out0 + before] = v ? i : 0;
+        sel_valid[out0 + before] = v;
+      }
+    }
+    return;
+  }
+
+  // radix select of the K-th largest key over its order bits, 8 bits a
+  // pass from the top: ``prefix`` holds the bits fixed so far and
+  // ``krem`` the rank of the wanted key among the keys that share them
+  __shared__ unsigned hist[256];
+  __shared__ unsigned s_prefix, s_krem, s_sum[kSelThreads / 32];
+  unsigned prefix = 0, krem = (unsigned)K;
+  for (int shift = 24; shift >= 0; shift -= 8) {
+    const unsigned fixed = shift == 24 ? 0u : ~0u << (shift + 8);
+    hist[tid] = 0;   // kSelThreads == 256 bins
+    __syncthreads();
+    for (int j = tid; j < NB; j += kSelThreads) {
+      const unsigned u = order_bits(keys[j]);
+      if ((u & fixed) == prefix) atomicAdd(&hist[(u >> shift) & 255u], 1u);
+    }
+    __syncthreads();
+    if (warp == 0) {
+      // lane l holds digits 255 - 8 l down to 248 - 8 l; ``above`` counts
+      // the keys of higher digits, over the lanes before it
+      unsigned c[8], sum = 0;
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        c[t] = hist[255 - 8 * lane - t];
+        sum += c[t];
+      }
+      unsigned incl = sum;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const unsigned x = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += x;
+      }
+      unsigned above = incl - sum;
+      if (above < krem && krem <= incl) {   // exactly one lane
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          if (above + c[t] >= krem) {
+            s_prefix = prefix | ((unsigned)(255 - 8 * lane - t) << shift);
+            s_krem = krem - above;
+            break;
+          }
+          above += c[t];
+        }
+      }
+    }
+    __syncthreads();
+    prefix = s_prefix;
+    krem = s_krem;
+  }
+  // the K-th key's bits are ``prefix``; K - krem keys lie above it, and
+  // the krem lowest-id keys equal to it are selected
+  const unsigned n_above = (unsigned)K - krem;
+
+  // a block above the K-th key: its rank among all NB keys (one warp)
   for (int i = n0 + warp; i < n1; i += kSelThreads / 32) {
     const float ki = keys[i];
+    if (order_bits(ki) <= prefix) continue;   // uniform across the warp
     unsigned before = 0;
     for (int j = lane; j < NB; j += 32) {
       const float kj = keys[j];
       before += (kj > ki || (kj == ki && j < i)) ? 1u : 0u;
     }
     before = __reduce_add_sync(0xffffffffu, before);
-    if (lane == 0 && before < (unsigned)K) {
+    if (lane == 0) {
       const bool v = ki > kValidCut;
-      idx[head_row * K + before] = v ? i : 0;
-      sel_valid[head_row * K + before] = v;
+      idx[out0 + before] = v ? i : 0;
+      sel_valid[out0 + before] = v;
     }
   }
+  // a block equal to it: rank n_above + the equal keys of lower id (those
+  // before this slice, then a scan of the slice in chunks of 256)
+  unsigned ties = 0;
+  for (int j = tid; j < n0; j += kSelThreads)
+    ties += order_bits(keys[j]) == prefix ? 1u : 0u;
+  ties = __reduce_add_sync(0xffffffffu, ties);
+  __syncthreads();   // s_sum is free
+  if (lane == 0) s_sum[warp] = ties;
+  __syncthreads();
+  unsigned run = 0;
+  for (int w = 0; w < kSelThreads / 32; ++w) run += s_sum[w];
+  for (int base = n0; base < n1 && run < krem; base += kSelThreads) {
+    const int i = base + tid;
+    const bool tie = i < n1 && order_bits(keys[i]) == prefix;
+    const unsigned mask = __ballot_sync(0xffffffffu, tie);
+    __syncthreads();   // every thread has read s_sum
+    if (lane == 0) s_sum[warp] = __popc(mask);
+    __syncthreads();
+    unsigned off = run;
+    for (int w = 0; w < warp; ++w) off += s_sum[w];
+    const unsigned r = off + __popc(mask & ((1u << lane) - 1u));
+    if (tie && r < krem) {
+      const float ki = keys[i];
+      const bool v = ki > kValidCut;
+      idx[out0 + n_above + r] = v ? i : 0;
+      sel_valid[out0 + n_above + r] = v;
+    }
+    for (int w = 0; w < kSelThreads / 32; ++w) run += s_sum[w];
+  }
+}
+
+// Opt ``kernel`` in to ``bytes`` of dynamic shared memory where that is
+// above the default 48 KB (once per size reached; one card per process).
+template <typename F>
+cudaError_t smem_opt_in(F kernel, size_t bytes, size_t* done) {
+  if (bytes <= (size_t)kDefaultSmem || bytes <= *done) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e == cudaSuccess) *done = bytes;
+  return e;
 }
 
 }  // namespace
 
 // q bfloat16 (the serving path's dtype), meta float32, both contiguous,
 // meta 16-byte aligned.  Limits checked by the wrapper: D <= 128,
-// D % 4 == 0, G * D * 8 bytes of shared memory <= 48 KB.
+// D % 4 == 0, G * D * 8 bytes of shared memory within the card's opt-in
+// limit.
 extern "C" int launch_block_score(const void* q, const void* meta, void* out,
                                   int B, int Hkv, int NB, int D, int G,
                                   void* stream) {
+  static size_t opted = 0;
   if (B == 0 || Hkv == 0 || NB == 0) return (int)cudaGetLastError();
   const size_t smem = sizeof(float) * 2 * (size_t)G * D;
+  cudaError_t e = smem_opt_in(block_score_kernel<__nv_bfloat16>, smem,
+                              &opted);
+  if (e != cudaSuccess) return (int)e;
   const int per = kScoreThreads / kLanes;
   dim3 grid((NB + per - 1) / per, Hkv, B);
   block_score_kernel<__nv_bfloat16>
@@ -273,19 +417,24 @@ extern "C" int launch_block_score(const void* q, const void* meta, void* out,
 // float32, cur_len (B,) int32 tokens in the cache before this step ->
 // idx (B, Hkv, K) int32 and sel_valid (B, Hkv, K) bool, K = min(top_k, NB)
 // (the wrapper passes K).  Limits checked by the wrapper: those of
-// block_score, 1 <= NB <= MAX_SELECT_NB, 8 * G * D + 4 * NB bytes <=
-// 48 KB.
+// block_score, NB >= 1, and 8 * G * D + 4 * NB bytes of shared memory
+// within the card's opt-in limit (ops.select_max_nb).
 extern "C" int launch_score_select(const void* q, const void* meta,
                                    const void* cur_len, void* idx,
                                    void* sel_valid, int B, int Hkv, int NB,
                                    int D, int G, int K, int bs, int sink,
                                    int recent, void* stream) {
+  static size_t opted = 0;
   if (B == 0 || Hkv == 0 || NB == 0) return (int)cudaGetLastError();
+  const size_t smem = sizeof(float) * (2 * (size_t)G * D + NB);
+  cudaError_t e = smem_opt_in(score_select_kernel<__nv_bfloat16>, smem,
+                              &opted);
+  if (e != cudaSuccess) return (int)e;
   const int C = std::min(kMaxCluster, (NB + 15) / 16);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(C, Hkv, B);
   cfg.blockDim = dim3(kSelThreads);
-  cfg.dynamicSmemBytes = sizeof(float) * (2 * (size_t)G * D + NB);
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = static_cast<cudaStream_t>(stream);
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -294,7 +443,7 @@ extern "C" int launch_score_select(const void* q, const void* meta,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(
+  e = cudaLaunchKernelEx(
       &cfg, score_select_kernel<__nv_bfloat16>,
       static_cast<const __nv_bfloat16*>(q), static_cast<const float*>(meta),
       static_cast<const int*>(cur_len), static_cast<int*>(idx),

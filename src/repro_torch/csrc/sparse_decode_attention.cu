@@ -17,10 +17,15 @@
 // and a second launch set the floor.
 //
 // Design (flash-decoding): the K selected blocks of each (request, kv-head)
-// are split into runs of ceil(K / splits) blocks, one CTA of 8 warps per
-// (split, kv-head, request), so B * Hkv * splits CTAs fill the 132 SMs
-// (the wrapper picks splits >= 2 * 132 / (B * Hkv) where K allows, and
-// runs of at most 4 blocks, since a CTA walks its run in turn).  Each
+// are split into runs of ceil(K / splits) blocks, and the GQA group into
+// tiles of at most 16 query rows (one tile up to G = 16; granite-20b's
+// G = 48 makes three), one CTA of 8 warps per (split, group tile,
+// kv-head, request), so B * Hkv * tiles * splits CTAs fill the 132 SMs
+// (the wrapper picks splits >= 2 * 132 / (B * Hkv * tiles) where K
+// allows, and runs of at most 4 blocks, since a CTA walks its run in
+// turn).  The tiles of one split stream the same K and V blocks, the
+// second and third reads mostly from L2; each writes its own rows of the
+// partials, so the merge is the same for any G.  Each
 // CTA compacts its run's live ids (valid, in range, starting below
 // cur_len: a CTA-uniform skip that leaves the softmax state exactly as the
 // masked update would), then streams their K and V blocks as bf16 into
@@ -44,8 +49,9 @@ namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
+constexpr int kTileG = 16;     // query rows of one group tile
 constexpr int kMaxItems = 4;   // (head, value-dim pair) items per thread:
-                               // G * Dv / 2 <= 16 * 64 = 4 * kThreads
+                               // kTileG * Dv / 2 <= 16 * 64 = 4 * kThreads
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -60,12 +66,12 @@ __device__ __forceinline__ void cp_async_wait1() {
   asm volatile("cp.async.wait_group 1;\n" ::);
 }
 
-struct Smem {
-  float* q;       // G * D
-  float* sc;      // G * bs: scores, then weights
-  float* m;       // G
-  float* l;       // G
-  float* corr;    // G
+struct Smem {       // Gt: the rows of one group tile, <= kTileG
+  float* q;       // Gt * D
+  float* sc;      // Gt * bs: scores, then weights
+  float* m;       // Gt
+  float* l;       // Gt
+  float* corr;    // Gt
   int* ids;       // per: the run's live block ids
   int* n_live;    // 1
   __nv_bfloat16* k;   // 2 stages x bs x (D + 8)
@@ -99,13 +105,14 @@ split_kernel(const __nv_bfloat16* __restrict__ q,
              const uint8_t* __restrict__ sel_valid,
              const int* __restrict__ cur_len, float* __restrict__ part_o,
              float* __restrict__ part_ml, int Hkv, int NB, int bs, int D,
-             int Dv, int K, int G, int per, float scale) {
+             int Dv, int K, int G, int splits, int per, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int split = blockIdx.x;
+  const int split = blockIdx.x % splits;
+  const int g0 = blockIdx.x / splits * kTileG;   // the tile's first row
+  const int Gt = min(kTileG, G - g0);            // and its rows
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int splits = gridDim.x;
-  const SmemLayout lay(G, D, Dv, bs, per);
+  const SmemLayout lay(min(G, kTileG), D, Dv, bs, per);
   Smem s;
   s.q = reinterpret_cast<float*>(smem_raw + lay.q);
   s.sc = reinterpret_cast<float*>(smem_raw + lay.sc);
@@ -126,9 +133,10 @@ split_kernel(const __nv_bfloat16* __restrict__ q,
   const int j0 = split * per;
   const int j1 = min(K, j0 + per);
 
-  const __nv_bfloat16* qg = q + ((size_t)b * Hq + (size_t)h * G) * D;
-  for (int i = tid; i < G * D; i += kThreads) s.q[i] = to_f32(qg[i]);
-  if (tid < G) {
+  const __nv_bfloat16* qg =
+      q + ((size_t)b * Hq + (size_t)h * G + g0) * D;
+  for (int i = tid; i < Gt * D; i += kThreads) s.q[i] = to_f32(qg[i]);
+  if (tid < Gt) {
     s.m[tid] = kNegInf;
     s.l[tid] = 0.f;
   }
@@ -167,7 +175,7 @@ split_kernel(const __nv_bfloat16* __restrict__ q,
   };
 
   const int n_pairs = Dv / 2;
-  const int n_items = G * n_pairs;
+  const int n_items = Gt * n_pairs;
   float acc[kMaxItems][2];
 #pragma unroll
   for (int i = 0; i < kMaxItems; ++i) acc[i][0] = acc[i][1] = 0.f;
@@ -185,7 +193,7 @@ split_kernel(const __nv_bfloat16* __restrict__ q,
     const __nv_bfloat16* vs = s.v + (size_t)st * bs * Dv;
 
     // scores of every (head, token) pair; lanes on neighbouring tokens
-    for (int p = tid; p < G * bs; p += kThreads) {
+    for (int p = tid; p < Gt * bs; p += kThreads) {
       const int g = p / bs, t = p - g * bs;
       float dot = kNegInf;
       if (pos0 + t < len) {
@@ -214,7 +222,7 @@ split_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();
 
     // online-softmax update, one warp per head
-    for (int g = warp; g < G; g += kWarps) {
+    for (int g = warp; g < Gt; g += kWarps) {
       float* row = s.sc + g * bs;
       float mx = kNegInf;
       for (int t = lane; t < bs; t += 32) mx = fmaxf(mx, row[t]);
@@ -262,17 +270,18 @@ split_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();   // sc and this stage are free for the next block
   }
 
+  // this tile's rows g0 .. g0 + Gt - 1 of the split's partial
   const size_t part = head_row * splits + split;
-  float* po = part_o + part * G * Dv;
+  float* po = part_o + (part * G + g0) * Dv;
 #pragma unroll
   for (int i = 0; i < kMaxItems; ++i) {
     const int it = tid + i * kThreads;
     if (it < n_items)
       reinterpret_cast<float2*>(po)[it] = make_float2(acc[i][0], acc[i][1]);
   }
-  if (tid < G) {
-    part_ml[part * 2 * G + tid] = s.m[tid];
-    part_ml[part * 2 * G + G + tid] = s.l[tid];
+  if (tid < Gt) {
+    part_ml[part * 2 * G + g0 + tid] = s.m[tid];
+    part_ml[part * 2 * G + G + g0 + tid] = s.l[tid];
   }
 }
 
@@ -328,9 +337,10 @@ merge_kernel(const float* __restrict__ part_o,
 }  // namespace
 
 // bfloat16 only (the serving path's dtype).  Limits checked by the wrapper:
-// G <= 16, D and Dv <= 128 and multiples of 8, bs <= 128, all pointers
-// 16-byte aligned, tensors contiguous.  part_o (B, Hkv, splits, G, Dv) and
-// part_ml (B, Hkv, splits, 2, G) are float32 scratch.
+// any G >= 1 (in tiles of kTileG rows), D and Dv <= 128 and multiples of
+// 8, bs <= 128, all pointers 16-byte aligned, tensors contiguous.  part_o
+// (B, Hkv, splits, G, Dv) and part_ml (B, Hkv, splits, 2, G) are float32
+// scratch.
 extern "C" int launch_sparse_decode_attention(
     const void* q, const void* k_pool, const void* v_pool,
     const void* block_idx, const void* sel_valid, const void* cur_len,
@@ -338,24 +348,26 @@ extern "C" int launch_sparse_decode_attention(
     int D, int Dv, int K, int G, int splits, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B == 0 || Hkv == 0) return (int)cudaGetLastError();
-  if (splits < 1 || G * Dv > 2 * kMaxItems * kThreads)
+  const int tiles = (G + kTileG - 1) / kTileG;
+  if (splits < 1 || G < 1 || kTileG * Dv > 2 * kMaxItems * kThreads)
     return (int)cudaErrorInvalidValue;
   const int per = K > 0 ? (K + splits - 1) / splits : 0;
-  const SmemLayout lay(G, D, Dv, bs, per);
+  const SmemLayout lay(min(G, kTileG), D, Dv, bs, per);
   if (lay.total > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         split_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)lay.total);
     if (e != cudaSuccess) return (int)e;
   }
-  split_kernel<<<dim3(splits, Hkv, B), kThreads, lay.total, st>>>(
+  split_kernel<<<dim3(splits * tiles, Hkv, B), kThreads, lay.total, st>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k_pool),
       static_cast<const __nv_bfloat16*>(v_pool),
       static_cast<const int*>(block_idx),
       static_cast<const uint8_t*>(sel_valid),
       static_cast<const int*>(cur_len), static_cast<float*>(part_o),
-      static_cast<float*>(part_ml), Hkv, NB, bs, D, Dv, K, G, per, scale);
+      static_cast<float*>(part_ml), Hkv, NB, bs, D, Dv, K, G, splits, per,
+      scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   merge_kernel<<<dim3(Hkv * G, B), kThreads, sizeof(float) * splits, st>>>(

@@ -137,16 +137,27 @@ def _check_host_or(name: str, pool: torch.Tensor, dev: torch.device) -> bool:
 # blocks of a run are walked in turn, so shorter runs shorten the kernel
 # where B * Hkv alone would already fill the card
 DECODE_RUN = 4
+# query rows of one group tile of the decode attention (the kernel's
+# kTileG): a GQA group of G rows takes ceil(G / DECODE_TILE_G) CTAs per
+# split
+DECODE_TILE_G = 16
 
 
-def decode_splits(B: int, Hkv: int, K: int, sms: int) -> int:
+def decode_group_tiles(G: int) -> int:
+    """Group tiles of the decode attention for a GQA group of G rows."""
+    return -(-G // DECODE_TILE_G)
+
+
+def decode_splits(B: int, Hkv: int, K: int, sms: int, tiles: int = 1) -> int:
     """Splits of the K selected blocks across CTAs (flash-decoding): enough
-    that B * Hkv * splits >= 2 * sms where K allows it, and runs of at most
+    that B * Hkv * tiles * splits >= 2 * sms where K allows it (``tiles``:
+    the group tiles of each (request, kv-head)), and runs of at most
     DECODE_RUN blocks, each split a run of ceil(K / splits) blocks, no
     split empty by construction."""
     if K == 0:
         return 1
-    want = min(K, max(-(-2 * sms // max(1, B * Hkv)), -(-K // DECODE_RUN)))
+    want = min(K, max(-(-2 * sms // max(1, B * Hkv * tiles)),
+                      -(-K // DECODE_RUN)))
     per = -(-K // want)
     return -(-K // per)
 
@@ -188,14 +199,15 @@ def sparse_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
            and sel_valid.shape == (B, Hkv, K) and cur_len.shape == (B,),
            f"{name}: inconsistent shapes")
     vec = 16 // q.element_size()
-    _check(Hq // Hkv <= 16 and D <= 128 and Dv <= 128 and bs <= 128
-           and D % vec == 0 and Dv % vec == 0,
-           f"{name}: needs G <= 16, D, Dv <= 128 in 16-byte multiples, "
-           f"bs <= 128")
+    _check(D <= 128 and Dv <= 128 and bs <= 128 and D % vec == 0
+           and Dv % vec == 0,
+           f"{name}: needs D, Dv <= 128 in 16-byte multiples (D = {D}, "
+           f"Dv = {Dv}) and bs <= 128 (bs = {bs}); any GQA group")
     _check(_aligned(q, k_pool, v_pool), f"{name}: 16-byte alignment")
     scale = scale if scale is not None else 1.0 / (D ** 0.5)
     G = Hq // Hkv
-    splits = decode_splits(B, Hkv, K, _sm_count(q.device))
+    splits = decode_splits(B, Hkv, K, _sm_count(q.device),
+                           decode_group_tiles(G))
     out = torch.empty((B, Hq, Dv), dtype=q.dtype, device=q.device)
     # each split's unnormalised float32 partial: acc (G, Dv), then m and l
     part_o = torch.empty((B, Hkv, splits, G, Dv), dtype=torch.float32,
@@ -217,6 +229,14 @@ def sparse_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
 # block_score
 # ---------------------------------------------------------------------------
 
+# Dynamic shared memory a block may opt in to on the H100 (227 KB of the
+# SM's 256; the kernels' few static bytes lie under the 4 KB kept back).
+# block_score holds the GQA group's q rows as pos / neg float32 (8 * G * D
+# bytes); score_select those and every block's key (4 * NB bytes) in
+# every CTA of its cluster.
+SMEM_OPTIN_BYTES = 232_448 - 4096
+
+
 def block_score(q: torch.Tensor, meta: torch.Tensor) -> torch.Tensor:
     """q (B, Hq, D); meta (B, Hkv, NB, 2, D) float32, [min, max] interleaved
     -> (B, Hkv, NB) float32 cuboid bounds, max over the GQA group."""
@@ -230,13 +250,14 @@ def block_score(q: torch.Tensor, meta: torch.Tensor) -> torch.Tensor:
            f"{name}: q bfloat16, meta float32")
     _check(meta.shape[0] == B and two == 2 and Dm == D and Hq % Hkv == 0,
            f"{name}: inconsistent shapes")
-    _check(D <= 128 and D % 4 == 0 and 8 * Hq // Hkv * D <= 48 * 1024,
-           f"{name}: needs D <= 128, D % 4 == 0 and G * D * 8 bytes <= "
-           f"48 KB")
+    G = Hq // Hkv
+    _check(D <= 128 and D % 4 == 0 and 8 * G * D <= SMEM_OPTIN_BYTES,
+           f"{name}: needs D <= 128, D % 4 == 0 and 8 * G * D = "
+           f"{8 * G * D} bytes of shared memory <= {SMEM_OPTIN_BYTES}")
     _check(_aligned(meta), f"{name}: meta 16-byte aligned")
     out = torch.empty((B, Hkv, NB), dtype=torch.float32, device=q.device)
     rc = LIBS.fn(name)(q.data_ptr(), meta.data_ptr(), out.data_ptr(), B, Hkv,
-                       NB, D, Hq // Hkv, _stream())
+                       NB, D, G, _stream())
     _raise_on(rc, name)
     launches.add(name)
     return out
@@ -246,11 +267,10 @@ def block_score(q: torch.Tensor, meta: torch.Tensor) -> torch.Tensor:
 # score_select: block_score fused with the top-k select
 # ---------------------------------------------------------------------------
 
-# the largest NB the fused kernel takes: every CTA of a cluster holds all
-# NB keys (4 bytes each) in shared memory beside the GQA group's q rows
-# (8 * G * D bytes), within 48 KB, and ranks its slice among them
-# (NB^2 / 8 comparisons a CTA)
-MAX_SELECT_NB = 4096
+def select_max_nb(G: int, D: int) -> int:
+    """The largest NB score_select takes for a GQA group of G rows of
+    width D (0 where the q rows alone do not fit)."""
+    return max(0, (SMEM_OPTIN_BYTES - 8 * G * D) // 4)
 
 
 def score_select(q: torch.Tensor, meta: torch.Tensor, cur_len: torch.Tensor,
@@ -264,7 +284,7 @@ def score_select(q: torch.Tensor, meta: torch.Tensor, cur_len: torch.Tensor,
     K = min(top_k, NB), invalid ids replaced by 0.  The kernel orders the
     ids by score, highest first, ties by block id, lowest first; the plain
     version (``torch.topk``) may order them otherwise.  On the GPU: NB <=
-    MAX_SELECT_NB."""
+    ``select_max_nb(G, D)``."""
     kw = dict(block_size=block_size, top_k=top_k, sink_blocks=sink_blocks,
               recent_blocks=recent_blocks)
     if _all_cpu(q, meta, cur_len):
@@ -280,12 +300,12 @@ def score_select(q: torch.Tensor, meta: torch.Tensor, cur_len: torch.Tensor,
            and Hq % Hkv == 0 and cur_len.shape == (B,),
            f"{name}: inconsistent shapes")
     G = Hq // Hkv
-    _check(1 <= NB <= MAX_SELECT_NB,
-           f"{name}: NB = {NB}, the kernel takes 1 <= NB <= "
-           f"{MAX_SELECT_NB}")
-    _check(D <= 128 and D % 4 == 0 and 8 * G * D + 4 * NB <= 48 * 1024,
-           f"{name}: needs D <= 128, D % 4 == 0 and 8 * G * D + 4 * NB "
-           f"bytes <= 48 KB")
+    _check(D <= 128 and D % 4 == 0,
+           f"{name}: needs D <= 128 and D % 4 == 0 (D = {D})")
+    _check(1 <= NB <= select_max_nb(G, D),
+           f"{name}: NB = {NB} at G = {G}, D = {D}; the kernel takes 1 <= "
+           f"NB <= {select_max_nb(G, D)} (8 * G * D + 4 * NB bytes of "
+           f"shared memory <= {SMEM_OPTIN_BYTES})")
     _check(block_size > 0 and top_k > 0 and sink_blocks >= 0
            and recent_blocks >= 0, f"{name}: bad DSA parameters")
     _check(_aligned(meta), f"{name}: meta 16-byte aligned")

@@ -31,7 +31,8 @@ def _gen(dev, seed=0):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("Hq,Hkv,D,bs", [(14, 2, 64, 32), (32, 8, 128, 32),
-                                         (7, 1, 32, 8)])
+                                         (7, 1, 32, 8), (48, 1, 128, 32),
+                                         (64, 1, 128, 32)])
 def test_attention_and_score_kernels_match_plain(cuda, Hq, Hkv, D, bs):
     g = _gen(cuda)
     B, NB, K = 3, 12, 5
@@ -415,26 +416,29 @@ def _decode_inputs(dev, seed, B, Hq, Hkv, D, NB, bs, K):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("G", [7, 4, 16])
+@pytest.mark.parametrize("G", [7, 4, 16, 20, 48])
 @pytest.mark.parametrize("B,Hkv,K", [(1, 1, 64), (4, 2, 51), (8, 8, 51)])
 def test_split_decode_attention_matches_plain(cuda, G, B, Hkv, K):
     """Split-K decode attention against the plain version, at split counts
     that leave splits with no valid block (B 1 x Hkv 1: one block per
     split, half of them invalid), with K not a multiple of the split size
     (K 51 in runs of 2 and of 4), an all-invalid row (output 0), and
-    cur_len cutting blocks mid-way."""
+    cur_len cutting blocks mid-way; G above 16 in group tiles of 16 rows
+    (G 20: a last tile of 4 rows; G 48: granite-20b's three)."""
     bs, D, NB = 32, 64, 80
     q, kp, vp, idx, valid = _decode_inputs(cuda, G + K, B, G * Hkv, Hkv, D,
                                            NB, bs, K)
     cur_len = torch.randint(bs, NB * bs, (B,), generator=_gen(cuda, K),
                             device=cuda, dtype=torch.int32)
     cur_len[0] = 37 * bs + 5                        # mid-block
-    splits = ops.decode_splits(B, Hkv, K, ops._sm_count(cuda))
+    splits = ops.decode_splits(B, Hkv, K, ops._sm_count(cuda),
+                               ops.decode_group_tiles(G))
     per = -(-K // splits)
     if B * Hkv == 1:
         assert per == 1 and not valid.all()         # empty splits
     else:
-        assert K % per != 0
+        if ops.decode_group_tiles(G) == 1:
+            assert K % per != 0
         valid[-1, -1] = False                       # an all-invalid row
     got = ops.sparse_decode_attention(q, kp, vp, idx, valid, cur_len)
     want = ref.sparse_decode_attention(q, kp, vp, idx, valid, cur_len)
@@ -516,7 +520,13 @@ def _select_case(dev, B, Hq, Hkv, D, NB, bs, seed=0):
     (4, 14, 2, 64, 136, 32, 64, 1, 2),     # the fp serve's decode step
     (3, 32, 8, 128, 37, 32, 64, 1, 2),     # NB not a multiple of 32, K > NB
     (2, 7, 7, 32, 1000, 8, 100, 0, 0),     # no forcing, 8 blocks per pass
-    (1, 4, 1, 64, 4096, 32, 64, 2, 3),     # the largest NB taken
+    (1, 4, 1, 64, 4096, 32, 64, 2, 3),     # NB 4096 (radix select)
+    (4, 48, 1, 128, 258, 32, 64, 1, 2),    # granite-20b's group, G * D
+    #                                        alone 48 KB
+    (2, 32, 8, 128, 4097, 32, 64, 1, 2),   # llama3-8b past 4096 blocks
+    (1, 32, 8, 128, 8193, 32, 64, 1, 2),   # its 262,144-token context
+    (2, 4, 1, 64, 600, 32, 600, 0, 0),     # K == NB on the radix path
+    (2, 64, 1, 128, 2000, 32, 64, 1, 2),   # 64 KB of q rows, opted in
 ])
 def test_score_select_kernel_matches_plain(cuda, B, Hq, Hkv, D, NB, bs,
                                            top_k, sink, recent):
@@ -612,7 +622,8 @@ def test_slice4_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q = torch.zeros((1, 4, 64), device=cuda, dtype=torch.bfloat16)
     cur = torch.zeros(1, dtype=torch.int32, device=cuda)
     kw = dict(block_size=32, top_k=64, sink_blocks=1, recent_blocks=2)
-    big = torch.zeros((1, 2, ops.MAX_SELECT_NB + 1, 2, 64), device=cuda)
+    big = torch.zeros((1, 2, ops.select_max_nb(2, 64) + 1, 2, 64),
+                      device=cuda)
     with pytest.raises(ValueError):                   # NB above the limit
         ops.score_select(q, big, cur, **kw)
     meta = torch.zeros((1, 2, 8, 2, 64), device=cuda)
@@ -712,3 +723,37 @@ def test_quant_save_rejects_what_the_kernel_does_not_take(cuda):
                                ops.QuantSave(pinned, 1, 10 * 32, stripe)])
     torch.cuda.synchronize()
     assert torch.equal(pinned.q, before)
+
+
+# ---------------------------------------------------------------------------
+# slice 7: the decode kernels for any GQA group, score_select past 4096
+# blocks
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_slice7_wrappers_raise_beyond_their_limits(cuda):
+    """The decode attention takes any G but D, Dv <= 128; score_select any
+    G and NB while 8 * G * D + 4 * NB bytes fit the card's opt-in shared
+    memory.  Beyond that each raises, naming the limit."""
+    assert ops.select_max_nb(48, 128) >= 8193       # granite-20b
+    assert ops.select_max_nb(4, 128) >= 8193        # llama3-8b
+    bf = torch.bfloat16
+    q = torch.zeros((1, 48, 256), device=cuda, dtype=bf)
+    pool = torch.zeros((1, 1, 4, 32, 256), device=cuda, dtype=bf)
+    idx = torch.zeros((1, 1, 2), device=cuda, dtype=torch.int32)
+    valid = torch.ones((1, 1, 2), device=cuda, dtype=torch.bool)
+    cur = torch.full((1,), 40, device=cuda, dtype=torch.int32)
+    with pytest.raises(ValueError, match="D, Dv <= 128"):
+        ops.sparse_decode_attention(q, pool, pool, idx, valid, cur)
+    kw = dict(block_size=32, top_k=64, sink_blocks=1, recent_blocks=2)
+    q = torch.zeros((1, 48, 128), device=cuda, dtype=bf)
+    nb = ops.select_max_nb(48, 128) + 1
+    meta = torch.zeros((1, 1, nb, 2, 128), device=cuda)
+    with pytest.raises(ValueError, match=f"NB <= {nb - 1}"):
+        ops.score_select(q, meta, cur, **kw)
+    huge = torch.zeros((1, 256, 128), device=cuda, dtype=bf)   # G 256
+    meta = torch.zeros((1, 1, 8, 2, 128), device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.score_select(huge, meta, cur, **kw)
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.block_score(huge, meta)

@@ -1,7 +1,8 @@
 """The port's ServingEngine against the reference's on the same
 submissions: default EngineConfig (mixed hybrid plane, staged decode,
-layer-segmented plane prefill, async host stage, DSA on), the qwen2 and
-llama3 smoke configs, at the default LRU capacity and under a 1-block LRU
+layer-segmented plane prefill, async host stage, DSA on), the smoke
+configs of every arch the port serves (qwen2-0.5b, llama3-8b, lwm-7b,
+qwen2.5-3b, granite-20b), at the default LRU capacity and under a 1-block LRU
 (every selection misses, evicted blocks are zeroed on the device and must
 be restored before use).
 
@@ -69,8 +70,11 @@ def _run(engine_cls, config_cls, request_cls, cfg, params, **kw):
             dataclasses.asdict(eng.transfer_stats()), metrics)
 
 
+ARCHS = ["qwen2-0.5b", "llama3-8b", "lwm-7b", "qwen2.5-3b", "granite-20b"]
+
+
 @pytest.mark.parametrize("hbm_blocks", [96, 1])
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "llama3-8b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_engine_matches_reference(arch, hbm_blocks, setups):
     jc, tc, jp, tp = setups(arch)
     _, j_tokens, j_stats, j_m = _run(JEngine, JEngineConfig, JRequest, jc,
@@ -94,7 +98,7 @@ def test_engine_matches_reference(arch, hbm_blocks, setups):
     assert sum(ops.launches.snapshot().values()) == 0
 
 
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "llama3-8b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_async_equals_sync(arch, setups):
     _, tc, _, tp = setups(arch)
     e_a, toks_a, stats_a, _ = _run(ServingEngine, EngineConfig, Request, tc,

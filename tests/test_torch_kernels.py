@@ -329,6 +329,33 @@ def test_decode_splits_cover_k_in_equal_runs(B, Hkv, K, want):
     assert per <= ops.DECODE_RUN
 
 
+@pytest.mark.parametrize("G,tiles,B,Hkv,K,want", [
+    (48, 3, 4, 1, 64, 22),     # granite-20b: three group tiles of 16 rows
+    (20, 2, 4, 2, 51, 17),     # a last tile of 4 rows
+    (16, 1, 4, 2, 64, 32),     # one tile: the splits of the fp serve
+    (1, 1, 1, 32, 64, 16),     # lwm-7b's MHA: 32 kv heads, G = 1
+])
+def test_decode_splits_count_the_group_tiles(G, tiles, B, Hkv, K, want):
+    """A GQA group above 16 rows runs in tiles of 16 rows, each a CTA per
+    split, and the split count counts them: B * Hkv * tiles * splits
+    reaches about 2 x 132 CTAs where K allows it."""
+    assert ops.decode_group_tiles(G) == tiles
+    splits = ops.decode_splits(B, Hkv, K, 132, tiles)
+    assert splits == want
+    assert -(-K // splits) <= ops.DECODE_RUN
+
+
+def test_select_limit_follows_shared_memory():
+    """score_select takes NB while 8 * G * D + 4 * NB bytes fit the
+    opt-in shared memory: llama3-8b's 262,144-token context (NB 8193) and
+    granite-20b's group fit, a group whose q rows alone overflow does
+    not."""
+    assert ops.select_max_nb(4, 128) == (ops.SMEM_OPTIN_BYTES - 4096) // 4
+    assert ops.select_max_nb(4, 128) >= 8193
+    assert ops.select_max_nb(48, 128) >= 8193
+    assert ops.select_max_nb(256, 128) == 0
+
+
 # ---------------------------------------------------------------------------
 # device dispatch: the plain version only when every tensor is on the CPU
 # ---------------------------------------------------------------------------
