@@ -2,7 +2,8 @@
 """GPU smoke test of the PyTorch port (``src/repro_torch``).
 
     python3 chip_smoke.py [--seed 0]
-        [--phases build,parity,transfer,serve,serve_int8,oracles,models,async]
+        [--phases build,parity,transfer,serve,serve_int8,oracles,models,obs,
+                  async]
 
 Run from the repository root on a machine with one NVIDIA H100.  Phases,
 each printing one line (``phase=...``) and failing the run on any error:
@@ -135,10 +136,27 @@ each printing one line (``phase=...``) and failing the run on any error:
    G 48 (granite-20b), flash_prefill at D 128 over 32 kv heads (lwm-7b)
    and one (granite-20b).  Its launch counts join the kernels' JSON
    record.
-9. async  — the same submissions at full width and 4 layers with
+9. obs    — the obs layer on the card (EngineConfig(obs=True): the
+   reference's host wall-clock spans and metrics registry).  After a
+   warm-up serve, the serve phase's run with obs off, on, on, off: the
+   greedy tokens of all four identical, obs-on's best wall time within
+   1.10x obs-off's, and on each obs-on run iteration spans on the engine's
+   lane, select / host-stage / attend spans, worker spans on a lane of
+   their own overlapping iterations, and the trace's overlap within
+   max(0.02, 0.1 x measured) of the counters' (stage_overlap_from_trace
+   against stage_overlap_measured).  Prints one ``obs_breakdown`` JSON
+   line: per span name its count, total host ms, ms per decode iteration
+   and share of the summed iteration wall time over the decode-only
+   iterations, and the wall no top-level span covers (admission, embed,
+   logits, sampling, the worker's drain, the wall-clock charge's sync).  Then
+   qwen2.5-3b at full width on the first 2 requests of the models phase's
+   trace with obs on: prefill-group spans must sit inside mixed
+   iterations beside decode select and attend spans; its obs_breakdown
+   covers every iteration.  Writes both traces under chiprun_out/.
+10. async — the same submissions at full width and 4 layers with
    stage_dispatch "async" and "sync", fp and int8: greedy tokens and
    transfer counters must be identical.
-10. profile, profile_int8 (only when named in --phases) — the serve
+11. profile, profile_int8 (only when named in --phases) — the serve
    (serve_int8) run again under torch.profiler: device busy time, idle
    share, the count of device operations (kernels, copies, memsets),
    largest device consumers, and the port's kernels (``port_kernel=``
@@ -151,6 +169,7 @@ without the repository around it, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import bisect
 import dataclasses
 import gc
 import hashlib
@@ -165,7 +184,7 @@ REPO = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM HBM3 (data sheet)
 BF16_OPS_PER_S = 989e12              # H100 SXM dense bf16 tensor peak
 PHASES = ("build", "parity", "transfer", "serve", "serve_int8", "oracles",
-          "models", "async")
+          "models", "obs", "async")
 
 KERNELS = {   # name -> (source in this repo, the TPU kernel it replaces)
     "sparse_decode_attention": (
@@ -327,6 +346,15 @@ MODEL_RUNS = {
 }
 MODEL_RATE = 2.0
 LONG_PROMPT, LONG_NEW = 131072, 8
+# the obs phase: obs-on's best serve wall time within this factor of
+# obs-off's (the serve's TBT spreads ~2x between calls, so the tighter 5%
+# bar stays with the CPU test); the trace config served with obs on, and
+# how many of its requests; the dispatch thread's spans that nest in no
+# other (their sum against the iteration spans leaves the uncovered rest)
+OBS_WALL_RATIO = 1.10
+OBS_TRACE_ARCH, OBS_TRACE_REQUESTS = "qwen2.5-3b", 2
+OBS_TOP_SPANS = ("select", "idx-sync", "host-stage", "attend",
+                 "prefill-group")
 # benchmarks/bench_transfer.py's real_gather_microbench: a (512, 32, 128)
 # float32 pool, 64 distinct block ids
 XFER_NB, XFER_BS, XFER_D, XFER_K = 512, 32, 128, 64
@@ -1620,7 +1648,7 @@ def _mid_decode_attn() -> int:
 
 
 def _run_serve(torch, np, ops, seed: int, path: str, want: tuple,
-               cap=None, **engine_kw) -> dict:
+               cap=None, inspect=None, **engine_kw) -> dict:
     """One full-width qwen2-0.5b serve (wall-clock charging), the launch
     counts set to 0 just before it and read just after; checks that every
     request finished with finite logits, that H2D restores and D2H saves
@@ -1632,7 +1660,8 @@ def _run_serve(torch, np, ops, seed: int, path: str, want: tuple,
     at most once per layer save (the engine's ``flush_fused`` calls,
     counted here) and that no save went through the entries it replaced
     (OLD_SAVE, and with a capture gather_blocks_hkv from a flush).
-    Returns a summary."""
+    ``inspect(engine)`` runs last, before the engine closes.  Returns a
+    summary."""
     eng, ids = _serve_qwen2(torch, np, seed, charge_real_time=True,
                             **engine_kw)
     drop_rounds = [0]
@@ -1714,7 +1743,9 @@ def _run_serve(torch, np, ops, seed: int, path: str, want: tuple,
     log(f"phase={path} peak_mem_gb="
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
     out = {"counts": counts, "ttft": m.mean_ttft, "wire": wire,
-           "tokens": [eng.states[r].out_tokens for r in ids]}
+           "wall": wall, "tokens": [eng.states[r].out_tokens for r in ids]}
+    if inspect is not None:
+        inspect(eng)
     eng.close()
     return out
 
@@ -2237,15 +2268,19 @@ def _hbm_budget(torch, cfg, subs, default: int) -> tuple:
     return int(torch.cuda.mem_get_info()[0]), worst
 
 
-def _serve_model(torch, np, ops, arch: str, seed: int, caps: dict) -> dict:
-    """One models-phase serve of ``arch`` at full width (MODEL_RUNS),
+def _serve_model(torch, np, ops, arch: str, seed: int, caps: dict,
+                 requests=None, tag: str = "models", inspect=None,
+                 obs: bool = False) -> dict:
+    """One models-phase serve of ``arch`` at full width (MODEL_RUNS; its
+    first ``requests`` submissions when given, obs on with ``obs``),
     bf16 random weights from ``seed``, the default EngineConfig with
     wall-clock charging (the budget of _hbm_budget where the default
     cannot admit a request), the launch counts set to 0 just before the
     run and read just after.  Asserts that every request was admitted and
     finished with finite logits and that every kernel of the config's
     path launched; keeps one launch of each MODEL_RUNS kernel for
-    phase_mainpath (into ``caps``).  Returns a summary."""
+    phase_mainpath (into ``caps``); ``inspect(engine)`` runs last,
+    before the engine closes.  Returns a summary."""
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
     from repro_torch.serving.engine import EngineConfig, ServingEngine
@@ -2257,12 +2292,12 @@ def _serve_model(torch, np, ops, arch: str, seed: int, caps: dict) -> dict:
                            .manual_seed(seed), torch.bfloat16, "cuda")
     torch.cuda.synchronize()
     weights = torch.cuda.memory_allocated()
-    subs = _model_submissions(np, Request, cfg, arch, seed)
+    subs = _model_submissions(np, Request, cfg, arch, seed)[:requests]
     default = EngineConfig().hbm_budget_bytes
     budget, worst = _hbm_budget(torch, cfg, subs, default)
     eng = ServingEngine(params, cfg, EngineConfig(
         seed=seed, charge_real_time=True, offload_quant=tier,
-        hbm_budget_bytes=budget))
+        hbm_budget_bytes=budget, obs=obs))
     for r, toks in subs:
         eng.submit(r, tokens=toks)
     pinned = sum(t.numel() * t.element_size()
@@ -2285,26 +2320,26 @@ def _serve_model(torch, np, ops, arch: str, seed: int, caps: dict) -> dict:
     peak = torch.cuda.max_memory_allocated()
     unfinished = [r.req_id for r, _ in subs if r.finish_time is None]
     if unfinished:
-        raise AssertionError(f"models: {arch}: requests never admitted or "
+        raise AssertionError(f"{tag}: {arch}: requests never admitted or "
                              f"not finished: {unfinished} (HBM budget "
                              f"{budget}, largest working set {worst})")
     for r, _ in subs:
         st = eng.states[r.req_id]
         if (len(st.out_tokens) != r.max_new_tokens
                 or not bool(torch.isfinite(st.last_logits).all())):
-            raise AssertionError(f"models: {arch}: {r.req_id} gave "
+            raise AssertionError(f"{tag}: {arch}: {r.req_id} gave "
                                  f"{len(st.out_tokens)} tokens or "
                                  f"non-finite logits")
     want = INT8_PATH if tier == "int8" else FP_PATH
     missing = [k for k in want if counts[k] == 0]
     if missing:
-        raise AssertionError(f"models: kernels not launched on {arch}'s "
+        raise AssertionError(f"{tag}: kernels not launched on {arch}'s "
                              f"path: {missing}")
     mixed = sum(1 for e in eng.mixed_iter_log
                 if e["decode_rows"] and e["prefill_rows"])
     s = eng.metrics_snapshot()
     p99 = m.p99_tbt
-    log(f"phase=models arch={arch} layers={cfg.num_layers} "
+    log(f"phase={tag} arch={arch} layers={cfg.num_layers} "
         f"d_model={cfg.d_model} heads={cfg.num_heads}/{cfg.num_kv_heads} "
         f"head_dim={cfg.head_dim} offload_quant={tier} "
         f"requests={len(subs)} "
@@ -2312,7 +2347,7 @@ def _serve_model(torch, np, ops, arch: str, seed: int, caps: dict) -> dict:
         f"new={[r.max_new_tokens for r, _ in subs]} "
         f"arrivals_s={[round(r.arrival_time, 4) for r, _ in subs]} "
         f"finished={m.num_finished} setup_s={setup_s:.1f} wall_s={wall:.3f}")
-    log(f"phase=models arch={arch} mean_ttft_ms={m.mean_ttft * 1e3:.2f} "
+    log(f"phase={tag} arch={arch} mean_ttft_ms={m.mean_ttft * 1e3:.2f} "
         f"mean_tbt_ms={m.mean_tbt * 1e3:.3f} p99_tbt_ms="
         + (f"{p99 * 1e3:.3f}" if p99 is not None else "n/a(<10 samples)")
         + f" tok_per_s={m.token_throughput:.2f} "
@@ -2323,9 +2358,11 @@ def _serve_model(torch, np, ops, arch: str, seed: int, caps: dict) -> dict:
         f"h2d_bytes={s['kv.h2d_bytes']:.0f} d2h_bytes={s['kv.d2h_bytes']:.0f}"
         f" hits={s['kv.hits']:.0f} misses={s['kv.misses']:.0f} card="
         f"[{_card()}]")
-    log(f"phase=models arch={arch} launches " + json.dumps(counts)
+    log(f"phase={tag} arch={arch} launches " + json.dumps(counts)
         + " by case " + json.dumps(cap.calls))
-    caps[f"models_{arch}"] = cap
+    caps[f"{tag}_{arch}"] = cap
+    if inspect is not None:
+        inspect(eng)
     eng.close()
     return {"counts": counts, "mixed": mixed}
 
@@ -2359,16 +2396,168 @@ def phase_models(torch, np, ops, ref, timer, seed: int) -> tuple:
     return counts, replays
 
 
+def _obs_breakdown(events: list, scope: str) -> dict:
+    """The host-time split of the engine's iterations from a trace: per
+    span name (the worker lane's as ``worker:<name>``), its count, total
+    host ms, ms per iteration and share of the summed iteration wall time,
+    over the iterations of ``scope`` ("decode": decode rows only; "all").
+    A span belongs to the iteration its start falls in.  ``uncovered`` is
+    the iteration wall that no top-level dispatch span (OBS_TOP_SPANS)
+    covers: admission, embed, logits, sampling, the epilogue's drops,
+    the worker's drain and the wall-clock charge's device sync (the
+    scheduler runs before the iteration span starts)."""
+    xs = [e for e in events if e["ph"] == "X"]
+    iters = sorted((e for e in xs if e["name"] == "iteration"
+                    and (scope == "all" or (e["args"]["decode_rows"]
+                                            and not e["args"]
+                                            ["prefill_rows"]))),
+                   key=lambda e: e["ts"])
+    if not iters:
+        raise AssertionError(f"obs: no {scope} iteration span")
+    lane = iters[0]["tid"]
+    starts = [e["ts"] for e in iters]
+    wall = sum(e["dur"] for e in iters) / 1e3
+    spans, top = {}, 0.0
+    for e in xs:
+        if e["name"] == "iteration":
+            continue
+        i = bisect.bisect_right(starts, e["ts"]) - 1
+        if i < 0 or e["ts"] > iters[i]["ts"] + iters[i]["dur"]:
+            continue
+        name = e["name"] if e["tid"] == lane else f"worker:{e['name']}"
+        rec = spans.setdefault(name, {"count": 0, "ms": 0.0})
+        rec["count"] += 1
+        rec["ms"] += e["dur"] / 1e3
+        if e["tid"] == lane and e["name"] in OBS_TOP_SPANS:
+            top += e["dur"] / 1e3
+    for rec in spans.values():
+        rec["ms_per_iter"] = rec["ms"] / len(iters)
+        rec["share"] = rec["ms"] / wall
+    return {"scope": scope, "iterations": len(iters), "iteration_ms": wall,
+            "ms_per_iter": wall / len(iters),
+            "spans": dict(sorted(spans.items(),
+                                 key=lambda kv: -kv[1]["ms"])),
+            "uncovered": {"ms": wall - top,
+                          "ms_per_iter": (wall - top) / len(iters),
+                          "share": (wall - top) / wall}}
+
+
+def _obs_trace_checks(tag: str, eng) -> None:
+    """The trace of an obs-on run: iteration spans on the engine's lane,
+    select / host-stage / attend spans, worker spans on a lane of their
+    own overlapping iteration spans, and the two overlap instruments
+    within max(0.02, 0.1 x measured)."""
+    xs = [e for e in eng.tracer.events() if e["ph"] == "X"]
+    iters = [e for e in xs if e["name"] == "iteration"]
+    names = {e["name"] for e in xs}
+    worker = [e for e in xs if e["cat"] == "host-stage-worker"]
+    lanes = {e["tid"] for e in iters}
+    if (len(iters) != eng.iterations or len(lanes) != 1
+            or not {"select", "host-stage", "attend"} <= names):
+        raise AssertionError(f"obs: {tag}: {len(iters)} iteration spans "
+                             f"for {eng.iterations} iterations on lanes "
+                             f"{lanes}; span names {sorted(names)}")
+    if not worker or {e["tid"] for e in worker} & lanes or not any(
+            it["ts"] < w["ts"] + w["dur"] and w["ts"] < it["ts"] + it["dur"]
+            for w in worker for it in iters):
+        raise AssertionError(f"obs: {tag}: no worker span on its own lane "
+                             f"overlapping an iteration")
+    measured = eng.stage_overlap_measured()
+    traced = eng.stage_overlap_from_trace()
+    log(f"phase=obs run={tag} stage_overlap_measured={measured} "
+        f"stage_overlap_from_trace={traced} events={len(xs)}")
+    if (measured is None or traced is None
+            or abs(traced - measured) > max(0.02, 0.1 * measured)):
+        raise AssertionError(f"obs: {tag}: overlap instruments disagree: "
+                             f"measured {measured}, trace {traced}")
+
+
+def phase_obs(torch, np, ops, seed: int) -> None:
+    """The obs layer on the card.  After a warm-up serve, the serve phase's
+    run (_run_serve) with obs off, on, on, off: identical greedy tokens,
+    obs-on's best wall time within OBS_WALL_RATIO of obs-off's, the trace
+    checks of _obs_trace_checks on both obs-on runs, and the first one's
+    host-time split of a decode step (``obs_breakdown``, decode-only
+    iterations).  Then the first OBS_TRACE_REQUESTS requests of
+    OBS_TRACE_ARCH's models trace with obs on (_serve_model): prefill-group
+    spans inside mixed iterations beside decode select and attend spans,
+    and its split over every iteration.  Both traces go to chiprun_out/."""
+    t_phase = time.perf_counter()
+    out_dir = REPO / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    card = _card()
+    warm, _ = _serve_qwen2(torch, np, seed, n=1, gen_tokens=2,
+                           charge_real_time=True)
+    warm.run()
+    torch.cuda.synchronize()
+    del warm
+    runs, breakdown = [], []
+
+    def inspect(eng):
+        _obs_trace_checks(f"obs_{len(runs)}", eng)
+        if not breakdown:
+            breakdown.append(_obs_breakdown(eng.tracer.events(), "decode"))
+            n = eng.dump_trace(str(out_dir / "obs_qwen2-0.5b.trace.json"))
+            log(f"phase=obs trace=chiprun_out/obs_qwen2-0.5b.trace.json "
+                f"events={n}")
+    for obs in (False, True, True, False):
+        _free_memory(torch)
+        runs.append((obs, _run_serve(
+            torch, np, ops, seed, f"obs_{len(runs)}", FP_PATH,
+            inspect=inspect if obs else None, obs=obs)))
+    if any(r["tokens"] != runs[0][1]["tokens"] for _, r in runs):
+        raise AssertionError("obs: greedy tokens differ between obs off "
+                             "and on")
+    walls = {o: [r["wall"] for obs, r in runs if obs == o]
+             for o in (False, True)}
+    ratio = min(walls[True]) / min(walls[False])
+    log(f"phase=obs wall_s_off={walls[False]} wall_s_on={walls[True]} "
+        f"order=off,on,on,off best_on_over_best_off={ratio:.4f} "
+        f"tokens_identical=True card=[{card}]")
+    log(json.dumps({"obs_breakdown": dict(
+        arch="qwen2-0.5b", card=card, **breakdown[0])}))
+    if ratio > OBS_WALL_RATIO:
+        raise AssertionError(f"obs: obs-on's best wall time is {ratio:.3f}x "
+                             f"obs-off's (limit {OBS_WALL_RATIO})")
+
+    def inspect_trace(eng):
+        _obs_trace_checks(OBS_TRACE_ARCH, eng)
+        xs = [e for e in eng.tracer.events() if e["ph"] == "X"]
+        mixed = [e for e in xs if e["name"] == "iteration"
+                 and e["args"]["decode_rows"] and e["args"]["prefill_rows"]]
+        beside = [it for it in mixed if all(any(
+            e["name"] == n and e["tid"] == it["tid"]
+            and it["ts"] <= e["ts"] <= it["ts"] + it["dur"] for e in xs)
+            for n in ("prefill-group", "select", "attend"))]
+        path = f"chiprun_out/obs_{OBS_TRACE_ARCH}.trace.json"
+        n = eng.dump_trace(str(REPO / path))
+        log(f"phase=obs arch={OBS_TRACE_ARCH} mixed_iterations={len(mixed)} "
+            f"mixed_with_prefill_group_select_attend={len(beside)} "
+            f"trace={path} events={n}")
+        log(json.dumps({"obs_breakdown": dict(
+            arch=OBS_TRACE_ARCH, card=card, mixed_iterations=len(mixed),
+            **_obs_breakdown(eng.tracer.events(), "all"))}))
+        if not beside:
+            raise AssertionError(f"obs: {OBS_TRACE_ARCH}: no mixed "
+                                 f"iteration holds prefill-group spans "
+                                 f"beside decode select and attend spans")
+    _free_memory(torch)
+    _serve_model(torch, np, ops, OBS_TRACE_ARCH, seed, {},
+                 requests=OBS_TRACE_REQUESTS, tag="obs",
+                 inspect=inspect_trace, obs=True)
+    _free_memory(torch)
+    log(f"phase=obs seconds={time.perf_counter() - t_phase:.1f}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of build,parity,transfer,"
-                         "serve,serve_int8,oracles,models,async (serve and "
-                         "serve_int8 "
-                         "include their mainpath replays; serve_int8 needs "
-                         "serve) "
-                         "plus the optional profile and profile_int8")
+                         "serve,serve_int8,oracles,models,obs,async (serve "
+                         "and serve_int8 include their mainpath replays; "
+                         "serve_int8 needs serve) plus the optional profile "
+                         "and profile_int8")
     args = ap.parse_args()
     phases = args.phases.split(",")
     import numpy as np
@@ -2428,6 +2617,8 @@ def main() -> int:
         for name, cases in m_replays.items():
             mainpath.setdefault(name, {}).update(cases)
     records = kernel_records(parity, mainpath, counts)
+    if "obs" in phases:
+        phase_obs(torch, np, ops, args.seed)
     if "async" in phases:
         phase_async(torch, np, args.seed)
     if "profile" in phases:

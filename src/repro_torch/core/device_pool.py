@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import bisect
 import dataclasses
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -33,6 +34,7 @@ from repro_torch.core.kv_cache import QuantBlocks
 from repro_torch.device import host_to_device
 from repro_torch.kernels import ops
 from repro_torch.models import model as M
+from repro_torch.obs.tracing import NULL_TRACER
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,6 +110,14 @@ class DevicePoolPlane:
         self.blocks_restored_before_use = 0
         self.host_syncs = 0              # per-layer selected-id syncs
         self.d2h_readback_bytes = 0      # stripe bytes read back
+        # last staged step's (layer, idx_sync_s, host_stage_s) per
+        # stage_cb, and their sums over every step: the counter half of
+        # the overlap cross-check (the spans reuse the same reads)
+        self.stage_timeline: List[Tuple[int, float, float]] = []
+        self.dispatch_sync_s = 0.0
+        self.host_stage_s = 0.0
+        self.tracer = NULL_TRACER        # the engine installs a live
+                                         # Tracer when obs is on
         # K and V pools of every layer (2 * layer, 2 * layer + 1), with
         # their device address table: rebuilt where the pools are made
         self.pool_table: Optional[ops.PoolTable] = None
@@ -236,22 +246,51 @@ class DevicePoolPlane:
         st = self.state
         prev = {rid: self.cur_host[rid] for rid in token_by_req}
         info: Dict[str, Any] = {"selected": {}}
+        timeline: List[Tuple[int, float, float]] = []
+        tr = self.tracer
         x = M.decode_embed(params, cfg, tokens)
         for i in range(cfg.num_layers):
             p = M.get_layer(params, i)
+            if tr.enabled:
+                _ts = time.perf_counter()
             q, _, idx, valid = M.decode_select_layer(
                 p, cfg, x, st["caches"][i], st["cur_len"], step_mask=mask)
+            if tr.enabled:
+                tr.end("select", "stage", _ts, layer=i)
             if idx is not None:
                 info["selected"][i] = idx
             if stage_cb is not None:
+                # the copy of the selected ids is the layer's one device
+                # sync (it waits for select_i and the queued attend_{i-1});
+                # its time and the host stage's are kept apart
+                t0 = time.perf_counter()
                 sel = None if idx is None else idx.cpu().numpy()
+                t1 = time.perf_counter()
                 if sel is not None:
                     self.host_syncs += 1
                 stage_cb(i, sel, prev)
+                t2 = time.perf_counter()
+                timeline.append((i, t1 - t0, t2 - t1))
+                if tr.enabled:
+                    # the same t0/t1/t2 as the timeline: the trace and the
+                    # dispatch_sync_s/host_stage_s counters are one
+                    # measurement exported two ways
+                    tr.complete_at("idx-sync", "stage", t0, t1 - t0,
+                                   layer=i)
+                    tr.complete_at("host-stage", "host-stage", t1,
+                                   t2 - t1, layer=i)
+            if tr.enabled:
+                _ts = time.perf_counter()
             x = M.decode_attend_layer(p, cfg, x, q, st["caches"][i],
                                       st["cur_len"], idx, valid)
+            if tr.enabled:
+                tr.end("attend", "stage", _ts, layer=i)
         logits, st["cur_len"] = M.decode_logits(params, cfg, x,
                                                 st["cur_len"], mask)
+        self.stage_timeline = timeline
+        for _, sync_s, stage_s in timeline:
+            self.dispatch_sync_s += sync_s
+            self.host_stage_s += stage_s
         self.finish_step(token_by_req)
         return logits, info, prev
 

@@ -17,11 +17,16 @@ segment groups together.  Per attention layer *i*:
    (the ``sparse_decode_attention`` kernel on the GPU).
 
 After the walk each decode plane takes its logits stage and each prefill
-plane its shared finalize.
+plane its shared finalize.  With a live tracer the walk emits the
+reference's spans per layer: ``select`` (the selects and their ``idx``
+copies, whose time also goes to ``dispatch_sync_s``), ``host-stage``
+around ``layer_cb`` (its time also goes to ``host_stage_s``) and
+``attend``.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -32,6 +37,7 @@ from repro_torch.core.prefill_plane import (PrefillGroupRun,
                                             PrefillIterationResult,
                                             PrefillPlane, PrefillWalk)
 from repro_torch.models import model as M
+from repro_torch.obs.tracing import NULL_TRACER
 
 
 @dataclasses.dataclass
@@ -84,6 +90,14 @@ class HybridPlane:
 
     def __init__(self, cfg):
         self.cfg = cfg
+        # last iteration's (layer, idx_sync_s, host_stage_s) per layer_cb,
+        # and their sums over every iteration: the counter half of the
+        # overlap cross-check (the spans reuse the same reads)
+        self.stage_timeline: List[Tuple[int, float, float]] = []
+        self.dispatch_sync_s = 0.0
+        self.host_stage_s = 0.0
+        self.tracer = NULL_TRACER     # the engine installs a live Tracer
+                                      # when obs is on
 
     def run_iteration(self, params: Dict, decode_jobs: List[DecodeJob],
                       prefill_jobs: List[PrefillJob],
@@ -104,9 +118,14 @@ class HybridPlane:
         pre: List[Tuple[PrefillPlane, PrefillWalk]] = [
             (pj.plane, pj.plane.begin_iteration(pj.allowance))
             for pj in prefill_jobs]
+        timeline: List[Tuple[int, float, float]] = []
+        tr = self.tracer
         for i in range(cfg.num_layers):
             p = M.get_layer(params, i)
             selections: List[Tuple[DecodeRun, Optional[np.ndarray]]] = []
+            t_sync = 0.0
+            if tr.enabled and dec:
+                _ts = time.perf_counter()
             for d in dec:
                 st = d.plane.state
                 d.q, _, d.idx, d.valid = M.decode_select_layer(
@@ -117,20 +136,41 @@ class HybridPlane:
                     d.plane.host_syncs += 1
                 # the ONE host sync of the layer: it waits for select_i (and
                 # the still-queued attend_{i-1}) before the host stage runs
+                t0 = time.perf_counter()
                 selections.append(
                     (d, None if d.idx is None else d.idx.cpu().numpy()))
+                t_sync += time.perf_counter() - t0
+            if tr.enabled and dec:
+                tr.end("select", "stage", _ts, layer=i, planes=len(dec))
             layer_groups: List[Tuple[PrefillPlane, PrefillGroupRun]] = []
             for plane, walk in pre:
                 for g in plane.run_layer(params, i, walk):
                     layer_groups.append((plane, g))
             if layer_cb is not None and (selections or layer_groups):
+                t1 = time.perf_counter()
                 layer_cb(LayerWindow(layer=i, selections=selections,
                                      groups=layer_groups))
+                t2 = time.perf_counter()
+                timeline.append((i, t_sync, t2 - t1))
+                if tr.enabled:
+                    # the same t1/t2 as the timeline entry: the trace and
+                    # the counter instruments share the measurement
+                    tr.complete_at("host-stage", "host-stage", t1,
+                                   t2 - t1, layer=i,
+                                   groups=len(layer_groups))
+            if tr.enabled and dec:
+                _ts = time.perf_counter()
             for d in dec:
                 st = d.plane.state
                 d.x = M.decode_attend_layer(p, cfg, d.x, d.q,
                                             st["caches"][i], st["cur_len"],
                                             d.idx, d.valid)
+            if tr.enabled and dec:
+                tr.end("attend", "stage", _ts, layer=i, planes=len(dec))
+        self.stage_timeline = timeline
+        for _, sync_s, stage_s in timeline:
+            self.dispatch_sync_s += sync_s
+            self.host_stage_s += stage_s
         out_dec = []
         for d in dec:
             st = d.plane.state

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import bisect
 import dataclasses
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -31,6 +32,7 @@ from repro_torch.core.device_pool import BucketingPolicy
 from repro_torch.core.layer_prefill import PrefillSegment
 from repro_torch.device import host_to_device
 from repro_torch.models import model as M
+from repro_torch.obs.tracing import NULL_TRACER
 
 
 def admit_embed(params: Dict, tokens: torch.Tensor) -> torch.Tensor:
@@ -85,6 +87,8 @@ class PrefillPlane:
         self.segments: Dict[str, List[PrefillSegment]] = {}
         self.next_idx: Dict[str, int] = {}
         self._free: List[int] = []
+        self.tracer = NULL_TRACER     # the engine installs a live Tracer
+                                      # when obs is on
 
     # -- capacity ----------------------------------------------------------
 
@@ -258,6 +262,9 @@ class PrefillPlane:
     def _run_group(self, params: Dict, layer: int, start: int,
                    rids: List[str]) -> PrefillGroupRun:
         cfg = self.cfg
+        tr = self.tracer
+        if tr.enabled:
+            _ts = time.perf_counter()
         dev = self.hidden.device
         segs = {rid: self.segments[rid][self.next_idx[rid]] for rid in rids}
         t_cap = min(self.policy.bucket_tokens(
@@ -284,6 +291,10 @@ class PrefillPlane:
         self.ctx_k[rows, start:start + t_cap] = k[rows].float()
         self.ctx_v[rows, start:start + t_cap] = v[rows].float()
         self.hidden[:, start:start + t_cap] = h_out
+        if tr.enabled:
+            tr.end("prefill-group", "prefill", _ts, layer=layer,
+                   chunk_start=start, chunk_cap=t_cap, rows=len(rids),
+                   kind=M.layer_kind(cfg, layer))
         return PrefillGroupRun(layer=layer, chunk_start=start,
                                chunk_cap=t_cap, req_ids=list(rids),
                                segs=segs)

@@ -3,12 +3,16 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
         [--requests 8 --prompt 192 --gen 8] [--smoke] [--device cpu]
         [--prefill {layer_segmented,chunked} --chunk 64]
+        [--obs] [--trace-out run.trace.json] [--prom]
 
 Random weights from ``--seed`` (bf16 on the GPU, float32 on the CPU).  On
 the GPU (the default device) the engine charges wall-clock time, with the
 device synchronised at every iteration's end, so the TTFT/TBT printed are
 the card's; on the CPU they come from the copied analytic cost model.
-Prints TTFT/TBT/throughput and the hierarchical-KV transfer statistics.
+Prints TTFT/TBT/throughput and the hierarchical-KV transfer statistics,
+read from ``engine.metrics_snapshot()``.  ``--trace-out`` writes the run's
+Chrome trace-event JSON (open it in https://ui.perfetto.dev); ``--prom``
+prints the Prometheus text exposition of the final snapshot.
 """
 from __future__ import annotations
 
@@ -40,6 +44,15 @@ def main(argv=None) -> int:
     ap.add_argument("--cache-blocks", type=int, default=64)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--obs", action="store_true",
+                    help="enable the tracing+metrics layer (EngineConfig"
+                         ".obs; also via REPRO_OBS=1)")
+    ap.add_argument("--trace-out", default="",
+                    help="write Chrome trace-event JSON here (implies "
+                         "--obs; open in ui.perfetto.dev)")
+    ap.add_argument("--prom", action="store_true",
+                    help="print the Prometheus text exposition of the "
+                         "final metrics snapshot")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
@@ -50,7 +63,8 @@ def main(argv=None) -> int:
     eng = ServingEngine(params, cfg, EngineConfig(
         prefill_mode=args.prefill, chunk_size=args.chunk,
         ws_control=not args.no_ws, hbm_blocks_per_request=args.cache_blocks,
-        seed=args.seed, charge_real_time=dev.type == "cuda"))
+        seed=args.seed, charge_real_time=dev.type == "cuda",
+        obs=args.obs or bool(args.trace_out) or None))   # None: REPRO_OBS
 
     rng = np.random.default_rng(args.seed)
     t = 0.0
@@ -63,7 +77,8 @@ def main(argv=None) -> int:
     where = (f"{torch.cuda.get_device_name(dev)} wall clock"
              if dev.type == "cuda" else "modelled clock, CPU run")
     print(f"arch={cfg.name} device={dev} ({where}) ws={not args.no_ws} "
-          f"prefill={args.prefill} chunk={args.chunk}")
+          f"prefill={args.prefill} chunk={args.chunk} "
+          f"obs={int(s['obs.enabled'])}")
     print(f"finished={m.num_finished}/{args.requests} "
           f"iters={s['engine.iterations']:.0f}")
     print(f"mean TTFT {m.mean_ttft*1e3:.2f} ms | mean TBT "
@@ -76,6 +91,15 @@ def main(argv=None) -> int:
     print(f"HBM cache: {s['kv.hits']:.0f} hits / {s['kv.misses']:.0f} "
           f"misses ({100*s['kv.hits']/tot:.1f}% hit rate), "
           f"{s['kv.evictions']:.0f} evictions")
+    overlap = eng.stage_overlap_measured()
+    if overlap is not None:
+        print(f"async host-stage overlap: {100*overlap:.1f}% of host-stage "
+              f"work off-thread ({s['worker.jobs_run']:.0f} worker jobs)")
+    if args.trace_out:
+        n = eng.dump_trace(args.trace_out)
+        print(f"trace: {n} events -> {args.trace_out}")
+    if args.prom:
+        print(eng.metrics_prometheus(), end="")
     return 0
 
 

@@ -35,12 +35,22 @@ earlier chunks' KV as dense context).
 
 Iteration latency is charged from the copied analytic cost model unless
 ``charge_real_time`` is set (the GPU launcher sets it, and then TTFT/TBT
-are the card's wall clock).  A plane mesh and the obs layer are not
-ported and raise ``NotImplementedError``.
+are the card's wall clock).  A plane mesh is not ported and raises
+``NotImplementedError``.
+
+The obs layer (``repro_torch.obs``) is the reference's: with
+``EngineConfig(obs=True)`` (or ``obs=None`` and ``REPRO_OBS=1``) the
+engine installs a ``Tracer`` into the planes, the KV manager and the
+host-stage worker, and records one ``iteration`` span per step; the
+scheduler gauges and the iteration-time histogram flow into a
+``MetricsRegistry`` either way (``metrics_snapshot``,
+``metrics_prometheus``).  Every span is a host wall-clock span; none adds
+a device sync.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -62,6 +72,9 @@ from repro_torch.core.scheduler import BatchPlan, Scheduler, SchedulerConfig
 from repro_torch.device import host_to_device
 from repro_torch.models import model as M
 from repro_torch.models.common import ModelConfig
+from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.trace_analysis import achieved_overlap_fraction
+from repro_torch.obs.tracing import NULL_TRACER, Tracer
 from repro_torch.serving import costmodel as cm
 from repro_torch.serving.metrics import ServingMetrics, compute_metrics
 from repro_torch.serving.request import Phase, Request
@@ -71,7 +84,7 @@ from repro_torch.serving.request import Phase, Request
 class EngineConfig:
     """The reference's ``EngineConfig`` fields and defaults, less the
     ``attn_impl`` knob (the device of the tensors decides).  A mesh_spec
-    and obs True raise ``NotImplementedError`` in ``ServingEngine``."""
+    raises ``NotImplementedError`` in ``ServingEngine``."""
     prefill_mode: str = "layer_segmented"    # | "chunked" (the baseline)
     prefill_exec: str = "plane"              # | "legacy" (per-request
                                              # whole layers, the oracle)
@@ -109,7 +122,12 @@ class EngineConfig:
     # requantize on the FlashD2H save and dequantize where the FlashH2D
     # restore lands, so each moved element costs 1 wire byte, not 4)
     offload_quant: str = "none"
-    obs: Optional[bool] = None               # None -> off
+    # True: the engine builds a Tracer (Chrome trace-event JSON, one lane
+    # per thread) and installs it into the planes, the KV manager and the
+    # host-stage worker.  None resolves from REPRO_OBS=1 into a copy.
+    # Off, each instrumentation point costs one `tracer.enabled` read;
+    # `metrics_snapshot()` works either way.
+    obs: Optional[bool] = None
 
 
 _VALUES = {
@@ -134,7 +152,9 @@ def resolve_config(eng: EngineConfig) -> EngineConfig:
       attention that selected them (elsewhere a drop would change the
       outputs, or has no device plane to act on);
     - an explicit drop without write-back, or without a device plane,
-      raises ``ValueError``."""
+      raises ``ValueError``;
+    - ``obs=None`` becomes True when the environment sets
+      ``REPRO_OBS=1``, False otherwise."""
     for field, allowed in _VALUES.items():
         val = getattr(eng, field)
         if val not in allowed:
@@ -142,8 +162,9 @@ def resolve_config(eng: EngineConfig) -> EngineConfig:
                              f"{allowed}")
     if eng.mesh_spec is not None:
         raise NotImplementedError("plane meshes are not ported yet")
-    if eng.obs:
-        raise NotImplementedError("the obs layer is not wired in yet")
+    if eng.obs is None:
+        eng = dataclasses.replace(
+            eng, obs=os.environ.get("REPRO_OBS", "") == "1")
     if eng.hybrid_plane == "mixed" and not (
             eng.batched_decode and eng.decode_plane == "staged"
             and eng.prefill_mode == "layer_segmented"
@@ -199,6 +220,8 @@ class ServingEngine:
         self.device = params["embed"].device
         self.kv_dtype = params["embed"].dtype
         self.eng = eng
+        self.tracer = Tracer() if eng.obs else NULL_TRACER
+        self.metrics = MetricsRegistry()
         self.mc = cm.ModelCost.from_config(cfg)
         self.rng = np.random.default_rng(eng.seed)
         self.geom = KVGeometry(
@@ -222,6 +245,7 @@ class ServingEngine:
         self.kv_mgr = KVCacheManager(self.geom, eng.hbm_budget_bytes,
                                      offload_quant=eng.offload_quant,
                                      device=self.device)
+        self.kv_mgr.tracer = self.tracer
         # wire bytes the cost model charges per moved (layer, block)
         self._offload_block_bytes = cm.offload_block_bytes(
             self.geom.num_kv_heads, self.geom.head_dim,
@@ -238,13 +262,36 @@ class ServingEngine:
         self.prefill_launches = 0
         self.admit_embed_launches = 0
         self.plane = DevicePoolPlane(cfg, eng.bucketing)
+        self._plane_used = False      # the reference makes its plane at
+                                      # the first device-plane decode
         self.prefill_plane = PrefillPlane(cfg, eng.bucketing)
         self.hybrid = (HybridPlane(cfg) if eng.hybrid_plane == "mixed"
                        else None)
+        for obj in (self.plane, self.prefill_plane, self.hybrid):
+            if obj is not None:
+                obj.tracer = self.tracer
         self._stage_async = eng.stage_dispatch == "async"
         self._worker: Optional[HostStageWorker] = None
         self.worker_jobs_run = 0
         self.worker_busy_s = 0.0
+        # per-iteration scheduler gauges (one .set() each per iteration)
+        _m = self.metrics
+        self._g_queue = _m.gauge(
+            "sched.queue_depth", "requests waiting for admission")
+        self._g_running = _m.gauge(
+            "sched.running", "requests admitted (prefill+decode)")
+        self._g_batch_decode = _m.gauge(
+            "sched.batch_decode_rows", "decode rows this iteration")
+        self._g_batch_prefill = _m.gauge(
+            "sched.batch_prefill_rows", "prefill rows this iteration")
+        self._g_ws_decode = _m.gauge(
+            "sched.ws_decode_bytes", "estimated decode working set")
+        self._g_ws_prefill = _m.gauge(
+            "sched.ws_prefill_bytes", "estimated prefill working set")
+        self._g_hbm_used = _m.gauge(
+            "kv.hbm_used_bytes", "actual HBM residency after the iteration")
+        self._h_iter = _m.histogram(
+            "engine.iteration_s", "wall-clock seconds per engine iteration")
         self._staged_layer_bytes: Dict[int, int] = {}
         # per mixed iteration: row counts, prefill groups and finalizes,
         # and per layer its fused d2h / h2d calls and prefill groups
@@ -770,6 +817,7 @@ class ServingEngine:
         only full-pool copy in a request's decode lifetime; the plane owns
         the state afterwards.  (Dense models need one plane: the reference
         groups planes by encoder-KV shapes, which they do not have.)"""
+        self._plane_used = True
         for st in sts:
             if st.req.req_id not in self.plane.rows:
                 self.plane.admit(st.req.req_id, st.decode_state)
@@ -1001,7 +1049,8 @@ class ServingEngine:
         """The engine's host-stage worker, created lazily (and again after
         ``close()``)."""
         if self._worker is None or self._worker.closed:
-            self._worker = HostStageWorker(name=f"host-stage-{id(self):x}")
+            self._worker = HostStageWorker(name=f"host-stage-{id(self):x}",
+                                           tracer=self.tracer)
         return self._worker
 
     def close(self) -> None:
@@ -1172,6 +1221,24 @@ class ServingEngine:
             if req.finish_time is not None and req.phase == Phase.FINISHED:
                 req.finish_time = self.now
         self.iterations += 1
+        # obs epilogue: after the planes and the worker have returned and,
+        # when the wall clock is charged, after the device sync above, so
+        # the span covers the iteration's device work
+        wall_s = time.perf_counter() - t0
+        self._h_iter.observe(wall_s)
+        waiting, running = self.scheduler.queue_depths()
+        self._g_queue.set(waiting)
+        self._g_running.set(running)
+        self._g_batch_decode.set(len(plan.decode_reqs))
+        self._g_batch_prefill.set(len(plan.prefill_reqs))
+        self._g_ws_decode.set(plan.ws_decode_bytes)
+        self._g_ws_prefill.set(plan.ws_prefill_bytes)
+        self._g_hbm_used.set(self.kv_mgr.hbm_used_bytes())
+        if self.tracer.enabled:
+            self.tracer.complete_at(
+                "iteration", "engine", t0, wall_s, i=self.iterations - 1,
+                decode_rows=len(plan.decode_reqs),
+                prefill_rows=len(plan.prefill_reqs))
         return plan
 
     def run(self, max_iters: int = 10_000) -> ServingMetrics:
@@ -1190,14 +1257,28 @@ class ServingEngine:
     def transfer_stats(self) -> TransferStats:
         return self.kv_mgr.total_stats()
 
+    # ------------------------------------------------------------------
+    # Observability surface (repro_torch.obs)
+    # ------------------------------------------------------------------
+    def _stage_planes(self) -> List[Any]:
+        """The planes that time a host stage: the decode plane and the
+        mixed walk."""
+        return [x for x in (self.plane, self.hybrid) if x is not None]
+
     def metrics_snapshot(self) -> Dict[str, float]:
-        """One flat dict of the engine's counters (the reference's names
-        for the ones the port keeps)."""
+        """One flat dict over every subsystem's counters, under the
+        reference's keys: the registry's instruments (``sched.*`` gauges,
+        ``kv.hbm_used_bytes``, the ``engine.iteration_s`` histogram) and
+        reads of the counters where the hot paths keep them.  Works with
+        obs off.  ``plane.trace_count`` (the reference's jit traces) is
+        0: the port compiles nothing per shape."""
+        self._g_hbm_used.set(self.kv_mgr.hbm_used_bytes())
+        snap = self.metrics.snapshot()
         ts = self.kv_mgr.total_stats()
         w = self._worker
         live = w is not None and not w.closed
         p = self.plane
-        return {
+        snap.update({
             "kv.h2d_calls": float(ts.h2d_calls),
             "kv.h2d_blocks": float(ts.h2d_blocks),
             "kv.h2d_bytes": float(ts.h2d_bytes),
@@ -1207,7 +1288,7 @@ class ServingEngine:
             "kv.hits": float(ts.hits),
             "kv.misses": float(ts.misses),
             "kv.evictions": float(ts.evictions),
-            "kv.hbm_used_bytes": float(self.kv_mgr.hbm_used_bytes()),
+            "kv.hbm_budget_bytes": float(self.eng.hbm_budget_bytes),
             "kv.offload_block_bytes": float(self._offload_block_bytes),
             "engine.iterations": float(self.iterations),
             "engine.now_s": float(self.now),
@@ -1218,6 +1299,7 @@ class ServingEngine:
             "engine.admit_embed_launches": float(self.admit_embed_launches),
             "engine.prefill_hbm_peak_tokens":
                 float(self.prefill_hbm_peak_tokens),
+            "plane.count": 1.0 if self._plane_used else 0.0,
             "plane.steps": float(p.steps),
             "plane.host_syncs": float(p.host_syncs),
             "plane.d2h_readback_bytes": float(p.d2h_readback_bytes),
@@ -1225,8 +1307,53 @@ class ServingEngine:
             "plane.blocks_restored": float(p.blocks_restored),
             "plane.blocks_restored_before_use":
                 float(p.blocks_restored_before_use),
+            "plane.trace_count": 0.0,
+            "plane.dispatch_sync_s": sum(x.dispatch_sync_s
+                                         for x in self._stage_planes()),
+            "plane.host_stage_s": sum(x.host_stage_s
+                                      for x in self._stage_planes()),
             "worker.jobs_run": float(self.worker_jobs_run
                                      + (w.jobs_run if live else 0)),
             "worker.busy_s": (self.worker_busy_s
                               + (w.busy_s if live else 0.0)),
-        }
+            "obs.enabled": 1.0 if self.tracer.enabled else 0.0,
+            "obs.trace_events": float(len(self.tracer.events())),
+        })
+        return snap
+
+    def metrics_prometheus(self) -> str:
+        """Prometheus text exposition of :meth:`metrics_snapshot`."""
+        snap = self.metrics_snapshot()
+        reg_keys = set(self.metrics.snapshot())
+        return self.metrics.prometheus_text(
+            {k: v for k, v in snap.items() if k not in reg_keys})
+
+    def stage_overlap_measured(self) -> Optional[float]:
+        """Counter instrument of the async host stage's overlap: the share
+        of host-stage work that ran on the worker thread, ``busy_s /
+        (busy_s + the planes' host_stage_s)``.  None when no worker job
+        ran (sync mode, or no staged decode)."""
+        w = self._worker
+        busy = self.worker_busy_s + (w.busy_s if w is not None
+                                     and not w.closed else 0.0)
+        if busy <= 0.0:
+            return None
+        stage_s = sum(x.host_stage_s for x in self._stage_planes())
+        return busy / (busy + stage_s)
+
+    def stage_overlap_from_trace(self) -> Optional[float]:
+        """Trace instrument of the same overlap: the worker lane's
+        host-stage spans intersected with the iteration spans
+        (``obs.trace_analysis``).  None with obs off or no worker span."""
+        if not self.tracer.enabled:
+            return None
+        return achieved_overlap_fraction(self.tracer.events())
+
+    def chrome_trace(self) -> Dict[str, Any]:
+        """The Chrome trace-event JSON object (empty when obs is off)."""
+        return self.tracer.chrome_trace()
+
+    def dump_trace(self, path: str) -> int:
+        """Write the Chrome trace JSON to ``path`` (blocking file I/O:
+        call it between or after iterations); returns the event count."""
+        return self.tracer.dump_trace(path)

@@ -150,7 +150,14 @@ def test_oracle_options_resolve_as_reference(field, value, setups):
 @pytest.mark.parametrize("field,value", [
     ("mesh_spec", "model=2"), ("obs", True)])
 def test_unported_options_raise(field, value, setups):
+    """A plane mesh is not ported and raises; the obs layer, ported since,
+    builds a live tracer and installs it instead."""
     _, tc, _, tp = setups("qwen2-0.5b")
+    if field == "obs":
+        eng = ServingEngine(tp, tc, EngineConfig(**{field: value}))
+        assert eng.tracer.enabled
+        assert eng.kv_mgr.tracer is eng.tracer is eng.plane.tracer
+        return
     with pytest.raises(NotImplementedError):
         ServingEngine(tp, tc, EngineConfig(**{field: value}))
 
