@@ -13,9 +13,13 @@ order A, B, B, A).
 
 Shapes: flash_prefill at the serve prefill's first launch (qwen2-0.5b,
 B 1, Sq = Sk 4096, Hq 14, Hkv 2, D 64, q_offset 0), with SDPA on the same
-inputs; sparse_decode_attention at the serve's decode step (B 4, Hq 14,
+inputs, and at llama3-8b's heads (B 1, Sq = Sk 2048, Hq 32, Hkv 8,
+D 128); sparse_decode_attention at the serve's decode step (B 4, Hq 14,
 Hkv 2, NB 136, K 64, bs 32, D 64, cur_len 4112, every selection valid:
-512 live blocks, as the serve replay has); block_score at that step's
+512 live blocks, as the serve replay has), and with the select stage at
+the models phase's decode shapes of llama3-8b (B 1, Hq 32, Hkv 8,
+NB 4104, D 128) and granite-20b (B 4, Hq 48, Hkv 1, NB 264, D 128);
+block_score at the qwen2-0.5b step's
 shape, and the decode select stage from q to the selected ids as the
 tree's ``gqa_select_step`` runs it (``dsa.score_and_select``, the fused
 ``score_select`` launch, where the tree has it; else ``block_score`` then
@@ -34,7 +38,9 @@ manager at the serve's widths.  The stages are timed with the host work
 they carry; ``host_ms`` is their wall-clock time per call over 50 calls
 ended by a synchronize, ``device_ms`` and ``device_ops`` their device
 time and device operations per call under torch.profiler.  Each kernel
-is held against its plain version with chip_smoke.py's tolerance first.
+is held against its plain version with chip_smoke.py's tolerance first,
+and its output's ``digest`` (sha1 of the bytes) is printed, so two trees'
+kernels compare bit for bit on the same inputs.
 With ``--profile``, chip_smoke's profile phase then serves on the tree's
 engine under torch.profiler, with the fp tier and then with the int8
 tier (idle share, count of device operations, the port's kernels, a
@@ -44,6 +50,7 @@ call.  Prints one JSON line last; needs one CUDA card.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
@@ -182,6 +189,8 @@ def main() -> int:
     valid = torch.ones((B, Hkv, K), dtype=torch.bool, device=dev)
     cur_len = torch.full((B,), cur, dtype=torch.int32, device=dev)
     fq, fk, fv = randn(1, S, Hq, D), randn(1, S, Hkv, D), randn(1, S, Hkv, D)
+    wq, wk, wv = (randn(1, S // 2, 32, 128), randn(1, S // 2, 8, 128),
+                  randn(1, S // 2, 8, 128))
     mn = torch.randn((B, Hkv, NB, D), generator=gen, device=dev)
     meta = torch.stack([mn, mn + torch.rand((B, Hkv, NB, D), generator=gen,
                                             device=dev)], dim=3).contiguous()
@@ -190,25 +199,50 @@ def main() -> int:
             torch, ops, ref, q, k_pool, v_pool, idx, valid, cur_len),
         "flash_prefill": cs.case_flash(torch, ops, ref, fq, fk, fv,
                                        scale=D ** -0.5),
+        "flash_prefill_d128": cs.case_flash(torch, ops, ref, wq, wk, wv,
+                                            scale=128 ** -0.5),
         "block_score": cs.case_score(torch, ops, ref, q, meta),
     }
     # the decode select stage, as this tree's gqa_select_step runs it, on
     # the cache before the step's append (before + 1 = cur_len tokens)
     cfg = DSAConfig()
-    before = cur_len - 1
     fused = hasattr(dsa, "score_and_select")
-    if fused:
-        stage = lambda: dsa.score_and_select(q, meta, cfg, before)
-    else:
-        stage = lambda: dsa.select_blocks(
-            dsa.score_blocks(q, meta, cfg.metadata), cfg, before + 1)
-    scores = ref.block_score(q, meta)
-    ok, err = cs.select_agrees(
-        torch, stage(), dsa.select_blocks(scores, cfg, before + 1),
-        _select_scores(torch, scores, before + 1, cfg))
-    if not ok:
-        raise AssertionError(f"select stage disagrees with the plain one "
-                             f"({err})")
+
+    def select_stage(q, meta, cur_len):
+        before = cur_len - 1
+        if fused:
+            stage = lambda: dsa.score_and_select(q, meta, cfg, before)
+        else:
+            stage = lambda: dsa.select_blocks(
+                dsa.score_blocks(q, meta, cfg.metadata), cfg, before + 1)
+        scores = ref.block_score(q, meta)
+        ok, err = cs.select_agrees(
+            torch, stage(), dsa.select_blocks(scores, cfg, before + 1),
+            _select_scores(torch, scores, before + 1, cfg))
+        if not ok:
+            raise AssertionError(f"select stage disagrees with the plain "
+                                 f"one ({err})")
+        return stage
+
+    stage = select_stage(q, meta, cur_len)
+    select_stages = {}
+    # the models phase's GQA decode shapes: (B, Hq, Hkv, NB), D 128
+    for tag, (b, hq, hkv, nb) in {"llama3": (1, 32, 8, 4104),
+                                  "granite": (4, 48, 1, 264)}.items():
+        g_cur = torch.full((b,), (nb - 7) * bs - bs // 2, dtype=torch.int32,
+                           device=dev)
+        g_q = randn(b, hq, 128)
+        g_pool = [randn(b, hkv, nb, bs, 128) for _ in range(2)]
+        g_pick = torch.rand((b, hkv, nb - 7), generator=gen, device=dev)
+        g_idx = g_pick.argsort(dim=-1)[..., :K].to(torch.int32).contiguous()
+        g_mn = torch.randn((b, hkv, nb, 128), generator=gen, device=dev)
+        g_meta = torch.stack([g_mn, g_mn + torch.rand(
+            (b, hkv, nb, 128), generator=gen, device=dev)], dim=3)
+        cases[f"sparse_decode_attention_{tag}"] = cs.case_attention(
+            torch, ops, ref, g_q, *g_pool, g_idx,
+            torch.ones((b, hkv, K), dtype=torch.bool, device=dev), g_cur)
+        select_stages[f"select_stage_{tag}"] = select_stage(
+            g_q, g_meta.contiguous(), g_cur)
     # one eviction round of the serve's size
     plane = _drop_plane(torch, gen, dev, 4, 24, 129)
     rng = np.random.default_rng(args.seed)
@@ -235,6 +269,8 @@ def main() -> int:
                   plane, "drop_blocks_many") else "drop_blocks per pair"),
               "int8_decode_save": _int8_save(torch, gen, dev, 1),
               "int8_prefill_save": _int8_save(torch, gen, dev, 2048)}
+    stages.update({name: (fn, stages["select_stage"][1])
+                   for name, fn in select_stages.items()})
 
     timers = {"spin": cs.Timer(torch), "no_spin": cs.Timer(torch,
                                                            spin=False)}
@@ -248,7 +284,8 @@ def main() -> int:
         if not ok:
             raise AssertionError(f"{name}: outside the tolerance ({err})")
         rec = {"shape": shape, "max_abs_err": err,
-               "bound_ms": cs.bound_ms(nbytes, nops)[0]}
+               "bound_ms": cs.bound_ms(nbytes, nops)[0],
+               "digest": _digest(torch, kern())}
         for tname, timer in timers.items():
             rec[f"ms_{tname}"] = timer(kern)
             if len(case) > 7 and case[7] is not None:
@@ -256,6 +293,8 @@ def main() -> int:
         out[name] = rec
     for name, (fn, how) in stages.items():
         rec = {"how": how}
+        if name.startswith("select_stage"):
+            rec["digest"] = _digest(torch, fn())
         for tname, timer in timers.items():
             ops.launches.reset()
             rec[f"ms_{tname}"] = timer(fn)
@@ -272,6 +311,16 @@ def main() -> int:
         cs.phase_profile(torch, np, args.seed, "int8")
     print(json.dumps(out))
     return 0
+
+
+def _digest(torch, res) -> str:
+    """sha1 of the bytes of a kernel's output (a tensor, or a tuple of
+    them as a select returns)."""
+    torch.cuda.synchronize()
+    h = hashlib.sha1()
+    for t in (res if isinstance(res, tuple) else (res,)):
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def _select_scores(torch, scores, n_tokens, cfg):

@@ -56,8 +56,16 @@ each printing one line (``phase=...``) and failing the run on any error:
    rows), the attention with two more planted faults (the last group
    tile reading each query row one row late; its rows left unwritten),
    and score_select at llama3-8b's heads with NB 4097 and 8193, each with
-   its two planted faults.  score_select's lines also time the unfused
-   pair it replaces (block_score's kernel, then the plain select).  A
+   its two planted faults.  And at MLA's shapes (minicpm3-4b, since the
+   kernels were widened for it): sparse_decode_attention with 40 query
+   heads over one latent head of D = Dv = 288 (three group tiles), the
+   pool passed as both k and v, scale 1 / sqrt(96), with all four
+   planted attention faults; score_select over the 288-wide latent
+   metadata at NB 256 and 1025, each with its two planted faults; and
+   flash_prefill at q/k depth 96 and v width 64, 40 heads over 40, 4096
+   tokens, with its three planted faults.  score_select's lines also time
+   the unfused pair it replaces (block_score's kernel, then the plain
+   select), where block_score takes the width (D <= 128).  A
    move from or to pinned memory is also bounded by the PCIe link: a
    contiguous pinned-to-device copy of the same bytes is timed beside it
    (device-to-pinned for a write back or a save).
@@ -116,13 +124,15 @@ each printing one line (``phase=...``) and failing the run on any error:
 8. models — the paper's models and workload at full width, bf16 random
    weights from --seed, the default EngineConfig with wall-clock
    charging, smallest weights first, each engine and its weights freed
-   before the next (MODEL_RUNS): qwen2.5-3b, lwm-7b and granite-20b on
-   the port's LongBench-shaped trace (generate_trace, 2.0 req/s, 4
-   requests, prompts capped at 32768, 4096 and 8192, 32 new tokens), and
+   before the next (MODEL_RUNS): qwen2.5-3b, minicpm3-4b (MLA), lwm-7b
+   and granite-20b on the port's LongBench-shaped trace (generate_trace,
+   2.0 req/s, 4 requests, prompts capped at 32768, 32768, 4096 and 8192,
+   32 new tokens), and
    llama3-8b with one 131,072-token prompt, 8 new tokens, on the int8
    tier.  Algorithm 1's HBM budget stays the default 1 GiB unless the
-   largest working set one request can claim exceeds it (lwm-7b,
-   llama3-8b); then it is the device memory left after the weights.
+   largest working set one request can claim exceeds it (minicpm3-4b,
+   whose geometry counts its latent over 40 heads, lwm-7b, llama3-8b);
+   then it is the device memory left after the weights.
    Asserts that every request was admitted and finished with finite
    logits, that every kernel of each config's path launched, and that at
    least one trace-driven config ran an iteration with prefill and
@@ -131,11 +141,13 @@ each printing one line (``phase=...``) and failing the run on any error:
    device memory, pinned host bytes, the HBM budget and launches by
    kernel, with the card's name and power limit.  One launch of each
    kernel at a shape only these configs give is kept and replayed, with
-   the weights freed, against its plain version (phase_mainpath):
-   sparse_decode_attention and score_select at NB 4104 (llama3-8b) and
-   G 48 (granite-20b), flash_prefill at D 128 over 32 kv heads (lwm-7b)
-   and one (granite-20b).  Its launch counts join the kernels' JSON
-   record.
+   the weights freed, against its plain version (phase_mainpath), each
+   replay with its device ms per call under torch.profiler:
+   sparse_decode_attention and score_select at NB 4104 (llama3-8b), G 48
+   (granite-20b) and G 40 over one 288-wide latent head (minicpm3-4b),
+   flash_prefill at D 128 over 32 kv heads (lwm-7b) and one
+   (granite-20b), and at D 96 with Dv 64 over 40 heads (minicpm3-4b).
+   Its launch counts join the kernels' JSON record.
 9. obs    — the obs layer on the card (EngineConfig(obs=True): the
    reference's host wall-clock spans and metrics registry).  After a
    warm-up serve, the serve phase's run with obs off, on, on, off: the
@@ -271,6 +283,14 @@ B, BS, K, NB = 8, 32, 64, 256
 # (llama3-8b's heads; 8193 blocks hold its 262,144-token context)
 GROUP_SHAPE = dict(arch="granite-20b", Hq=48, Hkv=1, D=128)
 GROUP_B, LONG_B, LONG_NB = 4, 2, (4097, 8193)
+# MLA (minicpm3-4b): the decode kernels over one latent head of D = Dv =
+# 288 (kv_lora 256 + rope 32) under its 40 absorbed query heads (group
+# tiles of 16, 16 and 8 rows), the pool passed as both k and v, scale
+# 1 / sqrt(qk = 96); score_select at NB 256 (rank-all) and 1025 (the radix
+# path; 1025 blocks hold the trace's 32,768-token cap); flash_prefill at
+# q/k depth 96 and v width 64, 40 heads over 40
+MLA_SHAPE = dict(arch="minicpm3-4b", Hq=40, Hkv=1, D=288, qk=96, v=64)
+MLA_B, MLA_NB = 4, ((256, 4), (1025, 2))
 ATTN_ATOL, ATTN_RTOL = 2e-3, 1e-2
 # flash_prefill, per output element: FLASH_WEIGHT_TOL * W + FLASH_RTOL *
 # |ref|, W = sum_j p_j |v_j| / sum_j p_j (the plain version run on |v|)
@@ -335,9 +355,13 @@ ORACLE_REL_L2 = 2.0 ** -5
 # LONG_PROMPT tokens arriving at 0.0, the kernels whose launches are kept
 # for phase_mainpath at the shapes only that config gives them: the
 # decode kernels at NB > 4096 (llama3-8b) and at G = 48 (granite-20b),
-# flash_prefill at D 128 with 32 kv heads (lwm-7b) and one (granite-20b))
+# flash_prefill at D 128 with 32 kv heads (lwm-7b) and one (granite-20b);
+# all three at MLA's shapes (minicpm3-4b: G = 40 over one 288-wide latent
+# head, flash_prefill at D 96 with Dv 64))
 MODEL_RUNS = {
     "qwen2.5-3b": ("none", (4, 32768, 32), ()),
+    "minicpm3-4b": ("none", (4, 32768, 32), (
+        "sparse_decode_attention", "score_select", "flash_prefill")),
     "lwm-7b": ("none", (4, 4096, 32), ("flash_prefill",)),
     "llama3-8b": ("int8", None, ("sparse_decode_attention",
                                  "score_select")),
@@ -413,8 +437,9 @@ def _attn_close(out, want) -> tuple:
             bool((err <= ATTN_ATOL + ATTN_RTOL * want.float().abs()).all()))
 
 
-def case_attention(torch, ops, ref, q, k_pool, v_pool, idx, valid, cur_len):
-    args = (q, k_pool, v_pool, idx, valid, cur_len)
+def case_attention(torch, ops, ref, q, k_pool, v_pool, idx, valid, cur_len,
+                   scale=None):
+    args = (q, k_pool, v_pool, idx, valid, cur_len, scale)
     out = ops.sparse_decode_attention(*args)
     want = ref.sparse_decode_attention(*args)
     torch.cuda.synchronize()
@@ -424,11 +449,15 @@ def case_attention(torch, ops, ref, q, k_pool, v_pool, idx, valid, cur_len):
     Dv = v_pool.shape[-1]
     # blocks the kernel must read: valid selections starting below cur_len
     live = int((valid & (idx * bs < cur_len[:, None, None])).sum().item())
-    nbytes = (q.numel() * 2 + live * bs * (D + Dv) * 2 + idx.numel() * 5
+    # one pool passed as both (MLA's latent) is read once
+    read = D + (Dv if v_pool.data_ptr() != k_pool.data_ptr() else 0)
+    nbytes = (q.numel() * 2 + live * bs * read * 2 + idx.numel() * 5
               + cur_len.numel() * 4 + out.numel() * 2)
     nops = live * (Hq // Hkv) * bs * 2 * (D + Dv)
     shape = (f"B={B} Hq={Hq} Hkv={Hkv} NB={NB} K={idx.shape[-1]} bs={bs} "
-             f"D={D} live_blocks={live}")
+             f"D={D} " + (f"Dv={Dv} " if Dv != D else "")
+             + (f"scale={scale:.6f} " if scale is not None else "")
+             + f"live_blocks={live}")
     return (err, ok, lambda: ops.sparse_decode_attention(*args),
             lambda: ref.sparse_decode_attention(*args), nbytes, nops, shape)
 
@@ -507,7 +536,9 @@ def case_select(torch, ops, ref, q, meta, cur_len, **kw):
             B * Hkv * NB * (Hq // Hkv) * 4 * D,
             f"B={B} Hq={Hq} Hkv={Hkv} NB={NB} D={D} K={K} "
             f"bs={kw['block_size']} sink={kw['sink_blocks']} "
-            f"recent={kw['recent_blocks']}", None, None, unfused)
+            f"recent={kw['recent_blocks']}", None, None,
+            # block_score keeps D <= 128: no unfused pair at MLA's width
+            unfused if D <= 128 else None)
 
 
 def _select_scores(ref, q, meta, cur_len, kw):
@@ -698,10 +729,20 @@ def case_flash(torch, ops, ref, q, k, v, *, scale, causal=True,
                               device=q.device).tril(int(q_offset))
             lib = lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask, scale=scale, enable_gqa=True)
+        if D != Dv:
+            # v narrower than q and k (MLA): not every SDPA backend takes it
+            try:
+                lib()
+                torch.cuda.synchronize()
+            except RuntimeError as e:
+                log(f"flash_prefill library: SDPA refuses D {D} with Dv "
+                    f"{Dv}: {str(e).splitlines()[0][:200]}")
+                lib = None
     return (err, ok, lambda: ops.flash_prefill(q, k, v, **kw),
             lambda: ref.flash_prefill(q, k, v, **kw), nbytes, nops,
             f"B={B} Sq={Sq} Sk={Sk} Hq={Hq} Hkv={Hkv} D={D} "
-            f"q_offset={int(q_offset)}", lib)
+            + (f"Dv={Dv} " if Dv != D else "")
+            + f"q_offset={int(q_offset)}", lib)
 
 
 def case_quantize(torch, ops, ref, blocks):
@@ -909,11 +950,30 @@ def link_copy(torch, direction: str, nbytes: int):
     return lambda: host.copy_(dev, non_blocking=True)
 
 
+def device_ms(torch, fn, reps: int = 10) -> float:
+    """Device time of one call of ``fn``: the summed device-side events
+    (kernels, copies, memsets) of ``reps`` calls under torch.profiler,
+    over ``reps``; free of the Timer's ~6 us floor."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+             for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / reps / 1e3
+
+
 def run_case(phase: str, label: str, name: str, case: tuple,
-             timer) -> dict:
+             timer, device: bool = False) -> dict:
     """Time one case, print its line, fail on disagreement.  A case is
     (max_abs_err, ok, kernel fn, plain fn, bytes, ops, shape[, library fn
-    or None[, (link direction, bytes) or None]])."""
+    or None[, (link direction, bytes) or None]]).  ``device``: also the
+    kernel's device ms per call under torch.profiler (``device_ms``)."""
     err, ok, kfn, pfn, nbytes, nops, shape, *extra = case
     lib_fn = extra[0] if extra else None
     link = extra[1] if len(extra) > 1 else None
@@ -924,6 +984,8 @@ def run_case(phase: str, label: str, name: str, case: tuple,
     res = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
            "shape": shape}
+    if device:
+        res["device_ms"] = device_ms(timer.torch, kfn)
     if unfused is not None:
         res["unfused_ms"] = timer(unfused)
     line = (f"phase={phase} {label} kernel={name} ok={ok} "
@@ -935,6 +997,8 @@ def run_case(phase: str, label: str, name: str, case: tuple,
     if unfused is not None:
         line += (f" unfused_ms={res['unfused_ms']:.4f} (block_score kernel, "
                  f"then the plain select)")
+    if device:
+        line += f" device_ms={res['device_ms']:.5f}"
     if link is not None:
         res["link_bound_ms"] = timer(link_copy(timer.torch, *link))
         res["binds"] = "link" if res["link_bound_ms"] > b_ms else "hbm"
@@ -948,12 +1012,12 @@ def run_case(phase: str, label: str, name: str, case: tuple,
 
 
 def planted_faults(torch, ops, ref, q, k_pool, v_pool, idx, valid, cur_len,
-                   arch: str) -> None:
+                   arch: str, scale=None) -> None:
     """The attention tolerance must reject a kernel that masks one block
     wrong: run the kernel on inputs with a planted fault and hold it
     against the plain version on the true inputs."""
     want = ref.sparse_decode_attention(q, k_pool, v_pool, idx, valid,
-                                       cur_len)
+                                       cur_len, scale)
     bs = k_pool.shape[3]
     flipped = valid.clone()
     flipped[1, 0, 1] = False           # a whole live block (the one
@@ -963,7 +1027,8 @@ def planted_faults(torch, ops, ref, q, k_pool, v_pool, idx, valid, cur_len,
              (q, k_pool, v_pool, idx, valid, cur_len - bs)),
             ("one_valid_flag_cleared",
              (q, k_pool, v_pool, idx, flipped, cur_len))):
-        err, ok = _attn_close(ops.sparse_decode_attention(*args), want)
+        err, ok = _attn_close(ops.sparse_decode_attention(*args, scale),
+                              want)
         log(f"phase=parity arch={arch} planted_fault={label} "
             f"max_abs_err={err:.3e} rejected={not ok}")
         if ok:
@@ -1156,7 +1221,8 @@ def phase_parity(torch, ops, ref, timer, seed: int) -> dict:
             label = f"arch={arch} {mode}".strip()
             results.setdefault(name, {})[label] = run_case(
                 "parity", label, name, case, timer)
-    for name, label, case in parity_new_shapes(torch, ops, ref, gen):
+    for name, label, case in (parity_new_shapes(torch, ops, ref, gen)
+                              + parity_mla_shapes(torch, ops, ref, gen)):
         results.setdefault(name, {})[label] = run_case(
             "parity", label, name, case, timer)
     return results
@@ -1206,7 +1272,7 @@ def _select_inputs(torch, gen, cur_len, Hkv: int, D: int, nb: int) -> tuple:
 
 
 def group_faults(torch, ops, ref, q, k_pool, v_pool, idx, valid, cur_len,
-                 arch: str) -> None:
+                 arch: str, scale=None) -> None:
     """At a GQA group of several tiles, the attention tolerance must
     reject a kernel whose last group tile reads each query row one row
     late, or leaves that tile's rows unwritten (zero): the first runs
@@ -1214,7 +1280,7 @@ def group_faults(torch, ops, ref, q, k_pool, v_pool, idx, valid, cur_len,
     kernel's output with those rows cleared; both are held against the
     plain version on the true inputs."""
     want = ref.sparse_decode_attention(q, k_pool, v_pool, idx, valid,
-                                       cur_len)
+                                       cur_len, scale)
     Bn, Hq, D = q.shape
     Hkv = k_pool.shape[1]
     G = Hq // Hkv
@@ -1222,7 +1288,7 @@ def group_faults(torch, ops, ref, q, k_pool, v_pool, idx, valid, cur_len,
     assert g0 > 0 and G - g0 >= 2, "needs a last tile of two rows or more"
     late = q.view(Bn, Hkv, G, D).clone()
     late[:, :, g0:G - 1] = q.view(Bn, Hkv, G, D)[:, :, g0 + 1:]
-    rest = (k_pool, v_pool, idx, valid, cur_len)
+    rest = (k_pool, v_pool, idx, valid, cur_len, scale)
     cleared = ops.sparse_decode_attention(q, *rest).view(Bn, Hkv, G, -1)
     cleared[:, :, g0:] = 0
     for label, out in (
@@ -1276,6 +1342,52 @@ def parity_new_shapes(torch, ops, ref, gen) -> list:
             torch, ops, ref, q, tie_meta, sel_len, **kw)))
         select_faults(torch, ops, ref, q, tie_meta, sel_len, kw,
                       f"llama3-8b nb={nb}")
+    return out
+
+
+def parity_mla_shapes(torch, ops, ref, gen) -> list:
+    """The three kernels at the MLA shapes they take since minicpm3-4b is
+    served (MLA_SHAPE): sparse_decode_attention with G = 40 over one
+    latent head of D = Dv = 288, the same pool as k and v, scale
+    1 / sqrt(96), with the attention's four planted faults; score_select
+    over the 288-wide latent metadata at NB 256 and 1025, each with its
+    two planted faults; flash_prefill at q/k depth 96 and v width 64, 40
+    heads over 40, 4096 tokens, with its three planted faults.  Returns
+    (kernel, label, case) triples for run_case."""
+    sh = MLA_SHAPE
+    dev = torch.device("cuda")
+    scale = sh["qk"] ** -0.5
+    label = f"arch={sh['arch']}"
+    q, pool, _, idx, valid, cur_len = _attention_inputs(
+        torch, gen, MLA_B, sh["Hq"], sh["Hkv"], sh["D"], NB)
+    attn = (q, pool, pool, idx, valid, cur_len)
+    out = [("sparse_decode_attention", label,
+            case_attention(torch, ops, ref, *attn, scale=scale))]
+    planted_faults(torch, ops, ref, *attn, sh["arch"], scale=scale)
+    group_faults(torch, ops, ref, *attn, sh["arch"], scale=scale)
+    kw = dict(block_size=BS, top_k=K, sink_blocks=1, recent_blocks=2)
+    for nb, bn in MLA_NB:
+        qs = torch.randn((bn, sh["Hq"], sh["D"]), generator=gen,
+                         device=dev).bfloat16()
+        cl = torch.randint(nb * BS // 2, nb * BS, (bn,), generator=gen,
+                           device=dev, dtype=torch.int32)
+        _, tie_meta, sel_len = _select_inputs(torch, gen, cl, sh["Hkv"],
+                                              sh["D"], nb)
+        out.append(("score_select", f"{label} nb={nb}", case_select(
+            torch, ops, ref, qs, tie_meta, sel_len, **kw)))
+        select_faults(torch, ops, ref, qs, tie_meta, sel_len, kw,
+                      f"{sh['arch']} nb={nb}")
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).bfloat16()
+    H = sh["Hq"]
+    fq, fk = randn(1, SERVE_PROMPT, H, sh["qk"]), randn(1, SERVE_PROMPT, H,
+                                                         sh["qk"])
+    fv = randn(1, SERVE_PROMPT, H, sh["v"])
+    out.append(("flash_prefill", f"{label} mode=q_offset=0", case_flash(
+        torch, ops, ref, fq, fk, fv, scale=scale)))
+    flash_faults(torch, ops, ref, fq, fk, fv, scale, 0,
+                 f"{label} mode=q_offset=0")
     return out
 
 
@@ -1456,9 +1568,13 @@ class MainPathCapture:
         for name, fn in self.orig.items():
             setattr(self.ops, name, fn)
 
-    def _keep(self, a):
+    def _keep(self, a, memo: dict):
         if isinstance(a, self.torch.Tensor) and not a.is_pinned():
-            return a.clone()
+            # one clone of a tensor passed twice, so the replay aliases
+            # as the launch did (MLA's latent pool as k and v)
+            if id(a) not in memo:
+                memo[id(a)] = a.clone()
+            return memo[id(a)]
         if isinstance(a, self.ops.PoolTable):
             return [p.clone() for p in a.pools]
         if isinstance(a, list) and a and isinstance(a[0], self.ops.QuantSave):
@@ -1511,15 +1627,19 @@ class MainPathCapture:
                      and len(args[1]) > len(self.inputs[key][0][1]))
             if (due and (key not in self.inputs or wider)
                     and (self.keep is None or key in self.keep)):
-                self.inputs[key] = (tuple(self._keep(a) for a in args),
-                                    {k: self._keep(v) for k, v in kw.items()})
+                memo = {}
+                self.inputs[key] = (
+                    tuple(self._keep(a, memo) for a in args),
+                    {k: self._keep(v, memo) for k, v in kw.items()})
             return fn(*args, **kw)
         return wrapped
 
 
-def phase_mainpath(torch, ops, ref, timer, caps: dict) -> dict:
+def phase_mainpath(torch, ops, ref, timer, caps: dict,
+                   device: bool = False) -> dict:
     """Replay the kept main-path launches of each serve path ({path:
-    MainPathCapture}): {kernel: {case: result}}."""
+    MainPathCapture}): {kernel: {case: result}}; ``device``: with each
+    kernel's device ms per call (``run_case``)."""
     makers = {"sparse_decode_attention": case_attention,
               "block_score": case_score,
               "gather_blocks_hkv": case_gather,
@@ -1539,12 +1659,14 @@ def phase_mainpath(torch, ops, ref, timer, caps: dict) -> dict:
             mode = key.split(":")[1] if ":" in key else ""
             label = f"path={path}" + (f" mode={mode}" if mode else "")
             res = run_case("mainpath", label, name,
-                           makers[name](torch, ops, ref, *args, **kw), timer)
+                           makers[name](torch, ops, ref, *args, **kw), timer,
+                           device=device)
             res["launches"] = cap.calls[key]
             results.setdefault(name, {})[label] = res
-            if name == "score_select":
+            if name == "score_select" and args[0].shape[-1] <= 128:
                 # block_score, no longer on the serve path, on the same
                 # kept inputs: the redesigned scoring at the serve's shape
+                # (it keeps D <= 128: not at MLA's latent width)
                 res = run_case("mainpath", label + " mode=select_inputs",
                                "block_score",
                                case_score(torch, ops, ref, *args[:2]),
@@ -1594,8 +1716,8 @@ def kernel_records(parity: dict, mainpath: dict, counts: dict) -> list:
             "launches_by_path": {path: c.get(name, 0)
                                  for path, c in counts.items()},
             "cases": {label: {k: r[k] for k in (
-                "shape", "ms", "plain_ms", "bound_ms", "library_ms",
-                "unfused_ms", "link_bound_ms", "binds",
+                "shape", "ms", "device_ms", "plain_ms", "bound_ms",
+                "library_ms", "unfused_ms", "link_bound_ms", "binds",
                 "per_block_copies_ms", "launches") if k in r}
                 for label, r in cases.items()}}
         for key in ("link_bound_ms", "per_block_copies_ms"):
@@ -2252,15 +2374,18 @@ def _hbm_budget(torch, cfg, subs, default: int) -> tuple:
     largest working set one request can claim exceeds it: its
     layer-segmented prefill (one layer of its prompt) or a decode window's
     union (the scheduler's 12 steps of top-k blocks, at most every block,
-    in every layer), bf16 K and V.  Then a request the default could
-    never admit gets the device memory left after the weights.  Returns
-    (budget, that largest working set)."""
-    bs, D, Hkv = cfg.dsa.block_size, cfg.head_dim, cfg.num_kv_heads
-    per_block_layer = bs * D * 2 * 2 * Hkv
+    in every layer), bf16 K and V (MLA: the latent, counted over
+    max(num_kv_heads, 1) heads as the engine's geometry counts it).  Then
+    a request the default could never admit gets the device memory left
+    after the weights.  Returns (budget, that largest working set)."""
+    from repro_torch.core.kv_cache import KVGeometry
+    geom = KVGeometry.of_model(cfg)
+    bs = geom.block_size
+    per_block_layer = geom.block_bytes_per_head * geom.num_kv_heads
     worst = 0
     for r, _ in subs:
         nb = -(-(r.prompt_len + r.max_new_tokens) // bs) + 1
-        worst = max(worst, r.prompt_len * D * 2 * 2 * Hkv,
+        worst = max(worst, r.prompt_len * per_block_layer // bs,
                     min(nb, 12 * cfg.dsa.top_k_blocks) * cfg.num_layers
                     * per_block_layer)
     if worst <= default:
@@ -2341,7 +2466,11 @@ def _serve_model(torch, np, ops, arch: str, seed: int, caps: dict,
     p99 = m.p99_tbt
     log(f"phase={tag} arch={arch} layers={cfg.num_layers} "
         f"d_model={cfg.d_model} heads={cfg.num_heads}/{cfg.num_kv_heads} "
-        f"head_dim={cfg.head_dim} offload_quant={tier} "
+        + (f"attention=mla latent={cfg.kv_cache_dim} "
+           f"qk={cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim} "
+           f"v={cfg.mla.v_head_dim} " if cfg.attention_type == "mla"
+           else f"head_dim={cfg.head_dim} ")
+        + f"offload_quant={tier} "
         f"requests={len(subs)} "
         f"prompts={[r.prompt_len for r, _ in subs]} "
         f"new={[r.max_new_tokens for r, _ in subs]} "
@@ -2383,8 +2512,8 @@ def phase_models(torch, np, ops, ref, timer, seed: int) -> tuple:
         counts[f"models_{arch}"] = r["counts"]
         mixed[arch] = r["mixed"]
         _free_memory(torch)
-        for name, cases in phase_mainpath(torch, ops, ref, timer,
-                                          caps).items():
+        for name, cases in phase_mainpath(torch, ops, ref, timer, caps,
+                                          device=True).items():
             replays.setdefault(name, {}).update(cases)
         caps.clear()
     log(f"phase=models mixed_iterations={json.dumps(mixed)} "

@@ -1,5 +1,5 @@
-"""Architecture config registry of the port: the dense GQA decoders it
-serves.  Each module exports ``CONFIG`` (the full-scale config, source
+"""Architecture config registry of the port: the dense decoders it
+serves (GQA, and MLA for minicpm3-4b).  Each module exports ``CONFIG`` (the full-scale config, source
 cited) and ``smoke_config()`` (a reduced variant for CPU tests), copied from
 the reference registry."""
 from __future__ import annotations
@@ -13,6 +13,7 @@ _ARCH_MODULES = {
     "qwen2-0.5b": "repro_torch.configs.qwen2_0_5b",
     "qwen2.5-3b": "repro_torch.configs.qwen2_5_3b",
     "granite-20b": "repro_torch.configs.granite_20b",
+    "minicpm3-4b": "repro_torch.configs.minicpm3_4b",
     # the paper's own evaluation models
     "lwm-7b": "repro_torch.configs.lwm_7b",
     "llama3-8b": "repro_torch.configs.llama3_8b",

@@ -17,8 +17,9 @@ and metadata update, the FlashH2D restores (``restore_blocks_fused``,
 through the ``scatter_blocks_hkv`` kernel on the GPU) and the eviction
 drops (``drop_blocks_many``: a whole round of them zeroed by one
 ``zero_blocks_hkv`` launch over the plane's table of K and V pools, where
-the reference scatters a zero payload per request and layer).  Stage
-functions are plain calls of ``models/model.py``.
+the reference scatters a zero payload per request and layer).  An MLA
+plane holds one latent pool per layer and no V pool.  Stage functions are
+plain calls of ``models/model.py``.
 """
 from __future__ import annotations
 
@@ -118,8 +119,9 @@ class DevicePoolPlane:
         self.host_stage_s = 0.0
         self.tracer = NULL_TRACER        # the engine installs a live
                                          # Tracer when obs is on
-        # K and V pools of every layer (2 * layer, 2 * layer + 1), with
-        # their device address table: rebuilt where the pools are made
+        # K and V pools of every layer (kvf * layer + 0 / 1, kvf the
+        # pools per layer: 2, or 1 for MLA's latent), with their device
+        # address table: rebuilt where the pools are made
         self.pool_table: Optional[ops.PoolTable] = None
 
     @property
@@ -142,9 +144,14 @@ class DevicePoolPlane:
                                        device=dev),
                 "extra": {}}
 
+    @staticmethod
+    def _kv_keys(cache: Dict) -> Tuple[str, ...]:
+        """A layer cache's pools: K and V, or MLA's one latent pool."""
+        return tuple(key for key in ("k", "v") if key in cache)
+
     def _table_pools(self, caches: List[Dict]) -> None:
         self.pool_table = ops.PoolTable(
-            [c[key] for c in caches for key in ("k", "v")])
+            [c[key] for c in caches for key in self._kv_keys(c)])
 
     def _grow(self, b_cap: int, nb_cap: int) -> None:
         st = self.state
@@ -304,7 +311,7 @@ class DevicePoolPlane:
     def new_token_kv(self, req_ids: List[str], prev_lens: Dict[str, int],
                      layers: List[int], ship) -> Dict[int, Tuple]:
         """``new_token_kv_async`` waited for: {model_layer: (k, v)}, each
-        (R, Hkv, D) float32 where ``ship`` put it."""
+        (R, Hkv, D) float32 where ``ship`` put it (v None for MLA)."""
         return {l: tuple(pending.wait()) for l, pending in
                 self.new_token_kv_async(req_ids, prev_lens, layers,
                                         ship).items()}
@@ -315,7 +322,8 @@ class DevicePoolPlane:
         """Launch the gathers of the KV stripe this iteration appended and
         hand each layer's to ``ship`` (``KVCacheManager.ship``) WITHOUT a
         host sync: {model_layer: pending}, whose ``wait()`` gives (k
-        (R,Hkv,D), v (R,Hkv,D)) float32, rows ordered like ``req_ids``.
+        (R,Hkv,D), v (R,Hkv,D) or None for MLA) float32, rows ordered like
+        ``req_ids``.
         The gather makes a new tensor right after the layer's select, so
         later in-place pool writes (restores, drops, the next select)
         cannot reach the stripe."""
@@ -330,7 +338,7 @@ class DevicePoolPlane:
         for l in layers:
             c = self.state["caches"][l]
             k = c["k"][rows, :, blk, slot].float()          # (R, Hkv, D)
-            v = c["v"][rows, :, blk, slot].float()
+            v = c["v"][rows, :, blk, slot].float() if "v" in c else None
             out[l] = ship(k, v)
             self.d2h_readback_bytes += out[l].host_bytes
         return out
@@ -341,8 +349,9 @@ class DevicePoolPlane:
                              before_use: bool = False) -> None:
         """Land one layer's fused FlashH2D payloads for the WHOLE batch
         with one launch per tensor, IN PLACE.  payload_by_req: {req_id:
-        (blocks, k, v)} with k/v float32 (Hkv,K,bs,D) blocks, cast to the
-        pool dtype by ``scatter_blocks_hkv``, or the int8 tier's
+        (blocks, k, v)} with k/v float32 (Hkv,K,bs,D) blocks (v None for
+        MLA), cast to the pool dtype by ``scatter_blocks_hkv``, or the int8
+        tier's
         ``QuantBlocks`` (int8 payload and (Hkv,K) scales, both on the
         device), dequantized into the pool by ``dequantize_scatter_blocks``.
         before_use: the restore lands between the layer's select and
@@ -350,26 +359,27 @@ class DevicePoolPlane:
         c = self.state["caches"][layer]
         rows_l: List[int] = []
         blks_l: List[int] = []
-        ks, vs = [], []
+        keys = self._kv_keys(c)
+        pays: Dict[str, List[Any]] = {key: [] for key in keys}
         for req_id, (blocks, k_pay, v_pay) in payload_by_req.items():
             rows_l.extend([self.rows[req_id]] * len(blocks))
             blks_l.extend(blocks)
-            ks.append(k_pay)
-            vs.append(v_pay)
+            for key, pay in zip(keys, (k_pay, v_pay)):
+                pays[key].append(pay)
         if not blks_l:
             return
-        if isinstance(ks[0], QuantBlocks):
+        if isinstance(pays["k"][0], QuantBlocks):
             dev = self.device
             rows = host_to_device(rows_l, dev)
             blks = host_to_device(blks_l, dev)
-            for pool, pays in ((c["k"], ks), (c["v"], vs)):
+            for key, ps in pays.items():
                 ops.dequantize_scatter_blocks(
-                    pool, torch.cat([p.q for p in pays], dim=1),
-                    torch.cat([p.scales for p in pays], dim=1), blks, rows)
+                    c[key], torch.cat([p.q for p in ps], dim=1),
+                    torch.cat([p.scales for p in ps], dim=1), blks, rows)
         else:
             # host-held ids: checked, then uploaded with the launch
-            for pool, pays in ((c["k"], ks), (c["v"], vs)):
-                ops.scatter_blocks_hkv(pool, torch.cat(pays, dim=1), blks_l,
+            for key, ps in pays.items():
+                ops.scatter_blocks_hkv(c[key], torch.cat(ps, dim=1), blks_l,
                                        rows_l)
         self.blocks_restored += len(blks_l)
         if before_use:
@@ -385,7 +395,8 @@ class DevicePoolPlane:
     def drop_blocks_many(self, blocks_by: Dict[Tuple[str, int], List[int]]
                          ) -> None:
         """Zero a whole eviction round IN PLACE, {(req_id, layer): blocks}:
-        K and V of every listed block, in one ``zero_blocks_hkv`` launch
+        K and V (MLA: the latent) of every listed block, in one
+        ``zero_blocks_hkv`` launch
         with one upload of its (pool, row, block) items on the GPU.  Block
         METADATA stays, so DSA scoring is exact; re-selected blocks come
         back through ``restore_blocks_fused``.  ``blocks_dropped`` grows by
@@ -399,12 +410,14 @@ class DevicePoolPlane:
         self.blocks_dropped += int(blks.size)
         if not blks.size:
             return
-        k_pool = np.repeat(np.fromiter((2 * l for _, l in blocks_by),
+        kvf = len(self._kv_keys(self.state["caches"][0]))
+        k_pool = np.repeat(np.fromiter((kvf * l for _, l in blocks_by),
                                        np.int64, len(blocks_by)), n)
         row = np.repeat(np.fromiter((self.rows[r] for r, _ in blocks_by),
                                     np.int64, len(blocks_by)), n)
-        # every block in its layer's K pool (2 * layer), then in its V pool
+        # every block in its layer's K pool (kvf * layer), then in its V
+        # pool
         ops.zero_blocks_hkv(self.pool_table,
-                            np.concatenate([k_pool, k_pool + 1]),
-                            np.concatenate([row, row]),
-                            np.concatenate([blks, blks]))
+                            np.concatenate([k_pool + j for j in range(kvf)]),
+                            np.concatenate([row] * kvf),
+                            np.concatenate([blks] * kvf))

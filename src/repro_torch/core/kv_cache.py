@@ -45,6 +45,16 @@ class KVGeometry:
     dtype_bytes: int = 2     # bf16
     kv_factor: int = 2       # k and v (MLA latent: 1)
 
+    @classmethod
+    def of_model(cls, cfg) -> "KVGeometry":
+        """The engine's geometry for a ``ModelConfig``: MLA caches one
+        latent (``kv_factor`` 1), counted over ``max(num_kv_heads, 1)``
+        heads as the reference counts it."""
+        return cls(num_layers=cfg.num_attention_layers(),
+                   num_kv_heads=max(cfg.num_kv_heads, 1),
+                   block_size=cfg.dsa.block_size, head_dim=cfg.kv_cache_dim,
+                   kv_factor=1 if cfg.attention_type == "mla" else 2)
+
     @property
     def block_bytes_per_head(self) -> int:
         """Bytes of ONE block for ONE kv head at the MODELED device dtype
@@ -62,6 +72,16 @@ class KVGeometry:
         admission (M_avl) and working-set estimates use this; per-transfer
         accounting uses the per-(layer, head) slices instead."""
         return self.block_bytes_per_head * self.num_kv_heads * self.num_layers
+
+    @property
+    def stored_heads(self) -> int:
+        """Heads a host pool physically holds: ``num_kv_heads``, or one
+        for MLA's latent (``kv_factor`` 1).  The reference's numpy pool
+        broadcasts the one latent head over ``num_kv_heads`` and restores
+        head 0 of it; the port stores that head once.  Every byte and
+        block counter keeps the reference's ``num_kv_heads`` (an
+        accounting factor for MLA), so ``TransferStats`` stay equal."""
+        return 1 if self.kv_factor == 1 else self.num_kv_heads
 
     def tokens_bytes(self, n_tokens: int) -> int:
         """Logical KV bytes of ``n_tokens`` across all layers/heads at the
@@ -202,7 +222,7 @@ class HostPool:
     """Host-DRAM block pool for ONE request (data plane).
 
     K/V blocks live in tensors shaped (L, Hkv, NB, bs, D), pinned when
-    ``device`` is a GPU: float32 in the fp tier, int8 with float32 scale
+    ``device`` is a GPU (MLA: K only, one latent head; ``stored_heads``): float32 in the fp tier, int8 with float32 scale
     planes (L, Hkv, NB) (``k_scale``/``v_scale``) in the int8 tier.  Saving
     follows FlashD2H: the contiguous per-iteration KV stripe is appended to
     a staging list in one "memcpy" and scattered into blocks lazily
@@ -224,7 +244,7 @@ class HostPool:
         self.num_blocks = num_blocks
         self.quant = quant
         self.device = torch.device(device)
-        shape = (g.num_layers, g.num_kv_heads, num_blocks, g.block_size,
+        shape = (g.num_layers, g.stored_heads, num_blocks, g.block_size,
                  g.head_dim)
         pin = self.device.type == "cuda"
         dt = torch.int8 if quant == "int8" else torch.float32
@@ -233,7 +253,7 @@ class HostPool:
                   if g.kv_factor == 2 else None)
         self.k_scale = self.v_scale = None
         if quant == "int8":
-            sshape = (g.num_layers, g.num_kv_heads, num_blocks)
+            sshape = (g.num_layers, g.stored_heads, num_blocks)
             self.k_scale = torch.zeros(sshape, dtype=torch.float32,
                                        pin_memory=pin)
             self.v_scale = (torch.zeros(sshape, dtype=torch.float32,

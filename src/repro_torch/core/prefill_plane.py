@@ -12,7 +12,9 @@ next segments by (layer, chunk start).  Each group runs as
 ONE batched launch of ``model.prefill_attn_layer_batched`` over the padded
 batch (a token mask marks real tokens, a step mask parks unscheduled rows).
 The group's KV lands in the plane's one-layer context buffer
-(``ctx_k``/``ctx_v``), from which the engine reads the fused FlashD2H save
+(``ctx_k``/``ctx_v``; an MLA plane holds its latent as one head in
+``ctx_k`` and has no ``ctx_v``, and runs whole-layer segments only, as
+the reference's does), from which the engine reads the fused FlashD2H save
 (``read_group_kv_async``, ``read_group_kv``) and the end-of-layer pool build
 (``layer_ctx``) — the prefill HBM footprint stays one layer of KV for the
 whole batch.  Rows whose last segment ran share one logits launch.
@@ -80,7 +82,7 @@ class PrefillPlane:
         self.s_cap = 0
         self.hidden: Optional[torch.Tensor] = None    # (B_cap, S_cap, d)
         self.ctx_k: Optional[torch.Tensor] = None     # (B_cap, S_cap, Hkv, hd)
-        self.ctx_v: Optional[torch.Tensor] = None
+        self.ctx_v: Optional[torch.Tensor] = None     # None for MLA
         self._tok_len: Optional[torch.Tensor] = None  # (B_cap,) int32
         self.rows: Dict[str, int] = {}
         self.tok_len: Dict[str, int] = {}             # host mirror
@@ -121,20 +123,26 @@ class PrefillPlane:
             self._tok_len = self._padded(self._tok_len, b_cap)
             if self.ctx_k is not None:
                 self.ctx_k = self._padded(self.ctx_k, b_cap, s_cap)
+            if self.ctx_v is not None:
                 self.ctx_v = self._padded(self.ctx_v, b_cap, s_cap)
             for r in range(self.b_cap, b_cap):
                 bisect.insort(self._free, r)
         self.b_cap, self.s_cap = b_cap, s_cap
 
     def _ensure_ctx(self) -> None:
-        """Allocate the one-layer float32 KV context buffer."""
+        """Allocate the one-layer float32 KV context buffer: K and V of
+        (Hkv, hd) per token, or MLA's latent as one head of
+        ``kv_cache_dim``."""
         if self.ctx_k is not None:
             return
         cfg = self.cfg
-        shape = (self.b_cap, self.s_cap, cfg.num_kv_heads, cfg.head_dim)
+        mla = cfg.attention_type == "mla"
+        shape = (self.b_cap, self.s_cap, 1 if mla else cfg.num_kv_heads,
+                 cfg.kv_cache_dim)
         self.ctx_k = torch.zeros(shape, dtype=torch.float32,
                                  device=self.hidden.device)
-        self.ctx_v = torch.zeros_like(self.ctx_k)
+        if not mla:
+            self.ctx_v = torch.zeros_like(self.ctx_k)
 
     # -- slot lifecycle ----------------------------------------------------
 
@@ -281,6 +289,11 @@ class PrefillPlane:
         self._ensure_ctx()
         ctx_k = ctx_v = None
         if start > 0:
+            if cfg.attention_type == "mla":
+                raise NotImplementedError(
+                    "chunked layer segments are not supported for MLA "
+                    "models (no latent-context attention path); plan "
+                    "whole-layer segments")
             ctx_k, ctx_v = self.ctx_k[:, :start], self.ctx_v[:, :start]
         h_out, (k, v) = M.prefill_attn_layer_batched(
             M.get_layer(params, layer), cfg, h_win, pos_win,
@@ -289,7 +302,8 @@ class PrefillPlane:
             k_ctx=ctx_k, v_ctx=ctx_v, q_offset=start)
         rows = host_to_device([self.rows[r] for r in rids], dev, torch.int64)
         self.ctx_k[rows, start:start + t_cap] = k[rows].float()
-        self.ctx_v[rows, start:start + t_cap] = v[rows].float()
+        if v is not None:
+            self.ctx_v[rows, start:start + t_cap] = v[rows].float()
         self.hidden[:, start:start + t_cap] = h_out
         if tr.enabled:
             tr.end("prefill-group", "prefill", _ts, layer=layer,
@@ -315,33 +329,38 @@ class PrefillPlane:
         """Launch the gather of the KV stripes a group launch just produced
         and hand it to ``ship`` (``KVCacheManager.ship``) without a host
         sync; returns a zero-arg finisher (run on the host stage worker)
-        that waits for it and returns {req_id: (k (Hkv, T, D), v)} float32,
-        trimmed to each row's chunk length."""
+        that waits for it and returns {req_id: (k (Hkv, T, D), v or None)}
+        float32, trimmed to each row's chunk length."""
         dev = self.hidden.device
         rows = host_to_device([self.rows[r] for r in g.req_ids], dev,
                               torch.int64)
         sl = slice(g.chunk_start, g.chunk_start + g.chunk_cap)
-        kv = (self.ctx_k[rows, sl], self.ctx_v[rows, sl])
-        pending = ship(*kv)
+        pending = ship(self.ctx_k[rows, sl], None if self.ctx_v is None
+                       else self.ctx_v[rows, sl])
         req_ids = list(g.req_ids)
         chunk_lens = {rid: g.segs[rid].chunk_len for rid in req_ids}
 
-        def finish() -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
-            k_all, v_all = pending.wait()              # (R, T, Hkv, hd)
-            return {rid: (k_all[i, :chunk_lens[rid]].permute(1, 0, 2),
-                          v_all[i, :chunk_lens[rid]].permute(1, 0, 2))
+        def stripe(x, i, rid):                         # (R, T, Hkv, hd)
+            return (None if x is None
+                    else x[i, :chunk_lens[rid]].permute(1, 0, 2))
+
+        def finish() -> Dict[str, Tuple[torch.Tensor, Any]]:
+            k_all, v_all = pending.wait()
+            return {rid: (stripe(k_all, i, rid), stripe(v_all, i, rid))
                     for i, rid in enumerate(req_ids)}
         return finish
 
     def read_group_kv(self, g: PrefillGroupRun, ship
-                      ) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
+                      ) -> Dict[str, Tuple[torch.Tensor, Any]]:
         """``read_group_kv_async`` waited for: {req_id: (k (Hkv, T, D),
-        v)} float32 where ``ship`` put them."""
+        v or None)} float32 where ``ship`` put them."""
         return self.read_group_kv_async(g, ship)()
 
-    def layer_ctx(self, req_id: str) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The request's completed current-layer KV: (k, v) each
-        (1, S, Hkv, hd) views of the context buffer."""
+    def layer_ctx(self, req_id: str) -> Tuple[torch.Tensor, Any]:
+        """The request's completed current-layer KV, as ``layer_forward``
+        gives it: (k, v) each (1, S, Hkv, hd) views of the context buffer,
+        or MLA's (latent (1, S, 1, lat + rope), None)."""
         row = self.rows[req_id]
         S = self.tok_len[req_id]
-        return (self.ctx_k[row:row + 1, :S], self.ctx_v[row:row + 1, :S])
+        return (self.ctx_k[row:row + 1, :S], None if self.ctx_v is None
+                else self.ctx_v[row:row + 1, :S])

@@ -28,7 +28,9 @@
 // design cuts the serial steps on the way from q to the ids.
 //
 // Design.  A block's bound is summed by a group of 8 lanes, each holding
-// D / 8 of the block's min and max dims in registers (16-byte loads,
+// D / 8 of the block's min and max dims in registers (4 16-byte chunks of
+// each a lane up to D = 128; score_select's wide instantiation holds 10,
+// up to D = 320, for MLA's 288-wide latent metadata; 16-byte loads,
 // coalesced across the group, issued before the q rows are staged so the
 // two loads overlap), so a warp scores 4 blocks at once and each query
 // head's sum needs three shuffles inside the group (the previous design
@@ -64,7 +66,8 @@
 //   rows as pos / neg float32, and the keys); above 48 KB the launch opts
 //   in to the card's 227 KB, which bounds NB and G * D (the wrapper's
 //   select_max_nb): NB up to ~56,000 at llama3-8b's G * D = 512, ~45,000
-//   at granite-20b's G = 48, D = 128.
+//   at granite-20b's G = 48, D = 128, ~33,000 at minicpm3's latent (G =
+//   40 absorbed query heads over one latent head, D = 288).
 //   The unfused block_score needs 8 * G * D bytes and opts in the same
 //   way.
 #include "common.cuh"
@@ -77,7 +80,10 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kLanes = 8;           // lanes per block's sum
-constexpr int kMaxChunks = 4;       // 16-byte chunks per lane: D <= 128
+constexpr int kNarrowChunks = 4;    // 16-byte chunks per lane: D <= 128
+constexpr int kWideChunks = 10;     // score_select's wide kernel: D <= 320
+                                    // (same bits at D <= 128, ~20% slower
+                                    // there: ab_kernels.py, PERF.md)
 constexpr int kScoreThreads = 64;   // block_score: 8 blocks per CTA
 constexpr int kSelThreads = 256;    // score_select: 32 blocks per pass
 constexpr int kMaxCluster = 8;      // the portable cluster size
@@ -108,18 +114,20 @@ __device__ __forceinline__ void load_group(const T* __restrict__ qg,
 
 // One block's (2, D) metadata row as the 8 lanes of its lane group hold
 // it: lane ``sub`` the 16-byte chunks sub, sub + 8, ... of min and of max.
+template <int kChunks>
 struct MetaRegs {
-  float4 mn[kMaxChunks], mx[kMaxChunks];
+  float4 mn[kChunks], mx[kChunks];
 };
 
 // Loads the row (16-byte aligned, D % 4 == 0); an inactive lane loads
 // nothing.  Issued before the q rows are staged, so the two loads overlap.
-__device__ __forceinline__ void load_meta(MetaRegs& m,
+template <int kChunks>
+__device__ __forceinline__ void load_meta(MetaRegs<kChunks>& m,
                                           const float* __restrict__ mrow,
                                           int D, int sub, bool active) {
   const int chunks = D / 4;
 #pragma unroll
-  for (int c = 0; c < kMaxChunks; ++c) {
+  for (int c = 0; c < kChunks; ++c) {
     const int ch = sub + kLanes * c;
     if (active && ch < chunks) {
       m.mn[c] = __ldg(reinterpret_cast<const float4*>(mrow) + ch);
@@ -134,7 +142,8 @@ __device__ __forceinline__ void load_meta(MetaRegs& m,
 // heads, summed by the 8 lanes of the lane group; every lane of the group
 // returns it.  All 32 lanes of the warp must call it (the shuffles take
 // the full mask).
-__device__ __forceinline__ float block_bound(const MetaRegs& m,
+template <int kChunks>
+__device__ __forceinline__ float block_bound(const MetaRegs<kChunks>& m,
                                              const float* pos,
                                              const float* neg, int D, int G,
                                              int sub) {
@@ -145,7 +154,7 @@ __device__ __forceinline__ float block_bound(const MetaRegs& m,
     const float4* n4 = reinterpret_cast<const float4*>(neg + g * D);
     float s = 0.f;
 #pragma unroll
-    for (int c = 0; c < kMaxChunks; ++c) {
+    for (int c = 0; c < kChunks; ++c) {
       const int ch = sub + kLanes * c;
       if (ch < chunks) {
         const float4 p = p4[ch], n = n4[ch];
@@ -175,7 +184,7 @@ block_score_kernel(const T* __restrict__ q, const float* __restrict__ meta,
   const int n = blockIdx.x * (kScoreThreads / kLanes) + threadIdx.x / kLanes;
   const int sub = threadIdx.x % kLanes;
   const bool active = n < NB;
-  MetaRegs m;
+  MetaRegs<kNarrowChunks> m;
   load_meta(m, meta + (head_row * NB + (active ? n : 0)) * 2 * D, D, sub,
             active);
   load_group(q + ((size_t)b * Hkv * G + (size_t)h * G) * D, pos, neg,
@@ -195,7 +204,7 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
-template <typename T>
+template <typename T, int kChunks>
 __global__ void __launch_bounds__(kSelThreads)
 score_select_kernel(const T* __restrict__ q, const float* __restrict__ meta,
                     const int* __restrict__ cur_len, int* __restrict__ idx,
@@ -223,7 +232,7 @@ score_select_kernel(const T* __restrict__ q, const float* __restrict__ meta,
   // this CTA has started: its shared memory may be written by the others
   // once every CTA has arrived (the wait comes after the first scores)
   cluster_arrive_relaxed();
-  MetaRegs m;
+  MetaRegs<kChunks> m;
   int n = n0 + tid / kLanes;
   load_meta(m, meta + (head_row * NB + (n < n1 ? n : 0)) * 2 * D, D, sub,
             n < n1);
@@ -391,7 +400,8 @@ cudaError_t smem_opt_in(F kernel, size_t bytes, size_t* done) {
 }  // namespace
 
 // q bfloat16 (the serving path's dtype), meta float32, both contiguous,
-// meta 16-byte aligned.  Limits checked by the wrapper: D <= 128,
+// meta 16-byte aligned.  Limits checked by the wrapper: D <= 128 (the
+// unfused kernel is off the serving path and keeps the narrow lanes),
 // D % 4 == 0, G * D * 8 bytes of shared memory within the card's opt-in
 // limit.
 extern "C" int launch_block_score(const void* q, const void* meta, void* out,
@@ -416,19 +426,24 @@ extern "C" int launch_block_score(const void* q, const void* meta, void* out,
 // score_select: q (B, Hkv * G, D) bfloat16, meta (B, Hkv, NB, 2, D)
 // float32, cur_len (B,) int32 tokens in the cache before this step ->
 // idx (B, Hkv, K) int32 and sel_valid (B, Hkv, K) bool, K = min(top_k, NB)
-// (the wrapper passes K).  Limits checked by the wrapper: those of
-// block_score, NB >= 1, and 8 * G * D + 4 * NB bytes of shared memory
-// within the card's opt-in limit (ops.select_max_nb).
+// (the wrapper passes K).  Limits checked by the wrapper: D <= 320,
+// D % 4 == 0, NB >= 1, and 8 * G * D + 4 * NB bytes of shared memory
+// within the card's opt-in limit (ops.select_max_nb).  D <= 128 runs the
+// narrow instantiation.
 extern "C" int launch_score_select(const void* q, const void* meta,
                                    const void* cur_len, void* idx,
                                    void* sel_valid, int B, int Hkv, int NB,
                                    int D, int G, int K, int bs, int sink,
                                    int recent, void* stream) {
-  static size_t opted = 0;
+  static size_t opted_narrow = 0, opted_wide = 0;
   if (B == 0 || Hkv == 0 || NB == 0) return (int)cudaGetLastError();
+  if (D > kLanes * 4 * kWideChunks) return (int)cudaErrorInvalidValue;
+  const bool narrow = D <= kLanes * 4 * kNarrowChunks;
+  const auto kern = narrow ? score_select_kernel<__nv_bfloat16, kNarrowChunks>
+                           : score_select_kernel<__nv_bfloat16, kWideChunks>;
   const size_t smem = sizeof(float) * (2 * (size_t)G * D + NB);
-  cudaError_t e = smem_opt_in(score_select_kernel<__nv_bfloat16>, smem,
-                              &opted);
+  cudaError_t e = smem_opt_in(kern, smem,
+                              narrow ? &opted_narrow : &opted_wide);
   if (e != cudaSuccess) return (int)e;
   const int C = std::min(kMaxCluster, (NB + 15) / 16);
   cudaLaunchConfig_t cfg = {};
@@ -444,7 +459,7 @@ extern "C" int launch_score_select(const void* q, const void* meta,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   e = cudaLaunchKernelEx(
-      &cfg, score_select_kernel<__nv_bfloat16>,
+      &cfg, kern,
       static_cast<const __nv_bfloat16*>(q), static_cast<const float*>(meta),
       static_cast<const int*>(cur_len), static_cast<int*>(idx),
       static_cast<bool*>(sel_valid), Hkv, NB, D, G, K, bs, sink, recent);

@@ -5,7 +5,8 @@
 // `flash_attention_jnp`, src/repro/models/attention.py):
 //   out[b, i, h] = softmax_j(q[b, i, h] . k[b, j, h / G] * scale) @ v[b, j, h / G]
 // over the keys j <= q_offset + i (causal) and j < Sk, with
-// q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D) bf16 and out (B, Sq, Hq, D) bf16.
+// q (B, Sq, Hq, D), k (B, Sk, Hkv, D), v (B, Sk, Hkv, Dv) bf16 and
+// out (B, Sq, Hq, Dv) bf16.
 // q_offset is the absolute position of query 0: a chunk continuation
 // passes the earlier chunks' keys ahead of its window, Sk = q_offset + Sq.
 //
@@ -20,8 +21,10 @@
 // `setmaxnreg` gives its registers to the consumers, one thread issues TMA
 // loads (cp.async.bulk.tensor, 4-D maps over (D, H, S, B), 128-byte
 // swizzle) of the Q tile once and of K and V tiles of 128 keys into a ring
-// of 4 (D 64) or 3 (D 128: 225 KB of shared memory in all) stages, each guarded by a "full" mbarrier that
-// counts the bytes landed and an "empty" one the consumers arrive on.
+// of 4 (D 64; MLA's D 96 with Dv 64) or 3 (D 128) stages (225 KB of
+// shared memory in all at D 128 and at MLA's shape), each guarded by a
+// "full" mbarrier that counts the bytes landed and an "empty" one the
+// consumers arrive on.
 // TMA zero-fills rows past Sq and Sk within each batch row, so a masked
 // weight never meets garbage.  Warpgroups 1 and 2 each own 64 query rows:
 // S = Q K^T is wgmma m64n128k16 with both operands in shared memory
@@ -37,9 +40,15 @@
 // slower on the H100 and is not used (PERF.md).  Only tiles that cross a
 // row's causal diagonal or Sk are masked; tiles past the diagonal of a
 // warpgroup's last real query are skipped (it still releases their
-// stage).  Head dims 64 and 128 (two 64-element slabs of 128 bytes) are
-// instantiated.  The GQA group is not folded: each query head's CTA loads
-// its K/V tiles, which the group's other heads read again from L2.
+// stage).  Head dims D = Dv in {64, 128} (one or two 64-element slabs of
+// 128 bytes) are instantiated, and MLA's prefill, D = 96 for q and k
+// (qk_nope 64 + qk_rope 32) with Dv = 64 for v: its q and k tensor maps
+// are 96 columns wide and are loaded as two 64-column boxes, of which TMA
+// fills columns 96-127 of the second with zeros (they lie past the
+// tensor), and S = Q K^T runs D / 16 = 6 k-steps, so the zero columns are
+// never even read; the wrapper passes q and k unpadded.  The GQA group is
+// not folded: each query head's CTA loads its K/V tiles, which the
+// group's other heads read again from L2.
 //
 // The TMA descriptors are encoded on the host per launch (the pointers
 // change) with the driver API's cuTensorMapEncodeTiled, and passed as
@@ -61,15 +70,21 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 typedef __nv_bfloat16 bf16;
 
-template <int D> struct Cfg {
-  static constexpr int kSlabs = D / 64;
+template <int D, int Dv> struct Cfg {
+  static_assert(D % 16 == 0 && D <= 128 && (Dv == 64 || Dv == 128),
+                "q/k depth a multiple of 16 up to 128, v width 64 or 128");
+  static constexpr int kSlabsQK = (D + 63) / 64;   // a part slab zero-filled
+  static constexpr int kSlabsV = Dv / 64;
   // the consumers hold two tiles at once (P V of one overlaps the softmax
-  // of the next), so a third stage (a fourth at D 64) keeps a load ahead
-  static constexpr int kStages = D == 64 ? 4 : 3;
-  static constexpr int kQBytes = kSlabs * kSlabBytesQ;
-  static constexpr int kTileBytes = kSlabs * kSlabBytesKV;   // K or V
+  // of the next), so a third stage (a fourth where a stage is at most 48
+  // KB) keeps a load ahead, within the 227 KB of shared memory
+  static constexpr int kStages = (D > 96 || Dv > 64) ? 3 : 4;
+  static constexpr int kQBytes = kSlabsQK * kSlabBytesQ;
+  static constexpr int kKBytes = kSlabsQK * kSlabBytesKV;
+  static constexpr int kVBytes = kSlabsV * kSlabBytesKV;
+  static constexpr int kStageBytes = kKBytes + kVBytes;   // K, then V
   static constexpr int kSmem =
-      1024 + kQBytes + kStages * 2 * kTileBytes;   // + alignment slack
+      1024 + kQBytes + kStages * kStageBytes;   // + alignment slack
 };
 
 // two floats -> bf16x2, the lower column in the low half
@@ -93,15 +108,15 @@ __device__ __forceinline__ void issue_s(float* s, const unsigned char* qc,
   wgmma_commit();
 }
 
-// issue O += P V of one tile: V (keys x D) at vs read transposed, 16 keys
+// issue O += P V of one tile: V (keys x Dv) at vs read transposed, 16 keys
 // (2048 bytes) per k-step, 64-column slabs kSlabBytesKV apart
-template <int D>
+template <int Dv>
 __device__ __forceinline__ void issue_pv(float* o, uint32_t (*p)[4],
                                          const unsigned char* vs) {
 #pragma unroll
   for (int kk = 0; kk < kBc / 16; ++kk) {
     const uint64_t desc = sw128_desc(vs + kk * 16 * 128, kSlabBytesKV, 1024);
-    if constexpr (D == 64)
+    if constexpr (Dv == 64)
       wgmma_m64n64k16_rs_tb(o, p[kk], desc, 1);
     else
       wgmma_m64n128k16_rs_tb(o, p[kk], desc, 1);
@@ -189,14 +204,14 @@ __device__ __forceinline__ void pack_p(const float* s, uint32_t (*p)[4]) {
   }
 }
 
-template <int D>
+template <int D, int Dv>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_prefill_kernel(const __grid_constant__ CUtensorMap q_map,
                      const __grid_constant__ CUtensorMap k_map,
                      const __grid_constant__ CUtensorMap v_map,
                      bf16* __restrict__ out, int Sq, int Sk, int Hq, int G,
                      int q_offset, float scale_log2) {
-  using C = Cfg<D>;
+  using C = Cfg<D, Dv>;
   constexpr int S = C::kStages;
   __shared__ __align__(8) uint64_t q_full, full[S], empty[S];
   extern __shared__ unsigned char smem_raw[];
@@ -231,22 +246,23 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap q_map,
     // producer: one thread keeps the ring of K/V tiles filled
     setmaxnreg_dec<24>();
     if (threadIdx.x != 0) return;
+    // whole boxes count, the zero-filled columns past D included
     mbar_arrive_expect_tx(&q_full, C::kQBytes);
-    for (int sl = 0; sl < C::kSlabs; ++sl)
+    for (int sl = 0; sl < C::kSlabsQK; ++sl)
       tma_load_4d(q_s + sl * kSlabBytesQ, &q_map, &q_full, sl * 64, hq, q0,
                   b);
     for (int j = 0; j < n_tiles; ++j) {
       const int st = j % S;
       if (j >= S) mbar_wait(&empty[st], ((j / S) - 1) & 1);
-      mbar_arrive_expect_tx(&full[st], 2 * C::kTileBytes);
-      unsigned char* ks = kv_s + st * 2 * C::kTileBytes;
-      unsigned char* vs = ks + C::kTileBytes;
-      for (int sl = 0; sl < C::kSlabs; ++sl) {
+      mbar_arrive_expect_tx(&full[st], C::kStageBytes);
+      unsigned char* ks = kv_s + st * C::kStageBytes;
+      unsigned char* vs = ks + C::kKBytes;
+      for (int sl = 0; sl < C::kSlabsQK; ++sl)
         tma_load_4d(ks + sl * kSlabBytesKV, &k_map, &full[st], sl * 64, hk,
                     j * kBc, b);
+      for (int sl = 0; sl < C::kSlabsV; ++sl)
         tma_load_4d(vs + sl * kSlabBytesKV, &v_map, &full[st], sl * 64, hk,
                     j * kBc, b);
-      }
     }
     return;
   }
@@ -269,16 +285,16 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap q_map,
   Rows rows{q_offset + row0, Sk, quad, scale_log2,
             {kNegInf, kNegInf}, {0.f, 0.f}};
 
-  float o[D / 2];
+  float o[Dv / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < Dv / 2; ++i) o[i] = 0.f;
   float s[kBc / 2];          // S of the newest tile, then its weights
   uint32_t p[kBc / 16][4];   // P of the tile whose P V is next or in flight
   float corr[2];
 
   mbar_wait(&q_full, 0);
   const unsigned char* qc = q_s + c * 64 * 128;   // this warpgroup's rows
-  auto tile = [&](int j) { return kv_s + (j % S) * 2 * C::kTileBytes; };
+  auto tile = [&](int j) { return kv_s + (j % S) * C::kStageBytes; };
   auto masked = [&](int j) {   // does tile j cross a row's diagonal or Sk?
     return j * kBc + kBc - 1 > q_offset + r_base || j * kBc + kBc > Sk;
   };
@@ -302,20 +318,20 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap q_map,
   for (int j = 1; j < n_own; ++j) {
     mbar_wait(&full[j % S], (j / S) & 1);
     fence_regs<kBc / 2>(s);
-    fence_regs<D / 2>(o);
+    fence_regs<Dv / 2>(o);
     fence_regs<kBc / 4>(&p[0][0]);
     wgmma_fence();
     issue_s<D>(s, qc, tile(j));
-    issue_pv<D>(o, p, tile(j - 1) + C::kTileBytes);
+    issue_pv<Dv>(o, p, tile(j - 1) + C::kKBytes);
     wgmma_wait<1>();   // S of tile j has landed; P V of j - 1 may not have
     fence_regs<kBc / 2>(s);
     softmax_tile(s, corr, rows, j * kBc, masked(j));
     wgmma_wait<0>();
-    fence_regs<D / 2>(o);
+    fence_regs<Dv / 2>(o);
     fence_regs<kBc / 4>(&p[0][0]);
     mbar_arrive(&empty[(j - 1) % S]);   // K and V of tile j - 1 are read
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < Dv / 8; ++n) {
       o[4 * n] *= corr[0];
       o[4 * n + 1] *= corr[0];
       o[4 * n + 2] *= corr[1];
@@ -324,12 +340,12 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap q_map,
     pack_p(s, p);
   }
   if (n_own > 0) {
-    fence_regs<D / 2>(o);
+    fence_regs<Dv / 2>(o);
     fence_regs<kBc / 4>(&p[0][0]);
     wgmma_fence();
-    issue_pv<D>(o, p, tile(n_own - 1) + C::kTileBytes);
+    issue_pv<Dv>(o, p, tile(n_own - 1) + C::kKBytes);
     wgmma_wait<0>();
-    fence_regs<D / 2>(o);
+    fence_regs<Dv / 2>(o);
     fence_regs<kBc / 4>(&p[0][0]);
     mbar_arrive(&empty[(n_own - 1) % S]);
   }
@@ -342,10 +358,10 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap q_map,
   const float* l = rows.l;
   const float inv0 = 1.f / fmaxf(l[0], 1e-30f);
   const float inv1 = 1.f / fmaxf(l[1], 1e-30f);
-  const size_t q_row = (size_t)Hq * D;   // elements between tokens
-  bf16* ob = out + (size_t)b * Sq * q_row + (size_t)hq * D;
+  const size_t q_row = (size_t)Hq * Dv;   // elements between tokens
+  bf16* ob = out + (size_t)b * Sq * q_row + (size_t)hq * Dv;
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
+  for (int n = 0; n < Dv / 8; ++n) {
     const int d = n * 8 + 2 * quad;
     if (row0 < Sq)
       *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row0 * q_row + d) =
@@ -381,7 +397,8 @@ EncodeTiled encode_tiled() {
 
 // A 4-D map over a (B, S, H, D) bf16 tensor, dims innermost first
 // (D, H, S, B), boxes of 64 columns x 1 head x `rows` tokens x 1 batch row
-// (128-byte rows, swizzled); reads past S within a batch row give zeros.
+// (128-byte rows, swizzled); reads past S within a batch row, and past D
+// within a row (D = 96: the second box's last 32 columns), give zeros.
 CUresult make_map(CUtensorMap* map, const void* ptr, int B, int S, int H,
                   int D, int rows) {
   const cuuint64_t s1 = S > 0 ? S : 1;   // a map needs non-empty dims
@@ -403,21 +420,22 @@ CUresult make_map(CUtensorMap* map, const void* ptr, int B, int S, int H,
 // driver-API failures are reported past the runtime's error codes
 constexpr int kDriverError = 100000;
 
-template <int D>
+template <int D, int Dv>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int Sq, int Sk, int Hq, int Hkv, int q_offset, float scale,
            cudaStream_t stream) {
   CUtensorMap qm, km, vm;
   CUresult r = make_map(&qm, q, B, Sq, Hq, D, kBr);
   if (r == CUDA_SUCCESS) r = make_map(&km, k, B, Sk, Hkv, D, kBc);
-  if (r == CUDA_SUCCESS) r = make_map(&vm, v, B, Sk, Hkv, D, kBc);
+  if (r == CUDA_SUCCESS) r = make_map(&vm, v, B, Sk, Hkv, Dv, kBc);
   if (r != CUDA_SUCCESS) return kDriverError + (int)r;
-  auto kern = flash_prefill_kernel<D>;
+  auto kern = flash_prefill_kernel<D, Dv>;
+  constexpr int smem = Cfg<D, Dv>::kSmem;
   cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<D>::kSmem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((Sq + kBr - 1) / kBr, Hq, B);
-  kern<<<grid, kThreads, Cfg<D>::kSmem, stream>>>(
+  kern<<<grid, kThreads, smem, stream>>>(
       qm, km, vm, static_cast<bf16*>(out), Sq, Sk, Hq, Hq / Hkv, q_offset,
       scale * kLog2e);
   return (int)cudaGetLastError();
@@ -425,19 +443,24 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 }  // namespace
 
-// bfloat16, causal, D == Dv in {64, 128}.  Limits checked by the wrapper:
-// contiguous (B, S, H, D) tensors, 16-byte aligned, Hq % Hkv == 0,
-// q_offset >= 0.  Returns a runtime error code, or 100000 + a driver
-// error code if a TMA descriptor could not be encoded.
+// bfloat16, causal, (D, Dv) in {(64, 64), (128, 128), (96, 64)}.  Limits
+// checked by the wrapper: contiguous (B, S, H, D|Dv) tensors, 16-byte
+// aligned, Hq % Hkv == 0, q_offset >= 0.  Returns a runtime error code, or
+// 100000 + a driver error code if a TMA descriptor could not be encoded.
 extern "C" int launch_flash_prefill(const void* q, const void* k,
                                     const void* v, void* out, int B, int Sq,
-                                    int Sk, int Hq, int Hkv, int D,
+                                    int Sk, int Hq, int Hkv, int D, int Dv,
                                     int q_offset, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B == 0 || Sq == 0 || Hq == 0) return (int)cudaGetLastError();
-  if (D == 64)
-    return launch<64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, q_offset, scale, s);
-  if (D == 128)
-    return launch<128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, q_offset, scale, s);
+  if (D == 64 && Dv == 64)
+    return launch<64, 64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, q_offset, scale,
+                          s);
+  if (D == 128 && Dv == 128)
+    return launch<128, 128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, q_offset,
+                            scale, s);
+  if (D == 96 && Dv == 64)   // MLA: qk_nope + qk_rope against v_head_dim
+    return launch<96, 64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, q_offset, scale,
+                          s);
   return (int)cudaErrorInvalidValue;
 }

@@ -35,8 +35,16 @@
 // token) pair into shared memory, one warp per head for the online-softmax
 // update (max, exp, sum, kept in shared memory), then the P V update with
 // each thread owning up to 4 (head, pair of value dims) float32
-// accumulators, so no register array is indexed by heads and dims at once
-// (ptxas: no spills).  All arithmetic is float32 FMA: the kernel is bound by
+// accumulators at Dv <= 128, or 10 in the wide instantiation that takes
+// Dv up to 320, so no register array is indexed by heads and dims at once
+// (ptxas: no spills).  The wide one serves MLA's latent attend (minicpm3:
+// G = 40 query heads, three group tiles, over one latent head with D =
+// Dv = 288): its shared memory grows to ~95 KB (q 18 KB, K and V stages
+// 74 KB), opted in at launch, so two CTAs fit an SM.  There the pool is
+// passed as both k_pool and v_pool and each block is streamed twice;
+// loading it once is left for later.  At G = 40 the float32 FMAs do ~40
+// flops per byte read, about twice what the H100's FP32 rate sustains at
+// its HBM rate, so that shape is bound by operations, ~2x its byte bound.  All arithmetic is float32 FMA: the kernel is bound by
 // bytes, not operations.  Each CTA writes its unnormalised partial
 // (acc, m, l) in float32 to scratch the wrapper allocates; a second kernel
 // merges the splits of each (request, query head) by log-sum-exp and
@@ -50,8 +58,12 @@ namespace {
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kTileG = 16;     // query rows of one group tile
-constexpr int kMaxItems = 4;   // (head, value-dim pair) items per thread:
-                               // kTileG * Dv / 2 <= 16 * 64 = 4 * kThreads
+// (head, value-dim pair) items per thread: kTileG * Dv / 2 <= kItems *
+// kThreads, so Dv <= 128 (the narrow instantiation) or Dv <= 320 (wide).
+// Both give the same bits at Dv <= 128, where the narrow one is 3-4%
+// faster (ab_kernels.py, PERF.md)
+constexpr int kNarrowItems = 4;
+constexpr int kWideItems = 10;
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -80,7 +92,8 @@ struct Smem {       // Gt: the rows of one group tile, <= kTileG
 
 __host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~15; }
 
-// byte offsets of the Smem fields, shared by the kernel and the launch
+// byte offsets of the Smem fields, shared by the kernel, the launch and
+// sparse_decode_attention_smem_bytes (the wrapper's check)
 struct SmemLayout {
   size_t q, sc, m, l, corr, ids, n_live, k, v, total;
   __host__ __device__ SmemLayout(int G, int D, int Dv, int bs, int per) {
@@ -97,6 +110,7 @@ struct SmemLayout {
   }
 };
 
+template <int kItems>
 __global__ void __launch_bounds__(kThreads)
 split_kernel(const __nv_bfloat16* __restrict__ q,
              const __nv_bfloat16* __restrict__ k_pool,
@@ -176,9 +190,9 @@ split_kernel(const __nv_bfloat16* __restrict__ q,
 
   const int n_pairs = Dv / 2;
   const int n_items = Gt * n_pairs;
-  float acc[kMaxItems][2];
+  float acc[kItems][2];
 #pragma unroll
-  for (int i = 0; i < kMaxItems; ++i) acc[i][0] = acc[i][1] = 0.f;
+  for (int i = 0; i < kItems; ++i) acc[i][0] = acc[i][1] = 0.f;
 
   if (n_live > 0) load(0, 0);
   cp_async_commit();
@@ -247,7 +261,7 @@ split_kernel(const __nv_bfloat16* __restrict__ q,
 
     // acc = acc * corr + P V, each thread on its (head, dim pair) items
 #pragma unroll
-    for (int i = 0; i < kMaxItems; ++i) {
+    for (int i = 0; i < kItems; ++i) {
       const int it = tid + i * kThreads;
       if (it < n_items) {
         const int g = it / n_pairs, dp = it - g * n_pairs;
@@ -274,7 +288,7 @@ split_kernel(const __nv_bfloat16* __restrict__ q,
   const size_t part = head_row * splits + split;
   float* po = part_o + (part * G + g0) * Dv;
 #pragma unroll
-  for (int i = 0; i < kMaxItems; ++i) {
+  for (int i = 0; i < kItems; ++i) {
     const int it = tid + i * kThreads;
     if (it < n_items)
       reinterpret_cast<float2*>(po)[it] = make_float2(acc[i][0], acc[i][1]);
@@ -287,8 +301,8 @@ split_kernel(const __nv_bfloat16* __restrict__ q,
 
 // out[b, h*G+g, d] = sum_s acc_s e^(m_s - M) / max(sum_s l_s e^(m_s - M),
 // 1e-30), M = max_s m_s, over the splits of (b, h): one CTA per (query
-// head, request), the split weights in shared memory, one thread per
-// output dim (Dv <= 128)
+// head, request), the split weights in shared memory, a thread per output
+// dim (in turn past kThreads)
 __global__ void __launch_bounds__(kThreads)
 merge_kernel(const float* __restrict__ part_o,
              const float* __restrict__ part_ml, __nv_bfloat16* __restrict__ out,
@@ -337,10 +351,18 @@ merge_kernel(const float* __restrict__ part_o,
 }  // namespace
 
 // bfloat16 only (the serving path's dtype).  Limits checked by the wrapper:
-// any G >= 1 (in tiles of kTileG rows), D and Dv <= 128 and multiples of
+// any G >= 1 (in tiles of kTileG rows), D and Dv <= 320 and multiples of
 // 8, bs <= 128, all pointers 16-byte aligned, tensors contiguous.  part_o
 // (B, Hkv, splits, G, Dv) and part_ml (B, Hkv, splits, 2, G) are float32
-// scratch.
+// scratch.  Dv <= 128 runs the narrow instantiation.
+// the split kernel's dynamic shared memory in bytes at these shapes
+extern "C" int sparse_decode_attention_smem_bytes(int G, int D, int Dv,
+                                                  int bs, int K,
+                                                  int splits) {
+  const int per = K > 0 ? (K + splits - 1) / splits : 0;
+  return (int)SmemLayout(min(G, kTileG), D, Dv, bs, per).total;
+}
+
 extern "C" int launch_sparse_decode_attention(
     const void* q, const void* k_pool, const void* v_pool,
     const void* block_idx, const void* sel_valid, const void* cur_len,
@@ -349,17 +371,19 @@ extern "C" int launch_sparse_decode_attention(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B == 0 || Hkv == 0) return (int)cudaGetLastError();
   const int tiles = (G + kTileG - 1) / kTileG;
-  if (splits < 1 || G < 1 || kTileG * Dv > 2 * kMaxItems * kThreads)
+  if (splits < 1 || G < 1 || kTileG * Dv > 2 * kWideItems * kThreads)
     return (int)cudaErrorInvalidValue;
   const int per = K > 0 ? (K + splits - 1) / splits : 0;
   const SmemLayout lay(min(G, kTileG), D, Dv, bs, per);
+  auto kern = kTileG * Dv <= 2 * kNarrowItems * kThreads
+                  ? split_kernel<kNarrowItems>
+                  : split_kernel<kWideItems>;
   if (lay.total > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        split_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)lay.total);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.total);
     if (e != cudaSuccess) return (int)e;
   }
-  split_kernel<<<dim3(splits * tiles, Hkv, B), kThreads, lay.total, st>>>(
+  kern<<<dim3(splits * tiles, Hkv, B), kThreads, lay.total, st>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k_pool),
       static_cast<const __nv_bfloat16*>(v_pool),

@@ -45,6 +45,9 @@ _SIGNATURES = {
     "sparse_decode_attention": (
         "sparse_decode_attention", "launch_sparse_decode_attention",
         [_P] * 9 + [_I] * 9 + [_F, _P]),
+    "sparse_decode_attention_smem": (
+        "sparse_decode_attention", "sparse_decode_attention_smem_bytes",
+        [_I] * 6),
     "block_score": ("block_score", "launch_block_score",
                     [_P, _P, _P] + [_I] * 5 + [_P]),
     "score_select": ("block_score", "launch_score_select",
@@ -63,7 +66,7 @@ _SIGNATURES = {
     "scatter_blocks": ("scatter_blocks", "launch_scatter_blocks",
                        [_P, _P, _P, _L, _I, _I, _I, _L, _P]),
     "flash_prefill": ("flash_prefill", "launch_flash_prefill",
-                      [_P] * 4 + [_I] * 7 + [_F, _P]),
+                      [_P] * 4 + [_I] * 8 + [_F, _P]),
     "quantize_blocks": ("quant_blocks", "launch_quantize_blocks",
                         [_I, _P, _P, _P, _I, _I, _P]),
     "dequantize_blocks": ("quant_blocks", "launch_dequantize_blocks",

@@ -172,12 +172,19 @@ def _sm_count(dev: torch.device) -> int:
     return _SM_COUNTS[dev]
 
 
+# the widest head the decode attention takes (D and Dv; its wide
+# instantiation, which MLA's 288-wide latent runs), and score_select's
+DECODE_MAX_D = 320
+SELECT_MAX_D = 320
+
+
 def sparse_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                             v_pool: torch.Tensor, block_idx: torch.Tensor,
                             sel_valid: torch.Tensor, cur_len: torch.Tensor,
                             scale: Optional[float] = None) -> torch.Tensor:
     """q (B, Hq, D); pools (B, Hkv, NB, bs, D|Dv); block_idx int32 and
-    sel_valid bool (B, Hkv, K); cur_len int32 (B,) -> (B, Hq, Dv)."""
+    sel_valid bool (B, Hkv, K); cur_len int32 (B,) -> (B, Hq, Dv).  MLA
+    passes its latent pool as both pools, with its own ``scale``."""
     if _all_cpu(q, k_pool, v_pool, block_idx, sel_valid, cur_len):
         return ref.sparse_decode_attention(q, k_pool, v_pool, block_idx,
                                            sel_valid, cur_len, scale)
@@ -199,15 +206,19 @@ def sparse_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
            and sel_valid.shape == (B, Hkv, K) and cur_len.shape == (B,),
            f"{name}: inconsistent shapes")
     vec = 16 // q.element_size()
-    _check(D <= 128 and Dv <= 128 and bs <= 128 and D % vec == 0
-           and Dv % vec == 0,
-           f"{name}: needs D, Dv <= 128 in 16-byte multiples (D = {D}, "
-           f"Dv = {Dv}) and bs <= 128 (bs = {bs}); any GQA group")
+    _check(D <= DECODE_MAX_D and Dv <= DECODE_MAX_D and bs <= 128
+           and D % vec == 0 and Dv % vec == 0,
+           f"{name}: needs D, Dv <= {DECODE_MAX_D} in 16-byte multiples "
+           f"(D = {D}, Dv = {Dv}) and bs <= 128 (bs = {bs}); any GQA group")
     _check(_aligned(q, k_pool, v_pool), f"{name}: 16-byte alignment")
     scale = scale if scale is not None else 1.0 / (D ** 0.5)
     G = Hq // Hkv
     splits = decode_splits(B, Hkv, K, _sm_count(q.device),
                            decode_group_tiles(G))
+    smem = LIBS.fn("sparse_decode_attention_smem")(G, D, Dv, bs, K, splits)
+    _check(smem <= SMEM_OPTIN_BYTES,
+           f"{name}: {smem} bytes of shared memory at D = {D}, Dv = {Dv}, "
+           f"bs = {bs}; the card gives {SMEM_OPTIN_BYTES}")
     out = torch.empty((B, Hq, Dv), dtype=q.dtype, device=q.device)
     # each split's unnormalised float32 partial: acc (G, Dv), then m and l
     part_o = torch.empty((B, Hkv, splits, G, Dv), dtype=torch.float32,
@@ -300,8 +311,8 @@ def score_select(q: torch.Tensor, meta: torch.Tensor, cur_len: torch.Tensor,
            and Hq % Hkv == 0 and cur_len.shape == (B,),
            f"{name}: inconsistent shapes")
     G = Hq // Hkv
-    _check(D <= 128 and D % 4 == 0,
-           f"{name}: needs D <= 128 and D % 4 == 0 (D = {D})")
+    _check(D <= SELECT_MAX_D and D % 4 == 0,
+           f"{name}: needs D <= {SELECT_MAX_D} and D % 4 == 0 (D = {D})")
     _check(1 <= NB <= select_max_nb(G, D),
            f"{name}: NB = {NB} at G = {G}, D = {D}; the kernel takes 1 <= "
            f"NB <= {select_max_nb(G, D)} (8 * G * D + 4 * NB bytes of "
@@ -645,14 +656,19 @@ def scatter_blocks(pool: torch.Tensor, new_kv: torch.Tensor,
 # flash_prefill
 # ---------------------------------------------------------------------------
 
+# the (q/k depth, v width) pairs the kernel is built for: D = Dv of the
+# GQA heads, and MLA's prefill (qk_nope + qk_rope = 96 against v 64)
+FLASH_DIMS = ((64, 64), (128, 128), (96, 64))
+
+
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   scale: float, causal: bool = True,
                   q_offset: int = 0) -> torch.Tensor:
     """Causal prefill attention: q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D|Dv)
     -> (B, Sq, Hq, Dv) in q's dtype; q_offset is the absolute position of
     q[0] (earlier chunks' keys lie ahead of the window, Sk = q_offset + Sq
-    on the serving path).  On the GPU: bfloat16, causal, D = Dv in
-    {64, 128}."""
+    on the serving path).  On the GPU: bfloat16, causal, (D, Dv) in
+    ``FLASH_DIMS``."""
     if _all_cpu(q, k, v):
         return ref.flash_prefill(q, k, v, scale=scale, causal=causal,
                                  q_offset=q_offset)
@@ -666,13 +682,14 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check(q.dtype == k.dtype == v.dtype == torch.bfloat16,
            f"{name}: q, k and v must be bfloat16")
     _check(k.shape == (B, Sk, Hkv, D) and Hkv > 0 and Hq % Hkv == 0
-           and Dv == D and D in (64, 128) and q_offset >= 0,
-           f"{name}: needs k/v (B, Sk, Hkv, D), Hq % Hkv == 0, "
-           f"D = Dv in (64, 128), q_offset >= 0")
+           and (D, Dv) in FLASH_DIMS and q_offset >= 0,
+           f"{name}: needs k (B, Sk, Hkv, D), v (B, Sk, Hkv, Dv), "
+           f"Hq % Hkv == 0, (D, Dv) in {FLASH_DIMS} (got {(D, Dv)}), "
+           f"q_offset >= 0")
     _check(_aligned(q, k, v), f"{name}: 16-byte alignment")
     out = torch.empty((B, Sq, Hq, Dv), dtype=q.dtype, device=q.device)
     rc = LIBS.fn(name)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                       out.data_ptr(), B, Sq, Sk, Hq, Hkv, D, q_offset,
+                       out.data_ptr(), B, Sq, Sk, Hq, Hkv, D, Dv, q_offset,
                        float(scale), _stream())
     _raise_on(rc, name)
     launches.add(name)

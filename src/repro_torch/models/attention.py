@@ -1,10 +1,13 @@
-"""GQA attention of the port: prefill (causal flash attention, the
-``flash_prefill`` kernel on the GPU) and the DSA decode stages over the
-paged KV pool.
+"""Attention of the port, GQA and MLA: prefill (causal flash attention,
+the ``flash_prefill`` kernel on the GPU) and the DSA decode stages over
+the paged KV pool.
 
-Counterpart of the GQA half of ``repro/models/attention.py``; MLA and
-cross-attention are not ported yet.  The pool layout is the paper's
-head-major (H, N, D): ``(B, Hkv, NB, bs, D)``.  The reference's pools are
+Counterpart of the GQA and MLA parts of ``repro/models/attention.py``;
+cross-attention and the context-parallel paths are not ported yet.  The
+pool layout is the paper's head-major (H, N, D): ``(B, Hkv, NB, bs, D)``.
+MLA caches one latent head, ``(B, 1, NB, bs, kv_lora_rank + rope)``, with
+no ``"v"`` pool: its decode attends over the latent with the absorbed
+query (the latent is both key and value).  The reference's pools are
 functional values; here the decode stages update the pool and its DSA
 metadata IN PLACE (``_append_to_pool``, ``_update_meta`` and their masked
 forms), and ``gqa_select_step`` returns the same cache dict it was given.
@@ -17,7 +20,8 @@ import torch
 
 from repro_torch.core import dsa
 from repro_torch.kernels import ops
-from repro_torch.models.common import DSAConfig, ModelConfig, apply_rope
+from repro_torch.models.common import (DSAConfig, ModelConfig, apply_rope,
+                                       rms_norm)
 
 # ---------------------------------------------------------------------------
 # GQA: prefill path
@@ -72,8 +76,18 @@ def gqa_self_attention(p: Dict[str, torch.Tensor], cfg: ModelConfig,
 def init_layer_kv_pool(cfg: ModelConfig, batch: int, num_blocks: int,
                        dtype: torch.dtype, device: torch.device
                        ) -> Dict[str, torch.Tensor]:
-    """Per-layer paged pool + DSA metadata, zero-filled."""
+    """Per-layer paged pool + DSA metadata, zero-filled: ``{"k", "v",
+    "meta"}``, or for MLA ``{"k", "meta"}`` over one latent head."""
     bs, hd, Hkv = cfg.dsa.block_size, cfg.head_dim, cfg.num_kv_heads
+    if cfg.attention_type == "mla":
+        lat = cfg.mla.latent_dim
+        return {
+            "k": torch.zeros((batch, 1, num_blocks, bs, lat), dtype=dtype,
+                             device=device),
+            "meta": torch.zeros(dsa.metadata_shape(cfg.dsa, num_blocks, lat,
+                                                   (batch, 1)),
+                                dtype=torch.float32, device=device),
+        }
     return {
         "k": torch.zeros((batch, Hkv, num_blocks, bs, hd), dtype=dtype,
                          device=device),
@@ -258,3 +272,120 @@ def gqa_attend_step(p: Dict[str, torch.Tensor], cfg: ModelConfig,
         o = ops.sparse_decode_attention(q, cache["k"], cache["v"], idx,
                                         valid, new_len)
     return o.reshape(B, Hq * hd) @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# MLA — MiniCPM3 / DeepSeek-V2 latent attention
+# ---------------------------------------------------------------------------
+
+def _mla_scale(cfg: ModelConfig) -> float:
+    """1 / sqrt(qk_nope + qk_rope): the query-key depth, not the latent
+    width the decode attends over."""
+    m = cfg.mla
+    return 1.0 / (m.qk_nope_head_dim + m.qk_rope_head_dim) ** 0.5
+
+
+def mla_self_attention(p: Dict[str, torch.Tensor], cfg: ModelConfig,
+                       x: torch.Tensor, positions: torch.Tensor, *,
+                       return_latent: bool = False):
+    """Prefill MLA in the non-absorbed form, x (B, S, d): q and k of depth
+    qk_nope + qk_rope, v of v_head_dim, every query head over its own key
+    head, through the ``flash_prefill`` kernel on the GPU.  With
+    ``return_latent`` also the cached latent (B, S, kv_lora + rope)."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    cq = rms_norm(x @ p["w_dq"], p["q_norm"], cfg.norm_eps)
+    qall = (cq @ p["w_uq"]).reshape(B, S, H, dn + dr)
+    q_rope = apply_rope(qall[..., dn:], positions, cfg.rope_theta)
+    c_kv_n = rms_norm(x @ p["w_dkv"], p["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope((x @ p["w_kr"])[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0]          # (B, S, dr) shared
+    k_nope = (c_kv_n @ p["w_uk"]).reshape(B, S, H, dn)
+    v = (c_kv_n @ p["w_uv"]).reshape(B, S, H, dv)
+    q = torch.cat([qall[..., :dn], q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, dr)],
+                  dim=-1)
+    o = ops.flash_prefill(q, k, v, scale=_mla_scale(cfg), causal=True)
+    out = o.reshape(B, S, H * dv) @ p["wo"]
+    if return_latent:
+        return out, torch.cat([c_kv_n, k_rope], dim=-1)
+    return out
+
+
+def _mla_project_decode(p: Dict[str, torch.Tensor], cfg: ModelConfig,
+                        x: torch.Tensor, cur_len: torch.Tensor):
+    """Absorbed-form decode projections at position cur_len: x (B, d) ->
+    (q_eff (B, H, kv_lora + rope), latent (B, kv_lora + rope)).  W_UK is
+    absorbed into the query in float32, as the reference does."""
+    m = cfg.mla
+    B = x.shape[0]
+    H = cfg.num_heads
+    dn, lat = m.qk_nope_head_dim, m.kv_lora_rank
+    pos = cur_len[:, None]
+    cq = rms_norm(x @ p["w_dq"], p["q_norm"], cfg.norm_eps)
+    qall = (cq @ p["w_uq"]).reshape(B, H, dn + m.qk_rope_head_dim)
+    q_rope = apply_rope(qall[:, None, :, dn:], pos, cfg.rope_theta)[:, 0]
+    w_uk = p["w_uk"].reshape(lat, H, dn)
+    q_abs = torch.einsum("bhd,lhd->bhl", qall[..., :dn].float(),
+                         w_uk.float()).to(x.dtype)
+    c_kv_n = rms_norm(x @ p["w_dkv"], p["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope((x @ p["w_kr"])[:, None, None, :], pos,
+                        cfg.rope_theta)[:, 0, 0]
+    return (torch.cat([q_abs, q_rope], dim=-1),
+            torch.cat([c_kv_n, k_rope], dim=-1))
+
+
+def mla_select_step(p: Dict[str, torch.Tensor], cfg: ModelConfig,
+                    x: torch.Tensor, cache: Dict[str, torch.Tensor],
+                    cur_len: torch.Tensor, *,
+                    step_mask: Optional[torch.Tensor] = None):
+    """MLA select stage, ``gqa_select_step`` over the latent pool: the
+    token's latent appended and the metadata grown IN PLACE, then the
+    blocks scored in latent space with the absorbed query (max over the
+    H query heads of the one latent head) and top-k.
+    Returns (q_eff, cache, idx, valid)."""
+    bs = cfg.dsa.block_size
+    q_eff, latent = _mla_project_decode(p, cfg, x, cur_len)
+    lat1 = latent[:, None, :]                           # (B, 1, lat + dr)
+    if step_mask is None:
+        _append_to_pool(cache["k"], lat1, cur_len, bs)
+        _update_meta(cache["meta"], lat1, cur_len, cfg.dsa)
+    else:
+        blk, slot = cur_len // bs, cur_len % bs
+        _append_masked(cache["k"], lat1, blk, slot, step_mask)
+        _update_meta_masked(cache["meta"], lat1, blk, slot, step_mask,
+                            cfg.dsa)
+    idx = valid = None
+    if cfg.dsa.enabled:
+        idx, valid = dsa.score_and_select(q_eff, cache["meta"], cfg.dsa,
+                                          cur_len)
+    return q_eff, cache, idx, valid
+
+
+def mla_attend_step(p: Dict[str, torch.Tensor], cfg: ModelConfig,
+                    q_eff: torch.Tensor, cache: Dict[str, torch.Tensor],
+                    cur_len: torch.Tensor, idx: Optional[torch.Tensor],
+                    valid: Optional[torch.Tensor]) -> torch.Tensor:
+    """MLA compute stage: block-sparse attention of the H absorbed queries
+    over the selected blocks of the latent pool, which is key and value
+    at once (the ``sparse_decode_attention`` kernel on the GPU, G = H over
+    one head, scale 1 / sqrt(qk_nope + qk_rope)); the latent part of the
+    output through W_UV in float32, then the output projection.  Reads
+    ``cache`` only."""
+    m = cfg.mla
+    B = q_eff.shape[0]
+    H, lat = cfg.num_heads, m.kv_lora_rank
+    new_len = (cur_len + 1).to(torch.int32)
+    pool = cache["k"]
+    if idx is None:
+        o_lat = dsa.full_decode_attention_ref(q_eff, pool, pool, new_len,
+                                              scale=_mla_scale(cfg))
+    else:
+        o_lat = ops.sparse_decode_attention(q_eff, pool, pool, idx, valid,
+                                            new_len, scale=_mla_scale(cfg))
+    w_uv = p["w_uv"].reshape(lat, H, m.v_head_dim)
+    o = torch.einsum("bhl,lhd->bhd", o_lat[..., :lat].float(),
+                     w_uv.float()).to(q_eff.dtype)
+    return o.reshape(B, H * m.v_head_dim) @ p["wo"]

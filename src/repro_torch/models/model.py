@@ -1,17 +1,22 @@
-"""Model assembly of the port: the dense GQA decoder.
+"""Model assembly of the port: the dense decoder, with GQA or MLA
+attention.
 
 Counterpart of the dense subset of ``repro/models/model.py``.  Parameters
 are a plain dict of tensors in list mode:
 
     {"embed": (V, d), "final_norm": (d,), "lm_head": (d, V),
-     "layers": [{"attn_norm", "ffn_norm", "attn": {wq, wk, wv, wo[, bq,
-                 bk, bv]}, "ffn": {w_gate, w_up, w_down}}, ...]}
+     "layers": [{"attn_norm", "ffn_norm", "attn": {...}, "ffn": {w_gate,
+                 w_up, w_down}}, ...]}
 
-(``bridge.params_from_numpy`` un-stacks the reference's stacked layers into
-this form).  DecodeState is ``{"caches": [per-layer pool dict],
-"cur_len": (B,) int32, "extra": {}}`` with the pools updated IN PLACE by
-the decode stages.  Configs the port does not implement (MLA, MoE,
-recurrent layers, encoder-decoder, modality frontends) raise
+with ``attn`` {wq, wk, wv, wo[, bq, bk, bv]} (GQA) or {w_dq, q_norm, w_uq,
+w_dkv, kv_norm, w_kr, w_uk, w_uv, wo} (MLA) (``bridge.params_from_numpy``
+un-stacks the reference's stacked layers into this form).  DecodeState is
+``{"caches": [per-layer pool dict], "cur_len": (B,) int32, "extra": {}}``
+with the pools updated IN PLACE by the decode stages.  A layer's KV, as
+prefill returns it, is ``(k, v)`` each (B, S, Hkv, hd), or for MLA
+``(latent (B, S, 1, kv_lora + rope), None)``: the latent is one head with
+no separate value.  Configs the port does not implement (MoE, recurrent
+layers, encoder-decoder, modality frontends) raise
 ``NotImplementedError`` in ``check_supported``.
 """
 from __future__ import annotations
@@ -30,17 +35,18 @@ from repro_torch.models.common import ModelConfig, rms_norm
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what this port does not run yet."""
-    if (cfg.attention_type != "gqa" or cfg.num_experts > 0
+    if (cfg.attention_type not in ("gqa", "mla") or cfg.num_experts > 0
             or cfg.attn_layer_period > 1 or cfg.arch_type not in ("dense",)
             or cfg.is_encoder_decoder or cfg.frontend != "none"
             or cfg.tie_embeddings):
         raise NotImplementedError(
-            f"{cfg.name}: the port serves dense GQA decoders only (MLA, MoE, "
-            f"recurrent, encoder-decoder and frontend models are later work)")
+            f"{cfg.name}: the port serves dense GQA and MLA decoders only "
+            f"(MoE, recurrent, encoder-decoder and frontend models are "
+            f"later work)")
 
 
 def layer_kind(cfg: ModelConfig, i: int) -> str:
-    """Mixer of layer i: always 'attn' for the dense GQA decoders served."""
+    """Mixer of layer i: always 'attn' for the dense decoders served."""
     check_supported(cfg)
     return "attn"
 
@@ -79,15 +85,30 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     def zeros(n):
         return torch.zeros((n,), dtype=dtype, device=dev)
 
+    m = cfg.mla
     layers = []
     for _ in range(cfg.num_layers):
-        a = {"wq": _dense(g, (d, Hq * hd), dtype, dev),
-             "wk": _dense(g, (d, Hkv * hd), dtype, dev),
-             "wv": _dense(g, (d, Hkv * hd), dtype, dev),
-             "wo": _dense(g, (Hq * hd, d), dtype, dev)}
-        if cfg.qkv_bias:
-            a.update(bq=zeros(Hq * hd), bk=zeros(Hkv * hd),
-                     bv=zeros(Hkv * hd))
+        if cfg.attention_type == "mla":
+            qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+            a = {"w_dq": _dense(g, (d, m.q_lora_rank), dtype, dev),
+                 "q_norm": ones(m.q_lora_rank),
+                 "w_uq": _dense(g, (m.q_lora_rank, Hq * qk), dtype, dev),
+                 "w_dkv": _dense(g, (d, m.kv_lora_rank), dtype, dev),
+                 "kv_norm": ones(m.kv_lora_rank),
+                 "w_kr": _dense(g, (d, m.qk_rope_head_dim), dtype, dev),
+                 "w_uk": _dense(g, (m.kv_lora_rank,
+                                    Hq * m.qk_nope_head_dim), dtype, dev),
+                 "w_uv": _dense(g, (m.kv_lora_rank, Hq * m.v_head_dim),
+                                dtype, dev),
+                 "wo": _dense(g, (Hq * m.v_head_dim, d), dtype, dev)}
+        else:
+            a = {"wq": _dense(g, (d, Hq * hd), dtype, dev),
+                 "wk": _dense(g, (d, Hkv * hd), dtype, dev),
+                 "wv": _dense(g, (d, Hkv * hd), dtype, dev),
+                 "wo": _dense(g, (Hq * hd, d), dtype, dev)}
+            if cfg.qkv_bias:
+                a.update(bq=zeros(Hq * hd), bk=zeros(Hkv * hd),
+                         bv=zeros(Hkv * hd))
         layers.append({
             "attn_norm": ones(d), "ffn_norm": ones(d), "attn": a,
             "ffn": {"w_gate": _dense(g, (d, f), dtype, dev),
@@ -111,13 +132,24 @@ def layer_forward(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                   k_ctx=None, v_ctx=None, q_offset=0,
                   return_kv: bool = False):
     """One transformer layer over a full sequence.  Returns (x_out,
-    layer_kv): (k, v) each (B, S, Hkv, hd) when ``return_kv``, else None."""
+    layer_kv): (k, v) each (B, S, Hkv, hd), or MLA's (latent (B, S, 1,
+    kv_lora + rope), None), when ``return_kv``, else None.  MLA has no
+    attention over earlier chunks' context (as in the reference)."""
     if kind != "attn":
         raise NotImplementedError(f"layer kind {kind!r}")
     h_in = _norm(cfg, p["attn_norm"], x)
-    h, k, v = attn.gqa_self_attention(p["attn"], cfg, h_in, positions,
-                                      k_ctx=k_ctx, v_ctx=v_ctx,
-                                      q_offset=q_offset, return_kv=True)
+    if cfg.attention_type == "mla":
+        if k_ctx is not None or int(q_offset) != 0:
+            raise NotImplementedError(
+                "MLA prefill runs whole prompts: the latent cache has no "
+                "chunked-context attention path")
+        h, latent = attn.mla_self_attention(p["attn"], cfg, h_in, positions,
+                                            return_latent=True)
+        k, v = latent[:, :, None, :], None
+    else:
+        h, k, v = attn.gqa_self_attention(p["attn"], cfg, h_in, positions,
+                                          k_ctx=k_ctx, v_ctx=v_ctx,
+                                          q_offset=q_offset, return_kv=True)
     x = x + h
     x = x + ffn_mod.ffn_apply(p["ffn"], _norm(cfg, p["ffn_norm"], x))
     return x, ((k, v) if return_kv else None)
@@ -157,6 +189,19 @@ def init_decode_state(cfg: ModelConfig, batch: int, num_blocks: int,
             "extra": {}}
 
 
+def kv_to_cache(cfg: ModelConfig, kv: Tuple, num_blocks: int,
+                pool_dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    """A layer's prefill KV (``layer_forward``'s layer_kv) as its decode
+    pool cache: {"k", "v", "meta"}, or {"k", "meta"} for MLA's latent
+    (v None); the metadata from k's values."""
+    k, v = kv
+    kpool, meta = _kv_to_pool(cfg, k, num_blocks, pool_dtype)
+    if v is None:
+        return {"k": kpool, "meta": meta}
+    vpool, _ = _kv_to_pool(cfg, v, num_blocks, pool_dtype)
+    return {"k": kpool, "v": vpool, "meta": meta}
+
+
 def _kv_to_pool(cfg: ModelConfig, k: torch.Tensor, num_blocks: int,
                 pool_dtype: torch.dtype):
     """(B, S, Hkv, D) -> pool (B, Hkv, NB, bs, D) zero-padded, in
@@ -181,11 +226,9 @@ def prefill(params: Dict, cfg: ModelConfig, inputs: Dict, num_blocks: int,
     B, S, _ = h.shape
     caches = []
     for i in range(cfg.num_layers):
-        h, (k, v) = layer_forward(get_layer(params, i), cfg, h, positions,
-                                  return_kv=True)
-        kpool, meta = _kv_to_pool(cfg, k, num_blocks, cache_dtype)
-        vpool, _ = _kv_to_pool(cfg, v, num_blocks, cache_dtype)
-        caches.append({"k": kpool, "v": vpool, "meta": meta})
+        h, kv = layer_forward(get_layer(params, i), cfg, h, positions,
+                              return_kv=True)
+        caches.append(kv_to_cache(cfg, kv, num_blocks, cache_dtype))
     logits = lm_head(params, cfg, h[:, -1:, :])[:, 0]
     state = {"caches": caches,
              "cur_len": torch.full((B,), S, dtype=torch.int32,
@@ -238,7 +281,7 @@ def prefill_attn_layer_batched(p: Dict, cfg: ModelConfig, h: torch.Tensor,
     h (B, T, d): the rows' residual stream over the segment's token window;
     positions (B, T); k_ctx/v_ctx: earlier chunks of the same layer.
     Masked lanes (padding, unscheduled rows) keep their incoming residual.
-    Returns (h_out, (k, v)) with k/v (B, T, Hkv, hd)."""
+    Returns (h_out, layer_kv) as ``layer_forward`` gives it."""
     x, kv_out = layer_forward(p, cfg, h, positions, k_ctx=k_ctx,
                               v_ctx=v_ctx, q_offset=q_offset,
                               return_kv=True)
@@ -270,10 +313,11 @@ def decode_select_layer(p: Dict, cfg: ModelConfig, x: torch.Tensor, cache,
                         step_mask: Optional[torch.Tensor] = None):
     """Select stage of one attention layer: pre-norm, project, append the
     token's KV and grow the metadata (in place), score + top-k.
-    Returns (q, cache, idx, valid)."""
+    Returns (q, cache, idx, valid); q is MLA's absorbed query."""
     h_in = _norm(cfg, p["attn_norm"], x)
-    return attn.gqa_select_step(p["attn"], cfg, h_in, cache, cur_len,
-                                step_mask=step_mask)
+    select = (attn.mla_select_step if cfg.attention_type == "mla"
+              else attn.gqa_select_step)
+    return select(p["attn"], cfg, h_in, cache, cur_len, step_mask=step_mask)
 
 
 def decode_attend_layer(p: Dict, cfg: ModelConfig, x: torch.Tensor,
@@ -281,8 +325,9 @@ def decode_attend_layer(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                         idx, valid) -> torch.Tensor:
     """Compute stage of one attention layer: block-sparse attention over
     the (possibly restored) pool + residual + FFN.  Reads ``cache`` only."""
-    x = x + attn.gqa_attend_step(p["attn"], cfg, q, cache, cur_len, idx,
-                                 valid)
+    attend = (attn.mla_attend_step if cfg.attention_type == "mla"
+              else attn.gqa_attend_step)
+    x = x + attend(p["attn"], cfg, q, cache, cur_len, idx, valid)
     return x + ffn_mod.ffn_apply(p["ffn"], _norm(cfg, p["ffn_norm"], x))
 
 

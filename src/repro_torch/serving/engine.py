@@ -1,8 +1,8 @@
 """Real-execution serving engine of the port: continuous batching with
 dynamic sparse attention decode over a hierarchical HBM/DRAM KV cache.
 
-Counterpart of ``repro/serving/engine.py`` for dense GQA decoders on one
-device.  By default every iteration is ONE mixed layer walk
+Counterpart of ``repro/serving/engine.py`` for dense GQA and MLA
+decoders on one device.  By default every iteration is ONE mixed layer walk
 (``core.hybrid_plane``) carrying the staged decode plane's rows (select ->
 host stage -> attend per layer) and the batched layer-segmented prefill
 plane's segments, with one host stage per attention layer:
@@ -31,7 +31,12 @@ plane's iteration, then the staged decode plane's), the fused
 ``batched_decode=False`` (one B=1 forward per request),
 ``prefill_exec="legacy"`` (one request's whole layer at a time) and
 ``prefill_mode="chunked"`` (every layer over a chunk of tokens, with the
-earlier chunks' KV as dense context).
+earlier chunks' KV as dense context).  MLA models run whole-layer
+prefill segments and raise ``NotImplementedError`` for the chunked
+baseline, as the reference does: the latent cache has no chunked-context
+attention.  Their host pools hold the one latent head (see
+``core.kv_cache.KVGeometry.stored_heads``) while the geometry and every
+transfer counter keep the reference's ``max(num_kv_heads, 1)`` heads.
 
 Iteration latency is charged from the copied analytic cost model unless
 ``charge_real_time`` is set (the GPU launcher sets it, and then TTFT/TBT
@@ -214,6 +219,10 @@ class ServingEngine:
                  hw: cm.HardwareSpec = cm.TPU_V5E):
         M.check_supported(cfg)
         eng = resolve_config(eng)
+        if eng.prefill_mode == "chunked" and cfg.attention_type == "mla":
+            raise NotImplementedError(
+                "chunked prefill does not support MLA models; use "
+                "prefill_mode='layer_segmented'")
         self.params = params
         self.cfg = cfg
         self.hw = hw                 # the modelled clock's preset
@@ -224,21 +233,21 @@ class ServingEngine:
         self.metrics = MetricsRegistry()
         self.mc = cm.ModelCost.from_config(cfg)
         self.rng = np.random.default_rng(eng.seed)
-        self.geom = KVGeometry(
-            num_layers=cfg.num_attention_layers(),
-            num_kv_heads=cfg.num_kv_heads, block_size=cfg.dsa.block_size,
-            head_dim=cfg.kv_cache_dim, kv_factor=2)
+        self.geom = KVGeometry.of_model(cfg)
         inject = (eng.max_inject_tokens if eng.max_inject_tokens > 0
                   else eng.chunk_size * cfg.num_layers)
         self._plane_prefill = (eng.prefill_mode == "layer_segmented"
                                and eng.prefill_exec == "plane")
+        # MLA keeps whole-layer prefill segments (no chunked context)
+        self._seg_tokens = (eng.prefill_max_tokens_per_step
+                            if cfg.attention_type != "mla" else 0)
         self.scheduler = Scheduler(
             SchedulerConfig(
                 r_max=eng.r_max, t_max=eng.t_max,
                 m_avl_bytes=eng.hbm_budget_bytes if eng.ws_control else 0,
                 prefill_mode=eng.prefill_mode, chunk_size=eng.chunk_size,
                 max_inject_tokens=inject,
-                segment_tokens=(eng.prefill_max_tokens_per_step
+                segment_tokens=(self._seg_tokens
                                 if self._plane_prefill else 0),
                 ws_control=eng.ws_control),
             self.geom, cfg.num_layers, cfg.dsa.top_k_blocks)
@@ -334,20 +343,18 @@ class ServingEngine:
     # Prefill: the legacy executor and the chunked baseline
     # ------------------------------------------------------------------
     def _kv_to_layer_cache(self, st: _ReqState, kv_out: Tuple) -> Dict:
-        k, v = kv_out
-        kpool, meta = M._kv_to_pool(self.cfg, k, st.num_blocks,
-                                    self.kv_dtype)
-        vpool, _ = M._kv_to_pool(self.cfg, v, st.num_blocks, self.kv_dtype)
-        return {"k": kpool, "v": vpool, "meta": meta}
+        return M.kv_to_cache(self.cfg, kv_out, st.num_blocks, self.kv_dtype)
 
     def _save_prompt_layer(self, rid: str, layer: int, kv: Tuple) -> None:
         """FlashD2H of one request's whole-prompt layer KV (k, v each
-        (1, S, Hkv, D)) from token 0: one contiguous save on its host pool
-        (``HostPool.save_contiguous``), flushed by the caller."""
+        (1, S, Hkv, D); MLA's latent with v None) from token 0: one
+        contiguous save on its host pool (``HostPool.save_contiguous``),
+        flushed by the caller."""
         host = self.kv_mgr.pools.get(rid)
         if host is None:
             return
-        k, v = self.kv_mgr.ship(*(t[0].permute(1, 0, 2).float()
+        k, v = self.kv_mgr.ship(*(None if t is None
+                                  else t[0].permute(1, 0, 2).float()
                                   for t in kv)).wait()
         host.save_contiguous(layer, 0, k, v)
 
@@ -479,7 +486,7 @@ class ServingEngine:
             if req.req_id not in pplane.rows:
                 h = pre_h[req.req_id]
                 S = int(h.shape[1])
-                step = self.eng.prefill_max_tokens_per_step or S
+                step = self._seg_tokens or S
                 pplane.admit(req.req_id, h,
                              plan_segments(S, self.cfg.num_layers, step))
                 st.decode_state = {"caches": [None] * self.cfg.num_layers,
@@ -727,7 +734,7 @@ class ServingEngine:
             k, v = pending.wait()
             for i, rid in enumerate(req_ids):
                 kv_merge[rid] = (prev[rid], k[i][:, None, :],
-                                 v[i][:, None, :])
+                                 None if v is None else v[i][:, None, :])
         for chunk_start, finish in finishers:
             for rid, (k, v) in finish().items():
                 cur = kv_merge.get(rid)
@@ -738,7 +745,8 @@ class ServingEngine:
                     # order: extend the stripe along tokens
                     s0, k0, v0 = cur
                     kv_merge[rid] = (s0, torch.cat([k0, k], dim=1),
-                                     torch.cat([v0, v], dim=1))
+                                     None if v is None
+                                     else torch.cat([v0, v], dim=1))
         if kv_merge:
             self.kv_mgr.save_new_tokens_fused(lidx, kv_merge)
             self.kv_mgr.flush_fused(lidx, list(kv_merge))
@@ -927,7 +935,8 @@ class ServingEngine:
                                      self.kv_mgr.ship)
         for l, (k, v) in payload.items():
             self.kv_mgr.save_new_tokens_fused(l, {
-                rid: (prev[rid], k[i][:, None, :], v[i][:, None, :])
+                rid: (prev[rid], k[i][:, None, :],
+                      None if v is None else v[i][:, None, :])
                 for i, rid in enumerate(req_ids)})
             self.kv_mgr.flush_fused(l, req_ids)
 

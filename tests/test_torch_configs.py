@@ -1,7 +1,8 @@
 """The dense configs the port serves beyond qwen2-0.5b and llama3-8b:
 lwm-7b (the paper's main model, MHA: G = 1 over 32 kv heads), qwen2.5-3b
 (GQA with kv 2 and QKV bias) and granite-20b (MQA: 48 query heads over one
-kv head).
+kv head); minicpm3-4b (MLA) is checked against the reference config here
+and as a model in ``test_torch_mla.py``.
 
 Each arch runs in two variants against the reference model, with the
 reference's float32 weights handed over through ``bridge.py``: its
@@ -31,10 +32,12 @@ from repro_torch.configs import get_smoke_config as torch_smoke
 from repro_torch.models import model as TM
 
 ARCHS = ["lwm-7b", "qwen2.5-3b", "granite-20b"]
-# (query heads, kv heads, head_dim, QKV bias) of the full configs
+# (query heads, kv heads, head_dim, QKV bias) of the full configs;
+# minicpm3-4b (MLA) has its model tests in test_torch_mla.py
 FULL_HEADS = {"lwm-7b": (32, 32, 128, False),
               "qwen2.5-3b": (16, 2, 128, True),
-              "granite-20b": (48, 1, 128, False)}
+              "granite-20b": (48, 1, 128, False),
+              "minicpm3-4b": (40, 40, 64, False)}
 LOGIT_ATOL = 1e-4
 _jax_decode_step = jax.jit(
     lambda p, c, t, s: JM.decode_step(p, c, t, s, return_info=True),
@@ -74,7 +77,7 @@ def pair():
     return get
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["minicpm3-4b"])
 def test_config_is_the_reference_config(arch):
     assert arch in ALL_ARCHS
     assert dataclasses.asdict(torch_cfg(arch)) == \

@@ -732,18 +732,19 @@ def test_quant_save_rejects_what_the_kernel_does_not_take(cuda):
 
 @pytest.mark.gpu
 def test_slice7_wrappers_raise_beyond_their_limits(cuda):
-    """The decode attention takes any G but D, Dv <= 128; score_select any
-    G and NB while 8 * G * D + 4 * NB bytes fit the card's opt-in shared
-    memory.  Beyond that each raises, naming the limit."""
+    """The decode attention takes any G but D, Dv <= 320; score_select
+    any G and NB while 8 * G * D + 4 * NB bytes fit the card's opt-in
+    shared memory.  Beyond that each raises, naming
+    the limit."""
     assert ops.select_max_nb(48, 128) >= 8193       # granite-20b
     assert ops.select_max_nb(4, 128) >= 8193        # llama3-8b
     bf = torch.bfloat16
-    q = torch.zeros((1, 48, 256), device=cuda, dtype=bf)
-    pool = torch.zeros((1, 1, 4, 32, 256), device=cuda, dtype=bf)
+    q = torch.zeros((1, 48, 328), device=cuda, dtype=bf)
+    pool = torch.zeros((1, 1, 4, 32, 328), device=cuda, dtype=bf)
     idx = torch.zeros((1, 1, 2), device=cuda, dtype=torch.int32)
     valid = torch.ones((1, 1, 2), device=cuda, dtype=torch.bool)
     cur = torch.full((1,), 40, device=cuda, dtype=torch.int32)
-    with pytest.raises(ValueError, match="D, Dv <= 128"):
+    with pytest.raises(ValueError, match="D, Dv <= 320"):
         ops.sparse_decode_attention(q, pool, pool, idx, valid, cur)
     kw = dict(block_size=32, top_k=64, sink_blocks=1, recent_blocks=2)
     q = torch.zeros((1, 48, 128), device=cuda, dtype=bf)
@@ -757,3 +758,156 @@ def test_slice7_wrappers_raise_beyond_their_limits(cuda):
         ops.score_select(huge, meta, cur, **kw)
     with pytest.raises(ValueError, match="shared memory"):
         ops.block_score(huge, meta)
+
+
+# ---------------------------------------------------------------------------
+# MLA (minicpm3-4b): the decode kernels over one 288-wide latent head
+# under G = 40, flash_prefill at q/k depth 96 and v width 64
+# ---------------------------------------------------------------------------
+# Tolerances as above.  The D = Dv paths of flash_prefill keep the
+# earlier kernel's output bit for bit: the digests below are of the
+# outputs of the kernel as it was before its (96, 64) instantiation was
+# added, on these numpy-seeded inputs, on an H100.
+
+MLA_SCALE = 96 ** -0.5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,G,D,K", [(4, 40, 288, 64), (2, 40, 288, 13),
+                                     (1, 17, 320, 64)])
+def test_mla_decode_attention_matches_plain(cuda, B, G, D, K):
+    """The wide instantiation: G query rows over one head whose pool is
+    both k and v (MLA's latent), D = Dv up to 320, MLA's scale; an
+    all-invalid row gives 0.  A cur_len one block short must fail the
+    tolerance."""
+    bs, NB = 32, 80
+    q, pool, _, idx, valid = _decode_inputs(cuda, G + D, B, G, 1, D, NB, bs,
+                                            K)
+    cur_len = torch.randint(NB * bs // 2, NB * bs, (B,),
+                            generator=_gen(cuda, K), device=cuda,
+                            dtype=torch.int32)
+    valid[:, :, :2] = True
+    valid[-1, -1] = B == 1           # an all-invalid row where B > 1
+    args = (q, pool, pool, idx, valid, cur_len, MLA_SCALE)
+    got = ops.sparse_decode_attention(*args)
+    want = ref.sparse_decode_attention(*args)
+    assert got.shape == (B, G, D)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-3,
+                               rtol=1e-2)
+    if B > 1:
+        assert not got[-1].any()
+    short = ops.sparse_decode_attention(q, pool, pool, idx, valid,
+                                        cur_len - NB * bs // 2, MLA_SCALE)
+    assert not torch.allclose(short.float(), want.float(), atol=2e-3,
+                              rtol=1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Hq,D,NB,top_k", [
+    (4, 40, 288, 256, 64),      # minicpm3's decode step, rank-all path
+    (2, 40, 288, 1025, 64),     # its 32,768-token cap, radix path
+    (1, 16, 320, 600, 64),      # the widest D the wide kernel takes
+])
+def test_mla_score_select_matches_plain(cuda, B, Hq, D, NB, top_k):
+    """score_select over latent metadata (one head, D up to 320), held
+    tie-aware as above; the planted fault (cur_len without the step's
+    +1) must fail the check."""
+    q, meta, cur_len = _select_case(cuda, B, Hq, 1, D, NB, 32)
+    kw = dict(block_size=32, top_k=top_k, sink_blocks=1, recent_blocks=2)
+    want = ref.score_select(q, meta, cur_len, **kw)
+    s_ref = ref.select_scores(ref.block_score(q, meta), cur_len + 1,
+                              block_size=32, sink_blocks=1, recent_blocks=2)
+    assert _select_agrees(*ops.score_select(q, meta, cur_len, **kw), *want,
+                          s_ref)
+    assert not _select_agrees(*ops.score_select(q, meta, cur_len - 1, **kw),
+                              *want, s_ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,Sq", [(40, 300), (4, 1000), (2, 130)])
+def test_flash_prefill_mla_matches_plain(cuda, H, Sq):
+    """q and k of depth 96, v of width 64, H heads over H (MLA's prefill),
+    passed unpadded: the kernel reads the depth as two 64-column boxes,
+    the second zero-filled past column 96.  Two planted faults (q_offset
+    one too large, the last key dropped) must fail the tolerance."""
+    g = _gen(cuda, H + Sq)
+    q = torch.randn((1, Sq, H, 96), generator=g, device=cuda).bfloat16()
+    k = torch.randn((1, Sq, H, 96), generator=g, device=cuda).bfloat16()
+    v = torch.randn((1, Sq, H, 64), generator=g, device=cuda).bfloat16()
+    kw = dict(scale=MLA_SCALE)
+    got = ops.flash_prefill(q, k, v, **kw)
+    assert got.shape == (1, Sq, H, 64)
+    assert _flash_close(got, q, k, v, **kw)
+    kp, vp = _probe(q, k, v, 0, 1, MLA_SCALE)
+    assert not _flash_close(ops.flash_prefill(q, kp, vp, q_offset=1, **kw),
+                            q, kp, vp, **kw)
+    kp, vp = _probe(q, k, v, Sq - 1, Sq - 1, MLA_SCALE)
+    assert not _flash_close(ops.flash_prefill(
+        q, kp[:, :-1].contiguous(), vp[:, :-1].contiguous(), **kw), q, kp,
+        vp, **kw)
+
+
+def _numpy_inputs(dev, seed, *shapes):
+    import numpy as np
+    r = np.random.default_rng(seed)
+    return [torch.from_numpy(r.standard_normal(s, dtype=np.float32)).to(
+        dev).bfloat16() for s in shapes]
+
+
+def _digest(t) -> str:
+    import hashlib
+    return hashlib.sha1(t.cpu().view(torch.int16).numpy().tobytes()
+                        ).hexdigest()[:16]
+
+
+# flash_prefill's output digests on _numpy_inputs(seed 0): (B, Sq, Hq, Hkv,
+# D, q_offset) -> the earlier kernel's digest
+FLASH_DIGESTS = {
+    (1, 1000, 14, 2, 64, 0): "22a6919ba03ba8a6",
+    (2, 300, 32, 8, 128, 200): "475a98e04a34b63e",
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(FLASH_DIGESTS))
+def test_flash_prefill_d_eq_dv_unchanged(cuda, case):
+    """D = Dv in {64, 128}: the output equals the earlier kernel's bit for
+    bit (its digest), and stays within the tolerance of the plain
+    version."""
+    B, Sq, Hq, Hkv, D, q_off = case
+    q, k, v = _numpy_inputs(cuda, 0, (B, Sq, Hq, D),
+                            (B, q_off + Sq, Hkv, D), (B, q_off + Sq, Hkv, D))
+    kw = dict(scale=D ** -0.5, q_offset=q_off)
+    got = ops.flash_prefill(q, k, v, **kw)
+    assert _flash_close(got, q, k, v, **kw)
+    assert _digest(got) == FLASH_DIGESTS[case]
+
+
+@pytest.mark.gpu
+def test_slice9_wrappers_raise_beyond_their_limits(cuda):
+    """score_select takes D <= 320 (D % 4 == 0); flash_prefill the (D, Dv)
+    pairs it is built for; block_score keeps D <= 128 (it is off the
+    serving path).  Just past each limit the wrapper raises."""
+    bf = torch.bfloat16
+    cur = torch.full((1,), 40, device=cuda, dtype=torch.int32)
+    kw = dict(block_size=32, top_k=64, sink_blocks=1, recent_blocks=2)
+    q = torch.zeros((1, 40, 324), device=cuda, dtype=bf)
+    meta = torch.zeros((1, 1, 8, 2, 324), device=cuda)
+    with pytest.raises(ValueError, match="D <= 320"):
+        ops.score_select(q, meta, cur, **kw)
+    q = torch.zeros((1, 40, 288), device=cuda, dtype=bf)
+    meta = torch.zeros((1, 1, 8, 2, 288), device=cuda)
+    with pytest.raises(ValueError, match="D <= 128"):
+        ops.block_score(q, meta)
+    for D, Dv in ((96, 96), (96, 128), (80, 64), (112, 64)):
+        fq = torch.zeros((1, 8, 2, D), device=cuda, dtype=bf)
+        fv = torch.zeros((1, 8, 2, Dv), device=cuda, dtype=bf)
+        with pytest.raises(ValueError, match="D, Dv"):
+            ops.flash_prefill(fq, fq, fv, scale=1.0)
+    # the decode attention's shared memory at D 320 with 128-token blocks
+    q = torch.zeros((1, 16, 320), device=cuda, dtype=bf)
+    pool = torch.zeros((1, 1, 2, 128, 320), device=cuda, dtype=bf)
+    idx = torch.zeros((1, 1, 2), device=cuda, dtype=torch.int32)
+    valid = torch.ones((1, 1, 2), device=cuda, dtype=torch.bool)
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.sparse_decode_attention(q, pool, pool, idx, valid, cur)

@@ -52,7 +52,8 @@ def test_no_port_file_imports_jax_or_the_reference():
 def test_importing_the_port_loads_neither_jax_nor_the_reference():
     mods = sorted(m.name for m in pkgutil.walk_packages(
         [str(PORT)], prefix="repro_torch."))
-    assert "repro_torch.serving.engine" in mods
+    assert {"repro_torch.serving.engine",
+            "repro_torch.configs.minicpm3_4b"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -153,11 +153,11 @@ def test_batched_prefill_layer_and_logits_match(arch, pair):
 
 def test_unsupported_configs_raise():
     from repro_torch.models.common import ModelConfig
-    mla = ModelConfig(name="x", arch_type="dense", num_layers=1, d_model=8,
-                      num_heads=2, num_kv_heads=1, d_ff=8, vocab_size=8,
-                      attention_type="mla")
+    rwkv = ModelConfig(name="x", arch_type="ssm", num_layers=1, d_model=8,
+                       num_heads=0, num_kv_heads=0, d_ff=8, vocab_size=8,
+                       attention_type="none")
     with pytest.raises(NotImplementedError):
-        TM.init_params(mla, torch.Generator(), device="cpu")
+        TM.init_params(rwkv, torch.Generator(), device="cpu")
     moe = dataclasses.replace(torch_smoke("qwen2-0.5b"), arch_type="moe",
                               num_experts=4, top_k_experts=2)
     with pytest.raises(NotImplementedError):
