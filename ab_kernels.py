@@ -14,9 +14,13 @@ order A, B, B, A).
 Shapes: flash_prefill at the serve prefill's first launch (qwen2-0.5b,
 B 1, Sq = Sk 4096, Hq 14, Hkv 2, D 64, q_offset 0), with SDPA on the same
 inputs, and at llama3-8b's heads (B 1, Sq = Sk 2048, Hq 32, Hkv 8,
-D 128); sparse_decode_attention at the serve's decode step (B 4, Hq 14,
-Hkv 2, NB 136, K 64, bs 32, D 64, cur_len 4112, every selection valid:
-512 live blocks, as the serve replay has), and with the select stage at
+D 128), and, on inputs drawn from a generator of their own (seed + 1),
+at MLA's q/k depth 96 with v width 64 (minicpm3-4b's 40 heads over 40)
+and at D = Dv = 112 (kimi-k2's 64 heads over 8), B 1, 4096 tokens,
+where the tree builds that instantiation; sparse_decode_attention at
+the serve's decode step (B 4, Hq 14, Hkv 2, NB 136, K 64, bs 32, D 64,
+cur_len 4112, every selection valid: 512 live blocks, as the serve
+replay has), and with the select stage at
 the models phase's decode shapes of llama3-8b (B 1, Hq 32, Hkv 8,
 NB 4104, D 128) and granite-20b (B 4, Hq 48, Hkv 1, NB 264, D 128);
 block_score at the qwen2-0.5b step's
@@ -203,6 +207,17 @@ def main() -> int:
                                             scale=128 ** -0.5),
         "block_score": cs.case_score(torch, ops, ref, q, meta),
     }
+    # flash_prefill's other instantiations, on inputs of their own, so
+    # that the cases above and below keep theirs
+    gen2 = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    for name, (hq, hkv, dq, dv) in {"flash_prefill_mla": (40, 40, 96, 64),
+                                    "flash_prefill_d112": (64, 8, 112,
+                                                           112)}.items():
+        fx = [torch.randn((1, S, h, d), generator=gen2, device=dev).to(
+            torch.bfloat16) for h, d in ((hq, dq), (hkv, dq), (hkv, dv))]
+        if (dq, dv) in getattr(ops, "FLASH_DIMS", ()):
+            cases[name] = cs.case_flash(torch, ops, ref, *fx,
+                                        scale=dq ** -0.5)
     # the decode select stage, as this tree's gqa_select_step runs it, on
     # the cache before the step's append (before + 1 = cur_len tokens)
     cfg = DSAConfig()

@@ -63,7 +63,16 @@ each printing one line (``phase=...``) and failing the run on any error:
    planted attention faults; score_select over the 288-wide latent
    metadata at NB 256 and 1025, each with its two planted faults; and
    flash_prefill at q/k depth 96 and v width 64, 40 heads over 40, 4096
-   tokens, with its three planted faults.  score_select's lines also time
+   tokens, with its three planted faults.  And at the MoE family's
+   attention: sparse_decode_attention and score_select at kimi-k2's
+   (Hq 64 over 8, D 112) and arctic-480b's (Hq 56 over 8, D 128) decode
+   steps (B 4, NB 448), each with its two planted faults; flash_prefill
+   at D = Dv = 112 (kimi-k2's heads, 64 over 8), 4096 tokens and a chunk
+   continuation, each with the three planted faults and a fourth, a
+   store spilling 16 columns into the next head (its first 16 columns
+   zeroed), and a guard band: launched into a buffer with 64 sentinel
+   elements after its output, every output element must be written and
+   the band untouched.  score_select's lines also time
    the unfused pair it replaces (block_score's kernel, then the plain
    select), where block_score takes the width (D <= 128).  A
    move from or to pinned memory is also bounded by the PCIe link: a
@@ -124,10 +133,14 @@ each printing one line (``phase=...``) and failing the run on any error:
 8. models — the paper's models and workload at full width, bf16 random
    weights from --seed, the default EngineConfig with wall-clock
    charging, smallest weights first, each engine and its weights freed
-   before the next (MODEL_RUNS): qwen2.5-3b, minicpm3-4b (MLA), lwm-7b
-   and granite-20b on the port's LongBench-shaped trace (generate_trace,
-   2.0 req/s, 4 requests, prompts capped at 32768, 32768, 4096 and 8192,
-   32 new tokens), and
+   before the next (MODEL_RUNS): qwen2.5-3b, minicpm3-4b (MLA), lwm-7b,
+   kimi-k2-1t-a32b (MoE, 384 experts top-8, 1 of its 61 layers), granite-20b
+   and arctic-480b (MoE, 128 experts top-2 with a dense residual, 2 of its
+   35 layers; MODEL_LAYERS: one card holds no more, each layer at full
+   width, ``reduced=num_layers:<n>/<published>`` on their lines) on the
+   port's LongBench-shaped trace (generate_trace, 2.0 req/s, 4 requests,
+   prompts capped at 32768, 32768, 4096, 32768, 8192 and 32768, 32 new
+   tokens), and
    llama3-8b with one 131,072-token prompt, 8 new tokens, on the int8
    tier.  Algorithm 1's HBM budget stays the default 1 GiB unless the
    largest working set one request can claim exceeds it (minicpm3-4b,
@@ -139,14 +152,20 @@ each printing one line (``phase=...``) and failing the run on any error:
    decode rows together (the engine's mixed_iter_log).  Prints per
    config TTFT, mean and p99 TBT, tok/s, iterations and mixed ones, peak
    device memory, pinned host bytes, the HBM budget and launches by
-   kernel, with the card's name and power limit.  One launch of each
+   kernel, with the card's name and power limit; for the MoE configs the
+   per-expert count read-backs (one per MoE call) per iteration and the
+   experts a decode step touches per layer, and it asserts that no pair
+   was dropped.  One launch of each
    kernel at a shape only these configs give is kept and replayed, with
    the weights freed, against its plain version (phase_mainpath), each
-   replay with its device ms per call under torch.profiler:
+   replay with its device ms per call under torch.profiler and from CUDA
+   events over 10 back-to-back calls:
    sparse_decode_attention and score_select at NB 4104 (llama3-8b), G 48
-   (granite-20b) and G 40 over one 288-wide latent head (minicpm3-4b),
-   flash_prefill at D 128 over 32 kv heads (lwm-7b) and one
-   (granite-20b), and at D 96 with Dv 64 over 40 heads (minicpm3-4b).
+   (granite-20b), G 40 over one 288-wide latent head (minicpm3-4b), G 8
+   at D 112 (kimi-k2) and G 7 at D 128 (arctic-480b), flash_prefill at
+   D 128 over 32 kv heads (lwm-7b) and one (granite-20b), at D 96 with
+   Dv 64 over 40 heads (minicpm3-4b), and at D = Dv = 112 over 8 kv heads
+   (kimi-k2).
    Its launch counts join the kernels' JSON record.
 9. obs    — the obs layer on the card (EngineConfig(obs=True): the
    reference's host wall-clock spans and metrics registry).  After a
@@ -291,6 +310,17 @@ GROUP_B, LONG_B, LONG_NB = 4, 2, (4097, 8193)
 # q/k depth 96 and v width 64, 40 heads over 40
 MLA_SHAPE = dict(arch="minicpm3-4b", Hq=40, Hkv=1, D=288, qk=96, v=64)
 MLA_B, MLA_NB = 4, ((256, 4), (1025, 2))
+# the MoE family's attention: kimi-k2 (d_model 7168 over 64 heads: D = Dv =
+# 112, flash_prefill's fourth instantiation; G 8) and arctic-480b (56 heads
+# over 8 at D 128: G 7), the decode kernels at B 4, NB 448 (the trace's
+# 14,211-token prompt); flash_prefill at kimi-k2's heads, a 4096-token
+# prompt and a chunk continuation
+MOE_SHAPES = {"kimi-k2-1t-a32b": dict(Hq=64, Hkv=8, D=112),
+              "arctic-480b": dict(Hq=56, Hkv=8, D=128)}
+MOE_B, MOE_NB = 4, 448
+# a sentinel no output of the kernel takes, in the guard band after its
+# output (flash_guard)
+FLASH_GUARD, FLASH_SENTINEL = 64, 1000.0
 ATTN_ATOL, ATTN_RTOL = 2e-3, 1e-2
 # flash_prefill, per output element: FLASH_WEIGHT_TOL * W + FLASH_RTOL *
 # |ref|, W = sum_j p_j |v_j| / sum_j p_j (the plain version run on |v|)
@@ -357,7 +387,9 @@ ORACLE_REL_L2 = 2.0 ** -5
 # decode kernels at NB > 4096 (llama3-8b) and at G = 48 (granite-20b),
 # flash_prefill at D 128 with 32 kv heads (lwm-7b) and one (granite-20b);
 # all three at MLA's shapes (minicpm3-4b: G = 40 over one 288-wide latent
-# head, flash_prefill at D 96 with Dv 64))
+# head, flash_prefill at D 96 with Dv 64), and at the MoE family's
+# (kimi-k2: G 8 at D 112, flash_prefill at D = Dv = 112; arctic-480b: G 7
+# at D 128))
 MODEL_RUNS = {
     "qwen2.5-3b": ("none", (4, 32768, 32), ()),
     "minicpm3-4b": ("none", (4, 32768, 32), (
@@ -365,9 +397,18 @@ MODEL_RUNS = {
     "lwm-7b": ("none", (4, 4096, 32), ("flash_prefill",)),
     "llama3-8b": ("int8", None, ("sparse_decode_attention",
                                  "score_select")),
+    "kimi-k2-1t-a32b": ("none", (4, 32768, 32), (
+        "sparse_decode_attention", "score_select", "flash_prefill")),
     "granite-20b": ("none", (4, 8192, 32), (
         "sparse_decode_attention", "score_select", "flash_prefill")),
+    "arctic-480b": ("none", (4, 32768, 32), (
+        "sparse_decode_attention", "score_select")),
 }
+# the configs served with fewer layers than published, each layer at full
+# width: one card holds kimi-k2's embedding, head and 1 of its 61 layers
+# (38.8 GB; 33.8 GB of it the layer's 384 experts), arctic-480b's and 2 of
+# its 35 (55.4 GB); every layer of both is an MoE layer
+MODEL_LAYERS = {"kimi-k2-1t-a32b": 1, "arctic-480b": 2}
 MODEL_RATE = 2.0
 LONG_PROMPT, LONG_NEW = 131072, 8
 # the obs phase: obs-on's best serve wall time within this factor of
@@ -968,12 +1009,30 @@ def device_ms(torch, fn, reps: int = 10) -> float:
     return us / reps / 1e3
 
 
+def events_ms(torch, fn, reps: int = 10) -> float:
+    """Time of one call of ``fn`` from CUDA events around ``reps`` calls
+    made back to back (no flush, no spin): a second device-side reading
+    beside ``device_ms``, for a kernel long enough that launch gaps do
+    not count."""
+    fn()
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(reps):
+        fn()
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) / reps
+
+
 def run_case(phase: str, label: str, name: str, case: tuple,
              timer, device: bool = False) -> dict:
     """Time one case, print its line, fail on disagreement.  A case is
     (max_abs_err, ok, kernel fn, plain fn, bytes, ops, shape[, library fn
     or None[, (link direction, bytes) or None]]).  ``device``: also the
-    kernel's device ms per call under torch.profiler (``device_ms``)."""
+    kernel's device ms per call under torch.profiler (``device_ms``) and
+    from CUDA events over back-to-back calls (``events_ms``)."""
     err, ok, kfn, pfn, nbytes, nops, shape, *extra = case
     lib_fn = extra[0] if extra else None
     link = extra[1] if len(extra) > 1 else None
@@ -986,6 +1045,7 @@ def run_case(phase: str, label: str, name: str, case: tuple,
            "shape": shape}
     if device:
         res["device_ms"] = device_ms(timer.torch, kfn)
+        res["events_ms"] = events_ms(timer.torch, kfn)
     if unfused is not None:
         res["unfused_ms"] = timer(unfused)
     line = (f"phase={phase} {label} kernel={name} ok={ok} "
@@ -998,7 +1058,8 @@ def run_case(phase: str, label: str, name: str, case: tuple,
         line += (f" unfused_ms={res['unfused_ms']:.4f} (block_score kernel, "
                  f"then the plain select)")
     if device:
-        line += f" device_ms={res['device_ms']:.5f}"
+        line += (f" device_ms={res['device_ms']:.5f} "
+                 f"events_ms={res['events_ms']:.5f}")
     if link is not None:
         res["link_bound_ms"] = timer(link_copy(timer.torch, *link))
         res["binds"] = "link" if res["link_bound_ms"] > b_ms else "hbm"
@@ -1222,7 +1283,8 @@ def phase_parity(torch, ops, ref, timer, seed: int) -> dict:
             results.setdefault(name, {})[label] = run_case(
                 "parity", label, name, case, timer)
     for name, label, case in (parity_new_shapes(torch, ops, ref, gen)
-                              + parity_mla_shapes(torch, ops, ref, gen)):
+                              + parity_mla_shapes(torch, ops, ref, gen)
+                              + parity_moe_shapes(torch, ops, ref, gen)):
         results.setdefault(name, {})[label] = run_case(
             "parity", label, name, case, timer)
     return results
@@ -1388,6 +1450,102 @@ def parity_mla_shapes(torch, ops, ref, gen) -> list:
         torch, ops, ref, fq, fk, fv, scale=scale)))
     flash_faults(torch, ops, ref, fq, fk, fv, scale, 0,
                  f"{label} mode=q_offset=0")
+    return out
+
+
+def flash_spill_fault(torch, ops, ref, q, k, v, scale, q_offset,
+                      label) -> None:
+    """The flash tolerance must reject a store that spills past a head's
+    Dv columns into the next head's: the kernel's output with each head
+    after the first given, over its first 16 columns, what a spilled
+    store of the 128-column accumulator writes there (its columns
+    112-127, zero, as V's zero-filled columns make them)."""
+    kw = dict(scale=scale, causal=True, q_offset=q_offset)
+    out = ops.flash_prefill(q, k, v, **kw)
+    out[:, :, 1:, :16] = 0
+    want = ref.flash_prefill(q, k, v, **kw)
+    err, ok, ratio = _flash_close(out, want, _abs_weight(ref, q, k, v,
+                                                         **kw))
+    log(f"phase=parity {label} planted_fault=spill_into_next_head "
+        f"max_abs_err={err:.3e} largest_err/bound="
+        f"{ratio.max().item():.3f} rejected={not ok}")
+    if ok:
+        raise AssertionError(f"planted fault spill_into_next_head passed "
+                             f"the flash tolerance ({label})")
+
+
+def flash_guard(torch, ops, ref, q, k, v, scale, q_offset, label) -> None:
+    """The kernel launched (through its library, as the wrapper does) into
+    a buffer that holds its (B, Sq, Hq, Dv) output and FLASH_GUARD
+    elements after it, all FLASH_SENTINEL: every output element must be
+    written and within the tolerance, and the guard band, where a store
+    past the last head's Dv columns would land, untouched."""
+    from repro_torch.kernels.build import LIBS
+    B, Sq, Hq, D = q.shape
+    _, Sk, Hkv, Dv = v.shape
+    n = B * Sq * Hq * Dv
+    buf = torch.full((n + FLASH_GUARD,), FLASH_SENTINEL,
+                     dtype=torch.bfloat16, device=q.device)
+    rc = LIBS.fn("flash_prefill")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), buf.data_ptr(), B, Sq, Sk,
+        Hq, Hkv, D, Dv, q_offset, float(scale),
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    out = buf[:n].view(B, Sq, Hq, Dv)
+    kw = dict(scale=scale, causal=True, q_offset=q_offset)
+    err, ok, _ = _flash_close(out, ref.flash_prefill(q, k, v, **kw),
+                              _abs_weight(ref, q, k, v, **kw))
+    unwritten = int((out == FLASH_SENTINEL).sum())
+    guard_hit = int((buf[n:] != FLASH_SENTINEL).sum())
+    log(f"phase=parity {label} flash_guard rc={rc} unwritten={unwritten} "
+        f"guard_elements_written={guard_hit} of {FLASH_GUARD} "
+        f"max_abs_err={err:.3e} ok={ok}")
+    if rc != 0 or unwritten or guard_hit or not ok:
+        raise AssertionError(f"flash_prefill wrote outside its output or "
+                             f"left some of it unwritten ({label})")
+
+
+def parity_moe_shapes(torch, ops, ref, gen) -> list:
+    """The MoE family's attention shapes (MOE_SHAPES): at kimi-k2's (G 8,
+    D 112) and arctic-480b's (G 7, D 128) decode steps,
+    sparse_decode_attention with its two planted faults and score_select
+    with its two; flash_prefill at D = Dv = 112 over kimi-k2's 64 heads
+    over 8, a 4096-token prompt (q_offset 0) and a chunk continuation
+    (1000 queries after 1000 context keys), each with the three planted
+    flash faults, the spill into the next head (flash_spill_fault) and
+    the guard band (flash_guard).  Returns (kernel, label, case) triples
+    for run_case."""
+    dev = torch.device("cuda")
+    kw = dict(block_size=BS, top_k=K, sink_blocks=1, recent_blocks=2)
+    out = []
+    for arch, sh in MOE_SHAPES.items():
+        attn = _attention_inputs(torch, gen, MOE_B, sh["Hq"], sh["Hkv"],
+                                 sh["D"], MOE_NB)
+        label = f"arch={arch}"
+        out.append(("sparse_decode_attention", label,
+                    case_attention(torch, ops, ref, *attn)))
+        planted_faults(torch, ops, ref, *attn, arch)
+        _, tie_meta, sel_len = _select_inputs(torch, gen, attn[-1],
+                                              sh["Hkv"], sh["D"], MOE_NB)
+        out.append(("score_select", label, case_select(
+            torch, ops, ref, attn[0], tie_meta, sel_len, **kw)))
+        select_faults(torch, ops, ref, attn[0], tie_meta, sel_len, kw, arch)
+
+    sh = MOE_SHAPES["kimi-k2-1t-a32b"]
+    scale = sh["D"] ** -0.5
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).bfloat16()
+    for mode, (Sq, q_off) in (("q_offset=0", (SERVE_PROMPT, 0)),
+                              ("ctx", (1000, 1000))):
+        fq = randn(1, Sq, sh["Hq"], sh["D"])
+        fk, fv = (randn(1, q_off + Sq, sh["Hkv"], sh["D"]) for _ in range(2))
+        label = f"arch=kimi-k2-1t-a32b mode={mode}"
+        out.append(("flash_prefill", label, case_flash(
+            torch, ops, ref, fq, fk, fv, scale=scale, q_offset=q_off)))
+        flash_faults(torch, ops, ref, fq, fk, fv, scale, q_off, label)
+        flash_spill_fault(torch, ops, ref, fq, fk, fv, scale, q_off, label)
+        flash_guard(torch, ops, ref, fq, fk, fv, scale, q_off, label)
     return out
 
 
@@ -1716,7 +1874,8 @@ def kernel_records(parity: dict, mainpath: dict, counts: dict) -> list:
             "launches_by_path": {path: c.get(name, 0)
                                  for path, c in counts.items()},
             "cases": {label: {k: r[k] for k in (
-                "shape", "ms", "device_ms", "plain_ms", "bound_ms",
+                "shape", "ms", "device_ms", "events_ms", "plain_ms",
+                "bound_ms",
                 "library_ms", "unfused_ms", "link_bound_ms", "binds",
                 "per_block_copies_ms", "launches") if k in r}
                 for label, r in cases.items()}}
@@ -2407,11 +2566,16 @@ def _serve_model(torch, np, ops, arch: str, seed: int, caps: dict,
     phase_mainpath (into ``caps``); ``inspect(engine)`` runs last,
     before the engine closes.  Returns a summary."""
     from repro_torch.configs import get_config
+    from repro_torch.models import ffn
     from repro_torch.models import model as M
     from repro_torch.serving.engine import EngineConfig, ServingEngine
     from repro_torch.serving.request import Request
     tier, spec, keep = MODEL_RUNS[arch]
     cfg = get_config(arch)
+    red = ""
+    if arch in MODEL_LAYERS:
+        red = f" reduced=num_layers:{MODEL_LAYERS[arch]}/{cfg.num_layers}"
+        cfg = dataclasses.replace(cfg, num_layers=MODEL_LAYERS[arch])
     t0 = time.perf_counter()
     params = M.init_params(cfg, torch.Generator(device="cuda")
                            .manual_seed(seed), torch.bfloat16, "cuda")
@@ -2436,12 +2600,14 @@ def _serve_model(torch, np, ops, arch: str, seed: int, caps: dict,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.launches.reset()
+    ffn.moe_stats.reset()
     t0 = time.perf_counter()
     with cap:
         m = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launches.snapshot()
+    moe = ffn.moe_stats.snapshot()
     peak = torch.cuda.max_memory_allocated()
     unfinished = [r.req_id for r, _ in subs if r.finish_time is None]
     if unfinished:
@@ -2470,12 +2636,16 @@ def _serve_model(torch, np, ops, arch: str, seed: int, caps: dict,
            f"qk={cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim} "
            f"v={cfg.mla.v_head_dim} " if cfg.attention_type == "mla"
            else f"head_dim={cfg.head_dim} ")
+        + (f"experts={cfg.num_experts} top_k={cfg.top_k_experts} "
+           f"d_ff={cfg.d_ff} dense_residual={cfg.moe_dense_residual} "
+           if cfg.num_experts else "")
         + f"offload_quant={tier} "
         f"requests={len(subs)} "
         f"prompts={[r.prompt_len for r, _ in subs]} "
         f"new={[r.max_new_tokens for r, _ in subs]} "
         f"arrivals_s={[round(r.arrival_time, 4) for r, _ in subs]} "
-        f"finished={m.num_finished} setup_s={setup_s:.1f} wall_s={wall:.3f}")
+        f"finished={m.num_finished} setup_s={setup_s:.1f} wall_s={wall:.3f}"
+        + red)
     log(f"phase={tag} arch={arch} mean_ttft_ms={m.mean_ttft * 1e3:.2f} "
         f"mean_tbt_ms={m.mean_tbt * 1e3:.3f} p99_tbt_ms="
         + (f"{p99 * 1e3:.3f}" if p99 is not None else "n/a(<10 samples)")
@@ -2486,14 +2656,37 @@ def _serve_model(torch, np, ops, arch: str, seed: int, caps: dict,
         f"(default {default}, largest working set {worst}) "
         f"h2d_bytes={s['kv.h2d_bytes']:.0f} d2h_bytes={s['kv.d2h_bytes']:.0f}"
         f" hits={s['kv.hits']:.0f} misses={s['kv.misses']:.0f} card="
-        f"[{_card()}]")
+        f"[{_card()}]" + red)
     log(f"phase={tag} arch={arch} launches " + json.dumps(counts)
-        + " by case " + json.dumps(cap.calls))
+        + " by case " + json.dumps(cap.calls) + red)
+    if cfg.num_experts:
+        _moe_check(tag, arch, cfg, eng, moe, red)
     caps[f"{tag}_{arch}"] = cap
     if inspect is not None:
         inspect(eng)
     eng.close()
     return {"counts": counts, "mixed": mixed}
+
+
+def _moe_check(tag: str, arch: str, cfg, eng, moe: dict, red: str) -> None:
+    """The MoE's own numbers of a serve: its per-expert count read-backs
+    (one per MoE call: per engine iteration, one per layer and prefill
+    group or decode walk), the (token, slot) pairs routed, and the experts
+    a decode step's MoE touches per layer (at most min(E, rows * k)).
+    Every serving path runs drop-free: no pair may be dropped."""
+    n = max(moe["decode_calls"], 1)
+    log(f"phase={tag} arch={arch} moe readbacks={moe['readbacks']} "
+        f"readbacks_per_iteration={moe['readbacks'] / eng.iterations:.2f} "
+        f"pairs={moe['pairs']} dropped={moe['dropped']} "
+        f"decode_calls={moe['decode_calls']} "
+        f"decode_experts_per_layer_mean={moe['decode_touched'] / n:.2f} "
+        f"max={moe['decode_touched_max']} of {cfg.num_experts} (4 rows x "
+        f"top-{cfg.top_k_experts} = {4 * cfg.top_k_experts} pairs at most)"
+        + red)
+    if moe["dropped"] or not moe["decode_calls"]:
+        raise AssertionError(f"{tag}: {arch}: the serve dropped "
+                             f"{moe['dropped']} MoE pairs or ran no decode "
+                             f"MoE call")
 
 
 def phase_models(torch, np, ops, ref, timer, seed: int) -> tuple:

@@ -22,12 +22,19 @@ def _to_tensor(a: np.ndarray, dtype, device) -> torch.Tensor:
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
-def _tree(x: Any, fn):
+def _tree(x: Any, fn, key: str = ""):
+    """``fn(leaf, key)`` over a pytree, ``key`` the leaf's own dict key."""
     if isinstance(x, dict):
-        return {k: _tree(v, fn) for k, v in x.items()}
+        return {k: _tree(v, fn, k) for k, v in x.items()}
     if isinstance(x, (list, tuple)):
-        return [_tree(v, fn) for v in x]
-    return fn(x)
+        return [_tree(v, fn, key) for v in x]
+    return fn(x, key)
+
+
+# leaves that stay float32 whatever dtype the caller asks for: the MoE
+# router, which the reference's ``init_moe_params`` makes float32 in every
+# model dtype
+FLOAT32_LEAVES = ("router",)
 
 
 def params_from_numpy(np_params: Dict[str, Any], num_layers: int,
@@ -36,14 +43,17 @@ def params_from_numpy(np_params: Dict[str, Any], num_layers: int,
 
     Stacked layers (``params["layers"]`` a dict whose leaves lead with
     ``num_layers``) are split into a per-layer list; list-mode layers are
-    converted as they are.  ``dtype`` None keeps each array's dtype."""
-    def conv(a):
-        return _to_tensor(a, dtype, device)
+    converted as they are.  ``dtype`` None keeps each array's dtype; a
+    ``FLOAT32_LEAVES`` leaf is float32 whatever ``dtype``."""
+    def conv(a, key):
+        want = torch.float32 if key in FLOAT32_LEAVES else dtype
+        return _to_tensor(a, want, device)
 
     layers = np_params["layers"]
     if isinstance(layers, dict):
-        layers = [_tree(layers, lambda a, i=i: np.asarray(a)[i])
+        layers = [_tree(layers, lambda a, _k, i=i: np.asarray(a)[i])
                   for i in range(num_layers)]
-    out = {k: _tree(v, conv) for k, v in np_params.items() if k != "layers"}
+    out = {k: _tree(v, conv, k) for k, v in np_params.items()
+           if k != "layers"}
     out["layers"] = [_tree(lp, conv) for lp in layers]
     return out

@@ -1,7 +1,8 @@
-"""Architecture config registry of the port: the dense decoders it
-serves (GQA, and MLA for minicpm3-4b).  Each module exports ``CONFIG`` (the full-scale config, source
-cited) and ``smoke_config()`` (a reduced variant for CPU tests), copied from
-the reference registry."""
+"""Architecture config registry of the port: the decoders it serves (GQA,
+MLA for minicpm3-4b, and the MoE FFN for kimi-k2 and arctic-480b).  Each
+module exports ``CONFIG`` (the full-scale config, source cited) and
+``smoke_config()`` (a reduced variant for CPU tests), copied from the
+reference registry."""
 from __future__ import annotations
 
 import importlib
@@ -14,6 +15,8 @@ _ARCH_MODULES = {
     "qwen2.5-3b": "repro_torch.configs.qwen2_5_3b",
     "granite-20b": "repro_torch.configs.granite_20b",
     "minicpm3-4b": "repro_torch.configs.minicpm3_4b",
+    "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t_a32b",
+    "arctic-480b": "repro_torch.configs.arctic_480b",
     # the paper's own evaluation models
     "lwm-7b": "repro_torch.configs.lwm_7b",
     "llama3-8b": "repro_torch.configs.llama3_8b",

@@ -21,9 +21,9 @@
 // `setmaxnreg` gives its registers to the consumers, one thread issues TMA
 // loads (cp.async.bulk.tensor, 4-D maps over (D, H, S, B), 128-byte
 // swizzle) of the Q tile once and of K and V tiles of 128 keys into a ring
-// of 4 (D 64; MLA's D 96 with Dv 64) or 3 (D 128) stages (225 KB of
-// shared memory in all at D 128 and at MLA's shape), each guarded by a
-// "full" mbarrier that counts the bytes landed and an "empty" one the
+// of 4 (D 64; MLA's D 96 with Dv 64) or 3 (D 112 and 128) stages (225 KB
+// of shared memory in all at D 112, D 128 and MLA's shape), each guarded
+// by a "full" mbarrier that counts the bytes landed and an "empty" one the
 // consumers arrive on.
 // TMA zero-fills rows past Sq and Sk within each batch row, so a masked
 // weight never meets garbage.  Warpgroups 1 and 2 each own 64 query rows:
@@ -46,7 +46,13 @@
 // are 96 columns wide and are loaded as two 64-column boxes, of which TMA
 // fills columns 96-127 of the second with zeros (they lie past the
 // tensor), and S = Q K^T runs D / 16 = 6 k-steps, so the zero columns are
-// never even read; the wrapper passes q and k unpadded.  The GQA group is
+// never even read; the wrapper passes q and k unpadded.  kimi-k2's heads,
+// D = Dv = 112, load the same way on both sides: q and k as two 64-column
+// boxes (columns 112-127 zero-filled, 7 k-steps of S = Q K^T), and v too,
+// so that O += P V runs as m64n128 over 128 columns of which the last 16
+// are zero; the epilogue stores only the first Dv = 112 columns, since the
+// next 16 of the (B, Sq, Hq, 112) output belong to the next head.  The
+// GQA group is
 // not folded: each query head's CTA loads its K/V tiles, which the
 // group's other heads read again from L2.
 //
@@ -71,10 +77,14 @@ constexpr float kLog2e = 1.4426950408889634f;
 typedef __nv_bfloat16 bf16;
 
 template <int D, int Dv> struct Cfg {
-  static_assert(D % 16 == 0 && D <= 128 && (Dv == 64 || Dv == 128),
-                "q/k depth a multiple of 16 up to 128, v width 64 or 128");
+  static_assert(D % 16 == 0 && D <= 128 && Dv % 8 == 0 && Dv <= 128,
+                "q/k depth a multiple of 16 up to 128, v width a multiple "
+                "of 8 up to 128");
   static constexpr int kSlabsQK = (D + 63) / 64;   // a part slab zero-filled
-  static constexpr int kSlabsV = Dv / 64;
+  static constexpr int kSlabsV = (Dv + 63) / 64;
+  // the width P V runs at (64 or 128): columns Dv.. of V are zero-filled
+  // and the epilogue stores only the first Dv
+  static constexpr int kDvPad = kSlabsV * 64;
   // the consumers hold two tiles at once (P V of one overlaps the softmax
   // of the next), so a third stage (a fourth where a stage is at most 48
   // KB) keeps a load ahead, within the 227 KB of shared memory
@@ -108,15 +118,15 @@ __device__ __forceinline__ void issue_s(float* s, const unsigned char* qc,
   wgmma_commit();
 }
 
-// issue O += P V of one tile: V (keys x Dv) at vs read transposed, 16 keys
-// (2048 bytes) per k-step, 64-column slabs kSlabBytesKV apart
-template <int Dv>
+// issue O += P V of one tile: V (keys x DvPad) at vs read transposed, 16
+// keys (2048 bytes) per k-step, 64-column slabs kSlabBytesKV apart
+template <int DvPad>
 __device__ __forceinline__ void issue_pv(float* o, uint32_t (*p)[4],
                                          const unsigned char* vs) {
 #pragma unroll
   for (int kk = 0; kk < kBc / 16; ++kk) {
     const uint64_t desc = sw128_desc(vs + kk * 16 * 128, kSlabBytesKV, 1024);
-    if constexpr (Dv == 64)
+    if constexpr (DvPad == 64)
       wgmma_m64n64k16_rs_tb(o, p[kk], desc, 1);
     else
       wgmma_m64n128k16_rs_tb(o, p[kk], desc, 1);
@@ -285,9 +295,10 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap q_map,
   Rows rows{q_offset + row0, Sk, quad, scale_log2,
             {kNegInf, kNegInf}, {0.f, 0.f}};
 
-  float o[Dv / 2];
+  constexpr int DvPad = C::kDvPad;
+  float o[DvPad / 2];
 #pragma unroll
-  for (int i = 0; i < Dv / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DvPad / 2; ++i) o[i] = 0.f;
   float s[kBc / 2];          // S of the newest tile, then its weights
   uint32_t p[kBc / 16][4];   // P of the tile whose P V is next or in flight
   float corr[2];
@@ -318,20 +329,20 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap q_map,
   for (int j = 1; j < n_own; ++j) {
     mbar_wait(&full[j % S], (j / S) & 1);
     fence_regs<kBc / 2>(s);
-    fence_regs<Dv / 2>(o);
+    fence_regs<DvPad / 2>(o);
     fence_regs<kBc / 4>(&p[0][0]);
     wgmma_fence();
     issue_s<D>(s, qc, tile(j));
-    issue_pv<Dv>(o, p, tile(j - 1) + C::kKBytes);
+    issue_pv<DvPad>(o, p, tile(j - 1) + C::kKBytes);
     wgmma_wait<1>();   // S of tile j has landed; P V of j - 1 may not have
     fence_regs<kBc / 2>(s);
     softmax_tile(s, corr, rows, j * kBc, masked(j));
     wgmma_wait<0>();
-    fence_regs<Dv / 2>(o);
+    fence_regs<DvPad / 2>(o);
     fence_regs<kBc / 4>(&p[0][0]);
     mbar_arrive(&empty[(j - 1) % S]);   // K and V of tile j - 1 are read
 #pragma unroll
-    for (int n = 0; n < Dv / 8; ++n) {
+    for (int n = 0; n < DvPad / 8; ++n) {
       o[4 * n] *= corr[0];
       o[4 * n + 1] *= corr[0];
       o[4 * n + 2] *= corr[1];
@@ -340,12 +351,12 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap q_map,
     pack_p(s, p);
   }
   if (n_own > 0) {
-    fence_regs<Dv / 2>(o);
+    fence_regs<DvPad / 2>(o);
     fence_regs<kBc / 4>(&p[0][0]);
     wgmma_fence();
-    issue_pv<Dv>(o, p, tile(n_own - 1) + C::kKBytes);
+    issue_pv<DvPad>(o, p, tile(n_own - 1) + C::kKBytes);
     wgmma_wait<0>();
-    fence_regs<Dv / 2>(o);
+    fence_regs<DvPad / 2>(o);
     fence_regs<kBc / 4>(&p[0][0]);
     mbar_arrive(&empty[(n_own - 1) % S]);
   }
@@ -360,6 +371,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap q_map,
   const float inv1 = 1.f / fmaxf(l[1], 1e-30f);
   const size_t q_row = (size_t)Hq * Dv;   // elements between tokens
   bf16* ob = out + (size_t)b * Sq * q_row + (size_t)hq * Dv;
+  // the first Dv columns only: past them lies the next head's output
 #pragma unroll
   for (int n = 0; n < Dv / 8; ++n) {
     const int d = n * 8 + 2 * quad;
@@ -398,7 +410,8 @@ EncodeTiled encode_tiled() {
 // A 4-D map over a (B, S, H, D) bf16 tensor, dims innermost first
 // (D, H, S, B), boxes of 64 columns x 1 head x `rows` tokens x 1 batch row
 // (128-byte rows, swizzled); reads past S within a batch row, and past D
-// within a row (D = 96: the second box's last 32 columns), give zeros.
+// within a row (D = 96: the second box's last 32 columns; D = 112: its
+// last 16), give zeros.
 CUresult make_map(CUtensorMap* map, const void* ptr, int B, int S, int H,
                   int D, int rows) {
   const cuuint64_t s1 = S > 0 ? S : 1;   // a map needs non-empty dims
@@ -443,7 +456,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 }  // namespace
 
-// bfloat16, causal, (D, Dv) in {(64, 64), (128, 128), (96, 64)}.  Limits
+// bfloat16, causal, (D, Dv) in {(64, 64), (128, 128), (96, 64), (112,
+// 112)}.  Limits
 // checked by the wrapper: contiguous (B, S, H, D|Dv) tensors, 16-byte
 // aligned, Hq % Hkv == 0, q_offset >= 0.  Returns a runtime error code, or
 // 100000 + a driver error code if a TMA descriptor could not be encoded.
@@ -462,5 +476,8 @@ extern "C" int launch_flash_prefill(const void* q, const void* k,
   if (D == 96 && Dv == 64)   // MLA: qk_nope + qk_rope against v_head_dim
     return launch<96, 64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, q_offset, scale,
                           s);
+  if (D == 112 && Dv == 112)   // kimi-k2: d_model 7168 over 64 heads
+    return launch<112, 112>(q, k, v, out, B, Sq, Sk, Hq, Hkv, q_offset,
+                            scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -657,8 +657,9 @@ def scatter_blocks(pool: torch.Tensor, new_kv: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 # the (q/k depth, v width) pairs the kernel is built for: D = Dv of the
-# GQA heads, and MLA's prefill (qk_nope + qk_rope = 96 against v 64)
-FLASH_DIMS = ((64, 64), (128, 128), (96, 64))
+# GQA heads (112: kimi-k2's 7168 / 64), and MLA's prefill (qk_nope +
+# qk_rope = 96 against v 64)
+FLASH_DIMS = ((64, 64), (128, 128), (96, 64), (112, 112))
 
 
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

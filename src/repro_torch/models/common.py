@@ -10,6 +10,7 @@ dtype.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -185,6 +186,17 @@ class ModelConfig:
 # ---------------------------------------------------------------------------
 # Primitive layers
 # ---------------------------------------------------------------------------
+
+def dense_init(gen: torch.Generator, shape, dtype, device,
+               scale: Optional[float] = None) -> torch.Tensor:
+    """A scaled normal drawn from ``gen`` in float32 on the generator's
+    device, then cast and moved: std ``scale``, else 1 / sqrt(shape[0])
+    (the reference's ``dense_init``)."""
+    std = scale if scale is not None else 1.0 / math.sqrt(shape[0])
+    x = torch.randn(shape, generator=gen, device=gen.device,
+                    dtype=torch.float32) * std
+    return x.to(device=device, dtype=dtype)
+
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float = 1e-5) -> torch.Tensor:

@@ -1,27 +1,29 @@
-"""Model assembly of the port: the dense decoder, with GQA or MLA
-attention.
+"""Model assembly of the port: the decoder, with GQA or MLA attention
+and a dense or Mixture-of-Experts FFN.
 
-Counterpart of the dense subset of ``repro/models/model.py``.  Parameters
-are a plain dict of tensors in list mode:
+Counterpart of the dense and MoE subset of ``repro/models/model.py``.
+Parameters are a plain dict of tensors in list mode:
 
     {"embed": (V, d), "final_norm": (d,), "lm_head": (d, V),
      "layers": [{"attn_norm", "ffn_norm", "attn": {...}, "ffn": {w_gate,
                  w_up, w_down}}, ...]}
 
 with ``attn`` {wq, wk, wv, wo[, bq, bk, bv]} (GQA) or {w_dq, q_norm, w_uq,
-w_dkv, kv_norm, w_kr, w_uk, w_uv, wo} (MLA) (``bridge.params_from_numpy``
+w_dkv, kv_norm, w_kr, w_uk, w_uv, wo} (MLA), and ``moe`` {router, w_gate,
+w_up, w_down[, dense]} in place of ``ffn`` on the layers where
+``cfg.is_moe_layer`` holds (``bridge.params_from_numpy``
 un-stacks the reference's stacked layers into this form).  DecodeState is
 ``{"caches": [per-layer pool dict], "cur_len": (B,) int32, "extra": {}}``
 with the pools updated IN PLACE by the decode stages.  A layer's KV, as
 prefill returns it, is ``(k, v)`` each (B, S, Hkv, hd), or for MLA
 ``(latent (B, S, 1, kv_lora + rope), None)``: the latent is one head with
-no separate value.  Configs the port does not implement (MoE, recurrent
+no separate value.  Configs the port does not implement (recurrent
 layers, encoder-decoder, modality frontends) raise
-``NotImplementedError`` in ``check_supported``.
+``NotImplementedError`` in ``check_supported``.  Every serving path runs
+the MoE drop-free (``moe_drop_free``), as the reference's does.
 """
 from __future__ import annotations
 
-import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -30,23 +32,24 @@ from repro_torch.core import dsa as dsa_mod
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
-from repro_torch.models.common import ModelConfig, rms_norm
+from repro_torch.models.common import ModelConfig, dense_init, rms_norm
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what this port does not run yet."""
-    if (cfg.attention_type not in ("gqa", "mla") or cfg.num_experts > 0
-            or cfg.attn_layer_period > 1 or cfg.arch_type not in ("dense",)
+    if (cfg.attention_type not in ("gqa", "mla")
+            or cfg.attn_layer_period > 1
+            or cfg.arch_type not in ("dense", "moe")
             or cfg.is_encoder_decoder or cfg.frontend != "none"
             or cfg.tie_embeddings):
         raise NotImplementedError(
-            f"{cfg.name}: the port serves dense GQA and MLA decoders only "
-            f"(MoE, recurrent, encoder-decoder and frontend models are "
-            f"later work)")
+            f"{cfg.name}: the port serves GQA and MLA decoders with dense "
+            f"or MoE FFNs only (recurrent, encoder-decoder and frontend "
+            f"models are later work)")
 
 
 def layer_kind(cfg: ModelConfig, i: int) -> str:
-    """Mixer of layer i: always 'attn' for the dense decoders served."""
+    """Mixer of layer i: always 'attn' for the decoders served."""
     check_supported(cfg)
     return "attn"
 
@@ -59,13 +62,6 @@ def get_layer(params: Dict, i: int) -> Dict:
 # Init
 # ---------------------------------------------------------------------------
 
-def _dense(gen: torch.Generator, shape, dtype, device, scale=None):
-    std = scale if scale is not None else 1.0 / math.sqrt(shape[0])
-    x = torch.randn(shape, generator=gen, device=gen.device,
-                    dtype=torch.float32) * std
-    return x.to(device=device, dtype=dtype)
-
-
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 dtype: torch.dtype = torch.bfloat16,
                 device="cuda") -> Dict:
@@ -75,7 +71,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     unless ``device="cpu"``."""
     check_supported(cfg)
     dev = resolve_device(device)
-    d, f, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    d, V = cfg.d_model, cfg.vocab_size
     Hq, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     g = generator
 
@@ -87,36 +83,37 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
     m = cfg.mla
     layers = []
-    for _ in range(cfg.num_layers):
+    for i in range(cfg.num_layers):
         if cfg.attention_type == "mla":
             qk = m.qk_nope_head_dim + m.qk_rope_head_dim
-            a = {"w_dq": _dense(g, (d, m.q_lora_rank), dtype, dev),
+            a = {"w_dq": dense_init(g, (d, m.q_lora_rank), dtype, dev),
                  "q_norm": ones(m.q_lora_rank),
-                 "w_uq": _dense(g, (m.q_lora_rank, Hq * qk), dtype, dev),
-                 "w_dkv": _dense(g, (d, m.kv_lora_rank), dtype, dev),
+                 "w_uq": dense_init(g, (m.q_lora_rank, Hq * qk), dtype, dev),
+                 "w_dkv": dense_init(g, (d, m.kv_lora_rank), dtype, dev),
                  "kv_norm": ones(m.kv_lora_rank),
-                 "w_kr": _dense(g, (d, m.qk_rope_head_dim), dtype, dev),
-                 "w_uk": _dense(g, (m.kv_lora_rank,
-                                    Hq * m.qk_nope_head_dim), dtype, dev),
-                 "w_uv": _dense(g, (m.kv_lora_rank, Hq * m.v_head_dim),
-                                dtype, dev),
-                 "wo": _dense(g, (Hq * m.v_head_dim, d), dtype, dev)}
+                 "w_kr": dense_init(g, (d, m.qk_rope_head_dim), dtype, dev),
+                 "w_uk": dense_init(g, (m.kv_lora_rank,
+                                        Hq * m.qk_nope_head_dim), dtype, dev),
+                 "w_uv": dense_init(g, (m.kv_lora_rank, Hq * m.v_head_dim),
+                                    dtype, dev),
+                 "wo": dense_init(g, (Hq * m.v_head_dim, d), dtype, dev)}
         else:
-            a = {"wq": _dense(g, (d, Hq * hd), dtype, dev),
-                 "wk": _dense(g, (d, Hkv * hd), dtype, dev),
-                 "wv": _dense(g, (d, Hkv * hd), dtype, dev),
-                 "wo": _dense(g, (Hq * hd, d), dtype, dev)}
+            a = {"wq": dense_init(g, (d, Hq * hd), dtype, dev),
+                 "wk": dense_init(g, (d, Hkv * hd), dtype, dev),
+                 "wv": dense_init(g, (d, Hkv * hd), dtype, dev),
+                 "wo": dense_init(g, (Hq * hd, d), dtype, dev)}
             if cfg.qkv_bias:
                 a.update(bq=zeros(Hq * hd), bk=zeros(Hkv * hd),
                          bv=zeros(Hkv * hd))
-        layers.append({
-            "attn_norm": ones(d), "ffn_norm": ones(d), "attn": a,
-            "ffn": {"w_gate": _dense(g, (d, f), dtype, dev),
-                    "w_up": _dense(g, (d, f), dtype, dev),
-                    "w_down": _dense(g, (f, d), dtype, dev)}})
-    return {"embed": _dense(g, (V, d), dtype, dev, scale=0.02),
+        layer = {"attn_norm": ones(d), "ffn_norm": ones(d), "attn": a}
+        if cfg.is_moe_layer(i):
+            layer["moe"] = ffn_mod.init_moe_params(cfg, g, dtype, dev)
+        else:
+            layer["ffn"] = ffn_mod.init_ffn_params(cfg, g, dtype, dev)
+        layers.append(layer)
+    return {"embed": dense_init(g, (V, d), dtype, dev, scale=0.02),
             "final_norm": ones(d), "layers": layers,
-            "lm_head": _dense(g, (d, V), dtype, dev, scale=0.02)}
+            "lm_head": dense_init(g, (d, V), dtype, dev, scale=0.02)}
 
 
 # ---------------------------------------------------------------------------
@@ -130,11 +127,13 @@ def _norm(cfg: ModelConfig, w, x):
 def layer_forward(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                   positions: torch.Tensor, *, kind: str = "attn",
                   k_ctx=None, v_ctx=None, q_offset=0,
-                  return_kv: bool = False):
+                  return_kv: bool = False, moe_drop_free: bool = False):
     """One transformer layer over a full sequence.  Returns (x_out,
     layer_kv): (k, v) each (B, S, Hkv, hd), or MLA's (latent (B, S, 1,
     kv_lora + rope), None), when ``return_kv``, else None.  MLA has no
-    attention over earlier chunks' context (as in the reference)."""
+    attention over earlier chunks' context (as in the reference).
+    ``moe_drop_free``: the serving prefills set it, so that an MoE's
+    capacity cannot drop tokens (the reference's convention)."""
     if kind != "attn":
         raise NotImplementedError(f"layer kind {kind!r}")
     h_in = _norm(cfg, p["attn_norm"], x)
@@ -151,8 +150,25 @@ def layer_forward(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                                           k_ctx=k_ctx, v_ctx=v_ctx,
                                           q_offset=q_offset, return_kv=True)
     x = x + h
-    x = x + ffn_mod.ffn_apply(p["ffn"], _norm(cfg, p["ffn_norm"], x))
-    return x, ((k, v) if return_kv else None)
+    return (_layer_epilogue(p, cfg, x, moe_drop_free),
+            (k, v) if return_kv else None)
+
+
+def _layer_epilogue(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+                    moe_drop_free: bool) -> torch.Tensor:
+    """The FFN or MoE after a layer's attention, residual included: x
+    (B, S, d) on a full sequence or (B, d) in decode (whose MoE runs on
+    (B, 1, d), always drop-free, so that capacity does not couple the
+    rows of a batched step).  One implementation for every caller."""
+    h_in = _norm(cfg, p["ffn_norm"], x)
+    if "moe" not in p:
+        return x + ffn_mod.ffn_apply(p["ffn"], h_in)
+    if x.dim() == 2:
+        h, _ = ffn_mod.moe_apply(p["moe"], cfg, h_in[:, None, :],
+                                 drop_free=True)
+        return x + h[:, 0]
+    h, _ = ffn_mod.moe_apply(p["moe"], cfg, h_in, drop_free=moe_drop_free)
+    return x + h
 
 
 # ---------------------------------------------------------------------------
@@ -255,13 +271,13 @@ def _init_rec_states(cfg: ModelConfig, batch: int, dtype) -> List:
 
 def prefill_layer(params: Dict, cfg: ModelConfig, layer_idx: int,
                   h: torch.Tensor, positions: torch.Tensor, *,
-                  rec_state=None):
+                  rec_state=None, moe_drop_free: bool = False):
     """ONE layer of prefill over the whole prompt (the legacy
     layer-segmented executor).  The caller saves the returned layer KV to
     DRAM and evicts it before layer l+1.  Returns (h, (k, v), new_rec)."""
     h, kv_out = layer_forward(get_layer(params, layer_idx), cfg, h,
                               positions, kind=layer_kind(cfg, layer_idx),
-                              return_kv=True)
+                              return_kv=True, moe_drop_free=moe_drop_free)
     return h, kv_out, rec_state
 
 
@@ -280,11 +296,12 @@ def prefill_attn_layer_batched(p: Dict, cfg: ModelConfig, h: torch.Tensor,
 
     h (B, T, d): the rows' residual stream over the segment's token window;
     positions (B, T); k_ctx/v_ctx: earlier chunks of the same layer.
-    Masked lanes (padding, unscheduled rows) keep their incoming residual.
-    Returns (h_out, layer_kv) as ``layer_forward`` gives it."""
+    Masked lanes (padding, unscheduled rows) keep their incoming residual;
+    an MoE runs drop-free.  Returns (h_out, layer_kv) as ``layer_forward``
+    gives it."""
     x, kv_out = layer_forward(p, cfg, h, positions, k_ctx=k_ctx,
                               v_ctx=v_ctx, q_offset=q_offset,
-                              return_kv=True)
+                              return_kv=True, moe_drop_free=True)
     keep = token_mask[..., None] & step_mask[:, None, None]
     return torch.where(keep, x, h), kv_out
 
@@ -324,11 +341,12 @@ def decode_attend_layer(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                         q: torch.Tensor, cache, cur_len: torch.Tensor,
                         idx, valid) -> torch.Tensor:
     """Compute stage of one attention layer: block-sparse attention over
-    the (possibly restored) pool + residual + FFN.  Reads ``cache`` only."""
+    the (possibly restored) pool + residual + FFN or MoE (drop-free).
+    Reads ``cache`` only."""
     attend = (attn.mla_attend_step if cfg.attention_type == "mla"
               else attn.gqa_attend_step)
     x = x + attend(p["attn"], cfg, q, cache, cur_len, idx, valid)
-    return x + ffn_mod.ffn_apply(p["ffn"], _norm(cfg, p["ffn_norm"], x))
+    return _layer_epilogue(p, cfg, x, moe_drop_free=True)
 
 
 def decode_logits(params: Dict, cfg: ModelConfig, x: torch.Tensor,

@@ -380,7 +380,7 @@ class ServingEngine:
         l = seg.layer
         h, kv_out, new_rec = M.prefill_layer(
             self.params, self.cfg, l, st.lp.hidden, st.lp.positions,
-            rec_state=st.lp.rec_states[l])
+            rec_state=st.lp.rec_states[l], moe_drop_free=True)
         st.lp.hidden = h
         st.lp.rec_states[l] = new_rec
         rid = st.req.req_id
@@ -426,7 +426,7 @@ class ServingEngine:
                 kind=M.layer_kind(cfg, l),
                 k_ctx=None if ctx is None else ctx[0],
                 v_ctx=None if ctx is None else ctx[1], q_offset=start,
-                return_kv=True)
+                return_kv=True, moe_drop_free=True)
             st.chunk_ctx[l] = ((k, v) if ctx is None else
                                (torch.cat([ctx[0], k], dim=1),
                                 torch.cat([ctx[1], v], dim=1)))

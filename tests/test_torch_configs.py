@@ -1,15 +1,18 @@
-"""The dense configs the port serves beyond qwen2-0.5b and llama3-8b:
-lwm-7b (the paper's main model, MHA: G = 1 over 32 kv heads), qwen2.5-3b
-(GQA with kv 2 and QKV bias) and granite-20b (MQA: 48 query heads over one
-kv head); minicpm3-4b (MLA) is checked against the reference config here
-and as a model in ``test_torch_mla.py``.
+"""The configs the port serves beyond qwen2-0.5b and llama3-8b: lwm-7b
+(the paper's main model, MHA: G = 1 over 32 kv heads), qwen2.5-3b (GQA
+with kv 2 and QKV bias), granite-20b (MQA: 48 query heads over one kv
+head), and the MoE family: kimi-k2-1t-a32b (G 8 at head_dim 112; 384
+experts top-8 in the full config, 4 top-2 in the smoke) and arctic-480b
+(G 7 at 128; top-2 with a dense residual); minicpm3-4b (MLA) is checked
+against the reference config here and as a model in ``test_torch_mla.py``;
+the MoE function itself in ``test_torch_moe.py``.
 
 Each arch runs in two variants against the reference model, with the
 reference's float32 weights handed over through ``bridge.py``: its
 ``smoke_config()``, and ``heads``, the smoke's two narrow layers with the
 full config's query heads, kv heads and head_dim (so G = 1 with 32 kv
 heads, head_dim 128 with QKV bias, and G = 48 over one kv head run here
-on the CPU).  The QKV biases are drawn at random (the reference
+on the CPU, and kimi-k2's 64 heads of 112).  The QKV biases are drawn at random (the reference
 initialises them to zero, which would hide them).  Logits are held with
 ``test_torch_model.py``'s atol 1e-4 and the selected block sets exactly,
 under teacher forcing.  The engine's greedy tokens and ``TransferStats``
@@ -31,12 +34,15 @@ from repro_torch.configs import get_config as torch_cfg
 from repro_torch.configs import get_smoke_config as torch_smoke
 from repro_torch.models import model as TM
 
-ARCHS = ["lwm-7b", "qwen2.5-3b", "granite-20b"]
+ARCHS = ["lwm-7b", "qwen2.5-3b", "granite-20b", "kimi-k2-1t-a32b",
+         "arctic-480b"]
 # (query heads, kv heads, head_dim, QKV bias) of the full configs;
 # minicpm3-4b (MLA) has its model tests in test_torch_mla.py
 FULL_HEADS = {"lwm-7b": (32, 32, 128, False),
               "qwen2.5-3b": (16, 2, 128, True),
               "granite-20b": (48, 1, 128, False),
+              "kimi-k2-1t-a32b": (64, 8, 112, False),
+              "arctic-480b": (56, 8, 128, False),
               "minicpm3-4b": (40, 40, 64, False)}
 LOGIT_ATOL = 1e-4
 _jax_decode_step = jax.jit(

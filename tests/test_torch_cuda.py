@@ -911,3 +911,118 @@ def test_slice9_wrappers_raise_beyond_their_limits(cuda):
     valid = torch.ones((1, 1, 2), device=cuda, dtype=torch.bool)
     with pytest.raises(ValueError, match="shared memory"):
         ops.sparse_decode_attention(q, pool, pool, idx, valid, cur)
+
+
+# ---------------------------------------------------------------------------
+# The MoE family (kimi-k2-1t-a32b, arctic-480b): flash_prefill at D = Dv =
+# 112 (kimi-k2's 7168 / 64 heads), the decode kernels at kimi-k2's (G 8,
+# D 112) and arctic-480b's (G 7, D 128)
+# ---------------------------------------------------------------------------
+# Tolerances as above.
+
+def _flash_d112_inputs(dev, B, Sq, Sk, Hq, Hkv, seed):
+    g = _gen(dev, seed)
+    return [torch.randn((B, S, H, 112), generator=g, device=dev).bfloat16()
+            for S, H in ((Sq, Hq), (Sk, Hkv), (Sk, Hkv))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Hq,Hkv", [(64, 8), (16, 2)])
+@pytest.mark.parametrize("Sq,q_offset", [(300, 0), (130, 70), (1000, 1000)])
+def test_flash_prefill_d112_matches_plain(cuda, Hq, Hkv, Sq, q_offset):
+    """D = Dv = 112: q, k and v each read as two 64-column boxes (the
+    second zero-filled past column 112), P V at 128 columns, 112 stored;
+    Sq not a multiple of 128, and chunk continuations.  Three planted
+    faults must fail the tolerance: q_offset one too large, the last key
+    dropped, and a store that spills 16 columns into the next head (the
+    accumulator's zero columns 112-127 over that head's first 16)."""
+    B, Sk, scale = 2, q_offset + Sq, 112 ** -0.5
+    q, k, v = _flash_d112_inputs(cuda, B, Sq, Sk, Hq, Hkv, Sq + q_offset)
+    kw = dict(scale=scale, q_offset=q_offset)
+    got = ops.flash_prefill(q, k, v, **kw)
+    assert got.shape == (B, Sq, Hq, 112)
+    assert _flash_close(got, q, k, v, **kw)
+    spilled = got.clone()
+    spilled[:, :, 1:, :16] = 0
+    assert not _flash_close(spilled, q, k, v, **kw)
+    kp, vp = _probe(q, k, v, 0, q_offset + 1, scale)
+    assert not _flash_close(ops.flash_prefill(
+        q, kp, vp, scale=scale, q_offset=q_offset + 1), q, kp, vp, **kw)
+    kp, vp = _probe(q, k, v, Sq - 1, Sk - 1, scale)
+    assert not _flash_close(ops.flash_prefill(
+        q, kp[:, :-1].contiguous(), vp[:, :-1].contiguous(), **kw), q, kp,
+        vp, **kw)
+
+
+@pytest.mark.gpu
+def test_flash_prefill_d112_stores_no_column_past_its_head(cuda):
+    """The kernel launched into a buffer that holds its (B, Sq, Hq, 112)
+    output and 64 guard elements after it, all set to a sentinel: every
+    output element is written and within the tolerance, and the guard,
+    where the last head's columns 112-127 would land, is untouched."""
+    from repro_torch.kernels.build import LIBS
+    B, Sq, Hq, Hkv, scale = 1, 200, 8, 2, 112 ** -0.5
+    q, k, v = _flash_d112_inputs(cuda, B, Sq, Sq, Hq, Hkv, 11)
+    n = B * Sq * Hq * 112
+    buf = torch.full((n + 64,), 1000.0, dtype=torch.bfloat16, device=cuda)
+    rc = LIBS.fn("flash_prefill")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), buf.data_ptr(), B, Sq, Sq,
+        Hq, Hkv, 112, 112, 0, scale, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    out = buf[:n].view(B, Sq, Hq, 112)
+    assert not (out == 1000.0).any()
+    assert _flash_close(out, q, k, v, scale=scale)
+    assert (buf[n:] == 1000.0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Hq,Hkv,D", [(4, 64, 8, 112), (4, 56, 8, 128)])
+def test_moe_decode_shapes_match_plain(cuda, B, Hq, Hkv, D):
+    """kimi-k2's decode step (G 8 over 8 kv heads at D 112) and
+    arctic-480b's (G 7 at D 128): the split-K attention (an all-invalid
+    row gives 0; a cur_len one block short must fail the tolerance) and
+    score_select (tie-aware; cur_len without the step's +1 must fail)."""
+    bs, NB, K = 32, 448, 64
+    q, kp, vp, idx, valid = _decode_inputs(cuda, D + Hq, B, Hq, Hkv, D, NB,
+                                           bs, K)
+    valid[:, :, :2] = True
+    valid[0, 0] = False
+    cur_len = torch.randint(NB * bs // 2, NB * bs, (B,),
+                            generator=_gen(cuda, D), device=cuda,
+                            dtype=torch.int32)
+    got = ops.sparse_decode_attention(q, kp, vp, idx, valid, cur_len)
+    want = ref.sparse_decode_attention(q, kp, vp, idx, valid, cur_len)
+    assert got.shape == (B, Hq, D)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-3,
+                               rtol=1e-2)
+    assert not got[0, :Hq // Hkv].any()
+    short = ops.sparse_decode_attention(q, kp, vp, idx, valid,
+                                        cur_len - NB * bs // 2)
+    assert not torch.allclose(short.float(), want.float(), atol=2e-3,
+                              rtol=1e-2)
+    q, meta, cur_len = _select_case(cuda, B, Hq, Hkv, D, NB, bs)
+    kw = dict(block_size=bs, top_k=K, sink_blocks=1, recent_blocks=2)
+    want = ref.score_select(q, meta, cur_len, **kw)
+    s_ref = ref.select_scores(ref.block_score(q, meta), cur_len + 1,
+                              block_size=bs, sink_blocks=1, recent_blocks=2)
+    assert _select_agrees(*ops.score_select(q, meta, cur_len, **kw), *want,
+                          s_ref)
+    assert not _select_agrees(*ops.score_select(q, meta, cur_len - 1, **kw),
+                              *want, s_ref)
+
+
+@pytest.mark.gpu
+def test_moe_slice_wrappers_raise_beyond_their_limits(cuda):
+    """flash_prefill takes (112, 112) and no other pair near it: v wider
+    or narrower than 112, D 104 or 120 raise."""
+    bf = torch.bfloat16
+    for D, Dv in ((112, 128), (112, 96), (128, 112), (104, 104),
+                  (120, 120)):
+        fq = torch.zeros((1, 8, 2, D), device=cuda, dtype=bf)
+        fv = torch.zeros((1, 8, 2, Dv), device=cuda, dtype=bf)
+        with pytest.raises(ValueError, match="D, Dv"):
+            ops.flash_prefill(fq, fq, fv, scale=1.0)
+    q = torch.zeros((1, 8, 2, 112), device=cuda, dtype=bf)
+    with pytest.raises(ValueError, match="causal only"):
+        ops.flash_prefill(q, q, q, scale=1.0, causal=False)

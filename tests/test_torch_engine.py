@@ -1,8 +1,10 @@
 """The port's ServingEngine against the reference's on the same
 submissions: default EngineConfig (mixed hybrid plane, staged decode,
 layer-segmented plane prefill, async host stage, DSA on), the smoke
-configs of every arch the port serves (qwen2-0.5b, llama3-8b, lwm-7b,
-qwen2.5-3b, granite-20b), at the default LRU capacity and under a 1-block LRU
+configs of every GQA arch the port serves (qwen2-0.5b, llama3-8b, lwm-7b,
+qwen2.5-3b, granite-20b, and the MoE family's kimi-k2-1t-a32b and
+arctic-480b, whose every serving path runs the MoE drop-free), at the
+default LRU capacity and under a 1-block LRU
 (every selection misses, evicted blocks are zeroed on the device and must
 be restored before use).
 
@@ -70,7 +72,8 @@ def _run(engine_cls, config_cls, request_cls, cfg, params, **kw):
             dataclasses.asdict(eng.transfer_stats()), metrics)
 
 
-ARCHS = ["qwen2-0.5b", "llama3-8b", "lwm-7b", "qwen2.5-3b", "granite-20b"]
+ARCHS = ["qwen2-0.5b", "llama3-8b", "lwm-7b", "qwen2.5-3b", "granite-20b",
+         "kimi-k2-1t-a32b", "arctic-480b"]
 
 
 @pytest.mark.parametrize("hbm_blocks", [96, 1])

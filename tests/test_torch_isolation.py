@@ -53,7 +53,9 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
     mods = sorted(m.name for m in pkgutil.walk_packages(
         [str(PORT)], prefix="repro_torch."))
     assert {"repro_torch.serving.engine",
-            "repro_torch.configs.minicpm3_4b"} <= set(mods)
+            "repro_torch.configs.minicpm3_4b",
+            "repro_torch.configs.kimi_k2_1t_a32b",
+            "repro_torch.configs.arctic_480b"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
