@@ -72,7 +72,17 @@ each printing one line (``phase=...``) and failing the run on any error:
    store spilling 16 columns into the next head (its first 16 columns
    zeroed), and a guard band: launched into a buffer with 64 sentinel
    elements after its output, every output element must be written and
-   the band untouched.  score_select's lines also time
+   the band untouched.  And at the frontend families': the decode
+   kernels at internvl2-2b's (Hq 16 over 8, D 128: G 2) and
+   whisper-small's (12 over 12, D 64: G 1) steps (B 4, NB 264), each
+   with its two planted faults; flash_prefill's non-causal mode (every
+   query over every key j < Sk) at whisper-small's encoder (Sq = Sk =
+   1500), its cross-attention from a 256-token window and from one
+   decode token per row (Sk 1500, not a multiple of the 128-key tile),
+   and at D 128 with Hq 16 over 8 (Sk 1000) and 32 over 8 (Sq 1), with
+   the causal mode's tolerance and three planted faults (the causal mask
+   applied, the last key dropped, the ragged last tile dropped), SDPA
+   (is_causal=False) timed beside it.  score_select's lines also time
    the unfused pair it replaces (block_score's kernel, then the plain
    select), where block_score takes the width (D <= 128).  A
    move from or to pinned memory is also bounded by the PCIe link: a
@@ -133,17 +143,22 @@ each printing one line (``phase=...``) and failing the run on any error:
 8. models — the paper's models and workload at full width, bf16 random
    weights from --seed, the default EngineConfig with wall-clock
    charging, smallest weights first, each engine and its weights freed
-   before the next (MODEL_RUNS): qwen2.5-3b, minicpm3-4b (MLA), lwm-7b,
+   before the next (MODEL_RUNS): whisper-small (encoder-decoder, each
+   request with 1500 synthesized frames; prompts capped at 4096, past
+   its 448-token decoder context: a stress of the serving path, said on
+   its lines), internvl2-2b (each request with 256 synthesized patch
+   embeddings ahead of its prompt), qwen2.5-3b, minicpm3-4b (MLA), lwm-7b,
    kimi-k2-1t-a32b (MoE, 384 experts top-8, 1 of its 61 layers), granite-20b
    and arctic-480b (MoE, 128 experts top-2 with a dense residual, 2 of its
    35 layers; MODEL_LAYERS: one card holds no more, each layer at full
    width, ``reduced=num_layers:<n>/<published>`` on their lines) on the
    port's LongBench-shaped trace (generate_trace, 2.0 req/s, 4 requests,
-   prompts capped at 32768, 32768, 4096, 32768, 8192 and 32768, 32 new
-   tokens), and
+   prompts capped at 4096, 32768, 32768, 32768, 4096, 32768, 8192 and
+   32768, 32 new tokens), and
    llama3-8b with one 131,072-token prompt, 8 new tokens, on the int8
    tier.  Algorithm 1's HBM budget stays the default 1 GiB unless the
-   largest working set one request can claim exceeds it (minicpm3-4b,
+   largest working set one request can claim (a VLM's patches counted
+   in its prompt) exceeds it (minicpm3-4b,
    whose geometry counts its latent over 40 heads, lwm-7b, llama3-8b);
    then it is the device memory left after the weights.
    Asserts that every request was admitted and finished with finite
@@ -162,7 +177,10 @@ each printing one line (``phase=...``) and failing the run on any error:
    events over 10 back-to-back calls:
    sparse_decode_attention and score_select at NB 4104 (llama3-8b), G 48
    (granite-20b), G 40 over one 288-wide latent head (minicpm3-4b), G 8
-   at D 112 (kimi-k2) and G 7 at D 128 (arctic-480b), flash_prefill at
+   at D 112 (kimi-k2), G 7 at D 128 (arctic-480b), G 2 at D 128
+   (internvl2-2b) and G 1 at D 64 (whisper-small); flash_prefill's
+   non-causal mode at whisper-small's encoder, prefill cross-attention
+   and decode cross-attention launches; and flash_prefill at
    D 128 over 32 kv heads (lwm-7b) and one (granite-20b), at D 96 with
    Dv 64 over 40 heads (minicpm3-4b), and at D = Dv = 112 over 8 kv heads
    (kimi-k2).
@@ -318,6 +336,20 @@ MLA_B, MLA_NB = 4, ((256, 4), (1025, 2))
 MOE_SHAPES = {"kimi-k2-1t-a32b": dict(Hq=64, Hkv=8, D=112),
               "arctic-480b": dict(Hq=56, Hkv=8, D=128)}
 MOE_B, MOE_NB = 4, 448
+# the frontend families' decode shapes: internvl2-2b (16 query heads over
+# 8 at D 128: G 2) and whisper-small (12 over 12 at D 64: G 1), B 4, NB
+# 264; flash_prefill's non-causal mode (Whisper's encoder, its
+# cross-attention from a prompt window and from one decode token per row,
+# over the 1500 encoder positions, and at D 128 with G 2 over a ragged
+# Sk): (label, B, Sq, Sk, Hq, Hkv, D)
+FRONTEND_SHAPES = {"internvl2-2b": dict(Hq=16, Hkv=8, D=128),
+                   "whisper-small": dict(Hq=12, Hkv=12, D=64)}
+FRONTEND_B, FRONTEND_NB = 4, 264
+NONCAUSAL_CASES = (("whisper_encoder", 1, 1500, 1500, 12, 12, 64),
+                   ("whisper_cross_prefill", 4, 256, 1500, 12, 12, 64),
+                   ("whisper_cross_decode", 4, 1, 1500, 12, 12, 64),
+                   ("gqa_d128", 2, 300, 1000, 16, 8, 128),
+                   ("gqa_d128_decode", 4, 1, 700, 32, 8, 128))
 # a sentinel no output of the kernel takes, in the guard band after its
 # output (flash_guard)
 FLASH_GUARD, FLASH_SENTINEL = 64, 1000.0
@@ -391,6 +423,11 @@ ORACLE_REL_L2 = 2.0 ** -5
 # (kimi-k2: G 8 at D 112, flash_prefill at D = Dv = 112; arctic-480b: G 7
 # at D 128))
 MODEL_RUNS = {
+    "whisper-small": ("none", (4, 4096, 32), (
+        "sparse_decode_attention", "score_select", "flash_prefill:encoder",
+        "flash_prefill:cross_prefill", "flash_prefill:cross_decode")),
+    "internvl2-2b": ("none", (4, 32768, 32), (
+        "sparse_decode_attention", "score_select")),
     "qwen2.5-3b": ("none", (4, 32768, 32), ()),
     "minicpm3-4b": ("none", (4, 32768, 32), (
         "sparse_decode_attention", "score_select", "flash_prefill")),
@@ -409,6 +446,12 @@ MODEL_RUNS = {
 # (38.8 GB; 33.8 GB of it the layer's 384 experts), arctic-480b's and 2 of
 # its 35 (55.4 GB); every layer of both is an MoE layer
 MODEL_LAYERS = {"kimi-k2-1t-a32b": 1, "arctic-480b": 2}
+# whisper-small's decoder context is 448 tokens: prompts of up to 4096
+# stress the serving path (a decoder KV past the DSA budget, so selection
+# and restores do real work); no deployment sends them.  Printed on every
+# line of its serve.
+MODEL_NOTES = {"whisper-small": " stress=prompts_past_the_448_token_"
+                                "decoder_context"}
 MODEL_RATE = 2.0
 LONG_PROMPT, LONG_NEW = 131072, 8
 # the obs phase: obs-on's best serve wall time within this factor of
@@ -752,15 +795,19 @@ def case_flash(torch, ops, ref, q, k, v, *, scale, causal=True,
     _, Sk, Hkv, Dv = v.shape
     at = torch.unravel_index(ratio.argmax(), ratio.shape)
     log(f"flash_prefill B={B} Sq={Sq} Sk={Sk} Hq={Hq} D={D} "
-        f"q_offset={int(q_offset)} largest err/bound="
+        f"causal={causal} q_offset={int(q_offset)} largest err/bound="
         f"{ratio[at].item():.4f} at query {int(at[1])} (|ref| "
         f"{want[at].float().abs().item():.4g}, W {weight[at].item():.4g})")
     nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * 2
-    nops = 2 * B * Hq * (D + Dv) * _visible_pairs(Sq, Sk, int(q_offset))
-    lib = None
-    if causal:
-        import torch.nn.functional as F
-        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    pairs = (_visible_pairs(Sq, Sk, int(q_offset)) if causal
+             else Sq * Sk)
+    nops = 2 * B * Hq * (D + Dv) * pairs
+    import torch.nn.functional as F
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if not causal:
+        lib = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=False, scale=scale, enable_gqa=True)
+    else:
         if int(q_offset) == 0 and Sk == Sq:
             lib = lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True)
@@ -783,7 +830,8 @@ def case_flash(torch, ops, ref, q, k, v, *, scale, causal=True,
             lambda: ref.flash_prefill(q, k, v, **kw), nbytes, nops,
             f"B={B} Sq={Sq} Sk={Sk} Hq={Hq} Hkv={Hkv} D={D} "
             + (f"Dv={Dv} " if Dv != D else "")
-            + f"q_offset={int(q_offset)}", lib)
+            + (f"q_offset={int(q_offset)}" if causal else "causal=False"),
+            lib)
 
 
 def case_quantize(torch, ops, ref, blocks):
@@ -1284,7 +1332,9 @@ def phase_parity(torch, ops, ref, timer, seed: int) -> dict:
                 "parity", label, name, case, timer)
     for name, label, case in (parity_new_shapes(torch, ops, ref, gen)
                               + parity_mla_shapes(torch, ops, ref, gen)
-                              + parity_moe_shapes(torch, ops, ref, gen)):
+                              + parity_moe_shapes(torch, ops, ref, gen)
+                              + parity_frontend_shapes(torch, ops, ref,
+                                                       gen)):
         results.setdefault(name, {})[label] = run_case(
             "parity", label, name, case, timer)
     return results
@@ -1488,7 +1538,7 @@ def flash_guard(torch, ops, ref, q, k, v, scale, q_offset, label) -> None:
                      dtype=torch.bfloat16, device=q.device)
     rc = LIBS.fn("flash_prefill")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), buf.data_ptr(), B, Sq, Sk,
-        Hq, Hkv, D, Dv, q_offset, float(scale),
+        Hq, Hkv, D, Dv, q_offset, 1, float(scale),
         torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
     out = buf[:n].view(B, Sq, Hq, Dv)
@@ -1546,6 +1596,74 @@ def parity_moe_shapes(torch, ops, ref, gen) -> list:
         flash_faults(torch, ops, ref, fq, fk, fv, scale, q_off, label)
         flash_spill_fault(torch, ops, ref, fq, fk, fv, scale, q_off, label)
         flash_guard(torch, ops, ref, fq, fk, fv, scale, q_off, label)
+    return out
+
+
+def noncausal_faults(torch, ops, ref, q, k, v, scale, label) -> None:
+    """The flash tolerance must reject a non-causal kernel that applies
+    the causal mask (query 0 then sees key 0 only), drops the last key,
+    or drops the ragged last key tile (1500 = 11 x 128 + 92): each runs
+    through the kernel on probed or cut inputs, query 0 putting its
+    weight on key Sk - 1, and is held against the plain version on the
+    true ones."""
+    Sk = k.shape[1]
+    kw = dict(scale=scale, causal=False)
+    kp, vp = _probe(q, k, v, 0, Sk - 1, scale)
+    whole = Sk // 128 * 128 if Sk % 128 else Sk - 128
+    faults = (
+        ("causal_mask", ops.flash_prefill(q, kp, vp, scale=scale,
+                                          causal=True)),
+        ("last_key_dropped", ops.flash_prefill(
+            q, kp[:, :-1].contiguous(), vp[:, :-1].contiguous(), **kw)),
+        ("ragged_tile_dropped", ops.flash_prefill(
+            q, kp[:, :whole].contiguous(), vp[:, :whole].contiguous(),
+            **kw)))
+    want = ref.flash_prefill(q, kp, vp, **kw)
+    weight = _abs_weight(ref, q, kp, vp, **kw)
+    for fault, out in faults:
+        err, ok, ratio = _flash_close(out, want, weight)
+        log(f"phase=parity {label} planted_fault={fault} "
+            f"max_abs_err={err:.3e} largest_err/bound="
+            f"{ratio.max().item():.3f} rejected={not ok}")
+        if ok:
+            raise AssertionError(f"planted fault {fault} passed the flash "
+                                 f"tolerance ({label})")
+
+
+def parity_frontend_shapes(torch, ops, ref, gen) -> list:
+    """The frontend families' kernels (FRONTEND_SHAPES): at
+    internvl2-2b's (G 2, D 128) and whisper-small's (G 1, D 64) decode
+    steps, sparse_decode_attention with its two planted faults and
+    score_select with its two; flash_prefill's non-causal mode at each of
+    NONCAUSAL_CASES (Sk not a multiple of 128, Sq = 1, Hq > Hkv, D 64 and
+    128) with its three planted non-causal faults.  Returns (kernel,
+    label, case) triples for run_case."""
+    dev = torch.device("cuda")
+    kw = dict(block_size=BS, top_k=K, sink_blocks=1, recent_blocks=2)
+    out = []
+    for arch, sh in FRONTEND_SHAPES.items():
+        attn = _attention_inputs(torch, gen, FRONTEND_B, sh["Hq"],
+                                 sh["Hkv"], sh["D"], FRONTEND_NB)
+        label = f"arch={arch}"
+        out.append(("sparse_decode_attention", label,
+                    case_attention(torch, ops, ref, *attn)))
+        planted_faults(torch, ops, ref, *attn, arch)
+        _, tie_meta, sel_len = _select_inputs(torch, gen, attn[-1],
+                                              sh["Hkv"], sh["D"],
+                                              FRONTEND_NB)
+        out.append(("score_select", label, case_select(
+            torch, ops, ref, attn[0], tie_meta, sel_len, **kw)))
+        select_faults(torch, ops, ref, attn[0], tie_meta, sel_len, kw, arch)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).bfloat16()
+    for name, Bn, Sq, Sk, Hq, Hkv, D in NONCAUSAL_CASES:
+        q, k, v = randn(Bn, Sq, Hq, D), randn(Bn, Sk, Hkv, D), randn(
+            Bn, Sk, Hkv, D)
+        label = f"noncausal={name}"
+        out.append(("flash_prefill", label, case_flash(
+            torch, ops, ref, q, k, v, scale=D ** -0.5, causal=False)))
+        noncausal_faults(torch, ops, ref, q, k, v, D ** -0.5, label)
     return out
 
 
@@ -1693,12 +1811,15 @@ class MainPathCapture:
     gather of ``HostPool.gather``, or ``flush``, the save's read of the
     resident blocks) and to keep a copy of the inputs of one launch per
     case: the first
-    flash_prefill launch and the first prefill save (``quant_save_blocks``
-    splits into ``prefill`` and ``decode``; of each save, the layer of each
-    pool it writes is kept), and for every other case the first made from
-    attention launch ``from_attn`` on (one attention launch per layer and
-    decode step; the first decode steps run fewer requests, as prefills
-    finish one after another), except a drop round: the largest of those
+    flash_prefill launch of each case (``context``: a chunk over earlier
+    chunks; Whisper's non-causal ``encoder`` and ``cross_prefill``; its
+    ``cross_decode`` is a decode-step case, kept as below) and the first
+    prefill save (``quant_save_blocks`` splits into ``prefill`` and ``decode``; of
+    each save, the layer of each pool it writes is kept), and for every
+    other case the first made from attention launch ``from_attn`` on
+    (one attention launch per layer and decode step; the first decode
+    steps run fewer requests, as prefills finish one after another),
+    except a drop round: the largest of those
     made before attention launch ``from_attn + layers`` (the rounds of one
     decode step vary in size, and the first may hold a few blocks).
     ``keep`` limits the kept cases; a pinned host pool is kept by
@@ -1746,6 +1867,13 @@ class MainPathCapture:
     def _key(self, name, args, kw, caller: str):
         torch = self.torch
         if name == "flash_prefill":
+            if not kw.get("causal", True):
+                # Whisper: the encoder's self-attention, or the decoder's
+                # cross-attention from a prompt window or a decode token
+                if caller != "cross_attention":
+                    return f"{name}:encoder"
+                return (f"{name}:cross_"
+                        + ("decode" if args[0].shape[1] == 1 else "prefill"))
             # a chunk after the first attends over the chunks before it
             return (f"{name}:context" if int(kw.get("q_offset", 0)) > 0
                     else name)
@@ -1778,7 +1906,11 @@ class MainPathCapture:
             key = self._key(name, args, kw, sys._getframe(1).f_code.co_name)
             self.calls[key] = self.calls.get(key, 0) + 1
             attn = self.calls.get("sparse_decode_attention", 0)
-            due = (name == "flash_prefill" or attn >= self.from_attn
+            # a decode token's cross-attention is kept from the middle
+            # decode step, as the decode kernels are
+            due = ((name == "flash_prefill"
+                    and key != "flash_prefill:cross_decode")
+                   or attn >= self.from_attn
                    or key == "quant_save_blocks:prefill")
             wider = (key in self.WIDEST and key in self.inputs
                      and attn < self.until_attn
@@ -2510,9 +2642,13 @@ def _free_memory(torch) -> None:
 
 
 def _model_submissions(np, Request, cfg, arch: str, seed: int) -> list:
-    """(Request, prompt token ids) of the models phase for ``arch``: the
-    port's LongBench-shaped trace (MODEL_RATE req/s, Poisson arrivals, the
-    config's caps), or the one long request at arrival 0.0."""
+    """(Request, prompt token ids, frontend tensors) of the models phase
+    for ``arch``: the port's LongBench-shaped trace (MODEL_RATE req/s,
+    Poisson arrivals, the config's caps), or the one long request at
+    arrival 0.0; the frontend tensors are the launcher's synthesized ones
+    (internvl2-2b's 256 patch embeddings, whisper-small's 1500 frames,
+    float32 from the seed), {} for a decoder-only config."""
+    from repro_torch.launch.serve import frontend_inputs
     from repro_torch.serving.trace import TraceConfig, generate_trace
     spec = MODEL_RUNS[arch][1]
     if spec is None:
@@ -2525,13 +2661,14 @@ def _model_submissions(np, Request, cfg, arch: str, seed: int) -> list:
             max_new_tokens=new, seed=seed))
     rng = np.random.default_rng(seed)
     return [(r, rng.integers(4, cfg.vocab_size, r.prompt_len)
-             .astype(np.int32)) for r in reqs]
+             .astype(np.int32), frontend_inputs(cfg, rng)) for r in reqs]
 
 
 def _hbm_budget(torch, cfg, subs, default: int) -> tuple:
     """Algorithm 1's HBM budget for one config: the default unless the
     largest working set one request can claim exceeds it: its
-    layer-segmented prefill (one layer of its prompt) or a decode window's
+    layer-segmented prefill (one layer of its prompt, a VLM's patches
+    counted in) or a decode window's
     union (the scheduler's 12 steps of top-k blocks, at most every block,
     in every layer), bf16 K and V (MLA: the latent, counted over
     max(num_kv_heads, 1) heads as the engine's geometry counts it).  Then
@@ -2542,9 +2679,11 @@ def _hbm_budget(torch, cfg, subs, default: int) -> tuple:
     bs = geom.block_size
     per_block_layer = geom.block_bytes_per_head * geom.num_kv_heads
     worst = 0
-    for r, _ in subs:
-        nb = -(-(r.prompt_len + r.max_new_tokens) // bs) + 1
-        worst = max(worst, r.prompt_len * per_block_layer // bs,
+    patches = cfg.num_patches if cfg.frontend == "vit_patch_stub" else 0
+    for r, _, _ in subs:
+        prompt = r.prompt_len + patches
+        nb = -(-(prompt + r.max_new_tokens) // bs) + 1
+        worst = max(worst, prompt * per_block_layer // bs,
                     min(nb, 12 * cfg.dsa.top_k_blocks) * cfg.num_layers
                     * per_block_layer)
     if worst <= default:
@@ -2572,9 +2711,9 @@ def _serve_model(torch, np, ops, arch: str, seed: int, caps: dict,
     from repro_torch.serving.request import Request
     tier, spec, keep = MODEL_RUNS[arch]
     cfg = get_config(arch)
-    red = ""
+    red = MODEL_NOTES.get(arch, "")
     if arch in MODEL_LAYERS:
-        red = f" reduced=num_layers:{MODEL_LAYERS[arch]}/{cfg.num_layers}"
+        red += f" reduced=num_layers:{MODEL_LAYERS[arch]}/{cfg.num_layers}"
         cfg = dataclasses.replace(cfg, num_layers=MODEL_LAYERS[arch])
     t0 = time.perf_counter()
     params = M.init_params(cfg, torch.Generator(device="cuda")
@@ -2587,14 +2726,14 @@ def _serve_model(torch, np, ops, arch: str, seed: int, caps: dict,
     eng = ServingEngine(params, cfg, EngineConfig(
         seed=seed, charge_real_time=True, offload_quant=tier,
         hbm_budget_bytes=budget, obs=obs))
-    for r, toks in subs:
-        eng.submit(r, tokens=toks)
+    for r, toks, extra in subs:
+        eng.submit(r, tokens=toks, **extra)
     pinned = sum(t.numel() * t.element_size()
                  for pool in eng.kv_mgr.pools.values()
                  for t in (pool.k, pool.v, pool.k_scale, pool.v_scale)
                  if t is not None)
     setup_s = time.perf_counter() - t0
-    new = max(r.max_new_tokens for r, _ in subs)
+    new = max(r.max_new_tokens for r, _, _ in subs)
     cap = MainPathCapture(torch, ops, cfg.num_layers * (new // 2),
                           keep=set(keep), layers=cfg.num_layers)
     torch.cuda.synchronize()
@@ -2609,12 +2748,12 @@ def _serve_model(torch, np, ops, arch: str, seed: int, caps: dict,
     counts = ops.launches.snapshot()
     moe = ffn.moe_stats.snapshot()
     peak = torch.cuda.max_memory_allocated()
-    unfinished = [r.req_id for r, _ in subs if r.finish_time is None]
+    unfinished = [r.req_id for r, _, _ in subs if r.finish_time is None]
     if unfinished:
         raise AssertionError(f"{tag}: {arch}: requests never admitted or "
                              f"not finished: {unfinished} (HBM budget "
                              f"{budget}, largest working set {worst})")
-    for r, _ in subs:
+    for r, _, _ in subs:
         st = eng.states[r.req_id]
         if (len(st.out_tokens) != r.max_new_tokens
                 or not bool(torch.isfinite(st.last_logits).all())):
@@ -2639,11 +2778,17 @@ def _serve_model(torch, np, ops, arch: str, seed: int, caps: dict,
         + (f"experts={cfg.num_experts} top_k={cfg.top_k_experts} "
            f"d_ff={cfg.d_ff} dense_residual={cfg.moe_dense_residual} "
            if cfg.num_experts else "")
+        + (f"frontend={cfg.frontend} patches={cfg.num_patches} "
+           if cfg.frontend == "vit_patch_stub" else "")
+        + (f"encoder_layers={cfg.encoder_layers} "
+           f"frames={cfg.encoder_seq_len} decode_planes={len(eng.planes)} "
+           f"prefill_planes={len(eng.prefill_planes)} "
+           if cfg.is_encoder_decoder else "")
         + f"offload_quant={tier} "
         f"requests={len(subs)} "
-        f"prompts={[r.prompt_len for r, _ in subs]} "
-        f"new={[r.max_new_tokens for r, _ in subs]} "
-        f"arrivals_s={[round(r.arrival_time, 4) for r, _ in subs]} "
+        f"prompts={[r.prompt_len for r, _, _ in subs]} "
+        f"new={[r.max_new_tokens for r, _, _ in subs]} "
+        f"arrivals_s={[round(r.arrival_time, 4) for r, _, _ in subs]} "
         f"finished={m.num_finished} setup_s={setup_s:.1f} wall_s={wall:.3f}"
         + red)
     log(f"phase={tag} arch={arch} mean_ttft_ms={m.mean_ttft * 1e3:.2f} "

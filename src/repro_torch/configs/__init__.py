@@ -1,8 +1,9 @@
 """Architecture config registry of the port: the decoders it serves (GQA,
-MLA for minicpm3-4b, and the MoE FFN for kimi-k2 and arctic-480b).  Each
-module exports ``CONFIG`` (the full-scale config, source cited) and
-``smoke_config()`` (a reduced variant for CPU tests), copied from the
-reference registry."""
+MLA for minicpm3-4b, the MoE FFN for kimi-k2 and arctic-480b), the VLM
+internvl2-2b (a prefix of patch embeddings) and the encoder-decoder
+whisper-small.  Each module exports ``CONFIG`` (the full-scale config,
+source cited) and ``smoke_config()`` (a reduced variant for CPU tests),
+copied from the reference registry."""
 from __future__ import annotations
 
 import importlib
@@ -17,6 +18,8 @@ _ARCH_MODULES = {
     "minicpm3-4b": "repro_torch.configs.minicpm3_4b",
     "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t_a32b",
     "arctic-480b": "repro_torch.configs.arctic_480b",
+    "internvl2-2b": "repro_torch.configs.internvl2_2b",
+    "whisper-small": "repro_torch.configs.whisper_small",
     # the paper's own evaluation models
     "lwm-7b": "repro_torch.configs.lwm_7b",
     "llama3-8b": "repro_torch.configs.llama3_8b",

@@ -18,8 +18,12 @@ through the ``scatter_blocks_hkv`` kernel on the GPU) and the eviction
 drops (``drop_blocks_many``: a whole round of them zeroed by one
 ``zero_blocks_hkv`` launch over the plane's table of K and V pools, where
 the reference scatters a zero payload per request and layer).  An MLA
-plane holds one latent pool per layer and no V pool.  Stage functions are
-plain calls of ``models/model.py``.
+plane holds one latent pool per layer and no V pool.  The state's
+``extra`` (Whisper's per-layer cross keys and values) is padded to
+``b_cap`` rows like the pools, written at admission and handed to every
+layer's attend; a plane holds requests whose ``extra`` shapes agree (the
+engine keys its planes so).  Stage functions are plain calls of
+``models/model.py``.
 """
 from __future__ import annotations
 
@@ -142,7 +146,9 @@ class DevicePoolPlane:
         return {"caches": caches,
                 "cur_len": torch.zeros((b_cap,), dtype=torch.int32,
                                        device=dev),
-                "extra": {}}
+                "extra": M.map_extra(
+                    lambda x: x.new_zeros((b_cap,) + x.shape[1:]),
+                    template["extra"])}
 
     @staticmethod
     def _kv_keys(cache: Dict) -> Tuple[str, ...]:
@@ -165,6 +171,12 @@ class DevicePoolPlane:
         cl = st["cur_len"].new_zeros((b_cap,))
         cl[:self.b_cap] = st["cur_len"]
         st["cur_len"] = cl
+
+        def pad_rows(x):
+            new = x.new_zeros((b_cap,) + x.shape[1:])
+            new[:self.b_cap] = x
+            return new
+        st["extra"] = M.map_extra(pad_rows, st["extra"])
         for r in range(self.b_cap, b_cap):
             bisect.insort(self._free, r)
 
@@ -196,6 +208,9 @@ class DevicePoolPlane:
         for l, c in enumerate(state["caches"]):
             for key, v in c.items():
                 st["caches"][l][key][row, :, :nbs[l]] = v[0]
+        for dst, src in zip(M.extra_leaves(st["extra"]),
+                            M.extra_leaves(state["extra"])):
+            dst[row] = src[0]
         cur = int(state["cur_len"][0])
         st["cur_len"][row] = cur
         self.rows[req_id] = row
@@ -252,6 +267,7 @@ class DevicePoolPlane:
         tokens, mask = self.batch_inputs(token_by_req)
         st = self.state
         prev = {rid: self.cur_host[rid] for rid in token_by_req}
+        enc_kvs = st["extra"].get("enc_kvs")
         info: Dict[str, Any] = {"selected": {}}
         timeline: List[Tuple[int, float, float]] = []
         tr = self.tracer
@@ -289,7 +305,8 @@ class DevicePoolPlane:
             if tr.enabled:
                 _ts = time.perf_counter()
             x = M.decode_attend_layer(p, cfg, x, q, st["caches"][i],
-                                      st["cur_len"], idx, valid)
+                                      st["cur_len"], idx, valid,
+                                      M.index_enc_kvs(enc_kvs, i))
             if tr.enabled:
                 tr.end("attend", "stage", _ts, layer=i)
         logits, st["cur_len"] = M.decode_logits(params, cfg, x,

@@ -14,7 +14,9 @@ segment groups together.  Per attention layer *i*:
    FlashD2H, runs the LRU round, and restores misses into the decode
    pools BEFORE the attention that selected them;
 4. decode ``attend`` runs for every decode plane over the restored pools
-   (the ``sparse_decode_attention`` kernel on the GPU).
+   (the ``sparse_decode_attention`` kernel on the GPU), each with its own
+   plane's cross keys and values (Whisper's ``enc_kvs``: planes of
+   different encoder lengths ride one walk).
 
 After the walk each decode plane takes its logits stage and each prefill
 plane its shared finalize.  With a live tracer the walk emits the
@@ -162,9 +164,10 @@ class HybridPlane:
                 _ts = time.perf_counter()
             for d in dec:
                 st = d.plane.state
-                d.x = M.decode_attend_layer(p, cfg, d.x, d.q,
-                                            st["caches"][i], st["cur_len"],
-                                            d.idx, d.valid)
+                d.x = M.decode_attend_layer(
+                    p, cfg, d.x, d.q, st["caches"][i], st["cur_len"],
+                    d.idx, d.valid,
+                    M.index_enc_kvs(st["extra"].get("enc_kvs"), i))
             if tr.enabled and dec:
                 tr.end("attend", "stage", _ts, layer=i, planes=len(dec))
         self.stage_timeline = timeline

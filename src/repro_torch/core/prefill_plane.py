@@ -18,6 +18,9 @@ the reference's does), from which the engine reads the fused FlashD2H save
 (``read_group_kv_async``, ``read_group_kv``) and the end-of-layer pool build
 (``layer_ctx``) — the prefill HBM footprint stays one layer of KV for the
 whole batch.  Rows whose last segment ran share one logits launch.
+For Whisper each row also carries its per-layer cross keys and values
+(``enc``), which every launch of the layer passes on; requests share a
+plane only where those shapes agree (the engine keys its planes so).
 Buffers are updated IN PLACE.
 """
 from __future__ import annotations
@@ -83,6 +86,8 @@ class PrefillPlane:
         self.hidden: Optional[torch.Tensor] = None    # (B_cap, S_cap, d)
         self.ctx_k: Optional[torch.Tensor] = None     # (B_cap, S_cap, Hkv, hd)
         self.ctx_v: Optional[torch.Tensor] = None     # None for MLA
+        # Whisper: per layer (k, v) each (B_cap, S_enc, Hkv, hd)
+        self.enc: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None
         self._tok_len: Optional[torch.Tensor] = None  # (B_cap,) int32
         self.rows: Dict[str, int] = {}
         self.tok_len: Dict[str, int] = {}             # host mirror
@@ -125,6 +130,9 @@ class PrefillPlane:
                 self.ctx_k = self._padded(self.ctx_k, b_cap, s_cap)
             if self.ctx_v is not None:
                 self.ctx_v = self._padded(self.ctx_v, b_cap, s_cap)
+            if self.enc is not None:
+                self.enc = [tuple(self._padded(a, b_cap) for a in kv)
+                            for kv in self.enc]
             for r in range(self.b_cap, b_cap):
                 bisect.insort(self._free, r)
         self.b_cap, self.s_cap = b_cap, s_cap
@@ -147,9 +155,12 @@ class PrefillPlane:
     # -- slot lifecycle ----------------------------------------------------
 
     def admit(self, req_id: str, h: torch.Tensor,
-              segments: List[PrefillSegment]) -> int:
-        """Copy one request's embedded residual stream (1, S, d) into a free
-        row and install its segment plan."""
+              segments: List[PrefillSegment],
+              enc_kvs: Optional[List[Tuple[torch.Tensor,
+                                           torch.Tensor]]] = None) -> int:
+        """Copy one request's embedded residual stream (1, S, d), and its
+        per-layer cross keys and values (Whisper, each (1, S_enc, Hkv,
+        hd)), into a free row and install its segment plan."""
         if req_id in self.rows:
             raise ValueError(f"{req_id} already admitted")
         S = int(h.shape[1])
@@ -157,6 +168,13 @@ class PrefillPlane:
         row = self._free.pop(0)
         self.hidden[row] = 0
         self.hidden[row, :S] = h[0]
+        if enc_kvs is not None:
+            if self.enc is None:
+                self.enc = [tuple(a.new_zeros((self.b_cap,) + a.shape[1:])
+                                  for a in kv) for kv in enc_kvs]
+            for dst, src in zip(self.enc, enc_kvs):
+                for d, s_ in zip(dst, src):
+                    d[row] = s_[0]
         self._tok_len[row] = S
         self.rows[req_id] = row
         self.tok_len[req_id] = S
@@ -299,7 +317,8 @@ class PrefillPlane:
             M.get_layer(params, layer), cfg, h_win, pos_win,
             host_to_device(tmask, dev, torch.bool),
             host_to_device(smask, dev, torch.bool),
-            k_ctx=ctx_k, v_ctx=ctx_v, q_offset=start)
+            k_ctx=ctx_k, v_ctx=ctx_v, q_offset=start,
+            enc_kv=None if self.enc is None else self.enc[layer])
         rows = host_to_device([self.rows[r] for r in rids], dev, torch.int64)
         self.ctx_k[rows, start:start + t_cap] = k[rows].float()
         if v is not None:

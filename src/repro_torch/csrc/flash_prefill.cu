@@ -1,4 +1,4 @@
-// Causal flash attention for layer-segmented prefill, for Hopper.
+// Flash attention for layer-segmented prefill, causal or not, for Hopper.
 //
 // Replaces the Pallas TPU kernel `flash_prefill` in
 // src/repro/kernels/flash_prefill.py (mirrored on the serving path by
@@ -9,6 +9,17 @@
 // out (B, Sq, Hq, Dv) bf16.
 // q_offset is the absolute position of query 0: a chunk continuation
 // passes the earlier chunks' keys ahead of its window, Sk = q_offset + Sq.
+// The non-causal mode (`flash_attention_jnp(causal=False)`: Whisper's
+// encoder, Sq = Sk = 1500, and its cross-attention over the 1500 encoder
+// positions, from a prompt window or one decode token per row) lets every
+// query see every key j < Sk.  That is the causal mask with its diagonal
+// moved past the last key, so the launcher runs the same kernel with
+// q_offset = Sk: no tile is then cut by the diagonal, each query tile
+// walks all ceil(Sk / 128) key tiles, and only the ragged last one
+// (1500 = 11 x 128 + 92) is masked, by j < Sk, where TMA has zero-filled
+// the keys past Sk.  The causal mode's device code is untouched by it.
+// At Sq = 1 (a decode token) the 128-row query tile holds one real row:
+// the K/V reads, which bound the call, are the same as for a full tile.
 //
 // What bounds it: operations.  4 * Hq * D flops per visible (query, key)
 // pair against 2 bytes per element read once: at a 4096-token prompt that
@@ -456,28 +467,28 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 }  // namespace
 
-// bfloat16, causal, (D, Dv) in {(64, 64), (128, 128), (96, 64), (112,
-// 112)}.  Limits
-// checked by the wrapper: contiguous (B, S, H, D|Dv) tensors, 16-byte
-// aligned, Hq % Hkv == 0, q_offset >= 0.  Returns a runtime error code, or
-// 100000 + a driver error code if a TMA descriptor could not be encoded.
+// bfloat16, (D, Dv) in {(64, 64), (128, 128), (96, 64), (112, 112)};
+// causal, or every query over every key (causal == 0: q_offset is
+// ignored).  Limits checked by the wrapper: contiguous (B, S, H, D|Dv)
+// tensors, 16-byte aligned, Hq % Hkv == 0, q_offset >= 0.  Returns a
+// runtime error code, or 100000 + a driver error code if a TMA descriptor
+// could not be encoded.
 extern "C" int launch_flash_prefill(const void* q, const void* k,
                                     const void* v, void* out, int B, int Sq,
                                     int Sk, int Hq, int Hkv, int D, int Dv,
-                                    int q_offset, float scale, void* stream) {
+                                    int q_offset, int causal, float scale,
+                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B == 0 || Sq == 0 || Hq == 0) return (int)cudaGetLastError();
+  // non-causal: the diagonal past every key (see the note at the top)
+  const int qo = causal ? q_offset : Sk;
   if (D == 64 && Dv == 64)
-    return launch<64, 64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, q_offset, scale,
-                          s);
+    return launch<64, 64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, qo, scale, s);
   if (D == 128 && Dv == 128)
-    return launch<128, 128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, q_offset,
-                            scale, s);
+    return launch<128, 128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, qo, scale, s);
   if (D == 96 && Dv == 64)   // MLA: qk_nope + qk_rope against v_head_dim
-    return launch<96, 64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, q_offset, scale,
-                          s);
+    return launch<96, 64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, qo, scale, s);
   if (D == 112 && Dv == 112)   // kimi-k2: d_model 7168 over 64 heads
-    return launch<112, 112>(q, k, v, out, B, Sq, Sk, Hq, Hkv, q_offset,
-                            scale, s);
+    return launch<112, 112>(q, k, v, out, B, Sq, Sk, Hq, Hkv, qo, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -66,7 +66,7 @@ _SIGNATURES = {
     "scatter_blocks": ("scatter_blocks", "launch_scatter_blocks",
                        [_P, _P, _P, _L, _I, _I, _I, _L, _P]),
     "flash_prefill": ("flash_prefill", "launch_flash_prefill",
-                      [_P] * 4 + [_I] * 8 + [_F, _P]),
+                      [_P] * 4 + [_I] * 9 + [_F, _P]),
     "quantize_blocks": ("quant_blocks", "launch_quantize_blocks",
                         [_I, _P, _P, _P, _I, _I, _P]),
     "dequantize_blocks": ("quant_blocks", "launch_dequantize_blocks",

@@ -665,20 +665,21 @@ FLASH_DIMS = ((64, 64), (128, 128), (96, 64), (112, 112))
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   scale: float, causal: bool = True,
                   q_offset: int = 0) -> torch.Tensor:
-    """Causal prefill attention: q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D|Dv)
-    -> (B, Sq, Hq, Dv) in q's dtype; q_offset is the absolute position of
-    q[0] (earlier chunks' keys lie ahead of the window, Sk = q_offset + Sq
-    on the serving path).  On the GPU: bfloat16, causal, (D, Dv) in
-    ``FLASH_DIMS``."""
+    """Prefill attention: q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D|Dv) ->
+    (B, Sq, Hq, Dv) in q's dtype.  Causal: q_offset is the absolute
+    position of q[0] (earlier chunks' keys lie ahead of the window, Sk =
+    q_offset + Sq on the serving path).  ``causal=False`` (Whisper's
+    encoder and cross-attention): every query sees every key j < Sk and
+    q_offset is ignored, as in the reference's
+    ``flash_attention_jnp(causal=False)``.  On the GPU: bfloat16, (D, Dv)
+    in ``FLASH_DIMS``, either mode."""
     if _all_cpu(q, k, v):
         return ref.flash_prefill(q, k, v, scale=scale, causal=causal,
                                  q_offset=q_offset)
     name = "flash_prefill"
-    _check(causal, f"{name}: the kernel is causal only (non-causal "
-                   f"attention is not ported yet)")
     B, Sq, Hq, D = q.shape
     _, Sk, Hkv, Dv = v.shape
-    q_offset = int(q_offset)
+    q_offset = int(q_offset) if causal else 0
     _check_cuda(name, q.device, q=q, k=k, v=v)
     _check(q.dtype == k.dtype == v.dtype == torch.bfloat16,
            f"{name}: q, k and v must be bfloat16")
@@ -691,7 +692,7 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty((B, Sq, Hq, Dv), dtype=q.dtype, device=q.device)
     rc = LIBS.fn(name)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                        out.data_ptr(), B, Sq, Sk, Hq, Hkv, D, Dv, q_offset,
-                       float(scale), _stream())
+                       int(causal), float(scale), _stream())
     _raise_on(rc, name)
     launches.add(name)
     return out

@@ -5,7 +5,11 @@
         [--prefill {layer_segmented,chunked} --chunk 64]
         [--obs] [--trace-out run.trace.json] [--prom]
 
-Random weights from ``--seed`` (bf16 on the GPU, float32 on the CPU).  On
+Random weights from ``--seed`` (bf16 on the GPU, float32 on the CPU).
+The frontend models' requests carry synthesized tensors, float32 from
+the same seed with numpy (``frontend_inputs``): internvl2-2b's
+``patch_embeds`` (1, 256, 2048), whisper-small's ``frames`` (1, 1500,
+768), the stubbed ViT's and conv/mel frontend's outputs.  On
 the GPU (the default device) the engine charges wall-clock time, with the
 device synchronised at every iteration's end, so the TTFT/TBT printed are
 the card's; on the CPU they come from the copied analytic cost model.
@@ -27,6 +31,21 @@ from repro_torch.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.serving.engine import EngineConfig, ServingEngine
 from repro_torch.serving.request import Request
+
+
+def frontend_inputs(cfg, rng: np.random.Generator) -> dict:
+    """One request's frontend tensors for ``cfg``, float32 normals of
+    the embeddings' scale (0.02) with a leading batch axis of 1: the
+    VLM's ``patch_embeds`` (1, num_patches, d), Whisper's ``frames`` (1,
+    encoder_seq_len, d); {} for a decoder-only config."""
+    out = {}
+    if cfg.frontend == "vit_patch_stub":
+        out["patch_embeds"] = (0.02 * rng.standard_normal(
+            (1, cfg.num_patches, cfg.d_model))).astype(np.float32)
+    if cfg.is_encoder_decoder:
+        out["frames"] = (0.02 * rng.standard_normal(
+            (1, cfg.encoder_seq_len, cfg.d_model))).astype(np.float32)
+    return out
 
 
 def main(argv=None) -> int:
@@ -71,7 +90,7 @@ def main(argv=None) -> int:
     for _ in range(args.requests):
         t += rng.exponential(1.0 / args.rate)
         eng.submit(Request(prompt_len=args.prompt, max_new_tokens=args.gen,
-                           arrival_time=t))
+                           arrival_time=t), **frontend_inputs(cfg, rng))
     m = eng.run()
     s = eng.metrics_snapshot()
     where = (f"{torch.cuda.get_device_name(dev)} wall clock"

@@ -1,16 +1,18 @@
 """Attention of the port, GQA and MLA: prefill (causal flash attention,
-the ``flash_prefill`` kernel on the GPU) and the DSA decode stages over
-the paged KV pool.
+the ``flash_prefill`` kernel on the GPU), the DSA decode stages over
+the paged KV pool, and Whisper's cross-attention over the cached encoder
+keys and values (the kernel's non-causal mode).
 
-Counterpart of the GQA and MLA parts of ``repro/models/attention.py``;
-cross-attention and the context-parallel paths are not ported yet.  The
-pool layout is the paper's head-major (H, N, D): ``(B, Hkv, NB, bs, D)``.
-MLA caches one latent head, ``(B, 1, NB, bs, kv_lora_rank + rope)``, with
-no ``"v"`` pool: its decode attends over the latent with the absorbed
-query (the latent is both key and value).  The reference's pools are
-functional values; here the decode stages update the pool and its DSA
-metadata IN PLACE (``_append_to_pool``, ``_update_meta`` and their masked
-forms), and ``gqa_select_step`` returns the same cache dict it was given.
+Counterpart of the GQA, MLA and cross-attention parts of
+``repro/models/attention.py``; the context-parallel paths are not ported
+yet.  The pool layout is the paper's head-major (H, N, D): ``(B, Hkv,
+NB, bs, D)``.  MLA caches one latent head, ``(B, 1, NB, bs,
+kv_lora_rank + rope)``, with no ``"v"`` pool: its decode attends over
+the latent with the absorbed query (the latent is both key and value).
+The reference's pools are functional values; here the decode stages
+update the pool and its DSA metadata IN PLACE (``_append_to_pool``,
+``_update_meta`` and their masked forms), and ``gqa_select_step``
+returns the same cache dict it was given.
 """
 from __future__ import annotations
 
@@ -67,6 +69,39 @@ def gqa_self_attention(p: Dict[str, torch.Tensor], cfg: ModelConfig,
     if return_kv:
         return out, k, v
     return out
+
+
+def cross_attention(p: Dict[str, torch.Tensor], cfg: ModelConfig,
+                    x: torch.Tensor, k_enc: torch.Tensor,
+                    v_enc: torch.Tensor) -> torch.Tensor:
+    """Whisper decoder cross-attention, x (B, S, d) over the projected
+    encoder keys and values k_enc/v_enc (B, S_enc, Hkv, hd), cached once
+    per request: every query sees every encoder position (the
+    ``flash_prefill`` kernel's non-causal mode on the GPU)."""
+    B, S, _ = x.shape
+    Hq, hd = cfg.num_heads, cfg.head_dim
+    q = (x @ p["wq"]).reshape(B, S, Hq, hd)
+    o = ops.flash_prefill(q, k_enc, v_enc, scale=1.0 / hd ** 0.5,
+                          causal=False)
+    return o.reshape(B, S, -1) @ p["wo"]
+
+
+def project_enc_kv(p: Dict[str, torch.Tensor], cfg: ModelConfig,
+                   enc: torch.Tensor):
+    """A decoder layer's cross keys and values of the encoder output enc
+    (B, S_enc, d): (k, v) each (B, S_enc, Hkv, hd)."""
+    B, S, _ = enc.shape
+    Hkv, hd = cfg.num_kv_heads, cfg.head_dim
+    return ((enc @ p["wk"]).reshape(B, S, Hkv, hd),
+            (enc @ p["wv"]).reshape(B, S, Hkv, hd))
+
+
+def cross_decode_step(p: Dict[str, torch.Tensor], cfg: ModelConfig,
+                      x: torch.Tensor, k_enc: torch.Tensor,
+                      v_enc: torch.Tensor) -> torch.Tensor:
+    """Cross-attention of one decode token per row, x (B, d): one query
+    row over the cached encoder keys and values."""
+    return cross_attention(p, cfg, x[:, None, :], k_enc, v_enc)[:, 0]
 
 
 # ---------------------------------------------------------------------------

@@ -234,3 +234,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq_len: int, d_model: int,
+                         device=None) -> torch.Tensor:
+    """(seq_len, d_model) float32 sinusoidal position table: sin on the
+    even columns, cos on the odd ones (the Whisper encoder's)."""
+    pos = torch.arange(seq_len, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d_model, 2, dtype=torch.float32,
+                       device=device)[None, :]
+    angle = pos / torch.pow(torch.tensor(10000.0, device=device),
+                            dim / d_model)
+    out = torch.zeros((seq_len, d_model), dtype=torch.float32, device=device)
+    out[:, 0::2] = torch.sin(angle)
+    out[:, 1::2] = torch.cos(angle)
+    return out

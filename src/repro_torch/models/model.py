@@ -1,24 +1,35 @@
 """Model assembly of the port: the decoder, with GQA or MLA attention
-and a dense or Mixture-of-Experts FFN.
+and a dense or Mixture-of-Experts FFN, the VLM's prefix of patch
+embeddings and Whisper's encoder-decoder.
 
-Counterpart of the dense and MoE subset of ``repro/models/model.py``.
-Parameters are a plain dict of tensors in list mode:
+Counterpart of the dense, MoE, VLM and encoder-decoder subset of
+``repro/models/model.py``.  Parameters are a plain dict of tensors in list
+mode:
 
     {"embed": (V, d), "final_norm": (d,), "lm_head": (d, V),
      "layers": [{"attn_norm", "ffn_norm", "attn": {...}, "ffn": {w_gate,
-                 w_up, w_down}}, ...]}
+                 w_up, w_down}}, ...]
+     [, "encoder": {"layers": [{"attn_norm", "ffn_norm", "attn", "ffn"}],
+                    "final_norm"}]}
 
 with ``attn`` {wq, wk, wv, wo[, bq, bk, bv]} (GQA) or {w_dq, q_norm, w_uq,
 w_dkv, kv_norm, w_kr, w_uk, w_uv, wo} (MLA), and ``moe`` {router, w_gate,
 w_up, w_down[, dense]} in place of ``ffn`` on the layers where
-``cfg.is_moe_layer`` holds (``bridge.params_from_numpy``
-un-stacks the reference's stacked layers into this form).  DecodeState is
-``{"caches": [per-layer pool dict], "cur_len": (B,) int32, "extra": {}}``
-with the pools updated IN PLACE by the decode stages.  A layer's KV, as
+``cfg.is_moe_layer`` holds, and for Whisper ``cross_norm`` and ``cross``
+{wq, wk, wv, wo} on every decoder layer beside the encoder under
+``"encoder"`` (``bridge.params_from_numpy`` un-stacks the reference's
+stacked layers into this form).  DecodeState is ``{"caches": [per-layer
+pool dict], "cur_len": (B,) int32, "extra": {}}``, or for Whisper
+``"extra": {"enc_kvs": [(k, v) per layer, each (B, S_enc, Hkv, hd)]}``,
+the cross keys and values projected once per request; the pools are
+updated IN PLACE by the decode stages.  A layer's KV, as
 prefill returns it, is ``(k, v)`` each (B, S, Hkv, hd), or for MLA
 ``(latent (B, S, 1, kv_lora + rope), None)``: the latent is one head with
-no separate value.  Configs the port does not implement (recurrent
-layers, encoder-decoder, modality frontends) raise
+no separate value.  A VLM request's patch embeddings
+(``inputs["patch_embeds"]`` (B, P, d)) lead its token embeddings, at
+positions 0..P-1; a Whisper request's frames (``inputs["frames"]`` (B,
+S_enc, d), the conv/mel frontend stubbed) run through the bidirectional
+encoder.  Configs the port does not implement (recurrent layers) raise
 ``NotImplementedError`` in ``check_supported``.  Every serving path runs
 the MoE drop-free (``moe_drop_free``), as the reference's does.
 """
@@ -32,20 +43,25 @@ from repro_torch.core import dsa as dsa_mod
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
-from repro_torch.models.common import ModelConfig, dense_init, rms_norm
+from repro_torch.models.common import (ModelConfig, dense_init, rms_norm,
+                                       sinusoidal_positions)
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what this port does not run yet."""
+    family = ((cfg.arch_type in ("dense", "moe") and cfg.frontend == "none"
+               and not cfg.is_encoder_decoder)
+              or (cfg.arch_type == "vlm" and cfg.frontend == "vit_patch_stub"
+                  and not cfg.is_encoder_decoder)
+              or (cfg.is_encoder_decoder
+                  and cfg.frontend == "audio_conv_stub"))
     if (cfg.attention_type not in ("gqa", "mla")
-            or cfg.attn_layer_period > 1
-            or cfg.arch_type not in ("dense", "moe")
-            or cfg.is_encoder_decoder or cfg.frontend != "none"
+            or cfg.attn_layer_period > 1 or not family
             or cfg.tie_embeddings):
         raise NotImplementedError(
             f"{cfg.name}: the port serves GQA and MLA decoders with dense "
-            f"or MoE FFNs only (recurrent, encoder-decoder and frontend "
-            f"models are later work)")
+            f"or MoE FFNs, the VLM patch prefix and the Whisper "
+            f"encoder-decoder (recurrent models are later work)")
 
 
 def layer_kind(cfg: ModelConfig, i: int) -> str:
@@ -98,22 +114,43 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                                     dtype, dev),
                  "wo": dense_init(g, (Hq * m.v_head_dim, d), dtype, dev)}
         else:
-            a = {"wq": dense_init(g, (d, Hq * hd), dtype, dev),
-                 "wk": dense_init(g, (d, Hkv * hd), dtype, dev),
-                 "wv": dense_init(g, (d, Hkv * hd), dtype, dev),
-                 "wo": dense_init(g, (Hq * hd, d), dtype, dev)}
+            a = _init_gqa(cfg, g, dtype, dev)
             if cfg.qkv_bias:
                 a.update(bq=zeros(Hq * hd), bk=zeros(Hkv * hd),
                          bv=zeros(Hkv * hd))
         layer = {"attn_norm": ones(d), "ffn_norm": ones(d), "attn": a}
+        if cfg.is_encoder_decoder:
+            # the reference's init_gqa_params(cross=True): no biases
+            layer["cross_norm"] = ones(d)
+            layer["cross"] = _init_gqa(cfg, g, dtype, dev)
         if cfg.is_moe_layer(i):
             layer["moe"] = ffn_mod.init_moe_params(cfg, g, dtype, dev)
         else:
             layer["ffn"] = ffn_mod.init_ffn_params(cfg, g, dtype, dev)
         layers.append(layer)
-    return {"embed": dense_init(g, (V, d), dtype, dev, scale=0.02),
-            "final_norm": ones(d), "layers": layers,
-            "lm_head": dense_init(g, (d, V), dtype, dev, scale=0.02)}
+    params = {"embed": dense_init(g, (V, d), dtype, dev, scale=0.02),
+              "final_norm": ones(d), "layers": layers,
+              "lm_head": dense_init(g, (d, V), dtype, dev, scale=0.02)}
+    if cfg.is_encoder_decoder:
+        params["encoder"] = {
+            "layers": [{"attn_norm": ones(d), "ffn_norm": ones(d),
+                        "attn": _init_gqa(cfg, g, dtype, dev),
+                        "ffn": ffn_mod.init_ffn_params(cfg, g, dtype, dev)}
+                       for _ in range(cfg.encoder_layers)],
+            "final_norm": ones(d)}
+    return params
+
+
+def _init_gqa(cfg: ModelConfig, g: torch.Generator, dtype, dev) -> Dict:
+    """{wq, wk, wv, wo} of a GQA attention, drawn in that order (the
+    decoder adds its QKV biases where the config has them; Whisper's
+    cross-attention and encoder have none)."""
+    d, Hq, Hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
+        cfg.head_dim
+    return {"wq": dense_init(g, (d, Hq * hd), dtype, dev),
+            "wk": dense_init(g, (d, Hkv * hd), dtype, dev),
+            "wv": dense_init(g, (d, Hkv * hd), dtype, dev),
+            "wo": dense_init(g, (Hq * hd, d), dtype, dev)}
 
 
 # ---------------------------------------------------------------------------
@@ -126,12 +163,15 @@ def _norm(cfg: ModelConfig, w, x):
 
 def layer_forward(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                   positions: torch.Tensor, *, kind: str = "attn",
+                  enc_kv: Optional[Tuple] = None,
                   k_ctx=None, v_ctx=None, q_offset=0,
                   return_kv: bool = False, moe_drop_free: bool = False):
     """One transformer layer over a full sequence.  Returns (x_out,
     layer_kv): (k, v) each (B, S, Hkv, hd), or MLA's (latent (B, S, 1,
     kv_lora + rope), None), when ``return_kv``, else None.  MLA has no
     attention over earlier chunks' context (as in the reference).
+    ``enc_kv``: the layer's cross keys and values (Whisper); without it a
+    decoder layer runs no cross-attention, as in the reference.
     ``moe_drop_free``: the serving prefills set it, so that an MoE's
     capacity cannot drop tokens (the reference's convention)."""
     if kind != "attn":
@@ -150,16 +190,24 @@ def layer_forward(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                                           k_ctx=k_ctx, v_ctx=v_ctx,
                                           q_offset=q_offset, return_kv=True)
     x = x + h
-    return (_layer_epilogue(p, cfg, x, moe_drop_free),
+    return (_layer_epilogue(p, cfg, x, enc_kv, moe_drop_free),
             (k, v) if return_kv else None)
 
 
 def _layer_epilogue(p: Dict, cfg: ModelConfig, x: torch.Tensor,
-                    moe_drop_free: bool) -> torch.Tensor:
-    """The FFN or MoE after a layer's attention, residual included: x
-    (B, S, d) on a full sequence or (B, d) in decode (whose MoE runs on
-    (B, 1, d), always drop-free, so that capacity does not couple the
-    rows of a batched step).  One implementation for every caller."""
+                    enc_kv: Optional[Tuple], moe_drop_free: bool
+                    ) -> torch.Tensor:
+    """What follows a layer's self-attention, residuals included: the
+    cross-attention over ``enc_kv`` (Whisper; skipped without it), then
+    the FFN or MoE.  x (B, S, d) on a full sequence or (B, d) in decode
+    (one query row per request; the MoE on (B, 1, d), always drop-free,
+    so that capacity does not couple the rows of a batched step).  One
+    implementation for every caller."""
+    if enc_kv is not None and "cross" in p:
+        cross = (attn.cross_decode_step if x.dim() == 2
+                 else attn.cross_attention)
+        x = x + cross(p["cross"], cfg, _norm(cfg, p["cross_norm"], x),
+                      *enc_kv)
     h_in = _norm(cfg, p["ffn_norm"], x)
     if "moe" not in p:
         return x + ffn_mod.ffn_apply(p["ffn"], h_in)
@@ -177,10 +225,16 @@ def _layer_epilogue(p: Dict, cfg: ModelConfig, x: torch.Tensor,
 
 def embed_inputs(params: Dict, cfg: ModelConfig, inputs: Dict
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (hidden (B,S,d), positions (B,S))."""
+    """Returns (hidden (B,S,d), positions (B,S)).  A VLM's patch
+    embeddings (B, P, d), cast to the embeddings' dtype, lead the tokens:
+    S = P + the prompt, positions 0..S-1 over both."""
     tokens = inputs["tokens"]
-    B, S = tokens.shape
+    B = tokens.shape[0]
     h = params["embed"][tokens.long()]
+    if cfg.frontend == "vit_patch_stub":
+        patches = inputs["patch_embeds"].to(h.device, h.dtype)
+        h = torch.cat([patches, h], dim=1)
+    S = h.shape[1]
     positions = torch.arange(S, dtype=torch.int32,
                              device=h.device).expand(B, S)
     return h, positions
@@ -188,6 +242,55 @@ def embed_inputs(params: Dict, cfg: ModelConfig, inputs: Dict
 
 def lm_head(params: Dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     return _norm(cfg, params["final_norm"], h) @ params["lm_head"]
+
+
+def whisper_encode(params: Dict, cfg: ModelConfig, frames: torch.Tensor
+                   ) -> torch.Tensor:
+    """The bidirectional encoder over frames (B, S_enc, d), the stubbed
+    conv/mel frontend's output: sinusoidal positions added in the frames'
+    dtype, then the model's dtype (the reference keeps float32 frames in
+    float32, which its promotion carries through the bf16 weights; the
+    port's attention kernel takes bf16), pre-norm layers whose
+    self-attention is non-causal (the ``flash_prefill`` kernel's
+    non-causal mode on the GPU), a final norm."""
+    B, T, d = frames.shape
+    enc = params["encoder"]
+    h = frames + sinusoidal_positions(T, d, frames.device).to(frames.dtype)
+    h = h.to(params["embed"].dtype)
+    positions = torch.arange(T, dtype=torch.int32,
+                             device=h.device).expand(B, T)
+    for p in enc["layers"]:
+        h = h + attn.gqa_self_attention(
+            p["attn"], cfg, rms_norm(h, p["attn_norm"], cfg.norm_eps),
+            positions, causal=False)
+        h = h + ffn_mod.ffn_apply(p["ffn"],
+                                  rms_norm(h, p["ffn_norm"], cfg.norm_eps))
+    return rms_norm(h, enc["final_norm"], cfg.norm_eps)
+
+
+def project_encoder_kv(params: Dict, cfg: ModelConfig,
+                       enc_out: torch.Tensor) -> List[Tuple]:
+    """Every decoder layer's cross keys and values of the encoder output:
+    [(k, v)] per layer, each (B, S_enc, Hkv, hd)."""
+    return [attn.project_enc_kv(p["cross"], cfg, enc_out)
+            for p in params["layers"]]
+
+
+def index_enc_kvs(enc_kvs: Optional[List[Tuple]], i: int
+                  ) -> Optional[Tuple]:
+    """Layer i's (k, v) cross-attention cache, or None."""
+    return None if enc_kvs is None else enc_kvs[i]
+
+
+def encode_inputs(params: Dict, cfg: ModelConfig, inputs: Dict
+                  ) -> Optional[List[Tuple]]:
+    """Whisper's per-layer cross keys and values of ``inputs["frames"]``;
+    None for a decoder-only config."""
+    if not cfg.is_encoder_decoder:
+        return None
+    frames = inputs["frames"].to(params["embed"].device)
+    return project_encoder_kv(params, cfg,
+                              whisper_encode(params, cfg, frames))
 
 
 # ---------------------------------------------------------------------------
@@ -240,16 +343,18 @@ def prefill(params: Dict, cfg: ModelConfig, inputs: Dict, num_blocks: int,
     logits and a list-mode DecodeState whose pools hold the prompt KV."""
     h, positions = embed_inputs(params, cfg, inputs)
     B, S, _ = h.shape
+    enc_kvs = encode_inputs(params, cfg, inputs)
     caches = []
     for i in range(cfg.num_layers):
         h, kv = layer_forward(get_layer(params, i), cfg, h, positions,
+                              enc_kv=index_enc_kvs(enc_kvs, i),
                               return_kv=True)
         caches.append(kv_to_cache(cfg, kv, num_blocks, cache_dtype))
     logits = lm_head(params, cfg, h[:, -1:, :])[:, 0]
     state = {"caches": caches,
              "cur_len": torch.full((B,), S, dtype=torch.int32,
                                    device=h.device),
-             "extra": {}}
+             "extra": {"enc_kvs": enc_kvs} if enc_kvs else {}}
     return logits, state
 
 
@@ -258,9 +363,11 @@ def prefill(params: Dict, cfg: ModelConfig, inputs: Dict, num_blocks: int,
 # ---------------------------------------------------------------------------
 
 def prefill_embed(params: Dict, cfg: ModelConfig, inputs: Dict):
-    """Segment 0 of layer-segmented prefill: the embedding."""
+    """Segment 0 of layer-segmented prefill: the embedding (patches
+    included), and for Whisper the encoder and every layer's cross keys
+    and values.  Returns (h, positions, enc_kvs or None)."""
     h, positions = embed_inputs(params, cfg, inputs)
-    return h, positions, None
+    return h, positions, encode_inputs(params, cfg, inputs)
 
 
 def _init_rec_states(cfg: ModelConfig, batch: int, dtype) -> List:
@@ -271,13 +378,14 @@ def _init_rec_states(cfg: ModelConfig, batch: int, dtype) -> List:
 
 def prefill_layer(params: Dict, cfg: ModelConfig, layer_idx: int,
                   h: torch.Tensor, positions: torch.Tensor, *,
-                  rec_state=None, moe_drop_free: bool = False):
+                  rec_state=None, enc_kv=None, moe_drop_free: bool = False):
     """ONE layer of prefill over the whole prompt (the legacy
     layer-segmented executor).  The caller saves the returned layer KV to
     DRAM and evicts it before layer l+1.  Returns (h, (k, v), new_rec)."""
     h, kv_out = layer_forward(get_layer(params, layer_idx), cfg, h,
                               positions, kind=layer_kind(cfg, layer_idx),
-                              return_kv=True, moe_drop_free=moe_drop_free)
+                              enc_kv=enc_kv, return_kv=True,
+                              moe_drop_free=moe_drop_free)
     return h, kv_out, rec_state
 
 
@@ -291,16 +399,18 @@ def prefill_attn_layer_batched(p: Dict, cfg: ModelConfig, h: torch.Tensor,
                                positions: torch.Tensor,
                                token_mask: torch.Tensor,
                                step_mask: torch.Tensor, *,
-                               k_ctx=None, v_ctx=None, q_offset=0):
+                               k_ctx=None, v_ctx=None, q_offset=0,
+                               enc_kv=None):
     """One attention layer over a padded batch of same-layer segments.
 
     h (B, T, d): the rows' residual stream over the segment's token window;
-    positions (B, T); k_ctx/v_ctx: earlier chunks of the same layer.
+    positions (B, T); k_ctx/v_ctx: earlier chunks of the same layer;
+    enc_kv: every row's cross keys and values (Whisper).
     Masked lanes (padding, unscheduled rows) keep their incoming residual;
     an MoE runs drop-free.  Returns (h_out, layer_kv) as ``layer_forward``
     gives it."""
-    x, kv_out = layer_forward(p, cfg, h, positions, k_ctx=k_ctx,
-                              v_ctx=v_ctx, q_offset=q_offset,
+    x, kv_out = layer_forward(p, cfg, h, positions, enc_kv=enc_kv,
+                              k_ctx=k_ctx, v_ctx=v_ctx, q_offset=q_offset,
                               return_kv=True, moe_drop_free=True)
     keep = token_mask[..., None] & step_mask[:, None, None]
     return torch.where(keep, x, h), kv_out
@@ -339,14 +449,15 @@ def decode_select_layer(p: Dict, cfg: ModelConfig, x: torch.Tensor, cache,
 
 def decode_attend_layer(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                         q: torch.Tensor, cache, cur_len: torch.Tensor,
-                        idx, valid) -> torch.Tensor:
+                        idx, valid, enc_kv=None) -> torch.Tensor:
     """Compute stage of one attention layer: block-sparse attention over
-    the (possibly restored) pool + residual + FFN or MoE (drop-free).
-    Reads ``cache`` only."""
+    the (possibly restored) pool + residual + cross-attention over
+    ``enc_kv`` (Whisper) + FFN or MoE (drop-free).  Reads ``cache``
+    only."""
     attend = (attn.mla_attend_step if cfg.attention_type == "mla"
               else attn.gqa_attend_step)
     x = x + attend(p["attn"], cfg, q, cache, cur_len, idx, valid)
-    return _layer_epilogue(p, cfg, x, moe_drop_free=True)
+    return _layer_epilogue(p, cfg, x, enc_kv, moe_drop_free=True)
 
 
 def decode_logits(params: Dict, cfg: ModelConfig, x: torch.Tensor,
@@ -364,14 +475,33 @@ def decode_logits(params: Dict, cfg: ModelConfig, x: torch.Tensor,
 # Batched multi-request decode: padded-batch stack / unstack
 # ---------------------------------------------------------------------------
 
+def map_extra(fn, *trees):
+    """``fn`` over the tensors of DecodeState ``extra`` trees of one
+    structure (dicts, lists and tuples of tensors), leaf by leaf."""
+    t0 = trees[0]
+    if isinstance(t0, dict):
+        return {k: map_extra(fn, *(t[k] for t in trees)) for k in t0}
+    if isinstance(t0, (list, tuple)):
+        return type(t0)(map_extra(fn, *xs) for xs in zip(*trees))
+    return fn(*trees)
+
+
+def extra_leaves(tree) -> List[torch.Tensor]:
+    """The tensors of an ``extra`` tree, in order."""
+    out: List[torch.Tensor] = []
+    map_extra(out.append, tree)
+    return out
+
 def stack_decode_states(states: List[Dict]
                         ) -> Tuple[Dict, List[Tuple[int, List[int]]]]:
     """Stack per-request list-mode DecodeStates into ONE padded batch
     state: every layer's pools padded along the block axis to the batch's
     largest block count (``attention.pad_pool_cache``) and concatenated
-    along batch (new tensors).  Returns (batched_state, layout), the layout
-    each input's (batch size, per-layer block counts) for
-    ``unstack_decode_states``."""
+    along batch (new tensors), and the ``extra`` tensors (Whisper's
+    enc_kvs) concatenated along batch, so the states must agree in their
+    shapes but for batch (the engine groups them so).  Returns
+    (batched_state, layout), the layout each input's (batch size,
+    per-layer block counts) for ``unstack_decode_states``."""
     if not states:
         raise ValueError("stack_decode_states: empty batch")
     L = len(states[0]["caches"])
@@ -387,7 +517,9 @@ def stack_decode_states(states: List[Dict]
                        for key in parts[0]})
     return {"caches": caches,
             "cur_len": torch.cat([s["cur_len"] for s in states], dim=0),
-            "extra": {}}, layout
+            "extra": (map_extra(lambda *xs: torch.cat(xs, dim=0),
+                                *[s["extra"] for s in states])
+                      if states[0]["extra"] else {})}, layout
 
 
 def unstack_decode_states(state: Dict,
@@ -405,7 +537,9 @@ def unstack_decode_states(state: Dict,
                                          for key, arr in c.items()}, nbs[l])
             caches.append({key: arr.clone() for key, arr in own.items()})
         out.append({"caches": caches,
-                    "cur_len": state["cur_len"][sl].clone(), "extra": {}})
+                    "cur_len": state["cur_len"][sl].clone(),
+                    "extra": map_extra(lambda x: x[sl].clone(),
+                                       state["extra"])})
         row += B
     return out
 
@@ -417,6 +551,7 @@ def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     pools IN PLACE and returns (logits, state[, {"selected": {layer: idx}}])
     with ``state["cur_len"]`` advanced (a new tensor)."""
     cur_len = state["cur_len"]
+    enc_kvs = state["extra"].get("enc_kvs")
     x = decode_embed(params, cfg, tokens)
     info: Dict[str, Any] = {"selected": {}}
     for i in range(cfg.num_layers):
@@ -425,7 +560,8 @@ def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
             p, cfg, x, state["caches"][i], cur_len, step_mask=step_mask)
         if idx is not None:
             info["selected"][i] = idx
-        x = decode_attend_layer(p, cfg, x, q, cache, cur_len, idx, valid)
+        x = decode_attend_layer(p, cfg, x, q, cache, cur_len, idx, valid,
+                                enc_kv=index_enc_kvs(enc_kvs, i))
     logits, new_len = decode_logits(params, cfg, x, cur_len, step_mask)
     new_state = {"caches": state["caches"], "cur_len": new_len,
                  "extra": state["extra"]}

@@ -2,7 +2,8 @@
 dynamic sparse attention decode over a hierarchical HBM/DRAM KV cache.
 
 Counterpart of ``repro/serving/engine.py`` for dense GQA and MLA
-decoders on one device.  By default every iteration is ONE mixed layer walk
+decoders, the VLM's patch prefix and Whisper's encoder-decoder on one
+device.  By default every iteration is ONE mixed layer walk
 (``core.hybrid_plane``) carrying the staged decode plane's rows (select ->
 host stage -> attend per layer) and the batched layer-segmented prefill
 plane's segments, with one host stage per attention layer:
@@ -37,6 +38,17 @@ baseline, as the reference does: the latent cache has no chunked-context
 attention.  Their host pools hold the one latent head (see
 ``core.kv_cache.KVGeometry.stored_heads``) while the geometry and every
 transfer counter keep the reference's ``max(num_kv_heads, 1)`` heads.
+
+Frontend models take their tensors at ``submit`` (``patch_embeds`` for
+the VLM, whose patches count into the request's host pool; ``frames``
+for Whisper).  Their requests are embedded one at a time (the encoder
+runs there) while pure-text admissions share one batched embed.  As in
+the reference, prefill planes are keyed by the shapes of a request's
+encoder KV and decode planes by the shapes of its decode state's
+``extra``: Whisper requests of unequal encoder lengths ride separate
+planes, all in one mixed walk.  The chunked baseline keeps the
+reference's behaviour for frontend models: it embeds the prompt tokens
+only and runs no cross-attention.
 
 Iteration latency is charged from the copied analytic cost model unless
 ``charge_real_time`` is set (the GPU launcher sets it, and then TTFT/TBT
@@ -209,6 +221,9 @@ class _ReqState:
     last_logits: Optional[torch.Tensor] = None      # (1, V) on the host
     out_tokens: List[int] = dataclasses.field(default_factory=list)
     num_blocks: int = 0
+    inputs_extra: Dict[str, Any] = dataclasses.field(
+        default_factory=dict)                       # frames / patch_embeds
+    group_key: Optional[Tuple] = None               # its decode plane's key
 
 
 class ServingEngine:
@@ -270,15 +285,16 @@ class ServingEngine:
         self.stack_calls = 0          # full-pool stack/unstack round trips
         self.prefill_launches = 0
         self.admit_embed_launches = 0
-        self.plane = DevicePoolPlane(cfg, eng.bucketing)
-        self._plane_used = False      # the reference makes its plane at
-                                      # the first device-plane decode
-        self.prefill_plane = PrefillPlane(cfg, eng.bucketing)
+        # decode planes keyed by _decode_group_key, prefill planes by
+        # _prefill_group_key, each made at its group's first use
+        self.planes: Dict[Tuple, DevicePoolPlane] = {}
+        self.prefill_planes: Dict[Tuple, PrefillPlane] = {}
+        self._req_plane: Dict[str, DevicePoolPlane] = {}
+        self._req_prefill_plane: Dict[str, PrefillPlane] = {}
         self.hybrid = (HybridPlane(cfg) if eng.hybrid_plane == "mixed"
                        else None)
-        for obj in (self.plane, self.prefill_plane, self.hybrid):
-            if obj is not None:
-                obj.tracer = self.tracer
+        if self.hybrid is not None:
+            self.hybrid.tracer = self.tracer
         self._stage_async = eng.stage_dispatch == "async"
         self._worker: Optional[HostStageWorker] = None
         self.worker_jobs_run = 0
@@ -312,20 +328,55 @@ class ServingEngine:
     # ------------------------------------------------------------------
     # Request intake
     # ------------------------------------------------------------------
-    def submit(self, req: Request, tokens: Optional[np.ndarray] = None
-               ) -> None:
+    @property
+    def plane(self) -> DevicePoolPlane:
+        """The decode plane of the group without encoder KV (key ()),
+        which holds every request of a decoder-only model."""
+        return self._decode_plane(())
+
+    @property
+    def prefill_plane(self) -> PrefillPlane:
+        """The prefill plane of the group without encoder KV."""
+        return self._prefill_plane(())
+
+    def _decode_plane(self, key: Tuple) -> DevicePoolPlane:
+        """The decode plane of group ``key``, made at its first use."""
+        plane = self.planes.get(key)
+        if plane is None:
+            plane = self.planes[key] = DevicePoolPlane(self.cfg,
+                                                       self.eng.bucketing)
+            plane.tracer = self.tracer
+        return plane
+
+    def _prefill_plane(self, key: Tuple) -> PrefillPlane:
+        """The prefill plane of group ``key``, made at its first use."""
+        plane = self.prefill_planes.get(key)
+        if plane is None:
+            plane = self.prefill_planes[key] = PrefillPlane(
+                self.cfg, self.eng.bucketing)
+            plane.tracer = self.tracer
+        return plane
+
+    def submit(self, req: Request, tokens: Optional[np.ndarray] = None,
+               **inputs_extra) -> None:
         """Register a request (it joins the scheduler queue at
         ``req.arrival_time``, engine-clock seconds).  ``tokens``: prompt
         ids of length ``req.prompt_len`` (drawn at random when omitted).
-        The host pool is sized for ``prompt_len + max_new_tokens``."""
+        ``inputs_extra``: the frontend tensors (``frames`` for Whisper,
+        ``patch_embeds`` for the VLM), host arrays with a leading batch
+        axis of 1.  The host pool is sized for ``prompt_len +
+        max_new_tokens`` (+ the VLM's patches)."""
         if tokens is None:
             tokens = self.rng.integers(
                 4, self.cfg.vocab_size, size=req.prompt_len).astype(np.int32)
         if len(tokens) != req.prompt_len:
             raise ValueError(f"{req.req_id}: {len(tokens)} tokens for "
                              f"prompt_len {req.prompt_len}")
-        st = _ReqState(req=req, tokens=np.asarray(tokens, np.int32))
+        st = _ReqState(req=req, tokens=np.asarray(tokens, np.int32),
+                       inputs_extra=dict(inputs_extra))
         total = req.prompt_len + req.max_new_tokens
+        if self.cfg.frontend == "vit_patch_stub":
+            total += self.cfg.num_patches
         st.num_blocks = -(-total // self.cfg.dsa.block_size) + 1
         self.states[req.req_id] = st
         self._pending.append(req)
@@ -342,6 +393,14 @@ class ServingEngine:
     # ------------------------------------------------------------------
     # Prefill: the legacy executor and the chunked baseline
     # ------------------------------------------------------------------
+    def _model_inputs(self, st: _ReqState) -> Dict[str, torch.Tensor]:
+        """The request's prompt (1, S) and frontend tensors on the
+        engine's device."""
+        d = {"tokens": host_to_device(st.tokens[None, :], self.device)}
+        d.update({k: host_to_device(v, self.device, torch.float32)
+                  for k, v in st.inputs_extra.items()})
+        return d
+
     def _kv_to_layer_cache(self, st: _ReqState, kv_out: Tuple) -> Dict:
         return M.kv_to_cache(self.cfg, kv_out, st.num_blocks, self.kv_dtype)
 
@@ -360,16 +419,16 @@ class ServingEngine:
 
     def _start_layer_segmented(self, st: _ReqState,
                                tokens_per_step: int) -> None:
-        toks = host_to_device(st.tokens[None, :], self.device)
-        h, positions, _ = M.prefill_embed(self.params, self.cfg,
-                                          {"tokens": toks})
+        h, positions, enc_kvs = M.prefill_embed(self.params, self.cfg,
+                                                self._model_inputs(st))
         segs = plan_segments(st.req.prompt_len, self.cfg.num_layers,
                              tokens_per_step)
         st.lp = LayerPrefillState(
-            segments=segs, hidden=h, positions=positions,
+            segments=segs, hidden=h, positions=positions, enc_kvs=enc_kvs,
             rec_states=M._init_rec_states(self.cfg, 1, h.dtype))
         st.decode_state = {"caches": [None] * self.cfg.num_layers,
-                           "cur_len": None, "extra": {}}
+                           "cur_len": None,
+                           "extra": {"enc_kvs": enc_kvs} if enc_kvs else {}}
 
     def _run_layer_segment(self, st: _ReqState) -> bool:
         """The legacy executor: the request's next whole layer, its KV
@@ -380,7 +439,8 @@ class ServingEngine:
         l = seg.layer
         h, kv_out, new_rec = M.prefill_layer(
             self.params, self.cfg, l, st.lp.hidden, st.lp.positions,
-            rec_state=st.lp.rec_states[l], moe_drop_free=True)
+            rec_state=st.lp.rec_states[l],
+            enc_kv=M.index_enc_kvs(st.lp.enc_kvs, l), moe_drop_free=True)
         st.lp.hidden = h
         st.lp.rec_states[l] = new_rec
         rid = st.req.req_id
@@ -406,8 +466,10 @@ class ServingEngine:
         ALL layers, each layer attending to its dense KV of the earlier
         chunks (``flash_prefill`` with the context and ``q_offset`` on the
         GPU).  At the last chunk the pools are built and the prompt KV is
-        saved to DRAM, one contiguous save per layer and one flush.
-        Returns True when the prefill is done."""
+        saved to DRAM, one contiguous save per layer and one flush.  As in
+        the reference, a frontend model's chunks embed the prompt tokens
+        only (no patches) and run no cross-attention.  Returns True when
+        the prefill is done."""
         cfg = self.cfg
         r = st.req
         start = r.prefill_tokens_done
@@ -454,46 +516,81 @@ class ServingEngine:
     # ------------------------------------------------------------------
     def _batched_admit_embed(self, sts: List[_ReqState]
                              ) -> Dict[str, torch.Tensor]:
-        """{req_id: h (1, S, d)} for an admission batch, embedded in ONE
-        bucketed launch."""
-        if not sts:
+        """{req_id: h (1, S, d)} for an admission batch's pure-text rows,
+        embedded in ONE bucketed launch.  Requests with frontend tensors
+        (Whisper's frames, the VLM's patches) take the per-request
+        ``prefill_embed`` in ``_admit_prefill_plane``."""
+        cfg = self.cfg
+        text = [st for st in sts
+                if not st.inputs_extra and cfg.frontend == "none"
+                and not cfg.is_encoder_decoder]
+        if not text:
             return {}
         pol = self.eng.bucketing
-        n_cap = pol.bucket_batch(len(sts))
-        s_cap = pol.bucket_tokens(max(len(st.tokens) for st in sts))
+        n_cap = pol.bucket_batch(len(text))
+        s_cap = pol.bucket_tokens(max(len(st.tokens) for st in text))
         toks = np.zeros((n_cap, s_cap), np.int32)
-        for i, st in enumerate(sts):
+        for i, st in enumerate(text):
             toks[i, :len(st.tokens)] = st.tokens
         h_all = admit_embed(self.params, host_to_device(toks, self.device))
         self.admit_embed_launches += 1
         return {st.req.req_id: h_all[i:i + 1, :len(st.tokens)]
-                for i, st in enumerate(sts)}
+                for i, st in enumerate(text)}
 
-    def _admit_prefill_plane(self, prefill_reqs) -> Dict[str, int]:
-        """Admit the plan's new prefill requests into prefill plane rows
-        (one batched embed; each row's (layer, chunk) segments planned)
-        and grant every scheduled row its token budget.  Returns the
-        allowance {req_id: tokens}."""
-        pplane = self.prefill_plane
+    @staticmethod
+    def _prefill_group_key(enc_kvs: Optional[List[Tuple]]) -> Tuple:
+        """Requests share a prefill plane when their encoder KV shapes
+        agree (the decode planes' grouping, at admission)."""
+        if not enc_kvs:
+            return ()
+        return tuple((tuple(a.shape[1:]), str(a.dtype))
+                     for kv in enc_kvs for a in kv)
+
+    def _admit_prefill_plane(self, st: _ReqState,
+                             h: Optional[torch.Tensor]) -> PrefillPlane:
+        """Plan the request's (layer, chunk) segments and admit it into its
+        group's prefill plane.  ``h``: its row of the admission batch's
+        embed; None embeds it alone (``prefill_embed``: the patches, or
+        the encoder and every layer's cross keys and values)."""
+        cfg = self.cfg
+        enc_kvs = None
+        if h is None:
+            h, _, enc_kvs = M.prefill_embed(self.params, cfg,
+                                            self._model_inputs(st))
+        S = int(h.shape[1])                     # prompt (+ patches)
+        plane = self._prefill_plane(self._prefill_group_key(enc_kvs))
+        plane.admit(st.req.req_id, h,
+                    plan_segments(S, cfg.num_layers, self._seg_tokens or S),
+                    enc_kvs)
+        self._req_prefill_plane[st.req.req_id] = plane
+        st.decode_state = {"caches": [None] * cfg.num_layers,
+                           "cur_len": None,
+                           "extra": {"enc_kvs": enc_kvs} if enc_kvs else {}}
+        return plane
+
+    def _admit_prefill_planes(self, prefill_reqs
+                              ) -> Dict[int, Tuple[PrefillPlane,
+                                                   Dict[str, int]]]:
+        """Admit the plan's new prefill requests into their planes' rows
+        (one batched embed for the pure-text ones) and grant every
+        scheduled row its token budget.  Returns {id(plane): (plane,
+        {req_id: tokens})} in the plan's order."""
         pre_h = self._batched_admit_embed(
             [self.states[req.req_id] for req, _ in prefill_reqs
-             if req.req_id not in pplane.rows])
-        allow: Dict[str, int] = {}
+             if req.req_id not in self._req_prefill_plane])
+        by_plane: Dict[int, Tuple[PrefillPlane, Dict[str, int]]] = {}
         for req, inject in prefill_reqs:
             st = self.states[req.req_id]
             if req.scheduled_time is None:
                 req.scheduled_time = self.now
-            if req.req_id not in pplane.rows:
-                h = pre_h[req.req_id]
-                S = int(h.shape[1])
-                step = self._seg_tokens or S
-                pplane.admit(req.req_id, h,
-                             plan_segments(S, self.cfg.num_layers, step))
-                st.decode_state = {"caches": [None] * self.cfg.num_layers,
-                                   "cur_len": None, "extra": {}}
+            plane = self._req_prefill_plane.get(req.req_id)
+            if plane is None:
+                plane = self._admit_prefill_plane(st,
+                                                  pre_h.get(req.req_id))
             st.prefill_carry += max(int(inject), 1)
+            _, allow = by_plane.setdefault(id(plane), (plane, {}))
             allow[req.req_id] = st.prefill_carry
-        return allow
+        return by_plane
 
     def _group_prefill_time(self, g) -> float:
         return cm.batched_prefill_time(
@@ -501,11 +598,10 @@ class ServingEngine:
             [(g.segs[rid].chunk_len, g.chunk_start + g.segs[rid].chunk_len)
              for rid in g.req_ids], layers=1)
 
-    def _end_of_layer(self, g) -> None:
+    def _end_of_layer(self, pp: PrefillPlane, g) -> None:
         """A group's rows that finished their layer: build the decode pool
         from the plane's one-layer context, then evict the layer from HBM
         (the one-layer bound)."""
-        pp = self.prefill_plane
         for rid in g.req_ids:
             if not g.segs[rid].is_last_chunk_of_layer:
                 continue
@@ -516,15 +612,16 @@ class ServingEngine:
             if cache is not None:
                 cache.drop_layer(g.layer)
 
-    def _prefill_epilogue(self, pres: PrefillIterationResult,
+    def _prefill_epilogue(self, pp: PrefillPlane,
+                          pres: PrefillIterationResult,
                           allow: Dict[str, int], spent: Dict[str, int],
                           done: List[Request]) -> int:
-        """After a prefill-plane iteration: carry the unspent budgets,
-        mirror the row cursors into the scheduler's pacing state, take the
-        finished rows' logits and release them (appended to ``done``).
-        Returns the iteration's HBM footprint in token-layer units."""
+        """After an iteration of prefill plane ``pp``: carry the unspent
+        budgets, mirror the row cursors into the scheduler's pacing state,
+        take the finished rows' logits and release them (appended to
+        ``done``).  Returns the plane's HBM footprint in token-layer
+        units."""
         L = self.cfg.num_layers
-        pp = self.prefill_plane
         fp = 0
         for rid in allow:
             st_r = self.states[rid]
@@ -550,52 +647,54 @@ class ServingEngine:
             st_r.req.prefill_layer = L
             st_r.req.prefill_layer_tokens_done = 0
             pp.release(rid)
+            self._req_prefill_plane.pop(rid, None)
             done.append(st_r.req)
         return fp
 
-    def _idle_prefill_footprint(self) -> int:
-        """Token-layers held by prefill-plane rows parked mid-layer (no
-        scheduled prefill this iteration)."""
-        pp = self.prefill_plane
+    def _idle_prefill_footprint(self, by_plane: Dict[int, Any]) -> int:
+        """Token-layers held by the rows of the prefill planes with no
+        scheduled prefill this iteration (not in ``by_plane``), parked
+        mid-layer."""
         return sum(hbm_footprint_tokens(pp.tok_len[rid], "layer_segmented",
                                         self.cfg.num_layers,
                                         layer_tokens_resident=resident)
+                   for pp in self.prefill_planes.values()
+                   if id(pp) not in by_plane
                    for rid, resident in pp.resident_tokens().items())
 
     def _prefill_plane_iteration(self, prefill_reqs
                                  ) -> Tuple[float, List[Request], int]:
-        """The split path's prefill: one prefill-plane iteration
-        (``PrefillPlane.run_iteration``).  Per (layer, chunk) group: one
-        batched launch, ONE fused FlashD2H save of the group's stripes and
-        the pools' flush (in the int8 tier one ``quant_save_blocks``
-        call), then the end-of-layer pool builds and layer evictions.
-        Returns (modelled seconds, finished requests, HBM footprint in
-        token-layer units)."""
+        """The split path's prefill: one iteration of each prefill plane
+        with scheduled rows (``PrefillPlane.run_iteration``).  Per (layer,
+        chunk) group: one batched launch, ONE fused FlashD2H save of the
+        group's stripes and the pools' flush (in the int8 tier one
+        ``quant_save_blocks`` call), then the end-of-layer pool builds and
+        layer evictions.  Returns (modelled seconds, finished requests,
+        HBM footprint in token-layer units)."""
         done: List[Request] = []
-        allow = self._admit_prefill_plane(prefill_reqs)
-        if not allow:
-            return 0.0, done, self._idle_prefill_footprint()
-        pp = self.prefill_plane
-        spent: Dict[str, int] = {}
+        by_plane = self._admit_prefill_planes(prefill_reqs)
         t = [0.0]
+        fp = 0
+        for pp, allow in by_plane.values():
+            spent: Dict[str, int] = {}
 
-        def group_cb(g) -> None:
-            # runs while the plane's one-layer context still holds the
-            # group's layer
-            t[0] += self._group_prefill_time(g)
-            self.prefill_launches += 1
-            for rid in g.req_ids:
-                spent[rid] = spent.get(rid, 0) + g.segs[rid].chunk_len
-            kv_by_req = pp.read_group_kv(g, self.kv_mgr.ship)
-            self.kv_mgr.save_new_tokens_fused(g.layer, {
-                rid: (g.chunk_start, k, v)
-                for rid, (k, v) in kv_by_req.items()})
-            self.kv_mgr.flush_fused(g.layer, list(g.req_ids))
-            self._end_of_layer(g)
+            def group_cb(g, pp=pp, spent=spent) -> None:
+                # runs while the plane's one-layer context still holds
+                # the group's layer
+                t[0] += self._group_prefill_time(g)
+                self.prefill_launches += 1
+                for rid in g.req_ids:
+                    spent[rid] = spent.get(rid, 0) + g.segs[rid].chunk_len
+                kv_by_req = pp.read_group_kv(g, self.kv_mgr.ship)
+                self.kv_mgr.save_new_tokens_fused(g.layer, {
+                    rid: (g.chunk_start, k, v)
+                    for rid, (k, v) in kv_by_req.items()})
+                self.kv_mgr.flush_fused(g.layer, list(g.req_ids))
+                self._end_of_layer(pp, g)
 
-        res = pp.run_iteration(self.params, allow, group_cb)
-        fp = self._prefill_epilogue(res, allow, spent, done)
-        return t[0], done, fp
+            res = pp.run_iteration(self.params, allow, group_cb)
+            fp += self._prefill_epilogue(pp, res, allow, spent, done)
+        return t[0], done, fp + self._idle_prefill_footprint(by_plane)
 
     # ------------------------------------------------------------------
     # Mixed iteration (hybrid plane)
@@ -613,21 +712,23 @@ class ServingEngine:
         done: List[Request] = []
         prefill_by_layer = [0.0] * L
         spent: Dict[str, int] = {}
-        pplane = self.prefill_plane
 
-        allow = self._admit_prefill_plane(plan.prefill_reqs)
-        prefill_jobs = [PrefillJob(pplane, allow)] if allow else []
+        by_plane = self._admit_prefill_planes(plan.prefill_reqs)
+        prefill_jobs = [PrefillJob(pp, allow)
+                        for pp, allow in by_plane.values()]
 
-        # decode job: the plane admits new rows and takes their state
-        decode_sts = [self.states[req.req_id] for req in plan.decode_reqs]
+        # decode jobs, one per group: each plane admits its new rows and
+        # takes their state
+        decode_sts: List[List[_ReqState]] = []
         decode_jobs: List[DecodeJob] = []
         pending_evict: Dict[str, set] = {}
         sel_pairs: Dict[str, List[Tuple[int, int]]] = {}
-        if decode_sts:
-            decode_jobs.append(DecodeJob(self._plane_for(decode_sts), {
-                st.req.req_id: st.out_tokens[-1] for st in decode_sts}))
-            pending_evict = {st.req.req_id: set() for st in decode_sts}
-            sel_pairs = {st.req.req_id: [] for st in decode_sts}
+        for key, sts in self._decode_groups(plan.decode_reqs).items():
+            decode_jobs.append(DecodeJob(self._plane_for(key, sts), {
+                st.req.req_id: st.out_tokens[-1] for st in sts}))
+            decode_sts.append(sts)
+            pending_evict.update({st.req.req_id: set() for st in sts})
+            sel_pairs.update({st.req.req_id: [] for st in sts})
         entry: Dict[str, Any] = {
             "layers": {}, "decode_planes": len(decode_jobs),
             "decode_rows": len(plan.decode_reqs),
@@ -672,8 +773,8 @@ class ServingEngine:
                  for d, sel in win.selections if sel is not None],
                 pending_evict, sel_pairs))
             # 4. prefill end-of-layer: decode pool builds + HBM layer evict
-            for _, g in win.groups:
-                self._end_of_layer(g)
+            for pp, g in win.groups:
+                self._end_of_layer(pp, g)
 
         res = self.hybrid.run_iteration(self.params, decode_jobs,
                                         prefill_jobs, layer_cb)
@@ -683,19 +784,21 @@ class ServingEngine:
             worker.drain()
 
         # decode epilogue
-        for (dplane, logits, _info, _prev) in res.decode:
-            self._decode_epilogue(dplane, decode_sts, logits, pending_evict,
+        for (dplane, logits, _info, _prev), sts in zip(res.decode,
+                                                      decode_sts):
+            self._decode_epilogue(dplane, sts, logits, pending_evict,
                                   sel_pairs)
 
         # prefill epilogue
         fp = 0
-        for _, pres in res.prefill:
+        for pp, pres in res.prefill:
             entry["groups"] += len(pres.groups)
             entry["finalize"] += 1 if pres.finished else 0
-            fp += self._prefill_epilogue(pres, allow, spent, done)
-        if not allow:
-            # rows parked mid-layer still hold their chunk residency
-            fp += self._idle_prefill_footprint()
+            fp += self._prefill_epilogue(pp, pres, by_plane[id(pp)][1],
+                                         spent, done)
+        # the rows of planes with nothing scheduled still hold their
+        # chunk residency
+        fp += self._idle_prefill_footprint(by_plane)
         self.mixed_iter_log.append(entry)
         return done, fp, prefill_by_layer
 
@@ -820,17 +923,38 @@ class ServingEngine:
     # ------------------------------------------------------------------
     # Decode
     # ------------------------------------------------------------------
-    def _plane_for(self, sts: List[_ReqState]) -> DevicePoolPlane:
-        """Admit any of ``sts`` not yet resident into the decode plane — the
-        only full-pool copy in a request's decode lifetime; the plane owns
-        the state afterwards.  (Dense models need one plane: the reference
-        groups planes by encoder-KV shapes, which they do not have.)"""
-        self._plane_used = True
+    @staticmethod
+    def _decode_group_key(st: _ReqState) -> Tuple:
+        """Requests batch together when their decode state's ``extra``
+        agrees in every shape but batch (Whisper's encoder length); pool
+        block counts may differ (padded to the plane's)."""
+        return tuple((tuple(x.shape[1:]), str(x.dtype)) for x in
+                     M.extra_leaves(st.decode_state.get("extra") or {}))
+
+    def _decode_groups(self, decode_reqs: List[Request]
+                       ) -> Dict[Tuple, List[_ReqState]]:
+        """The plan's decode requests by group key, in plan order."""
+        groups: Dict[Tuple, List[_ReqState]] = {}
+        for req in decode_reqs:
+            st = self.states[req.req_id]
+            if st.group_key is None:
+                st.group_key = self._decode_group_key(st)
+            groups.setdefault(st.group_key, []).append(st)
+        return groups
+
+    def _plane_for(self, key: Tuple, sts: List[_ReqState]
+                   ) -> DevicePoolPlane:
+        """Admit any of ``sts`` not yet resident into the decode plane of
+        group ``key`` — the only full-pool copy in a request's decode
+        lifetime; the plane owns the state afterwards."""
+        plane = self._decode_plane(key)
         for st in sts:
-            if st.req.req_id not in self.plane.rows:
-                self.plane.admit(st.req.req_id, st.decode_state)
+            rid = st.req.req_id
+            if rid not in plane.rows:
+                plane.admit(rid, st.decode_state)
                 st.decode_state = None
-        return self.plane
+                self._req_plane[rid] = plane
+        return plane
 
     def _sample(self, st: _ReqState) -> int:
         logits = st.last_logits.numpy()[0]
@@ -872,13 +996,14 @@ class ServingEngine:
                 self.scheduler.observe_selection(st.req,
                                                  sel_pairs[st.req.req_id])
 
-    def _decode_batch_staged(self, sts: List[_ReqState]) -> None:
+    def _decode_batch_staged(self, key: Tuple, sts: List[_ReqState]
+                             ) -> None:
         """The split path's decode: the staged per-layer pipeline over the
         device plane (``DevicePoolPlane.step_staged``); between a layer's
         select and attend the stage callback saves the layer's new KV (one
         fused FlashD2H, on the worker in async mode) and runs the decode
         host stage (``_stage_decode_layer``)."""
-        plane = self._plane_for(sts)
+        plane = self._plane_for(key, sts)
         tok_by_req = {st.req.req_id: st.out_tokens[-1] for st in sts}
         req_ids = list(tok_by_req)
         sel_pairs: Dict[str, List[Tuple[int, int]]] = \
@@ -908,13 +1033,14 @@ class ServingEngine:
             worker.drain()
         self._decode_epilogue(plane, sts, logits, pending_evict, sel_pairs)
 
-    def _decode_batch_persistent(self, sts: List[_ReqState]) -> int:
+    def _decode_batch_persistent(self, key: Tuple,
+                                 sts: List[_ReqState]) -> int:
         """The fused plane: ONE forward over the device plane's padded
         rows (``DevicePoolPlane.step``), then the write-back of the step's
         KV (one fused FlashD2H per layer), the selections' restores,
         which land in the device slots AFTER the forward that selected
         them, and the staged plane's epilogue.  Returns blocks loaded."""
-        plane = self._plane_for(sts)
+        plane = self._plane_for(key, sts)
         tok_by_req = {st.req.req_id: st.out_tokens[-1] for st in sts}
         logits, info, prev = plane.step(self.params, tok_by_req)
         if self.eng.decode_write_back:
@@ -1175,12 +1301,16 @@ class ServingEngine:
         elif not self.eng.batched_decode:
             for st in decode_sts:
                 iter_loads += self._decode_one(st)
-        elif self.eng.decode_plane == "staged":
-            self._decode_batch_staged(decode_sts)
-        elif self.eng.decode_plane == "persistent":
-            iter_loads += self._decode_batch_persistent(decode_sts)
         else:
-            iter_loads += self._decode_batch(decode_sts)
+            # one batched forward per group (several only where the
+            # requests' extra shapes differ: Whisper's encoder lengths)
+            for key, sts in self._decode_groups(plan.decode_reqs).items():
+                if self.eng.decode_plane == "staged":
+                    self._decode_batch_staged(key, sts)
+                elif self.eng.decode_plane == "persistent":
+                    iter_loads += self._decode_batch_persistent(key, sts)
+                else:
+                    iter_loads += self._decode_batch(sts)
         for req in plan.decode_reqs:
             req.generated += 1
             req.token_times.append(self.now)
@@ -1188,8 +1318,9 @@ class ServingEngine:
                 req.finish_time = self.now
                 self.scheduler.finish_request(req)
                 self.kv_mgr.release(req.req_id)
-                if req.req_id in self.plane.rows:
-                    self.plane.release(req.req_id)
+                plane = self._req_plane.pop(req.req_id, None)
+                if plane is not None:
+                    plane.release(req.req_id)
 
         if self.eng.charge_real_time:
             if self.device.type == "cuda":
@@ -1270,9 +1401,10 @@ class ServingEngine:
     # Observability surface (repro_torch.obs)
     # ------------------------------------------------------------------
     def _stage_planes(self) -> List[Any]:
-        """The planes that time a host stage: the decode plane and the
+        """The planes that time a host stage: the decode planes and the
         mixed walk."""
-        return [x for x in (self.plane, self.hybrid) if x is not None]
+        return list(self.planes.values()) + (
+            [self.hybrid] if self.hybrid is not None else [])
 
     def metrics_snapshot(self) -> Dict[str, float]:
         """One flat dict over every subsystem's counters, under the
@@ -1286,7 +1418,10 @@ class ServingEngine:
         ts = self.kv_mgr.total_stats()
         w = self._worker
         live = w is not None and not w.closed
-        p = self.plane
+        planes = list(self.planes.values())
+
+        def total(field: str) -> float:
+            return float(sum(getattr(p, field) for p in planes))
         snap.update({
             "kv.h2d_calls": float(ts.h2d_calls),
             "kv.h2d_blocks": float(ts.h2d_blocks),
@@ -1308,14 +1443,15 @@ class ServingEngine:
             "engine.admit_embed_launches": float(self.admit_embed_launches),
             "engine.prefill_hbm_peak_tokens":
                 float(self.prefill_hbm_peak_tokens),
-            "plane.count": 1.0 if self._plane_used else 0.0,
-            "plane.steps": float(p.steps),
-            "plane.host_syncs": float(p.host_syncs),
-            "plane.d2h_readback_bytes": float(p.d2h_readback_bytes),
-            "plane.blocks_dropped": float(p.blocks_dropped),
-            "plane.blocks_restored": float(p.blocks_restored),
+            # the reference makes a plane at its group's first decode
+            "plane.count": float(sum(p.state is not None for p in planes)),
+            "plane.steps": total("steps"),
+            "plane.host_syncs": total("host_syncs"),
+            "plane.d2h_readback_bytes": total("d2h_readback_bytes"),
+            "plane.blocks_dropped": total("blocks_dropped"),
+            "plane.blocks_restored": total("blocks_restored"),
             "plane.blocks_restored_before_use":
-                float(p.blocks_restored_before_use),
+                total("blocks_restored_before_use"),
             "plane.trace_count": 0.0,
             "plane.dispatch_sync_s": sum(x.dispatch_sync_s
                                          for x in self._stage_planes()),

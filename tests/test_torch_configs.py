@@ -5,7 +5,10 @@ head), and the MoE family: kimi-k2-1t-a32b (G 8 at head_dim 112; 384
 experts top-8 in the full config, 4 top-2 in the smoke) and arctic-480b
 (G 7 at 128; top-2 with a dense residual); minicpm3-4b (MLA) is checked
 against the reference config here and as a model in ``test_torch_mla.py``;
-the MoE function itself in ``test_torch_moe.py``.
+the MoE function itself in ``test_torch_moe.py``; the frontend families
+(internvl2-2b's patch prefix, whisper-small's encoder-decoder) against
+the reference configs here, as models in ``test_torch_vlm.py`` and
+``test_torch_whisper.py``.
 
 Each arch runs in two variants against the reference model, with the
 reference's float32 weights handed over through ``bridge.py``: its
@@ -43,7 +46,13 @@ FULL_HEADS = {"lwm-7b": (32, 32, 128, False),
               "granite-20b": (48, 1, 128, False),
               "kimi-k2-1t-a32b": (64, 8, 112, False),
               "arctic-480b": (56, 8, 128, False),
-              "minicpm3-4b": (40, 40, 64, False)}
+              "minicpm3-4b": (40, 40, 64, False),
+              "internvl2-2b": (16, 8, 128, False),
+              "whisper-small": (12, 12, 64, False)}
+# the frontend families' own fields of the full configs
+FRONTENDS = {"internvl2-2b": ("vlm", "vit_patch_stub", 256, False, 0, 24),
+             "whisper-small": ("audio", "audio_conv_stub", 256, True, 12,
+                               12)}
 LOGIT_ATOL = 1e-4
 _jax_decode_step = jax.jit(
     lambda p, c, t, s: JM.decode_step(p, c, t, s, return_info=True),
@@ -83,7 +92,7 @@ def pair():
     return get
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["minicpm3-4b"])
+@pytest.mark.parametrize("arch", ARCHS + ["minicpm3-4b"] + list(FRONTENDS))
 def test_config_is_the_reference_config(arch):
     assert arch in ALL_ARCHS
     assert dataclasses.asdict(torch_cfg(arch)) == \
@@ -94,6 +103,10 @@ def test_config_is_the_reference_config(arch):
     TM.check_supported(cfg)
     assert (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
             cfg.qkv_bias) == FULL_HEADS[arch]
+    if arch in FRONTENDS:
+        assert (cfg.arch_type, cfg.frontend, cfg.num_patches,
+                cfg.is_encoder_decoder, cfg.encoder_layers,
+                cfg.num_layers) == FRONTENDS[arch]
 
 
 @pytest.mark.parametrize("variant", ["smoke", "heads"])

@@ -299,8 +299,9 @@ def test_write_blocks_kernel_matches_plain(cuda):
 @pytest.mark.gpu
 def test_slice2_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q = torch.zeros((1, 8, 4, 64), device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError):
-        ops.flash_prefill(q, q, q, scale=0.125, causal=False)
+    with pytest.raises(ValueError):     # float32, in the non-causal mode
+        ops.flash_prefill(q.float(), q.float(), q.float(), scale=0.125,
+                          causal=False)
     with pytest.raises(ValueError):
         ops.flash_prefill(q.float(), q.float(), q.float(), scale=0.125)
     with pytest.raises(ValueError):                   # head dim 32
@@ -967,7 +968,8 @@ def test_flash_prefill_d112_stores_no_column_past_its_head(cuda):
     buf = torch.full((n + 64,), 1000.0, dtype=torch.bfloat16, device=cuda)
     rc = LIBS.fn("flash_prefill")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), buf.data_ptr(), B, Sq, Sq,
-        Hq, Hkv, 112, 112, 0, scale, torch.cuda.current_stream().cuda_stream)
+        Hq, Hkv, 112, 112, 0, 1, scale,
+        torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
     assert rc == 0
     out = buf[:n].view(B, Sq, Hq, 112)
@@ -1023,6 +1025,93 @@ def test_moe_slice_wrappers_raise_beyond_their_limits(cuda):
         fv = torch.zeros((1, 8, 2, Dv), device=cuda, dtype=bf)
         with pytest.raises(ValueError, match="D, Dv"):
             ops.flash_prefill(fq, fq, fv, scale=1.0)
-    q = torch.zeros((1, 8, 2, 112), device=cuda, dtype=bf)
-    with pytest.raises(ValueError, match="causal only"):
-        ops.flash_prefill(q, q, q, scale=1.0, causal=False)
+    # the non-causal mode takes the same (D, Dv) pairs, no other
+    fq = torch.zeros((1, 8, 2, 112), device=cuda, dtype=bf)
+    fv = torch.zeros((1, 8, 2, 128), device=cuda, dtype=bf)
+    with pytest.raises(ValueError, match="D, Dv"):
+        ops.flash_prefill(fq, fq, fv, scale=1.0, causal=False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D", [
+    (1, 1500, 1500, 12, 12, 64),     # whisper-small's encoder
+    (4, 256, 1500, 12, 12, 64),      # its cross-attention from a window
+    (4, 1, 1500, 12, 12, 64),        # and from one decode token per row
+    (2, 300, 1000, 16, 8, 128),      # G 2 at D 128, Sk ragged
+])
+def test_flash_prefill_noncausal_matches_plain(cuda, B, Sq, Sk, Hq, Hkv, D):
+    """The non-causal mode: every query over every key j < Sk (1500 = 11
+    x 128 + 92: the ragged last tile masked), q_offset ignored.  Planted
+    faults must fail the tolerance: the causal mask applied (query 0
+    sees key 0 only), the last key dropped, the ragged tile dropped."""
+    q, k, v = _numpy_inputs(cuda, Sq + Sk, (B, Sq, Hq, D), (B, Sk, Hkv, D),
+                            (B, Sk, Hkv, D))
+    kw = dict(scale=D ** -0.5, causal=False)
+    got = ops.flash_prefill(q, k, v, **kw)
+    assert got.shape == (B, Sq, Hq, D)
+    assert _flash_close(got, q, k, v, **kw)
+    assert torch.equal(ops.flash_prefill(q, k, v, q_offset=37, **kw), got)
+    kp, vp = _probe(q, k, v, 0, Sk - 1, D ** -0.5)
+    whole = Sk // 128 * 128 if Sk % 128 else Sk - 128
+    for fault in (ops.flash_prefill(q, kp, vp, scale=D ** -0.5),
+                  ops.flash_prefill(q, kp[:, :-1].contiguous(),
+                                    vp[:, :-1].contiguous(), **kw),
+                  ops.flash_prefill(q, kp[:, :whole].contiguous(),
+                                    vp[:, :whole].contiguous(), **kw)):
+        assert not _flash_close(fault, q, kp, vp, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Hq,Hkv,D", [(4, 16, 8, 128), (4, 12, 12, 64)])
+def test_frontend_decode_shapes_match_plain(cuda, B, Hq, Hkv, D):
+    """internvl2-2b's decode step (G 2 at D 128) and whisper-small's (G 1
+    at D 64): the split-K attention (an all-invalid row gives 0; a
+    cur_len one block short must fail the tolerance) and score_select
+    (tie-aware; cur_len without the step's +1 must fail)."""
+    bs, NB, K = 32, 264, 64
+    q, kp, vp, idx, valid = _decode_inputs(cuda, D + Hq, B, Hq, Hkv, D, NB,
+                                           bs, K)
+    valid[:, :, :2] = True
+    valid[0, 0] = False
+    cur_len = torch.randint(NB * bs // 2, NB * bs, (B,),
+                            generator=_gen(cuda, D), device=cuda,
+                            dtype=torch.int32)
+    got = ops.sparse_decode_attention(q, kp, vp, idx, valid, cur_len)
+    want = ref.sparse_decode_attention(q, kp, vp, idx, valid, cur_len)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-3,
+                               rtol=1e-2)
+    assert not got[0, :Hq // Hkv].any()
+    short = ops.sparse_decode_attention(q, kp, vp, idx, valid,
+                                        cur_len - NB * bs // 2)
+    assert not torch.allclose(short.float(), want.float(), atol=2e-3,
+                              rtol=1e-2)
+    q, meta, cur_len = _select_case(cuda, B, Hq, Hkv, D, NB, bs)
+    kw = dict(block_size=bs, top_k=K, sink_blocks=1, recent_blocks=2)
+    want = ref.score_select(q, meta, cur_len, **kw)
+    s_ref = ref.select_scores(ref.block_score(q, meta), cur_len + 1,
+                              block_size=bs, sink_blocks=1, recent_blocks=2)
+    assert _select_agrees(*ops.score_select(q, meta, cur_len, **kw), *want,
+                          s_ref)
+    assert not _select_agrees(*ops.score_select(q, meta, cur_len - 1, **kw),
+                              *want, s_ref)
+
+
+@pytest.mark.gpu
+def test_noncausal_wrapper_raises_beyond_its_limits(cuda):
+    """A CUDA call the kernel cannot take still raises in the non-causal
+    mode: (D, Dv) outside FLASH_DIMS, a head count that is no multiple
+    of the kv heads, a non-contiguous k."""
+    bf = torch.bfloat16
+    for D, Dv in ((32, 32), (64, 128), (96, 96)):
+        fq = torch.zeros((1, 8, 4, D), device=cuda, dtype=bf)
+        fv = torch.zeros((1, 8, 4, Dv), device=cuda, dtype=bf)
+        with pytest.raises(ValueError, match="D, Dv"):
+            ops.flash_prefill(fq, fq, fv, scale=1.0, causal=False)
+    q = torch.zeros((1, 1, 12, 64), device=cuda, dtype=bf)
+    kv = torch.zeros((1, 1500, 8, 64), device=cuda, dtype=bf)
+    with pytest.raises(ValueError):
+        ops.flash_prefill(q, kv, kv, scale=1.0, causal=False)
+    kv = torch.zeros((1, 12, 1500, 64), device=cuda, dtype=bf)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_prefill(q, kv.transpose(1, 2), kv.transpose(1, 2),
+                          scale=1.0, causal=False)
