@@ -82,7 +82,20 @@ each printing one line (``phase=...``) and failing the run on any error:
    and at D 128 with Hq 16 over 8 (Sk 1000) and 32 over 8 (Sq 1), with
    the causal mode's tolerance and three planted faults (the causal mask
    applied, the last key dropped, the ragged last tile dropped), SDPA
-   (is_causal=False) timed beside it.  score_select's lines also time
+   (is_causal=False) timed beside it.  And Mamba's selective_scan (no
+   Pallas kernel: the reference's lax.scan) at jamba-v0.1-52b's widths
+   (d_inner 8192, d_state 16), bf16 x, B and C, float32 dt, A, D and a
+   non-zero h0: a prefill window of 4 right-padded rows over 1000 tokens
+   (dt = 0 past each row's length) and the decode step (S = 1), y and the
+   final state held to |err| <= 1e-5 + 1e-4 |ref| (float32 on both sides:
+   the 16-state sum in another order, expf against torch's exp and fused
+   multiply-adds move each by a few float32 steps, and |dA| <= 1 keeps
+   errors from growing along the tokens); four planted faults (h0
+   ignored, the skip term D x dropped, the last state left out of y's
+   sum, the second 64-token chunk's B and C read one token late) must
+   fail it; its bound counts 8 float32 operations per (token, channel,
+   state) at the float32 rate (67 TFLOP/s) against its bytes.
+   score_select's lines also time
    the unfused pair it replaces (block_score's kernel, then the plain
    select), where block_score takes the width (D <= 128).  A
    move from or to pinned memory is also bounded by the PCIe link: a
@@ -148,13 +161,16 @@ each printing one line (``phase=...``) and failing the run on any error:
    its 448-token decoder context: a stress of the serving path, said on
    its lines), internvl2-2b (each request with 256 synthesized patch
    embeddings ahead of its prompt), qwen2.5-3b, minicpm3-4b (MLA), lwm-7b,
-   kimi-k2-1t-a32b (MoE, 384 experts top-8, 1 of its 61 layers), granite-20b
-   and arctic-480b (MoE, 128 experts top-2 with a dense residual, 2 of its
-   35 layers; MODEL_LAYERS: one card holds no more, each layer at full
-   width, ``reduced=num_layers:<n>/<published>`` on their lines) on the
-   port's LongBench-shaped trace (generate_trace, 2.0 req/s, 4 requests,
-   prompts capped at 4096, 32768, 32768, 32768, 4096, 32768, 8192 and
-   32768, 32 new tokens), and
+   kimi-k2-1t-a32b (MoE, 384 experts top-8, 1 of its 61 layers), granite-20b,
+   jamba-v0.1-52b (the hybrid: Mamba layers through selective_scan, one
+   attention layer in 8, MoE 16 experts top-2 on every odd layer; 16 of
+   its 32 layers, on the fp tier and again on the int8 tier from the same
+   weights and submissions) and arctic-480b (MoE, 128 experts top-2 with
+   a dense residual, 2 of its 35 layers; MODEL_LAYERS: one card holds no
+   more, each layer at full width, ``reduced=num_layers:<n>/<published>``
+   on their lines) on the port's LongBench-shaped trace (generate_trace,
+   2.0 req/s, 4 requests, prompts capped at 4096, 32768, 32768, 32768,
+   4096, 32768, 8192, 32768 and 32768, 32 new tokens), and
    llama3-8b with one 131,072-token prompt, 8 new tokens, on the int8
    tier.  Algorithm 1's HBM budget stays the default 1 GiB unless the
    largest working set one request can claim (a VLM's patches counted
@@ -170,7 +186,9 @@ each printing one line (``phase=...``) and failing the run on any error:
    kernel, with the card's name and power limit; for the MoE configs the
    per-expert count read-backs (one per MoE call) per iteration and the
    experts a decode step touches per layer, and it asserts that no pair
-   was dropped.  One launch of each
+   was dropped; for jamba-v0.1-52b the scans launched and the host
+   stages of a decode step, which must run at its 2 attention layers
+   only.  One launch of each
    kernel at a shape only these configs give is kept and replayed, with
    the weights freed, against its plain version (phase_mainpath), each
    replay with its device ms per call under torch.profiler and from CUDA
@@ -183,7 +201,8 @@ each printing one line (``phase=...``) and failing the run on any error:
    and decode cross-attention launches; and flash_prefill at
    D 128 over 32 kv heads (lwm-7b) and one (granite-20b), at D 96 with
    Dv 64 over 40 heads (minicpm3-4b), and at D = Dv = 112 over 8 kv heads
-   (kimi-k2).
+   (kimi-k2), and selective_scan at jamba-v0.1-52b's first prefill
+   launch and a decode launch of the middle decode step.
    Its launch counts join the kernels' JSON record.
 9. obs    — the obs layer on the card (EngineConfig(obs=True): the
    reference's host wall-clock spans and metrics registry).  After a
@@ -232,6 +251,8 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM HBM3 (data sheet)
 BF16_OPS_PER_S = 989e12              # H100 SXM dense bf16 tensor peak
+F32_OPS_PER_S = 67e12                # H100 SXM float32 outside the tensor
+                                     # cores (selective_scan's arithmetic)
 PHASES = ("build", "parity", "transfer", "serve", "serve_int8", "oracles",
           "models", "obs", "async")
 
@@ -272,6 +293,9 @@ KERNELS = {   # name -> (source in this repo, the TPU kernel it replaces)
                       "src/repro/kernels/gather_blocks.py:31"),
     "scatter_blocks": ("src/repro_torch/csrc/scatter_blocks.cu",
                        "src/repro/kernels/scatter_blocks.py:29"),
+    # no Pallas kernel: the reference's Mamba recurrence is a lax.scan
+    "selective_scan": ("src/repro_torch/csrc/selective_scan.cu",
+                       "src/repro/models/mamba.py:60 (jax.lax.scan)"),
 }
 # the flat FlashH2D / FlashD2H pair: no serve path calls them (in the
 # reference only benchmarks/bench_transfer.py does); the transfer phase
@@ -297,7 +321,7 @@ PORT_KERNEL_FNS = ("split_kernel", "merge_kernel", "block_score_kernel",
                    "write_blocks_kernel", "flash_prefill_kernel",
                    "quantize_blocks_kernel", "dequantize_blocks_kernel",
                    "dequantize_scatter_blocks_kernel",
-                   "quant_save_blocks_kernel")
+                   "quant_save_blocks_kernel", "selective_scan_kernel")
 # one PyTorch call computing the same function, where there is one; else
 # why not (printed, and null in the JSON record)
 NO_LIBRARY = {
@@ -311,6 +335,7 @@ NO_LIBRARY = {
     "dequantize_scatter_blocks": "a dequantize-and-scatter into a pool",
     "quant_save_blocks": "a dequantize, overlay and requantize of blocks in "
                          "pinned memory in place",
+    "selective_scan": "no PyTorch call computes a selective scan",
 }
 SHAPES = {"qwen2-0.5b": dict(Hq=14, Hkv=2, D=64),
           "llama3-8b": dict(Hq=32, Hkv=8, D=128)}
@@ -350,6 +375,18 @@ NONCAUSAL_CASES = (("whisper_encoder", 1, 1500, 1500, 12, 12, 64),
                    ("whisper_cross_decode", 4, 1, 1500, 12, 12, 64),
                    ("gqa_d128", 2, 300, 1000, 16, 8, 128),
                    ("gqa_d128_decode", 4, 1, 700, 32, 8, 128))
+# Mamba's selective scan at jamba-v0.1-52b's widths (d_inner 8192, d_state
+# 16): a prefill window of 4 right-padded rows (dt = 0 past each row's
+# length) and the decode step, both from a non-zero h0: (label, B, S,
+# row lengths)
+SCAN_DI, SCAN_DS = 8192, 16
+SCAN_CASES = (("prefill", 4, 1000, (1000, 777, 130, 1)),
+              ("decode", 4, 1, (1, 1, 1, 1)))
+# float32 on both sides: the 16-state sum in another order, expf against
+# torch's exp and the compiler's fused multiply-adds each move y and h by
+# a few float32 steps (2^-24 relative) of the terms, and |dA| <= 1 keeps
+# an error from growing along the tokens
+SCAN_ATOL, SCAN_RTOL = 1e-5, 1e-4
 # a sentinel no output of the kernel takes, in the guard band after its
 # output (flash_guard)
 FLASH_GUARD, FLASH_SENTINEL = 64, 1000.0
@@ -438,14 +475,20 @@ MODEL_RUNS = {
         "sparse_decode_attention", "score_select", "flash_prefill")),
     "granite-20b": ("none", (4, 8192, 32), (
         "sparse_decode_attention", "score_select", "flash_prefill")),
+    "jamba-v0.1-52b": (("none", "int8"), (4, 32768, 32), (
+        "selective_scan:prefill", "selective_scan:decode")),
     "arctic-480b": ("none", (4, 32768, 32), (
         "sparse_decode_attention", "score_select")),
 }
 # the configs served with fewer layers than published, each layer at full
 # width: one card holds kimi-k2's embedding, head and 1 of its 61 layers
 # (38.8 GB; 33.8 GB of it the layer's 384 experts), arctic-480b's and 2 of
-# its 35 (55.4 GB); every layer of both is an MoE layer
-MODEL_LAYERS = {"kimi-k2-1t-a32b": 1, "arctic-480b": 2}
+# its 35 (55.4 GB); every layer of both is an MoE layer; jamba-v0.1-52b's
+# and 16 of its 32 layers, two whole 8-layer periods (52.0 GB: 2 attention
+# layers, 14 Mamba layers, 8 MoE layers).  jamba-v0.1-52b is served on
+# both tiers (the tuple in MODEL_RUNS), from one set of weights.
+MODEL_LAYERS = {"kimi-k2-1t-a32b": 1, "arctic-480b": 2,
+                "jamba-v0.1-52b": 16}
 # whisper-small's decoder context is 448 tokens: prompts of up to 4096
 # stress the serving path (a decoder KV past the DSA budget, so selection
 # and restores do real work); no deployment sends them.  Printed on every
@@ -472,9 +515,13 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple:
+def bound_ms(nbytes: float, ops) -> tuple:
+    """The least time of a call: its bytes over the HBM rate or its
+    operations over their peak rate, the larger.  ``ops``: a count of bf16
+    tensor-core operations, or (count, rate) for another type."""
+    count, rate = ops if isinstance(ops, tuple) else (ops, BF16_OPS_PER_S)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / BF16_OPS_PER_S * 1e3
+    t_ops = count / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -993,6 +1040,101 @@ def quant_save_faults(torch, ops, ref, saves, label: str) -> None:
                                  f"quant_save_blocks check ({label})")
 
 
+def _scan_close(got, want) -> tuple:
+    """(max abs err, ok) of selective_scan's (y, h) against the plain
+    version's: |err| <= SCAN_ATOL + SCAN_RTOL |ref| everywhere."""
+    err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    ok = all(bool(((g - w).abs() <= SCAN_ATOL + SCAN_RTOL * w.abs()).all())
+             for g, w in zip(got, want))
+    return err, ok
+
+
+def case_scan(torch, ops, ref, x, dt, B, C, A, D, h0):
+    """selective_scan against its plain version on the same inputs.  The
+    bound counts each input read once and each output written once, and
+    8 float32 operations per (token, channel, state) (dt A, its exp, dt
+    B, times x, dA h, the add, h C and its sum) at the float32 rate; the
+    scan's data decides nothing (a padded position costs what a real one
+    does)."""
+    got = ops.selective_scan(x, dt, B, C, A, D, h0)
+    torch.cuda.synchronize()
+    want = ref.selective_scan(x, dt, B, C, A, D, h0)
+    err, ok = _scan_close(got, want)
+    Bn, S, di = x.shape
+    ds = B.shape[-1]
+    nbytes = (x.numel() * x.element_size() + dt.numel() * 4
+              + 2 * B.numel() * B.element_size() + A.numel() * 4
+              + D.numel() * 4 + 2 * h0.numel() * 4 + Bn * S * di * 4)
+    return (err, ok, lambda: ops.selective_scan(x, dt, B, C, A, D, h0),
+            lambda: ref.selective_scan(x, dt, B, C, A, D, h0), nbytes,
+            (8 * Bn * S * di * ds, F32_OPS_PER_S),
+            f"B={Bn} S={S} di={di} ds={ds} x={str(x.dtype)[6:]}")
+
+
+def _scan_inputs(torch, gen, Bn: int, S: int, lens) -> tuple:
+    """selective_scan's inputs as a Mamba layer hands them over: x, B and
+    C bf16, dt = softplus(N(-2, 1)) float32 zeroed past each row's length
+    (right padding), A = -exp(A_log) with A_log = log(1..16) + N(0, 0.1^2)
+    per channel, D = 1 + N(0, 0.1^2), h0 ~ N(0, 1) float32."""
+    dev = torch.device("cuda")
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    x = randn(Bn, S, SCAN_DI).bfloat16()
+    mask = (torch.arange(S, device=dev)[None, :]
+            < torch.tensor(lens, device=dev)[:, None])
+    dt = torch.nn.functional.softplus(randn(Bn, S, SCAN_DI) - 2) \
+        * mask[..., None]
+    B, C = randn(Bn, S, SCAN_DS).bfloat16(), randn(Bn, S, SCAN_DS).bfloat16()
+    a_log = (torch.arange(1, SCAN_DS + 1, device=dev).float().log()
+             + 0.1 * randn(SCAN_DI, SCAN_DS))
+    return (x, dt.contiguous(), B, C, -torch.exp(a_log),
+            1 + 0.1 * randn(SCAN_DI), randn(Bn, SCAN_DI, SCAN_DS))
+
+
+def scan_faults(torch, ops, ref, x, dt, B, C, A, D, h0, label) -> None:
+    """The scan's tolerance must reject a kernel that ignores h0, drops
+    the skip term D x, leaves the last state out of y's sum, or reads the
+    second shared-memory chunk's B and C one token late: each runs through
+    the kernel on inputs that make it so and is held against the plain
+    version on the true ones."""
+    want = ref.selective_scan(x, dt, B, C, A, D, h0)
+    c_short = C.clone()
+    c_short[..., -1] = 0
+    t0, t1 = ops.SCAN_CHUNK, 2 * ops.SCAN_CHUNK
+    b_late, c_late = B.clone(), C.clone()
+    b_late[:, t0:t1] = B[:, t0 + 1:t1 + 1]
+    c_late[:, t0:t1] = C[:, t0 + 1:t1 + 1]
+    for fault, args in (
+            ("h0_ignored", (x, dt, B, C, A, D, torch.zeros_like(h0))),
+            ("skip_term_dropped", (x, dt, B, C, A, torch.zeros_like(D),
+                                   h0)),
+            ("last_state_left_out", (x, dt, B, c_short, A, D, h0)),
+            ("second_chunk_bc_one_token_late",
+             (x, dt, b_late, c_late, A, D, h0))):
+        err, ok = _scan_close(ops.selective_scan(*args), want)
+        log(f"phase=parity {label} planted_fault={fault} "
+            f"max_abs_err={err:.3e} rejected={not ok}")
+        if ok:
+            raise AssertionError(f"planted fault {fault} passed the scan "
+                                 f"tolerance ({label})")
+
+
+def parity_scan_shapes(torch, ops, ref, gen) -> list:
+    """selective_scan at jamba-v0.1-52b's widths (SCAN_CASES): a padded
+    prefill window, with the four planted faults, and the decode step.
+    Returns (kernel, label, case) triples for run_case."""
+    out = []
+    for mode, Bn, S, lens in SCAN_CASES:
+        args = _scan_inputs(torch, gen, Bn, S, lens)
+        label = f"arch=jamba-v0.1-52b mode={mode}"
+        out.append(("selective_scan", label,
+                    case_scan(torch, ops, ref, *args)))
+        if S > 2 * ops.SCAN_CHUNK:
+            scan_faults(torch, ops, ref, *args, label)
+    return out
+
+
 def _save_inputs(torch, ops, gen, dev, Hkv: int, D: int) -> list:
     """quant_save_blocks items shaped as the int8 serve makes them, over
     4 requests' pools (2 layers, 12 blocks of BS tokens; blocks 8-11
@@ -1334,7 +1476,8 @@ def phase_parity(torch, ops, ref, timer, seed: int) -> dict:
                               + parity_mla_shapes(torch, ops, ref, gen)
                               + parity_moe_shapes(torch, ops, ref, gen)
                               + parity_frontend_shapes(torch, ops, ref,
-                                                       gen)):
+                                                       gen)
+                              + parity_scan_shapes(torch, ops, ref, gen)):
         results.setdefault(name, {})[label] = run_case(
             "parity", label, name, case, timer)
     return results
@@ -1898,6 +2041,8 @@ class MainPathCapture:
         if name == "quant_save_blocks":
             T = max(sv.stripe.shape[1] for sv in args[0])
             return f"{name}:{'prefill' if T > 1 else 'decode'}"
+        if name == "selective_scan":
+            return f"{name}:{'prefill' if args[0].shape[1] > 1 else 'decode'}"
         return name            # score_select and the rest: one case each
 
     def _wrap(self, name, fn):
@@ -1911,7 +2056,8 @@ class MainPathCapture:
             due = ((name == "flash_prefill"
                     and key != "flash_prefill:cross_decode")
                    or attn >= self.from_attn
-                   or key == "quant_save_blocks:prefill")
+                   or key in ("quant_save_blocks:prefill",
+                              "selective_scan:prefill"))
             wider = (key in self.WIDEST and key in self.inputs
                      and attn < self.until_attn
                      and len(args[1]) > len(self.inputs[key][0][1]))
@@ -1941,7 +2087,8 @@ def phase_mainpath(torch, ops, ref, timer, caps: dict,
               "quantize_blocks": case_quantize,
               "dequantize_blocks": case_dequantize,
               "dequantize_scatter_blocks": case_dequant_scatter,
-              "quant_save_blocks": case_quant_save}
+              "quant_save_blocks": case_quant_save,
+              "selective_scan": case_scan}
     results = {}
     for path, cap in caps.items():
         for key, (args, kw) in sorted(cap.inputs.items()):
@@ -1980,6 +2127,7 @@ def kernel_records(parity: dict, mainpath: dict, counts: dict) -> list:
     {path: launches by kernel}; a kernel's ``launches`` come from the
     path that owns it (the int8 serve for INT8_ONLY, the quant trio and
     write_blocks_hkv; the transfer phase for the flat gather and scatter;
+    jamba-v0.1-52b's fp serve of the models phase for selective_scan;
     the fp serve for the rest, block_score included: it launches 0 times
     there, and its times come from its replay on score_select's kept
     inputs)."""
@@ -1988,7 +2136,8 @@ def kernel_records(parity: dict, mainpath: dict, counts: dict) -> list:
         cases = mainpath.get(name) or parity.get(name, {})
         if not cases:
             continue
-        owner = ("transfer" if name in TRANSFER_PATH else "serve_int8"
+        owner = ("models_jamba-v0.1-52b" if name == "selective_scan"
+                 else "transfer" if name in TRANSFER_PATH else "serve_int8"
                  if name in INT8_ONLY else "serve")
         own = {label: r for label, r in cases.items()
                if label.split()[0] == f"path={owner}"} or cases
@@ -2683,8 +2832,9 @@ def _hbm_budget(torch, cfg, subs, default: int) -> tuple:
     for r, _, _ in subs:
         prompt = r.prompt_len + patches
         nb = -(-(prompt + r.max_new_tokens) // bs) + 1
+        # in every attention layer (a hybrid's Mamba layers hold no KV)
         worst = max(worst, prompt * per_block_layer // bs,
-                    min(nb, 12 * cfg.dsa.top_k_blocks) * cfg.num_layers
+                    min(nb, 12 * cfg.dsa.top_k_blocks) * geom.num_layers
                     * per_block_layer)
     if worst <= default:
         return default, worst
@@ -2699,17 +2849,19 @@ def _serve_model(torch, np, ops, arch: str, seed: int, caps: dict,
     bf16 random weights from ``seed``, the default EngineConfig with
     wall-clock charging (the budget of _hbm_budget where the default
     cannot admit a request), the launch counts set to 0 just before the
-    run and read just after.  Asserts that every request was admitted and
+    run and read just after; on each tier MODEL_RUNS names, from the same
+    weights and submissions.  Asserts that every request was admitted and
     finished with finite logits and that every kernel of the config's
-    path launched; keeps one launch of each MODEL_RUNS kernel for
+    path launched (for a hybrid also selective_scan, and that the host
+    stage of a decode-only iteration ran at the attention layers only);
+    keeps one launch of each MODEL_RUNS kernel of the first tier for
     phase_mainpath (into ``caps``); ``inspect(engine)`` runs last,
-    before the engine closes.  Returns a summary."""
+    before the engine closes.  Returns a summary ({"counts", "mixed"}
+    of the first tier; "counts_<tier>" of any other)."""
     from repro_torch.configs import get_config
-    from repro_torch.models import ffn
     from repro_torch.models import model as M
-    from repro_torch.serving.engine import EngineConfig, ServingEngine
-    from repro_torch.serving.request import Request
-    tier, spec, keep = MODEL_RUNS[arch]
+    tiers, _, keep = MODEL_RUNS[arch]
+    tiers = (tiers,) if isinstance(tiers, str) else tiers
     cfg = get_config(arch)
     red = MODEL_NOTES.get(arch, "")
     if arch in MODEL_LAYERS:
@@ -2720,6 +2872,22 @@ def _serve_model(torch, np, ops, arch: str, seed: int, caps: dict,
                            .manual_seed(seed), torch.bfloat16, "cuda")
     torch.cuda.synchronize()
     weights = torch.cuda.memory_allocated()
+    out = {}
+    for tier in tiers:
+        out.update(_serve_tier(torch, np, ops, arch, cfg, params, tier,
+                               tier == tiers[0], seed, caps, requests, tag,
+                               inspect, obs, weights, t0, red, keep))
+        t0 = time.perf_counter()
+    return out
+
+
+def _serve_tier(torch, np, ops, arch, cfg, params, tier, first, seed, caps,
+                requests, tag, inspect, obs, weights, t0, red, keep) -> dict:
+    """One tier's serve of _serve_model (``first``: keep its launches
+    for phase_mainpath)."""
+    from repro_torch.models import ffn
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    from repro_torch.serving.request import Request
     subs = _model_submissions(np, Request, cfg, arch, seed)[:requests]
     default = EngineConfig().hbm_budget_bytes
     budget, worst = _hbm_budget(torch, cfg, subs, default)
@@ -2734,8 +2902,9 @@ def _serve_model(torch, np, ops, arch: str, seed: int, caps: dict,
                  if t is not None)
     setup_s = time.perf_counter() - t0
     new = max(r.max_new_tokens for r, _, _ in subs)
-    cap = MainPathCapture(torch, ops, cfg.num_layers * (new // 2),
-                          keep=set(keep), layers=cfg.num_layers)
+    n_attn = cfg.num_attention_layers()
+    cap = MainPathCapture(torch, ops, n_attn * (new // 2),
+                          keep=set(keep) if first else set(), layers=n_attn)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.launches.reset()
@@ -2760,7 +2929,8 @@ def _serve_model(torch, np, ops, arch: str, seed: int, caps: dict,
             raise AssertionError(f"{tag}: {arch}: {r.req_id} gave "
                                  f"{len(st.out_tokens)} tokens or "
                                  f"non-finite logits")
-    want = INT8_PATH if tier == "int8" else FP_PATH
+    want = (INT8_PATH if tier == "int8" else FP_PATH) + (
+        ("selective_scan",) if cfg.arch_type == "hybrid" else ())
     missing = [k for k in want if counts[k] == 0]
     if missing:
         raise AssertionError(f"{tag}: kernels not launched on {arch}'s "
@@ -2806,11 +2976,40 @@ def _serve_model(torch, np, ops, arch: str, seed: int, caps: dict,
         + " by case " + json.dumps(cap.calls) + red)
     if cfg.num_experts:
         _moe_check(tag, arch, cfg, eng, moe, red)
-    caps[f"{tag}_{arch}"] = cap
+    if cfg.arch_type == "hybrid":
+        _hybrid_check(tag, arch, cfg, eng, counts, red)
+    if first:
+        caps[f"{tag}_{arch}"] = cap
     if inspect is not None:
         inspect(eng)
     eng.close()
-    return {"counts": counts, "mixed": mixed}
+    if first:
+        return {"counts": counts, "mixed": mixed}
+    return {f"counts_{tier}": counts}
+
+
+def _hybrid_check(tag: str, arch: str, cfg, eng, counts: dict,
+                  red: str) -> None:
+    """A hybrid serve's own numbers: the Mamba layers' scans (a prefill
+    group's or a decode step's, one selective_scan launch each) and the
+    host stages.  A decode-only iteration's host stage must run at the
+    attention layers only (one per attention layer: no select, no idx
+    copy and no host stage at a Mamba layer)."""
+    attn = sorted(i for i in range(cfg.num_layers)
+                  if cfg.is_attention_layer(i))
+    decode_only = [e for e in eng.mixed_iter_log
+                   if e["decode_rows"] and not e["prefill_rows"]]
+    stages = sorted({len(e["layers"]) for e in decode_only})
+    log(f"phase={tag} arch={arch} hybrid attention_layers={attn} "
+        f"mamba_layers={cfg.num_layers - len(attn)} "
+        f"selective_scan_launches={counts['selective_scan']} "
+        f"decode_only_iterations={len(decode_only)} "
+        f"host_stages_per_decode_step={stages}" + red)
+    bad = [e["layers"] for e in decode_only if sorted(e["layers"]) != attn]
+    if bad or not decode_only:
+        raise AssertionError(f"{tag}: {arch}: a decode step's host stage "
+                             f"ran off the attention layers {attn} (or no "
+                             f"decode-only iteration ran): {bad[:2]}")
 
 
 def _moe_check(tag: str, arch: str, cfg, eng, moe: dict, red: str) -> None:
@@ -2848,6 +3047,9 @@ def phase_models(torch, np, ops, ref, timer, seed: int) -> tuple:
         caps = {}
         r = _serve_model(torch, np, ops, arch, seed, caps)
         counts[f"models_{arch}"] = r["counts"]
+        for key, c in r.items():
+            if key.startswith("counts_"):       # a second tier
+                counts[f"models_{arch}_{key[len('counts_'):]}"] = c
         mixed[arch] = r["mixed"]
         _free_memory(torch)
         for name, cases in phase_mainpath(torch, ops, ref, timer, caps,

@@ -33,8 +33,10 @@ def _tree(x: Any, fn, key: str = ""):
 
 # leaves that stay float32 whatever dtype the caller asks for: the MoE
 # router, which the reference's ``init_moe_params`` makes float32 in every
-# model dtype
-FLOAT32_LEAVES = ("router",)
+# model dtype, and the Mamba mixer's dt_bias, A_log and D, float32 in
+# ``init_mamba_params`` (no other leaf of any model's pytree has these
+# keys)
+FLOAT32_LEAVES = ("router", "dt_bias", "A_log", "D")
 
 
 def params_from_numpy(np_params: Dict[str, Any], num_layers: int,

@@ -22,7 +22,11 @@ plane holds one latent pool per layer and no V pool.  The state's
 ``extra`` (Whisper's per-layer cross keys and values) is padded to
 ``b_cap`` rows like the pools, written at admission and handed to every
 layer's attend; a plane holds requests whose ``extra`` shapes agree (the
-engine keys its planes so).  Stage functions are plain calls of
+engine keys its planes so).  A hybrid's Mamba layers hold their rows'
+recurrent states ({"conv", "ssm"}, padded to ``b_cap`` rows) beside the
+attention layers' pools; a decode step runs such a layer as one stage
+(``model.decode_recurrent_layer``: no select, no ``idx`` copy, no host
+stage) and replaces its state.  Stage functions are plain calls of
 ``models/model.py``.
 """
 from __future__ import annotations
@@ -123,10 +127,12 @@ class DevicePoolPlane:
         self.host_stage_s = 0.0
         self.tracer = NULL_TRACER        # the engine installs a live
                                          # Tracer when obs is on
-        # K and V pools of every layer (kvf * layer + 0 / 1, kvf the
-        # pools per layer: 2, or 1 for MLA's latent), with their device
-        # address table: rebuilt where the pools are made
+        # K and V pools of every attention layer (the layer's K pool at
+        # _pool_index[layer], its V pool after it; MLA's latent alone),
+        # with their device address table: rebuilt where the pools are
+        # made
         self.pool_table: Optional[ops.PoolTable] = None
+        self._pool_index: Dict[int, int] = {}
 
     @property
     def device(self) -> torch.device:
@@ -139,9 +145,10 @@ class DevicePoolPlane:
         for c in template["caches"]:
             caches.append({
                 key: v.new_zeros((b_cap,) + v.shape[1:2] + (nb_cap,)
-                                 + v.shape[3:])
+                                 + v.shape[3:]) if M.is_pool_cache(c)
+                else v.new_zeros((b_cap,) + v.shape[1:])
                 for key, v in c.items()})
-        dev = template["caches"][0]["k"].device
+        dev = next(iter(template["caches"][0].values())).device
         self._table_pools(caches)
         return {"caches": caches,
                 "cur_len": torch.zeros((b_cap,), dtype=torch.int32,
@@ -156,16 +163,30 @@ class DevicePoolPlane:
         return tuple(key for key in ("k", "v") if key in cache)
 
     def _table_pools(self, caches: List[Dict]) -> None:
-        self.pool_table = ops.PoolTable(
-            [c[key] for c in caches for key in self._kv_keys(c)])
+        """The pool table over every attention layer's pools, and where
+        each model layer's K pool sits in it (recurrent layers have
+        none)."""
+        pools = []
+        self._pool_index = {}
+        for l, c in enumerate(caches):
+            if M.is_pool_cache(c):
+                self._pool_index[l] = len(pools)
+                pools.extend(c[key] for key in self._kv_keys(c))
+        self.pool_table = ops.PoolTable(pools)
+        self._kvf = len(pools) // max(len(self._pool_index), 1)
 
     def _grow(self, b_cap: int, nb_cap: int) -> None:
         st = self.state
         for c in st["caches"]:
+            pool = M.is_pool_cache(c)
             for key, v in c.items():
-                new = v.new_zeros((b_cap,) + v.shape[1:2] + (nb_cap,)
-                                  + v.shape[3:])
-                new[:self.b_cap, :, :self.nb_cap] = v
+                if pool:
+                    new = v.new_zeros((b_cap,) + v.shape[1:2] + (nb_cap,)
+                                      + v.shape[3:])
+                    new[:self.b_cap, :, :self.nb_cap] = v
+                else:
+                    new = v.new_zeros((b_cap,) + v.shape[1:])
+                    new[:self.b_cap] = v
                 c[key] = new
         self._table_pools(st["caches"])
         cl = st["cur_len"].new_zeros((b_cap,))
@@ -201,13 +222,19 @@ class DevicePoolPlane:
             raise ValueError(f"{req_id} already admitted")
         if int(state["cur_len"].shape[0]) != 1:
             raise ValueError("admit expects a single-request state (B=1)")
-        nbs = [c["k"].shape[2] for c in state["caches"]]
-        self._ensure_capacity(state, len(self.rows) + 1, max(nbs))
+        nbs = [c["k"].shape[2] if M.is_pool_cache(c) else None
+               for c in state["caches"]]
+        self._ensure_capacity(state, len(self.rows) + 1,
+                              max((n for n in nbs if n is not None),
+                                  default=0))
         row = self._free.pop(0)
         st = self.state
         for l, c in enumerate(state["caches"]):
             for key, v in c.items():
-                st["caches"][l][key][row, :, :nbs[l]] = v[0]
+                if nbs[l] is None:           # a recurrent state
+                    st["caches"][l][key][row] = v[0]
+                else:
+                    st["caches"][l][key][row, :, :nbs[l]] = v[0]
         for dst, src in zip(M.extra_leaves(st["extra"]),
                             M.extra_leaves(state["extra"])):
             dst[row] = src[0]
@@ -274,6 +301,11 @@ class DevicePoolPlane:
         x = M.decode_embed(params, cfg, tokens)
         for i in range(cfg.num_layers):
             p = M.get_layer(params, i)
+            kind = M.layer_kind(cfg, i)
+            if kind != "attn":
+                x, st["caches"][i] = M.decode_recurrent_layer(
+                    p, cfg, kind, x, st["caches"][i], mask)
+                continue
             if tr.enabled:
                 _ts = time.perf_counter()
             q, _, idx, valid = M.decode_select_layer(
@@ -427,13 +459,13 @@ class DevicePoolPlane:
         self.blocks_dropped += int(blks.size)
         if not blks.size:
             return
-        kvf = len(self._kv_keys(self.state["caches"][0]))
-        k_pool = np.repeat(np.fromiter((kvf * l for _, l in blocks_by),
+        kvf = self._kvf
+        k_pool = np.repeat(np.fromiter((self._pool_index[l]
+                                        for _, l in blocks_by),
                                        np.int64, len(blocks_by)), n)
         row = np.repeat(np.fromiter((self.rows[r] for r, _ in blocks_by),
                                     np.int64, len(blocks_by)), n)
-        # every block in its layer's K pool (kvf * layer), then in its V
-        # pool
+        # every block in its layer's K pool, then in its V pool
         ops.zero_blocks_hkv(self.pool_table,
                             np.concatenate([k_pool + j for j in range(kvf)]),
                             np.concatenate([row] * kvf),

@@ -18,6 +18,11 @@ segment groups together.  Per attention layer *i*:
    plane's cross keys and values (Whisper's ``enc_kvs``: planes of
    different encoder lengths ride one walk).
 
+A hybrid's Mamba layer is one stage: every decode plane runs it over its
+rows' recurrent states (no select, no ``idx`` copy), the layer's prefill
+groups run beside it, and ``layer_cb`` fires for those groups only (with
+``kind`` "mamba": no KV to save).
+
 After the walk each decode plane takes its logits stage and each prefill
 plane its shared finalize.  With a live tracer the walk emits the
 reference's spans per layer: ``select`` (the selects and their ``idx``
@@ -72,10 +77,12 @@ class DecodeRun:
 
 @dataclasses.dataclass
 class LayerWindow:
-    """What ONE per-layer host stage sees: every decode plane's selection
-    for this layer (host int32 arrays (B_cap, Hkv, K)) plus every prefill
+    """What ONE per-layer host stage sees: the layer's kind ("attn" or
+    "mamba"), every decode plane's selection for this layer (host int32
+    arrays (B_cap, Hkv, K); none at a Mamba layer) plus every prefill
     group that just ran here."""
     layer: int
+    kind: str
     selections: List[Tuple[DecodeRun, Optional[np.ndarray]]]
     groups: List[Tuple[PrefillPlane, PrefillGroupRun]]
 
@@ -124,33 +131,42 @@ class HybridPlane:
         tr = self.tracer
         for i in range(cfg.num_layers):
             p = M.get_layer(params, i)
+            kind = M.layer_kind(cfg, i)
             selections: List[Tuple[DecodeRun, Optional[np.ndarray]]] = []
             t_sync = 0.0
-            if tr.enabled and dec:
-                _ts = time.perf_counter()
-            for d in dec:
-                st = d.plane.state
-                d.q, _, d.idx, d.valid = M.decode_select_layer(
-                    p, cfg, d.x, st["caches"][i], st["cur_len"],
-                    step_mask=d.mask)
-                if d.idx is not None:
-                    d.info["selected"][i] = d.idx
-                    d.plane.host_syncs += 1
-                # the ONE host sync of the layer: it waits for select_i (and
-                # the still-queued attend_{i-1}) before the host stage runs
-                t0 = time.perf_counter()
-                selections.append(
-                    (d, None if d.idx is None else d.idx.cpu().numpy()))
-                t_sync += time.perf_counter() - t0
-            if tr.enabled and dec:
-                tr.end("select", "stage", _ts, layer=i, planes=len(dec))
+            if kind != "attn":
+                for d in dec:
+                    st = d.plane.state
+                    d.x, st["caches"][i] = M.decode_recurrent_layer(
+                        p, cfg, kind, d.x, st["caches"][i], d.mask)
+            elif dec:
+                if tr.enabled:
+                    _ts = time.perf_counter()
+                for d in dec:
+                    st = d.plane.state
+                    d.q, _, d.idx, d.valid = M.decode_select_layer(
+                        p, cfg, d.x, st["caches"][i], st["cur_len"],
+                        step_mask=d.mask)
+                    if d.idx is not None:
+                        d.info["selected"][i] = d.idx
+                        d.plane.host_syncs += 1
+                    # the ONE host sync of the layer: it waits for select_i
+                    # (and the still-queued attend_{i-1}) before the host
+                    # stage runs
+                    t0 = time.perf_counter()
+                    selections.append(
+                        (d, None if d.idx is None else d.idx.cpu().numpy()))
+                    t_sync += time.perf_counter() - t0
+                if tr.enabled:
+                    tr.end("select", "stage", _ts, layer=i, planes=len(dec))
             layer_groups: List[Tuple[PrefillPlane, PrefillGroupRun]] = []
             for plane, walk in pre:
                 for g in plane.run_layer(params, i, walk):
                     layer_groups.append((plane, g))
             if layer_cb is not None and (selections or layer_groups):
                 t1 = time.perf_counter()
-                layer_cb(LayerWindow(layer=i, selections=selections,
+                layer_cb(LayerWindow(layer=i, kind=kind,
+                                     selections=selections,
                                      groups=layer_groups))
                 t2 = time.perf_counter()
                 timeline.append((i, t_sync, t2 - t1))
@@ -160,6 +176,8 @@ class HybridPlane:
                     tr.complete_at("host-stage", "host-stage", t1,
                                    t2 - t1, layer=i,
                                    groups=len(layer_groups))
+            if kind != "attn":
+                continue
             if tr.enabled and dec:
                 _ts = time.perf_counter()
             for d in dec:

@@ -21,6 +21,11 @@ whole batch.  Rows whose last segment ran share one logits launch.
 For Whisper each row also carries its per-layer cross keys and values
 (``enc``), which every launch of the layer passes on; requests share a
 plane only where those shapes agree (the engine keys its planes so).
+For a hybrid each row carries every Mamba layer's recurrent state
+(``rec``, zeroed at admission): a Mamba layer's group runs
+``model.prefill_recurrent_layer_batched`` over the bucketed window and
+carries the states (parked rows unchanged), writes no KV, and
+``rec_state`` reads a row's states back at finalize.
 Buffers are updated IN PLACE.
 """
 from __future__ import annotations
@@ -51,6 +56,7 @@ class PrefillGroupRun:
     """One executed batched launch: every scheduled row whose next segment
     was (layer, chunk_start), padded to ``chunk_cap`` tokens."""
     layer: int
+    kind: str                               # "attn" | "mamba"
     chunk_start: int
     chunk_cap: int
     req_ids: List[str]
@@ -88,6 +94,8 @@ class PrefillPlane:
         self.ctx_v: Optional[torch.Tensor] = None     # None for MLA
         # Whisper: per layer (k, v) each (B_cap, S_enc, Hkv, hd)
         self.enc: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None
+        # per layer: a Mamba layer's rows' {"conv", "ssm"} states, or None
+        self.rec: Optional[List[Optional[Dict[str, torch.Tensor]]]] = None
         self._tok_len: Optional[torch.Tensor] = None  # (B_cap,) int32
         self.rows: Dict[str, int] = {}
         self.tok_len: Dict[str, int] = {}             # host mirror
@@ -122,6 +130,8 @@ class PrefillPlane:
                 (b_cap, s_cap, template_h.shape[-1]))
             self._tok_len = torch.zeros((b_cap,), dtype=torch.int32,
                                         device=template_h.device)
+            self.rec = M._init_rec_states(self.cfg, b_cap, template_h.dtype,
+                                          template_h.device)
             self._free = list(range(b_cap))
         elif b_cap != self.b_cap or s_cap != self.s_cap:
             self.hidden = self._padded(self.hidden, b_cap, s_cap)
@@ -133,6 +143,9 @@ class PrefillPlane:
             if self.enc is not None:
                 self.enc = [tuple(self._padded(a, b_cap) for a in kv)
                             for kv in self.enc]
+            self.rec = [None if st is None else
+                        {key: self._padded(v, b_cap) for key, v in st.items()}
+                        for st in self.rec]
             for r in range(self.b_cap, b_cap):
                 bisect.insort(self._free, r)
         self.b_cap, self.s_cap = b_cap, s_cap
@@ -160,7 +173,8 @@ class PrefillPlane:
                                            torch.Tensor]]] = None) -> int:
         """Copy one request's embedded residual stream (1, S, d), and its
         per-layer cross keys and values (Whisper, each (1, S_enc, Hkv,
-        hd)), into a free row and install its segment plan."""
+        hd)), into a free row, zero the row's recurrent states and install
+        its segment plan."""
         if req_id in self.rows:
             raise ValueError(f"{req_id} already admitted")
         S = int(h.shape[1])
@@ -168,6 +182,10 @@ class PrefillPlane:
         row = self._free.pop(0)
         self.hidden[row] = 0
         self.hidden[row, :S] = h[0]
+        for st in self.rec:
+            if st is not None:
+                for v in st.values():
+                    v[row] = 0
         if enc_kvs is not None:
             if self.enc is None:
                 self.enc = [tuple(a.new_zeros((self.b_cap,) + a.shape[1:])
@@ -247,8 +265,10 @@ class PrefillPlane:
             walk.allow[rid] -= seg.chunk_len
             walk.ran.add(rid)
             self.next_idx[rid] += 1
-            walk.peaks[rid] = max(walk.peaks.get(rid, 0),
-                                  seg.chunk_start + seg.chunk_len)
+            if g.kind == "attn":
+                # only attention layers hold paged KV
+                walk.peaks[rid] = max(walk.peaks.get(rid, 0),
+                                      seg.chunk_start + seg.chunk_len)
             if seg.is_last:
                 walk.finished.append(rid)
         return g
@@ -288,9 +308,8 @@ class PrefillPlane:
     def _run_group(self, params: Dict, layer: int, start: int,
                    rids: List[str]) -> PrefillGroupRun:
         cfg = self.cfg
-        tr = self.tracer
-        if tr.enabled:
-            _ts = time.perf_counter()
+        kind = M.layer_kind(cfg, layer)
+        t_start = time.perf_counter() if self.tracer.enabled else None
         dev = self.hidden.device
         segs = {rid: self.segments[rid][self.next_idx[rid]] for rid in rids}
         t_cap = min(self.policy.bucket_tokens(
@@ -302,6 +321,14 @@ class PrefillPlane:
             smask[row] = True
             tmask[row, :segs[rid].chunk_len] = True
         h_win = self.hidden[:, start:start + t_cap]
+        if kind != "attn":
+            self.hidden[:, start:start + t_cap], self.rec[layer] = \
+                M.prefill_recurrent_layer_batched(
+                    M.get_layer(params, layer), cfg, kind, h_win,
+                    host_to_device(tmask, dev, torch.bool),
+                    host_to_device(smask, dev, torch.bool), self.rec[layer])
+            return self._group_run(layer, kind, start, t_cap, rids, segs,
+                                   t_start)
         pos_win = torch.arange(start, start + t_cap, dtype=torch.int32,
                                device=dev).expand(self.b_cap, t_cap)
         self._ensure_ctx()
@@ -324,23 +351,52 @@ class PrefillPlane:
         if v is not None:
             self.ctx_v[rows, start:start + t_cap] = v[rows].float()
         self.hidden[:, start:start + t_cap] = h_out
-        if tr.enabled:
-            tr.end("prefill-group", "prefill", _ts, layer=layer,
-                   chunk_start=start, chunk_cap=t_cap, rows=len(rids),
-                   kind=M.layer_kind(cfg, layer))
-        return PrefillGroupRun(layer=layer, chunk_start=start,
+        return self._group_run(layer, kind, start, t_cap, rids, segs,
+                               t_start)
+
+    def _group_run(self, layer: int, kind: str, start: int, t_cap: int,
+                   rids: List[str], segs: Dict[str, PrefillSegment],
+                   t_start: Optional[float]) -> PrefillGroupRun:
+        """The launched group's record, and its span when ``t_start``
+        (the tracer is on)."""
+        if t_start is not None:
+            self.tracer.end("prefill-group", "prefill", t_start,
+                            layer=layer, chunk_start=start, chunk_cap=t_cap,
+                            rows=len(rids), kind=kind)
+        return PrefillGroupRun(layer=layer, kind=kind, chunk_start=start,
                                chunk_cap=t_cap, req_ids=list(rids),
                                segs=segs)
 
     def resident_tokens(self) -> Dict[str, int]:
-        """Per-row tokens of current-layer KV held between iterations
-        (mid-layer chunk progress)."""
+        """Per-row tokens of current-layer attention KV held between
+        iterations (mid-layer chunk progress): a row whose next segment is
+        a chunk of an attention layer holds the chunks before it; one
+        parked before a recurrent layer holds none."""
         out: Dict[str, int] = {}
         for rid in self.rows:
             idx = self.next_idx[rid]
             segs = self.segments[rid]
-            out[rid] = segs[idx].chunk_start if idx < len(segs) else 0
+            out[rid] = (segs[idx].chunk_start if idx < len(segs)
+                        and M.layer_kind(self.cfg, segs[idx].layer) == "attn"
+                        else 0)
         return out
+
+    def rec_state(self, req_id: str, layer: int) -> Dict[str, torch.Tensor]:
+        """One row's recurrent state of ``layer`` (B = 1 copies), for the
+        decode state built at finalize."""
+        row = self.rows[req_id]
+        return {key: v[row:row + 1].clone()
+                for key, v in self.rec[layer].items()}
+
+    def device_bytes(self) -> int:
+        """Bytes of the plane's device buffers: the residual stream, the
+        one-layer context, the recurrent states and the encoder KV."""
+        leaves = [self.hidden, self.ctx_k, self.ctx_v, self._tok_len]
+        leaves += [v for st in self.rec or () if st is not None
+                   for v in st.values()]
+        leaves += [a for kv in self.enc or () for a in kv]
+        return sum(t.numel() * t.element_size()
+                   for t in leaves if t is not None)
 
     # -- data plane readbacks ---------------------------------------------
 

@@ -33,6 +33,7 @@ KERNEL_SOURCES = {
     "scatter_blocks": "scatter_blocks.cu",
     "flash_prefill": "flash_prefill.cu",
     "quant_blocks": "quant_blocks.cu",
+    "selective_scan": "selective_scan.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
@@ -78,6 +79,8 @@ _SIGNATURES = {
                           [_P] + [_I] * 4 + [_P]),
     "host_device_address": ("quant_blocks", "host_device_address",
                             [_P, _P]),
+    "selective_scan": ("selective_scan", "launch_selective_scan",
+                       [_P] * 9 + [_I] * 5 + [_P]),
 }
 
 

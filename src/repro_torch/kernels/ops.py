@@ -41,7 +41,8 @@ class LaunchCounter:
              "gather_blocks_hkv", "scatter_blocks_hkv", "zero_blocks_hkv",
              "write_blocks_hkv", "flash_prefill", "quantize_blocks",
              "dequantize_blocks", "dequantize_scatter_blocks",
-             "quant_save_blocks", "gather_blocks", "scatter_blocks")
+             "quant_save_blocks", "gather_blocks", "scatter_blocks",
+             "selective_scan")
 
     def __init__(self):
         self.counts: Dict[str, int] = dict.fromkeys(self.NAMES, 0)
@@ -967,3 +968,47 @@ def quant_save_blocks(saves: Sequence[QuantSave]) -> int:
         launches.add(name)
         at += size * items.shape[1] * 8
     return written
+
+
+# ---------------------------------------------------------------------------
+# selective_scan: the Mamba layer's SSM recurrence
+# ---------------------------------------------------------------------------
+
+# tokens the kernel stages in shared memory per pass (csrc/selective_scan.cu
+# kChunk) and the one state width it takes
+SCAN_CHUNK, SCAN_STATES = 64, 16
+
+
+def selective_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
+                   C: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
+                   h0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba's selective scan over a whole window (S = 1 is the decode
+    step): x, dt (Bt, S, di); B, C (Bt, S, ds); A (di, ds), already
+    -exp(A_log); D (di,); h0 (Bt, di, ds) -> (y (Bt, S, di) float32, h
+    after token S-1 (Bt, di, ds) float32); see ``ref.selective_scan``.
+    On the GPU: x, B and C bfloat16 or float32 alike, dt, A, D and h0
+    float32, ds = 16, all contiguous."""
+    if _all_cpu(x, dt, B, C, A, D, h0):
+        return ref.selective_scan(x, dt, B, C, A, D, h0)
+    name = "selective_scan"
+    Bt, S, di = x.shape
+    ds = B.shape[-1]
+    _check_cuda(name, x.device, x=x, dt=dt, B=B, C=C, A=A, D=D, h0=h0)
+    _check(x.dtype in _PAYLOAD_CODES and B.dtype == C.dtype == x.dtype
+           and dt.dtype == A.dtype == D.dtype == h0.dtype == torch.float32,
+           f"{name}: x, B and C bfloat16 or float32 alike; dt, A, D and h0 "
+           f"float32")
+    _check(dt.shape == x.shape and B.shape == C.shape == (Bt, S, ds)
+           and A.shape == (di, ds) and D.shape == (di,)
+           and h0.shape == (Bt, di, ds) and ds == SCAN_STATES,
+           f"{name}: needs dt (Bt, S, di), B and C (Bt, S, {SCAN_STATES}), "
+           f"A (di, {SCAN_STATES}), D (di,), h0 (Bt, di, {SCAN_STATES})")
+    y = torch.empty((Bt, S, di), dtype=torch.float32, device=x.device)
+    h = torch.empty((Bt, di, ds), dtype=torch.float32, device=x.device)
+    rc = LIBS.fn(name)(x.data_ptr(), dt.data_ptr(), B.data_ptr(),
+                       C.data_ptr(), A.data_ptr(), D.data_ptr(),
+                       h0.data_ptr(), y.data_ptr(), h.data_ptr(), Bt, S, di,
+                       ds, _PAYLOAD_CODES[x.dtype], _stream())
+    _raise_on(rc, name)
+    launches.add(name)
+    return y, h

@@ -318,3 +318,35 @@ def quant_save_blocks(saves) -> None:
             pool[layer, :, blk] = q[:, 0]
             scales[layer, :, blk] = s[:, 0]
             t0 += n
+
+
+def selective_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
+                   C: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
+                   h0: torch.Tensor, chunk: int = 64
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba's selective scan, a loop over tokens in the reference's
+    arithmetic order (``_ssm_scan``): x, dt (Bt, S, di); B, C (Bt, S,
+    ds); A (di, ds) (already -exp(A_log)); D (di,); h0 (Bt, di, ds).
+    Every input is widened to float32; per token dA = exp(dt A), h = dA h
+    + (dt B) x, y = sum_n h C + D x.  A position with dt = 0 leaves h as
+    it was.  dA, (dt B) x and y are computed for ``chunk`` tokens at a
+    time, elementwise as per token; only the recurrence steps token by
+    token.  Returns (y (Bt, S, di) float32, h after token S-1 (Bt, di,
+    ds) float32)."""
+    x, dt, B, C = (t.float() for t in (x, dt, B, C))
+    A, D = A.float(), D.float()
+    h = h0.float().clone()
+    ys = []
+    for t0 in range(0, x.shape[1], chunk):
+        sl = slice(t0, t0 + chunk)
+        dtc = dt[:, sl, :, None]                        # (Bt, T, di, 1)
+        dA = torch.exp(dtc * A)
+        dBx = dtc * B[:, sl, None, :] * x[:, sl, :, None]
+        hs = torch.empty_like(dA)                      # h after each token
+        for t in range(dA.shape[1]):
+            torch.mul(dA[:, t], h, out=hs[:, t])
+            hs[:, t] += dBx[:, t]
+            h = hs[:, t]
+        ys.append((hs * C[:, sl, None, :]).sum(-1) + D * x[:, sl])
+    y = torch.cat(ys, dim=1) if ys else x.new_zeros(x.shape)
+    return y, h.clone()

@@ -13,8 +13,9 @@ the same seed with numpy (``frontend_inputs``): internvl2-2b's
 the GPU (the default device) the engine charges wall-clock time, with the
 device synchronised at every iteration's end, so the TTFT/TBT printed are
 the card's; on the CPU they come from the copied analytic cost model.
-Prints TTFT/TBT/throughput and the hierarchical-KV transfer statistics,
-read from ``engine.metrics_snapshot()``.  ``--trace-out`` writes the run's
+Prints each request's generated tokens, TTFT/TBT/throughput and the
+hierarchical-KV transfer statistics, read from
+``engine.metrics_snapshot()``.  ``--trace-out`` writes the run's
 Chrome trace-event JSON (open it in https://ui.perfetto.dev); ``--prom``
 prints the Prometheus text exposition of the final snapshot.
 """
@@ -100,6 +101,9 @@ def main(argv=None) -> int:
           f"obs={int(s['obs.enabled'])}")
     print(f"finished={m.num_finished}/{args.requests} "
           f"iters={s['engine.iterations']:.0f}")
+    for st in eng.states.values():
+        print(f"{st.req.req_id} prompt={st.req.prompt_len} "
+              f"tokens={st.out_tokens}")
     print(f"mean TTFT {m.mean_ttft*1e3:.2f} ms | mean TBT "
           f"{m.mean_tbt*1e3:.3f} ms | {m.token_throughput:.1f} tok/s")
     print(f"FlashH2D: {s['kv.h2d_calls']:.0f} fused launches, "

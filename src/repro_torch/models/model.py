@@ -1,8 +1,9 @@
 """Model assembly of the port: the decoder, with GQA or MLA attention
-and a dense or Mixture-of-Experts FFN, the VLM's prefix of patch
-embeddings and Whisper's encoder-decoder.
+and a dense or Mixture-of-Experts FFN, Jamba's hybrid of Mamba and
+attention layers, the VLM's prefix of patch embeddings and Whisper's
+encoder-decoder.
 
-Counterpart of the dense, MoE, VLM and encoder-decoder subset of
+Counterpart of the dense, MoE, hybrid, VLM and encoder-decoder subset of
 ``repro/models/model.py``.  Parameters are a plain dict of tensors in list
 mode:
 
@@ -18,8 +19,14 @@ w_up, w_down[, dense]} in place of ``ffn`` on the layers where
 ``cfg.is_moe_layer`` holds, and for Whisper ``cross_norm`` and ``cross``
 {wq, wk, wv, wo} on every decoder layer beside the encoder under
 ``"encoder"`` (``bridge.params_from_numpy`` un-stacks the reference's
-stacked layers into this form).  DecodeState is ``{"caches": [per-layer
-pool dict], "cur_len": (B,) int32, "extra": {}}``, or for Whisper
+stacked layers into this form).  A hybrid's Mamba layers (``layer_kind``
+"mamba") hold ``mamba`` {in_proj, conv_w, conv_b, x_proj, dt_proj,
+dt_bias, A_log, D, out_proj} in place of ``attn``, with the attention
+norm before it and the layer's FFN or MoE after it, and carry a
+recurrent state {"conv" (B, dc-1, di), "ssm" (B, di, ds) float32} in
+place of a pool cache (``is_pool_cache`` tells them apart).
+DecodeState is ``{"caches": [per-layer pool dict], "cur_len": (B,)
+int32, "extra": {}}``, or for Whisper
 ``"extra": {"enc_kvs": [(k, v) per layer, each (B, S_enc, Hkv, hd)]}``,
 the cross keys and values projected once per request; the pools are
 updated IN PLACE by the decode stages.  A layer's KV, as
@@ -29,9 +36,10 @@ no separate value.  A VLM request's patch embeddings
 (``inputs["patch_embeds"]`` (B, P, d)) lead its token embeddings, at
 positions 0..P-1; a Whisper request's frames (``inputs["frames"]`` (B,
 S_enc, d), the conv/mel frontend stubbed) run through the bidirectional
-encoder.  Configs the port does not implement (recurrent layers) raise
-``NotImplementedError`` in ``check_supported``.  Every serving path runs
-the MoE drop-free (``moe_drop_free``), as the reference's does.
+encoder.  Configs the port does not implement (RWKV's attention-free
+layers) raise ``NotImplementedError`` in ``check_supported``.  Every
+serving path runs the MoE drop-free (``moe_drop_free``), as the
+reference's does.
 """
 from __future__ import annotations
 
@@ -43,31 +51,41 @@ from repro_torch.core import dsa as dsa_mod
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
+from repro_torch.models import mamba as mamba_mod
 from repro_torch.models.common import (ModelConfig, dense_init, rms_norm,
                                        sinusoidal_positions)
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what this port does not run yet."""
-    family = ((cfg.arch_type in ("dense", "moe") and cfg.frontend == "none"
-               and not cfg.is_encoder_decoder)
+    family = ((cfg.arch_type in ("dense", "moe", "hybrid")
+               and cfg.frontend == "none" and not cfg.is_encoder_decoder)
               or (cfg.arch_type == "vlm" and cfg.frontend == "vit_patch_stub"
                   and not cfg.is_encoder_decoder)
               or (cfg.is_encoder_decoder
                   and cfg.frontend == "audio_conv_stub"))
     if (cfg.attention_type not in ("gqa", "mla")
-            or cfg.attn_layer_period > 1 or not family
-            or cfg.tie_embeddings):
+            or (cfg.attn_layer_period > 1 and cfg.arch_type != "hybrid")
+            or not family or cfg.tie_embeddings):
         raise NotImplementedError(
             f"{cfg.name}: the port serves GQA and MLA decoders with dense "
-            f"or MoE FFNs, the VLM patch prefix and the Whisper "
-            f"encoder-decoder (recurrent models are later work)")
+            f"or MoE FFNs, Jamba's Mamba + attention hybrid, the VLM patch "
+            f"prefix and the Whisper encoder-decoder (RWKV is later work)")
 
 
 def layer_kind(cfg: ModelConfig, i: int) -> str:
-    """Mixer of layer i: always 'attn' for the decoders served."""
+    """Mixer of layer i: 'mamba' for a hybrid's non-attention layers,
+    'attn' otherwise."""
     check_supported(cfg)
+    if cfg.arch_type == "hybrid" and not cfg.is_attention_layer(i):
+        return "mamba"
     return "attn"
+
+
+def is_pool_cache(c: Any) -> bool:
+    """True for an attention layer's paged-pool cache ({k[, v], meta}),
+    False for a recurrent state."""
+    return isinstance(c, dict) and "k" in c and "meta" in c
 
 
 def get_layer(params: Dict, i: int) -> Dict:
@@ -100,7 +118,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     m = cfg.mla
     layers = []
     for i in range(cfg.num_layers):
-        if cfg.attention_type == "mla":
+        if layer_kind(cfg, i) == "mamba":
+            mixer = {"mamba": mamba_mod.init_mamba_params(cfg, g, dtype,
+                                                          dev)}
+        elif cfg.attention_type == "mla":
             qk = m.qk_nope_head_dim + m.qk_rope_head_dim
             a = {"w_dq": dense_init(g, (d, m.q_lora_rank), dtype, dev),
                  "q_norm": ones(m.q_lora_rank),
@@ -113,12 +134,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                  "w_uv": dense_init(g, (m.kv_lora_rank, Hq * m.v_head_dim),
                                     dtype, dev),
                  "wo": dense_init(g, (Hq * m.v_head_dim, d), dtype, dev)}
+            mixer = {"attn": a}
         else:
             a = _init_gqa(cfg, g, dtype, dev)
             if cfg.qkv_bias:
                 a.update(bq=zeros(Hq * hd), bk=zeros(Hkv * hd),
                          bv=zeros(Hkv * hd))
-        layer = {"attn_norm": ones(d), "ffn_norm": ones(d), "attn": a}
+            mixer = {"attn": a}
+        layer = {"attn_norm": ones(d), "ffn_norm": ones(d), **mixer}
         if cfg.is_encoder_decoder:
             # the reference's init_gqa_params(cross=True): no biases
             layer["cross_norm"] = ones(d)
@@ -163,6 +186,8 @@ def _norm(cfg: ModelConfig, w, x):
 
 def layer_forward(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                   positions: torch.Tensor, *, kind: str = "attn",
+                  rec_state: Optional[Dict] = None,
+                  token_mask: Optional[torch.Tensor] = None,
                   enc_kv: Optional[Tuple] = None,
                   k_ctx=None, v_ctx=None, q_offset=0,
                   return_kv: bool = False, moe_drop_free: bool = False):
@@ -170,13 +195,22 @@ def layer_forward(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     layer_kv): (k, v) each (B, S, Hkv, hd), or MLA's (latent (B, S, 1,
     kv_lora + rope), None), when ``return_kv``, else None.  MLA has no
     attention over earlier chunks' context (as in the reference).
+    A Mamba layer (``kind="mamba"``) returns (x_out, its new recurrent
+    state) instead, continuing from ``rec_state`` (None: a sequence
+    start), with ``token_mask`` marking a padded window's real tokens
+    (``mamba.mamba_forward``).
     ``enc_kv``: the layer's cross keys and values (Whisper); without it a
     decoder layer runs no cross-attention, as in the reference.
     ``moe_drop_free``: the serving prefills set it, so that an MoE's
     capacity cannot drop tokens (the reference's convention)."""
+    h_in = _norm(cfg, p["attn_norm"], x)
+    if kind == "mamba":
+        h, new_rec = mamba_mod.mamba_forward(p["mamba"], cfg, h_in,
+                                             rec_state, return_state=True,
+                                             token_mask=token_mask)
+        return _layer_epilogue(p, cfg, x + h, enc_kv, moe_drop_free), new_rec
     if kind != "attn":
         raise NotImplementedError(f"layer kind {kind!r}")
-    h_in = _norm(cfg, p["attn_norm"], x)
     if cfg.attention_type == "mla":
         if k_ctx is not None or int(q_offset) != 0:
             raise NotImplementedError(
@@ -299,11 +333,15 @@ def encode_inputs(params: Dict, cfg: ModelConfig, inputs: Dict
 
 def init_decode_state(cfg: ModelConfig, batch: int, num_blocks: int,
                       dtype: torch.dtype, device) -> Dict:
-    """List-mode decode state with zero pools."""
+    """List-mode decode state with zero pools (zero recurrent states for
+    Mamba layers)."""
     dev = torch.device(device)
     return {"caches": [attn.init_layer_kv_pool(cfg, batch, num_blocks,
                                                dtype, dev)
-                       for _ in range(cfg.num_layers)],
+                       if layer_kind(cfg, i) == "attn"
+                       else mamba_mod.init_mamba_state(cfg, batch, dtype,
+                                                       dev)
+                       for i in range(cfg.num_layers)],
             "cur_len": torch.zeros((batch,), dtype=torch.int32, device=dev),
             "extra": {}}
 
@@ -346,10 +384,12 @@ def prefill(params: Dict, cfg: ModelConfig, inputs: Dict, num_blocks: int,
     enc_kvs = encode_inputs(params, cfg, inputs)
     caches = []
     for i in range(cfg.num_layers):
-        h, kv = layer_forward(get_layer(params, i), cfg, h, positions,
-                              enc_kv=index_enc_kvs(enc_kvs, i),
-                              return_kv=True)
-        caches.append(kv_to_cache(cfg, kv, num_blocks, cache_dtype))
+        kind = layer_kind(cfg, i)
+        h, out = layer_forward(get_layer(params, i), cfg, h, positions,
+                               kind=kind, enc_kv=index_enc_kvs(enc_kvs, i),
+                               return_kv=True)
+        caches.append(kv_to_cache(cfg, out, num_blocks, cache_dtype)
+                      if kind == "attn" else out)
     logits = lm_head(params, cfg, h[:, -1:, :])[:, 0]
     state = {"caches": caches,
              "cur_len": torch.full((B,), S, dtype=torch.int32,
@@ -370,10 +410,21 @@ def prefill_embed(params: Dict, cfg: ModelConfig, inputs: Dict):
     return h, positions, encode_inputs(params, cfg, inputs)
 
 
-def _init_rec_states(cfg: ModelConfig, batch: int, dtype) -> List:
-    """Per-layer recurrent states: none for the dense decoders served."""
-    check_supported(cfg)
-    return [None] * cfg.num_layers
+def _init_rec_states(cfg: ModelConfig, batch: int, dtype,
+                     device="cpu") -> List:
+    """Per-layer recurrent states: a zero Mamba state for each Mamba
+    layer (its conv window in ``dtype``), None for an attention layer."""
+    return [mamba_mod.init_mamba_state(cfg, batch, dtype, device)
+            if layer_kind(cfg, i) == "mamba" else None
+            for i in range(cfg.num_layers)]
+
+
+def _mask_state(new: Dict, old: Dict, step_mask: torch.Tensor) -> Dict:
+    """Per leaf: ``old`` wherever ``step_mask`` (B,) is False (row axis
+    0)."""
+    return {key: torch.where(
+        step_mask.reshape((-1,) + (1,) * (v.dim() - 1)), v, old[key])
+        for key, v in new.items()}
 
 
 def prefill_layer(params: Dict, cfg: ModelConfig, layer_idx: int,
@@ -381,12 +432,15 @@ def prefill_layer(params: Dict, cfg: ModelConfig, layer_idx: int,
                   rec_state=None, enc_kv=None, moe_drop_free: bool = False):
     """ONE layer of prefill over the whole prompt (the legacy
     layer-segmented executor).  The caller saves the returned layer KV to
-    DRAM and evicts it before layer l+1.  Returns (h, (k, v), new_rec)."""
-    h, kv_out = layer_forward(get_layer(params, layer_idx), cfg, h,
-                              positions, kind=layer_kind(cfg, layer_idx),
-                              enc_kv=enc_kv, return_kv=True,
-                              moe_drop_free=moe_drop_free)
-    return h, kv_out, rec_state
+    DRAM and evicts it before layer l+1.  Returns (h, (k, v), rec_state)
+    for an attention layer, (h, None, new_rec) for a Mamba layer."""
+    kind = layer_kind(cfg, layer_idx)
+    h, out = layer_forward(get_layer(params, layer_idx), cfg, h, positions,
+                           kind=kind, rec_state=rec_state, enc_kv=enc_kv,
+                           return_kv=True, moe_drop_free=moe_drop_free)
+    if kind == "attn":
+        return h, out, rec_state
+    return h, None, out
 
 
 def prefill_finalize(params: Dict, cfg: ModelConfig, h: torch.Tensor
@@ -414,6 +468,24 @@ def prefill_attn_layer_batched(p: Dict, cfg: ModelConfig, h: torch.Tensor,
                               return_kv=True, moe_drop_free=True)
     keep = token_mask[..., None] & step_mask[:, None, None]
     return torch.where(keep, x, h), kv_out
+
+
+def prefill_recurrent_layer_batched(p: Dict, cfg: ModelConfig, kind: str,
+                                    h: torch.Tensor,
+                                    token_mask: torch.Tensor,
+                                    step_mask: torch.Tensor, rec_state: Dict):
+    """One Mamba layer over a padded batch of same-layer segments, from
+    the rows' recurrent states ``rec_state``: the masked scan carries each
+    row's state through its padding (``mamba_forward(token_mask=...)``)
+    and the FFN or MoE runs drop-free.  Returns (h_out, new_rec), both
+    masked: masked lanes keep their incoming residual and parked rows
+    their state."""
+    if kind != "mamba":
+        raise NotImplementedError(f"recurrent layer kind {kind!r}")
+    x, st = layer_forward(p, cfg, h, None, kind=kind, rec_state=rec_state,
+                          token_mask=token_mask, moe_drop_free=True)
+    keep = token_mask[..., None] & step_mask[:, None, None]
+    return torch.where(keep, x, h), _mask_state(st, rec_state, step_mask)
 
 
 def prefill_logits_batched(params: Dict, cfg: ModelConfig, h: torch.Tensor,
@@ -460,6 +532,22 @@ def decode_attend_layer(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     return _layer_epilogue(p, cfg, x, enc_kv, moe_drop_free=True)
 
 
+def decode_recurrent_layer(p: Dict, cfg: ModelConfig, kind: str,
+                           x: torch.Tensor, cache: Dict,
+                           step_mask: Optional[torch.Tensor] = None):
+    """One Mamba layer of a decode step as a single stage (no selection,
+    no restore: it holds no paged KV): the mixer over the carried state,
+    then the FFN or MoE (drop-free).  Returns (x, new state), the state
+    of parked rows (``step_mask`` False) unchanged."""
+    if kind != "mamba":
+        raise NotImplementedError(f"recurrent layer kind {kind!r}")
+    h, new = mamba_mod.mamba_decode_step(
+        p["mamba"], cfg, _norm(cfg, p["attn_norm"], x), cache)
+    if step_mask is not None:
+        new = _mask_state(new, cache, step_mask)
+    return _layer_epilogue(p, cfg, x + h, None, moe_drop_free=True), new
+
+
 def decode_logits(params: Dict, cfg: ModelConfig, x: torch.Tensor,
                   cur_len: torch.Tensor,
                   step_mask: Optional[torch.Tensor] = None):
@@ -497,22 +585,25 @@ def stack_decode_states(states: List[Dict]
     """Stack per-request list-mode DecodeStates into ONE padded batch
     state: every layer's pools padded along the block axis to the batch's
     largest block count (``attention.pad_pool_cache``) and concatenated
-    along batch (new tensors), and the ``extra`` tensors (Whisper's
-    enc_kvs) concatenated along batch, so the states must agree in their
-    shapes but for batch (the engine groups them so).  Returns
-    (batched_state, layout), the layout each input's (batch size,
-    per-layer block counts) for ``unstack_decode_states``."""
+    along batch (new tensors), the recurrent layers' states and the
+    ``extra`` tensors (Whisper's enc_kvs) concatenated along batch, so the
+    states must agree in their shapes but for batch (the engine groups
+    them so).  Returns (batched_state, layout), the layout each input's
+    (batch size, per-layer block counts, None for a recurrent layer) for
+    ``unstack_decode_states``."""
     if not states:
         raise ValueError("stack_decode_states: empty batch")
     L = len(states[0]["caches"])
     layout = [(int(s["cur_len"].shape[0]),
-               [int(s["caches"][l]["k"].shape[2]) for l in range(L)])
+               [int(c["k"].shape[2]) if is_pool_cache(c) else None
+                for c in s["caches"]])
               for s in states]
     caches = []
     for l in range(L):
         parts = [s["caches"][l] for s in states]
-        nb_max = max(int(p["k"].shape[2]) for p in parts)
-        parts = [attn.pad_pool_cache(p, nb_max) for p in parts]
+        if is_pool_cache(parts[0]):
+            nb_max = max(int(p["k"].shape[2]) for p in parts)
+            parts = [attn.pad_pool_cache(p, nb_max) for p in parts]
         caches.append({key: torch.cat([p[key] for p in parts], dim=0)
                        for key in parts[0]})
     return {"caches": caches,
@@ -526,15 +617,17 @@ def unstack_decode_states(state: Dict,
                           layout: List[Tuple[int, List[int]]]) -> List[Dict]:
     """Split a batched DecodeState back into per-request states, each pool
     trimmed to the request's own block count and copied out of the batch
-    tensors (so no request keeps the batch alive)."""
+    tensors (so no request keeps the batch alive); recurrent states are
+    split by rows."""
     out: List[Dict] = []
     row = 0
     for B, nbs in layout:
         sl = slice(row, row + B)
         caches = []
         for l, c in enumerate(state["caches"]):
-            own = attn.slice_pool_cache({key: arr[sl]
-                                         for key, arr in c.items()}, nbs[l])
+            own = {key: arr[sl] for key, arr in c.items()}
+            if nbs[l] is not None:
+                own = attn.slice_pool_cache(own, nbs[l])
             caches.append({key: arr.clone() for key, arr in own.items()})
         out.append({"caches": caches,
                     "cur_len": state["cur_len"][sl].clone(),
@@ -548,14 +641,21 @@ def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
                 state: Dict, *, return_info: bool = False,
                 step_mask: Optional[torch.Tensor] = None):
     """tokens (B,) int32: one new token per request.  Updates the state's
-    pools IN PLACE and returns (logits, state[, {"selected": {layer: idx}}])
-    with ``state["cur_len"]`` advanced (a new tensor)."""
+    pools IN PLACE, puts each Mamba layer's new state into
+    ``state["caches"]`` (parked rows' unchanged), and returns (logits,
+    state[, {"selected": {layer: idx}}]) with ``state["cur_len"]``
+    advanced (a new tensor)."""
     cur_len = state["cur_len"]
     enc_kvs = state["extra"].get("enc_kvs")
     x = decode_embed(params, cfg, tokens)
     info: Dict[str, Any] = {"selected": {}}
     for i in range(cfg.num_layers):
         p = get_layer(params, i)
+        kind = layer_kind(cfg, i)
+        if kind != "attn":
+            x, state["caches"][i] = decode_recurrent_layer(
+                p, cfg, kind, x, state["caches"][i], step_mask)
+            continue
         q, cache, idx, valid = decode_select_layer(
             p, cfg, x, state["caches"][i], cur_len, step_mask=step_mask)
         if idx is not None:

@@ -2,11 +2,12 @@
 dynamic sparse attention decode over a hierarchical HBM/DRAM KV cache.
 
 Counterpart of ``repro/serving/engine.py`` for dense GQA and MLA
-decoders, the VLM's patch prefix and Whisper's encoder-decoder on one
-device.  By default every iteration is ONE mixed layer walk
-(``core.hybrid_plane``) carrying the staged decode plane's rows (select ->
-host stage -> attend per layer) and the batched layer-segmented prefill
-plane's segments, with one host stage per attention layer:
+decoders, Jamba's Mamba + attention hybrid, the VLM's patch prefix and
+Whisper's encoder-decoder on one device.  By default every iteration is
+ONE mixed layer walk (``core.hybrid_plane``) carrying the staged decode
+plane's rows (select -> host stage -> attend per layer) and the batched
+layer-segmented prefill plane's segments, with one host stage per
+attention layer:
 
 1. one merged fused FlashD2H save of the layer's new KV (decode write-back
    plus fresh prefill chunks) — on the ``HostStageWorker`` thread when
@@ -38,6 +39,15 @@ baseline, as the reference does: the latent cache has no chunked-context
 attention.  Their host pools hold the one latent head (see
 ``core.kv_cache.KVGeometry.stored_heads``) while the geometry and every
 transfer counter keep the reference's ``max(num_kv_heads, 1)`` heads.
+
+A hybrid's KV manager and HBM cache count attention layers only: model
+layer ``l`` is KV layer ``_layer_to_lidx[l]`` (its attention ordinal) and
+an eviction key's KV layer maps back through ``_lidx_to_layer``, as in
+the reference.  Its Mamba layers save no KV: their prefill groups only
+advance the rows' recurrent states, which join the decode state at
+finalize (``PrefillPlane.rec_state``; the legacy executor's and the
+chunked baseline's own carries), and a decode step runs them as one
+stage.
 
 Frontend models take their tensors at ``submit`` (``patch_embeds`` for
 the VLM, whose patches count into the request's host pool; ``frames``
@@ -324,6 +334,17 @@ class ServingEngine:
         # test hook: called between a layer's restore and its attend as
         # probe(engine, plane, layer, sts, blocks_by_req)
         self.staged_probe = None
+        # model layer -> attention ordinal (the KV manager's layer; a
+        # recurrent layer maps to the next attention layer's, as in the
+        # reference, and is never used) and back, for eviction keys
+        self._layer_to_lidx: Dict[int, int] = {}
+        self._lidx_to_layer: Dict[int, int] = {}
+        n = 0
+        for i in range(cfg.num_layers):
+            self._layer_to_lidx[i] = min(n, self.geom.num_layers - 1)
+            if M.layer_kind(cfg, i) == "attn":
+                self._lidx_to_layer[n] = i
+                n += 1
 
     # ------------------------------------------------------------------
     # Request intake
@@ -404,10 +425,10 @@ class ServingEngine:
     def _kv_to_layer_cache(self, st: _ReqState, kv_out: Tuple) -> Dict:
         return M.kv_to_cache(self.cfg, kv_out, st.num_blocks, self.kv_dtype)
 
-    def _save_prompt_layer(self, rid: str, layer: int, kv: Tuple) -> None:
-        """FlashD2H of one request's whole-prompt layer KV (k, v each
-        (1, S, Hkv, D); MLA's latent with v None) from token 0: one
-        contiguous save on its host pool (``HostPool.save_contiguous``),
+    def _save_prompt_layer(self, rid: str, lidx: int, kv: Tuple) -> None:
+        """FlashD2H of one request's whole-prompt KV of KV layer ``lidx``
+        (k, v each (1, S, Hkv, D); MLA's latent with v None) from token 0:
+        one contiguous save on its host pool (``HostPool.save_contiguous``),
         flushed by the caller."""
         host = self.kv_mgr.pools.get(rid)
         if host is None:
@@ -415,7 +436,7 @@ class ServingEngine:
         k, v = self.kv_mgr.ship(*(None if t is None
                                   else t[0].permute(1, 0, 2).float()
                                   for t in kv)).wait()
-        host.save_contiguous(layer, 0, k, v)
+        host.save_contiguous(lidx, 0, k, v)
 
     def _start_layer_segmented(self, st: _ReqState,
                                tokens_per_step: int) -> None:
@@ -425,7 +446,7 @@ class ServingEngine:
                              tokens_per_step)
         st.lp = LayerPrefillState(
             segments=segs, hidden=h, positions=positions, enc_kvs=enc_kvs,
-            rec_states=M._init_rec_states(self.cfg, 1, h.dtype))
+            rec_states=M._init_rec_states(self.cfg, 1, h.dtype, h.device))
         st.decode_state = {"caches": [None] * self.cfg.num_layers,
                            "cur_len": None,
                            "extra": {"enc_kvs": enc_kvs} if enc_kvs else {}}
@@ -433,8 +454,9 @@ class ServingEngine:
     def _run_layer_segment(self, st: _ReqState) -> bool:
         """The legacy executor: the request's next whole layer, its KV
         saved to DRAM (one contiguous save, then the pool's flush: in the
-        int8 tier one ``quant_save_blocks`` call) and evicted from HBM.
-        Returns True when the prefill is done."""
+        int8 tier one ``quant_save_blocks`` call) and evicted from HBM; a
+        Mamba layer's new state goes into the decode state.  Returns True
+        when the prefill is done."""
         seg = st.lp.advance()
         l = seg.layer
         h, kv_out, new_rec = M.prefill_layer(
@@ -444,14 +466,18 @@ class ServingEngine:
         st.lp.hidden = h
         st.lp.rec_states[l] = new_rec
         rid = st.req.req_id
-        st.decode_state["caches"][l] = self._kv_to_layer_cache(st, kv_out)
-        self._save_prompt_layer(rid, l, kv_out)
-        host = self.kv_mgr.pools.get(rid)
-        if host is not None:
-            host.flush()
-        cache = self.kv_mgr.caches.get(rid)
-        if cache is not None:
-            cache.drop_layer(l)
+        if kv_out is None:
+            st.decode_state["caches"][l] = new_rec
+        else:
+            lidx = self._layer_to_lidx[l]
+            st.decode_state["caches"][l] = self._kv_to_layer_cache(st, kv_out)
+            self._save_prompt_layer(rid, lidx, kv_out)
+            host = self.kv_mgr.pools.get(rid)
+            if host is not None:
+                host.flush()
+            cache = self.kv_mgr.caches.get(rid)
+            if cache is not None:
+                cache.drop_layer(lidx)
         if seg.is_last:
             st.last_logits = M.prefill_finalize(
                 self.params, self.cfg, st.lp.hidden).float().cpu()
@@ -465,8 +491,10 @@ class ServingEngine:
         """Chunked-prefill baseline: ``inject`` new prompt tokens through
         ALL layers, each layer attending to its dense KV of the earlier
         chunks (``flash_prefill`` with the context and ``q_offset`` on the
-        GPU).  At the last chunk the pools are built and the prompt KV is
-        saved to DRAM, one contiguous save per layer and one flush.  As in
+        GPU); a Mamba layer runs the chunk from its carried state
+        (``chunk_rec``, float32 zeros at the start as in the reference).
+        At the last chunk the pools are built and the prompt KV is saved to
+        DRAM, one contiguous save per attention layer and one flush.  As in
         the reference, a frontend model's chunks embed the prompt tokens
         only (no patches) and run no cross-attention.  Returns True when
         the prefill is done."""
@@ -476,16 +504,23 @@ class ServingEngine:
         end = min(start + inject, r.prompt_len)
         if st.chunk_ctx is None:
             st.chunk_ctx = [None] * cfg.num_layers
-            st.chunk_rec = M._init_rec_states(cfg, 1, self.kv_dtype)
+            st.chunk_rec = M._init_rec_states(cfg, 1, torch.float32,
+                                              self.device)
         toks = host_to_device(st.tokens[None, start:end], self.device)
         h = self.params["embed"][toks.long()]
         positions = torch.arange(start, end, dtype=torch.int32,
                                  device=self.device)[None, :]
         for l in range(cfg.num_layers):
+            kind = M.layer_kind(cfg, l)
+            if kind != "attn":
+                h, st.chunk_rec[l] = M.layer_forward(
+                    M.get_layer(self.params, l), cfg, h, positions,
+                    kind=kind, rec_state=st.chunk_rec[l],
+                    moe_drop_free=True)
+                continue
             ctx = st.chunk_ctx[l]
             h, (k, v) = M.layer_forward(
                 M.get_layer(self.params, l), cfg, h, positions,
-                kind=M.layer_kind(cfg, l),
                 k_ctx=None if ctx is None else ctx[0],
                 v_ctx=None if ctx is None else ctx[1], q_offset=start,
                 return_kv=True, moe_drop_free=True)
@@ -499,8 +534,12 @@ class ServingEngine:
                                    h[:, -1:, :])[:, 0].float().cpu()
         caches = []
         for l in range(cfg.num_layers):
+            if st.chunk_ctx[l] is None:             # a recurrent layer
+                caches.append(st.chunk_rec[l])
+                continue
             caches.append(self._kv_to_layer_cache(st, st.chunk_ctx[l]))
-            self._save_prompt_layer(r.req_id, l, st.chunk_ctx[l])
+            self._save_prompt_layer(r.req_id, self._layer_to_lidx[l],
+                                    st.chunk_ctx[l])
         host = self.kv_mgr.pools.get(r.req_id)
         if host is not None:
             host.flush()
@@ -508,7 +547,7 @@ class ServingEngine:
             "caches": caches,
             "cur_len": torch.full((1,), r.prompt_len, dtype=torch.int32),
             "extra": {}}
-        st.chunk_ctx = None
+        st.chunk_ctx = st.chunk_rec = None
         return True
 
     # ------------------------------------------------------------------
@@ -601,7 +640,9 @@ class ServingEngine:
     def _end_of_layer(self, pp: PrefillPlane, g) -> None:
         """A group's rows that finished their layer: build the decode pool
         from the plane's one-layer context, then evict the layer from HBM
-        (the one-layer bound)."""
+        (the one-layer bound).  Nothing for a recurrent layer's group."""
+        if g.kind != "attn":
+            return
         for rid in g.req_ids:
             if not g.segs[rid].is_last_chunk_of_layer:
                 continue
@@ -610,7 +651,7 @@ class ServingEngine:
                 self._kv_to_layer_cache(st_r, pp.layer_ctx(rid))
             cache = self.kv_mgr.caches.get(rid)
             if cache is not None:
-                cache.drop_layer(g.layer)
+                cache.drop_layer(self._layer_to_lidx[g.layer])
 
     def _prefill_epilogue(self, pp: PrefillPlane,
                           pres: PrefillIterationResult,
@@ -618,9 +659,9 @@ class ServingEngine:
                           done: List[Request]) -> int:
         """After an iteration of prefill plane ``pp``: carry the unspent
         budgets, mirror the row cursors into the scheduler's pacing state,
-        take the finished rows' logits and release them (appended to
-        ``done``).  Returns the plane's HBM footprint in token-layer
-        units."""
+        take the finished rows' logits and recurrent states and release
+        them (appended to ``done``).  Returns the plane's HBM footprint in
+        token-layer units."""
         L = self.cfg.num_layers
         fp = 0
         for rid in allow:
@@ -642,6 +683,10 @@ class ServingEngine:
             st_r = self.states[rid]
             row = pp.rows[rid]
             st_r.last_logits = host_logits[row:row + 1]
+            caches = st_r.decode_state["caches"]
+            for l in range(L):
+                if caches[l] is None and M.layer_kind(self.cfg, l) != "attn":
+                    caches[l] = pp.rec_state(rid, l)
             st_r.decode_state["cur_len"] = torch.full(
                 (1,), pp.tok_len[rid], dtype=torch.int32)
             st_r.req.prefill_layer = L
@@ -685,11 +730,14 @@ class ServingEngine:
                 self.prefill_launches += 1
                 for rid in g.req_ids:
                     spent[rid] = spent.get(rid, 0) + g.segs[rid].chunk_len
+                if g.kind != "attn":
+                    return
+                lidx = self._layer_to_lidx[g.layer]
                 kv_by_req = pp.read_group_kv(g, self.kv_mgr.ship)
-                self.kv_mgr.save_new_tokens_fused(g.layer, {
+                self.kv_mgr.save_new_tokens_fused(lidx, {
                     rid: (g.chunk_start, k, v)
                     for rid, (k, v) in kv_by_req.items()})
-                self.kv_mgr.flush_fused(g.layer, list(g.req_ids))
+                self.kv_mgr.flush_fused(lidx, list(g.req_ids))
                 self._end_of_layer(pp, g)
 
             res = pp.run_iteration(self.params, allow, group_cb)
@@ -738,10 +786,10 @@ class ServingEngine:
         worker = self._stage_worker() if self._stage_async else None
 
         def layer_cb(win: LayerWindow) -> None:
-            # every layer of a dense decoder is an attention layer, so the
-            # KV manager's attention-layer ordinal is the model layer
-            lidx = win.layer
+            # a Mamba layer has only prefill groups, which save no KV
+            lidx = self._layer_to_lidx[win.layer]
             lay_log = {"d2h": 0, "h2d": 0, "groups": len(win.groups),
+                       "attn": win.kind == "attn",
                        "decode": bool(win.selections)}
             entry["layers"][win.layer] = lay_log
             for _, g in win.groups:
@@ -760,7 +808,7 @@ class ServingEngine:
                                       d.req_ids, d.prev, layers=[win.layer],
                                       ship=ship)[win.layer]))
             finishers = [(g.chunk_start, pp.read_group_kv_async(g, ship))
-                         for pp, g in win.groups]
+                         for pp, g in win.groups if g.kind == "attn"]
             if parts or finishers:
                 self._stage_writeback(worker, lidx, parts, finishers)
                 lay_log["d2h"] += 1
@@ -870,7 +918,7 @@ class ServingEngine:
         — the restores land AFTER it, on a plane of None they are
         discarded, and drops and probe are the caller's.  Returns the
         blocks loaded."""
-        lidx = layer
+        lidx = self._layer_to_lidx[layer]
         drop = self.eng.drop_evicted_device_blocks
         merged_missing: Dict[str, List[int]] = {}
         rounds = []
@@ -1016,7 +1064,7 @@ class ServingEngine:
             if self.eng.decode_write_back:
                 pending = plane.new_token_kv_async(
                     req_ids, prev, [layer], self.kv_mgr.ship)[layer]
-                self._stage_writeback(worker, layer,
+                self._stage_writeback(worker, self._layer_to_lidx[layer],
                                       [(req_ids, dict(prev), pending)], [])
             if sel is not None:
                 self._stage_decode_layer(
@@ -1053,18 +1101,19 @@ class ServingEngine:
     def _write_back_new_kv(self, plane: DevicePoolPlane, req_ids: List[str],
                            prev: Dict[str, int]) -> None:
         """FlashD2H decode save of the fused plane: the step's appended KV
-        of every layer, one fused save and flush per layer (in the int8
-        tier one ``quant_save_blocks`` call), keeping DRAM a superset of
-        device KV."""
+        of every attention layer, one fused save and flush per layer (in
+        the int8 tier one ``quant_save_blocks`` call), keeping DRAM a
+        superset of device KV."""
         payload = plane.new_token_kv(req_ids, prev,
-                                     list(range(self.cfg.num_layers)),
+                                     sorted(self._lidx_to_layer.values()),
                                      self.kv_mgr.ship)
         for l, (k, v) in payload.items():
-            self.kv_mgr.save_new_tokens_fused(l, {
+            lidx = self._layer_to_lidx[l]
+            self.kv_mgr.save_new_tokens_fused(lidx, {
                 rid: (prev[rid], k[i][:, None, :],
                       None if v is None else v[i][:, None, :])
                 for i, rid in enumerate(req_ids)})
-            self.kv_mgr.flush_fused(l, req_ids)
+            self.kv_mgr.flush_fused(lidx, req_ids)
 
     def _device_state(self, st: _ReqState) -> Dict:
         """The request's own decode state with ``cur_len`` on the engine's
@@ -1151,7 +1200,7 @@ class ServingEngine:
                                 protect: Optional[Tuple[int, Dict[str, List[int]]]] = None
                                 ) -> None:
         """Physically zero LRU-evicted blocks on the device, mutating
-        ``pending`` ((layer, block) keys per request) in place.  A key is
+        ``pending`` ((KV layer, block) keys per request) in place.  A key is
         skipped when the block is LRU-resident again, or kept pending when
         ``protect`` = (lidx, blocks_by_req) marks it as selected by the
         attention about to run.  The round's drops, every request and
@@ -1173,7 +1222,7 @@ class ServingEngine:
                     continue
                 by_layer.setdefault(elidx, []).append(blk)
             for elidx, blks in by_layer.items():
-                round_[(rid, elidx)] = sorted(set(blks))
+                round_[(rid, self._lidx_to_layer[elidx])] = sorted(set(blks))
             pending[rid] = keep
         plane.drop_blocks_many(round_)
 

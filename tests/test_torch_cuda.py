@@ -1115,3 +1115,33 @@ def test_noncausal_wrapper_raises_beyond_its_limits(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         ops.flash_prefill(q, kv.transpose(1, 2), kv.transpose(1, 2),
                           scale=1.0, causal=False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Bn,S,di,dtype", [(3, 150, 96, torch.bfloat16),
+                                           (2, 1, 64, torch.bfloat16),
+                                           (2, 70, 40, torch.float32)])
+def test_selective_scan_matches_plain(cuda, Bn, S, di, dtype):
+    """selective_scan against its plain version (float32 on both sides:
+    1e-5 + 1e-4 relative, as chip_smoke.py holds it) over right-padded
+    rows (dt = 0) from a non-zero h0, across more than two 64-token
+    chunks, the decode step (S = 1), and a channel count that leaves a
+    CTA part-filled; a kernel given no h0 must fail that."""
+    g = _gen(cuda)
+    x = torch.randn((Bn, S, di), generator=g, device=cuda).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn((Bn, S, di), generator=g, device=cuda) - 2)
+    dt[0, S // 2:] = 0
+    B, C = (torch.randn((Bn, S, 16), generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    A = -torch.rand((di, 16), generator=g, device=cuda) * 4
+    D = torch.randn((di,), generator=g, device=cuda)
+    h0 = torch.randn((Bn, di, 16), generator=g, device=cuda)
+    want = ref.selective_scan(x, dt, B, C, A, D, h0)
+    got = ops.selective_scan(x, dt, B, C, A, D, h0)
+    for g_, w in zip(got, want):
+        torch.testing.assert_close(g_, w, atol=1e-5, rtol=1e-4)
+    bad = ops.selective_scan(x, dt, B, C, A, D, torch.zeros_like(h0))
+    assert not torch.allclose(bad[0], want[0], atol=1e-5, rtol=1e-4)
+    with pytest.raises(ValueError):
+        ops.selective_scan(x, dt.double(), B, C, A, D, h0)

@@ -158,12 +158,13 @@ def test_unsupported_configs_raise():
                        attention_type="none")
     with pytest.raises(NotImplementedError):
         TM.init_params(rwkv, torch.Generator(), device="cpu")
-    # the MoE FFN is served since; jamba's hybrid layers (mamba mixers,
-    # one attention layer in attn_layer_period, MoE every second layer)
-    # still raise
+    # the MoE FFN and jamba's hybrid layers (mamba mixers, one attention
+    # layer in attn_layer_period, MoE every second layer) are served
+    # since: a jamba-shaped config gets the reference's layer kinds
     jamba = dataclasses.replace(
         torch_smoke("qwen2-0.5b"), arch_type="hybrid", num_experts=4,
         top_k_experts=2, moe_layer_period=2, attn_layer_period=2,
         attn_layer_offset=1)
-    with pytest.raises(NotImplementedError):
-        TM.layer_kind(jamba, 0)
+    assert [TM.layer_kind(jamba, i) for i in range(jamba.num_layers)] == \
+        [JM.layer_kind(jamba, i) for i in range(jamba.num_layers)] == \
+        ["mamba", "attn"]
