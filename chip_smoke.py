@@ -94,7 +94,23 @@ each printing one line (``phase=...``) and failing the run on any error:
    ignored, the skip term D x dropped, the last state left out of y's
    sum, the second 64-token chunk's B and C read one token late) must
    fail it; its bound counts 8 float32 operations per (token, channel,
-   state) at the float32 rate (67 TFLOP/s) against its bytes.
+   state) at the float32 rate (67 TFLOP/s) against its bytes.  And
+   RWKV6's wkv6 (no Pallas kernel: the reference's lax.scan of
+   _wkv_step) at rwkv6-1.6b's 32 heads of 64, bf16 r, k and v, float32
+   w, u and state: a 1000-token window from a zero state, the decode
+   step and a window of 4 right-padded rows (k = 0, w = 1 past each
+   length) from a carried state, y and the final state held per element
+   to |err| <= 2^-14 W + 1e-6, W the plain version on the inputs'
+   magnitudes (WKV_RTOL); four planted faults (the bonus u dropped, the
+   state not carried, the state read with i and j swapped, the decay
+   applied after the add) must fail it; its bound counts the 5 float32
+   operations per (token, head, i, j) that the function needs (the
+   bonus term is a scalar per token) at 67 TFLOP/s.  And score_select's
+   other scorings (the reference's score_blocks: InfLLM's mean metadata,
+   the sum over the GQA group, both) at qwen2-0.5b's serve shape,
+   tie-aware, each with three planted faults (the two above and the
+   group reduced the other way); their records are score_select:mean
+   and score_select:sum.
    score_select's lines also time
    the unfused pair it replaces (block_score's kernel, then the plain
    select), where block_score takes the width (D <= 128).  A
@@ -156,10 +172,13 @@ each printing one line (``phase=...``) and failing the run on any error:
 8. models — the paper's models and workload at full width, bf16 random
    weights from --seed, the default EngineConfig with wall-clock
    charging, smallest weights first, each engine and its weights freed
-   before the next (MODEL_RUNS): whisper-small (encoder-decoder, each
+   before the next (MODEL_RUNS): qwen2-0.5b with InfLLM's mean block
+   metadata (MODEL_VARIANTS; score_select's mean mode must launch),
+   whisper-small (encoder-decoder, each
    request with 1500 synthesized frames; prompts capped at 4096, past
    its 448-token decoder context: a stress of the serving path, said on
-   its lines), internvl2-2b (each request with 256 synthesized patch
+   its lines), rwkv6-1.6b (attention-free, all 24 layers: wkv6 must
+   launch, a decode step runs no host stage), internvl2-2b (each request with 256 synthesized patch
    embeddings ahead of its prompt), qwen2.5-3b, minicpm3-4b (MLA), lwm-7b,
    kimi-k2-1t-a32b (MoE, 384 experts top-8, 1 of its 61 layers), granite-20b,
    jamba-v0.1-52b (the hybrid: Mamba layers through selective_scan, one
@@ -169,8 +188,8 @@ each printing one line (``phase=...``) and failing the run on any error:
    a dense residual, 2 of its 35 layers; MODEL_LAYERS: one card holds no
    more, each layer at full width, ``reduced=num_layers:<n>/<published>``
    on their lines) on the port's LongBench-shaped trace (generate_trace,
-   2.0 req/s, 4 requests, prompts capped at 4096, 32768, 32768, 32768,
-   4096, 32768, 8192, 32768 and 32768, 32 new tokens), and
+   2.0 req/s, 4 requests, prompts capped at 8192, 4096, 32768, 32768,
+   32768, 32768, 4096, 32768, 8192, 32768 and 32768, 32 new tokens), and
    llama3-8b with one 131,072-token prompt, 8 new tokens, on the int8
    tier.  Algorithm 1's HBM budget stays the default 1 GiB unless the
    largest working set one request can claim (a VLM's patches counted
@@ -186,9 +205,9 @@ each printing one line (``phase=...``) and failing the run on any error:
    kernel, with the card's name and power limit; for the MoE configs the
    per-expert count read-backs (one per MoE call) per iteration and the
    experts a decode step touches per layer, and it asserts that no pair
-   was dropped; for jamba-v0.1-52b the scans launched and the host
-   stages of a decode step, which must run at its 2 attention layers
-   only.  One launch of each
+   was dropped; for jamba-v0.1-52b and rwkv6-1.6b the scans launched
+   and the host stages of a decode step, which must run at jamba's 2
+   attention layers only, and at none of rwkv6-1.6b's.  One launch of each
    kernel at a shape only these configs give is kept and replayed, with
    the weights freed, against its plain version (phase_mainpath), each
    replay with its device ms per call under torch.profiler and from CUDA
@@ -202,7 +221,9 @@ each printing one line (``phase=...``) and failing the run on any error:
    D 128 over 32 kv heads (lwm-7b) and one (granite-20b), at D 96 with
    Dv 64 over 40 heads (minicpm3-4b), and at D = Dv = 112 over 8 kv heads
    (kimi-k2), and selective_scan at jamba-v0.1-52b's first prefill
-   launch and a decode launch of the middle decode step.
+   launch and a decode launch of the middle decode step, wkv6 at
+   rwkv6-1.6b's first prefill launch and its widest decode launch, and
+   score_select's mean mode at qwen2-0.5b-mean's decode step.
    Its launch counts join the kernels' JSON record.
 9. obs    — the obs layer on the card (EngineConfig(obs=True): the
    reference's host wall-clock spans and metrics registry).  After a
@@ -252,7 +273,8 @@ REPO = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM HBM3 (data sheet)
 BF16_OPS_PER_S = 989e12              # H100 SXM dense bf16 tensor peak
 F32_OPS_PER_S = 67e12                # H100 SXM float32 outside the tensor
-                                     # cores (selective_scan's arithmetic)
+                                     # cores (selective_scan's and wkv6's
+                                     # arithmetic)
 PHASES = ("build", "parity", "transfer", "serve", "serve_int8", "oracles",
           "models", "obs", "async")
 
@@ -296,7 +318,21 @@ KERNELS = {   # name -> (source in this repo, the TPU kernel it replaces)
     # no Pallas kernel: the reference's Mamba recurrence is a lax.scan
     "selective_scan": ("src/repro_torch/csrc/selective_scan.cu",
                        "src/repro/models/mamba.py:60 (jax.lax.scan)"),
+    # score_select's other scorings, the reference's score_blocks: InfLLM's
+    # mean metadata (max over the group), and the sum over the group
+    "score_select:mean": ("src/repro_torch/csrc/block_score.cu",
+                          "src/repro/kernels/block_score.py:34"),
+    "score_select:sum": ("src/repro_torch/csrc/block_score.cu",
+                         "src/repro/kernels/block_score.py:34"),
+    # no Pallas kernel: the reference's RWKV6 recurrence is a lax.scan
+    "wkv6": ("src/repro_torch/csrc/wkv6.cu",
+             "src/repro/models/rwkv6.py:135 (jax.lax.scan)"),
 }
+# the serve path whose launches a kernel's record counts, where it is not
+# the fp serve (the transfer phase's and the int8 tier's are below)
+OWNERS = {"selective_scan": "models_jamba-v0.1-52b",
+          "wkv6": "models_rwkv6-1.6b",
+          "score_select:mean": "models_qwen2-0.5b-mean"}
 # the flat FlashH2D / FlashD2H pair: no serve path calls them (in the
 # reference only benchmarks/bench_transfer.py does); the transfer phase
 # drives them
@@ -321,7 +357,8 @@ PORT_KERNEL_FNS = ("split_kernel", "merge_kernel", "block_score_kernel",
                    "write_blocks_kernel", "flash_prefill_kernel",
                    "quantize_blocks_kernel", "dequantize_blocks_kernel",
                    "dequantize_scatter_blocks_kernel",
-                   "quant_save_blocks_kernel", "selective_scan_kernel")
+                   "quant_save_blocks_kernel", "selective_scan_kernel",
+                   "wkv6_kernel")
 # one PyTorch call computing the same function, where there is one; else
 # why not (printed, and null in the JSON record)
 NO_LIBRARY = {
@@ -336,6 +373,11 @@ NO_LIBRARY = {
     "quant_save_blocks": "a dequantize, overlay and requantize of blocks in "
                          "pinned memory in place",
     "selective_scan": "no PyTorch call computes a selective scan",
+    "score_select:mean": "a block mean's score fused with a masked, forced "
+                         "top-k",
+    "score_select:sum": "a group-summed block score fused with a masked, "
+                        "forced top-k",
+    "wkv6": "no PyTorch call computes the WKV recurrence",
 }
 SHAPES = {"qwen2-0.5b": dict(Hq=14, Hkv=2, D=64),
           "llama3-8b": dict(Hq=32, Hkv=8, D=128)}
@@ -387,6 +429,30 @@ SCAN_CASES = (("prefill", 4, 1000, (1000, 777, 130, 1)),
 # a few float32 steps (2^-24 relative) of the terms, and |dA| <= 1 keeps
 # an error from growing along the tokens
 SCAN_ATOL, SCAN_RTOL = 1e-5, 1e-4
+# RWKV6's WKV recurrence at rwkv6-1.6b's heads (32 of 64): a prefill
+# window of 4 rows over 1000 tokens from a zero state, the decode step
+# (S = 1) from a carried one, and a window of 4 right-padded rows (k = 0
+# and w = 1 past each row's length, as the time-mix masks them) from a
+# carried one: (label, B, S, row lengths, carried state)
+WKV_H, WKV_HD = 32, 64
+WKV_CASES = (("prefill", 4, 1000, (1000,) * 4, False),
+             ("decode", 4, 1, (1,) * 4, True),
+             ("masked", 4, 1000, (1000, 777, 130, 1), True))
+# float32 on both sides, held per element to |err| <= WKV_RTOL * W +
+# WKV_ATOL, W the plain version run on |r|, |k|, |v|, w, |u| and |S0|
+# (every term's magnitude, so a y that cancels to near 0 keeps its
+# scale): y sums 64 products in another order (and in four partial sums),
+# with fused multiply-adds, <= 64 float32 steps (2^-24) of W; the state
+# adds one rounding per token, decayed by w < 1 on every later token, so
+# its error stays within a few steps of W too.  2^-14 leaves a margin of
+# 16 over 64 steps.
+WKV_RTOL, WKV_ATOL = 2.0 ** -14, 1e-6
+# score_select's other scorings at qwen2-0.5b's serve shape (the serve
+# phase's decode step: B 4, Hkv 2, G 7, D 64, 136 blocks of its 4096 +
+# 32 tokens plus one), ties planted: (label, metadata, group reduction)
+SELECT_MODE_B, SELECT_MODE_NB = 4, 136
+SELECT_MODES = (("mean_max", "mean", "max"), ("cuboid_sum", "cuboid", "sum"),
+                ("mean_sum", "mean", "sum"))
 # a sentinel no output of the kernel takes, in the guard band after its
 # output (flash_guard)
 FLASH_GUARD, FLASH_SENTINEL = 64, 1000.0
@@ -460,9 +526,12 @@ ORACLE_REL_L2 = 2.0 ** -5
 # (kimi-k2: G 8 at D 112, flash_prefill at D = Dv = 112; arctic-480b: G 7
 # at D 128))
 MODEL_RUNS = {
+    "qwen2-0.5b-mean": ("none", (4, 8192, 32), ("score_select:mean",)),
     "whisper-small": ("none", (4, 4096, 32), (
         "sparse_decode_attention", "score_select", "flash_prefill:encoder",
         "flash_prefill:cross_prefill", "flash_prefill:cross_decode")),
+    "rwkv6-1.6b": ("none", (4, 32768, 32), ("wkv6:prefill",
+                                            "wkv6:decode")),
     "internvl2-2b": ("none", (4, 32768, 32), (
         "sparse_decode_attention", "score_select")),
     "qwen2.5-3b": ("none", (4, 32768, 32), ()),
@@ -489,6 +558,10 @@ MODEL_RUNS = {
 # both tiers (the tuple in MODEL_RUNS), from one set of weights.
 MODEL_LAYERS = {"kimi-k2-1t-a32b": 1, "arctic-480b": 2,
                 "jamba-v0.1-52b": 16}
+# a MODEL_RUNS name that is a registry config with fields replaced:
+# qwen2-0.5b with InfLLM's mean block metadata (score_select's mean mode
+# on the decode path)
+MODEL_VARIANTS = {"qwen2-0.5b-mean": ("qwen2-0.5b", {"metadata": "mean"})}
 # whisper-small's decoder context is 448 tokens: prompts of up to 4096
 # stress the serving path (a decoder KV past the DSA budget, so selection
 # and restores do real work); no deployment sends them.  Printed on every
@@ -653,10 +726,12 @@ def case_select(torch, ops, ref, q, meta, cur_len, **kw):
     torch.cuda.synchronize()
     ok, err = select_agrees(torch, got, want, s_ref)
     B, Hq, D = q.shape
-    _, Hkv, NB, _, _ = meta.shape
+    Hkv, NB = meta.shape[1], meta.shape[2]
     K = got[0].shape[-1]
-    sel = dict(kw)
-    del sel["block_size"]
+    sel = {k: v for k, v in kw.items()
+           if k in ("top_k", "sink_blocks", "recent_blocks")}
+    scoring = (kw.get("metadata", "cuboid"), kw.get("group_reduce", "max"))
+    mean = scoring[0] == "mean"
 
     def unfused():
         return ref.select_blocks(ops.block_score(q, meta), cur_len + 1,
@@ -664,31 +739,44 @@ def case_select(torch, ops, ref, q, meta, cur_len, **kw):
     return (err, ok, lambda: ops.score_select(q, meta, cur_len, **kw),
             lambda: ref.score_select(q, meta, cur_len, **kw),
             q.numel() * 2 + meta.numel() * 4 + B * 4 + B * Hkv * K * 5,
-            B * Hkv * NB * (Hq // Hkv) * 4 * D,
+            B * Hkv * NB * (Hq // Hkv) * (2 if mean else 4) * D,
             f"B={B} Hq={Hq} Hkv={Hkv} NB={NB} D={D} K={K} "
             f"bs={kw['block_size']} sink={kw['sink_blocks']} "
-            f"recent={kw['recent_blocks']}", None, None,
-            # block_score keeps D <= 128: no unfused pair at MLA's width
-            unfused if D <= 128 else None)
+            f"recent={kw['recent_blocks']}"
+            + ("" if scoring == ("cuboid", "max")
+               else f" metadata={scoring[0]} group_reduce={scoring[1]}"),
+            None, None,
+            # block_score (cuboid, max) keeps D <= 128: no unfused pair
+            # at MLA's width or for the other scorings
+            unfused if D <= 128 and scoring == ("cuboid", "max") else None)
 
 
 def _select_scores(ref, q, meta, cur_len, kw):
-    return ref.select_scores(ref.block_score(q, meta), cur_len + 1,
-                             block_size=kw["block_size"],
-                             sink_blocks=kw["sink_blocks"],
-                             recent_blocks=kw["recent_blocks"])
+    return ref.select_scores(
+        ref.block_score(q, meta, kw.get("metadata", "cuboid"),
+                        kw.get("group_reduce", "max")),
+        cur_len + 1, block_size=kw["block_size"],
+        sink_blocks=kw["sink_blocks"], recent_blocks=kw["recent_blocks"])
 
 
 def select_faults(torch, ops, ref, q, meta, cur_len, kw, arch) -> None:
     """The tie-aware select check must reject a kernel that counts the
     cache without the step's +1 (run on cur_len - 1) or leaves the recent
-    blocks unforced (run with recent_blocks 0): each runs through the
+    blocks unforced (run with recent_blocks 0), and for score_select's
+    other scorings (``group_reduce`` in ``kw``) one that reduces the GQA
+    group the other way (max for sum, sum for max): each runs through the
     kernel and is held against the plain version on the true inputs."""
     want = ref.score_select(q, meta, cur_len, **kw)
     s_ref = _select_scores(ref, q, meta, cur_len, kw)
-    for label, c, k in (("n_without_plus_one", cur_len - 1, kw),
-                        ("recent_forcing_left_out", cur_len,
-                         dict(kw, recent_blocks=0))):
+    faults = [("n_without_plus_one", cur_len - 1, kw),
+              ("recent_forcing_left_out", cur_len,
+               dict(kw, recent_blocks=0))]
+    if "group_reduce" in kw:
+        # the other scorings add a third: the group reduced the other way
+        other = "max" if kw["group_reduce"] == "sum" else "sum"
+        faults.append((f"group_reduced_by_{other}", cur_len,
+                       dict(kw, group_reduce=other)))
+    for label, c, k in faults:
         ok, err = select_agrees(torch, ops.score_select(q, meta, c, **k),
                                 want, s_ref)
         log(f"phase=parity arch={arch} planted_fault={label} "
@@ -1135,6 +1223,145 @@ def parity_scan_shapes(torch, ops, ref, gen) -> list:
     return out
 
 
+def _wkv_close(torch, ref, got, want, args) -> tuple:
+    """(max abs err, ok) of wkv6's (y, S) against the plain version's:
+    |err| <= WKV_RTOL W + WKV_ATOL per element, W the plain version on
+    the inputs' magnitudes (WKV_RTOL's note)."""
+    r, k, v, w, u, S0 = args
+    weight = ref.wkv6(r.abs(), k.abs(), v.abs(), w, u.abs(), S0.abs())
+    err = max((g - x).abs().max().item() for g, x in zip(got, want))
+    ok = all(bool(((g - x).abs() <= WKV_RTOL * m + WKV_ATOL).all())
+             for g, x, m in zip(got, want, weight))
+    return err, ok
+
+
+def case_wkv(torch, ops, ref, r, k, v, w, u, S0):
+    """wkv6 against its plain version on the same inputs.  The bound
+    counts each input read once and each output written once, and the
+    float32 operations the function needs at the float32 rate: 5 per
+    (token, head, i, j), a multiply-add for r S and a multiply and a
+    multiply-add for w S + k v, since the bonus term is a scalar per
+    token, y_j = sum_i r_i S_ij + v_j sum_i r_i u_i k_i, which costs 5 per
+    (token, head, channel) (r u k and its sum, then v times it added to
+    y); padding costs what a real token does (the kernel runs it)."""
+    args = (r, k, v, w, u, S0)
+    got = ops.wkv6(*args)
+    torch.cuda.synchronize()
+    want = ref.wkv6(*args)
+    err, ok = _wkv_close(torch, ref, got, want, args)
+    Bn, S, H, hd = r.shape
+    nbytes = ((r.element_size() * 3 + 4 * 2) * r.numel() + u.numel() * 4
+              + 2 * S0.numel() * 4)
+    return (err, ok, lambda: ops.wkv6(*args), lambda: ref.wkv6(*args),
+            nbytes, (5 * Bn * S * H * hd * (hd + 1), F32_OPS_PER_S),
+            f"B={Bn} S={S} H={H} hd={hd} rkv={str(r.dtype)[6:]}")
+
+
+def _wkv_inputs(torch, gen, Bn: int, S: int, lens, carried: bool) -> tuple:
+    """wkv6's inputs as the time-mix hands them over: r, k, v bf16 ~ N(0,
+    1) (projections of a normalised x), w = exp(-exp(N(-2, 1))) float32
+    (the decay around the init's base -2), u = 0.1 N(0, 1) float32 (the
+    init's bonus), S0 ~ N(0, 1) float32 when ``carried``, else 0; past
+    each row's length k = 0 and w = 1, as the time-mix masks padding."""
+    dev = torch.device("cuda")
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    mask = (torch.arange(S, device=dev)[None, :]
+            < torch.tensor(lens, device=dev)[:, None])[..., None, None]
+    r, v = (randn(Bn, S, WKV_H, WKV_HD).bfloat16() for _ in range(2))
+    k = (randn(Bn, S, WKV_H, WKV_HD).bfloat16() * mask).contiguous()
+    w = torch.where(mask, torch.exp(-torch.exp(
+        randn(Bn, S, WKV_H, WKV_HD) - 2)), 1.0).contiguous()
+    S0 = (randn(Bn, WKV_H, WKV_HD, WKV_HD) if carried
+          else torch.zeros((Bn, WKV_H, WKV_HD, WKV_HD), device=dev))
+    return r, k, v, w, 0.1 * randn(WKV_H, WKV_HD), S0
+
+
+def _wkv_decay_after_add(torch, r, k, v, w, u, S0):
+    """The recurrence with the decay applied after the add, S_ij = w_i
+    (S_ij + k_i v_j), in the plain version's order otherwise."""
+    r, k, v = r.float(), k.float(), v.float()
+    S, ys = S0.clone(), []
+    for t in range(r.shape[1]):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]
+        ys.append(torch.einsum("bhij,bhi->bhj",
+                               S + u[None, :, :, None] * kv, r[:, t]))
+        S = w[:, t, :, :, None] * (S + kv)
+    return torch.stack(ys, dim=1), S
+
+
+def wkv_faults(torch, ops, ref, args, label) -> None:
+    """wkv6's tolerance must reject a kernel that drops the bonus u (run
+    with u = 0), does not carry the state in (S0 = 0), reads the state
+    with i and j swapped (S0 transposed) or applies the decay after the
+    add (that recurrence computed in plain PyTorch): each held against
+    the plain version on the true inputs."""
+    r, k, v, w, u, S0 = args
+    want = ref.wkv6(*args)
+    for fault, got in (
+            ("bonus_u_dropped",
+             ops.wkv6(r, k, v, w, torch.zeros_like(u), S0)),
+            ("state_not_carried",
+             ops.wkv6(r, k, v, w, u, torch.zeros_like(S0))),
+            ("i_and_j_swapped",
+             ops.wkv6(r, k, v, w, u, S0.transpose(-1, -2).contiguous())),
+            ("decay_after_add", _wkv_decay_after_add(torch, *args))):
+        err, ok = _wkv_close(torch, ref, got, want, args)
+        log(f"phase=parity {label} planted_fault={fault} "
+            f"max_abs_err={err:.3e} rejected={not ok}")
+        if ok:
+            raise AssertionError(f"planted fault {fault} passed the wkv6 "
+                                 f"tolerance ({label})")
+
+
+def parity_wkv6_shapes(torch, ops, ref, gen) -> list:
+    """wkv6 at rwkv6-1.6b's heads (WKV_CASES), the four planted faults on
+    the padded window from a carried state.  Returns (kernel, label,
+    case) triples for run_case."""
+    out = []
+    for mode, Bn, S, lens, carried in WKV_CASES:
+        args = _wkv_inputs(torch, gen, Bn, S, lens, carried)
+        label = f"arch=rwkv6-1.6b mode={mode}"
+        out.append(("wkv6", label, case_wkv(torch, ops, ref, *args)))
+        if mode == "masked":
+            wkv_faults(torch, ops, ref, args, label)
+    return out
+
+
+def parity_select_modes(torch, ops, ref, gen) -> list:
+    """score_select's other scorings (SELECT_MODES: mean metadata, the
+    sum over the group, both) at qwen2-0.5b's serve shape, ties planted
+    (mean rows 5-8 equal to row 4; the cuboid's as _select_inputs plants
+    them) and request 1 at a block edge, each with its three planted
+    faults.  Returns (kernel, label, case) triples for run_case."""
+    dev = torch.device("cuda")
+    sh = SHAPES["qwen2-0.5b"]
+    Hq, Hkv, D = sh["Hq"], sh["Hkv"], sh["D"]
+    q = torch.randn((SELECT_MODE_B, Hq, D), generator=gen,
+                    device=dev).bfloat16()
+    cur_len = torch.tensor([SELECT_MODE_NB * BS - 1, 0, 70 * BS + 5,
+                            SELECT_MODE_NB * BS - 40], dtype=torch.int32,
+                           device=dev)
+    _, tie_meta, sel_len = _select_inputs(torch, gen, cur_len, Hkv, D,
+                                          SELECT_MODE_NB)
+    mean = torch.randn((SELECT_MODE_B, Hkv, SELECT_MODE_NB, D),
+                       generator=gen, device=dev)
+    mean[:, :, 5:9] = mean[:, :, 4:5]
+    out = []
+    for label, metadata, reduce in SELECT_MODES:
+        meta = mean if metadata == "mean" else tie_meta
+        kw = dict(block_size=BS, top_k=K, sink_blocks=1, recent_blocks=2,
+                  metadata=metadata, group_reduce=reduce)
+        arch = f"qwen2-0.5b mode={label}"
+        select_faults(torch, ops, ref, q, meta, sel_len, kw, arch)
+        out.append(("score_select:mean" if metadata == "mean"
+                    and reduce == "max" else "score_select:sum",
+                    f"arch={arch}",
+                    case_select(torch, ops, ref, q, meta, sel_len, **kw)))
+    return out
+
+
 def _save_inputs(torch, ops, gen, dev, Hkv: int, D: int) -> list:
     """quant_save_blocks items shaped as the int8 serve makes them, over
     4 requests' pools (2 layers, 12 blocks of BS tokens; blocks 8-11
@@ -1477,7 +1704,9 @@ def phase_parity(torch, ops, ref, timer, seed: int) -> dict:
                               + parity_moe_shapes(torch, ops, ref, gen)
                               + parity_frontend_shapes(torch, ops, ref,
                                                        gen)
-                              + parity_scan_shapes(torch, ops, ref, gen)):
+                              + parity_scan_shapes(torch, ops, ref, gen)
+                              + parity_select_modes(torch, ops, ref, gen)
+                              + parity_wkv6_shapes(torch, ops, ref, gen)):
         results.setdefault(name, {})[label] = run_case(
             "parity", label, name, case, timer)
     return results
@@ -1969,6 +2198,9 @@ class MainPathCapture:
     reference."""
 
     WIDEST = ("zero_blocks_hkv:drop",)
+    # kept from the decode step with the most rows, whenever it comes (an
+    # attention-free model launches no attention to count steps by)
+    WIDEST_ROWS = ("wkv6:decode",)
 
     def __init__(self, torch, ops, from_attn: int, keep=None,
                  layers: int = 1):
@@ -2041,9 +2273,15 @@ class MainPathCapture:
         if name == "quant_save_blocks":
             T = max(sv.stripe.shape[1] for sv in args[0])
             return f"{name}:{'prefill' if T > 1 else 'decode'}"
-        if name == "selective_scan":
+        if name in ("selective_scan", "wkv6"):
             return f"{name}:{'prefill' if args[0].shape[1] > 1 else 'decode'}"
-        return name            # score_select and the rest: one case each
+        if name == "score_select":
+            scoring = (kw.get("metadata", "cuboid"),
+                       kw.get("group_reduce", "max"))
+            return (name if scoring == ("cuboid", "max")
+                    else f"{name}:mean" if scoring == ("mean", "max")
+                    else f"{name}:sum")
+        return name            # the rest: one case each
 
     def _wrap(self, name, fn):
         def wrapped(*args, **kw):
@@ -2057,9 +2295,10 @@ class MainPathCapture:
                     and key != "flash_prefill:cross_decode")
                    or attn >= self.from_attn
                    or key in ("quant_save_blocks:prefill",
-                              "selective_scan:prefill"))
-            wider = (key in self.WIDEST and key in self.inputs
-                     and attn < self.until_attn
+                              "selective_scan:prefill", "wkv6:prefill"))
+            wider = (key in self.inputs
+                     and ((key in self.WIDEST and attn < self.until_attn)
+                          or key in self.WIDEST_ROWS)
                      and len(args[1]) > len(self.inputs[key][0][1]))
             if (due and (key not in self.inputs or wider)
                     and (self.keep is None or key in self.keep)):
@@ -2088,19 +2327,22 @@ def phase_mainpath(torch, ops, ref, timer, caps: dict,
               "dequantize_blocks": case_dequantize,
               "dequantize_scatter_blocks": case_dequant_scatter,
               "quant_save_blocks": case_quant_save,
-              "selective_scan": case_scan}
+              "selective_scan": case_scan,
+              "wkv6": case_wkv}
     results = {}
     for path, cap in caps.items():
         for key, (args, kw) in sorted(cap.inputs.items()):
             name = key.split(":")[0]
             mode = key.split(":")[1] if ":" in key else ""
             label = f"path={path}" + (f" mode={mode}" if mode else "")
-            res = run_case("mainpath", label, name,
+            # score_select's other scorings keep records of their own
+            rec = key if key in KERNELS else name
+            res = run_case("mainpath", label, rec,
                            makers[name](torch, ops, ref, *args, **kw), timer,
                            device=device)
             res["launches"] = cap.calls[key]
-            results.setdefault(name, {})[label] = res
-            if name == "score_select" and args[0].shape[-1] <= 128:
+            results.setdefault(rec, {})[label] = res
+            if key == "score_select" and args[0].shape[-1] <= 128:
                 # block_score, no longer on the serve path, on the same
                 # kept inputs: the redesigned scoring at the serve's shape
                 # (it keeps D <= 128: not at MLA's latent width)
@@ -2127,18 +2369,19 @@ def kernel_records(parity: dict, mainpath: dict, counts: dict) -> list:
     {path: launches by kernel}; a kernel's ``launches`` come from the
     path that owns it (the int8 serve for INT8_ONLY, the quant trio and
     write_blocks_hkv; the transfer phase for the flat gather and scatter;
-    jamba-v0.1-52b's fp serve of the models phase for selective_scan;
-    the fp serve for the rest, block_score included: it launches 0 times
-    there, and its times come from its replay on score_select's kept
-    inputs)."""
+    the models phase's serve named in OWNERS for selective_scan, wkv6 and
+    score_select's mean mode; the fp serve for the rest, block_score and
+    score_select's sum mode included: they launch 0 times there, and
+    their times come from block_score's replay on score_select's kept
+    inputs and from the sum mode's parity lines)."""
     records = []
     for name in KERNELS:
         cases = mainpath.get(name) or parity.get(name, {})
         if not cases:
             continue
-        owner = ("models_jamba-v0.1-52b" if name == "selective_scan"
-                 else "transfer" if name in TRANSFER_PATH else "serve_int8"
-                 if name in INT8_ONLY else "serve")
+        owner = (OWNERS.get(name)
+                 or ("transfer" if name in TRANSFER_PATH else "serve_int8"
+                     if name in INT8_ONLY else "serve"))
         own = {label: r for label, r in cases.items()
                if label.split()[0] == f"path={owner}"} or cases
         lead = max(own.values(), key=lambda r: r.get("launches", 0))
@@ -2862,7 +3105,11 @@ def _serve_model(torch, np, ops, arch: str, seed: int, caps: dict,
     from repro_torch.models import model as M
     tiers, _, keep = MODEL_RUNS[arch]
     tiers = (tiers,) if isinstance(tiers, str) else tiers
-    cfg = get_config(arch)
+    base, dsa = MODEL_VARIANTS.get(arch, (arch, {}))
+    cfg = get_config(base)
+    if dsa:
+        cfg = dataclasses.replace(cfg, dsa=dataclasses.replace(cfg.dsa,
+                                                               **dsa))
     red = MODEL_NOTES.get(arch, "")
     if arch in MODEL_LAYERS:
         red += f" reduced=num_layers:{MODEL_LAYERS[arch]}/{cfg.num_layers}"
@@ -2929,9 +3176,13 @@ def _serve_tier(torch, np, ops, arch, cfg, params, tier, first, seed, caps,
             raise AssertionError(f"{tag}: {arch}: {r.req_id} gave "
                                  f"{len(st.out_tokens)} tokens or "
                                  f"non-finite logits")
-    want = (INT8_PATH if tier == "int8" else FP_PATH) + (
-        ("selective_scan",) if cfg.arch_type == "hybrid" else ())
-    missing = [k for k in want if counts[k] == 0]
+    if cfg.attention_type == "none":
+        want = ("wkv6",)                     # RWKV6: no attention layer
+    else:
+        want = (INT8_PATH if tier == "int8" else FP_PATH) + (
+            ("selective_scan",) if cfg.arch_type == "hybrid" else ()) + (
+            ("score_select:mean",) if cfg.dsa.metadata == "mean" else ())
+    missing = [k for k in want if counts.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"{tag}: kernels not launched on {arch}'s "
                              f"path: {missing}")
@@ -2944,7 +3195,12 @@ def _serve_tier(torch, np, ops, arch, cfg, params, tier, first, seed, caps,
         + (f"attention=mla latent={cfg.kv_cache_dim} "
            f"qk={cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim} "
            f"v={cfg.mla.v_head_dim} " if cfg.attention_type == "mla"
+           else f"attention=none rwkv_heads={cfg.d_model // cfg.rwkv_head_dim}"
+           f"x{cfg.rwkv_head_dim} d_ff={cfg.d_ff} "
+           if cfg.attention_type == "none"
            else f"head_dim={cfg.head_dim} ")
+        + (f"dsa_metadata={cfg.dsa.metadata} "
+           if cfg.dsa.metadata != "cuboid" else "")
         + (f"experts={cfg.num_experts} top_k={cfg.top_k_experts} "
            f"d_ff={cfg.d_ff} dense_residual={cfg.moe_dense_residual} "
            if cfg.num_experts else "")
@@ -2976,8 +3232,8 @@ def _serve_tier(torch, np, ops, arch, cfg, params, tier, first, seed, caps,
         + " by case " + json.dumps(cap.calls) + red)
     if cfg.num_experts:
         _moe_check(tag, arch, cfg, eng, moe, red)
-    if cfg.arch_type == "hybrid":
-        _hybrid_check(tag, arch, cfg, eng, counts, red)
+    if cfg.arch_type == "hybrid" or cfg.attention_type == "none":
+        _recurrent_check(tag, arch, cfg, eng, counts, red)
     if first:
         caps[f"{tag}_{arch}"] = cap
     if inspect is not None:
@@ -2988,23 +3244,28 @@ def _serve_tier(torch, np, ops, arch, cfg, params, tier, first, seed, caps,
     return {f"counts_{tier}": counts}
 
 
-def _hybrid_check(tag: str, arch: str, cfg, eng, counts: dict,
-                  red: str) -> None:
-    """A hybrid serve's own numbers: the Mamba layers' scans (a prefill
-    group's or a decode step's, one selective_scan launch each) and the
-    host stages.  A decode-only iteration's host stage must run at the
+def _recurrent_check(tag: str, arch: str, cfg, eng, counts: dict,
+                     red: str) -> None:
+    """A recurrent serve's own numbers (a hybrid's Mamba layers, RWKV6's
+    every layer): the recurrent layers' scans (a prefill group's or a
+    decode step's, one selective_scan or wkv6 launch each) and the host
+    stages.  A decode-only iteration's host stage must run at the
     attention layers only (one per attention layer: no select, no idx
-    copy and no host stage at a Mamba layer)."""
+    copy and no host stage at a recurrent layer; none at all for
+    RWKV6)."""
     attn = sorted(i for i in range(cfg.num_layers)
                   if cfg.is_attention_layer(i))
+    scan = "wkv6" if cfg.attention_type == "none" else "selective_scan"
     decode_only = [e for e in eng.mixed_iter_log
                    if e["decode_rows"] and not e["prefill_rows"]]
     stages = sorted({len(e["layers"]) for e in decode_only})
-    log(f"phase={tag} arch={arch} hybrid attention_layers={attn} "
-        f"mamba_layers={cfg.num_layers - len(attn)} "
-        f"selective_scan_launches={counts['selective_scan']} "
+    log(f"phase={tag} arch={arch} recurrent attention_layers={attn} "
+        f"recurrent_layers={cfg.num_layers - len(attn)} "
+        f"{scan}_launches={counts[scan]} "
         f"decode_only_iterations={len(decode_only)} "
-        f"host_stages_per_decode_step={stages}" + red)
+        f"host_stages_per_decode_step={stages} "
+        f"host_syncs={sum(p.host_syncs for p in eng.planes.values())}"
+        + red)
     bad = [e["layers"] for e in decode_only if sorted(e["layers"]) != attn]
     if bad or not decode_only:
         raise AssertionError(f"{tag}: {arch}: a decode step's host stage "

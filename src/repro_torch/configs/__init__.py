@@ -1,7 +1,8 @@
 """Architecture config registry of the port: the decoders it serves (GQA, MLA
 for minicpm3-4b, the MoE FFN for kimi-k2 and arctic-480b), the hybrid
-Mamba + attention jamba-v0.1-52b, the VLM internvl2-2b (a prefix of patch
-embeddings) and the encoder-decoder whisper-small.  Each module exports
+Mamba + attention jamba-v0.1-52b, the attention-free RWKV6 rwkv6-1.6b,
+the VLM internvl2-2b (a prefix of patch embeddings) and the
+encoder-decoder whisper-small.  Each module exports
 ``CONFIG`` (the full-scale config, source cited) and ``smoke_config()`` (a
 reduced variant for CPU tests), copied from the reference registry."""
 from __future__ import annotations
@@ -19,6 +20,7 @@ _ARCH_MODULES = {
     "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t_a32b",
     "arctic-480b": "repro_torch.configs.arctic_480b",
     "jamba-v0.1-52b": "repro_torch.configs.jamba_v0_1_52b",
+    "rwkv6-1.6b": "repro_torch.configs.rwkv6_1_6b",
     "internvl2-2b": "repro_torch.configs.internvl2_2b",
     "whisper-small": "repro_torch.configs.whisper_small",
     # the paper's own evaluation models

@@ -24,7 +24,9 @@ plane holds one latent pool per layer and no V pool.  The state's
 layer's attend; a plane holds requests whose ``extra`` shapes agree (the
 engine keys its planes so).  A hybrid's Mamba layers hold their rows'
 recurrent states ({"conv", "ssm"}, padded to ``b_cap`` rows) beside the
-attention layers' pools; a decode step runs such a layer as one stage
+attention layers' pools, and RWKV6's layers theirs ({"shift_t",
+"shift_c", "S"}; with no attention layer the plane holds no pool and no
+pool table); a decode step runs such a layer as one stage
 (``model.decode_recurrent_layer``: no select, no ``idx`` copy, no host
 stage) and replaces its state.  Stage functions are plain calls of
 ``models/model.py``.
@@ -165,14 +167,14 @@ class DevicePoolPlane:
     def _table_pools(self, caches: List[Dict]) -> None:
         """The pool table over every attention layer's pools, and where
         each model layer's K pool sits in it (recurrent layers have
-        none)."""
+        none; a plane with no attention layer, RWKV's, has no table)."""
         pools = []
         self._pool_index = {}
         for l, c in enumerate(caches):
             if M.is_pool_cache(c):
                 self._pool_index[l] = len(pools)
                 pools.extend(c[key] for key in self._kv_keys(c))
-        self.pool_table = ops.PoolTable(pools)
+        self.pool_table = ops.PoolTable(pools) if pools else None
         self._kvf = len(pools) // max(len(self._pool_index), 1)
 
     def _grow(self, b_cap: int, nb_cap: int) -> None:

@@ -9,10 +9,11 @@ Counterpart of ``repro/core/dsa.py``, with the same shape conventions:
     scores     (B, Hkv, NB)            -- group-reduced over GQA query heads
     selection  (B, Hkv, K) int32
 
-On the GPU the decode select stage, cuboid/max scoring then top-k
-(``score_and_select``), is the fused ``score_select`` kernel, and
-``score_blocks``' cuboid/max case the ``block_score`` kernel
-(``kernels/ops.py``); everything else is plain PyTorch.
+On the GPU the decode select stage, scoring then top-k
+(``score_and_select``), is the fused ``score_select`` kernel for every
+metadata and group reduction the reference defines, and ``score_blocks``'
+cuboid/max case the ``block_score`` kernel (``kernels/ops.py``);
+everything else is plain PyTorch.
 """
 from __future__ import annotations
 
@@ -71,23 +72,7 @@ def score_blocks(q: torch.Tensor, meta: torch.Tensor,
     default) is the ``block_score`` kernel on the GPU."""
     if method == "cuboid" and group_reduce == "max":
         return ops.block_score(q, meta)
-    B, Hq, D = q.shape
-    Hkv = meta.shape[1]
-    qf = q.float().reshape(B, Hkv, Hq // Hkv, D)
-    if method == "mean":
-        s = torch.einsum("bhgd,bhnd->bhgn", qf, meta.float())
-    elif method == "cuboid":
-        s = (torch.einsum("bhgd,bhnd->bhgn", qf.clamp(min=0.0),
-                          meta[..., 1, :].float())
-             + torch.einsum("bhgd,bhnd->bhgn", qf.clamp(max=0.0),
-                            meta[..., 0, :].float()))
-    else:
-        raise ValueError(f"unknown DSA metadata method: {method}")
-    if group_reduce == "max":
-        return s.amax(dim=2)
-    if group_reduce == "sum":
-        return s.sum(dim=2)
-    raise ValueError(group_reduce)
+    return ref.block_score(q, meta, method, group_reduce)
 
 
 def selected_block_ids(sel_row) -> list:
@@ -120,23 +105,16 @@ def score_and_select(q: torch.Tensor, meta: torch.Tensor, cfg: DSAConfig,
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The decode select stage: ``select_blocks(score_blocks(q, meta,
     cfg.metadata, group_reduce), cfg, cur_len + 1)``, cur_len (B,) the
-    tokens in the cache before this step's append.  Cuboid metadata with
-    the max over the GQA group is the fused ``score_select`` kernel on the
-    GPU (one launch from q to the ids), and its plain version on the CPU;
-    other metadata or reductions run the plain composition on the CPU and
-    raise on the GPU, where no kernel computes them."""
-    if cfg.metadata == "cuboid" and group_reduce == "max":
-        return ops.score_select(q, meta, cur_len,
-                                block_size=cfg.block_size,
-                                top_k=cfg.top_k_blocks,
-                                sink_blocks=cfg.sink_blocks,
-                                recent_blocks=cfg.recent_blocks)
-    if q.device.type != "cpu" or meta.device.type != "cpu":
-        raise ValueError(f"score_and_select: no kernel for metadata "
-                         f"{cfg.metadata!r} with the {group_reduce!r} "
-                         f"reduction (the GPU path is cuboid, max)")
-    return select_blocks(score_blocks(q, meta, cfg.metadata, group_reduce),
-                         cfg, cur_len + 1)
+    tokens in the cache before this step's append.  Every (metadata,
+    reduction) pair the reference defines (cuboid or mean, max or sum) is
+    the fused ``score_select`` kernel on the GPU (one launch from q to the
+    ids) and its plain version on the CPU; an unknown one raises
+    ValueError."""
+    return ops.score_select(q, meta, cur_len, block_size=cfg.block_size,
+                            top_k=cfg.top_k_blocks,
+                            sink_blocks=cfg.sink_blocks,
+                            recent_blocks=cfg.recent_blocks,
+                            metadata=cfg.metadata, group_reduce=group_reduce)
 
 
 def sparse_decode_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,

@@ -18,10 +18,11 @@ segment groups together.  Per attention layer *i*:
    plane's cross keys and values (Whisper's ``enc_kvs``: planes of
    different encoder lengths ride one walk).
 
-A hybrid's Mamba layer is one stage: every decode plane runs it over its
-rows' recurrent states (no select, no ``idx`` copy), the layer's prefill
-groups run beside it, and ``layer_cb`` fires for those groups only (with
-``kind`` "mamba": no KV to save).
+A hybrid's Mamba layer, and each of RWKV6's layers, is one stage: every
+decode plane runs it over its rows' recurrent states (no select, no
+``idx`` copy), the layer's prefill groups run beside it, and ``layer_cb``
+fires for those groups only (with ``kind`` "mamba" or "rwkv": no KV to
+save), so an RWKV6 decode step runs no host stage.
 
 After the walk each decode plane takes its logits stage and each prefill
 plane its shared finalize.  With a live tracer the walk emits the
@@ -77,10 +78,10 @@ class DecodeRun:
 
 @dataclasses.dataclass
 class LayerWindow:
-    """What ONE per-layer host stage sees: the layer's kind ("attn" or
-    "mamba"), every decode plane's selection for this layer (host int32
-    arrays (B_cap, Hkv, K); none at a Mamba layer) plus every prefill
-    group that just ran here."""
+    """What ONE per-layer host stage sees: the layer's kind ("attn",
+    "mamba" or "rwkv"), every decode plane's selection for this layer
+    (host int32 arrays (B_cap, Hkv, K); none at a recurrent layer) plus
+    every prefill group that just ran here."""
     layer: int
     kind: str
     selections: List[Tuple[DecodeRun, Optional[np.ndarray]]]

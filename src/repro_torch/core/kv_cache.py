@@ -49,8 +49,10 @@ class KVGeometry:
     def of_model(cls, cfg) -> "KVGeometry":
         """The engine's geometry for a ``ModelConfig``: MLA caches one
         latent (``kv_factor`` 1), counted over ``max(num_kv_heads, 1)``
-        heads as the reference counts it."""
-        return cls(num_layers=cfg.num_attention_layers(),
+        heads and ``max(num_attention_layers, 1)`` layers as the
+        reference counts them (an attention-free model, RWKV6, has one
+        layer of zero-byte blocks: head_dim 0)."""
+        return cls(num_layers=max(cfg.num_attention_layers(), 1),
                    num_kv_heads=max(cfg.num_kv_heads, 1),
                    block_size=cfg.dsa.block_size, head_dim=cfg.kv_cache_dim,
                    kv_factor=1 if cfg.attention_type == "mla" else 2)

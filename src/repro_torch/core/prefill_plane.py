@@ -21,8 +21,8 @@ whole batch.  Rows whose last segment ran share one logits launch.
 For Whisper each row also carries its per-layer cross keys and values
 (``enc``), which every launch of the layer passes on; requests share a
 plane only where those shapes agree (the engine keys its planes so).
-For a hybrid each row carries every Mamba layer's recurrent state
-(``rec``, zeroed at admission): a Mamba layer's group runs
+For a hybrid (or RWKV6) each row carries every recurrent layer's state
+(``rec``, zeroed at admission): a Mamba or RWKV layer's group runs
 ``model.prefill_recurrent_layer_batched`` over the bucketed window and
 carries the states (parked rows unchanged), writes no KV, and
 ``rec_state`` reads a row's states back at finalize.
@@ -94,7 +94,8 @@ class PrefillPlane:
         self.ctx_v: Optional[torch.Tensor] = None     # None for MLA
         # Whisper: per layer (k, v) each (B_cap, S_enc, Hkv, hd)
         self.enc: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None
-        # per layer: a Mamba layer's rows' {"conv", "ssm"} states, or None
+        # per layer: a recurrent layer's rows' states ({"conv", "ssm"} or
+        # {"shift_t", "shift_c", "S"}), or None
         self.rec: Optional[List[Optional[Dict[str, torch.Tensor]]]] = None
         self._tok_len: Optional[torch.Tensor] = None  # (B_cap,) int32
         self.rows: Dict[str, int] = {}

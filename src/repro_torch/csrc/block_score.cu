@@ -11,7 +11,12 @@
 //
 // `score_select` fuses that bound with the selection the reference runs
 // after it, `select_blocks(score_blocks(q, meta), cfg, cur_len + 1)`
-// (src/repro/core/dsa.py:133-162): blocks at or past n = ceil((cur_len +
+// (src/repro/core/dsa.py:133-162), and computes the reference's other
+// scorings in `score_blocks` (src/repro/core/dsa.py:86-117) in the same
+// launch: InfLLM's mean metadata, (B, Hkv, NB, D) float32 block means,
+// scored q . mean_n, and the sum over the GQA group in place of the max,
+// each as a template instance (the cuboid / max instance is the code it
+// was, bit for bit).  Then: blocks at or past n = ceil((cur_len +
 // 1) / bs) masked to -1e30, valid sink and recent blocks forced to +inf,
 // the top min(K, NB) per (request, kv-head), sel_valid = score > -5e29 and
 // invalid ids replaced by block 0.  It takes cur_len as the cache holds it
@@ -101,19 +106,24 @@ __device__ __forceinline__ unsigned order_bits(float f) {
 }
 
 // The GQA group's q rows (G * D values) as pos / neg float32 in shared
-// memory.
-template <typename T>
+// memory; with kMean q itself in ``pos`` (``neg`` unused).
+template <typename T, bool kMean = false>
 __device__ __forceinline__ void load_group(const T* __restrict__ qg,
                                            float* pos, float* neg, int n) {
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     const float x = to_f32(qg[i]);
-    pos[i] = fmaxf(x, 0.f);
-    neg[i] = fminf(x, 0.f);
+    if constexpr (kMean) {
+      pos[i] = x;
+    } else {
+      pos[i] = fmaxf(x, 0.f);
+      neg[i] = fminf(x, 0.f);
+    }
   }
 }
 
-// One block's (2, D) metadata row as the 8 lanes of its lane group hold
-// it: lane ``sub`` the 16-byte chunks sub, sub + 8, ... of min and of max.
+// One block's metadata row as the 8 lanes of its lane group hold it: lane
+// ``sub`` the 16-byte chunks sub, sub + 8, ... of min and of max (cuboid,
+// (2, D)), or of the mean in ``mx`` (kMean, (D,); ``mn`` unused).
 template <int kChunks>
 struct MetaRegs {
   float4 mn[kChunks], mx[kChunks];
@@ -121,7 +131,7 @@ struct MetaRegs {
 
 // Loads the row (16-byte aligned, D % 4 == 0); an inactive lane loads
 // nothing.  Issued before the q rows are staged, so the two loads overlap.
-template <int kChunks>
+template <int kChunks, bool kMean = false>
 __device__ __forceinline__ void load_meta(MetaRegs<kChunks>& m,
                                           const float* __restrict__ mrow,
                                           int D, int sub, bool active) {
@@ -129,7 +139,11 @@ __device__ __forceinline__ void load_meta(MetaRegs<kChunks>& m,
 #pragma unroll
   for (int c = 0; c < kChunks; ++c) {
     const int ch = sub + kLanes * c;
-    if (active && ch < chunks) {
+    if constexpr (kMean) {
+      m.mx[c] = (active && ch < chunks)
+                    ? __ldg(reinterpret_cast<const float4*>(mrow) + ch)
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+    } else if (active && ch < chunks) {
       m.mn[c] = __ldg(reinterpret_cast<const float4*>(mrow) + ch);
       m.mx[c] = __ldg(reinterpret_cast<const float4*>(mrow + D) + ch);
     } else {
@@ -138,17 +152,19 @@ __device__ __forceinline__ void load_meta(MetaRegs<kChunks>& m,
   }
 }
 
-// The cuboid bound of the block in ``m``, max over the group's G query
-// heads, summed by the 8 lanes of the lane group; every lane of the group
-// returns it.  All 32 lanes of the warp must call it (the shuffles take
-// the full mask).
-template <int kChunks>
+// The score of the block in ``m``: per query head of the group the cuboid
+// bound, pos . max + neg . min, or with kMean q . mean (``pos`` then holds
+// q itself), reduced over the group's G query heads by the max, or with
+// kSum by the sum (in head order); summed by the 8 lanes of the lane group,
+// and every lane of the group returns it.  All 32 lanes of the warp must
+// call it (the shuffles take the full mask).
+template <int kChunks, bool kMean = false, bool kSum = false>
 __device__ __forceinline__ float block_bound(const MetaRegs<kChunks>& m,
                                              const float* pos,
                                              const float* neg, int D, int G,
                                              int sub) {
   const int chunks = D / 4;
-  float best = -INFINITY;
+  float best = kSum ? 0.f : -INFINITY;
   for (int g = 0; g < G; ++g) {
     const float4* p4 = reinterpret_cast<const float4*>(pos + g * D);
     const float4* n4 = reinterpret_cast<const float4*>(neg + g * D);
@@ -157,16 +173,25 @@ __device__ __forceinline__ float block_bound(const MetaRegs<kChunks>& m,
     for (int c = 0; c < kChunks; ++c) {
       const int ch = sub + kLanes * c;
       if (ch < chunks) {
-        const float4 p = p4[ch], n = n4[ch];
-        s += p.x * m.mx[c].x + p.y * m.mx[c].y + p.z * m.mx[c].z
-             + p.w * m.mx[c].w + n.x * m.mn[c].x + n.y * m.mn[c].y
-             + n.z * m.mn[c].z + n.w * m.mn[c].w;
+        const float4 p = p4[ch];
+        if constexpr (kMean) {
+          s += p.x * m.mx[c].x + p.y * m.mx[c].y + p.z * m.mx[c].z
+               + p.w * m.mx[c].w;
+        } else {
+          const float4 n = n4[ch];
+          s += p.x * m.mx[c].x + p.y * m.mx[c].y + p.z * m.mx[c].z
+               + p.w * m.mx[c].w + n.x * m.mn[c].x + n.y * m.mn[c].y
+               + n.z * m.mn[c].z + n.w * m.mn[c].w;
+        }
       }
     }
     s += __shfl_xor_sync(0xffffffffu, s, 4);
     s += __shfl_xor_sync(0xffffffffu, s, 2);
     s += __shfl_xor_sync(0xffffffffu, s, 1);
-    best = fmaxf(best, s);
+    if constexpr (kSum)
+      best += s;
+    else
+      best = fmaxf(best, s);
   }
   return best;
 }
@@ -204,7 +229,7 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
-template <typename T, int kChunks>
+template <typename T, int kChunks, bool kMean, bool kSum>
 __global__ void __launch_bounds__(kSelThreads)
 score_select_kernel(const T* __restrict__ q, const float* __restrict__ meta,
                     const int* __restrict__ cur_len, int* __restrict__ idx,
@@ -228,16 +253,18 @@ score_select_kernel(const T* __restrict__ q, const float* __restrict__ meta,
   const int n0 = rank * per;
   const int n1 = min(NB, n0 + per);
   constexpr int kPass = kSelThreads / kLanes;     // blocks per pass
+  constexpr int kRows = kMean ? 1 : 2;            // metadata rows a block
 
   // this CTA has started: its shared memory may be written by the others
   // once every CTA has arrived (the wait comes after the first scores)
   cluster_arrive_relaxed();
   MetaRegs<kChunks> m;
   int n = n0 + tid / kLanes;
-  load_meta(m, meta + (head_row * NB + (n < n1 ? n : 0)) * 2 * D, D, sub,
-            n < n1);
-  load_group(q + ((size_t)b * Hkv * G + (size_t)h * G) * D, pos, neg,
-             G * D);
+  load_meta<kChunks, kMean>(
+      m, meta + (head_row * NB + (n < n1 ? n : 0)) * kRows * D, D, sub,
+      n < n1);
+  load_group<T, kMean>(q + ((size_t)b * Hkv * G + (size_t)h * G) * D, pos,
+                       neg, G * D);
   // blocks holding a token once this step's token is appended
   const int n_valid = (cur_len[b] + 1 + bs - 1) / bs;
   __syncthreads();   // pos / neg in place
@@ -246,9 +273,11 @@ score_select_kernel(const T* __restrict__ q, const float* __restrict__ meta,
   bool waited = false;
   for (int base = n0; base < n1; base += kPass, n += kPass) {
     if (base != n0)
-      load_meta(m, meta + (head_row * NB + (n < n1 ? n : 0)) * 2 * D, D,
-                sub, n < n1);
-    const float s = block_bound(m, pos, neg, D, G, sub);
+      load_meta<kChunks, kMean>(
+          m, meta + (head_row * NB + (n < n1 ? n : 0)) * kRows * D, D, sub,
+          n < n1);
+    const float s = block_bound<kChunks, kMean, kSum>(m, pos, neg, D, G,
+                                                      sub);
     if (!waited) {   // uniform across the CTA
       cluster_wait();
       waited = true;
@@ -424,26 +453,40 @@ extern "C" int launch_block_score(const void* q, const void* meta, void* out,
 }
 
 // score_select: q (B, Hkv * G, D) bfloat16, meta (B, Hkv, NB, 2, D)
-// float32, cur_len (B,) int32 tokens in the cache before this step ->
-// idx (B, Hkv, K) int32 and sel_valid (B, Hkv, K) bool, K = min(top_k, NB)
-// (the wrapper passes K).  Limits checked by the wrapper: D <= 320,
-// D % 4 == 0, NB >= 1, and 8 * G * D + 4 * NB bytes of shared memory
-// within the card's opt-in limit (ops.select_max_nb).  D <= 128 runs the
-// narrow instantiation.
+// float32 (cuboid) or (B, Hkv, NB, D) float32 (``mean`` != 0), cur_len
+// (B,) int32 tokens in the cache before this step -> idx (B, Hkv, K) int32
+// and sel_valid (B, Hkv, K) bool, K = min(top_k, NB) (the wrapper passes
+// K); ``sum`` != 0 sums over the GQA group in place of the max.  Limits
+// checked by the wrapper: D <= 320, D % 4 == 0, NB >= 1, and 8 * G * D +
+// 4 * NB bytes of shared memory within the card's opt-in limit
+// (ops.select_max_nb).  D <= 128 runs the narrow instantiation.
 extern "C" int launch_score_select(const void* q, const void* meta,
                                    const void* cur_len, void* idx,
                                    void* sel_valid, int B, int Hkv, int NB,
                                    int D, int G, int K, int bs, int sink,
-                                   int recent, void* stream) {
-  static size_t opted_narrow = 0, opted_wide = 0;
+                                   int recent, int mean, int sum,
+                                   void* stream) {
+  using Kern = void (*)(const __nv_bfloat16*, const float*, const int*,
+                        int*, bool*, int, int, int, int, int, int, int,
+                        int);
+  // [wide][mean][sum], each with the shared memory it has opted in to
+  static const Kern kernels[2][2][2] = {
+      {{score_select_kernel<__nv_bfloat16, kNarrowChunks, false, false>,
+        score_select_kernel<__nv_bfloat16, kNarrowChunks, false, true>},
+       {score_select_kernel<__nv_bfloat16, kNarrowChunks, true, false>,
+        score_select_kernel<__nv_bfloat16, kNarrowChunks, true, true>}},
+      {{score_select_kernel<__nv_bfloat16, kWideChunks, false, false>,
+        score_select_kernel<__nv_bfloat16, kWideChunks, false, true>},
+       {score_select_kernel<__nv_bfloat16, kWideChunks, true, false>,
+        score_select_kernel<__nv_bfloat16, kWideChunks, true, true>}}};
+  static size_t opted[2][2][2] = {};
   if (B == 0 || Hkv == 0 || NB == 0) return (int)cudaGetLastError();
   if (D > kLanes * 4 * kWideChunks) return (int)cudaErrorInvalidValue;
-  const bool narrow = D <= kLanes * 4 * kNarrowChunks;
-  const auto kern = narrow ? score_select_kernel<__nv_bfloat16, kNarrowChunks>
-                           : score_select_kernel<__nv_bfloat16, kWideChunks>;
+  const int wide = D <= kLanes * 4 * kNarrowChunks ? 0 : 1;
+  const int im = mean ? 1 : 0, is = sum ? 1 : 0;
+  const Kern kern = kernels[wide][im][is];
   const size_t smem = sizeof(float) * (2 * (size_t)G * D + NB);
-  cudaError_t e = smem_opt_in(kern, smem,
-                              narrow ? &opted_narrow : &opted_wide);
+  cudaError_t e = smem_opt_in(kern, smem, &opted[wide][im][is]);
   if (e != cudaSuccess) return (int)e;
   const int C = std::min(kMaxCluster, (NB + 15) / 16);
   cudaLaunchConfig_t cfg = {};

@@ -34,6 +34,7 @@ KERNEL_SOURCES = {
     "flash_prefill": "flash_prefill.cu",
     "quant_blocks": "quant_blocks.cu",
     "selective_scan": "selective_scan.cu",
+    "wkv6": "wkv6.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
@@ -52,7 +53,7 @@ _SIGNATURES = {
     "block_score": ("block_score", "launch_block_score",
                     [_P, _P, _P] + [_I] * 5 + [_P]),
     "score_select": ("block_score", "launch_score_select",
-                     [_P] * 5 + [_I] * 9 + [_P]),
+                     [_P] * 5 + [_I] * 11 + [_P]),
     "gather_blocks_hkv": ("gather_blocks", "launch_gather_blocks_hkv",
                           [_P, _L, _I, _P, _P, _I, _I, _I, _L, _P]),
     "gather_blocks": ("gather_blocks", "launch_gather_blocks",
@@ -81,6 +82,7 @@ _SIGNATURES = {
                             [_P, _P]),
     "selective_scan": ("selective_scan", "launch_selective_scan",
                        [_P] * 9 + [_I] * 5 + [_P]),
+    "wkv6": ("wkv6", "launch_wkv6", [_P] * 8 + [_I] * 4 + [_P]),
 }
 
 

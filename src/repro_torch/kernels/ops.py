@@ -35,14 +35,16 @@ _PAYLOAD_CODES = {torch.float32: 0, torch.bfloat16: 1}   # common.cuh DType
 
 
 class LaunchCounter:
-    """Kernel launches per wrapper name since the last ``reset``."""
+    """Kernel launches per wrapper name since the last ``reset``; a
+    launch of a kernel's other mode also counts under "name:mode"
+    (score_select's "mean" and "sum" scorings)."""
 
     NAMES = ("sparse_decode_attention", "block_score", "score_select",
              "gather_blocks_hkv", "scatter_blocks_hkv", "zero_blocks_hkv",
              "write_blocks_hkv", "flash_prefill", "quantize_blocks",
              "dequantize_blocks", "dequantize_scatter_blocks",
              "quant_save_blocks", "gather_blocks", "scatter_blocks",
-             "selective_scan")
+             "selective_scan", "wkv6")
 
     def __init__(self):
         self.counts: Dict[str, int] = dict.fromkeys(self.NAMES, 0)
@@ -53,8 +55,11 @@ class LaunchCounter:
     def snapshot(self) -> Dict[str, int]:
         return dict(self.counts)
 
-    def add(self, name: str) -> None:
+    def add(self, name: str, mode: Optional[str] = None) -> None:
         self.counts[name] += 1
+        if mode is not None:
+            key = f"{name}:{mode}"
+            self.counts[key] = self.counts.get(key, 0) + 1
 
 
 launches = LaunchCounter()
@@ -98,6 +103,7 @@ def _check_range(name: str, what: str, ids: np.ndarray, n: int) -> None:
 
 
 def _check_cuda(name: str, device: torch.device, **tensors) -> None:
+    _check(device.type == "cuda", f"{name}: tensors on {device}")
     for tname, t in tensors.items():
         _check(t.device == device,
                f"{name}: {tname} is on {t.device}, expected {device}")
@@ -285,31 +291,46 @@ def select_max_nb(G: int, D: int) -> int:
     return max(0, (SMEM_OPTIN_BYTES - 8 * G * D) // 4)
 
 
+SCORINGS = (("cuboid", "max"), ("cuboid", "sum"), ("mean", "max"),
+            ("mean", "sum"))
+
+
 def score_select(q: torch.Tensor, meta: torch.Tensor, cur_len: torch.Tensor,
                  *, block_size: int, top_k: int, sink_blocks: int,
-                 recent_blocks: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The decode select stage in one launch: the cuboid bound of every
-    block (as ``block_score``) and the DSA top-k over the cache once this
-    step's token is appended, cur_len (B,) int32 tokens before it (the
-    +1 is added in the kernel).  q (B, Hq, D); meta (B, Hkv, NB, 2, D)
-    float32 -> (idx (B, Hkv, K) int32, sel_valid (B, Hkv, K) bool),
+                 recent_blocks: int, metadata: str = "cuboid",
+                 group_reduce: str = "max"
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The decode select stage in one launch: the score of every block
+    (``ref.block_score``: the cuboid bound from meta (B, Hkv, NB, 2, D), or
+    with ``metadata="mean"`` q . mean from meta (B, Hkv, NB, D), float32;
+    max over the GQA group, or its sum with ``group_reduce="sum"``) and
+    the DSA top-k over the cache once this step's token is appended,
+    cur_len (B,) int32 tokens before it (the +1 is added in the kernel).
+    q (B, Hq, D) -> (idx (B, Hkv, K) int32, sel_valid (B, Hkv, K) bool),
     K = min(top_k, NB), invalid ids replaced by 0.  The kernel orders the
     ids by score, highest first, ties by block id, lowest first; the plain
     version (``torch.topk``) may order them otherwise.  On the GPU: NB <=
     ``select_max_nb(G, D)``."""
+    _check((metadata, group_reduce) in SCORINGS,
+           f"score_select: no scoring {metadata!r} with the "
+           f"{group_reduce!r} reduction")
     kw = dict(block_size=block_size, top_k=top_k, sink_blocks=sink_blocks,
-              recent_blocks=recent_blocks)
+              recent_blocks=recent_blocks, metadata=metadata,
+              group_reduce=group_reduce)
     if _all_cpu(q, meta, cur_len):
         return ref.score_select(q, meta, cur_len, **kw)
     name = "score_select"
+    mean = metadata == "mean"
     B, Hq, D = q.shape
-    _, Hkv, NB, two, Dm = meta.shape
+    Hkv, NB, Dm = meta.shape[1], meta.shape[2], meta.shape[-1]
     _check_cuda(name, q.device, q=q, meta=meta, cur_len=cur_len)
     _check(q.dtype == torch.bfloat16 and meta.dtype == torch.float32
            and cur_len.dtype == torch.int32,
            f"{name}: q bfloat16, meta float32, cur_len int32")
-    _check(meta.shape[0] == B and two == 2 and Dm == D and Hkv > 0
-           and Hq % Hkv == 0 and cur_len.shape == (B,),
+    _check(meta.shape[0] == B and Dm == D and Hkv > 0 and Hq % Hkv == 0
+           and cur_len.shape == (B,)
+           and (meta.dim() == 4 if mean
+                else meta.dim() == 5 and meta.shape[3] == 2),
            f"{name}: inconsistent shapes")
     G = Hq // Hkv
     _check(D <= SELECT_MAX_D and D % 4 == 0,
@@ -326,9 +347,11 @@ def score_select(q: torch.Tensor, meta: torch.Tensor, cur_len: torch.Tensor,
     valid = torch.empty((B, Hkv, K), dtype=torch.bool, device=q.device)
     rc = LIBS.fn(name)(q.data_ptr(), meta.data_ptr(), cur_len.data_ptr(),
                        idx.data_ptr(), valid.data_ptr(), B, Hkv, NB, D, G,
-                       K, block_size, sink_blocks, recent_blocks, _stream())
+                       K, block_size, sink_blocks, recent_blocks, int(mean),
+                       int(group_reduce == "sum"), _stream())
     _raise_on(rc, name)
-    launches.add(name)
+    launches.add(name, "sum" if group_reduce == "sum"
+                 else "mean" if mean else None)
     return idx, valid
 
 
@@ -1012,3 +1035,46 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
     _raise_on(rc, name)
     launches.add(name)
     return y, h
+
+
+# ---------------------------------------------------------------------------
+# wkv6: the RWKV6 time-mix's WKV recurrence
+# ---------------------------------------------------------------------------
+
+# the one head width the kernel takes (csrc/wkv6.cu kHead: a thread per
+# state column)
+WKV_HEAD = 64
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         w: torch.Tensor, u: torch.Tensor, S0: torch.Tensor
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RWKV6's WKV recurrence over a whole window (S = 1 is the decode
+    step): r, k, v, w (B, S, H, hd); u (H, hd); S0 (B, H, hd, hd) -> (y
+    (B, S, H, hd) float32, the state after token S-1 (B, H, hd, hd)
+    float32); see ``ref.wkv6``.  On the GPU: r, k and v bfloat16, w, u
+    and S0 float32, hd = 64, all contiguous."""
+    if _all_cpu(r, k, v, w, u, S0):
+        return ref.wkv6(r, k, v, w, u, S0)
+    name = "wkv6"
+    Bt, S, H, hd = r.shape
+    _check_cuda(name, r.device, r=r, k=k, v=v, w=w, u=u, S0=S0)
+    _check(r.dtype == k.dtype == v.dtype == torch.bfloat16
+           and w.dtype == u.dtype == S0.dtype == torch.float32,
+           f"{name}: r, k and v bfloat16; w, u and S0 float32")
+    _check(hd == WKV_HEAD, f"{name}: the kernel takes head width "
+                           f"{WKV_HEAD} only (hd = {hd})")
+    _check(k.shape == v.shape == w.shape == r.shape
+           and u.shape == (H, hd) and S0.shape == (Bt, H, hd, hd),
+           f"{name}: needs r, k, v, w (B, S, H, {hd}), u (H, {hd}), S0 "
+           f"(B, H, {hd}, {hd})")
+    y = torch.empty((Bt, S, H, hd), dtype=torch.float32, device=r.device)
+    S_out = torch.empty((Bt, H, hd, hd), dtype=torch.float32,
+                        device=r.device)
+    rc = LIBS.fn(name)(r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       w.data_ptr(), u.data_ptr(), S0.data_ptr(),
+                       y.data_ptr(), S_out.data_ptr(), Bt, S, H, hd,
+                       _stream())
+    _raise_on(rc, name)
+    launches.add(name)
+    return y, S_out

@@ -86,20 +86,34 @@ def write_blocks_hkv(pool: torch.Tensor, payload: torch.Tensor,
     return pool
 
 
-def block_score(q: torch.Tensor, meta: torch.Tensor) -> torch.Tensor:
-    """Quest cuboid upper bound, max over the GQA group.
+def block_score(q: torch.Tensor, meta: torch.Tensor,
+                metadata: str = "cuboid",
+                group_reduce: str = "max") -> torch.Tensor:
+    """Block criticality per query head, reduced over the GQA group (the
+    reference's ``dsa.score_blocks``) -> (B, Hkv, NB) float32.
 
-    q (B, Hq, D); meta (B, Hkv, NB, 2, D) float32 with [min, max]
-    interleaved on axis 3 (the pool's own layout) -> (B, Hkv, NB) f32:
-    max_g sum_d max(q_d mn_d, q_d mx_d) = pos @ mx^T + neg @ mn^T."""
+    q (B, Hq, D).  Cuboid: meta (B, Hkv, NB, 2, D) float32 with [min, max]
+    interleaved on axis 3 (the pool's own layout), the Quest upper bound
+    sum_d max(q_d mn_d, q_d mx_d) = pos @ mx^T + neg @ mn^T.  Mean (InfLLM):
+    meta (B, Hkv, NB, D) float32, q . mean.  ``group_reduce`` "max" or
+    "sum" over the group's query heads."""
     B, Hq, D = q.shape
     Hkv = meta.shape[1]
     qf = q.float().reshape(B, Hkv, Hq // Hkv, D)
-    pos = qf.clamp(min=0.0)
-    neg = qf.clamp(max=0.0)
-    s = (torch.einsum("bhgd,bhnd->bhgn", pos, meta[..., 1, :].float())
-         + torch.einsum("bhgd,bhnd->bhgn", neg, meta[..., 0, :].float()))
-    return s.amax(dim=2)
+    if metadata == "mean":
+        s = torch.einsum("bhgd,bhnd->bhgn", qf, meta.float())
+    elif metadata == "cuboid":
+        pos = qf.clamp(min=0.0)
+        neg = qf.clamp(max=0.0)
+        s = (torch.einsum("bhgd,bhnd->bhgn", pos, meta[..., 1, :].float())
+             + torch.einsum("bhgd,bhnd->bhgn", neg, meta[..., 0, :].float()))
+    else:
+        raise ValueError(f"unknown DSA metadata method: {metadata}")
+    if group_reduce == "max":
+        return s.amax(dim=2)
+    if group_reduce == "sum":
+        return s.sum(dim=2)
+    raise ValueError(f"unknown group reduction: {group_reduce}")
 
 
 def select_scores(scores: torch.Tensor, n_tokens: torch.Tensor, *,
@@ -147,12 +161,15 @@ def select_blocks(scores: torch.Tensor, n_tokens: torch.Tensor, *,
 
 def score_select(q: torch.Tensor, meta: torch.Tensor, cur_len: torch.Tensor,
                  *, block_size: int, top_k: int, sink_blocks: int,
-                 recent_blocks: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The decode select stage from q to the selected blocks: the cuboid
-    bound (``block_score``) then ``select_blocks`` over the cache once
+                 recent_blocks: int, metadata: str = "cuboid",
+                 group_reduce: str = "max"
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The decode select stage from q to the selected blocks: the block
+    scores (``block_score``) then ``select_blocks`` over the cache once
     this step's token is in it, ``cur_len + 1`` tokens (cur_len (B,) as
     the cache holds it before the append)."""
-    return select_blocks(block_score(q, meta), cur_len + 1,
+    return select_blocks(block_score(q, meta, metadata, group_reduce),
+                         cur_len + 1,
                          block_size=block_size, top_k=top_k,
                          sink_blocks=sink_blocks,
                          recent_blocks=recent_blocks)
@@ -350,3 +367,25 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
         ys.append((hs * C[:, sl, None, :]).sum(-1) + D * x[:, sl])
     y = torch.cat(ys, dim=1) if ys else x.new_zeros(x.shape)
     return y, h.clone()
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         w: torch.Tensor, u: torch.Tensor, S0: torch.Tensor
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RWKV6's WKV recurrence, a loop over tokens in the reference's
+    arithmetic order (``_wkv_step`` under ``jax.lax.scan``): r, k, v, w
+    (B, S, H, hd); u (H, hd); S0 (B, H, hd, hd).  Every input is widened
+    to float32; per token, with kv_ij = k_i v_j, y_j = sum_i r_i (S_ij +
+    u_i kv_ij), then S_ij = w_i S_ij + kv_ij.  A position with k = 0 and
+    w = 1 leaves S as it was.  Returns (y (B, S, H, hd) float32, S after
+    token S-1 (B, H, hd, hd) float32)."""
+    r, k, v, w = (t.float() for t in (r, k, v, w))
+    u = u.float()[None, :, :, None]
+    S = S0.float().clone()
+    ys = []
+    for t in range(r.shape[1]):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]           # (B,H,i,j)
+        ys.append(torch.einsum("bhij,bhi->bhj", S + u * kv, r[:, t]))
+        S = w[:, t, :, :, None] * S + kv
+    y = torch.stack(ys, dim=1) if ys else r.new_zeros(r.shape)
+    return y, S

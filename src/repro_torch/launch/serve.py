@@ -9,7 +9,8 @@ Random weights from ``--seed`` (bf16 on the GPU, float32 on the CPU).
 The frontend models' requests carry synthesized tensors, float32 from
 the same seed with numpy (``frontend_inputs``): internvl2-2b's
 ``patch_embeds`` (1, 256, 2048), whisper-small's ``frames`` (1, 1500,
-768), the stubbed ViT's and conv/mel frontend's outputs.  On
+768), the stubbed ViT's and conv/mel frontend's outputs.  RWKV6
+(rwkv6-1.6b) caches no KV: its transfer counters stay 0.  On
 the GPU (the default device) the engine charges wall-clock time, with the
 device synchronised at every iteration's end, so the TTFT/TBT printed are
 the card's; on the CPU they come from the copied analytic cost model.

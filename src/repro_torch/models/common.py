@@ -207,6 +207,17 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     return (xf * weight).to(dtype)
 
 
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in float32 (biased variance), cast back to x's dtype."""
+    dtype = x.dtype
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    xf = (xf - mu) * torch.rsqrt(var + eps)
+    return (xf * weight + bias).to(dtype)
+
+
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
     """SwiGLU FFN: (silu(x W_g) * (x W_u)) W_d."""

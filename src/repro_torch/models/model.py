@@ -1,10 +1,11 @@
 """Model assembly of the port: the decoder, with GQA or MLA attention
 and a dense or Mixture-of-Experts FFN, Jamba's hybrid of Mamba and
-attention layers, the VLM's prefix of patch embeddings and Whisper's
-encoder-decoder.
+attention layers, RWKV6's attention-free layers, the VLM's prefix of
+patch embeddings and Whisper's encoder-decoder.
 
-Counterpart of the dense, MoE, hybrid, VLM and encoder-decoder subset of
-``repro/models/model.py``.  Parameters are a plain dict of tensors in list
+Counterpart of ``repro/models/model.py`` in list mode (the reference's
+stacked layers and its scan paths have no counterpart: PyTorch runs the
+layers in a loop).  Parameters are a plain dict of tensors in list
 mode:
 
     {"embed": (V, d), "final_norm": (d,), "lm_head": (d, V),
@@ -24,7 +25,11 @@ stacked layers into this form).  A hybrid's Mamba layers (``layer_kind``
 dt_bias, A_log, D, out_proj} in place of ``attn``, with the attention
 norm before it and the layer's FFN or MoE after it, and carry a
 recurrent state {"conv" (B, dc-1, di), "ssm" (B, di, ds) float32} in
-place of a pool cache (``is_pool_cache`` tells them apart).
+place of a pool cache (``is_pool_cache`` tells them apart).  RWKV6's
+layers (``layer_kind`` "rwkv") are {"ln1": {w, b}, "ln2": {w, b}, "rwkv":
+{...}}, two float32 layer norms before the time-mix and the channel-mix
+(``models/rwkv6.py``), with no attention norm, FFN norm or FFN, and carry
+{"shift_t" (B, d), "shift_c" (B, d), "S" (B, H, hd, hd) float32}.
 DecodeState is ``{"caches": [per-layer pool dict], "cur_len": (B,)
 int32, "extra": {}}``, or for Whisper
 ``"extra": {"enc_kvs": [(k, v) per layer, each (B, S_enc, Hkv, hd)]}``,
@@ -36,10 +41,9 @@ no separate value.  A VLM request's patch embeddings
 (``inputs["patch_embeds"]`` (B, P, d)) lead its token embeddings, at
 positions 0..P-1; a Whisper request's frames (``inputs["frames"]`` (B,
 S_enc, d), the conv/mel frontend stubbed) run through the bidirectional
-encoder.  Configs the port does not implement (RWKV's attention-free
-layers) raise ``NotImplementedError`` in ``check_supported``.  Every
-serving path runs the MoE drop-free (``moe_drop_free``), as the
-reference's does.
+encoder.  Configs the port does not implement (tied embeddings) raise
+``NotImplementedError`` in ``check_supported``.  Every serving path runs
+the MoE drop-free (``moe_drop_free``), as the reference's does.
 """
 from __future__ import annotations
 
@@ -52,31 +56,38 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import mamba as mamba_mod
-from repro_torch.models.common import (ModelConfig, dense_init, rms_norm,
-                                       sinusoidal_positions)
+from repro_torch.models import rwkv6 as rwkv_mod
+from repro_torch.models.common import (ModelConfig, dense_init, layer_norm,
+                                       rms_norm, sinusoidal_positions)
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what this port does not run yet."""
-    family = ((cfg.arch_type in ("dense", "moe", "hybrid")
-               and cfg.frontend == "none" and not cfg.is_encoder_decoder)
+    plain = cfg.frontend == "none" and not cfg.is_encoder_decoder
+    rwkv = (cfg.attention_type == "none" and cfg.arch_type == "ssm"
+            and plain)
+    family = ((cfg.arch_type in ("dense", "moe", "hybrid") and plain)
               or (cfg.arch_type == "vlm" and cfg.frontend == "vit_patch_stub"
                   and not cfg.is_encoder_decoder)
               or (cfg.is_encoder_decoder
                   and cfg.frontend == "audio_conv_stub"))
-    if (cfg.attention_type not in ("gqa", "mla")
-            or (cfg.attn_layer_period > 1 and cfg.arch_type != "hybrid")
-            or not family or cfg.tie_embeddings):
+    if (not rwkv and (cfg.attention_type not in ("gqa", "mla")
+                      or (cfg.attn_layer_period > 1
+                          and cfg.arch_type != "hybrid")
+                      or not family)) or cfg.tie_embeddings:
         raise NotImplementedError(
             f"{cfg.name}: the port serves GQA and MLA decoders with dense "
-            f"or MoE FFNs, Jamba's Mamba + attention hybrid, the VLM patch "
-            f"prefix and the Whisper encoder-decoder (RWKV is later work)")
+            f"or MoE FFNs, Jamba's Mamba + attention hybrid, RWKV6, the "
+            f"VLM patch prefix and the Whisper encoder-decoder, all with "
+            f"an untied lm head")
 
 
 def layer_kind(cfg: ModelConfig, i: int) -> str:
-    """Mixer of layer i: 'mamba' for a hybrid's non-attention layers,
-    'attn' otherwise."""
+    """Mixer of layer i: 'rwkv' for an attention-free config, 'mamba' for
+    a hybrid's non-attention layers, 'attn' otherwise."""
     check_supported(cfg)
+    if cfg.attention_type == "none":
+        return "rwkv"
     if cfg.arch_type == "hybrid" and not cfg.is_attention_layer(i):
         return "mamba"
     return "attn"
@@ -115,9 +126,19 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     def zeros(n):
         return torch.zeros((n,), dtype=dtype, device=dev)
 
+    def f32(value):
+        return torch.full((d,), value, dtype=torch.float32, device=dev)
+
     m = cfg.mla
     layers = []
     for i in range(cfg.num_layers):
+        if layer_kind(cfg, i) == "rwkv":
+            # the reference's _init_layer: float32 layer norms, no FFN
+            layers.append({"ln1": {"w": f32(1.0), "b": f32(0.0)},
+                           "ln2": {"w": f32(1.0), "b": f32(0.0)},
+                           "rwkv": rwkv_mod.init_rwkv_params(cfg, g, dtype,
+                                                             dev)})
+            continue
         if layer_kind(cfg, i) == "mamba":
             mixer = {"mamba": mamba_mod.init_mamba_params(cfg, g, dtype,
                                                           dev)}
@@ -181,6 +202,8 @@ def _init_gqa(cfg: ModelConfig, g: torch.Generator, dtype, dev) -> Dict:
 # ---------------------------------------------------------------------------
 
 def _norm(cfg: ModelConfig, w, x):
+    if isinstance(w, dict):          # RWKV's layer norms
+        return layer_norm(x, w["w"], w["b"], cfg.norm_eps)
     return rms_norm(x, w, cfg.norm_eps)
 
 
@@ -195,14 +218,26 @@ def layer_forward(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     layer_kv): (k, v) each (B, S, Hkv, hd), or MLA's (latent (B, S, 1,
     kv_lora + rope), None), when ``return_kv``, else None.  MLA has no
     attention over earlier chunks' context (as in the reference).
-    A Mamba layer (``kind="mamba"``) returns (x_out, its new recurrent
-    state) instead, continuing from ``rec_state`` (None: a sequence
-    start), with ``token_mask`` marking a padded window's real tokens
-    (``mamba.mamba_forward``).
+    A Mamba or RWKV layer (``kind`` "mamba" or "rwkv") returns (x_out, its
+    new recurrent state) instead, continuing from ``rec_state`` (None: a
+    sequence start), with ``token_mask`` marking a padded window's real
+    tokens (``mamba.mamba_forward``, ``rwkv6.rwkv_time_mix``).
     ``enc_kv``: the layer's cross keys and values (Whisper); without it a
     decoder layer runs no cross-attention, as in the reference.
     ``moe_drop_free``: the serving prefills set it, so that an MoE's
     capacity cannot drop tokens (the reference's convention)."""
+    if kind == "rwkv":
+        st = (rec_state if rec_state is not None
+              else rwkv_mod.init_rwkv_state(cfg, x.shape[0], x.dtype,
+                                            x.device))
+        h, st = rwkv_mod.rwkv_time_mix(p["rwkv"], cfg,
+                                       _norm(cfg, p["ln1"], x), st,
+                                       token_mask=token_mask)
+        x = x + h
+        h, st = rwkv_mod.rwkv_channel_mix(p["rwkv"],
+                                          _norm(cfg, p["ln2"], x), st,
+                                          token_mask=token_mask)
+        return x + h, st
     h_in = _norm(cfg, p["attn_norm"], x)
     if kind == "mamba":
         h, new_rec = mamba_mod.mamba_forward(p["mamba"], cfg, h_in,
@@ -334,13 +369,13 @@ def encode_inputs(params: Dict, cfg: ModelConfig, inputs: Dict
 def init_decode_state(cfg: ModelConfig, batch: int, num_blocks: int,
                       dtype: torch.dtype, device) -> Dict:
     """List-mode decode state with zero pools (zero recurrent states for
-    Mamba layers)."""
+    Mamba and RWKV layers)."""
     dev = torch.device(device)
     return {"caches": [attn.init_layer_kv_pool(cfg, batch, num_blocks,
                                                dtype, dev)
                        if layer_kind(cfg, i) == "attn"
-                       else mamba_mod.init_mamba_state(cfg, batch, dtype,
-                                                       dev)
+                       else _init_rec_state(cfg, layer_kind(cfg, i), batch,
+                                            dtype, dev)
                        for i in range(cfg.num_layers)],
             "cur_len": torch.zeros((batch,), dtype=torch.int32, device=dev),
             "extra": {}}
@@ -410,12 +445,22 @@ def prefill_embed(params: Dict, cfg: ModelConfig, inputs: Dict):
     return h, positions, encode_inputs(params, cfg, inputs)
 
 
+def _init_rec_state(cfg: ModelConfig, kind: str, batch: int, dtype,
+                    device="cpu") -> Dict:
+    """A zero recurrent state of a Mamba or RWKV layer (its conv window or
+    token shifts in ``dtype``, the matrix states float32)."""
+    if kind == "rwkv":
+        return rwkv_mod.init_rwkv_state(cfg, batch, dtype, device)
+    return mamba_mod.init_mamba_state(cfg, batch, dtype, device)
+
+
 def _init_rec_states(cfg: ModelConfig, batch: int, dtype,
                      device="cpu") -> List:
-    """Per-layer recurrent states: a zero Mamba state for each Mamba
-    layer (its conv window in ``dtype``), None for an attention layer."""
-    return [mamba_mod.init_mamba_state(cfg, batch, dtype, device)
-            if layer_kind(cfg, i) == "mamba" else None
+    """Per-layer recurrent states: a zero state for each Mamba or RWKV
+    layer, None for an attention layer."""
+    return [None if layer_kind(cfg, i) == "attn"
+            else _init_rec_state(cfg, layer_kind(cfg, i), batch, dtype,
+                                 device)
             for i in range(cfg.num_layers)]
 
 
@@ -433,7 +478,8 @@ def prefill_layer(params: Dict, cfg: ModelConfig, layer_idx: int,
     """ONE layer of prefill over the whole prompt (the legacy
     layer-segmented executor).  The caller saves the returned layer KV to
     DRAM and evicts it before layer l+1.  Returns (h, (k, v), rec_state)
-    for an attention layer, (h, None, new_rec) for a Mamba layer."""
+    for an attention layer, (h, None, new_rec) for a Mamba or RWKV
+    layer."""
     kind = layer_kind(cfg, layer_idx)
     h, out = layer_forward(get_layer(params, layer_idx), cfg, h, positions,
                            kind=kind, rec_state=rec_state, enc_kv=enc_kv,
@@ -474,13 +520,13 @@ def prefill_recurrent_layer_batched(p: Dict, cfg: ModelConfig, kind: str,
                                     h: torch.Tensor,
                                     token_mask: torch.Tensor,
                                     step_mask: torch.Tensor, rec_state: Dict):
-    """One Mamba layer over a padded batch of same-layer segments, from
-    the rows' recurrent states ``rec_state``: the masked scan carries each
-    row's state through its padding (``mamba_forward(token_mask=...)``)
-    and the FFN or MoE runs drop-free.  Returns (h_out, new_rec), both
-    masked: masked lanes keep their incoming residual and parked rows
-    their state."""
-    if kind != "mamba":
+    """One Mamba or RWKV layer over a padded batch of same-layer segments,
+    from the rows' recurrent states ``rec_state``: the masked scan carries
+    each row's state through its padding (``mamba_forward`` /
+    ``rwkv_time_mix`` with ``token_mask``), a Mamba layer's FFN or MoE
+    runs drop-free.  Returns (h_out, new_rec), both masked: masked lanes
+    keep their incoming residual and parked rows their state."""
+    if kind not in ("mamba", "rwkv"):
         raise NotImplementedError(f"recurrent layer kind {kind!r}")
     x, st = layer_forward(p, cfg, h, None, kind=kind, rec_state=rec_state,
                           token_mask=token_mask, moe_drop_free=True)
@@ -535,10 +581,17 @@ def decode_attend_layer(p: Dict, cfg: ModelConfig, x: torch.Tensor,
 def decode_recurrent_layer(p: Dict, cfg: ModelConfig, kind: str,
                            x: torch.Tensor, cache: Dict,
                            step_mask: Optional[torch.Tensor] = None):
-    """One Mamba layer of a decode step as a single stage (no selection,
-    no restore: it holds no paged KV): the mixer over the carried state,
-    then the FFN or MoE (drop-free).  Returns (x, new state), the state
-    of parked rows (``step_mask`` False) unchanged."""
+    """One Mamba or RWKV layer of a decode step as a single stage (no
+    selection, no restore: it holds no paged KV): the mixer over the
+    carried state, then the FFN or MoE (drop-free), or RWKV's time-mix
+    then channel-mix.  Returns (x, new state), the state of parked rows
+    (``step_mask`` False) unchanged."""
+    if kind == "rwkv":                  # the window of one token
+        y, new = layer_forward(p, cfg, x[:, None], None, kind="rwkv",
+                               rec_state=cache)
+        if step_mask is not None:
+            new = _mask_state(new, cache, step_mask)
+        return y[:, 0], new
     if kind != "mamba":
         raise NotImplementedError(f"recurrent layer kind {kind!r}")
     h, new = mamba_mod.mamba_decode_step(
@@ -641,7 +694,7 @@ def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
                 state: Dict, *, return_info: bool = False,
                 step_mask: Optional[torch.Tensor] = None):
     """tokens (B,) int32: one new token per request.  Updates the state's
-    pools IN PLACE, puts each Mamba layer's new state into
+    pools IN PLACE, puts each Mamba or RWKV layer's new state into
     ``state["caches"]`` (parked rows' unchanged), and returns (logits,
     state[, {"selected": {layer: idx}}]) with ``state["cur_len"]``
     advanced (a new tensor)."""

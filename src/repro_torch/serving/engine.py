@@ -2,8 +2,8 @@
 dynamic sparse attention decode over a hierarchical HBM/DRAM KV cache.
 
 Counterpart of ``repro/serving/engine.py`` for dense GQA and MLA
-decoders, Jamba's Mamba + attention hybrid, the VLM's patch prefix and
-Whisper's encoder-decoder on one device.  By default every iteration is
+decoders, Jamba's Mamba + attention hybrid, the attention-free RWKV6,
+the VLM's patch prefix and Whisper's encoder-decoder on one device.  By default every iteration is
 ONE mixed layer walk (``core.hybrid_plane``) carrying the staged decode
 plane's rows (select -> host stage -> attend per layer) and the batched
 layer-segmented prefill plane's segments, with one host stage per
@@ -47,7 +47,9 @@ the reference.  Its Mamba layers save no KV: their prefill groups only
 advance the rows' recurrent states, which join the decode state at
 finalize (``PrefillPlane.rec_state``; the legacy executor's and the
 chunked baseline's own carries), and a decode step runs them as one
-stage.
+stage.  RWKV6's layers are all recurrent: the geometry keeps the
+reference's one KV layer of zero-byte blocks (head_dim 0), nothing is
+saved or restored, and a decode step runs no host stage.
 
 Frontend models take their tensors at ``submit`` (``patch_embeds`` for
 the VLM, whose patches count into the request's host pool; ``frames``
@@ -455,7 +457,7 @@ class ServingEngine:
         """The legacy executor: the request's next whole layer, its KV
         saved to DRAM (one contiguous save, then the pool's flush: in the
         int8 tier one ``quant_save_blocks`` call) and evicted from HBM; a
-        Mamba layer's new state goes into the decode state.  Returns True
+        Mamba or RWKV layer's new state goes into the decode state.  Returns True
         when the prefill is done."""
         seg = st.lp.advance()
         l = seg.layer
@@ -491,7 +493,7 @@ class ServingEngine:
         """Chunked-prefill baseline: ``inject`` new prompt tokens through
         ALL layers, each layer attending to its dense KV of the earlier
         chunks (``flash_prefill`` with the context and ``q_offset`` on the
-        GPU); a Mamba layer runs the chunk from its carried state
+        GPU); a Mamba or RWKV layer runs the chunk from its carried state
         (``chunk_rec``, float32 zeros at the start as in the reference).
         At the last chunk the pools are built and the prompt KV is saved to
         DRAM, one contiguous save per attention layer and one flush.  As in
@@ -786,7 +788,7 @@ class ServingEngine:
         worker = self._stage_worker() if self._stage_async else None
 
         def layer_cb(win: LayerWindow) -> None:
-            # a Mamba layer has only prefill groups, which save no KV
+            # a recurrent layer has only prefill groups, which save no KV
             lidx = self._layer_to_lidx[win.layer]
             lay_log = {"d2h": 0, "h2d": 0, "groups": len(win.groups),
                        "attn": win.kind == "attn",

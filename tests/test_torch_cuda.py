@@ -1145,3 +1145,89 @@ def test_selective_scan_matches_plain(cuda, Bn, S, di, dtype):
     assert not torch.allclose(bad[0], want[0], atol=1e-5, rtol=1e-4)
     with pytest.raises(ValueError):
         ops.selective_scan(x, dt.double(), B, C, A, D, h0)
+
+
+# ---------------------------------------------------------------------------
+# slice 13: score_select's other scorings; RWKV6's WKV recurrence
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metadata,reduce", [("mean", "max"),
+                                             ("cuboid", "sum"),
+                                             ("mean", "sum")])
+@pytest.mark.parametrize("B,Hq,Hkv,D,NB", [(4, 14, 2, 64, 136),
+                                           (2, 32, 8, 128, 4097),
+                                           (1, 40, 1, 288, 300)])
+def test_score_select_other_scorings_match_plain(cuda, metadata, reduce, B,
+                                                 Hq, Hkv, D, NB):
+    """score_select with InfLLM's mean metadata ((B, Hkv, NB, D), q .
+    mean) and with the sum over the GQA group, against the plain
+    composition, tie-aware (mean rows 5-8 tied with row 4), on the narrow
+    and the wide instantiation and the radix path; the kernel given the
+    other reduction must fail the check."""
+    bs = 32
+    q, meta, cur_len = _select_case(cuda, B, Hq, Hkv, D, NB, bs, seed=5)
+    if metadata == "mean":
+        meta = meta[:, :, :, 1].contiguous()        # (B, Hkv, NB, D), tied
+    kw = dict(block_size=bs, top_k=64, sink_blocks=1, recent_blocks=2,
+              metadata=metadata, group_reduce=reduce)
+    want = ref.score_select(q, meta, cur_len, **kw)
+    s_ref = ref.select_scores(ref.block_score(q, meta, metadata, reduce),
+                              cur_len + 1, block_size=bs, sink_blocks=1,
+                              recent_blocks=2)
+    ops.launches.reset()
+    got = ops.score_select(q, meta, cur_len, **kw)
+    assert ops.launches.counts["score_select"] == 1
+    assert ops.launches.counts[
+        f"score_select:{'sum' if reduce == 'sum' else 'mean'}"] == 1
+    assert _select_agrees(*got, *want, s_ref)
+    other = ops.score_select(q, meta, cur_len, **dict(
+        kw, group_reduce="max" if reduce == "sum" else "sum"))
+    assert not _select_agrees(*other, *want, s_ref)
+
+
+def _wkv_case(dev, Bn, S, H, lens, seed=0):
+    g = _gen(dev, seed)
+    mask = (torch.arange(S, device=dev)[None, :]
+            < torch.tensor(lens, device=dev)[:, None])[..., None, None]
+    r, k, v = (torch.randn((Bn, S, H, 64), generator=g, device=dev)
+               .bfloat16() for _ in range(3))
+    k = (k * mask).contiguous()
+    w = torch.where(mask, torch.exp(-torch.exp(torch.randn(
+        (Bn, S, H, 64), generator=g, device=dev) - 2)), 1.0).contiguous()
+    u = 0.1 * torch.randn((H, 64), generator=g, device=dev)
+    S0 = torch.randn((Bn, H, 64, 64), generator=g, device=dev)
+    return r, k, v, w, u, S0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Bn,S,H,lens", [
+    (3, 150, 4, (150, 70, 1)),     # padded rows, 5 chunks
+    (4, 1, 32, (1, 1, 1, 1)),      # the decode step
+    (2, 33, 2, (33, 33))])         # a part-filled chunk
+def test_wkv6_matches_plain(cuda, Bn, S, H, lens):
+    """wkv6 against its plain version, float32 on both sides, per element
+    within 2^-14 of the plain version on the inputs' magnitudes (as
+    chip_smoke.py holds it), from a carried state over right-padded rows
+    (k = 0, w = 1); a kernel given no state, or no bonus, must fail
+    that."""
+    args = _wkv_case(cuda, Bn, S, H, lens)
+    r, k, v, w, u, S0 = args
+    weight = ref.wkv6(r.abs(), k.abs(), v.abs(), w, u.abs(), S0.abs())
+    want = ref.wkv6(*args)
+
+    def close(got):
+        return all(bool(((a - b).abs() <= 2.0 ** -14 * m + 1e-6).all())
+                   for a, b, m in zip(got, want, weight))
+    ops.launches.reset()
+    assert close(ops.wkv6(*args))
+    assert ops.launches.counts["wkv6"] == 1
+    assert not close(ops.wkv6(r, k, v, w, u, torch.zeros_like(S0)))
+    assert not close(ops.wkv6(r, k, v, w, torch.zeros_like(u), S0))
+    with pytest.raises(ValueError, match="head width"):
+        ops.wkv6(*(a[..., :32].contiguous() for a in (r, k, v, w)),
+                 u[:, :32].contiguous(), S0[..., :32, :32].contiguous())
+    with pytest.raises(ValueError):
+        ops.wkv6(r, k, v, w.double(), u, S0)
+    with pytest.raises(ValueError, match="bfloat16"):
+        ops.wkv6(r.float(), k.float(), v.float(), w, u, S0)

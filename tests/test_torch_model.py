@@ -153,11 +153,16 @@ def test_batched_prefill_layer_and_logits_match(arch, pair):
 
 def test_unsupported_configs_raise():
     from repro_torch.models.common import ModelConfig
-    rwkv = ModelConfig(name="x", arch_type="ssm", num_layers=1, d_model=8,
+    # tied embeddings stay unported; RWKV6's attention-free layers are
+    # served since: an RWKV config gets the reference's layer kinds
+    tied = dataclasses.replace(torch_smoke("qwen2-0.5b"), tie_embeddings=True)
+    with pytest.raises(NotImplementedError):
+        TM.init_params(tied, torch.Generator(), device="cpu")
+    rwkv = ModelConfig(name="x", arch_type="ssm", num_layers=2, d_model=64,
                        num_heads=0, num_kv_heads=0, d_ff=8, vocab_size=8,
                        attention_type="none")
-    with pytest.raises(NotImplementedError):
-        TM.init_params(rwkv, torch.Generator(), device="cpu")
+    assert [TM.layer_kind(rwkv, i) for i in range(2)] == \
+        [JM.layer_kind(rwkv, i) for i in range(2)] == ["rwkv", "rwkv"]
     # the MoE FFN and jamba's hybrid layers (mamba mixers, one attention
     # layer in attn_layer_period, MoE every second layer) are served
     # since: a jamba-shaped config gets the reference's layer kinds

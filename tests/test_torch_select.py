@@ -137,10 +137,12 @@ def test_score_and_select_k_at_least_nb(NB, budget):
 @pytest.mark.parametrize("method,reduce", [("mean", "max"),
                                            ("cuboid", "sum")])
 def test_score_and_select_other_scorings_are_the_plain_composition(
-        method, reduce):
+        method, reduce, monkeypatch):
     """Other metadata or reductions: the plain composition on the CPU,
-    equal to the reference's; on any other device it raises (no kernel
-    computes them)."""
+    equal to the reference's; on any other device they reach the
+    ``score_select`` wrapper with their scoring, as the cuboid/max case
+    does (its kernel's mean and sum modes on the GPU), which raises for
+    the ``meta`` device and counts no launch."""
     B, Hkv, G, D, NB, bs = 3, 2, 7, 32, 11, 8
     r = np.random.default_rng(8)
     q = r.standard_normal((B, Hkv * G, D), dtype=np.float32)
@@ -158,10 +160,23 @@ def test_score_and_select_other_scorings_are_the_plain_composition(
     s_ref = _masked_scores(np.asarray(scores), tcfg, cur_len + 1)
     assert_same_selection(ti.numpy(), tv.numpy(), np.asarray(ji),
                           np.asarray(jv), s_ref, tcfg.top_k_blocks)
-    with pytest.raises(ValueError):
-        tdsa.score_and_select(torch.from_numpy(q).to("meta"),
+    seen = []
+    real = ops.score_select
+
+    def spy(*a, **kw):
+        seen.append((kw["metadata"], kw["group_reduce"]))
+        return real(*a, **kw)
+    monkeypatch.setattr(ops, "score_select", spy)
+    ops.launches.reset()
+    with pytest.raises(ValueError, match="score_select: tensors on meta"):
+        tdsa.score_and_select(torch.from_numpy(q).bfloat16().to("meta"),
                               torch.from_numpy(meta).to("meta"), tcfg,
                               torch.from_numpy(cur_len).to("meta"), reduce)
+    assert seen == [(method, reduce)]
+    assert sum(ops.launches.counts.values()) == 0
+    with pytest.raises(ValueError, match="no scoring"):
+        tdsa.score_and_select(torch.from_numpy(q), torch.from_numpy(meta),
+                              tcfg, torch.from_numpy(cur_len), "mean")
 
 
 @pytest.mark.parametrize("moved", [None, 0, 1, 2])
