@@ -2,7 +2,8 @@
 """Time one source tree's redesigned kernels at the fp serve's shapes, under
 chip_smoke.py's Timer with and without its ~0.1 ms device spin.
 
-    python3 ab_kernels.py [--src DIR] [--seed 0] [--label NAME]
+    python3 ab_kernels.py [--src DIR] [--seed 0] [--label NAME] [--probes]
+                          [--shapes FILE ...] [--serves ARCH ...]
 
 DIR is the ``src`` directory whose ``repro_torch`` is built and timed
 (default: this checkout's).  Given the ``src`` of another checkout, for
@@ -38,13 +39,34 @@ the tree has it, one ``quant_save_blocks`` launch; else each pool's
 ``flush``): a decode save (one float32 token for each of 4 requests, mid
 block) and a prefill save (a 2048-token float32 chunk for each of 4
 requests, 64 whole blocks each), into the int8 pools of a 24-layer
-manager at the serve's widths.  The stages are timed with the host work
+manager at the serve's widths.  And, on inputs drawn from a generator of
+their own (seed + 2), the two recurrences at their serves' first prefill
+launch and a decode launch: wkv6 at rwkv6-1.6b's (B 1, S 16,384 with
+14,211 valid tokens from a zero state; B 4, S 1 from a carried one; 32
+heads of 64) and selective_scan at jamba-v0.1-52b's (B 1, S 16,384 with
+14,211 valid; B 4, S 1; d_inner 8192, d_state 16), each also timed with
+CUDA events over back-to-back calls (``events_ms``) and under
+torch.profiler (``device_ms``).  The stages are timed with the host work
 they carry; ``host_ms`` is their wall-clock time per call over 50 calls
 ended by a synchronize, ``device_ms`` and ``device_ops`` their device
 time and device operations per call under torch.profiler.  Each kernel
 is held against its plain version with chip_smoke.py's tolerance first,
 and its output's ``digest`` (sha1 of the bytes) is printed, so two trees'
 kernels compare bit for bit on the same inputs.
+With ``--shapes``, files that chip_smoke.py's models phase writes
+(chiprun_out/launch_shapes_<tag>_<arch>.json: a recurrence's launches of
+one serve by (B, S)): each shape is timed on the tree's kernel (device
+ms under torch.profiler, inputs from seed + 3, every position valid) and
+the serve's device time in that kernel is summed over its launches.
+With ``--probes``, the card's rates for what bounds the scan: MUFU.EX2
+(``ex2.approx``), expf's whole sequence and FFMA, each over 8 independent
+chains a thread in 8 CTAs of 256 threads an SM, per SM and microsecond,
+from a probe kernel built here with nvcc; and wkv6's decode launch through
+its step kernel and through its window kernel (built here on the tree's
+csrc/wkv6.cu), device ms of each.
+With ``--serves ARCH ...``, chip_smoke's models-phase serve of each arch
+on the tree's engine, on the modelled clock and on the wall clock: a
+digest of the greedy tokens, so two trees' tokens compare in one call.
 With ``--profile``, chip_smoke's profile phase then serves on the tree's
 engine under torch.profiler, with the fp tier and then with the int8
 tier (idle share, count of device operations, the port's kernels, a
@@ -153,10 +175,18 @@ def main() -> int:
     ap.add_argument("--src", default=str(REPO / "src"))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--label", default="")
+    ap.add_argument("--shapes", nargs="*", default=[],
+                    help="launch_shapes JSON files of chip_smoke's models "
+                         "phase: the serve's device ms in each recurrence")
+    ap.add_argument("--probes", action="store_true",
+                    help="the card's MUFU.EX2, expf and FFMA rates")
     ap.add_argument("--profile", action="store_true",
                     help="then chip_smoke's profile phase on this tree's "
                          "engine: idle share, device operations, the "
                          "port's kernels")
+    ap.add_argument("--serves", nargs="*", default=[],
+                    help="archs of chip_smoke's models phase: the greedy "
+                         "tokens of this tree's serve")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -218,6 +248,21 @@ def main() -> int:
         if (dq, dv) in getattr(ops, "FLASH_DIMS", ()):
             cases[name] = cs.case_flash(torch, ops, ref, *fx,
                                         scale=dq ** -0.5)
+    # the two recurrences at their serves' first prefill and a decode
+    # launch, on inputs of their own
+    gen3 = torch.Generator(device=dev).manual_seed(args.seed + 2)
+    recurrences = {
+        "wkv6_prefill": cs.case_wkv(torch, ops, ref, *cs._wkv_inputs(
+            torch, gen3, 1, 16384, (14211,), False)),
+        "wkv6_decode": cs.case_wkv(torch, ops, ref, *cs._wkv_inputs(
+            torch, gen3, 4, 1, (1,) * 4, True)),
+        "selective_scan_prefill": cs.case_scan(
+            torch, ops, ref, *cs._scan_inputs(torch, gen3, 1, 16384,
+                                              (14211,))),
+        "selective_scan_decode": cs.case_scan(
+            torch, ops, ref, *cs._scan_inputs(torch, gen3, 4, 1, (1,) * 4)),
+    }
+    cases.update(recurrences)
     # the decode select stage, as this tree's gqa_select_step runs it, on
     # the cache before the step's append (before + 1 = cur_len tokens)
     cfg = DSAConfig()
@@ -305,6 +350,9 @@ def main() -> int:
             rec[f"ms_{tname}"] = timer(kern)
             if len(case) > 7 and case[7] is not None:
                 rec[f"library_ms_{tname}"] = timer(case[7])
+        if name in recurrences:
+            rec["events_ms"] = cs.events_ms(torch, kern)
+            rec["device_ms"] = cs.device_ms(torch, kern)
         out[name] = rec
     for name, (fn, how) in stages.items():
         rec = {"how": how}
@@ -320,12 +368,227 @@ def main() -> int:
         rec["device_ms"], rec["device_ops"] = _device_ms(torch, fn)
         out[name] = rec
     out["drop_round"]["blocks"] = sum(len(b) for b in round_.values())
-    del plane, cases, stages
+    del plane, cases, stages, recurrences
+    if args.shapes:
+        out["serve_sums"] = _serve_sums(torch, cs, ops, dev, args.shapes,
+                                        args.seed)
+    if args.probes:
+        out["probes"] = _probes(torch, dev)
+        out["probes"].update(_emit_probe(torch, cs, ops, dev, args.seed))
+    if args.serves:
+        out["serves"] = {arch: _serve_tokens(torch, np, cs, arch, args.seed)
+                         for arch in args.serves}
     if args.profile:
         cs.phase_profile(torch, np, args.seed)
         cs.phase_profile(torch, np, args.seed, "int8")
     print(json.dumps(out))
     return 0
+
+
+def _serve_tokens(torch, np, cs, arch: str, seed: int) -> dict:
+    """chip_smoke's models-phase serve of ``arch`` on this tree (its
+    weights from ``seed``, its submissions and layer cut, the engine's
+    default tier), once on the modelled clock, where two trees run the
+    same schedule, and once charging the wall clock as the models phase
+    does.  For each: sha1 of the greedy tokens in submission order, the
+    iterations by their decode rows, and the mean TTFT."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    from repro_torch.serving.request import Request
+    cfg = get_config(arch)
+    if arch in cs.MODEL_LAYERS:
+        cfg = dataclasses.replace(cfg, num_layers=cs.MODEL_LAYERS[arch])
+    params = M.init_params(cfg, torch.Generator(device="cuda")
+                           .manual_seed(seed), torch.bfloat16, "cuda")
+    res = {}
+    for clock, real in (("modelled", False), ("wall", True)):
+        subs = cs._model_submissions(np, Request, cfg, arch, seed)
+        budget, _ = cs._hbm_budget(torch, cfg, subs,
+                                   EngineConfig().hbm_budget_bytes)
+        eng = ServingEngine(params, cfg, EngineConfig(
+            seed=seed, charge_real_time=real, hbm_budget_bytes=budget))
+        for r, toks, extra in subs:
+            eng.submit(r, tokens=toks, **extra)
+        m = eng.run()
+        tokens = json.dumps([eng.states[r.req_id].out_tokens
+                             for r, _, _ in subs])
+        rows = {}
+        for e in eng.mixed_iter_log:
+            if e["decode_rows"]:
+                rows[e["decode_rows"]] = rows.get(e["decode_rows"], 0) + 1
+        eng.close()
+        res[clock] = {"tokens_sha1":
+                      hashlib.sha1(tokens.encode()).hexdigest()[:16],
+                      "decode_iterations_by_rows": rows,
+                      "mean_ttft_ms": m.mean_ttft * 1e3}
+    return res
+
+
+def _serve_sums(torch, cs, ops, dev, files, seed: int) -> dict:
+    """{kernel:arch: {"shapes": {BxS: {launches, device_ms}}, "summed_ms"}}:
+    each launch shape of a serve timed on this tree's kernel (device ms
+    under torch.profiler), and their sum over the serve's launches."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    res = {}
+    for f in files:
+        d = json.loads(Path(f).read_text())
+        per, total = {}, 0.0
+        for shape, n in sorted(d["shapes"].items()):
+            Bn, S = map(int, shape.split("x"))
+            if d["kernel"] == "wkv6":
+                a = cs._wkv_inputs(torch, gen, Bn, S, (S,) * Bn, True)
+                fn = lambda: ops.wkv6(*a)  # noqa: E731
+            else:
+                a = cs._scan_inputs(torch, gen, Bn, S, (S,) * Bn)
+                fn = lambda: ops.selective_scan(*a)  # noqa: E731
+            ms = cs.device_ms(torch, fn)
+            per[shape] = {"launches": n, "device_ms": ms}
+            total += n * ms
+        res[f"{d['kernel']}:{d['arch']}"] = {"shapes": per,
+                                             "summed_ms": total}
+    return res
+
+
+_PROBE_SRC = r"""
+#include <cuda_runtime.h>
+template <int kMode>
+__global__ void probe(float* out, int iters) {
+  float v[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) v[k] = -1e-3f * (threadIdx.x + k);
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      if (kMode == 0) {
+        float e;
+        asm volatile("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(v[k]));
+        v[k] = -0.5f * e;
+      } else if (kMode == 1) {
+        v[k] = -0.5f * expf(v[k]);
+      } else {
+        v[k] = fmaf(v[k], 0.999f, -0.001f);
+      }
+    }
+  }
+  float s = 0.f;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) s += v[k];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+extern "C" int launch_probe(int mode, void* out, int blocks, int threads,
+                            int iters, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* o = static_cast<float*>(out);
+  if (mode == 0) probe<0><<<blocks, threads, 0, s>>>(o, iters);
+  else if (mode == 1) probe<1><<<blocks, threads, 0, s>>>(o, iters);
+  else probe<2><<<blocks, threads, 0, s>>>(o, iters);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def _probes(torch, dev) -> dict:
+    """Results per SM and microsecond of MUFU.EX2 (each with one FMUL),
+    expf (its eight instructions and one FMUL) and FFMA, 8 independent
+    chains a thread, 8 CTAs of 256 threads an SM, CUDA events over 5
+    launches (the third of three readings), with the SM clock nvidia-smi
+    reads after them."""
+    import ctypes
+    from repro_torch.kernels import build
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = build.BUILD_DIR / "rate_probe.cu"
+    lib = build.BUILD_DIR / "librate_probe.so"
+    src.write_text(_PROBE_SRC)
+    subprocess.run([build.nvcc_path()] + build.NVCC_FLAGS
+                   + ["-o", str(lib), str(src)], check=True,
+                   capture_output=True)
+    fn = ctypes.CDLL(str(lib)).launch_probe
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks, threads, iters = 8 * sms, 256, 4096
+    buf = torch.empty(blocks * threads, device=dev)
+    import chip_smoke as cs
+    res = {}
+    for mode, what in ((0, "ex2_approx"), (1, "expf"), (2, "ffma")):
+        def call():
+            if fn(mode, buf.data_ptr(), blocks, threads, iters,
+                  torch.cuda.current_stream().cuda_stream) != 0:
+                raise RuntimeError("rate probe launch failed")
+        for _ in range(3):
+            ms = cs.events_ms(torch, call, 5)
+        res[f"{what}_per_sm_per_us"] = (blocks * threads * iters * 8 / ms
+                                        / 1e3 / sms)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True)
+    res["clocks_sm_mhz_after"] = smi.stdout.strip()
+    return res
+
+
+_EMIT_PROBE_SRC = r"""
+#include "wkv6.cu"
+// wkv6_emit_kernel alone on a window of S tokens from s0 (one pass, as
+// launch_wkv6 runs a window of at most one chunk), whatever S is
+extern "C" int launch_wkv6_emit(const void* r, const void* k, const void* v,
+                                const void* w, const void* u, const void* s0,
+                                void* y, void* s_out, int B, int S, int H,
+                                void* stream) {
+  wkv6_emit_kernel<<<dim3(1, H, B), kThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(r),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(w),
+      static_cast<const float*>(u), static_cast<const float*>(s0),
+      static_cast<float*>(y), static_cast<float*>(s_out), S, H, S, 1);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def _emit_probe(torch, cs, ops, dev, seed: int) -> dict:
+    """wkv6's decode launch (B 4, S 1, rwkv6-1.6b's 32 heads) as the
+    tree's wrapper runs it (wkv6_step_kernel) and through the window
+    kernel (wkv6_emit_kernel, built here on the tree's wkv6.cu): device
+    ms of each under torch.profiler and their largest difference; {}
+    where the tree has no window kernel."""
+    import ctypes
+    from repro_torch.kernels import build
+    if "wkv6_emit_kernel" not in (build.CSRC_DIR / "wkv6.cu").read_text():
+        return {}
+    src = build.BUILD_DIR / "wkv6_emit_probe.cu"
+    lib = build.BUILD_DIR / "libwkv6_emit_probe.so"
+    src.write_text(_EMIT_PROBE_SRC)
+    subprocess.run([build.nvcc_path()] + build.NVCC_FLAGS
+                   + ["-I", str(build.CSRC_DIR), "-o", str(lib), str(src)],
+                   check=True, capture_output=True)
+    fn = ctypes.CDLL(str(lib)).launch_wkv6_emit
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    gen = torch.Generator(device=dev).manual_seed(seed + 4)
+    r, k, v, w, u, S0 = cs._wkv_inputs(torch, gen, 4, 1, (1,) * 4, True)
+    y = torch.empty((4, 1, 32, 64), dtype=torch.float32, device=dev)
+    s_out = torch.empty_like(S0)
+
+    def emit():
+        if fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+              u.data_ptr(), S0.data_ptr(), y.data_ptr(), s_out.data_ptr(),
+              4, 1, 32, torch.cuda.current_stream().cuda_stream) != 0:
+            raise RuntimeError("wkv6 emit probe launch failed")
+
+    step = lambda: ops.wkv6(r, k, v, w, u, S0)  # noqa: E731
+    y_step, s_step = step()
+    emit()
+    torch.cuda.synchronize()
+    return {"wkv6_decode_step_kernel_device_ms": cs.device_ms(torch, step),
+            "wkv6_decode_emit_kernel_device_ms": cs.device_ms(torch, emit),
+            "wkv6_decode_step_vs_emit_max_abs_diff": max(
+                (y - y_step).abs().max().item(),
+                (s_out - s_step).abs().max().item())}
 
 
 def _digest(torch, res) -> str:

@@ -86,24 +86,29 @@ each printing one line (``phase=...``) and failing the run on any error:
    Pallas kernel: the reference's lax.scan) at jamba-v0.1-52b's widths
    (d_inner 8192, d_state 16), bf16 x, B and C, float32 dt, A, D and a
    non-zero h0: a prefill window of 4 right-padded rows over 1000 tokens
-   (dt = 0 past each row's length) and the decode step (S = 1), y and the
+   (dt = 0 past each row's length), one row over 4096 tokens and the
+   decode step (S = 1), y and the
    final state held to |err| <= 1e-5 + 1e-4 |ref| (float32 on both sides:
    the 16-state sum in another order, expf against torch's exp and fused
    multiply-adds move each by a few float32 steps, and |dA| <= 1 keeps
    errors from growing along the tokens); four planted faults (h0
    ignored, the skip term D x dropped, the last state left out of y's
-   sum, the second 64-token chunk's B and C read one token late) must
-   fail it; its bound counts 8 float32 operations per (token, channel,
-   state) at the float32 rate (67 TFLOP/s) against its bytes.  And
+   sum, the second staged 64-token chunk's B and C read one token late)
+   must fail it on the padded window and on the one row; its bound
+   counts 8 float32 operations per (token, channel, state) at the
+   float32 rate (67 TFLOP/s) against its bytes.  And
    RWKV6's wkv6 (no Pallas kernel: the reference's lax.scan of
    _wkv_step) at rwkv6-1.6b's 32 heads of 64, bf16 r, k and v, float32
    w, u and state: a 1000-token window from a zero state, the decode
-   step and a window of 4 right-padded rows (k = 0, w = 1 past each
-   length) from a carried state, y and the final state held per element
-   to |err| <= 2^-14 W + 1e-6, W the plain version on the inputs'
-   magnitudes (WKV_RTOL); four planted faults (the bonus u dropped, the
-   state not carried, the state read with i and j swapped, the decay
-   applied after the add) must fail it; its bound counts the 5 float32
+   step, a window of 4 right-padded rows (k = 0, w = 1 past each
+   length) and one row over 4096 tokens from a carried state (the last
+   two in the kernel's time chunks, ops.wkv6_chunk), y and the final
+   state held per element to |err| <= 2^-14 W + 1e-6, W the plain
+   version on the inputs' magnitudes (WKV_RTOL); five planted faults (the
+   bonus u dropped, the state not carried, the state read with i and j
+   swapped, the decay applied after the add, the decay of the first
+   token of the second time chunk dropped) must fail it on those two;
+   its bound counts the 5 float32
    operations per (token, head, i, j) that the function needs (the
    bonus term is a scalar per token) at 67 TFLOP/s.  And score_select's
    other scorings (the reference's score_blocks: InfLLM's mean metadata,
@@ -358,7 +363,8 @@ PORT_KERNEL_FNS = ("split_kernel", "merge_kernel", "block_score_kernel",
                    "quantize_blocks_kernel", "dequantize_blocks_kernel",
                    "dequantize_scatter_blocks_kernel",
                    "quant_save_blocks_kernel", "selective_scan_kernel",
-                   "wkv6_kernel")
+                   "wkv6_local_kernel", "wkv6_carry_kernel",
+                   "wkv6_emit_kernel", "wkv6_step_kernel")
 # one PyTorch call computing the same function, where there is one; else
 # why not (printed, and null in the JSON record)
 NO_LIBRARY = {
@@ -419,11 +425,13 @@ NONCAUSAL_CASES = (("whisper_encoder", 1, 1500, 1500, 12, 12, 64),
                    ("gqa_d128_decode", 4, 1, 700, 32, 8, 128))
 # Mamba's selective scan at jamba-v0.1-52b's widths (d_inner 8192, d_state
 # 16): a prefill window of 4 right-padded rows (dt = 0 past each row's
-# length) and the decode step, both from a non-zero h0: (label, B, S,
+# length), the decode step, and one row over 4096 tokens (as a one-row
+# prefill window runs: 256 CTAs), all from a non-zero h0: (label, B, S,
 # row lengths)
 SCAN_DI, SCAN_DS = 8192, 16
 SCAN_CASES = (("prefill", 4, 1000, (1000, 777, 130, 1)),
-              ("decode", 4, 1, (1, 1, 1, 1)))
+              ("decode", 4, 1, (1, 1, 1, 1)),
+              ("long_row", 1, 4096, (4096,)))
 # float32 on both sides: the 16-state sum in another order, expf against
 # torch's exp and the compiler's fused multiply-adds each move y and h by
 # a few float32 steps (2^-24 relative) of the terms, and |dA| <= 1 keeps
@@ -431,21 +439,28 @@ SCAN_CASES = (("prefill", 4, 1000, (1000, 777, 130, 1)),
 SCAN_ATOL, SCAN_RTOL = 1e-5, 1e-4
 # RWKV6's WKV recurrence at rwkv6-1.6b's heads (32 of 64): a prefill
 # window of 4 rows over 1000 tokens from a zero state, the decode step
-# (S = 1) from a carried one, and a window of 4 right-padded rows (k = 0
-# and w = 1 past each row's length, as the time-mix masks them) from a
-# carried one: (label, B, S, row lengths, carried state)
+# (S = 1) from a carried one, a window of 4 right-padded rows (k = 0 and
+# w = 1 past each row's length, as the time-mix masks them) from a
+# carried one, and one row over 4096 tokens from a carried one (the
+# kernel's time chunks at a one-row window): (label, B, S, row lengths,
+# carried state)
 WKV_H, WKV_HD = 32, 64
 WKV_CASES = (("prefill", 4, 1000, (1000,) * 4, False),
              ("decode", 4, 1, (1,) * 4, True),
-             ("masked", 4, 1000, (1000, 777, 130, 1), True))
+             ("masked", 4, 1000, (1000, 777, 130, 1), True),
+             ("long_row", 1, 4096, (4096,), True))
 # float32 on both sides, held per element to |err| <= WKV_RTOL * W +
 # WKV_ATOL, W the plain version run on |r|, |k|, |v|, w, |u| and |S0|
 # (every term's magnitude, so a y that cancels to near 0 keeps its
 # scale): y sums 64 products in another order (and in four partial sums),
 # with fused multiply-adds, <= 64 float32 steps (2^-24) of W; the state
 # adds one rounding per token, decayed by w < 1 on every later token, so
-# its error stays within a few steps of W too.  2^-14 leaves a margin of
-# 16 over 64 steps.
+# its error stays within a few steps of W too.  In time chunks the state
+# carried into a chunk is W[c] S_in + S_loc: the decay product W[c] has
+# the token walk's L roundings of the same factors, and the add one more
+# per chunk, each damped by every later decay, so the carries keep the
+# state within a few steps of W.  2^-14 leaves a margin of 16 over 64
+# steps.
 WKV_RTOL, WKV_ATOL = 2.0 ** -14, 1e-6
 # score_select's other scorings at qwen2-0.5b's serve shape (the serve
 # phase's decode step: B 4, Hkv 2, G 7, D 64, 136 blocks of its 4096 +
@@ -462,6 +477,10 @@ ATTN_ATOL, ATTN_RTOL = 2e-3, 1e-2
 FLASH_WEIGHT_TOL, FLASH_RTOL = 1.25 * 2.0 ** -8, 2.0 ** -7
 SCORE_ATOL, SCORE_RTOL = 1e-3, 1e-4
 SPIN_CYCLES = 200_000                # ~0.1 ms of device clock (Timer)
+# Timer: a call whose 20 launches would take over TIMER_BUDGET_S seconds
+# (only the plain versions' token walks at long windows, up to 3 s a call;
+# every kernel takes under 10 ms) is timed TIMER_MIN_REPS times
+TIMER_BUDGET_S, TIMER_MIN_REPS = 5.0, 3
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 4, 4096, 32
 # the oracles phase: path -> (EngineConfig values, kernels that must
 # launch, the path it is held against, the step whose logits are held
@@ -605,7 +624,9 @@ class Timer:
     lets the host enqueue the start event and the call before the device
     reaches them, so a call that is short on the device is timed on the
     device and not by the host's launch overhead (``spin=False`` leaves the
-    spin out)."""
+    spin out).  A call slow enough that ``reps`` launches would take over
+    TIMER_BUDGET_S, by the host's clock on a warm call, is timed
+    TIMER_MIN_REPS times instead."""
 
     def __init__(self, torch, spin: bool = True):
         self.torch = torch
@@ -617,6 +638,11 @@ class Timer:
         torch = self.torch
         fn()
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if (time.perf_counter() - t0) * reps > TIMER_BUDGET_S:
+            reps = TIMER_MIN_REPS
         times = []
         for _ in range(reps):
             self.flush.zero_()
@@ -1294,11 +1320,19 @@ def _wkv_decay_after_add(torch, r, k, v, w, u, S0):
 def wkv_faults(torch, ops, ref, args, label) -> None:
     """wkv6's tolerance must reject a kernel that drops the bonus u (run
     with u = 0), does not carry the state in (S0 = 0), reads the state
-    with i and j swapped (S0 transposed) or applies the decay after the
-    add (that recurrence computed in plain PyTorch): each held against
-    the plain version on the true inputs."""
+    with i and j swapped (S0 transposed), applies the decay after the
+    add (that recurrence computed in plain PyTorch) or drops a chunk
+    carry's decay (w = 1 at the first token of the kernel's second time
+    chunk, ops.wkv6_chunk): each held against the plain version on the
+    true inputs."""
     r, k, v, w, u, S0 = args
     want = ref.wkv6(*args)
+    Bn, S, H, _ = r.shape
+    L = ops.wkv6_chunk(Bn, S, H, ops._sm_count(r.device))
+    if S <= L:
+        raise AssertionError(f"wkv6 faults at {label}: S {S} is one chunk")
+    w_edge = w.clone()
+    w_edge[:, L] = 1.0
     for fault, got in (
             ("bonus_u_dropped",
              ops.wkv6(r, k, v, w, torch.zeros_like(u), S0)),
@@ -1306,7 +1340,9 @@ def wkv_faults(torch, ops, ref, args, label) -> None:
              ops.wkv6(r, k, v, w, u, torch.zeros_like(S0))),
             ("i_and_j_swapped",
              ops.wkv6(r, k, v, w, u, S0.transpose(-1, -2).contiguous())),
-            ("decay_after_add", _wkv_decay_after_add(torch, *args))):
+            ("decay_after_add", _wkv_decay_after_add(torch, *args)),
+            ("chunk_edge_decay_dropped",
+             ops.wkv6(r, k, v, w_edge, u, S0))):
         err, ok = _wkv_close(torch, ref, got, want, args)
         log(f"phase=parity {label} planted_fault={fault} "
             f"max_abs_err={err:.3e} rejected={not ok}")
@@ -1324,7 +1360,7 @@ def parity_wkv6_shapes(torch, ops, ref, gen) -> list:
         args = _wkv_inputs(torch, gen, Bn, S, lens, carried)
         label = f"arch=rwkv6-1.6b mode={mode}"
         out.append(("wkv6", label, case_wkv(torch, ops, ref, *args)))
-        if mode == "masked":
+        if mode in ("masked", "long_row"):
             wkv_faults(torch, ops, ref, args, label)
     return out
 
@@ -2211,6 +2247,8 @@ class MainPathCapture:
         self.orig = {}
         self.calls = {}
         self.inputs = {}
+        # the recurrences' launches by (B, S): {kernel: {"BxS": count}}
+        self.shapes = {}
 
     def __enter__(self):
         for name in self.ops.launches.NAMES:
@@ -2288,6 +2326,10 @@ class MainPathCapture:
             # the wrapper's caller names the call site
             key = self._key(name, args, kw, sys._getframe(1).f_code.co_name)
             self.calls[key] = self.calls.get(key, 0) + 1
+            if name in ("selective_scan", "wkv6"):
+                by = self.shapes.setdefault(name, {})
+                shape = f"{args[0].shape[0]}x{args[0].shape[1]}"
+                by[shape] = by.get(shape, 0) + 1
             attn = self.calls.get("sparse_decode_attention", 0)
             # a decode token's cross-attention is kept from the middle
             # decode step, as the decode kernels are
@@ -3230,10 +3272,14 @@ def _serve_tier(torch, np, ops, arch, cfg, params, tier, first, seed, caps,
         f"[{_card()}]" + red)
     log(f"phase={tag} arch={arch} launches " + json.dumps(counts)
         + " by case " + json.dumps(cap.calls) + red)
+    # the greedy tokens served, in submission order, to compare two trees
+    tokens = json.dumps([eng.states[r.req_id].out_tokens for r, _, _ in subs])
+    log(f"phase={tag} arch={arch} offload_quant={tier} tokens_sha1="
+        f"{hashlib.sha1(tokens.encode()).hexdigest()[:16]}" + red)
     if cfg.num_experts:
         _moe_check(tag, arch, cfg, eng, moe, red)
     if cfg.arch_type == "hybrid" or cfg.attention_type == "none":
-        _recurrent_check(tag, arch, cfg, eng, counts, red)
+        _recurrent_check(tag, arch, cfg, eng, counts, red, cap.shapes)
     if first:
         caps[f"{tag}_{arch}"] = cap
     if inspect is not None:
@@ -3245,14 +3291,15 @@ def _serve_tier(torch, np, ops, arch, cfg, params, tier, first, seed, caps,
 
 
 def _recurrent_check(tag: str, arch: str, cfg, eng, counts: dict,
-                     red: str) -> None:
+                     red: str, shapes: dict) -> None:
     """A recurrent serve's own numbers (a hybrid's Mamba layers, RWKV6's
     every layer): the recurrent layers' scans (a prefill group's or a
-    decode step's, one selective_scan or wkv6 launch each) and the host
-    stages.  A decode-only iteration's host stage must run at the
-    attention layers only (one per attention layer: no select, no idx
-    copy and no host stage at a recurrent layer; none at all for
-    RWKV6)."""
+    decode step's, one selective_scan or wkv6 launch each, counted by
+    (B, S) and written to chiprun_out/launch_shapes_<tag>_<arch>.json for
+    ``ab_kernels.py --shapes``) and the host stages.  A decode-only
+    iteration's host stage must run at the attention layers only (one
+    per attention layer: no select, no idx copy and no host stage at a
+    recurrent layer; none at all for RWKV6)."""
     attn = sorted(i for i in range(cfg.num_layers)
                   if cfg.is_attention_layer(i))
     scan = "wkv6" if cfg.attention_type == "none" else "selective_scan"
@@ -3262,10 +3309,15 @@ def _recurrent_check(tag: str, arch: str, cfg, eng, counts: dict,
     log(f"phase={tag} arch={arch} recurrent attention_layers={attn} "
         f"recurrent_layers={cfg.num_layers - len(attn)} "
         f"{scan}_launches={counts[scan]} "
+        f"{scan}_launch_shapes={json.dumps(shapes.get(scan, {}))} "
         f"decode_only_iterations={len(decode_only)} "
         f"host_stages_per_decode_step={stages} "
         f"host_syncs={sum(p.host_syncs for p in eng.planes.values())}"
         + red)
+    out = REPO / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / f"launch_shapes_{tag}_{arch}.json").write_text(json.dumps(
+        {"kernel": scan, "arch": arch, "shapes": shapes.get(scan, {})}))
     bad = [e["layers"] for e in decode_only if sorted(e["layers"]) != attn]
     if bad or not decode_only:
         raise AssertionError(f"{tag}: {arch}: a decode step's host stage "

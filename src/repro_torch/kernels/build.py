@@ -81,8 +81,8 @@ _SIGNATURES = {
     "host_device_address": ("quant_blocks", "host_device_address",
                             [_P, _P]),
     "selective_scan": ("selective_scan", "launch_selective_scan",
-                       [_P] * 9 + [_I] * 5 + [_P]),
-    "wkv6": ("wkv6", "launch_wkv6", [_P] * 8 + [_I] * 4 + [_P]),
+                       [_P] * 9 + [_I] * 4 + [_P]),
+    "wkv6": ("wkv6", "launch_wkv6", [_P] * 10 + [_I] * 5 + [_P]),
 }
 
 

@@ -998,8 +998,9 @@ def quant_save_blocks(saves: Sequence[QuantSave]) -> int:
 # ---------------------------------------------------------------------------
 
 # tokens the kernel stages in shared memory per pass (csrc/selective_scan.cu
-# kChunk) and the one state width it takes
-SCAN_CHUNK, SCAN_STATES = 64, 16
+# kChunk), the one state width it takes, and the multiple of 8 channels
+# d_inner must be (its 16-byte copies of bf16 x)
+SCAN_CHUNK, SCAN_STATES, SCAN_CHANNEL_MULTIPLE = 64, 16, 8
 
 
 def selective_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
@@ -1009,29 +1010,33 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
     step): x, dt (Bt, S, di); B, C (Bt, S, ds); A (di, ds), already
     -exp(A_log); D (di,); h0 (Bt, di, ds) -> (y (Bt, S, di) float32, h
     after token S-1 (Bt, di, ds) float32); see ``ref.selective_scan``.
-    On the GPU: x, B and C bfloat16 or float32 alike, dt, A, D and h0
-    float32, ds = 16, all contiguous."""
+    On the GPU: x, B and C bfloat16 (as the Mamba layer passes them), dt,
+    A, D and h0 float32, ds = 16, di a multiple of 8, all contiguous."""
     if _all_cpu(x, dt, B, C, A, D, h0):
         return ref.selective_scan(x, dt, B, C, A, D, h0)
     name = "selective_scan"
     Bt, S, di = x.shape
     ds = B.shape[-1]
     _check_cuda(name, x.device, x=x, dt=dt, B=B, C=C, A=A, D=D, h0=h0)
-    _check(x.dtype in _PAYLOAD_CODES and B.dtype == C.dtype == x.dtype
+    _check(x.dtype == B.dtype == C.dtype == torch.bfloat16
            and dt.dtype == A.dtype == D.dtype == h0.dtype == torch.float32,
-           f"{name}: x, B and C bfloat16 or float32 alike; dt, A, D and h0 "
-           f"float32")
+           f"{name}: x, B and C bfloat16; dt, A, D and h0 float32")
     _check(dt.shape == x.shape and B.shape == C.shape == (Bt, S, ds)
            and A.shape == (di, ds) and D.shape == (di,)
            and h0.shape == (Bt, di, ds) and ds == SCAN_STATES,
            f"{name}: needs dt (Bt, S, di), B and C (Bt, S, {SCAN_STATES}), "
            f"A (di, {SCAN_STATES}), D (di,), h0 (Bt, di, {SCAN_STATES})")
+    _check(di % SCAN_CHANNEL_MULTIPLE == 0,
+           f"{name}: d_inner must be a multiple of {SCAN_CHANNEL_MULTIPLE} "
+           f"(di = {di})")
+    _check(_aligned(x, dt, B, C, A, h0),
+           f"{name}: x, dt, B, C, A and h0 must be 16-byte aligned")
     y = torch.empty((Bt, S, di), dtype=torch.float32, device=x.device)
     h = torch.empty((Bt, di, ds), dtype=torch.float32, device=x.device)
     rc = LIBS.fn(name)(x.data_ptr(), dt.data_ptr(), B.data_ptr(),
                        C.data_ptr(), A.data_ptr(), D.data_ptr(),
                        h0.data_ptr(), y.data_ptr(), h.data_ptr(), Bt, S, di,
-                       ds, _PAYLOAD_CODES[x.dtype], _stream())
+                       ds, _stream())
     _raise_on(rc, name)
     launches.add(name)
     return y, h
@@ -1041,9 +1046,24 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
 # wkv6: the RWKV6 time-mix's WKV recurrence
 # ---------------------------------------------------------------------------
 
-# the one head width the kernel takes (csrc/wkv6.cu kHead: a thread per
-# state column)
-WKV_HEAD = 64
+# the one head width the kernel takes (csrc/wkv6.cu kHead: each thread keeps
+# whole state columns), the tokens it stages per pass (kStage: a chunk is a
+# multiple), the shortest chunk it cuts a window into, and the CTAs an SM
+# it aims the chunked grid at (wkv6_chunk)
+WKV_HEAD, WKV_STAGE = 64, 16
+WKV_MIN_CHUNK, WKV_CTAS_PER_SM = 64, 8
+
+
+def wkv6_chunk(Bt: int, S: int, H: int, sms: int) -> int:
+    """The chunk length L that ``wkv6``'s kernel cuts a window of S tokens
+    into, so that B * H * ceil(S / L) CTAs give about WKV_CTAS_PER_SM an
+    SM on a card of ``sms`` SMs: at least WKV_MIN_CHUNK tokens and a
+    multiple of WKV_STAGE (512 at B 1, S 16,384, H 32 on 132 SMs).  A
+    window of at most one chunk, the decode step among them, runs in one
+    pass: then L >= S."""
+    want = max(1, -(-WKV_CTAS_PER_SM * sms // max(1, Bt * H)))
+    L = max(WKV_MIN_CHUNK, -(-S // want))
+    return -(-L // WKV_STAGE) * WKV_STAGE
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -1053,7 +1073,9 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     step): r, k, v, w (B, S, H, hd); u (H, hd); S0 (B, H, hd, hd) -> (y
     (B, S, H, hd) float32, the state after token S-1 (B, H, hd, hd)
     float32); see ``ref.wkv6``.  On the GPU: r, k and v bfloat16, w, u
-    and S0 float32, hd = 64, all contiguous."""
+    and S0 float32, hd = 64, all contiguous.  A window longer than
+    ``wkv6_chunk``'s L runs in time chunks (csrc/wkv6.cu), with scratch
+    for each chunk's state allocated here; one call counts one launch."""
     if _all_cpu(r, k, v, w, u, S0):
         return ref.wkv6(r, k, v, w, u, S0)
     name = "wkv6"
@@ -1068,13 +1090,25 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            and u.shape == (H, hd) and S0.shape == (Bt, H, hd, hd),
            f"{name}: needs r, k, v, w (B, S, H, {hd}), u (H, {hd}), S0 "
            f"(B, H, {hd}, {hd})")
-    y = torch.empty((Bt, S, H, hd), dtype=torch.float32, device=r.device)
-    S_out = torch.empty((Bt, H, hd, hd), dtype=torch.float32,
-                        device=r.device)
+    _check(_aligned(r, k, v, w), f"{name}: r, k, v and w must be 16-byte "
+                                 f"aligned")
+    dev = r.device
+    y = torch.empty((Bt, S, H, hd), dtype=torch.float32, device=dev)
+    S_out = torch.empty((Bt, H, hd, hd), dtype=torch.float32, device=dev)
+    L = wkv6_chunk(Bt, S, H, _sm_count(dev))
+    scratch = wprod = None
+    if S > L:
+        nc = -(-S // L)
+        scratch = torch.empty((Bt, H, nc, hd, hd), dtype=torch.float32,
+                              device=dev)
+        wprod = torch.empty((Bt, H, nc, hd), dtype=torch.float32,
+                            device=dev)
     rc = LIBS.fn(name)(r.data_ptr(), k.data_ptr(), v.data_ptr(),
                        w.data_ptr(), u.data_ptr(), S0.data_ptr(),
-                       y.data_ptr(), S_out.data_ptr(), Bt, S, H, hd,
-                       _stream())
+                       y.data_ptr(), S_out.data_ptr(),
+                       None if scratch is None else scratch.data_ptr(),
+                       None if wprod is None else wprod.data_ptr(),
+                       Bt, S, H, hd, L, _stream())
     _raise_on(rc, name)
     launches.add(name)
     return y, S_out

@@ -1118,21 +1118,24 @@ def test_noncausal_wrapper_raises_beyond_its_limits(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("Bn,S,di,dtype", [(3, 150, 96, torch.bfloat16),
-                                           (2, 1, 64, torch.bfloat16),
-                                           (2, 70, 40, torch.float32)])
-def test_selective_scan_matches_plain(cuda, Bn, S, di, dtype):
+@pytest.mark.parametrize("Bn,S,di", [(3, 150, 96), (2, 1, 64), (2, 70, 40),
+                                     (1, 333, 64)])
+def test_selective_scan_matches_plain(cuda, Bn, S, di):
     """selective_scan against its plain version (float32 on both sides:
     1e-5 + 1e-4 relative, as chip_smoke.py holds it) over right-padded
-    rows (dt = 0) from a non-zero h0, across more than two 64-token
-    chunks, the decode step (S = 1), and a channel count that leaves a
-    CTA part-filled; a kernel given no h0 must fail that."""
+    rows (dt = 0 from S // 2, inside a staged 64-token chunk) from a
+    non-zero h0: across more staged chunks than the kernel's two
+    buffers, the decode step (S = 1), a channel count that leaves a CTA
+    part-filled, and one row over several chunks with a part-filled last
+    one; a kernel given no h0 must fail that.  The kernel takes bf16 x, B
+    and C only, and a d_inner that is a multiple of 8."""
     g = _gen(cuda)
-    x = torch.randn((Bn, S, di), generator=g, device=cuda).to(dtype)
+    bf16 = torch.bfloat16
+    x = torch.randn((Bn, S, di), generator=g, device=cuda).to(bf16)
     dt = torch.nn.functional.softplus(
         torch.randn((Bn, S, di), generator=g, device=cuda) - 2)
     dt[0, S // 2:] = 0
-    B, C = (torch.randn((Bn, S, 16), generator=g, device=cuda).to(dtype)
+    B, C = (torch.randn((Bn, S, 16), generator=g, device=cuda).to(bf16)
             for _ in range(2))
     A = -torch.rand((di, 16), generator=g, device=cuda) * 4
     D = torch.randn((di,), generator=g, device=cuda)
@@ -1145,6 +1148,13 @@ def test_selective_scan_matches_plain(cuda, Bn, S, di, dtype):
     assert not torch.allclose(bad[0], want[0], atol=1e-5, rtol=1e-4)
     with pytest.raises(ValueError):
         ops.selective_scan(x, dt.double(), B, C, A, D, h0)
+    with pytest.raises(ValueError, match="bfloat16"):
+        ops.selective_scan(x.float(), dt, B.float(), C.float(), A, D, h0)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ops.selective_scan(*(t[..., :di - 4].contiguous()
+                             for t in (x, dt)), B, C,
+                           A[:di - 4].contiguous(), D[:di - 4].contiguous(),
+                           h0[:, :di - 4].contiguous())
 
 
 # ---------------------------------------------------------------------------
@@ -1202,15 +1212,23 @@ def _wkv_case(dev, Bn, S, H, lens, seed=0):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("Bn,S,H,lens", [
-    (3, 150, 4, (150, 70, 1)),     # padded rows, 5 chunks
+    (3, 150, 4, (150, 70, 1)),     # padded rows, 10 stages, time chunks
     (4, 1, 32, (1, 1, 1, 1)),      # the decode step
-    (2, 33, 2, (33, 33))])         # a part-filled chunk
+    (2, 33, 2, (33, 33)),          # a part-filled stage, one pass
+    (1, 600, 2, (600,)),           # one row over chunks, the last part-filled
+    (2, 300, 2, (300, 100))])      # padding across chunk edges
 def test_wkv6_matches_plain(cuda, Bn, S, H, lens):
     """wkv6 against its plain version, float32 on both sides, per element
     within 2^-14 of the plain version on the inputs' magnitudes (as
     chip_smoke.py holds it), from a carried state over right-padded rows
-    (k = 0, w = 1); a kernel given no state, or no bonus, must fail
-    that."""
+    (k = 0, w = 1), in one pass and in time chunks (``ops.wkv6_chunk``);
+    a kernel given no state, or no bonus, must fail that."""
+    L = ops.wkv6_chunk(Bn, S, H, ops._sm_count(cuda))
+    if S >= 300:
+        # the chunked path, a length that is no multiple of the chunk, and
+        # padding, where there is some, from before a chunk's edge to S
+        assert S > L and S % L
+        assert min(lens) == S or min(lens) // L < (S - 1) // L
     args = _wkv_case(cuda, Bn, S, H, lens)
     r, k, v, w, u, S0 = args
     weight = ref.wkv6(r.abs(), k.abs(), v.abs(), w, u.abs(), S0.abs())

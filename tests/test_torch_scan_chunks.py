@@ -1,0 +1,196 @@
+"""The time-chunk decomposition of the port's two recurrences, in plain
+PyTorch on the CPU, against their plain versions.
+
+``wkv6``'s kernel cuts a window into chunks of L tokens (csrc/wkv6.cu):
+(1) each chunk's recurrence from a zero state gives its end state S_loc[c]
+and the product of its decays W[c]; (2) S_in[c+1] = W[c] S_in[c] +
+S_loc[c] from S_in[0] = S0; (3) each chunk rerun from S_in[c] gives y.
+The Mamba scan's state update h = dA h + (dt x) B is linear in h the same
+way, but the scan's kernel does not chunk over time (a one-row window
+already fills the card, and chunks would compute every exponential twice:
+csrc/selective_scan.cu); its half here pins the algebra that a
+time-chunked scan would rest on, a design not taken.  The helpers here compute those three phases with the plain versions
+inside each chunk; they are held against the token walk under the bars
+the kernels are held to on the card (``chip_smoke.py``): wkv6 per element
+within 2^-14 of the plain version on the inputs' magnitudes plus 1e-6,
+the scan within 1e-5 + 1e-4 |ref|.  Cases: a window that is a multiple of
+the chunk, one that is not, right padding from the middle of a chunk
+across chunk edges, a carried state, and a window of at most one chunk.
+Also ``ops.wkv6_chunk``, which picks the kernel's chunk length."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops, ref
+
+WKV_RTOL, WKV_ATOL = 2.0 ** -14, 1e-6
+SCAN_ATOL, SCAN_RTOL = 1e-5, 1e-4
+
+# (label, B, S, row lengths, L, carried state)
+CASES = [("multiple", 2, 96, (96, 96), 32, False),
+         ("ragged", 2, 100, (100, 100), 32, False),
+         ("padded_mid_chunk", 2, 100, (100, 45), 32, True),
+         ("carried", 1, 70, (70,), 16, True),
+         ("one_chunk", 2, 20, (20, 13), 32, True)]
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The plain walks' small ops on one thread, the count restored after
+    (under the suite's parallel workers a thread pool per process is
+    slower, not faster)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _mask(B, S, lens):
+    return torch.arange(S)[None, :] < torch.tensor(lens)[:, None]
+
+
+def _wkv_inputs(rng, B, S, H, lens, carried):
+    """wkv6's inputs as the time-mix hands them over, from numpy: r, k, v
+    ~ N(0, 1) rounded through bf16 (the card's dtype), w = exp(-exp(N(-2,
+    1))), u = 0.1 N(0, 1), S0 ~ N(0, 1) when carried, else 0; k = 0 and
+    w = 1 past each row's length."""
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    m = _mask(B, S, lens)[..., None, None]
+    r, k, v = (randn(B, S, H, 16).bfloat16().float() for _ in range(3))
+    k = k * m
+    w = torch.where(m, torch.exp(-torch.exp(randn(B, S, H, 16) - 2)), 1.0)
+    S0 = randn(B, H, 16, 16) if carried else torch.zeros(B, H, 16, 16)
+    return r, k, v, w, 0.1 * randn(H, 16), S0
+
+
+def wkv6_chunked(r, k, v, w, u, S0, L):
+    """wkv6 in the kernel's three phases over chunks of L tokens (one
+    pass from S0 when S <= L)."""
+    S = r.shape[1]
+    if S <= L:
+        return ref.wkv6(r, k, v, w, u, S0)
+    chunks = [slice(c, min(c + L, S)) for c in range(0, S, L)]
+    # 1. each chunk but the last from a zero state: S_loc and W
+    loc, decay = [], []
+    for sl in chunks[:-1]:
+        _, s_end = ref.wkv6(r[:, sl], k[:, sl], v[:, sl], w[:, sl], u,
+                            torch.zeros_like(S0))
+        loc.append(s_end)
+        p = torch.ones_like(w[:, 0])
+        for t in range(sl.start, sl.stop):      # token by token, as the kernel
+            p = p * w[:, t]
+        decay.append(p)
+    # 2. the carries
+    s_in = [S0]
+    for s_loc, p in zip(loc, decay):
+        s_in.append(p[..., None] * s_in[-1] + s_loc)
+    # 3. each chunk from its carried state
+    ys = []
+    for sl, s0 in zip(chunks, s_in):
+        y, s_fin = ref.wkv6(r[:, sl], k[:, sl], v[:, sl], w[:, sl], u, s0)
+        ys.append(y)
+    return torch.cat(ys, dim=1), s_fin
+
+
+def _scan_inputs(rng, B, S, di, lens, carried):
+    """selective_scan's inputs as a Mamba layer hands them over, from
+    numpy: x, B, C ~ N(0, 1) rounded through bf16, dt = softplus(N(-2,
+    1)) zeroed past each row's length, A = -exp(log(1..16) + N(0,
+    0.1^2)), D = 1 + N(0, 0.1^2), h0 ~ N(0, 1) when carried, else 0."""
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    x = randn(B, S, di).bfloat16().float()
+    dt = torch.nn.functional.softplus(randn(B, S, di) - 2) \
+        * _mask(B, S, lens)[..., None]
+    Bm, Cm = (randn(B, S, 16).bfloat16().float() for _ in range(2))
+    A = -torch.exp(torch.arange(1, 17).float().log() + 0.1 * randn(di, 16))
+    h0 = randn(B, di, 16) if carried else torch.zeros(B, di, 16)
+    return x, dt, Bm, Cm, A, 1 + 0.1 * randn(di), h0
+
+
+def scan_chunked(x, dt, Bm, Cm, A, D, h0, L):
+    """The selective scan in the same three phases (no kernel of the port
+    runs it so): the chunk's decay product is that of its per-token
+    factors exp(dt A)."""
+    S = x.shape[1]
+    if S <= L:
+        return ref.selective_scan(x, dt, Bm, Cm, A, D, h0)
+    chunks = [slice(c, min(c + L, S)) for c in range(0, S, L)]
+    loc, decay = [], []
+    for sl in chunks[:-1]:
+        _, h_end = ref.selective_scan(x[:, sl], dt[:, sl], Bm[:, sl],
+                                      Cm[:, sl], A, D, torch.zeros_like(h0))
+        loc.append(h_end)
+        p = torch.ones_like(h0)
+        for t in range(sl.start, sl.stop):
+            p = p * torch.exp(dt[:, t, :, None] * A)
+        decay.append(p)
+    h_in = [h0]
+    for h_loc, p in zip(loc, decay):
+        h_in.append(p * h_in[-1] + h_loc)
+    ys = []
+    for sl, hc in zip(chunks, h_in):
+        y, h_fin = ref.selective_scan(x[:, sl], dt[:, sl], Bm[:, sl],
+                                      Cm[:, sl], A, D, hc)
+        ys.append(y)
+    return torch.cat(ys, dim=1), h_fin
+
+
+@pytest.mark.parametrize("label,B,S,lens,L,carried", CASES,
+                         ids=[c[0] for c in CASES])
+def test_wkv6_three_phases_match_token_walk(label, B, S, lens, L, carried):
+    rng = np.random.default_rng(7)
+    args = _wkv_inputs(rng, B, S, 3, lens, carried)
+    r, k, v, w, u, S0 = args
+    want = ref.wkv6(*args)
+    got = wkv6_chunked(*args, L)
+    weight = ref.wkv6(r.abs(), k.abs(), v.abs(), w, u.abs(), S0.abs())
+    for g, x, m in zip(got, want, weight):
+        assert g.shape == x.shape
+        assert bool(((g - x).abs() <= WKV_RTOL * m + WKV_ATOL).all())
+    # a carry that drops a chunk's decay product must fail that bar
+    if S > L:
+        bad_w = w.clone()
+        bad_w[:, L] = 1.0                  # the first token of chunk 1
+        bad = wkv6_chunked(r, k, v, bad_w, u, S0, L)
+        assert not all(bool(((g - x).abs() <= WKV_RTOL * m + WKV_ATOL).all())
+                       for g, x, m in zip(bad, want, weight))
+
+
+@pytest.mark.parametrize("label,B,S,lens,L,carried", CASES,
+                         ids=[c[0] for c in CASES])
+def test_scan_three_phases_match_token_walk(label, B, S, lens, L, carried):
+    rng = np.random.default_rng(11)
+    args = _scan_inputs(rng, B, S, 24, lens, carried)
+    want = ref.selective_scan(*args)
+    got = scan_chunked(*args, L)
+    for g, x in zip(got, want):
+        assert g.shape == x.shape
+        assert bool(((g - x).abs() <= SCAN_ATOL + SCAN_RTOL * x.abs()).all())
+    # the chunk carries must matter: phase 3 from zero states fails
+    if S > L:
+        x_, dt, Bm, Cm, A, D, h0 = args
+        y0, _ = ref.selective_scan(x_[:, L:], dt[:, L:], Bm[:, L:],
+                                   Cm[:, L:], A, D, torch.zeros_like(h0))
+        assert not bool(((y0 - want[0][:, L:]).abs()
+                         <= SCAN_ATOL + SCAN_RTOL * want[0][:, L:].abs()
+                         ).all())
+
+
+@pytest.mark.parametrize("B,S,H,sms,want", [
+    (1, 16384, 32, 132, 512),     # rwkv6-1.6b's first prefill window
+    (4, 1000, 32, 132, 112),      # chip_smoke.py's padded window
+    (1, 4096, 32, 132, 128),      # its one-row window
+    (4, 1, 32, 132, 64)])         # the decode step: one pass
+def test_wkv6_chunk_length(B, S, H, sms, want):
+    """The kernel's chunk length: a multiple of its stage, at least
+    WKV_MIN_CHUNK, one pass (L >= S) for a window of at most one chunk,
+    and otherwise about WKV_CTAS_PER_SM CTAs an SM."""
+    L = ops.wkv6_chunk(B, S, H, sms)
+    assert L == want
+    assert L % ops.WKV_STAGE == 0 and L >= ops.WKV_MIN_CHUNK
+    if S > L:
+        ctas = B * H * -(-S // L)
+        assert ctas <= ops.WKV_CTAS_PER_SM * sms + B * H
+        assert ctas * 2 > ops.WKV_CTAS_PER_SM * sms
