@@ -18,7 +18,12 @@ inputs, and at llama3-8b's heads (B 1, Sq = Sk 2048, Hq 32, Hkv 8,
 D 128), and, on inputs drawn from a generator of their own (seed + 1),
 at MLA's q/k depth 96 with v width 64 (minicpm3-4b's 40 heads over 40)
 and at D = Dv = 112 (kimi-k2's 64 heads over 8), B 1, 4096 tokens,
-where the tree builds that instantiation; sparse_decode_attention at
+where the tree builds that instantiation, and each instantiation's
+non-causal mode (a 1024-query window over 1500 keys, inputs from seed +
+4); flash_prefill_bwd, where the tree has it, at the train phase's shape
+(B 2, S 4096, Hq 14, Hkv 2, D 64) and llama3-8b's heads (B 1, S 2048,
+32 over 8, D 128), inputs from seed + 5, its digest over dq, dk, dv;
+sparse_decode_attention at
 the serve's decode step (B 4, Hq 14, Hkv 2, NB 136, K 64, bs 32, D 64,
 cur_len 4112, every selection valid: 512 live blocks, as the serve
 replay has), and with the select stage at
@@ -248,6 +253,31 @@ def main() -> int:
         if (dq, dv) in getattr(ops, "FLASH_DIMS", ()):
             cases[name] = cs.case_flash(torch, ops, ref, *fx,
                                         scale=dq ** -0.5)
+    # every instantiation's non-causal mode (Whisper's), on inputs of
+    # their own: a 1024-query window over 1500 keys (a ragged last tile)
+    gen4 = torch.Generator(device=dev).manual_seed(args.seed + 4)
+    for name, (hq, hkv, dq, dv) in {
+            "flash_prefill_nc_d64": (14, 2, 64, 64),
+            "flash_prefill_nc_d128": (32, 8, 128, 128),
+            "flash_prefill_nc_mla": (40, 40, 96, 64),
+            "flash_prefill_nc_d112": (64, 8, 112, 112)}.items():
+        fx = [torch.randn((1, n, h, d), generator=gen4, device=dev).to(
+            torch.bfloat16) for n, h, d in ((1024, hq, dq), (1500, hkv, dq),
+                                            (1500, hkv, dv))]
+        if (dq, dv) in getattr(ops, "FLASH_DIMS", ()):
+            cases[name] = cs.case_flash(torch, ops, ref, *fx,
+                                        scale=dq ** -0.5, causal=False)
+    # training's backward at the train phase's shape and llama3-8b's
+    # heads, on inputs of their own, where the tree has it
+    gen5 = torch.Generator(device=dev).manual_seed(args.seed + 5)
+    if hasattr(ops, "flash_prefill_bwd"):
+        for name, (b, n, hq, hkv, d) in {
+                "flash_prefill_bwd": (2, 4096, 14, 2, 64),
+                "flash_prefill_bwd_d128": (1, 2048, 32, 8, 128)}.items():
+            bx = [torch.randn((b, n, h, d), generator=gen5, device=dev).to(
+                torch.bfloat16) for h in (hq, hkv, hkv, hq)]
+            cases[name] = cs.case_flash_bwd(torch, ops, ref, *bx,
+                                            d ** -0.5)
     # the two recurrences at their serves' first prefill and a decode
     # launch, on inputs of their own
     gen3 = torch.Generator(device=dev).manual_seed(args.seed + 2)
@@ -350,9 +380,11 @@ def main() -> int:
             rec[f"ms_{tname}"] = timer(kern)
             if len(case) > 7 and case[7] is not None:
                 rec[f"library_ms_{tname}"] = timer(case[7])
-        if name in recurrences:
+        if name in recurrences or name.startswith("flash_prefill_bwd"):
             rec["events_ms"] = cs.events_ms(torch, kern)
             rec["device_ms"] = cs.device_ms(torch, kern)
+        if name.startswith("flash_prefill_bwd"):
+            rec["digests_dq_dk_dv"] = [_digest(torch, t) for t in kern()]
         out[name] = rec
     for name, (fn, how) in stages.items():
         rec = {"how": how}

@@ -2,8 +2,8 @@
 """GPU smoke test of the PyTorch port (``src/repro_torch``).
 
     python3 chip_smoke.py [--seed 0]
-        [--phases build,parity,transfer,serve,serve_int8,oracles,models,obs,
-                  async]
+        [--phases build,parity,transfer,serve,serve_int8,oracles,models,
+                  obs,async,train,calibrate]
 
 Run from the repository root on a machine with one NVIDIA H100.  Phases,
 each printing one line (``phase=...``) and failing the run on any error:
@@ -172,7 +172,9 @@ each printing one line (``phase=...``) and failing the run on any error:
    persistent == mixed on the fp tier (same kernels at the same shapes);
    the paths that change GEMM or attention shapes are held by their
    logits at the first step where they differ (ORACLE_PATHS,
-   ORACLE_REL_L2).  Its launch counts join the kernels' JSON record
+   ORACLE_REL_L2).  Then split == mixed token for token at MLA
+   (minicpm3-4b at full width and depth, 8 new tokens, the fp tier).
+   Its launch counts join the kernels' JSON record
    (``launches_by_path``).
 8. models — the paper's models and workload at full width, bf16 random
    weights from --seed, the default EngineConfig with wall-clock
@@ -196,7 +198,9 @@ each printing one line (``phase=...``) and failing the run on any error:
    2.0 req/s, 4 requests, prompts capped at 8192, 4096, 32768, 32768,
    32768, 32768, 4096, 32768, 8192, 32768 and 32768, 32 new tokens), and
    llama3-8b with one 131,072-token prompt, 8 new tokens, on the int8
-   tier.  Algorithm 1's HBM budget stays the default 1 GiB unless the
+   tier; minicpm3-4b and kimi-k2-1t-a32b are served on the int8 tier too,
+   from the same weights and submissions (their lines give the tokens'
+   digest, TTFT, TBT and wire bytes per moved block of each tier).  Algorithm 1's HBM budget stays the default 1 GiB unless the
    largest working set one request can claim (a VLM's patches counted
    in its prompt) exceeds it (minicpm3-4b,
    whose geometry counts its latent over 40 heads, lwm-7b, llama3-8b);
@@ -232,8 +236,9 @@ each printing one line (``phase=...``) and failing the run on any error:
    Its launch counts join the kernels' JSON record.
 9. obs    — the obs layer on the card (EngineConfig(obs=True): the
    reference's host wall-clock spans and metrics registry).  After a
-   warm-up serve, the serve phase's run with obs off, on, on, off: the
-   greedy tokens of all four identical, obs-on's best wall time within
+   warm-up serve, the serve phase's run five times with obs off and five
+   with it on, in turns (OBS_ORDER): the greedy tokens of all identical,
+   obs-on's best wall time within
    1.10x obs-off's, and on each obs-on run iteration spans on the engine's
    lane, select / host-stage / attend spans, worker spans on a lane of
    their own overlapping iterations, and the trace's overlap within
@@ -250,7 +255,32 @@ each printing one line (``phase=...``) and failing the run on any error:
 10. async — the same submissions at full width and 4 layers with
    stage_dispatch "async" and "sync", fp and int8: greedy tokens and
    transfer counters must be identical.
-11. profile, profile_int8 (only when named in --phases) — the serve
+11. train — training's attention kernels, then dense GQA training at
+   full width.  flash_prefill_bwd (csrc/flash_prefill_bwd.cu: Delta, dK
+   and dV, dQ) and the forward with its lse output against their plain
+   versions on the same bf16 inputs, at qwen2-0.5b's heads over a ragged
+   1000 tokens (B 2), llama3-8b's over 2048 (B 1) and the training run's
+   own shape (B 2, S 4096, 14 over 2 heads of 64): each gradient within
+   2e-2 of its max |grad| with a cosine >= 0.999, two launches bit-equal,
+   lse within 1e-3, the output bit for bit the serve launch's; timed
+   beside the plain versions, their FLOP bounds and SDPA's backward (and
+   forward + backward).  Then qwen2-0.5b at full width and all 24 layers,
+   float32 weights, gradients and AdamW moments, trained 8 steps at B 2,
+   S 4096 with remat on, on one fixed TokenStream batch: the loss of step
+   8 below step 1's, step 1's loss within 1e-3 relative and its grad norm
+   within 2% of the same step with the plain attention (float32, patched
+   in by this script; the trainer has no such option), flash_prefill
+   launched 48 times a step (the forward and remat's rerun of 24 layers,
+   all with lse) and flash_prefill_bwd 24; ms per step, tokens per
+   second, peak device memory; then a checkpoint of the params saved
+   and restored equal.
+12. calibrate — the cost model's H100_80G against this card: a 1 GiB
+   pinned-to-device copy, 4096 copy_ calls of one 8 KiB block from
+   pinned memory and 2000 one-block gather_blocks_hkv launches (each the
+   best of 5 passes), the fused gather at the fp serve's shape, the
+   device's and the host's memory; each beside its H100_80G field,
+   failing beyond 2x.
+13. profile, profile_int8 (only when named in --phases) — the serve
    (serve_int8) run again under torch.profiler: device busy time, idle
    share, the count of device operations (kernels, copies, memsets),
    largest device consumers, and the port's kernels (``port_kernel=``
@@ -268,6 +298,7 @@ import dataclasses
 import gc
 import hashlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -281,7 +312,7 @@ F32_OPS_PER_S = 67e12                # H100 SXM float32 outside the tensor
                                      # cores (selective_scan's and wkv6's
                                      # arithmetic)
 PHASES = ("build", "parity", "transfer", "serve", "serve_int8", "oracles",
-          "models", "obs", "async")
+          "models", "obs", "async", "train", "calibrate")
 
 KERNELS = {   # name -> (source in this repo, the TPU kernel it replaces)
     "sparse_decode_attention": (
@@ -332,18 +363,27 @@ KERNELS = {   # name -> (source in this repo, the TPU kernel it replaces)
     # no Pallas kernel: the reference's RWKV6 recurrence is a lax.scan
     "wkv6": ("src/repro_torch/csrc/wkv6.cu",
              "src/repro/models/rwkv6.py:135 (jax.lax.scan)"),
+    # training's forward: flash_prefill with each row's log-sum-exp
+    "flash_prefill:lse": ("src/repro_torch/csrc/flash_prefill.cu",
+                          "src/repro/kernels/flash_prefill.py:71"),
+    "flash_prefill_bwd": (
+        "src/repro_torch/csrc/flash_prefill_bwd.cu",
+        "no TPU kernel: the gradient of flash_attention_jnp "
+        "(src/repro/models/attention.py:90)"),
 }
 # the serve path whose launches a kernel's record counts, where it is not
 # the fp serve (the transfer phase's and the int8 tier's are below)
 OWNERS = {"selective_scan": "models_jamba-v0.1-52b",
           "wkv6": "models_rwkv6-1.6b",
-          "score_select:mean": "models_qwen2-0.5b-mean"}
+          "score_select:mean": "models_qwen2-0.5b-mean",
+          "flash_prefill:lse": "train", "flash_prefill_bwd": "train"}
 # the flat FlashH2D / FlashD2H pair: no serve path calls them (in the
 # reference only benchmarks/bench_transfer.py does); the transfer phase
 # drives them
 TRANSFER_PATH = ("gather_blocks", "scatter_blocks")
 # the kernels whose registers and spills the build phase prints
-REGISTER_WATCH = ("flash_prefill", "sparse_decode_attention")
+REGISTER_WATCH = ("flash_prefill", "sparse_decode_attention",
+                  "flash_prefill_bwd")
 # the kernels each serve path must launch (the int8 tier restores through
 # dequantize_scatter_blocks, not scatter_blocks_hkv, and saves through
 # quant_save_blocks)
@@ -364,7 +404,9 @@ PORT_KERNEL_FNS = ("split_kernel", "merge_kernel", "block_score_kernel",
                    "dequantize_scatter_blocks_kernel",
                    "quant_save_blocks_kernel", "selective_scan_kernel",
                    "wkv6_local_kernel", "wkv6_carry_kernel",
-                   "wkv6_emit_kernel", "wkv6_step_kernel")
+                   "wkv6_emit_kernel", "wkv6_step_kernel",
+                   "flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
+                   "flash_bwd_dq_kernel")
 # one PyTorch call computing the same function, where there is one; else
 # why not (printed, and null in the JSON record)
 NO_LIBRARY = {
@@ -384,6 +426,7 @@ NO_LIBRARY = {
     "score_select:sum": "a group-summed block score fused with a masked, "
                         "forced top-k",
     "wkv6": "no PyTorch call computes the WKV recurrence",
+    "flash_prefill_bwd": "SDPA refused the shape",
 }
 SHAPES = {"qwen2-0.5b": dict(Hq=14, Hkv=2, D=64),
           "llama3-8b": dict(Hq=32, Hkv=8, D=128)}
@@ -526,6 +569,9 @@ ORACLE_KEEP = {
 # at every step), and the paths whose prefilled decode pools are held
 # against the mixed prefill's (recorded from "mixed", which runs first)
 FORCED_PATHS = ("stacked", "sequential", "legacy", "chunked")
+# split == mixed at MLA too (its one latent head through both planes), at
+# full width and depth with fewer new tokens than the serve's
+ORACLE_MLA_ARCH, ORACLE_MLA_NEW = "minicpm3-4b", 8
 POOL_PATHS = ("mixed", "split", "legacy", "chunked")
 # Two bf16 forwards of the same 24-layer model whose GEMM or attention
 # shapes differ round differently: each layer's two residual adds round
@@ -554,12 +600,12 @@ MODEL_RUNS = {
     "internvl2-2b": ("none", (4, 32768, 32), (
         "sparse_decode_attention", "score_select")),
     "qwen2.5-3b": ("none", (4, 32768, 32), ()),
-    "minicpm3-4b": ("none", (4, 32768, 32), (
+    "minicpm3-4b": (("none", "int8"), (4, 32768, 32), (
         "sparse_decode_attention", "score_select", "flash_prefill")),
     "lwm-7b": ("none", (4, 4096, 32), ("flash_prefill",)),
     "llama3-8b": ("int8", None, ("sparse_decode_attention",
                                  "score_select")),
-    "kimi-k2-1t-a32b": ("none", (4, 32768, 32), (
+    "kimi-k2-1t-a32b": (("none", "int8"), (4, 32768, 32), (
         "sparse_decode_attention", "score_select", "flash_prefill")),
     "granite-20b": ("none", (4, 8192, 32), (
         "sparse_decode_attention", "score_select", "flash_prefill")),
@@ -595,12 +641,41 @@ LONG_PROMPT, LONG_NEW = 131072, 8
 # how many of its requests; the dispatch thread's spans that nest in no
 # other (their sum against the iteration spans leaves the uncovered rest)
 OBS_WALL_RATIO = 1.10
+# five serves each way, balanced in time (off, on, on, off, ...): on the
+# card's shared host identical serves spread by ~+-10% (7.11-9.98 s over
+# four calls), so the best of two or three a side read anywhere from
+# 0.95x to 1.12x for the same code; the best of five comes nearer each
+# side's floor (those calls' floors: 7.25 s off, 7.11 s on)
+OBS_ORDER = (False, True, True, False) * 2 + (False, True)
 OBS_TRACE_ARCH, OBS_TRACE_REQUESTS = "qwen2.5-3b", 2
 OBS_TOP_SPANS = ("select", "idx-sync", "host-stage", "attend",
                  "prefill-group")
 # benchmarks/bench_transfer.py's real_gather_microbench: a (512, 32, 128)
 # float32 pool, 64 distinct block ids
 XFER_NB, XFER_BS, XFER_D, XFER_K = 512, 32, 128, 64
+# the train phase: qwen2-0.5b at full width and all 24 layers, float32
+# weights, gradients and moments, TRAIN_STEPS AdamW steps on one fixed
+# TokenStream batch of TRAIN_B x TRAIN_S tokens with remat on;
+# flash_prefill_bwd's parity shapes beside the run's own: (label, B, S,
+# Hq, Hkv, D), qwen2-0.5b's heads over a ragged length and llama3-8b's
+TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS = "qwen2-0.5b", 2, 4096, 8
+BWD_CASES = (("qwen2-0.5b_ragged", 2, 1000, 14, 2, 64),
+             ("llama3-8b", 1, 2048, 32, 8, 128))
+# each gradient within BWD_ERR of its max |grad| with a cosine >= BWD_COS
+# (P and dS rounded to bf16 before their products: 2^-8 relative on each
+# term); lse in float32 from exp2 and float32 sums, within LSE_ATOL
+BWD_ERR, BWD_COS, LSE_ATOL = 2e-2, 0.999, 1e-3
+# step 1 through the kernels against the same step with the plain float32
+# attention: the kernels' bf16 inputs (2^-8 relative on q, k, v) move the
+# loss by far less than 1e-3 of it and the gradient norm by under 2%
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL = 1e-3, 0.02
+# the calibrate phase: a 1 GiB link copy; 4096 copy_ calls of one fp-tier
+# block of one head (32 x 64 float32); 2000 one-block gather launches; the
+# fused gather at the fp serve's shape, (H, NB, bs, D, K) float32
+CAL_LINK_BYTES = 1 << 30
+CAL_COPIES, CAL_COPY_BYTES, CAL_LAUNCHES = 4096, 8192, 2000
+CAL_GATHER = (2, 1024, 32, 64, 64)
+CAL_PASSES, CAL_RATIO = 5, 2.0
 
 
 def log(msg: str) -> None:
@@ -1444,10 +1519,12 @@ def link_copy(torch, direction: str, nbytes: int):
     return lambda: host.copy_(dev, non_blocking=True)
 
 
-def device_ms(torch, fn, reps: int = 10) -> float:
+def device_ms(torch, fn, reps: int = 10, by_kernel: str = ""):
     """Device time of one call of ``fn``: the summed device-side events
     (kernels, copies, memsets) of ``reps`` calls under torch.profiler,
-    over ``reps``; free of the Timer's ~6 us floor."""
+    over ``reps``; free of the Timer's ~6 us floor.  With ``by_kernel``:
+    instead {kernel: ms per call} for the device kernels whose name holds
+    that prefix."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1455,11 +1532,17 @@ def device_ms(torch, fn, reps: int = 10) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-             for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / reps / 1e3
+    split, total = {}, 0.0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0)) / reps / 1e3
+        total += ms
+        m = re.search(by_kernel + r"\w*", e.key) if by_kernel else None
+        if m:
+            split[m.group(0)] = round(split.get(m.group(0), 0.0) + ms, 5)
+    return split if by_kernel else total
 
 
 def events_ms(torch, fn, reps: int = 10) -> float:
@@ -1945,8 +2028,8 @@ def flash_guard(torch, ops, ref, q, k, v, scale, q_offset, label) -> None:
     buf = torch.full((n + FLASH_GUARD,), FLASH_SENTINEL,
                      dtype=torch.bfloat16, device=q.device)
     rc = LIBS.fn("flash_prefill")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), buf.data_ptr(), B, Sq, Sk,
-        Hq, Hkv, D, Dv, q_offset, 1, float(scale),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), buf.data_ptr(), None, B,
+        Sq, Sk, Hq, Hkv, D, Dv, q_offset, 1, float(scale),
         torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
     out = buf[:n].view(B, Sq, Hq, Dv)
@@ -3052,8 +3135,57 @@ def phase_oracles(torch, np, ops, seed: int) -> tuple:
                                  f"tolerance, or a tolerance that does not "
                                  f"tell requests apart")
     _pinned_check(torch, np, ops, params, cfg, seed)
+    del params, runs, pools
+    _oracle_mla(torch, np, ops, seed, counts)
     log(f"phase=oracles seconds={time.perf_counter() - t_phase:.1f}")
     return counts, caps
+
+
+def _oracle_mla(torch, np, ops, seed: int, counts: dict) -> None:
+    """split == mixed token for token at MLA: ORACLE_MLA_ARCH at full
+    width and depth, bf16 weights from ``seed``, the serve phase's
+    submissions with ORACLE_MLA_NEW new tokens, the fp tier; the HBM
+    budget the device memory left after the weights (the default cannot
+    admit one of its requests: its geometry counts the latent over 40
+    heads, _hbm_budget).  Both paths must launch FP_PATH's kernels."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    _free_memory(torch)
+    cfg = get_config(ORACLE_MLA_ARCH)
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        seed), torch.bfloat16, "cuda")
+    torch.cuda.synchronize()
+    budget = int(torch.cuda.mem_get_info()[0])
+    runs = {}
+    for path, kw in (("mixed", {}), ("split", {"hybrid_plane": "split"})):
+        t0 = time.perf_counter()
+        r = runs[path] = _oracle_run(torch, np, ops, params, cfg, seed,
+                                     ORACLE_MLA_NEW,
+                                     hbm_budget_bytes=budget, **kw)
+        counts[f"oracles_{ORACLE_MLA_ARCH}_{path}"] = r["counts"]
+        m = r["metrics"]
+        log(f"phase=oracles arch={ORACLE_MLA_ARCH} path={path} "
+            f"layers={cfg.num_layers} new={ORACLE_MLA_NEW} "
+            f"wall_s={time.perf_counter() - t0:.3f} "
+            f"mean_ttft_ms={m.mean_ttft * 1e3:.2f} "
+            f"mean_tbt_ms={m.mean_tbt * 1e3:.3f} "
+            f"first8={[t[:8] for t in r['tokens']]} card=[{_card()}]")
+        log(f"phase=oracles arch={ORACLE_MLA_ARCH} path={path} launches "
+            + json.dumps(r["counts"]))
+        missing = [k for k in FP_PATH if r["counts"][k] == 0]
+        if missing:
+            raise AssertionError(f"oracles: kernels not launched on "
+                                 f"{ORACLE_MLA_ARCH}'s {path} path: "
+                                 f"{missing}")
+    agree = sum(a == b for a, b in zip(runs["split"]["tokens"],
+                                       runs["mixed"]["tokens"]))
+    log(f"phase=oracles arch={ORACLE_MLA_ARCH} split_vs_mixed "
+        f"requests_agreeing={agree}/{len(runs['mixed']['tokens'])}")
+    if runs["split"]["tokens"] != runs["mixed"]["tokens"]:
+        raise AssertionError(f"oracles: {ORACLE_MLA_ARCH}'s split tokens "
+                             f"differ from mixed's")
+    del params, runs
+    _free_memory(torch)
 
 
 def _card() -> str:
@@ -3231,6 +3363,9 @@ def _serve_tier(torch, np, ops, arch, cfg, params, tier, first, seed, caps,
     mixed = sum(1 for e in eng.mixed_iter_log
                 if e["decode_rows"] and e["prefill_rows"])
     s = eng.metrics_snapshot()
+    moved = s["kv.h2d_blocks"] + s["kv.d2h_blocks"]
+    wire = (f"{(s['kv.h2d_bytes'] + s['kv.d2h_bytes']) / moved:.1f}"
+            if moved else "n/a(no_block_moved)")
     p99 = m.p99_tbt
     log(f"phase={tag} arch={arch} layers={cfg.num_layers} "
         f"d_model={cfg.d_model} heads={cfg.num_heads}/{cfg.num_kv_heads} "
@@ -3268,6 +3403,7 @@ def _serve_tier(torch, np, ops, arch, cfg, params, tier, first, seed, caps,
         f"pinned_host_gb={pinned / 1e9:.3f} hbm_budget_bytes={budget} "
         f"(default {default}, largest working set {worst}) "
         f"h2d_bytes={s['kv.h2d_bytes']:.0f} d2h_bytes={s['kv.d2h_bytes']:.0f}"
+        f" wire_bytes_per_block={wire} offload_quant={tier}"
         f" hits={s['kv.hits']:.0f} misses={s['kv.misses']:.0f} card="
         f"[{_card()}]" + red)
     log(f"phase={tag} arch={arch} launches " + json.dumps(counts)
@@ -3456,9 +3592,9 @@ def _obs_trace_checks(tag: str, eng) -> None:
 
 def phase_obs(torch, np, ops, seed: int) -> None:
     """The obs layer on the card.  After a warm-up serve, the serve phase's
-    run (_run_serve) with obs off, on, on, off: identical greedy tokens,
+    run (_run_serve) with obs in OBS_ORDER: identical greedy tokens,
     obs-on's best wall time within OBS_WALL_RATIO of obs-off's, the trace
-    checks of _obs_trace_checks on both obs-on runs, and the first one's
+    checks of _obs_trace_checks on every obs-on run, and the first one's
     host-time split of a decode step (``obs_breakdown``, decode-only
     iterations).  Then the first OBS_TRACE_REQUESTS requests of
     OBS_TRACE_ARCH's models trace with obs on (_serve_model): prefill-group
@@ -3482,7 +3618,7 @@ def phase_obs(torch, np, ops, seed: int) -> None:
             n = eng.dump_trace(str(out_dir / "obs_qwen2-0.5b.trace.json"))
             log(f"phase=obs trace=chiprun_out/obs_qwen2-0.5b.trace.json "
                 f"events={n}")
-    for obs in (False, True, True, False):
+    for obs in OBS_ORDER:
         _free_memory(torch)
         runs.append((obs, _run_serve(
             torch, np, ops, seed, f"obs_{len(runs)}", FP_PATH,
@@ -3494,7 +3630,8 @@ def phase_obs(torch, np, ops, seed: int) -> None:
              for o in (False, True)}
     ratio = min(walls[True]) / min(walls[False])
     log(f"phase=obs wall_s_off={walls[False]} wall_s_on={walls[True]} "
-        f"order=off,on,on,off best_on_over_best_off={ratio:.4f} "
+        f"order={','.join('on' if o else 'off' for o in OBS_ORDER)} "
+        f"best_on_over_best_off={ratio:.4f} "
         f"tokens_identical=True card=[{card}]")
     log(json.dumps({"obs_breakdown": dict(
         arch="qwen2-0.5b", card=card, **breakdown[0])}))
@@ -3531,12 +3668,387 @@ def phase_obs(torch, np, ops, seed: int) -> None:
     log(f"phase=obs seconds={time.perf_counter() - t_phase:.1f}")
 
 
+# --- the train phase: flash_prefill's backward and dense GQA training ---
+
+def case_flash_bwd(torch, ops, ref, q, k, v, do, scale) -> tuple:
+    """flash_prefill_bwd against the plain backward on the same bf16
+    inputs (o and lse from the kernel's forward, handed to both): per
+    gradient, max |err| <= BWD_ERR x max |grad| and a cosine >= BWD_COS
+    (the kernels round P and dS to bf16 before their products, as the
+    forward rounds P); two launches give the same bits.  Its library call
+    is SDPA's backward at the same shape (the graph of one forward kept,
+    its gradient taken again each call), where SDPA takes it."""
+    import torch.nn.functional as F
+    o, lse = ops.flash_prefill_fwd_lse(q, k, v, scale=scale)
+    got = ops.flash_prefill_bwd(q, k, v, o, lse, do, scale=scale)
+    again = ops.flash_prefill_bwd(q, k, v, o, lse, do, scale=scale)
+    want = ref.flash_prefill_bwd(q, k, v, o, lse, do, scale)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    errs, coss = [], []
+    for g, w in zip(got, want):
+        errs.append((g - w).abs().max().item() / w.abs().max().item())
+        coss.append(torch.nn.functional.cosine_similarity(
+            g.flatten(), w.flatten(), dim=0).item())
+    ok = same and max(errs) <= BWD_ERR and min(coss) >= BWD_COS
+    err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    B_, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    log(f"flash_prefill_bwd B={B_} S={S} Hq={Hq} Hkv={Hkv} D={D} "
+        f"err/max|grad| dq={errs[0]:.3e} dk={errs[1]:.3e} dv={errs[2]:.3e} "
+        f"cosine dq={coss[0]:.6f} dk={coss[1]:.6f} dv={coss[2]:.6f} "
+        f"repeat_bit_equal={same} (bar {BWD_ERR}, cosine >= {BWD_COS})")
+    pairs = S * (S + 1) // 2
+    # 5 products of 2 D flops per visible (query, key) pair and query head
+    nops = 10 * D * pairs * Hq * B_
+    nbytes = ((3 * q.numel() + 2 * k.numel()) * 2 + lse.numel() * 4
+              + (q.numel() + 2 * k.numel()) * 4)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2)
+    lib = None
+    try:
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             scale=scale, enable_gqa=True)
+        lib = lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                          retain_graph=True)
+        lib()
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        log(f"flash_prefill_bwd library: SDPA refuses the shape: "
+            f"{str(e).splitlines()[0][:200]}")
+        lib = None
+    return (err, ok, lambda: ops.flash_prefill_bwd(q, k, v, o, lse, do,
+                                                   scale=scale),
+            lambda: ref.flash_prefill_bwd(q, k, v, o, lse, do, scale),
+            nbytes, nops, f"B={B_} S={S} Hq={Hq} Hkv={Hkv} D={D}", lib)
+
+
+def case_flash_lse(torch, ops, ref, q, k, v, scale) -> tuple:
+    """The forward with its lse output against the plain version: the
+    output within case_flash's tolerance, lse within LSE_ATOL (natural
+    log; the kernel's exp2 and its sums in float32)."""
+    out, lse = ops.flash_prefill_fwd_lse(q, k, v, scale=scale)
+    want, want_lse = ref.flash_prefill_fwd_lse(q, k, v, scale=scale)
+    torch.cuda.synchronize()
+    err, ok, _ = _flash_close(out, want, _abs_weight(ref, q, k, v,
+                                                     scale=scale))
+    lse_err = (lse - want_lse).abs().max().item()
+    serve_bits = torch.equal(out, ops.flash_prefill(q, k, v, scale=scale))
+    B_, S, Hq, D = q.shape
+    log(f"flash_prefill:lse B={B_} S={S} Hq={Hq} D={D} out_max_abs_err="
+        f"{err:.3e} ok={ok} lse_max_abs_err={lse_err:.3e} (bar {LSE_ATOL}) "
+        f"out_bit_equal_to_the_serve_launch={serve_bits}")
+    ok = ok and lse_err <= LSE_ATOL and serve_bits
+    nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * 2 + \
+        lse.numel() * 4
+    nops = 2 * B_ * Hq * 2 * D * (S * (S + 1) // 2)
+    import torch.nn.functional as F
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    return (max(err, lse_err), ok,
+            lambda: ops.flash_prefill_fwd_lse(q, k, v, scale=scale),
+            lambda: ref.flash_prefill_fwd_lse(q, k, v, scale=scale),
+            nbytes, nops, f"B={B_} S={S} Hq={Hq} Hkv={k.shape[2]} D={D}",
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True))
+
+
+def _fwd_bwd_line(torch, ops, timer, label, q, k, v, do, results,
+                  card) -> None:
+    """One line per train case: the backward's timer and device ms
+    against its FLOP bound and SDPA's backward, and a training step's
+    attention, forward (with lse) and backward, timed beside SDPA's
+    forward and backward at the same shape (where SDPA takes it)."""
+    import torch.nn.functional as F
+    bwd, fwd = (results["flash_prefill_bwd"][label],
+                results["flash_prefill:lse"][label])
+    scale = q.shape[-1] ** -0.5
+
+    def ours():
+        o, lse = ops.flash_prefill_fwd_lse(q, k, v, scale=scale)
+        return ops.flash_prefill_bwd(q, k, v, o, lse, do, scale=scale)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+
+    def sdpa():
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             scale=scale, enable_gqa=True)
+        return torch.autograd.grad(out, (qt, kt, vt), do.transpose(1, 2))
+    sdpa_ms = timer(sdpa) if bwd["library_ms"] is not None else None
+    o, lse = ops.flash_prefill_fwd_lse(q, k, v, scale=scale)
+    split = device_ms(torch, lambda: ops.flash_prefill_bwd(
+        q, k, v, o, lse, do, scale=scale), by_kernel="flash_bwd_")
+    line = (f"phase=train {label} kernel=flash_prefill_bwd "
+            f"device_ms_by_kernel={json.dumps(split)} "
+            f"bwd_ms={bwd['ms']:.4f} device_ms={bwd['device_ms']:.5f} "
+            f"bound_ms={bwd['bound_ms']:.4f} ({bwd['bound_by']}) "
+            f"sdpa_bwd_ms=" + (f"{bwd['library_ms']:.4f}"
+                               if bwd["library_ms"] is not None else "None")
+            + f" fwd_lse_ms={fwd['ms']:.4f} fwd_plus_bwd_ms="
+            f"{timer(ours):.4f} sdpa_fwd_plus_bwd_ms="
+            + (f"{sdpa_ms:.4f}" if sdpa_ms is not None else "None")
+            + f" card=[{card}]")
+    log(line)
+
+
+def _plain_attention(torch, ref):
+    """``ops.flash_prefill``'s stand-in for the train phase's check: the
+    plain forward (with lse) and plain backward as an autograd Function,
+    float32 on the card.  Only this script patches it in; the trainer has
+    no such option."""
+    class PlainFlash(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, scale):
+            o, lse = ref.flash_prefill_fwd_lse(q, k, v, scale=scale)
+            ctx.save_for_backward(q, k, v, o, lse)
+            ctx.scale = scale
+            return o
+
+        @staticmethod
+        def backward(ctx, do):
+            q, k, v, o, lse = ctx.saved_tensors
+            return ref.flash_prefill_bwd(q, k, v, o, lse, do,
+                                         ctx.scale) + (None,)
+
+    def flash(q, k, v, *, scale, causal=True, q_offset=0):
+        if not causal or int(q_offset):
+            raise AssertionError("train: the plain stand-in takes causal "
+                                 "self-attention only")
+        return PlainFlash.apply(q, k, v, float(scale))
+    return flash
+
+
+def phase_train(torch, np, ops, ref, timer, seed: int) -> tuple:
+    """flash_prefill_bwd and the forward's lse against their plain
+    versions at BWD_CASES and at the training run's shape (timed beside
+    SDPA), then qwen2-0.5b at full width and depth trained TRAIN_STEPS
+    AdamW steps (B TRAIN_B, S TRAIN_S, remat on) on one fixed TokenStream
+    batch: step 1's loss and grad norm held against the same step with
+    the plain attention (float32, patched in here), the loss of the last
+    step below the first's, the launches of flash_prefill (forward and
+    remat's rerun: 2 per layer a step) and flash_prefill_bwd (1 per layer
+    a step) counted over the run; then a checkpoint's save and restore.
+    Returns ({kernel: {case: result}}, launches of the run)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, TokenStream
+    from repro_torch.models import model as M
+    from repro_torch.training import trainer as T
+    from repro_torch.training.checkpoint import (restore_checkpoint,
+                                                 save_checkpoint)
+    from repro_torch.training.optimizer import (AdamWConfig, global_norm,
+                                                init_opt_state)
+    t_phase = time.perf_counter()
+    card = _card()
+    dev = torch.device("cuda")
+    results = {}
+    cfg = get_config(TRAIN_ARCH)
+    train_shape = ("path=train", TRAIN_B, TRAIN_S, cfg.num_heads,
+                   cfg.num_kv_heads, cfg.head_dim)
+    for i, (label, Bn, S, Hq, Hkv, D) in enumerate(BWD_CASES
+                                                   + (train_shape,)):
+        gen = torch.Generator(device=dev).manual_seed(seed + 100 + i)
+        q, k, v, do = (torch.randn((Bn, S, h, D), generator=gen,
+                                   device=dev).to(torch.bfloat16)
+                       for h in (Hq, Hkv, Hkv, Hq))
+        if label != "path=train":
+            label = f"case={label}"
+        for name, case in (
+                ("flash_prefill_bwd", case_flash_bwd(
+                    torch, ops, ref, q, k, v, do, D ** -0.5)),
+                ("flash_prefill:lse", case_flash_lse(
+                    torch, ops, ref, q, k, v, D ** -0.5))):
+            res = run_case("train", label, name, case, timer, device=True)
+            results.setdefault(name, {})[label] = res
+        _fwd_bwd_line(torch, ops, timer, label, q, k, v, do, results, card)
+        del q, k, v, do
+    _free_memory(torch)
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = T.trainable(M.init_params(cfg, gen, torch.float32, dev))
+    batch = T.batch_to(TokenStream(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_S, global_batch=TRAIN_B,
+        seed=seed)).batch(), dev)
+    # step 1 with the plain attention, then the same weights through the
+    # kernels (the trainer's only route)
+    kernel_flash = ops.flash_prefill
+    ops.flash_prefill = _plain_attention(torch, ref)
+    try:
+        t0 = time.perf_counter()
+        loss, grads = T.loss_and_grads(params, cfg, batch, remat=True)
+        plain = (loss.item(), global_norm(grads).item())
+        plain_s = time.perf_counter() - t0
+    finally:
+        ops.flash_prefill = kernel_flash
+    del grads
+    _free_memory(torch)
+    step = T.make_train_step(cfg, AdamWConfig(
+        lr=1e-3, warmup_steps=1, total_steps=TRAIN_STEPS), remat=True)
+    opt = init_opt_state(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.launches.reset()
+    losses, gnorms, times = [], [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(m["loss"])
+        gnorms.append(m["grad_norm"])
+    counts = ops.launches.snapshot()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [x.item() for x in losses]
+    gnorms = [x.item() for x in gnorms]
+    steady = statistics.mean(times[1:])
+    log(f"phase=train arch={TRAIN_ARCH} layers={cfg.num_layers} "
+        f"d_model={cfg.d_model} heads={cfg.num_heads}/{cfg.num_kv_heads} "
+        f"vocab={cfg.vocab_size} B={TRAIN_B} S={TRAIN_S} steps={TRAIN_STEPS}"
+        f" remat=True losses={[round(x, 5) for x in losses]} "
+        f"grad_norms={[round(x, 5) for x in gnorms]} card=[{card}]")
+    log(f"phase=train arch={TRAIN_ARCH} step1_ms={times[0] * 1e3:.1f} "
+        f"ms_per_step={steady * 1e3:.1f} (steps 2-{TRAIN_STEPS}) "
+        f"tokens_per_s={TRAIN_B * TRAIN_S / steady:.1f} "
+        f"peak_mem_gb={peak / 1e9:.3f} launches_per_step flash_prefill="
+        f"{counts['flash_prefill'] / TRAIN_STEPS:g} flash_prefill:lse="
+        f"{counts.get('flash_prefill:lse', 0) / TRAIN_STEPS:g} "
+        f"flash_prefill_bwd={counts['flash_prefill_bwd'] / TRAIN_STEPS:g} "
+        f"card=[{card}]")
+    loss_rel = abs(losses[0] - plain[0]) / abs(plain[0])
+    gn_rel = abs(gnorms[0] - plain[1]) / abs(plain[1])
+    log(f"phase=train step1 kernel_loss={losses[0]:.6f} plain_loss="
+        f"{plain[0]:.6f} rel={loss_rel:.3e} (bar {TRAIN_LOSS_RTOL}) "
+        f"kernel_grad_norm={gnorms[0]:.6f} plain_grad_norm={plain[1]:.6f} "
+        f"rel={gn_rel:.3e} (bar {TRAIN_GNORM_RTOL}) plain_step_s="
+        f"{plain_s:.2f} card=[{card}]")
+    L = cfg.num_layers
+    want = {"flash_prefill": 2 * L * TRAIN_STEPS,
+            "flash_prefill:lse": 2 * L * TRAIN_STEPS,
+            "flash_prefill_bwd": L * TRAIN_STEPS}
+    if any(counts.get(k, 0) != n for k, n in want.items()):
+        raise AssertionError(f"train: launches {counts} are not {want}")
+    if not all(np.isfinite(losses + gnorms)) or losses[-1] >= losses[0]:
+        raise AssertionError(f"train: the loss did not fall: {losses}")
+    if loss_rel > TRAIN_LOSS_RTOL or gn_rel > TRAIN_GNORM_RTOL:
+        raise AssertionError("train: step 1 disagrees with the plain "
+                             "attention's")
+    results["flash_prefill_bwd"]["path=train"]["launches"] = \
+        counts["flash_prefill_bwd"]
+    results["flash_prefill:lse"]["path=train"]["launches"] = \
+        counts["flash_prefill:lse"]
+
+    ck_dir = REPO / "src" / "repro_torch" / "_build" / "train_ckpt"
+    ck_dir.mkdir(parents=True, exist_ok=True)
+    ck = ck_dir / "ckpt.npz"
+    t0 = time.perf_counter()
+    try:
+        save_checkpoint(str(ck), {"params": params}, TRAIN_STEPS)
+        back, at = restore_checkpoint(str(ck), {"params": params})
+        same = at == TRAIN_STEPS and all(
+            torch.equal(a, b) for a, b in zip(
+                T.tree_leaves(params), T.tree_leaves(back["params"])))
+        size = ck.stat().st_size
+    finally:
+        ck.unlink(missing_ok=True)
+    log(f"phase=train checkpoint bytes={size} restored_equal={same} "
+        f"seconds={time.perf_counter() - t0:.1f} card=[{card}]")
+    if not same:
+        raise AssertionError("train: the restored params differ")
+    del params, opt, back
+    _free_memory(torch)
+    log(f"phase=train seconds={time.perf_counter() - t_phase:.1f} "
+        f"card=[{card}]")
+    return results, counts
+
+
+# --- the calibrate phase: H100_80G's measured fields ---
+
+def phase_calibrate(torch, ops) -> None:
+    """The cost model's transfer and launch fields on this card, each
+    printed beside H100_80G's (serving/costmodel.py): a CAL_LINK_BYTES
+    pinned-to-device copy (host_link_bw), CAL_COPIES copy_ calls of one
+    CAL_COPY_BYTES block each from pinned memory, their views made before
+    (per_copy_overhead: a call's time beyond its bytes at that rate),
+    CAL_LAUNCHES gather_blocks_hkv launches of one block, back to back
+    (what one fused launch costs the wall clock: kernel_launch_overhead),
+    these two host-timed ones the best of CAL_PASSES passes (the host's
+    own cost, the least disturbed by the machine's other work), the fused
+    gather_blocks_hkv at the fp serve's shape (its rate over the link's:
+    link_eff_fused), the device's and the host's memory.  Fails where one
+    is off by more than CAL_RATIO (a wrong unit, not noise)."""
+    import os
+    from repro_torch.serving.costmodel import H100_80G as hw
+    card = _card()
+    dev = torch.device("cuda")
+    host = torch.empty(CAL_LINK_BYTES, dtype=torch.uint8, pin_memory=True)
+    buf = torch.empty(CAL_LINK_BYTES, dtype=torch.uint8, device=dev)
+    link_ms = events_ms(torch, lambda: buf.copy_(host, non_blocking=True),
+                        reps=5)
+    link = CAL_LINK_BYTES / (link_ms * 1e-3)
+    del host, buf
+    n = CAL_COPY_BYTES // 4
+    src = torch.randn((CAL_COPIES, n)).pin_memory()
+    dst = torch.empty((CAL_COPIES, n), device=dev)
+    pairs = list(zip(dst.unbind(0), src.unbind(0)))   # views made once
+
+    def copies() -> float:
+        t0 = time.perf_counter()
+        for d, s_ in pairs:
+            d.copy_(s_, non_blocking=True)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / CAL_COPIES
+    copies()
+    per_copy = min(copies() for _ in range(CAL_PASSES))
+    overhead = per_copy - CAL_COPY_BYTES / link
+    H, NB, bs, D, K = CAL_GATHER
+    gen = torch.Generator().manual_seed(0)
+    pool = torch.randn((H, NB, bs, D), generator=gen).pin_memory()
+    idx = torch.randperm(NB, generator=gen)[:K].to(torch.int32).to(dev)
+    one = idx[:1].contiguous()
+    def launches() -> float:
+        t0 = time.perf_counter()
+        for _ in range(CAL_LAUNCHES):
+            ops.gather_blocks_hkv(pool, one)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / CAL_LAUNCHES
+    launches()
+    launch = min(launches() for _ in range(CAL_PASSES))
+    g_ms = events_ms(torch, lambda: ops.gather_blocks_hkv(pool, idx),
+                     reps=50)
+    g_bytes = H * K * bs * D * 4
+    eff = g_bytes / (g_ms * 1e-3) / link
+    measured = {
+        "hbm_capacity": float(torch.cuda.get_device_properties(0)
+                              .total_memory),
+        "host_capacity": float(os.sysconf("SC_PAGE_SIZE")
+                               * os.sysconf("SC_PHYS_PAGES")),
+        "host_link_bw": link, "per_copy_overhead": overhead,
+        "kernel_launch_overhead": launch, "link_eff_fused": eff}
+    log(f"phase=calibrate link_copy_bytes={CAL_LINK_BYTES} link_ms="
+        f"{link_ms:.4f} copies={CAL_COPIES}x{CAL_COPY_BYTES}B "
+        f"per_copy_us={per_copy * 1e6:.3f} launches={CAL_LAUNCHES} "
+        f"gather H={H} K={K} bs={bs} D={D} float32 bytes={g_bytes} "
+        f"gather_ms={g_ms:.5f} gather_gb_per_s={g_bytes / g_ms / 1e6:.3f} "
+        f"card=[{card}]")
+    bad = []
+    for field, value in measured.items():
+        spec = getattr(hw, field)
+        ratio = value / spec
+        log(f"phase=calibrate field={field} measured={value:.6g} "
+            f"H100_80G={spec:.6g} ratio={ratio:.3f} card=[{card}]")
+        if not 1 / CAL_RATIO <= ratio <= CAL_RATIO:
+            bad.append(field)
+    if bad:
+        raise AssertionError(f"calibrate: H100_80G's {bad} off by more "
+                             f"than {CAL_RATIO}x from this card")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of build,parity,transfer,"
-                         "serve,serve_int8,oracles,models,obs,async (serve "
+                         "serve,serve_int8,oracles,models,obs,async,train,"
+                         "calibrate (serve "
                          "and serve_int8 include their mainpath replays; "
                          "serve_int8 needs serve) plus the optional profile "
                          "and profile_int8")
@@ -3598,11 +4110,20 @@ def main() -> int:
         counts.update(m_counts)
         for name, cases in m_replays.items():
             mainpath.setdefault(name, {}).update(cases)
-    records = kernel_records(parity, mainpath, counts)
     if "obs" in phases:
         phase_obs(torch, np, ops, args.seed)
     if "async" in phases:
         phase_async(torch, np, args.seed)
+    # after the serves whose host times it could disturb (its 2.5 GB
+    # checkpoint write, the 1 GiB pinned buffer of calibrate)
+    if "train" in phases:
+        t_results, counts["train"] = phase_train(torch, np, ops, ref, timer,
+                                                 args.seed)
+        for name, cases in t_results.items():
+            mainpath.setdefault(name, {}).update(cases)
+    if "calibrate" in phases:
+        phase_calibrate(torch, ops)
+    records = kernel_records(parity, mainpath, counts)
     if "profile" in phases:
         phase_profile(torch, np, args.seed)
     if "profile_int8" in phases:

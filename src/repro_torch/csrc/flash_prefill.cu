@@ -84,6 +84,7 @@ constexpr int kSlabBytesQ = kBr * 128;   // one 64-column slab of the Q tile
 constexpr int kSlabBytesKV = kBc * 128;  // one 64-column slab of a K/V tile
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 typedef __nv_bfloat16 bf16;
 
@@ -225,13 +226,16 @@ __device__ __forceinline__ void pack_p(const float* s, uint32_t (*p)[4]) {
   }
 }
 
-template <int D, int Dv>
+// kLse: the training forward's instance, which also writes each row's
+// log-sum-exp (the serving path's instance is the same code without it)
+template <int D, int Dv, bool kLse>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_prefill_kernel(const __grid_constant__ CUtensorMap q_map,
                      const __grid_constant__ CUtensorMap k_map,
                      const __grid_constant__ CUtensorMap v_map,
-                     bf16* __restrict__ out, int Sq, int Sk, int Hq, int G,
-                     int q_offset, float scale_log2) {
+                     bf16* __restrict__ out, float* __restrict__ lse,
+                     int Sq, int Sk, int Hq, int G, int q_offset,
+                     float scale_log2) {
   using C = Cfg<D, Dv>;
   constexpr int S = C::kStages;
   __shared__ __align__(8) uint64_t q_full, full[S], empty[S];
@@ -394,6 +398,17 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap q_map,
                                          d) =
           __floats2bfloat162_rn(o[4 * n + 2] * inv1, o[4 * n + 3] * inv1);
   }
+  // the training forward: each row's log-sum-exp of its scaled scores,
+  // natural log, lse (B, Hq, Sq); m is kept in the log2 domain, so
+  // ln(sum_j e^(s_j scale)) = (m + log2 l) ln 2.  The four threads of a
+  // quad hold the same m and l (reduced by the shuffles); one writes.
+  if constexpr (kLse) {
+    if (quad == 0) {
+      float* lb = lse + ((size_t)b * Hq + hq) * Sq;
+      if (row0 < Sq) lb[row0] = (rows.m[0] + log2f(l[0])) * kLn2;
+      if (row0 + 8 < Sq) lb[row0 + 8] = (rows.m[1] + log2f(l[1])) * kLn2;
+    }
+  }
 }
 
 using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
@@ -444,24 +459,24 @@ CUresult make_map(CUtensorMap* map, const void* ptr, int B, int S, int H,
 // driver-API failures are reported past the runtime's error codes
 constexpr int kDriverError = 100000;
 
-template <int D, int Dv>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Sq, int Sk, int Hq, int Hkv, int q_offset, float scale,
-           cudaStream_t stream) {
+template <int D, int Dv, bool kLse = false>
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int Sq, int Sk, int Hq, int Hkv, int q_offset,
+           float scale, cudaStream_t stream) {
   CUtensorMap qm, km, vm;
   CUresult r = make_map(&qm, q, B, Sq, Hq, D, kBr);
   if (r == CUDA_SUCCESS) r = make_map(&km, k, B, Sk, Hkv, D, kBc);
   if (r == CUDA_SUCCESS) r = make_map(&vm, v, B, Sk, Hkv, Dv, kBc);
   if (r != CUDA_SUCCESS) return kDriverError + (int)r;
-  auto kern = flash_prefill_kernel<D, Dv>;
+  auto kern = flash_prefill_kernel<D, Dv, kLse>;
   constexpr int smem = Cfg<D, Dv>::kSmem;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((Sq + kBr - 1) / kBr, Hq, B);
   kern<<<grid, kThreads, smem, stream>>>(
-      qm, km, vm, static_cast<bf16*>(out), Sq, Sk, Hq, Hq / Hkv, q_offset,
-      scale * kLog2e);
+      qm, km, vm, static_cast<bf16*>(out), lse, Sq, Sk, Hq, Hq / Hkv,
+      q_offset, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -469,26 +484,41 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 // bfloat16, (D, Dv) in {(64, 64), (128, 128), (96, 64), (112, 112)};
 // causal, or every query over every key (causal == 0: q_offset is
-// ignored).  Limits checked by the wrapper: contiguous (B, S, H, D|Dv)
-// tensors, 16-byte aligned, Hq % Hkv == 0, q_offset >= 0.  Returns a
-// runtime error code, or 100000 + a driver error code if a TMA descriptor
-// could not be encoded.
+// ignored).  lse: null (serving), or a float32 (B, Hq, Sq) buffer that
+// takes each row's log-sum-exp (training's forward, whose backward is
+// flash_prefill_bwd.cu; D = Dv in {64, 128} only).  Limits checked by the wrapper: contiguous
+// (B, S, H, D|Dv) tensors, 16-byte aligned, Hq % Hkv == 0, q_offset >= 0.
+// Returns a runtime error code, or 100000 + a CUresult if a TMA
+// descriptor could not be encoded.
 extern "C" int launch_flash_prefill(const void* q, const void* k,
-                                    const void* v, void* out, int B, int Sq,
-                                    int Sk, int Hq, int Hkv, int D, int Dv,
-                                    int q_offset, int causal, float scale,
-                                    void* stream) {
+                                    const void* v, void* out, void* lse,
+                                    int B, int Sq, int Sk, int Hq, int Hkv,
+                                    int D, int Dv, int q_offset, int causal,
+                                    float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B == 0 || Sq == 0 || Hq == 0) return (int)cudaGetLastError();
   // non-causal: the diagonal past every key (see the note at the top)
   const int qo = causal ? q_offset : Sk;
+  float* L = static_cast<float*>(lse);
+  if (L != nullptr) {   // training: causal self-attention, D = Dv 64 or 128
+    if (D == 64 && Dv == 64)
+      return launch<64, 64, true>(q, k, v, out, L, B, Sq, Sk, Hq, Hkv, qo,
+                                  scale, s);
+    if (D == 128 && Dv == 128)
+      return launch<128, 128, true>(q, k, v, out, L, B, Sq, Sk, Hq, Hkv, qo,
+                                    scale, s);
+    return (int)cudaErrorInvalidValue;
+  }
   if (D == 64 && Dv == 64)
-    return launch<64, 64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, qo, scale, s);
+    return launch<64, 64>(q, k, v, out, L, B, Sq, Sk, Hq, Hkv, qo, scale, s);
   if (D == 128 && Dv == 128)
-    return launch<128, 128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, qo, scale, s);
+    return launch<128, 128>(q, k, v, out, L, B, Sq, Sk, Hq, Hkv, qo, scale,
+                            s);
   if (D == 96 && Dv == 64)   // MLA: qk_nope + qk_rope against v_head_dim
-    return launch<96, 64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, qo, scale, s);
+    return launch<96, 64>(q, k, v, out, L, B, Sq, Sk, Hq, Hkv, qo, scale,
+                            s);
   if (D == 112 && Dv == 112)   // kimi-k2: d_model 7168 over 64 heads
-    return launch<112, 112>(q, k, v, out, B, Sq, Sk, Hq, Hkv, qo, scale, s);
+    return launch<112, 112>(q, k, v, out, L, B, Sq, Sk, Hq, Hkv, qo, scale,
+                            s);
   return (int)cudaErrorInvalidValue;
 }

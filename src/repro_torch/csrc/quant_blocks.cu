@@ -58,7 +58,10 @@
 // One CTA per (item, head), a 32 x 64 tile at the serve shape, 256
 // threads of up to 4 x 4 elements each, held in registers between the
 // read and the write (bs * D <= 4096): dequantize, overlay, amax by warp
-// shuffles and one shared-memory step, then the rounding above.
+// shuffles and one shared-memory step, then the rounding above.  MLA's
+// blocks (one latent head of 288: 32 x 288 = 9216 elements) take an
+// instance of 12 x 4 elements a thread (bs * D <= 12288); the 4 x 4 one
+// serves every other config.
 #include "common.cuh"
 
 namespace {
@@ -185,7 +188,10 @@ struct SaveItem {
 };
 static_assert(sizeof(SaveItem) == 64, "SaveItem is 8 int64");
 
-constexpr int kSaveChunks = 4;   // 4-element chunks a thread holds
+// 4-element chunks a thread holds: kSaveChunks (bs * D <= 4096), or
+// kSaveChunksWide (<= 12288: MLA's 288-wide latent)
+constexpr int kSaveChunks = 4;
+constexpr int kSaveChunksWide = 12;
 
 template <typename T>
 __device__ __forceinline__ float4 load_stripe4(const void* p) {
@@ -194,6 +200,7 @@ __device__ __forceinline__ float4 load_stripe4(const void* p) {
                      to_f32(s[3]));
 }
 
+template <int kChunks>
 __global__ void __launch_bounds__(kThreads)
 quant_save_blocks_kernel(const SaveItem* __restrict__ items, int bs,
                          int D) {
@@ -213,10 +220,10 @@ quant_save_blocks_kernel(const SaveItem* __restrict__ items, int bs,
   // every load first, none used yet: the pool's and the scale's round
   // trips over the link overlap (a whole-block segment reads no pool)
   const float s_old = whole ? 0.f : *sp;
-  char4 raw[kSaveChunks];
-  float4 x[kSaveChunks];
+  char4 raw[kChunks];
+  float4 x[kChunks];
 #pragma unroll
-  for (int j = 0; j < kSaveChunks; ++j) {
+  for (int j = 0; j < kChunks; ++j) {
     const int c = threadIdx.x + j * kThreads;
     if (c >= n4) continue;
     const int t = 4 * c / D;
@@ -230,7 +237,7 @@ quant_save_blocks_kernel(const SaveItem* __restrict__ items, int bs,
   }
   float amax = 0.f;
 #pragma unroll
-  for (int j = 0; j < kSaveChunks; ++j) {
+  for (int j = 0; j < kChunks; ++j) {
     const int c = threadIdx.x + j * kThreads;
     if (c >= n4) continue;
     const int t = 4 * c / D;
@@ -252,7 +259,7 @@ quant_save_blocks_kernel(const SaveItem* __restrict__ items, int bs,
   const float inv = scale > 0.f ? __fdiv_rn(1.0f, scale) : 1.0f;
   if (threadIdx.x == 0) *sp = scale;
 #pragma unroll
-  for (int j = 0; j < kSaveChunks; ++j) {
+  for (int j = 0; j < kChunks; ++j) {
     const int c = threadIdx.x + j * kThreads;
     if (c >= n4) continue;
     pb[c] = make_char4(quant1(x[j].x, inv), quant1(x[j].y, inv),
@@ -315,16 +322,22 @@ extern "C" int launch_dequantize_scatter_blocks(
 
 // quant_save_blocks: n_items SaveItems (device memory) of pools of bs x D
 // blocks and H heads, one CTA per (item, head).  The wrapper checks what
-// the kernel takes: D % 4 == 0, bs * D <= 4 * 4 * 256, 4-byte aligned
+// the kernel takes: D % 4 == 0, bs * D <= 4 * 12 * 256, 4-byte aligned
 // pool blocks, no block twice in one launch.
 extern "C" int launch_quant_save_blocks(const void* items, int n_items,
                                         int H, int bs, int D, void* stream) {
   if (n_items == 0 || H == 0) return (int)cudaGetLastError();
-  if (D % 4 != 0 || bs * D > 4 * kSaveChunks * kThreads)
+  if (D % 4 != 0 || bs * D > 4 * kSaveChunksWide * kThreads)
     return (int)cudaErrorInvalidValue;
-  quant_save_blocks_kernel<<<dim3(n_items, H), kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const SaveItem*>(items), bs, D);
+  const dim3 grid(n_items, H);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const SaveItem* it = static_cast<const SaveItem*>(items);
+  if (bs * D <= 4 * kSaveChunks * kThreads)
+    quant_save_blocks_kernel<kSaveChunks><<<grid, kThreads, 0, s>>>(it, bs,
+                                                                   D);
+  else
+    quant_save_blocks_kernel<kSaveChunksWide><<<grid, kThreads, 0, s>>>(
+        it, bs, D);
   return (int)cudaGetLastError();
 }
 

@@ -32,6 +32,7 @@ KERNEL_SOURCES = {
     "gather_blocks": "gather_blocks.cu",
     "scatter_blocks": "scatter_blocks.cu",
     "flash_prefill": "flash_prefill.cu",
+    "flash_prefill_bwd": "flash_prefill_bwd.cu",
     "quant_blocks": "quant_blocks.cu",
     "selective_scan": "selective_scan.cu",
     "wkv6": "wkv6.cu",
@@ -68,7 +69,9 @@ _SIGNATURES = {
     "scatter_blocks": ("scatter_blocks", "launch_scatter_blocks",
                        [_P, _P, _P, _L, _I, _I, _I, _L, _P]),
     "flash_prefill": ("flash_prefill", "launch_flash_prefill",
-                      [_P] * 4 + [_I] * 9 + [_F, _P]),
+                      [_P] * 5 + [_I] * 9 + [_F, _P]),
+    "flash_prefill_bwd": ("flash_prefill_bwd", "launch_flash_prefill_bwd",
+                          [_P] * 10 + [_I] * 5 + [_F, _P]),
     "quantize_blocks": ("quant_blocks", "launch_quantize_blocks",
                         [_I, _P, _P, _P, _I, _I, _P]),
     "dequantize_blocks": ("quant_blocks", "launch_dequantize_blocks",

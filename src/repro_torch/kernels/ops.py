@@ -44,7 +44,7 @@ class LaunchCounter:
              "write_blocks_hkv", "flash_prefill", "quantize_blocks",
              "dequantize_blocks", "dequantize_scatter_blocks",
              "quant_save_blocks", "gather_blocks", "scatter_blocks",
-             "selective_scan", "wkv6")
+             "selective_scan", "wkv6", "flash_prefill_bwd")
 
     def __init__(self):
         self.counts: Dict[str, int] = dict.fromkeys(self.NAMES, 0)
@@ -696,7 +696,14 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     encoder and cross-attention): every query sees every key j < Sk and
     q_offset is ignored, as in the reference's
     ``flash_attention_jnp(causal=False)``.  On the GPU: bfloat16, (D, Dv)
-    in ``FLASH_DIMS``, either mode."""
+    in ``FLASH_DIMS``, either mode.
+
+    Training's calls go through ``FlashPrefillFn`` (the forward with each
+    row's log-sum-exp, and ``flash_prefill_bwd`` on the backward pass):
+    those with grad enabled and q, k or v requiring grad."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        _check_backward_limits(q, k, v, causal, q_offset)
+        return FlashPrefillFn.apply(q, k, v, float(scale))
     if _all_cpu(q, k, v):
         return ref.flash_prefill(q, k, v, scale=scale, causal=causal,
                                  q_offset=q_offset)
@@ -704,6 +711,20 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     B, Sq, Hq, D = q.shape
     _, Sk, Hkv, Dv = v.shape
     q_offset = int(q_offset) if causal else 0
+    _check_flash(name, q, k, v, q_offset)
+    out = torch.empty((B, Sq, Hq, Dv), dtype=q.dtype, device=q.device)
+    rc = LIBS.fn(name)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       out.data_ptr(), None, B, Sq, Sk, Hq, Hkv, D, Dv,
+                       q_offset, int(causal), float(scale), _stream())
+    _raise_on(rc, name)
+    launches.add(name)
+    return out
+
+
+def _check_flash(name: str, q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor, q_offset: int) -> None:
+    B, Sq, Hq, D = q.shape
+    _, Sk, Hkv, Dv = v.shape
     _check_cuda(name, q.device, q=q, k=k, v=v)
     _check(q.dtype == k.dtype == v.dtype == torch.bfloat16,
            f"{name}: q, k and v must be bfloat16")
@@ -713,13 +734,128 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            f"Hq % Hkv == 0, (D, Dv) in {FLASH_DIMS} (got {(D, Dv)}), "
            f"q_offset >= 0")
     _check(_aligned(q, k, v), f"{name}: 16-byte alignment")
-    out = torch.empty((B, Sq, Hq, Dv), dtype=q.dtype, device=q.device)
+
+
+# the (q/k depth, v width) pairs the backward is built for: the dense GQA
+# family's heads (qwen2-0.5b's 64, llama3-8b's 128)
+FLASH_BWD_DIMS = ((64, 64), (128, 128))
+
+
+def _check_backward_limits(q, k, v, causal: bool, q_offset) -> None:
+    """What the training path's attention takes, on either device (the
+    plain backward is written for it too): causal self-attention over
+    whole sequences; on the card also (D, Dv) in ``FLASH_BWD_DIMS``.
+    Each message names the ROADMAP.md item that lifts the limit."""
+    name = "flash_prefill_bwd"
+    D, Dv = q.shape[-1], v.shape[-1]
+    if not causal:
+        raise NotImplementedError(
+            f"{name}: causal attention only; the non-causal backward "
+            f"(Whisper's encoder and cross-attention) is ROADMAP.md queue 1 "
+            f"item 7, training step 3")
+    if int(q_offset) != 0 or q.shape[1] != k.shape[1]:
+        raise NotImplementedError(
+            f"{name}: whole sequences only (q_offset {int(q_offset)}, Sq "
+            f"{q.shape[1]}, Sk {k.shape[1]}); a backward over earlier "
+            f"chunks' keys is ROADMAP.md queue 1 item 7, training step 5")
+    if not _all_cpu(q, k, v) and (D, Dv) not in FLASH_BWD_DIMS:
+        raise NotImplementedError(
+            f"{name}: (D, Dv) in {FLASH_BWD_DIMS} on the card (got "
+            f"{(D, Dv)}); MLA's (96, 64) and kimi-k2's (112, 112) are "
+            f"ROADMAP.md queue 1 item 7, training step 2")
+
+
+def flash_prefill_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, scale: float
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Causal self-attention's forward for training: (out (B, S, Hq, D) in
+    q's dtype, lse (B, Hq, S) float32, each row's log-sum-exp, natural
+    log).  On the GPU the ``flash_prefill`` kernel with its lse output
+    (bfloat16, (D, Dv) in ``FLASH_BWD_DIMS``); a launch also counts under
+    "flash_prefill:lse"."""
+    if _all_cpu(q, k, v):
+        return ref.flash_prefill_fwd_lse(q, k, v, scale=scale)
+    name = "flash_prefill"
+    B, S, Hq, D = q.shape
+    Hkv, Dv = v.shape[2], v.shape[3]
+    _check_flash(name, q, k, v, 0)
+    _check(k.shape[1] == S and (D, Dv) in FLASH_BWD_DIMS,
+           f"{name}: the lse output takes Sq == Sk and (D, Dv) in "
+           f"{FLASH_BWD_DIMS}")
+    out = torch.empty((B, S, Hq, Dv), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
     rc = LIBS.fn(name)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                       out.data_ptr(), B, Sq, Sk, Hq, Hkv, D, Dv, q_offset,
-                       int(causal), float(scale), _stream())
+                       out.data_ptr(), lse.data_ptr(), B, S, S, Hq, Hkv, D,
+                       Dv, 0, 1, float(scale), _stream())
+    _raise_on(rc, name)
+    launches.add(name, "lse")
+    return out, lse
+
+
+def flash_prefill_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                      *, scale: float
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of causal self-attention (``ref.flash_prefill_bwd``):
+    q, o, do (B, S, Hq, D), k, v (B, S, Hkv, D), lse (B, Hq, S) from
+    ``flash_prefill_fwd_lse`` -> (dq, dk, dv) float32, dk and dv summed
+    over each GQA group.  On the GPU: the kernels of
+    ``csrc/flash_prefill_bwd.cu`` (Delta, dK and dV, dQ: three launches a
+    call, counted once), bfloat16 q, k, v, o, do, (D, Dv) in
+    ``FLASH_BWD_DIMS``; deterministic."""
+    if _all_cpu(q, k, v, o, lse, do):
+        return ref.flash_prefill_bwd(q, k, v, o, lse, do, scale)
+    name = "flash_prefill_bwd"
+    B, S, Hq, D = q.shape
+    Hkv, Dv = v.shape[2], v.shape[3]
+    _check_cuda(name, q.device, q=q, k=k, v=v, o=o, lse=lse, do=do)
+    _check(q.dtype == k.dtype == v.dtype == o.dtype == do.dtype
+           == torch.bfloat16 and lse.dtype == torch.float32,
+           f"{name}: bfloat16 q, k, v, o, do and float32 lse")
+    _check(k.shape == v.shape == (B, S, Hkv, D) and Hkv > 0
+           and Hq % Hkv == 0 and (D, Dv) in FLASH_BWD_DIMS
+           and o.shape == do.shape == q.shape and lse.shape == (B, Hq, S),
+           f"{name}: needs q, o, do (B, S, Hq, D), k, v (B, S, Hkv, D), "
+           f"lse (B, Hq, S), Hq % Hkv == 0, (D, Dv) in {FLASH_BWD_DIMS}")
+    _check(_aligned(q, k, v, o, do), f"{name}: 16-byte alignment")
+    delta = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.empty(v.shape, dtype=torch.float32, device=q.device)
+    rc = LIBS.fn(name)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                       delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                       dv.data_ptr(), B, S, Hq, Hkv, D, float(scale),
+                       _stream())
     _raise_on(rc, name)
     launches.add(name)
-    return out
+    return dq, dk, dv
+
+
+class FlashPrefillFn(torch.autograd.Function):
+    """Causal self-attention with a gradient: ``flash_prefill_fwd_lse``
+    forward, ``flash_prefill_bwd`` backward.  On the GPU both run in
+    bfloat16 (float32 q, k, v are cast; the output is cast back to q's
+    dtype, the gradients to each input's); on the CPU both are the plain
+    versions, in the inputs' dtype."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float):
+        ctx.dtypes = (q.dtype, k.dtype, v.dtype)
+        ctx.scale = scale
+        if not _all_cpu(q, k, v):
+            q, k, v = (t.to(torch.bfloat16).contiguous() for t in (q, k, v))
+        o, lse = flash_prefill_fwd_lse(q, k, v, scale=scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o.to(ctx.dtypes[0])
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        if do.device.type != "cpu":
+            do = do.to(torch.bfloat16).contiguous()
+        grads = flash_prefill_bwd(q, k, v, o, lse, do, scale=ctx.scale)
+        return tuple(g.to(dt) for g, dt in zip(grads, ctx.dtypes)) + (None,)
 
 
 # ---------------------------------------------------------------------------
@@ -824,6 +960,11 @@ def dequantize_scatter_blocks(pool: torch.Tensor, q: torch.Tensor,
 # quant_save_blocks: the int8 tier's save, one launch per round
 # ---------------------------------------------------------------------------
 
+# the largest block (bs * D elements) quant_save_blocks takes: 12 x 4
+# elements a thread of 256 (MLA's one latent head of 288: 32 x 288 = 9216)
+SAVE_MAX_BLOCK_ELEMS = 12 * 4 * 256
+
+
 class QuantPool:
     """An int8 tier's pool as ``quant_save_blocks`` takes it: ``q`` (L, H,
     NB, bs, D) int8 and its scale plane ``scales`` (L, H, NB) float32,
@@ -832,7 +973,7 @@ class QuantPool:
     pools only the plain version takes), so a call spends nothing on them.
     Build it when the pool is allocated, not per call; it keeps both
     tensors alive.  On the GPU: contiguous, 4-byte aligned, D % 4 == 0
-    and bs * D <= 4096."""
+    and bs * D <= ``SAVE_MAX_BLOCK_ELEMS``."""
 
     def __init__(self, q: torch.Tensor, scales: torch.Tensor):
         name = "quant_save_blocks"
@@ -847,11 +988,11 @@ class QuantPool:
         if on_host and not (q.is_pinned() and scales.is_pinned()):
             return
         _, _, _, bs, D = q.shape
-        _check(D % 4 == 0 and bs * D <= 4096 and q.is_contiguous()
-               and scales.is_contiguous() and q.data_ptr() % 4 == 0
-               and scales.data_ptr() % 4 == 0,
+        _check(D % 4 == 0 and bs * D <= SAVE_MAX_BLOCK_ELEMS
+               and q.is_contiguous() and scales.is_contiguous()
+               and q.data_ptr() % 4 == 0 and scales.data_ptr() % 4 == 0,
                f"{name}: contiguous, 4-byte aligned pools with D % 4 == 0 "
-               f"and bs * D <= 4096")
+               f"and bs * D <= {SAVE_MAX_BLOCK_ELEMS}")
         self.mapped = (_device_address(q, on_host),
                        _device_address(scales, on_host))
 

@@ -227,6 +227,19 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     chunks wholly above every query of a query chunk are skipped: their
     masked update leaves the softmax state unchanged.  Returns
     (B, Sq, Hq, Dv) in q's dtype."""
+    return flash_prefill_fwd_lse(q, k, v, scale=scale, causal=causal,
+                                 q_offset=q_offset, q_chunk=q_chunk,
+                                 k_chunk=k_chunk)[0]
+
+
+def flash_prefill_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, scale: float, causal: bool = True, q_offset=0,
+                          q_chunk: int = 512, k_chunk: int = 512
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``flash_prefill`` that also returns each query row's log-sum-exp
+    of its scaled scores over the keys it sees, lse (B, Hq, Sq) float32,
+    natural log: what the backward recomputes the weights from,
+    P = exp(S * scale - lse).  Returns (out, lse)."""
     B, Sq, Hq, D = q.shape
     _, Sk, Hkv, _ = k.shape
     Dv = v.shape[-1]
@@ -239,6 +252,7 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kf = k.float()
     vf = v.float()
     out = torch.empty((B, Sq, Hq, Dv), dtype=q.dtype, device=dev)
+    lse = torch.empty((B, Hkv, G, Sq), dtype=torch.float32, device=dev)
     for q0 in range(0, Sq, q_chunk):
         q1 = min(q0 + q_chunk, Sq)
         nq = q1 - q0
@@ -267,7 +281,67 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         o = acc / l.clamp(min=1e-30)[..., None]
         out[:, q0:q1] = o.permute(0, 3, 1, 2, 4).reshape(
             B, nq, Hq, Dv).to(q.dtype)
-    return out
+        lse[..., q0:q1] = m + torch.log(l.clamp(min=1e-30))
+    return out, lse.reshape(B, Hq, Sq)
+
+
+def flash_prefill_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                      scale: float, q_chunk: int = 512, k_chunk: int = 512
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of causal self-attention (``flash_prefill`` with
+    q_offset 0 and Sq == Sk), written out, in float32 and chunked like
+    the forward so that no (S, S) tensor is held:
+
+        P  = exp(S * scale - lse)          (S = Q K^T, keys j <= i)
+        dV = P^T dO
+        D  = rowsum(dO * O)
+        dS = P * (dO V^T - D)
+        dQ = scale * dS K
+        dK = scale * dS^T Q
+
+    dK and dV summed over each GQA group.  q, o, do (B, S, Hq, D|Dv); k, v
+    (B, S, Hkv, D|Dv); lse (B, Hq, S) from ``flash_prefill_fwd_lse``.
+    Returns (dq, dk, dv), float32."""
+    B, S, Hq, D = q.shape
+    _, Sk, Hkv, _ = k.shape
+    Dv = v.shape[-1]
+    if Sk != S:
+        raise ValueError(f"flash_prefill_bwd: causal self-attention only "
+                         f"(Sq {S} != Sk {Sk})")
+    G = Hq // Hkv
+    q_chunk = min(q_chunk, S)
+    k_chunk = min(k_chunk, S)
+    dev = q.device
+    qf = q.float().reshape(B, S, Hkv, G, D)
+    kf = k.float()
+    vf = v.float()
+    dof = do.float().reshape(B, S, Hkv, G, Dv)
+    delta = (dof * o.float().reshape(B, S, Hkv, G, Dv)).sum(-1)
+    delta = delta.permute(0, 2, 3, 1)                     # (B, Hkv, G, S)
+    lse_r = lse.float().reshape(B, Hkv, G, S)
+    dq = torch.zeros((B, S, Hkv, G, D), dtype=torch.float32, device=dev)
+    dk = torch.zeros((B, S, Hkv, D), dtype=torch.float32, device=dev)
+    dv = torch.zeros((B, S, Hkv, Dv), dtype=torch.float32, device=dev)
+    for q0 in range(0, S, q_chunk):
+        q1 = min(q0 + q_chunk, S)
+        q_i, do_i = qf[:, q0:q1], dof[:, q0:q1]
+        qpos = torch.arange(q0, q1, device=dev)
+        for k0 in range(0, q1, k_chunk):
+            k1 = min(k0 + k_chunk, S)
+            k_j, v_j = kf[:, k0:k1], vf[:, k0:k1]
+            s = torch.einsum("bqhgd,bkhd->bhgqk", q_i, k_j) * scale
+            kpos = torch.arange(k0, k1, device=dev)
+            s = s.masked_fill(~(qpos[:, None] >= kpos[None, :]), NEG_INF)
+            p = torch.exp(s - lse_r[..., q0:q1, None])
+            dv[:, k0:k1] += torch.einsum("bhgqk,bqhgd->bkhd", p, do_i)
+            dp = torch.einsum("bqhgd,bkhd->bhgqk", do_i, v_j)
+            ds = p * (dp - delta[..., q0:q1, None])
+            dq[:, q0:q1] += torch.einsum("bhgqk,bkhd->bqhgd", ds,
+                                         k_j) * scale
+            dk[:, k0:k1] += torch.einsum("bhgqk,bqhgd->bkhd", ds,
+                                         q_i) * scale
+    return dq.reshape(B, S, Hq, D), dk, dv
 
 
 # ---------------------------------------------------------------------------

@@ -50,6 +50,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core import dsa as dsa_mod
 from repro_torch.device import resolve_device
@@ -286,6 +287,69 @@ def _layer_epilogue(p: Dict, cfg: ModelConfig, x: torch.Tensor,
         return x + h[:, 0]
     h, _ = ffn_mod.moe_apply(p["moe"], cfg, h_in, drop_free=moe_drop_free)
     return x + h
+
+
+# ---------------------------------------------------------------------------
+# Train forward
+# ---------------------------------------------------------------------------
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` unless ``cfg`` is a dense GQA decoder,
+    the family the port trains (on every device), naming what each other
+    family lacks (ROADMAP.md queue 1 item 7's training steps)."""
+    check_supported(cfg)
+    missing = []
+    if cfg.num_experts or cfg.arch_type == "moe":
+        missing.append("MoE training with the capacity drops and the aux "
+                       "loss (step 1)")
+    if cfg.attention_type == "mla":
+        missing.append("MLA's (96, 64) flash_prefill_bwd instance (step 2)")
+    if cfg.frontend != "none" or cfg.is_encoder_decoder:
+        missing.append("the frontends, with a non-causal backward for "
+                       "Whisper's encoder and cross-attention (step 3)")
+    if cfg.attention_type == "none" or cfg.arch_type == "hybrid":
+        missing.append("backward kernels for selective_scan and wkv6 "
+                       "(step 4)")
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: the port trains the dense GQA family only; "
+            f"missing: " + "; ".join(missing))
+
+
+def forward_train(params: Dict, cfg: ModelConfig, batch: Dict,
+                  *, remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """batch: {"tokens": (B, S), "labels": (B, S)} on the params' device.
+    Returns (loss, logits (B, S, V)), the reference's ``forward_train`` for
+    the dense GQA family (``check_trainable``): every layer's attention
+    through ``ops.flash_prefill``, which differentiates it
+    (``FlashPrefillFn``).  The reference adds 0.01 x the MoE's aux loss,
+    which a dense layer does not have.  ``remat``: each layer under
+    ``torch.utils.checkpoint`` (non-reentrant), its forward run again on
+    the backward pass, as ``jax.checkpoint`` wraps one in the reference.
+    The reference's ``triangular`` changes no result and has no
+    counterpart."""
+    check_trainable(cfg)
+    h, positions = embed_inputs(params, cfg, batch)
+    for i in range(cfg.num_layers):
+        def run(h_, p=get_layer(params, i)):
+            return layer_forward(p, cfg, h_, positions)[0]
+        h = (torch.utils.checkpoint.checkpoint(run, h, use_reentrant=False)
+             if remat else run(h))
+    logits = lm_head(params, cfg, h)
+    return cross_entropy(logits, batch["labels"]), logits
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
+                  ) -> torch.Tensor:
+    """Mean token negative log-likelihood in float32 over the labels >= 0
+    (a label < 0 is masked)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        labels.long().clamp(min=0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    nll = (logz - gold) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1.0)
 
 
 # ---------------------------------------------------------------------------

@@ -3,8 +3,10 @@
 A copy of the reference package's cost model.  The port's engine uses it
 as its modelled clock when ``EngineConfig.charge_real_time`` is False (the
 CPU parity tests need the same clock, hence the same scheduling, as the
-reference); its hardware presets are the reference's modelled figures and
-are not measurements of this port on any device.  On the GPU the launcher
+reference); its ``A100_40G`` and ``TPU_V5E`` presets are the reference's
+modelled figures and are not measurements of this port on any device.
+``H100_80G`` is the port's card: data-sheet peaks, and link, copy and
+launch costs measured on it (its comment).  On the GPU the launcher
 charges the card's wall clock instead.
 
 The paper's wall-clock figures come from an A100-40GB + PCIe Gen4 testbed;
@@ -56,6 +58,27 @@ TPU_V5E = HardwareSpec(
     name="tpu-v5e", peak_flops=197e12, hbm_bw=819e9,
     hbm_capacity=16e9, host_link_bw=32e9, host_capacity=192e9,
     per_copy_overhead=6e-6, kernel_launch_overhead=10e-6)
+
+# The port's card.  peak_flops (dense bf16) and hbm_bw are NVIDIA's data
+# sheet for the H100 SXM; the other fields are what chip_smoke.py's
+# calibrate phase measured on one NVIDIA H100 80GB HBM3 at a 700 W power
+# limit, the median of its six runs on the card (PERF.md section 6, runs
+# A, C, D, E, F, J; E itself the median of three processes):
+# hbm_capacity the device's total memory, host_capacity the host
+# machine's physical memory, host_link_bw a 1 GiB pinned-to-device copy
+# (50.98-53.02 GB/s, one run 46.86), per_copy_overhead what one 8 KiB
+# copy_ from pinned memory costs beyond its bytes at that rate (the best
+# of 5 passes of 4096 calls; 8.38-18.36 us over the runs, the host's
+# load), kernel_launch_overhead the wall time of one one-block
+# gather_blocks_hkv launch back to back (the wrapper's host work; the
+# best of 5 passes of 2000; 25.71-42.99 us), link_eff_fused the fused
+# gather_blocks_hkv's rate at the fp serve's shape (2 heads x 64 blocks
+# of 32 x 64 float32, 1 MiB) over host_link_bw (0.411-0.513).
+H100_80G = HardwareSpec(
+    name="h100-80g", peak_flops=989e12, hbm_bw=3.35e12,
+    hbm_capacity=85.0175e9, host_link_bw=51.5382e9,
+    host_capacity=108.448e9, per_copy_overhead=11.70375e-6,
+    kernel_launch_overhead=38.28255e-6, link_eff_fused=0.4831375)
 
 
 # ---------------------------------------------------------------------------

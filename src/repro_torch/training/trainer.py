@@ -1,0 +1,140 @@
+"""Training loop of the port: the train step and the host loop with
+checkpoints, the counterpart of the reference package's
+``repro/training/trainer.py``.
+
+``make_train_step`` builds (params, opt_state, batch) -> (params,
+opt_state, metrics): the loss and its gradients by autograd through
+``models/model.py``'s ``forward_train`` (whose attention runs the
+``flash_prefill`` kernel forward and ``flash_prefill_bwd`` backward on
+the card), then AdamW in place.  There is no mesh and no sharding (the
+reference's ``launch/steps.py`` and its dry-run specs wait with the plane
+meshes, ROADMAP.md).
+
+Precision: parameters, gradients and AdamW moments are float32 on either
+device.  On the card the products are ``torch.matmul`` in float32, with
+TF32 off (``train`` sets it off; it is off by default); only the attention
+kernels run in bfloat16, accumulating in float32.  On the CPU everything
+is float32, as the reference's ``train`` is.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.data.pipeline import DataConfig, TokenStream
+from repro_torch.device import resolve_device
+from repro_torch.models import model as M
+from repro_torch.models.common import ModelConfig
+from repro_torch.training.checkpoint import save_checkpoint
+from repro_torch.training.optimizer import (AdamWConfig, adamw_update,
+                                            init_opt_state, tree_leaves,
+                                            tree_map)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    steps: int = 200
+    log_every: int = 10
+    ckpt_every: int = 0             # 0 = only final
+    ckpt_path: str = ""
+    remat: bool = True
+    opt: AdamWConfig = dataclasses.field(default_factory=AdamWConfig)
+
+
+def trainable(params: Any) -> Any:
+    """Mark every leaf of ``params`` as requiring grad (in place)."""
+    for leaf in tree_leaves(params):
+        leaf.requires_grad_(True)
+    return params
+
+
+def batch_to(batch: Dict[str, np.ndarray], device: torch.device
+             ) -> Dict[str, torch.Tensor]:
+    """A numpy batch ({"tokens", "labels"} (B, S) int32) on ``device``."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in batch.items()}
+
+
+def loss_and_grads(params: Any, cfg: ModelConfig, batch: Dict,
+                   remat: bool = True
+                   ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """The loss and its gradients, in ``tree_leaves(params)`` order."""
+    leaves = tree_leaves(params)
+    loss, _ = M.forward_train(params, cfg, batch, remat=remat)
+    grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), list(grads)
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
+                    remat: bool = True) -> Callable:
+    M.check_trainable(cfg)
+
+    def train_step(params, opt_state, batch):
+        loss, grads = loss_and_grads(params, cfg, batch, remat)
+        om = adamw_update(opt_cfg, params, grads, opt_state)
+        return params, opt_state, {"loss": loss, **om}
+    return train_step
+
+
+def make_eval_step(cfg: ModelConfig) -> Callable:
+    """(params, batch) -> the loss, without gradients.  On the card the
+    attention kernel takes bfloat16 only, so there the step evaluates a
+    bfloat16 copy of the weights (every product in bfloat16, the loss in
+    float32); on the CPU the weights as they are."""
+    M.check_trainable(cfg)
+
+    @torch.no_grad()
+    def eval_step(params, batch):
+        if params["embed"].device.type != "cpu":
+            params = tree_map(lambda t: t.to(torch.bfloat16), params)
+        loss, _ = M.forward_train(params, cfg, batch, remat=False)
+        return loss
+    return eval_step
+
+
+def train(cfg: ModelConfig, tc: TrainConfig, data_cfg: DataConfig,
+          *, params=None, seed: int = 0, device="cuda",
+          verbose: bool = True) -> Tuple[Any, Dict[str, list]]:
+    """Single-process training loop.  Weights from a ``torch.Generator``
+    seeded with ``seed`` on ``device`` (the GPU unless "cpu"); the loss,
+    grad norm and lr are read back only at the log points."""
+    dev = resolve_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if params is None:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params = M.init_params(cfg, gen, torch.float32, device=dev)
+    trainable(params)
+    opt_state = init_opt_state(params)
+    step_fn = make_train_step(cfg, tc.opt, tc.remat)
+    stream = TokenStream(data_cfg)
+    hist: Dict[str, list] = {"loss": [], "grad_norm": [], "lr": [],
+                             "step_time": []}
+    t_last = time.perf_counter()
+    for step in range(tc.steps):
+        batch = batch_to(stream.batch(), dev)
+        params, opt_state, m = step_fn(params, opt_state, batch)
+        if (step + 1) % tc.log_every == 0 or step == 0:
+            loss = float(m["loss"])
+            now = time.perf_counter()
+            dt = (now - t_last) / (1 if step == 0 else tc.log_every)
+            t_last = now
+            hist["loss"].append(loss)
+            hist["grad_norm"].append(float(m["grad_norm"]))
+            hist["lr"].append(float(m["lr"]))
+            hist["step_time"].append(dt)
+            if verbose:
+                print(f"step {step+1:5d} loss {loss:7.4f} "
+                      f"gnorm {float(m['grad_norm']):8.3f} "
+                      f"lr {float(m['lr']):.2e} {dt*1e3:7.1f} ms/step")
+        if tc.ckpt_every and tc.ckpt_path and (step + 1) % tc.ckpt_every == 0:
+            save_checkpoint(tc.ckpt_path, {"params": params,
+                                           "opt": opt_state}, step + 1)
+    if tc.ckpt_path:
+        save_checkpoint(tc.ckpt_path, {"params": params, "opt": opt_state},
+                        tc.steps)
+    return params, hist

@@ -657,14 +657,17 @@ def _quant_pools(pairs, where, dev):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("where", ["pinned", "device"])
-@pytest.mark.parametrize("H,bs,D", [(2, 8, 16), (2, 32, 64), (8, 32, 128)])
+@pytest.mark.parametrize("H,bs,D", [(2, 8, 16), (2, 32, 64), (8, 32, 128),
+                                    (1, 32, 288)])
 def test_quant_save_kernel_matches_plain(cuda, H, bs, D, where):
     """quant_save_blocks equals its plain version bit for bit, pools in
     pinned memory or on the card: 3 requests' decode tokens (strided
     float32 views; into a resident block, at a fresh block's first slot
     and at a fresh block's last), a bfloat16 prefill stripe of 3 whole
     blocks seen through a permute, a float32 stripe from mid-block over 4
-    blocks, and a second token into request 0's block: two launches."""
+    blocks, and a second token into request 0's block: two launches.
+    D 288 is MLA's one latent head (minicpm3-4b), the kernel's wide
+    instance."""
     g = torch.Generator().manual_seed(H * D + bs)
     R = 3
     pools = _int8_pools(g, 2 * R, H, bs, D)
@@ -713,8 +716,8 @@ def test_quant_save_rejects_what_the_kernel_does_not_take(cuda):
             ops.quant_save_blocks([ops.QuantSave(pool, 0, 5, st)])
     with pytest.raises(ValueError):                   # a mix of devices
         ops.QuantPool(q.to(cuda), s.pin_memory())
-    with pytest.raises(ValueError):                   # bs * D > 4096
-        ops.QuantPool(torch.zeros((1, 2, 4, 64, 128), dtype=torch.int8,
+    with pytest.raises(ValueError):                   # bs * D > 12288
+        ops.QuantPool(torch.zeros((1, 2, 4, 64, 256), dtype=torch.int8,
                                   device=cuda),
                       torch.zeros((1, 2, 4), device=cuda))
     pinned = ops.QuantPool(q.pin_memory(), s.pin_memory())
@@ -967,8 +970,8 @@ def test_flash_prefill_d112_stores_no_column_past_its_head(cuda):
     n = B * Sq * Hq * 112
     buf = torch.full((n + 64,), 1000.0, dtype=torch.bfloat16, device=cuda)
     rc = LIBS.fn("flash_prefill")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), buf.data_ptr(), B, Sq, Sq,
-        Hq, Hkv, 112, 112, 0, 1, scale,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), buf.data_ptr(), None, B,
+        Sq, Sq, Hq, Hkv, 112, 112, 0, 1, scale,
         torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
     assert rc == 0
@@ -1249,3 +1252,121 @@ def test_wkv6_matches_plain(cuda, Bn, S, H, lens):
         ops.wkv6(r, k, v, w.double(), u, S0)
     with pytest.raises(ValueError, match="bfloat16"):
         ops.wkv6(r.float(), k.float(), v.float(), w, u, S0)
+
+
+def _bwd_case(dev, Bn, S, Hq, Hkv, D, seed=0):
+    g = _gen(dev, seed)
+    q, k, v, do = (torch.randn((Bn, S, h, D), generator=g, device=dev)
+                   .bfloat16() for h in (Hq, Hkv, Hkv, Hq))
+    return q, k, v, do
+
+
+def _grad_close(got, want):
+    """Within 2e-2 of the plain version's max |grad| and a cosine of at
+    least 0.999 (the kernels round P and dS to bf16 before their products,
+    as the forward rounds P); a gradient the plain version gives as
+    exactly 0 within 1e-5."""
+    g, w = got.float().flatten(), want.float().flatten()
+    if not w.any():
+        # a gradient that vanishes exactly (one key: dS = P (dP - Delta) =
+        # 0), held to float32 rounding of order-1 products
+        return g.abs().max().item() <= 1e-5
+    err = (g - w).abs().max().item() / w.abs().max().item()
+    cos = torch.nn.functional.cosine_similarity(g, w, dim=0).item()
+    return err <= 2e-2 and cos >= 0.999
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Bn,S,Hq,Hkv,D", [(2, 200, 14, 2, 64),
+                                           (1, 257, 32, 8, 128),
+                                           (2, 64, 4, 4, 64),
+                                           (1, 1, 7, 1, 128),
+                                           (1, 130, 8, 1, 128)])
+def test_flash_prefill_bwd_matches_plain(cuda, Bn, S, Hq, Hkv, D):
+    """The forward's lse within 1e-3 and its output bit for bit the serve
+    launch's; dq, dk, dv against the plain backward on the same
+    bf16-rounded inputs; two launches give the same bits; one count a
+    call."""
+    q, k, v, do = _bwd_case(cuda, Bn, S, Hq, Hkv, D)
+    scale = D ** -0.5
+    ops.launches.reset()
+    o, lse = ops.flash_prefill_fwd_lse(q, k, v, scale=scale)
+    assert torch.equal(o, ops.flash_prefill(q, k, v, scale=scale))
+    po, plse = ref.flash_prefill_fwd_lse(q, k, v, scale=scale)
+    assert (lse - plse).abs().max().item() <= 1e-3
+    got = ops.flash_prefill_bwd(q, k, v, o, lse, do, scale=scale)
+    again = ops.flash_prefill_bwd(q, k, v, o, lse, do, scale=scale)
+    assert ops.launches.counts["flash_prefill_bwd"] == 2
+    assert ops.launches.counts["flash_prefill:lse"] == 1
+    want = ref.flash_prefill_bwd(q, k, v, o, lse, do, scale)
+    for a, b, w in zip(got, again, want):
+        assert a.dtype == torch.float32 and a.shape == w.shape
+        assert torch.equal(a, b)
+        assert _grad_close(a, w)
+    # a kernel that drops the group's sum (dK of the first head only)
+    # must fail the bar where the group has more than one head
+    if Hq > Hkv and S > 1:
+        assert not _grad_close(got[1] * (Hkv / Hq), want[1])
+
+
+@pytest.mark.gpu
+def test_flash_prefill_fn_trains_float32_through_the_kernels(cuda):
+    """float32 q, k, v requiring grad (the trainer's activations): the
+    forward runs the kernel in bf16, the output and the gradients come
+    back in float32, against torch autograd of the plain version on the
+    bf16-rounded inputs."""
+    q, k, v, do = (t.float() for t in _bwd_case(cuda, 2, 300, 14, 2, 64, 1))
+    tq, tk, tv = (t.clone().requires_grad_() for t in (q, k, v))
+    ops.launches.reset()
+    out = ops.flash_prefill(tq, tk, tv, scale=0.125)
+    assert out.dtype == torch.float32
+    got = torch.autograd.grad(out, (tq, tk, tv), do)
+    assert ops.launches.counts["flash_prefill:lse"] == 1
+    assert ops.launches.counts["flash_prefill_bwd"] == 1
+    with torch.no_grad():       # the Function alone, as an eval calls it
+        assert torch.equal(ops.FlashPrefillFn.apply(q, k, v, 0.125),
+                           out.detach())
+    want = ref.flash_prefill_bwd(q, k, v, *ref.flash_prefill_fwd_lse(
+        q, k, v, scale=0.125), do, 0.125)
+    for a, w in zip(got, want):
+        assert a.dtype == torch.float32 and _grad_close(a, w)
+
+
+@pytest.mark.gpu
+def test_eval_step_runs_a_bfloat16_copy_on_the_card(cuda):
+    """make_eval_step on the card: the kernels take bfloat16, so the step
+    evaluates a bfloat16 copy of float32 weights; its loss within 2e-2
+    relative of the float32 loss on the CPU (bf16 products over 2 layers),
+    and the float32 weights untouched."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.training.optimizer import tree_map
+    from repro_torch.training.trainer import make_eval_step
+    cfg = get_smoke_config("qwen2-0.5b")
+    params = M.init_params(cfg, torch.Generator().manual_seed(0),
+                           torch.float32, device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64),
+                           generator=torch.Generator().manual_seed(1),
+                           dtype=torch.int32)
+    batch = {"tokens": tokens, "labels": tokens}
+    want = make_eval_step(cfg)(params, batch).item()
+    on_card = {k: v.to(cuda) for k, v in batch.items()}
+    card_params = tree_map(lambda t: t.to(cuda), params)
+    ops.launches.reset()
+    got = make_eval_step(cfg)(card_params, on_card).item()
+    assert ops.launches.counts["flash_prefill"] == cfg.num_layers
+    assert abs(got - want) <= 2e-2 * abs(want)
+    assert card_params["embed"].dtype == torch.float32
+
+
+@pytest.mark.gpu
+def test_flash_prefill_bwd_raises_beyond_its_limits(cuda):
+    x = torch.zeros((1, 64, 4, 64), device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="training step 3"):
+        ops.flash_prefill(x, x, x, scale=0.125, causal=False)
+    with pytest.raises(NotImplementedError, match="training step 5"):
+        ops.flash_prefill(x, x[:, :32], x[:, :32], scale=0.125)
+    for d in (96, 112):
+        y = torch.zeros((1, 64, 4, d), device=cuda, requires_grad=True)
+        with pytest.raises(NotImplementedError, match="training step 2"):
+            ops.flash_prefill(y, y, y, scale=0.125)

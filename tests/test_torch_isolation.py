@@ -80,6 +80,9 @@ def test_default_device_entry_points_raise_without_cuda():
         M.init_params(get_smoke_config("qwen2-0.5b"), torch.Generator())
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--arch", "qwen2-0.5b", "--smoke"])
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--arch", "qwen2-0.5b", "--smoke", "--steps", "1"])
     # a CUDA tensor never reaches the plain version silently: the kernel
     # library cannot even be built here
     from repro_torch.kernels.build import nvcc_path
