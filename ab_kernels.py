@@ -22,7 +22,12 @@ where the tree builds that instantiation, and each instantiation's
 non-causal mode (a 1024-query window over 1500 keys, inputs from seed +
 4); flash_prefill_bwd, where the tree has it, at the train phase's shape
 (B 2, S 4096, Hq 14, Hkv 2, D 64) and llama3-8b's heads (B 1, S 2048,
-32 over 8, D 128), inputs from seed + 5, its digest over dq, dk, dv;
+32 over 8, D 128), inputs from seed + 5, its digest over dq, dk, dv,
+its time and SDPA's backward's by CUDA events, and nvidia-smi's SM clock
+and power draw, sampled every 100 ms while it runs back to back for ~3 s
+(medians, extremes, the clock's maximum), and the training forward
+(flash_prefill's lse instance) at the same two shapes, inputs from seed
++ 6, its digest over out and lse;
 sparse_decode_attention at
 the serve's decode step (B 4, Hq 14, Hkv 2, NB 136, K 64, bs 32, D 64,
 cur_len 4112, every selection valid: 512 live blocks, as the serve
@@ -68,7 +73,11 @@ With ``--probes``, the card's rates for what bounds the scan: MUFU.EX2
 chains a thread in 8 CTAs of 256 threads an SM, per SM and microsecond,
 from a probe kernel built here with nvcc; and wkv6's decode launch through
 its step kernel and through its window kernel (built here on the tree's
-csrc/wkv6.cu), device ms of each.
+csrc/wkv6.cu), device ms of each; and flash_prefill_bwd at its two
+shapes as the tree builds it and built with -DFLASH_BWD_PRODUCTS_ONLY
+(the products without the masking, exponentials and dS between them;
+its results are not the gradient), CUDA events over back-to-back
+launches of each and device ms by kernel.
 With ``--serves ARCH ...``, chip_smoke's models-phase serve of each arch
 on the tree's engine, on the modelled clock and on the wall clock: a
 digest of the greedy tokens, so two trees' tokens compare in one call.
@@ -278,6 +287,16 @@ def main() -> int:
                 torch.bfloat16) for h in (hq, hkv, hkv, hq)]
             cases[name] = cs.case_flash_bwd(torch, ops, ref, *bx,
                                             d ** -0.5)
+    # the training forward (flash_prefill's lse instance) at the same
+    # shapes, on inputs of their own: its digest covers out and lse
+    gen6 = torch.Generator(device=dev).manual_seed(args.seed + 6)
+    if hasattr(ops, "flash_prefill_fwd_lse"):
+        for name, (b, n, hq, hkv, d) in {
+                "flash_prefill_lse": (2, 4096, 14, 2, 64),
+                "flash_prefill_lse_d128": (1, 2048, 32, 8, 128)}.items():
+            lx = [torch.randn((b, n, h, d), generator=gen6, device=dev).to(
+                torch.bfloat16) for h in (hq, hkv, hkv)]
+            cases[name] = cs.case_flash_lse(torch, ops, ref, *lx, d ** -0.5)
     # the two recurrences at their serves' first prefill and a decode
     # launch, on inputs of their own
     gen3 = torch.Generator(device=dev).manual_seed(args.seed + 2)
@@ -385,6 +404,9 @@ def main() -> int:
             rec["device_ms"] = cs.device_ms(torch, kern)
         if name.startswith("flash_prefill_bwd"):
             rec["digests_dq_dk_dv"] = [_digest(torch, t) for t in kern()]
+            if case[7] is not None:   # SDPA's backward, by CUDA events
+                rec["library_events_ms"] = cs.events_ms(torch, case[7])
+            rec["power"] = _power(torch, cs, kern)
         out[name] = rec
     for name, (fn, how) in stages.items():
         rec = {"how": how}
@@ -407,6 +429,8 @@ def main() -> int:
     if args.probes:
         out["probes"] = _probes(torch, dev)
         out["probes"].update(_emit_probe(torch, cs, ops, dev, args.seed))
+        out["probes"].update(_bwd_products_probe(torch, cs, ops, dev,
+                                                 args.seed))
     if args.serves:
         out["serves"] = {arch: _serve_tokens(torch, np, cs, arch, args.seed)
                          for arch in args.serves}
@@ -415,6 +439,36 @@ def main() -> int:
         cs.phase_profile(torch, np, args.seed, "int8")
     print(json.dumps(out))
     return 0
+
+
+def _power(torch, cs, fn, seconds: float = 3.0) -> dict:
+    """The card while ``fn`` runs back to back for ~``seconds``:
+    nvidia-smi's SM clock and power draw every 100 ms (the first and last
+    samples dropped), their medians and extremes, and the clock's
+    maximum."""
+    query = ["nvidia-smi", "--format=csv,noheader,nounits"]
+    top = subprocess.run(query + ["--query-gpu=clocks.max.sm"],
+                         capture_output=True, text=True).stdout.split()
+    reps = max(1, int(seconds * 1e3 / cs.events_ms(torch, fn)))
+    smi = subprocess.Popen(query + ["--query-gpu=clocks.sm,power.draw",
+                                    "-lms", "100"],
+                           stdout=subprocess.PIPE, text=True)
+    try:
+        time.sleep(0.3)
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+    rows = [[float(x) for x in line.split(",")]
+            for line in smi.communicate()[0].splitlines() if line.strip()]
+    clk, watts = (sorted(r[i] for r in rows[3:-2]) for i in (0, 1))
+    if not clk:
+        return {"samples": 0}
+    return {"samples": len(clk), "sm_mhz_median": clk[len(clk) // 2],
+            "sm_mhz_min": clk[0], "sm_mhz_max_clock": top[0] if top else None,
+            "power_w_median": watts[len(watts) // 2],
+            "power_w_max": watts[-1]}
 
 
 def _serve_tokens(torch, np, cs, arch: str, seed: int) -> dict:
@@ -621,6 +675,63 @@ def _emit_probe(torch, cs, ops, dev, seed: int) -> dict:
             "wkv6_decode_step_vs_emit_max_abs_diff": max(
                 (y - y_step).abs().max().item(),
                 (s_out - s_step).abs().max().item())}
+
+
+def _bwd_products_probe(torch, cs, ops, dev, seed: int) -> dict:
+    """flash_prefill_bwd's kernels at the train phase's shape and
+    llama3-8b's heads, launched through the tree's library and through one
+    built here on the tree's flash_prefill_bwd.cu with
+    -DFLASH_BWD_PRODUCTS_ONLY, on the same inputs and buffers: CUDA events
+    over back-to-back launches (the better of three readings) and device
+    ms by kernel under torch.profiler, with the 5-product bound and the
+    design's 7-product floor.  {} where the tree's source has no such
+    build."""
+    import ctypes
+    from repro_torch.kernels import build
+    src = build.CSRC_DIR / "flash_prefill_bwd.cu"
+    if "FLASH_BWD_PRODUCTS_ONLY" not in src.read_text():
+        return {}
+    lib = build.BUILD_DIR / "libflash_prefill_bwd_products.so"
+    subprocess.run([build.nvcc_path()] + build.NVCC_FLAGS
+                   + ["-DFLASH_BWD_PRODUCTS_ONLY", "-I", str(build.CSRC_DIR),
+                      "-o", str(lib), str(src)], check=True,
+                   capture_output=True)
+    _, sym, argtypes = build._SIGNATURES["flash_prefill_bwd"]
+    products = getattr(ctypes.CDLL(str(lib)), sym)
+    products.argtypes, products.restype = argtypes, ctypes.c_int
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    res = {}
+    for name, (b, n, hq, hkv, d) in {
+            "train": (2, 4096, 14, 2, 64),
+            "llama3_8b": (1, 2048, 32, 8, 128)}.items():
+        q, k, v, do = [torch.randn((b, n, h, d), generator=gen,
+                                   device=dev).to(torch.bfloat16)
+                       for h in (hq, hkv, hkv, hq)]
+        o, lse = ops.flash_prefill_fwd_lse(q, k, v, scale=d ** -0.5)
+        ws_n = ops.LIBS.fn("flash_prefill_bwd_ws")(b, n, hq, hkv, d)
+        ws = torch.empty(ws_n, dtype=torch.float32, device=dev)
+        grads = [torch.empty(t.shape, dtype=torch.float32, device=dev)
+                 for t in (q, k, v)]
+
+        def call(fn):
+            rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                    do.data_ptr(), lse.data_ptr(), ws.data_ptr(), ws_n,
+                    *[g.data_ptr() for g in grads], b, n, hq, hkv, d,
+                    d ** -0.5, torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"flash_prefill_bwd launch failed ({rc})")
+
+        pairs = n * (n + 1) // 2
+        bound = cs.bound_ms(0, 10 * d * pairs * hq * b)[0]
+        rec = {"flop_bound_ms": bound, "floor_7_products_ms": bound * 7 / 5}
+        for tag, fn in (("whole", ops.LIBS.fn("flash_prefill_bwd")),
+                        ("products_only", products)):
+            rec[f"{tag}_events_ms"] = min(
+                cs.events_ms(torch, lambda: call(fn), 20) for _ in range(3))
+            rec[f"{tag}_device_ms_by_kernel"] = cs.device_ms(
+                torch, lambda: call(fn), by_kernel="flash_bwd_")
+        res[f"flash_prefill_bwd_products_{name}"] = rec
+    return res
 
 
 def _digest(torch, res) -> str:

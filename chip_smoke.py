@@ -257,14 +257,17 @@ each printing one line (``phase=...``) and failing the run on any error:
    transfer counters must be identical.
 11. train — training's attention kernels, then dense GQA training at
    full width.  flash_prefill_bwd (csrc/flash_prefill_bwd.cu: Delta, dK
-   and dV, dQ) and the forward with its lse output against their plain
-   versions on the same bf16 inputs, at qwen2-0.5b's heads over a ragged
-   1000 tokens (B 2), llama3-8b's over 2048 (B 1) and the training run's
-   own shape (B 2, S 4096, 14 over 2 heads of 64): each gradient within
-   2e-2 of its max |grad| with a cosine >= 0.999, two launches bit-equal,
-   lse within 1e-3, the output bit for bit the serve launch's; timed
-   beside the plain versions, their FLOP bounds and SDPA's backward (and
-   forward + backward).  Then qwen2-0.5b at full width and all 24 layers,
+   and dV over chunks of the GQA group, dQ, the chunks' sum) and the
+   forward with its lse output against their plain versions on the same
+   bf16 inputs, at qwen2-0.5b's heads over a ragged 1000 tokens (B 2),
+   llama3-8b's over 2048 (B 1) and the training run's own shape (B 2,
+   S 4096, 14 over 2 heads of 64): each gradient within 2e-2 of its max
+   |grad| with a cosine >= 0.999, two launches bit-equal, a planted fault
+   (the last chunk's partial dK and dV left out of the group's sum) outside
+   that bar, lse within 1e-3, the output bit for bit the serve launch's;
+   timed beside the plain versions, their FLOP bound (five products), the
+   design's seven-product floor and SDPA's backward (and forward +
+   backward).  Then qwen2-0.5b at full width and all 24 layers,
    float32 weights, gradients and AdamW moments, trained 8 steps at B 2,
    S 4096 with remat on, on one fixed TokenStream batch: the loss of step
    8 below step 1's, step 1's loss within 1e-3 relative and its grad norm
@@ -406,7 +409,7 @@ PORT_KERNEL_FNS = ("split_kernel", "merge_kernel", "block_score_kernel",
                    "wkv6_local_kernel", "wkv6_carry_kernel",
                    "wkv6_emit_kernel", "wkv6_step_kernel",
                    "flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
-                   "flash_bwd_dq_kernel")
+                   "flash_bwd_dq_kernel", "flash_bwd_reduce_kernel")
 # one PyTorch call computing the same function, where there is one; else
 # why not (printed, and null in the JSON record)
 NO_LIBRARY = {
@@ -3698,6 +3701,8 @@ def case_flash_bwd(torch, ops, ref, q, k, v, do, scale) -> tuple:
         f"err/max|grad| dq={errs[0]:.3e} dk={errs[1]:.3e} dv={errs[2]:.3e} "
         f"cosine dq={coss[0]:.6f} dk={coss[1]:.6f} dv={coss[2]:.6f} "
         f"repeat_bit_equal={same} (bar {BWD_ERR}, cosine >= {BWD_COS})")
+    ok = _bwd_planted_chunk(torch, ops, q, k, v, o, lse, do, scale,
+                            want) and ok
     pairs = S * (S + 1) // 2
     # 5 products of 2 D flops per visible (query, key) pair and query head
     nops = 10 * D * pairs * Hq * B_
@@ -3722,6 +3727,36 @@ def case_flash_bwd(torch, ops, ref, q, k, v, do, scale) -> tuple:
                                                    scale=scale),
             lambda: ref.flash_prefill_bwd(q, k, v, o, lse, do, scale),
             nbytes, nops, f"B={B_} S={S} Hq={Hq} Hkv={Hkv} D={D}", lib)
+
+
+def _bwd_planted_chunk(torch, ops, q, k, v, o, lse, do, scale,
+                       want) -> bool:
+    """A planted fault for the backward's chunked dK-dV (a chunk is one
+    query head of each GQA group): the last chunk's partial dK and dV left
+    out of the group's sum (the kernels' own result with that head's dO
+    zeroed, which zeroes its P^T dO and dS^T Q) must fail BWD_ERR /
+    BWD_COS.  Prints one line; True when the fault is caught, or when the
+    group is one head."""
+    B_, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    head = (f"flash_prefill_bwd B={B_} S={S} Hq={Hq} Hkv={Hkv} D={D} "
+            f"chunks={G}")
+    if G == 1:
+        log(f"{head} planted_fault=none (the group is one chunk)")
+        return True
+    drop = do.clone()
+    drop[:, :, G - 1::G] = 0
+    _, dk, dv = ops.flash_prefill_bwd(q, k, v, o, lse, drop, scale=scale)
+    passed = True
+    for g, w in ((dk, want[1]), (dv, want[2])):
+        err = (g - w).abs().max().item() / w.abs().max().item()
+        cos = torch.nn.functional.cosine_similarity(
+            g.flatten(), w.flatten(), dim=0).item()
+        passed = passed and err <= BWD_ERR and cos >= BWD_COS
+    log(f"{head} planted_fault=\"chunk {G - 1} left out\" "
+        f"caught={not passed}")
+    return not passed
 
 
 def case_flash_lse(torch, ops, ref, q, k, v, scale) -> tuple:
@@ -3778,10 +3813,16 @@ def _fwd_bwd_line(torch, ops, timer, label, q, k, v, do, results,
     o, lse = ops.flash_prefill_fwd_lse(q, k, v, scale=scale)
     split = device_ms(torch, lambda: ops.flash_prefill_bwd(
         q, k, v, o, lse, do, scale=scale), by_kernel="flash_bwd_")
+    B_, S, Hq, D = q.shape
+    # the design's own floor: seven products (dQ's kernel recomputes S and
+    # dP) of 2 D flops per visible pair and query head
+    floor7 = 14 * D * (S * (S + 1) // 2) * Hq * B_ / BF16_OPS_PER_S * 1e3
     line = (f"phase=train {label} kernel=flash_prefill_bwd "
             f"device_ms_by_kernel={json.dumps(split)} "
             f"bwd_ms={bwd['ms']:.4f} device_ms={bwd['device_ms']:.5f} "
-            f"bound_ms={bwd['bound_ms']:.4f} ({bwd['bound_by']}) "
+            f"events_ms={bwd['events_ms']:.4f} "
+            f"bound_ms={bwd['bound_ms']:.4f} ({bwd['bound_by']}; the FLOP "
+            f"count of five products) seven_product_floor_ms={floor7:.4f} "
             f"sdpa_bwd_ms=" + (f"{bwd['library_ms']:.4f}"
                                if bwd["library_ms"] is not None else "None")
             + f" fwd_lse_ms={fwd['ms']:.4f} fwd_plus_bwd_ms="

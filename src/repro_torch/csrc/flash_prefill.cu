@@ -411,54 +411,6 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
-
-// The driver's cuTensorMapEncodeTiled, fetched once through the runtime
-// (nullptr if the driver does not have it).
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A 4-D map over a (B, S, H, D) bf16 tensor, dims innermost first
-// (D, H, S, B), boxes of 64 columns x 1 head x `rows` tokens x 1 batch row
-// (128-byte rows, swizzled); reads past S within a batch row, and past D
-// within a row (D = 96: the second box's last 32 columns; D = 112: its
-// last 16), give zeros.
-CUresult make_map(CUtensorMap* map, const void* ptr, int B, int S, int H,
-                  int D, int rows) {
-  const cuuint64_t s1 = S > 0 ? S : 1;   // a map needs non-empty dims
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, s1,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
-                                 s1 * H * D * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
-  return encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-      strides, box, elem,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
-
-// driver-API failures are reported past the runtime's error codes
-constexpr int kDriverError = 100000;
-
 template <int D, int Dv, bool kLse = false>
 int launch(const void* q, const void* k, const void* v, void* out,
            float* lse, int B, int Sq, int Sk, int Hq, int Hkv, int q_offset,

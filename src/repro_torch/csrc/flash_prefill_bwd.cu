@@ -16,616 +16,677 @@
 //   dV = P^T dO                      Delta = rowsum(dO * O)
 //   dS = P * (dO V^T - Delta)        dQ = scale dS K,  dK = scale dS^T Q
 // with dK and dV summed over each GQA group; dq (B, S, Hq, D), dk and dv
-// (B, S, Hkv, D) float32.  Three launches:
-//   (a) delta: Delta (B, Hq, S) float32 into the wrapper's scratch, one
-//       warp per (row, token, head);
-//   (b) dkdv: one CTA per (64-key tile, kv head, batch row).  It keeps its
-//       K and V tiles in shared memory and walks, for each of the group's
-//       G query heads, the query tiles from the one holding its first key
-//       to the end (the causal triangle), recomputing S^T = K Q^T and
-//       dP^T = V dO^T per tile, and accumulates dV += P^T dO and
-//       dK += dS^T Q in float32 registers.  Two warp groups take
-//       alternate heads of the GQA group side by side, and the second adds
-//       its sums into the first's at the end, through shared memory: the
-//       group's sum stays inside the CTA, with no atomics;
-//   (c) dq: one CTA per (64-query tile, query head, batch row), heavy tiles
-//       (near the end of the sequence) first.  It keeps its Q and dO tiles
-//       and walks the 64-key tiles up to its diagonal, recomputing S and dP
-//       and accumulating dQ += dS K.
-// Every output element is written by one thread, once: two launches give
-// the same bits.
+// (B, S, Hkv, D) float32.
 //
 // What bounds it: operations.  Five products of 2 D flops per visible
-// (query, key) pair and query head (S^T, dP^T, dV, dK in (b); S, dP, dQ in
-// (c) recompute two of them: seven done, five needed) against 2 bytes per
-// element read once; at qwen2-0.5b's 4,096 tokens that is thousands of
-// flops per byte, far above the ~295 at which the tensor cores bind.
+// (query, key) pair and query head against 2 bytes per element read once:
+// at qwen2-0.5b's 4,096 tokens that is thousands of flops per byte, far
+// above the ~295 at which the H100's tensor cores bind, and only wgmma
+// reaches their rate.  This design does seven (the dQ kernel recomputes S
+// and dP), so its own floor is 7/5 of the bound, and one exponential per
+// pair and head in each of (b) and (c) runs on the SFU beside them.  What
+// binds on the H100 is the product pipeline itself: built with
+// -DFLASH_BWD_PRODUCTS_ONLY (no masking, exponentials or dS, so the
+// results are wrong; ab_kernels.py --probes builds and times it) the
+// kernels still take well over that floor, since every step waits for
+// each of its products before the next can start; the elementwise work
+// adds the rest.  The card's 700 W limit lowers the SM clock by a few per
+// cent under this load (PERF.md has the readings).
 //
-// Design (FlashAttention-2's backward in shape, simple first): four warps
-// a CTA, each owning 16 rows of the CTA's tile; every product is
-// mma.sync m16n8k16 (bf16 in, float32 accumulate), its operands read from
-// shared memory with ldmatrix (x4: a whole A fragment, or the B fragments
-// of two n-tiles, in one instruction; .trans for the operands a product
-// reads transposed, dO and Q in (b), K in (c)), whose rows are padded by
-// 8 elements so that the eight 16-byte rows of each 8 x 8 matrix hit all
-// 32 banks.  P and dS are rounded to bf16 in registers, where a product's
-// accumulator fragment becomes the next product's A fragment with no trip
-// through shared memory (as the forward rounds P before P V).  The tiles a
-// CTA walks are double-buffered: the next one is copied with cp.async
-// (rows past S zero-filled) while this one's products run.  The grids are
-// tile-major, so the CTAs with the most tiles to walk (the first key tiles
-// of (b), the last query tiles of (c)) of every (head, row) start first;
-// (b)'s heads split over two warp groups halve its longest CTA's walk
-// (G / 2 x S / BR query tiles at its first key tile).  wgmma, TMA and a
-// deeper ring of tiles are for a later PR.
+// Design (FlashAttention-3's backward in shape, with dQ's products apart,
+// so that no float32 atomic is needed).  Four launches, one count in the
+// wrapper:
+//   (a) delta: Delta = rowsum(dO * O) and lse * log2(e), both (B, Hq,
+//       S_pad) float32 in the wrapper's workspace, S_pad = S rounded up to
+//       128 with zeros past S, so that a tile of either is one bulk copy;
+//   (b) dkdv: one CTA per (128-key tile, query head of the GQA group, kv
+//       head, batch row) of three warpgroups.  Warpgroup 0 is the producer:
+//       after setmaxnreg gives its registers away, one thread loads the K
+//       and V tiles once (TMA, 128-byte swizzle) and then keeps a ring of 4
+//       stages filled, each the Q tile, the dO tile, lse and Delta of Bq
+//       queries of one head (Bq 128 at D 64, 64 at D 128, so that S^T,
+//       dP^T, dK and dV fit in registers), guarded by full / empty
+//       mbarriers.  Warpgroups 1 and 2 each own 64 keys.  A step: S^T =
+//       K Q^T and dP^T = V dO^T (wgmma, both operands in shared memory, in
+//       two commit groups); P^T from S^T in registers, rounded to bf16 (as
+//       the forward rounds P), is at once the register A operand of dV +=
+//       P^T dO (dO read transposed, imm-trans-b, as the forward reads V),
+//       which runs while dS^T = P^T (dP^T - Delta) is formed from that
+//       bf16 P^T and the landed dP^T; then dK += dS^T Q.  The walk is the
+//       head's query tiles from the key tile's diagonal to S;
+//       only tiles that cross the diagonal or S are masked (a score set to
+//       -inf before its exponential), and TMA zero-fills rows past S;
+//   (c) dq: one CTA per (128-query tile, query head, batch row), heavy
+//       tiles first, the forward's shape: the Q and dO tiles load once, a
+//       ring of K/V tiles of 128 keys follows, each consumer warpgroup owns
+//       64 query rows: S = Q K^T and dP = dO V^T (shared-memory wgmma),
+//       dS in registers as the A operand of dQ += dS K with K read
+//       transposed;
+//   (d) reduce, where G > 1: the chunks' partial dK and dV
+//       summed in chunk order.
+//
+// Balance.  All CTAs of (b) with the same key tile walk the same number
+// of steps, and the first key tile walks the most (the whole causal
+// column).  A kv head's G query heads are split into G chunks of one head,
+// each a CTA of its own, so the longest CTA walks one head's column, and
+// the grid runs key tiles first to last: the heaviest CTAs start first
+// and the rest fill in behind them, as in longest-job-first scheduling.
+// Chunk 0 writes its dK and dV into dk and dv; chunk c > 0 into its own
+// float32 slice of the workspace; (d) adds the slices into dk and dv in
+// chunk order.  Every output element is written by one thread, and every
+// sum runs in a fixed order: no atomics, and two launches give the same
+// bits.
+//
+// Measured slower on the H100 and left out (PERF.md): the two consumers
+// taking turns at the tensor cores (FA3's ping-pong); dS staged in shared
+// memory for dQ's product; dQ's product of one tile overlapped with the
+// next tile's dS; the chunks' sum done by the last chunk's CTA, or by the
+// dQ kernel's idle producer warps; and dQ accumulated inside (b) in a
+// fixed order under a per-tile semaphore (FA3's deterministic variant:
+// five products, but its accumulators spill).
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kThreads = 128;   // four warps, 16 tile rows each
-constexpr int kGroups = 2;      // (b)'s warp groups, each its share of G
-constexpr int kTile = 64;       // keys per tile of (b), queries per tile of (c)
+constexpr int kThreads = 384;   // a producer warpgroup and two consumers
+constexpr int kBk = 128;        // keys per K/V tile (64 per consumer in dkdv)
+constexpr int kBqDq = 128;      // query rows per dq CTA (64 per consumer)
+constexpr int kRowPad = 128;    // lse2 and Delta rows padded to a multiple
 constexpr float kLog2e = 1.4426950408889634f;
 
-// the query tile of (b): 64 rows at D 64, 32 at D 128 (its S^T, dP^T, dK
-// and dV fragments then fit in registers)
 template <int D> struct Cfg {
   static_assert(D == 64 || D == 128, "head dims 64 and 128");
-  static constexpr int kLd = D + 8;   // shared-memory row stride, elements
-  static constexpr int kBr = D == 64 ? 64 : 32;
-  // a group's two buffers of Q and dO, elements
-  static constexpr int kGroupTiles = 4 * kBr * kLd;
-  // K and V; per group two buffers of Q and dO and two of lse and Delta
-  static constexpr int kSmemDkdv = 2 * kTile * kLd * 2 +
-                                   kGroups * (kGroupTiles * 2 + 4 * kBr * 4);
-  static_assert(kGroupTiles * 2 >= 4 * kThreads * D / 2,
-                "a group's tiles hold its warps' dK or dV accumulators");
-  // Q and dO, two buffers of K and V
-  static constexpr int kSmemDq = 6 * kTile * kLd * 2;
+  static constexpr int kSlabs = D / 64;   // 64-column slabs of 128 bytes
+  // dkdv's query tile: its S^T and dP^T (64 x kBq) and dK and dV (64 x D)
+  // stay in a consumer's registers
+  static constexpr int kBq = D == 64 ? 128 : 64;
+  static constexpr int kQSlab = kBq * 128;   // one slab of a Q / dO tile
+  static constexpr int kQTile = kSlabs * kQSlab;
+  static constexpr int kKSlab = kBk * 128;   // one slab of a K / V tile
+  static constexpr int kKTile = kSlabs * kKSlab;
+  static constexpr int kStages = 4;
+  static constexpr int kStageBytes = 2 * kQTile;   // Q, then dO
+  static constexpr int kRowBytes = 2 * kBq * 4;    // lse2, then Delta
+  static constexpr int kSmemDkdv =
+      1024 + 2 * kKTile + kStages * (kStageBytes + kRowBytes);
+  // dq: Q and dO tiles of 128 rows once, a ring of K / V tiles
+  static constexpr int kDqSlab = kBqDq * 128;
+  static constexpr int kDqTile = kSlabs * kDqSlab;
+  static constexpr int kDqStages = D == 64 ? 4 : 2;
+  static constexpr int kSmemDq = 1024 + 2 * kDqTile + kDqStages * 2 * kKTile;
 };
 
-// c += a b: A 16 x 16 (4 registers), B 16 x 8 (2), C 16 x 8 float32
-__device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t packf(float lo, float hi) {
+// two floats -> bf16x2, the lower column in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+// bf16x2 -> two floats, the low half first
+__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
+  return make_float2(__uint_as_float(v << 16),
+                     __uint_as_float(v & 0xffff0000u));
 }
 
-// four 8 x 8 b16 matrices, lane i giving row i % 8 of matrix i / 8; each
-// lane receives, of matrix j, row lane / 4, columns 2 (lane % 4) (+1) in
-// r[j] (transposed: row 2 (lane % 4) (+1), column lane / 4)
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
+// acc (64 x N) = A B^T over D: A 64 rows of a K-major tile at a (64-column
+// slabs ASlab bytes apart), B N rows of one at b (BSlab apart)
+template <int D, int N, int ASlab, int BSlab>
+__device__ __forceinline__ void mma_ss(float* acc, const unsigned char* a,
+                                         const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int sl = kk / 4, off = (kk % 4) * 32;
+    const uint64_t da = sw128_desc(a + sl * ASlab + off, 16, 1024);
+    const uint64_t db = sw128_desc(b + sl * BSlab + off, 16, 1024);
+    if constexpr (N == 128)
+      wgmma_m64n128k16_ss(acc, da, db, kk > 0);
+    else
+      wgmma_m64n64k16_ss(acc, da, db, kk > 0);
+  }
 }
 
-__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
+// acc (64 x D) += A B over K: A in registers (k-step kk in a[kk]), B the K
+// rows x D tile at b read transposed, 16 rows (2048 bytes) a k-step,
+// 64-column slabs BSlab bytes apart
+template <int D, int K, int BSlab>
+__device__ __forceinline__ void mma_rs(float* acc, uint32_t (*a)[4],
+                                         const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk) {
+    const uint64_t desc = sw128_desc(b + kk * 16 * 128, BSlab, 1024);
+    if constexpr (D == 64)
+      wgmma_m64n64k16_rs_tb(acc, a[kk], desc, 1);
+    else
+      wgmma_m64n128k16_rs_tb(acc, a[kk], desc, 1);
+  }
 }
 
-// Fragments (g = lane >> 2, t = lane & 3), each one ldmatrix.x4.  A
-// (16 x 16) of a row-major tile X: rows r0 + g, r0 + g + 8, columns
-// k0 + 2t (+1), k0 + 8 + 2t (+1).
-__device__ __forceinline__ void frag_a(uint32_t* a, const bf16* X, int ld,
-                                       int r0, int k0, int lane) {
-  ldsm_x4(a, X + (r0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * ld + k0 +
-                 8 * (lane >> 4));
-}
-
-// A (16 x 16) from a product's float32 accumulators c[n][4] over 16
-// columns: n-tiles 2 kk and 2 kk + 1, rounded to bf16
-__device__ __forceinline__ void frag_a_acc(uint32_t* a, float (*c)[4],
-                                           int kk) {
-  a[0] = packf(c[2 * kk][0], c[2 * kk][1]);
-  a[1] = packf(c[2 * kk][2], c[2 * kk][3]);
-  a[2] = packf(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-  a[3] = packf(c[2 * kk + 1][2], c[2 * kk + 1][3]);
-}
-
-// B (16 x 8) of n-tiles n0 (b[0], b[1]) and n0 + 8 (b[2], b[3]) with
-// B[k][n] = Y[n][k], Y row-major by n: rows n0 + g (+8), columns k0 + 2t
-// (+1) and k0 + 8 + 2t (+1)
-__device__ __forceinline__ void frag_b2_nk(uint32_t* b, const bf16* Y, int ld,
-                                           int n0, int k0, int lane) {
-  ldsm_x4(b, Y + (n0 + (lane & 7) + 8 * (lane >> 4)) * ld + k0 +
-                 8 * ((lane >> 3) & 1));
-}
-
-// the same with B[k][n] = Z[k][n], Z row-major by k (read transposed):
-// rows k0 + 2t (+1) and k0 + 8 + 2t (+1), column n0 + g (+8)
-__device__ __forceinline__ void frag_b2_kn(uint32_t* b, const bf16* Z, int ld,
-                                           int k0, int n0, int lane) {
-  ldsm_x4_t(b, Z + (k0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * ld + n0 +
-                   8 * (lane >> 4));
-}
-
-// 16 bytes global -> shared without registers; src_bytes 0 zero-fills
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
+// an accumulator fragment over N columns rounded to bf16 as the A
+// fragments of a product over those columns: columns 16 kk .. 16 kk + 15
+// are n-tiles 2 kk and 2 kk + 1, rows r (e 0, 1) and r + 8 (e 2, 3)
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// rows row0 .. row0 + rows - 1 of a (.., S, .., D) bf16 tensor whose row r
-// starts at src + r * stride, into dst (row stride D + 8) with cp.async;
-// rows past S zero (their source clamped to row 0, read for no bytes)
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          size_t stride, int row0, int rows,
-                                          int S, int tid, int nthreads) {
-  constexpr int kChunks = D / 8;
-  for (int i = tid; i < rows * kChunks; i += nthreads) {
-    const int r = i / kChunks, c = i % kChunks;
-    const bool in = row0 + r < S;
-    cp_async16(dst + r * (D + 8) + c * 8,
-               src + (in ? (size_t)(row0 + r) * stride : 0) + c * 8,
-               in ? 16 : 0);
+__device__ __forceinline__ void pack(const float* s, uint32_t (*p)[4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    p[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+    p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
   }
 }
 
-// n floats from src + row0 (those past S zero) into dst with cp.async
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          int row0, int n, int S, int tid,
-                                          int nthreads) {
-  for (int i = tid; i < n; i += nthreads) {
-    const bool in = row0 + i < S;
-    cp_async4(dst + i, src + (in ? row0 + i : 0), in ? 4 : 0);
-  }
-}
-
-// (a) Delta[b, h, i] = sum_d dO[b, i, h, d] O[b, i, h, d], a warp a row
+// (a) row r = (b H + h) S_pad + i of the workspace: Delta = sum_d dO O and
+// lse2 = lse log2(e) of token i, zeros past S; D / 8 lanes a row, each
+// reading 16 bytes of o and of dO
 template <int D>
 __global__ void __launch_bounds__(256)
 flash_bwd_delta_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dO,
-                       float* __restrict__ delta, int S, int H,
+                       const float* __restrict__ lse, float* __restrict__ lse2,
+                       float* __restrict__ delta, int S, int S_pad, int H,
                        long long rows) {
-  const long long r = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
-  if (r >= rows) return;
-  const int lane = threadIdx.x & 31;
-  const bf16* po = o + r * D;
-  const bf16* pd = dO + r * D;
+  constexpr int kLanes = D / 8, kRows = 256 / kLanes;
+  const int sub = threadIdx.x % kLanes;
+  const long long r = (long long)blockIdx.x * kRows + threadIdx.x / kLanes;
+  const int i = (int)(r % S_pad);
+  const long long bh = r / S_pad;
   float acc = 0.f;
+  if (r < rows && i < S) {
+    const size_t off = ((size_t)(bh / H * S + i) * H + bh % H) * D + sub * 8;
+    float a[8], c[8];
+    load16_f32(o + off, a);
+    load16_f32(dO + off, c);
 #pragma unroll
-  for (int d = 2 * lane; d < D; d += 64) {
-    const float2 a =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(po + d));
-    const float2 c =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(pd + d));
-    acc = fmaf(a.x, c.x, acc);
-    acc = fmaf(a.y, c.y, acc);
+    for (int e = 0; e < 8; ++e) acc = fmaf(a[e], c[e], acc);
   }
-  acc = warp_sum(acc);
-  if (lane == 0) {
-    const int h = (int)(r % H);
-    const long long bi = r / H;
-    delta[(bi / S * H + h) * S + bi % S] = acc;
+#pragma unroll
+  for (int m = kLanes / 2; m > 0; m >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, m);
+  if (r < rows && sub == 0) {
+    delta[r] = acc;
+    lse2[r] = i < S ? lse[bh * S + i] * kLog2e : 0.f;
   }
 }
 
-// (b) dK and dV of one 64-key tile of one kv head, summed over its group
-// of G query heads by kGroups warp groups of four warps: group c takes
-// the heads c, c + kGroups, ..., walking each one's query tiles, and adds
-// its dK and dV into group 0's at the end, in that order.  A group's
-// (query head, query tile) steps are one sequence; the next step's Q, dO,
-// lse and Delta are copied (cp.async) into the second of two buffers
-// while this one's products run.
+// (b) one query head's share (its chunk) of dK and dV of one 128-key tile
+// of its kv head
 template <int D>
-__global__ void __launch_bounds__(kGroups * kThreads)
-flash_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, const bf16* __restrict__ dO,
-                      const float* __restrict__ lse,
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
+                      const __grid_constant__ CUtensorMap k_map,
+                      const __grid_constant__ CUtensorMap v_map,
+                      const __grid_constant__ CUtensorMap do_map,
+                      const float* __restrict__ lse2,
                       const float* __restrict__ delta, float* __restrict__ dk,
-                      float* __restrict__ dv, int S, int Hq, int G,
+                      float* __restrict__ dv, float* __restrict__ part,
+                      int B, int S, int S_pad, int Hq, int Hkv, float sl2,
                       float scale) {
   using C = Cfg<D>;
-  constexpr int LD = C::kLd, BR = C::kBr;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);   // kTile x LD
-  bf16* vs = ks + kTile * LD;
-  const int grp = threadIdx.x / kThreads, tid = threadIdx.x % kThreads;
-  bf16* qs = vs + kTile * LD + grp * C::kGroupTiles;   // 2 x BR x LD
-  bf16* dos = qs + 2 * BR * LD;
-  float* lse_s = reinterpret_cast<float*>(vs + kTile * LD +
-                                          kGroups * C::kGroupTiles) +
-                 grp * 4 * BR;                           // 2 x BR
-  float* dl_s = lse_s + 2 * BR;
+  constexpr int NS = C::kStages, BQ = C::kBq;
+  __shared__ __align__(8) uint64_t kv_full, full[NS], empty[NS];
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* k_s = smem;
+  unsigned char* v_s = k_s + C::kKTile;
+  unsigned char* st_s = v_s + C::kKTile;   // stage st: Q, then dO
+  float* row_s = reinterpret_cast<float*>(st_s + NS * C::kStageBytes);
 
-  // tile-major: every (kv head, row)'s first key tile, the heaviest, first
-  const int k0 = blockIdx.z * kTile;
-  const int hk = blockIdx.x, b = blockIdx.y, Hkv = gridDim.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const size_t kv_row = (size_t)Hkv * D, q_row = (size_t)Hq * D;
-  load_tile<D>(ks, k + ((size_t)b * S * Hkv + hk) * D, kv_row, k0, kTile, S,
-               threadIdx.x, kGroups * kThreads);
-  load_tile<D>(vs, v + ((size_t)b * S * Hkv + hk) * D, kv_row, k0, kTile, S,
-               threadIdx.x, kGroups * kThreads);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();   // K and V have landed for every thread
+  // key tiles first to last (the heaviest first), then the query head's
+  // place in its group (its chunk), kv head, row
+  const int per_tile = Hq * B;
+  const int kt = blockIdx.x / per_tile;
+  int rem = blockIdx.x % per_tile;
+  const int ch = rem / (Hkv * B);
+  rem %= Hkv * B;
+  const int hk = rem / B, b = rem % B;
+  const int h = hk * (Hq / Hkv) + ch;
+  const int k0 = kt * kBk;
+  const int qt0 = k0 / BQ, nq = (S + BQ - 1) / BQ;
 
-  const int jr0 = 16 * warp;            // this warp's rows of the key tile
-  const int j_a = k0 + jr0 + g, j_b = j_a + 8;
-  const float sl2 = scale * kLog2e;
-  float acc_dk[D / 8][4], acc_dv[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_dk[n][e] = acc_dv[n][e] = 0.f;
-
-  // the group's steps (query head hk G + grp + kGroups (it / per), query
-  // tile qt0 + it % per); a named barrier per group, its trip count its own
-  const int qt0 = k0 / BR, per = (S + BR - 1) / BR - qt0;
-  const int heads = (G - grp + kGroups - 1) / kGroups;
-  const int steps = heads * per;
-  auto sync_group = [&]() {
-    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + grp), "r"(kThreads)
-                 : "memory");
-  };
-  auto issue = [&](int it) {   // step it's inputs into buffer it & 1
-    const int h = hk * G + grp + kGroups * (it / per);
-    const int q0 = (qt0 + it % per) * BR, buf = it & 1;
-    load_tile<D>(qs + buf * BR * LD, q + ((size_t)b * S * Hq + h) * D,
-                 q_row, q0, BR, S, tid, kThreads);
-    load_tile<D>(dos + buf * BR * LD, dO + ((size_t)b * S * Hq + h) * D,
-                 q_row, q0, BR, S, tid, kThreads);
-    load_rows(lse_s + buf * BR, lse + ((size_t)b * Hq + h) * S, q0, BR, S,
-              tid, kThreads);
-    load_rows(dl_s + buf * BR, delta + ((size_t)b * Hq + h) * S, q0, BR, S,
-              tid, kThreads);
-    cp_async_commit();
-  };
-  if (steps > 0) issue(0);
-  for (int it = 0; it < steps; ++it) {
-    if (it + 1 < steps) {
-      issue(it + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    mbar_init(&kv_full, 1);
+    for (int i = 0; i < NS; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 256);   // every consumer thread arrives
     }
-    sync_group();   // step it's buffer has landed for the whole group
-    const int q0 = (qt0 + it % per) * BR, buf = it & 1;
-    const bf16* qb = qs + buf * BR * LD;
-    const bf16* db = dos + buf * BR * LD;
-    const float* lb = lse_s + buf * BR;
-    const float* dlb = dl_s + buf * BR;
-    // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x BR queries
-    float st[BR / 8][4], dpt[BR / 8][4];
-#pragma unroll
-    for (int n = 0; n < BR / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t ak[4], av[4];
-      frag_a(ak, ks, LD, jr0, kk * 16, lane);
-      frag_a(av, vs, LD, jr0, kk * 16, lane);
-#pragma unroll
-      for (int n = 0; n < BR / 8; n += 2) {
-        uint32_t bq[4], bd[4];
-        frag_b2_nk(bq, qb, LD, n * 8, kk * 16, lane);
-        frag_b2_nk(bd, db, LD, n * 8, kk * 16, lane);
-        mma(st[n], ak, bq[0], bq[1]);
-        mma(st[n + 1], ak, bq[2], bq[3]);
-        mma(dpt[n], av, bd[0], bd[1]);
-        mma(dpt[n + 1], av, bd[2], bd[3]);
-      }
-    }
-    // P^T (keys j <= query i < S) and dS^T = P^T (dP^T - Delta), in place
-#pragma unroll
-    for (int n = 0; n < BR / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int il = n * 8 + 2 * t + (e & 1);
-        const int i = q0 + il;
-        const int j = e < 2 ? j_a : j_b;
-        const float p = (i < S && j <= i)
-                            ? exp2f(fmaf(st[n][e], sl2, -(lb[il] * kLog2e)))
-                            : 0.f;
-        st[n][e] = p;
-        dpt[n][e] = p * (dpt[n][e] - dlb[il]);
-      }
-    // dV += P^T dO and dK += dS^T Q, over the step's BR queries
-#pragma unroll
-    for (int kk = 0; kk < BR / 16; ++kk) {
-      uint32_t ap[4], as[4];
-      frag_a_acc(ap, st, kk);
-      frag_a_acc(as, dpt, kk);
-#pragma unroll
-      for (int n = 0; n < D / 8; n += 2) {
-        uint32_t bd[4], bq[4];
-        frag_b2_kn(bd, db, LD, kk * 16, n * 8, lane);
-        frag_b2_kn(bq, qb, LD, kk * 16, n * 8, lane);
-        mma(acc_dv[n], ap, bd[0], bd[1]);
-        mma(acc_dv[n + 1], ap, bd[2], bd[3]);
-        mma(acc_dk[n], as, bq[0], bq[1]);
-        mma(acc_dk[n + 1], as, bq[2], bq[3]);
-      }
-    }
-    sync_group();   // step it's buffer is read: step it + 2 may land
+    fence_barrier_init();
   }
-  // group src > 0 adds its dK, then its dV, into group 0's through its
-  // own tile buffers, each thread's accumulators lane by lane
-  __syncthreads();   // every group is done with its buffers
-  auto fold = [&](float (&acc)[D / 8][4], int src) {
-    float* slot = reinterpret_cast<float*>(vs + kTile * LD +
-                                           src * C::kGroupTiles) +
-                  warp * (D / 2) * 32 + lane;
-    if (grp == src) {
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) slot[(4 * n + e) * 32] = acc[n][e];
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // producer: one thread loads K and V, then keeps the ring filled
+    setmaxnreg_dec<24>();
+    if (threadIdx.x != 0) return;
+    mbar_arrive_expect_tx(&kv_full, 2 * C::kKTile);
+    for (int sl = 0; sl < C::kSlabs; ++sl) {
+      tma_load_4d(k_s + sl * C::kKSlab, &k_map, &kv_full, sl * 64, hk, k0,
+                  b);
+      tma_load_4d(v_s + sl * C::kKSlab, &v_map, &kv_full, sl * 64, hk, k0,
+                  b);
     }
-    __syncthreads();
-    if (grp == 0) {
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[n][e] += slot[(4 * n + e) * 32];
+    const float* l_src = lse2 + ((size_t)b * Hq + h) * S_pad;
+    const float* d_src = delta + ((size_t)b * Hq + h) * S_pad;
+    for (int j = 0; j < nq - qt0; ++j) {
+      const int st = j % NS, qt = qt0 + j;
+      if (j >= NS) mbar_wait(&empty[st], ((j / NS) - 1) & 1);
+      // whole boxes count, the zero-filled rows past S included
+      mbar_arrive_expect_tx(&full[st], C::kStageBytes + C::kRowBytes);
+      unsigned char* qs = st_s + st * C::kStageBytes;
+      for (int sl = 0; sl < C::kSlabs; ++sl) {
+        tma_load_4d(qs + sl * C::kQSlab, &q_map, &full[st], sl * 64, h,
+                    qt * BQ, b);
+        tma_load_4d(qs + C::kQTile + sl * C::kQSlab, &do_map, &full[st],
+                    sl * 64, h, qt * BQ, b);
+      }
+      float* rs = row_s + st * 2 * BQ;
+      bulk_load(rs, l_src + qt * BQ, BQ * 4, &full[st]);
+      bulk_load(rs + BQ, d_src + qt * BQ, BQ * 4, &full[st]);
     }
-    __syncthreads();
-  };
-#pragma unroll
-  for (int src = 1; src < kGroups; ++src) {
-    fold(acc_dk, src);
-    fold(acc_dv, src);
+    return;
   }
-  if (grp != 0) return;
-  float* dkb = dk + ((size_t)b * S * Hkv + hk) * D;
-  float* dvb = dv + ((size_t)b * S * Hkv + hk) * D;
+
+  // consumers: warpgroup c owns keys k0 + 64 c .. + 63
+  setmaxnreg_inc<240>();
+  const int c = wg - 1;
+  const int t128 = threadIdx.x - 128 * wg;
+  const int warp = t128 >> 5, lane = t128 & 31, quad = lane & 3;
+  const int kc0 = k0 + 64 * c;
+  const int j_a = kc0 + warp * 16 + (lane >> 2), j_b = j_a + 8;
+  const unsigned char* kc = k_s + c * 64 * 128;   // this warpgroup's keys
+  const unsigned char* vc = v_s + c * 64 * 128;
+
+  float acc_dk[D / 2], acc_dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
+
+  mbar_wait(&kv_full, 0);
+  // every step, a tile wholly above this warpgroup's keys masked whole
+  for (int j = 0; j < nq - qt0; ++j) {
+    const int st = j % NS;
+    const int q0 = (qt0 + j) * BQ;
+    const unsigned char* qs = st_s + st * C::kStageBytes;
+    const unsigned char* dos = qs + C::kQTile;
+    const float* ls = row_s + st * 2 * BQ;
+    const float* dls = ls + BQ;
+    const bool masked = q0 < kc0 + 63 || q0 + BQ > S;
+    float s[BQ / 2], dp[BQ / 2];
+    uint32_t pp[BQ / 16][4], ds[BQ / 16][4];
+    mbar_wait(&full[st], (j / NS) & 1);
+    fence_regs<BQ / 2>(s);
+    fence_regs<BQ / 2>(dp);
+    wgmma_fence();
+    mma_ss<D, BQ, C::kKSlab, C::kQSlab>(s, kc, qs);     // S^T = K Q^T
+    wgmma_commit();
+    mma_ss<D, BQ, C::kKSlab, C::kQSlab>(dp, vc, dos);   // dP^T = V dO^T
+    wgmma_commit();
+    wgmma_wait<1>();   // S^T has landed; dP^T runs on
+    fence_regs<BQ / 2>(s);
+    // P^T over the keys j <= query i < S (a masked score's weight is
+    // ex2(-inf) = 0), rounded to bf16
+#ifndef FLASH_BWD_PRODUCTS_ONLY
+    if (masked) {
+#pragma unroll
+      for (int n = 0; n < BQ / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = q0 + n * 8 + 2 * quad + (e & 1);
+          if (i < (e < 2 ? j_a : j_b) || i >= S) s[4 * n + e] = -INFINITY;
+        }
+    }
+#pragma unroll
+    for (int n = 0; n < BQ / 8; ++n) {
+      const float2 l2 =
+          *reinterpret_cast<const float2*>(ls + n * 8 + 2 * quad);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[4 * n + e] =
+            ex2(fmaf(s[4 * n + e], sl2, (e & 1) ? -l2.y : -l2.x));
+    }
+#endif
+    pack<BQ>(s, pp);
+    // dV += P^T dO runs while dS^T is formed
+    fence_regs<D / 2>(acc_dv);
+    fence_regs<BQ / 4>(&pp[0][0]);
+    wgmma_fence();
+    mma_rs<D, BQ, C::kQSlab>(acc_dv, pp, dos);
+    wgmma_commit();
+    wgmma_wait<1>();   // dP^T has landed
+    fence_regs<BQ / 2>(dp);
+    // dS^T = P^T (dP^T - Delta), from the bf16 P^T of dV's product
+#ifndef FLASH_BWD_PRODUCTS_ONLY
+#pragma unroll
+    for (int n = 0; n < BQ / 8; ++n) {
+      const float2 dl =
+          *reinterpret_cast<const float2*>(dls + n * 8 + 2 * quad);
+      const float2 p0 = unpack_bf16(pp[n / 2][(n & 1) * 2]);
+      const float2 p1 = unpack_bf16(pp[n / 2][(n & 1) * 2 + 1]);
+      dp[4 * n] = p0.x * (dp[4 * n] - dl.x);
+      dp[4 * n + 1] = p0.y * (dp[4 * n + 1] - dl.y);
+      dp[4 * n + 2] = p1.x * (dp[4 * n + 2] - dl.x);
+      dp[4 * n + 3] = p1.y * (dp[4 * n + 3] - dl.y);
+    }
+#endif
+    pack<BQ>(dp, ds);
+    fence_regs<D / 2>(acc_dk);
+    fence_regs<BQ / 4>(&ds[0][0]);
+    wgmma_fence();
+    mma_rs<D, BQ, C::kQSlab>(acc_dk, ds, qs);    // dK += dS^T Q
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<D / 2>(acc_dv);
+    fence_regs<D / 2>(acc_dk);
+    fence_regs<BQ / 4>(&pp[0][0]);
+    fence_regs<BQ / 4>(&ds[0][0]);
+    mbar_arrive(&empty[st]);   // this stage is read
+  }
+
+  // chunk 0 into dk and dv, chunk c > 0 into its slice of the workspace
+  const size_t n_out = (size_t)B * S * Hkv * D;
+  const size_t row = (size_t)Hkv * D;
+  const size_t base = ((size_t)b * S * Hkv + hk) * D;
+  float* dkb = (ch == 0 ? dk : part + 2 * (ch - 1) * n_out) + base;
+  float* dvb = (ch == 0 ? dv : part + (2 * (ch - 1) + 1) * n_out) + base;
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
-    const int d = n * 8 + 2 * t;
+    const int d = n * 8 + 2 * quad;
     if (j_a < S) {
-      *reinterpret_cast<float2*>(dkb + j_a * kv_row + d) =
-          make_float2(acc_dk[n][0] * scale, acc_dk[n][1] * scale);
-      *reinterpret_cast<float2*>(dvb + j_a * kv_row + d) =
-          make_float2(acc_dv[n][0], acc_dv[n][1]);
+      *reinterpret_cast<float2*>(dkb + j_a * row + d) =
+          make_float2(acc_dk[4 * n] * scale, acc_dk[4 * n + 1] * scale);
+      *reinterpret_cast<float2*>(dvb + j_a * row + d) =
+          make_float2(acc_dv[4 * n], acc_dv[4 * n + 1]);
     }
     if (j_b < S) {
-      *reinterpret_cast<float2*>(dkb + j_b * kv_row + d) =
-          make_float2(acc_dk[n][2] * scale, acc_dk[n][3] * scale);
-      *reinterpret_cast<float2*>(dvb + j_b * kv_row + d) =
-          make_float2(acc_dv[n][2], acc_dv[n][3]);
+      *reinterpret_cast<float2*>(dkb + j_b * row + d) =
+          make_float2(acc_dk[4 * n + 2] * scale, acc_dk[4 * n + 3] * scale);
+      *reinterpret_cast<float2*>(dvb + j_b * row + d) =
+          make_float2(acc_dv[4 * n + 2], acc_dv[4 * n + 3]);
     }
   }
 }
 
-// (c) dQ of one 64-query tile of one query head; the next key tile's K
-// and V are copied (cp.async) into the second of two buffers while this
-// one's products run
+// (c) dQ of one 128-query tile of one query head
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dO,
-                    const float* __restrict__ lse,
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
+                    const __grid_constant__ CUtensorMap k_map,
+                    const __grid_constant__ CUtensorMap v_map,
+                    const __grid_constant__ CUtensorMap do_map,
+                    const float* __restrict__ lse2,
                     const float* __restrict__ delta, float* __restrict__ dq,
-                    int S, int Hq, int G, float scale) {
-  constexpr int LD = Cfg<D>::kLd;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);   // kTile x LD
-  bf16* dos = qs + kTile * LD;
-  bf16* ks = dos + kTile * LD;                      // 2 buffers each
-  bf16* vs = ks + 2 * kTile * LD;
+                    int S, int S_pad, int Hq, int G, float sl2, float scale) {
+  using C = Cfg<D>;
+  constexpr int NS = C::kDqStages;
+  __shared__ __align__(8) uint64_t qd_full, full[NS], empty[NS];
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* q_s = smem;
+  unsigned char* do_s = q_s + C::kDqTile;
+  unsigned char* kv_s = do_s + C::kDqTile;   // stage st: K, then V
 
-  // tile-major, heavy tiles (near the end of the sequence) first
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * kTile;
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int Hkv = Hq / G, hk = h / G;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const size_t kv_row = (size_t)Hkv * D, q_row = (size_t)Hq * D;
-  load_tile<D>(qs, q + ((size_t)b * S * Hq + h) * D, q_row, q0, kTile, S,
-               threadIdx.x, kThreads);
-  load_tile<D>(dos, dO + ((size_t)b * S * Hq + h) * D, q_row, q0, kTile, S,
-               threadIdx.x, kThreads);
+  const int qt = gridDim.x - 1 - blockIdx.x;   // heavy tiles first
+  const int hq = blockIdx.y, b = blockIdx.z, hk = hq / G;
+  const int q0 = qt * kBqDq;
+  // key tiles up to the diagonal of the tile's last real query
+  const int n_tiles = (min(q0 + kBqDq, S) - 1) / kBk + 1;
 
-  const int ir0 = 16 * warp;            // this warp's rows of the query tile
-  const int i_a = q0 + ir0 + g, i_b = i_a + 8;
-  const float* lse_h = lse + ((size_t)b * Hq + h) * S;
-  const float* dl_h = delta + ((size_t)b * Hq + h) * S;
-  const float l2_a = i_a < S ? lse_h[i_a] * kLog2e : 0.f;
-  const float l2_b = i_b < S ? lse_h[i_b] * kLog2e : 0.f;
-  const float dl_a = i_a < S ? dl_h[i_a] : 0.f;
-  const float dl_b = i_b < S ? dl_h[i_b] : 0.f;
-  const float sl2 = scale * kLog2e;
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  const bf16* kh = k + ((size_t)b * S * Hkv + hk) * D;
-  const bf16* vh = v + ((size_t)b * S * Hkv + hk) * D;
-  const int n_kt = (min(q0 + kTile, S) - 1) / kTile + 1;   // to the diagonal
-  auto issue = [&](int kt) {   // key tile kt into buffer kt & 1
-    const int buf = kt & 1;
-    load_tile<D>(ks + buf * kTile * LD, kh, kv_row, kt * kTile, kTile, S,
-                 threadIdx.x, kThreads);
-    load_tile<D>(vs + buf * kTile * LD, vh, kv_row, kt * kTile, kTile, S,
-                 threadIdx.x, kThreads);
-    cp_async_commit();
-  };
-  issue(0);   // with Q and dO
-  for (int kt = 0; kt < n_kt; ++kt) {
-    if (kt + 1 < n_kt) {
-      issue(kt + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    mbar_init(&qd_full, 1);
+    for (int i = 0; i < NS; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 256);
     }
-    __syncthreads();   // key tile kt has landed for every thread
-    const int k0 = kt * kTile, buf = kt & 1;
-    const bf16* kb = ks + buf * kTile * LD;
-    const bf16* vb = vs + buf * kTile * LD;
-    // S = Q K^T and dP = dO V^T: this warp's 16 queries x 64 keys
-    float s[kTile / 8][4], dp[kTile / 8][4];
-#pragma unroll
-    for (int n = 0; n < kTile / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t aq[4], ad[4];
-      frag_a(aq, qs, LD, ir0, kk * 16, lane);
-      frag_a(ad, dos, LD, ir0, kk * 16, lane);
-#pragma unroll
-      for (int n = 0; n < kTile / 8; n += 2) {
-        uint32_t bk[4], bv[4];
-        frag_b2_nk(bk, kb, LD, n * 8, kk * 16, lane);
-        frag_b2_nk(bv, vb, LD, n * 8, kk * 16, lane);
-        mma(s[n], aq, bk[0], bk[1]);
-        mma(s[n + 1], aq, bk[2], bk[3]);
-        mma(dp[n], ad, bv[0], bv[1]);
-        mma(dp[n + 1], ad, bv[2], bv[3]);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    setmaxnreg_dec<24>();
+    if (threadIdx.x != 0) return;
+    mbar_arrive_expect_tx(&qd_full, 2 * C::kDqTile);
+    for (int sl = 0; sl < C::kSlabs; ++sl) {
+      tma_load_4d(q_s + sl * C::kDqSlab, &q_map, &qd_full, sl * 64, hq, q0,
+                  b);
+      tma_load_4d(do_s + sl * C::kDqSlab, &do_map, &qd_full, sl * 64, hq,
+                  q0, b);
+    }
+    for (int j = 0; j < n_tiles; ++j) {
+      const int st = j % NS;
+      if (j >= NS) mbar_wait(&empty[st], ((j / NS) - 1) & 1);
+      mbar_arrive_expect_tx(&full[st], 2 * C::kKTile);
+      unsigned char* ks = kv_s + st * 2 * C::kKTile;
+      for (int sl = 0; sl < C::kSlabs; ++sl) {
+        tma_load_4d(ks + sl * C::kKSlab, &k_map, &full[st], sl * 64, hk,
+                    j * kBk, b);
+        tma_load_4d(ks + C::kKTile + sl * C::kKSlab, &v_map, &full[st],
+                    sl * 64, hk, j * kBk, b);
       }
     }
-    // dS = P (dP - Delta), P over the keys j <= i < S, into s
+    return;
+  }
+
+  // consumers: warpgroup c owns query rows q0 + 64 c .. + 63
+  setmaxnreg_inc<240>();
+  const int c = wg - 1;
+  const int t128 = threadIdx.x - 128 * wg;
+  const int warp = t128 >> 5, lane = t128 & 31, quad = lane & 3;
+  const int r_base = q0 + 64 * c;
+  const int row0 = r_base + warp * 16 + (lane >> 2);   // and row0 + 8
+  // lse2 and Delta of the two rows (the workspace's rows reach q0 + 128)
+  const size_t rb = ((size_t)b * Hq + hq) * S_pad;
+  const float l2_a = lse2[rb + row0], l2_b = lse2[rb + row0 + 8];
+  const float dl_a = delta[rb + row0], dl_b = delta[rb + row0 + 8];
+
+  float acc[D / 2];
 #pragma unroll
-    for (int n = 0; n < kTile / 8; ++n)
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  mbar_wait(&qd_full, 0);
+  const unsigned char* qc = q_s + c * 64 * 128;   // this warpgroup's rows
+  const unsigned char* dc = do_s + c * 64 * 128;
+  // every tile up to the CTA's last real row (rows past S, zero-filled,
+  // add nothing and are not stored)
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j % NS;
+    const unsigned char* ks = kv_s + st * 2 * C::kKTile;
+    const unsigned char* vs = ks + C::kKTile;
+    float s[kBk / 2], dp[kBk / 2];
+    uint32_t ds[kBk / 16][4];
+    mbar_wait(&full[st], (j / NS) & 1);
+    fence_regs<kBk / 2>(s);
+    fence_regs<kBk / 2>(dp);
+    wgmma_fence();
+    mma_ss<D, kBk, C::kDqSlab, C::kKSlab>(s, qc, ks);    // S = Q K^T
+    mma_ss<D, kBk, C::kDqSlab, C::kKSlab>(dp, dc, vs);   // dP = dO V^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<kBk / 2>(s);
+    fence_regs<kBk / 2>(dp);
+    // dS = P (dP - Delta), P over the keys j <= i (keys past S lie past
+    // every real row's diagonal, in a tile that is masked)
+#ifndef FLASH_BWD_PRODUCTS_ONLY
+    if (j * kBk + kBk - 1 > r_base) {
+#pragma unroll
+      for (int n = 0; n < kBk / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (j * kBk + n * 8 + 2 * quad + (e & 1) > row0 + (e < 2 ? 0 : 8))
+            s[4 * n + e] = -INFINITY;
+    }
+#pragma unroll
+    for (int n = 0; n < kBk / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int j = k0 + n * 8 + 2 * t + (e & 1);
         const bool lo = e < 2;
-        const int i = lo ? i_a : i_b;
-        const float p = (i < S && j <= i)
-                            ? exp2f(fmaf(s[n][e], sl2, lo ? -l2_a : -l2_b))
-                            : 0.f;
-        s[n][e] = p * (dp[n][e] - (lo ? dl_a : dl_b));
+        s[4 * n + e] = ex2(fmaf(s[4 * n + e], sl2, lo ? -l2_a : -l2_b)) *
+                       (dp[4 * n + e] - (lo ? dl_a : dl_b));
       }
-    // dQ += dS K, over the tile's 64 keys
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      uint32_t a[4];
-      frag_a_acc(a, s, kk);
-#pragma unroll
-      for (int n = 0; n < D / 8; n += 2) {
-        uint32_t bk[4];
-        frag_b2_kn(bk, kb, LD, kk * 16, n * 8, lane);
-        mma(acc[n], a, bk[0], bk[1]);
-        mma(acc[n + 1], a, bk[2], bk[3]);
-      }
-    }
-    __syncthreads();   // key tile kt is read: tile kt + 2 may land
+#endif
+    pack<kBk>(s, ds);
+    fence_regs<D / 2>(acc);
+    fence_regs<kBk / 4>(&ds[0][0]);
+    wgmma_fence();
+    mma_rs<D, kBk, C::kKSlab>(acc, ds, ks);   // dQ += dS K
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<D / 2>(acc);
+    fence_regs<kBk / 4>(&ds[0][0]);
+    mbar_arrive(&empty[st]);   // K and V of tile j are read
   }
-  float* dqb = dq + ((size_t)b * S * Hq + h) * D;
+
+  const size_t q_row = (size_t)Hq * D;
+  float* dqb = dq + (size_t)b * S * q_row + (size_t)hq * D;
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
-    const int d = n * 8 + 2 * t;
-    if (i_a < S)
-      *reinterpret_cast<float2*>(dqb + i_a * q_row + d) =
-          make_float2(acc[n][0] * scale, acc[n][1] * scale);
-    if (i_b < S)
-      *reinterpret_cast<float2*>(dqb + i_b * q_row + d) =
-          make_float2(acc[n][2] * scale, acc[n][3] * scale);
+    const int d = n * 8 + 2 * quad;
+    if (row0 < S)
+      *reinterpret_cast<float2*>(dqb + row0 * q_row + d) =
+          make_float2(acc[4 * n] * scale, acc[4 * n + 1] * scale);
+    if (row0 + 8 < S)
+      *reinterpret_cast<float2*>(dqb + (row0 + 8) * q_row + d) =
+          make_float2(acc[4 * n + 2] * scale, acc[4 * n + 3] * scale);
   }
 }
 
+// (d) dk += the partials of chunks 1 .. n_parts, in that order, and dv the
+// same; n4 float4s in each of dk and dv, part (n_parts, 2, n4) float4s
+__global__ void __launch_bounds__(256)
+flash_bwd_reduce_kernel(float4* __restrict__ dk, float4* __restrict__ dv,
+                        const float4* __restrict__ part, long long n4,
+                        int n_parts) {
+  const long long x = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (x >= 2 * n4) return;
+  const int which = x >= n4;
+  const long long e = x - which * n4;
+  float4* out = (which ? dv : dk) + e;
+  float4 a = *out;
+  const float4* p = part + which * n4 + e;
+  for (int c = 0; c < n_parts; ++c) {
+    const float4 t = p[2 * c * n4];
+    a.x += t.x;
+    a.y += t.y;
+    a.z += t.z;
+    a.w += t.w;
+  }
+  *out = a;
+}
+
+// The workspace: lse2 and Delta (B, Hq, S_pad) each, S_pad = S rounded up
+// to kRowPad, then dK and dV (B, S, Hkv, D) each for chunks 1 .. G - 1
+// (chunk 0's go straight into dk and dv)
+long long ws_floats(int B, int S, int Hq, int Hkv, int D) {
+  const long long S_pad = (S + kRowPad - 1) / kRowPad * kRowPad;
+  return 2 * (long long)B * Hq * S_pad +
+         2LL * (Hq / Hkv - 1) * B * S * Hkv * D;
+}
+
 template <int D>
-int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
-           const bf16* dO, const float* lse, float* delta, float* dq,
-           float* dk, float* dv, int B, int S, int Hq, int Hkv, float scale,
+int launch(const void* q, const void* k, const void* v, const bf16* o,
+           const bf16* dO, const float* lse, float* ws, float* dq, float* dk,
+           float* dv, int B, int S, int Hq, int Hkv, float scale,
            cudaStream_t stream) {
   using C = Cfg<D>;
   const int G = Hq / Hkv;
-  const long long rows = (long long)B * S * Hq;
-  flash_bwd_delta_kernel<D><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
-      o, dO, delta, S, Hq, rows);
+  const int S_pad = (S + kRowPad - 1) / kRowPad * kRowPad;
+  const size_t n_rows = (size_t)B * Hq * S_pad;
+  float* lse2 = ws;
+  float* delta = ws + n_rows;
+  float* part = ws + 2 * n_rows;
+  constexpr int kDeltaRows = 256 / (D / 8);
+  flash_bwd_delta_kernel<D><<<(unsigned)((n_rows + kDeltaRows - 1) /
+                                         kDeltaRows),
+                              256, 0, stream>>>(o, dO, lse, lse2, delta, S,
+                                                S_pad, Hq, (long long)n_rows);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const int tiles = (S + kTile - 1) / kTile;
+
+  CUtensorMap qm, dom, km, vm, qm_dq, dom_dq;
+  CUresult r = make_map(&qm, q, B, S, Hq, D, C::kBq);
+  if (r == CUDA_SUCCESS) r = make_map(&dom, dO, B, S, Hq, D, C::kBq);
+  if (r == CUDA_SUCCESS) r = make_map(&km, k, B, S, Hkv, D, kBk);
+  if (r == CUDA_SUCCESS) r = make_map(&vm, v, B, S, Hkv, D, kBk);
+  if (r == CUDA_SUCCESS) r = make_map(&qm_dq, q, B, S, Hq, D, kBqDq);
+  if (r == CUDA_SUCCESS) r = make_map(&dom_dq, dO, B, S, Hq, D, kBqDq);
+  if (r != CUDA_SUCCESS) return kDriverError + (int)r;
+  const float sl2 = scale * kLog2e;
+
   auto dkdv = flash_bwd_dkdv_kernel<D>;
   e = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            C::kSmemDkdv);
   if (e != cudaSuccess) return (int)e;
-  dkdv<<<dim3(Hkv, B, tiles), kGroups * kThreads, C::kSmemDkdv, stream>>>(
-      q, k, v, dO, lse, delta, dk, dv, S, Hq, G, scale);
+  const int nk = (S + kBk - 1) / kBk;
+  dkdv<<<nk * Hq * B, kThreads, C::kSmemDkdv, stream>>>(
+      qm, km, vm, dom, lse2, delta, dk, dv, part, B, S, S_pad, Hq, Hkv, sl2,
+      scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
+
   auto dqk = flash_bwd_dq_kernel<D>;
   e = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            C::kSmemDq);
   if (e != cudaSuccess) return (int)e;
-  dqk<<<dim3(Hq, B, tiles), kThreads, C::kSmemDq, stream>>>(
-      q, k, v, dO, lse, delta, dq, S, Hq, G, scale);
+  dqk<<<dim3((S + kBqDq - 1) / kBqDq, Hq, B), kThreads, C::kSmemDq,
+        stream>>>(qm_dq, km, vm, dom_dq, lse2, delta, dq, S, S_pad, Hq, G,
+                  sl2, scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || G == 1) return (int)e;
+
+  const long long n4 = (long long)B * S * Hkv * D / 4;
+  flash_bwd_reduce_kernel<<<(unsigned)((2 * n4 + 255) / 256), 256, 0,
+                            stream>>>(
+      reinterpret_cast<float4*>(dk), reinterpret_cast<float4*>(dv),
+      reinterpret_cast<const float4*>(part), n4, G - 1);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// The float32 workspace launch_flash_prefill_bwd takes, in elements.
+extern "C" long long flash_prefill_bwd_ws_floats(int B, int S, int Hq,
+                                                 int Hkv, int D) {
+  return Hkv > 0 && Hq % Hkv == 0 ? ws_floats(B, S, Hq, Hkv, D) : -1;
+}
+
 // Causal self-attention's gradient: bf16 q, k, v, o, dO, float32 lse
-// (B, Hq, S); delta a float32 (B, Hq, S) scratch; float32 dq, dk, dv
-// written whole.  D in {64, 128}.  Limits checked by the wrapper:
-// contiguous tensors, 16-byte aligned, Hq % Hkv == 0.  Returns a runtime
-// error code.
+// (B, Hq, S); ws a float32 workspace of ws_n elements, at least
+// flash_prefill_bwd_ws_floats; float32 dq, dk, dv written whole.  D in
+// {64, 128}.  Limits checked by the wrapper: contiguous tensors, 16-byte
+// aligned, Hq % Hkv == 0.  Returns a runtime error code (invalid value
+// for a workspace too small), or 100000 + a CUresult if a TMA descriptor
+// could not be encoded.
 extern "C" int launch_flash_prefill_bwd(const void* q, const void* k,
                                         const void* v, const void* o,
                                         const void* dO, const void* lse,
-                                        void* delta, void* dq, void* dk,
-                                        void* dv, int B, int S, int Hq,
-                                        int Hkv, int D, float scale,
+                                        void* ws, long long ws_n, void* dq,
+                                        void* dk, void* dv, int B, int S,
+                                        int Hq, int Hkv, int D, float scale,
                                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B == 0 || S == 0 || Hq == 0) return (int)cudaGetLastError();
-  const bf16* Q = static_cast<const bf16*>(q);
-  const bf16* K = static_cast<const bf16*>(k);
-  const bf16* V = static_cast<const bf16*>(v);
+  if (Hkv <= 0 || Hq % Hkv != 0 || ws_n < ws_floats(B, S, Hq, Hkv, D))
+    return (int)cudaErrorInvalidValue;
   const bf16* O = static_cast<const bf16*>(o);
   const bf16* DO = static_cast<const bf16*>(dO);
   const float* L = static_cast<const float*>(lse);
-  float* Dl = static_cast<float*>(delta);
+  float* W = static_cast<float*>(ws);
   float* DQ = static_cast<float*>(dq);
   float* DK = static_cast<float*>(dk);
   float* DV = static_cast<float*>(dv);
   if (D == 64)
-    return launch<64>(Q, K, V, O, DO, L, Dl, DQ, DK, DV, B, S, Hq, Hkv,
-                      scale, s);
+    return launch<64>(q, k, v, O, DO, L, W, DQ, DK, DV, B, S, Hq, Hkv, scale,
+                      s);
   if (D == 128)
-    return launch<128>(Q, K, V, O, DO, L, Dl, DQ, DK, DV, B, S, Hq, Hkv,
+    return launch<128>(q, k, v, O, DO, L, W, DQ, DK, DV, B, S, Hq, Hkv,
                        scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,10 +1,12 @@
 // Hopper building blocks of the port's kernels, in PTX: mbarriers, TMA
 // tile loads (cp.async.bulk.tensor), warpgroup matrix products (wgmma) on
 // 128-byte-swizzled shared-memory tiles, and register reallocation
-// (setmaxnreg).  All need sm_90a.
+// (setmaxnreg), all of which need sm_90a; and the host side of TMA, the
+// tensor maps' encoding.
 #pragma once
 
 #include <cuda.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -71,6 +73,65 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
+
+// `bytes` contiguous bytes (a multiple of 16, both ends 16-byte aligned)
+// from global memory into shared memory at dst, counted on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// cuTensorMapEncodeTiled, fetched once through the runtime's entry-point
+// query (nullptr where it is missing), so that no library links libcuda.
+using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
+static inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A 4-D map over a (B, S, H, D) bf16 tensor, dims innermost first
+// (D, H, S, B), boxes of 64 columns x 1 head x `rows` tokens x 1 batch row
+// (128-byte rows, swizzled); reads past S within a batch row, and past D
+// within a row (D = 96: the second box's last 32 columns; D = 112: its
+// last 16), give zeros.
+static inline CUresult make_map(CUtensorMap* map, const void* ptr, int B,
+                                int S, int H, int D, int rows) {
+  const cuuint64_t s1 = S > 0 ? S : 1;   // a map needs non-empty dims
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, s1,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
+                                 s1 * H * D * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
+  return encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// a tensor map that cannot be encoded is reported past the runtime's
+// error codes
+constexpr int kDriverError = 100000;
 
 // --- register reallocation between warpgroups ------------------------------
 
@@ -153,6 +214,29 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float* d, uint64_t desc_a,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x 64 f32) (+)= A (64 x 16 bf16, shared memory, K-major) *
+// B^T (B 64 x 16 bf16, shared memory, K-major); scale_d 0 overwrites d
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float* d, uint64_t desc_a,
+                                                uint64_t desc_b,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}"
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 

@@ -43,7 +43,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
-# exported launch functions: name -> (library, C symbol, C signature)
+# exported functions: name -> (library, C symbol, C signature[, return
+# type, int by default])
 _SIGNATURES = {
     "sparse_decode_attention": (
         "sparse_decode_attention", "launch_sparse_decode_attention",
@@ -71,7 +72,9 @@ _SIGNATURES = {
     "flash_prefill": ("flash_prefill", "launch_flash_prefill",
                       [_P] * 5 + [_I] * 9 + [_F, _P]),
     "flash_prefill_bwd": ("flash_prefill_bwd", "launch_flash_prefill_bwd",
-                          [_P] * 10 + [_I] * 5 + [_F, _P]),
+                          [_P] * 7 + [_L] + [_P] * 3 + [_I] * 5 + [_F, _P]),
+    "flash_prefill_bwd_ws": ("flash_prefill_bwd",
+                             "flash_prefill_bwd_ws_floats", [_I] * 5, _L),
     "quantize_blocks": ("quant_blocks", "launch_quantize_blocks",
                         [_I, _P, _P, _P, _I, _I, _P]),
     "dequantize_blocks": ("quant_blocks", "launch_dequantize_blocks",
@@ -161,10 +164,10 @@ class KernelLibraries:
                                    "\n".join(errors))
             libs = {name: ctypes.CDLL(str(_lib_path(name)))
                     for name in KERNEL_SOURCES}
-            for name, (lib, sym, argtypes) in _SIGNATURES.items():
+            for name, (lib, sym, argtypes, *res) in _SIGNATURES.items():
                 fn = getattr(libs[lib], sym)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = res[0] if res else ctypes.c_int
                 self._fns[name] = fn
             self.build_seconds = time.perf_counter() - t0
             return self.build_seconds

@@ -800,9 +800,10 @@ def flash_prefill_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, o, do (B, S, Hq, D), k, v (B, S, Hkv, D), lse (B, Hq, S) from
     ``flash_prefill_fwd_lse`` -> (dq, dk, dv) float32, dk and dv summed
     over each GQA group.  On the GPU: the kernels of
-    ``csrc/flash_prefill_bwd.cu`` (Delta, dK and dV, dQ: three launches a
-    call, counted once), bfloat16 q, k, v, o, do, (D, Dv) in
-    ``FLASH_BWD_DIMS``; deterministic."""
+    ``csrc/flash_prefill_bwd.cu`` (Delta, dK and dV a CTA per query head
+    of each group, dQ, and the heads' shares of dK and dV summed in head
+    order where G > 1: one count a call), bfloat16 q, k, v, o, do, (D, Dv)
+    in ``FLASH_BWD_DIMS``; deterministic."""
     if _all_cpu(q, k, v, o, lse, do):
         return ref.flash_prefill_bwd(q, k, v, o, lse, do, scale)
     name = "flash_prefill_bwd"
@@ -818,13 +819,14 @@ def flash_prefill_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            f"{name}: needs q, o, do (B, S, Hq, D), k, v (B, S, Hkv, D), "
            f"lse (B, Hq, S), Hq % Hkv == 0, (D, Dv) in {FLASH_BWD_DIMS}")
     _check(_aligned(q, k, v, o, do), f"{name}: 16-byte alignment")
-    delta = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+    ws_n = LIBS.fn("flash_prefill_bwd_ws")(B, S, Hq, Hkv, D)
+    ws = torch.empty(ws_n, dtype=torch.float32, device=q.device)
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty(v.shape, dtype=torch.float32, device=q.device)
     rc = LIBS.fn(name)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                        o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                       delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                       ws.data_ptr(), ws_n, dq.data_ptr(), dk.data_ptr(),
                        dv.data_ptr(), B, S, Hq, Hkv, D, float(scale),
                        _stream())
     _raise_on(rc, name)

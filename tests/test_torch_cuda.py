@@ -1281,12 +1281,16 @@ def _grad_close(got, want):
                                            (1, 257, 32, 8, 128),
                                            (2, 64, 4, 4, 64),
                                            (1, 1, 7, 1, 128),
-                                           (1, 130, 8, 1, 128)])
+                                           (1, 130, 8, 1, 128),
+                                           (2, 1000, 14, 2, 64),
+                                           (1, 300, 7, 1, 128)])
 def test_flash_prefill_bwd_matches_plain(cuda, Bn, S, Hq, Hkv, D):
     """The forward's lse within 1e-3 and its output bit for bit the serve
     launch's; dq, dk, dv against the plain backward on the same
     bf16-rounded inputs; two launches give the same bits; one count a
-    call."""
+    call.  The cases: lengths ragged against the 128-key and 64- or
+    128-query tiles (1000, 300, 257, 130), S below one tile, G 1, G 4 at
+    D 128 (llama3-8b's), an odd G split into chunks (7, arctic-like)."""
     q, k, v, do = _bwd_case(cuda, Bn, S, Hq, Hkv, D)
     scale = D ** -0.5
     ops.launches.reset()
@@ -1307,6 +1311,16 @@ def test_flash_prefill_bwd_matches_plain(cuda, Bn, S, Hq, Hkv, D):
     # must fail the bar where the group has more than one head
     if Hq > Hkv and S > 1:
         assert not _grad_close(got[1] * (Hkv / Hq), want[1])
+    # and one that leaves the last chunk's partial dK and dV out of the
+    # sum: the kernels' own result with that chunk's dO zeroed (its P^T
+    # dO and dS^T Q vanish); a chunk is one head of each group
+    G = Hq // Hkv
+    if G > 1:
+        drop = do.clone()
+        drop[:, :, G - 1::G] = 0
+        _, dk, dv = ops.flash_prefill_bwd(q, k, v, o, lse, drop,
+                                          scale=scale)
+        assert not (_grad_close(dk, want[1]) and _grad_close(dv, want[2]))
 
 
 @pytest.mark.gpu

@@ -105,6 +105,42 @@ def test_backward_limits_raise_naming_the_roadmap_item():
         ops.flash_prefill(x, x, x, scale=0.25, q_offset=4)
 
 
+@pytest.mark.parametrize("shape", [
+    (1, 300, 7, 1, 32),      # an odd group (arctic-like), ragged
+    (2, 200, 14, 2, 16),     # qwen2-0.5b's group of 7 over 2 kv heads
+    (1, 257, 32, 8, 16),     # llama3-8b's G 4
+    (1, 130, 4, 2, 32),      # G 2, one row past a 128-key tile
+    (2, 64, 4, 4, 16),       # G 1: one chunk, no sum
+    (1, 100, 6, 3, 32)])     # G 2 over 3 kv heads, one ragged tile
+def test_backward_chunks_sum_to_the_gradient(shape):
+    """The split that the dK-dV kernel runs, in plain PyTorch: each query
+    head's share (its chunk) of dK and dV -- the plain backward with the
+    group's other heads' dO zeroed, which zeroes their P^T dO and dS^T Q
+    -- summed in head order gives the whole group's within float32
+    rounding, and with the last head's share left out fails the card's bar
+    (2e-2 of max |grad|)."""
+    Bn, Sn, Hq, Hkv, D = shape
+    G = Hq // Hkv
+    rng = np.random.default_rng(3)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(
+        (Bn, Sn, h, D)).astype(np.float32)) for h in (Hq, Hkv, Hkv, Hq))
+    o, lse = ops.flash_prefill_fwd_lse(q, k, v, scale=0.2)
+    _, dk, dv = ops.flash_prefill_bwd(q, k, v, o, lse, do, scale=0.2)
+    parts = []
+    for c in range(G):
+        keep = torch.zeros_like(do)
+        keep[:, :, c::G] = do[:, :, c::G]    # head c of every group
+        parts.append(ops.flash_prefill_bwd(q, k, v, o, lse, keep,
+                                           scale=0.2)[1:])
+    for i, want in enumerate((dk, dv)):
+        total = parts[0][i].clone()
+        for p in parts[1:]:
+            total += p[i]
+        bar = want.abs().max()
+        assert (total - want).abs().max() <= 1e-5 * bar
+        assert (total - parts[-1][i] - want).abs().max() > 2e-2 * bar
+
+
 # ---------------------------------------------------------------------------
 # Train steps against the reference's
 # ---------------------------------------------------------------------------
