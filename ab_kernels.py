@@ -27,7 +27,12 @@ its time and SDPA's backward's by CUDA events, and nvidia-smi's SM clock
 and power draw, sampled every 100 ms while it runs back to back for ~3 s
 (medians, extremes, the clock's maximum), and the training forward
 (flash_prefill's lse instance) at the same two shapes, inputs from seed
-+ 6, its digest over out and lse;
++ 6, its digest over out and lse; and, where the tree builds them,
+training's other instances, both the backward and the forward with lse,
+on inputs from seed + 7: MLA's (96, 64) heads at minicpm3-4b's run (B 1,
+S 4096, 40 over 40) and the non-causal mode at whisper-small's encoder
+(B 8, 1500 x 1500, 12 heads of 64) and cross-attention (B 8, 448 x
+1500), each beside SDPA's forward and backward;
 sparse_decode_attention at
 the serve's decode step (B 4, Hq 14, Hkv 2, NB 136, K 64, bs 32, D 64,
 cur_len 4112, every selection valid: 512 live blocks, as the serve
@@ -297,6 +302,25 @@ def main() -> int:
             lx = [torch.randn((b, n, h, d), generator=gen6, device=dev).to(
                 torch.bfloat16) for h in (hq, hkv, hkv)]
             cases[name] = cs.case_flash_lse(torch, ops, ref, *lx, d ** -0.5)
+    # training's instances beside them, where the tree builds them: MLA's
+    # (96, 64) heads at minicpm3-4b's run (B 1, S 4096, 40 over 40) and
+    # the non-causal mode at whisper-small's encoder (B 8, 1500 x 1500)
+    # and cross-attention (448 x 1500), 12 heads of 64, inputs from
+    # seed + 7: the backward and the forward with lse
+    gen7 = torch.Generator(device=dev).manual_seed(args.seed + 7)
+    if (96, 64) in getattr(ops, "FLASH_BWD_DIMS", ()):
+        for tag, (b, sq, sk, h, d, dv, causal) in {
+                "mla": (1, 4096, 4096, 40, 96, 64, True),
+                "nc_encoder": (8, 1500, 1500, 12, 64, 64, False),
+                "nc_cross": (8, 448, 1500, 12, 64, 64, False)}.items():
+            tq, tk, tv, tdo = [torch.randn(shape, generator=gen7,
+                                           device=dev).to(torch.bfloat16)
+                               for shape in ((b, sq, h, d), (b, sk, h, d),
+                                             (b, sk, h, dv), (b, sq, h, dv))]
+            cases[f"flash_prefill_bwd_{tag}"] = cs.case_flash_bwd(
+                torch, ops, ref, tq, tk, tv, tdo, d ** -0.5, causal)
+            cases[f"flash_prefill_lse_{tag}"] = cs.case_flash_lse(
+                torch, ops, ref, tq, tk, tv, d ** -0.5, causal)
     # the two recurrences at their serves' first prefill and a decode
     # launch, on inputs of their own
     gen3 = torch.Generator(device=dev).manual_seed(args.seed + 2)
@@ -708,7 +732,9 @@ def _bwd_products_probe(torch, cs, ops, dev, seed: int) -> dict:
                                    device=dev).to(torch.bfloat16)
                        for h in (hq, hkv, hkv, hq)]
         o, lse = ops.flash_prefill_fwd_lse(q, k, v, scale=d ** -0.5)
-        ws_n = ops.LIBS.fn("flash_prefill_bwd_ws")(b, n, hq, hkv, d)
+        # (B, Sq, Sk, Hq, Hkv, D, Dv), then causal
+        dims = (b, n, n, hq, hkv, d, d)
+        ws_n = ops.LIBS.fn("flash_prefill_bwd_ws")(*dims)
         ws = torch.empty(ws_n, dtype=torch.float32, device=dev)
         grads = [torch.empty(t.shape, dtype=torch.float32, device=dev)
                  for t in (q, k, v)]
@@ -716,7 +742,7 @@ def _bwd_products_probe(torch, cs, ops, dev, seed: int) -> dict:
         def call(fn):
             rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                     do.data_ptr(), lse.data_ptr(), ws.data_ptr(), ws_n,
-                    *[g.data_ptr() for g in grads], b, n, hq, hkv, d,
+                    *[g.data_ptr() for g in grads], *dims, 1,
                     d ** -0.5, torch.cuda.current_stream().cuda_stream)
             if rc != 0:
                 raise RuntimeError(f"flash_prefill_bwd launch failed ({rc})")

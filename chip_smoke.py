@@ -276,7 +276,25 @@ each printing one line (``phase=...``) and failing the run on any error:
    launched 48 times a step (the forward and remat's rerun of 24 layers,
    all with lse) and flash_prefill_bwd 24; ms per step, tokens per
    second, peak device memory; then a checkpoint of the params saved
-   and restored equal.
+   and restored equal.  The same kernels' training instances beyond
+   dense GQA, at the runs' shapes (TRAIN_CASES, with the same bars):
+   MLA's (96, 64) heads (B 1, S 4096, 40 over 40; records
+   flash_prefill:lse_mla, flash_prefill_bwd:mla), internvl2-2b's causal
+   (128, 128) heads (B 2, S 4096, 16 over 8) and whisper-small's decoder
+   self-attention (B 8, S 448, 12 over 12 of 64) under the records of
+   qwen2-0.5b's instance, and the non-causal mode over Sq != Sk (records
+   flash_prefill:lse_noncausal, flash_prefill_bwd:noncausal) at
+   whisper-small's encoder (B 8, 1500 x 1500), its cross-attention (448
+   x 1500) and the launcher's 16 frames, with one more planted fault
+   (the ragged last key tile left out of dQ).  Then minicpm3-4b (MLA),
+   internvl2-2b (256 patch embeddings ahead of 3,840 tokens, B 2) and
+   whisper-small (B 8, 1500 frames, 448 tokens) at full width and depth
+   (TRAIN_RUNS), 3 AdamW steps each, held as qwen2-0.5b's: step 1
+   against the plain attention, the loss falling, every attention's
+   launches by instance (``_want_launches``) and by shape.  Each
+   path=train case gets the runs' launches at its own shape (a record's
+   ``launches`` stays the phase's count of its name); a shape that the
+   runs launch without a parity line fails the phase.
 12. calibrate — the cost model's H100_80G against this card: a 1 GiB
    pinned-to-device copy, 4096 copy_ calls of one 8 KiB block from
    pinned memory and 2000 one-block gather_blocks_hkv launches (each the
@@ -373,13 +391,32 @@ KERNELS = {   # name -> (source in this repo, the TPU kernel it replaces)
         "src/repro_torch/csrc/flash_prefill_bwd.cu",
         "no TPU kernel: the gradient of flash_attention_jnp "
         "(src/repro/models/attention.py:90)"),
+    # training's instances at MLA's (96, 64) heads (minicpm3-4b) and in the
+    # non-causal mode over Sq != Sk (whisper-small's encoder and
+    # cross-attention): the forward with lse, then the backward
+    "flash_prefill:lse_mla": ("src/repro_torch/csrc/flash_prefill.cu",
+                              "src/repro/kernels/flash_prefill.py:71"),
+    "flash_prefill:lse_noncausal": ("src/repro_torch/csrc/flash_prefill.cu",
+                                    "src/repro/kernels/flash_prefill.py:71"),
+    "flash_prefill_bwd:mla": (
+        "src/repro_torch/csrc/flash_prefill_bwd.cu",
+        "no TPU kernel: the gradient of flash_attention_jnp "
+        "(src/repro/models/attention.py:90)"),
+    "flash_prefill_bwd:noncausal": (
+        "src/repro_torch/csrc/flash_prefill_bwd.cu",
+        "no TPU kernel: the gradient of flash_attention_jnp "
+        "(src/repro/models/attention.py:90)"),
 }
 # the serve path whose launches a kernel's record counts, where it is not
 # the fp serve (the transfer phase's and the int8 tier's are below)
 OWNERS = {"selective_scan": "models_jamba-v0.1-52b",
           "wkv6": "models_rwkv6-1.6b",
           "score_select:mean": "models_qwen2-0.5b-mean",
-          "flash_prefill:lse": "train", "flash_prefill_bwd": "train"}
+          "flash_prefill:lse": "train", "flash_prefill_bwd": "train",
+          "flash_prefill:lse_mla": "train",
+          "flash_prefill:lse_noncausal": "train",
+          "flash_prefill_bwd:mla": "train",
+          "flash_prefill_bwd:noncausal": "train"}
 # the flat FlashH2D / FlashD2H pair: no serve path calls them (in the
 # reference only benchmarks/bench_transfer.py does); the transfer phase
 # drives them
@@ -430,6 +467,8 @@ NO_LIBRARY = {
                         "forced top-k",
     "wkv6": "no PyTorch call computes the WKV recurrence",
     "flash_prefill_bwd": "SDPA refused the shape",
+    "flash_prefill_bwd:mla": "SDPA refused the shape",
+    "flash_prefill_bwd:noncausal": "SDPA refused the shape",
 }
 SHAPES = {"qwen2-0.5b": dict(Hq=14, Hkv=2, D=64),
           "llama3-8b": dict(Hq=32, Hkv=8, D=128)}
@@ -672,6 +711,43 @@ BWD_ERR, BWD_COS, LSE_ATOL = 2e-2, 0.999, 1e-3
 # attention: the kernels' bf16 inputs (2^-8 relative on q, k, v) move the
 # loss by far less than 1e-3 of it and the gradient norm by under 2%
 TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL = 1e-3, 0.02
+# the training runs' other attention shapes against their plain
+# versions: MLA's (96, 64) heads, causal, at minicpm3-4b's run (40 over
+# 40 heads); internvl2-2b's causal (128, 128) heads over 256 patches and
+# 3,840 tokens (16 over 8); whisper-small's decoder self-attention,
+# causal (64, 64) over its 448 tokens, and the non-causal mode at its
+# encoder (Sq = Sk = 1500) and cross-attention (448 decoder tokens over
+# 1500 frames), and over the launcher's 16 frames: (label, B, Sq, Sk,
+# Hq, Hkv, D, Dv, causal); "path=train" marks the shapes the runs below
+# launch, each of which gets the runs' launches at its shape
+TRAIN_CASES = (("path=train mla", 1, 4096, 4096, 40, 40, 96, 64, True),
+               ("path=train internvl2-2b", 2, 4096, 4096, 16, 8, 128, 128,
+                True),
+               ("path=train decoder", 8, 448, 448, 12, 12, 64, 64, True),
+               ("path=train encoder", 8, 1500, 1500, 12, 12, 64, 64, False),
+               ("path=train cross", 8, 448, 1500, 12, 12, 64, 64, False),
+               ("case=launcher_frames", 2, 448, 16, 12, 12, 64, 64, False))
+# the MLA and frontend families trained at full width after qwen2-0.5b,
+# smallest state first, each TRAIN_RUN_STEPS AdamW steps on one fixed
+# TokenStream batch from the seed, remat on, float32 weights, gradients
+# and moments, every layer: arch -> (B, text tokens, encoder frames).
+# whisper-small: 1500 frames (its encoder_seq_len, as the serve uses) and
+# 448 tokens (its published text context, arXiv:2212.04356);
+# internvl2-2b: 256 patch embeddings ahead of 3,840 tokens; minicpm3-4b:
+# ~68.2 GB of weights, gradients and moments (4.26 B parameters x 16
+# bytes) at all 62 layers.  The frontends' inputs are float32 normals x
+# 0.02 from the seed, as the serve's.
+TRAIN_RUNS = {"whisper-small": (8, 448, 1500),
+              "internvl2-2b": (2, 3840, 0),
+              "minicpm3-4b": (1, 4096, 0)}
+# their peak learning rate.  Through the kernels, on the fixed batch, the
+# loss rose at the third step above it: at qwen2-0.5b's 1e-3
+# minicpm3-4b's went 11.80 -> 10.08 -> 22.46, at 1e-4 internvl2-2b's
+# 11.79 -> 11.35 -> 14.13 (PERF.md §6, on one H100).  internvl2-2b's
+# rise at 1e-4 came with the plain float32 attention too; minicpm3-4b's
+# has no such run behind it (PERF.md §7).  At 1e-5 all three fall every
+# step
+TRAIN_RUN_STEPS, TRAIN_RUN_LR = 3, 1e-5
 # the calibrate phase: a 1 GiB link copy; 4096 copy_ calls of one fp-tier
 # block of one head (32 x 64 float32); 2000 one-block gather launches; the
 # fused gather at the fp serve's shape, (H, NB, bs, D, K) float32
@@ -3673,7 +3749,27 @@ def phase_obs(torch, np, ops, seed: int) -> None:
 
 # --- the train phase: flash_prefill's backward and dense GQA training ---
 
-def case_flash_bwd(torch, ops, ref, q, k, v, do, scale) -> tuple:
+def _visible(Sq: int, Sk: int, causal: bool) -> int:
+    """(query, key) pairs the attention sees over whole sequences."""
+    return _visible_pairs(Sq, Sk, 0) if causal else Sq * Sk
+
+
+def _sdpa(torch, q, k, v, scale, causal):
+    import torch.nn.functional as F
+    return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                          scale=scale, enable_gqa=True)
+
+
+def _attn_shape(q, k, v, causal: bool) -> str:
+    """A training attention call's shape, as its parity line and the
+    train runs' launches by shape name it."""
+    B_, Sq, Hq, D = q.shape
+    return (f"B={B_} Sq={Sq} Sk={k.shape[1]} Hq={Hq} Hkv={k.shape[2]} "
+            f"D={D} Dv={v.shape[3]} causal={causal}")
+
+
+def case_flash_bwd(torch, ops, ref, q, k, v, do, scale,
+                   causal: bool = True) -> tuple:
     """flash_prefill_bwd against the plain backward on the same bf16
     inputs (o and lse from the kernel's forward, handed to both): per
     gradient, max |err| <= BWD_ERR x max |grad| and a cosine >= BWD_COS
@@ -3681,11 +3777,11 @@ def case_flash_bwd(torch, ops, ref, q, k, v, do, scale) -> tuple:
     forward rounds P); two launches give the same bits.  Its library call
     is SDPA's backward at the same shape (the graph of one forward kept,
     its gradient taken again each call), where SDPA takes it."""
-    import torch.nn.functional as F
-    o, lse = ops.flash_prefill_fwd_lse(q, k, v, scale=scale)
-    got = ops.flash_prefill_bwd(q, k, v, o, lse, do, scale=scale)
-    again = ops.flash_prefill_bwd(q, k, v, o, lse, do, scale=scale)
-    want = ref.flash_prefill_bwd(q, k, v, o, lse, do, scale)
+    kw = dict(scale=scale, causal=causal)
+    o, lse = ops.flash_prefill_fwd_lse(q, k, v, **kw)
+    got = ops.flash_prefill_bwd(q, k, v, o, lse, do, **kw)
+    again = ops.flash_prefill_bwd(q, k, v, o, lse, do, **kw)
+    want = ref.flash_prefill_bwd(q, k, v, o, lse, do, scale, causal)
     torch.cuda.synchronize()
     same = all(torch.equal(a, b) for a, b in zip(got, again))
     errs, coss = [], []
@@ -3695,26 +3791,28 @@ def case_flash_bwd(torch, ops, ref, q, k, v, do, scale) -> tuple:
             g.flatten(), w.flatten(), dim=0).item())
     ok = same and max(errs) <= BWD_ERR and min(coss) >= BWD_COS
     err = max((g - w).abs().max().item() for g, w in zip(got, want))
-    B_, S, Hq, D = q.shape
-    Hkv = k.shape[2]
-    log(f"flash_prefill_bwd B={B_} S={S} Hq={Hq} Hkv={Hkv} D={D} "
+    B_, Sq, Hq, D = q.shape
+    Sk, Dv = k.shape[1], v.shape[3]
+    shape = _attn_shape(q, k, v, causal)
+    log(f"flash_prefill_bwd {shape} "
         f"err/max|grad| dq={errs[0]:.3e} dk={errs[1]:.3e} dv={errs[2]:.3e} "
         f"cosine dq={coss[0]:.6f} dk={coss[1]:.6f} dv={coss[2]:.6f} "
         f"repeat_bit_equal={same} (bar {BWD_ERR}, cosine >= {BWD_COS})")
-    ok = _bwd_planted_chunk(torch, ops, q, k, v, o, lse, do, scale,
+    ok = _bwd_planted_chunk(torch, ops, q, k, v, o, lse, do, kw,
                             want) and ok
-    pairs = S * (S + 1) // 2
-    # 5 products of 2 D flops per visible (query, key) pair and query head
-    nops = 10 * D * pairs * Hq * B_
-    nbytes = ((3 * q.numel() + 2 * k.numel()) * 2 + lse.numel() * 4
-              + (q.numel() + 2 * k.numel()) * 4)
+    ok = _bwd_planted_tile(torch, ref, q, k, v, o, lse, do, scale,
+                           causal, got) and ok
+    # 5 products per visible (query, key) pair and query head: S and dQ
+    # and dK of 2 D flops, dP and dV of 2 Dv
+    nops = 2 * (3 * D + 2 * Dv) * _visible(Sq, Sk, causal) * Hq * B_
+    nbytes = ((q.numel() + 2 * o.numel() + k.numel() + v.numel()) * 2
+              + lse.numel() * 4 + (q.numel() + k.numel() + v.numel()) * 4)
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
     dot = do.transpose(1, 2)
     lib = None
     try:
-        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                             scale=scale, enable_gqa=True)
+        out = _sdpa(torch, qt, kt, vt, scale, causal)
         lib = lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
                                           retain_graph=True)
         lib()
@@ -3724,13 +3822,13 @@ def case_flash_bwd(torch, ops, ref, q, k, v, do, scale) -> tuple:
             f"{str(e).splitlines()[0][:200]}")
         lib = None
     return (err, ok, lambda: ops.flash_prefill_bwd(q, k, v, o, lse, do,
-                                                   scale=scale),
-            lambda: ref.flash_prefill_bwd(q, k, v, o, lse, do, scale),
-            nbytes, nops, f"B={B_} S={S} Hq={Hq} Hkv={Hkv} D={D}", lib)
+                                                   **kw),
+            lambda: ref.flash_prefill_bwd(q, k, v, o, lse, do, scale,
+                                          causal),
+            nbytes, nops, shape, lib)
 
 
-def _bwd_planted_chunk(torch, ops, q, k, v, o, lse, do, scale,
-                       want) -> bool:
+def _bwd_planted_chunk(torch, ops, q, k, v, o, lse, do, kw, want) -> bool:
     """A planted fault for the backward's chunked dK-dV (a chunk is one
     query head of each GQA group): the last chunk's partial dK and dV left
     out of the group's sum (the kernels' own result with that head's dO
@@ -3747,7 +3845,7 @@ def _bwd_planted_chunk(torch, ops, q, k, v, o, lse, do, scale,
         return True
     drop = do.clone()
     drop[:, :, G - 1::G] = 0
-    _, dk, dv = ops.flash_prefill_bwd(q, k, v, o, lse, drop, scale=scale)
+    _, dk, dv = ops.flash_prefill_bwd(q, k, v, o, lse, drop, **kw)
     passed = True
     for g, w in ((dk, want[1]), (dv, want[2])):
         err = (g - w).abs().max().item() / w.abs().max().item()
@@ -3759,65 +3857,92 @@ def _bwd_planted_chunk(torch, ops, q, k, v, o, lse, do, scale,
     return not passed
 
 
-def case_flash_lse(torch, ops, ref, q, k, v, scale) -> tuple:
+def _bwd_planted_tile(torch, ref, q, k, v, o, lse, do, scale, causal,
+                      got) -> bool:
+    """A planted fault for the non-causal mode's ragged key tile: dq of a
+    backward that left the keys of the last 128-key tile out (the plain
+    one over the keys before it) must fail BWD_ERR / BWD_COS against the
+    kernels' dq.  Prints one line; True when caught, or when there is no
+    ragged tile of 16 keys or more to leave out (causal, or Sk a multiple
+    of 128 or at most 128)."""
+    Sk = k.shape[1]
+    head = f"flash_prefill_bwd Sk={Sk} causal={causal}"
+    if causal or Sk <= 128 or Sk % 128 < 16:
+        log(f"{head} planted_fault=none (no ragged key tile to drop)")
+        return True
+    cut = Sk // 128 * 128
+    short = ref.flash_prefill_bwd(q, k[:, :cut].contiguous(),
+                                  v[:, :cut].contiguous(), o, lse, do,
+                                  scale, causal=False)[0]
+    err = (got[0] - short).abs().max().item() / short.abs().max().item()
+    cos = torch.nn.functional.cosine_similarity(
+        got[0].flatten(), short.flatten(), dim=0).item()
+    caught = not (err <= BWD_ERR and cos >= BWD_COS)
+    log(f"{head} planted_fault=\"keys {cut}-{Sk - 1} left out\" "
+        f"caught={caught}")
+    return caught
+
+
+def case_flash_lse(torch, ops, ref, q, k, v, scale,
+                   causal: bool = True) -> tuple:
     """The forward with its lse output against the plain version: the
     output within case_flash's tolerance, lse within LSE_ATOL (natural
     log; the kernel's exp2 and its sums in float32)."""
-    out, lse = ops.flash_prefill_fwd_lse(q, k, v, scale=scale)
-    want, want_lse = ref.flash_prefill_fwd_lse(q, k, v, scale=scale)
+    kw = dict(scale=scale, causal=causal)
+    out, lse = ops.flash_prefill_fwd_lse(q, k, v, **kw)
+    want, want_lse = ref.flash_prefill_fwd_lse(q, k, v, **kw)
     torch.cuda.synchronize()
-    err, ok, _ = _flash_close(out, want, _abs_weight(ref, q, k, v,
-                                                     scale=scale))
+    err, ok, _ = _flash_close(out, want, _abs_weight(ref, q, k, v, **kw))
     lse_err = (lse - want_lse).abs().max().item()
-    serve_bits = torch.equal(out, ops.flash_prefill(q, k, v, scale=scale))
-    B_, S, Hq, D = q.shape
-    log(f"flash_prefill:lse B={B_} S={S} Hq={Hq} D={D} out_max_abs_err="
+    serve_bits = torch.equal(out, ops.flash_prefill(q, k, v, **kw))
+    B_, Sq, Hq, D = q.shape
+    Sk, Dv = k.shape[1], v.shape[3]
+    shape = _attn_shape(q, k, v, causal)
+    log(f"flash_prefill:lse {shape} out_max_abs_err="
         f"{err:.3e} ok={ok} lse_max_abs_err={lse_err:.3e} (bar {LSE_ATOL}) "
         f"out_bit_equal_to_the_serve_launch={serve_bits}")
     ok = ok and lse_err <= LSE_ATOL and serve_bits
     nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * 2 + \
         lse.numel() * 4
-    nops = 2 * B_ * Hq * 2 * D * (S * (S + 1) // 2)
-    import torch.nn.functional as F
+    nops = 2 * B_ * Hq * (D + Dv) * _visible(Sq, Sk, causal)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     return (max(err, lse_err), ok,
-            lambda: ops.flash_prefill_fwd_lse(q, k, v, scale=scale),
-            lambda: ref.flash_prefill_fwd_lse(q, k, v, scale=scale),
-            nbytes, nops, f"B={B_} S={S} Hq={Hq} Hkv={k.shape[2]} D={D}",
-            lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True))
+            lambda: ops.flash_prefill_fwd_lse(q, k, v, **kw),
+            lambda: ref.flash_prefill_fwd_lse(q, k, v, **kw),
+            nbytes, nops, shape,
+            lambda: _sdpa(torch, qt, kt, vt, scale, causal))
 
 
 def _fwd_bwd_line(torch, ops, timer, label, q, k, v, do, results,
-                  card) -> None:
+                  card, names=("flash_prefill_bwd", "flash_prefill:lse"),
+                  causal: bool = True) -> None:
     """One line per train case: the backward's timer and device ms
     against its FLOP bound and SDPA's backward, and a training step's
     attention, forward (with lse) and backward, timed beside SDPA's
     forward and backward at the same shape (where SDPA takes it)."""
-    import torch.nn.functional as F
-    bwd, fwd = (results["flash_prefill_bwd"][label],
-                results["flash_prefill:lse"][label])
-    scale = q.shape[-1] ** -0.5
+    bwd, fwd = results[names[0]][label], results[names[1]][label]
+    kw = dict(scale=q.shape[-1] ** -0.5, causal=causal)
 
     def ours():
-        o, lse = ops.flash_prefill_fwd_lse(q, k, v, scale=scale)
-        return ops.flash_prefill_bwd(q, k, v, o, lse, do, scale=scale)
+        o, lse = ops.flash_prefill_fwd_lse(q, k, v, **kw)
+        return ops.flash_prefill_bwd(q, k, v, o, lse, do, **kw)
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
 
     def sdpa():
-        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                             scale=scale, enable_gqa=True)
+        out = _sdpa(torch, qt, kt, vt, kw["scale"], causal)
         return torch.autograd.grad(out, (qt, kt, vt), do.transpose(1, 2))
     sdpa_ms = timer(sdpa) if bwd["library_ms"] is not None else None
-    o, lse = ops.flash_prefill_fwd_lse(q, k, v, scale=scale)
+    o, lse = ops.flash_prefill_fwd_lse(q, k, v, **kw)
     split = device_ms(torch, lambda: ops.flash_prefill_bwd(
-        q, k, v, o, lse, do, scale=scale), by_kernel="flash_bwd_")
-    B_, S, Hq, D = q.shape
+        q, k, v, o, lse, do, **kw), by_kernel="flash_bwd_")
+    B_, Sq, Hq, D = q.shape
+    Sk, Dv = k.shape[1], v.shape[3]
     # the design's own floor: seven products (dQ's kernel recomputes S and
-    # dP) of 2 D flops per visible pair and query head
-    floor7 = 14 * D * (S * (S + 1) // 2) * Hq * B_ / BF16_OPS_PER_S * 1e3
-    line = (f"phase=train {label} kernel=flash_prefill_bwd "
+    # dP) per visible pair and query head
+    floor7 = (2 * (4 * D + 3 * Dv) * _visible(Sq, Sk, causal) * Hq * B_
+              / BF16_OPS_PER_S * 1e3)
+    line = (f"phase=train {label} kernel={names[0]} "
             f"device_ms_by_kernel={json.dumps(split)} "
             f"bwd_ms={bwd['ms']:.4f} device_ms={bwd['device_ms']:.5f} "
             f"events_ms={bwd['events_ms']:.4f} "
@@ -3825,8 +3950,11 @@ def _fwd_bwd_line(torch, ops, timer, label, q, k, v, do, results,
             f"count of five products) seven_product_floor_ms={floor7:.4f} "
             f"sdpa_bwd_ms=" + (f"{bwd['library_ms']:.4f}"
                                if bwd["library_ms"] is not None else "None")
-            + f" fwd_lse_ms={fwd['ms']:.4f} fwd_plus_bwd_ms="
-            f"{timer(ours):.4f} sdpa_fwd_plus_bwd_ms="
+            + f" fwd_lse_ms={fwd['ms']:.4f} fwd_lse_events_ms="
+            f"{fwd['events_ms']:.4f} sdpa_fwd_ms="
+            + (f"{fwd['library_ms']:.4f}" if fwd["library_ms"] is not None
+               else "None")
+            + f" fwd_plus_bwd_ms={timer(ours):.4f} sdpa_fwd_plus_bwd_ms="
             + (f"{sdpa_ms:.4f}" if sdpa_ms is not None else "None")
             + f" card=[{card}]")
     log(line)
@@ -3835,80 +3963,117 @@ def _fwd_bwd_line(torch, ops, timer, label, q, k, v, do, results,
 def _plain_attention(torch, ref):
     """``ops.flash_prefill``'s stand-in for the train phase's check: the
     plain forward (with lse) and plain backward as an autograd Function,
-    float32 on the card.  Only this script patches it in; the trainer has
-    no such option."""
+    float32 on the card, causal or not.  Only this script patches it in;
+    the trainer has no such option."""
     class PlainFlash(torch.autograd.Function):
         @staticmethod
-        def forward(ctx, q, k, v, scale):
-            o, lse = ref.flash_prefill_fwd_lse(q, k, v, scale=scale)
+        def forward(ctx, q, k, v, scale, causal):
+            o, lse = ref.flash_prefill_fwd_lse(q, k, v, scale=scale,
+                                               causal=causal)
             ctx.save_for_backward(q, k, v, o, lse)
-            ctx.scale = scale
+            ctx.scale, ctx.causal = scale, causal
             return o
 
         @staticmethod
         def backward(ctx, do):
             q, k, v, o, lse = ctx.saved_tensors
-            return ref.flash_prefill_bwd(q, k, v, o, lse, do,
-                                         ctx.scale) + (None,)
+            return ref.flash_prefill_bwd(q, k, v, o, lse, do, ctx.scale,
+                                         ctx.causal) + (None, None)
 
     def flash(q, k, v, *, scale, causal=True, q_offset=0):
-        if not causal or int(q_offset):
-            raise AssertionError("train: the plain stand-in takes causal "
-                                 "self-attention only")
-        return PlainFlash.apply(q, k, v, float(scale))
+        if int(q_offset):
+            raise AssertionError("train: the plain stand-in takes whole "
+                                 "sequences only")
+        return PlainFlash.apply(q, k, v, float(scale), bool(causal))
     return flash
 
 
-def phase_train(torch, np, ops, ref, timer, seed: int) -> tuple:
-    """flash_prefill_bwd and the forward's lse against their plain
-    versions at BWD_CASES and at the training run's shape (timed beside
-    SDPA), then qwen2-0.5b at full width and depth trained TRAIN_STEPS
-    AdamW steps (B TRAIN_B, S TRAIN_S, remat on) on one fixed TokenStream
-    batch: step 1's loss and grad norm held against the same step with
-    the plain attention (float32, patched in here), the loss of the last
-    step below the first's, the launches of flash_prefill (forward and
-    remat's rerun: 2 per layer a step) and flash_prefill_bwd (1 per layer
-    a step) counted over the run; then a checkpoint's save and restore.
-    Returns ({kernel: {case: result}}, launches of the run)."""
+def _want_launches(cfg, steps: int) -> dict:
+    """Each training kernel's launches over ``steps`` steps of ``cfg``
+    with remat on: every decoder layer's self-attention forward twice (the
+    step and remat's rerun) and backward once, and Whisper's
+    cross-attention the same; the encoder's (not checkpointed) once
+    each.  Every forward is the lse instance."""
+    L = cfg.num_layers
+    E = cfg.encoder_layers if cfg.is_encoder_decoder else 0
+    X = L if cfg.is_encoder_decoder else 0        # cross-attentions
+    mla = cfg.attention_type == "mla"
+    want = {"flash_prefill": 2 * L + E + 2 * X,
+            "flash_prefill:lse": 2 * L + E + 2 * X,
+            "flash_prefill_bwd": L + E + X,
+            "flash_prefill:lse_mla": 2 * L if mla else 0,
+            "flash_prefill_bwd:mla": L if mla else 0,
+            "flash_prefill:lse_noncausal": E + 2 * X,
+            "flash_prefill_bwd:noncausal": E + X}
+    return {k: n * steps for k, n in want.items()}
+
+
+class _ShapeTally:
+    """While entered, the launches of training's forward (with lse) and
+    backward counted by ``_attn_shape``, beside the wrappers' own counts:
+    {"flash_prefill:lse" or "flash_prefill_bwd": {shape: calls}}.  The
+    wrappers are patched in ``ops``, whose FlashPrefillFn calls them."""
+
+    def __init__(self, ops):
+        self.ops = ops
+        self.calls = {"flash_prefill:lse": {}, "flash_prefill_bwd": {}}
+
+    def _wrap(self, key, fn):
+        def call(q, k, v, *args, causal=True, **kw):
+            shape = _attn_shape(q, k, v, causal)
+            self.calls[key][shape] = self.calls[key].get(shape, 0) + 1
+            return fn(q, k, v, *args, causal=causal, **kw)
+        return call
+
+    def __enter__(self):
+        self.saved = (self.ops.flash_prefill_fwd_lse,
+                      self.ops.flash_prefill_bwd)
+        self.ops.flash_prefill_fwd_lse = self._wrap("flash_prefill:lse",
+                                                    self.saved[0])
+        self.ops.flash_prefill_bwd = self._wrap("flash_prefill_bwd",
+                                                self.saved[1])
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.flash_prefill_fwd_lse, self.ops.flash_prefill_bwd = \
+            self.saved
+
+
+def _train_run(torch, np, ops, ref, arch: str, Bn: int, S: int, frames: int,
+               steps: int, lr: float, seed: int, card: str) -> tuple:
+    """``arch`` at full width trained ``steps`` AdamW steps (peak ``lr``,
+    one warm-up step, cosine) at B ``Bn`` x ``S`` text tokens with remat on,
+    on one fixed TokenStream batch from ``seed`` (Whisper's ``frames``
+    encoder frames and a VLM's patch embeddings, float32 normals x 0.02,
+    beside it): step 1's loss and grad norm first with the plain float32
+    attention patched in (before the optimizer's moments exist, so that
+    it fits beside the weights and gradients), then every step through
+    the kernels; the loss of the last step below the first's; each
+    training kernel's launches counted over the steps and held to
+    ``_want_launches`` and by shape (``_ShapeTally``).  Prints four
+    lines.  Returns (params, opt state, launches, launches by shape)."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, TokenStream
     from repro_torch.models import model as M
     from repro_torch.training import trainer as T
-    from repro_torch.training.checkpoint import (restore_checkpoint,
-                                                 save_checkpoint)
     from repro_torch.training.optimizer import (AdamWConfig, global_norm,
                                                 init_opt_state)
-    t_phase = time.perf_counter()
-    card = _card()
     dev = torch.device("cuda")
-    results = {}
-    cfg = get_config(TRAIN_ARCH)
-    train_shape = ("path=train", TRAIN_B, TRAIN_S, cfg.num_heads,
-                   cfg.num_kv_heads, cfg.head_dim)
-    for i, (label, Bn, S, Hq, Hkv, D) in enumerate(BWD_CASES
-                                                   + (train_shape,)):
-        gen = torch.Generator(device=dev).manual_seed(seed + 100 + i)
-        q, k, v, do = (torch.randn((Bn, S, h, D), generator=gen,
-                                   device=dev).to(torch.bfloat16)
-                       for h in (Hq, Hkv, Hkv, Hq))
-        if label != "path=train":
-            label = f"case={label}"
-        for name, case in (
-                ("flash_prefill_bwd", case_flash_bwd(
-                    torch, ops, ref, q, k, v, do, D ** -0.5)),
-                ("flash_prefill:lse", case_flash_lse(
-                    torch, ops, ref, q, k, v, D ** -0.5))):
-            res = run_case("train", label, name, case, timer, device=True)
-            results.setdefault(name, {})[label] = res
-        _fwd_bwd_line(torch, ops, timer, label, q, k, v, do, results, card)
-        del q, k, v, do
-    _free_memory(torch)
-
+    cfg = get_config(arch)
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = T.trainable(M.init_params(cfg, gen, torch.float32, dev))
     batch = T.batch_to(TokenStream(DataConfig(
-        vocab_size=cfg.vocab_size, seq_len=TRAIN_S, global_batch=TRAIN_B,
+        vocab_size=cfg.vocab_size, seq_len=S, global_batch=Bn,
         seed=seed)).batch(), dev)
+    if cfg.is_encoder_decoder:
+        batch["frames"] = torch.randn((Bn, frames, cfg.d_model),
+                                      generator=gen, device=dev) * 0.02
+    if cfg.frontend == "vit_patch_stub":
+        batch["patch_embeds"] = torch.randn(
+            (Bn, cfg.num_patches, cfg.d_model), generator=gen,
+            device=dev) * 0.02
+    positions = Bn * (S + (cfg.num_patches
+                           if cfg.frontend == "vit_patch_stub" else 0))
     # step 1 with the plain attention, then the same weights through the
     # kernels (the trainer's only route)
     kernel_flash = ops.flash_prefill
@@ -3923,60 +4088,154 @@ def phase_train(torch, np, ops, ref, timer, seed: int) -> tuple:
     del grads
     _free_memory(torch)
     step = T.make_train_step(cfg, AdamWConfig(
-        lr=1e-3, warmup_steps=1, total_steps=TRAIN_STEPS), remat=True)
+        lr=lr, warmup_steps=1, total_steps=steps), remat=True)
     opt = init_opt_state(params)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.launches.reset()
     losses, gnorms, times = [], [], []
-    for _ in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
-        params, opt, m = step(params, opt, batch)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        losses.append(m["loss"])
-        gnorms.append(m["grad_norm"])
+    with _ShapeTally(ops) as tally:
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(m["loss"])
+            gnorms.append(m["grad_norm"])
     counts = ops.launches.snapshot()
     peak = torch.cuda.max_memory_allocated()
     losses = [x.item() for x in losses]
     gnorms = [x.item() for x in gnorms]
     steady = statistics.mean(times[1:])
-    log(f"phase=train arch={TRAIN_ARCH} layers={cfg.num_layers} "
+    want = _want_launches(cfg, steps)
+    frontend = (f" frames={frames}" if cfg.is_encoder_decoder else
+                f" patches={cfg.num_patches}"
+                if cfg.frontend == "vit_patch_stub" else "")
+    log(f"phase=train arch={arch} layers={cfg.num_layers} "
         f"d_model={cfg.d_model} heads={cfg.num_heads}/{cfg.num_kv_heads} "
-        f"vocab={cfg.vocab_size} B={TRAIN_B} S={TRAIN_S} steps={TRAIN_STEPS}"
-        f" remat=True losses={[round(x, 5) for x in losses]} "
+        f"vocab={cfg.vocab_size} B={Bn} S={S}{frontend} steps={steps} "
+        f"lr={lr:g} remat=True losses={[round(x, 5) for x in losses]} "
         f"grad_norms={[round(x, 5) for x in gnorms]} card=[{card}]")
-    log(f"phase=train arch={TRAIN_ARCH} step1_ms={times[0] * 1e3:.1f} "
-        f"ms_per_step={steady * 1e3:.1f} (steps 2-{TRAIN_STEPS}) "
-        f"tokens_per_s={TRAIN_B * TRAIN_S / steady:.1f} "
-        f"peak_mem_gb={peak / 1e9:.3f} launches_per_step flash_prefill="
-        f"{counts['flash_prefill'] / TRAIN_STEPS:g} flash_prefill:lse="
-        f"{counts.get('flash_prefill:lse', 0) / TRAIN_STEPS:g} "
-        f"flash_prefill_bwd={counts['flash_prefill_bwd'] / TRAIN_STEPS:g} "
-        f"card=[{card}]")
+    log(f"phase=train arch={arch} step1_ms={times[0] * 1e3:.1f} "
+        f"ms_per_step={steady * 1e3:.1f} (steps 2-{steps}) "
+        f"tokens_per_s={Bn * S / steady:.1f} (text tokens; "
+        f"{positions / steady:.1f} decoder positions) "
+        f"peak_mem_gb={peak / 1e9:.3f} launches_per_step "
+        + " ".join(f"{k}={counts.get(k, 0) / steps:g}" for k in want)
+        + f" card=[{card}]")
+    log(f"phase=train arch={arch} launches_per_step_by_shape "
+        + json.dumps({k: {sh: n / steps for sh, n in c.items()}
+                      for k, c in tally.calls.items()})
+        + f" card=[{card}]")
     loss_rel = abs(losses[0] - plain[0]) / abs(plain[0])
     gn_rel = abs(gnorms[0] - plain[1]) / abs(plain[1])
-    log(f"phase=train step1 kernel_loss={losses[0]:.6f} plain_loss="
-        f"{plain[0]:.6f} rel={loss_rel:.3e} (bar {TRAIN_LOSS_RTOL}) "
-        f"kernel_grad_norm={gnorms[0]:.6f} plain_grad_norm={plain[1]:.6f} "
-        f"rel={gn_rel:.3e} (bar {TRAIN_GNORM_RTOL}) plain_step_s="
-        f"{plain_s:.2f} card=[{card}]")
-    L = cfg.num_layers
-    want = {"flash_prefill": 2 * L * TRAIN_STEPS,
-            "flash_prefill:lse": 2 * L * TRAIN_STEPS,
-            "flash_prefill_bwd": L * TRAIN_STEPS}
+    log(f"phase=train arch={arch} step1 kernel_loss={losses[0]:.6f} "
+        f"plain_loss={plain[0]:.6f} rel={loss_rel:.3e} (bar "
+        f"{TRAIN_LOSS_RTOL}) kernel_grad_norm={gnorms[0]:.6f} "
+        f"plain_grad_norm={plain[1]:.6f} rel={gn_rel:.3e} (bar "
+        f"{TRAIN_GNORM_RTOL}) plain_step_s={plain_s:.2f} card=[{card}]")
     if any(counts.get(k, 0) != n for k, n in want.items()):
-        raise AssertionError(f"train: launches {counts} are not {want}")
+        raise AssertionError(f"train {arch}: launches {counts} are not "
+                             f"{want}")
     if not all(np.isfinite(losses + gnorms)) or losses[-1] >= losses[0]:
-        raise AssertionError(f"train: the loss did not fall: {losses}")
+        raise AssertionError(f"train {arch}: the loss did not fall: "
+                             f"{losses}")
     if loss_rel > TRAIN_LOSS_RTOL or gn_rel > TRAIN_GNORM_RTOL:
-        raise AssertionError("train: step 1 disagrees with the plain "
-                             "attention's")
-    results["flash_prefill_bwd"]["path=train"]["launches"] = \
-        counts["flash_prefill_bwd"]
-    results["flash_prefill:lse"]["path=train"]["launches"] = \
-        counts["flash_prefill:lse"]
+        raise AssertionError(f"train {arch}: step 1 disagrees with the "
+                             f"plain attention's")
+    return params, opt, counts, tally.calls
 
+
+def phase_train(torch, np, ops, ref, timer, seed: int) -> tuple:
+    """flash_prefill_bwd and the forward's lse against their plain
+    versions at BWD_CASES, at the qwen2-0.5b training run's shape and at
+    TRAIN_CASES (timed beside SDPA), then qwen2-0.5b at full width and
+    depth trained TRAIN_STEPS AdamW steps (B TRAIN_B, S TRAIN_S) and a
+    checkpoint's save and restore, then each of TRAIN_RUNS trained
+    TRAIN_RUN_STEPS steps (``_train_run``: step 1 held against the plain
+    attention, the loss falling, every attention's launches counted).
+    Each "path=train" case's record gets the runs' launches at its shape,
+    and every shape the runs launch must have such a case.  Returns
+    ({kernel: {case: result}}, launches of the runs summed)."""
+    from repro_torch.configs import get_config
+    from repro_torch.training import trainer as T
+    from repro_torch.training.checkpoint import (restore_checkpoint,
+                                                 save_checkpoint)
+    t_phase = time.perf_counter()
+    card = _card()
+    dev = torch.device("cuda")
+    results = {}
+    cfg = get_config(TRAIN_ARCH)
+    train_shape = ("path=train", TRAIN_B, TRAIN_S, cfg.num_heads,
+                   cfg.num_kv_heads, cfg.head_dim)
+    cases = [(label if label == "path=train" else f"case={label}", Bn, S,
+              S, Hq, Hkv, D, D, True)
+             for label, Bn, S, Hq, Hkv, D in BWD_CASES + (train_shape,)]
+    for i, (label, Bn, Sq, Sk, Hq, Hkv, D, Dv, causal) in enumerate(
+            cases + list(TRAIN_CASES)):
+        gen = torch.Generator(device=dev).manual_seed(seed + 100 + i)
+        q, do = (torch.randn((Bn, Sq, Hq, d), generator=gen,
+                             device=dev).to(torch.bfloat16) for d in (D, Dv))
+        k, v = (torch.randn((Bn, Sk, Hkv, d), generator=gen,
+                            device=dev).to(torch.bfloat16) for d in (D, Dv))
+        mode = ("mla" if (D, Dv) == (96, 64) else
+                "noncausal" if not causal else None)
+        names = ((f"flash_prefill_bwd:{mode}", f"flash_prefill:lse_{mode}")
+                 if mode else ("flash_prefill_bwd", "flash_prefill:lse"))
+        for name, case in (
+                (names[0], case_flash_bwd(torch, ops, ref, q, k, v, do,
+                                          D ** -0.5, causal)),
+                (names[1], case_flash_lse(torch, ops, ref, q, k, v,
+                                          D ** -0.5, causal))):
+            res = run_case("train", label, name, case, timer, device=True)
+            results.setdefault(name, {})[label] = res
+        _fwd_bwd_line(torch, ops, timer, label, q, k, v, do, results, card,
+                      names, causal)
+        del q, k, v, do
+    _free_memory(torch)
+
+    totals: dict = {}
+    by_shape = {"flash_prefill:lse": {}, "flash_prefill_bwd": {}}
+    runs = [(TRAIN_ARCH, TRAIN_B, TRAIN_S, 0, TRAIN_STEPS, 1e-3)] + [
+        (arch, Bn, S, frames, TRAIN_RUN_STEPS, TRAIN_RUN_LR)
+        for arch, (Bn, S, frames) in TRAIN_RUNS.items()]
+    for arch, Bn, S, frames, steps, lr in runs:
+        params, opt, counts, calls = _train_run(
+            torch, np, ops, ref, arch, Bn, S, frames, steps, lr, seed, card)
+        for k, n in counts.items():
+            totals[k] = totals.get(k, 0) + n
+        for k, c in calls.items():
+            for shape, n in c.items():
+                by_shape[k][shape] = by_shape[k].get(shape, 0) + n
+        if arch == TRAIN_ARCH:
+            _checkpoint_check(torch, T, params, save_checkpoint,
+                              restore_checkpoint, card)
+        del params, opt
+        _free_memory(torch)
+    # each path=train record's launches: the runs' at its shape; the
+    # tally's sum must be the wrappers' count, every shape the runs
+    # launched must have a parity line, and every such line a launch
+    for key, calls in by_shape.items():
+        recs = [r for name, cases in results.items() if name.startswith(key)
+                for label, r in cases.items()
+                if label.split()[0] == "path=train"]
+        for r in recs:
+            r["launches"] = calls.get(r["shape"], 0)
+        if (sum(calls.values()) != totals.get(key, 0)
+                or set(calls) - {r["shape"] for r in recs}
+                or not all(r["launches"] for r in recs)):
+            raise AssertionError(
+                f"train: {key} launched {calls} ({totals.get(key, 0)} "
+                f"counted) against the parity lines at "
+                f"{sorted(r['shape'] for r in recs)}")
+    log(f"phase=train seconds={time.perf_counter() - t_phase:.1f} "
+        f"card=[{card}]")
+    return results, totals
+
+
+def _checkpoint_check(torch, T, params, save_checkpoint, restore_checkpoint,
+                      card: str) -> None:
+    """A checkpoint of the params saved and restored equal."""
     ck_dir = REPO / "src" / "repro_torch" / "_build" / "train_ckpt"
     ck_dir.mkdir(parents=True, exist_ok=True)
     ck = ck_dir / "ckpt.npz"
@@ -3994,11 +4253,7 @@ def phase_train(torch, np, ops, ref, timer, seed: int) -> tuple:
         f"seconds={time.perf_counter() - t0:.1f} card=[{card}]")
     if not same:
         raise AssertionError("train: the restored params differ")
-    del params, opt, back
-    _free_memory(torch)
-    log(f"phase=train seconds={time.perf_counter() - t_phase:.1f} "
-        f"card=[{card}]")
-    return results, counts
+    del back
 
 
 # --- the calibrate phase: H100_80G's measured fields ---

@@ -438,8 +438,9 @@ int launch(const void* q, const void* k, const void* v, void* out,
 // causal, or every query over every key (causal == 0: q_offset is
 // ignored).  lse: null (serving), or a float32 (B, Hq, Sq) buffer that
 // takes each row's log-sum-exp (training's forward, whose backward is
-// flash_prefill_bwd.cu; D = Dv in {64, 128} only).  Limits checked by the wrapper: contiguous
-// (B, S, H, D|Dv) tensors, 16-byte aligned, Hq % Hkv == 0, q_offset >= 0.
+// flash_prefill_bwd.cu; (D, Dv) in {(64, 64), (128, 128), (96, 64)},
+// either mode).  Limits checked by the wrapper: contiguous (B, S, H,
+// D|Dv) tensors, 16-byte aligned, Hq % Hkv == 0, q_offset >= 0.
 // Returns a runtime error code, or 100000 + a CUresult if a TMA
 // descriptor could not be encoded.
 extern "C" int launch_flash_prefill(const void* q, const void* k,
@@ -452,13 +453,16 @@ extern "C" int launch_flash_prefill(const void* q, const void* k,
   // non-causal: the diagonal past every key (see the note at the top)
   const int qo = causal ? q_offset : Sk;
   float* L = static_cast<float*>(lse);
-  if (L != nullptr) {   // training: causal self-attention, D = Dv 64 or 128
+  if (L != nullptr) {   // training: the dense heads and MLA's
     if (D == 64 && Dv == 64)
       return launch<64, 64, true>(q, k, v, out, L, B, Sq, Sk, Hq, Hkv, qo,
                                   scale, s);
     if (D == 128 && Dv == 128)
       return launch<128, 128, true>(q, k, v, out, L, B, Sq, Sk, Hq, Hkv, qo,
                                     scale, s);
+    if (D == 96 && Dv == 64)
+      return launch<96, 64, true>(q, k, v, out, L, B, Sq, Sk, Hq, Hkv, qo,
+                                  scale, s);
     return (int)cudaErrorInvalidValue;
   }
   if (D == 64 && Dv == 64)

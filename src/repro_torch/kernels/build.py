@@ -72,9 +72,9 @@ _SIGNATURES = {
     "flash_prefill": ("flash_prefill", "launch_flash_prefill",
                       [_P] * 5 + [_I] * 9 + [_F, _P]),
     "flash_prefill_bwd": ("flash_prefill_bwd", "launch_flash_prefill_bwd",
-                          [_P] * 7 + [_L] + [_P] * 3 + [_I] * 5 + [_F, _P]),
+                          [_P] * 7 + [_L] + [_P] * 3 + [_I] * 8 + [_F, _P]),
     "flash_prefill_bwd_ws": ("flash_prefill_bwd",
-                             "flash_prefill_bwd_ws_floats", [_I] * 5, _L),
+                             "flash_prefill_bwd_ws_floats", [_I] * 7, _L),
     "quantize_blocks": ("quant_blocks", "launch_quantize_blocks",
                         [_I, _P, _P, _P, _I, _I, _P]),
     "dequantize_blocks": ("quant_blocks", "launch_dequantize_blocks",

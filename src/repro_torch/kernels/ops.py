@@ -36,8 +36,9 @@ _PAYLOAD_CODES = {torch.float32: 0, torch.bfloat16: 1}   # common.cuh DType
 
 class LaunchCounter:
     """Kernel launches per wrapper name since the last ``reset``; a
-    launch of a kernel's other mode also counts under "name:mode"
-    (score_select's "mean" and "sum" scorings)."""
+    launch of a kernel's other mode or instance also counts under
+    "name:mode" (score_select's "mean" and "sum" scorings, the training
+    instances of flash_prefill and flash_prefill_bwd)."""
 
     NAMES = ("sparse_decode_attention", "block_score", "score_select",
              "gather_blocks_hkv", "scatter_blocks_hkv", "zero_blocks_hkv",
@@ -55,9 +56,9 @@ class LaunchCounter:
     def snapshot(self) -> Dict[str, int]:
         return dict(self.counts)
 
-    def add(self, name: str, mode: Optional[str] = None) -> None:
+    def add(self, name: str, *modes: Optional[str]) -> None:
         self.counts[name] += 1
-        if mode is not None:
+        for mode in filter(None, modes):
             key = f"{name}:{mode}"
             self.counts[key] = self.counts.get(key, 0) + 1
 
@@ -700,10 +701,11 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     Training's calls go through ``FlashPrefillFn`` (the forward with each
     row's log-sum-exp, and ``flash_prefill_bwd`` on the backward pass):
-    those with grad enabled and q, k or v requiring grad."""
+    those with grad enabled and q, k or v requiring grad, in either mode
+    over whole sequences (``_check_backward_limits``)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         _check_backward_limits(q, k, v, causal, q_offset)
-        return FlashPrefillFn.apply(q, k, v, float(scale))
+        return FlashPrefillFn.apply(q, k, v, float(scale), bool(causal))
     if _all_cpu(q, k, v):
         return ref.flash_prefill(q, k, v, scale=scale, causal=causal,
                                  q_offset=q_offset)
@@ -737,89 +739,109 @@ def _check_flash(name: str, q: torch.Tensor, k: torch.Tensor,
 
 
 # the (q/k depth, v width) pairs the backward is built for: the dense GQA
-# family's heads (qwen2-0.5b's 64, llama3-8b's 128)
-FLASH_BWD_DIMS = ((64, 64), (128, 128))
+# family's heads (qwen2-0.5b's 64, llama3-8b's 128) and MLA's (96, 64);
+# its non-causal mode at Whisper's 64 only
+FLASH_BWD_DIMS = ((64, 64), (128, 128), (96, 64))
+FLASH_BWD_NONCAUSAL_DIMS = ((64, 64),)
+
+
+def _bwd_dims(causal: bool) -> Tuple[Tuple[int, int], ...]:
+    return FLASH_BWD_DIMS if causal else FLASH_BWD_NONCAUSAL_DIMS
 
 
 def _check_backward_limits(q, k, v, causal: bool, q_offset) -> None:
     """What the training path's attention takes, on either device (the
-    plain backward is written for it too): causal self-attention over
-    whole sequences; on the card also (D, Dv) in ``FLASH_BWD_DIMS``.
-    Each message names the ROADMAP.md item that lifts the limit."""
+    plain backward is written for it too): whole sequences, causal
+    self-attention or every query over every key (any Sq, Sk); on the
+    card also (D, Dv) in ``FLASH_BWD_DIMS`` (``FLASH_BWD_NONCAUSAL_DIMS``
+    when not causal).  Each message names the ROADMAP.md item that lifts
+    the limit."""
     name = "flash_prefill_bwd"
     D, Dv = q.shape[-1], v.shape[-1]
-    if not causal:
-        raise NotImplementedError(
-            f"{name}: causal attention only; the non-causal backward "
-            f"(Whisper's encoder and cross-attention) is ROADMAP.md queue 1 "
-            f"item 7, training step 3")
-    if int(q_offset) != 0 or q.shape[1] != k.shape[1]:
+    if causal and (int(q_offset) != 0 or q.shape[1] != k.shape[1]):
         raise NotImplementedError(
             f"{name}: whole sequences only (q_offset {int(q_offset)}, Sq "
             f"{q.shape[1]}, Sk {k.shape[1]}); a backward over earlier "
             f"chunks' keys is ROADMAP.md queue 1 item 7, training step 5")
-    if not _all_cpu(q, k, v) and (D, Dv) not in FLASH_BWD_DIMS:
+    if not _all_cpu(q, k, v) and (D, Dv) not in _bwd_dims(causal):
         raise NotImplementedError(
-            f"{name}: (D, Dv) in {FLASH_BWD_DIMS} on the card (got "
-            f"{(D, Dv)}); MLA's (96, 64) and kimi-k2's (112, 112) are "
-            f"ROADMAP.md queue 1 item 7, training step 2")
+            f"{name}: (D, Dv) in {_bwd_dims(causal)} on the card "
+            f"{'causal' if causal else 'non-causal'} (got {(D, Dv)}); "
+            f"kimi-k2's (112, 112) comes with MoE training, ROADMAP.md "
+            f"queue 1 item 7, training step 1")
+
+
+def _train_modes(D: int, Dv: int, causal: bool, prefix: str = ""
+                 ) -> Tuple[str, ...]:
+    """The launch counter's labels of a training instance beside its
+    kernel's name: MLA's heads, the non-causal mode."""
+    return (((prefix + "mla",) if (D, Dv) == (96, 64) else ())
+            + ((prefix + "noncausal",) if not causal else ()))
 
 
 def flash_prefill_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, scale: float
+                          *, scale: float, causal: bool = True
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Causal self-attention's forward for training: (out (B, S, Hq, D) in
-    q's dtype, lse (B, Hq, S) float32, each row's log-sum-exp, natural
-    log).  On the GPU the ``flash_prefill`` kernel with its lse output
-    (bfloat16, (D, Dv) in ``FLASH_BWD_DIMS``); a launch also counts under
-    "flash_prefill:lse"."""
+    """Training's forward over whole sequences: q (B, Sq, Hq, D), k (B,
+    Sk, Hkv, D), v (B, Sk, Hkv, Dv) -> (out (B, Sq, Hq, Dv) in q's dtype,
+    lse (B, Hq, Sq) float32, each row's log-sum-exp, natural log).
+    Causal self-attention (Sq == Sk), or every query over every key.  On
+    the GPU the ``flash_prefill`` kernel with its lse output (bfloat16,
+    (D, Dv) in ``FLASH_BWD_DIMS``); a launch also counts under
+    "flash_prefill:lse" and, for MLA's heads and the non-causal mode,
+    under "flash_prefill:lse_mla" and "flash_prefill:lse_noncausal"."""
     if _all_cpu(q, k, v):
-        return ref.flash_prefill_fwd_lse(q, k, v, scale=scale)
+        return ref.flash_prefill_fwd_lse(q, k, v, scale=scale, causal=causal)
     name = "flash_prefill"
-    B, S, Hq, D = q.shape
-    Hkv, Dv = v.shape[2], v.shape[3]
+    B, Sq, Hq, D = q.shape
+    _, Sk, Hkv, Dv = v.shape
     _check_flash(name, q, k, v, 0)
-    _check(k.shape[1] == S and (D, Dv) in FLASH_BWD_DIMS,
-           f"{name}: the lse output takes Sq == Sk and (D, Dv) in "
-           f"{FLASH_BWD_DIMS}")
-    out = torch.empty((B, S, Hq, Dv), dtype=q.dtype, device=q.device)
-    lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+    _check((not causal or Sk == Sq) and (D, Dv) in _bwd_dims(causal),
+           f"{name}: the lse output takes Sq == Sk when causal and (D, Dv) "
+           f"in {_bwd_dims(causal)}")
+    out = torch.empty((B, Sq, Hq, Dv), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     rc = LIBS.fn(name)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                       out.data_ptr(), lse.data_ptr(), B, S, S, Hq, Hkv, D,
-                       Dv, 0, 1, float(scale), _stream())
+                       out.data_ptr(), lse.data_ptr(), B, Sq, Sk, Hq, Hkv, D,
+                       Dv, 0, int(causal), float(scale), _stream())
     _raise_on(rc, name)
-    launches.add(name, "lse")
+    launches.add(name, "lse", *_train_modes(D, Dv, causal, "lse_"))
     return out, lse
 
 
 def flash_prefill_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
-                      *, scale: float
+                      *, scale: float, causal: bool = True
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The gradient of causal self-attention (``ref.flash_prefill_bwd``):
-    q, o, do (B, S, Hq, D), k, v (B, S, Hkv, D), lse (B, Hq, S) from
-    ``flash_prefill_fwd_lse`` -> (dq, dk, dv) float32, dk and dv summed
-    over each GQA group.  On the GPU: the kernels of
-    ``csrc/flash_prefill_bwd.cu`` (Delta, dK and dV a CTA per query head
-    of each group, dQ, and the heads' shares of dK and dV summed in head
-    order where G > 1: one count a call), bfloat16 q, k, v, o, do, (D, Dv)
-    in ``FLASH_BWD_DIMS``; deterministic."""
+    """The gradient of ``flash_prefill_fwd_lse`` (``ref.flash_prefill_bwd``):
+    q (B, Sq, Hq, D), o, do (B, Sq, Hq, Dv), k (B, Sk, Hkv, D), v (B, Sk,
+    Hkv, Dv), lse (B, Hq, Sq) -> (dq, dk, dv) float32, dk and dv summed
+    over each GQA group; causal (Sq == Sk) or every query over every key.
+    On the GPU: the kernels of ``csrc/flash_prefill_bwd.cu`` (Delta, dK
+    and dV a CTA per query head of each group, dQ, and the heads' shares
+    of dK and dV summed in head order where G > 1: one count a call, also
+    under "flash_prefill_bwd:mla" and "flash_prefill_bwd:noncausal" for
+    those instances), bfloat16 q, k, v, o, do, (D, Dv) in
+    ``FLASH_BWD_DIMS`` (``FLASH_BWD_NONCAUSAL_DIMS`` when not causal);
+    deterministic."""
     if _all_cpu(q, k, v, o, lse, do):
-        return ref.flash_prefill_bwd(q, k, v, o, lse, do, scale)
+        return ref.flash_prefill_bwd(q, k, v, o, lse, do, scale, causal)
     name = "flash_prefill_bwd"
-    B, S, Hq, D = q.shape
-    Hkv, Dv = v.shape[2], v.shape[3]
+    B, Sq, Hq, D = q.shape
+    _, Sk, Hkv, Dv = v.shape
     _check_cuda(name, q.device, q=q, k=k, v=v, o=o, lse=lse, do=do)
     _check(q.dtype == k.dtype == v.dtype == o.dtype == do.dtype
            == torch.bfloat16 and lse.dtype == torch.float32,
            f"{name}: bfloat16 q, k, v, o, do and float32 lse")
-    _check(k.shape == v.shape == (B, S, Hkv, D) and Hkv > 0
-           and Hq % Hkv == 0 and (D, Dv) in FLASH_BWD_DIMS
-           and o.shape == do.shape == q.shape and lse.shape == (B, Hq, S),
-           f"{name}: needs q, o, do (B, S, Hq, D), k, v (B, S, Hkv, D), "
-           f"lse (B, Hq, S), Hq % Hkv == 0, (D, Dv) in {FLASH_BWD_DIMS}")
+    _check(k.shape == (B, Sk, Hkv, D) and Hkv > 0 and Hq % Hkv == 0
+           and (D, Dv) in _bwd_dims(causal) and (not causal or Sq == Sk)
+           and o.shape == do.shape == (B, Sq, Hq, Dv)
+           and lse.shape == (B, Hq, Sq),
+           f"{name}: needs q (B, Sq, Hq, D), o, do (B, Sq, Hq, Dv), k (B, "
+           f"Sk, Hkv, D), v (B, Sk, Hkv, Dv), lse (B, Hq, Sq), Hq % Hkv "
+           f"== 0, Sq == Sk when causal, (D, Dv) in {_bwd_dims(causal)}")
     _check(_aligned(q, k, v, o, do), f"{name}: 16-byte alignment")
-    ws_n = LIBS.fn("flash_prefill_bwd_ws")(B, S, Hq, Hkv, D)
+    ws_n = LIBS.fn("flash_prefill_bwd_ws")(B, Sq, Sk, Hq, Hkv, D, Dv)
     ws = torch.empty(ws_n, dtype=torch.float32, device=q.device)
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
@@ -827,27 +849,28 @@ def flash_prefill_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rc = LIBS.fn(name)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                        o.data_ptr(), do.data_ptr(), lse.data_ptr(),
                        ws.data_ptr(), ws_n, dq.data_ptr(), dk.data_ptr(),
-                       dv.data_ptr(), B, S, Hq, Hkv, D, float(scale),
-                       _stream())
+                       dv.data_ptr(), B, Sq, Sk, Hq, Hkv, D, Dv, int(causal),
+                       float(scale), _stream())
     _raise_on(rc, name)
-    launches.add(name)
+    launches.add(name, *_train_modes(D, Dv, causal))
     return dq, dk, dv
 
 
 class FlashPrefillFn(torch.autograd.Function):
-    """Causal self-attention with a gradient: ``flash_prefill_fwd_lse``
-    forward, ``flash_prefill_bwd`` backward.  On the GPU both run in
-    bfloat16 (float32 q, k, v are cast; the output is cast back to q's
-    dtype, the gradients to each input's); on the CPU both are the plain
-    versions, in the inputs' dtype."""
+    """Attention over whole sequences with a gradient:
+    ``flash_prefill_fwd_lse`` forward, ``flash_prefill_bwd`` backward,
+    causal or not.  On the GPU both run in bfloat16 (float32 q, k, v are
+    cast; the output is cast back to q's dtype, the gradients to each
+    input's); on the CPU both are the plain versions, in the inputs'
+    dtype."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale: float):
+    def forward(ctx, q, k, v, scale: float, causal: bool):
         ctx.dtypes = (q.dtype, k.dtype, v.dtype)
-        ctx.scale = scale
+        ctx.scale, ctx.causal = scale, causal
         if not _all_cpu(q, k, v):
             q, k, v = (t.to(torch.bfloat16).contiguous() for t in (q, k, v))
-        o, lse = flash_prefill_fwd_lse(q, k, v, scale=scale)
+        o, lse = flash_prefill_fwd_lse(q, k, v, scale=scale, causal=causal)
         ctx.save_for_backward(q, k, v, o, lse)
         return o.to(ctx.dtypes[0])
 
@@ -856,8 +879,10 @@ class FlashPrefillFn(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         if do.device.type != "cpu":
             do = do.to(torch.bfloat16).contiguous()
-        grads = flash_prefill_bwd(q, k, v, o, lse, do, scale=ctx.scale)
-        return tuple(g.to(dt) for g, dt in zip(grads, ctx.dtypes)) + (None,)
+        grads = flash_prefill_bwd(q, k, v, o, lse, do, scale=ctx.scale,
+                                  causal=ctx.causal)
+        return (tuple(g.to(dt) for g, dt in zip(grads, ctx.dtypes))
+                + (None, None))
 
 
 # ---------------------------------------------------------------------------

@@ -287,52 +287,59 @@ def flash_prefill_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_prefill_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
-                      scale: float, q_chunk: int = 512, k_chunk: int = 512
+                      scale: float, causal: bool = True, q_chunk: int = 512,
+                      k_chunk: int = 512
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The gradient of causal self-attention (``flash_prefill`` with
-    q_offset 0 and Sq == Sk), written out, in float32 and chunked like
-    the forward so that no (S, S) tensor is held:
+    """The gradient of ``flash_prefill`` over whole sequences (q_offset
+    0), written out, in float32 and chunked like the forward so that no
+    (Sq, Sk) tensor is held:
 
-        P  = exp(S * scale - lse)          (S = Q K^T, keys j <= i)
+        P  = exp(S * scale - lse)          (S = Q K^T over the keys a
+                                            query sees)
         dV = P^T dO
         D  = rowsum(dO * O)
         dS = P * (dO V^T - D)
         dQ = scale * dS K
         dK = scale * dS^T Q
 
-    dK and dV summed over each GQA group.  q, o, do (B, S, Hq, D|Dv); k, v
-    (B, S, Hkv, D|Dv); lse (B, Hq, S) from ``flash_prefill_fwd_lse``.
-    Returns (dq, dk, dv), float32."""
-    B, S, Hq, D = q.shape
+    ``causal``: query i sees the keys j <= i (self-attention, Sq == Sk);
+    else every query sees every key j < Sk (Whisper's encoder, Sq == Sk,
+    and its cross-attention, Sq != Sk).  dK and dV summed over each GQA
+    group.  q, o, do (B, Sq, Hq, D|Dv); k (B, Sk, Hkv, D), v (B, Sk, Hkv,
+    Dv); lse (B, Hq, Sq) from ``flash_prefill_fwd_lse``.  Returns (dq, dk,
+    dv), float32."""
+    B, Sq, Hq, D = q.shape
     _, Sk, Hkv, _ = k.shape
     Dv = v.shape[-1]
-    if Sk != S:
-        raise ValueError(f"flash_prefill_bwd: causal self-attention only "
-                         f"(Sq {S} != Sk {Sk})")
+    if causal and Sk != Sq:
+        raise ValueError(f"flash_prefill_bwd: causal self-attention takes "
+                         f"Sq == Sk (Sq {Sq}, Sk {Sk})")
     G = Hq // Hkv
-    q_chunk = min(q_chunk, S)
-    k_chunk = min(k_chunk, S)
+    q_chunk = min(q_chunk, Sq)
+    k_chunk = min(k_chunk, Sk)
     dev = q.device
-    qf = q.float().reshape(B, S, Hkv, G, D)
+    qf = q.float().reshape(B, Sq, Hkv, G, D)
     kf = k.float()
     vf = v.float()
-    dof = do.float().reshape(B, S, Hkv, G, Dv)
-    delta = (dof * o.float().reshape(B, S, Hkv, G, Dv)).sum(-1)
-    delta = delta.permute(0, 2, 3, 1)                     # (B, Hkv, G, S)
-    lse_r = lse.float().reshape(B, Hkv, G, S)
-    dq = torch.zeros((B, S, Hkv, G, D), dtype=torch.float32, device=dev)
-    dk = torch.zeros((B, S, Hkv, D), dtype=torch.float32, device=dev)
-    dv = torch.zeros((B, S, Hkv, Dv), dtype=torch.float32, device=dev)
-    for q0 in range(0, S, q_chunk):
-        q1 = min(q0 + q_chunk, S)
+    dof = do.float().reshape(B, Sq, Hkv, G, Dv)
+    delta = (dof * o.float().reshape(B, Sq, Hkv, G, Dv)).sum(-1)
+    delta = delta.permute(0, 2, 3, 1)                     # (B, Hkv, G, Sq)
+    lse_r = lse.float().reshape(B, Hkv, G, Sq)
+    dq = torch.zeros((B, Sq, Hkv, G, D), dtype=torch.float32, device=dev)
+    dk = torch.zeros((B, Sk, Hkv, D), dtype=torch.float32, device=dev)
+    dv = torch.zeros((B, Sk, Hkv, Dv), dtype=torch.float32, device=dev)
+    for q0 in range(0, Sq, q_chunk):
+        q1 = min(q0 + q_chunk, Sq)
         q_i, do_i = qf[:, q0:q1], dof[:, q0:q1]
         qpos = torch.arange(q0, q1, device=dev)
-        for k0 in range(0, q1, k_chunk):
-            k1 = min(k0 + k_chunk, S)
+        for k0 in range(0, q1 if causal else Sk, k_chunk):
+            k1 = min(k0 + k_chunk, Sk)
             k_j, v_j = kf[:, k0:k1], vf[:, k0:k1]
             s = torch.einsum("bqhgd,bkhd->bhgqk", q_i, k_j) * scale
-            kpos = torch.arange(k0, k1, device=dev)
-            s = s.masked_fill(~(qpos[:, None] >= kpos[None, :]), NEG_INF)
+            if causal:
+                kpos = torch.arange(k0, k1, device=dev)
+                s = s.masked_fill(~(qpos[:, None] >= kpos[None, :]),
+                                  NEG_INF)
             p = torch.exp(s - lse_r[..., q0:q1, None])
             dv[:, k0:k1] += torch.einsum("bhgqk,bqhgd->bkhd", p, do_i)
             dp = torch.einsum("bqhgd,bkhd->bhgqk", do_i, v_j)
@@ -341,7 +348,7 @@ def flash_prefill_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                          k_j) * scale
             dk[:, k0:k1] += torch.einsum("bhgqk,bqhgd->bkhd", ds,
                                          q_i) * scale
-    return dq.reshape(B, S, Hq, D), dk, dv
+    return dq.reshape(B, Sq, Hq, D), dk, dv
 
 
 # ---------------------------------------------------------------------------

@@ -10,8 +10,14 @@ checkpoint holds params and optimizer state) on one device, the
 GPU unless ``--device cpu`` (without a card the default raises), at the
 full config or with ``--smoke`` its reduced one.  The counterpart of the
 reference's ``repro/launch/train.py`` without its mesh and shardings (the
-plane meshes come last, ROADMAP.md queue 1 item 9).  The dense GQA family
-trains; other families raise (``models.model.check_trainable``).
+plane meshes come last, ROADMAP.md queue 1 item 9).  The dense GQA, MLA
+(minicpm3-4b) and frontend families (internvl2-2b, whisper-small) train,
+each batch with the reference launcher's stand-ins for the stubbed
+frontends (``training.trainer.frontend_inputs``); other families raise
+(``models.model.check_trainable``).
+
+    python -m repro_torch.launch.train --arch minicpm3-4b --steps 3 \
+        --batch 1 --seq 4096 --remat
 """
 from __future__ import annotations
 

@@ -294,49 +294,56 @@ def _layer_epilogue(p: Dict, cfg: ModelConfig, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` unless ``cfg`` is a dense GQA decoder,
-    the family the port trains (on every device), naming what each other
-    family lacks (ROADMAP.md queue 1 item 7's training steps)."""
+    """Raise ``NotImplementedError`` unless ``cfg`` is of a family the port
+    trains (on every device): dense GQA, MLA, the VLM's patch prefix and
+    Whisper's encoder-decoder; naming what each other family lacks
+    (ROADMAP.md queue 1 item 7's training steps)."""
     check_supported(cfg)
     missing = []
     if cfg.num_experts or cfg.arch_type == "moe":
         missing.append("MoE training with the capacity drops and the aux "
                        "loss (step 1)")
-    if cfg.attention_type == "mla":
-        missing.append("MLA's (96, 64) flash_prefill_bwd instance (step 2)")
-    if cfg.frontend != "none" or cfg.is_encoder_decoder:
-        missing.append("the frontends, with a non-causal backward for "
-                       "Whisper's encoder and cross-attention (step 3)")
     if cfg.attention_type == "none" or cfg.arch_type == "hybrid":
         missing.append("backward kernels for selective_scan and wkv6 "
                        "(step 4)")
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: the port trains the dense GQA family only; "
-            f"missing: " + "; ".join(missing))
+            f"{cfg.name}: the port trains the dense GQA, MLA and frontend "
+            f"families; missing: " + "; ".join(missing))
 
 
 def forward_train(params: Dict, cfg: ModelConfig, batch: Dict,
                   *, remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-    """batch: {"tokens": (B, S), "labels": (B, S)} on the params' device.
-    Returns (loss, logits (B, S, V)), the reference's ``forward_train`` for
-    the dense GQA family (``check_trainable``): every layer's attention
-    through ``ops.flash_prefill``, which differentiates it
-    (``FlashPrefillFn``).  The reference adds 0.01 x the MoE's aux loss,
-    which a dense layer does not have.  ``remat``: each layer under
-    ``torch.utils.checkpoint`` (non-reentrant), its forward run again on
-    the backward pass, as ``jax.checkpoint`` wraps one in the reference.
+    """batch: {"tokens": (B, S), "labels": (B, S)[, "frames" (B, S_enc,
+    d) | "patch_embeds" (B, P, d)]} on the params' device.  Returns
+    (loss, logits), the reference's ``forward_train`` for the families
+    ``check_trainable`` takes: a VLM's patch embeddings lead the tokens
+    and the loss and the returned logits cover the text only (the
+    reference's ``logits[:, -labels.shape[1]:]``); Whisper's encoder runs
+    over the frames and each decoder layer cross-attends to its
+    projected keys and values.  Every attention runs through
+    ``ops.flash_prefill``, which differentiates it (``FlashPrefillFn``:
+    causal self-attention, MLA's (96, 64) heads, the encoder's and the
+    cross-attention's non-causal mode).  The reference adds 0.01 x the
+    MoE's aux loss, which these layers do not have.  ``remat``: each
+    decoder layer under ``torch.utils.checkpoint`` (non-reentrant), its
+    forward run again on the backward pass, as ``jax.checkpoint`` wraps
+    one in the reference, which does not checkpoint the encoder either.
     The reference's ``triangular`` changes no result and has no
     counterpart."""
     check_trainable(cfg)
     h, positions = embed_inputs(params, cfg, batch)
+    enc_kvs = encode_inputs(params, cfg, batch)
     for i in range(cfg.num_layers):
-        def run(h_, p=get_layer(params, i)):
-            return layer_forward(p, cfg, h_, positions)[0]
+        def run(h_, p=get_layer(params, i), enc_kv=index_enc_kvs(enc_kvs, i)):
+            return layer_forward(p, cfg, h_, positions, enc_kv=enc_kv)[0]
         h = (torch.utils.checkpoint.checkpoint(run, h, use_reentrant=False)
              if remat else run(h))
+    labels = batch["labels"]
+    if cfg.frontend == "vit_patch_stub":     # the text's positions only
+        h = h[:, -labels.shape[1]:]
     logits = lm_head(params, cfg, h)
-    return cross_entropy(logits, batch["labels"]), logits
+    return cross_entropy(logits, labels), logits
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor

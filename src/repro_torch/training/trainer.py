@@ -18,6 +18,7 @@ is float32, as the reference's ``train`` is.
 """
 from __future__ import annotations
 
+import collections.abc
 import dataclasses
 import time
 from typing import Any, Callable, Dict, List, Tuple
@@ -52,11 +53,29 @@ def trainable(params: Any) -> Any:
     return params
 
 
+def frontend_inputs(cfg: ModelConfig, batch: int) -> Dict[str, np.ndarray]:
+    """The stubbed frontends' outputs that a training batch carries, as
+    the reference's launcher makes them (``src/repro/launch/train.py``):
+    Whisper's ``frames`` (B, 16, d) and a VLM's ``patch_embeds`` (B,
+    num_patches, d), float32 ones x 0.01; none for the other families."""
+    out = {}
+    if cfg.is_encoder_decoder:
+        out["frames"] = np.full((batch, 16, cfg.d_model), 0.01, np.float32)
+    if cfg.frontend == "vit_patch_stub":
+        out["patch_embeds"] = np.full((batch, cfg.num_patches, cfg.d_model),
+                                      0.01, np.float32)
+    return out
+
+
 def batch_to(batch: Dict[str, np.ndarray], device: torch.device
              ) -> Dict[str, torch.Tensor]:
-    """A numpy batch ({"tokens", "labels"} (B, S) int32) on ``device``."""
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-            for k, v in batch.items()}
+    """A numpy batch ({"tokens", "labels"} (B, S) int32[, "frames",
+    "patch_embeds"], these as float32) on ``device``."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        out[k] = (t.float() if t.is_floating_point() else t).to(device)
+    return out
 
 
 def loss_and_grads(params: Any, cfg: ModelConfig, batch: Dict,
@@ -80,17 +99,36 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     return train_step
 
 
+class _CastLayers(collections.abc.Sequence):
+    """A list of layers' parameters seen in ``dtype``, each layer cast
+    when it is read: one layer's copy at a time, not the model's."""
+
+    def __init__(self, layers: List, dtype: torch.dtype):
+        self.layers, self.dtype = layers, dtype
+
+    def __len__(self) -> int:
+        return len(self.layers)
+
+    def __getitem__(self, i: int):
+        return tree_map(lambda t: t.to(self.dtype), self.layers[i])
+
+
 def make_eval_step(cfg: ModelConfig) -> Callable:
     """(params, batch) -> the loss, without gradients.  On the card the
-    attention kernel takes bfloat16 only, so there the step evaluates a
-    bfloat16 copy of the weights (every product in bfloat16, the loss in
-    float32); on the CPU the weights as they are."""
+    attention kernel takes bfloat16 only, so there the step evaluates the
+    weights in bfloat16 (every product in bfloat16, the loss in float32):
+    the decoder's layers are cast one at a time as the forward reaches
+    them, so that no bfloat16 copy of the whole model sits beside the
+    float32 training state (8.5 GB at minicpm3-4b); on the CPU the
+    weights as they are."""
     M.check_trainable(cfg)
 
     @torch.no_grad()
     def eval_step(params, batch):
         if params["embed"].device.type != "cpu":
-            params = tree_map(lambda t: t.to(torch.bfloat16), params)
+            params = {k: (_CastLayers(v, torch.bfloat16) if k == "layers"
+                          else tree_map(lambda t: t.to(torch.bfloat16), v))
+                      for k, v in params.items()}
         loss, _ = M.forward_train(params, cfg, batch, remat=False)
         return loss
     return eval_step
@@ -115,8 +153,9 @@ def train(cfg: ModelConfig, tc: TrainConfig, data_cfg: DataConfig,
     hist: Dict[str, list] = {"loss": [], "grad_norm": [], "lr": [],
                              "step_time": []}
     t_last = time.perf_counter()
+    extra = frontend_inputs(cfg, data_cfg.global_batch)
     for step in range(tc.steps):
-        batch = batch_to(stream.batch(), dev)
+        batch = batch_to({**stream.batch(), **extra}, dev)
         params, opt_state, m = step_fn(params, opt_state, batch)
         if (step + 1) % tc.log_every == 0 or step == 0:
             loss = float(m["loss"])

@@ -1338,7 +1338,7 @@ def test_flash_prefill_fn_trains_float32_through_the_kernels(cuda):
     assert ops.launches.counts["flash_prefill:lse"] == 1
     assert ops.launches.counts["flash_prefill_bwd"] == 1
     with torch.no_grad():       # the Function alone, as an eval calls it
-        assert torch.equal(ops.FlashPrefillFn.apply(q, k, v, 0.125),
+        assert torch.equal(ops.FlashPrefillFn.apply(q, k, v, 0.125, True),
                            out.detach())
     want = ref.flash_prefill_bwd(q, k, v, *ref.flash_prefill_fwd_lse(
         q, k, v, scale=0.125), do, 0.125)
@@ -1349,9 +1349,10 @@ def test_flash_prefill_fn_trains_float32_through_the_kernels(cuda):
 @pytest.mark.gpu
 def test_eval_step_runs_a_bfloat16_copy_on_the_card(cuda):
     """make_eval_step on the card: the kernels take bfloat16, so the step
-    evaluates a bfloat16 copy of float32 weights; its loss within 2e-2
-    relative of the float32 loss on the CPU (bf16 products over 2 layers),
-    and the float32 weights untouched."""
+    evaluates float32 weights in bfloat16 (each layer's copy made as the
+    forward reaches it); its loss within 2e-2 relative of the float32
+    loss on the CPU (bf16 products over 2 layers), and the float32
+    weights untouched."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import model as M
     from repro_torch.training.optimizer import tree_map
@@ -1376,11 +1377,90 @@ def test_eval_step_runs_a_bfloat16_copy_on_the_card(cuda):
 @pytest.mark.gpu
 def test_flash_prefill_bwd_raises_beyond_its_limits(cuda):
     x = torch.zeros((1, 64, 4, 64), device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="training step 3"):
-        ops.flash_prefill(x, x, x, scale=0.125, causal=False)
     with pytest.raises(NotImplementedError, match="training step 5"):
         ops.flash_prefill(x, x[:, :32], x[:, :32], scale=0.125)
-    for d in (96, 112):
-        y = torch.zeros((1, 64, 4, d), device=cuda, requires_grad=True)
-        with pytest.raises(NotImplementedError, match="training step 2"):
-            ops.flash_prefill(y, y, y, scale=0.125)
+    with pytest.raises(NotImplementedError, match="training step 5"):
+        ops.flash_prefill(x, x, x, scale=0.125, q_offset=4)
+    y = torch.zeros((1, 64, 4, 112), device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="training step 1"):
+        ops.flash_prefill(y, y, y, scale=0.125)
+    # the non-causal mode is built at Whisper's heads only
+    z = torch.zeros((1, 64, 4, 128), device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="non-causal"):
+        ops.flash_prefill(z, z, z, scale=0.125, causal=False)
+
+
+def _bwd_cross_case(dev, Bn, Sq, Sk, Hq, Hkv, D, Dv, seed=0):
+    g = _gen(dev, seed)
+    return tuple(torch.randn(shape, generator=g, device=dev).bfloat16()
+                 for shape in ((Bn, Sq, Hq, D), (Bn, Sk, Hkv, D),
+                               (Bn, Sk, Hkv, Dv), (Bn, Sq, Hq, Dv)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Bn,Sq,Sk,Hq,Hkv,D,Dv,causal", [
+    (1, 4096, 4096, 40, 40, 96, 64, True),     # minicpm3-4b's training
+    (2, 300, 300, 6, 6, 96, 64, True),         # MLA, ragged
+    (1, 257, 257, 8, 2, 96, 64, True),         # MLA's heads in a group
+    (8, 1500, 1500, 12, 12, 64, 64, False),    # whisper-small's encoder
+    (8, 448, 1500, 12, 12, 64, 64, False),     # its cross-attention
+    (2, 448, 16, 12, 12, 64, 64, False),       # the launcher's 16 frames
+    (2, 300, 700, 8, 2, 64, 64, False),        # a GQA group, non-causal
+    (1, 1, 130, 4, 4, 64, 64, False)])         # one query row
+def test_flash_prefill_bwd_training_instances_match_plain(
+        cuda, Bn, Sq, Sk, Hq, Hkv, D, Dv, causal):
+    """MLA's (96, 64) instances and the non-causal mode (Sq != Sk, keys
+    and queries ragged against the tiles: 1500 = 11 x 128 + 92, 448 = 3 x
+    128 + 64) of the forward with lse and the backward against their
+    plain versions on the same bf16 inputs: lse within 1e-3, the output
+    bit for bit the serve launch's, dq, dk, dv within the bar, two
+    launches bit-equal, the counts under their labels.  A backward that
+    left the ragged last key tile out (the plain one over the keys before
+    it) must fail the bar."""
+    q, k, v, do = _bwd_cross_case(cuda, Bn, Sq, Sk, Hq, Hkv, D, Dv)
+    scale = D ** -0.5
+    kw = dict(scale=scale, causal=causal)
+    ops.launches.reset()
+    o, lse = ops.flash_prefill_fwd_lse(q, k, v, **kw)
+    assert torch.equal(o, ops.flash_prefill(q, k, v, **kw))
+    _, plse = ref.flash_prefill_fwd_lse(q, k, v, **kw)
+    assert (lse - plse).abs().max().item() <= 1e-3
+    got = ops.flash_prefill_bwd(q, k, v, o, lse, do, **kw)
+    again = ops.flash_prefill_bwd(q, k, v, o, lse, do, **kw)
+    mode = "mla" if D == 96 else "noncausal"
+    assert ops.launches.counts["flash_prefill_bwd"] == 2
+    assert ops.launches.counts[f"flash_prefill_bwd:{mode}"] == 2
+    assert ops.launches.counts[f"flash_prefill:lse_{mode}"] == 1
+    want = ref.flash_prefill_bwd(q, k, v, o, lse, do, scale, causal)
+    for a, b, w in zip(got, again, want):
+        assert a.dtype == torch.float32 and a.shape == w.shape
+        assert torch.equal(a, b)
+        assert _grad_close(a, w)
+    if not causal and Sk > 128 and Sk % 128 >= 16:
+        cut = Sk // 128 * 128
+        short = ref.flash_prefill_bwd(q, k[:, :cut].contiguous(),
+                                      v[:, :cut].contiguous(), o, lse, do,
+                                      scale, causal)
+        assert not _grad_close(got[0], short[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Sq,Sk,H,D,Dv,causal", [
+    (300, 300, 6, 96, 64, True), (100, 700, 4, 64, 64, False)])
+def test_flash_prefill_fn_trains_mla_and_noncausal(cuda, Sq, Sk, H, D, Dv,
+                                                   causal):
+    """``FlashPrefillFn`` on float32 activations at MLA's heads and in the
+    non-causal mode over Sq != Sk: gradients in float32 against the plain
+    backward on the bf16-rounded inputs, one launch of each kernel."""
+    q, k, v, do = (t.float() for t in _bwd_cross_case(
+        cuda, 2, Sq, Sk, H, H, D, Dv, 1))
+    tq, tk, tv = (t.clone().requires_grad_() for t in (q, k, v))
+    ops.launches.reset()
+    out = ops.flash_prefill(tq, tk, tv, scale=0.125, causal=causal)
+    got = torch.autograd.grad(out, (tq, tk, tv), do)
+    assert ops.launches.counts["flash_prefill:lse"] == 1
+    assert ops.launches.counts["flash_prefill_bwd"] == 1
+    want = ref.flash_prefill_bwd(q, k, v, *ref.flash_prefill_fwd_lse(
+        q, k, v, scale=0.125, causal=causal), do, 0.125, causal)
+    for a, w in zip(got, want):
+        assert a.dtype == torch.float32 and _grad_close(a, w)
