@@ -294,7 +294,23 @@ each printing one line (``phase=...``) and failing the run on any error:
    launches by instance (``_want_launches``) and by shape.  Each
    path=train case gets the runs' launches at its own shape (a record's
    ``launches`` stays the phase's count of its name); a shape that the
-   runs launch without a parity line fails the phase.
+   runs launch without a parity line fails the phase.  And RWKV6's
+   training kernels (WKV_TRAIN_CASES): wkv6's float32 instance that keeps
+   each time chunk's incoming state (kernel A, csrc/wkv6.cu, record
+   wkv6:train) against the plain forward walked chunk by chunk, y, the
+   final state and every S_in[c] within wkv6's WKV_RTOL bar, and its
+   gradient (kernel B, csrc/wkv6_bwd.cu, record wkv6_bwd) against
+   ref.wkv6_bwd, each of the six gradients within 2^-12 of its max |grad|
+   with a cosine >= 0.99999 (WKV_GRAD_ERR, WKV_GRAD_COS), two launches
+   bit-equal, and three planted faults rejected (u's term dropped from
+   dk, lam's carry into chunk 0 dropped, the decay sum's carry into chunk
+   0 dropped), at the rwkv6-1.6b run's shape (B 2 x 4,096, 32 heads of
+   64), at a ragged B 2 x 1,000 and at the models phase's 14,211-token
+   prefill window, timed with CUDA events beside the plain versions (no
+   PyTorch call computes either).  Then rwkv6-1.6b at full width and all
+   24 layers trained 3 steps at B 2 x 4,096, step 1 held against the
+   plain wkv6 and wkv6_bwd patched in, wkv6:train launched 48 times a
+   step and wkv6_bwd 24, by shape as the attention's.
 12. calibrate — the cost model's H100_80G against this card: a 1 GiB
    pinned-to-device copy, 4096 copy_ calls of one 8 KiB block from
    pinned memory and 2000 one-block gather_blocks_hkv launches (each the
@@ -306,6 +322,11 @@ each printing one line (``phase=...``) and failing the run on any error:
    share, the count of device operations (kernels, copies, memsets),
    largest device consumers, and the port's kernels (``port_kernel=``
    lines: device ms over calls is a kernel's device time per launch).
+14. precision (only when named in --phases) — rwkv6-1.6b's step-1
+   gradient at full width and depth (the train run's weights and batch)
+   through the kernels and through the plain wkv6 and wkv6_bwd, in
+   float32, each against the same step in float64: the global norms and
+   each layer's relative L2 error (``phase=precision`` lines).
 
 Before the last line it prints the kernels' JSON record and the card's
 name and power limit; the last line is the device JSON.  Without CUDA, or
@@ -406,6 +427,13 @@ KERNELS = {   # name -> (source in this repo, the TPU kernel it replaces)
         "src/repro_torch/csrc/flash_prefill_bwd.cu",
         "no TPU kernel: the gradient of flash_attention_jnp "
         "(src/repro/models/attention.py:90)"),
+    # RWKV6's training: wkv6's float32 instance that keeps each chunk's
+    # incoming state (kernel A), and its gradient (kernel B)
+    "wkv6:train": ("src/repro_torch/csrc/wkv6.cu",
+                   "src/repro/models/rwkv6.py:135 (jax.lax.scan)"),
+    "wkv6_bwd": ("src/repro_torch/csrc/wkv6_bwd.cu",
+                 "no TPU kernel: the gradient of the jax.lax.scan of "
+                 "_wkv_step (src/repro/models/rwkv6.py:93, :135-140)"),
 }
 # the serve path whose launches a kernel's record counts, where it is not
 # the fp serve (the transfer phase's and the int8 tier's are below)
@@ -416,7 +444,8 @@ OWNERS = {"selective_scan": "models_jamba-v0.1-52b",
           "flash_prefill:lse_mla": "train",
           "flash_prefill:lse_noncausal": "train",
           "flash_prefill_bwd:mla": "train",
-          "flash_prefill_bwd:noncausal": "train"}
+          "flash_prefill_bwd:noncausal": "train",
+          "wkv6:train": "train", "wkv6_bwd": "train"}
 # the flat FlashH2D / FlashD2H pair: no serve path calls them (in the
 # reference only benchmarks/bench_transfer.py does); the transfer phase
 # drives them
@@ -446,7 +475,9 @@ PORT_KERNEL_FNS = ("split_kernel", "merge_kernel", "block_score_kernel",
                    "wkv6_local_kernel", "wkv6_carry_kernel",
                    "wkv6_emit_kernel", "wkv6_step_kernel",
                    "flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
-                   "flash_bwd_dq_kernel", "flash_bwd_reduce_kernel")
+                   "flash_bwd_dq_kernel", "flash_bwd_reduce_kernel",
+                   "wkv6_bwd_local_kernel", "wkv6_bwd_carry_kernel",
+                   "wkv6_bwd_emit_kernel", "wkv6_bwd_du_kernel")
 # one PyTorch call computing the same function, where there is one; else
 # why not (printed, and null in the JSON record)
 NO_LIBRARY = {
@@ -469,6 +500,8 @@ NO_LIBRARY = {
     "flash_prefill_bwd": "SDPA refused the shape",
     "flash_prefill_bwd:mla": "SDPA refused the shape",
     "flash_prefill_bwd:noncausal": "SDPA refused the shape",
+    "wkv6:train": "no PyTorch call computes the WKV recurrence",
+    "wkv6_bwd": "no PyTorch call computes the WKV recurrence's gradient",
 }
 SHAPES = {"qwen2-0.5b": dict(Hq=14, Hkv=2, D=64),
           "llama3-8b": dict(Hq=32, Hkv=8, D=128)}
@@ -735,11 +768,14 @@ TRAIN_CASES = (("path=train mla", 1, 4096, 4096, 40, 40, 96, 64, True),
 # 448 tokens (its published text context, arXiv:2212.04356);
 # internvl2-2b: 256 patch embeddings ahead of 3,840 tokens; minicpm3-4b:
 # ~68.2 GB of weights, gradients and moments (4.26 B parameters x 16
-# bytes) at all 62 layers.  The frontends' inputs are float32 normals x
-# 0.02 from the seed, as the serve's.
+# bytes) at all 62 layers; rwkv6-1.6b: all 24 layers at d_model 2,048
+# (~1.58 B parameters, ~25 GB of float32 state), after the others, whose
+# memory it then leaves as they had it.  The frontends' inputs are float32
+# normals x 0.02 from the seed, as the serve's.
 TRAIN_RUNS = {"whisper-small": (8, 448, 1500),
               "internvl2-2b": (2, 3840, 0),
-              "minicpm3-4b": (1, 4096, 0)}
+              "minicpm3-4b": (1, 4096, 0),
+              "rwkv6-1.6b": (2, 4096, 0)}
 # their peak learning rate.  Through the kernels, on the fixed batch, the
 # loss rose at the third step above it: at qwen2-0.5b's 1e-3
 # minicpm3-4b's went 11.80 -> 10.08 -> 22.46, at 1e-4 internvl2-2b's
@@ -748,6 +784,35 @@ TRAIN_RUNS = {"whisper-small": (8, 448, 1500),
 # has no such run behind it (PERF.md §7).  At 1e-5 all three fall every
 # step
 TRAIN_RUN_STEPS, TRAIN_RUN_LR = 3, 1e-5
+# RWKV6's training kernels against their plain versions (ref.wkv6 and
+# ref.wkv6_bwd) on the same float32 inputs: at the rwkv6-1.6b run's own
+# shape (B 2 x 4,096, 32 heads of 64; its record gets the run's launches),
+# at a ragged B 2 x 1,000 (one row padded from 777) and at the models
+# phase's 14,211-token prefill window (B 1): (label, B, S, row lengths)
+WKV_TRAIN_CASES = (("path=train", 2, 4096, (4096, 4096)),
+                   ("case=ragged", 2, 1000, (1000, 777)),
+                   ("case=prefill_window", 1, 14211, (14211,)))
+# kernel B's bar, stated before its first run: each gradient within
+# 2^-12 of its max |grad| with a cosine >= 0.99999.  Both sides are
+# float32; the kernel reorders only the chunk carries (one rounding per
+# (chunk, i, j), damped by the decays after it, as in the forward) and
+# the decay's suffix sum (up to 4,096 terms of P - Q, each rounded once:
+# a random walk of ~64 float32 steps of a term, against 2^-12 = 4,096
+# steps of the largest gradient).  Kernel A's y, final state and S_in[c]
+# are held to the forward's WKV_RTOL / WKV_ATOL.
+WKV_GRAD_ERR, WKV_GRAD_COS = 2.0 ** -12, 0.99999
+# rwkv6-1.6b's step 1: float32 does not determine its gradient at full
+# depth.  Against the same step in float64 (the precision phase, PR 28)
+# the plain float32 path's per-layer gradients are 1.3% off at layer 23,
+# 20-50% at layers 13-4 and 30-60% at layers 2-0, the kernels' about as
+# far, so the two float32 grad norms differ by ~8% (2,645.2 and 2,865.7;
+# float64 1,977.6) while the losses agree to 1.5e-6.  So the grad norm is
+# held against the plain step's at WKV_STEP1_LAYERS layers (full width),
+# where the two agree to ~1e-6, and each of the full-depth step's WKV
+# backward calls numbered in WKV_STEP1_CALLS (the last, a middle and the
+# first layer) against the plain backward on its own inputs
+WKV_STEP1_LAYERS = 2
+WKV_STEP1_CALLS = (0, 11, 23)
 # the calibrate phase: a 1 GiB link copy; 4096 copy_ calls of one fp-tier
 # block of one head (32 x 64 float32); 2000 one-block gather launches; the
 # fused gather at the fp serve's shape, (H, NB, bs, D, K) float32
@@ -3960,6 +4025,186 @@ def _fwd_bwd_line(torch, ops, timer, label, q, k, v, do, results,
     log(line)
 
 
+def _wkv_shape(r) -> str:
+    """A WKV training launch's shape, as its parity line and the train
+    run's launches by shape name it."""
+    B_, S, H, hd = r.shape
+    return f"B={B_} S={S} H={H} hd={hd}"
+
+
+def _wkv_train_inputs(torch, gen, Bn: int, S: int, lens) -> tuple:
+    """Kernel A's and B's operands as RWKV6's training hands them over:
+    r, k, v float32 ~ N(0, 1), w = exp(-exp(N(-2, 1))), u = 0.1 N(0, 1),
+    S0 ~ N(0, 1), and dy, dS ~ N(0, 1); past each row's length k = 0 and
+    w = 1, as the time-mix masks padding."""
+    dev = torch.device("cuda")
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    shape = (Bn, S, WKV_H, WKV_HD)
+    mask = (torch.arange(S, device=dev)[None, :]
+            < torch.tensor(lens, device=dev)[:, None])[..., None, None]
+    r, k, v = randn(*shape), randn(*shape) * mask, randn(*shape)
+    w = torch.where(mask, torch.exp(-torch.exp(randn(*shape) - 2)), 1.0)
+    u = 0.1 * randn(WKV_H, WKV_HD)
+    S0 = randn(Bn, WKV_H, WKV_HD, WKV_HD)
+    return (r, k.contiguous(), v, w.contiguous(), u, S0, randn(*shape),
+            randn(*S0.shape))
+
+
+def _wkv_plain_chunks(torch, ref, r, k, v, w, u, S0, L: int, nc: int):
+    """The plain forward walked chunk by chunk (the token walk's
+    arithmetic): y, the final state and the state before each of the nc
+    chunks of L tokens."""
+    ys, states = [], [S0]
+    for c in range(nc):
+        sl = slice(c * L, (c + 1) * L if c < nc - 1 else r.shape[1])
+        y, st = ref.wkv6(r[:, sl], k[:, sl], v[:, sl], w[:, sl], u,
+                         states[-1])
+        ys.append(y)
+        states.append(st)
+    return torch.cat(ys, dim=1), states[-1], torch.stack(states[:-1], dim=2)
+
+
+def case_wkv_train(torch, ops, ref, r, k, v, w, u, S0) -> tuple:
+    """Kernel A (wkv6's float32 training instance) against the plain
+    chunked forward on the same inputs: y, the final state and each
+    chunk's S_in[c], per element within WKV_RTOL W + WKV_ATOL (W the
+    plain version on the inputs' magnitudes).  Its bound: r, k, v and w
+    read and y written (1,280 bytes a (token, head)), S0 and u read, the
+    final state and S_in written, against the 5 float32 operations a
+    (token, head, i, j) that the function needs."""
+    Bn, S, H, hd = r.shape
+    L = ops.wkv6_chunk(Bn, S, H, ops._sm_count(r.device))
+    nc = -(-S // L) if S > L else 1
+    got = ops.wkv6_train(r, k, v, w, u, S0)
+    torch.cuda.synchronize()
+    want = _wkv_plain_chunks(torch, ref, r, k, v, w, u, S0, L, nc)
+    weight = _wkv_plain_chunks(torch, ref, r.abs(), k.abs(), v.abs(), w,
+                               u.abs(), S0.abs(), L, nc)
+    err = max((g - x).abs().max().item() for g, x in zip(got, want))
+    ok = all(bool(((g - x).abs() <= WKV_RTOL * m + WKV_ATOL).all())
+             for g, x, m in zip(got, want, weight))
+    log(f"wkv6:train {_wkv_shape(r)} L={L} chunks={nc} y, final state and "
+        f"S_in max_abs_err={err:.3e} ok={ok} (bar {WKV_RTOL:.3e} W + "
+        f"{WKV_ATOL})")
+    nbytes = 4 * (5 * r.numel() + u.numel() + 2 * S0.numel()
+                  + (got[2].numel() if nc > 1 else 0))
+    return (err, ok, lambda: ops.wkv6_train(r, k, v, w, u, S0),
+            lambda: ref.wkv6(r, k, v, w, u, S0), nbytes,
+            (5 * Bn * S * H * hd * (hd + 1), F32_OPS_PER_S), _wkv_shape(r))
+
+
+def _wkv_grad_errs(torch, got, want) -> tuple:
+    """Per gradient: max |err| over the plain version's max |grad|, and
+    the cosine."""
+    errs = [(g - x).abs().max().item() / x.abs().max().item()
+            for g, x in zip(got, want)]
+    coss = [torch.nn.functional.cosine_similarity(
+        g.flatten(), x.flatten(), dim=0).item() for g, x in zip(got, want)]
+    return errs, coss
+
+
+def _wkv_grads_ok(torch, got, want) -> bool:
+    errs, coss = _wkv_grad_errs(torch, got, want)
+    return max(errs) <= WKV_GRAD_ERR and min(coss) >= WKV_GRAD_COS
+
+
+def wkv_bwd_faults(torch, ops, args, S_in, got, want, label) -> bool:
+    """Kernel B's planted faults, each held against the plain version
+    under WKV_GRAD_ERR / WKV_GRAD_COS, which must reject it: u's term
+    dropped from dk (the kernel's dk less r u (dy . v)); lam's carry into
+    chunk 0 dropped (the kernels on chunk 0's tokens alone, from a zero
+    gradient at their end, spliced in); the decay sum's carry into chunk
+    0 dropped (its <lam, S> at chunk 0's end, lam there from the kernels
+    on the tokens after it, taken out of chunk 0's dlogw).  Prints one
+    line a fault; True when every one is caught."""
+    r, k, v, w, u, S0, dy, dS = args
+    Bn, S, H, _ = r.shape
+    L = ops.wkv6_chunk(Bn, S, H, ops._sm_count(r.device))
+    if S <= L:
+        raise AssertionError(f"wkv6_bwd faults at {label}: one chunk")
+    u_dropped = list(got)
+    u_dropped[1] = got[1] - r * u * (dy * v).sum(-1, keepdim=True)
+    head = tuple(t[:, :L].contiguous() for t in (r, k, v, w))
+    _, _, s_head = ops.wkv6_train(*head, u, S0)
+    g_head = ops.wkv6_bwd(*head, u, s_head, dy[:, :L].contiguous(),
+                          torch.zeros_like(dS))
+    lam_dropped = [t.clone() for t in got]
+    for i in (1, 2, 3):
+        lam_dropped[i][:, :L] = g_head[i]
+    lam_dropped[5] = g_head[5]
+    tail = tuple(t[:, L:].contiguous() for t in (r, k, v, w))
+    s1 = S_in[:, :, 1].contiguous()
+    _, _, s_tail = ops.wkv6_train(*tail, u, s1)
+    lam1 = ops.wkv6_bwd(*tail, u, s_tail, dy[:, L:].contiguous(), dS)[5]
+    sum_dropped = list(got)
+    sum_dropped[3] = got[3].clone()
+    sum_dropped[3][:, :L] -= (lam1 * s1).sum(-1)[:, None]
+    caught = True
+    for fault, bad in (("u_term_dropped_from_dk", u_dropped),
+                       ("lam_carry_into_chunk_0_dropped", lam_dropped),
+                       ("decay_sum_carry_into_chunk_0_dropped",
+                        sum_dropped)):
+        errs, coss = _wkv_grad_errs(torch, bad, want)
+        ok = max(errs) <= WKV_GRAD_ERR and min(coss) >= WKV_GRAD_COS
+        log(f"phase=train {label} kernel=wkv6_bwd planted_fault={fault} "
+            f"max_err/max|grad|={max(errs):.3e} min_cosine="
+            f"{min(coss):.6f} rejected={not ok}")
+        caught = caught and not ok
+    return caught
+
+
+def case_wkv_bwd(torch, ops, ref, r, k, v, w, u, S0, dy, dS,
+                 label: str) -> tuple:
+    """Kernel B (wkv6_bwd) against ref.wkv6_bwd on the same float32
+    inputs, S_in from kernel A: each of dr, dk, dv, dlogw, du and dS0
+    within WKV_GRAD_ERR of its max |grad| with a cosine >= WKV_GRAD_COS,
+    two launches bit-equal, and the planted faults rejected.  Its bound:
+    r, k, v, w and dy read and dr, dk, dv and dlogw written (2,304 bytes
+    a (token, head)), S_in, dS and u read, dS0 and du written, against 9
+    float32 operations a (token, head, i, j)."""
+    args = (r, k, v, w, u, S0, dy, dS)
+    _, _, S_in = ops.wkv6_train(r, k, v, w, u, S0)
+    got = ops.wkv6_bwd(r, k, v, w, u, S_in, dy, dS)
+    again = ops.wkv6_bwd(r, k, v, w, u, S_in, dy, dS)
+    want = ref.wkv6_bwd(r, k, v, w, u, S0, dy, dS)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    errs, coss = _wkv_grad_errs(torch, got, want)
+    ok = same and max(errs) <= WKV_GRAD_ERR and min(coss) >= WKV_GRAD_COS
+    log(f"wkv6_bwd {_wkv_shape(r)} chunks={S_in.shape[2]} err/max|grad| "
+        + " ".join(f"{n}={e:.3e}" for n, e in zip(
+            ("dr", "dk", "dv", "dlogw", "du", "dS0"), errs))
+        + f" min_cosine={min(coss):.7f} repeat_bit_equal={same} (bar "
+        f"{WKV_GRAD_ERR:.3e}, cosine >= {WKV_GRAD_COS})")
+    ok = wkv_bwd_faults(torch, ops, args, S_in, got, want, label) and ok
+    err = max((g - x).abs().max().item() for g, x in zip(got, want))
+    Bn, S, H, hd = r.shape
+    nbytes = 4 * (9 * r.numel() + S_in.numel() + 2 * dS.numel()
+                  + 2 * u.numel())
+    return (err, ok, lambda: ops.wkv6_bwd(r, k, v, w, u, S_in, dy, dS),
+            lambda: ref.wkv6_bwd(r, k, v, w, u, S0, dy, dS), nbytes,
+            (9 * Bn * S * H * hd * hd, F32_OPS_PER_S), _wkv_shape(r))
+
+
+def _plain_wkv(torch, ref):
+    """``ops.Wkv6Fn``'s stand-in for the train phase's check: the plain
+    forward and the plain backward as an autograd Function, float32 on
+    the card.  Only this script patches it in."""
+    class PlainWkv6(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, r, k, v, logw, u, S0):
+            w = torch.exp(logw)
+            ctx.save_for_backward(r, k, v, w, u, S0)
+            return ref.wkv6(r, k, v, w, u, S0)
+
+        @staticmethod
+        def backward(ctx, dy, dS):
+            return ref.wkv6_bwd(*ctx.saved_tensors, dy, dS)
+    return PlainWkv6
+
+
 def _plain_attention(torch, ref):
     """``ops.flash_prefill``'s stand-in for the train phase's check: the
     plain forward (with lse) and plain backward as an autograd Function,
@@ -3988,13 +4233,184 @@ def _plain_attention(torch, ref):
     return flash
 
 
+class _WkvCapture:
+    """While entered, the inputs of the ``ops.wkv6_bwd`` calls numbered
+    in ``keep`` (in call order: the backward reaches the last layer
+    first), kept on the card: {call: (r, k, v, w, u, S_in, dy, dS)}."""
+
+    def __init__(self, ops, keep):
+        self.ops, self.keep, self.calls, self.n = ops, set(keep), {}, 0
+
+    def __enter__(self):
+        self.saved = self.ops.wkv6_bwd
+
+        def call(*args):
+            if self.n in self.keep:
+                self.calls[self.n] = tuple(t.detach().clone() for t in args)
+            self.n += 1
+            return self.saved(*args)
+        if self.keep:
+            self.ops.wkv6_bwd = call
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.wkv6_bwd = self.saved
+
+
+def _wkv_captured_check(torch, ops, ref, arch, captured, layers: int,
+                        card) -> None:
+    """Each captured WKV backward of the full-depth step 1 (kernel B on
+    the run's own inputs; call n is layer ``layers`` - 1 - n's) against
+    ref.wkv6_bwd on the same inputs, under WKV_GRAD_ERR / WKV_GRAD_COS.
+    Prints one line a call."""
+    if set(captured) != set(WKV_STEP1_CALLS):
+        raise AssertionError(f"train {arch}: captured WKV calls "
+                             f"{sorted(captured)}, not {WKV_STEP1_CALLS}")
+    for n, (r, k, v, w, u, S_in, dy, dS) in sorted(captured.items()):
+        got = ops.wkv6_bwd(r, k, v, w, u, S_in, dy, dS)
+        want = ref.wkv6_bwd(r, k, v, w, u, S_in[:, :, 0], dy, dS)
+        errs, coss = _wkv_grad_errs(torch, got, want)
+        ok = max(errs) <= WKV_GRAD_ERR and min(coss) >= WKV_GRAD_COS
+        log(f"phase=train arch={arch} step1 wkv6_bwd call={n} (layer "
+            f"{layers - 1 - n}) on the run's inputs err/max|grad| "
+            f"max={max(errs):.3e} "
+            f"min_cosine={min(coss):.7f} ok={ok} (bar {WKV_GRAD_ERR:.3e}, "
+            f"cosine >= {WKV_GRAD_COS}) card=[{card}]")
+        if not ok:
+            raise AssertionError(f"train {arch}: wkv6_bwd call {n} "
+                                 f"disagrees with the plain backward")
+        del got, want
+
+
+def _wkv_shallow_step1(torch, ops, ref, arch, Bn, S, seed, card) -> None:
+    """Step 1 of ``arch`` at full width and WKV_STEP1_LAYERS layers (its
+    first layers' weights from the seed), through the kernels and through
+    the plain wkv6 and wkv6_bwd: the loss within TRAIN_LOSS_RTOL and the
+    grad norm within TRAIN_GNORM_RTOL of the plain step's."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, TokenStream
+    from repro_torch.models import model as M
+    from repro_torch.training import trainer as T
+    from repro_torch.training.optimizer import global_norm
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config(arch), num_layers=WKV_STEP1_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = T.trainable(M.init_params(cfg, gen, torch.float32, dev))
+    batch = T.batch_to(TokenStream(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=S, global_batch=Bn,
+        seed=seed)).batch(), dev)
+    out = []
+    for plain in (False, True):
+        kernel_wkv = ops.Wkv6Fn
+        if plain:
+            ops.Wkv6Fn = _plain_wkv(torch, ref)
+        try:
+            loss, grads = T.loss_and_grads(params, cfg, batch, remat=True)
+            out.append((loss.item(), global_norm(grads).item()))
+        finally:
+            ops.Wkv6Fn = kernel_wkv
+        del grads
+    (kl, kg), (pl, pg) = out
+    loss_rel, gn_rel = abs(kl - pl) / abs(pl), abs(kg - pg) / abs(pg)
+    log(f"phase=train arch={arch} step1 reduced=num_layers:"
+        f"{WKV_STEP1_LAYERS}/{get_config(arch).num_layers} (full width) "
+        f"kernel_loss={kl:.6f} plain_loss={pl:.6f} rel={loss_rel:.3e} (bar "
+        f"{TRAIN_LOSS_RTOL}) kernel_grad_norm={kg:.6f} plain_grad_norm="
+        f"{pg:.6f} rel={gn_rel:.3e} (bar {TRAIN_GNORM_RTOL}) card=[{card}]")
+    if loss_rel > TRAIN_LOSS_RTOL or gn_rel > TRAIN_GNORM_RTOL:
+        raise AssertionError(f"train {arch}: step 1 at {WKV_STEP1_LAYERS} "
+                             f"layers disagrees with the plain WKV's")
+    del params
+    _free_memory(torch)
+
+
+def phase_precision(torch, ops, ref, seed: int) -> None:
+    """Only when named in --phases: how well float32 determines
+    rwkv6-1.6b's step-1 gradient at full width and depth (B 2 x 4,096,
+    the train run's batch and weights).  The gradient through the
+    kernels and through the plain wkv6 and wkv6_bwd, in float32, each
+    against the plain step with every operation in float64 (the weights
+    widened; ``torch.Tensor.float`` patched to float64 for that step, so
+    the model's float32 casts widen too).  Prints the global norms and,
+    per layer (and the embedding and head), the float64 gradient's norm
+    and each float32 gradient's relative L2 error."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, TokenStream
+    from repro_torch.models import model as M
+    from repro_torch.training import trainer as T
+    from repro_torch.training.optimizer import global_norm, tree_leaves
+    card = _card()
+    dev = torch.device("cuda")
+    arch = "rwkv6-1.6b"
+    cfg = get_config(arch)
+    Bn, S, _ = TRAIN_RUNS[arch]
+    params = T.trainable(M.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed), torch.float32,
+        dev))
+    batch = T.batch_to(TokenStream(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=S, global_batch=Bn,
+        seed=seed)).batch(), dev)
+
+    def names(t, pre=""):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                yield from names(v, f"{pre}/{k}")
+        elif isinstance(t, list):
+            for i, v in enumerate(t):
+                yield from names(v, f"{pre}/{i}")
+        else:
+            yield pre
+    keys = [m.group(1) if (m := re.match(r"/layers/(\d+)/", n)) else n
+            for n in names(params)]
+    runs = {}
+    kernel_wkv = ops.Wkv6Fn
+    for tag in ("kernels", "plain", "float64"):
+        float32 = torch.Tensor.float
+        if tag != "kernels":
+            ops.Wkv6Fn = _plain_wkv(torch, ref)
+        if tag == "float64":
+            torch.Tensor.float = lambda self: self.double()
+            for t in tree_leaves(params):
+                t.data = t.data.double()
+        try:
+            loss, grads = T.loss_and_grads(params, cfg, batch, remat=True)
+        finally:
+            ops.Wkv6Fn, torch.Tensor.float = kernel_wkv, float32
+        runs[tag] = (loss.item(), global_norm(grads).item(),
+                     [g.double().cpu() for g in grads])
+        del grads
+        _free_memory(torch)
+    del params
+    _free_memory(torch)
+    log(f"phase=precision arch={arch} B={Bn} S={S} losses kernels="
+        f"{runs['kernels'][0]:.9f} plain={runs['plain'][0]:.9f} float64="
+        f"{runs['float64'][0]:.9f} grad_norms kernels={runs['kernels'][1]:.6f}"
+        f" plain={runs['plain'][1]:.6f} float64={runs['float64'][1]:.6f} "
+        f"card=[{card}]")
+    per = {}
+    for key, gk, gp, g64 in zip(keys, runs["kernels"][2], runs["plain"][2],
+                                runs["float64"][2]):
+        d = per.setdefault(key, [0.0, 0.0, 0.0])
+        d[0] += g64.norm().item() ** 2
+        d[1] += (gk - g64).norm().item() ** 2
+        d[2] += (gp - g64).norm().item() ** 2
+    log(f"phase=precision arch={arch} per_layer " + json.dumps({
+        key: {"norm64": round(n2 ** 0.5, 6),
+              "rel_l2_kernels": round((ek / n2) ** 0.5, 6),
+              "rel_l2_plain": round((ep / n2) ** 0.5, 6)}
+        for key, (n2, ek, ep) in per.items()}) + f" card=[{card}]")
+
+
 def _want_launches(cfg, steps: int) -> dict:
     """Each training kernel's launches over ``steps`` steps of ``cfg``
     with remat on: every decoder layer's self-attention forward twice (the
     step and remat's rerun) and backward once, and Whisper's
     cross-attention the same; the encoder's (not checkpointed) once
-    each.  Every forward is the lse instance."""
-    L = cfg.num_layers
+    each.  Every forward is the lse instance.  RWKV6's layers run the
+    WKV recurrence instead, forward (kernel A) twice and backward once."""
+    rwkv = cfg.attention_type == "none"
+    R = cfg.num_layers if rwkv else 0
+    L = 0 if rwkv else cfg.num_layers
     E = cfg.encoder_layers if cfg.is_encoder_decoder else 0
     X = L if cfg.is_encoder_decoder else 0        # cross-attentions
     mla = cfg.attention_type == "mla"
@@ -4004,39 +4420,52 @@ def _want_launches(cfg, steps: int) -> dict:
             "flash_prefill:lse_mla": 2 * L if mla else 0,
             "flash_prefill_bwd:mla": L if mla else 0,
             "flash_prefill:lse_noncausal": E + 2 * X,
-            "flash_prefill_bwd:noncausal": E + X}
+            "flash_prefill_bwd:noncausal": E + X,
+            "wkv6": 2 * R, "wkv6:train": 2 * R, "wkv6_bwd": R}
     return {k: n * steps for k, n in want.items()}
 
 
 class _ShapeTally:
     """While entered, the launches of training's forward (with lse) and
-    backward counted by ``_attn_shape``, beside the wrappers' own counts:
-    {"flash_prefill:lse" or "flash_prefill_bwd": {shape: calls}}.  The
-    wrappers are patched in ``ops``, whose FlashPrefillFn calls them."""
+    backward counted by ``_attn_shape``, and of the WKV recurrence's by
+    ``_wkv_shape``, beside the wrappers' own counts: {key: {shape:
+    calls}}, a key for each wrapper of ``WRAPPERS``.  The wrappers are
+    patched in ``ops``, whose FlashPrefillFn and Wkv6Fn call them."""
+
+    # record key -> ops wrapper
+    WRAPPERS = {"flash_prefill:lse": "flash_prefill_fwd_lse",
+                "flash_prefill_bwd": "flash_prefill_bwd",
+                "wkv6:train": "wkv6_train", "wkv6_bwd": "wkv6_bwd"}
 
     def __init__(self, ops):
         self.ops = ops
-        self.calls = {"flash_prefill:lse": {}, "flash_prefill_bwd": {}}
+        self.calls = {key: {} for key in self.WRAPPERS}
+
+    def _count(self, key, shape):
+        self.calls[key][shape] = self.calls[key].get(shape, 0) + 1
 
     def _wrap(self, key, fn):
+        if key.startswith("wkv6"):
+            def call(r, *args):
+                self._count(key, _wkv_shape(r))
+                return fn(r, *args)
+            return call
+
         def call(q, k, v, *args, causal=True, **kw):
-            shape = _attn_shape(q, k, v, causal)
-            self.calls[key][shape] = self.calls[key].get(shape, 0) + 1
+            self._count(key, _attn_shape(q, k, v, causal))
             return fn(q, k, v, *args, causal=causal, **kw)
         return call
 
     def __enter__(self):
-        self.saved = (self.ops.flash_prefill_fwd_lse,
-                      self.ops.flash_prefill_bwd)
-        self.ops.flash_prefill_fwd_lse = self._wrap("flash_prefill:lse",
-                                                    self.saved[0])
-        self.ops.flash_prefill_bwd = self._wrap("flash_prefill_bwd",
-                                                self.saved[1])
+        self.saved = {key: getattr(self.ops, fn)
+                      for key, fn in self.WRAPPERS.items()}
+        for key, fn in self.WRAPPERS.items():
+            setattr(self.ops, fn, self._wrap(key, self.saved[key]))
         return self
 
     def __exit__(self, *exc):
-        self.ops.flash_prefill_fwd_lse, self.ops.flash_prefill_bwd = \
-            self.saved
+        for key, fn in self.WRAPPERS.items():
+            setattr(self.ops, fn, self.saved[key])
 
 
 def _train_run(torch, np, ops, ref, arch: str, Bn: int, S: int, frames: int,
@@ -4074,18 +4503,25 @@ def _train_run(torch, np, ops, ref, arch: str, Bn: int, S: int, frames: int,
             device=dev) * 0.02
     positions = Bn * (S + (cfg.num_patches
                            if cfg.frontend == "vit_patch_stub" else 0))
-    # step 1 with the plain attention, then the same weights through the
-    # kernels (the trainer's only route)
-    kernel_flash = ops.flash_prefill
+    # step 1 with the plain attention and WKV recurrence, then the same
+    # weights through the kernels (the trainer's only route)
+    # (RWKV6: the loss alone, its forward; its grad norm is held at
+    # WKV_STEP1_LAYERS layers, _wkv_shallow_step1)
+    wkv = cfg.attention_type == "none"
+    kernel_flash, kernel_wkv = ops.flash_prefill, ops.Wkv6Fn
     ops.flash_prefill = _plain_attention(torch, ref)
+    ops.Wkv6Fn = _plain_wkv(torch, ref)
     try:
         t0 = time.perf_counter()
-        loss, grads = T.loss_and_grads(params, cfg, batch, remat=True)
-        plain = (loss.item(), global_norm(grads).item())
+        if wkv:
+            plain = (M.forward_train(params, cfg, batch)[0].item(), None)
+        else:
+            loss, grads = T.loss_and_grads(params, cfg, batch, remat=True)
+            plain = (loss.item(), global_norm(grads).item())
+            del loss, grads
         plain_s = time.perf_counter() - t0
     finally:
-        ops.flash_prefill = kernel_flash
-    del grads
+        ops.flash_prefill, ops.Wkv6Fn = kernel_flash, kernel_wkv
     _free_memory(torch)
     step = T.make_train_step(cfg, AdamWConfig(
         lr=lr, warmup_steps=1, total_steps=steps), remat=True)
@@ -4095,13 +4531,16 @@ def _train_run(torch, np, ops, ref, arch: str, Bn: int, S: int, frames: int,
     ops.launches.reset()
     losses, gnorms, times = [], [], []
     with _ShapeTally(ops) as tally:
-        for _ in range(steps):
+        for i in range(steps):
             t0 = time.perf_counter()
-            params, opt, m = step(params, opt, batch)
-            torch.cuda.synchronize()
+            with _WkvCapture(ops, WKV_STEP1_CALLS if i == 0 else ()) as cap:
+                params, opt, m = step(params, opt, batch)
+                torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
             losses.append(m["loss"])
             gnorms.append(m["grad_norm"])
+            if i == 0:
+                captured = cap.calls
     counts = ops.launches.snapshot()
     peak = torch.cuda.max_memory_allocated()
     losses = [x.item() for x in losses]
@@ -4128,21 +4567,35 @@ def _train_run(torch, np, ops, ref, arch: str, Bn: int, S: int, frames: int,
                       for k, c in tally.calls.items()})
         + f" card=[{card}]")
     loss_rel = abs(losses[0] - plain[0]) / abs(plain[0])
-    gn_rel = abs(gnorms[0] - plain[1]) / abs(plain[1])
+    gn_rel = (0.0 if wkv else abs(gnorms[0] - plain[1]) / abs(plain[1]))
     log(f"phase=train arch={arch} step1 kernel_loss={losses[0]:.6f} "
         f"plain_loss={plain[0]:.6f} rel={loss_rel:.3e} (bar "
         f"{TRAIN_LOSS_RTOL}) kernel_grad_norm={gnorms[0]:.6f} "
-        f"plain_grad_norm={plain[1]:.6f} rel={gn_rel:.3e} (bar "
-        f"{TRAIN_GNORM_RTOL}) plain_step_s={plain_s:.2f} card=[{card}]")
+        + (f"plain_grad_norm=None (held at {WKV_STEP1_LAYERS} layers: "
+           f"float32 does not determine this gradient at full depth)"
+           if wkv else f"plain_grad_norm={plain[1]:.6f} rel={gn_rel:.3e} "
+           f"(bar {TRAIN_GNORM_RTOL})")
+        + f" plain_{'forward' if wkv else 'step'}_s={plain_s:.2f} "
+        f"card=[{card}]")
     if any(counts.get(k, 0) != n for k, n in want.items()):
         raise AssertionError(f"train {arch}: launches {counts} are not "
                              f"{want}")
     if not all(np.isfinite(losses + gnorms)) or losses[-1] >= losses[0]:
         raise AssertionError(f"train {arch}: the loss did not fall: "
                              f"{losses}")
+    # RWKV6's float32 gradient at full depth is ill-conditioned (PERF.md
+    # §6, PR 28; the precision phase): its grad norm is held at
+    # WKV_STEP1_LAYERS layers instead, and each captured WKV backward
+    # of the full-depth step against the plain one on its own inputs
     if loss_rel > TRAIN_LOSS_RTOL or gn_rel > TRAIN_GNORM_RTOL:
         raise AssertionError(f"train {arch}: step 1 disagrees with the "
                              f"plain attention's")
+    if wkv:
+        _wkv_captured_check(torch, ops, ref, arch, captured,
+                            cfg.num_layers, card)
+        del captured
+        _free_memory(torch)
+        _wkv_shallow_step1(torch, ops, ref, arch, Bn, S, seed, card)
     return params, opt, counts, tally.calls
 
 
@@ -4193,9 +4646,20 @@ def phase_train(torch, np, ops, ref, timer, seed: int) -> tuple:
                       names, causal)
         del q, k, v, do
     _free_memory(torch)
+    for i, (label, Bn, S, lens) in enumerate(WKV_TRAIN_CASES):
+        gen = torch.Generator(device=dev).manual_seed(seed + 200 + i)
+        args = _wkv_train_inputs(torch, gen, Bn, S, lens)
+        for name, case in (
+                ("wkv6:train", case_wkv_train(torch, ops, ref, *args[:6])),
+                ("wkv6_bwd", case_wkv_bwd(torch, ops, ref, *args,
+                                          label))):
+            results.setdefault(name, {})[label] = run_case(
+                "train", label, name, case, timer, device=True)
+        del args
+        _free_memory(torch)
 
     totals: dict = {}
-    by_shape = {"flash_prefill:lse": {}, "flash_prefill_bwd": {}}
+    by_shape = {key: {} for key in _ShapeTally.WRAPPERS}
     runs = [(TRAIN_ARCH, TRAIN_B, TRAIN_S, 0, TRAIN_STEPS, 1e-3)] + [
         (arch, Bn, S, frames, TRAIN_RUN_STEPS, TRAIN_RUN_LR)
         for arch, (Bn, S, frames) in TRAIN_RUNS.items()]
@@ -4346,8 +4810,8 @@ def main() -> int:
                          "serve,serve_int8,oracles,models,obs,async,train,"
                          "calibrate (serve "
                          "and serve_int8 include their mainpath replays; "
-                         "serve_int8 needs serve) plus the optional profile "
-                         "and profile_int8")
+                         "serve_int8 needs serve) plus the optional "
+                         "profile, profile_int8 and precision")
     args = ap.parse_args()
     phases = args.phases.split(",")
     import numpy as np
@@ -4420,6 +4884,8 @@ def main() -> int:
     if "calibrate" in phases:
         phase_calibrate(torch, ops)
     records = kernel_records(parity, mainpath, counts)
+    if "precision" in phases:
+        phase_precision(torch, ops, ref, args.seed)
     if "profile" in phases:
         phase_profile(torch, np, args.seed)
     if "profile_int8" in phases:

@@ -69,6 +69,17 @@
 // shuffles a stage), so launch 3's inner loop spends 3 instructions per
 // (i, j): r S into four partial sums, k v, and w S + k v.  Launch 1's
 // spends 2.
+//
+// Training's forward (launch_wkv6_f32, "kernel A") is a second template
+// instance of launches 1-3: r, k and v arrive in float32 (the reference
+// trains in float32, and so do the port's weights, so the training path
+// casts nothing), and the carries' S_in[c] stay in the caller's scratch
+// for the backward (csrc/wkv6_bwd.cu).  Its bytes bind: 1,280 a (token,
+// head) against the serve's 896, 0.100 ms at B 2 x 4,096 and 32 heads
+// against 0.080 ms for its operations.  The bf16 instances keep their
+// code.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -94,13 +105,14 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // kEmit: launch 3 (reads r, writes y); else launch 1 (k, v, w only).
-template <bool kEmit>
+// T: r, k and v as they arrive, bf16 (the serve) or float32 (training).
+template <bool kEmit, typename T>
 struct Stage {
   static constexpr int kR = kEmit ? kStage : 1;
   // raw, as cp.async lands it
-  __align__(16) __nv_bfloat16 r[kR][kHead];
-  __align__(16) __nv_bfloat16 k[kStage][kHead];
-  __align__(16) __nv_bfloat16 v[kStage][kHead];
+  __align__(16) T r[kR][kHead];
+  __align__(16) T k[kStage][kHead];
+  __align__(16) T v[kStage][kHead];
   __align__(16) float w[kStage][kHead];
   // the float32 working copy of the stage being computed
   __align__(16) float rf[kR][kHead];
@@ -111,13 +123,15 @@ struct Stage {
 };
 
 // Copy tokens [t0, t0 + n) of one (row, head) into the raw buffer: 16-byte
-// pieces, w's 16 per token first, then k's, v's (and r's) 8 each.
-template <bool kEmit>
+// pieces, w's 16 per token first, then k's, v's (and r's), kP each (8 of
+// bf16, 16 of float32).
+template <bool kEmit, typename T>
 __device__ __forceinline__ void issue_stage(
-    Stage<kEmit>& sm, const __nv_bfloat16* r, const __nv_bfloat16* k,
-    const __nv_bfloat16* v, const float* w, size_t off, size_t stride,
-    int n) {
-  constexpr int kPieces = 16 + (kEmit ? 3 : 2) * 8;
+    Stage<kEmit, T>& sm, const T* r, const T* k, const T* v, const float* w,
+    size_t off, size_t stride, int n) {
+  constexpr int kPer = 16 / sizeof(T);        // values a piece
+  constexpr int kP = kHead / kPer;            // pieces of one token's r, k, v
+  constexpr int kPieces = 16 + (kEmit ? 3 : 2) * kP;
   for (int p = threadIdx.x; p < n * kPieces; p += kThreads) {
     const int t = p / kPieces;
     int q = p % kPieces;
@@ -127,13 +141,13 @@ __device__ __forceinline__ void issue_stage(
       continue;
     }
     q -= 16;
-    const int e = (q % 8) * 8;
-    if (q < 8)
+    const int e = (q % kP) * kPer;
+    if (q < kP)
       cp_async16(&sm.k[t][e], k + src + e);
-    else if (q < 16)
+    else if (q < 2 * kP)
       cp_async16(&sm.v[t][e], v + src + e);
     else
-      cp_async16(&sm.r[t % Stage<kEmit>::kR][e], r + src + e);
+      cp_async16(&sm.r[t % Stage<kEmit, T>::kR][e], r + src + e);
   }
   cp_async_commit();
 }
@@ -161,11 +175,11 @@ __device__ __forceinline__ float transpose_sum16(float (&v)[kStage],
 // One (row, head, chunk): tokens [t_begin, t_end), from the state at s_in
 // ((i, j) row-major; nullptr: zero), left in st (st[cc][i] = S[i][j],
 // j = lane + 32 cc).  The first stage is in flight while the state loads.
-template <bool kEmit>
+template <bool kEmit, typename T>
 __device__ __forceinline__ void run_chunk(
-    Stage<kEmit>& sm, float (&st)[kCols][kHead], float (&wprod)[kCols],
-    const float* __restrict__ s_in, const __nv_bfloat16* __restrict__ r,
-    const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
+    Stage<kEmit, T>& sm, float (&st)[kCols][kHead], float (&wprod)[kCols],
+    const float* __restrict__ s_in, const T* __restrict__ r,
+    const T* __restrict__ k, const T* __restrict__ v,
     const float* __restrict__ w, const float* __restrict__ u,
     float* __restrict__ y, size_t b, int h, int H, int S, int t_begin,
     int t_end) {
@@ -276,20 +290,20 @@ __device__ __forceinline__ void run_chunk(
 
 // Launch 1: grid (chunks - 1, H, B).  Chunk c's end state from a zero
 // state into scratch slot c, its decay product into wprod.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-wkv6_local_kernel(const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v,
+wkv6_local_kernel(const T* __restrict__ k, const T* __restrict__ v,
                   const float* __restrict__ w, float* __restrict__ scratch,
                   float* __restrict__ wprod, int S, int H, int L, int nc) {
-  __shared__ Stage<false> sm;
+  __shared__ Stage<false, T> sm;
   const int c = blockIdx.x, h = blockIdx.y, lane = threadIdx.x;
   const size_t b = blockIdx.z;
   const size_t slot = (b * H + h) * nc + c;
   float st[kCols][kHead];
   float wp[kCols] = {1.f, 1.f};
   const int t_begin = c * L;
-  run_chunk<false>(sm, st, wp, nullptr, nullptr, k, v, w, nullptr, nullptr,
-                   b, h, H, S, t_begin, min(S, t_begin + L));
+  run_chunk<false, T>(sm, st, wp, nullptr, nullptr, k, v, w, nullptr,
+                      nullptr, b, h, H, S, t_begin, min(S, t_begin + L));
   float* out = scratch + slot * kState;
 #pragma unroll
   for (int cc = 0; cc < kCols; ++cc) {
@@ -333,22 +347,22 @@ wkv6_carry_kernel(const float* __restrict__ s0, float* __restrict__ scratch,
 
 // Launch 3: grid (nc, H, B).  Chunk c from S_in[c] (s_in slot c: scratch,
 // or S0 when nc = 1), writing y; the last chunk writes the final state.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-wkv6_emit_kernel(const __nv_bfloat16* __restrict__ r,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 const float* __restrict__ w, const float* __restrict__ u,
-                 const float* __restrict__ s_in, float* __restrict__ y,
-                 float* __restrict__ s_out, int S, int H, int L, int nc) {
-  __shared__ Stage<true> sm;
+wkv6_emit_kernel(const T* __restrict__ r, const T* __restrict__ k,
+                 const T* __restrict__ v, const float* __restrict__ w,
+                 const float* __restrict__ u, const float* __restrict__ s_in,
+                 float* __restrict__ y, float* __restrict__ s_out, int S,
+                 int H, int L, int nc) {
+  __shared__ Stage<true, T> sm;
   const int c = blockIdx.x, h = blockIdx.y, lane = threadIdx.x;
   const size_t b = blockIdx.z;
   const size_t head = b * H + h;
   float st[kCols][kHead];
   float unused[kCols];
   const int t_begin = c * L;
-  run_chunk<true>(sm, st, unused, s_in + (head * nc + c) * kState, r, k, v,
-                  w, u, y, b, h, H, S, t_begin, min(S, t_begin + L));
+  run_chunk<true, T>(sm, st, unused, s_in + (head * nc + c) * kState, r, k,
+                     v, w, u, y, b, h, H, S, t_begin, min(S, t_begin + L));
   if (c == nc - 1) {
     float* out = s_out + head * kState;
 #pragma unroll
@@ -420,6 +434,54 @@ wkv6_step_kernel(const __nv_bfloat16* __restrict__ r,
 
 }  // namespace
 
+// The three launches of a window (or launch 3 alone for one chunk);
+// r, k and v of type T.  The decode step (S = 1) of the serve's bf16
+// instance takes wkv6_step_kernel; the training instance (float32) runs
+// every window here.  scratch holds S_in[c] after the call.
+template <typename T>
+static int launch_window(const void* r, const void* k, const void* v, const void* w,
+                  const void* u, const void* s0, void* y, void* s_out,
+                  void* scratch, void* wprod, int B, int S, int H, int hd,
+                  int L, void* stream) {
+  if (hd != kHead || B < 0 || S < 0 || H <= 0 || B > 65535 || H > 65535 ||
+      L <= 0 || L % kStage != 0)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* rb = static_cast<const T*>(r);
+  const auto* kb = static_cast<const T*>(k);
+  const auto* vb = static_cast<const T*>(v);
+  const auto* wf = static_cast<const float*>(w);
+  const auto* uf = static_cast<const float*>(u);
+  const auto* s0f = static_cast<const float*>(s0);
+  auto* yf = static_cast<float*>(y);
+  auto* so = static_cast<float*>(s_out);
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    if (S == 1) {
+      wkv6_step_kernel<<<dim3(H, B), kStepThreads, 0, st>>>(
+          rb, kb, vb, wf, uf, s0f, yf, so, H);
+      return (int)cudaGetLastError();
+    }
+  }
+  if (S <= L) {     // one pass from S0
+    wkv6_emit_kernel<T><<<dim3(1, H, B), kThreads, 0, st>>>(
+        rb, kb, vb, wf, uf, s0f, yf, so, S, H, S, 1);
+    return (int)cudaGetLastError();
+  }
+  if (scratch == nullptr || wprod == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const int nc = (S + L - 1) / L;
+  auto* sc = static_cast<float*>(scratch);
+  auto* wp = static_cast<float*>(wprod);
+  wkv6_local_kernel<T><<<dim3(nc - 1, H, B), kThreads, 0, st>>>(
+      kb, vb, wf, sc, wp, S, H, L, nc);
+  wkv6_carry_kernel<<<dim3(kState / kCarryThreads, H, B), kCarryThreads, 0,
+                      st>>>(s0f, sc, wp, H, nc);
+  wkv6_emit_kernel<T><<<dim3(nc, H, B), kThreads, 0, st>>>(
+      rb, kb, vb, wf, uf, sc, yf, so, S, H, L, nc);
+  return (int)cudaGetLastError();
+}
+
 // r, k and v bfloat16; w, u, S0, y and S_out float32; all contiguous and
 // 16-byte aligned.  The head width must be 64.  L: the chunk length, a
 // multiple of kStage; with L >= S one launch from S0 and no scratch, else
@@ -430,39 +492,21 @@ extern "C" int launch_wkv6(const void* r, const void* k, const void* v,
                            void* y, void* s_out, void* scratch, void* wprod,
                            int B, int S, int H, int hd, int L,
                            void* stream) {
-  if (hd != kHead || B < 0 || S < 0 || H <= 0 || B > 65535 || H > 65535 ||
-      L <= 0 || L % kStage != 0)
-    return (int)cudaErrorInvalidValue;
-  if (B == 0) return (int)cudaGetLastError();
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* rb = static_cast<const __nv_bfloat16*>(r);
-  const auto* kb = static_cast<const __nv_bfloat16*>(k);
-  const auto* vb = static_cast<const __nv_bfloat16*>(v);
-  const auto* wf = static_cast<const float*>(w);
-  const auto* uf = static_cast<const float*>(u);
-  const auto* s0f = static_cast<const float*>(s0);
-  auto* yf = static_cast<float*>(y);
-  auto* so = static_cast<float*>(s_out);
-  if (S == 1) {
-    wkv6_step_kernel<<<dim3(H, B), kStepThreads, 0, st>>>(
-        rb, kb, vb, wf, uf, s0f, yf, so, H);
-    return (int)cudaGetLastError();
-  }
-  if (S <= L) {     // one pass from S0
-    wkv6_emit_kernel<<<dim3(1, H, B), kThreads, 0, st>>>(
-        rb, kb, vb, wf, uf, s0f, yf, so, S, H, S, 1);
-    return (int)cudaGetLastError();
-  }
-  if (scratch == nullptr || wprod == nullptr)
-    return (int)cudaErrorInvalidValue;
-  const int nc = (S + L - 1) / L;
-  auto* sc = static_cast<float*>(scratch);
-  auto* wp = static_cast<float*>(wprod);
-  wkv6_local_kernel<<<dim3(nc - 1, H, B), kThreads, 0, st>>>(
-      kb, vb, wf, sc, wp, S, H, L, nc);
-  wkv6_carry_kernel<<<dim3(kState / kCarryThreads, H, B), kCarryThreads, 0,
-                      st>>>(s0f, sc, wp, H, nc);
-  wkv6_emit_kernel<<<dim3(nc, H, B), kThreads, 0, st>>>(
-      rb, kb, vb, wf, uf, sc, yf, so, S, H, L, nc);
-  return (int)cudaGetLastError();
+  return launch_window<__nv_bfloat16>(r, k, v, w, u, s0, y, s_out, scratch,
+                                      wprod, B, S, H, hd, L, stream);
+}
+
+// Training's forward (kernel A): launch_wkv6 with float32 r, k and v, the
+// reference's training precision, and no decode-step kernel.  The caller
+// keeps scratch: after the call slot c holds S_in[c], the state before
+// chunk c, which the backward (csrc/wkv6_bwd.cu) reruns each chunk from.
+// Per (token, head) it reads 1,280 bytes (r, k, v and w, 64 float32
+// each) and writes y's 256.
+extern "C" int launch_wkv6_f32(const void* r, const void* k, const void* v,
+                               const void* w, const void* u, const void* s0,
+                               void* y, void* s_out, void* scratch,
+                               void* wprod, int B, int S, int H, int hd,
+                               int L, void* stream) {
+  return launch_window<float>(r, k, v, w, u, s0, y, s_out, scratch, wprod,
+                              B, S, H, hd, L, stream);
 }

@@ -36,6 +36,7 @@ KERNEL_SOURCES = {
     "quant_blocks": "quant_blocks.cu",
     "selective_scan": "selective_scan.cu",
     "wkv6": "wkv6.cu",
+    "wkv6_bwd": "wkv6_bwd.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
@@ -89,6 +90,8 @@ _SIGNATURES = {
     "selective_scan": ("selective_scan", "launch_selective_scan",
                        [_P] * 9 + [_I] * 4 + [_P]),
     "wkv6": ("wkv6", "launch_wkv6", [_P] * 10 + [_I] * 5 + [_P]),
+    "wkv6:train": ("wkv6", "launch_wkv6_f32", [_P] * 10 + [_I] * 5 + [_P]),
+    "wkv6_bwd": ("wkv6_bwd", "launch_wkv6_bwd", [_P] * 17 + [_I] * 5 + [_P]),
 }
 
 

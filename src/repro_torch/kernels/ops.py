@@ -38,14 +38,15 @@ class LaunchCounter:
     """Kernel launches per wrapper name since the last ``reset``; a
     launch of a kernel's other mode or instance also counts under
     "name:mode" (score_select's "mean" and "sum" scorings, the training
-    instances of flash_prefill and flash_prefill_bwd)."""
+    instances of flash_prefill and flash_prefill_bwd, wkv6's training
+    forward)."""
 
     NAMES = ("sparse_decode_attention", "block_score", "score_select",
              "gather_blocks_hkv", "scatter_blocks_hkv", "zero_blocks_hkv",
              "write_blocks_hkv", "flash_prefill", "quantize_blocks",
              "dequantize_blocks", "dequantize_scatter_blocks",
              "quant_save_blocks", "gather_blocks", "scatter_blocks",
-             "selective_scan", "wkv6", "flash_prefill_bwd")
+             "selective_scan", "wkv6", "flash_prefill_bwd", "wkv6_bwd")
 
     def __init__(self):
         self.counts: Dict[str, int] = dict.fromkeys(self.NAMES, 0)
@@ -1280,3 +1281,132 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _raise_on(rc, name)
     launches.add(name)
     return y, S_out
+
+
+def _wkv_chunks(name: str, r: torch.Tensor, u: torch.Tensor,
+                S0: torch.Tensor, *more: torch.Tensor) -> Tuple[int, int]:
+    """Checks of the training kernels' float32 operands (r, k, v, w[, dy]
+    in ``more`` beside r, u, the state) -> (L, nc): ``wkv6_chunk``'s
+    chunk length and the window's chunk count (1 when S <= L)."""
+    Bt, S, H, hd = r.shape
+    _check_cuda(name, r.device, r=r, u=u, S0=S0,
+                **{f"operand{i}": t for i, t in enumerate(more)})
+    _check(all(t.dtype == torch.float32 for t in (r, u, S0) + more),
+           f"{name}: every operand float32 (the training precision)")
+    _check(hd == WKV_HEAD, f"{name}: the kernel takes head width "
+                           f"{WKV_HEAD} only (hd = {hd})")
+    _check(S > 0 and all(t.shape == r.shape for t in more)
+           and u.shape == (H, hd) and S0.shape[:2] == (Bt, H)
+           and S0.shape[-2:] == (hd, hd) and 2 * Bt <= 65535,
+           f"{name}: needs r, k, v, w (B, S, H, {hd}) with S > 0 and "
+           f"B <= 32767, u (H, {hd}), states (B, H, ..., {hd}, {hd})")
+    _check(_aligned(r, u, S0, *more), f"{name}: 16-byte alignment")
+    L = wkv6_chunk(Bt, S, H, _sm_count(r.device))
+    return L, (-(-S // L) if S > L else 1)
+
+
+def wkv6_train(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               w: torch.Tensor, u: torch.Tensor, S0: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Training's forward of the WKV recurrence: ``wkv6``'s function on
+    float32 r, k, v (the reference's training precision) -> (y, the final
+    state, S_in (B, H, nc, hd, hd): the state before each of the kernel's
+    time chunks, which ``wkv6_bwd`` reruns them from; S0 itself, as one
+    chunk, on the CPU or for a window of one chunk).  On the GPU
+    ``launch_wkv6_f32`` (csrc/wkv6.cu, kernel A), every operand float32,
+    hd = 64; a call counts under "wkv6" and "wkv6:train"."""
+    if _all_cpu(r, k, v, w, u, S0):
+        y, S_fin = ref.wkv6(r, k, v, w, u, S0)
+        return y, S_fin, S0[:, :, None]
+    name = "wkv6"
+    Bt, S, H, hd = r.shape
+    L, nc = _wkv_chunks(name, r, u, S0, k, v, w)
+    _check(S0.shape == (Bt, H, hd, hd), f"{name}: S0 (B, H, {hd}, {hd})")
+    dev = r.device
+    y = torch.empty((Bt, S, H, hd), dtype=torch.float32, device=dev)
+    S_out = torch.empty((Bt, H, hd, hd), dtype=torch.float32, device=dev)
+    S_in, wprod = S0[:, :, None], None
+    if nc > 1:
+        S_in = torch.empty((Bt, H, nc, hd, hd), dtype=torch.float32,
+                           device=dev)
+        wprod = torch.empty((Bt, H, nc, hd), dtype=torch.float32, device=dev)
+    rc = LIBS.fn("wkv6:train")(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+        S0.data_ptr(), y.data_ptr(), S_out.data_ptr(),
+        S_in.data_ptr() if nc > 1 else None,
+        None if wprod is None else wprod.data_ptr(), Bt, S, H, hd, L,
+        _stream())
+    _raise_on(rc, name)
+    launches.add(name, "train")
+    return y, S_out, S_in
+
+
+def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             w: torch.Tensor, u: torch.Tensor, S_in: torch.Tensor,
+             dy: torch.Tensor, dS: torch.Tensor
+             ) -> Tuple[torch.Tensor, ...]:
+    """The gradient of ``wkv6_train`` (``ref.wkv6_bwd``): r, k, v, w, dy
+    (B, S, H, hd); u (H, hd); S_in from ``wkv6_train``; dS the final
+    state's gradient (B, H, hd, hd) -> (dr, dk, dv, dlogw (the gradient
+    of log w), du, dS0), float32.  On the GPU the kernels of
+    csrc/wkv6_bwd.cu (kernel B: the forward's time chunks in reverse, du
+    summed in a fixed order, deterministic), every operand float32, hd =
+    64, S_in with the forward's chunk count; a call counts one launch.
+    A CUDA tensor it cannot take raises, naming the limit."""
+    if _all_cpu(r, k, v, w, u, S_in, dy, dS):
+        return ref.wkv6_bwd(r, k, v, w, u, S_in[:, :, 0], dy, dS)
+    name = "wkv6_bwd"
+    Bt, S, H, hd = r.shape
+    L, nc = _wkv_chunks(name, r, u, dS, k, v, w, dy)
+    _check(S_in.device == r.device and S_in.is_contiguous()
+           and S_in.dtype == torch.float32 and _aligned(S_in)
+           and S_in.shape == (Bt, H, nc, hd, hd)
+           and dS.shape == (Bt, H, hd, hd),
+           f"{name}: S_in (B, H, {nc}, {hd}, {hd}), the forward's chunks "
+           f"at L {L} (got {tuple(S_in.shape)}), dS (B, H, {hd}, {hd})")
+    dev = r.device
+
+    def new(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+    dr, dk, dv, dlogw = (new(Bt, S, H, hd) for _ in range(4))
+    du, dS0, dupart = new(H, hd), new(Bt, H, hd, hd), new(Bt, H, nc, hd)
+    lam, wprod = ((new(Bt, H, nc, hd, hd), new(Bt, H, nc, hd)) if nc > 1
+                  else (None, None))
+    rc = LIBS.fn(name)(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+        S_in.data_ptr(), dy.data_ptr(), dS.data_ptr(), dr.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), dlogw.data_ptr(), du.data_ptr(),
+        dS0.data_ptr(), None if lam is None else lam.data_ptr(),
+        None if wprod is None else wprod.data_ptr(), dupart.data_ptr(),
+        Bt, S, H, hd, L, _stream())
+    _raise_on(rc, name)
+    launches.add(name)
+    return dr, dk, dv, dlogw, du, dS0
+
+
+class Wkv6Fn(torch.autograd.Function):
+    """The WKV recurrence with a gradient, for training: (r, k, v, log w
+    (B, S, H, hd), u (H, hd), S0 (B, H, hd, hd)) -> (y, the final state),
+    ``wkv6``'s function with w = exp(log w).  Forward ``wkv6_train``
+    (kernel A), backward ``wkv6_bwd`` (kernel B), which returns the
+    gradient of log w, so no gradient divides by a w that may underflow.
+    Every operand runs in float32 (others are cast, the gradients cast
+    back to each input's dtype); on the CPU both are the plain versions.
+    """
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u, S0):
+        ctx.dtypes = tuple(t.dtype for t in (r, k, v, logw, u, S0))
+        r, k, v, logw, u, S0 = (t.float().contiguous()
+                                for t in (r, k, v, logw, u, S0))
+        w = torch.exp(logw)
+        y, S_fin, S_in = wkv6_train(r, k, v, w, u, S0)
+        ctx.save_for_backward(r, k, v, w, u, S_in)
+        return y, S_fin
+
+    @staticmethod
+    def backward(ctx, dy, dS):
+        r, k, v, w, u, S_in = ctx.saved_tensors
+        grads = wkv6_bwd(r, k, v, w, u, S_in, dy.float().contiguous(),
+                         dS.float().contiguous())
+        return tuple(g.to(dt) for g, dt in zip(grads, ctx.dtypes))

@@ -470,3 +470,56 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         S = w[:, t, :, :, None] * S + kv
     y = torch.stack(ys, dim=1) if ys else r.new_zeros(r.shape)
     return y, S
+
+
+def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             w: torch.Tensor, u: torch.Tensor, S0: torch.Tensor,
+             dy: torch.Tensor, dS: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, ...]:
+    """The gradient of ``wkv6``, the explicit reverse loop of its token
+    walk: r, k, v, w, dy (B, S, H, hd); u (H, hd); S0 and dS, the
+    gradient of the final state (None: zero), (B, H, hd, hd).  With S_t
+    the state before token t (recomputed by the forward loop) and lam_t
+    the gradient of the state after token t (lam_{S-1} = dS; lam_{t-1} =
+    w_t lam_t + r_t dy_t, the reverse loop), and dyv = dy . v:
+      dr_i = sum_j dy_j S_ij + u_i k_i dyv
+      dk_i = sum_j lam_ij v_j + r_i u_i dyv
+      dv_j = sum_i lam_ij k_i + (sum_i r_i u_i k_i) dy_j
+      dlogw_i = w_i sum_j lam_ij S_ij        (the gradient of log w)
+      du_i = sum over rows and tokens of r_i k_i dyv
+    per token.  Only the two recurrences step token by token (both
+    states kept); the per-token sums run over 256 tokens at a time (the
+    bound on their products' scratch).
+    Returns (dr, dk, dv, dlogw, du, dS0 = the gradient of S0), all
+    float32."""
+    r, k, v, w, dy = (t.float() for t in (r, k, v, w, dy))
+    u = u.float()
+    B, T, H, hd = r.shape
+    # states[:, t]: S before token t; lams[:, t]: the gradient of the state
+    # before token t (lams[:, T] = dS)
+    states = r.new_empty((B, T + 1, H, hd, hd))
+    states[:, 0] = S0.float()
+    for t in range(T):
+        torch.addcmul(k[:, t, :, :, None] * v[:, t, :, None, :],
+                      w[:, t, :, :, None], states[:, t],
+                      out=states[:, t + 1])
+    lams = r.new_empty((B, T + 1, H, hd, hd))
+    lams[:, T] = 0.0 if dS is None else dS.float()
+    for t in range(T - 1, -1, -1):
+        torch.addcmul(r[:, t, :, :, None] * dy[:, t, :, None, :],
+                      w[:, t, :, :, None], lams[:, t + 1], out=lams[:, t])
+    dyv = (dy * v).sum(-1, keepdim=True)
+    dr, dk, dv, dlogw = (torch.empty_like(r) for _ in range(4))
+    for t0 in range(0, T, 256):
+        end = min(t0 + 256, T)
+        sl, nx = slice(t0, end), slice(t0 + 1, end + 1)
+        st, lam = states[:, sl], lams[:, nx]
+        dr[:, sl] = torch.einsum("bthij,bthj->bthi", st, dy[:, sl])
+        dk[:, sl] = torch.einsum("bthij,bthj->bthi", lam, v[:, sl])
+        dv[:, sl] = torch.einsum("bthij,bthi->bthj", lam, k[:, sl])
+        dlogw[:, sl] = w[:, sl] * (lam * st).sum(-1)
+    dr += u * k * dyv
+    dk += r * u * dyv
+    dv += (r * u * k).sum(-1, keepdim=True) * dy
+    du = (r * k * dyv).sum((0, 1))
+    return dr, dk, dv, dlogw, du, lams[:, 0].clone()

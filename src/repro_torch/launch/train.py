@@ -11,13 +11,16 @@ GPU unless ``--device cpu`` (without a card the default raises), at the
 full config or with ``--smoke`` its reduced one.  The counterpart of the
 reference's ``repro/launch/train.py`` without its mesh and shardings (the
 plane meshes come last, ROADMAP.md queue 1 item 9).  The dense GQA, MLA
-(minicpm3-4b) and frontend families (internvl2-2b, whisper-small) train,
-each batch with the reference launcher's stand-ins for the stubbed
-frontends (``training.trainer.frontend_inputs``); other families raise
+(minicpm3-4b), frontend (internvl2-2b, whisper-small) and RWKV6
+(rwkv6-1.6b, its recurrence through ``ops.Wkv6Fn``) families train, each
+batch with the reference launcher's stand-ins for the stubbed frontends
+(``training.trainer.frontend_inputs``); the MoE and hybrid families raise
 (``models.model.check_trainable``).
 
     python -m repro_torch.launch.train --arch minicpm3-4b --steps 3 \
         --batch 1 --seq 4096 --remat
+    python -m repro_torch.launch.train --arch rwkv6-1.6b --steps 3 \
+        --batch 2 --seq 4096 --remat --lr 1e-5
 """
 from __future__ import annotations
 

@@ -295,21 +295,21 @@ def _layer_epilogue(p: Dict, cfg: ModelConfig, x: torch.Tensor,
 
 def check_trainable(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` unless ``cfg`` is of a family the port
-    trains (on every device): dense GQA, MLA, the VLM's patch prefix and
-    Whisper's encoder-decoder; naming what each other family lacks
-    (ROADMAP.md queue 1 item 7's training steps)."""
+    trains (on every device): dense GQA, MLA, the VLM's patch prefix,
+    Whisper's encoder-decoder and RWKV6; naming what each other family
+    lacks (ROADMAP.md queue 1 item 7's training steps)."""
     check_supported(cfg)
     missing = []
     if cfg.num_experts or cfg.arch_type == "moe":
         missing.append("MoE training with the capacity drops and the aux "
                        "loss (step 1)")
-    if cfg.attention_type == "none" or cfg.arch_type == "hybrid":
-        missing.append("backward kernels for selective_scan and wkv6 "
-                       "(step 4)")
+    if cfg.arch_type == "hybrid":
+        missing.append("a backward kernel for selective_scan (step 4; "
+                       "wkv6's is done)")
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: the port trains the dense GQA, MLA and frontend "
-            f"families; missing: " + "; ".join(missing))
+            f"{cfg.name}: the port trains the dense GQA, MLA, frontend "
+            f"and RWKV6 families; missing: " + "; ".join(missing))
 
 
 def forward_train(params: Dict, cfg: ModelConfig, batch: Dict,
@@ -324,7 +324,9 @@ def forward_train(params: Dict, cfg: ModelConfig, batch: Dict,
     projected keys and values.  Every attention runs through
     ``ops.flash_prefill``, which differentiates it (``FlashPrefillFn``:
     causal self-attention, MLA's (96, 64) heads, the encoder's and the
-    cross-attention's non-causal mode).  The reference adds 0.01 x the
+    cross-attention's non-causal mode); RWKV6's recurrence through
+    ``ops.Wkv6Fn``, each layer from a fresh recurrent state (the
+    reference's ``_fresh_rec_state``).  The reference adds 0.01 x the
     MoE's aux loss, which these layers do not have.  ``remat``: each
     decoder layer under ``torch.utils.checkpoint`` (non-reentrant), its
     forward run again on the backward pass, as ``jax.checkpoint`` wraps
@@ -335,8 +337,10 @@ def forward_train(params: Dict, cfg: ModelConfig, batch: Dict,
     h, positions = embed_inputs(params, cfg, batch)
     enc_kvs = encode_inputs(params, cfg, batch)
     for i in range(cfg.num_layers):
-        def run(h_, p=get_layer(params, i), enc_kv=index_enc_kvs(enc_kvs, i)):
-            return layer_forward(p, cfg, h_, positions, enc_kv=enc_kv)[0]
+        def run(h_, p=get_layer(params, i), enc_kv=index_enc_kvs(enc_kvs, i),
+                kind=layer_kind(cfg, i)):
+            return layer_forward(p, cfg, h_, positions, kind=kind,
+                                 enc_kv=enc_kv)[0]
         h = (torch.utils.checkpoint.checkpoint(run, h, use_reentrant=False)
              if remat else run(h))
     labels = batch["labels"]

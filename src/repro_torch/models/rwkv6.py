@@ -11,8 +11,10 @@ and the channel-mix a squared-ReLU FFN; both mix each token with the one
 before it (the token shift).  Decode carries ``S`` and the two shifted
 tokens, an O(1) state with no KV cache, so DSA does not apply.  The
 recurrence goes through ``ops.wkv6`` (the ``wkv6`` kernel on the GPU, its
-plain version on the CPU) on both paths: the decode step is the window of
-one token.  Dtypes are the reference's: ``decay_w0``, ``bonus_u``,
+plain version on the CPU) on both serving paths: the decode step is the
+window of one token.  With grad enabled (training) it goes through
+``ops.Wkv6Fn`` instead, in float32, which differentiates it by the
+log of the decay.  Dtypes are the reference's: ``decay_w0``, ``bonus_u``,
 ``ln_x_w`` and ``ln_x_b`` are float32 whatever the model dtype, so the
 decay and the recurrence are float32 (r, k and v are the projections in
 the model dtype, widened in the kernel), the shift states keep the
@@ -87,7 +89,9 @@ def _group_norm(x: torch.Tensor, H: int, w: torch.Tensor, b: torch.Tensor,
 
 
 def _time_mix_projections(p: Dict, x: torch.Tensor, xx: torch.Tensor):
-    """x and the previous token xx (..., d) -> r, k, v, g, w (w float32)."""
+    """x and the previous token xx (..., d) -> r, k, v, g, w, log w (w
+    and log w float32; exp(log w) is w's arithmetic, so the serve's w is
+    the reference's exp(-exp(...)) bit for bit)."""
     def mix(mu):
         return x + (xx - x) * mu
     r = mix(p["mu_r"]) @ p["w_r"]
@@ -95,8 +99,8 @@ def _time_mix_projections(p: Dict, x: torch.Tensor, xx: torch.Tensor):
     v = mix(p["mu_v"]) @ p["w_v"]
     g = F.silu(mix(p["mu_g"]) @ p["w_g"])
     lr = (torch.tanh(mix(p["mu_w"]) @ p["decay_A"]) @ p["decay_B"]).float()
-    w = torch.exp(-torch.exp(p["decay_w0"] + lr))
-    return r, k, v, g, w
+    logw = -torch.exp(p["decay_w0"] + lr)
+    return r, k, v, g, torch.exp(logw), logw
 
 
 def _last_valid(x: torch.Tensor, token_mask: torch.Tensor) -> torch.Tensor:
@@ -120,19 +124,26 @@ def rwkv_time_mix(p: Dict, cfg: ModelConfig, x: torch.Tensor, state: Dict,
     get k = 0 and w = 1, so ``S`` passes through them unchanged, and the
     shift state is each row's last valid token: the returned state is an
     unpadded run's.  Masked positions' outputs are garbage (callers mask
-    them out)."""
+    them out).  With grad enabled and an operand requiring it, the
+    recurrence is ``ops.Wkv6Fn`` on log w (training); else ``ops.wkv6``
+    (the serve)."""
     H, hd = _dims(cfg)
     B, S, d = x.shape
-    r, k, v, g, w = _time_mix_projections(p, x, _shifted(x, state["shift_t"]))
+    r, k, v, g, w, logw = _time_mix_projections(
+        p, x, _shifted(x, state["shift_t"]))
     kh = k.reshape(B, S, H, hd)
-    wh = w.reshape(B, S, H, hd)
+    wh, logwh = w.reshape(B, S, H, hd), logw.reshape(B, S, H, hd)
     if token_mask is not None:
         tm = token_mask[:, :, None, None]
         kh = kh * tm.to(kh.dtype)
-        wh = torch.where(tm, wh, 1.0)
-    y, S_fin = ops.wkv6(r.reshape(B, S, H, hd), kh.contiguous(),
-                        v.reshape(B, S, H, hd), wh.contiguous(),
-                        p["bonus_u"], state["S"].contiguous())
+        wh, logwh = torch.where(tm, wh, 1.0), torch.where(tm, logwh, 0.0)
+    rh, vh = r.reshape(B, S, H, hd), v.reshape(B, S, H, hd)
+    operands = (rh, kh, vh, logwh, p["bonus_u"], state["S"])
+    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
+        y, S_fin = ops.Wkv6Fn.apply(*operands)
+    else:
+        y, S_fin = ops.wkv6(rh, kh.contiguous(), vh, wh.contiguous(),
+                            p["bonus_u"], state["S"].contiguous())
     y = _group_norm(y.reshape(B, S, d).to(x.dtype), H, p["ln_x_w"],
                     p["ln_x_b"])
     out = (y * g) @ p["w_o"]

@@ -6,14 +6,16 @@ checkpoints, the counterpart of the reference package's
 opt_state, metrics): the loss and its gradients by autograd through
 ``models/model.py``'s ``forward_train`` (whose attention runs the
 ``flash_prefill`` kernel forward and ``flash_prefill_bwd`` backward on
-the card), then AdamW in place.  There is no mesh and no sharding (the
+the card, and RWKV6's recurrence ``wkv6``'s float32 training instance
+forward and ``wkv6_bwd`` backward), then AdamW in place.  There is no mesh and no sharding (the
 reference's ``launch/steps.py`` and its dry-run specs wait with the plane
 meshes, ROADMAP.md).
 
 Precision: parameters, gradients and AdamW moments are float32 on either
 device.  On the card the products are ``torch.matmul`` in float32, with
 TF32 off (``train`` sets it off; it is off by default); only the attention
-kernels run in bfloat16, accumulating in float32.  On the CPU everything
+kernels run in bfloat16, accumulating in float32 (the WKV kernels take
+float32).  On the CPU everything
 is float32, as the reference's ``train`` is.
 """
 from __future__ import annotations
@@ -26,14 +28,14 @@ from typing import Any, Callable, Dict, List, Tuple
 import numpy as np
 import torch
 
+from repro_torch.bridge import FLOAT32_LEAVES, FLOAT32_TREES
 from repro_torch.data.pipeline import DataConfig, TokenStream
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.models.common import ModelConfig
 from repro_torch.training.checkpoint import save_checkpoint
 from repro_torch.training.optimizer import (AdamWConfig, adamw_update,
-                                            init_opt_state, tree_leaves,
-                                            tree_map)
+                                            init_opt_state, tree_leaves)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,9 +101,22 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     return train_step
 
 
+def _cast(tree: Any, dtype: torch.dtype, f32: bool = False) -> Any:
+    """``tree`` with every leaf cast to ``dtype``, except the leaves that
+    the model keeps float32 in every dtype (``bridge.FLOAT32_LEAVES``, and
+    every leaf under ``FLOAT32_TREES``), as the serve holds them."""
+    if isinstance(tree, dict):
+        return {k: _cast(v, dtype, f32 or k in FLOAT32_TREES
+                         or k in FLOAT32_LEAVES) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_cast(v, dtype, f32) for v in tree]
+    return tree.to(torch.float32 if f32 else dtype)
+
+
 class _CastLayers(collections.abc.Sequence):
-    """A list of layers' parameters seen in ``dtype``, each layer cast
-    when it is read: one layer's copy at a time, not the model's."""
+    """A list of layers' parameters seen in ``dtype`` (``_cast``), each
+    layer cast when it is read: one layer's copy at a time, not the
+    model's."""
 
     def __init__(self, layers: List, dtype: torch.dtype):
         self.layers, self.dtype = layers, dtype
@@ -110,13 +125,15 @@ class _CastLayers(collections.abc.Sequence):
         return len(self.layers)
 
     def __getitem__(self, i: int):
-        return tree_map(lambda t: t.to(self.dtype), self.layers[i])
+        return _cast(self.layers[i], self.dtype)
 
 
 def make_eval_step(cfg: ModelConfig) -> Callable:
     """(params, batch) -> the loss, without gradients.  On the card the
     attention kernel takes bfloat16 only, so there the step evaluates the
-    weights in bfloat16 (every product in bfloat16, the loss in float32):
+    weights in bfloat16 (every product in bfloat16, the loss in float32),
+    the float32 leaves kept float32 as the serve keeps them (``_cast``:
+    RWKV6's decay, bonus and norms, which its serve's ``wkv6`` takes):
     the decoder's layers are cast one at a time as the forward reaches
     them, so that no bfloat16 copy of the whole model sits beside the
     float32 training state (8.5 GB at minicpm3-4b); on the CPU the
@@ -127,7 +144,7 @@ def make_eval_step(cfg: ModelConfig) -> Callable:
     def eval_step(params, batch):
         if params["embed"].device.type != "cpu":
             params = {k: (_CastLayers(v, torch.bfloat16) if k == "layers"
-                          else tree_map(lambda t: t.to(torch.bfloat16), v))
+                          else _cast(v, torch.bfloat16))
                       for k, v in params.items()}
         loss, _ = M.forward_train(params, cfg, batch, remat=False)
         return loss

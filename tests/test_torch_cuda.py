@@ -1464,3 +1464,176 @@ def test_flash_prefill_fn_trains_mla_and_noncausal(cuda, Sq, Sk, H, D, Dv,
         q, k, v, scale=0.125, causal=causal), do, 0.125, causal)
     for a, w in zip(got, want):
         assert a.dtype == torch.float32 and _grad_close(a, w)
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 training: wkv6's float32 forward (kernel A) and wkv6_bwd (kernel B)
+# ---------------------------------------------------------------------------
+
+# each gradient within 2^-12 of the plain version's max |grad| with a
+# cosine >= 0.99999: float32 on both sides, reordered only by the chunk
+# carries and the decay's suffix sum (as chip_smoke.py holds kernel B)
+WKV_GRAD_ERR, WKV_GRAD_COS = 2.0 ** -12, 0.99999
+WKV_TRAIN_CASES = [
+    (2, 40, 2, (40, 40)),           # one chunk
+    (1, 600, 2, (600,)),            # many chunks, a ragged tail
+    (3, 300, 4, (300, 170, 1)),     # padding across chunk edges
+    (2, 1000, 32, (1000, 1000))]    # rwkv6-1.6b's heads
+
+
+def _wkv_train_case(dev, Bn, S, H, lens, seed=0):
+    """_wkv_case's operands with r, k, v float32 (the training
+    precision), and dy, dS ~ N(0, 1)."""
+    r, k, v, w, u, S0 = _wkv_case(dev, Bn, S, H, lens, seed)
+    g = _gen(dev, seed + 1)
+    dy = torch.randn((Bn, S, H, 64), generator=g, device=dev)
+    dS = torch.randn((Bn, H, 64, 64), generator=g, device=dev)
+    return (r.float(), k.float(), v.float(), w, u, S0, dy, dS)
+
+
+def _wkv_grads_close(got, want):
+    return all(
+        (g - x).abs().max().item() <= WKV_GRAD_ERR * x.abs().max().item()
+        and torch.nn.functional.cosine_similarity(
+            g.flatten(), x.flatten(), dim=0).item() >= WKV_GRAD_COS
+        for g, x in zip(got, want))
+
+
+def _chunk_states(r, k, v, w, u, S0, L, nc):
+    """The plain chunked forward's state before each of nc chunks of L."""
+    states = [S0]
+    for c in range(nc - 1):
+        sl = slice(c * L, (c + 1) * L)
+        states.append(ref.wkv6(r[:, sl], k[:, sl], v[:, sl], w[:, sl], u,
+                               states[-1])[1])
+    return torch.stack(states, dim=2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Bn,S,H,lens", WKV_TRAIN_CASES)
+def test_wkv6_train_forward_matches_plain(cuda, Bn, S, H, lens):
+    """Kernel A (float32 r, k, v): y and the final state against the
+    token walk, and each chunk's S_in[c] against the plain chunked
+    forward, per element within 2^-14 of the plain version on the inputs'
+    magnitudes (wkv6's bar); one count under "wkv6" and "wkv6:train"."""
+    r, k, v, w, u, S0, _, _ = _wkv_train_case(cuda, Bn, S, H, lens)
+    L = ops.wkv6_chunk(Bn, S, H, ops._sm_count(cuda))
+    nc = -(-S // L) if S > L else 1
+    ops.launches.reset()
+    y, S_fin, S_in = ops.wkv6_train(r, k, v, w, u, S0)
+    assert ops.launches.counts["wkv6:train"] == 1
+    assert S_in.shape == (Bn, H, nc, 64, 64)
+    mags = (r.abs(), k.abs(), v.abs(), w, u.abs(), S0.abs())
+
+    def close(got, want, weight):
+        return bool(((got - want).abs() <= 2.0 ** -14 * weight + 1e-6).all())
+    for got, want, weight in zip((y, S_fin), ref.wkv6(r, k, v, w, u, S0),
+                                 ref.wkv6(*mags)):
+        assert close(got, want, weight)
+    assert close(S_in, _chunk_states(r, k, v, w, u, S0, L, nc),
+                 _chunk_states(*mags, L, nc))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Bn,S,H,lens", WKV_TRAIN_CASES)
+def test_wkv6_bwd_matches_plain(cuda, Bn, S, H, lens):
+    """Kernel B's six gradients against ref.wkv6_bwd from S0 and dS
+    non-zero, two launches bit-equal; planted faults must fail the bar
+    where the window has chunks: u's term dropped from dk, lam's carry
+    into chunk 0 dropped (the kernels on chunk 0's tokens alone, from dS
+    = 0 at their end), the decay sum's carry into chunk 0 dropped (its
+    <lam, S> at chunk 0's end, from the kernels on the tokens after it,
+    taken out of chunk 0's dlogw)."""
+    r, k, v, w, u, S0, dy, dS = _wkv_train_case(cuda, Bn, S, H, lens)
+    _, _, S_in = ops.wkv6_train(r, k, v, w, u, S0)
+    ops.launches.reset()
+    got = ops.wkv6_bwd(r, k, v, w, u, S_in, dy, dS)
+    again = ops.wkv6_bwd(r, k, v, w, u, S_in, dy, dS)
+    assert ops.launches.counts["wkv6_bwd"] == 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = ref.wkv6_bwd(r, k, v, w, u, S0, dy, dS)
+    assert _wkv_grads_close(got, want)
+    bad = list(got)
+    bad[1] = got[1] - r * u * (dy * v).sum(-1, keepdim=True)
+    assert not _wkv_grads_close(bad, want)
+    L = ops.wkv6_chunk(Bn, S, H, ops._sm_count(cuda))
+    if S <= L:
+        return
+    head = tuple(t[:, :L].contiguous() for t in (r, k, v, w))
+    _, _, s_head = ops.wkv6_train(*head, u, S0)
+    g_head = ops.wkv6_bwd(*head, u, s_head, dy[:, :L].contiguous(),
+                          torch.zeros_like(dS))
+    bad = [t.clone() for t in got]
+    for i in (1, 2, 3):
+        bad[i][:, :L] = g_head[i]
+    bad[5] = g_head[5]
+    assert not _wkv_grads_close(bad, want)
+    tail = tuple(t[:, L:].contiguous() for t in (r, k, v, w))
+    s1 = S_in[:, :, 1].contiguous()
+    _, _, s_tail = ops.wkv6_train(*tail, u, s1)
+    lam1 = ops.wkv6_bwd(*tail, u, s_tail, dy[:, L:].contiguous(), dS)[5]
+    bad = list(got)
+    bad[3] = got[3].clone()
+    bad[3][:, :L] -= (lam1 * s1).sum(-1)[:, None]
+    assert not _wkv_grads_close(bad, want)
+
+
+@pytest.mark.gpu
+def test_wkv6_training_wrappers_raise_beyond_their_limits(cuda):
+    r, k, v, w, u, S0, dy, dS = _wkv_train_case(cuda, 1, 300, 2, (300,))
+    _, _, S_in = ops.wkv6_train(r, k, v, w, u, S0)
+    with pytest.raises(ValueError, match="float32"):
+        ops.wkv6_train(r.bfloat16(), k, v, w, u, S0)
+    with pytest.raises(ValueError, match="float32"):
+        ops.wkv6_bwd(r, k, v, w, u, S_in, dy.bfloat16(), dS)
+    with pytest.raises(ValueError, match="head width"):
+        ops.wkv6_bwd(*(t[..., :32].contiguous() for t in (r, k, v, w)),
+                     u[:, :32].contiguous(),
+                     S_in[..., :32, :32].contiguous(),
+                     dy[..., :32].contiguous(),
+                     dS[..., :32, :32].contiguous())
+    with pytest.raises(ValueError, match="chunks"):
+        ops.wkv6_bwd(r, k, v, w, u, S_in[:, :, :1].contiguous(), dy, dS)
+
+
+@pytest.mark.gpu
+def test_wkv6_fn_trains_through_the_kernels(cuda):
+    """Wkv6Fn on the card: the forward through kernel A, the gradients of
+    r, k, v, log w, u and S0 through kernel B, against ref.wkv6_bwd."""
+    r, k, v, w, u, S0, dy, dS = _wkv_train_case(cuda, 2, 500, 4,
+                                                (500, 321))
+    leaves = [t.clone().requires_grad_()
+              for t in (r, k, v, torch.log(w), u, S0)]
+    ops.launches.reset()
+    y, S_fin = ops.Wkv6Fn.apply(*leaves)
+    got = torch.autograd.grad([y, S_fin], leaves, [dy, dS])
+    assert ops.launches.counts["wkv6:train"] == 1
+    assert ops.launches.counts["wkv6_bwd"] == 1
+    assert _wkv_grads_close(got, ref.wkv6_bwd(r, k, v, torch.exp(
+        torch.log(w)), u, S0, dy, dS))
+
+
+@pytest.mark.gpu
+def test_eval_step_runs_rwkv6_in_bfloat16_on_the_card(cuda):
+    """make_eval_step at RWKV6's smoke on the card: the layers cast to
+    bfloat16 but for the float32 leaves (the serve's wkv6 takes u in
+    float32), the serve's wkv6 launched once a layer; the loss within
+    2e-2 relative of the float32 loss on the CPU."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.training.optimizer import tree_map
+    from repro_torch.training.trainer import make_eval_step
+    cfg = get_smoke_config("rwkv6-1.6b")
+    params = M.init_params(cfg, torch.Generator().manual_seed(0),
+                           torch.float32, device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64),
+                           generator=torch.Generator().manual_seed(1),
+                           dtype=torch.int32)
+    batch = {"tokens": tokens, "labels": tokens}
+    want = make_eval_step(cfg)(params, batch).item()
+    ops.launches.reset()
+    got = make_eval_step(cfg)(tree_map(lambda t: t.to(cuda), params),
+                              {k: t.to(cuda) for k, t in batch.items()})
+    assert ops.launches.counts["wkv6"] == cfg.num_layers
+    assert ops.launches.counts.get("wkv6:train", 0) == 0
+    assert abs(got.item() - want) <= 2e-2 * abs(want)

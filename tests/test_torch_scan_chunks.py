@@ -16,7 +16,17 @@ within 2^-14 of the plain version on the inputs' magnitudes plus 1e-6,
 the scan within 1e-5 + 1e-4 |ref|.  Cases: a window that is a multiple of
 the chunk, one that is not, right padding from the middle of a chunk
 across chunk edges, a carried state, and a window of at most one chunk.
-Also ``ops.wkv6_chunk``, which picks the kernel's chunk length."""
+Also ``ops.wkv6_chunk``, which picks the kernel's chunk length.
+
+The backward of ``wkv6`` (csrc/wkv6_bwd.cu, kernel B) runs the forward's
+chunks in reverse: each chunk's lam (the state's gradient) walked back
+from zero, a carry over chunks from the final state's gradient, and
+each chunk rerun, the states forward from the forward's S_in[c] and lam
+back from its carry, with the decay's gradient a suffix sum whose only
+term from later chunks is <lam, S> at the chunk's end.
+``wkv6_bwd_chunked`` computes those phases in plain PyTorch; it is held
+against ``ref.wkv6_bwd`` under the kernel's bar on the card: each
+gradient within 2^-12 of its max |grad| with a cosine >= 0.99999."""
 import numpy as np
 import pytest
 import torch
@@ -24,6 +34,7 @@ import torch
 from repro_torch.kernels import ops, ref
 
 WKV_RTOL, WKV_ATOL = 2.0 ** -14, 1e-6
+WKV_GRAD_ERR, WKV_GRAD_COS = 2.0 ** -12, 0.99999
 SCAN_ATOL, SCAN_RTOL = 1e-5, 1e-4
 
 # (label, B, S, row lengths, L, carried state)
@@ -64,33 +75,115 @@ def _wkv_inputs(rng, B, S, H, lens, carried):
     return r, k, v, w, 0.1 * randn(H, 16), S0
 
 
-def wkv6_chunked(r, k, v, w, u, S0, L):
-    """wkv6 in the kernel's three phases over chunks of L tokens (one
-    pass from S0 when S <= L)."""
-    S = r.shape[1]
-    if S <= L:
-        return ref.wkv6(r, k, v, w, u, S0)
-    chunks = [slice(c, min(c + L, S)) for c in range(0, S, L)]
+def _chunks(S, L):
+    """The kernels' time chunks of a window of S tokens: [t0, t1) ranges
+    of L tokens, one range when S <= L."""
+    return [(c, min(c + L, S)) for c in range(0, S, L)] if S > L else [(0, S)]
+
+
+def wkv6_carries(r, k, v, w, u, S0, L):
+    """Phases 1 and 2 of the forward: S_in[c], the state before each
+    chunk, as kernel A keeps them for the backward."""
+    chunks = _chunks(r.shape[1], L)
     # 1. each chunk but the last from a zero state: S_loc and W
     loc, decay = [], []
-    for sl in chunks[:-1]:
+    for t0, t1 in chunks[:-1]:
+        sl = slice(t0, t1)
         _, s_end = ref.wkv6(r[:, sl], k[:, sl], v[:, sl], w[:, sl], u,
                             torch.zeros_like(S0))
         loc.append(s_end)
         p = torch.ones_like(w[:, 0])
-        for t in range(sl.start, sl.stop):      # token by token, as the kernel
+        for t in range(t0, t1):      # token by token, as the kernel
             p = p * w[:, t]
         decay.append(p)
     # 2. the carries
     s_in = [S0]
     for s_loc, p in zip(loc, decay):
         s_in.append(p[..., None] * s_in[-1] + s_loc)
+    return s_in
+
+
+def wkv6_chunked(r, k, v, w, u, S0, L):
+    """wkv6 in the kernel's three phases over chunks of L tokens (one
+    pass from S0 when S <= L)."""
+    S = r.shape[1]
+    if S <= L:
+        return ref.wkv6(r, k, v, w, u, S0)
     # 3. each chunk from its carried state
     ys = []
-    for sl, s0 in zip(chunks, s_in):
+    for (t0, t1), s0 in zip(_chunks(S, L),
+                            wkv6_carries(r, k, v, w, u, S0, L)):
+        sl = slice(t0, t1)
         y, s_fin = ref.wkv6(r[:, sl], k[:, sl], v[:, sl], w[:, sl], u, s0)
         ys.append(y)
     return torch.cat(ys, dim=1), s_fin
+
+
+def _outer(a, b):
+    return a[..., :, None] * b[..., None, :]
+
+
+def wkv6_bwd_chunked(r, k, v, w, u, S0, dy, dS, L, fault=None):
+    """The gradient of wkv6 in kernel B's phases (csrc/wkv6_bwd.cu) over
+    the forward's chunks of L tokens: (1) each chunk c >= 1's lam walked
+    back from zero at its end, lam_loc[c], and its decay product W[c];
+    (2) lam_end[nc-1] = dS, lam_end[c-1] = W[c] lam_end[c] + lam_loc[c];
+    (3) each chunk rerun: S forward from S_in[c] (dr, and Q_t = r_t (S_t
+    dy_t)), a = <lam_end[c], S_end> per channel, then lam back from
+    lam_end[c] (dk, dv, and P_t = k_t (lam_{t+1} v_t)), dlogw_t = a - P_t,
+    a <- a - P_t + Q_t; chunk 0 gives dS0.  ``fault`` plants one of the
+    kernel faults the bar must reject: "u_in_dk" (u's term dropped from
+    dk), "decay_carry" (a from zero in every chunk but the last),
+    "lam_carry" (every chunk but the last walked back from lam = 0)."""
+    chunks = _chunks(r.shape[1], L)
+    nc = len(chunks)
+    s_in = wkv6_carries(r, k, v, w, u, S0, L)
+    # 1. local lam and the decay products
+    lam_loc, decay = {}, {}
+    for c in range(1, nc):
+        t0, t1 = chunks[c]
+        lam, p = torch.zeros_like(S0), torch.ones_like(w[:, 0])
+        for t in range(t1 - 1, t0 - 1, -1):
+            lam = w[:, t, :, :, None] * lam + _outer(r[:, t], dy[:, t])
+            p = p * w[:, t]
+        lam_loc[c], decay[c] = lam, p
+    # 2. the carries, backward
+    lam_end = [None] * nc
+    lam_end[-1] = dS
+    for c in range(nc - 1, 0, -1):
+        lam_end[c - 1] = decay[c][..., None] * lam_end[c] + lam_loc[c]
+    if fault == "lam_carry":
+        lam_end = [torch.zeros_like(dS)] * (nc - 1) + [dS]
+    # 3. each chunk rerun
+    dr, dk, dv, dlogw = (torch.empty_like(r) for _ in range(4))
+    du = torch.zeros_like(u)
+    for c, (t0, t1) in enumerate(chunks):
+        St, q = s_in[c], {}
+        for t in range(t0, t1):
+            dyv = (dy[:, t] * v[:, t]).sum(-1, keepdim=True)
+            sdy = torch.einsum("bhij,bhj->bhi", St, dy[:, t])
+            dr[:, t] = sdy + u * k[:, t] * dyv
+            q[t] = r[:, t] * sdy
+            St = w[:, t, :, :, None] * St + _outer(k[:, t], v[:, t])
+        lam = lam_end[c]
+        a = (lam * St).sum(-1)
+        if fault == "decay_carry" and c < nc - 1:
+            a = torch.zeros_like(a)
+        for t in range(t1 - 1, t0 - 1, -1):
+            dyv = (dy[:, t] * v[:, t]).sum(-1, keepdim=True)
+            lv = torch.einsum("bhij,bhj->bhi", lam, v[:, t])
+            dk[:, t] = lv + (0 if fault == "u_in_dk" else r[:, t] * u * dyv)
+            dv[:, t] = (torch.einsum("bhij,bhi->bhj", lam, k[:, t])
+                        + (r[:, t] * u * k[:, t]).sum(-1, keepdim=True)
+                        * dy[:, t])
+            p = k[:, t] * lv
+            dlogw[:, t] = a - p
+            a = a - p + q[t]
+            du += (r[:, t] * k[:, t] * dyv).sum(0)
+            lam = w[:, t, :, :, None] * lam + _outer(r[:, t], dy[:, t])
+        if c == 0:
+            dS0 = lam
+    return dr, dk, dv, dlogw, du, dS0
 
 
 def _scan_inputs(rng, B, S, di, lens, carried):
@@ -156,6 +249,43 @@ def test_wkv6_three_phases_match_token_walk(label, B, S, lens, L, carried):
         bad = wkv6_chunked(r, k, v, bad_w, u, S0, L)
         assert not all(bool(((g - x).abs() <= WKV_RTOL * m + WKV_ATOL).all())
                        for g, x, m in zip(bad, want, weight))
+
+
+def _grads_close(got, want):
+    """Each gradient within WKV_GRAD_ERR of its max |grad| with a cosine
+    >= WKV_GRAD_COS (kernel B's bar on the card, chip_smoke.py)."""
+    return all(
+        (g - x).abs().max().item() <= WKV_GRAD_ERR * x.abs().max().item()
+        and torch.nn.functional.cosine_similarity(
+            g.flatten(), x.flatten(), dim=0).item() >= WKV_GRAD_COS
+        for g, x in zip(got, want))
+
+
+@pytest.mark.parametrize("label,B,S,lens,L,carried", CASES,
+                         ids=[c[0] for c in CASES])
+def test_wkv6_backward_phases_match_the_reverse_loop(label, B, S, lens, L,
+                                                     carried):
+    """Kernel B's algebra (``wkv6_bwd_chunked``) against the plain
+    reverse loop ``ref.wkv6_bwd``, with dy and the final state's gradient
+    non-zero: in the forward's chunks of L, and as one chunk (the decay's
+    gradient from the suffix sum alone, no stored state); the three
+    planted faults (u's term dropped from dk, the decay sum's carry over
+    chunks dropped, lam's carry dropped) must fail the bar where there
+    are chunks to carry over."""
+    rng = np.random.default_rng(13)
+    r, k, v, w, u, S0 = _wkv_inputs(rng, B, S, 3, lens, carried)
+    dy = torch.from_numpy(rng.standard_normal(r.shape).astype(np.float32))
+    dS = torch.from_numpy(rng.standard_normal(S0.shape).astype(np.float32))
+    want = ref.wkv6_bwd(r, k, v, w, u, S0, dy, dS)
+    assert _grads_close(wkv6_bwd_chunked(r, k, v, w, u, S0, dy, dS, L),
+                        want)
+    assert _grads_close(wkv6_bwd_chunked(r, k, v, w, u, S0, dy, dS, S),
+                        want)
+    faults = ("u_in_dk", "decay_carry", "lam_carry") if S > L else (
+        "u_in_dk",)
+    for fault in faults:
+        bad = wkv6_bwd_chunked(r, k, v, w, u, S0, dy, dS, L, fault)
+        assert not _grads_close(bad, want), fault
 
 
 @pytest.mark.parametrize("label,B,S,lens,L,carried", CASES,

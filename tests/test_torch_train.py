@@ -5,9 +5,9 @@ against torch autograd of a naive attention; one train step of
 ``repro_torch.training.trainer`` against ``repro.training.trainer``'s
 ``make_train_step`` on the same weights (through ``bridge.py``) and
 batch; three steps' losses; remat on and off; the launcher on the CPU;
-which families the port trains (MLA and the frontends are held against
-the reference in tests/test_torch_train_mla.py and
-tests/test_torch_train_frontends.py).
+which families the port trains (MLA, the frontends and RWKV6 are held
+against the reference in tests/test_torch_train_mla.py,
+tests/test_torch_train_frontends.py and tests/test_torch_train_rwkv.py).
 
 Tolerances, float32 on both sides: the backward within 1e-5 of each
 tensor's max |grad| (sums over keys in another order and chunking); the
@@ -256,7 +256,7 @@ def test_launcher_trains_the_smoke_on_the_cpu(capsys, tmp_path):
 
 @pytest.mark.parametrize("arch,missing", [
     ("kimi-k2-1t-a32b", "step 1"), ("arctic-480b", "step 1"),
-    ("jamba-v0.1-52b", "step 4"), ("rwkv6-1.6b", "step 4")])
+    ("jamba-v0.1-52b", "step 4")])
 def test_other_families_are_not_trainable(arch, missing):
     cfg = torch_smoke(arch)
     with pytest.raises(NotImplementedError, match=missing):
@@ -266,13 +266,13 @@ def test_other_families_are_not_trainable(arch, missing):
 
 
 @pytest.mark.parametrize("arch", ["minicpm3-4b", "internvl2-2b",
-                                  "whisper-small"])
+                                  "whisper-small", "rwkv6-1.6b"])
 def test_mla_and_frontend_families_are_trainable(arch):
-    """Their full configs pass ``check_trainable`` and their smokes train
-    a step in the launcher's loop, each batch with the launcher's frontend
-    stand-ins (tests/test_torch_train_mla.py and
-    tests/test_torch_train_frontends.py hold them against the
-    reference)."""
+    """Their full configs (and RWKV6's) pass ``check_trainable`` and
+    their smokes train a step in the launcher's loop, each batch with the
+    launcher's frontend stand-ins (tests/test_torch_train_mla.py,
+    tests/test_torch_train_frontends.py and
+    tests/test_torch_train_rwkv.py hold them against the reference)."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig
     TM.check_trainable(get_config(arch))
