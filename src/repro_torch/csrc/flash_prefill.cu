@@ -438,8 +438,8 @@ int launch(const void* q, const void* k, const void* v, void* out,
 // causal, or every query over every key (causal == 0: q_offset is
 // ignored).  lse: null (serving), or a float32 (B, Hq, Sq) buffer that
 // takes each row's log-sum-exp (training's forward, whose backward is
-// flash_prefill_bwd.cu; (D, Dv) in {(64, 64), (128, 128), (96, 64)},
-// either mode).  Limits checked by the wrapper: contiguous (B, S, H,
+// flash_prefill_bwd.cu; (D, Dv) in {(64, 64), (128, 128), (96, 64),
+// (112, 112)}, either mode).  Limits checked by the wrapper: contiguous (B, S, H,
 // D|Dv) tensors, 16-byte aligned, Hq % Hkv == 0, q_offset >= 0.
 // Returns a runtime error code, or 100000 + a CUresult if a TMA
 // descriptor could not be encoded.
@@ -453,7 +453,7 @@ extern "C" int launch_flash_prefill(const void* q, const void* k,
   // non-causal: the diagonal past every key (see the note at the top)
   const int qo = causal ? q_offset : Sk;
   float* L = static_cast<float*>(lse);
-  if (L != nullptr) {   // training: the dense heads and MLA's
+  if (L != nullptr) {   // training: the dense heads, MLA's and kimi-k2's
     if (D == 64 && Dv == 64)
       return launch<64, 64, true>(q, k, v, out, L, B, Sq, Sk, Hq, Hkv, qo,
                                   scale, s);
@@ -463,6 +463,9 @@ extern "C" int launch_flash_prefill(const void* q, const void* k,
     if (D == 96 && Dv == 64)
       return launch<96, 64, true>(q, k, v, out, L, B, Sq, Sk, Hq, Hkv, qo,
                                   scale, s);
+    if (D == 112 && Dv == 112)
+      return launch<112, 112, true>(q, k, v, out, L, B, Sq, Sk, Hq, Hkv, qo,
+                                    scale, s);
     return (int)cudaErrorInvalidValue;
   }
   if (D == 64 && Dv == 64)

@@ -21,9 +21,15 @@
 // (Whisper's encoder, Sq = Sk = 1500, and its cross-attention, Sq the
 // decoder's tokens, Sk = 1500).
 //
-// Instances: causal at (D, Dv) = (64, 64), (128, 128) and MLA's (96, 64)
-// (qk_nope 64 + qk_rope 32 against v_head_dim 64); non-causal at
-// Whisper's (64, 64).  MLA's q and k load as two 64-column TMA boxes,
+// Instances: causal at (D, Dv) = (64, 64), (128, 128), MLA's (96, 64)
+// (qk_nope 64 + qk_rope 32 against v_head_dim 64) and kimi-k2's (112,
+// 112) (d_model 7168 over 64 heads); non-causal at Whisper's (64, 64).
+// At (112, 112) q, k, v and dO all load as two 64-column TMA boxes,
+// columns 112-127 zero-filled: S = Q K^T and dP = dO V^T (and their
+// transposes) run D / 16 = 7 k-steps, dQ's, dK's and dV's products run
+// at width 128 (their last 16 columns zero), and the epilogues store the
+// first 112; Delta's rows take 16 lanes of 8 columns, the last two
+// adding nothing.  MLA's q and k load as two 64-column TMA boxes,
 // columns 96-127 of the second zero-filled (they lie past the tensor), as
 // the forward loads them: S^T = K Q^T and S = Q K^T run D / 16 = 6
 // k-steps, so the zero columns are never read; dP = dO V^T and dV's
@@ -123,13 +129,15 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D, int Dv> struct Cfg {
   static_assert((D == 64 && Dv == 64) || (D == 128 && Dv == 128) ||
-                    (D == 96 && Dv == 64),
-                "(D, Dv) in (64, 64), (128, 128) and MLA's (96, 64)");
-  // 64-column slabs of 128 bytes: q and k (a part slab zero-filled past
-  // D), v, o and dO
+                    (D == 96 && Dv == 64) || (D == 112 && Dv == 112),
+                "(D, Dv) in (64, 64), (128, 128), MLA's (96, 64) and "
+                "kimi-k2's (112, 112)");
+  // 64-column slabs of 128 bytes: q and k, v and dO (a part slab
+  // zero-filled past D or Dv)
   static constexpr int kSlabsQK = (D + 63) / 64;
-  static constexpr int kSlabsV = Dv / 64;
+  static constexpr int kSlabsV = (Dv + 63) / 64;
   static constexpr int kDPad = kSlabsQK * 64;   // dQ's and dK's width
+  static constexpr int kDvPad = kSlabsV * 64;   // dV's width
   // dkdv's query tile: its S^T and dP^T (64 x kBq) and dK and dV (64 x
   // kDPad, 64 x Dv) stay in a consumer's registers
   static constexpr int kBq = D == 64 ? 128 : 64;
@@ -218,22 +226,29 @@ __device__ __forceinline__ void pack(const float* s, uint32_t (*p)[4]) {
   }
 }
 
+// lanes a row of the delta kernel: Dv / 8 rounded up to a power of two
+__host__ __device__ constexpr int delta_lanes(int Dv) {
+  int p = 1;
+  while (p < Dv / 8) p *= 2;
+  return p;
+}
+
 // (a) row r = (b H + h) S_pad + i of the workspace: Delta = sum_d dO O and
-// lse2 = lse log2(e) of token i, zeros past S; Dv / 8 lanes a row, each
-// reading 16 bytes of o and of dO
+// lse2 = lse log2(e) of token i, zeros past S; delta_lanes(Dv) lanes a
+// row, each reading 16 bytes of o and of dO (a lane past Dv none)
 template <int Dv>
 __global__ void __launch_bounds__(256)
 flash_bwd_delta_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dO,
                        const float* __restrict__ lse, float* __restrict__ lse2,
                        float* __restrict__ delta, int S, int S_pad, int H,
                        long long rows) {
-  constexpr int kLanes = Dv / 8, kRows = 256 / kLanes;
+  constexpr int kLanes = delta_lanes(Dv), kRows = 256 / kLanes;
   const int sub = threadIdx.x % kLanes;
   const long long r = (long long)blockIdx.x * kRows + threadIdx.x / kLanes;
   const int i = (int)(r % S_pad);
   const long long bh = r / S_pad;
   float acc = 0.f;
-  if (r < rows && i < S) {
+  if (r < rows && i < S && sub * 8 < Dv) {
     const size_t off = ((size_t)(bh / H * S + i) * H + bh % H) * Dv + sub * 8;
     float a[8], c[8];
     load16_f32(o + off, a);
@@ -265,6 +280,7 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
                       float sl2, float scale) {
   using C = Cfg<D, Dv>;
   constexpr int NS = C::kStages, BQ = C::kBq, DP = C::kDPad;
+  constexpr int DVP = C::kDvPad;
   __shared__ __align__(8) uint64_t kv_full, full[NS], empty[NS];
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem =
@@ -340,11 +356,11 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
   const unsigned char* kc = k_s + c * 64 * 128;   // this warpgroup's keys
   const unsigned char* vc = v_s + c * 64 * 128;
 
-  float acc_dk[DP / 2], acc_dv[Dv / 2];
+  float acc_dk[DP / 2], acc_dv[DVP / 2];
 #pragma unroll
   for (int i = 0; i < DP / 2; ++i) acc_dk[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < Dv / 2; ++i) acc_dv[i] = 0.f;
+  for (int i = 0; i < DVP / 2; ++i) acc_dv[i] = 0.f;
 
   mbar_wait(&kv_full, 0);
   // every step, a tile wholly above this warpgroup's keys masked whole
@@ -395,10 +411,10 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
 #endif
     pack<BQ>(s, pp);
     // dV += P^T dO runs while dS^T is formed
-    fence_regs<Dv / 2>(acc_dv);
+    fence_regs<DVP / 2>(acc_dv);
     fence_regs<BQ / 4>(&pp[0][0]);
     wgmma_fence();
-    mma_rs<Dv, BQ, C::kQSlab>(acc_dv, pp, dos);
+    mma_rs<DVP, BQ, C::kQSlab>(acc_dv, pp, dos);
     wgmma_commit();
     wgmma_wait<1>();   // dP^T has landed
     fence_regs<BQ / 2>(dp);
@@ -423,7 +439,7 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
     mma_rs<DP, BQ, C::kQSlab>(acc_dk, ds, qs);    // dK += dS^T Q
     wgmma_commit();
     wgmma_wait<0>();
-    fence_regs<Dv / 2>(acc_dv);
+    fence_regs<DVP / 2>(acc_dv);
     fence_regs<DP / 2>(acc_dk);
     fence_regs<BQ / 4>(&pp[0][0]);
     fence_regs<BQ / 4>(&ds[0][0]);
@@ -662,7 +678,7 @@ int launch(const void* q, const void* k, const void* v, const bf16* o,
   float* lse2 = ws;
   float* delta = ws + n_rows;
   float* part = ws + 2 * n_rows;
-  constexpr int kDeltaRows = 256 / (Dv / 8);
+  constexpr int kDeltaRows = 256 / delta_lanes(Dv);
   flash_bwd_delta_kernel<Dv><<<(unsigned)((n_rows + kDeltaRows - 1) /
                                           kDeltaRows),
                                256, 0, stream>>>(o, dO, lse, lse2, delta, Sq,
@@ -723,7 +739,8 @@ extern "C" long long flash_prefill_bwd_ws_floats(int B, int Sq, int Sk,
 // The gradient over whole sequences: bf16 q, k, v, o, dO, float32 lse
 // (B, Hq, Sq); ws a float32 workspace of ws_n elements, at least
 // flash_prefill_bwd_ws_floats; float32 dq, dk, dv written whole.  Causal
-// (Sq == Sk) at (D, Dv) in {(64, 64), (128, 128), (96, 64)}; non-causal
+// (Sq == Sk) at (D, Dv) in {(64, 64), (128, 128), (96, 64), (112, 112)};
+// non-causal
 // (any Sq, Sk) at (64, 64).  Limits checked by the wrapper: contiguous
 // tensors, 16-byte aligned, Hq % Hkv == 0.  Returns a runtime error code
 // (invalid value for a workspace too small or a shape or mode not built),
@@ -763,5 +780,8 @@ extern "C" int launch_flash_prefill_bwd(const void* q, const void* k,
   if (D == 96 && Dv == 64)   // MLA: qk_nope + qk_rope against v_head_dim
     return launch<96, 64, true>(q, k, v, O, DO, L, W, DQ, DK, DV, B, Sq, Sk,
                                 Hq, Hkv, scale, s);
+  if (D == 112 && Dv == 112)   // kimi-k2: d_model 7168 over 64 heads
+    return launch<112, 112, true>(q, k, v, O, DO, L, W, DQ, DK, DV, B, Sq,
+                                  Sk, Hq, Hkv, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -50,6 +50,16 @@
 // (`ab_kernels.py` on each, PERF.md).  A chunked form over time (as
 // wkv6.cu's) would give B 1 more warps but compute every exponential
 // twice.  expf, not __expf: the build uses no fast-math flag.
+//
+// Training's instance (launch_selective_scan_f32, "selective_scan:train"):
+// the same kernel on float32 x, B and C (the reference trains in float32,
+// and the kernel widens them to float32 anyway), which also stores the
+// state before each 64-token chunk, h_ckpt (Bt, ceil(S / 64), di, 16):
+// 33.5 MB a Mamba layer at B 1 x 4,096 and d_inner 8192, from which the
+// backward (selective_scan_bwd.cu) reruns each chunk.  Its bound: x and
+// dt read and y written, 12 bytes a (token, channel), 0.120 ms at that
+// shape on the H100's 3.35 TB/s.  The serve's bf16 instance is the same
+// template with the checkpoints compiled out.
 #include "common.cuh"
 
 namespace {
@@ -76,11 +86,14 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-struct Smem {      // two chunks' raw pieces, as cp.async lands them
-  __align__(16) __nv_bfloat16 x[2][kChunk][kChannels];
+// two chunks' raw pieces, as cp.async lands them: x, B and C in the
+// input's type T (bf16 for the serve, float32 for training: 48 KB)
+template <typename T>
+struct Smem {
+  __align__(16) T x[2][kChunk][kChannels];
   __align__(16) float dt[2][kChunk][kChannels];
-  __align__(16) __nv_bfloat16 b[2][kChunk][kStates];
-  __align__(16) __nv_bfloat16 c[2][kChunk][kStates];
+  __align__(16) T b[2][kChunk][kStates];
+  __align__(16) T c[2][kChunk][kStates];
 };
 
 // Copy tokens [t0, t0 + n) into buffer buf as 16-byte pieces, per token
@@ -90,9 +103,9 @@ struct Smem {      // two chunks' raw pieces, as cp.async lands them
 constexpr int kItems = kChannels / 8 + 4;
 
 __device__ __forceinline__ void issue_chunk(
-    Smem& sm, int buf, const __nv_bfloat16* x, const float* dt,
-    const __nv_bfloat16* B, const __nv_bfloat16* C, size_t row, int t0,
-    int n, int c0, int di) {
+    Smem<__nv_bfloat16>& sm, int buf, const __nv_bfloat16* x,
+    const float* dt, const __nv_bfloat16* B, const __nv_bfloat16* C,
+    size_t row, int t0, int n, int c0, int di) {
   constexpr int kGroups = kChannels / 8;
   for (int i = threadIdx.x; i < n * kItems; i += kThreads) {
     const int t = i / kItems, it = i % kItems;
@@ -115,6 +128,35 @@ __device__ __forceinline__ void issue_chunk(
   cp_async_commit();
 }
 
+// The float32 instance's pieces, per token kItemsF items: a group of 4
+// channels (its x and its dt), or a quarter of B or of C.
+constexpr int kItemsF = kChannels / 4 + 8;
+
+__device__ __forceinline__ void issue_chunk(
+    Smem<float>& sm, int buf, const float* x, const float* dt,
+    const float* B, const float* C, size_t row, int t0, int n, int c0,
+    int di) {
+  constexpr int kGroups = kChannels / 4;
+  for (int i = threadIdx.x; i < n * kItemsF; i += kThreads) {
+    const int t = i / kItemsF, it = i % kItemsF;
+    const size_t tok = row + t0 + t;
+    if (it < kGroups) {
+      const int ch = it * 4;
+      if (c0 + ch < di) {
+        cp_async16(&sm.x[buf][t][ch], x + tok * di + c0 + ch);
+        cp_async16(&sm.dt[buf][t][ch], dt + tok * di + c0 + ch);
+      }
+    } else {
+      const int part = (it - kGroups) & 3;
+      if (it - kGroups < 4)
+        cp_async16(&sm.b[buf][t][part * 4], B + tok * kStates + part * 4);
+      else
+        cp_async16(&sm.c[buf][t][part * 4], C + tok * kStates + part * 4);
+    }
+  }
+  cp_async_commit();
+}
+
 // 4 consecutive floats (16-byte aligned)
 __device__ __forceinline__ void load4(const float* src, float (&dst)[kP]) {
   const float4 v = *reinterpret_cast<const float4*>(src);
@@ -122,8 +164,8 @@ __device__ __forceinline__ void load4(const float* src, float (&dst)[kP]) {
 }
 
 // 4 bf16 values (8-byte aligned) widened to float
-__device__ __forceinline__ void load4_bf16(const __nv_bfloat16* src,
-                                           float (&dst)[kP]) {
+__device__ __forceinline__ void load4(const __nv_bfloat16* src,
+                                      float (&dst)[kP]) {
   const uint2 v = *reinterpret_cast<const uint2*>(src);
   const float2 lo =
       __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
@@ -136,8 +178,8 @@ __device__ __forceinline__ void load4_bf16(const __nv_bfloat16* src,
 // exponentials, then the recurrence and each token's partial y over the
 // thread's states; then y's sum over the channel's lanes, D x added and y
 // stored (yrow: the channel's y at the chunk's first token).
-template <int U>
-__device__ __forceinline__ void scan_tokens(const Smem& sm, int buf, int t,
+template <int U, typename T>
+__device__ __forceinline__ void scan_tokens(const Smem<T>& sm, int buf, int t,
                                             int cl, int q,
                                             const float (&a)[kP],
                                             float (&h)[kP], float dskip,
@@ -148,8 +190,8 @@ __device__ __forceinline__ void scan_tokens(const Smem& sm, int buf, int t,
   for (int u = 0; u < U; ++u) {
     dt[u] = sm.dt[buf][t + u][cl];
     xv[u] = to_f32(sm.x[buf][t + u][cl]);
-    load4_bf16(&sm.b[buf][t + u][q * kP], bn[u]);
-    load4_bf16(&sm.c[buf][t + u][q * kP], cn[u]);
+    load4(&sm.b[buf][t + u][q * kP], bn[u]);
+    load4(&sm.c[buf][t + u][q * kP], cn[u]);
   }
   float dA[U][kP];
 #pragma unroll
@@ -199,16 +241,22 @@ __device__ __forceinline__ void scan_tokens(const Smem& sm, int buf, int t,
   }
 }
 
+// T: the type of x, B and C.  kCkpt (training's instance): the state
+// before each chunk of kChunk tokens is stored in h_ckpt (Bt, ceil(S /
+// kChunk), di, 16), chunk 0's being h0, for the backward to rerun each
+// chunk from (selective_scan_bwd.cu).
+template <typename T, bool kCkpt>
 __global__ void __launch_bounds__(kThreads)
-selective_scan_kernel(const __nv_bfloat16* __restrict__ x,
+selective_scan_kernel(const T* __restrict__ x,
                       const float* __restrict__ dt,
-                      const __nv_bfloat16* __restrict__ Bm,
-                      const __nv_bfloat16* __restrict__ Cm,
+                      const T* __restrict__ Bm,
+                      const T* __restrict__ Cm,
                       const float* __restrict__ A,
                       const float* __restrict__ Dskip,
                       const float* __restrict__ h0, float* __restrict__ y,
-                      float* __restrict__ h_out, int S, int di) {
-  __shared__ Smem sm;
+                      float* __restrict__ h_out,
+                      float* __restrict__ h_ckpt, int S, int di) {
+  __shared__ Smem<T> sm;
   const int tid = threadIdx.x;
   const int cl = tid / kLanes;           // the thread's channel in the CTA
   const int q = tid % kLanes;            // its states: 4 q .. 4 q + 3
@@ -235,6 +283,14 @@ selective_scan_kernel(const __nv_bfloat16* __restrict__ x,
     if (t0 + kChunk < S)
       issue_chunk(sm, buf ^ 1, x, dt, Bm, Cm, row, t0 + kChunk,
                   min(kChunk, S - t0 - kChunk), c0, di);
+    if constexpr (kCkpt) {
+      if (live) {
+        const int n_ck = (S + kChunk - 1) / kChunk;
+        float* ck = h_ckpt + ((b * n_ck + t0 / kChunk) * di + c) * kStates +
+                    q * kP;
+        *reinterpret_cast<float4*>(ck) = make_float4(h[0], h[1], h[2], h[3]);
+      }
+    }
     // a channel past d_inner computes on stale pieces and stores nothing
     float* yrow = y + (row + t0) * di + c;
     int t = 0;
@@ -264,12 +320,39 @@ extern "C" int launch_selective_scan(const void* x, const void* dt,
     return (int)cudaErrorInvalidValue;
   if (Bt == 0) return (int)cudaGetLastError();
   const dim3 grid((di + kChannels - 1) / kChannels, Bt);
-  selective_scan_kernel<<<grid, kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(dt),
-      static_cast<const __nv_bfloat16*>(B),
-      static_cast<const __nv_bfloat16*>(C), static_cast<const float*>(A),
-      static_cast<const float*>(D), static_cast<const float*>(h0),
-      static_cast<float*>(y), static_cast<float*>(h_out), S, di);
+  selective_scan_kernel<__nv_bfloat16, false>
+      <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const __nv_bfloat16*>(x),
+          static_cast<const float*>(dt),
+          static_cast<const __nv_bfloat16*>(B),
+          static_cast<const __nv_bfloat16*>(C),
+          static_cast<const float*>(A), static_cast<const float*>(D),
+          static_cast<const float*>(h0), static_cast<float*>(y),
+          static_cast<float*>(h_out), nullptr, S, di);
+  return (int)cudaGetLastError();
+}
+
+// Training's forward: every operand float32 (x, B and C too), and the
+// state before each chunk of 64 tokens written to h_ckpt (Bt, ceil(S /
+// 64), di, 16); otherwise launch_selective_scan's function and limits.
+extern "C" int launch_selective_scan_f32(const void* x, const void* dt,
+                                         const void* B, const void* C,
+                                         const void* A, const void* D,
+                                         const void* h0, void* y,
+                                         void* h_out, void* h_ckpt, int Bt,
+                                         int S, int di, int ds,
+                                         void* stream) {
+  if (ds != kStates || Bt < 0 || S < 0 || di <= 0 || di % 8 != 0 ||
+      Bt > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (Bt == 0) return (int)cudaGetLastError();
+  const dim3 grid((di + kChannels - 1) / kChannels, Bt);
+  selective_scan_kernel<float, true>
+      <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(x), static_cast<const float*>(dt),
+          static_cast<const float*>(B), static_cast<const float*>(C),
+          static_cast<const float*>(A), static_cast<const float*>(D),
+          static_cast<const float*>(h0), static_cast<float*>(y),
+          static_cast<float*>(h_out), static_cast<float*>(h_ckpt), S, di);
   return (int)cudaGetLastError();
 }

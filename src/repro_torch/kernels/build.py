@@ -35,6 +35,7 @@ KERNEL_SOURCES = {
     "flash_prefill_bwd": "flash_prefill_bwd.cu",
     "quant_blocks": "quant_blocks.cu",
     "selective_scan": "selective_scan.cu",
+    "selective_scan_bwd": "selective_scan_bwd.cu",
     "wkv6": "wkv6.cu",
     "wkv6_bwd": "wkv6_bwd.cu",
 }
@@ -89,6 +90,12 @@ _SIGNATURES = {
                             [_P, _P]),
     "selective_scan": ("selective_scan", "launch_selective_scan",
                        [_P] * 9 + [_I] * 4 + [_P]),
+    "selective_scan:train": ("selective_scan", "launch_selective_scan_f32",
+                             [_P] * 10 + [_I] * 4 + [_P]),
+    "selective_scan_bwd": ("selective_scan_bwd", "launch_selective_scan_bwd",
+                           [_P] * 17 + [_L] + [_I] * 4 + [_P]),
+    "selective_scan_bwd_ws": ("selective_scan_bwd",
+                              "selective_scan_bwd_ws_floats", [_I] * 3, _L),
     "wkv6": ("wkv6", "launch_wkv6", [_P] * 10 + [_I] * 5 + [_P]),
     "wkv6:train": ("wkv6", "launch_wkv6_f32", [_P] * 10 + [_I] * 5 + [_P]),
     "wkv6_bwd": ("wkv6_bwd", "launch_wkv6_bwd", [_P] * 17 + [_I] * 5 + [_P]),

@@ -38,15 +38,16 @@ class LaunchCounter:
     """Kernel launches per wrapper name since the last ``reset``; a
     launch of a kernel's other mode or instance also counts under
     "name:mode" (score_select's "mean" and "sum" scorings, the training
-    instances of flash_prefill and flash_prefill_bwd, wkv6's training
-    forward)."""
+    instances of flash_prefill and flash_prefill_bwd, the recurrences'
+    training forwards)."""
 
     NAMES = ("sparse_decode_attention", "block_score", "score_select",
              "gather_blocks_hkv", "scatter_blocks_hkv", "zero_blocks_hkv",
              "write_blocks_hkv", "flash_prefill", "quantize_blocks",
              "dequantize_blocks", "dequantize_scatter_blocks",
              "quant_save_blocks", "gather_blocks", "scatter_blocks",
-             "selective_scan", "wkv6", "flash_prefill_bwd", "wkv6_bwd")
+             "selective_scan", "wkv6", "flash_prefill_bwd", "wkv6_bwd",
+             "selective_scan_bwd")
 
     def __init__(self):
         self.counts: Dict[str, int] = dict.fromkeys(self.NAMES, 0)
@@ -740,9 +741,9 @@ def _check_flash(name: str, q: torch.Tensor, k: torch.Tensor,
 
 
 # the (q/k depth, v width) pairs the backward is built for: the dense GQA
-# family's heads (qwen2-0.5b's 64, llama3-8b's 128) and MLA's (96, 64);
-# its non-causal mode at Whisper's 64 only
-FLASH_BWD_DIMS = ((64, 64), (128, 128), (96, 64))
+# family's heads (qwen2-0.5b's 64, llama3-8b's 128), MLA's (96, 64) and
+# kimi-k2's (112, 112); its non-causal mode at Whisper's 64 only
+FLASH_BWD_DIMS = ((64, 64), (128, 128), (96, 64), (112, 112))
 FLASH_BWD_NONCAUSAL_DIMS = ((64, 64),)
 
 
@@ -767,16 +768,17 @@ def _check_backward_limits(q, k, v, causal: bool, q_offset) -> None:
     if not _all_cpu(q, k, v) and (D, Dv) not in _bwd_dims(causal):
         raise NotImplementedError(
             f"{name}: (D, Dv) in {_bwd_dims(causal)} on the card "
-            f"{'causal' if causal else 'non-causal'} (got {(D, Dv)}); "
-            f"kimi-k2's (112, 112) comes with MoE training, ROADMAP.md "
-            f"queue 1 item 7, training step 1")
+            f"{'causal' if causal else 'non-causal'} (got {(D, Dv)}); no "
+            f"config of the registry trains other heads")
 
 
 def _train_modes(D: int, Dv: int, causal: bool, prefix: str = ""
                  ) -> Tuple[str, ...]:
     """The launch counter's labels of a training instance beside its
-    kernel's name: MLA's heads, the non-causal mode."""
-    return (((prefix + "mla",) if (D, Dv) == (96, 64) else ())
+    kernel's name: MLA's heads, kimi-k2's (112, 112), the non-causal
+    mode."""
+    heads = {(96, 64): "mla", (112, 112): "d112"}.get((D, Dv))
+    return (((prefix + heads,) if heads else ())
             + ((prefix + "noncausal",) if not causal else ()))
 
 
@@ -789,8 +791,9 @@ def flash_prefill_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Causal self-attention (Sq == Sk), or every query over every key.  On
     the GPU the ``flash_prefill`` kernel with its lse output (bfloat16,
     (D, Dv) in ``FLASH_BWD_DIMS``); a launch also counts under
-    "flash_prefill:lse" and, for MLA's heads and the non-causal mode,
-    under "flash_prefill:lse_mla" and "flash_prefill:lse_noncausal"."""
+    "flash_prefill:lse" and, for MLA's heads, kimi-k2's and the
+    non-causal mode, under "flash_prefill:lse_mla",
+    "flash_prefill:lse_d112" and "flash_prefill:lse_noncausal"."""
     if _all_cpu(q, k, v):
         return ref.flash_prefill_fwd_lse(q, k, v, scale=scale, causal=causal)
     name = "flash_prefill"
@@ -821,8 +824,9 @@ def flash_prefill_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     On the GPU: the kernels of ``csrc/flash_prefill_bwd.cu`` (Delta, dK
     and dV a CTA per query head of each group, dQ, and the heads' shares
     of dK and dV summed in head order where G > 1: one count a call, also
-    under "flash_prefill_bwd:mla" and "flash_prefill_bwd:noncausal" for
-    those instances), bfloat16 q, k, v, o, do, (D, Dv) in
+    under "flash_prefill_bwd:mla", "flash_prefill_bwd:d112" and
+    "flash_prefill_bwd:noncausal" for those instances), bfloat16 q, k,
+    v, o, do, (D, Dv) in
     ``FLASH_BWD_DIMS`` (``FLASH_BWD_NONCAUSAL_DIMS`` when not causal);
     deterministic."""
     if _all_cpu(q, k, v, o, lse, do):
@@ -1167,8 +1171,9 @@ def quant_save_blocks(saves: Sequence[QuantSave]) -> int:
 # ---------------------------------------------------------------------------
 
 # tokens the kernel stages in shared memory per pass (csrc/selective_scan.cu
-# kChunk), the one state width it takes, and the multiple of 8 channels
-# d_inner must be (its 16-byte copies of bf16 x)
+# kChunk; also the training forward's checkpoint interval, which the
+# backward reruns), the one state width it takes, and the multiple of 8
+# channels d_inner must be (its 16-byte copies of bf16 x)
 SCAN_CHUNK, SCAN_STATES, SCAN_CHANNEL_MULTIPLE = 64, 16, 8
 
 
@@ -1209,6 +1214,141 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
     _raise_on(rc, name)
     launches.add(name)
     return y, h
+
+
+def _check_scan_f32(name: str, x: torch.Tensor, dt: torch.Tensor,
+                    B: torch.Tensor, C: torch.Tensor, A: torch.Tensor,
+                    D: torch.Tensor, h: torch.Tensor, **more) -> None:
+    """Checks of the training kernels' operands: every one float32 (the
+    training precision), contiguous and 16-byte aligned on x's device;
+    x, dt (and ``more``'s dy) (Bt, S, di) with S > 0, B, C (Bt, S, 16), A
+    (di, 16), D (di,), the state ``h`` (Bt, ..., di, 16); di a multiple
+    of 8."""
+    Bt, S, di = x.shape
+    _check_cuda(name, x.device, x=x, dt=dt, B=B, C=C, A=A, D=D, h=h, **more)
+    _check(all(t.dtype == torch.float32
+               for t in (x, dt, B, C, A, D, h, *more.values())),
+           f"{name}: every operand float32 (the training precision)")
+    _check(S > 0 and dt.shape == x.shape
+           and B.shape == C.shape == (Bt, S, SCAN_STATES)
+           and A.shape == (di, SCAN_STATES) and D.shape == (di,)
+           and h.shape[0] == Bt and h.shape[-2:] == (di, SCAN_STATES)
+           and Bt <= 65535,
+           f"{name}: needs x, dt (Bt, S, di) with S > 0 and Bt <= 65535, B "
+           f"and C (Bt, S, {SCAN_STATES}), A (di, {SCAN_STATES}), D (di,), "
+           f"states (Bt, ..., di, {SCAN_STATES})")
+    _check(di % SCAN_CHANNEL_MULTIPLE == 0,
+           f"{name}: d_inner must be a multiple of {SCAN_CHANNEL_MULTIPLE} "
+           f"(di = {di})")
+    _check(_aligned(x, dt, B, C, A, D, h, *more.values()),
+           f"{name}: 16-byte alignment")
+
+
+def selective_scan_train(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
+                         C: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
+                         h0: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Training's forward of the selective scan: ``selective_scan``'s
+    function on float32 x, B and C (the reference's training precision)
+    -> (y, the final state, h_ckpt (Bt, ceil(S / SCAN_CHUNK), di, 16):
+    the state before each SCAN_CHUNK-token chunk, which
+    ``selective_scan_bwd`` reruns the chunks from; h0 itself, as one
+    chunk, on the CPU).  On the GPU ``launch_selective_scan_f32``
+    (csrc/selective_scan.cu, kernel C), every operand float32, ds = 16,
+    di a multiple of 8; a call counts under "selective_scan" and
+    "selective_scan:train"."""
+    if _all_cpu(x, dt, B, C, A, D, h0):
+        y, h = ref.selective_scan(x, dt, B, C, A, D, h0)
+        return y, h, h0[:, None]
+    name = "selective_scan"
+    _check_scan_f32(name, x, dt, B, C, A, D, h0)
+    Bt, S, di = x.shape
+    _check(h0.shape == (Bt, di, SCAN_STATES),
+           f"{name}: h0 (Bt, di, {SCAN_STATES})")
+    dev = x.device
+    y = torch.empty((Bt, S, di), dtype=torch.float32, device=dev)
+    h = torch.empty((Bt, di, SCAN_STATES), dtype=torch.float32, device=dev)
+    ckpt = torch.empty((Bt, -(-S // SCAN_CHUNK), di, SCAN_STATES),
+                       dtype=torch.float32, device=dev)
+    rc = LIBS.fn("selective_scan:train")(
+        x.data_ptr(), dt.data_ptr(), B.data_ptr(), C.data_ptr(),
+        A.data_ptr(), D.data_ptr(), h0.data_ptr(), y.data_ptr(),
+        h.data_ptr(), ckpt.data_ptr(), Bt, S, di, SCAN_STATES, _stream())
+    _raise_on(rc, name)
+    launches.add(name, "train")
+    return y, h, ckpt
+
+
+def selective_scan_bwd(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
+                       C: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
+                       h_ckpt: torch.Tensor, dy: torch.Tensor,
+                       dh: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The gradient of ``selective_scan_train`` (``ref.selective_scan_bwd``):
+    x, dt, dy (Bt, S, di); B, C (Bt, S, 16); A (di, 16); D (di,); h_ckpt
+    from ``selective_scan_train``; dh the final state's gradient (Bt, di,
+    16) -> (dx, ddt, dB, dC, dA, dD, dh0), float32.  On the GPU the
+    kernels of csrc/selective_scan_bwd.cu (kernel D: the forward's chunks
+    in reverse, each rerun from its checkpoint, then the sums over
+    channels and rows in a fixed order: deterministic), every operand
+    float32, h_ckpt with the forward's chunk count; a call counts one
+    launch.  A CUDA tensor it cannot take raises, naming the limit."""
+    if _all_cpu(x, dt, B, C, A, D, h_ckpt, dy, dh):
+        return ref.selective_scan_bwd(x, dt, B, C, A, D, h_ckpt[:, 0], dy,
+                                      dh)
+    name = "selective_scan_bwd"
+    _check_scan_f32(name, x, dt, B, C, A, D, h_ckpt, dy=dy, dh=dh)
+    Bt, S, di = x.shape
+    n_ck = -(-S // SCAN_CHUNK)
+    _check(dy.shape == x.shape and dh.shape == (Bt, di, SCAN_STATES)
+           and h_ckpt.shape == (Bt, n_ck, di, SCAN_STATES),
+           f"{name}: dy (Bt, S, di), dh (Bt, di, {SCAN_STATES}), h_ckpt "
+           f"(Bt, {n_ck}, di, {SCAN_STATES}), the forward's chunks of "
+           f"{SCAN_CHUNK} (got {tuple(h_ckpt.shape)})")
+    dev = x.device
+
+    def new(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+    dx, ddt = new(Bt, S, di), new(Bt, S, di)
+    dB, dC = new(Bt, S, SCAN_STATES), new(Bt, S, SCAN_STATES)
+    dA, dD, dh0 = new(di, SCAN_STATES), new(di), new(Bt, di, SCAN_STATES)
+    ws_n = LIBS.fn("selective_scan_bwd_ws")(Bt, S, di)
+    ws = new(ws_n)
+    rc = LIBS.fn(name)(
+        x.data_ptr(), dt.data_ptr(), B.data_ptr(), C.data_ptr(),
+        A.data_ptr(), D.data_ptr(), h_ckpt.data_ptr(), dy.data_ptr(),
+        dh.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dB.data_ptr(),
+        dC.data_ptr(), dA.data_ptr(), dD.data_ptr(), dh0.data_ptr(),
+        ws.data_ptr(), ws_n, Bt, S, di, SCAN_STATES, _stream())
+    _raise_on(rc, name)
+    launches.add(name)
+    return dx, ddt, dB, dC, dA, dD, dh0
+
+
+class SelectiveScanFn(torch.autograd.Function):
+    """The selective scan with a gradient, for training: (x, dt (Bt, S,
+    di), B, C (Bt, S, 16), A (di, 16), D (di,), h0 (Bt, di, 16)) -> (y,
+    the final state), ``selective_scan``'s function.  Forward
+    ``selective_scan_train`` (kernel C), backward ``selective_scan_bwd``
+    (kernel D).  Every operand runs in float32 (others are cast, the
+    gradients cast back to each input's dtype); on the CPU both are the
+    plain versions."""
+
+    @staticmethod
+    def forward(ctx, x, dt, B, C, A, D, h0):
+        ctx.dtypes = tuple(t.dtype for t in (x, dt, B, C, A, D, h0))
+        x, dt, B, C, A, D, h0 = (t.float().contiguous()
+                                 for t in (x, dt, B, C, A, D, h0))
+        y, h, ckpt = selective_scan_train(x, dt, B, C, A, D, h0)
+        ctx.save_for_backward(x, dt, B, C, A, D, ckpt)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        x, dt, B, C, A, D, ckpt = ctx.saved_tensors
+        grads = selective_scan_bwd(x, dt, B, C, A, D, ckpt,
+                                   dy.float().contiguous(),
+                                   dh.float().contiguous())
+        return tuple(g.to(t) for g, t in zip(grads, ctx.dtypes))
 
 
 # ---------------------------------------------------------------------------

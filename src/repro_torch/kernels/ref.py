@@ -450,6 +450,65 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
     return y, h.clone()
 
 
+def selective_scan_bwd(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
+                       C: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
+                       h0: torch.Tensor, dy: torch.Tensor,
+                       dh: Optional[torch.Tensor] = None, chunk: int = 256
+                       ) -> Tuple[torch.Tensor, ...]:
+    """The gradient of ``selective_scan``, the explicit reverse loop of its
+    token walk: x, dt, dy (Bt, S, di); B, C (Bt, S, ds); A (di, ds); D
+    (di,); h0 and dh, the gradient of the final state (None: zero), (Bt,
+    di, ds).  Per (row, channel d, state n), with a_t = exp(dt_t A), h_t
+    the state after token t (recomputed by the forward loop, h_{-1} = h0)
+    and g_t the gradient of h_t (g_{S-1} = dh + C_{S-1} dy_{S-1}; g_t =
+    C_t dy_t + a_{t+1} g_{t+1}, the reverse loop):
+      dC_t[n] = sum_d dy_t h_t            dB_t[n] = sum_d g_t dt_t x_t
+      dx_t = dt_t sum_n g_t B_t + D dy_t
+      ddt_t = sum_n g_t (A a_t h_{t-1} + x_t B_t)
+      dA = sum over rows and tokens of g_t dt_t a_t h_{t-1}
+      dD = sum over rows and tokens of dy_t x_t,   dh0 = a_0 g_0.
+    A position with dt = 0 carries h and g through unchanged.  Only the
+    two recurrences step token by token (every state kept); the per-token
+    sums run over ``chunk`` tokens at a time.  Every input is widened to
+    float32.  Returns (dx, ddt, dB, dC, dA, dD, dh0), float32; the caller
+    chains dA to A_log (A = -exp(A_log))."""
+    x, dt, B, C, dy = (t.float() for t in (x, dt, B, C, dy))
+    A, D = A.float(), D.float()
+    Bt, S, di = x.shape
+    states = x.new_empty((Bt, S + 1, di, A.shape[1]))  # h_{t-1} at [:, t]
+    states[:, 0] = h0.float()
+    for t0 in range(0, S, chunk):
+        sl = slice(t0, t0 + chunk)
+        dA = torch.exp(dt[:, sl, :, None] * A)
+        dBx = dt[:, sl, :, None] * B[:, sl, None, :] * x[:, sl, :, None]
+        for t in range(dA.shape[1]):
+            torch.mul(dA[:, t], states[:, t0 + t], out=states[:, t0 + t + 1])
+            states[:, t0 + t + 1] += dBx[:, t]
+    dx, ddt = torch.empty_like(x), torch.empty_like(x)
+    dB, dC = torch.empty_like(B), torch.empty_like(C)
+    dA_sum = torch.zeros_like(A)
+    G = (torch.zeros_like(states[:, 0]) if dh is None
+         else dh.float().clone())
+    for t1 in range(S, 0, -chunk):
+        t0 = max(0, t1 - chunk)
+        sl = slice(t0, t1)
+        a = torch.exp(dt[:, sl, :, None] * A)
+        g = dy[:, sl, :, None] * C[:, sl, None, :]
+        for t in range(t1 - t0 - 1, -1, -1):
+            g[:, t] += G
+            G = a[:, t] * g[:, t]
+        hprev, hcur = states[:, t0:t1], states[:, t0 + 1:t1 + 1]
+        w = a * hprev
+        dC[:, sl] = (dy[:, sl, :, None] * hcur).sum(2)
+        dB[:, sl] = (g * (dt[:, sl] * x[:, sl])[..., None]).sum(2)
+        gB = (g * B[:, sl, None, :]).sum(-1)
+        dx[:, sl] = dt[:, sl] * gB + D * dy[:, sl]
+        ddt[:, sl] = (g * A * w).sum(-1) + x[:, sl] * gB
+        dA_sum += (g * dt[:, sl, :, None] * w).sum((0, 1))
+    dD = (dy * x).sum((0, 1))
+    return dx, ddt, dB, dC, dA_sum, dD, G
+
+
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          w: torch.Tensor, u: torch.Tensor, S0: torch.Tensor
          ) -> Tuple[torch.Tensor, torch.Tensor]:

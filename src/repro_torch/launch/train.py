@@ -10,12 +10,17 @@ checkpoint holds params and optimizer state) on one device, the
 GPU unless ``--device cpu`` (without a card the default raises), at the
 full config or with ``--smoke`` its reduced one.  The counterpart of the
 reference's ``repro/launch/train.py`` without its mesh and shardings (the
-plane meshes come last, ROADMAP.md queue 1 item 9).  The dense GQA, MLA
-(minicpm3-4b), frontend (internvl2-2b, whisper-small) and RWKV6
-(rwkv6-1.6b, its recurrence through ``ops.Wkv6Fn``) families train, each
-batch with the reference launcher's stand-ins for the stubbed frontends
-(``training.trainer.frontend_inputs``); the MoE and hybrid families raise
-(``models.model.check_trainable``).
+plane meshes come last, ROADMAP.md queue 1 item 9).  Every family of
+the registry trains (``models.model.check_trainable``): dense GQA, MLA
+(minicpm3-4b), the frontends (internvl2-2b, whisper-small), RWKV6
+(rwkv6-1.6b, its recurrence through ``ops.Wkv6Fn``), MoE (kimi-k2-1t-a32b,
+arctic-480b: the reference's capacity drops and 0.01 x its aux loss) and
+the hybrid (jamba-v0.1-52b, its Mamba layers' scan through
+``ops.SelectiveScanFn``), each batch with the reference launcher's
+stand-ins for the stubbed frontends (``training.trainer.frontend_inputs``).
+No MoE config's float32 training state fits one card at full depth
+(chip_smoke.py's train phase trains jamba-v0.1-52b at 2 of its 32
+layers, full width).
 
     python -m repro_torch.launch.train --arch minicpm3-4b --steps 3 \
         --batch 1 --seq 4096 --remat

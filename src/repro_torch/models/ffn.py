@@ -19,8 +19,9 @@ is not ported: it belongs with multi-GPU plane sharding.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Dict, Tuple
+from typing import Dict, Iterator, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -32,10 +33,23 @@ class MoEStats:
     """MoE calls since the last ``reset``: per-expert count read-backs,
     (token, slot) pairs routed and dropped, and for decode-shaped calls
     (one token per row) the experts each touched (those with a kept
-    pair), summed and at most."""
+    pair), summed and at most.  Calls made while ``paused`` are not
+    counted."""
 
     def __init__(self):
+        self._paused = False
         self.reset()
+
+    @contextlib.contextmanager
+    def paused(self, pause: bool = True) -> Iterator[None]:
+        """Count no call while entered, if ``pause``: training's remat
+        reruns a layer's forward on the backward pass, whose MoE call
+        was counted when the forward ran."""
+        was, self._paused = self._paused, self._paused or pause
+        try:
+            yield
+        finally:
+            self._paused = was
 
     def reset(self) -> None:
         self.readbacks = 0
@@ -46,7 +60,7 @@ class MoEStats:
         self.decode_touched_max = 0
 
     def snapshot(self) -> Dict[str, int]:
-        return dict(vars(self))
+        return {k: v for k, v in vars(self).items() if not k.startswith("_")}
 
 
 moe_stats = MoEStats()
@@ -135,7 +149,11 @@ def moe_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor, *,
               drop_free: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> (out (B, S, d), aux loss).  ``drop_free``: the
     capacity covers every pair, as every serving path runs it (capacity
-    must not couple the rows of a batched step)."""
+    must not couple the rows of a batched step); training keeps the
+    reference's capacity.  Differentiable: the router's gradient flows
+    through the softmax, the renormalised top-k gates and the aux loss;
+    a dropped pair's row stays zero, so its token and its gate get no
+    gradient from it, as the reference's overflow row gives none."""
     B, S, d = x.shape
     k = cfg.top_k_experts
     T = B * S
@@ -144,15 +162,16 @@ def moe_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor, *,
     cap = moe_capacity(cfg, T, drop_free)
 
     order, counts, kept = moe_dispatch(experts, cfg.num_experts, cap)
-    moe_stats.readbacks += 1
-    moe_stats.pairs += T * k
-    moe_stats.dropped += T * k - sum(kept)
-    if S == 1:
-        touched = sum(1 for n in kept if n)
-        moe_stats.decode_calls += 1
-        moe_stats.decode_touched += touched
-        moe_stats.decode_touched_max = max(moe_stats.decode_touched_max,
-                                           touched)
+    if not moe_stats._paused:
+        moe_stats.readbacks += 1
+        moe_stats.pairs += T * k
+        moe_stats.dropped += T * k - sum(kept)
+        if S == 1:
+            touched = sum(1 for n in kept if n)
+            moe_stats.decode_calls += 1
+            moe_stats.decode_touched += touched
+            moe_stats.decode_touched_max = max(
+                moe_stats.decode_touched_max, touched)
 
     xs = xf[order // k]                           # each pair's token row
     # a dropped pair's row stays zero, as the slab's overflow row

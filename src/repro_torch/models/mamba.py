@@ -5,7 +5,12 @@ over the whole window and decode carries an O(1) recurrent state (the
 conv window and the SSM state); the layer holds no KV cache, so DSA does
 not apply to it.  The scan goes through ``ops.selective_scan`` (the
 ``selective_scan`` kernel on the GPU, its plain version on the CPU) on
-both paths: the decode step is the scan of one token.  The causal conv
+both serving paths: the decode step is the scan of one token.  A window
+in float32 (training's forward, its eval without a gradient, a float32
+prefill on the CPU) or one that needs a gradient goes through
+``ops.SelectiveScanFn`` instead (the same plain scan on the CPU): the
+scan's float32 training instance forward and ``selective_scan_bwd``
+backward.  The causal conv
 stays plain PyTorch (4 taps, elementwise).  Dtypes are the reference's:
 ``dt_bias``, ``A_log`` and ``D`` are float32 whatever the model dtype, so
 ``dt`` and the scan are float32; the conv window keeps the activation
@@ -121,8 +126,15 @@ def mamba_forward(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     h0 = (state["ssm"] if state is not None
           else torch.zeros((B, di, ds), dtype=torch.float32,
                            device=x.device))
-    y, h = ops.selective_scan(xc, dt, B_ssm, C_ssm, A, p["D"],
-                              h0.contiguous())
+    args = (xc, dt, B_ssm, C_ssm, A, p["D"], h0.contiguous())
+    # float32 activations (training's precision, with a gradient or not)
+    # and any call that needs a gradient take the training scan; the
+    # serve's bfloat16 activations take the serve's
+    if xc.dtype == torch.float32 or (
+            torch.is_grad_enabled() and any(t.requires_grad for t in args)):
+        y, h = ops.SelectiveScanFn.apply(*args)
+    else:
+        y, h = ops.selective_scan(*args)
     out = (y.to(x.dtype) * F.silu(z)) @ p["out_proj"]
     if not return_state:
         return out

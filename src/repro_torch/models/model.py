@@ -214,10 +214,13 @@ def layer_forward(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                   token_mask: Optional[torch.Tensor] = None,
                   enc_kv: Optional[Tuple] = None,
                   k_ctx=None, v_ctx=None, q_offset=0,
-                  return_kv: bool = False, moe_drop_free: bool = False):
+                  return_kv: bool = False, moe_drop_free: bool = False,
+                  return_aux: bool = False):
     """One transformer layer over a full sequence.  Returns (x_out,
     layer_kv): (k, v) each (B, S, Hkv, hd), or MLA's (latent (B, S, 1,
-    kv_lora + rope), None), when ``return_kv``, else None.  MLA has no
+    kv_lora + rope), None), when ``return_kv``, else None; with
+    ``return_aux`` a third element, the MoE's load-balance aux loss (None
+    for a layer without one), which training adds.  MLA has no
     attention over earlier chunks' context (as in the reference).
     A Mamba or RWKV layer (``kind`` "mamba" or "rwkv") returns (x_out, its
     new recurrent state) instead, continuing from ``rec_state`` (None: a
@@ -238,13 +241,14 @@ def layer_forward(p: Dict, cfg: ModelConfig, x: torch.Tensor,
         h, st = rwkv_mod.rwkv_channel_mix(p["rwkv"],
                                           _norm(cfg, p["ln2"], x), st,
                                           token_mask=token_mask)
-        return x + h, st
+        return (x + h, st) + ((None,) if return_aux else ())
     h_in = _norm(cfg, p["attn_norm"], x)
     if kind == "mamba":
         h, new_rec = mamba_mod.mamba_forward(p["mamba"], cfg, h_in,
                                              rec_state, return_state=True,
                                              token_mask=token_mask)
-        return _layer_epilogue(p, cfg, x + h, enc_kv, moe_drop_free), new_rec
+        x, aux = _layer_epilogue(p, cfg, x + h, enc_kv, moe_drop_free)
+        return (x, new_rec) + ((aux,) if return_aux else ())
     if kind != "attn":
         raise NotImplementedError(f"layer kind {kind!r}")
     if cfg.attention_type == "mla":
@@ -259,19 +263,20 @@ def layer_forward(p: Dict, cfg: ModelConfig, x: torch.Tensor,
         h, k, v = attn.gqa_self_attention(p["attn"], cfg, h_in, positions,
                                           k_ctx=k_ctx, v_ctx=v_ctx,
                                           q_offset=q_offset, return_kv=True)
-    x = x + h
-    return (_layer_epilogue(p, cfg, x, enc_kv, moe_drop_free),
-            (k, v) if return_kv else None)
+    x, aux = _layer_epilogue(p, cfg, x + h, enc_kv, moe_drop_free)
+    return ((x, (k, v) if return_kv else None)
+            + ((aux,) if return_aux else ()))
 
 
 def _layer_epilogue(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                     enc_kv: Optional[Tuple], moe_drop_free: bool
-                    ) -> torch.Tensor:
+                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """What follows a layer's self-attention, residuals included: the
     cross-attention over ``enc_kv`` (Whisper; skipped without it), then
     the FFN or MoE.  x (B, S, d) on a full sequence or (B, d) in decode
     (one query row per request; the MoE on (B, 1, d), always drop-free,
-    so that capacity does not couple the rows of a batched step).  One
+    so that capacity does not couple the rows of a batched step).
+    Returns (x, the MoE's aux loss, or None for a dense FFN).  One
     implementation for every caller."""
     if enc_kv is not None and "cross" in p:
         cross = (attn.cross_decode_step if x.dim() == 2
@@ -280,13 +285,13 @@ def _layer_epilogue(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                       *enc_kv)
     h_in = _norm(cfg, p["ffn_norm"], x)
     if "moe" not in p:
-        return x + ffn_mod.ffn_apply(p["ffn"], h_in)
+        return x + ffn_mod.ffn_apply(p["ffn"], h_in), None
     if x.dim() == 2:
-        h, _ = ffn_mod.moe_apply(p["moe"], cfg, h_in[:, None, :],
-                                 drop_free=True)
-        return x + h[:, 0]
-    h, _ = ffn_mod.moe_apply(p["moe"], cfg, h_in, drop_free=moe_drop_free)
-    return x + h
+        h, aux = ffn_mod.moe_apply(p["moe"], cfg, h_in[:, None, :],
+                                   drop_free=True)
+        return x + h[:, 0], aux
+    h, aux = ffn_mod.moe_apply(p["moe"], cfg, h_in, drop_free=moe_drop_free)
+    return x + h, aux
 
 
 # ---------------------------------------------------------------------------
@@ -294,22 +299,12 @@ def _layer_epilogue(p: Dict, cfg: ModelConfig, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` unless ``cfg`` is of a family the port
-    trains (on every device): dense GQA, MLA, the VLM's patch prefix,
-    Whisper's encoder-decoder and RWKV6; naming what each other family
-    lacks (ROADMAP.md queue 1 item 7's training steps)."""
+    """Raise ``NotImplementedError`` unless the port trains ``cfg`` (on
+    every device): every family of the registry (dense GQA, MLA, MoE, the
+    hybrid of Mamba and attention, RWKV6, the VLM's patch prefix and
+    Whisper's encoder-decoder) does; a config ``check_supported`` refuses
+    (tied embeddings) does not."""
     check_supported(cfg)
-    missing = []
-    if cfg.num_experts or cfg.arch_type == "moe":
-        missing.append("MoE training with the capacity drops and the aux "
-                       "loss (step 1)")
-    if cfg.arch_type == "hybrid":
-        missing.append("a backward kernel for selective_scan (step 4; "
-                       "wkv6's is done)")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: the port trains the dense GQA, MLA, frontend "
-            f"and RWKV6 families; missing: " + "; ".join(missing))
 
 
 def forward_train(params: Dict, cfg: ModelConfig, batch: Dict,
@@ -325,29 +320,42 @@ def forward_train(params: Dict, cfg: ModelConfig, batch: Dict,
     ``ops.flash_prefill``, which differentiates it (``FlashPrefillFn``:
     causal self-attention, MLA's (96, 64) heads, the encoder's and the
     cross-attention's non-causal mode); RWKV6's recurrence through
-    ``ops.Wkv6Fn``, each layer from a fresh recurrent state (the
-    reference's ``_fresh_rec_state``).  The reference adds 0.01 x the
-    MoE's aux loss, which these layers do not have.  ``remat``: each
-    decoder layer under ``torch.utils.checkpoint`` (non-reentrant), its
-    forward run again on the backward pass, as ``jax.checkpoint`` wraps
-    one in the reference, which does not checkpoint the encoder either.
-    The reference's ``triangular`` changes no result and has no
-    counterpart."""
+    ``ops.Wkv6Fn`` and Mamba's through ``ops.SelectiveScanFn``, each
+    layer from a fresh recurrent state (the reference's
+    ``_fresh_rec_state``).  An MoE runs with the reference's capacity
+    (``moe_drop_free`` False: pairs past it are dropped) and the loss is
+    the reference's ``loss + 0.01 * aux``, aux the MoE layers' summed
+    load-balance losses.  ``remat``: each decoder layer under
+    ``torch.utils.checkpoint`` (non-reentrant), its forward run again on
+    the backward pass, as ``jax.checkpoint`` wraps one in the reference,
+    which does not checkpoint the encoder either; ``ffn.moe_stats``
+    counts a layer's MoE call once, not its rerun.  The reference's
+    ``triangular`` changes no result and has no counterpart."""
     check_trainable(cfg)
     h, positions = embed_inputs(params, cfg, batch)
     enc_kvs = encode_inputs(params, cfg, batch)
+    aux_total = None
     for i in range(cfg.num_layers):
         def run(h_, p=get_layer(params, i), enc_kv=index_enc_kvs(enc_kvs, i),
-                kind=layer_kind(cfg, i)):
-            return layer_forward(p, cfg, h_, positions, kind=kind,
-                                 enc_kv=enc_kv)[0]
-        h = (torch.utils.checkpoint.checkpoint(run, h, use_reentrant=False)
-             if remat else run(h))
+                kind=layer_kind(cfg, i), calls=[]):
+            with ffn_mod.moe_stats.paused(bool(calls)):   # remat's rerun
+                calls.append(1)
+                h2, _, aux = layer_forward(p, cfg, h_, positions, kind=kind,
+                                           enc_kv=enc_kv, return_aux=True)
+            return h2, aux
+        h, aux = (torch.utils.checkpoint.checkpoint(run, h,
+                                                    use_reentrant=False)
+                  if remat else run(h))
+        if aux is not None:
+            aux_total = aux if aux_total is None else aux_total + aux
     labels = batch["labels"]
     if cfg.frontend == "vit_patch_stub":     # the text's positions only
         h = h[:, -labels.shape[1]:]
     logits = lm_head(params, cfg, h)
-    return cross_entropy(logits, labels), logits
+    loss = cross_entropy(logits, labels)
+    if aux_total is not None:
+        loss = loss + 0.01 * aux_total
+    return loss, logits
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
@@ -650,7 +658,7 @@ def decode_attend_layer(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     attend = (attn.mla_attend_step if cfg.attention_type == "mla"
               else attn.gqa_attend_step)
     x = x + attend(p["attn"], cfg, q, cache, cur_len, idx, valid)
-    return _layer_epilogue(p, cfg, x, enc_kv, moe_drop_free=True)
+    return _layer_epilogue(p, cfg, x, enc_kv, moe_drop_free=True)[0]
 
 
 def decode_recurrent_layer(p: Dict, cfg: ModelConfig, kind: str,
@@ -673,7 +681,7 @@ def decode_recurrent_layer(p: Dict, cfg: ModelConfig, kind: str,
         p["mamba"], cfg, _norm(cfg, p["attn_norm"], x), cache)
     if step_mask is not None:
         new = _mask_state(new, cache, step_mask)
-    return _layer_epilogue(p, cfg, x + h, None, moe_drop_free=True), new
+    return _layer_epilogue(p, cfg, x + h, None, moe_drop_free=True)[0], new
 
 
 def decode_logits(params: Dict, cfg: ModelConfig, x: torch.Tensor,

@@ -7,7 +7,11 @@ scalar on the parameters' device (so the schedule and the bias
 correction never read the device back).  Where the reference returns new
 arrays, ``adamw_update`` updates the parameters and the moments IN PLACE
 under ``torch.no_grad()``, leaf by leaf in the reference's leaf order
-(``tree_leaves``), so a step holds no second copy of the model.
+(``tree_leaves``), so a step holds no second copy of the model; a leaf
+of more than ``UPDATE_SLICE`` elements (an MoE layer's expert stack) is
+updated a slice at a time, so that the update's temporaries take a
+slice's memory and not the leaf's (the arithmetic is elementwise: the
+same bits either way).
 """
 from __future__ import annotations
 
@@ -16,6 +20,9 @@ import math
 from typing import Any, Callable, Dict, Iterator, List, Tuple
 
 import torch
+
+# elements of a leaf that one pass of the update takes (64 MB of float32)
+UPDATE_SLICE = 1 << 24
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,12 +132,29 @@ def adamw_update(cfg: AdamWConfig, params: Any, grads: Any, state: Dict
         raise ValueError("adamw_update: params, grads and moments differ "
                          "in their leaves")
     for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v):
-        gf = g.float() * scale
-        m.mul_(b1).add_(gf, alpha=1 - b1)
-        v.mul_(b2).addcmul_(gf, gf, value=1 - b2)
-        delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
-        if p.ndim >= 2:   # decay matrices only (norms and biases excluded)
-            delta.add_(p.float(), alpha=cfg.weight_decay)
-        p.copy_(p.float() - lr * delta)
+        decay = p.ndim >= 2   # matrices only (norms and biases excluded)
+        for ps, gs, ms, vs in _slices(p, g, m, v):
+            gf = gs.float() * scale
+            ms.mul_(b1).add_(gf, alpha=1 - b1)
+            vs.mul_(b2).addcmul_(gf, gf, value=1 - b2)
+            delta = (ms / bc1) / (torch.sqrt(vs / bc2) + cfg.eps)
+            if decay:
+                delta.add_(ps.float(), alpha=cfg.weight_decay)
+            ps.copy_(ps.float() - lr * delta)
     step.add_(1)
     return {"grad_norm": gn, "lr": lr}
+
+
+def _slices(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
+            v: torch.Tensor) -> List[Tuple[torch.Tensor, ...]]:
+    """A leaf's (param, grad, m, v) flattened and cut into views of
+    UPDATE_SLICE elements each, in order (one for a smaller leaf).  The
+    param and the moments are written through these views, so they must
+    be contiguous (``init_params`` and ``init_opt_state`` make them so);
+    the grad is only read."""
+    if not (p.is_contiguous() and m.is_contiguous() and v.is_contiguous()):
+        raise ValueError("adamw_update: the parameters and the moments "
+                         "must be contiguous")
+    flat = (p.view(-1), g.reshape(-1), m.view(-1), v.view(-1))
+    return [tuple(t[i:i + UPDATE_SLICE] for t in flat)
+            for i in range(0, p.numel(), UPDATE_SLICE)]

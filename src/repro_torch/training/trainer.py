@@ -6,16 +6,19 @@ checkpoints, the counterpart of the reference package's
 opt_state, metrics): the loss and its gradients by autograd through
 ``models/model.py``'s ``forward_train`` (whose attention runs the
 ``flash_prefill`` kernel forward and ``flash_prefill_bwd`` backward on
-the card, and RWKV6's recurrence ``wkv6``'s float32 training instance
-forward and ``wkv6_bwd`` backward), then AdamW in place.  There is no mesh and no sharding (the
+the card, RWKV6's recurrence ``wkv6``'s float32 training instance
+forward and ``wkv6_bwd`` backward, and Mamba's scan
+``selective_scan``'s float32 training instance forward and
+``selective_scan_bwd`` backward; the MoE at the reference's capacity,
+its aux loss in the loss), then AdamW in place.  There is no mesh and no sharding (the
 reference's ``launch/steps.py`` and its dry-run specs wait with the plane
 meshes, ROADMAP.md).
 
 Precision: parameters, gradients and AdamW moments are float32 on either
 device.  On the card the products are ``torch.matmul`` in float32, with
 TF32 off (``train`` sets it off; it is off by default); only the attention
-kernels run in bfloat16, accumulating in float32 (the WKV kernels take
-float32).  On the CPU everything
+kernels run in bfloat16, accumulating in float32 (the recurrences'
+training kernels take float32).  On the CPU everything
 is float32, as the reference's ``train`` is.
 """
 from __future__ import annotations
@@ -133,7 +136,8 @@ def make_eval_step(cfg: ModelConfig) -> Callable:
     attention kernel takes bfloat16 only, so there the step evaluates the
     weights in bfloat16 (every product in bfloat16, the loss in float32),
     the float32 leaves kept float32 as the serve keeps them (``_cast``:
-    RWKV6's decay, bonus and norms, which its serve's ``wkv6`` takes):
+    RWKV6's decay, bonus and norms, which its serve's ``wkv6`` takes;
+    the MoE router; Mamba's dt_bias, A_log and D):
     the decoder's layers are cast one at a time as the forward reaches
     them, so that no bfloat16 copy of the whole model sits beside the
     float32 training state (8.5 GB at minicpm3-4b); on the CPU the

@@ -1381,8 +1381,10 @@ def test_flash_prefill_bwd_raises_beyond_its_limits(cuda):
         ops.flash_prefill(x, x[:, :32], x[:, :32], scale=0.125)
     with pytest.raises(NotImplementedError, match="training step 5"):
         ops.flash_prefill(x, x, x, scale=0.125, q_offset=4)
-    y = torch.zeros((1, 64, 4, 112), device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="training step 1"):
+    # kimi-k2's (112, 112) trains; heads no config of the registry has
+    # do not
+    y = torch.zeros((1, 64, 4, 80), device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="other heads"):
         ops.flash_prefill(y, y, y, scale=0.125)
     # the non-causal mode is built at Whisper's heads only
     z = torch.zeros((1, 64, 4, 128), device=cuda, requires_grad=True)
@@ -1636,4 +1638,234 @@ def test_eval_step_runs_rwkv6_in_bfloat16_on_the_card(cuda):
                               {k: t.to(cuda) for k, t in batch.items()})
     assert ops.launches.counts["wkv6"] == cfg.num_layers
     assert ops.launches.counts.get("wkv6:train", 0) == 0
+    assert abs(got.item() - want) <= 2e-2 * abs(want)
+
+
+# --- training's selective scan (kernels C and D) and kimi-k2's (112, 112)
+# training attention ---
+
+SCAN_TRAIN_CASES = [(2, 300, 96, (300, 171)), (1, 64, 64, (64,)),
+                    (3, 1, 40, (1, 1, 1)), (2, 1000, 512, (1000, 777)),
+                    (1, 130, 8192, (130,))]
+
+
+def _scan_train_case(dev, Bn, S, di, lens, seed=0):
+    """Kernels C's and D's float32 operands as the Mamba layer's training
+    hands them over: x, B, C ~ N(0, 1), dt = softplus(N(-2, 1)) zeroed
+    past each row's length, A = -exp(log(1..16) + N(0, 0.1^2)), D = 1 +
+    N(0, 0.1^2), h0, dy and dh ~ N(0, 1)."""
+    g = _gen(dev, seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    mask = (torch.arange(S, device=dev)[None, :]
+            < torch.tensor(lens, device=dev)[:, None])
+    dt = (torch.nn.functional.softplus(randn(Bn, S, di) - 2)
+          * mask[..., None]).contiguous()
+    A = -torch.exp(torch.arange(1, 17, device=dev).float().log()
+                   + 0.1 * randn(di, 16))
+    return (randn(Bn, S, di), dt, randn(Bn, S, 16), randn(Bn, S, 16), A,
+            1 + 0.1 * randn(di), randn(Bn, di, 16), randn(Bn, S, di),
+            randn(Bn, di, 16))
+
+
+def _scan_grads_close(got, want):
+    """chip_smoke.py's bar for kernel D: each gradient within 2^-12 of the
+    plain version's max |grad| with a cosine >= 0.99999."""
+    for g, w in zip(got, want):
+        err = (g - w).abs().max().item() / w.abs().max().item()
+        cos = torch.nn.functional.cosine_similarity(
+            g.flatten(), w.flatten(), dim=0).item()
+        if err > 2.0 ** -12 or cos < 0.99999:
+            return False
+    return True
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Bn,S,di,lens", SCAN_TRAIN_CASES)
+def test_selective_scan_train_forward_matches_plain(cuda, Bn, S, di, lens):
+    """Kernel C: y and the final state within the serve's bar (1e-5 +
+    1e-4 |ref|), each checkpoint the plain state before its 64-token
+    chunk within the same bar (chunk 0's h0 itself), one count under
+    "selective_scan" and "selective_scan:train"."""
+    x, dt, Bm, Cm, A, D, h0, _, _ = _scan_train_case(cuda, Bn, S, di, lens)
+    ops.launches.reset()
+    y, h, ckpt = ops.selective_scan_train(x, dt, Bm, Cm, A, D, h0)
+    assert ops.launches.counts["selective_scan"] == 1
+    assert ops.launches.counts["selective_scan:train"] == 1
+    n_ck = -(-S // ops.SCAN_CHUNK)
+    assert ckpt.shape == (Bn, n_ck, di, 16)
+    assert torch.equal(ckpt[:, 0], h0)
+    want_y, want_h = ref.selective_scan(x, dt, Bm, Cm, A, D, h0)
+    states, hc = [h0], h0
+    for c in range(1, n_ck):
+        sl = slice((c - 1) * ops.SCAN_CHUNK, c * ops.SCAN_CHUNK)
+        _, hc = ref.selective_scan(x[:, sl], dt[:, sl], Bm[:, sl],
+                                   Cm[:, sl], A, D, hc)
+        states.append(hc)
+    for got, want in ((y, want_y), (h, want_h),
+                      (ckpt, torch.stack(states, dim=1))):
+        assert bool(((got - want).abs() <= 1e-5 + 1e-4 * want.abs()).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Bn,S,di,lens", SCAN_TRAIN_CASES)
+def test_selective_scan_bwd_matches_plain(cuda, Bn, S, di, lens):
+    """Kernel D against ref.selective_scan_bwd on the same float32 inputs
+    (its checkpoints from kernel C): dx, ddt, dB, dC, dA, dD and dh0
+    within the bar, two launches bit-equal, one count a call; the bar
+    rejects a kernel that ignores the final state's gradient, and one
+    rerun from a zeroed checkpoint where there are two chunks."""
+    x, dt, Bm, Cm, A, D, h0, dy, dh = _scan_train_case(cuda, Bn, S, di,
+                                                       lens)
+    _, _, ckpt = ops.selective_scan_train(x, dt, Bm, Cm, A, D, h0)
+    ops.launches.reset()
+    got = ops.selective_scan_bwd(x, dt, Bm, Cm, A, D, ckpt, dy, dh)
+    again = ops.selective_scan_bwd(x, dt, Bm, Cm, A, D, ckpt, dy, dh)
+    assert ops.launches.counts["selective_scan_bwd"] == 2
+    want = ref.selective_scan_bwd(x, dt, Bm, Cm, A, D, h0, dy, dh)
+    for a, b, w in zip(got, again, want):
+        assert a.dtype == torch.float32 and a.shape == w.shape
+        assert torch.equal(a, b)
+    assert _scan_grads_close(got, want)
+    bad = ops.selective_scan_bwd(x, dt, Bm, Cm, A, D, ckpt, dy,
+                                 torch.zeros_like(dh))
+    assert not _scan_grads_close(bad, want)
+    if ckpt.shape[1] > 1:
+        zeroed = ckpt.clone()
+        zeroed[:, 1] = 0
+        bad = ops.selective_scan_bwd(x, dt, Bm, Cm, A, D, zeroed, dy, dh)
+        assert not _scan_grads_close(bad, want)
+
+
+@pytest.mark.gpu
+def test_selective_scan_fn_trains_through_the_kernels(cuda):
+    """SelectiveScanFn on the card: the forward through kernel C, the
+    gradients of x, dt, B, C, A, D and h0 through kernel D, against
+    ref.selective_scan_bwd; bfloat16 inputs come back as bfloat16
+    gradients."""
+    x, dt, Bm, Cm, A, D, h0, dy, dh = _scan_train_case(cuda, 2, 500, 128,
+                                                       (500, 321))
+    leaves = [t.clone().requires_grad_() for t in (x, dt, Bm, Cm, A, D, h0)]
+    ops.launches.reset()
+    y, h = ops.SelectiveScanFn.apply(*leaves)
+    got = torch.autograd.grad([y, h], leaves, [dy, dh])
+    assert ops.launches.counts["selective_scan:train"] == 1
+    assert ops.launches.counts["selective_scan_bwd"] == 1
+    assert _scan_grads_close(got, ref.selective_scan_bwd(
+        x, dt, Bm, Cm, A, D, h0, dy, dh))
+    xb = x.bfloat16().requires_grad_()
+    y, _ = ops.SelectiveScanFn.apply(xb, dt, Bm, Cm, A, D, h0)
+    assert torch.autograd.grad(y, xb, dy)[0].dtype == torch.bfloat16
+
+
+@pytest.mark.gpu
+def test_selective_scan_training_wrappers_raise_beyond_their_limits(cuda):
+    x, dt, Bm, Cm, A, D, h0, dy, dh = _scan_train_case(cuda, 1, 200, 64,
+                                                       (200,))
+    _, _, ckpt = ops.selective_scan_train(x, dt, Bm, Cm, A, D, h0)
+    with pytest.raises(ValueError, match="float32"):
+        ops.selective_scan_train(x.bfloat16(), dt, Bm, Cm, A, D, h0)
+    with pytest.raises(ValueError, match="float32"):
+        ops.selective_scan_bwd(x, dt, Bm, Cm, A, D, ckpt, dy.bfloat16(), dh)
+    with pytest.raises(ValueError, match="chunks"):
+        ops.selective_scan_bwd(x, dt, Bm, Cm, A, D,
+                               ckpt[:, :1].contiguous(), dy, dh)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ops.selective_scan_train(
+            x[..., :60].contiguous(), dt[..., :60].contiguous(), Bm, Cm,
+            A[:60].contiguous(), D[:60].contiguous(),
+            h0[:, :60].contiguous())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Bn,S,Hq,Hkv", [(1, 4096, 64, 8), (2, 300, 16, 2),
+                                         (1, 257, 8, 8)])
+def test_flash_prefill_bwd_d112_matches_plain(cuda, Bn, S, Hq, Hkv):
+    """kimi-k2's (112, 112) training instances (the lse forward, the
+    backward with v and dO in two 64-column boxes, zero-filled past 112)
+    against their plain versions: lse within 1e-3, the output bit for bit
+    the serve launch's, dq, dk, dv within the bar, two launches
+    bit-equal, the counts under "lse_d112" and "d112"."""
+    q, k, v, do = _bwd_case(cuda, Bn, S, Hq, Hkv, 112)
+    scale = 112 ** -0.5
+    ops.launches.reset()
+    o, lse = ops.flash_prefill_fwd_lse(q, k, v, scale=scale)
+    assert torch.equal(o, ops.flash_prefill(q, k, v, scale=scale))
+    _, plse = ref.flash_prefill_fwd_lse(q, k, v, scale=scale)
+    assert (lse - plse).abs().max().item() <= 1e-3
+    got = ops.flash_prefill_bwd(q, k, v, o, lse, do, scale=scale)
+    again = ops.flash_prefill_bwd(q, k, v, o, lse, do, scale=scale)
+    assert ops.launches.counts["flash_prefill_bwd:d112"] == 2
+    assert ops.launches.counts["flash_prefill:lse_d112"] == 1
+    want = ref.flash_prefill_bwd(q, k, v, o, lse, do, scale)
+    for a, b, w in zip(got, again, want):
+        assert a.shape == w.shape and torch.equal(a, b)
+        assert _grad_close(a, w)
+    # dV without its last 16 columns' products (dO's second box dropped)
+    drop = do.clone()
+    drop[..., 64:] = 0
+    _, _, dv = ops.flash_prefill_bwd(q, k, v, o, lse, drop, scale=scale)
+    assert not _grad_close(dv, want[2])
+
+
+@pytest.mark.gpu
+def test_jamba_float32_forward_without_grad_on_the_card(cuda):
+    """forward_train in float32 under torch.no_grad() on the card at
+    jamba's smoke widths in the full config's layer layout, so that its 2
+    layers are the ones chip_smoke.py trains (Mamba with the dense FFN,
+    Mamba with the MoE; an attention layer's bf16-only forward leaves a
+    float32 forward with attention to the eval step's bf16 cast): each
+    Mamba layer through the training scan (kernel C, the serve's
+    bf16-only scan never), the loss within 1e-5 relative of the same
+    forward on the CPU."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.training.optimizer import tree_map
+    cfg = dataclasses.replace(get_smoke_config("jamba-v0.1-52b"),
+                              attn_layer_period=8, attn_layer_offset=4)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0),
+                           torch.float32, device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64),
+                           generator=torch.Generator().manual_seed(1),
+                           dtype=torch.int32)
+    batch = {"tokens": tokens, "labels": tokens}
+    with torch.no_grad():
+        want = M.forward_train(params, cfg, batch)[0].item()
+        ops.launches.reset()
+        got = M.forward_train(tree_map(lambda t: t.to(cuda), params), cfg,
+                              {k: t.to(cuda) for k, t in batch.items()})[0]
+    assert [M.layer_kind(cfg, i) for i in range(cfg.num_layers)] == [
+        "mamba", "mamba"] and cfg.is_moe_layer(1)
+    assert ops.launches.counts["selective_scan:train"] == 2
+    assert ops.launches.counts["selective_scan"] == 2
+    assert abs(got.item() - want) <= 1e-5 * abs(want)
+
+
+@pytest.mark.gpu
+def test_eval_step_runs_jamba_in_bfloat16_on_the_card(cuda):
+    """make_eval_step at jamba's smoke on the card: the layers cast to
+    bfloat16 one at a time but for the float32 leaves (the router, dt_bias,
+    A_log, D), the serve's selective_scan launched once a Mamba layer and
+    the training instance never; the loss within 2e-2 relative of the
+    float32 loss on the CPU."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.training.optimizer import tree_map
+    from repro_torch.training.trainer import make_eval_step
+    cfg = get_smoke_config("jamba-v0.1-52b")
+    params = M.init_params(cfg, torch.Generator().manual_seed(0),
+                           torch.float32, device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64),
+                           generator=torch.Generator().manual_seed(1),
+                           dtype=torch.int32)
+    batch = {"tokens": tokens, "labels": tokens}
+    want = make_eval_step(cfg)(params, batch).item()
+    ops.launches.reset()
+    got = make_eval_step(cfg)(tree_map(lambda t: t.to(cuda), params),
+                              {k: t.to(cuda) for k, t in batch.items()})
+    n = sum(M.layer_kind(cfg, i) == "mamba" for i in range(cfg.num_layers))
+    assert ops.launches.counts["selective_scan"] == n
+    assert ops.launches.counts.get("selective_scan:train", 0) == 0
     assert abs(got.item() - want) <= 2e-2 * abs(want)

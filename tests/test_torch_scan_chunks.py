@@ -26,7 +26,21 @@ back from its carry, with the decay's gradient a suffix sum whose only
 term from later chunks is <lam, S> at the chunk's end.
 ``wkv6_bwd_chunked`` computes those phases in plain PyTorch; it is held
 against ``ref.wkv6_bwd`` under the kernel's bar on the card: each
-gradient within 2^-12 of its max |grad| with a cosine >= 0.99999."""
+gradient within 2^-12 of its max |grad| with a cosine >= 0.99999.
+
+The backward of the selective scan (csrc/selective_scan_bwd.cu, kernel
+D) walks the training forward's 64-token chunks in reverse, each rerun
+from the state kernel C stored before it (its checkpoint): the states
+forward over the chunk, each 8-token sub-chunk's start kept, then sub-
+chunk by sub-chunk in reverse the states rerun and the state's gradient
+g walked back, carried over chunks; the sums over channels (dB, dC) as
+one partial per group of 32 channels, summed over the groups in order,
+and dA, dD per row, summed over the rows.  ``scan_bwd_chunked`` computes
+those phases in plain PyTorch; it is held against
+``ref.selective_scan_bwd`` under kernel D's bar on the card, the same
+2^-12 and 0.99999, and three planted faults (a channel group's partial
+left out, the chunks rerun from a zero state instead of their
+checkpoints, g's carry into the chunk before dropped) must fail it."""
 import numpy as np
 import pytest
 import torch
@@ -286,6 +300,104 @@ def test_wkv6_backward_phases_match_the_reverse_loop(label, B, S, lens, L,
     for fault in faults:
         bad = wkv6_bwd_chunked(r, k, v, w, u, S0, dy, dS, L, fault)
         assert not _grads_close(bad, want), fault
+
+
+def scan_bwd_chunked(x, dt, Bm, Cm, A, D, h0, dy, dh, L, sub=8, group=8,
+                     fault=None, ckpt=None):
+    """Kernel D's phases in plain PyTorch: the checkpoints (the state
+    before each chunk of L tokens, as kernel C stores them; ``ckpt``, a
+    (Bt, chunks, di, 16) tensor, gives them instead), then the
+    chunks in reverse, each rerun from its checkpoint with its sub-chunk
+    starts kept, the sub-chunks in reverse rerun and g walked back over
+    them; dB and dC as per-group partials over ``group`` channels summed
+    over the groups in order, dA and dD per row summed over the rows.
+    ``fault``: "group_partial_dropped", "ckpt_ignored" or
+    "g_carry_dropped"."""
+    Bt, S, di = x.shape
+    chunks = [(c, min(c + L, S)) for c in range(0, S, L)]
+    if ckpt is None:
+        states, h = [], h0
+        for t0, t1 in chunks:
+            states.append(h)
+            _, h = ref.selective_scan(x[:, t0:t1], dt[:, t0:t1],
+                                      Bm[:, t0:t1], Cm[:, t0:t1], A, D, h)
+        ckpt = torch.stack(states, dim=1)
+    n_grp = -(-di // group)
+
+    def by_group(v):           # (Bt, di, 16) -> (n_grp, Bt, 16)
+        v = torch.nn.functional.pad(v, (0, 0, 0, n_grp * group - di))
+        return v.view(Bt, n_grp, group, 16).sum(2).transpose(0, 1)
+
+    def advance(h, t):
+        a = torch.exp(dt[:, t, :, None] * A)
+        return a, a * h + (dt[:, t] * x[:, t])[..., None] * Bm[:, t, None, :]
+    dx, ddt = torch.empty_like(x), torch.empty_like(x)
+    part = x.new_zeros((n_grp, Bt, S, 2, 16))
+    dA_rows, dD_rows = x.new_zeros((Bt, di, 16)), x.new_zeros((Bt, di))
+    G = dh.clone()
+    for ci in reversed(range(len(chunks))):
+        t0, t1 = chunks[ci]
+        if fault == "g_carry_dropped" and ci == len(chunks) - 2:
+            G = torch.zeros_like(G)
+        h = (torch.zeros_like(h0) if fault == "ckpt_ignored"
+             else ckpt[:, ci])
+        starts = []
+        for s0 in range(t0, t1, sub):
+            starts.append(h)
+            for t in range(s0, min(s0 + sub, t1)):
+                h = advance(h, t)[1]
+        for si in reversed(range(len(starts))):
+            s0 = t0 + si * sub
+            hp, ea, hc = [], [], starts[si]
+            for t in range(s0, min(s0 + sub, t1)):
+                hp.append(hc)
+                a, hc = advance(hc, t)
+                ea.append(a)
+            for u in reversed(range(len(hp))):
+                t = s0 + u
+                dtx = (dt[:, t] * x[:, t])[..., None]
+                w = ea[u] * hp[u]
+                ht = w + dtx * Bm[:, t, None, :]
+                g = G + Cm[:, t, None, :] * dy[:, t, :, None]
+                sx = (g * Bm[:, t, None, :]).sum(-1)
+                dx[:, t] = dt[:, t] * sx + D * dy[:, t]
+                ddt[:, t] = (g * A * w).sum(-1) + x[:, t] * sx
+                dA_rows += g * dt[:, t, :, None] * w
+                dD_rows += dy[:, t] * x[:, t]
+                part[:, :, t, 0] = by_group(g * dtx)
+                part[:, :, t, 1] = by_group(dy[:, t, :, None] * ht)
+                G = ea[u] * g
+    if fault == "group_partial_dropped":
+        part = part[:-1]
+    sums = part[0].clone()
+    for p in part[1:]:
+        sums += p
+    return (dx, ddt, sums[:, :, 0], sums[:, :, 1], dA_rows.sum(0),
+            dD_rows.sum(0), G)
+
+
+@pytest.mark.parametrize("label,B,S,lens,L,carried", CASES,
+                         ids=[c[0] for c in CASES])
+def test_scan_backward_phases_match_the_reverse_loop(label, B, S, lens, L,
+                                                     carried):
+    """Kernel D's algebra (``scan_bwd_chunked``) against the plain reverse
+    loop ``ref.selective_scan_bwd``, with dy and the final state's
+    gradient non-zero: in chunks of L and as one chunk; the planted
+    faults must fail the bar where there are chunks to carry over (a
+    group's partial always)."""
+    rng = np.random.default_rng(17)
+    x, dt, Bm, Cm, A, D, h0 = _scan_inputs(rng, B, S, 24, lens, carried)
+    dy = torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32))
+    dh = torch.from_numpy(rng.standard_normal(h0.shape).astype(np.float32))
+    args = (x, dt, Bm, Cm, A, D, h0, dy, dh)
+    want = ref.selective_scan_bwd(*args)
+    assert _grads_close(scan_bwd_chunked(*args, L), want)
+    assert _grads_close(scan_bwd_chunked(*args, S), want)
+    faults = (("group_partial_dropped", "ckpt_ignored", "g_carry_dropped")
+              if S > L else ("group_partial_dropped",))
+    for fault in faults:
+        assert not _grads_close(scan_bwd_chunked(*args, L, fault=fault),
+                                want), fault
 
 
 @pytest.mark.parametrize("label,B,S,lens,L,carried", CASES,

@@ -254,17 +254,6 @@ def test_launcher_trains_the_smoke_on_the_cpu(capsys, tmp_path):
     assert ck.exists()
 
 
-@pytest.mark.parametrize("arch,missing", [
-    ("kimi-k2-1t-a32b", "step 1"), ("arctic-480b", "step 1"),
-    ("jamba-v0.1-52b", "step 4")])
-def test_other_families_are_not_trainable(arch, missing):
-    cfg = torch_smoke(arch)
-    with pytest.raises(NotImplementedError, match=missing):
-        TT.make_train_step(cfg, AdamWConfig())
-    with pytest.raises(NotImplementedError, match=missing):
-        TM.forward_train({}, cfg, {})
-
-
 @pytest.mark.parametrize("arch", ["minicpm3-4b", "internvl2-2b",
                                   "whisper-small", "rwkv6-1.6b"])
 def test_mla_and_frontend_families_are_trainable(arch):

@@ -12,9 +12,12 @@ Tolerances, as tests/test_torch_train.py's (float32 on both sides): the
 backward within 1e-5 of each tensor's max |grad|; the loss within 1e-5
 relative, every leaf's gradient within 1e-4 of its max |grad|, grad_norm
 and lr within 1e-6 relative, three steps' losses within 1e-4 relative.
-The reference's three steps are its ``value_and_grad`` (jitted once)
-and its ``adamw_update``, the body of its ``make_train_step``.  The port
+The reference's three steps are its ``value_and_grad`` and its
+``adamw_update`` (each jitted once), the body of its
+``make_train_step``.  The port
 runs on one PyTorch thread (``one_thread``)."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -49,27 +52,31 @@ def one_thread():
     torch.set_num_threads(n)
 
 
-def reference_steps(arch: str, batch_np: dict, steps: int, opt: dict):
+def reference_steps(arch: str, batch_np: dict, steps: int, opt: dict,
+                    **fields):
     """The reference's smoke weights (float32) as numpy, its first step's
     loss and gradients (``jax.value_and_grad`` of ``forward_train``,
     remat on) and ``steps`` steps' metrics (that gradient and
-    ``adamw_update``, as its ``make_train_step`` runs them)."""
-    jcfg = jax_smoke(arch)
+    ``adamw_update``, as its ``make_train_step`` runs them).  ``fields``
+    replace the smoke config's on both sides (``port_setup``)."""
+    jcfg = dataclasses.replace(jax_smoke(arch), **fields)
     jp = JM.init_params(jcfg, jax.random.PRNGKey(0), jnp.float32)
     jbatch = {k: jnp.asarray(v) for k, v in batch_np.items()}
     vg = jax.jit(jax.value_and_grad(
         lambda p: JM.forward_train(p, jcfg, jbatch, remat=True)[0]))
     ocfg = JAdamWConfig(**opt)
+    update = jax.jit(lambda p, g, s: j_adamw_update(ocfg, p, g, s))
     params, state, metrics = jp, j_init_opt(jp), []
     for i in range(steps):
         loss, grads = vg(params)
         if i == 0:
             loss0, grads0 = float(loss), grads
-        params, state, om = j_adamw_update(ocfg, params, grads, state)
+        params, state, om = update(params, grads, state)
         metrics.append({"loss": float(loss),
                         **{k: float(v) for k, v in om.items()}})
     n = jcfg.num_layers
     return dict(np_params=jax.tree.map(np.asarray, jp), n=n, loss0=loss0,
+                fields=fields,
                 grads=params_from_numpy(jax.tree.map(np.asarray, grads0), n,
                                         dtype=torch.float32),
                 metrics=metrics)
@@ -78,8 +85,8 @@ def reference_steps(arch: str, batch_np: dict, steps: int, opt: dict):
 def port_setup(arch: str, ref: dict, batch_np: dict):
     params = TT.trainable(params_from_numpy(ref["np_params"], ref["n"],
                                             dtype=torch.float32))
-    return torch_smoke(arch), params, TT.batch_to(batch_np,
-                                                  torch.device("cpu"))
+    cfg = dataclasses.replace(torch_smoke(arch), **ref.get("fields", {}))
+    return cfg, params, TT.batch_to(batch_np, torch.device("cpu"))
 
 
 def check_one_step(arch: str, ref: dict, batch_np: dict, opt: dict) -> dict:
