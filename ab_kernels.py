@@ -61,7 +61,20 @@ launch and a decode launch: wkv6 at rwkv6-1.6b's (B 1, S 16,384 with
 heads of 64) and selective_scan at jamba-v0.1-52b's (B 1, S 16,384 with
 14,211 valid; B 4, S 1; d_inner 8192, d_state 16), each also timed with
 CUDA events over back-to-back calls (``events_ms``) and under
-torch.profiler (``device_ms``).  The stages are timed with the host work
+torch.profiler (``device_ms``).  And training's recurrence kernels,
+where the tree has them, on inputs drawn from a generator of their own
+(seed + 8): kernel A (``wkv6_train_<case>``) and kernel B
+(``wkv6_bwd_<case>``) at chip_smoke's WKV_TRAIN_CASES (train: B 2 x
+4,096; ragged: B 2 x 1,000; prefill_window: B 1 x 14,211; 32 heads of
+64), kernel C (``selective_scan_train_<case>``) and kernel D
+(``selective_scan_bwd_<case>``) at its SCAN_TRAIN_CASES (train: B 1 x
+4,096; ragged: B 2 x 1,000; prefill_window: B 1 x 14,211; d_inner
+8192), each first held against its plain version under chip_smoke's
+bars, then its time by CUDA events over back-to-back calls and a digest:
+A's and C's over y, the final state and the chunks' states, B's and D's
+over every gradient; B's and D's also device ms by kernel under
+torch.profiler, and ``ptxas`` the two backwards' register and spill
+lines.  The stages are timed with the host work
 they carry; ``host_ms`` is their wall-clock time per call over 50 calls
 ended by a synchronize, ``device_ms`` and ``device_ops`` their device
 time and device operations per call under torch.profiler.  Each kernel
@@ -82,7 +95,10 @@ csrc/wkv6.cu), device ms of each; and flash_prefill_bwd at its two
 shapes as the tree builds it and built with -DFLASH_BWD_PRODUCTS_ONLY
 (the products without the masking, exponentials and dS between them;
 its results are not the gradient), CUDA events over back-to-back
-launches of each and device ms by kernel.
+launches of each and device ms by kernel; and kernels B and D at their
+train shapes built with each probe switch their source knows
+(SCAN_BWD_PROBES: -DWKV_BWD_NO_STORES, -DSCAN_BWD_NO_EXP,
+-DSCAN_BWD_NO_STORES; results not the gradient) beside the whole.
 With ``--serves ARCH ...``, chip_smoke's models-phase serve of each arch
 on the tree's engine, on the modelled clock and on the wall clock: a
 digest of the greedy tokens, so two trees' tokens compare in one call.
@@ -336,6 +352,9 @@ def main() -> int:
             torch, ops, ref, *cs._scan_inputs(torch, gen3, 4, 1, (1,) * 4)),
     }
     cases.update(recurrences)
+    # training's recurrence kernels A-D at the train phase's cases, on
+    # inputs of their own
+    train = _train_recurrences(torch, cs, ops, ref, dev, args.seed)
     # the decode select stage, as this tree's gqa_select_step runs it, on
     # the cache before the step's append (before + 1 = cur_len tokens)
     cfg = DSAConfig()
@@ -432,6 +451,15 @@ def main() -> int:
                 rec["library_events_ms"] = cs.events_ms(torch, case[7])
             rec["power"] = _power(torch, cs, kern)
         out[name] = rec
+    for name, (digest_of, kern, nbytes, nops, shape, split) in (
+            train.items()):
+        rec = {"shape": shape, "bound_ms": cs.bound_ms(nbytes, nops)[0],
+               "digest": digest_of(kern()),
+               "events_ms": cs.events_ms(torch, kern)}
+        if split:
+            rec["device_ms_by_kernel"] = cs.device_ms(torch, kern,
+                                                      by_kernel=split)
+        out[name] = rec
     for name, (fn, how) in stages.items():
         rec = {"how": how}
         if name.startswith("select_stage"):
@@ -446,7 +474,12 @@ def main() -> int:
         rec["device_ms"], rec["device_ops"] = _device_ms(torch, fn)
         out[name] = rec
     out["drop_round"]["blocks"] = sum(len(b) for b in round_.values())
-    del plane, cases, stages, recurrences
+    out["ptxas"] = {name: [line.split("ptxas info    : ")[-1].strip()
+                           for line in ops.LIBS.ptxas_info[name].splitlines()
+                           if "registers" in line or "spill" in line]
+                    for name in ("wkv6_bwd", "selective_scan_bwd")
+                    if name in ops.LIBS.ptxas_info}
+    del plane, cases, stages, recurrences, train
     if args.shapes:
         out["serve_sums"] = _serve_sums(torch, cs, ops, dev, args.shapes,
                                         args.seed)
@@ -455,6 +488,8 @@ def main() -> int:
         out["probes"].update(_emit_probe(torch, cs, ops, dev, args.seed))
         out["probes"].update(_bwd_products_probe(torch, cs, ops, dev,
                                                  args.seed))
+        out["probes"].update(_scan_bwd_probes(torch, cs, ops, dev,
+                                              args.seed))
     if args.serves:
         out["serves"] = {arch: _serve_tokens(torch, np, cs, arch, args.seed)
                          for arch in args.serves}
@@ -757,6 +792,105 @@ def _bwd_products_probe(torch, cs, ops, dev, seed: int) -> dict:
             rec[f"{tag}_device_ms_by_kernel"] = cs.device_ms(
                 torch, lambda: call(fn), by_kernel="flash_bwd_")
         res[f"flash_prefill_bwd_products_{name}"] = rec
+    return res
+
+
+def _train_recurrences(torch, cs, ops, ref, dev, seed: int) -> dict:
+    """Training's recurrence kernels where the tree has them: kernel A
+    (``wkv6_train``) and B (``wkv6_bwd``) at chip_smoke's
+    WKV_TRAIN_CASES, kernel C (``selective_scan_train``) and D
+    (``selective_scan_bwd``) at its SCAN_TRAIN_CASES, on inputs drawn in
+    that order from one generator of their own (seed + 8).  Each is held
+    against its plain version under chip_smoke's bars first (B and D
+    without their planted faults).  name -> (digest function, kernel
+    call, bytes, operations, shape, kernel-name prefix for the profiler's
+    split or "")."""
+    if not hasattr(ops, "wkv6_bwd") or not hasattr(ops,
+                                                   "selective_scan_bwd"):
+        return {}
+    gen = torch.Generator(device=dev).manual_seed(seed + 8)
+    res = {}
+
+    def tag(label):
+        return label.split("=")[1]
+
+    def add(name, case, split=""):
+        err, ok, kern, _plain, nbytes, nops, shape = case[:7]
+        if not ok:
+            raise AssertionError(f"{name}: outside the bar ({err})")
+        res[name] = (lambda t: _digest(torch, tuple(t)), kern, nbytes, nops,
+                     shape, split)
+    for label, Bn, S, lens in cs.WKV_TRAIN_CASES:
+        args = cs._wkv_train_inputs(torch, gen, Bn, S, lens)
+        add(f"wkv6_train_{tag(label)}",
+            cs.case_wkv_train(torch, ops, ref, *args[:6]))
+        add(f"wkv6_bwd_{tag(label)}",
+            cs.case_wkv_bwd(torch, ops, ref, *args, label, faults=False),
+            "wkv6_bwd")
+    for label, Bn, S, lens in cs.SCAN_TRAIN_CASES:
+        args = cs._scan_train_inputs(torch, gen, Bn, S, lens)
+        add(f"selective_scan_train_{tag(label)}",
+            cs.case_scan_train(torch, ops, ref, *args[:7]))
+        add(f"selective_scan_bwd_{tag(label)}",
+            cs.case_scan_bwd(torch, ops, ref, *args, label, faults=False),
+            "selective_scan_bwd")
+    return res
+
+
+# the backwards' probe builds: (wrapper name, source, -D flag)
+SCAN_BWD_PROBES = (("wkv6_bwd", "wkv6_bwd.cu", "WKV_BWD_NO_STORES"),
+                   ("selective_scan_bwd", "selective_scan_bwd.cu",
+                    "SCAN_BWD_NO_EXP"),
+                   ("selective_scan_bwd", "selective_scan_bwd.cu",
+                    "SCAN_BWD_NO_STORES"))
+
+
+def _scan_bwd_probes(torch, cs, ops, dev, seed: int) -> dict:
+    """Kernels B and D at their train cases' first (path=train) shape,
+    launched through the tree's library and through one built here on the
+    tree's source with each probe flag of SCAN_BWD_PROBES that the source
+    knows (its results are not the gradient): CUDA events over
+    back-to-back calls of the wrapper, the better of three readings each,
+    and device ms by kernel under torch.profiler."""
+    import ctypes
+    from repro_torch.kernels import build
+    gen = torch.Generator(device=dev).manual_seed(seed + 9)
+    _, Bn, S, lens = cs.WKV_TRAIN_CASES[0]
+    r, k, v, w, u, S0, dy, dS = cs._wkv_train_inputs(torch, gen, Bn, S,
+                                                     lens)
+    S_in = ops.wkv6_train(r, k, v, w, u, S0)[2]
+    _, Bn, S, lens = cs.SCAN_TRAIN_CASES[0]
+    x, dt, B, C, A, D, h0, sdy, dh = cs._scan_train_inputs(torch, gen, Bn,
+                                                           S, lens)
+    ckpt = ops.selective_scan_train(x, dt, B, C, A, D, h0)[2]
+    calls = {"wkv6_bwd": lambda: ops.wkv6_bwd(r, k, v, w, u, S_in, dy, dS),
+             "selective_scan_bwd": lambda: ops.selective_scan_bwd(
+                 x, dt, B, C, A, D, ckpt, sdy, dh)}
+    res = {}
+    for name, src_name, flag in SCAN_BWD_PROBES:
+        src = build.CSRC_DIR / src_name
+        if flag not in src.read_text():
+            continue
+        lib = build.BUILD_DIR / f"lib{name}_{flag.lower()}.so"
+        subprocess.run([build.nvcc_path()] + build.NVCC_FLAGS
+                       + [f"-D{flag}", "-I", str(build.CSRC_DIR), "-o",
+                          str(lib), str(src)], check=True,
+                       capture_output=True)
+        _, sym, argtypes = build._SIGNATURES[name][:3]
+        probe = getattr(ctypes.CDLL(str(lib)), sym)
+        probe.argtypes, probe.restype = argtypes, ctypes.c_int
+        whole = ops.LIBS.fn(name)
+        rec = {}
+        for what, fn in (("whole", whole), (flag.lower(), probe)):
+            ops.LIBS._fns[name] = fn
+            try:
+                rec[f"{what}_events_ms"] = min(
+                    cs.events_ms(torch, calls[name]) for _ in range(3))
+                rec[f"{what}_device_ms_by_kernel"] = cs.device_ms(
+                    torch, calls[name], by_kernel=name)
+            finally:
+                ops.LIBS._fns[name] = whole
+        res[f"{name}_{flag.lower()}"] = rec
     return res
 
 

@@ -306,10 +306,11 @@ each printing one line (``phase=...``) and failing the run on any error:
    gradient (kernel B, csrc/wkv6_bwd.cu, record wkv6_bwd) against
    ref.wkv6_bwd, each of the six gradients within 2^-12 of its max |grad|
    with a cosine >= 0.99999 (WKV_GRAD_ERR, WKV_GRAD_COS), two launches
-   bit-equal, and three planted faults rejected (u's term dropped from
+   bit-equal, and four planted faults rejected (u's term dropped from
    dk, lam's carry into chunk 0 dropped, the decay sum's carry into chunk
-   0 dropped), at the rwkv6-1.6b run's shape (B 2 x 4,096, 32 heads of
-   64), at a ragged B 2 x 1,000 and at the models phase's 14,211-token
+   0 dropped, a_end left out of every chunk's suffix by a build with
+   that fault planted), at the rwkv6-1.6b run's shape (B 2 x 4,096, 32
+   heads of 64), at a ragged B 2 x 1,000 and at the models phase's 14,211-token
    prefill window, timed with CUDA events beside the plain versions (no
    PyTorch call computes either).  Then rwkv6-1.6b at full width and all
    24 layers trained 3 steps at B 2 x 4,096, step 1 held against the
@@ -502,7 +503,7 @@ OWNERS = {"selective_scan": "models_jamba-v0.1-52b",
 TRANSFER_PATH = ("gather_blocks", "scatter_blocks")
 # the kernels whose registers and spills the build phase prints
 REGISTER_WATCH = ("flash_prefill", "sparse_decode_attention",
-                  "flash_prefill_bwd")
+                  "flash_prefill_bwd", "wkv6_bwd", "selective_scan_bwd")
 # the kernels each serve path must launch (the int8 tier restores through
 # dequantize_scatter_blocks, not scatter_blocks_hkv, and saves through
 # quant_save_blocks)
@@ -526,8 +527,8 @@ PORT_KERNEL_FNS = ("split_kernel", "merge_kernel", "block_score_kernel",
                    "wkv6_emit_kernel", "wkv6_step_kernel",
                    "flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
                    "flash_bwd_dq_kernel", "flash_bwd_reduce_kernel",
-                   "wkv6_bwd_local_kernel", "wkv6_bwd_carry_kernel",
-                   "wkv6_bwd_emit_kernel", "wkv6_bwd_du_kernel",
+                   "wkv6_bwd_fwd_kernel", "wkv6_bwd_carry_kernel",
+                   "wkv6_bwd_bwd_kernel", "wkv6_bwd_du_kernel",
                    "selective_scan_bwd_kernel",
                    "selective_scan_bwd_sum_kernel")
 # one PyTorch call computing the same function, where there is one; else
@@ -4257,8 +4258,10 @@ def wkv_bwd_faults(torch, ops, args, S_in, got, want, label) -> bool:
     chunk 0 dropped (the kernels on chunk 0's tokens alone, from a zero
     gradient at their end, spliced in); the decay sum's carry into chunk
     0 dropped (its <lam, S> at chunk 0's end, lam there from the kernels
-    on the tokens after it, taken out of chunk 0's dlogw).  Prints one
-    line a fault; True when every one is caught."""
+    on the tokens after it, taken out of chunk 0's dlogw); a_end left out
+    of every chunk's suffix (the kernel built with
+    -DWKV_BWD_FAULT_NO_AEND: K's suffix from 0, R's and K's a_end unread).
+    Prints one line a fault; True when every one is caught."""
     r, k, v, w, u, S0, dy, dS = args
     Bn, S, H, _ = r.shape
     L = ops.wkv6_chunk(Bn, S, H, ops._sm_count(r.device))
@@ -4281,11 +4284,14 @@ def wkv_bwd_faults(torch, ops, args, S_in, got, want, label) -> bool:
     sum_dropped = list(got)
     sum_dropped[3] = got[3].clone()
     sum_dropped[3][:, :L] -= (lam1 * s1).sum(-1)[:, None]
+    with ops.LIBS.planted("wkv6_bwd:no_aend"):
+        no_aend = ops.wkv6_bwd(r, k, v, w, u, S_in, dy, dS)
     caught = True
     for fault, bad in (("u_term_dropped_from_dk", u_dropped),
                        ("lam_carry_into_chunk_0_dropped", lam_dropped),
                        ("decay_sum_carry_into_chunk_0_dropped",
-                        sum_dropped)):
+                        sum_dropped),
+                       ("a_end_left_out_of_the_suffix", no_aend)):
         errs, coss = _wkv_grad_errs(torch, bad, want)
         ok = max(errs) <= WKV_GRAD_ERR and min(coss) >= WKV_GRAD_COS
         log(f"phase=train {label} kernel=wkv6_bwd planted_fault={fault} "
@@ -4296,11 +4302,12 @@ def wkv_bwd_faults(torch, ops, args, S_in, got, want, label) -> bool:
 
 
 def case_wkv_bwd(torch, ops, ref, r, k, v, w, u, S0, dy, dS,
-                 label: str) -> tuple:
+                 label: str, faults: bool = True) -> tuple:
     """Kernel B (wkv6_bwd) against ref.wkv6_bwd on the same float32
     inputs, S_in from kernel A: each of dr, dk, dv, dlogw, du and dS0
     within WKV_GRAD_ERR of its max |grad| with a cosine >= WKV_GRAD_COS,
-    two launches bit-equal, and the planted faults rejected.  Its bound:
+    two launches bit-equal, and (with ``faults``) the planted faults
+    rejected.  Its bound:
     r, k, v, w and dy read and dr, dk, dv and dlogw written (2,304 bytes
     a (token, head)), S_in, dS and u read, dS0 and du written, against 9
     float32 operations a (token, head, i, j)."""
@@ -4318,7 +4325,8 @@ def case_wkv_bwd(torch, ops, ref, r, k, v, w, u, S0, dy, dS,
             ("dr", "dk", "dv", "dlogw", "du", "dS0"), errs))
         + f" min_cosine={min(coss):.7f} repeat_bit_equal={same} (bar "
         f"{WKV_GRAD_ERR:.3e}, cosine >= {WKV_GRAD_COS})")
-    ok = wkv_bwd_faults(torch, ops, args, S_in, got, want, label) and ok
+    if faults:
+        ok = wkv_bwd_faults(torch, ops, args, S_in, got, want, label) and ok
     err = max((g - x).abs().max().item() for g, x in zip(got, want))
     Bn, S, H, hd = r.shape
     nbytes = 4 * (9 * r.numel() + S_in.numel() + 2 * dS.numel()
@@ -4445,15 +4453,16 @@ def scan_bwd_faults(torch, ops, args, ckpt, got, want, label) -> bool:
 
 
 def case_scan_bwd(torch, ops, ref, x, dt, B, C, A, D, h0, dy, dh,
-                  label: str) -> tuple:
+                  label: str, faults: bool = True) -> tuple:
     """Kernel D (selective_scan_bwd) against ref.selective_scan_bwd on the
     same float32 inputs, checkpoints from kernel C: each of dx, ddt, dB,
     dC, dA, dD and dh0 within SCAN_GRAD_ERR of its max |grad| with a
-    cosine >= SCAN_GRAD_COS, two launches bit-equal, and the planted
-    faults rejected.  Its bound: x, dt and dy read and dx and ddt written
-    (20 bytes a (token, channel)), B, C, A, D, the checkpoints and dh
-    read, dB, dC, dA, dD and dh0 written, against 18 float32 operations
-    a (token, channel, state); the partials' round trip is not counted."""
+    cosine >= SCAN_GRAD_COS, two launches bit-equal, and (with ``faults``)
+    the planted faults rejected.  Its bound: x, dt and dy read and dx and
+    ddt written (20 bytes a (token, channel)), B, C, A, D, the
+    checkpoints and dh read, dB, dC, dA, dD and dh0 written, against 18
+    float32 operations a (token, channel, state); the partials' round
+    trip is not counted."""
     args = (x, dt, B, C, A, D, h0, dy, dh)
     _, _, ckpt = ops.selective_scan_train(x, dt, B, C, A, D, h0)
     got = ops.selective_scan_bwd(x, dt, B, C, A, D, ckpt, dy, dh)
@@ -4468,7 +4477,8 @@ def case_scan_bwd(torch, ops, ref, x, dt, B, C, A, D, h0, dy, dh,
             SCAN_GRADS, errs))
         + f" min_cosine={cos:.7f} repeat_bit_equal={same} (bar "
         f"{SCAN_GRAD_ERR:.3e}, cosine >= {SCAN_GRAD_COS})")
-    ok = scan_bwd_faults(torch, ops, args, ckpt, got, want, label) and ok
+    if faults:
+        ok = scan_bwd_faults(torch, ops, args, ckpt, got, want, label) and ok
     err = max((g - w).abs().max().item() for g, w in zip(got, want))
     nbytes = 4 * (5 * x.numel() + 4 * B.numel() + 2 * A.numel()
                   + 2 * D.numel() + 2 * dh.numel() + ckpt.numel())

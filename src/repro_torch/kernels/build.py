@@ -8,10 +8,13 @@ the sources in the checkout, into ``src/repro_torch/_build/`` (listed in
 ``csrc/*.cuh`` header and the flags, so an edited source or header is
 rebuilt and an unchanged one is reused.
 Each library's ``ptxas`` report (registers, spills) is kept beside it and
-read back on reuse.  Nothing here runs at import time.
+read back on reuse.  Beside them, FAULT_VARIANTS: builds with a planted
+fault, for the checks that must reject it.  Nothing here runs at import
+time.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -38,6 +41,12 @@ KERNEL_SOURCES = {
     "selective_scan_bwd": "selective_scan_bwd.cu",
     "wkv6": "wkv6.cu",
     "wkv6_bwd": "wkv6_bwd.cu",
+}
+# builds of a source with a -D switch that plants a fault its checks must
+# reject (chip_smoke.py's train phase and the gpu tests use them through
+# ``LIBS.planted``; the port never does): name -> (library, switch)
+FAULT_VARIANTS = {
+    "wkv6_bwd:no_aend": ("wkv6_bwd", "WKV_BWD_FAULT_NO_AEND"),
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
@@ -113,13 +122,23 @@ def nvcc_path() -> str:
     return found
 
 
-def _lib_path(name: str) -> Path:
+def _lib_path(name: str, flag: str = "") -> Path:
     h = hashlib.sha1()
     for src in [KERNEL_SOURCES[name],
                 *sorted(p.name for p in CSRC_DIR.glob("*.cuh"))]:
         h.update((CSRC_DIR / src).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+    h.update(" ".join(NVCC_FLAGS + ([f"-D{flag}"] if flag else [])).encode())
+    tag = f"-{flag.lower()}" if flag else ""
+    return BUILD_DIR / f"lib{name}{tag}-{h.hexdigest()[:12]}.so"
+
+
+# (library path, nvcc switches, name the report is kept under or None) of
+# every build: the kernels' libraries, then the planted faults'
+def _builds():
+    for name in KERNEL_SOURCES:
+        yield name, _lib_path(name), [], name
+    for key, (lib, flag) in FAULT_VARIANTS.items():
+        yield lib, _lib_path(lib, flag), [f"-D{flag}"], None
 
 
 class KernelLibraries:
@@ -128,6 +147,7 @@ class KernelLibraries:
     def __init__(self):
         self._lock = threading.Lock()
         self._fns: Dict[str, ctypes._CFuncPtr] = {}
+        self._planted: Dict[str, ctypes._CFuncPtr] = {}
         self.build_seconds: Optional[float] = None
         self.ptxas_info: Dict[str, str] = {}
         self.rebuilt: List[str] = []
@@ -144,31 +164,32 @@ class KernelLibraries:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             nvcc = nvcc_path()
             procs: List = []
-            for name, src in KERNEL_SOURCES.items():
-                out = _lib_path(name)
+            for name, out, flags, report_as in _builds():
                 if out.exists():
                     report = out.with_suffix(".ptxas.txt")
-                    self.ptxas_info[name] = (report.read_text()
-                                             if report.exists() else "")
+                    if report_as:
+                        self.ptxas_info[name] = (report.read_text()
+                                                 if report.exists() else "")
                     continue
                 tmp = out.with_suffix(f".{os.getpid()}.tmp")
-                cmd = ([nvcc] + NVCC_FLAGS
+                cmd = ([nvcc] + NVCC_FLAGS + flags
                        + ["-I", str(CSRC_DIR), "-o", str(tmp),
-                          str(CSRC_DIR / src)])
-                procs.append((name, out, tmp, subprocess.Popen(
+                          str(CSRC_DIR / KERNEL_SOURCES[name])])
+                procs.append((name, out, tmp, report_as, subprocess.Popen(
                     cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                     text=True)))
             errors = []
-            for name, out, tmp, proc in procs:
+            for name, out, tmp, report_as, proc in procs:
                 stdout, stderr = proc.communicate()
                 if proc.returncode != 0:
-                    errors.append(f"{name}: nvcc exited {proc.returncode}\n"
-                                  f"{stdout}{stderr}")
+                    errors.append(f"{out.name}: nvcc exited "
+                                  f"{proc.returncode}\n{stdout}{stderr}")
                     continue
-                self.ptxas_info[name] = stderr
                 out.with_suffix(".ptxas.txt").write_text(stderr)
                 os.replace(tmp, out)
-                self.rebuilt.append(name)
+                if report_as:
+                    self.ptxas_info[name] = stderr
+                    self.rebuilt.append(name)
             if errors:
                 raise RuntimeError("kernel build failed:\n" +
                                    "\n".join(errors))
@@ -179,6 +200,11 @@ class KernelLibraries:
                 fn.argtypes = argtypes
                 fn.restype = res[0] if res else ctypes.c_int
                 self._fns[name] = fn
+            for key, (lib, flag) in FAULT_VARIANTS.items():
+                _, sym, argtypes = _SIGNATURES[lib][:3]
+                fn = getattr(ctypes.CDLL(str(_lib_path(lib, flag))), sym)
+                fn.argtypes, fn.restype = argtypes, ctypes.c_int
+                self._planted[key] = fn
             self.build_seconds = time.perf_counter() - t0
             return self.build_seconds
 
@@ -186,6 +212,18 @@ class KernelLibraries:
         if not self._fns:
             self.build()
         return self._fns[name]
+
+    @contextlib.contextmanager
+    def planted(self, key: str):
+        """Within the block the wrapper of FAULT_VARIANTS[key]'s library
+        launches the build with that fault planted."""
+        lib = FAULT_VARIANTS[key][0]
+        whole = self.fn(lib)
+        self._fns[lib] = self._planted[key]
+        try:
+            yield
+        finally:
+            self._fns[lib] = whole
 
 
 LIBS = KernelLibraries()

@@ -1480,7 +1480,11 @@ WKV_TRAIN_CASES = [
     (2, 40, 2, (40, 40)),           # one chunk
     (1, 600, 2, (600,)),            # many chunks, a ragged tail
     (3, 300, 4, (300, 170, 1)),     # padding across chunk edges
-    (2, 1000, 32, (1000, 1000))]    # rwkv6-1.6b's heads
+    (2, 1000, 32, (1000, 1000)),    # rwkv6-1.6b's heads
+    # kernel B stages 16 tokens: one chunk of 45 whose suffix starts from
+    # a_end = <dS, S_end>, and chunks of 64 whose last (13) ends mid-stage
+    (1, 45, 2, (45,)),
+    (1, 333, 4, (333,))]
 
 
 def _wkv_train_case(dev, Bn, S, H, lens, seed=0):
@@ -1540,8 +1544,10 @@ def test_wkv6_train_forward_matches_plain(cuda, Bn, S, H, lens):
 @pytest.mark.parametrize("Bn,S,H,lens", WKV_TRAIN_CASES)
 def test_wkv6_bwd_matches_plain(cuda, Bn, S, H, lens):
     """Kernel B's six gradients against ref.wkv6_bwd from S0 and dS
-    non-zero, two launches bit-equal; planted faults must fail the bar
-    where the window has chunks: u's term dropped from dk, lam's carry
+    non-zero, two launches bit-equal; planted faults must fail the bar:
+    u's term dropped from dk, every chunk's suffix started from 0 instead
+    of a_end (a build with that fault), and where the window has chunks
+    lam's carry
     into chunk 0 dropped (the kernels on chunk 0's tokens alone, from dS
     = 0 at their end), the decay sum's carry into chunk 0 dropped (its
     <lam, S> at chunk 0's end, from the kernels on the tokens after it,
@@ -1557,6 +1563,10 @@ def test_wkv6_bwd_matches_plain(cuda, Bn, S, H, lens):
     assert _wkv_grads_close(got, want)
     bad = list(got)
     bad[1] = got[1] - r * u * (dy * v).sum(-1, keepdim=True)
+    assert not _wkv_grads_close(bad, want)
+    # every chunk's suffix from 0 (a_end left out): a planted build
+    with ops.LIBS.planted("wkv6_bwd:no_aend"):
+        bad = ops.wkv6_bwd(r, k, v, w, u, S_in, dy, dS)
     assert not _wkv_grads_close(bad, want)
     L = ops.wkv6_chunk(Bn, S, H, ops._sm_count(cuda))
     if S <= L:
@@ -1646,7 +1656,10 @@ def test_eval_step_runs_rwkv6_in_bfloat16_on_the_card(cuda):
 
 SCAN_TRAIN_CASES = [(2, 300, 96, (300, 171)), (1, 64, 64, (64,)),
                     (3, 1, 40, (1, 1, 1)), (2, 1000, 512, (1000, 777)),
-                    (1, 130, 8192, (130,))]
+                    (1, 130, 8192, (130,)),
+                    # 7 CTAs of 32 channels, the last one ragged, and a
+                    # window ending mid-sub-chunk
+                    (1, 100, 200, (100,))]
 
 
 def _scan_train_case(dev, Bn, S, di, lens, seed=0):
@@ -1714,8 +1727,9 @@ def test_selective_scan_bwd_matches_plain(cuda, Bn, S, di, lens):
     """Kernel D against ref.selective_scan_bwd on the same float32 inputs
     (its checkpoints from kernel C): dx, ddt, dB, dC, dA, dD and dh0
     within the bar, two launches bit-equal, one count a call; the bar
-    rejects a kernel that ignores the final state's gradient, and one
-    rerun from a zeroed checkpoint where there are two chunks."""
+    rejects a kernel that ignores the final state's gradient, one rerun
+    from a zeroed checkpoint where there are two chunks, and dB and dC
+    without the second CTA's channels where there are any."""
     x, dt, Bm, Cm, A, D, h0, dy, dh = _scan_train_case(cuda, Bn, S, di,
                                                        lens)
     _, _, ckpt = ops.selective_scan_train(x, dt, Bm, Cm, A, D, h0)
@@ -1735,6 +1749,16 @@ def test_selective_scan_bwd_matches_plain(cuda, Bn, S, di, lens):
         zeroed = ckpt.clone()
         zeroed[:, 1] = 0
         bad = ops.selective_scan_bwd(x, dt, Bm, Cm, A, D, zeroed, dy, dh)
+        assert not _scan_grads_close(bad, want)
+    if di > 32:
+        # the second 32-channel CTA's share of dB and dC left out
+        keep = torch.zeros_like(dt[0, 0])
+        keep[32:64] = 1
+        only = ops.selective_scan_bwd(x, (dt * keep).contiguous(), Bm, Cm,
+                                      A, D, ckpt, (dy * keep).contiguous(),
+                                      dh)
+        bad = list(got)
+        bad[2], bad[3] = got[2] - only[2], got[3] - only[3]
         assert not _scan_grads_close(bad, want)
 
 

@@ -56,7 +56,12 @@ CASES = [("multiple", 2, 96, (96, 96), 32, False),
          ("ragged", 2, 100, (100, 100), 32, False),
          ("padded_mid_chunk", 2, 100, (100, 45), 32, True),
          ("carried", 1, 70, (70,), 16, True),
-         ("one_chunk", 2, 20, (20, 13), 32, True)]
+         ("one_chunk", 2, 20, (20, 13), 32, True),
+         # the window ends mid-stage (kernel B stages 16 tokens): a last
+         # chunk of 13, and one chunk of 45 whose suffix starts from
+         # a_end = <dS, S_end> with no chunk after it
+         ("ends_mid_stage", 1, 45, (45,), 32, True),
+         ("one_chunk_mid_stage", 1, 45, (45,), 48, False)]
 
 
 @pytest.fixture(autouse=True)
@@ -139,28 +144,39 @@ def _outer(a, b):
 
 def wkv6_bwd_chunked(r, k, v, w, u, S0, dy, dS, L, fault=None):
     """The gradient of wkv6 in kernel B's phases (csrc/wkv6_bwd.cu) over
-    the forward's chunks of L tokens: (1) each chunk c >= 1's lam walked
-    back from zero at its end, lam_loc[c], and its decay product W[c];
-    (2) lam_end[nc-1] = dS, lam_end[c-1] = W[c] lam_end[c] + lam_loc[c];
-    (3) each chunk rerun: S forward from S_in[c] (dr, and Q_t = r_t (S_t
-    dy_t)), a = <lam_end[c], S_end> per channel, then lam back from
-    lam_end[c] (dk, dv, and P_t = k_t (lam_{t+1} v_t)), dlogw_t = a - P_t,
-    a <- a - P_t + Q_t; chunk 0 gives dS0.  ``fault`` plants one of the
-    kernel faults the bar must reject: "u_in_dk" (u's term dropped from
-    dk), "decay_carry" (a from zero in every chunk but the last),
-    "lam_carry" (every chunk but the last walked back from lam = 0)."""
+    the forward's chunks of L tokens: (1) each chunk walked forward twice,
+    R (S from S_in[c]: dr, and Q_t = r_t (S_t dy_t); the last chunk also
+    a_end = <dS, S_end> per channel) and, for c >= 1, the local pass
+    (lam_loc[c] = sum_t D_t r_t dy_t^T, D_t the chunk's decays before t,
+    and the decay product W[c]); (2) lam_end[nc-1] = dS, lam_end[c-1] =
+    W[c] lam_end[c] + lam_loc[c]; (3) each chunk walked back from
+    lam_end[c], K (dk; the suffix a from a_end = <lam_end[c], S_in[c+1]>
+    (the last chunk's from R), dlogw_t = a - P_t with P_t = k_t (lam_{t+1}
+    v_t), a <- a - P_t + Q_t; chunk 0 gives dS0) and V (dv).  ``fault``
+    plants one of the kernel faults the bar must reject: "u_in_dk" (u's
+    term dropped from dk), "decay_carry" (a from zero in every chunk but
+    the last), "a_end" (every chunk's suffix from zero: R's and K's a_end
+    left out), "lam_carry" (every chunk but the last walked back from lam
+    = 0)."""
     chunks = _chunks(r.shape[1], L)
     nc = len(chunks)
     s_in = wkv6_carries(r, k, v, w, u, S0, L)
-    # 1. local lam and the decay products
+    # 1. R and the local pass, forward
+    q, dr = {}, torch.empty_like(r)
     lam_loc, decay = {}, {}
-    for c in range(1, nc):
-        t0, t1 = chunks[c]
+    for c, (t0, t1) in enumerate(chunks):
+        St = s_in[c]
         lam, p = torch.zeros_like(S0), torch.ones_like(w[:, 0])
-        for t in range(t1 - 1, t0 - 1, -1):
-            lam = w[:, t, :, :, None] * lam + _outer(r[:, t], dy[:, t])
+        for t in range(t0, t1):
+            dyv = (dy[:, t] * v[:, t]).sum(-1, keepdim=True)
+            sdy = torch.einsum("bhij,bhj->bhi", St, dy[:, t])
+            dr[:, t] = sdy + u * k[:, t] * dyv
+            q[t] = r[:, t] * sdy
+            St = w[:, t, :, :, None] * St + _outer(k[:, t], v[:, t])
+            lam = lam + _outer(p * r[:, t], dy[:, t])
             p = p * w[:, t]
         lam_loc[c], decay[c] = lam, p
+    a_last = (dS * St).sum(-1)
     # 2. the carries, backward
     lam_end = [None] * nc
     lam_end[-1] = dS
@@ -168,20 +184,13 @@ def wkv6_bwd_chunked(r, k, v, w, u, S0, dy, dS, L, fault=None):
         lam_end[c - 1] = decay[c][..., None] * lam_end[c] + lam_loc[c]
     if fault == "lam_carry":
         lam_end = [torch.zeros_like(dS)] * (nc - 1) + [dS]
-    # 3. each chunk rerun
-    dr, dk, dv, dlogw = (torch.empty_like(r) for _ in range(4))
+    # 3. K and V, back
+    dk, dv, dlogw = (torch.empty_like(r) for _ in range(3))
     du = torch.zeros_like(u)
     for c, (t0, t1) in enumerate(chunks):
-        St, q = s_in[c], {}
-        for t in range(t0, t1):
-            dyv = (dy[:, t] * v[:, t]).sum(-1, keepdim=True)
-            sdy = torch.einsum("bhij,bhj->bhi", St, dy[:, t])
-            dr[:, t] = sdy + u * k[:, t] * dyv
-            q[t] = r[:, t] * sdy
-            St = w[:, t, :, :, None] * St + _outer(k[:, t], v[:, t])
         lam = lam_end[c]
-        a = (lam * St).sum(-1)
-        if fault == "decay_carry" and c < nc - 1:
+        a = (lam * s_in[c + 1]).sum(-1) if c < nc - 1 else a_last
+        if (fault == "decay_carry" and c < nc - 1) or fault == "a_end":
             a = torch.zeros_like(a)
         for t in range(t1 - 1, t0 - 1, -1):
             dyv = (dy[:, t] * v[:, t]).sum(-1, keepdim=True)
@@ -190,9 +199,9 @@ def wkv6_bwd_chunked(r, k, v, w, u, S0, dy, dS, L, fault=None):
             dv[:, t] = (torch.einsum("bhij,bhi->bhj", lam, k[:, t])
                         + (r[:, t] * u * k[:, t]).sum(-1, keepdim=True)
                         * dy[:, t])
-            p = k[:, t] * lv
-            dlogw[:, t] = a - p
-            a = a - p + q[t]
+            a = a - k[:, t] * lv
+            dlogw[:, t] = a
+            a = a + q[t]
             du += (r[:, t] * k[:, t] * dyv).sum(0)
             lam = w[:, t, :, :, None] * lam + _outer(r[:, t], dy[:, t])
         if c == 0:
@@ -295,24 +304,24 @@ def test_wkv6_backward_phases_match_the_reverse_loop(label, B, S, lens, L,
                         want)
     assert _grads_close(wkv6_bwd_chunked(r, k, v, w, u, S0, dy, dS, S),
                         want)
-    faults = ("u_in_dk", "decay_carry", "lam_carry") if S > L else (
-        "u_in_dk",)
+    faults = (("u_in_dk", "decay_carry", "a_end", "lam_carry") if S > L
+              else ("u_in_dk", "a_end"))
     for fault in faults:
         bad = wkv6_bwd_chunked(r, k, v, w, u, S0, dy, dS, L, fault)
         assert not _grads_close(bad, want), fault
 
 
-def scan_bwd_chunked(x, dt, Bm, Cm, A, D, h0, dy, dh, L, sub=8, group=8,
+def scan_bwd_chunked(x, dt, Bm, Cm, A, D, h0, dy, dh, L, sub=8, group=32,
                      fault=None, ckpt=None):
     """Kernel D's phases in plain PyTorch: the checkpoints (the state
     before each chunk of L tokens, as kernel C stores them; ``ckpt``, a
     (Bt, chunks, di, 16) tensor, gives them instead), then the
     chunks in reverse, each rerun from its checkpoint with its sub-chunk
     starts kept, the sub-chunks in reverse rerun and g walked back over
-    them; dB and dC as per-group partials over ``group`` channels summed
-    over the groups in order, dA and dD per row summed over the rows.
-    ``fault``: "group_partial_dropped", "ckpt_ignored" or
-    "g_carry_dropped"."""
+    them; dB and dC as per-group partials over ``group`` channels (a
+    CTA's) summed over the groups in order, dA and dD per row summed over
+    the rows.  ``fault``: "group_partial_dropped" (the last group left
+    out), "ckpt_ignored" or "g_carry_dropped"."""
     Bt, S, di = x.shape
     chunks = [(c, min(c + L, S)) for c in range(0, S, L)]
     if ckpt is None:
@@ -393,11 +402,15 @@ def test_scan_backward_phases_match_the_reverse_loop(label, B, S, lens, L,
     want = ref.selective_scan_bwd(*args)
     assert _grads_close(scan_bwd_chunked(*args, L), want)
     assert _grads_close(scan_bwd_chunked(*args, S), want)
+    # several groups, the last ragged: 24 channels in groups of 10
+    assert _grads_close(scan_bwd_chunked(*args, L, group=10), want)
     faults = (("group_partial_dropped", "ckpt_ignored", "g_carry_dropped")
               if S > L else ("group_partial_dropped",))
-    for fault in faults:
-        assert not _grads_close(scan_bwd_chunked(*args, L, fault=fault),
-                                want), fault
+    for fault in faults:       # 3 groups of 8 channels
+        assert not _grads_close(scan_bwd_chunked(*args, L, group=8,
+                                                 fault=fault), want), fault
+    assert not _grads_close(scan_bwd_chunked(
+        *args, L, group=10, fault="group_partial_dropped"), want)
 
 
 @pytest.mark.parametrize("label,B,S,lens,L,carried", CASES,
