@@ -387,7 +387,7 @@ F32_OPS_PER_S = 67e12                # H100 SXM float32 outside the tensor
                                      # cores (selective_scan's and wkv6's
                                      # arithmetic)
 PHASES = ("build", "parity", "transfer", "serve", "serve_int8", "oracles",
-          "models", "obs", "async", "train", "calibrate")
+          "models", "obs", "async", "contract", "train", "calibrate")
 
 KERNELS = {   # name -> (source in this repo, the TPU kernel it replaces)
     "sparse_decode_attention": (
@@ -745,7 +745,7 @@ MODEL_RUNS = {
         "sparse_decode_attention", "score_select", "flash_prefill")),
     "jamba-v0.1-52b": (("none", "int8"), (4, 32768, 32), (
         "selective_scan:prefill", "selective_scan:decode")),
-    "arctic-480b": ("none", (4, 32768, 32), (
+    "arctic-480b": (("none", "int8"), (4, 32768, 32), (
         "sparse_decode_attention", "score_select")),
 }
 # the configs served with fewer layers than published, each layer at full
@@ -753,8 +753,9 @@ MODEL_RUNS = {
 # (38.8 GB; 33.8 GB of it the layer's 384 experts), arctic-480b's and 2 of
 # its 35 (55.4 GB); every layer of both is an MoE layer; jamba-v0.1-52b's
 # and 16 of its 32 layers, two whole 8-layer periods (52.0 GB: 2 attention
-# layers, 14 Mamba layers, 8 MoE layers).  jamba-v0.1-52b is served on
-# both tiers (the tuple in MODEL_RUNS), from one set of weights.
+# layers, 14 Mamba layers, 8 MoE layers).  minicpm3-4b, kimi-k2,
+# jamba-v0.1-52b and arctic-480b are served on both tiers (the tuples in
+# MODEL_RUNS), each from one set of weights.
 MODEL_LAYERS = {"kimi-k2-1t-a32b": 1, "arctic-480b": 2,
                 "jamba-v0.1-52b": 16}
 # a MODEL_RUNS name that is a registry config with fields replaced:
@@ -769,6 +770,39 @@ MODEL_NOTES = {"whisper-small": " stress=prompts_past_the_448_token_"
                                 "decoder_context"}
 MODEL_RATE = 2.0
 LONG_PROMPT, LONG_NEW = 131072, 8
+# the oracle paths the CPU tests hold against the JAX engine at each
+# family beyond qwen2-0.5b (read from tests/test_torch_mla.py,
+# test_torch_moe.py, test_torch_jamba_paths.py, test_torch_rwkv_engine.py,
+# test_torch_vlm_paths.py, test_torch_whisper_paths.py and
+# test_torch_whisper_oracles.py; MLA's chunked baseline raises), run on
+# the card after the family's models-phase serve, on its weights, at full
+# width and the depth given: arch -> (layers, paths).  Jamba's 8 layers
+# are one whole period (attention at layer 4, MoE at the odd layers);
+# kimi-k2 and arctic-480b keep their MODEL_LAYERS.  FAMILY_REQUESTS
+# requests of FAMILY_PROMPT tokens, all arriving at 0.0: at DSA block 32
+# and K = 64, 4,096 tokens are 128 blocks, so selection and restores do
+# real work
+FAMILY_ORACLES = {
+    "whisper-small": (2, ("stacked", "sequential", "legacy", "chunked")),
+    "rwkv6-1.6b": (2, ("split", "persistent", "stacked", "sequential",
+                       "legacy", "chunked")),
+    "internvl2-2b": (2, ("stacked", "sequential", "legacy", "chunked")),
+    "minicpm3-4b": (2, ("persistent", "stacked", "sequential", "legacy",
+                        "chunked")),
+    "kimi-k2-1t-a32b": (1, ("split", "persistent", "stacked", "legacy",
+                            "chunked")),
+    "jamba-v0.1-52b": (8, ("split", "persistent", "stacked", "sequential",
+                           "legacy", "chunked")),
+    "arctic-480b": (2, ("split", "persistent", "stacked", "legacy",
+                        "chunked")),
+}
+FAMILY_REQUESTS, FAMILY_PROMPT, FAMILY_NEW = 2, 4096, 8
+# the contract phase's guarded serve: qwen2-0.5b at full width and
+# CONTRACT_LAYERS layers, CONTRACT_REQUESTS x CONTRACT_PROMPT tokens (past
+# the DSA budget, so selection, restores and drops run) in prefill chunks
+# of CONTRACT_CHUNK tokens (prefill and decode rows share iterations)
+CONTRACT_LAYERS, CONTRACT_REQUESTS, CONTRACT_PROMPT = 4, 3, 3000
+CONTRACT_NEW, CONTRACT_CHUNK = 6, 1024
 # the obs phase: the obs layer's own host work on an obs-on serve within
 # this share of that serve's wall time (the serve's TBT spreads ~2x
 # between calls, so the tighter 5% bar stays with the CPU test).  The
@@ -873,6 +907,14 @@ WKV_TRAIN_CASES = (("path=train", 2, 4096, (4096, 4096)),
 # steps of the largest gradient).  Kernel A's y, final state and S_in[c]
 # are held to the forward's WKV_RTOL / WKV_ATOL.
 WKV_GRAD_ERR, WKV_GRAD_COS = 2.0 ** -12, 0.99999
+# kernel B where whole channels decay near 0 (the first WKV_NEAR_ZERO of
+# every head's 64, w = exp(-exp(N(2, 0.5))), about 1e-3 and far below):
+# dlogw there is a difference of suffix sums far larger than itself, so
+# each channel's dlogw is held against the float64 reverse loop on its own
+# scale, a relative L2 over its tokens within WKV_DLOGW_REL (the bar
+# stated before the case's first run; the float32 CPU mirror of the
+# kernel's algebra reads ~1e-4 there, tests/test_torch_scan_chunks.py)
+WKV_NEAR_ZERO, WKV_DLOGW_REL = 16, 2.0 ** -8
 # rwkv6-1.6b's step 1: float32 does not determine its gradient at full
 # depth.  Against the same step in float64 (the precision phase, PR 28)
 # the plain float32 path's per-layer gradients are 1.3% off at layer 23,
@@ -2784,12 +2826,16 @@ def kernel_records(parity: dict, mainpath: dict, counts: dict) -> list:
 
 def _submit_all(eng, Request, cfg, np, seed: int, n: int, prompt: int,
                 gen: int) -> list:
+    """``n`` requests of ``prompt`` tokens from ``seed``, all arriving at
+    0.0, each with the launcher's synthesized frontend tensors (none for
+    a decoder-only config)."""
+    from repro_torch.launch.serve import frontend_inputs
     rng = np.random.default_rng(seed)
     ids = []
     for _ in range(n):
         r = Request(prompt_len=prompt, max_new_tokens=gen, arrival_time=0.0)
         eng.submit(r, tokens=rng.integers(4, cfg.vocab_size, prompt)
-                   .astype(np.int32))
+                   .astype(np.int32), **frontend_inputs(cfg, rng))
         ids.append(r.req_id)
     return ids
 
@@ -2920,7 +2966,8 @@ def _run_serve(torch, np, ops, seed: int, path: str, want: tuple,
     log(f"phase={path} peak_mem_gb="
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
     out = {"counts": counts, "ttft": m.mean_ttft, "wire": wire,
-           "wall": wall, "tokens": [eng.states[r].out_tokens for r in ids]}
+           "wall": wall, "tokens": [eng.states[r].out_tokens for r in ids],
+           "contract": _contract_line(f"phase={path}", eng)}
     if inspect is not None:
         inspect(eng)
     eng.close()
@@ -3070,8 +3117,189 @@ def phase_async(torch, np, seed: int) -> None:
                                  f"(offload_quant={tier})")
 
 
+def contract_mismatches(eng) -> list:
+    """An engine's run against the plane contract
+    (``repro_torch.core.plane_contract``): every mixed iteration's stage
+    launches and fused transfers, and every decode plane's host syncs and
+    stripe read-back.  Returns what differs (empty when the run meets
+    it)."""
+    from repro_torch.core import plane_contract as pc
+    bad = (pc.mixed_launch_mismatches(eng.cfg, eng.mixed_iter_log,
+                                      eng.eng.decode_write_back)
+           if eng.hybrid is not None else [])
+    planes = list(eng.planes.values())
+    for plane in planes:
+        bad.append(pc.host_sync_mismatch(eng.cfg, plane.host_syncs,
+                                         plane.steps))
+        if len(planes) == 1 and eng.eng.decode_write_back:
+            bad.append(pc.stripe_readback_mismatch(plane, eng.decode_tokens))
+    return [b for b in bad if b]
+
+
+def _contract_line(tag: str, eng) -> dict:
+    """The launch, host-sync and read-back budgets of a serve, checked
+    and printed on one line; raises on a mismatch."""
+    from repro_torch.core import plane_contract as pc
+    from repro_torch.device import GUARD
+    bad = contract_mismatches(eng)
+    log_ = eng.mixed_iter_log
+    out = {"mixed_iterations": len(log_),
+           "launches": sum(e["launches"] for e in log_),
+           "budget": sum(pc.mixed_launches_per_iteration(
+               eng.cfg, e["decode_planes"], e["groups"], e["finalize"])
+               for e in log_),
+           "host_syncs": sum(p.host_syncs for p in eng.planes.values()),
+           "steps": sum(p.steps for p in eng.planes.values()),
+           "d2h_readback_bytes": sum(p.d2h_readback_bytes
+                                     for p in eng.planes.values()),
+           "guard": GUARD.snapshot(), "mismatches": len(bad)}
+    log(f"{tag} contract " + json.dumps(out))
+    if bad:
+        raise AssertionError(f"{tag}: the run breaks the plane contract: "
+                             f"{bad[:3]}")
+    return out
+
+
+def _sync_probe(torch) -> dict:
+    """Which calls the dispatch window's guard flags on this card (the
+    sync debug mode's "warn"): {call: flagged}."""
+    from repro_torch.device import SyncInDispatchWindow, dispatch_window
+    dev = torch.device("cuda")
+    x = torch.ones(1 << 10, device=dev)
+    pinned = torch.ones(1 << 10).pin_memory()
+    pageable = torch.ones(1 << 10)
+    ev = torch.cuda.Event()
+    calls = {
+        "item": lambda: x.sum().item(),
+        "cpu": lambda: x.cpu(),
+        "tolist": lambda: x[:4].tolist(),
+        "nonzero": lambda: torch.nonzero(x),
+        "pageable_h2d_copy_": lambda: x.copy_(pageable),
+        "pinned_h2d_copy_non_blocking": lambda: x.copy_(
+            pinned, non_blocking=True),
+        "pinned_d2h_copy_non_blocking": lambda: pinned.copy_(
+            x, non_blocking=True),
+        "event_synchronize": lambda: (ev.record(), ev.synchronize()),
+        "stream_synchronize": lambda: torch.cuda.current_stream()
+        .synchronize(),
+        "torch_cuda_synchronize": torch.cuda.synchronize,
+    }
+    out = {}
+    for name, fn in calls.items():
+        try:
+            with dispatch_window(dev):
+                fn()
+            out[name] = False
+        except SyncInDispatchWindow:
+            out[name] = True
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_contract(torch, np, seed: int) -> None:
+    """The plane contract on the card: the static pass over the port's
+    tree exits 0 and flags each fixture by exactly its own rule; every
+    guarded window of the run so far flagged no unwaived sync; a probe of
+    which calls the guard flags; a short guarded serve (qwen2-0.5b at
+    full width, CONTRACT_LAYERS layers) meets the launch, host-sync and
+    read-back budgets; and two planted faults are each rejected by the
+    check meant for it: a ``.item()`` in the dispatch window (the serve
+    raises SyncInDispatchWindow) and one extra stage launch per iteration
+    (the launch budget reports it).  Prints one JSON record."""
+    import os
+    from repro_torch.analysis.fixtures import FIXTURES
+    from repro_torch.analysis.run import analyze
+    from repro_torch.configs import get_config
+    from repro_torch.core import plane_contract as pc
+    from repro_torch.device import GUARD, SyncInDispatchWindow
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    from repro_torch.serving.request import Request
+    t0 = time.perf_counter()
+    rec = {}
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis.run"],
+        capture_output=True, text=True, cwd=REPO,
+        env=dict(os.environ, PYTHONPATH=str(REPO / "src")))
+    found = analyze(pc.DEFAULT_TARGET)
+    rec["static"] = {"exit": cli.returncode, "findings": len(found),
+                     "waived": sum(f.waived for f in found)}
+    rec["fixtures"] = {name: sorted({f.rule for f in analyze(target)})
+                       for name, (target, _) in FIXTURES.items()}
+    wrong = [name for name, (_, rule) in FIXTURES.items()
+             if rec["fixtures"][name] != ([rule] if rule else [])]
+    rec["guard_so_far"] = GUARD.snapshot()
+    rec["probe"] = _sync_probe(torch)
+    cfg = dataclasses.replace(get_config("qwen2-0.5b"),
+                              num_layers=CONTRACT_LAYERS)
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        seed + 5), torch.bfloat16, "cuda")
+
+    def serve(plant=None):
+        eng = ServingEngine(params, cfg, EngineConfig(
+            seed=seed, prefill_max_tokens_per_step=CONTRACT_CHUNK))
+        _submit_all(eng, Request, cfg, np, seed, CONTRACT_REQUESTS,
+                    CONTRACT_PROMPT, CONTRACT_NEW)
+        if plant is not None:
+            plant(eng)
+        try:
+            eng.run()
+        finally:
+            eng.close()
+        return eng
+    GUARD.reset()
+    rec["serve"] = _contract_line("phase=contract", serve())
+    rec["serve_guard"] = GUARD.snapshot()
+
+    def plant_item(eng):
+        stage = eng._stage_decode_layer
+
+        def with_item(*a, **kw):
+            torch.ones(1, device="cuda").sum().item()      # the fault
+            return stage(*a, **kw)
+        eng._stage_decode_layer = with_item
+
+    def plant_launch(eng):
+        walk = eng.hybrid.run_iteration
+
+        def with_launch(params_, decode_jobs, prefill_jobs, layer_cb=None):
+            res = walk(params_, decode_jobs, prefill_jobs, layer_cb)
+            for job in decode_jobs[:1]:
+                tokens, _ = job.plane.batch_inputs(job.token_by_req)
+                M.decode_embed(params_, cfg, tokens)       # the fault
+                job.plane.stage_launches += 1
+            return res
+        eng.hybrid.run_iteration = with_launch
+    planted = {}
+    try:
+        serve(plant_item)
+        planted["item_in_window"] = "not rejected"
+    except SyncInDispatchWindow as e:
+        planted["item_in_window"] = f"rejected: {str(e)[:80]}"
+    try:
+        _contract_line("phase=contract planted=extra_stage_launch",
+                       serve(plant_launch))
+        planted["extra_stage_launch"] = "not rejected"
+    except AssertionError as e:
+        planted["extra_stage_launch"] = f"rejected: {str(e)[:80]}"
+    rec["planted"] = planted
+    rec["seconds"] = round(time.perf_counter() - t0, 1)
+    log("phase=contract " + json.dumps(rec) + f" card=[{_card()}]")
+    if (cli.returncode or wrong or rec["guard_so_far"]["flagged"]
+            or rec["serve_guard"]["flagged"]
+            or not rec["serve_guard"]["windows"]
+            or not rec["probe"]["item"]
+            or any(not v.startswith("rejected") for v in planted.values())):
+        raise AssertionError(f"contract: the static pass failed "
+                             f"({cli.stdout[-300:]}), fixtures {wrong} "
+                             f"flagged by other rules, a "
+                             f"guarded window flagged a sync, or a planted "
+                             f"fault was not rejected")
+
+
 def _oracle_run(torch, np, ops, params, cfg, seed: int, gen: int,
-                cap=None, force=None, pools=None, **engine_kw) -> dict:
+                cap=None, force=None, pools=None, n: int = SERVE_REQUESTS,
+                prompt: int = SERVE_PROMPT, **engine_kw) -> dict:
     """One oracle path at full width (wall-clock charging): the launch
     counts set to 0 and the device's peak memory reset just before the
     run, both read just after (the memory allocated before it, the
@@ -3087,13 +3315,12 @@ def _oracle_run(torch, np, ops, params, cfg, seed: int, gen: int,
     decode pools each request's prefill built, as the decode plane admits
     them, per layer (K, V) over the prompt's tokens: recorded into an
     empty dict, else compared against it (the summary under
-    ``pools_vs``)."""
+    ``pools_vs``).  ``n`` requests of ``prompt`` tokens."""
     from repro_torch.serving.engine import EngineConfig, ServingEngine
     from repro_torch.serving.request import Request
     eng = ServingEngine(params, cfg, EngineConfig(
         seed=seed, charge_real_time=True, **engine_kw))
-    ids = _submit_all(eng, Request, cfg, np, seed, SERVE_REQUESTS,
-                      SERVE_PROMPT, gen)
+    ids = _submit_all(eng, Request, cfg, np, seed, n, prompt, gen)
     index = {rid: i for i, rid in enumerate(ids)}
     logits = {rid: [] for rid in ids}
     batches = {rid: [] for rid in ids}
@@ -3435,6 +3662,129 @@ def _oracle_mla(torch, np, ops, seed: int, counts: dict) -> None:
     _free_memory(torch)
 
 
+def _logits_bar(torch, path: str, ref_path: str, r: dict, ref: dict,
+                step: int, tag: str) -> None:
+    """``r``'s logits at ``step`` against ``ref``'s, request by request,
+    within a tolerance under half the distance between two requests'
+    logits of ``ref``: ORACLE_REL_L2, halved until it is (a random model
+    can give every request nearly the same logits, whisper-small's past
+    its 448-token context; the bar then only tightens).  Prints one
+    line."""
+    errs = [_rel_l2(torch, got[step], want[step])
+            for got, want in zip(r["logits"], ref["logits"])]
+    sep = min(_rel_l2(torch, ref["logits"][i][step],
+                      ref["logits"][(i + 1) % len(errs)][step])
+              for i in range(len(errs)))
+    tol = ORACLE_REL_L2
+    while sep <= 2 * tol and tol > 0.0:
+        tol /= 2
+    top1 = sum(int(g[step].argmax()) == int(w[step].argmax())
+               for g, w in zip(r["logits"], ref["logits"]))
+    max_abs = max(float((g[step] - w[step]).abs().max())
+                  for g, w in zip(r["logits"], ref["logits"]))
+    log(f"{tag} path={path} vs={ref_path} logits_step={step} "
+        f"rel_l2={','.join(f'{e:.3e}' for e in errs)} "
+        f"max_abs={max_abs:.3e} tol={tol:.3e} "
+        f"min_rel_l2_between_requests={sep:.3e} "
+        f"top1_agree={top1}/{len(errs)}")
+    if max(errs) > tol:
+        raise AssertionError(f"{tag}: {path} logits outside the tolerance "
+                             f"against {ref_path}")
+
+
+def _family_oracles(torch, np, ops, ref, arch: str, cfg, params,
+                    seed: int) -> dict:
+    """The oracle paths FAMILY_ORACLES names for ``arch``, at full width on
+    the models phase's weights cut to the table's depth, FAMILY_REQUESTS
+    requests of FAMILY_PROMPT tokens and FAMILY_NEW new tokens, all
+    arriving at 0.0 (the launch counts set to 0 before each run, read
+    after), each held as phase_oracles holds the path at qwen2-0.5b:
+    split and persistent give mixed's tokens; stacked and sequential
+    mixed's logits at step 1, legacy and chunked at step 0, within
+    ORACLE_REL_L2, tightened where the requests' logits lie close
+    (_logits_bar); each path launches its ORACLE_PATHS kernels (wkv6
+    alone for RWKV6, selective_scan besides for the hybrid).  MLA's
+    chunked baseline must raise NotImplementedError, as the reference's
+    does.  A frontend config's chunked baseline embeds the prompt tokens
+    alone and runs no cross-attention (the reference's), so its logits
+    are held against the same path with ``ops.flash_prefill`` replaced by
+    its plain version (ref.flash_prefill, float32 inside).  Returns
+    {path: launches by kernel}."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    from repro_torch.serving.request import Request
+    layers, paths = FAMILY_ORACLES[arch]
+    tag = f"phase=models arch={arch} oracle"
+    published = get_config(MODEL_VARIANTS.get(arch, (arch,))[0]).num_layers
+    red = (MODEL_NOTES.get(arch, "")
+           + f" reduced=num_layers:{layers}/{published}")
+    cfg = dataclasses.replace(cfg, num_layers=layers)
+    params = dict(params, layers=params["layers"][:layers])
+    subs = [(Request(prompt_len=FAMILY_PROMPT, max_new_tokens=FAMILY_NEW),
+             None, None)] * FAMILY_REQUESTS
+    budget, _ = _hbm_budget(torch, cfg, subs, EngineConfig().hbm_budget_bytes)
+    runs, counts = {}, {}
+    base = ("wkv6",) if cfg.attention_type == "none" else ()
+    for path in ("mixed",) + paths:
+        kw, want, ref_path, step = ORACLE_PATHS[path]
+        if path == "chunked" and cfg.attention_type == "mla":
+            try:
+                ServingEngine(params, cfg, EngineConfig(**kw))
+            except NotImplementedError as e:
+                log(f"{tag} path=chunked raises NotImplementedError as the "
+                    f"reference does: {e}" + red)
+                continue
+            raise AssertionError(f"{tag}: MLA's chunked baseline ran")
+        t0 = time.perf_counter()
+        r = runs[path] = _oracle_run(
+            torch, np, ops, params, cfg, seed, FAMILY_NEW,
+            n=FAMILY_REQUESTS, prompt=FAMILY_PROMPT,
+            hbm_budget_bytes=budget, **kw)
+        counts[f"models_{arch}_oracle_{path}"] = r["counts"]
+        m = r["metrics"]
+        log(f"{tag} path={path} config={json.dumps(kw)} layers={layers} "
+            f"requests={FAMILY_REQUESTS} prompt={FAMILY_PROMPT} "
+            f"new={FAMILY_NEW} wall_s={time.perf_counter() - t0:.3f} "
+            f"mean_ttft_ms={m.mean_ttft * 1e3:.2f} "
+            f"mean_tbt_ms={m.mean_tbt * 1e3:.3f} "
+            f"h2d_calls={r['stats']['h2d_calls']} "
+            f"d2h_calls={r['stats']['d2h_calls']} "
+            f"first8={[t[:8] for t in r['tokens']]} card=[{_card()}]" + red)
+        log(f"{tag} path={path} launches " + json.dumps(r["counts"]))
+        need = base or (want + (("selective_scan",)
+                                if cfg.arch_type == "hybrid" else ()))
+        missing = [k for k in need if r["counts"].get(k, 0) == 0]
+        if missing:
+            raise AssertionError(f"{tag}: kernels not launched on the "
+                                 f"{path} path: {missing}")
+        if path == "mixed":
+            continue
+        if path == "chunked" and (cfg.frontend != "none"
+                                  or cfg.is_encoder_decoder):
+            flash = ops.flash_prefill
+            ops.flash_prefill = ref.flash_prefill
+            try:
+                plain = _oracle_run(
+                    torch, np, ops, params, cfg, seed, FAMILY_NEW,
+                    n=FAMILY_REQUESTS, prompt=FAMILY_PROMPT,
+                    hbm_budget_bytes=budget, **kw)
+            finally:
+                ops.flash_prefill = flash
+            _logits_bar(torch, path, "chunked_plain_attention", r, plain, 0,
+                        tag)
+            continue
+        if step is None:
+            same = r["tokens"] == runs[ref_path]["tokens"]
+            log(f"{tag} path={path} tokens_identical_to_{ref_path}={same}"
+                + red)
+            if not same:
+                raise AssertionError(f"{tag}: {path} tokens differ from "
+                                     f"{ref_path}'s")
+            continue
+        _logits_bar(torch, path, ref_path, r, runs[ref_path], step, tag)
+    return counts
+
+
 def _card() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3507,7 +3857,7 @@ def _hbm_budget(torch, cfg, subs, default: int) -> tuple:
 
 def _serve_model(torch, np, ops, arch: str, seed: int, caps: dict,
                  requests=None, tag: str = "models", inspect=None,
-                 obs: bool = False) -> dict:
+                 obs: bool = False, family=None) -> dict:
     """One models-phase serve of ``arch`` at full width (MODEL_RUNS; its
     first ``requests`` submissions when given, obs on with ``obs``),
     bf16 random weights from ``seed``, the default EngineConfig with
@@ -3520,8 +3870,11 @@ def _serve_model(torch, np, ops, arch: str, seed: int, caps: dict,
     stage of a decode-only iteration ran at the attention layers only);
     keeps one launch of each MODEL_RUNS kernel of the first tier for
     phase_mainpath (into ``caps``); ``inspect(engine)`` runs last,
-    before the engine closes.  Returns a summary ({"counts", "mixed"}
-    of the first tier; "counts_<tier>" of any other)."""
+    before the engine closes.  With ``family`` (the plain versions'
+    module, ``ref``) the config's FAMILY_ORACLES paths run last on the
+    same weights (_family_oracles).  Returns a summary ({"counts",
+    "mixed"} of the first tier; "counts_<tier>" of any other; "family":
+    the oracle paths' launches)."""
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
     tiers, _, keep = MODEL_RUNS[arch]
@@ -3546,6 +3899,9 @@ def _serve_model(torch, np, ops, arch: str, seed: int, caps: dict,
                                tier == tiers[0], seed, caps, requests, tag,
                                inspect, obs, weights, t0, red, keep))
         t0 = time.perf_counter()
+    if family is not None and arch in FAMILY_ORACLES:
+        out["family"] = _family_oracles(torch, np, ops, family, arch, cfg,
+                                        params, seed)
     return out
 
 
@@ -3741,8 +4097,9 @@ def phase_models(torch, np, ops, ref, timer, seed: int) -> tuple:
     for arch in MODEL_RUNS:
         _free_memory(torch)
         caps = {}
-        r = _serve_model(torch, np, ops, arch, seed, caps)
+        r = _serve_model(torch, np, ops, arch, seed, caps, family=ref)
         counts[f"models_{arch}"] = r["counts"]
+        counts.update(r.get("family", {}))
         for key, c in r.items():
             if key.startswith("counts_"):       # a second tier
                 counts[f"models_{arch}_{key[len('counts_'):]}"] = c
@@ -4334,6 +4691,45 @@ def case_wkv_bwd(torch, ops, ref, r, k, v, w, u, S0, dy, dS,
     return (err, ok, lambda: ops.wkv6_bwd(r, k, v, w, u, S_in, dy, dS),
             lambda: ref.wkv6_bwd(r, k, v, w, u, S0, dy, dS), nbytes,
             (9 * Bn * S * H * hd * hd, F32_OPS_PER_S), _wkv_shape(r))
+
+
+def _wkv_near_zero_decays(torch, ops, ref, seed: int) -> None:
+    """Kernel B at the train shape where whole channels decay near 0
+    (WKV_NEAR_ZERO channels of every head, w = exp(-exp(N(2, 0.5))))
+    beside channels drawn as usual: each channel's dlogw against the
+    float64 reverse loop on its own scale (relative L2 over its tokens,
+    within WKV_DLOGW_REL), the other gradients under kernel B's bar
+    against the same float64 truth."""
+    label, Bn, S, lens = WKV_TRAIN_CASES[0]
+    gen = torch.Generator(device="cuda").manual_seed(seed + 250)
+    r, k, v, w, u, S0, dy, dS = _wkv_train_inputs(torch, gen, Bn, S, lens)
+    n = WKV_NEAR_ZERO
+    w[..., :n] = torch.exp(-torch.exp(2.0 + 0.5 * torch.randn(
+        w[..., :n].shape, generator=gen, device="cuda")))
+    _, _, S_in = ops.wkv6_train(r, k, v, w, u, S0)
+    got = ops.wkv6_bwd(r, k, v, w, u, S_in, dy, dS)
+    want = ref.wkv6_bwd(*(t.double() for t in (r, k, v, w, u, S0, dy, dS)))
+    rel = (((got[3].double() - want[3]) ** 2).sum((0, 1)).sqrt()
+           / (want[3] ** 2).sum((0, 1)).sqrt())
+    errs, coss = _wkv_grad_errs(torch, [g.double() for i, g in enumerate(got)
+                                        if i != 3],
+                                [x for i, x in enumerate(want) if i != 3])
+    scale = (float(want[3][..., :n].abs().mean()),
+             float(want[3][..., n:].abs().mean()))
+    ok = (float(rel.max()) <= WKV_DLOGW_REL and max(errs) <= WKV_GRAD_ERR
+          and min(coss) >= WKV_GRAD_COS)
+    log(f"phase=train case=near_zero_decays kernel=wkv6_bwd "
+        f"{_wkv_shape(r)} near_zero_channels={n}/{WKV_HD} per_head "
+        f"w_max_there={float(w[..., :n].max()):.3e} mean|dlogw| "
+        f"near_zero={scale[0]:.3e} others={scale[1]:.3e} dlogw_rel_l2_by_"
+        f"channel max near_zero={float(rel[:, :n].max()):.3e} "
+        f"others={float(rel[:, n:].max()):.3e} (bar {WKV_DLOGW_REL:.3e}) "
+        f"other_grads err/max|grad|={max(errs):.3e} min_cosine="
+        f"{min(coss):.7f} (vs float64) ok={ok} card=[{_card()}]")
+    if not ok or scale[0] >= 1e-2 * scale[1]:
+        raise AssertionError("train: kernel B outside its bar where whole "
+                             "channels decay near 0 (or the case did not "
+                             "reach that regime)")
 
 
 def _scan_shape(x) -> str:
@@ -5087,6 +5483,7 @@ def phase_train(torch, np, ops, ref, timer, seed: int) -> tuple:
                 "train", label, name, case, timer, device=True)
         del args
         _free_memory(torch)
+    _wkv_near_zero_decays(torch, ops, ref, seed)
     for i, (label, Bn, S, lens) in enumerate(SCAN_TRAIN_CASES):
         gen = torch.Generator(device=dev).manual_seed(seed + 300 + i)
         args = _scan_train_inputs(torch, gen, Bn, S, lens)
@@ -5250,8 +5647,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of build,parity,transfer,"
-                         "serve,serve_int8,oracles,models,obs,async,train,"
-                         "calibrate (serve "
+                         "serve,serve_int8,oracles,models,obs,async,"
+                         "contract,train,calibrate (serve "
                          "and serve_int8 include their mainpath replays; "
                          "serve_int8 needs serve) plus the optional "
                          "profile, profile_int8 and precision")
@@ -5335,6 +5732,11 @@ def main() -> int:
     if "async" in phases:
         phase_async(torch, np, args.seed)
         mark("async", t0)
+    t0 = time.perf_counter()
+    if "contract" in phases:
+        # after every guarded serve of the run, whose windows it reads
+        phase_contract(torch, np, args.seed)
+        mark("contract", t0)
     t0 = time.perf_counter()
     # after the serves whose host times it could disturb (its 2.5 GB
     # checkpoint write, the 1 GiB pinned buffer of calibrate)

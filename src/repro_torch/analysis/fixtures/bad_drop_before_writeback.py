@@ -1,0 +1,23 @@
+"""Planted violation: evicted blocks are zeroed on the device before any
+FlashD2H write-back of the layer exists (writeback-before-drop).
+Analyzed as source only; never imported."""
+from repro_torch.models import model as M
+
+
+class BadPlane:
+    def step_staged(self, params, cfg, tokens, kv_mgr, req_ids, pending):
+        st = self.state
+        x = M.decode_embed(params, cfg, tokens)
+        for i in range(cfg.num_layers):
+            q, _, idx, valid = M.decode_select_layer(
+                params, cfg, x, st["caches"][i], st["cur_len"])
+            blocks = self.blocks(idx.cpu().numpy())
+            self._drop_pending_evictions(self, req_ids, pending,
+                                         protect=(i, blocks))   # unsaved
+            kv_mgr.save_new_tokens_fused(i, self.stripes(i))
+            missing, _ = kv_mgr.access_layer(i, blocks)
+            payloads = kv_mgr.load_blocks_fused(i, missing)
+            self.restore_blocks_fused(i, payloads, before_use=True)
+            x = M.decode_attend_layer(params, cfg, x, q, st["caches"][i],
+                                      st["cur_len"], idx, valid, None)
+        return M.decode_logits(params, cfg, x, st["cur_len"], None)

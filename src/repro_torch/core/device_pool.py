@@ -120,7 +120,10 @@ class DevicePoolPlane:
         self.blocks_restored = 0
         self.blocks_restored_before_use = 0
         self.host_syncs = 0              # per-layer selected-id syncs
-        self.d2h_readback_bytes = 0      # stripe bytes read back
+        self.stage_launches = 0          # staged stage calls (embed, select,
+                                         # attend, recurrent, logits), total
+        self.d2h_readback_bytes = 0      # float32 stripe bytes gathered
+                                         # for the write-back
         # last staged step's (layer, idx_sync_s, host_stage_s) per
         # stage_cb, and their sums over every step: the counter half of
         # the overlap cross-check (the spans reuse the same reads)
@@ -301,9 +304,11 @@ class DevicePoolPlane:
         timeline: List[Tuple[int, float, float]] = []
         tr = self.tracer
         x = M.decode_embed(params, cfg, tokens)
+        self.stage_launches += 1
         for i in range(cfg.num_layers):
             p = M.get_layer(params, i)
             kind = M.layer_kind(cfg, i)
+            self.stage_launches += 1 if kind != "attn" else 2
             if kind != "attn":
                 x, st["caches"][i] = M.decode_recurrent_layer(
                     p, cfg, kind, x, st["caches"][i], mask)
@@ -345,6 +350,7 @@ class DevicePoolPlane:
                 tr.end("attend", "stage", _ts, layer=i)
         logits, st["cur_len"] = M.decode_logits(params, cfg, x,
                                                 st["cur_len"], mask)
+        self.stage_launches += 1
         self.stage_timeline = timeline
         for _, sync_s, stage_s in timeline:
             self.dispatch_sync_s += sync_s
@@ -391,7 +397,8 @@ class DevicePoolPlane:
             k = c["k"][rows, :, blk, slot].float()          # (R, Hkv, D)
             v = c["v"][rows, :, blk, slot].float() if "v" in c else None
             out[l] = ship(k, v)
-            self.d2h_readback_bytes += out[l].host_bytes
+            self.d2h_readback_bytes += k.nbytes + (
+                0 if v is None else v.nbytes)
         return out
 
     def restore_blocks_fused(self, layer: int,

@@ -46,9 +46,10 @@ def build_block_metadata(keys: torch.Tensor, method: str = "cuboid",
             mx = kf.amax(dim=-2)
         else:
             v = valid[..., None]
-            inf = torch.tensor(float("inf"), device=kf.device)
-            mn = torch.where(v, kf, inf).amin(dim=-2)
-            mx = torch.where(v, kf, -inf).amax(dim=-2)
+            # Python scalars: a 0-d tensor made from one would be copied
+            # from pageable memory, a stream sync on the GPU
+            mn = torch.where(v, kf, float("inf")).amin(dim=-2)
+            mx = torch.where(v, kf, float("-inf")).amax(dim=-2)
             # fully-empty blocks: zero cuboid (scored but masked elsewhere)
             any_valid = valid.any(dim=-1)[..., None]
             mn = torch.where(any_valid, mn, 0.0)

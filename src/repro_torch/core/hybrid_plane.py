@@ -125,6 +125,7 @@ class HybridPlane:
                 x=M.decode_embed(params, cfg, tokens),
                 prev={rid: plane.cur_host[rid] for rid in job.token_by_req},
                 info={"selected": {}}))
+            plane.stage_launches += 1
         pre: List[Tuple[PrefillPlane, PrefillWalk]] = [
             (pj.plane, pj.plane.begin_iteration(pj.allowance))
             for pj in prefill_jobs]
@@ -135,6 +136,9 @@ class HybridPlane:
             kind = M.layer_kind(cfg, i)
             selections: List[Tuple[DecodeRun, Optional[np.ndarray]]] = []
             t_sync = 0.0
+            for d in dec:
+                # the layer's recurrent stage, or its select and attend
+                d.plane.stage_launches += 1 if kind != "attn" else 2
             if kind != "attn":
                 for d in dec:
                     st = d.plane.state
@@ -198,6 +202,7 @@ class HybridPlane:
             st = d.plane.state
             logits, st["cur_len"] = M.decode_logits(params, cfg, d.x,
                                                     st["cur_len"], d.mask)
+            d.plane.stage_launches += 1
             d.plane.finish_step(d.req_ids)
             out_dec.append((d.plane, logits, d.info, d.prev))
         out_pre = [(plane, plane.finish_iteration(params, walk))

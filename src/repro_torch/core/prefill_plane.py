@@ -103,6 +103,7 @@ class PrefillPlane:
         self.segments: Dict[str, List[PrefillSegment]] = {}
         self.next_idx: Dict[str, int] = {}
         self._free: List[int] = []
+        self.stage_launches = 0       # group launches and finalizes, total
         self.tracer = NULL_TRACER     # the engine installs a live Tracer
                                       # when obs is on
 
@@ -302,6 +303,7 @@ class PrefillPlane:
         if walk.finished:
             logits = M.prefill_logits_batched(params, self.cfg, self.hidden,
                                               self._tok_len)
+            self.stage_launches += 1
         return PrefillIterationResult(groups=walk.groups,
                                       finished=walk.finished,
                                       logits=logits, peaks=walk.peaks)
@@ -310,6 +312,7 @@ class PrefillPlane:
                    rids: List[str]) -> PrefillGroupRun:
         cfg = self.cfg
         kind = M.layer_kind(cfg, layer)
+        self.stage_launches += 1
         t_start = time.perf_counter() if self.tracer.enabled else None
         dev = self.hidden.device
         segs = {rid: self.segments[rid][self.next_idx[rid]] for rid in rids}

@@ -1,11 +1,15 @@
-"""Device resolution for the port's entry points.
+"""Device resolution for the port's entry points, the host-device copies
+of its serving planes, and the guard of their async dispatch window.
 
 Entry points run on the GPU unless the caller asks for the CPU: a missing
 card is an error, never a silent fallback.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Union
+import contextlib
+import threading
+import warnings
+from typing import Dict, Iterator, List, Optional, Union
 
 import torch
 
@@ -81,3 +85,105 @@ class OnDevice:
 
     def wait(self) -> List[Optional[torch.Tensor]]:
         return list(self._tensors)
+
+
+# ---------------------------------------------------------------------------
+# The guarded dispatch window
+# ---------------------------------------------------------------------------
+
+# what torch.cuda.set_sync_debug_mode("warn") says at a synchronizing call
+_SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+class SyncInDispatchWindow(RuntimeError):
+    """A synchronizing CUDA call on the dispatch thread inside an async
+    dispatch window (plane contract: no-sync-in-dispatch-window)."""
+
+
+class DispatchGuard:
+    """Counts of the guarded windows of this process: ``windows`` entered,
+    synchronizing calls ``flagged`` on the dispatch thread inside one
+    (each raised ``SyncInDispatchWindow``), and ``other_threads``: those
+    another thread made meanwhile (the host stage worker's waits), which
+    are legitimate."""
+
+    def __init__(self):
+        self._tls = threading.local()
+        self.reset()
+
+    def reset(self) -> None:
+        self.windows = 0
+        self.flagged = 0
+        self.other_threads = 0
+
+    def snapshot(self) -> Dict[str, int]:
+        return {"windows": self.windows, "flagged": self.flagged,
+                "other_threads": self.other_threads}
+
+    @property
+    def active(self) -> bool:
+        return getattr(self._tls, "active", False)
+
+    def _on_warning(self, show):
+        def handler(message, category, filename, lineno, file=None,
+                    line=None):
+            if _SYNC_WARNING not in str(message):
+                return show(message, category, filename, lineno, file, line)
+            if not self.active:
+                self.other_threads += 1
+                return None
+            self.flagged += 1
+            raise SyncInDispatchWindow(
+                f"a synchronizing CUDA call inside the async dispatch window "
+                f"({filename}:{lineno}): the dispatch thread must not wait "
+                f"for the device between the selected ids' copy and the "
+                f"attend launch")
+        return handler
+
+    @contextlib.contextmanager
+    def routed(self) -> Iterator[None]:
+        """Route the synchronizing-call warnings to this guard while the
+        calling thread is inside the window: every one of them (the
+        "always" filter), raised on this thread, counted on others."""
+        with warnings.catch_warnings():
+            warnings.filterwarnings("always", message=_SYNC_WARNING)
+            warnings.showwarning = self._on_warning(warnings.showwarning)
+            self._tls.active = True
+            self.windows += 1
+            try:
+                yield
+            finally:
+                self._tls.active = False
+
+
+GUARD = DispatchGuard()
+
+
+@contextlib.contextmanager
+def dispatch_window(device: torch.device, armed: bool = True
+                    ) -> Iterator[None]:
+    """The async dispatch window of one layer's host stage: on CUDA, and
+    when ``armed`` (the async branch), a synchronizing call the calling
+    thread makes inside raises ``SyncInDispatchWindow``; another thread's
+    (the host stage worker waiting for its copies) does not.  The
+    counterpart of the reference's ``jax.transfer_guard_device_to_host(
+    "disallow")``.  ``torch.cuda.set_sync_debug_mode`` is process-wide,
+    so it is set to "warn" for the window only and its warnings are
+    routed by thread (``DispatchGuard``).  A no-op on the CPU, where
+    device tensors are host memory, as in the reference."""
+    if not armed or device.type != "cuda":
+        yield
+        return
+    with GUARD.routed():
+        flagged = GUARD.flagged
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+        if GUARD.flagged > flagged:
+            # raised where the call was made, unless a caller swallowed it
+            raise SyncInDispatchWindow(
+                f"{GUARD.flagged - flagged} synchronizing CUDA call(s) in "
+                f"this dispatch window")

@@ -184,9 +184,10 @@ def _cuboid_update(old: torch.Tensor, kf: torch.Tensor, slot: torch.Tensor
     """old (B,H,2,D), kf (B,H,D) f32, slot (B,) -> the grown [min, max];
     slot 0 starts a fresh block."""
     fresh = (slot == 0)[:, None, None]
-    inf = torch.tensor(float("inf"), device=kf.device)
-    old_mn = torch.where(fresh, inf, old[..., 0, :])
-    old_mx = torch.where(fresh, -inf, old[..., 1, :])
+    # Python scalars: a 0-d tensor made from one would be copied from
+    # pageable memory, a stream sync on the GPU at every select
+    old_mn = torch.where(fresh, float("inf"), old[..., 0, :])
+    old_mx = torch.where(fresh, float("-inf"), old[..., 1, :])
     return torch.stack([torch.minimum(old_mn, kf),
                         torch.maximum(old_mx, kf)], dim=-2)
 

@@ -98,7 +98,7 @@ from repro_torch.core.layer_prefill import (LayerPrefillState,
 from repro_torch.core.prefill_plane import (PrefillIterationResult,
                                             PrefillPlane, admit_embed)
 from repro_torch.core.scheduler import BatchPlan, Scheduler, SchedulerConfig
-from repro_torch.device import host_to_device
+from repro_torch.device import dispatch_window, host_to_device
 from repro_torch.models import model as M
 from repro_torch.models.common import ModelConfig
 from repro_torch.obs.metrics import MetricsRegistry
@@ -331,7 +331,8 @@ class ServingEngine:
             "engine.iteration_s", "wall-clock seconds per engine iteration")
         self._staged_layer_bytes: Dict[int, int] = {}
         # per mixed iteration: row counts, prefill groups and finalizes,
-        # and per layer its fused d2h / h2d calls and prefill groups
+        # the stage launches, and per layer its fused d2h / h2d calls and
+        # prefill groups (plane_contract.mixed_launch_mismatches reads it)
         self.mixed_iter_log: List[Dict[str, Any]] = []
         # test hook: called between a layer's restore and its attend as
         # probe(engine, plane, layer, sts, blocks_by_req)
@@ -473,6 +474,7 @@ class ServingEngine:
         else:
             lidx = self._layer_to_lidx[l]
             st.decode_state["caches"][l] = self._kv_to_layer_cache(st, kv_out)
+            # plane-contract: allow(fused-transfer) the legacy executor runs one request's whole layer: its one save is per request by design (the oracle of the plane's fused saves)
             self._save_prompt_layer(rid, lidx, kv_out)
             host = self.kv_mgr.pools.get(rid)
             if host is not None:
@@ -540,6 +542,7 @@ class ServingEngine:
                 caches.append(st.chunk_rec[l])
                 continue
             caches.append(self._kv_to_layer_cache(st, st.chunk_ctx[l]))
+            # plane-contract: allow(fused-transfer) the chunked baseline saves one request's prompt per layer at its last chunk, as the reference's baseline does
             self._save_prompt_layer(r.req_id, self._layer_to_lidx[l],
                                     st.chunk_ctx[l])
         host = self.kv_mgr.pools.get(r.req_id)
@@ -783,55 +786,67 @@ class ServingEngine:
             "layers": {}, "decode_planes": len(decode_jobs),
             "decode_rows": len(plan.decode_reqs),
             "prefill_rows": len(plan.prefill_reqs),
-            "groups": 0, "finalize": 0}
+            "groups": 0, "finalize": 0, "launches": 0}
 
         worker = self._stage_worker() if self._stage_async else None
 
         def layer_cb(win: LayerWindow) -> None:
-            # a recurrent layer has only prefill groups, which save no KV
-            lidx = self._layer_to_lidx[win.layer]
-            lay_log = {"d2h": 0, "h2d": 0, "groups": len(win.groups),
-                       "attn": win.kind == "attn",
-                       "decode": bool(win.selections)}
-            entry["layers"][win.layer] = lay_log
-            for _, g in win.groups:
-                prefill_by_layer[win.layer] += self._group_prefill_time(g)
-                self.prefill_launches += 1
-                for rid in g.req_ids:
-                    spent[rid] = spent.get(rid, 0) + g.segs[rid].chunk_len
-            # 1. ONE merged fused FlashD2H: decode write-back + fresh
-            #    prefill-chunk KV of this layer
-            ship = self.kv_mgr.ship
-            parts = []
-            if self.eng.decode_write_back:
-                for d, _ in win.selections:
-                    parts.append((list(d.req_ids), dict(d.prev),
-                                  d.plane.new_token_kv_async(
-                                      d.req_ids, d.prev, layers=[win.layer],
-                                      ship=ship)[win.layer]))
-            finishers = [(g.chunk_start, pp.read_group_kv_async(g, ship))
-                         for pp, g in win.groups if g.kind == "attn"]
-            if parts or finishers:
-                self._stage_writeback(worker, lidx, parts, finishers)
-                lay_log["d2h"] += 1
-            # 2.-3. LRU round, at most ONE merged FlashH2D restored before
-            #    use, the deferred eviction drop and the probe
-            lay_log["h2d"] += bool(self._stage_decode_layer(
-                worker, win.layer,
-                [(d.plane, {rid: sel[d.plane.rows[rid]]
-                            for rid in d.req_ids})
-                 for d, sel in win.selections if sel is not None],
-                pending_evict, sel_pairs))
-            # 4. prefill end-of-layer: decode pool builds + HBM layer evict
-            for pp, g in win.groups:
-                self._end_of_layer(pp, g)
+            # in async mode this is the dispatch window: nothing in it may
+            # wait for the device (on the GPU a sync there raises)
+            with dispatch_window(self.device, armed=worker is not None):
+                # a recurrent layer has only prefill groups, which save no KV
+                lidx = self._layer_to_lidx[win.layer]
+                lay_log = {"d2h": 0, "h2d": 0, "groups": len(win.groups),
+                           "attn": win.kind == "attn",
+                           "decode": bool(win.selections)}
+                entry["layers"][win.layer] = lay_log
+                for _, g in win.groups:
+                    prefill_by_layer[win.layer] += \
+                        self._group_prefill_time(g)
+                    self.prefill_launches += 1
+                    for rid in g.req_ids:
+                        spent[rid] = (spent.get(rid, 0)
+                                      + g.segs[rid].chunk_len)
+                # 1. ONE merged fused FlashD2H: decode write-back + fresh
+                #    prefill-chunk KV of this layer
+                ship = self.kv_mgr.ship
+                parts = []
+                if self.eng.decode_write_back:
+                    for d, _ in win.selections:
+                        parts.append((list(d.req_ids), dict(d.prev),
+                                      d.plane.new_token_kv_async(
+                                          d.req_ids, d.prev,
+                                          layers=[win.layer],
+                                          ship=ship)[win.layer]))
+                finishers = [(g.chunk_start, pp.read_group_kv_async(g, ship))
+                             for pp, g in win.groups if g.kind == "attn"]
+                if parts or finishers:
+                    self._stage_writeback(worker, lidx, parts, finishers)
+                    lay_log["d2h"] += 1
+                # 2.-3. LRU round, at most ONE merged FlashH2D restored before
+                #    use, the deferred eviction drop and the probe
+                lay_log["h2d"] += bool(self._stage_decode_layer(
+                    worker, win.layer,
+                    [(d.plane, {rid: sel[d.plane.rows[rid]]
+                                for rid in d.req_ids})
+                     for d, sel in win.selections if sel is not None],
+                    pending_evict, sel_pairs))
+                # 4. prefill end-of-layer: decode pool builds + HBM layer evict
+                for pp, g in win.groups:
+                    self._end_of_layer(pp, g)
 
+        # the stage launches of the walk, counted by the planes it drives
+        involved = {id(p): p for p in
+                    [j.plane for j in decode_jobs]
+                    + [j.plane for j in prefill_jobs]}.values()
+        launches0 = sum(p.stage_launches for p in involved)
         res = self.hybrid.run_iteration(self.params, decode_jobs,
                                         prefill_jobs, layer_cb)
         if worker is not None:
             # iteration fence: every merged write-back has landed before
             # sampling or a release can drop a DRAM pool
             worker.drain()
+        entry["launches"] = sum(p.stage_launches for p in involved) - launches0
 
         # decode epilogue
         for (dplane, logits, _info, _prev), sts in zip(res.decode,
@@ -1063,17 +1078,21 @@ class ServingEngine:
 
         def stage_cb(layer: int, sel: Optional[np.ndarray],
                      prev: Dict[str, int]) -> None:
-            if self.eng.decode_write_back:
-                pending = plane.new_token_kv_async(
-                    req_ids, prev, [layer], self.kv_mgr.ship)[layer]
-                self._stage_writeback(worker, self._layer_to_lidx[layer],
-                                      [(req_ids, dict(prev), pending)], [])
-            if sel is not None:
-                self._stage_decode_layer(
-                    worker, layer,
-                    [(plane, {rid: sel[plane.rows[rid]]
-                              for rid in req_ids})],
-                    pending_evict, sel_pairs)
+            # in async mode this is the dispatch window: nothing in it may
+            # wait for the device (on the GPU a sync there raises)
+            with dispatch_window(self.device, armed=worker is not None):
+                if self.eng.decode_write_back:
+                    pending = plane.new_token_kv_async(
+                        req_ids, prev, [layer], self.kv_mgr.ship)[layer]
+                    self._stage_writeback(worker, self._layer_to_lidx[layer],
+                                          [(req_ids, dict(prev), pending)],
+                                          [])
+                if sel is not None:
+                    self._stage_decode_layer(
+                        worker, layer,
+                        [(plane, {rid: sel[plane.rows[rid]]
+                                  for rid in req_ids})],
+                        pending_evict, sel_pairs)
 
         logits, _info, _prev = plane.step_staged(self.params, tok_by_req,
                                                  stage_cb)

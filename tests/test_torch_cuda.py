@@ -1893,3 +1893,120 @@ def test_eval_step_runs_jamba_in_bfloat16_on_the_card(cuda):
     assert ops.launches.counts["selective_scan"] == n
     assert ops.launches.counts.get("selective_scan:train", 0) == 0
     assert abs(got.item() - want) <= 2e-2 * abs(want)
+
+
+# kernel B where whole channels decay near 0 (w = exp(-exp(N(2, 0.5))),
+# about 1e-3 and far below), beside channels drawn as usual: dlogw there is
+# a difference of suffix sums far larger than itself, so each channel's
+# dlogw is held against the float64 reverse loop on its own scale, a
+# relative L2 over its tokens (the bar written before the first card run)
+WKV_DLOGW_REL = 2.0 ** -8
+
+
+@pytest.mark.gpu
+def test_wkv6_bwd_near_zero_decays(cuda):
+    r, k, v, w, u, S0, dy, dS = _wkv_train_case(cuda, 2, 1000, 4,
+                                                (1000, 1000), seed=3)
+    g = _gen(cuda, 4)
+    w[:, :, 0, :16] = torch.exp(-torch.exp(
+        2.0 + 0.5 * torch.randn((2, 1000, 16), generator=g, device=cuda)))
+    _, _, S_in = ops.wkv6_train(r, k, v, w, u, S0)
+    got = ops.wkv6_bwd(r, k, v, w, u, S_in, dy, dS)
+    want = ref.wkv6_bwd(*(t.double() for t in (r, k, v, w, u, S0, dy, dS)))
+    rel = (((got[3].double() - want[3]) ** 2).sum((0, 1)).sqrt()
+           / (want[3] ** 2).sum((0, 1)).sqrt())
+    assert float(rel.max()) <= WKV_DLOGW_REL, rel[0, :16]
+    assert float(want[3][:, :, 0, :16].abs().mean()) < \
+        1e-2 * float(want[3][:, :, 0, 16:].abs().mean())
+    assert _wkv_grads_close([x for i, x in enumerate(got) if i != 3],
+                            [x.float() for i, x in enumerate(want) if i != 3])
+
+
+# ---------------------------------------------------------------------------
+# The guarded dispatch window (device.dispatch_window)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_window_guard_raises_on_a_sync_on_the_dispatch_thread(cuda):
+    from repro_torch.device import GUARD, SyncInDispatchWindow, \
+        dispatch_window
+    x = torch.ones(8, device=cuda)
+    GUARD.reset()
+    with pytest.raises(SyncInDispatchWindow):
+        with dispatch_window(cuda):
+            x.sum().item()
+    with pytest.raises(SyncInDispatchWindow):
+        with dispatch_window(cuda):
+            x.cpu()
+    assert GUARD.flagged >= 2
+    # launches and pinned, non-blocking copies pass, and any sync when the
+    # window is not armed
+    GUARD.reset()
+    pinned = torch.ones(8).pin_memory()
+    with dispatch_window(cuda):
+        y = x * 2
+        y.copy_(pinned, non_blocking=True)
+    with dispatch_window(cuda, armed=False):
+        y.sum().item()
+    assert GUARD.flagged == 0 and GUARD.windows == 1
+
+
+@pytest.mark.gpu
+def test_window_guard_is_silent_for_the_worker_thread(cuda):
+    """The host stage worker waits for its copies while the dispatch
+    thread is inside a window: those waits are legitimate."""
+    from repro_torch.core.host_stage import HostStageWorker
+    from repro_torch.device import GUARD, HostCopy, dispatch_window
+    GUARD.reset()
+    x = torch.randn((1 << 20,), device=cuda)
+    worker = HostStageWorker(name="guard-test")
+    try:
+        with dispatch_window(cuda):
+            for i in range(4):
+                pending = HostCopy(x * i)
+                worker.submit(i, lambda p=pending: (
+                    p.wait(), torch.cuda.current_stream().synchronize()))
+            worker.drain()
+    finally:
+        worker.close()
+    assert GUARD.flagged == 0 and GUARD.windows == 1
+
+
+@pytest.mark.gpu
+def test_guarded_serve_gives_the_unguarded_serve(cuda, monkeypatch):
+    """The default async serve with its windows armed gives the tokens and
+    TransferStats of the same serve with the guard taken out, and its
+    windows flag nothing."""
+    import contextlib
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.device import GUARD
+    from repro_torch.models import model as M
+    from repro_torch.serving import engine as E
+    from repro_torch.serving.request import Request
+    cfg = get_smoke_config("qwen2-0.5b")
+    params = M.init_params(cfg, _gen(cuda), torch.bfloat16, "cuda")
+
+    def serve():
+        eng = E.ServingEngine(params, cfg, E.EngineConfig(
+            hbm_blocks_per_request=1, prefill_max_tokens_per_step=64))
+        rng = np.random.default_rng(7)
+        ids = []
+        for p, t in zip((300, 200, 260), (0.0, 1e-4, 3e-3)):
+            r = Request(prompt_len=p, max_new_tokens=6, arrival_time=t)
+            eng.submit(r, tokens=rng.integers(4, cfg.vocab_size, p)
+                       .astype(np.int32))
+            ids.append(r.req_id)
+        eng.run()
+        return ([eng.states[i].out_tokens for i in ids],
+                dataclasses.asdict(eng.transfer_stats()))
+    GUARD.reset()
+    guarded = serve()
+    assert GUARD.windows > 0 and GUARD.flagged == 0
+    monkeypatch.setattr(E, "dispatch_window",
+                        lambda device, armed=True: contextlib.nullcontext())
+    assert serve() == guarded

@@ -311,6 +311,55 @@ def test_wkv6_backward_phases_match_the_reverse_loop(label, B, S, lens, L,
         assert not _grads_close(bad, want), fault
 
 
+# kernel B at whole channels of near-zero decay, w = exp(-exp(N(2, 0.5)))
+# (about 1e-3 and far below): dlogw there is a difference of suffix sums
+# far larger than itself, so each channel's dlogw is held against the
+# float64 truth on its own scale, a relative L2 over its tokens
+WKV_DLOGW_REL = 2.0 ** -8
+
+
+def near_zero_decays(rng, w, head: int, channels: int):
+    """``w`` with its first ``channels`` channels of ``head`` decaying
+    near 0 at every valid token (w stays 1 past a row's length)."""
+    z = torch.from_numpy(np.exp(-np.exp(rng.normal(
+        2.0, 0.5, w.shape[:2] + (channels,)))).astype(np.float32))
+    out = w.clone()
+    out[:, :, head, :channels] = torch.where(
+        w[:, :, head, :channels] == 1.0, 1.0, z)
+    return out
+
+
+def dlogw_rel_by_channel(got, want):
+    """Relative L2 of dlogw (B, S, H, N) over batch and tokens, per (head,
+    channel), against a float64 ``want``."""
+    got, want = got.double(), want.double()
+    return (((got - want) ** 2).sum((0, 1)).sqrt()
+            / (want ** 2).sum((0, 1)).sqrt())
+
+
+@pytest.mark.parametrize("L", [32, 64])
+def test_wkv6_backward_near_zero_decays(L):
+    """Kernel B's algebra in float32 (the kernel's precision) where whole
+    channels decay near 0, beside channels drawn as usual: every
+    channel's dlogw within WKV_DLOGW_REL of the float64 reverse loop on
+    its own scale, and the other gradients within the kernel's bar."""
+    rng = np.random.default_rng(29)
+    r, k, v, w, u, S0 = _wkv_inputs(rng, 2, 200, 2, (200, 150), True)
+    w = near_zero_decays(rng, w, 0, 8)
+    dy = torch.from_numpy(rng.standard_normal(r.shape).astype(np.float32))
+    dS = torch.from_numpy(rng.standard_normal(S0.shape).astype(np.float32))
+    want = ref.wkv6_bwd(*(t.double() for t in (r, k, v, w, u, S0, dy, dS)))
+    got = wkv6_bwd_chunked(r, k, v, w, u, S0, dy, dS, L)
+    rel = dlogw_rel_by_channel(got[3], want[3])
+    assert float(rel.max()) <= WKV_DLOGW_REL, rel
+    # the regime is reached: those channels' dlogw is tiny beside the rest
+    # (row 0, whose every token is valid)
+    assert float(want[3][0, :, 0, :8].abs().mean()) < \
+        1e-2 * float(want[3][0, :, 0, 8:].abs().mean())
+    assert _grads_close([g for i, g in enumerate(got) if i != 3],
+                        [x.float() for i, x in enumerate(want) if i != 3])
+
+
 def scan_bwd_chunked(x, dt, Bm, Cm, A, D, h0, dy, dh, L, sub=8, group=32,
                      fault=None, ckpt=None):
     """Kernel D's phases in plain PyTorch: the checkpoints (the state
