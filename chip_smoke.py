@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 0]
         [--phases build,parity,transfer,serve,serve_int8,oracles,models,
-                  obs,async,train,calibrate]
+                  obs,async,contract,mesh,tied,train,calibrate]
 
 Run from the repository root on a machine with one NVIDIA H100.  Phases,
 each printing one line (``phase=...``) and failing the run on any error:
@@ -259,6 +259,57 @@ each printing one line (``phase=...``) and failing the run on any error:
 10. async — the same submissions at full width and 4 layers with
    stage_dispatch "async" and "sync", fp and int8: greedy tokens and
    transfer counters must be identical.
+10a. mesh — the port's multi-rank bodies over torch.distributed at full
+   width, depth cut (each line says so): the context-parallel decode
+   (decode_step(plane_mesh=...), each rank a block shard of every
+   attention layer's pools) of llama3-8b (4 of 32 layers) and
+   minicpm3-4b (MLA, 2 of 62), B 2, prompts of 16,384 tokens, a pool of
+   514 blocks of 32 (257 a rank at world 2), K 64, 8 steps fed the same
+   seeded tokens; the sequence-parallel prefill layer of llama3-8b (1
+   layer, B 1, an 8,191-token window, which 2 ranks pad); the
+   expert-parallel MoE of one jamba-v0.1-52b MoE layer (16 experts, top
+   2, 8 a rank at world 2; 2 x 4,096 tokens, drop-free).  Each body runs
+   over NCCL at world 1 (this process, whose rank 0 also runs the
+   single-device path on the same weights and inputs: the oracle) and
+   over gloo at world 2 with both ranks on cuda:0 (two spawned
+   processes, the collectives staged through host memory), and over
+   NCCL at world 2 only where the machine has two cards.  Every rank
+   builds the same full weights from the seed and keeps its shard.
+   Bars, per run: logits within relative L2 ORACLE_REL_L2 (2^-5) of the
+   oracle's, the prefill layer's x, k and v and the MoE's output within
+   MESH_LAYER_REL_L2 (2^-10); each step's greedy token the
+   oracle's, but where the oracle's top-2 gap is under 2^-5 of its
+   logits' rms (reported); each step's and layer's selected blocks
+   those of the single-device select stage (score_select) on the same q
+   and the whole pool's metadata (the shards gathered after the run),
+   tie-aware (select_agrees), and its merged attention output within
+   relative L2 MESH_ATTEND_REL_L2 (2^-8) of the single-device
+   sparse_decode_attention on the same q and ids over the whole pools
+   (gathered after the run); the selected blocks at each step's first
+   attention layer, where both runs see the same inputs, the oracle
+   run's (deeper, the
+   earlier layers' bf16 outputs differ: the count is reported); the
+   routing of every token the oracle's on every rank; what a body hands
+   back the same on every rank (digests); and each rank's launches of
+   sparse_decode_attention:partial, block_score (block_score:wide at
+   MLA's 288-wide latent) and flash_prefill above 0 in its bodies.  At
+   most MESH_BUDGET_S (120 s), spawns included.  No time here is a
+   multi-GPU figure: gloo ranks share one card.
+10b. tied — tied embeddings (no registry config ties them, so
+   qwen2-0.5b with tie_embeddings=True by dataclasses.replace, said on
+   every line) at full width and depth, beside its untied twin (the
+   same weights with lm_head = embed.T, a contiguous copy): the engine
+   serves TIED_REQUESTS x 4096-token prompts TIED_NEW tokens each with
+   the head h @ embed.T over the full vocabulary, then the twin serves
+   them fed the tied run's tokens; every step's logits within relative
+   L2 TIED_LOGITS_REL_L2 (2^-8) of the twin's and every greedy token
+   the twin's argmax, but where the twin's top-2 gap is under 2^-5 of
+   its logits' rms (reported).  Then training at B 2 x 4096 in float32:
+   step 1's loss and every gradient within TIED_GRAD_REL_L2 (1e-4) of
+   the twin's, the tied embed's against the twin's embed + lm_head.T
+   (its embed's alone must fall outside the bar: the head's share of
+   the gradient shows), and two AdamW steps through the trainer's
+   make_train_step, the first's loss step 1's and the second's lower.
 11. train — training's attention kernels, then dense GQA training at
    full width.  flash_prefill_bwd (csrc/flash_prefill_bwd.cu: Delta, dK
    and dV over chunks of the GQA group, dQ, the chunks' sum) and the
@@ -387,7 +438,8 @@ F32_OPS_PER_S = 67e12                # H100 SXM float32 outside the tensor
                                      # cores (selective_scan's and wkv6's
                                      # arithmetic)
 PHASES = ("build", "parity", "transfer", "serve", "serve_int8", "oracles",
-          "models", "obs", "async", "contract", "train", "calibrate")
+          "models", "obs", "async", "contract", "mesh", "tied", "train",
+          "calibrate")
 
 KERNELS = {   # name -> (source in this repo, the TPU kernel it replaces)
     "sparse_decode_attention": (
@@ -395,6 +447,11 @@ KERNELS = {   # name -> (source in this repo, the TPU kernel it replaces)
         "src/repro/kernels/sparse_decode_attention.py:76"),
     "block_score": ("src/repro_torch/csrc/block_score.cu",
                     "src/repro/kernels/block_score.py:34"),
+    "block_score:wide": ("src/repro_torch/csrc/block_score.cu",
+                         "src/repro/kernels/block_score.py:34"),
+    "sparse_decode_attention:partial": (
+        "src/repro_torch/csrc/sparse_decode_attention.cu",
+        "src/repro/kernels/sparse_decode_attention.py:76"),
     "gather_blocks_hkv": ("src/repro_torch/csrc/gather_blocks.cu",
                           "src/repro/kernels/gather_blocks.py:57"),
     "scatter_blocks_hkv": ("src/repro_torch/csrc/scatter_blocks.cu",
@@ -496,7 +553,9 @@ OWNERS = {"selective_scan": "models_jamba-v0.1-52b",
           "wkv6:train": "train", "wkv6_bwd": "train",
           "selective_scan:train": "train", "selective_scan_bwd": "train",
           "flash_prefill:lse_d112": "train",
-          "flash_prefill_bwd:d112": "train"}
+          "flash_prefill_bwd:d112": "train",
+          "block_score": "mesh", "block_score:wide": "mesh",
+          "sparse_decode_attention:partial": "mesh"}
 # the flat FlashH2D / FlashD2H pair: no serve path calls them (in the
 # reference only benchmarks/bench_transfer.py does); the transfer phase
 # drives them
@@ -517,6 +576,7 @@ INT8_PATH = DECODE_PATH + INT8_ONLY
 OLD_SAVE = ("quantize_blocks", "dequantize_blocks", "write_blocks_hkv")
 # the __global__ functions of src/repro_torch/csrc (the profile's names)
 PORT_KERNEL_FNS = ("split_kernel", "merge_kernel", "block_score_kernel",
+                   "block_score_wide_kernel",
                    "score_select_kernel", "gather_blocks_kernel",
                    "scatter_blocks_kernel", "zero_blocks_kernel",
                    "write_blocks_kernel", "flash_prefill_kernel",
@@ -536,6 +596,9 @@ PORT_KERNEL_FNS = ("split_kernel", "merge_kernel", "block_score_kernel",
 NO_LIBRARY = {
     "sparse_decode_attention": "block-sparse attention over selected ids",
     "block_score": "the interleaved cuboid bound",
+    "block_score:wide": "the interleaved cuboid bound",
+    "sparse_decode_attention:partial": "unnormalised flash partials over "
+                                       "a block shard's selected ids",
     "score_select": "a cuboid bound fused with a masked, forced top-k",
     "gather_blocks_hkv": "a gather from pinned host memory in place",
     "scatter_blocks_hkv": "a cast-and-scatter into a paged pool",
@@ -713,6 +776,38 @@ POOL_PATHS = ("mixed", "split", "legacy", "chunked")
 # give a relative error of about sqrt(48) * 2^-8 = 0.027 on the last hidden
 # state, under 2^-5; the lm head adds one more rounding of 2^-8.
 ORACLE_REL_L2 = 2.0 ** -5
+# the mesh phase (module docstring, 10a): (arch, layers kept) of the
+# context-parallel decode bodies, their batch, prompt and steps; the
+# sequence-parallel prefill layer's (arch, B, window); the expert-parallel
+# MoE layer's (arch, B, S); the gloo world on one card; the phase's budget
+MESH_CP = (("llama3-8b", 4), ("minicpm3-4b", 2))
+MESH_B, MESH_PROMPT, MESH_STEPS = 2, 16384, 8
+MESH_SP = ("llama3-8b", 1, 8191)
+MESH_EP = ("jamba-v0.1-52b", 2, 4096)
+MESH_WORLD = 2
+MESH_BUDGET_S = 120.0
+# the sequence-parallel layer's and the expert-parallel MoE's bar,
+# tightened from ORACLE_REL_L2 after their first runs came out bit-equal
+# to the oracle at both worlds (each query row's attention and each
+# token's two expert shares are the oracle's own arithmetic)
+MESH_LAYER_REL_L2 = 2.0 ** -10
+# each step's and layer's merged context-parallel attention output (bf16)
+# against the single-device sparse_decode_attention on the same q, ids
+# and whole pools: both sum in float32 and round once to bf16, so they
+# differ by at most a bf16 step where the two float32 sums straddle a
+# rounding boundary
+MESH_ATTEND_REL_L2 = 2.0 ** -8
+# the tied phase (module docstring, 10b): its serve's requests and new
+# tokens; the logits' bar (the same kernels and weights as the untied
+# twin, only the head's GEMM reading embed transposed in place of its
+# copy: both round the logits once to bf16) and the float32 step 1's
+TIED_ARCH, TIED_REQUESTS, TIED_NEW = "qwen2-0.5b", 2, 16
+TIED_LOGITS_REL_L2 = 2.0 ** -8
+TIED_GRAD_REL_L2 = 1e-4
+# the partial decode attention's tolerance (float32 sums over the splits
+# in another order than the plain version): per tensor |err| <= 1e-4 of
+# its scale + 1e-4 |ref|, m exactly -1e30 where no position is valid
+PARTIAL_TOL = 1e-4
 # the models phase, smallest weights first: arch -> (offload tier, trace
 # (requests, max_prompt_len, max_new_tokens) from the port's
 # generate_trace at MODEL_RATE req/s, or None for one request of
@@ -1990,6 +2085,128 @@ def flash_faults(torch, ops, ref, q, k, v, scale, q_offset, label) -> None:
                                  f"tolerance ({label})")
 
 
+def _partial_close(torch, got, want) -> tuple:
+    """(max abs err, ok) of the partial decode attention's (acc, m, l)
+    against the plain version's, PARTIAL_TOL: m exactly -1e30 where the
+    plain one's is (no valid position), elsewhere per tensor |err| <=
+    PARTIAL_TOL of its scale + PARTIAL_TOL |ref|."""
+    err, ok = 0.0, True
+    for g, w in zip(got, want):
+        empty = w <= -1e29
+        ok &= bool(torch.equal(g[empty], w[empty]))
+        g, w = g[~empty], w[~empty]
+        if not w.numel():
+            continue
+        d = (g - w).abs()
+        err = max(err, d.max().item())
+        ok &= bool((d <= PARTIAL_TOL * w.abs().max()
+                    + PARTIAL_TOL * w.abs()).all())
+    return err, ok
+
+
+def case_partial(torch, ops, ref, q, k_pool, v_pool, idx, valid, cur_len,
+                 offset: int, scale=None):
+    """The partial decode attention (the context-parallel decode's, a
+    rank's block shard from global block ``offset`` on) against its
+    plain version; the kernel given the offset one block off must fail
+    the tolerance.  Its bound reads each live block once (the latent
+    once where it is k and v) and writes the float32 partials."""
+    args = (q, k_pool, v_pool, idx, valid, cur_len, offset, scale)
+    got = ops.sparse_decode_attention_partial(*args)
+    want = ref.sparse_decode_attention_partial(*args)
+    torch.cuda.synchronize()
+    err, ok = _partial_close(torch, got, want)
+    off = ops.sparse_decode_attention_partial(q, k_pool, v_pool, idx, valid,
+                                              cur_len, offset + 1, scale)
+    torch.cuda.synchronize()
+    if _partial_close(torch, off, want)[1]:
+        raise AssertionError("partial decode attention: the offset one "
+                             "block off passes the tolerance")
+    B, Hq, _ = q.shape
+    _, Hkv, NB, bs, D = k_pool.shape
+    Dv = v_pool.shape[-1]
+    live = int((valid & ((idx + offset) * bs < cur_len[:, None, None])
+                ).sum().item())
+    read = D + (Dv if v_pool.data_ptr() != k_pool.data_ptr() else 0)
+    nbytes = (q.numel() * 2 + live * bs * read * 2 + idx.numel() * 5
+              + cur_len.numel() * 4 + (B * Hq * Dv + 2 * B * Hq) * 4)
+    nops = live * (Hq // Hkv) * bs * 2 * (D + Dv)
+    shape = (f"B={B} Hq={Hq} Hkv={Hkv} NB_loc={NB} offset={offset} "
+             f"K={idx.shape[-1]} bs={bs} D={D} "
+             + (f"Dv={Dv} " if Dv != D else "")
+             + (f"scale={scale:.6f} " if scale is not None else "")
+             + f"live_blocks={live}")
+    return (err, ok, lambda: ops.sparse_decode_attention_partial(*args),
+            lambda: ref.sparse_decode_attention_partial(*args), nbytes,
+            nops, shape)
+
+
+def parity_mesh_shapes(torch, ops, ref, gen) -> list:
+    """The kernels at the shapes the mesh phase's context-parallel decode
+    gives them (rank 1 of 2: NB_loc 257 of a 514-block pool, offset 257,
+    B 2, K 64): the partial decode attention at llama3-8b's heads (32
+    over 8, D 128) and at minicpm3-4b's latent (40 over one head of D =
+    Dv = 288, the pool as k and v, scale 1 / sqrt(96)), each with its
+    planted fault (the offset one block off); block_score at both, the
+    latent through its wide instance; flash_prefill at each rank's query
+    slice of the sequence-parallel layer's padded window (MESH_SP)
+    against its keys.  Returns (kernel, label, case) triples for
+    run_case, which times the mesh cases also by the profiler and by
+    CUDA events."""
+    per = _mesh_blocks(BS) // MESH_WORLD
+    offset = per
+    out = []
+    for arch, Hq, Hkv, D, scale in (
+            ("llama3-8b", 32, 8, 128, None),
+            (MLA_SHAPE["arch"], MLA_SHAPE["Hq"], MLA_SHAPE["Hkv"],
+             MLA_SHAPE["D"], MLA_SHAPE["qk"] ** -0.5)):
+        q, kp, vp, idx, valid, _ = _attention_inputs(torch, gen, MESH_B, Hq,
+                                                     Hkv, D, per)
+        if scale is not None:
+            vp = kp                      # MLA: the latent is k and v
+        # global lengths past the shard's start, one at the prompt's end;
+        # the shard's blocks holding each row's last two positions
+        # selected (valid), as DSA's recent blocks are, so a validity
+        # taken at the wrong global positions shows
+        cur_len = torch.tensor([MESH_PROMPT + 1, (offset + per // 2) * BS
+                                + 7], dtype=torch.int32, device=q.device)
+        last = ((cur_len.long() - 1) // BS - offset).clamp(0, per - 1)
+        pick = torch.rand((MESH_B, Hkv, per), generator=gen,
+                          device=q.device)
+        pick.scatter_(2, last[:, None, None].expand(MESH_B, Hkv, 1), 3.0)
+        pick.scatter_(2, (last - 1).clamp(min=0)[:, None, None].expand(
+            MESH_B, Hkv, 1), 2.0)
+        idx = pick.argsort(dim=-1, descending=True)[..., :K].to(
+            torch.int32).contiguous()
+        valid[..., :2] = True
+        label = f"arch={arch} path=mesh rank=1/{MESH_WORLD}"
+        out.append(("sparse_decode_attention:partial", label, case_partial(
+            torch, ops, ref, q, kp, vp, idx, valid, cur_len, offset,
+            scale)))
+        meta, _, _ = _select_inputs(torch, gen, cur_len, Hkv, D, per)
+        out.append(("block_score:wide" if D > ops.SCORE_NARROW_D
+                    else "block_score", label,
+                    case_score(torch, ops, ref, q, meta)))
+    # the sequence-parallel prefill layer's flash_prefill: each rank's
+    # query slice of the padded window against all its keys
+    arch, Bn, T = MESH_SP
+    sh = SHAPES[arch]
+    T_pad = -(-T // MESH_WORLD) * MESH_WORLD
+    T_loc = T_pad // MESH_WORLD
+    k = torch.randn((Bn, T_pad, sh["Hkv"], sh["D"]), generator=gen,
+                    device="cuda").bfloat16()
+    v = torch.randn(k.shape, generator=gen, device="cuda").bfloat16()
+    q = torch.randn((Bn, T_pad, sh["Hq"], sh["D"]), generator=gen,
+                    device="cuda").bfloat16()
+    for r in range(MESH_WORLD):
+        out.append(("flash_prefill", f"arch={arch} path=mesh mode=sp "
+                    f"rank={r}/{MESH_WORLD}", case_flash(
+                        torch, ops, ref,
+                        q[:, r * T_loc:(r + 1) * T_loc].contiguous(), k, v,
+                        scale=sh["D"] ** -0.5, q_offset=r * T_loc)))
+    return out
+
+
 def phase_parity(torch, ops, ref, timer, seed: int) -> dict:
     """Each kernel against its plain version at both shape sets, and the
     decode kernels at the shapes of parity_new_shapes; returns {kernel:
@@ -2114,9 +2331,10 @@ def phase_parity(torch, ops, ref, timer, seed: int) -> dict:
                                                        gen)
                               + parity_scan_shapes(torch, ops, ref, gen)
                               + parity_select_modes(torch, ops, ref, gen)
-                              + parity_wkv6_shapes(torch, ops, ref, gen)):
+                              + parity_wkv6_shapes(torch, ops, ref, gen)
+                              + parity_mesh_shapes(torch, ops, ref, gen)):
         results.setdefault(name, {})[label] = run_case(
-            "parity", label, name, case, timer)
+            "parity", label, name, case, timer, device="path=mesh" in label)
     return results
 
 
@@ -2784,10 +3002,10 @@ def kernel_records(parity: dict, mainpath: dict, counts: dict) -> list:
     path that owns it (the int8 serve for INT8_ONLY, the quant trio and
     write_blocks_hkv; the transfer phase for the flat gather and scatter;
     the models phase's serve named in OWNERS for selective_scan, wkv6 and
-    score_select's mean mode; the fp serve for the rest, block_score and
-    score_select's sum mode included: they launch 0 times there, and
-    their times come from block_score's replay on score_select's kept
-    inputs and from the sum mode's parity lines)."""
+    score_select's mean mode; the mesh phase's NCCL run at world 1 for
+    block_score, its wide instance and the partial decode attention; the
+    fp serve for the rest, score_select's sum mode included: it launches
+    0 times there, and its times come from its parity lines)."""
     records = []
     for name in KERNELS:
         cases = mainpath.get(name) or parity.get(name, {})
@@ -2796,8 +3014,9 @@ def kernel_records(parity: dict, mainpath: dict, counts: dict) -> list:
         owner = (OWNERS.get(name)
                  or ("transfer" if name in TRANSFER_PATH else "serve_int8"
                      if name in INT8_ONLY else "serve"))
-        own = {label: r for label, r in cases.items()
-               if label.split()[0] == f"path={owner}"} or cases
+        own = {label: r for label, r in {**parity.get(name, {}),
+                                         **cases}.items()
+               if f"path={owner}" in label.split()} or cases
         lead = max(own.values(), key=lambda r: r.get("launches", 0))
         every = list(parity.get(name, {}).values()) + list(
             mainpath.get(name, {}).values())
@@ -2816,7 +3035,7 @@ def kernel_records(parity: dict, mainpath: dict, counts: dict) -> list:
                 "bound_ms",
                 "library_ms", "unfused_ms", "link_bound_ms", "binds",
                 "per_block_copies_ms", "launches") if k in r}
-                for label, r in cases.items()}}
+                for label, r in {**cases, **own}.items()}}
         for key in ("link_bound_ms", "per_block_copies_ms"):
             if key in lead:
                 rec[key] = lead[key]
@@ -5642,13 +5861,599 @@ def phase_calibrate(torch, ops) -> None:
                              f"than {CAL_RATIO}x from this card")
 
 
+# --- the mesh phase: the port's multi-rank bodies over torch.distributed --
+
+def _mesh_blocks(bs: int) -> int:
+    """The context-parallel decode's pool, in blocks of ``bs``: the
+    prompt and every step's token, rounded up to MESH_WORLD (the same
+    pool at every world size)."""
+    nb = -(-(MESH_PROMPT + MESH_STEPS) // bs)
+    return -(-nb // MESH_WORLD) * MESH_WORLD
+
+
+def _digest(torch, t) -> str:
+    """sha1 of a tensor's bytes (on the host), 16 hex digits."""
+    t = t.detach().contiguous().cpu()
+    return hashlib.sha1(t.view(torch.uint8).numpy().tobytes()).hexdigest()[
+        :16]
+
+
+def _mesh_decode(torch, ref, M, dsa_mod, params, cfg, feed, state, pm):
+    """MESH_STEPS decode steps fed ``feed`` (steps, B): the single-device
+    path (``pm`` None; each attention layer's selection from
+    ``dsa.score_and_select``) or the context-parallel one (from
+    ``dsa.select_blocks`` on the gathered scores, with their plain select
+    scores; and per layer the q and local metadata ``dsa.score_blocks``
+    scored, the tokens in the cache, the merged attention output and its
+    scale, kept on the card for ``_mesh_exact``).  Returns {"logits":
+    (steps, B, V) float32 on the host, "sel": per step, per attention
+    layer (ids, valid, select scores or None) on the host, "scored": per
+    step and layer [q, local meta, tokens in the cache, o, scale],
+    "step_ms": host ms a step with these captures, synchronised}."""
+    spies, layer_sels, scored = {}, [], []
+
+    def spy_select(*args, **kw):
+        idx, valid = spies["select"](*args, **kw)
+        s_ref = None
+        if pm is not None:
+            scores, dcfg, n_tokens = args
+            s_ref = ref.select_scores(scores, n_tokens,
+                                      block_size=dcfg.block_size,
+                                      sink_blocks=dcfg.sink_blocks,
+                                      recent_blocks=dcfg.recent_blocks)
+            scored[-1].append(n_tokens.clone())
+        layer_sels.append((idx, valid, s_ref))
+        return idx, valid
+
+    def spy_score(q, meta, *args, **kw):
+        scored.append([q.clone(), meta.clone()])
+        return spies["score"](q, meta, *args, **kw)
+
+    def spy_attend(*args):
+        o, idx = spies["attend"](*args)
+        scored[-1] += [o.clone(), args[-1]]
+        return o, idx
+    names = {"select": (dsa_mod, "score_and_select" if pm is None
+                        else "select_blocks")}
+    if pm is not None:
+        names["score"] = (dsa_mod, "score_blocks")
+        names["attend"] = (M.attn, "_cp_select_attend")
+    spy = {"select": spy_select, "score": spy_score, "attend": spy_attend}
+    for key, (mod, name) in names.items():
+        spies[key] = getattr(mod, name)
+        setattr(mod, name, spy[key])
+    logits, sels = [], []
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for step in range(MESH_STEPS):
+            lg, state = M.decode_step(params, cfg, feed[step], state,
+                                      plane_mesh=pm)
+            logits.append(lg.float().cpu())
+            sels.append([tuple(None if t is None else t.cpu() for t in x)
+                         for x in layer_sels])
+            layer_sels.clear()
+        step_ms = (time.perf_counter() - t0) / MESH_STEPS * 1e3
+    finally:
+        for key, (mod, name) in names.items():
+            setattr(mod, name, spies[key])
+    return {"logits": torch.stack(logits), "sel": sels, "scored": scored,
+            "step_ms": step_ms}
+
+
+def _mesh_exact(torch, ops, ref, mesh_mod, cfg, pm, run, caches) -> tuple:
+    """Each step's and layer's select and attention of the
+    context-parallel run against the single-device stages on the same
+    inputs.  The select: the q it scored and the whole pool's metadata
+    (its shards gathered) through ``score_select``, held tie-aware
+    (select_agrees) against the plain select scores of that metadata.
+    The attention: the merged output against ``sparse_decode_attention``
+    over the whole pools (each layer's shards of ``caches`` gathered after
+    the run: a step reads only positions below its length, which later
+    appends do not touch) on the same q, ids and validity, by relative
+    L2 (MESH_ATTEND_REL_L2).  Made after the run's launches are read.
+    Returns (select agreeing, compared, largest score difference,
+    largest attention relative L2)."""
+    d = cfg.dsa
+    kw = dict(block_size=d.block_size, top_k=d.top_k_blocks,
+              sink_blocks=d.sink_blocks, recent_blocks=d.recent_blocks)
+    n_layer = len(run["sel"][0])
+    flat = [sel for step in run["sel"] for sel in step]
+    agree, err, rel = 0, 0.0, 0.0
+    for layer in range(n_layer):
+        full = {key: mesh_mod.all_gather(caches[layer][key], 2,
+                                         pm.model_group)
+                for key in ("k", "v") if key in caches[layer]}
+        for i in range(layer, len(flat), n_layer):
+            q, meta, n_tokens, o, scale = run["scored"][i]
+            idx, valid, _ = flat[i]
+            full_meta = mesh_mod.all_gather(meta, 2, pm.model_group)
+            want = ops.score_select(q, full_meta, n_tokens - 1, **kw)
+            s_ref = ref.select_scores(ref.block_score(q, full_meta),
+                                      n_tokens, block_size=d.block_size,
+                                      sink_blocks=d.sink_blocks,
+                                      recent_blocks=d.recent_blocks)
+            idx, valid = idx.to(q.device), valid.to(q.device)
+            ok, e = select_agrees(torch, (idx, valid), want, s_ref)
+            agree += ok
+            err = max(err, e)
+            single = ops.sparse_decode_attention(
+                q, full["k"], full.get("v", full["k"]), idx, valid,
+                n_tokens, scale=scale)
+            rel = max(rel, _rel_l2(torch, o.float(), single.float()))
+        del full
+    run.pop("scored")
+    return agree, len(flat), err, rel
+
+
+def _mesh_cp(torch, pm, arch: str, layers: int, seed: int, oracle: bool,
+             keep: bool) -> dict:
+    """The context-parallel decode body at ``arch``'s full width and
+    ``layers`` of its layers: full weights and prompts from the seed,
+    the plain prefill's pools (bf16, _mesh_blocks blocks), this rank's
+    shard of them, MESH_STEPS steps over it; with ``oracle`` the
+    single-device decode first, on the same weights, pools and tokens.
+    ``keep``: return the logits and selections (else their digests)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import dsa as dsa_mod
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import sharding
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = M.init_params(cfg, gen)
+    toks = torch.randint(4, cfg.vocab_size, (MESH_B, MESH_PROMPT),
+                         generator=gen, device=dev, dtype=torch.int32)
+    feed = torch.randint(4, cfg.vocab_size, (MESH_STEPS, MESH_B),
+                         generator=gen, device=dev, dtype=torch.int32)
+    nb = _mesh_blocks(cfg.dsa.block_size)
+    res = {"weights": _digest(torch, params["layers"][0]["attn_norm"])
+           + _digest(torch, params["embed"][:64]), "nb": nb}
+    with torch.no_grad():
+        _, state = M.prefill(params, cfg, {"tokens": toks}, nb)
+        shard = sharding.decode_state_shard(state, pm)
+        res["nb_loc"] = int(shard["caches"][0]["k"].shape[2])
+        if oracle:
+            res["oracle"] = _mesh_decode(torch, ref, M, dsa_mod, params, cfg,
+                                         feed, state, None)
+            res["oracle"].pop("scored")
+        del state
+        ops.launches.reset()
+        run = _mesh_decode(torch, ref, M, dsa_mod, params, cfg, feed, shard,
+                           pm)
+        torch.cuda.synchronize()
+        res["launches"] = ops.launches.snapshot()
+        res["exact"] = _mesh_exact(torch, ops, ref, mesh_mod, cfg, pm, run,
+                                   shard["caches"])
+    res["digest"] = _digest(torch, run["logits"])
+    res["step_ms"] = run["step_ms"]
+    if keep:
+        res["run"] = run
+    return res
+
+
+def _mesh_sp(torch, pm, seed: int, oracle: bool, keep: bool) -> dict:
+    """The sequence-parallel prefill layer (MESH_SP) on a window of
+    random bf16 hidden states; with ``oracle`` the replicated layer
+    first."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    arch, Bn, T = MESH_SP
+    cfg = dataclasses.replace(get_config(arch), num_layers=1)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    p = M.init_params(cfg, gen)["layers"][0]
+    h = torch.randn((Bn, T, cfg.d_model), generator=gen,
+                    device=dev).bfloat16()
+    pos = torch.arange(T, dtype=torch.int32, device=dev).expand(Bn, T)
+    tmask = torch.ones((Bn, T), dtype=torch.bool, device=dev)
+    smask = torch.ones((Bn,), dtype=torch.bool, device=dev)
+    res = {}
+    with torch.no_grad():
+        if oracle:
+            x, (k, v) = M.prefill_attn_layer_batched(p, cfg, h, pos, tmask,
+                                                     smask)
+            res["oracle"] = {"x": x.cpu(), "k": k.cpu(), "v": v.cpu()}
+        ops.launches.reset()
+        x, (k, v) = M.prefill_attn_layer_batched(p, cfg, h, pos, tmask,
+                                                 smask, plane_mesh=pm)
+        torch.cuda.synchronize()
+        res["launches"] = ops.launches.snapshot()
+    res["digest"] = _digest(torch, x) + _digest(torch, k)
+    if keep:
+        res["run"] = {"x": x.cpu(), "k": k.cpu(), "v": v.cpu()}
+    return res
+
+
+def _mesh_ep(torch, pm, seed: int, oracle: bool, keep: bool) -> dict:
+    """The expert-parallel MoE layer (MESH_EP), drop-free as the serve
+    runs it: full weights from the seed, this rank's experts and rows;
+    with ``oracle`` the single-device ``moe_apply`` and routing first."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding
+    from repro_torch.models import ffn
+    arch, Bn, S = MESH_EP
+    cfg = get_config(arch)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    p = ffn.init_moe_params(cfg, gen, torch.bfloat16, dev)
+    x = torch.randn((Bn, S, cfg.d_model), generator=gen,
+                    device=dev).bfloat16()
+    res = {}
+    with torch.no_grad():
+        if oracle:
+            y, aux = ffn.moe_apply(p, cfg, x, drop_free=True)
+            gates, experts, _ = ffn.moe_route(p, cfg, x.reshape(-1,
+                                                                cfg.d_model))
+            res["oracle"] = {"y": y.cpu(), "aux": float(aux),
+                             "routing": _digest(torch, experts)
+                             + _digest(torch, gates)}
+        local = sharding.expert_shard(p, pm)
+        del p
+        torch.cuda.empty_cache()
+        y, aux, (gates, experts) = ffn.moe_apply_ep(
+            local, cfg, sharding.shard_rows(x, pm), pm=pm, drop_free=True,
+            return_routing=True)
+        torch.cuda.synchronize()
+    res.update(digest=_digest(torch, y), aux=float(aux),
+               routing=_digest(torch, experts) + _digest(torch, gates),
+               experts_local=int(local["w_gate"].shape[0]))
+    if keep:
+        res["run"] = {"y": y.cpu()}
+    return res
+
+
+def _mesh_collective_ms(torch, mesh_mod, pm, reps: int = 10) -> dict:
+    """Host ms a call of each collective the bodies run, on the model
+    group, over 4 MB of float32 on the card (synchronised after each
+    call; on gloo the tensors are staged through host memory)."""
+    x = torch.ones((1 << 20,), device="cuda")
+    calls = {"all_reduce_sum": lambda: mesh_mod.all_reduce_sum(
+                 x.clone(), pm.model_group),
+             "all_reduce_max": lambda: mesh_mod.all_reduce_max(
+                 x.clone(), pm.model_group),
+             "all_gather": lambda: mesh_mod.all_gather(x, 0, pm.model_group)}
+    out = {}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+            torch.cuda.synchronize()
+        out[name] = round((time.perf_counter() - t0) / reps * 1e3, 4)
+    return out
+
+
+def _mesh_rank(rank: int, world: int, backend: str, workdir: str,
+               seed: int, oracle: bool = False) -> None:
+    """One rank of the mesh phase (this process, or one spawned by it):
+    join the ``backend`` group of ``world`` ranks (a file store in
+    ``workdir``), lay it out as (1, world), run every body, write the
+    results to ``workdir``.  gloo's ranks share cuda:0; NCCL's rank r
+    drives cuda:r."""
+    import torch
+    if str(REPO / "src") not in sys.path:
+        sys.path.insert(0, str(REPO / "src"))
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.plane_mesh import PlaneMesh
+    torch.cuda.set_device(rank if backend == "nccl" else 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tag = f"{backend}{world}"
+    pm = PlaneMesh(mesh_mod.init_local(
+        rank, world, backend, f"file://{workdir}/store_{tag}", model=world,
+        timeout_s=MESH_BUDGET_S))
+    keep = rank == 0
+    out = {"device": str(torch.cuda.current_device()),
+           "collective_ms": _mesh_collective_ms(torch, mesh_mod, pm)}
+    try:
+        for arch, layers in MESH_CP:
+            out[f"cp {arch}"] = _mesh_cp(torch, pm, arch, layers, seed,
+                                         oracle, keep)
+            _free_memory(torch)
+        out["sp"] = _mesh_sp(torch, pm, seed, oracle, keep)
+        _free_memory(torch)
+        out["ep"] = _mesh_ep(torch, pm, seed, oracle, keep)
+        _free_memory(torch)
+    finally:
+        mesh_mod.close()
+    torch.save(out, f"{workdir}/{tag}_rank{rank}.pt")
+
+
+def _mesh_launch_check(tag: str, body: str, ranks: list, want: tuple) -> list:
+    """Each rank's launches of ``want`` in a body; fails where one is 0."""
+    got = [{k: r[body]["launches"].get(k, 0) for k in want} for r in ranks]
+    zero = [(i, k) for i, c in enumerate(got) for k, n in c.items() if not n]
+    if zero:
+        raise AssertionError(f"mesh {tag} {body}: kernels not launched by "
+                             f"(rank, kernel) {zero}: {got}")
+    return got
+
+
+def _mesh_cp_check(torch, tag: str, arch: str, layers: int, ranks: list,
+                   oracle: dict) -> None:
+    """A run's context-parallel decode against the oracle (bars in the
+    module docstring, 10a)."""
+    from repro_torch.configs import get_config
+    body = f"cp {arch}"
+    lead = ranks[0][body]
+    kinds = ("sparse_decode_attention:partial", "block_score") + (
+        ("block_score:wide",) if get_config(arch).attention_type == "mla"
+        else ())
+    launches = _mesh_launch_check(tag, body, ranks, kinds)
+    replicated = len({r[body]["digest"] for r in ranks}) == 1
+    run, ref_run = lead["run"], oracle["oracle"]
+    rel = [_rel_l2(torch, run["logits"][s], ref_run["logits"][s])
+           for s in range(MESH_STEPS)]
+    got_tok = run["logits"].argmax(-1)
+    o = ref_run["logits"]
+    top2 = o.topk(2, dim=-1).values
+    gap = (top2[..., 0] - top2[..., 1]) / o.pow(2).mean(-1).sqrt()
+    differ = got_tok != o.argmax(-1)
+    excused = [(s, b) for s, b in differ.nonzero().tolist()
+               if gap[s, b] < ORACLE_REL_L2]
+    # against the oracle's selections: at each step's first attention
+    # layer both runs score the same q and pools; deeper, the earlier
+    # layers' bf16 outputs differ, and so do q and the new keys
+    first = ora = 0
+    for s_ in range(MESH_STEPS):
+        for layer, ((idx, valid, s_ref), (o_idx, o_valid, _)) in enumerate(
+                zip(run["sel"][s_], ref_run["sel"][s_])):
+            ok = select_agrees(torch, (idx, valid), (o_idx, o_valid),
+                               s_ref)[0]
+            ora += ok
+            first += ok and layer == 0
+    n_layer = len(run["sel"][0])
+    exact = [r[body]["exact"] for r in ranks]
+    log(f"phase=mesh body=cp arch={arch} {tag} reduced=num_layers:{layers}/"
+        f"{get_config(arch).num_layers} B={MESH_B} prompt={MESH_PROMPT} "
+        f"nb={lead['nb']} nb_loc={lead['nb_loc']} "
+        f"K={get_config(arch).dsa.top_k_blocks} steps={MESH_STEPS} "
+        f"logits_rel_l2_max={max(rel):.3e} bar={ORACLE_REL_L2:.5f} "
+        f"greedy_equal={int((~differ).sum())}/{differ.numel()} "
+        f"excused_steps={excused} select_exact_by_rank="
+        f"{[f'{a}/{n}' for a, n, _, _ in exact]} select_score_err="
+        f"{max(x[2] for x in exact):.3e} attend_rel_l2_max="
+        f"{max(x[3] for x in exact):.3e} attend_bar="
+        f"{MESH_ATTEND_REL_L2:.6f} oracle_select_first_layer="
+        f"{first}/{MESH_STEPS} oracle_select_all_layers={ora}/"
+        f"{MESH_STEPS * n_layer} replicated={replicated} "
+        f"step_ms_with_captures="
+        f"{[round(r[body]['step_ms'], 3) for r in ranks]} "
+        f"launches_by_rank={json.dumps(launches)}")
+    if max(rel) > ORACLE_REL_L2 or len(excused) < int(differ.sum()) or \
+            any(a < n or r > MESH_ATTEND_REL_L2 for a, n, _, r in exact) \
+            or first < MESH_STEPS or not replicated:
+        raise AssertionError(f"mesh {tag} cp {arch}: outside its bars")
+
+
+def _mesh_body_checks(torch, tag: str, ranks: list, oracle: dict) -> None:
+    """A run's sequence-parallel prefill layer and expert-parallel MoE
+    against the oracle."""
+    sp, sp_o = ranks[0]["sp"]["run"], oracle["sp"]["oracle"]
+    rel = {k: _rel_l2(torch, sp[k].float(), sp_o[k].float())
+           for k in ("x", "k", "v")}
+    launches = _mesh_launch_check(tag, "sp", ranks, ("flash_prefill",))
+    replicated = len({r["sp"]["digest"] for r in ranks}) == 1
+    arch, Bn, T = MESH_SP
+    log(f"phase=mesh body=sp arch={arch} {tag} reduced=num_layers:1 B={Bn} "
+        f"window={T} pad={(-T) % len(ranks)} rel_l2="
+        f"{json.dumps({k: float(f'{v:.3e}') for k, v in rel.items()})} "
+        f"bar={MESH_LAYER_REL_L2:.6f} replicated={replicated} "
+        f"launches_by_rank={json.dumps(launches)}")
+    if max(rel.values()) > MESH_LAYER_REL_L2 or not replicated:
+        raise AssertionError(f"mesh {tag} sp: outside its bars")
+    ep, ep_o = ranks[0]["ep"], oracle["ep"]["oracle"]
+    rel_y = _rel_l2(torch, ep["run"]["y"].float(), ep_o["y"].float())
+    routing = {r["ep"]["routing"] for r in ranks} == {ep_o["routing"]}
+    replicated = len({r["ep"]["digest"] for r in ranks}) == 1
+    aux_err = abs(ep["aux"] - ep_o["aux"])
+    arch, Bn, S = MESH_EP
+    log(f"phase=mesh body=ep arch={arch} {tag} reduced=one_moe_layer "
+        f"tokens={Bn}x{S} experts_a_rank={ep['experts_local']} "
+        f"drop_free=True rel_l2={rel_y:.3e} bar={MESH_LAYER_REL_L2:.6f} "
+        f"routing_identical={routing} replicated={replicated} "
+        f"aux={ep['aux']:.6f} aux_err={aux_err:.3e}")
+    if rel_y > MESH_LAYER_REL_L2 or not routing or not replicated or \
+            aux_err > 1e-5 * max(1.0, abs(ep_o["aux"])):
+        raise AssertionError(f"mesh {tag} ep: outside its bars")
+
+
+def phase_mesh(torch, seed: int) -> dict:
+    """The mesh phase (module docstring, 10a).  Returns this process's
+    launches (NCCL at world 1) summed over its bodies."""
+    import shutil
+    import tempfile
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    _free_memory(torch)
+    runs = [("gloo", MESH_WORLD)]
+    if torch.cuda.device_count() >= 2:
+        runs.append(("nccl", 2))
+    work = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    ctx = mp.get_context("spawn")
+    procs = []
+    try:
+        for backend, world in runs:      # the spawned ranks start first
+            for r in range(world):
+                procs.append(ctx.Process(target=_mesh_rank, args=(
+                    r, world, backend, work, seed)))
+                procs[-1].start()
+        _mesh_rank(0, 1, "nccl", work, seed, oracle=True)
+        for proc in procs:
+            proc.join(max(1.0, t0 + MESH_BUDGET_S - time.perf_counter()))
+        codes = [p.exitcode for p in procs]
+        if any(c != 0 for c in codes):
+            raise AssertionError(f"mesh: spawned ranks exited {codes}")
+        load = {f"{b}{w}": [torch.load(f"{work}/{b}{w}_rank{r}.pt",
+                                       weights_only=False)
+                            for r in range(w)]
+                for b, w in [("nccl", 1)] + runs}
+    finally:
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+        shutil.rmtree(work, ignore_errors=True)
+    oracle = load["nccl1"][0]
+    for key, ranks in load.items():
+        backend, world = key[:-1], int(key[-1])
+        where = ("cuda:0 (this process)" if world == 1 else
+                 "cuda:0 (both ranks)" if backend == "gloo" else
+                 "cuda:0,cuda:1")
+        tag = f"backend={backend} world={world} ranks_on=[{where}]"
+        for arch, layers in MESH_CP:
+            if {r[f"cp {arch}"]["weights"] for r in ranks} != {
+                    oracle[f"cp {arch}"]["weights"]}:
+                raise AssertionError(f"mesh {tag}: ranks built other "
+                                     f"weights")
+            _mesh_cp_check(torch, tag, arch, layers, ranks,
+                           oracle[f"cp {arch}"])
+        _mesh_body_checks(torch, tag, ranks, oracle)
+    counts: dict = {}
+    for body in [f"cp {a}" for a, _ in MESH_CP] + ["sp"]:
+        for k, n in oracle[body]["launches"].items():
+            counts[k] = counts.get(k, 0) + n
+    wall = time.perf_counter() - t0
+    ran = ", ".join(f"{k[:-1]} world {k[-1]}" for k in load)
+    log("phase=mesh collective_ms_4MB_by_run="
+        + json.dumps({k: [r["collective_ms"] for r in ranks]
+                      for k, ranks in load.items()}))
+    log(f"phase=mesh wall_s={wall:.1f} budget_s={MESH_BUDGET_S:.0f} "
+        f"ran=[{ran}] nccl_world2="
+        + ("ran" if len(runs) > 1 else
+           f"not run ({torch.cuda.device_count()} card)")
+        + " (no time here is a multi-GPU figure: gloo's ranks share one "
+        f"card) card=[{_card()}]")
+    if wall > MESH_BUDGET_S:
+        raise AssertionError(f"mesh: {wall:.1f} s past its "
+                             f"{MESH_BUDGET_S:.0f} s budget")
+    return counts
+
+
+def _tied_serve(torch, np, ops, seed: int, cfg, twin_cfg, tag: str
+                ) -> dict:
+    """The tied serve against its untied twin fed its tokens (module
+    docstring, 10b); returns the tied run's launches."""
+    from repro_torch.models import model as M
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = M.init_params(cfg, gen, torch.bfloat16, "cuda")
+    if "lm_head" in params:
+        raise AssertionError("tied: init_params made an lm_head leaf")
+    twin = dict(params, lm_head=params["embed"].T.contiguous())
+    t0 = time.perf_counter()
+    tied = _oracle_run(torch, np, ops, params, cfg, seed, TIED_NEW,
+                       n=TIED_REQUESTS)
+    wall = time.perf_counter() - t0
+    ref_run = _oracle_run(torch, np, ops, twin, twin_cfg, seed, TIED_NEW,
+                          n=TIED_REQUESTS, force=tied["tokens"])
+    rel, excused, equal, n = 0.0, [], 0, 0
+    for i, (got, want) in enumerate(zip(tied["logits"], ref_run["logits"])):
+        for step, (g, w) in enumerate(zip(got, want)):
+            rel = max(rel, _rel_l2(torch, g.float(), w.float()))
+            top2 = w.float().topk(2).values
+            gap = float((top2[0] - top2[1]) / w.float().pow(2).mean().sqrt())
+            n += 1
+            if tied["tokens"][i][step] == int(w.argmax()):
+                equal += 1
+            elif gap < ORACLE_REL_L2:
+                excused.append((i, step))
+    want_k = ("flash_prefill", "score_select", "sparse_decode_attention")
+    zero = [k for k in want_k if not tied["counts"].get(k)]
+    log(f"{tag} path=serve requests={TIED_REQUESTS} prompt={SERVE_PROMPT} "
+        f"new={TIED_NEW} vs=untied_twin(lm_head=embed.T copy, fed the tied "
+        f"tokens) logits_rel_l2_max={rel:.3e} bar={TIED_LOGITS_REL_L2:.6f} "
+        f"greedy_equal={equal}/{n} excused_steps={excused} "
+        f"wall_s={wall:.3f} "
+        f"launches={json.dumps({k: tied['counts'].get(k, 0) for k in want_k})}")
+    if rel > TIED_LOGITS_REL_L2 or equal + len(excused) < n or zero:
+        raise AssertionError(f"tied serve: outside its bars (kernels not "
+                             f"launched: {zero})")
+    return tied["counts"]
+
+
+def _tied_train(torch, seed: int, cfg, twin_cfg, tag: str) -> None:
+    """Training step 1 of the tied model against its untied twin, then
+    two AdamW steps (module docstring, 10b)."""
+    from repro_torch.data.pipeline import DataConfig, TokenStream
+    from repro_torch.models import model as M
+    from repro_torch.training import trainer as T
+    from repro_torch.training.optimizer import (AdamWConfig, global_norm,
+                                                init_opt_state)
+    dev = torch.device("cuda")
+    batch = T.batch_to(TokenStream(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_S, global_batch=TRAIN_B,
+        seed=seed)).batch(), dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = T.trainable(M.init_params(cfg, gen, torch.float32, dev))
+    t0 = time.perf_counter()
+    loss, grads = T.loss_and_grads(params, cfg, batch, remat=True)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    twin = dict(params, lm_head=params["embed"].detach().T.clone()
+                .requires_grad_(True))
+    loss_u, g_u = T.loss_and_grads(twin, twin_cfg, batch, remat=True)
+    del twin
+    # leaves in sorted-key order: the twin's are the tied ones + lm_head
+    head = g_u.pop().T
+    embed_only = _rel_l2(torch, grads[0], g_u[0])
+    g_u[0] = g_u[0] + head
+    rel = [_rel_l2(torch, g, w) for g, w in zip(grads, g_u)]
+    loss_rel = abs(loss.item() - loss_u.item()) / abs(loss_u.item())
+    norm, norm_u = global_norm(grads).item(), global_norm(g_u).item()
+    del grads, g_u, head
+    _free_memory(torch)
+    opt = init_opt_state(params)
+    step = T.make_train_step(cfg, AdamWConfig(lr=1e-3))
+    losses = []
+    for _ in range(2):      # the second step's loss: the first one's effect
+        params, opt, m = step(params, opt, batch)
+        losses.append(m["loss"].item())
+    log(f"{tag} path=train B={TRAIN_B} S={TRAIN_S} float32 remat=True "
+        f"vs=untied_twin(lm_head=embed.T copy) loss={loss.item():.6f} "
+        f"loss_rel_err={loss_rel:.3e} grad_norm={norm:.6f} "
+        f"twin_grad_norm={norm_u:.6f} grad_rel_l2_max={max(rel):.3e} "
+        f"embed_grad_rel_l2={rel[0]:.3e} bar={TIED_GRAD_REL_L2:.0e} "
+        f"twin_embed_alone_rel_l2={embed_only:.3e} step1_s={step_s:.2f} "
+        f"adamw_losses={[round(x, 6) for x in losses]}")
+    if (max(rel) > TIED_GRAD_REL_L2 or loss_rel > TIED_GRAD_REL_L2
+            or embed_only <= TIED_GRAD_REL_L2
+            or abs(losses[0] - loss.item()) > TIED_GRAD_REL_L2
+            * abs(loss.item()) or not losses[1] < losses[0]):
+        raise AssertionError("tied train: outside its bars")
+
+
+def phase_tied(torch, np, ops, seed: int) -> dict:
+    """Tied embeddings at qwen2-0.5b's full width and depth, served and
+    trained against the untied twin (module docstring, 10b).  Returns the
+    tied serve's launches."""
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    twin_cfg = get_config(TIED_ARCH)
+    cfg = dataclasses.replace(twin_cfg, tie_embeddings=True)
+    tag = (f"phase=tied arch={TIED_ARCH} tie_embeddings=True(by "
+           f"dataclasses.replace: no registry config ties them) "
+           f"layers={cfg.num_layers} vocab={cfg.vocab_size}")
+    counts = _tied_serve(torch, np, ops, seed, cfg, twin_cfg, tag)
+    _free_memory(torch)
+    _tied_train(torch, seed, cfg, twin_cfg, tag)
+    _free_memory(torch)
+    log(f"phase=tied seconds={time.perf_counter() - t0:.1f} "
+        f"card=[{_card()}]")
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of build,parity,transfer,"
                          "serve,serve_int8,oracles,models,obs,async,"
-                         "contract,train,calibrate (serve "
+                         "contract,mesh,tied,train,calibrate (serve "
                          "and serve_int8 include their mainpath replays; "
                          "serve_int8 needs serve) plus the optional "
                          "profile, profile_int8 and precision")
@@ -5737,6 +6542,14 @@ def main() -> int:
         # after every guarded serve of the run, whose windows it reads
         phase_contract(torch, np, args.seed)
         mark("contract", t0)
+    t0 = time.perf_counter()
+    if "mesh" in phases:
+        counts["mesh"] = phase_mesh(torch, args.seed)
+        mark("mesh", t0)
+    t0 = time.perf_counter()
+    if "tied" in phases:
+        counts["tied"] = phase_tied(torch, np, ops, args.seed)
+        mark("tied", t0)
     t0 = time.perf_counter()
     # after the serves whose host times it could disturb (its 2.5 GB
     # checkpoint write, the 1 GiB pinned buffer of calibrate)

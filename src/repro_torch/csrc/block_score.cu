@@ -43,7 +43,10 @@
 // head and block).  The group's q rows, split into pos / neg, sit in
 // shared memory.
 // - block_score: one CTA of 64 threads per (8 blocks, kv-head, request):
-//   136 CTAs at the serve's shape.
+//   136 CTAs at the serve's shape.  A wide instance (10 chunks a lane, up
+//   to D = 320; 512 threads over 16 blocks, each block's heads split in
+//   four, vectorised q staging: block_score_wide_kernel) scores MLA's
+//   latent metadata for the context-parallel decode.
 // - score_select: one thread block cluster of C <= 8 CTAs per (kv-head,
 //   request), each scoring a slice of NB / C blocks and writing each
 //   block's masked, forced key into the shared memory of every CTA of the
@@ -90,6 +93,10 @@ constexpr int kWideChunks = 10;     // score_select's wide kernel: D <= 320
                                     // (same bits at D <= 128, ~20% slower
                                     // there: ab_kernels.py, PERF.md)
 constexpr int kScoreThreads = 64;   // block_score: 8 blocks per CTA
+constexpr int kWideBlocks = 16;     // block_score's wide instance: 16
+constexpr int kWideHeadSplit = 4;   // blocks a CTA, each block's heads in
+                                    // four quarters, one a warp quarter
+constexpr int kWideScoreThreads = kWideBlocks * kLanes * kWideHeadSplit;
 constexpr int kSelThreads = 256;    // score_select: 32 blocks per pass
 constexpr int kMaxCluster = 8;      // the portable cluster size
 constexpr float kMasked = -1e30f;   // ref.NEG_INF
@@ -152,6 +159,37 @@ __device__ __forceinline__ void load_meta(MetaRegs<kChunks>& m,
   }
 }
 
+// One query head's share of the block's bound held by lane ``sub`` of the
+// lane group (before the group's three-shuffle sum): pos_g . max + neg_g .
+// min over its chunks, or with kMean pos_g . mean (``pos`` then holds q).
+template <int kChunks, bool kMean = false>
+__device__ __forceinline__ float head_part(const MetaRegs<kChunks>& m,
+                                           const float* pos_g,
+                                           const float* neg_g, int D,
+                                           int sub) {
+  const int chunks = D / 4;
+  const float4* p4 = reinterpret_cast<const float4*>(pos_g);
+  const float4* n4 = reinterpret_cast<const float4*>(neg_g);
+  float s = 0.f;
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) {
+    const int ch = sub + kLanes * c;
+    if (ch < chunks) {
+      const float4 p = p4[ch];
+      if constexpr (kMean) {
+        s += p.x * m.mx[c].x + p.y * m.mx[c].y + p.z * m.mx[c].z
+             + p.w * m.mx[c].w;
+      } else {
+        const float4 n = n4[ch];
+        s += p.x * m.mx[c].x + p.y * m.mx[c].y + p.z * m.mx[c].z
+             + p.w * m.mx[c].w + n.x * m.mn[c].x + n.y * m.mn[c].y
+             + n.z * m.mn[c].z + n.w * m.mn[c].w;
+      }
+    }
+  }
+  return s;
+}
+
 // The score of the block in ``m``: per query head of the group the cuboid
 // bound, pos . max + neg . min, or with kMean q . mean (``pos`` then holds
 // q itself), reduced over the group's G query heads by the max, or with
@@ -163,28 +201,9 @@ __device__ __forceinline__ float block_bound(const MetaRegs<kChunks>& m,
                                              const float* pos,
                                              const float* neg, int D, int G,
                                              int sub) {
-  const int chunks = D / 4;
   float best = kSum ? 0.f : -INFINITY;
   for (int g = 0; g < G; ++g) {
-    const float4* p4 = reinterpret_cast<const float4*>(pos + g * D);
-    const float4* n4 = reinterpret_cast<const float4*>(neg + g * D);
-    float s = 0.f;
-#pragma unroll
-    for (int c = 0; c < kChunks; ++c) {
-      const int ch = sub + kLanes * c;
-      if (ch < chunks) {
-        const float4 p = p4[ch];
-        if constexpr (kMean) {
-          s += p.x * m.mx[c].x + p.y * m.mx[c].y + p.z * m.mx[c].z
-               + p.w * m.mx[c].w;
-        } else {
-          const float4 n = n4[ch];
-          s += p.x * m.mx[c].x + p.y * m.mx[c].y + p.z * m.mx[c].z
-               + p.w * m.mx[c].w + n.x * m.mn[c].x + n.y * m.mn[c].y
-               + n.z * m.mn[c].z + n.w * m.mn[c].w;
-        }
-      }
-    }
+    float s = head_part<kChunks, kMean>(m, pos + g * D, neg + g * D, D, sub);
     s += __shfl_xor_sync(0xffffffffu, s, 4);
     s += __shfl_xor_sync(0xffffffffu, s, 2);
     s += __shfl_xor_sync(0xffffffffu, s, 1);
@@ -196,7 +215,7 @@ __device__ __forceinline__ float block_bound(const MetaRegs<kChunks>& m,
   return best;
 }
 
-template <typename T>
+template <typename T, int kChunks = kNarrowChunks>
 __global__ void __launch_bounds__(kScoreThreads)
 block_score_kernel(const T* __restrict__ q, const float* __restrict__ meta,
                    float* __restrict__ out, int Hkv, int NB, int D, int G) {
@@ -209,7 +228,7 @@ block_score_kernel(const T* __restrict__ q, const float* __restrict__ meta,
   const int n = blockIdx.x * (kScoreThreads / kLanes) + threadIdx.x / kLanes;
   const int sub = threadIdx.x % kLanes;
   const bool active = n < NB;
-  MetaRegs<kNarrowChunks> m;
+  MetaRegs<kChunks> m;
   load_meta(m, meta + (head_row * NB + (active ? n : 0)) * 2 * D, D, sub,
             active);
   load_group(q + ((size_t)b * Hkv * G + (size_t)h * G) * D, pos, neg,
@@ -217,6 +236,113 @@ block_score_kernel(const T* __restrict__ q, const float* __restrict__ meta,
   __syncthreads();
   const float s = block_bound(m, pos, neg, D, G, sub);
   if (active && sub == 0) out[head_row * NB + n] = s;
+}
+
+// The group's q rows staged as load_group stages them (cuboid), from 16-byte
+// loads of 8 bf16, four of them in flight a thread before any is stored:
+// ``n`` % 8 == 0 and ``qg`` 16-byte aligned.
+__device__ __forceinline__ void load_group_x8(
+    const __nv_bfloat16* __restrict__ qg, float* pos, float* neg, int n) {
+  constexpr int kInFlight = 4;
+  const uint4* src = reinterpret_cast<const uint4*>(qg);
+  float4* p4 = reinterpret_cast<float4*>(pos);
+  float4* n4 = reinterpret_cast<float4*>(neg);
+  const int n8 = n / 8;
+  for (int base = threadIdx.x; base < n8; base += kInFlight * blockDim.x) {
+    uint4 u[kInFlight];
+#pragma unroll
+    for (int j = 0; j < kInFlight; ++j) {
+      const int i = base + j * blockDim.x;
+      if (i < n8) u[j] = __ldg(src + i);
+    }
+#pragma unroll
+    for (int j = 0; j < kInFlight; ++j) {
+      const int i = base + j * blockDim.x;
+      if (i >= n8) break;
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u[j]);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const float2 a = __bfloat1622float2(h[2 * half]);
+        const float2 b = __bfloat1622float2(h[2 * half + 1]);
+        p4[2 * i + half] = make_float4(fmaxf(a.x, 0.f), fmaxf(a.y, 0.f),
+                                       fmaxf(b.x, 0.f), fmaxf(b.y, 0.f));
+        n4[2 * i + half] = make_float4(fminf(a.x, 0.f), fminf(a.y, 0.f),
+                                       fminf(b.x, 0.f), fminf(b.y, 0.f));
+      }
+    }
+  }
+}
+
+// block_score's wide instance (D <= 320; MLA's latent: G = 40 query heads
+// of 288 over one head, 92 KB of staged q a CTA).  Its first design was
+// block_score_kernel's with 10 chunks a lane: 64 threads staging G * D
+// values one 2-byte load at a time, each warp walking all 40 heads for its
+// 4 blocks, 1.9x slower than the plain einsums.  Here a CTA of 512 threads
+// scores 16 blocks: it stages the rows from 16-byte loads, four in flight
+// a thread, and its four warp quarters each take a quarter of the heads
+// for the same 16 blocks (two heads at a time, so two sums and their
+// shuffles overlap), their maxima combined in shared memory: a warp walks
+// 10 of MLA's heads, not 40, and a CTA's 16 warps hide one another's
+// shared-memory latency, where the first design's 2 could not.  Each
+// head's sum is block_bound's (head_part, then the same three shuffles)
+// and the max is exact, so the scores are score_select's wide scoring bit
+// for bit.
+__global__ void __launch_bounds__(kWideScoreThreads)
+block_score_wide_kernel(const __nv_bfloat16* __restrict__ q,
+                        const float* __restrict__ meta,
+                        float* __restrict__ out, int Hkv, int NB, int D,
+                        int G) {
+  extern __shared__ float4 smem4[];
+  float* pos = reinterpret_cast<float*>(smem4);   // G * D
+  float* neg = pos + G * D;                        // G * D
+  __shared__ float part_best[kWideHeadSplit][kWideBlocks];
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const size_t head_row = (size_t)b * Hkv + h;
+  const int part = threadIdx.x / (kWideBlocks * kLanes);
+  const int local = threadIdx.x % (kWideBlocks * kLanes) / kLanes;
+  const int n = blockIdx.x * kWideBlocks + local;
+  const int sub = threadIdx.x % kLanes;
+  const bool active = n < NB;
+  MetaRegs<kWideChunks> m;
+  load_meta(m, meta + (head_row * NB + (active ? n : 0)) * 2 * D, D, sub,
+            active);
+  const __nv_bfloat16* qg = q + ((size_t)b * Hkv * G + (size_t)h * G) * D;
+  if ((G * D) % 8 == 0 && (reinterpret_cast<uintptr_t>(qg) & 15) == 0)
+    load_group_x8(qg, pos, neg, G * D);
+  else
+    load_group(qg, pos, neg, G * D);
+  __syncthreads();
+  const int g1 = (part + 1) * G / kWideHeadSplit;
+  float best = -INFINITY;
+  int g = part * G / kWideHeadSplit;
+  for (; g + 1 < g1; g += 2) {
+    float s0 = head_part(m, pos + g * D, neg + g * D, D, sub);
+    float s1 = head_part(m, pos + (g + 1) * D, neg + (g + 1) * D, D, sub);
+#pragma unroll
+    for (int o = 4; o > 0; o >>= 1) {
+      s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+      s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+    }
+    best = fmaxf(best, fmaxf(s0, s1));
+  }
+  if (g < g1) {
+    float s = head_part(m, pos + g * D, neg + g * D, D, sub);
+    s += __shfl_xor_sync(0xffffffffu, s, 4);
+    s += __shfl_xor_sync(0xffffffffu, s, 2);
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    best = fmaxf(best, s);
+  }
+  if (sub == 0) part_best[part][local] = best;   // -inf for a quarter
+  __syncthreads();                              // without heads (G < 4)
+  if (threadIdx.x < kWideBlocks) {
+    const int nb = blockIdx.x * kWideBlocks + threadIdx.x;
+    float v = part_best[0][threadIdx.x];
+#pragma unroll
+    for (int p = 1; p < kWideHeadSplit; ++p)
+      v = fmaxf(v, part_best[p][threadIdx.x]);
+    if (nb < NB) out[head_row * NB + nb] = v;
+  }
 }
 
 // The cluster barrier in two halves (PTX ISA 8.0, sm_90): an arrive that
@@ -429,26 +555,32 @@ cudaError_t smem_opt_in(F kernel, size_t bytes, size_t* done) {
 }  // namespace
 
 // q bfloat16 (the serving path's dtype), meta float32, both contiguous,
-// meta 16-byte aligned.  Limits checked by the wrapper: D <= 128 (the
-// unfused kernel is off the serving path and keeps the narrow lanes),
-// D % 4 == 0, G * D * 8 bytes of shared memory within the card's opt-in
-// limit.
+// meta 16-byte aligned.  Limits checked by the wrapper: D <= 320, D % 4
+// == 0, G * D * 8 bytes of shared memory within the card's opt-in limit.
+// D <= 128 runs the narrow instance (its code as before); above, the
+// wide one (block_score_wide_kernel, 10 chunks a lane), which the
+// context-parallel decode's MLA scoring takes: its latent metadata is
+// 288 wide, G = 40 absorbed query heads over one latent head, and the
+// scores of a rank's block shard are gathered before the select, so the
+// fused score_select cannot serve it.
 extern "C" int launch_block_score(const void* q, const void* meta, void* out,
                                   int B, int Hkv, int NB, int D, int G,
                                   void* stream) {
-  static size_t opted = 0;
+  static size_t opted[2] = {};
   if (B == 0 || Hkv == 0 || NB == 0) return (int)cudaGetLastError();
+  if (D > kLanes * 4 * kWideChunks) return (int)cudaErrorInvalidValue;
+  const int wide = D <= kLanes * 4 * kNarrowChunks ? 0 : 1;
+  auto kern = wide ? block_score_wide_kernel
+                   : block_score_kernel<__nv_bfloat16, kNarrowChunks>;
   const size_t smem = sizeof(float) * 2 * (size_t)G * D;
-  cudaError_t e = smem_opt_in(block_score_kernel<__nv_bfloat16>, smem,
-                              &opted);
+  cudaError_t e = smem_opt_in(kern, smem, &opted[wide]);
   if (e != cudaSuccess) return (int)e;
-  const int per = kScoreThreads / kLanes;
+  const int threads = wide ? kWideScoreThreads : kScoreThreads;
+  const int per = wide ? kWideBlocks : kScoreThreads / kLanes;
   dim3 grid((NB + per - 1) / per, Hkv, B);
-  block_score_kernel<__nv_bfloat16>
-      <<<grid, kScoreThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const __nv_bfloat16*>(q),
-          static_cast<const float*>(meta), static_cast<float*>(out), Hkv,
-          NB, D, G);
+  kern<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const float*>(meta),
+      static_cast<float*>(out), Hkv, NB, D, G);
   return (int)cudaGetLastError();
 }
 

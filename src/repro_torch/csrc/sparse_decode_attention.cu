@@ -51,6 +51,19 @@
 // writes bf16.  A split with no live block writes m = -1e30, l = 0,
 // acc = 0, which the merge weights by 0 (or, when every split is empty,
 // turns into an output of 0).
+//
+// The partial mode (the context-parallel decode, reference
+// src/repro/core/dsa.py:206 `sparse_decode_attention_partial`, which the
+// reference runs as plain jnp inside its shard_map): a rank holds a
+// shard of NB_loc blocks of each pool, the ids are LOCAL, and a
+// position's validity is taken at its GLOBAL position, (id + offset) *
+// bs + t < cur_len, offset the global id of the shard's block 0.  The
+// split kernel is the same template with that offset (the bf16 mode's
+// instance compiles without it); a second merge kernel writes each
+// (request, query head)'s float32 (acc, m, l) over all splits,
+// unnormalised (acc and l relative to m = the max over the splits), for
+// the ranks' own log-sum-exp merge.  A rank with no live block for a
+// row writes m = -1e30, l = 0, acc = 0, as the reference's partial.
 #include "common.cuh"
 
 namespace {
@@ -110,7 +123,7 @@ struct SmemLayout {
   }
 };
 
-template <int kItems>
+template <int kItems, bool kPartial = false>
 __global__ void __launch_bounds__(kThreads)
 split_kernel(const __nv_bfloat16* __restrict__ q,
              const __nv_bfloat16* __restrict__ k_pool,
@@ -119,7 +132,8 @@ split_kernel(const __nv_bfloat16* __restrict__ q,
              const uint8_t* __restrict__ sel_valid,
              const int* __restrict__ cur_len, float* __restrict__ part_o,
              float* __restrict__ part_ml, int Hkv, int NB, int bs, int D,
-             int Dv, int K, int G, int splits, int per, float scale) {
+             int Dv, int K, int G, int splits, int per, float scale,
+             int offset) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int split = blockIdx.x % splits;
   const int g0 = blockIdx.x / splits * kTileG;   // the tile's first row
@@ -143,6 +157,8 @@ split_kernel(const __nv_bfloat16* __restrict__ q,
   const int warp = tid >> 5;
   const int Hq = Hkv * G;
   const int len = cur_len[b];
+  // the shard's first global block id (partial mode; 0 otherwise)
+  const int blk_off = kPartial ? offset : 0;
   const size_t head_row = (size_t)b * Hkv + h;
   const int j0 = split * per;
   const int j1 = min(K, j0 + per);
@@ -163,7 +179,7 @@ split_kernel(const __nv_bfloat16* __restrict__ q,
       int blk = -1;
       if (j < j1) blk = idx[j];
       const bool live = j < j1 && val[j] && blk >= 0 && blk < NB &&
-                        blk * bs < len;
+                        (blk + blk_off) * bs < len;
       const unsigned mask = __ballot_sync(0xffffffffu, live);
       if (live) s.ids[n + __popc(mask & ((1u << lane) - 1))] = blk;
       n += __popc(mask);
@@ -202,7 +218,7 @@ split_kernel(const __nv_bfloat16* __restrict__ q,
     cp_async_commit();
     cp_async_wait1();   // every group but the newest: block j has landed
     __syncthreads();
-    const int pos0 = s.ids[j] * bs;
+    const int pos0 = (s.ids[j] + blk_off) * bs;
     const __nv_bfloat16* ks = s.k + (size_t)st * bs * k_stride;
     const __nv_bfloat16* vs = s.v + (size_t)st * bs * Dv;
 
@@ -348,6 +364,59 @@ merge_kernel(const float* __restrict__ part_o,
   }
 }
 
+// The partial mode's merge: acc[b, h*G+g, d] = sum_s acc_s e^(m_s - M),
+// m = M = max_s m_s, l = sum_s l_s e^(m_s - M), float32, over the splits
+// of (b, h); one CTA per (query head, request), as merge_kernel.
+__global__ void __launch_bounds__(kThreads)
+merge_partial_kernel(const float* __restrict__ part_o,
+                     const float* __restrict__ part_ml,
+                     float* __restrict__ acc, float* __restrict__ m_out,
+                     float* __restrict__ l_out, int Hkv, int Dv, int G,
+                     int splits) {
+  extern __shared__ float w_s[];   // splits
+  __shared__ float red[kWarps];
+  const int hq = blockIdx.x;
+  const int b = blockIdx.y;
+  const int h = hq / G, g = hq - h * G;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const size_t head_row = (size_t)b * Hkv + h;
+  const float* pml = part_ml + head_row * splits * 2 * G;
+
+  float M = kNegInf;
+  for (int sp = tid; sp < splits; sp += kThreads)
+    M = fmaxf(M, pml[sp * 2 * G + g]);
+  M = warp_max(M);
+  if (lane == 0) red[warp] = M;
+  __syncthreads();
+  M = red[0];
+  for (int w = 1; w < kWarps; ++w) M = fmaxf(M, red[w]);
+  __syncthreads();
+  float L = 0.f;
+  for (int sp = tid; sp < splits; sp += kThreads) {
+    const float w = expf(pml[sp * 2 * G + g] - M);
+    w_s[sp] = w;
+    L = fmaf(pml[sp * 2 * G + G + g], w, L);
+  }
+  L = warp_sum(L);
+  if (lane == 0) red[warp] = L;
+  __syncthreads();
+  L = 0.f;
+  for (int w = 0; w < kWarps; ++w) L += red[w];
+  const size_t row = (size_t)b * Hkv * G + hq;
+  if (tid == 0) {
+    m_out[row] = M;
+    l_out[row] = L;
+  }
+  const float* po = part_o + (head_row * splits * G + g) * Dv;
+  for (int d = tid; d < Dv; d += kThreads) {
+    float O = 0.f;
+    for (int sp = 0; sp < splits; ++sp)
+      O = fmaf(po[(size_t)sp * G * Dv + d], w_s[sp], O);
+    acc[row * Dv + d] = O;
+  }
+}
+
 }  // namespace
 
 // bfloat16 only (the serving path's dtype).  Limits checked by the wrapper:
@@ -391,11 +460,56 @@ extern "C" int launch_sparse_decode_attention(
       static_cast<const uint8_t*>(sel_valid),
       static_cast<const int*>(cur_len), static_cast<float*>(part_o),
       static_cast<float*>(part_ml), Hkv, NB, bs, D, Dv, K, G, splits, per,
-      scale);
+      scale, 0);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   merge_kernel<<<dim3(Hkv * G, B), kThreads, sizeof(float) * splits, st>>>(
       static_cast<const float*>(part_o), static_cast<const float*>(part_ml),
       static_cast<__nv_bfloat16*>(out), Hkv, Dv, G, splits);
+  return (int)cudaGetLastError();
+}
+
+// The partial mode: the same arguments, with block ids local to a shard
+// whose block 0 is global block ``offset``; writes float32 acc (B, Hkv *
+// G, Dv) and ml (2, B, Hkv * G): m, then l.
+extern "C" int launch_sparse_decode_attention_partial(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* block_idx, const void* sel_valid, const void* cur_len,
+    void* acc, void* ml, void* part_o, void* part_ml, int B, int Hkv,
+    int NB, int bs, int D, int Dv, int K, int G, int splits, int offset,
+    float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B == 0 || Hkv == 0) return (int)cudaGetLastError();
+  const int tiles = (G + kTileG - 1) / kTileG;
+  if (splits < 1 || G < 1 || offset < 0 ||
+      kTileG * Dv > 2 * kWideItems * kThreads)
+    return (int)cudaErrorInvalidValue;
+  const int per = K > 0 ? (K + splits - 1) / splits : 0;
+  const SmemLayout lay(min(G, kTileG), D, Dv, bs, per);
+  auto kern = kTileG * Dv <= 2 * kNarrowItems * kThreads
+                  ? split_kernel<kNarrowItems, true>
+                  : split_kernel<kWideItems, true>;
+  if (lay.total > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.total);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kern<<<dim3(splits * tiles, Hkv, B), kThreads, lay.total, st>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k_pool),
+      static_cast<const __nv_bfloat16*>(v_pool),
+      static_cast<const int*>(block_idx),
+      static_cast<const uint8_t*>(sel_valid),
+      static_cast<const int*>(cur_len), static_cast<float*>(part_o),
+      static_cast<float*>(part_ml), Hkv, NB, bs, D, Dv, K, G, splits, per,
+      scale, offset);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  float* m_out = static_cast<float*>(ml);
+  merge_partial_kernel<<<dim3(Hkv * G, B), kThreads, sizeof(float) * splits,
+                         st>>>(
+      static_cast<const float*>(part_o), static_cast<const float*>(part_ml),
+      static_cast<float*>(acc), m_out, m_out + (size_t)B * Hkv * G, Hkv, Dv,
+      G, splits);
   return (int)cudaGetLastError();
 }

@@ -60,6 +60,9 @@ _SIGNATURES = {
     "sparse_decode_attention": (
         "sparse_decode_attention", "launch_sparse_decode_attention",
         [_P] * 9 + [_I] * 9 + [_F, _P]),
+    "sparse_decode_attention:partial": (
+        "sparse_decode_attention", "launch_sparse_decode_attention_partial",
+        [_P] * 10 + [_I] * 10 + [_F, _P]),
     "sparse_decode_attention_smem": (
         "sparse_decode_attention", "sparse_decode_attention_smem_bytes",
         [_I] * 6),

@@ -188,17 +188,13 @@ DECODE_MAX_D = 320
 SELECT_MAX_D = 320
 
 
-def sparse_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
-                            v_pool: torch.Tensor, block_idx: torch.Tensor,
-                            sel_valid: torch.Tensor, cur_len: torch.Tensor,
-                            scale: Optional[float] = None) -> torch.Tensor:
-    """q (B, Hq, D); pools (B, Hkv, NB, bs, D|Dv); block_idx int32 and
-    sel_valid bool (B, Hkv, K); cur_len int32 (B,) -> (B, Hq, Dv).  MLA
-    passes its latent pool as both pools, with its own ``scale``."""
-    if _all_cpu(q, k_pool, v_pool, block_idx, sel_valid, cur_len):
-        return ref.sparse_decode_attention(q, k_pool, v_pool, block_idx,
-                                           sel_valid, cur_len, scale)
-    name = "sparse_decode_attention"
+def _decode_launch_args(name: str, q: torch.Tensor, k_pool: torch.Tensor,
+                        v_pool: torch.Tensor, block_idx: torch.Tensor,
+                        sel_valid: torch.Tensor, cur_len: torch.Tensor,
+                        scale: Optional[float]):
+    """The decode attention's checks, split count and float32 split
+    partials (both of its modes): returns (shapes (B, Hkv, NB, bs, D,
+    Dv, K, G), splits, scale, part_o, part_ml)."""
     B, Hq, D = q.shape
     _, Hkv, NB, bs, _ = k_pool.shape
     Dv = v_pool.shape[-1]
@@ -229,21 +225,74 @@ def sparse_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     _check(smem <= SMEM_OPTIN_BYTES,
            f"{name}: {smem} bytes of shared memory at D = {D}, Dv = {Dv}, "
            f"bs = {bs}; the card gives {SMEM_OPTIN_BYTES}")
-    out = torch.empty((B, Hq, Dv), dtype=q.dtype, device=q.device)
     # each split's unnormalised float32 partial: acc (G, Dv), then m and l
     part_o = torch.empty((B, Hkv, splits, G, Dv), dtype=torch.float32,
                          device=q.device)
     part_ml = torch.empty((B, Hkv, splits, 2, G), dtype=torch.float32,
                           device=q.device)
+    return (B, Hkv, NB, bs, D, Dv, K, G), splits, scale, part_o, part_ml
+
+
+def sparse_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                            v_pool: torch.Tensor, block_idx: torch.Tensor,
+                            sel_valid: torch.Tensor, cur_len: torch.Tensor,
+                            scale: Optional[float] = None) -> torch.Tensor:
+    """q (B, Hq, D); pools (B, Hkv, NB, bs, D|Dv); block_idx int32 and
+    sel_valid bool (B, Hkv, K); cur_len int32 (B,) -> (B, Hq, Dv).  MLA
+    passes its latent pool as both pools, with its own ``scale``."""
+    if _all_cpu(q, k_pool, v_pool, block_idx, sel_valid, cur_len):
+        return ref.sparse_decode_attention(q, k_pool, v_pool, block_idx,
+                                           sel_valid, cur_len, scale)
+    name = "sparse_decode_attention"
+    dims, splits, scale, part_o, part_ml = _decode_launch_args(
+        name, q, k_pool, v_pool, block_idx, sel_valid, cur_len, scale)
+    B, Hq, Dv = q.shape[0], q.shape[1], dims[5]
+    out = torch.empty((B, Hq, Dv), dtype=q.dtype, device=q.device)
     rc = LIBS.fn(name)(
         q.data_ptr(), k_pool.data_ptr(),
         v_pool.data_ptr(), block_idx.data_ptr(), sel_valid.data_ptr(),
         cur_len.data_ptr(), out.data_ptr(), part_o.data_ptr(),
-        part_ml.data_ptr(), B, Hkv, NB, bs, D, Dv, K, G, splits,
-        float(scale), _stream())
+        part_ml.data_ptr(), *dims, splits, float(scale), _stream())
     _raise_on(rc, name)
     launches.add(name)
     return out
+
+
+def sparse_decode_attention_partial(
+        q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+        block_idx: torch.Tensor, sel_valid: torch.Tensor,
+        cur_len: torch.Tensor, block_offset: int,
+        scale: Optional[float] = None
+        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The context-parallel decode's partial mode: one rank's share over
+    its block shard (pools (B, Hkv, NB_loc, bs, D|Dv), block_idx LOCAL
+    ids, validity at GLOBAL positions through ``block_offset``, the
+    global id of the shard's block 0) -> float32 (acc (B, Hq, Dv), m
+    (B, Hq), l (B, Hq)), unnormalised, for the ranks' log-sum-exp merge
+    (``ref.sparse_decode_attention_partial``).  The same split kernel as
+    ``sparse_decode_attention``; its merge writes the partials in place
+    of the normalised bf16 output.  Counted as
+    "sparse_decode_attention:partial"."""
+    if _all_cpu(q, k_pool, v_pool, block_idx, sel_valid, cur_len):
+        return ref.sparse_decode_attention_partial(
+            q, k_pool, v_pool, block_idx, sel_valid, cur_len, block_offset,
+            scale)
+    name = "sparse_decode_attention"
+    dims, splits, scale, part_o, part_ml = _decode_launch_args(
+        name, q, k_pool, v_pool, block_idx, sel_valid, cur_len, scale)
+    B, Hq, Dv = q.shape[0], q.shape[1], dims[5]
+    _check(block_offset >= 0, f"{name}: block_offset >= 0")
+    acc = torch.empty((B, Hq, Dv), dtype=torch.float32, device=q.device)
+    ml = torch.empty((2, B, Hq), dtype=torch.float32, device=q.device)
+    rc = LIBS.fn("sparse_decode_attention:partial")(
+        q.data_ptr(), k_pool.data_ptr(),
+        v_pool.data_ptr(), block_idx.data_ptr(), sel_valid.data_ptr(),
+        cur_len.data_ptr(), acc.data_ptr(), ml.data_ptr(),
+        part_o.data_ptr(), part_ml.data_ptr(), *dims, splits,
+        int(block_offset), float(scale), _stream())
+    _raise_on(rc, name)
+    launches.add(name, "partial")
+    return acc, ml[0], ml[1]
 
 
 # ---------------------------------------------------------------------------
@@ -258,9 +307,18 @@ def sparse_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
 SMEM_OPTIN_BYTES = 232_448 - 4096
 
 
+# the widest head block_score takes: its narrow instance up to D = 128
+# (the GQA heads), its wide one up to 320 (MLA's 288-wide latent, scored
+# by the context-parallel decode)
+SCORE_NARROW_D = 128
+SCORE_MAX_D = 320
+
+
 def block_score(q: torch.Tensor, meta: torch.Tensor) -> torch.Tensor:
     """q (B, Hq, D); meta (B, Hkv, NB, 2, D) float32, [min, max] interleaved
-    -> (B, Hkv, NB) float32 cuboid bounds, max over the GQA group."""
+    -> (B, Hkv, NB) float32 cuboid bounds, max over the GQA group.  A D
+    above SCORE_NARROW_D runs the wide instance (counted as
+    "block_score:wide")."""
     if _all_cpu(q, meta):
         return ref.block_score(q, meta)
     name = "block_score"
@@ -272,15 +330,16 @@ def block_score(q: torch.Tensor, meta: torch.Tensor) -> torch.Tensor:
     _check(meta.shape[0] == B and two == 2 and Dm == D and Hq % Hkv == 0,
            f"{name}: inconsistent shapes")
     G = Hq // Hkv
-    _check(D <= 128 and D % 4 == 0 and 8 * G * D <= SMEM_OPTIN_BYTES,
-           f"{name}: needs D <= 128, D % 4 == 0 and 8 * G * D = "
+    _check(D <= SCORE_MAX_D and D % 4 == 0
+           and 8 * G * D <= SMEM_OPTIN_BYTES,
+           f"{name}: needs D <= {SCORE_MAX_D}, D % 4 == 0 and 8 * G * D = "
            f"{8 * G * D} bytes of shared memory <= {SMEM_OPTIN_BYTES}")
     _check(_aligned(meta), f"{name}: meta 16-byte aligned")
     out = torch.empty((B, Hkv, NB), dtype=torch.float32, device=q.device)
     rc = LIBS.fn(name)(q.data_ptr(), meta.data_ptr(), out.data_ptr(), B, Hkv,
                        NB, D, G, _stream())
     _raise_on(rc, name)
-    launches.add(name)
+    launches.add(name, "wide" if D > SCORE_NARROW_D else None)
     return out
 
 

@@ -215,6 +215,48 @@ def sparse_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     return o.reshape(B, Hq, Dv).to(q.dtype)
 
 
+def sparse_decode_attention_partial(
+        q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+        block_idx: torch.Tensor, sel_valid: torch.Tensor,
+        cur_len: torch.Tensor, block_offset: int,
+        scale: Optional[float] = None
+        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The unnormalised flash partials of one rank's share of the decode
+    attention, the reference's ``dsa.sparse_decode_attention_partial``:
+    pools (B, Hkv, NB_loc, bs, D|Dv) a rank's block shard, block_idx its
+    LOCAL ids (B, Hkv, K) int32, sel_valid False for blocks of other
+    ranks, cur_len (B,) the GLOBAL length; a position is valid where its
+    selection is and its global position ((id + block_offset) * bs + t)
+    lies below cur_len.  Returns float32 (acc (B, Hq, Dv), m (B, Hq), l
+    (B, Hq)): the max score m over the valid positions (NEG_INF where
+    there are none), l = sum exp(s - m) and acc = sum exp(s - m) v over
+    them (0 where there are none)."""
+    B, Hq, D = q.shape
+    _, Hkv, NB, bs, _ = k_pool.shape
+    Dv = v_pool.shape[-1]
+    G = Hq // Hkv
+    K = block_idx.shape[-1]
+    scale = scale if scale is not None else 1.0 / (D ** 0.5)
+    idx = block_idx.long()
+    k_sel = torch.gather(k_pool, 2, idx[..., None, None].expand(
+        B, Hkv, K, bs, D))
+    v_sel = torch.gather(v_pool, 2, idx[..., None, None].expand(
+        B, Hkv, K, bs, Dv))
+    qf = q.float().reshape(B, Hkv, G, D)
+    s = torch.einsum("bhgd,bhksd->bhgks", qf, k_sel.float()) * scale
+    pos = (idx[..., None] + block_offset) * bs + torch.arange(
+        bs, device=q.device)
+    mask = (pos < cur_len.long()[:, None, None, None]) & sel_valid[..., None]
+    s = s.masked_fill(~mask[:, :, None], NEG_INF).reshape(B, Hkv, G, -1)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    p = torch.where(s <= NEG_INF / 2, 0.0, p)           # empty shards
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bhgt,bhtd->bhgd", p,
+                       v_sel.float().reshape(B, Hkv, K * bs, Dv))
+    return (acc.reshape(B, Hq, Dv), m.reshape(B, Hq), l.reshape(B, Hq))
+
+
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   scale: float, causal: bool = True, q_offset=0,
                   q_chunk: int = 512, k_chunk: int = 512) -> torch.Tensor:

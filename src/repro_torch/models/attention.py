@@ -4,11 +4,14 @@ the paged KV pool, and Whisper's cross-attention over the cached encoder
 keys and values (the kernel's non-causal mode).
 
 Counterpart of the GQA, MLA and cross-attention parts of
-``repro/models/attention.py``; the context-parallel paths are not ported
-yet.  The pool layout is the paper's head-major (H, N, D): ``(B, Hkv,
-NB, bs, D)``.  MLA caches one latent head, ``(B, 1, NB, bs,
-kv_lora_rank + rope)``, with no ``"v"`` pool: its decode attends over
-the latent with the absorbed query (the latent is both key and value).
+``repro/models/attention.py``, and of its fused context-parallel decode
+(``cp_decode_attention``, ``cp_mla_decode_attention``: each rank holds a
+block shard of the pools, ``launch/sharding.pool_shard``); the staged
+planes' sharded stages (``*_step_cp``) are not ported.  The pool layout
+is the paper's head-major (H, N, D): ``(B, Hkv, NB, bs, D)``.  MLA
+caches one latent head, ``(B, 1, NB, bs, kv_lora_rank + rope)``, with no
+``"v"`` pool: its decode attends over the latent with the absorbed
+query (the latent is both key and value).
 The reference's pools are functional values; here the decode stages
 update the pool and its DSA metadata IN PLACE (``_append_to_pool``,
 ``_update_meta`` and their masked forms), and ``gqa_select_step``
@@ -22,6 +25,7 @@ import torch
 
 from repro_torch.core import dsa
 from repro_torch.kernels import ops
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models.common import (DSAConfig, ModelConfig, apply_rope,
                                        rms_norm)
 
@@ -246,6 +250,107 @@ def _update_meta_masked(meta: torch.Tensor, new_k: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Context-parallel decode attention (each rank a block shard of the pools)
+# ---------------------------------------------------------------------------
+
+def _cp_merge(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+              group) -> torch.Tensor:
+    """The ranks' log-sum-exp merge of their partials (float32 acc (B,
+    Hq, Dv), m and l (B, Hq)) over ``group``: max of m, then the sums of
+    l and acc, each rescaled to it; a rank with no valid position (m =
+    NEG_INF) weighs e^(NEG_INF - max) = 0.  Returns acc / l, float32."""
+    m_g = mesh_mod.all_reduce_max(m.clone(), group)
+    corr = torch.where(torch.isfinite(m), torch.exp(m - m_g), 0.0)
+    l_g = mesh_mod.all_reduce_sum(l * corr, group)
+    acc_g = mesh_mod.all_reduce_sum(acc * corr[..., None], group)
+    return acc_g / l_g.clamp(min=1e-30)[..., None]
+
+
+def _cp_select_attend(cfg: ModelConfig, q: torch.Tensor,
+                      kpool: torch.Tensor, vpool: torch.Tensor,
+                      meta: torch.Tensor, new_k: torch.Tensor,
+                      new_v: Optional[torch.Tensor], cur_len: torch.Tensor,
+                      pm, scale: Optional[float]):
+    """One rank's body, the reference's ``_cp_decode_local`` /
+    ``_cp_mla_decode_local``: the pools and metadata hold NB_loc local
+    blocks from global block ``offset`` on.  The new token's key (and
+    value; MLA's latent, None) is appended IN PLACE only on the rank
+    whose shard holds its block, the local blocks are scored (the
+    ``block_score`` kernel on the GPU), the scores gathered along the
+    block axis over the model group, every rank selects the same global
+    top-k, attends over its own selected blocks (the partial
+    ``sparse_decode_attention``) and the partials merge over the model
+    group.  Returns (o (B, Hq, Dv) in q's dtype, global ids (B, Hkv,
+    K))."""
+    bs = cfg.dsa.block_size
+    NB_loc = kpool.shape[2]
+    offset = pm.model_rank * NB_loc
+    blk, slot = cur_len // bs, cur_len % bs
+    mine = (blk >= offset) & (blk < offset + NB_loc)
+    lblk = (blk - offset).clamp(0, NB_loc - 1)
+    _append_masked(kpool, new_k, lblk, slot, mine)
+    if new_v is not None:
+        _append_masked(vpool, new_v, lblk, slot, mine)
+    _update_meta_masked(meta, new_k, lblk, slot, mine, cfg.dsa)
+    new_len = (cur_len + 1).to(torch.int32)
+    # the scores (small), not the pool, cross the ranks
+    scores = mesh_mod.all_gather(dsa.score_blocks(q, meta, cfg.dsa.metadata),
+                                 2, pm.model_group)
+    idx, valid = dsa.select_blocks(scores, cfg.dsa, new_len)
+    loc_valid = valid & (idx >= offset) & (idx < offset + NB_loc)
+    lidx = (idx - offset).clamp(0, NB_loc - 1).to(torch.int32)
+    acc, m, l = ops.sparse_decode_attention_partial(
+        q, kpool, vpool, lidx, loc_valid, new_len, offset, scale=scale)
+    return _cp_merge(acc, m, l, pm.model_group).to(q.dtype), idx
+
+
+def _cp_rows(pm, o: torch.Tensor, idx: torch.Tensor, B: int):
+    """The full batch of the body's outputs: gathered over the data group
+    where the data axis sharded the rows."""
+    if pm.dp_entry(B) is None:
+        return o, idx
+    return (mesh_mod.all_gather(o, 0, pm.data_group),
+            mesh_mod.all_gather(idx, 0, pm.data_group))
+
+
+def cp_decode_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor, cache: Dict[str, torch.Tensor],
+                        cur_len: torch.Tensor, *, pm):
+    """Context-parallel select-then-compute decode attention over
+    ``pm`` (``launch.plane_mesh.PlaneMesh``): q (B, Hq, hd), k/v (B, Hkv,
+    hd) the new token's projections and cur_len (B,), the same on every
+    rank; ``cache`` this rank's shard of the pools and metadata, ``(dp,
+    None, model, None, None)`` (``launch.sharding.pool_shard``), updated
+    IN PLACE.  Returns (o (B, Hq, hd), cache, global selected ids (B,
+    Hkv, K)), o and the ids replicated on every rank."""
+    B = q.shape[0]
+    rows = pm.rows(B)
+    o, idx = _cp_select_attend(cfg, q[rows], cache["k"], cache["v"],
+                               cache["meta"], k[rows], v[rows],
+                               cur_len[rows], pm, None)
+    o, idx = _cp_rows(pm, o, idx, B)
+    return o, cache, idx
+
+
+def cp_mla_decode_attention(cfg: ModelConfig, q_eff: torch.Tensor,
+                            latent: torch.Tensor,
+                            cache: Dict[str, torch.Tensor],
+                            cur_len: torch.Tensor, *, pm):
+    """Context-parallel MLA decode: ``cp_decode_attention`` over the one
+    latent head (its pool is key and value at once), the absorbed query
+    q_eff (B, H, kv_lora + rope), the new latent (B, kv_lora + rope).
+    Returns (o_lat (B, H, kv_lora + rope), cache, ids)."""
+    B = q_eff.shape[0]
+    rows = pm.rows(B)
+    pool = cache["k"]
+    o, idx = _cp_select_attend(cfg, q_eff[rows], pool, pool, cache["meta"],
+                               latent[rows][:, None, :], None,
+                               cur_len[rows], pm, _mla_scale(cfg))
+    o, idx = _cp_rows(pm, o, idx, B)
+    return o, cache, idx
+
+
+# ---------------------------------------------------------------------------
 # GQA decode stages (DSA select-then-compute)
 # ---------------------------------------------------------------------------
 
@@ -308,6 +413,34 @@ def gqa_attend_step(p: Dict[str, torch.Tensor], cfg: ModelConfig,
         o = ops.sparse_decode_attention(q, cache["k"], cache["v"], idx,
                                         valid, new_len)
     return o.reshape(B, Hq * hd) @ p["wo"]
+
+
+def _check_cp(cfg: ModelConfig, step_mask) -> None:
+    if not cfg.dsa.enabled:
+        raise ValueError("context-parallel decode needs DSA: without it "
+                         "every rank would attend over its shard alone")
+    if step_mask is not None:
+        raise NotImplementedError(
+            "fused context-parallel decode does not support step_mask "
+            "(the reference's sharded planes use the staged select/attend "
+            "split, not ported)")
+
+
+def gqa_decode_step(p: Dict[str, torch.Tensor], cfg: ModelConfig,
+                    x: torch.Tensor, cache: Dict[str, torch.Tensor],
+                    cur_len: torch.Tensor, *, plane_mesh,
+                    step_mask: Optional[torch.Tensor] = None):
+    """The reference's ``gqa_decode_step(plane_mesh=...)``: one decode
+    token of an attention layer over this rank's block shard of the pools
+    (``cp_decode_attention``; DSA on, no step_mask), x (B, d) normed ->
+    (out (B, d), cache, global ids).  Without a mesh ``model.decode_step``
+    runs the select and attend stages (``gqa_select_step``,
+    ``gqa_attend_step``)."""
+    _check_cp(cfg, step_mask)
+    q, k, v = _gqa_project_decode(p, cfg, x, cur_len)
+    o, cache, sel = cp_decode_attention(cfg, q, k, v, cache, cur_len,
+                                        pm=plane_mesh)
+    return o.reshape(x.shape[0], -1) @ p["wo"], cache, sel
 
 
 # ---------------------------------------------------------------------------
@@ -410,9 +543,6 @@ def mla_attend_step(p: Dict[str, torch.Tensor], cfg: ModelConfig,
     one head, scale 1 / sqrt(qk_nope + qk_rope)); the latent part of the
     output through W_UV in float32, then the output projection.  Reads
     ``cache`` only."""
-    m = cfg.mla
-    B = q_eff.shape[0]
-    H, lat = cfg.num_heads, m.kv_lora_rank
     new_len = (cur_len + 1).to(torch.int32)
     pool = cache["k"]
     if idx is None:
@@ -421,7 +551,29 @@ def mla_attend_step(p: Dict[str, torch.Tensor], cfg: ModelConfig,
     else:
         o_lat = ops.sparse_decode_attention(q_eff, pool, pool, idx, valid,
                                             new_len, scale=_mla_scale(cfg))
+    return _mla_out(p, cfg, o_lat)
+
+
+def _mla_out(p: Dict[str, torch.Tensor], cfg: ModelConfig,
+             o_lat: torch.Tensor) -> torch.Tensor:
+    """The latent attention's output (B, H, kv_lora + rope): its latent
+    part through W_UV in float32, then the output projection."""
+    m = cfg.mla
+    B, H, lat = o_lat.shape[0], cfg.num_heads, m.kv_lora_rank
     w_uv = p["w_uv"].reshape(lat, H, m.v_head_dim)
     o = torch.einsum("bhl,lhd->bhd", o_lat[..., :lat].float(),
-                     w_uv.float()).to(q_eff.dtype)
+                     w_uv.float()).to(o_lat.dtype)
     return o.reshape(B, H * m.v_head_dim) @ p["wo"]
+
+
+def mla_decode_step(p: Dict[str, torch.Tensor], cfg: ModelConfig,
+                    x: torch.Tensor, cache: Dict[str, torch.Tensor],
+                    cur_len: torch.Tensor, *, plane_mesh,
+                    step_mask: Optional[torch.Tensor] = None):
+    """``gqa_decode_step`` for MLA: the latent pool's block shard
+    (``cp_mla_decode_attention``)."""
+    _check_cp(cfg, step_mask)
+    q_eff, latent = _mla_project_decode(p, cfg, x, cur_len)
+    o_lat, cache, sel = cp_mla_decode_attention(
+        cfg, q_eff, latent, cache, cur_len, pm=plane_mesh)
+    return _mla_out(p, cfg, o_lat), cache, sel

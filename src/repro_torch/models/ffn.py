@@ -14,8 +14,12 @@ Drop-free, the slab would be ``(E, T * k, d)``: 626 GB at kimi-k2's
 one read-back per MoE call (``moe_stats`` counts them).  The expert
 products are ``torch.matmul``, as the reference's are plain einsums.
 
-The reference's expert-parallel body (``moe_apply_ep`` / ``_moe_local``)
-is not ported: it belongs with multi-GPU plane sharding.
+``moe_apply_ep`` / ``_moe_local`` are the reference's expert-parallel
+body over ``torch.distributed``: each rank holds E / n of the experts
+(``launch/sharding.expert_shard``) and its data shard's rows, routes them
+with the replicated router (the same routing on every rank of a model
+group), runs its own experts over the pairs routed to them, and the
+shares are summed by one ``all_reduce`` over the model group.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ from typing import Dict, Iterator, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models.common import ModelConfig, dense_init, swiglu
 
 
@@ -173,20 +178,85 @@ def moe_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor, *,
             moe_stats.decode_touched_max = max(
                 moe_stats.decode_touched_max, touched)
 
+    out = _expert_combine(p, xf, gates, order, counts, kept, k,
+                          cfg.num_experts).reshape(B, S, d)
+    if cfg.moe_dense_residual:
+        out = out + ffn_apply(p["dense"], x)
+    return out, aux
+
+
+def _expert_combine(p: Dict, xf: torch.Tensor, gates: torch.Tensor,
+                    order: torch.Tensor, counts, kept, k: int,
+                    n_run: int) -> torch.Tensor:
+    """Experts 0 .. n_run - 1 of ``p`` over their kept pairs (``order``,
+    ``counts``, ``kept`` from ``moe_dispatch``), each pair's output
+    weighted by its gate and summed over a token's k slots -> (T, d).  A
+    pair not run (dropped, or in a bucket past ``n_run``) adds 0."""
+    T, d = xf.shape
     xs = xf[order // k]                           # each pair's token row
     # a dropped pair's row stays zero, as the slab's overflow row
-    ys = (torch.zeros_like(xs) if sum(kept) < T * k
+    ys = (torch.zeros_like(xs) if sum(kept[:n_run]) < T * k
           else torch.empty_like(xs))
     start = 0
-    for e, (c, n) in enumerate(zip(counts, kept)):
+    for e, (c, n) in enumerate(zip(counts[:n_run], kept[:n_run])):
         if n:
             ys[start:start + n] = swiglu(xs[start:start + n],
                                          p["w_gate"][e], p["w_up"][e],
                                          p["w_down"][e])
         start += c
     y = torch.empty_like(ys).index_copy_(0, order, ys)   # pair order
-    out = (y.view(T, k, d) * gates.to(x.dtype)[..., None]).sum(dim=1)
-    out = out.reshape(B, S, d)
+    return (y.view(T, k, d) * gates.to(xf.dtype)[..., None]).sum(dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Expert-parallel MoE (the reference's shard_map body, over ranks)
+# ---------------------------------------------------------------------------
+
+def _moe_local(p: Dict, cfg: ModelConfig, xf: torch.Tensor, first: int,
+               drop_free: bool):
+    """One rank's share: xf (T_loc, d) its data shard's tokens, ``p`` its
+    E_loc experts from ``first`` on.  Every token is routed over all E
+    experts with the replicated router; the (token, slot) pairs routed
+    to this rank's experts are ranked within their expert in token order
+    and kept below the capacity (the reference's, over the local tokens;
+    T_loc * k with ``drop_free``), the rest go to a bucket that is never
+    run.  Returns (the local experts' contribution (T_loc, d), aux,
+    (gates, expert ids))."""
+    T = xf.shape[0]
+    k = cfg.top_k_experts
+    E_loc = p["w_gate"].shape[0]
+    gates, experts, aux = moe_route(p, cfg, xf)
+    cap = moe_capacity(cfg, T, drop_free)
+    local = (experts >= first) & (experts < first + E_loc)
+    bucket = torch.where(local, experts - first, E_loc)
+    order, counts, kept = moe_dispatch(bucket, E_loc + 1, cap)
+    if not moe_stats._paused:
+        moe_stats.readbacks += 1
+        moe_stats.pairs += sum(counts[:E_loc])
+        moe_stats.dropped += sum(counts[:E_loc]) - sum(kept[:E_loc])
+    y = _expert_combine(p, xf, gates, order, counts, kept, k, E_loc)
+    return y, aux, (gates, experts)
+
+
+def moe_apply_ep(p: Dict, cfg: ModelConfig, x: torch.Tensor, *, pm,
+                 drop_free: bool = False, return_routing: bool = False):
+    """Expert-parallel MoE over ``pm`` (``launch.plane_mesh.PlaneMesh``):
+    ``p`` this rank's expert shard (``launch.sharding.expert_shard``), x
+    (B_loc, S, d) its data shard's rows (``launch.sharding.shard_rows``:
+    every row where the data axis does not divide the batch), the same on
+    every rank of its model group.  The local experts' shares are
+    combined by one ``all_reduce`` (sum) over the model group, then the
+    dense residual (arctic) is added, replicated; the aux loss is the mean
+    of the data shards' (the reference's ``pmean``).  Returns (out
+    (B_loc, S, d), aux[, (gates, expert ids) of the local tokens])."""
+    B, S, d = x.shape
+    first = pm.model_rank * p["w_gate"].shape[0]
+    xf = x.reshape(B * S, d)
+    y, aux, routing = _moe_local(p, cfg, xf, first, drop_free)
+    mesh_mod.all_reduce_sum(y, pm.model_group)
     if cfg.moe_dense_residual:
-        out = out + ffn_apply(p["dense"], x)
-    return out, aux
+        y = y + ffn_apply(p["dense"], xf)
+    aux = mesh_mod.all_reduce_sum(aux.reshape(1).clone(),
+                                  pm.data_group)[0] / pm.dp_size
+    out = (y.reshape(B, S, d), aux)
+    return out + (routing,) if return_routing else out

@@ -41,9 +41,15 @@ no separate value.  A VLM request's patch embeddings
 (``inputs["patch_embeds"]`` (B, P, d)) lead its token embeddings, at
 positions 0..P-1; a Whisper request's frames (``inputs["frames"]`` (B,
 S_enc, d), the conv/mel frontend stubbed) run through the bidirectional
-encoder.  Configs the port does not implement (tied embeddings) raise
-``NotImplementedError`` in ``check_supported``.  Every serving path runs
-the MoE drop-free (``moe_drop_free``), as the reference's does.
+encoder.  A config with ``tie_embeddings`` has no ``lm_head`` leaf: the
+head is ``h @ embed.T``, as the reference's ``lm_head``.  Configs the
+port does not implement raise ``NotImplementedError`` in
+``check_supported``.  Every serving path runs the MoE drop-free
+(``moe_drop_free``), as the reference's does.  ``decode_step`` and
+``prefill_attn_layer_batched`` take a ``plane_mesh``
+(``launch/plane_mesh.py``): the context-parallel decode over
+block-sharded pools and the sequence-parallel prefill layer, the
+reference's fused ``plane_mesh`` bodies, over ``torch.distributed``.
 """
 from __future__ import annotations
 
@@ -54,6 +60,8 @@ import torch.utils.checkpoint
 
 from repro_torch.core import dsa as dsa_mod
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import mamba as mamba_mod
@@ -75,12 +83,11 @@ def check_supported(cfg: ModelConfig) -> None:
     if (not rwkv and (cfg.attention_type not in ("gqa", "mla")
                       or (cfg.attn_layer_period > 1
                           and cfg.arch_type != "hybrid")
-                      or not family)) or cfg.tie_embeddings:
+                      or not family)):
         raise NotImplementedError(
             f"{cfg.name}: the port serves GQA and MLA decoders with dense "
             f"or MoE FFNs, Jamba's Mamba + attention hybrid, RWKV6, the "
-            f"VLM patch prefix and the Whisper encoder-decoder, all with "
-            f"an untied lm head")
+            f"VLM patch prefix and the Whisper encoder-decoder")
 
 
 def layer_kind(cfg: ModelConfig, i: int) -> str:
@@ -174,8 +181,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             layer["ffn"] = ffn_mod.init_ffn_params(cfg, g, dtype, dev)
         layers.append(layer)
     params = {"embed": dense_init(g, (V, d), dtype, dev, scale=0.02),
-              "final_norm": ones(d), "layers": layers,
-              "lm_head": dense_init(g, (d, V), dtype, dev, scale=0.02)}
+              "final_norm": ones(d), "layers": layers}
+    if not cfg.tie_embeddings:         # tied: the head is embed.T
+        params["lm_head"] = dense_init(g, (d, V), dtype, dev, scale=0.02)
     if cfg.is_encoder_decoder:
         params["encoder"] = {
             "layers": [{"attn_norm": ones(d), "ffn_norm": ones(d),
@@ -302,8 +310,8 @@ def check_trainable(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` unless the port trains ``cfg`` (on
     every device): every family of the registry (dense GQA, MLA, MoE, the
     hybrid of Mamba and attention, RWKV6, the VLM's patch prefix and
-    Whisper's encoder-decoder) does; a config ``check_supported`` refuses
-    (tied embeddings) does not."""
+    Whisper's encoder-decoder), tied embeddings or not, does; a config
+    ``check_supported`` refuses does not."""
     check_supported(cfg)
 
 
@@ -393,7 +401,13 @@ def embed_inputs(params: Dict, cfg: ModelConfig, inputs: Dict
 
 
 def lm_head(params: Dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
-    return _norm(cfg, params["final_norm"], h) @ params["lm_head"]
+    """Final norm, then the head: ``lm_head``, or ``embed.T`` when the
+    embeddings are tied (training's gradient then reaches ``embed``
+    through both of its uses)."""
+    h = _norm(cfg, params["final_norm"], h)
+    if cfg.tie_embeddings:
+        return h @ params["embed"].T
+    return h @ params["lm_head"]
 
 
 def whisper_encode(params: Dict, cfg: ModelConfig, frames: torch.Tensor
@@ -583,20 +597,67 @@ def prefill_attn_layer_batched(p: Dict, cfg: ModelConfig, h: torch.Tensor,
                                token_mask: torch.Tensor,
                                step_mask: torch.Tensor, *,
                                k_ctx=None, v_ctx=None, q_offset=0,
-                               enc_kv=None):
+                               enc_kv=None, plane_mesh=None):
     """One attention layer over a padded batch of same-layer segments.
 
     h (B, T, d): the rows' residual stream over the segment's token window;
     positions (B, T); k_ctx/v_ctx: earlier chunks of the same layer;
     enc_kv: every row's cross keys and values (Whisper).
     Masked lanes (padding, unscheduled rows) keep their incoming residual;
-    an MoE runs drop-free.  Returns (h_out, layer_kv) as ``layer_forward``
+    an MoE runs drop-free.  ``plane_mesh``: the window's queries
+    sequence-sharded over the model axis
+    (``_prefill_attn_layer_batched_cp``); an MLA layer runs replicated,
+    as in the reference.  Returns (h_out, layer_kv) as ``layer_forward``
     gives it."""
+    if plane_mesh is not None and cfg.attention_type != "mla":
+        return _prefill_attn_layer_batched_cp(
+            p, cfg, h, positions, token_mask, step_mask, k_ctx=k_ctx,
+            v_ctx=v_ctx, q_offset=q_offset, enc_kv=enc_kv, pm=plane_mesh)
     x, kv_out = layer_forward(p, cfg, h, positions, enc_kv=enc_kv,
                               k_ctx=k_ctx, v_ctx=v_ctx, q_offset=q_offset,
                               return_kv=True, moe_drop_free=True)
     keep = token_mask[..., None] & step_mask[:, None, None]
     return torch.where(keep, x, h), kv_out
+
+
+def _prefill_attn_layer_batched_cp(p: Dict, cfg: ModelConfig,
+                                   h: torch.Tensor, positions: torch.Tensor,
+                                   token_mask: torch.Tensor,
+                                   step_mask: torch.Tensor, *, k_ctx, v_ctx,
+                                   q_offset, enc_kv, pm):
+    """The sequence-parallel GQA prefill layer, the reference's
+    ``_prefill_attn_layer_batched_cp``: the projections and the epilogue
+    run replicated on every rank, at the single-device shapes; rank r
+    runs the ``flash_prefill`` kernel for its slice of T_loc queries at
+    ``q_offset + r * T_loc`` against the whole window's keys and values
+    (the quadratic part), and the attention outputs are gathered over
+    the model group.  A window that does not divide the axis is padded
+    with tail tokens that no real query sees (keys past every real
+    position) and trimmed after."""
+    n, r = pm.model_size, pm.model_rank
+    B, T, _ = h.shape
+    pad = (-T) % n
+    hp = torch.nn.functional.pad(h, (0, 0, 0, pad)) if pad else h
+    pos_p = (torch.cat([positions, positions[:, -1:].expand(B, pad)], 1)
+             if pad else positions)
+    T_loc = (T + pad) // n
+    q, k, v = attn.gqa_project_qkv(p["attn"], cfg,
+                                   _norm(cfg, p["attn_norm"], hp), pos_p)
+    k_all, v_all = k, v
+    if k_ctx is not None:
+        k_all = torch.cat([k_ctx.to(k.dtype), k], dim=1)
+        v_all = torch.cat([v_ctx.to(v.dtype), v], dim=1)
+    o = ops.flash_prefill(
+        q[:, r * T_loc:(r + 1) * T_loc].contiguous(), k_all, v_all,
+        scale=1.0 / cfg.head_dim ** 0.5, causal=True,
+        q_offset=int(q_offset) + r * T_loc)
+    o = mesh_mod.all_gather(o, 1, pm.model_group)
+    x = hp + o.reshape(B, T + pad, -1) @ p["attn"]["wo"]
+    if pad:
+        x, k, v = x[:, :T], k[:, :T], v[:, :T]
+    x, _ = _layer_epilogue(p, cfg, x, enc_kv, moe_drop_free=True)
+    keep = token_mask[..., None] & step_mask[:, None, None]
+    return torch.where(keep, x, h), (k, v)
 
 
 def prefill_recurrent_layer_batched(p: Dict, cfg: ModelConfig, kind: str,
@@ -775,12 +836,21 @@ def unstack_decode_states(state: Dict,
 
 def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
                 state: Dict, *, return_info: bool = False,
-                step_mask: Optional[torch.Tensor] = None):
+                step_mask: Optional[torch.Tensor] = None, plane_mesh=None):
     """tokens (B,) int32: one new token per request.  Updates the state's
     pools IN PLACE, puts each Mamba or RWKV layer's new state into
     ``state["caches"]`` (parked rows' unchanged), and returns (logits,
     state[, {"selected": {layer: idx}}]) with ``state["cur_len"]``
-    advanced (a new tensor)."""
+    advanced (a new tensor).  ``plane_mesh``
+    (``launch.plane_mesh.PlaneMesh``): the context-parallel decode, the
+    reference's fused ``plane_mesh`` path: ``state`` holds this rank's
+    block shard of every attention layer's pools and metadata
+    (``launch.sharding.decode_state_shard``), each attention layer's
+    ``attention.gqa_decode_step`` / ``mla_decode_step`` runs over it (DSA
+    on, no step_mask), everything else runs replicated, and the logits
+    and selections come out the same on every rank.  Without one, each
+    attention layer runs ``decode_select_layer`` then
+    ``decode_attend_layer``, as the staged planes do."""
     cur_len = state["cur_len"]
     enc_kvs = state["extra"].get("enc_kvs")
     x = decode_embed(params, cfg, tokens)
@@ -792,16 +862,24 @@ def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
             x, state["caches"][i] = decode_recurrent_layer(
                 p, cfg, kind, x, state["caches"][i], step_mask)
             continue
-        q, cache, idx, valid = decode_select_layer(
-            p, cfg, x, state["caches"][i], cur_len, step_mask=step_mask)
+        enc_kv = index_enc_kvs(enc_kvs, i)
+        if plane_mesh is None:
+            q, cache, idx, valid = decode_select_layer(
+                p, cfg, x, state["caches"][i], cur_len, step_mask=step_mask)
+            x = decode_attend_layer(p, cfg, x, q, cache, cur_len, idx, valid,
+                                    enc_kv=enc_kv)
+        else:
+            step = (attn.mla_decode_step if cfg.attention_type == "mla"
+                    else attn.gqa_decode_step)
+            h, _, idx = step(p["attn"], cfg, _norm(cfg, p["attn_norm"], x),
+                             state["caches"][i], cur_len,
+                             plane_mesh=plane_mesh, step_mask=step_mask)
+            x = _layer_epilogue(p, cfg, x + h, enc_kv, moe_drop_free=True)[0]
         if idx is not None:
             info["selected"][i] = idx
-        x = decode_attend_layer(p, cfg, x, q, cache, cur_len, idx, valid,
-                                enc_kv=index_enc_kvs(enc_kvs, i))
     logits, new_len = decode_logits(params, cfg, x, cur_len, step_mask)
     new_state = {"caches": state["caches"], "cur_len": new_len,
                  "extra": state["extra"]}
     if return_info:
         return logits, new_state, info
     return logits, new_state
-

@@ -113,7 +113,8 @@ from repro_torch.serving.request import Phase, Request
 class EngineConfig:
     """The reference's ``EngineConfig`` fields and defaults, less the
     ``attn_impl`` knob (the device of the tensors decides).  A mesh_spec
-    raises ``NotImplementedError`` in ``ServingEngine``."""
+    raises ``NotImplementedError`` in ``ServingEngine``: the staged
+    planes' sharded stages are not ported."""
     prefill_mode: str = "layer_segmented"    # | "chunked" (the baseline)
     prefill_exec: str = "plane"              # | "legacy" (per-request
                                              # whole layers, the oracle)
@@ -190,7 +191,15 @@ def resolve_config(eng: EngineConfig) -> EngineConfig:
             raise ValueError(f"unknown {field} {val!r}; expected one of "
                              f"{allowed}")
     if eng.mesh_spec is not None:
-        raise NotImplementedError("plane meshes are not ported yet")
+        raise NotImplementedError(
+            "mesh_spec: the staged planes' sharded stages are not ported; "
+            "the reference's own sharded staged tests fail under jax 0.9.0 "
+            "(tests/test_plane_mesh.py), so there are no tokens to hold "
+            "them against (ROADMAP.md, queue 1 item 9).  The fused mesh "
+            "bodies run through "
+            "models.model.decode_step(plane_mesh=...), "
+            "prefill_attn_layer_batched(plane_mesh=...) and "
+            "ffn.moe_apply_ep (launch/plane_mesh.py)")
     if eng.obs is None:
         eng = dataclasses.replace(
             eng, obs=os.environ.get("REPRO_OBS", "") == "1")

@@ -890,8 +890,9 @@ def test_flash_prefill_d_eq_dv_unchanged(cuda, case):
 @pytest.mark.gpu
 def test_slice9_wrappers_raise_beyond_their_limits(cuda):
     """score_select takes D <= 320 (D % 4 == 0); flash_prefill the (D, Dv)
-    pairs it is built for; block_score keeps D <= 128 (it is off the
-    serving path).  Just past each limit the wrapper raises."""
+    pairs it is built for; block_score D <= 320 since its wide instance
+    (MLA's context-parallel scoring).  Just past each limit the wrapper
+    raises."""
     bf = torch.bfloat16
     cur = torch.full((1,), 40, device=cuda, dtype=torch.int32)
     kw = dict(block_size=32, top_k=64, sink_blocks=1, recent_blocks=2)
@@ -899,9 +900,9 @@ def test_slice9_wrappers_raise_beyond_their_limits(cuda):
     meta = torch.zeros((1, 1, 8, 2, 324), device=cuda)
     with pytest.raises(ValueError, match="D <= 320"):
         ops.score_select(q, meta, cur, **kw)
-    q = torch.zeros((1, 40, 288), device=cuda, dtype=bf)
-    meta = torch.zeros((1, 1, 8, 2, 288), device=cuda)
-    with pytest.raises(ValueError, match="D <= 128"):
+    q = torch.zeros((1, 40, 324), device=cuda, dtype=bf)
+    meta = torch.zeros((1, 1, 8, 2, 324), device=cuda)
+    with pytest.raises(ValueError, match="D <= 320"):
         ops.block_score(q, meta)
     for D, Dv in ((96, 96), (96, 128), (80, 64), (112, 64)):
         fq = torch.zeros((1, 8, 2, D), device=cuda, dtype=bf)
@@ -2010,3 +2011,107 @@ def test_guarded_serve_gives_the_unguarded_serve(cuda, monkeypatch):
     monkeypatch.setattr(E, "dispatch_window",
                         lambda device, armed=True: contextlib.nullcontext())
     assert serve() == guarded
+
+
+# ---------------------------------------------------------------------------
+# The context-parallel decode's kernels: the partial mode of the decode
+# attention (a rank's block shard, local ids, validity at global
+# positions through block_offset) and block_score's wide instance (MLA's
+# 288-wide latent metadata)
+# ---------------------------------------------------------------------------
+# The partials are float32 sums the kernel takes in another order than
+# the plain version (split runs merged by log-sum-exp): m within 1e-4 of
+# the scores' scale, l and acc within 1e-4 of their scale plus 1e-4
+# relative.
+
+
+def _partial_close(got, want) -> bool:
+    """(acc, m, l) within the tolerance above; m exactly -1e30 where the
+    plain version's is (no valid position)."""
+    ok = True
+    for g, w in zip(got, want):
+        empty = w <= -1e29
+        ok &= bool((g[empty] == w[empty]).all())
+        g, w = g[~empty], w[~empty]
+        scale = w.abs().max().clamp(min=1e-30) if w.numel() else 0.0
+        ok &= bool(((g - w).abs() <= 1e-4 * scale + 1e-4 * w.abs()).all())
+    return ok
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Hkv,G,D,K,offset", [
+    (2, 8, 4, 128, 64, 256),    # llama3-8b's heads, rank 1 of 2 at NB 512
+    (2, 1, 40, 288, 64, 256),   # minicpm3-4b's latent head (k = v)
+    (3, 2, 7, 64, 13, 0),       # qwen2-0.5b's heads, rank 0
+    (1, 1, 17, 320, 5, 3)])
+def test_partial_decode_attention_matches_plain(cuda, B, Hkv, G, D, K,
+                                                offset):
+    """The partial mode against its plain version: local ids over a
+    shard of NB blocks whose block 0 is global block ``offset``, cur_len
+    global and cutting a block mid-way, a row whose shard holds no valid
+    position (m = -1e30, l = 0, acc = 0 exactly, where rows remain).  The
+    kernel given the offset one block off must fail the tolerance."""
+    bs, NB = 32, 256 if D <= 128 else 160
+    q, kp, vp, idx, valid = _decode_inputs(cuda, G + D + K, B, G * Hkv,
+                                           Hkv, D, NB, bs, K)
+    if Hkv == 1 and G >= 17:
+        vp = kp                        # MLA: the latent is k and v
+    lo, hi = offset * bs, (offset + NB) * bs
+    cur_len = torch.randint(lo + bs, hi, (B,), generator=_gen(cuda, K),
+                            device=cuda, dtype=torch.int32)
+    if B > 1 and offset:
+        cur_len[-1] = lo - 5           # this shard holds none of it
+    # the shard's blocks of each row's last two positions selected, as
+    # DSA's recent blocks are, so validity at wrong positions shows
+    last = ((cur_len.long() - 1) // bs - offset).clamp(0, NB - 1)
+    pick = torch.rand((B, Hkv, NB), generator=_gen(cuda, D), device=cuda)
+    pick.scatter_(2, last[:, None, None].expand(B, Hkv, 1), 3.0)
+    pick.scatter_(2, (last - 1).clamp(min=0)[:, None, None].expand(
+        B, Hkv, 1), 2.0)
+    idx = pick.argsort(-1, descending=True)[..., :K].int().contiguous()
+    valid[:, :, :2] = True
+    if B > 1 and not offset:
+        valid[-1] = False              # shard 0: no valid selection
+    scale = MLA_SCALE if vp is kp else None
+    args = (q, kp, vp, idx, valid, cur_len, offset, scale)
+    ops.launches.reset()
+    got = ops.sparse_decode_attention_partial(*args)
+    torch.cuda.synchronize()
+    assert ops.launches.counts["sparse_decode_attention:partial"] == 1
+    want = ref.sparse_decode_attention_partial(*args)
+    assert [t.shape for t in got] == [(B, G * Hkv, vp.shape[-1]),
+                                      (B, G * Hkv), (B, G * Hkv)]
+    assert all(t.dtype == torch.float32 for t in got)
+    assert _partial_close(got, want)
+    if B > 1:
+        assert (got[1][-1] == -1e30).all() and not got[2][-1].any() \
+            and not got[0][-1].any()
+    off = ops.sparse_decode_attention_partial(q, kp, vp, idx, valid,
+                                              cur_len, offset + 1, scale)
+    assert not _partial_close(off, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Hq,Hkv,D,NB", [(2, 40, 1, 288, 256),
+                                           (3, 40, 1, 320, 37),
+                                           (2, 17, 1, 136, 9),
+                                           (2, 17, 1, 132, 9),
+                                           (2, 32, 8, 128, 256)])
+def test_block_score_wide_instance_matches_plain(cuda, B, Hq, Hkv, D, NB):
+    """block_score past D = 128 (its wide instance, counted as
+    "block_score:wide"): MLA's 288-wide latent metadata under G = 40,
+    D 320 and an NB that leaves a ragged CTA, an odd G (the last head
+    alone) with q rows staged 16 bytes a load (G * D % 8 == 0) and one
+    by one (D 132); at D <= 128 the narrow instance, uncounted as wide.
+    Tolerance as the narrow one's."""
+    g = _gen(cuda, D + NB)
+    q = torch.randn((B, Hq, D), generator=g, device=cuda).bfloat16()
+    mn = torch.randn((B, Hkv, NB, D), generator=g, device=cuda)
+    meta = torch.stack([mn, mn + torch.rand((B, Hkv, NB, D), generator=g,
+                                            device=cuda)], dim=3)
+    ops.launches.reset()
+    got = ops.block_score(q, meta.contiguous())
+    torch.cuda.synchronize()
+    assert ops.launches.counts.get("block_score:wide", 0) == int(D > 128)
+    torch.testing.assert_close(got, ref.block_score(q, meta), atol=1e-3,
+                               rtol=1e-4)

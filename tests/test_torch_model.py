@@ -153,11 +153,17 @@ def test_batched_prefill_layer_and_logits_match(arch, pair):
 
 def test_unsupported_configs_raise():
     from repro_torch.models.common import ModelConfig
-    # tied embeddings stay unported; RWKV6's attention-free layers are
-    # served since: an RWKV config gets the reference's layer kinds
+    # tied embeddings are served since (tests/test_torch_tied.py): no
+    # lm_head leaf; a dense decoder with an attention period still raises;
+    # RWKV6's attention-free layers are served: an RWKV config gets the
+    # reference's layer kinds
     tied = dataclasses.replace(torch_smoke("qwen2-0.5b"), tie_embeddings=True)
+    assert "lm_head" not in TM.init_params(tied, torch.Generator(),
+                                           device="cpu")
+    periodic = dataclasses.replace(torch_smoke("qwen2-0.5b"),
+                                   attn_layer_period=2)
     with pytest.raises(NotImplementedError):
-        TM.init_params(tied, torch.Generator(), device="cpu")
+        TM.init_params(periodic, torch.Generator(), device="cpu")
     rwkv = ModelConfig(name="x", arch_type="ssm", num_layers=2, d_model=64,
                        num_heads=0, num_kv_heads=0, d_ff=8, vocab_size=8,
                        attention_type="none")

@@ -189,15 +189,17 @@ def test_eval_step_keeps_the_float32_leaves_float32():
 @pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_every_config_but_tied_embeddings_trains(arch):
     """Every config of the registry and its smoke pass ``check_trainable``
-    and build a train step; what stays refused is the one config
-    ``check_supported`` refuses, a tied lm head, named in the message."""
+    and build a train step; since tied embeddings are served
+    (tests/test_torch_tied.py holds a tied step against the reference),
+    each smoke with ``tie_embeddings`` passes and builds one too, and its
+    parameters have no ``lm_head`` leaf."""
     TM.check_trainable(get_config(arch))
     TT.make_train_step(torch_smoke(arch), AdamWConfig())
     tied = dataclasses.replace(torch_smoke(arch), tie_embeddings=True)
-    with pytest.raises(NotImplementedError, match="untied lm head"):
-        TT.make_train_step(tied, AdamWConfig())
-    with pytest.raises(NotImplementedError, match="untied lm head"):
-        TM.forward_train({}, tied, {})
+    TM.check_trainable(tied)
+    TT.make_train_step(tied, AdamWConfig())
+    assert "lm_head" not in TM.init_params(tied, torch.Generator(),
+                                           device="cpu")
 
 
 def test_adamw_updates_a_large_leaf_a_slice_at_a_time(monkeypatch):
